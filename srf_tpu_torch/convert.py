@@ -1,0 +1,106 @@
+"""Weights carried across between the JAX package and the port.
+
+The flax side is the variable tree as nested dicts of numpy arrays,
+``{"params": ..., "batch_stats": ...}``, with the names fixed by
+``srf_tpu/models/srf.py`` and ``layers.py`` (``conv_feat/conv{i}_{b}``,
+``conv_feat/bn{i}``, ``flatten``, ``encaps1/2``, ``ln_input``, ``W{i}``/
+``b{i}``, ``ln_mid{i}``, ``ln_output``). The port side is the
+``SequenceRouter`` ``state_dict``. Layouts change on the way:
+
+- Dense kernel [in, out]        <-> Linear weight [out, in]
+- Conv kernel HWIO              <-> Conv2d weight OIHW
+- LayerNorm / BatchNorm scale   <-> weight; BatchNorm mean/var (from
+  ``batch_stats``) <-> running_mean/running_var
+- routing W{i} [in_n, out_n, out_d, in_d] and b{i} keep their layout.
+
+``load_npz`` reads a ``.npz`` whose keys are the tree's paths joined by
+``/`` (``params/conv_feat/conv0_0/kernel``), so weights exported from the
+JAX side load without JAX.
+"""
+
+import numpy as np
+import torch
+
+
+def _tensor(array):
+    return torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32))
+
+
+def flax_to_state_dict(variables):
+    """flax variable tree (numpy leaves) -> the port's state_dict."""
+    state = {}
+    _params_to_state(variables["params"], variables.get("batch_stats", {}),
+                     "", state)
+    return state
+
+
+def _params_to_state(params, stats, prefix, state):
+    for name, value in params.items():
+        key = prefix + name
+        if not isinstance(value, dict):
+            state[key] = _tensor(value)  # routing W{i} / b{i}
+        elif "kernel" in value:
+            kernel = np.asarray(value["kernel"])
+            if kernel.ndim == 4:
+                weight = np.transpose(kernel, (3, 2, 0, 1))  # HWIO -> OIHW
+            elif kernel.ndim == 2:
+                weight = kernel.T  # [in, out] -> [out, in]
+            else:
+                raise ValueError("unexpected kernel %s of shape %s"
+                                 % (key, kernel.shape))
+            state[key + ".weight"] = _tensor(weight)
+            state[key + ".bias"] = _tensor(value["bias"])
+        elif "scale" in value:
+            state[key + ".weight"] = _tensor(value["scale"])
+            state[key + ".bias"] = _tensor(value["bias"])
+            if name in stats:  # BatchNorm
+                state[key + ".running_mean"] = _tensor(stats[name]["mean"])
+                state[key + ".running_var"] = _tensor(stats[name]["var"])
+                state[key + ".num_batches_tracked"] = torch.tensor(0)
+        else:
+            _params_to_state(value, stats.get(name, {}), key + ".", state)
+
+
+def state_dict_to_flax(state):
+    """The port's state_dict -> flax variable tree (numpy leaves); the
+    inverse of :func:`flax_to_state_dict`."""
+    params, stats = {}, {}
+    for key, tensor in state.items():
+        *path, leaf = key.split(".")
+        array = tensor.detach().cpu().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            node = _subtree(stats, path)
+            node["mean" if leaf == "running_mean" else "var"] = array
+            continue
+        if not path:  # routing W{i} / b{i}
+            params[leaf] = array
+            continue
+        node = _subtree(params, path)
+        if leaf == "bias":
+            node["bias"] = array
+        elif array.ndim == 1:
+            node["scale"] = array
+        elif array.ndim == 2:
+            node["kernel"] = np.ascontiguousarray(array.T)
+        else:
+            node["kernel"] = np.ascontiguousarray(
+                np.transpose(array, (2, 3, 1, 0)))  # OIHW -> HWIO
+    return {"params": params, "batch_stats": stats}
+
+
+def _subtree(tree, path):
+    for name in path:
+        tree = tree.setdefault(name, {})
+    return tree
+
+
+def load_npz(path):
+    """A ``.npz`` of the flax tree with ``/``-joined keys -> state_dict."""
+    variables = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            *parents, leaf = key.split("/")
+            _subtree(variables, parents)[leaf] = flat[key]
+    return flax_to_state_dict(variables)

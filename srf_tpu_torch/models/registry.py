@@ -1,0 +1,54 @@
+"""Model dispatch (port of ``srf_tpu/models/registry.py``, SRF family only).
+
+Reference: tfsr/trainer_sr.py:175-201. ``in_len_div`` (the time-subsampling
+divisor used for CTC lengths) is ``conv_stride ** conv_layer_num``. Model
+types and flags this slice has not ported raise ``NotImplementedError``
+instead of running something else.
+"""
+
+from srf_tpu_torch.models.srf import SequenceRouter
+
+_LATER = "not ported yet: %s is a later slice of the PyTorch port"
+
+
+def build_model(config, dec_out_dim, logger=None, **overrides):
+    """Returns (model, in_len_div)."""
+    model_type = (config.model_type or "srf").lower()
+    if model_type.endswith("lstm") or model_type in (
+            "cnn", "conv", "convolution", "stf"):
+        raise NotImplementedError(_LATER % ("--model-type=" + model_type))
+    dropout_kernel = getattr(config, "tpu_dropout_kernel", "xla") or "xla"
+    if dropout_kernel not in ("xla", "pallas"):
+        raise ValueError("unknown --tpu-dropout-kernel %r" % dropout_kernel)
+    if dropout_kernel == "pallas":
+        raise ValueError(
+            "--tpu-dropout-kernel=pallas is wired to the CNN family only "
+            "(model-type %r would silently ignore it)" % model_type
+        )
+    if config.model_caps_layer_time is not None:
+        if logger is not None:
+            logger.critical("LSRF is deprecated")
+        raise ValueError("LSRF (model-caps-layer-time) is deprecated")
+    if config.model_caps_type not in ("lowmemory", "einsum", "naive"):
+        raise ValueError("unknown caps type %s" % config.model_caps_type)
+    # the port has one SDR implementation per device: K1 on CUDA, the
+    # plain loop on the CPU
+    kernel = getattr(config, "tpu_routing_kernel", "auto")
+    if kernel not in ("auto", "xla"):
+        raise NotImplementedError(_LATER % ("--tpu-routing-kernel=" + kernel))
+    if getattr(config, "tpu_routing_bf16", False):
+        raise NotImplementedError(_LATER % "--tpu-routing-bf16")
+    in_len_div = config.model_conv_stride ** config.model_conv_layer_num
+    model = SequenceRouter.from_config(config, dec_out_dim, **overrides)
+    if logger is not None:
+        logger.info(
+            "Layer x %d, Iter x %s, Win %d (l:%d, r:%d), %s",
+            config.model_encoder_num,
+            "1 (fixed)" if config.model_caps_type == "lowmemory"
+            else str(config.model_caps_iter),
+            config.model_caps_window_lpad + config.model_caps_window_rpad + 1,
+            config.model_caps_window_lpad,
+            config.model_caps_window_rpad,
+            "SDR" if config.model_caps_context else "DR",
+        )
+    return model, in_len_div
