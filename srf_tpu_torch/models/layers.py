@@ -3,8 +3,16 @@
 :class:`ConvFrontEnd` — the reference's "CapsulationLayer" CNN front-end:
 per layer two parallel stride-2 3x3 convs combined by maxout, each with
 dropout 0.2, then length-mask -> BatchNorm -> length-mask
-(reference: tfsr/model/sequence_router.py:44-82). Eval form only: BatchNorm
-normalises with its running statistics (eps 1e-3).
+(reference: tfsr/model/sequence_router.py:44-82). BatchNorm follows flax's
+``BatchNorm(momentum=0.99, epsilon=1e-3)``: in eval mode it normalises with
+its running statistics; in training mode with the batch mean and the
+*biased* batch variance over (B, T', F'), the zero-masked padded frames
+included, and it moves the running statistics by
+``ra = 0.99 * ra + 0.01 * stat`` with that same biased variance
+(``nn.BatchNorm2d``'s own update would use the unbiased one).
+
+:class:`Dropout` — inverted dropout whose masks may come from an explicit
+``torch.Generator`` (the train step seeds one per step).
 """
 
 import math
@@ -32,6 +40,36 @@ def same_pad(x, kernel_size, stride):
     return F.pad(x, pads)
 
 
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` that draws its mask from ``generator`` (the global RNG
+    when it is None): an element is kept with probability 1 - p and scaled
+    by 1 / (1 - p), as flax's ``Dropout`` does (not its bits)."""
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) >= self.p
+        return x * keep / (1.0 - self.p)
+
+
+def batch_norm(x, bn):
+    """flax BatchNorm on NCHW ``x`` with ``bn``'s affine parameters and
+    running statistics (the module docstring gives the conventions)."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    with torch.no_grad():
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), unbiased=False)
+        bn.running_mean.mul_(0.99).add_(mean, alpha=0.01)
+        bn.running_var.mul_(0.99).add_(var, alpha=0.01)
+        bn.num_batches_tracked.add_(1)
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
 class ConvFrontEnd(nn.Module):
     """Maxout conv subsampler; [B, T, F] -> [B, ceil(T/s^n), F', nfilt]."""
 
@@ -47,18 +85,20 @@ class ConvFrontEnd(nn.Module):
                         nn.Conv2d(in_ch, nfilt, kernel_size, stride))
             setattr(self, "bn%d" % conv_idx, nn.BatchNorm2d(nfilt, eps=1e-3))
             in_ch = nfilt
-        self.dropout = nn.Dropout(0.2)
+        self.dropout = Dropout(0.2)
 
-    def forward(self, inputs, input_lengths):
+    def forward(self, inputs, input_lengths, generator=None):
         x = inputs[:, None]  # NCHW [B, 1, T, F]
         for conv_idx in range(self.cnn_n):
             x = same_pad(x, self.kernel_size, self.stride)
             x = torch.maximum(
-                self.dropout(getattr(self, "conv%d_0" % conv_idx)(x)),
-                self.dropout(getattr(self, "conv%d_1" % conv_idx)(x)),
+                self.dropout(getattr(self, "conv%d_0" % conv_idx)(x),
+                             generator),
+                self.dropout(getattr(self, "conv%d_1" % conv_idx)(x),
+                             generator),
             )
             divisor = self.stride ** (conv_idx + 1)
             x = feat_mask(x, input_lengths, divisor, time_dim=2)
-            x = getattr(self, "bn%d" % conv_idx)(x)
+            x = batch_norm(x, getattr(self, "bn%d" % conv_idx))
             x = feat_mask(x, input_lengths, divisor, time_dim=2)
         return x.permute(0, 2, 3, 1)  # the JAX layout [B, T', F', C]

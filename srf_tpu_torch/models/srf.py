@@ -1,14 +1,22 @@
 """SequenceRouter: the capsule-network SRF CTC acoustic model (port of
-``srf_tpu/models/srf.py``, eval form, layered path).
+``srf_tpu/models/srf.py``, layered path, eval and training modes).
 
 Forward pass (reference: sequence_router_naive.py:120-193):
     CNN front-end (maxout convs, 4x time subsample)
     -> reshape (channels-last, as the JAX layout) -> Linear(PH) ("flatten")
     [einsum flavor only: *sqrt(PH) + positional encoding]
-    -> two parallel 3x3 Conv(PD), maxout ("encaps")
+    -> two parallel 3x3 Conv(PD) + dropout(0.2), maxout ("encaps")
     -> length-mask -> [B,T',PH,PD] -> squash -> flattened LayerNorm
-    -> enc_num x { windowing -> routing (DR or SDR) -> flattened LayerNorm }
+    -> input dropout
+    -> enc_num x { windowing -> routing (DR or SDR) -> flattened LayerNorm
+                   -> dropout }
     -> logits = LayerNorm(||class capsules||)
+
+Dropout acts in training mode only, at the JAX model's places and rates
+(the encaps and front-end 0.2 are fixed there as here); its masks come from
+the ``generator`` passed to ``forward`` (the train step seeds one per step),
+else from the global RNG. The JAX wavefront, bf16 and time-chunk routing
+paths are not ported (``models/registry.py`` refuses their flags).
 
 Parameter names mirror the flax tree (conv_feat, flatten, encaps1/2,
 ln_input, W%d/b%d, ln_mid%d, ln_output), so ``convert.py`` maps one onto the
@@ -27,7 +35,7 @@ import torch
 from torch import nn
 
 from srf_tpu_torch.models.initializers import get_init, routing_weight_init
-from srf_tpu_torch.models.layers import ConvFrontEnd
+from srf_tpu_torch.models.layers import ConvFrontEnd, Dropout
 from srf_tpu_torch.ops.masking import feat_mask
 from srf_tpu_torch.ops.pos_enc import get_pos_enc
 from srf_tpu_torch.ops.routing import route_layer, window_stack
@@ -77,9 +85,9 @@ class SequenceRouter(nn.Module):
             setattr(self, "ln_mid%d" % (i + 1),
                     nn.LayerNorm(out_n * out_d, eps=1e-3))
         self.ln_output = nn.LayerNorm(class_n, eps=1e-3)
-        self.drop_encaps = nn.Dropout(0.2)
-        self.drop_inp = nn.Dropout(inp_dropout)
-        self.drop_inn = nn.Dropout(inn_dropout)
+        self.drop_encaps = Dropout(0.2)
+        self.drop_inp = Dropout(inp_dropout)
+        self.drop_inn = Dropout(inn_dropout)
         self.reset_parameters(generator)
 
     @classmethod
@@ -138,9 +146,9 @@ class SequenceRouter(nn.Module):
         shapes.append((ch * window, self.class_n, vd, cd))
         return shapes
 
-    def _capsulate(self, feats, input_lengths):
+    def _capsulate(self, feats, input_lengths, generator=None):
         """Front-end through primary capsules: [B,T,feat] -> [B,T',PH,PD]."""
-        conv_out = self.conv_feat(feats, input_lengths)
+        conv_out = self.conv_feat(feats, input_lengths, generator)
         batch, seq_len = conv_out.shape[0], conv_out.shape[1]
 
         emb = self.flatten(conv_out.reshape(batch, seq_len, -1))
@@ -149,8 +157,8 @@ class SequenceRouter(nn.Module):
             emb = emb + get_pos_enc(seq_len, self.caps_primary_num,
                                     device=emb.device)
         x = emb[:, None]  # NCHW [B, 1, T', PH]
-        emb = torch.maximum(self.drop_encaps(self.encaps1(x)),
-                            self.drop_encaps(self.encaps2(x)))
+        emb = torch.maximum(self.drop_encaps(self.encaps1(x), generator),
+                            self.drop_encaps(self.encaps2(x), generator))
         # the true subsampling divisor (the reference hardcodes stride**2;
         # identical at the default geometry, see srf_tpu/models/srf.py)
         emb = feat_mask(emb, input_lengths,
@@ -160,7 +168,7 @@ class SequenceRouter(nn.Module):
         flat = self.ln_input(emb.reshape(batch, seq_len, -1))
         emb = flat.reshape(batch, seq_len, self.caps_primary_num,
                            self.caps_primary_dim)
-        return self.drop_inp(emb)
+        return self.drop_inp(emb, generator)
 
     def output_block(self, emb):
         """Class capsules -> CTC logits (the model's output head)."""
@@ -168,17 +176,13 @@ class SequenceRouter(nn.Module):
         logits = capsule_length(emb, dim=-1, epsilon=eps)
         return self.ln_output(logits)
 
-    def forward(self, feats, input_lengths):
+    def forward(self, feats, input_lengths, generator=None):
         """feats [B, T, feat_dim], input_lengths [B] -> logits
-        [B, ceil(T/stride^n), class_n]."""
-        if self.training:
-            raise NotImplementedError(
-                "SequenceRouter runs in eval mode only (call .eval()); the "
-                "training step is a later slice of the port"
-            )
+        [B, ceil(T/stride^n), class_n]. ``generator`` draws the dropout
+        masks in training mode."""
         num_iter = 1 if self.caps_type == "lowmemory" else self.caps_iter
 
-        emb = self._capsulate(feats, input_lengths)
+        emb = self._capsulate(feats, input_lengths, generator)
         batch, seq_len = emb.shape[0], emb.shape[1]
         for i, (in_n, out_n, out_d, in_d) in enumerate(self.layer_shapes()):
             emb = window_stack(emb, self.lpad, self.rpad)
@@ -189,5 +193,6 @@ class SequenceRouter(nn.Module):
             )
             flat = getattr(self, "ln_mid%d" % (i + 1))(
                 emb.reshape(batch, seq_len, -1))
-            emb = self.drop_inn(flat.reshape(batch, seq_len, out_n, out_d))
+            emb = self.drop_inn(flat.reshape(batch, seq_len, out_n, out_d),
+                                generator)
         return self.output_block(emb)

@@ -7,9 +7,13 @@
   carry is the previous timestep's output capsules
   (reference math: sequence_router_naive.py:213-245).
   :func:`sequential_routing` is its plain PyTorch version, a Python loop
-  over T; on a CUDA tensor :func:`route_layer` runs the hand-written kernel
-  ``ops/routing_cuda.sequential_routing_cuda`` instead (K1, which replaces
-  the TPU kernel ``srf_tpu/ops/routing_pallas.py:_sdr_fwd_kernel``).
+  over T, and :func:`sequential_routing_bwd` the plain version of its
+  fused backward. :func:`route_layer` sends SDR through
+  ``ops/routing_cuda.SDRFunction``: on a CUDA tensor its forward is the
+  hand-written kernel K1 (``sequential_routing_cuda``, replacing the TPU
+  kernel ``srf_tpu/ops/routing_pallas.py:_sdr_fwd_kernel``) and its
+  backward K2 (``sequential_routing_bwd_cuda``, replacing
+  ``_sdr_bwd_kernel``); on a CPU tensor it runs the plain versions.
 - PAD-capsule masking: at the last capsule layer the routing logit of
   output capsule 0 (the PAD class) gets -1e9 so nothing routes to it
   (reference: sequence_router_naive.py:174-178,219-220).
@@ -24,7 +28,7 @@ Shapes (the JAX layouts):
 import torch
 import torch.nn.functional as F
 
-from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
+from srf_tpu_torch.ops.routing_cuda import SDRFunction
 from srf_tpu_torch.ops.squash import squash
 
 NEG_INF = -1e9
@@ -80,6 +84,12 @@ def dynamic_routing(u_hat, num_iter, mask_pad_capsule):
     return v
 
 
+def _compute_dtype(dtype):
+    """float32 for float32 and narrower inputs, float64 for float64 (so
+    ``gradcheck`` can hold the routing in double precision)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _sdr_step(u_hat_t, v_prev, num_iter, pad_mask):
     """One SDR timestep given u_hat_t [B, in_n, out_n, out_d].
 
@@ -87,7 +97,7 @@ def _sdr_step(u_hat_t, v_prev, num_iter, pad_mask):
     first agreement term uses the *previous timestep's* output capsules
     (reference: sequence_router_naive.py:222-227).
     """
-    b = torch.zeros(u_hat_t.shape[:3], dtype=torch.float32,
+    b = torch.zeros(u_hat_t.shape[:3], dtype=u_hat_t.dtype,
                     device=u_hat_t.device)  # [B, in_n, out_n]
     v = v_prev
     for _ in range(num_iter):
@@ -119,13 +129,15 @@ def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
     """
     batch, seq_len = u.shape[0], u.shape[1]
     out_n, out_d = wgt.shape[1], wgt.shape[2]
-    pad_mask = (_pad_capsule_mask(out_n, torch.float32, u.device)
+    out_dtype = u.dtype
+    dtype = _compute_dtype(u.dtype)
+    u, wgt, bias = u.to(dtype), wgt.to(dtype), bias.to(dtype)
+    pad_mask = (_pad_capsule_mask(out_n, dtype, u.device)
                 if mask_pad_capsule else None)
     if v_init is None:
-        v = torch.zeros((batch, out_n, out_d), dtype=torch.float32,
-                        device=u.device)
+        v = torch.zeros((batch, out_n, out_d), dtype=dtype, device=u.device)
     else:
-        v = v_init.to(torch.float32)
+        v = v_init.to(dtype)
     outs = []
     for t in range(seq_len):
         u_hat_t = torch.einsum("noij,bnj->bnoi", wgt, u[:, t]) + bias[None]
@@ -133,15 +145,74 @@ def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
         if step_valid is not None:
             v = torch.where(step_valid[t], v, 0.0)
         outs.append(v)
-    return torch.stack(outs, dim=1).to(u.dtype)
+    return torch.stack(outs, dim=1).to(out_dtype)
+
+
+def sequential_routing_bwd(u, wgt, bias, vs, dvs, mask_pad_capsule):
+    """The fused SDR backward for one routing iteration, plain PyTorch.
+
+    The plain version of the K2 kernel (``routing_cuda``), with the math of
+    ``srf_tpu/ops/routing_pallas.py:_sdr_bwd_kernel``: walk time backwards;
+    at step t recompute u_hat, the agreement with v_{t-1} (zero at t = 0,
+    read from the forward's output ``vs``), the softmax, s and the squash
+    factor; backpropagate dv = dvs[t] + the carry through the squash, s, the
+    softmax and the agreement; accumulate dW and db over time and batch,
+    write du[:, t] and carry dv_{t-1} into step t - 1.
+
+    u [B, T, in_n, in_d], wgt [in_n, out_n, out_d, in_d], bias
+    [in_n, out_n, out_d], vs and dvs [B, T, out_n, out_d] ->
+    (du, dW, db) in the shapes of u, wgt and bias. Any floating dtype.
+    """
+    out_dtypes = (u.dtype, wgt.dtype, bias.dtype)
+    dtype = _compute_dtype(u.dtype)
+    u, wgt, bias = u.to(dtype), wgt.to(dtype), bias.to(dtype)
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    vs = vs.to(dtype).reshape(vs.shape[0], vs.shape[1], out_n, out_d)
+    dvs = dvs.to(dtype).reshape(vs.shape)
+    pad_mask = (_pad_capsule_mask(out_n, dtype, u.device)
+                if mask_pad_capsule else None)
+    du = torch.empty_like(u)
+    dwgt = torch.zeros_like(wgt)
+    dbias = torch.zeros_like(bias)
+    carry = torch.zeros_like(vs[:, 0])  # [B, out_n, out_d]
+    for t in range(u.shape[1] - 1, -1, -1):
+        u_t = u[:, t]
+        v_prev = vs[:, t - 1] if t > 0 else torch.zeros_like(carry)
+        # recompute the step
+        u_hat = torch.einsum("noij,bnj->bnoi", wgt, u_t) + bias[None]
+        logits = torch.einsum("bnoi,boi->bno", u_hat, v_prev)
+        if pad_mask is not None:
+            logits = logits + pad_mask
+        c = torch.softmax(logits, dim=2)
+        s = torch.einsum("bno,bnoi->boi", c, u_hat)
+        q = torch.sum(s * s, dim=2, keepdim=True)
+        inv_sqrt = 1.0 / torch.sqrt(q + 1e-7)
+        factor = (q / (1.0 + q)) * inv_sqrt
+        # backward through squash: v = factor(q) * s, q = |s|^2
+        dv = dvs[:, t] + carry
+        dfdq = inv_sqrt / ((1.0 + q) * (1.0 + q)) - 0.5 * (q / (1.0 + q)) * (
+            inv_sqrt / (q + 1e-7))
+        dq = torch.sum(dv * s, dim=2, keepdim=True) * dfdq
+        ds = dv * factor + 2.0 * s * dq
+        # through s = sum_n c * u_hat and the softmax
+        dc = torch.einsum("bnoi,boi->bno", u_hat, ds)
+        da = c * (dc - torch.sum(dc * c, dim=2, keepdim=True))
+        # through the agreement logits = <u_hat, v_prev>
+        du_hat = c[..., None] * ds[:, None] + da[..., None] * v_prev[:, None]
+        carry = torch.einsum("bno,bnoi->boi", da, u_hat)
+        dbias += du_hat.sum(dim=0)
+        dwgt += torch.einsum("bnoi,bnj->noij", du_hat, u_t)
+        du[:, t] = torch.einsum("bnoi,noij->bnj", du_hat, wgt)
+    return tuple(x.to(d) for x, d in zip((du, dwgt, dbias), out_dtypes))
 
 
 def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer):
     """One capsule layer: prediction + routing (DR or SDR).
 
-    SDR goes to the K1 kernel when ``u`` is a CUDA tensor and to the plain
-    :func:`sequential_routing` when it lies on the CPU; nothing else
-    decides. DR is plain PyTorch everywhere.
+    SDR goes through ``SDRFunction``: the K1 and K2 kernels when ``u`` is
+    a CUDA tensor, the plain :func:`sequential_routing` and
+    :func:`sequential_routing_bwd` when it lies on the CPU; nothing else
+    decides. DR is plain PyTorch everywhere, differentiated by autograd.
     """
     if num_iter < 1:
         raise ValueError(
@@ -150,11 +221,7 @@ def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer):
             "zero carry for every frame" % num_iter
         )
     if is_context:
-        if u.is_cuda:
-            return sequential_routing_cuda(u, wgt, bias, num_iter,
-                                           is_last_layer)
-        return sequential_routing(u, wgt, bias, num_iter,
-                                  mask_pad_capsule=is_last_layer)
+        return SDRFunction.apply(u, wgt, bias, num_iter, is_last_layer)
     u_hat = predict_capsules(u, wgt, bias)
     out = dynamic_routing(u_hat, num_iter, mask_pad_capsule=is_last_layer)
     return out.to(u.dtype)

@@ -12,7 +12,7 @@ import torch
 
 from srf_tpu.ops import routing as jax_routing
 from srf_tpu.ops.routing_pallas import sequential_routing_pallas
-from srf_tpu_torch.ops import routing
+from srf_tpu_torch.ops import routing, routing_cuda
 from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
 
 torch.set_num_threads(1)
@@ -99,7 +99,7 @@ def test_route_layer_keeps_cpu_tensors_off_the_kernel(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("route_layer sent a CPU tensor to the kernel")
 
-    monkeypatch.setattr(routing, "sequential_routing_cuda", refuse)
+    monkeypatch.setattr(routing_cuda, "sequential_routing_cuda", refuse)
     u, W, b = _torch(*_problem())
     got = routing.route_layer(u, W, b, 1, is_context=True, is_last_layer=True)
     want = routing.sequential_routing(u, W, b, 1, True)

@@ -24,6 +24,8 @@ import torch
 from srf_tpu.models.srf import SequenceRouter as FlaxSequenceRouter
 from srf_tpu_torch import convert
 from srf_tpu_torch.models.srf import SequenceRouter
+from srf_tpu_torch.train import step
+from srf_tpu_torch.train.state import TrainState
 
 from _torch_parity import flatten_tree, random_flax_variables
 
@@ -111,7 +113,25 @@ def test_initial_weights(init_name):
                        torch.ones_like(state["ln_input.weight"]))
 
 
-def test_training_mode_is_refused():
+def test_training_mode_runs():
+    """test_torch_train.py holds training mode to flax."""
     _, model = _models("naive", True, 1)
-    with pytest.raises(NotImplementedError, match="eval mode"):
-        model(torch.zeros(1, 8, FEAT_DIM), torch.tensor([8]))
+    logits = model.train()(torch.zeros(1, 8, FEAT_DIM), torch.tensor([8]))
+    assert logits.shape == (1, 2, CLASS_N) and logits.requires_grad
+
+
+def test_training_mode_is_refused():
+    """What training has not ported yet is refused: bf16, SpecAugment and
+    the STF arguments in the apply adapter, gradient accumulation and EMA
+    in the train step and its state."""
+    _, model = _models("naive", True, 1)
+    for kwargs in ({"bf16": True}, {"augment_fn": lambda *a: a[0]},
+                   {"extra_kwargs_fn": lambda batch: {}}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            step.make_apply_fn(model, **kwargs)
+    apply_fn = step.make_apply_fn(model)
+    for kwargs in ({"accum_steps": 2}, {"ema_decay": 0.999}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            step.make_train_step(apply_fn, 4, **kwargs)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TrainState.create(model, None, with_ema=True)
