@@ -7,7 +7,7 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the serving and training paths from csrc/
-   with nvcc (one process per source, all started together);
+   with nvcc (one process per source, all started together): K1, K2, K5;
 3. K1 (SDR forward) against its plain PyTorch version on the same CUDA
    tensors, at the three canonical SRF-TIMIT capsule-layer geometries, at
    the serving path's two shapes (B=29, T'=64: 29 x 241 frames padded to
@@ -18,16 +18,25 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    same CUDA tensors, at the three geometries at B=29 with T'=64 and T'=61
    (the training path's shape), and at an odd B/T with the PAD mask
    flipped; kernel and plain times from CUDA events at B=29, T'=61;
-5. the serving path: a Recognizer at the canonical SRF-TIMIT width (L=7,
-   PH=60, PD=8, CH=30, CD=8, VD=8, window 1+1+1, SDR, 1 iteration, naive,
-   63 classes, 2 x 64-filter maxout convs) with random weights drawn from a
-   numpy seed as the flax tree and carried across by convert.py, serving
-   8 requests of 150-400 frames and 29 requests of 241 frames through
-   transcribe_batch_detailed; K1 must launch 7 times per forward, and the
-   same weights on the CPU must give the same ids and text, with logits
-   within LOGIT_ATOL; then forward and end-to-end times, utt/s and the
-   realtime factor, and a profile of one forward;
-6. the training path: the same model and weights trained by
+5. K5 (the fused dropout) against its plain PyTorch version with
+   torch.equal (the two draw the same Philox bits) at 1-5000 elements, a
+   misaligned view, and each of the 25 dropout sites of a CNN-TIMIT train
+   step at 29 x 241 (read off the model; up to 110,034,816 elements), at
+   rates 0.1, 0.2 and 0.5; the keep fraction within 1e-3 of 1 - rate at
+   the largest site; the backward through FusedDropoutFunction applying
+   the forward's mask to a channels_last cotangent; rate 0 with no launch;
+   per site the kernel's, the plain version's and F.dropout's times from
+   CUDA events, and their sums over a step's 50 launches;
+6. the SRF serving path: a Recognizer at the canonical SRF-TIMIT width
+   (L=7, PH=60, PD=8, CH=30, CD=8, VD=8, window 1+1+1, SDR, 1 iteration,
+   naive, 63 classes, 2 x 64-filter maxout convs) with random weights drawn
+   from a numpy seed as the flax tree and carried across by convert.py,
+   serving 8 requests of 150-400 frames and 29 requests of 241 frames
+   through transcribe_batch_detailed; K1 must launch 7 times per forward,
+   and the same weights on the CPU must give the same ids and text, with
+   logits within LOGIT_ATOL; then forward and end-to-end times, utt/s and
+   the realtime factor, and a profile of one forward;
+7. the SRF training path: the same model and weights trained by
    train.step.make_train_step with Adam under Noam(0.5, 1, 1200) and
    timit.conf's betas and eps, on bench.py's workload (29 utterances of
    0.7*241..241 frames, tar_len = max(2, len // 8), labels in 1..61). One
@@ -40,7 +49,28 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    the card; then ms/step, utt/s, audio-seconds/s, the device time of a
    forward and of a backward, and a profile of one step (K1 and K2 device
    ms, K2's two kernels apart, idle share);
-7. a "kernels" JSON line, then the card line, then the result line.
+8. the CNN serving path: a Recognizer at the CNN-TIMIT recipe's width
+   (egs/script/train_cnn_timit.sh: maxpool maxout CNN, L=10, filters
+   128/256, 3 x 1024 projections, time stride 1, --tpu-dropout-kernel=
+   pallas) with numpy-seeded weights, serving the same two batches; K5
+   launches 0 times (eval has no dropout); the CPU decodes the first
+   CNN_CPU_SUBSET utterances of each batch to the same ids and text, with
+   logits at their valid frames within CNN_LOGIT_ATOL (the CNN's logits
+   there depend neither on the padded width nor on the other utterances);
+   then times and a profile of one forward (convolution kernels, idle
+   share);
+9. the CNN training path: one pallas-mode step with dropout on at every
+   K5 site on the card and on the CPU (the masks follow the step seed, so
+   they are the same), compared as in 7, for CNN-TIMIT (B=2, with the
+   CNN_* tolerances: float32 noise is larger there) and for the stride
+   variant at a small width (B=4, its ConvFrontEnd's own dropout off: that
+   one draws from the device's generator); then 1 + TRAIN_STEPS steps of
+   CNN-TIMIT at 29 x 241 (the first, with cuDNN's algorithm search, timed
+   apart), each launching K5 exactly 50 times, with finite losses and
+   every tensor on the card; ms/step, utt/s, audio-seconds/s and a profile
+   of one step (K5, convolution kernels, the rest, idle share);
+10. a "kernels" JSON line (K1, K2, K5), then the card line, then the
+   result line.
 """
 
 import json
@@ -83,6 +113,19 @@ LOSS_RTOL, GRAD_ATOL_REL, STATS_ATOL = 1e-5, 1e-4, 1e-5
 # sign; float32 rounding of a parameter of magnitude ~1 is ~1e-5 x rate);
 # elsewhere each update must stay within Adam's first-step bound, the rate
 PARITY_COUNT, UPDATE_ATOL_REL, UPDATE_GRAD_REL = 1200, 1e-3, 1e-2
+# CNN-TIMIT, card vs CPU (float32 both, TF32 off). Each side is ~5e-5 from
+# a float64 run of the same weights in logits, and up to 1.5e-2 (card) and
+# 7.8e-3 (CPU) of a tensor's largest entry in the gradients of the
+# dropout-on step at B=2 (3.8e-2 on the CPU with dropout off), while the
+# card's and the CPU's float64 runs agree to 5e-5 (chip_cnn_numerics.py):
+# a conv weight's gradient sums ~2e4 positions that cancel, and the logits
+# pass 10 convs and 13 LayerNorms with eps 1e-6. So logits within
+# CNN_LOGIT_ATOL, gradients within CNN_GRAD_ATOL_REL x their largest entry,
+# and updates compared where the gradient is >= CNN_UPDATE_GRAD_REL x its
+# largest (an error of CNN_GRAD_ATOL_REL cannot flip its sign there), over
+# at least CNN_MIN_COMPARED of the entries.
+CNN_LOGIT_ATOL = 3e-4
+CNN_GRAD_ATOL_REL, CNN_UPDATE_GRAD_REL, CNN_MIN_COMPARED = 5e-2, 1e-1, 0.1
 TRAIN_STEPS = 20
 TRAIN_CHECK_BATCH = 8
 # (name, (in_n, out_n, out_d, in_d), PAD mask, layers per forward)
@@ -91,6 +134,34 @@ TIMIT_LAYERS = [
     ("middle", (90, 30, 8, 8), False, 5),
     ("last", (90, 63, 8, 8), True, 1),
 ]
+# the CNN-TIMIT recipe (egs/script/train_cnn_timit.sh:7-14,31-50 with
+# timit.conf): the maxpool maxout CNN, L=10, filters 128/256, 3 x 1024
+# projections, time stride 1, K5 at every dropout site, greedy decoding
+CNN_FLAGS = [
+    "--model-type=cnn", "--model-conv-is-mp=True", "--model-encoder-num=10",
+    "--model-conv-inp-nfilt=128", "--model-conv-inn-nfilt=256",
+    "--model-conv-proj-num=3", "--model-conv-proj-dim=1024",
+    "--model-conv-stride=1", "--model-dimension=1",
+    "--train-batch-frame=7000", "--tpu-dropout-kernel=pallas",
+    "--decoding-beam-width=1",
+]
+# the stride variant (the WSJ recipe's IS_MP=False) at a small width
+CNN_STRIDE_FLAGS = [
+    "--model-type=cnn", "--model-conv-is-mp=False", "--model-encoder-num=6",
+    "--model-conv-inp-nfilt=32", "--model-conv-inn-nfilt=64",
+    "--model-conv-proj-num=3", "--model-conv-proj-dim=256",
+    "--model-conv-filter-num=16", "--tpu-dropout-kernel=pallas",
+    "--decoding-beam-width=1",
+]
+# K5 sites per CNN-TIMIT forward (20 in the convs, 4 in the projections, 1
+# in projv); a train step launches K5 twice per site, forward and backward
+CNN_SITES = 25
+# card-vs-CPU step batches of the CNN (the CPU half runs the full-width
+# model and K5's plain Philox in int64 tensor ops), and the utterances of
+# each serving batch that the CPU also decodes
+CNN_CHECK_BATCH, CNN_STRIDE_CHECK_BATCH, CNN_CPU_SUBSET = 2, 4, 3
+K5_SIZES = (1, 3, 4, 1023, 1025, 5000)
+K5_RATES = (0.1, 0.2, 0.5)
 TIMIT_FLAGS = [
     "--model-encoder-num=7", "--model-caps-primary-num=60",
     "--model-caps-primary-dim=8", "--model-caps-convolution-num=30",
@@ -361,12 +432,23 @@ def random_weights(model):
     return convert.flax_to_state_dict(fill(tree))
 
 
-def profile_device(torch, fn):
-    """Device time of one call of ``fn``: ({"K1": ms, "K2": ms, "K2 step":
-    ms, "K2 wgrad": ms}, ms of all device ops (kernels and copies), their
-    count, device busy ms, host wall ms), from torch.profiler (CUPTI). "K2"
-    is the sum of its two kernels, "K2 step" the reverse-time one and
-    "K2 wgrad" the weight-gradient one."""
+SRF_SYMBOLS = (("K1", "sdr_fwd_kernel"), ("K2", "sdr_bwd_"),
+               ("K2 step", "sdr_bwd_step_kernel"),
+               ("K2 wgrad", "sdr_bwd_wgrad_kernel"))
+# cuDNN's convolution kernels (forward, data and weight gradients, its FFT
+# and layout-conversion kernels) and cuBLAS's GEMMs
+CONV_PATTERNS = ("xmma", "gemm", "implicit_convolve", "cudnn", "fprop",
+                 "dgrad", "wgrad", "winograd", "fft", "region_transform",
+                 "nchwToNhwc", "nhwcToNchw")
+
+
+def profile_device(torch, fn, symbols=SRF_SYMBOLS):
+    """Device time of one call of ``fn``, from torch.profiler (CUPTI):
+    ({label: ms of the device ops whose name holds the label's symbol},
+    ms of all device ops (kernels and copies), their count, device busy
+    ms, host wall ms, {op name: ms}). With the SRF symbols "K2" is the sum
+    of its two kernels, "K2 step" the reverse-time one and "K2 wgrad" the
+    weight-gradient one."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -375,17 +457,18 @@ def profile_device(torch, fn):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - start)
     spans = []
-    kernels = {"K1": 0.0, "K2": 0.0, "K2 step": 0.0, "K2 wgrad": 0.0}
+    kernels = {label: 0.0 for label, _ in symbols}
+    by_name = {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         span = (evt.time_range.start, evt.time_range.end)
         spans.append(span)
-        for name, symbol in (("K1", "sdr_fwd_kernel"), ("K2", "sdr_bwd_"),
-                             ("K2 step", "sdr_bwd_step_kernel"),
-                             ("K2 wgrad", "sdr_bwd_wgrad_kernel")):
+        ms = (span[1] - span[0]) / 1e3
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+        for label, symbol in symbols:
             if symbol in evt.name:
-                kernels[name] += (span[1] - span[0]) / 1e3
+                kernels[label] += ms
     total = sum(end - start for start, end in spans) / 1e3
     busy, last_end = 0.0, None
     for start, end in sorted(spans):
@@ -394,22 +477,66 @@ def profile_device(torch, fn):
         if end > start:
             busy += end - start
             last_end = end
-    return kernels, total, len(spans), busy / 1e3, wall_ms
+    return kernels, total, len(spans), busy / 1e3, wall_ms, by_name
 
 
-def timit_config(logger, device):
-    """The canonical SRF-TIMIT configuration: timit.conf, the recipe's
-    first stage (train_srf_timit.sh: k 0.5, warmup 1200) and the model
-    flags."""
+def conv_ms(by_name):
+    """ms of the convolution and GEMM kernels among a profile's device
+    ops (the CNN's Linear projections are ~1 % of its FLOPs)."""
+    return sum(ms for name, ms in by_name.items()
+               if any(p.lower() in name.lower() for p in CONV_PATTERNS))
+
+
+def layout_ms(by_name):
+    """ms of cuDNN's NCHW <-> NHWC conversions (inside ``conv_ms``)."""
+    return sum(ms for name, ms in by_name.items()
+               if "nchwToNhwc" in name or "nhwcToNchw" in name)
+
+
+def top_ops(by_name, count=6):
+    """The ``count`` device ops that took longest, as 'ms name' text."""
+    top = sorted(by_name.items(), key=lambda item: -item[1])[:count]
+    return "; ".join("%.3f %s" % (ms, name[:70]) for name, ms in top)
+
+
+def timit_config(logger, device, flags=TIMIT_FLAGS):
+    """A TIMIT configuration: timit.conf, the recipes' first stage
+    (train_srf_timit.sh, train_cnn_timit.sh: k 0.5, warmup 1200) and the
+    model flags (the canonical SRF-TIMIT model's by default)."""
     from srf_tpu_torch.config import ParseOption
 
     return ParseOption(
         ["chip_smoke", "--config=egs/conf/timit.conf",
          "--path-base=%s" % REPO, "--path-ckpt=%s" % REPO,
          "--device=%s" % device, "--train-lr-param-k=0.5",
-         "--train-warmup-n=1200", *TIMIT_FLAGS],
+         "--train-warmup-n=1200", *flags],
         logger, is_print_opts=False,
     ).args
+
+
+def serve_batches():
+    """The serving phases' two request batches: 8 utterances of 150-400
+    frames and 29 of 241, fbank-123 features drawn from numpy."""
+    rng = np.random.RandomState(SEED + 1)
+    return {
+        "8x150-400": [rng.randn(n, 123).astype(np.float32)
+                      for n in rng.randint(150, 401, size=8)],
+        "29x241": [rng.randn(241, 123).astype(np.float32) for _ in range(29)],
+    }
+
+
+def check_served(name, got, feats_list, in_len_div):
+    """One result per request; ids are phones (0..61, blank 62 removed),
+    each emission frame inside the floor(len / in_len_div) decoded frames,
+    a finite Viterbi log-prob score."""
+    check(len(got) == len(feats_list), "%s: result count" % name)
+    for i, res in enumerate(got):
+        dec_len = max(feats_list[i].shape[0] // in_len_div, 1)
+        check(all(0 <= t < 62 for t in res["ids"]), "%s: ids" % name)
+        check(all(0 <= f < dec_len for f in res["frames"]),
+              "%s: frames" % name)
+        check(np.isfinite(res["score"]) and res["score"] <= 0,
+              "%s: score" % name)
 
 
 def main_path_phase(torch, card):
@@ -429,12 +556,7 @@ def main_path_phase(torch, card):
                          logger=logger)
     check(card_rec.device.type == "cuda", "Recognizer is not on the card")
 
-    rng = np.random.RandomState(SEED + 1)
-    batches = {
-        "8x150-400": [rng.randn(n, 123).astype(np.float32)
-                      for n in rng.randint(150, 401, size=8)],
-        "29x241": [rng.randn(241, 123).astype(np.float32) for _ in range(29)],
-    }
+    batches = serve_batches()
     for feats_list in batches.values():  # warm-up (allocator, cuDNN)
         card_rec.transcribe_batch_detailed(feats_list)
     torch.cuda.synchronize()
@@ -454,14 +576,7 @@ def main_path_phase(torch, card):
 
     for name, feats_list in batches.items():
         got = results[name]
-        check(len(got) == len(feats_list), "%s: result count" % name)
-        for i, res in enumerate(got):
-            dec_len = max(feats_list[i].shape[0] // 4, 1)
-            check(all(0 <= t < 62 for t in res["ids"]), "%s: ids" % name)
-            check(all(0 <= f < dec_len for f in res["frames"]),
-                  "%s: frames" % name)
-            check(np.isfinite(res["score"]) and res["score"] <= 0,
-                  "%s: score" % name)
+        check_served(name, got, feats_list, card_rec.in_len_div)
         cpu = cpu_rec.transcribe_batch_detailed(feats_list)
         check([r["ids"] for r in got] == [r["ids"] for r in cpu],
               "%s: card ids differ from CPU ids" % name)
@@ -494,7 +609,7 @@ def main_path_phase(torch, card):
               % (name, tuple(feats.shape), reps, float(np.median(fwd_ms)),
                  max(fwd_ms), med, max(e2e_ms), 1e3 * len(feats_list) / med,
                  1e3 * audio_s / med, card))
-        kernels, total, count, busy, wall = profile_device(
+        kernels, total, count, busy, wall, _ = profile_device(
             torch, lambda: card_rec.forward(feats, lengths))
         print("profile %s forward: K1 %.3f ms, all %d device ops %.3f ms, "
               "device busy %.3f of %.3f ms wall (idle share %.3f) [%s]"
@@ -525,7 +640,10 @@ def train_batch(torch, device, batch=29, frames=241, feat_dim=123,
 
 def train_setup(torch, config, state, device, dropout=True):
     """A model with ``state``'s weights, its optimizer and scheduler in a
-    TrainState on ``device``, and its train step."""
+    TrainState on ``device``, and its train step. ``dropout`` False turns
+    every dropout off; "k5" keeps only the sites that K5 runs in the CNN's
+    pallas mode (their masks follow the step seed on every device) and
+    turns off ConvFrontEnd's, which draw from the device's generator."""
     from srf_tpu_torch.models.registry import build_model
     from srf_tpu_torch.train.optimizer import get_optimizer
     from srf_tpu_torch.train.state import TrainState
@@ -533,10 +651,11 @@ def train_setup(torch, config, state, device, dropout=True):
 
     model, in_len_div = build_model(config, 63)
     model.load_state_dict(state)
-    if not dropout:
-        for module in model.modules():
-            if isinstance(module, torch.nn.Dropout):
-                module.p = 0.0
+    for name, module in model.named_modules():
+        if isinstance(module, torch.nn.Dropout) and (
+                not dropout
+                or (dropout == "k5" and name.startswith("conv_feat."))):
+            module.p = 0.0
     optimizer, scheduler = get_optimizer(config, model.parameters())
     train_state = TrainState.create(model, optimizer, scheduler,
                                     device=device)
@@ -544,14 +663,19 @@ def train_setup(torch, config, state, device, dropout=True):
     return train_state, apply_fn, make_train_step(apply_fn, in_len_div)
 
 
-def train_parity(torch, config, state, batch):
-    """One dropout-free step on the card and on the CPU from the same
-    weights, its update taken at the schedule's count PARITY_COUNT: loss,
-    every gradient, BatchNorm statistics and each parameter's update."""
+def train_parity(torch, config, state, batch, dropout=False, label="",
+                 grad_atol_rel=GRAD_ATOL_REL, update_grad_rel=UPDATE_GRAD_REL,
+                 min_compared=0.5):
+    """One step on the card and on the CPU from the same weights, its
+    update taken at the schedule's count PARITY_COUNT: loss, every
+    gradient (within ``grad_atol_rel`` x its largest entry), BatchNorm
+    statistics and each parameter's update (where the gradient is at least
+    ``update_grad_rel`` x its largest, over more than ``min_compared`` of
+    the entries). Dropout off, or ``dropout="k5"`` (see ``train_setup``)."""
     results = {}
     for device in ("cuda", "cpu"):
         train_state, _, step = train_setup(torch, config, state, device,
-                                           dropout=False)
+                                           dropout=dropout)
         rate = train_state.scheduler.lr_lambdas[0](PARITY_COUNT)
         for group in train_state.optimizer.param_groups:
             group["lr"] = rate
@@ -574,7 +698,7 @@ def train_parity(torch, config, state, batch):
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
         worst_grad = max(worst_grad, (err / max(scale, 1e-30), name))
-        check(err <= GRAD_ATOL_REL * scale,
+        check(err <= grad_atol_rel * scale,
               "train step: gradient %s differs, card vs CPU %.3e (max %.3e)"
               % (name, err, scale))
     worst_stat, worst_update, checked, total = 0.0, 0.0, 0, 0
@@ -595,22 +719,25 @@ def train_parity(torch, config, state, batch):
                         <= rate * (1 + UPDATE_ATOL_REL)).all()),
               "train step: %s moved by more than the rate" % name)
         grad = cpu_grads[name].abs()
-        sure = grad >= UPDATE_GRAD_REL * grad.max()
+        sure = grad >= update_grad_rel * grad.max()
         err = (card_update - cpu_update)[sure].abs().max().item()
         worst_update = max(worst_update, err / rate)
         checked, total = checked + int(sure.sum()), total + want.numel()
         check(err <= UPDATE_ATOL_REL * rate,
               "train step: parameter %s's update differs by %.3e (rate %.3e)"
               % (name, err, rate))
-    check(checked > total // 2, "too few parameters' updates compared")
-    print("train parity (B=%d, dropout off, one step at count %d, rate "
+    check(checked > min_compared * total,
+          "too few parameters' updates compared")
+    print("%strain parity (B=%d, dropout %s, one step at count %d, rate "
           "%.4e): loss card %.6f cpu %.6f (rel %.2e, rtol %.0e); worst "
           "gradient %s rel err %.2e (atol %.0e x max); BatchNorm stats max "
           "err %.2e (atol %.0e); parameter updates: worst err %.2e x rate "
           "(atol %.0e x rate) over %d of %d entries, all within the rate"
-          % (batch["feats"].shape[0], PARITY_COUNT, rate, card_loss,
+          % (label, batch["feats"].shape[0],
+             "on at the K5 sites" if dropout == "k5" else "off",
+             PARITY_COUNT, rate, card_loss,
              cpu_loss, loss_err, LOSS_RTOL, worst_grad[1], worst_grad[0],
-             GRAD_ATOL_REL, worst_stat, STATS_ATOL, worst_update,
+             grad_atol_rel, worst_stat, STATS_ATOL, worst_update,
              UPDATE_ATOL_REL, checked, total))
 
 
@@ -691,14 +818,14 @@ def train_phase(torch, card, state):
     train_state.optimizer.zero_grad(set_to_none=True)
     for name, fn in (("forward", forward),
                      ("backward", lambda: held["loss"].backward())):
-        kernels, total, count, busy, wall = profile_device(torch, fn)
+        kernels, total, count, busy, wall, _ = profile_device(torch, fn)
         print("profile train %s: K1 %.3f ms, K2 %.3f ms (step kernel %.3f, "
               "wgrad kernel %.3f), all %d device ops %.3f ms, device busy "
               "%.3f of %.3f ms wall [%s]"
               % (name, kernels["K1"], kernels["K2"], kernels["K2 step"],
                  kernels["K2 wgrad"], count, total, busy, wall, card))
 
-    kernels, total, count, busy, wall = profile_device(
+    kernels, total, count, busy, wall, _ = profile_device(
         torch, lambda: step(train_state, batch, seed))
     print("profile train step: K1 %.3f ms, K2 %.3f ms (step kernel %.3f, "
           "wgrad kernel %.3f), all %d device ops %.3f ms, device busy %.3f "
@@ -706,6 +833,293 @@ def train_phase(torch, card, state):
           % (kernels["K1"], kernels["K2"], kernels["K2 step"],
              kernels["K2 wgrad"], count, total, busy, wall,
              1.0 - busy / wall, card))
+    torch.cuda.synchronize()
+    return launches
+
+
+def cnn_site_shapes(torch, device):
+    """(shape, rate) of each K5 site of one CNN-TIMIT training forward at
+    29 x 241, in order, read off the model itself: one forward with the
+    sites recorded instead of dropped."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models import cnn
+    from srf_tpu_torch.models.registry import build_model
+
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    model, _ = build_model(timit_config(logger, "cuda", CNN_FLAGS), 63)
+    model.to(device).train()
+    batch = train_batch(torch, device)
+    sites, real = [], cnn.fused_dropout
+    cnn.fused_dropout = lambda x, seed, rate: sites.append(
+        (tuple(x.shape), rate)) or x
+    try:
+        with torch.no_grad():
+            model(batch["feats"], batch["inp_len"].to(device),
+                  torch.Generator(device).manual_seed(SEED))
+    finally:
+        cnn.fused_dropout = real
+    return sites
+
+
+def k5_phase(torch, device):
+    """Phase K5: the fused dropout against its plain version, bit for bit,
+    and its times; returns its JSON entry."""
+    import torch.nn.functional as F
+    from srf_tpu_torch.ops.dropout import (fused_dropout,
+                                           fused_dropout_plain)
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+
+    gen = torch.Generator(device).manual_seed(SEED + 3)
+    seeds = iter(np.random.RandomState(SEED + 3).randint(
+        0, 2 ** 62, size=1000, dtype=np.int64).tolist())
+
+    def same(x, rate, label):
+        seed = next(seeds)
+        got = fused_dropout_cuda(x, seed, rate)
+        want = fused_dropout_plain(x, seed, rate)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), "K5 differs from its plain version at "
+              "%s rate %s seed %d" % (label, rate, seed))
+        return got
+
+    for n in K5_SIZES:
+        for rate in K5_RATES:
+            same(torch.randn(n, generator=gen, device=device), rate, n)
+    # 4 bytes off the 16-byte alignment: the kernel's scalar path
+    misaligned = torch.randn(5001, generator=gen, device=device)[1:]
+    for rate in K5_RATES:
+        same(misaligned, rate, "5000 misaligned")
+    print("K5 sizes %s (and 5000 misaligned) x rates %s: equal to the plain "
+          "version" % (list(K5_SIZES), list(K5_RATES)))
+
+    sites = cnn_site_shapes(torch, device)
+    check(len(sites) == CNN_SITES, "CNN-TIMIT forward has %d K5 sites, "
+          "expected %d" % (len(sites), CNN_SITES))
+    per_site, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                            "library_ms": 0.0}
+    for index, (shape, site_rate) in enumerate(sites):
+        x = torch.randn(shape, generator=gen, device=device)
+        for rate in K5_RATES:
+            same(x, rate, "site %d %s" % (index, shape))
+        seed = next(seeds)
+        ms = event_ms(torch, lambda: fused_dropout_cuda(x, seed, site_rate),
+                      10)
+        plain_ms = event_ms(
+            torch, lambda: fused_dropout_plain(x, seed, site_rate), 2)
+        library_ms = event_ms(
+            torch, lambda: F.dropout(x, site_rate, training=True), 10)
+        bound = 1e3 * 8 * x.numel() / PEAK_BYTES_PER_S
+        per_site.append({"site": index, "shape": list(shape),
+                         "rate": site_rate, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound})
+        # each site runs K5 twice a step: forward and backward
+        for key, value in (("ms", ms), ("plain_ms", plain_ms),
+                           ("bound_ms", bound), ("library_ms", library_ms)):
+            totals[key] += 2 * value
+        print("K5 site %2d %s rate %.1f: kernel %.4f ms, plain %.4f ms, "
+              "F.dropout %.4f ms, bound %.4f ms (bytes)"
+              % (index, shape, site_rate, ms, plain_ms, library_ms, bound))
+        del x
+
+    # masks are read off values in [1, 2): randn on the card gives exact
+    # zeros (about one in 2**24 draws), which would read as dropped
+    shape = max((s for s, _ in sites), key=lambda s: int(np.prod(s)))
+    x = 1 + torch.rand(shape, generator=gen, device=device)
+    for rate in K5_RATES:
+        kept = (same(x, rate, "largest") != 0).double().mean().item()
+        check(abs(kept - (1 - rate)) <= 1e-3, "K5 keeps %.6f of %s at rate "
+              "%s" % (kept, shape, rate))
+        print("K5 %s rate %.1f: keeps %.6f" % (shape, rate, kept))
+    # the backward regenerates the forward's mask, on a cotangent in
+    # another memory layout too
+    seed, rate = next(seeds), 0.2
+    leaf = x.requires_grad_()
+    out = fused_dropout(leaf, seed, rate)
+    grad = (1 + torch.rand(shape, generator=gen, device=device)).to(
+        memory_format=torch.channels_last)
+    launches = fused_dropout_cuda.launches
+    out.backward(grad)
+    torch.cuda.synchronize()
+    check(fused_dropout_cuda.launches == launches + 1,
+          "K5's backward did not launch K5")
+    check(torch.equal(leaf.grad != 0, out != 0)
+          and torch.equal(leaf.grad, fused_dropout_plain(grad, seed, rate)),
+          "K5's backward mask is not the forward's")
+    launches = fused_dropout_cuda.launches
+    check(fused_dropout(x, seed, 0.0) is x
+          and fused_dropout_cuda.launches == launches,
+          "K5 at rate 0 is not the identity without a launch")
+    print("K5 backward: the forward's mask on a channels_last cotangent; "
+          "rate 0: identity, no launch")
+    del x, leaf, out, grad
+    torch.cuda.synchronize()
+    print("K5 one train step's %d launches at 29 x 241: kernel %.4f ms, "
+          "plain %.4f ms, F.dropout %.4f ms, bound %.4f ms (bytes)"
+          % (2 * CNN_SITES, totals["ms"], totals["plain_ms"],
+             totals["library_ms"], totals["bound_ms"]))
+    return {
+        "name": "fused_dropout", "route": "cuda",
+        "source": "srf_tpu_torch/csrc/fused_dropout.cu",
+        "replaces": "srf_tpu/ops/dropout_pallas.py:48",
+        "launches": None,
+        # torch.equal at every size, site and rate above
+        "max_abs_err": 0.0,
+        # one CNN-TIMIT train step's 50 launches (each site forward and
+        # backward) at 29 x 241
+        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"], "bound_by": "bytes",
+        # F.dropout(x, p, training=True): the same function, another stream
+        "library_ms": totals["library_ms"],
+        "per_site": per_site,
+    }
+
+
+def cnn_serve_phase(torch, card):
+    """Phase: serve CNN-TIMIT on the card; returns K5's launches (none:
+    eval has no dropout) and the random weights (a state_dict)."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+    from srf_tpu_torch.serve import Recognizer
+
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = timit_config(logger, "cuda", CNN_FLAGS)
+    model, _ = build_model(config, 63)
+    state = random_weights(model)
+    card_rec = Recognizer(config, state_dict=state, logger=logger)
+    cpu_rec = Recognizer(config, state_dict=state, device="cpu",
+                         logger=logger)
+    check(card_rec.device.type == "cuda" and card_rec.in_len_div == 1,
+          "CNN Recognizer: device %s, in_len_div %d"
+          % (card_rec.device, card_rec.in_len_div))
+
+    batches = serve_batches()
+    for feats_list in batches.values():  # warm-up (allocator, cuDNN)
+        card_rec.transcribe_batch_detailed(feats_list)
+    torch.cuda.synchronize()
+    fused_dropout_cuda.launches = 0
+    results = {name: card_rec.transcribe_batch_detailed(feats_list)
+               for name, feats_list in batches.items()}
+    torch.cuda.synchronize()
+    launches = fused_dropout_cuda.launches
+    check(launches == 0, "K5 launched %d times in serving" % launches)
+
+    for name, feats_list in batches.items():
+        got = results[name]
+        check_served(name, got, feats_list, card_rec.in_len_div)
+        # logits at valid frames depend neither on the padded width nor on
+        # the other utterances, so the CPU decodes a subset
+        subset = feats_list[:CNN_CPU_SUBSET]
+        cpu = cpu_rec.transcribe_batch_detailed(subset)
+        check([r["ids"] for r in got[:len(subset)]]
+              == [r["ids"] for r in cpu], "%s: CNN card ids differ from CPU "
+              "ids" % name)
+        check([r["text"] for r in got[:len(subset)]]
+              == [r["text"] for r in cpu], "%s: CNN card text differs" % name)
+        card_logits = card_rec.forward(*card_rec.pad(feats_list)).cpu()
+        cpu_logits = cpu_rec.forward(*cpu_rec.pad(subset))
+        check(bool(torch.isfinite(card_logits).all()), "%s: logits" % name)
+        err = max((card_logits[i, :len(f)] - cpu_logits[i, :len(f)])
+                  .abs().max().item() for i, f in enumerate(subset))
+        print("CNN serve %s: %d utts, %d tokens, logits %s; first %d: ids "
+              "equal to CPU, max |card - cpu| %.3e at valid frames (atol "
+              "%.0e)" % (name, len(got), sum(len(r["ids"]) for r in got),
+                         tuple(card_logits.shape), len(subset), err,
+                         CNN_LOGIT_ATOL))
+        check(err <= CNN_LOGIT_ATOL,
+              "%s: CNN card logits differ from CPU" % name)
+
+    reps = 10
+    for name, feats_list in batches.items():
+        feats, lengths = card_rec.pad(feats_list)
+        fwd_ms = timed_ms(torch, lambda: card_rec.forward(feats, lengths),
+                          reps)
+        e2e_ms = timed_ms(
+            torch, lambda: card_rec.transcribe_batch_detailed(feats_list),
+            reps)
+        audio_s = 0.01 * float(lengths.sum())
+        med = float(np.median(e2e_ms))
+        print("CNN serve %s (padded %s), %d runs: forward median %.3f "
+              "ms/batch (max %.3f), end-to-end median %.3f ms/batch (max "
+              "%.3f), %.1f utt/s, %.1fx realtime [%s]"
+              % (name, tuple(feats.shape), reps, float(np.median(fwd_ms)),
+                 max(fwd_ms), med, max(e2e_ms), 1e3 * len(feats_list) / med,
+                 1e3 * audio_s / med, card))
+        _, total, count, busy, wall, by_name = profile_device(
+            torch, lambda: card_rec.forward(feats, lengths), ())
+        print("profile CNN %s forward: conv + GEMM kernels %.3f ms (layout "
+              "conversions %.3f), all %d device ops %.3f ms, device busy "
+              "%.3f of %.3f ms wall (idle share %.3f); top: %s [%s]"
+              % (name, conv_ms(by_name), layout_ms(by_name), count, total,
+                 busy, wall, 1.0 - busy / wall, top_ops(by_name), card))
+    torch.cuda.synchronize()
+    return launches, state
+
+
+def cnn_train_phase(torch, card, state):
+    """Phase: train CNN-TIMIT on the card in pallas mode; returns K5's
+    launches in the TRAIN_STEPS-step run."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = timit_config(logger, "cuda", CNN_FLAGS)
+    batch = train_batch(torch, "cuda")
+    # dropout on: K5's masks follow the step seed on both devices
+    train_parity(torch, config, state,
+                 {k: v[:CNN_CHECK_BATCH] for k, v in batch.items()},
+                 dropout="k5", label="CNN-TIMIT ",
+                 grad_atol_rel=CNN_GRAD_ATOL_REL,
+                 update_grad_rel=CNN_UPDATE_GRAD_REL,
+                 min_compared=CNN_MIN_COMPARED)
+    stride_config = timit_config(logger, "cuda", CNN_STRIDE_FLAGS)
+    stride_state = random_weights(build_model(stride_config, 63)[0])
+    train_parity(torch, stride_config, stride_state,
+                 {k: v[:CNN_STRIDE_CHECK_BATCH] for k, v in batch.items()},
+                 dropout="k5", label="CNN stride variant ")
+
+    train_state, _, step = train_setup(torch, config, state, "cuda")
+    seed = config.tpu_seed
+    torch.cuda.synchronize()
+    fused_dropout_cuda.launches = 0
+    step_ms, losses = [], []
+    # the first step includes cuDNN's algorithm search at these shapes
+    # (device.py); it is timed apart and not in the median
+    for _ in range(1 + TRAIN_STEPS):
+        before = fused_dropout_cuda.launches
+        start = time.perf_counter()
+        train_state, metrics = step(train_state, batch, seed)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - start))
+        losses.append(metrics["loss_sum"])
+        check(fused_dropout_cuda.launches - before == 2 * CNN_SITES,
+              "a CNN train step launched K5 %d times, expected %d"
+              % (fused_dropout_cuda.launches - before, 2 * CNN_SITES))
+    launches = fused_dropout_cuda.launches
+    all_on_card(train_state, metrics)
+    losses = torch.stack(losses).cpu().numpy() / batch["feats"].shape[0]
+    check(bool(np.isfinite(losses).all()), "non-finite CNN train loss")
+    first_ms, step_ms = step_ms[0], step_ms[1:]
+    med = float(np.median(step_ms))
+    audio_s = 0.01 * float(batch["inp_len"].sum())
+    print("CNN train 1 + %d steps of 29 x 241 (pallas, dropout on): K5 %d "
+          "launches; loss per utterance first %.3f last %.3f; first step "
+          "(cuDNN algorithm search) %.1f ms; then ms/step median %.3f max "
+          "%.3f; %.1f utt/s, %.1f audio-s/s [%s]"
+          % (TRAIN_STEPS, launches, losses[0], losses[-1], first_ms, med,
+             max(step_ms), 1e3 * 29 / med, 1e3 * audio_s / med, card))
+    kernels, total, count, busy, wall, by_name = profile_device(
+        torch, lambda: step(train_state, batch, seed),
+        (("K5", "fused_dropout_kernel"),))
+    conv = conv_ms(by_name)
+    print("profile CNN train step: K5 %.3f ms, conv + GEMM kernels %.3f ms "
+          "(layout conversions %.3f), everything else %.3f ms, all %d "
+          "device ops %.3f ms, device busy %.3f of %.3f ms wall (idle share "
+          "%.3f); top: %s [%s]"
+          % (kernels["K5"], conv, layout_ms(by_name),
+             total - kernels["K5"] - conv, count, total, busy, wall,
+             1.0 - busy / wall, top_ops(by_name, 8), card))
     torch.cuda.synchronize()
     return launches
 
@@ -730,7 +1144,7 @@ def run():
     torch.cuda.synchronize()
 
     start = time.perf_counter()
-    paths = cuda_build.build(["sdr_fwd", "sdr_bwd"])
+    paths = cuda_build.build(["sdr_fwd", "sdr_bwd", "fused_dropout"])
     print("build: %.2f s" % (time.perf_counter() - start))
     for name, path in paths.items():
         if os.path.isfile(path + ".log"):
@@ -741,18 +1155,24 @@ def run():
 
     k1 = kernel_phase(torch, device)
     k2 = k2_phase(torch, device)
+    k5 = k5_phase(torch, device)
     serve_k1, state = main_path_phase(torch, card)
     train_k1, train_k2 = train_phase(torch, card, state)
     check(serve_k1 > 0, "K1 was not launched on the serving path")
     check(train_k1 > 0 and train_k2 > 0,
           "K1 or K2 was not launched on the training path")
+    serve_k5, cnn_state = cnn_serve_phase(torch, card)
+    train_k5 = cnn_train_phase(torch, card, cnn_state)
+    check(train_k5 > 0, "K5 was not launched on the CNN training path")
     k1["launches"] = serve_k1 + train_k1
     k1["launches_by_path"] = {"serve": serve_k1, "train": train_k1}
     k2["launches"] = train_k2
     k2["calls"] = train_k2 // 2  # two kernels per call
     k2["launches_by_path"] = {"train": train_k2}
+    k5["launches"] = serve_k5 + train_k5
+    k5["launches_by_path"] = {"cnn_serve": serve_k5, "cnn_train": train_k5}
 
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,18 @@
 """Weights carried across between the JAX package and the port.
 
 The flax side is the variable tree as nested dicts of numpy arrays,
-``{"params": ..., "batch_stats": ...}``, with the names fixed by
-``srf_tpu/models/srf.py`` and ``layers.py`` (``conv_feat/conv{i}_{b}``,
+``{"params": ..., "batch_stats": ...}`` (``batch_stats`` only where the
+model has BatchNorm), with the names fixed by ``srf_tpu/models/srf.py``,
+``cnn.py`` and ``layers.py`` (``conv_feat/conv{i}_{b}``,
 ``conv_feat/bn{i}``, ``flatten``, ``encaps1/2``, ``ln_input``, ``W{i}``/
-``b{i}``, ``ln_mid{i}``, ``ln_output``). The port side is the
-``SequenceRouter`` ``state_dict``. Layouts change on the way:
+``b{i}``, ``ln_mid{i}``, ``ln_output``; ``body/conv{i}``, ``body/ln{i}``,
+``body/proj{i}``, ``body/proj_ln{i}``, ``body/projv``, ``body/projv_ln``).
+The port side is the model's ``state_dict``. Layouts change on the way:
 
 - Dense kernel [in, out]        <-> Linear weight [out, in]
 - Conv kernel HWIO              <-> Conv2d weight OIHW
+- a kernel without a bias (the CNN's ``use_bias=False``) <-> a module
+  without one
 - LayerNorm / BatchNorm scale   <-> weight; BatchNorm mean/var (from
   ``batch_stats``) <-> running_mean/running_var
 - routing W{i} [in_n, out_n, out_d, in_d] and b{i} keep their layout.
@@ -49,7 +53,8 @@ def _params_to_state(params, stats, prefix, state):
                 raise ValueError("unexpected kernel %s of shape %s"
                                  % (key, kernel.shape))
             state[key + ".weight"] = _tensor(weight)
-            state[key + ".bias"] = _tensor(value["bias"])
+            if "bias" in value:  # the CNN's convs and Dense have none
+                state[key + ".bias"] = _tensor(value["bias"])
         elif "scale" in value:
             state[key + ".weight"] = _tensor(value["scale"])
             state[key + ".bias"] = _tensor(value["bias"])
@@ -87,7 +92,8 @@ def state_dict_to_flax(state):
         else:
             node["kernel"] = np.ascontiguousarray(
                 np.transpose(array, (2, 3, 1, 0)))  # OIHW -> HWIO
-    return {"params": params, "batch_stats": stats}
+    # a model without BatchNorm (the maxpool CNN) has no batch_stats
+    return {"params": params, **({"batch_stats": stats} if stats else {})}
 
 
 def _subtree(tree, path):

@@ -10,7 +10,14 @@ def resolve_device(device=None):
     the CPU unless asked to. On CUDA it also turns TF32 off for matmuls and
     cuDNN convolutions: cuDNN runs float32 convolutions in TF32 by default
     (about three decimal digits), which would swamp the float32 parity
-    tolerances the port is held to against the JAX reference.
+    tolerances the port is held to against the JAX reference. And it lets
+    cuDNN time its convolution algorithms at each new shape
+    (``cudnn.benchmark``): without TF32, cuDNN's heuristics pick FFT
+    tiling for the maxout CNN's (5, 3) convs at T=241, which makes its
+    forward ~25x and its train step ~9x slower than the implicit GEMM the
+    search finds (PERF.md, ``chip_cnn_numerics.py``). The search costs
+    seconds at the first call of each shape; batches come in fixed
+    buckets and serving pads to multiples of 128 frames.
     """
     device = torch.device(device or "cuda")
     if device.type == "cpu":
@@ -24,4 +31,5 @@ def resolve_device(device=None):
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
     return device

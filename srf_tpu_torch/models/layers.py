@@ -1,4 +1,8 @@
-"""Model building blocks (port of the SRF part of ``srf_tpu/models/layers.py``).
+"""Model building blocks (port of the SRF and CNN part of
+``srf_tpu/models/layers.py``).
+
+:func:`same_pad` / :func:`conv2d_same` — flax's ``padding="SAME"`` with a
+per-axis kernel and stride (the CNN's (5, 3) convs stride (t, 1)).
 
 :class:`ConvFrontEnd` — the reference's "CapsulationLayer" CNN front-end:
 per layer two parallel stride-2 3x3 convs combined by maxout, each with
@@ -24,20 +28,45 @@ from torch import nn
 from srf_tpu_torch.ops.masking import feat_mask
 
 
-def same_pad(x, kernel_size, stride):
-    """Pad the last two axes of NCHW ``x`` as flax/TF ``padding="SAME"`` does.
+def _pair(value):
+    return tuple(value) if isinstance(value, (tuple, list)) else (value, value)
+
+
+def same_pads(length, kernel_size, stride):
+    """(before, after) that flax/TF ``padding="SAME"`` adds to an axis.
 
     SAME pads ``max((ceil(L/s)-1)*s + k - L, 0)`` in all, the odd one at
     the end: with k=3, s=2 that is (0, 1) on an even axis and (1, 1) on an
     odd one, where torch's ``padding=1`` would always pad (1, 1) and sample
-    a shifted grid.
+    a shifted grid; with k=5, s=2 it is (1, 2) on an even axis and (2, 2)
+    on an odd one.
     """
-    pads = []
-    for length in (x.shape[3], x.shape[2]):  # F.pad lists the last axis first
-        total = max((math.ceil(length / stride) - 1) * stride + kernel_size
-                    - length, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
+    total = max((math.ceil(length / stride) - 1) * stride + kernel_size
+                - length, 0)
+    return total // 2, total - total // 2
+
+
+def same_pad(x, kernel_size, stride):
+    """Pad the last two axes of NCHW ``x`` as flax/TF ``padding="SAME"``
+    does; ``kernel_size`` and ``stride`` are an int or an (H, W) pair."""
+    (k_h, k_w), (s_h, s_w) = _pair(kernel_size), _pair(stride)
+    # F.pad lists the last axis first
+    return F.pad(x, [*same_pads(x.shape[3], k_w, s_w),
+                     *same_pads(x.shape[2], k_h, s_h)])
+
+
+def conv2d_same(x, weight, stride):
+    """``F.conv2d`` of NCHW ``x`` (any memory layout) with flax's SAME
+    padding and no bias: the symmetric part goes to the convolution's own
+    padding and only the odd one, where there is one, to an ``F.pad`` copy
+    (stride 1, the CNN-TIMIT recipe's, never needs it)."""
+    stride = _pair(stride)
+    (t_lo, t_hi), (f_lo, f_hi) = (
+        same_pads(x.shape[axis], weight.shape[axis], stride[axis - 2])
+        for axis in (2, 3))
+    if (t_lo, f_lo) != (t_hi, f_hi):
+        x = F.pad(x, [0, f_hi - f_lo, 0, t_hi - t_lo])
+    return F.conv2d(x, weight, None, stride, (t_lo, f_lo))
 
 
 class Dropout(nn.Dropout):

@@ -1,30 +1,49 @@
-"""Model dispatch (port of ``srf_tpu/models/registry.py``, SRF family only).
+"""Model dispatch (port of ``srf_tpu/models/registry.py``, the SRF and CNN
+families).
 
-Reference: tfsr/trainer_sr.py:175-201. ``in_len_div`` (the time-subsampling
-divisor used for CTC lengths) is ``conv_stride ** conv_layer_num``. Model
-types and flags this slice has not ported raise ``NotImplementedError``
-instead of running something else.
+Reference: tfsr/trainer_sr.py:175-201. ``--model-type`` "cnn"/"conv"/
+"convolution" selects the maxout CNN (the maxpool or the stride variant on
+``--model-conv-is-mp``); anything else but the LSTM and STF types, which
+this port has not reached, is SRF. ``in_len_div`` (the time-subsampling
+divisor used for CTC lengths) is ``conv_stride ** conv_layer_num`` for
+both families. Model types and flags not ported yet raise
+``NotImplementedError`` instead of running something else.
 """
 
+from srf_tpu_torch.models.cnn import (DROPOUT_IMPLS, CNNEncoder,
+                                      CNNStrideEncoder)
 from srf_tpu_torch.models.srf import SequenceRouter
 
 _LATER = "not ported yet: %s is a later slice of the PyTorch port"
+CNN_TYPES = ("cnn", "conv", "convolution")
+
+
+def validate_dropout_kernel(config, model_type):
+    """--tpu-dropout-kernel: ``xla`` or ``pallas``; the fused dropout (K5)
+    is wired to the CNN family only, so asking for it elsewhere is refused
+    rather than ignored (``srf_tpu/models/registry.py:64-78``)."""
+    impl = getattr(config, "tpu_dropout_kernel", "xla") or "xla"
+    if impl not in DROPOUT_IMPLS:
+        raise ValueError("unknown --tpu-dropout-kernel %r" % impl)
+    if impl == "pallas" and model_type not in CNN_TYPES:
+        raise ValueError(
+            "--tpu-dropout-kernel=pallas is wired to the CNN family only "
+            "(model-type %r would silently ignore it)" % model_type
+        )
+    return impl
 
 
 def build_model(config, dec_out_dim, logger=None, **overrides):
     """Returns (model, in_len_div)."""
     model_type = (config.model_type or "srf").lower()
-    if model_type.endswith("lstm") or model_type in (
-            "cnn", "conv", "convolution", "stf"):
+    validate_dropout_kernel(config, model_type)
+    if model_type.endswith("lstm") or model_type == "stf":
         raise NotImplementedError(_LATER % ("--model-type=" + model_type))
-    dropout_kernel = getattr(config, "tpu_dropout_kernel", "xla") or "xla"
-    if dropout_kernel not in ("xla", "pallas"):
-        raise ValueError("unknown --tpu-dropout-kernel %r" % dropout_kernel)
-    if dropout_kernel == "pallas":
-        raise ValueError(
-            "--tpu-dropout-kernel=pallas is wired to the CNN family only "
-            "(model-type %r would silently ignore it)" % model_type
-        )
+    in_len_div = config.model_conv_stride ** config.model_conv_layer_num
+    if model_type in CNN_TYPES:
+        encoder = CNNEncoder if config.model_conv_is_mp else CNNStrideEncoder
+        model = encoder.from_config(config, dec_out_dim, **overrides)
+        return model, in_len_div
     if config.model_caps_layer_time is not None:
         if logger is not None:
             logger.critical("LSRF is deprecated")
@@ -38,7 +57,6 @@ def build_model(config, dec_out_dim, logger=None, **overrides):
         raise NotImplementedError(_LATER % ("--tpu-routing-kernel=" + kernel))
     if getattr(config, "tpu_routing_bf16", False):
         raise NotImplementedError(_LATER % "--tpu-routing-bf16")
-    in_len_div = config.model_conv_stride ** config.model_conv_layer_num
     model = SequenceRouter.from_config(config, dec_out_dim, **overrides)
     if logger is not None:
         logger.info(

@@ -1,8 +1,8 @@
-"""Length masks (port of the SRF part of ``srf_tpu/ops/masking.py``).
+"""Length masks (port of the length-mask part of ``srf_tpu/ops/masking.py``).
 
 Parity target (reference: tfsr/helper/model_helper.py:125-153):
-:func:`feat_mask` zeroes padded frames after a conv layer via a
-``ceil(len/div)`` sequence mask.
+:func:`feat_mask` / :func:`feat_mask2` zero padded frames after conv /
+projection layers via a ``ceil(len/div)`` sequence mask.
 """
 
 import torch
@@ -31,3 +31,8 @@ def feat_mask(x, lengths, divisor, time_dim=1):
     shape = [x.shape[0]] + [1] * (x.dim() - 1)
     shape[time_dim] = x.shape[time_dim]
     return x * mask.reshape(shape)
+
+
+def feat_mask2(x, lengths, divisor):
+    """Zero padded frames of a 3-D [B, T, D] tensor."""
+    return feat_mask(x, lengths, divisor)

@@ -1,14 +1,23 @@
-"""Helpers for the PyTorch-port parity tests: flax SequenceRouter variables
-drawn from numpy at the shapes ``jax.eval_shape`` gives (no ``model.init``,
-which is slow on the CPU), as plain nested dicts of numpy arrays."""
+"""Helpers for the PyTorch-port parity tests: flax model variables
+(SequenceRouter, the CNN encoders, ConvFrontEnd) drawn from numpy at the
+shapes ``jax.eval_shape`` gives (no ``model.init``, which is slow on the
+CPU), as plain nested dicts of numpy arrays."""
 
+import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
+
+import srf_tpu.models.cnn as jax_cnn
+from srf_tpu.models.cnn import CNNEncoder as FlaxCNNEncoder
+from srf_tpu.models.cnn import CNNStrideEncoder as FlaxCNNStrideEncoder
+from srf_tpu_torch.models.cnn import CNNEncoder, CNNStrideEncoder
 
 
 def random_flax_variables(model, feat_dim, seed=0):
-    """{"params", "batch_stats"} for ``model`` (flax), drawn from numpy:
+    """{"params"} and, where the model has BatchNorm, {"batch_stats"} for
+    ``model`` (flax), drawn from numpy:
     kernels scaled by 1/sqrt(fan_in), routing W/b normal(0, 0.1), norm
     scales near 1, non-zero BatchNorm means and positive variances."""
     key = jax.random.PRNGKey(0)
@@ -38,8 +47,9 @@ def random_flax_variables(model, feat_dim, seed=0):
             out[name] = value.astype(np.float32)
         return out
 
-    return {"params": fill(shapes["params"]),
-            "batch_stats": fill(shapes["batch_stats"])}
+    # a model without BatchNorm (the maxpool CNN) has no batch_stats
+    return {name: fill(tree) for name, tree in shapes.items()
+            if name in ("params", "batch_stats")}
 
 
 def flatten_tree(tree, prefix=""):
@@ -51,3 +61,28 @@ def flatten_tree(tree, prefix=""):
         else:
             flat[prefix + name] = value
     return flat
+
+
+def cnn_pair(variant, **kwargs):
+    """(flax model, port model) of one CNN variant ("maxpool" or "stride")
+    with the same arguments."""
+    if variant == "maxpool":
+        return FlaxCNNEncoder(**kwargs), CNNEncoder(**kwargs)
+    kwargs.setdefault("conv_filter_num", 4)
+    return FlaxCNNStrideEncoder(**kwargs), CNNStrideEncoder(**kwargs)
+
+
+def no_dropout(model):
+    """Every port ``Dropout`` (both dropout kernels read its ``p``) at 0."""
+    for module in model.modules():
+        if isinstance(module, torch.nn.Dropout):
+            module.p = 0.0
+    return model
+
+
+def patch_out_jax_dropout(monkeypatch):
+    """flax's ``Dropout`` and the CNN's fused dropout as the identity."""
+    monkeypatch.setattr(flax.linen.Dropout, "__call__",
+                        lambda self, inputs, deterministic=None, rng=None:
+                        inputs)
+    monkeypatch.setattr(jax_cnn, "fused_dropout", lambda x, seed, rate: x)

@@ -174,9 +174,11 @@ def test_cuda_path_turns_tf32_off(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
     assert resolve_device("cuda").type == "cuda"
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cudnn.benchmark
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
