@@ -12,12 +12,14 @@ def resolve_device(device=None):
     (about three decimal digits), which would swamp the float32 parity
     tolerances the port is held to against the JAX reference. And it lets
     cuDNN time its convolution algorithms at each new shape
-    (``cudnn.benchmark``): without TF32, cuDNN's heuristics pick FFT
-    tiling for the maxout CNN's (5, 3) convs at T=241, which makes its
-    forward ~25x and its train step ~9x slower than the implicit GEMM the
-    search finds (PERF.md, ``chip_cnn_numerics.py``). The search costs
-    seconds at the first call of each shape; batches come in fixed
-    buckets and serving pads to multiples of 128 frames.
+    (``cudnn.benchmark``): without TF32, cuDNN's heuristics pick an FFT
+    tiling for the maxout CNN's (5, 3) convs at some shapes that runs
+    8-43x slower than what the search finds (a train step at 29 x 241, a
+    serving forward at 29 x 128), and algorithms 13-14 % slower at the
+    other train shapes. The search costs ~40 s at each new CNN train shape
+    (207 s over the TIMIT recipe's 5 buckets) and 0.1-16 s at each new CNN
+    serving shape (60 s over 21); the SRF runs at the same speed with or
+    without it (PERF.md, ``chip_cnn_numerics.py``).
     """
     device = torch.device(device or "cuda")
     if device.type == "cpu":

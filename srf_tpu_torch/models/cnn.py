@@ -29,7 +29,8 @@ the forward. Nothing is read back from the card, and the same step on the
 card and on the CPU draws the same K5 masks. ``ConvFrontEnd`` keeps its
 own hard-coded 0.2 dropout through ``layers.Dropout`` in both modes, as in
 JAX. A site's rate is its ``Dropout`` module's ``p`` in both modes, so
-setting every ``p`` to 0 turns dropout off.
+setting every ``p`` to 0 turns dropout off. ``models/registry.py`` refuses
+any other value of the flag.
 
 Reference quirks kept: the length-mask divisor is ``stride`` after conv 0
 and ``stride * stride`` after the rest in the maxpool variant, and
@@ -48,17 +49,13 @@ from srf_tpu_torch.models.layers import ConvFrontEnd, Dropout, conv2d_same
 from srf_tpu_torch.ops.dropout import fused_dropout, site_seed
 from srf_tpu_torch.ops.masking import feat_mask, feat_mask2
 
-DROPOUT_IMPLS = ("xla", "pallas")
-
 
 def _channel_maxout(x):
     dim = x.shape[-1] // 2
     return torch.maximum(x[..., :dim], x[..., dim:])
 
 
-def _check_config(enc_num, conv_layer_num, dropout_impl):
-    if dropout_impl not in DROPOUT_IMPLS:
-        raise ValueError("unknown --tpu-dropout-kernel %r" % dropout_impl)
+def _check_config(enc_num, conv_layer_num):
     if conv_layer_num >= 4:
         raise ValueError("the maxout CNN needs --model-conv-layer-num < 4 "
                          "(got %d)" % conv_layer_num)
@@ -174,7 +171,7 @@ class CNNEncoder(_CNNBase):
                  conv_layer_num=2, stride=2, inner_dropout=0.1,
                  init_name=None, dropout_impl="xla", generator=None):
         super().__init__()
-        _check_config(enc_num, conv_layer_num, dropout_impl)
+        _check_config(enc_num, conv_layer_num)
         self.dropout_impl = dropout_impl
         pooled_dim = feat_dim // 3
         last_filt = (proj_dim // pooled_dim) * 2
@@ -225,7 +222,7 @@ class CNNStrideEncoder(_CNNBase):
                  inner_dropout=0.1, init_name=None, dropout_impl="xla",
                  generator=None):
         super().__init__()
-        _check_config(enc_num, conv_layer_num, dropout_impl)
+        _check_config(enc_num, conv_layer_num)
         self.dropout_impl = dropout_impl
         stride = 2  # the reference hard-codes stride 2 for the front end
         fe_dim = math.ceil(feat_dim / stride ** conv_layer_num)

@@ -10,12 +10,12 @@ both families. Model types and flags not ported yet raise
 ``NotImplementedError`` instead of running something else.
 """
 
-from srf_tpu_torch.models.cnn import (DROPOUT_IMPLS, CNNEncoder,
-                                      CNNStrideEncoder)
+from srf_tpu_torch.models.cnn import CNNEncoder, CNNStrideEncoder
 from srf_tpu_torch.models.srf import SequenceRouter
 
 _LATER = "not ported yet: %s is a later slice of the PyTorch port"
 CNN_TYPES = ("cnn", "conv", "convolution")
+DROPOUT_IMPLS = ("xla", "pallas")
 
 
 def validate_dropout_kernel(config, model_type):

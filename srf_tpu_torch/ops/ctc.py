@@ -48,7 +48,9 @@ def ctc_loss(logits, logit_lengths, labels, label_lengths, blank_id=None):
     """
     if blank_id is None:
         blank_id = logits.shape[-1] - 1
-    log_probs = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)
+    if logits.dtype not in (torch.float32, torch.float64):
+        logits = logits.float()  # half types: the loss in float32
+    log_probs = torch.log_softmax(logits, dim=-1).transpose(0, 1)
     logit_lengths = logit_lengths.to(torch.long)
     label_lengths = label_lengths.to(torch.long)
     loss = F.ctc_loss(log_probs, labels.to(torch.long), logit_lengths,

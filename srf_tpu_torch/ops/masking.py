@@ -20,10 +20,10 @@ def subsampled_lengths(lengths, divisor):
 
 
 def feat_mask(x, lengths, divisor, time_dim=1):
-    """Zero padded frames of a 4-D tensor along ``time_dim``.
+    """Zero padded frames of a [B, ...] tensor along ``time_dim``.
 
-    ``time_dim=1`` is the JAX layout [B, T, F, C]; the front end passes 2
-    for its NCHW [B, C, T, F] tensors.
+    ``time_dim=1`` is the JAX layouts [B, T, F, C] and [B, T, D]; the front
+    end passes 2 for its NCHW [B, C, T, F] tensors.
     """
     mask = sequence_mask(
         subsampled_lengths(lengths, divisor), x.shape[time_dim], x.dtype
@@ -33,6 +33,5 @@ def feat_mask(x, lengths, divisor, time_dim=1):
     return x * mask.reshape(shape)
 
 
-def feat_mask2(x, lengths, divisor):
-    """Zero padded frames of a 3-D [B, T, D] tensor."""
-    return feat_mask(x, lengths, divisor)
+# the 3-D [B, T, D] mask, under the JAX package's name
+feat_mask2 = feat_mask

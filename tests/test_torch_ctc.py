@@ -76,6 +76,23 @@ def test_ctc_loss_blank_argument():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
 
 
+def test_ctc_loss_keeps_float64_and_promotes_half_types():
+    """float64 logits stay float64 through the log-softmax and the loss (a
+    float64 run is a float64 reference); bfloat16 ones are promoted to
+    float32."""
+    logits, inp_len, labels, tar_len = _problem(seed=4)
+    args = (torch.from_numpy(inp_len), IN_LEN_DIV, torch.from_numpy(labels),
+            torch.from_numpy(tar_len))
+    lg64 = torch.from_numpy(logits).double().requires_grad_()
+    pe64 = ctc.ctc_loss_from_frames(lg64, *args)
+    pe64.sum().backward()
+    assert pe64.dtype == lg64.grad.dtype == torch.float64
+    pe32 = ctc.ctc_loss_from_frames(torch.from_numpy(logits), *args)
+    np.testing.assert_allclose(pe64.detach().numpy(), pe32.numpy(), rtol=1e-5)
+    half = ctc.ctc_loss_from_frames(torch.from_numpy(logits).bfloat16(), *args)
+    assert half.dtype == torch.float32
+
+
 def test_infeasible_alignment_is_large_finite_with_zero_gradient():
     logits, inp_len, labels, tar_len = _problem(seed=3)
     # row 1: 2 logit frames for 3 labels; row 2: 2 frames, labels "a a"
