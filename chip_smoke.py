@@ -6,18 +6,23 @@
 Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the serving and training paths from csrc/
-   with nvcc (one process per source, all started together): K1, K2, K5;
-3. K1 (SDR forward) against its plain PyTorch version on the same CUDA
+2. build every CUDA kernel of the port from csrc/ with nvcc (one process
+   per source, all started together): K1, K2, K3, K4, K5;
+3. K1 (SDR forward) and K3 (the time-blocked, batch-tiled SDR forward)
+   against their plain PyTorch version, and K3 against K1, on the same CUDA
    tensors, at the three canonical SRF-TIMIT capsule-layer geometries, at
    the serving path's two shapes (B=29, T'=64: 29 x 241 frames padded to
    256; B=8, T'=128), at the unpadded bucket (T'=61) and at an odd B/T with
-   2 routing iterations and the PAD mask flipped; kernel and plain times
-   from CUDA events at B=29, T'=64;
-4. K2 (the fused SDR backward) against its plain PyTorch version on the
-   same CUDA tensors, at the three geometries at B=29 with T'=64 and T'=61
-   (the training path's shape), and at an odd B/T with the PAD mask
-   flipped; kernel and plain times from CUDA events at B=29, T'=61;
+   2 routing iterations and the PAD mask flipped, K3 at time blocks 8, 1
+   and 5 (5 divides neither 61 nor 64); K1's and K3's times in turns on
+   the same inputs, and the plain version's, from CUDA events at B=29,
+   T'=64;
+4. K2 (the fused SDR backward) and K4 (K3's backward, dW and db summed
+   inside the kernel) against their plain PyTorch version, and K4 against
+   K2, on the same CUDA tensors, at phase 3's shapes with one iteration and
+   time blocks; K4 bit-equal across two calls; K2's and K4's times in
+   turns, and the plain version's, at B=29, T'=61 (the training path's
+   shape);
 5. K5 (the fused dropout) against its plain PyTorch version with
    torch.equal (the two draw the same Philox bits) at 1-5000 elements, a
    misaligned view, and each of the 25 dropout sites of a CNN-TIMIT train
@@ -36,6 +41,14 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    and the same weights on the CPU must give the same ids and text, with
    logits within LOGIT_ATOL; then forward and end-to-end times, utt/s and
    the realtime factor, and a profile of one forward;
+6b. the scan path (sequential_routing_scan, the counterpart of JAX's
+   sequential_routing_pallas_scan, which no model calls): the inputs each
+   of the 7 routing layers receives when the 29 x 241 batch is served
+   (route_layer wrapped here, not in the package) go through the 7 layers'
+   forward (7 K3 launches) and their backward for a fixed random cotangent
+   (7 K4 calls, 14 launches, no plain backward), and each layer's output
+   and gradients must agree with SDRFunction (K1, K2) on the same inputs;
+   the 7-layer forward and backward times of K3/K1 and K4/K2 in turns;
 7. the SRF training path: the same model and weights trained by
    train.step.make_train_step with Adam under Noam(0.5, 1, 1200) and
    timit.conf's betas and eps, on bench.py's workload (29 utterances of
@@ -69,8 +82,8 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    apart), each launching K5 exactly 50 times, with finite losses and
    every tensor on the card; ms/step, utt/s, audio-seconds/s and a profile
    of one step (K5, convolution kernels, the rest, idle share);
-10. a "kernels" JSON line (K1, K2, K5), then the card line, then the
-   result line.
+10. a "kernels" JSON line (K1, K2, K3, K4, K5), then the card line, then
+   the result line.
 """
 
 import json
@@ -130,6 +143,14 @@ CNN_LOGIT_ATOL = 3e-4
 CNN_GRAD_ATOL_REL, CNN_UPDATE_GRAD_REL, CNN_MIN_COMPARED = 5e-2, 1e-1, 0.1
 TRAIN_STEPS = 20
 TRAIN_CHECK_BATCH = 8
+# the shapes every SDR kernel (K1-K4) is held to its plain version at, as
+# (B, T', routing iterations, PAD mask flipped): the serving path's two
+# (29 x 241 frames padded to 256, and B=8 T'=128), the unpadded training
+# bucket, and an odd B/T (K2 and K4 take one iteration); and K3's and K4's
+# time blocks, 5 dividing neither 61 nor 64
+SDR_SHAPES = ((29, 64, 1, False), (8, 128, 1, False), (29, 61, 1, False),
+              (7, 17, 2, True))
+SCAN_TIME_BLOCKS = (8, 1, 5)
 # (name, (in_n, out_n, out_d, in_d), PAD mask, layers per forward)
 TIMIT_LAYERS = [
     ("layer0", (180, 30, 8, 8), False, 1),
@@ -198,6 +219,14 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def paired_ms(torch, first, second, reps):
+    """Mean ms of two functions on the same inputs, from CUDA events, each
+    timed twice in the order first, second, second, first."""
+    times = [event_ms(torch, fn, reps) for fn in (first, second, second,
+                                                   first)]
+    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+
+
 def timed_ms(torch, fn, reps):
     """Host-clock ms of each of ``reps`` calls of ``fn``, each ending in a
     synchronize (a request is done when its result is on the host)."""
@@ -258,25 +287,60 @@ def card_line():
     return out.splitlines()[0]
 
 
+def sdr_totals():
+    return dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes_ms",
+                          "operations_ms"), 0.0)
+
+
+def add_layer(totals, per_layer, layer, count, ms, plain_ms, bound_ms_pair,
+              **extra):
+    """Adds one layer's times, ``count`` times over, to a kernel's totals,
+    and its entry to ``per_layer``."""
+    bytes_ms, ops_ms = bound_ms_pair
+    bound = max(bytes_ms, ops_ms)
+    per_layer.append(dict(layer=layer, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, **extra))
+    for key, value in (("ms", ms), ("plain_ms", plain_ms),
+                       ("bound_ms", bound), ("bytes_ms", bytes_ms),
+                       ("operations_ms", ops_ms)):
+        totals[key] += count * value
+
+
+def kernel_entry(name, replaces, max_err, totals, per_layer):
+    """A kernel's entry of the "kernels" JSON line; ``launches`` is set once
+    the main path has run."""
+    return {
+        "name": name, "route": "cuda",
+        "source": "srf_tpu_torch/csrc/%s.cu" % name,
+        "replaces": replaces, "launches": None, "max_abs_err": max_err,
+        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": ("bytes" if totals["bytes_ms"] > totals["operations_ms"]
+                     else "operations"),
+        "library_ms": None,  # no single PyTorch call computes SDR or its VJP
+        "per_layer": per_layer,
+    }
+
+
 def kernel_phase(torch, device):
-    """Phase 3: K1 against its plain version; returns its JSON entry."""
+    """Phase 3: K1 and K3 against their plain version, and K3 against K1,
+    on the same CUDA tensors; returns their JSON entries."""
     from srf_tpu_torch.ops.routing import sequential_routing
-    from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
+    from srf_tpu_torch.ops.routing_cuda import (_lib, sequential_routing_cuda,
+                                                sequential_routing_scan_cuda)
 
     rng = np.random.RandomState(SEED)
-    max_err = 0.0
-    per_layer = []
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-              "operations_ms": 0.0}
+    max_err = {"K1": 0.0, "K3": 0.0, "K3 vs K1": 0.0}
+    per_layer = {"K1": [], "K3": []}
+    totals = {"K1": sdr_totals(), "K3": sdr_totals()}
     for name, geometry, mask, count in TIMIT_LAYERS:
         in_n, out_n, out_d, in_d = geometry
         w = torch.tensor(rng.randn(in_n, out_n, out_d, in_d) * 0.1,
                          dtype=torch.float32, device=device)
         b = torch.tensor(rng.randn(in_n, out_n, out_d) * 0.1,
                          dtype=torch.float32, device=device)
-        for batch, seq_len, num_iter, use_mask in (
-                (29, 64, 1, mask), (8, 128, 1, mask), (29, 61, 1, mask),
-                (7, 17, 2, not mask)):
+        for batch, seq_len, num_iter, flip in SDR_SHAPES:
+            use_mask = mask != flip
             u = torch.tensor(rng.randn(batch, seq_len, in_n, in_d),
                              dtype=torch.float32, device=device)
             got = sequential_routing_cuda(u, w, b, num_iter, use_mask)
@@ -285,67 +349,111 @@ def kernel_phase(torch, device):
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), "K1 output not finite")
             err = (got - want).abs().max().item()
-            max_err = max(max_err, err)
+            max_err["K1"] = max(max_err["K1"], err)
             print("K1 %s %s B=%d T=%d iter=%d mask=%s max_abs_err=%.3e"
                   % (name, geometry, batch, seq_len, num_iter, use_mask, err))
             check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
                   "K1 disagrees with its plain version at %s B=%d T=%d"
                   % (geometry, batch, seq_len))
+            for time_block in SCAN_TIME_BLOCKS:
+                k3 = sequential_routing_scan_cuda(u, w, b, num_iter, use_mask,
+                                                  time_block)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(k3).all()), "K3 output not finite")
+                err, err_k1 = ((k3 - want).abs().max().item(),
+                               (k3 - got).abs().max().item())
+                max_err["K3"] = max(max_err["K3"], err)
+                max_err["K3 vs K1"] = max(max_err["K3 vs K1"], err_k1)
+                print("K3 %s %s B=%d T=%d iter=%d mask=%s time_block=%d "
+                      "max_abs_err=%.3e (vs K1 %.3e)"
+                      % (name, geometry, batch, seq_len, num_iter, use_mask,
+                         time_block, err, err_k1))
+                check(torch.allclose(k3, want, rtol=RTOL, atol=ATOL)
+                      and torch.allclose(k3, got, rtol=RTOL, atol=ATOL),
+                      "K3 disagrees with its plain version or K1 at %s B=%d "
+                      "T=%d time_block=%d" % (geometry, batch, seq_len,
+                                              time_block))
             if (batch, seq_len) != (29, 64):
                 continue
-            ms = event_ms(torch, lambda: sequential_routing_cuda(
-                u, w, b, num_iter, use_mask), 20)
+            ms, k3_ms = paired_ms(
+                torch, lambda: sequential_routing_cuda(u, w, b, num_iter,
+                                                       use_mask),
+                lambda: sequential_routing_scan_cuda(u, w, b, num_iter,
+                                                     use_mask), 20)
             plain_ms = event_ms(torch, lambda: sequential_routing(
                 u, w, b, num_iter, use_mask), 3)
-            bytes_ms, ops_ms = sdr_bound_ms(batch, seq_len, geometry,
-                                            num_iter)
-            bound = max(bytes_ms, ops_ms)
+            bound = sdr_bound_ms(batch, seq_len, geometry, num_iter)
+            tile = _lib("sdr_scan_fwd").sdr_scan_fwd_batch_tile(
+                batch, seq_len, in_n, in_d, out_n, out_d, 8)
             print("K1 %s B=29 T=64: kernel %.4f ms, plain %.4f ms, bound "
                   "%.4f ms (bytes %.4f ms, operations %.4f ms)"
-                  % (name, ms, plain_ms, bound, bytes_ms, ops_ms))
-            per_layer.append({"layer": name, "geometry": list(geometry),
-                              "per_forward": count, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound})
-            totals["ms"] += count * ms
-            totals["plain_ms"] += count * plain_ms
-            totals["bound_ms"] += count * bound
-            totals["bytes_ms"] += count * bytes_ms
-            totals["operations_ms"] += count * ops_ms
+                  % (name, ms, plain_ms, max(bound), *bound))
+            print("K3 %s B=29 T=64 (batch tile %d, time block 8): kernel "
+                  "%.4f ms, K1 %.4f ms on the same inputs" % (name, tile,
+                                                              k3_ms, ms))
+            for label, kernel_ms, extra in (
+                    ("K1", ms, {}), ("K3", k3_ms, {"k1_ms": ms,
+                                                   "batch_tile": tile})):
+                add_layer(totals[label], per_layer[label], name, count,
+                          kernel_ms, plain_ms, bound, geometry=list(geometry),
+                          per_forward=count, **extra)
     torch.cuda.synchronize()
-    return {
-        "name": "sdr_fwd", "route": "cuda",
-        "source": "srf_tpu_torch/csrc/sdr_fwd.cu",
-        "replaces": "srf_tpu/ops/routing_pallas.py:81",
-        "launches": None, "max_abs_err": max_err,
-        # one forward's 7 launches at the main path's B=29, T'=64
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": ("bytes" if totals["bytes_ms"] > totals["operations_ms"]
-                     else "operations"),
-        "library_ms": None,  # no single PyTorch call computes SDR
-        "per_layer": per_layer,
-    }
+    print("K3 one forward's 7 layers at B=29 T=64: kernel %.4f ms, K1 %.4f "
+          "ms, plain %.4f ms, bound %.4f ms; max |K3 - plain| %.3e, max |K3 "
+          "- K1| %.3e" % (totals["K3"]["ms"], totals["K1"]["ms"],
+                          totals["K3"]["plain_ms"], totals["K3"]["bound_ms"],
+                          max_err["K3"], max_err["K3 vs K1"]))
+    # times: one forward's 7 launches at the main path's B=29, T'=64 (K3's
+    # at time block 8), K1 and K3 timed in turns on the same inputs
+    k1 = kernel_entry("sdr_fwd", "srf_tpu/ops/routing_pallas.py:81",
+                      max_err["K1"], totals["K1"], per_layer["K1"])
+    k3 = kernel_entry("sdr_scan_fwd", "srf_tpu/ops/routing_pallas.py:387",
+                      max_err["K3"], totals["K3"], per_layer["K3"])
+    k3.update(k1_ms=totals["K1"]["ms"], max_abs_err_vs_k1=max_err["K3 vs K1"])
+    return k1, k3
 
 
 def k2_phase(torch, device):
-    """Phase 4: K2 against its plain version; returns its JSON entry."""
+    """Phase 4: K2 and K4 against their plain version, K4 against K2 on the
+    same CUDA tensors and bit-equal across two calls; returns their JSON
+    entries."""
     from srf_tpu_torch.ops.routing import sequential_routing_bwd
-    from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
-                                                sequential_routing_cuda)
+    from srf_tpu_torch.ops.routing_cuda import (
+        _lib, sequential_routing_bwd_cuda, sequential_routing_cuda,
+        sequential_routing_scan_bwd_cuda)
 
     rng = np.random.RandomState(SEED + 2)
-    max_err = 0.0
-    per_layer = []
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-              "operations_ms": 0.0}
+    max_err = {"K2": 0.0, "K4": 0.0, "K4 vs K2": 0.0}
+    per_layer = {"K2": [], "K4": []}
+    totals = {"K2": sdr_totals(), "K4": sdr_totals()}
+
+    def held(label, got, want, tolerances_of, against):
+        """Checks (du, dW, db) against ``want`` with K2's tolerances, each
+        scaled by the largest entry of ``tolerances_of``; returns the
+        errors as text and the largest."""
+        errs, worst_err = [], 0.0
+        for part, g, x, ref in zip(("du", "dW", "db"), got, want,
+                                   tolerances_of):
+            check(bool(torch.isfinite(g).all()), "%s %s not finite"
+                  % (label, part))
+            scale = ref.abs().max().item()
+            err = (g - x).abs().max().item()
+            worst_err = max(worst_err, err)
+            errs.append("%s %.3e (max|plain| %.3e)" % (part, err, scale))
+            check(torch.allclose(g, x, rtol=K2_RTOL, atol=K2_ATOL_REL * scale),
+                  "%s %s disagrees with %s" % (label, part, against))
+        return ", ".join(errs), worst_err
+
     for name, geometry, mask, count in TIMIT_LAYERS:
         in_n, out_n, out_d, in_d = geometry
         w = torch.tensor(rng.randn(in_n, out_n, out_d, in_d) * 0.1,
                          dtype=torch.float32, device=device)
         b = torch.tensor(rng.randn(in_n, out_n, out_d) * 0.1,
                          dtype=torch.float32, device=device)
-        for batch, seq_len, use_mask in ((29, 64, mask), (29, 61, mask),
-                                         (7, 17, not mask)):
+        for batch, seq_len, _, flip in SDR_SHAPES:  # one routing iteration
+            use_mask = mask != flip
+            where = "%s B=%d T=%d mask=%s" % (geometry, batch, seq_len,
+                                              use_mask)
             u = torch.tensor(rng.randn(batch, seq_len, in_n, in_d),
                              dtype=torch.float32, device=device)
             vs = sequential_routing_cuda(u, w, b, 1, use_mask)
@@ -355,56 +463,65 @@ def k2_phase(torch, device):
             torch.cuda.synchronize()
             want = sequential_routing_bwd(u, w, b, vs, dvs, use_mask)
             torch.cuda.synchronize()
-            errs = []
-            for label, g, x in zip(("du", "dW", "db"), got, want):
-                check(bool(torch.isfinite(g).all()),
-                      "K2 %s not finite" % label)
-                scale = x.abs().max().item()
-                err = (g - x).abs().max().item()
-                errs.append("%s %.3e (max|plain| %.3e)" % (label, err, scale))
-                max_err = max(max_err, err)
-                check(torch.allclose(g, x, rtol=K2_RTOL,
-                                     atol=K2_ATOL_REL * scale),
-                      "K2 %s disagrees with its plain version at %s B=%d "
-                      "T=%d mask=%s" % (label, geometry, batch, seq_len,
-                                        use_mask))
-            print("K2 %s %s B=%d T=%d mask=%s max_abs_err %s"
-                  % (name, geometry, batch, seq_len, use_mask,
-                     ", ".join(errs)))
+            text, err = held("K2", got, want, want,
+                             "its plain version at " + where)
+            max_err["K2"] = max(max_err["K2"], err)
+            print("K2 %s %s max_abs_err %s" % (name, where, text))
+            for time_block in SCAN_TIME_BLOCKS:
+                k4 = sequential_routing_scan_bwd_cuda(u, w, b, vs, dvs,
+                                                      use_mask, time_block)
+                again = sequential_routing_scan_bwd_cuda(
+                    u, w, b, vs, dvs, use_mask, time_block)
+                torch.cuda.synchronize()
+                at = "%s time_block=%d" % (where, time_block)
+                check(all(torch.equal(x, y) for x, y in zip(k4, again)),
+                      "K4 is not bit-equal across two calls at " + at)
+                text, err = held("K4", k4, want, want,
+                                 "its plain version at " + at)
+                text_k2, err_k2 = held("K4", k4, got, want, "K2 at " + at)
+                max_err["K4"] = max(max_err["K4"], err)
+                max_err["K4 vs K2"] = max(max_err["K4 vs K2"], err_k2)
+                print("K4 %s %s bit-equal twice; max_abs_err %s; vs K2 %s"
+                      % (name, at, text, text_k2))
             if (batch, seq_len) != (29, 61):
                 continue
-            ms = event_ms(torch, lambda: sequential_routing_bwd_cuda(
-                u, w, b, vs, dvs, use_mask), 10)
+            ms, k4_ms = paired_ms(
+                torch, lambda: sequential_routing_bwd_cuda(u, w, b, vs, dvs,
+                                                           use_mask),
+                lambda: sequential_routing_scan_bwd_cuda(u, w, b, vs, dvs,
+                                                         use_mask), 10)
             plain_ms = event_ms(torch, lambda: sequential_routing_bwd(
                 u, w, b, vs, dvs, use_mask), 2)
-            bytes_ms, ops_ms = sdr_bwd_bound_ms(batch, seq_len, geometry)
-            bound = max(bytes_ms, ops_ms)
+            bound = sdr_bwd_bound_ms(batch, seq_len, geometry)
+            tile = _lib("sdr_scan_bwd").sdr_scan_bwd_batch_tile(
+                batch, seq_len, in_n, in_d, out_n, out_d, 8)
             print("K2 %s B=29 T=61: kernel %.4f ms, plain %.4f ms, bound "
                   "%.4f ms (bytes %.4f ms, operations %.4f ms)"
-                  % (name, ms, plain_ms, bound, bytes_ms, ops_ms))
-            per_layer.append({"layer": name, "geometry": list(geometry),
-                              "per_step": count, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound})
-            totals["ms"] += count * ms
-            totals["plain_ms"] += count * plain_ms
-            totals["bound_ms"] += count * bound
-            totals["bytes_ms"] += count * bytes_ms
-            totals["operations_ms"] += count * ops_ms
+                  % (name, ms, plain_ms, max(bound), *bound))
+            print("K4 %s B=29 T=61 (batch tile %d, time block 8): kernel "
+                  "%.4f ms, K2 %.4f ms on the same inputs" % (name, tile,
+                                                              k4_ms, ms))
+            for label, kernel_ms, extra in (
+                    ("K2", ms, {}), ("K4", k4_ms, {"k2_ms": ms,
+                                                   "batch_tile": tile})):
+                add_layer(totals[label], per_layer[label], name, count,
+                          kernel_ms, plain_ms, bound, geometry=list(geometry),
+                          per_step=count, **extra)
     torch.cuda.synchronize()
-    return {
-        "name": "sdr_bwd", "route": "cuda",
-        "source": "srf_tpu_torch/csrc/sdr_bwd.cu",
-        "replaces": "srf_tpu/ops/routing_pallas.py:159",
-        "launches": None, "max_abs_err": max_err,
-        # one train step's 7 calls (14 launches: each call's reverse-time
-        # and weight-gradient kernels) at the training path's B=29, T'=61
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": ("bytes" if totals["bytes_ms"] > totals["operations_ms"]
-                     else "operations"),
-        "library_ms": None,  # no single PyTorch call computes the SDR VJP
-        "per_layer": per_layer,
-    }
+    print("K4 one backward's 7 layers at B=29 T=61: kernel %.4f ms, K2 %.4f "
+          "ms, plain %.4f ms, bound %.4f ms; max |K4 - plain| %.3e, max |K4 "
+          "- K2| %.3e" % (totals["K4"]["ms"], totals["K2"]["ms"],
+                          totals["K4"]["plain_ms"], totals["K4"]["bound_ms"],
+                          max_err["K4"], max_err["K4 vs K2"]))
+    # times: one train step's 7 calls (K2: 14 launches, each call's
+    # reverse-time and weight-gradient kernels; K4: 14, its scan and
+    # reduction) at the training path's B=29, T'=61, timed in turns
+    k2 = kernel_entry("sdr_bwd", "srf_tpu/ops/routing_pallas.py:159",
+                      max_err["K2"], totals["K2"], per_layer["K2"])
+    k4 = kernel_entry("sdr_scan_bwd", "srf_tpu/ops/routing_pallas.py:473",
+                      max_err["K4"], totals["K4"], per_layer["K4"])
+    k4.update(k2_ms=totals["K2"]["ms"], max_abs_err_vs_k2=max_err["K4 vs K2"])
+    return k2, k4
 
 
 def random_weights(model):
@@ -542,7 +659,7 @@ def check_served(name, got, feats_list, in_len_div):
 
 
 def main_path_phase(torch, card):
-    """Phase 5: serve two batches on the card; returns K1's launches and
+    """Phase 6: serve two batches on the card; returns K1's launches and
     the random weights (a state_dict)."""
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.models.registry import build_model
@@ -619,6 +736,124 @@ def main_path_phase(torch, card):
                  1.0 - busy / wall, card))
     torch.cuda.synchronize()
     return launches, state
+
+
+def scan_path_phase(torch, card, state):
+    """Phase 6b: the counterpart of sequential_routing_pallas_scan at full
+    width. Serves the 29 x 241 batch with the SRF-TIMIT weights, captures
+    what each of the 7 routing layers receives, then drives the 7 layers'
+    forward through sequential_routing_scan (SDRScanFunction: K3) and its
+    backward for a fixed cotangent (K4), and holds each layer's output and
+    gradients to SDRFunction (K1, K2) on the same inputs. Returns the K3 and
+    K4 launches of that run and the 7-layer times."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models import srf
+    from srf_tpu_torch.ops.routing_cuda import (
+        SDRFunction, SDRScanFunction, sequential_routing_bwd_cuda,
+        sequential_routing_cuda, sequential_routing_scan,
+        sequential_routing_scan_bwd_cuda, sequential_routing_scan_cuda)
+    from srf_tpu_torch.serve import Recognizer
+
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    rec = Recognizer(timit_config(logger, "cuda"), state_dict=state,
+                     logger=logger)
+    captured, real = [], srf.route_layer
+
+    def capture(u, wgt, bias, num_iter, is_context, is_last_layer):
+        captured.append((u.detach().clone(), wgt.detach(), bias.detach(),
+                         num_iter, is_context, is_last_layer))
+        return real(u, wgt, bias, num_iter, is_context, is_last_layer)
+
+    srf.route_layer = capture
+    try:
+        rec.transcribe_batch_detailed(serve_batches()["29x241"])
+    finally:
+        srf.route_layer = real
+    torch.cuda.synchronize()
+    check(len(captured) == 7, "captured %d routing layers, expected 7"
+          % len(captured))
+    check([c[5] for c in captured] == [False] * 6 + [True]
+          and all(c[3] == 1 and c[4] for c in captured),
+          "routing layers: not 7 SDR layers of 1 iteration, PAD mask last")
+    layers = [(u, w, b, last) for u, w, b, _, _, last in captured]
+    shapes = [tuple(u.shape) for u, _, _, _ in layers]
+    check(all(s[:2] == (29, 64) for s in shapes),
+          "captured inputs %s, expected B=29, T'=64" % shapes)
+    rng = np.random.RandomState(SEED + 6)
+    cotangents = [torch.tensor(rng.randn(29, 64, w.shape[1], w.shape[2]),
+                               dtype=torch.float32, device=w.device)
+                  for _, w, _, _ in layers]
+
+    def run_stack(fn):
+        """The 7 layers' forward through ``fn`` and their backward for the
+        cotangents: (outputs, [(du, dW, db)] per layer)."""
+        leaves = [[x.clone().requires_grad_() for x in (u, w, b)]
+                  for u, w, b, _ in layers]
+        outs = [fn(*leaf, last) for leaf, (_, _, _, last)
+                in zip(leaves, layers)]
+        torch.cuda.synchronize()
+        forward_launches = sequential_routing_scan_cuda.launches
+        torch.autograd.backward(outs, cotangents)
+        torch.cuda.synchronize()
+        return ([o.detach() for o in outs],
+                [[x.grad for x in leaf] for leaf in leaves],
+                forward_launches)
+
+    sequential_routing_scan_cuda.launches = 0
+    sequential_routing_scan_bwd_cuda.launches = 0
+    SDRScanFunction.plain_backwards = 0
+    outs, grads, k3_forward = run_stack(
+        lambda u, w, b, last: sequential_routing_scan(u, w, b, 1, last))
+    k3, k4 = (sequential_routing_scan_cuda.launches,
+              sequential_routing_scan_bwd_cuda.launches)
+    print("scan path: 7-layer forward and backward at B=29 T'=64: K3 %d "
+          "launches in the forward, K4 %d launches in the backward (7 calls "
+          "of its two kernels), plain backwards %d"
+          % (k3_forward, k4, SDRScanFunction.plain_backwards))
+    check(k3_forward == 7 and k3 == 7 and k4 == 14
+          and SDRScanFunction.plain_backwards == 0,
+          "scan path launched K3 %d and K4 %d times with %d plain backwards, "
+          "expected 7, 14 and 0" % (k3, k4, SDRScanFunction.plain_backwards))
+
+    ref_outs, ref_grads, _ = run_stack(
+        lambda u, w, b, last: SDRFunction.apply(u, w, b, 1, last))
+    for i, (out, ref, got_g, ref_g) in enumerate(zip(outs, ref_outs, grads,
+                                                     ref_grads)):
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              "scan path layer %d output %s" % (i, tuple(out.shape)))
+        err = (out - ref).abs().max().item()
+        check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
+              "scan path layer %d: K3 output differs from K1's" % i)
+        errs = []
+        for label, g, x in zip(("du", "dW", "db"), got_g, ref_g):
+            scale = x.abs().max().item()
+            g_err = (g - x).abs().max().item()
+            errs.append("%s %.3e (max %.3e)" % (label, g_err, scale))
+            check(bool(torch.isfinite(g).all())
+                  and torch.allclose(g, x, rtol=K2_RTOL,
+                                     atol=K2_ATOL_REL * scale),
+                  "scan path layer %d: K4 %s differs from K2's" % (i, label))
+        print("scan path layer %d %s: |K3 - K1| %.3e; |K4 - K2| %s"
+              % (i, shapes[i], err, ", ".join(errs)))
+
+    backward = [(u, w, b, out, cot, last) for (u, w, b, last), out, cot
+                in zip(layers, outs, cotangents)]
+    k1_ms, k3_ms = paired_ms(
+        torch, lambda: [sequential_routing_cuda(u, w, b, 1, last)
+                        for u, w, b, last in layers],
+        lambda: [sequential_routing_scan_cuda(u, w, b, 1, last)
+                 for u, w, b, last in layers], 5)
+    k2_ms, k4_ms = paired_ms(
+        torch, lambda: [sequential_routing_bwd_cuda(*args)
+                        for args in backward],
+        lambda: [sequential_routing_scan_bwd_cuda(*args)
+                 for args in backward], 3)
+    print("scan path on the captured inputs (B=29 T'=64): 7-layer forward K3 "
+          "%.4f ms, K1 %.4f ms; 7-layer backward K4 %.4f ms, K2 %.4f ms [%s]"
+          % (k3_ms, k1_ms, k4_ms, k2_ms, card))
+    torch.cuda.synchronize()
+    return k3, k4, {"forward_ms": k3_ms, "k1_forward_ms": k1_ms,
+                    "backward_ms": k4_ms, "k2_backward_ms": k2_ms}
 
 
 def train_batch(torch, device, batch=29, frames=241, feat_dim=123,
@@ -793,7 +1028,7 @@ def all_on_card(train_state, metrics):
 
 
 def train_phase(torch, card, state):
-    """Phase 6: train the canonical model on the card; returns the K1 and
+    """Phase 7: train the canonical model on the card; returns the K1 and
     K2 launches of the TRAIN_STEPS-step run."""
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.ops.ctc import ctc_loss_from_frames
@@ -898,7 +1133,7 @@ def cnn_site_shapes(torch, device):
 
 
 def k5_phase(torch, device):
-    """Phase K5: the fused dropout against its plain version, bit for bit,
+    """Phase 5: the fused dropout against its plain version, bit for bit,
     and its times; returns its JSON entry."""
     import torch.nn.functional as F
     from srf_tpu_torch.ops.dropout import (fused_dropout,
@@ -1015,7 +1250,7 @@ def k5_phase(torch, device):
 
 
 def cnn_serve_phase(torch, card):
-    """Phase: serve CNN-TIMIT on the card; returns K5's launches (none:
+    """Phase 8: serve CNN-TIMIT on the card; returns K5's launches (none:
     eval has no dropout) and the random weights (a state_dict)."""
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.models.registry import build_model
@@ -1097,7 +1332,7 @@ def cnn_serve_phase(torch, card):
 
 
 def cnn_train_phase(torch, card, state):
-    """Phase: train CNN-TIMIT on the card in pallas mode; returns K5's
+    """Phase 9: train CNN-TIMIT on the card in pallas mode; returns K5's
     launches in the TRAIN_STEPS-step run."""
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.models.registry import build_model
@@ -1184,7 +1419,8 @@ def run():
     torch.cuda.synchronize()
 
     start = time.perf_counter()
-    paths = cuda_build.build(["sdr_fwd", "sdr_bwd", "fused_dropout"])
+    paths = cuda_build.build(["sdr_fwd", "sdr_bwd", "sdr_scan_fwd",
+                              "sdr_scan_bwd", "fused_dropout"])
     print("build: %.2f s" % (time.perf_counter() - start))
     for name, path in paths.items():
         if os.path.isfile(path + ".log"):
@@ -1193,10 +1429,13 @@ def run():
                     if "registers" in line or "spill" in line:
                         print("build %s: %s" % (name, line.strip()))
 
-    k1 = kernel_phase(torch, device)
-    k2 = k2_phase(torch, device)
+    k1, k3 = kernel_phase(torch, device)
+    k2, k4 = k2_phase(torch, device)
     k5 = k5_phase(torch, device)
     serve_k1, state = main_path_phase(torch, card)
+    scan_k3, scan_k4, scan_times = scan_path_phase(torch, card, state)
+    check(scan_k3 > 0 and scan_k4 > 0,
+          "K3 or K4 was not launched on the scan path")
     train_k1, train_k2 = train_phase(torch, card, state)
     check(serve_k1 > 0, "K1 was not launched on the serving path")
     check(train_k1 > 0 and train_k2 > 0,
@@ -1209,10 +1448,19 @@ def run():
     k2["launches"] = train_k2
     k2["calls"] = train_k2 // 2  # two kernels per call
     k2["launches_by_path"] = {"train": train_k2}
+    k3["launches"] = scan_k3
+    k3["launches_by_path"] = {"scan": scan_k3}
+    k3["stack_ms"] = {key: scan_times[key] for key in ("forward_ms",
+                                                       "k1_forward_ms")}
+    k4["launches"] = scan_k4
+    k4["calls"] = scan_k4 // 2  # two kernels per call
+    k4["launches_by_path"] = {"scan": scan_k4}
+    k4["stack_ms"] = {key: scan_times[key] for key in ("backward_ms",
+                                                       "k2_backward_ms")}
     k5["launches"] = serve_k5 + train_k5
     k5["launches_by_path"] = {"cnn_serve": serve_k5, "cnn_train": train_k5}
 
-    print(json.dumps({"kernels": [k1, k2, k5]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

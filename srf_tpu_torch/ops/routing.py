@@ -13,7 +13,10 @@
   hand-written kernel K1 (``sequential_routing_cuda``, replacing the TPU
   kernel ``srf_tpu/ops/routing_pallas.py:_sdr_fwd_kernel``) and its
   backward K2 (``sequential_routing_bwd_cuda``, replacing
-  ``_sdr_bwd_kernel``); on a CPU tensor it runs the plain versions.
+  ``_sdr_bwd_kernel``); on a CPU tensor it runs the plain versions. The
+  same function through K3 and K4, the time-blocked, batch-tiled kernels,
+  is ``routing_cuda.sequential_routing_scan`` (the counterpart of
+  ``sequential_routing_pallas_scan``), which no model calls.
 - PAD-capsule masking: at the last capsule layer the routing logit of
   output capsule 0 (the PAD class) gets -1e9 so nothing routes to it
   (reference: sequence_router_naive.py:174-178,219-220).
@@ -114,8 +117,8 @@ def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
                        v_init=None, step_valid=None):
     """SDR, plain PyTorch: a loop over time carrying the previous outputs.
 
-    The plain version of the K1 kernel (``routing_cuda``): the tests hold
-    it to the JAX scan on the CPU, and the card holds the kernel to it.
+    The plain version of the K1 and K3 kernels (``routing_cuda``): the tests
+    hold it to the JAX scans on the CPU, and the card holds the kernels to it.
     ``u`` is [B, T, in_n, in_d]; the weight multiply runs inside the time
     loop (the lowmemory plan). Returns [B, T, out_n, out_d].
 
@@ -151,13 +154,13 @@ def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
 def sequential_routing_bwd(u, wgt, bias, vs, dvs, mask_pad_capsule):
     """The fused SDR backward for one routing iteration, plain PyTorch.
 
-    The plain version of the K2 kernel (``routing_cuda``), with the math of
-    ``srf_tpu/ops/routing_pallas.py:_sdr_bwd_kernel``: walk time backwards;
-    at step t recompute u_hat, the agreement with v_{t-1} (zero at t = 0,
-    read from the forward's output ``vs``), the softmax, s and the squash
-    factor; backpropagate dv = dvs[t] + the carry through the squash, s, the
-    softmax and the agreement; accumulate dW and db over time and batch,
-    write du[:, t] and carry dv_{t-1} into step t - 1.
+    The plain version of the K2 and K4 kernels (``routing_cuda``), with the
+    math of ``srf_tpu/ops/routing_pallas.py:_sdr_bwd_kernel``: walk time
+    backwards; at step t recompute u_hat, the agreement with v_{t-1} (zero
+    at t = 0, read from the forward's output ``vs``), the softmax, s and the
+    squash factor; backpropagate dv = dvs[t] + the carry through the squash,
+    s, the softmax and the agreement; accumulate dW and db over time and
+    batch, write du[:, t] and carry dv_{t-1} into step t - 1.
 
     u [B, T, in_n, in_d], wgt [in_n, out_n, out_d, in_d], bias
     [in_n, out_n, out_d], vs and dvs [B, T, out_n, out_d] ->

@@ -1,13 +1,17 @@
-"""K1 and K2: the SDR forward and its fused backward as hand-written CUDA
-kernels (``csrc/sdr_fwd.cu``, ``csrc/sdr_bwd.cu``), and ``SDRFunction``,
-the autograd function that joins them.
+"""The SDR kernels: K1 and K2, the SDR forward and its fused backward
+(``csrc/sdr_fwd.cu``, ``csrc/sdr_bwd.cu``), joined by ``SDRFunction``; K3
+and K4, their time-blocked, batch-tiled counterparts
+(``csrc/sdr_scan_fwd.cu``, ``csrc/sdr_scan_bwd.cu``), joined by
+``SDRScanFunction`` and applied by ``sequential_routing_scan``.
 
-K1 replaces the TPU kernel ``srf_tpu/ops/routing_pallas.py:_sdr_fwd_kernel``
-and K2 ``_sdr_bwd_kernel``. Their plain PyTorch versions are
-``ops/routing.py:sequential_routing`` and ``sequential_routing_bwd``;
-``SDRFunction`` sends CUDA tensors to the kernels and CPU tensors to the
-plain versions. The libraries are compiled with nvcc when the first CUDA
-tensor arrives (see ``cuda_build``), never at import.
+K1 replaces the TPU kernel ``srf_tpu/ops/routing_pallas.py:_sdr_fwd_kernel``,
+K2 ``_sdr_bwd_kernel``, K3 ``_sdr_v6_fwd_kernel`` and K4
+``_sdr_v6_bwd_kernel``. All four compute one function, whose plain PyTorch
+versions are ``ops/routing.py:sequential_routing`` and
+``sequential_routing_bwd``; the autograd functions send CUDA tensors to the
+kernels and CPU tensors to the plain versions. The libraries are compiled
+with nvcc when the first CUDA tensor arrives (see ``cuda_build``), never at
+import.
 """
 
 import ctypes
@@ -20,17 +24,33 @@ from srf_tpu_torch.ops import cuda_build
 _VOID_P = ctypes.c_void_p
 
 
+# argtypes of each library's launch function, and the int arguments of its
+# <name>_smem_bytes: the capsule geometry (in_n, in_d, out_n, out_d), and for
+# the scan kernels the batch, T and time block around it
+_PLAN_ARGS = {"sdr_fwd": 4, "sdr_bwd": 4, "sdr_scan_fwd": 7, "sdr_scan_bwd": 7}
+_LAUNCH_ARGTYPES = {
+    "sdr_fwd": [_VOID_P] * 4 + [ctypes.c_int] * 8 + [_VOID_P],
+    "sdr_bwd": [_VOID_P] * 9 + [ctypes.c_int] * 7 + [_VOID_P],
+    "sdr_scan_fwd": [_VOID_P] * 4 + [ctypes.c_int] * 9 + [_VOID_P],
+    "sdr_scan_bwd": [_VOID_P] * 9 + [ctypes.c_int] * 8 + [_VOID_P],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(name):
     lib = ctypes.CDLL(cuda_build.build([name])[name])
-    if name == "sdr_fwd":
-        lib.sdr_fwd.argtypes = [_VOID_P] * 4 + [ctypes.c_int] * 8 + [_VOID_P]
-    else:
-        lib.sdr_bwd.argtypes = [_VOID_P] * 9 + [ctypes.c_int] * 7 + [_VOID_P]
+    getattr(lib, name).argtypes = _LAUNCH_ARGTYPES[name]
     getattr(lib, name).restype = ctypes.c_int
-    smem_bytes = getattr(lib, name + "_smem_bytes")
-    smem_bytes.argtypes = [ctypes.c_int] * 4
-    smem_bytes.restype = ctypes.c_int
+    plan_fns = ["_smem_bytes"]
+    if name.startswith("sdr_scan"):
+        plan_fns.append("_batch_tile")
+    for suffix in plan_fns:
+        fn = getattr(lib, name + suffix)
+        fn.argtypes = [ctypes.c_int] * _PLAN_ARGS[name]
+        fn.restype = ctypes.c_int
+    if name == "sdr_scan_bwd":
+        lib.sdr_scan_bwd_scratch_floats.argtypes = [ctypes.c_int] * 7
+        lib.sdr_scan_bwd_scratch_floats.restype = ctypes.c_longlong
     error_string = getattr(lib, name + "_error_string")
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
@@ -38,12 +58,13 @@ def _lib(name):
 
 
 def _check_inputs(fn_name, u, tensors):
-    """Device, dtype, rank and contiguity checks shared by both wrappers;
+    """Device, dtype, rank and contiguity checks shared by the wrappers;
     ``tensors`` is ((name, tensor, ndim), ...)."""
     if not u.is_cuda:
         raise ValueError(
             "%s takes CUDA tensors (got %s); the plain version is "
-            "ops.routing.%s" % (fn_name, u.device, fn_name[:-len("_cuda")])
+            "ops.routing.%s" % (fn_name, u.device,
+                                fn_name[:-len("_cuda")].replace("_scan", ""))
         )
     for name, x, ndim in tensors:
         if x.device != u.device:
@@ -56,7 +77,9 @@ def _check_inputs(fn_name, u, tensors):
             raise ValueError("%s must be contiguous" % name)
 
 
-def _check_geometry(lib, name, u, wgt, bias):
+def _check_geometry(lib, name, u, wgt, bias, time_block=None):
+    """Shapes agree, B and T are >= 1, and the kernel's shared memory holds
+    the geometry (and, for the scan kernels, ``time_block`` steps of u)."""
     batch, seq_len, in_n, in_d = u.shape
     out_n, out_d = wgt.shape[1], wgt.shape[2]
     if (wgt.shape[0], wgt.shape[3]) != (in_n, in_d) or tuple(bias.shape) != (
@@ -67,12 +90,22 @@ def _check_geometry(lib, name, u, wgt, bias):
         )
     if batch < 1 or seq_len < 1:
         raise ValueError("need B and T >= 1 (got %d, %d)" % (batch, seq_len))
-    if getattr(lib, name + "_smem_bytes")(in_n, in_d, out_n, out_d) < 0:
+    plan = (in_n, in_d, out_n, out_d)
+    if time_block is not None:
+        plan = (batch, seq_len, *plan, time_block)
+    if getattr(lib, name + "_smem_bytes")(*plan) < 0:
         raise ValueError(
-            "capsule geometry (in_n, out_n, out_d, in_d) = (%d, %d, %d, %d) "
+            "capsule geometry (in_n, out_n, out_d, in_d) = (%d, %d, %d, %d)%s "
             "does not fit the %s kernel's shared memory"
-            % (in_n, out_n, out_d, in_d, name)
+            % (in_n, out_n, out_d, in_d,
+               "" if time_block is None else " with time_block %d" % time_block,
+               name)
         )
+
+
+def _check_time_block(time_block):
+    if time_block < 1:
+        raise ValueError("need time_block >= 1 (got %d)" % time_block)
 
 
 def _raise_on(lib, name, err):
@@ -201,12 +234,160 @@ class SDRFunction(torch.autograd.Function):
                                   ctx.mask_pad_capsule)
             return du, dwgt, dbias, None, None
         SDRFunction.plain_backwards += 1
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_() for x in (u, wgt, bias)]
-            recomputed = _plain().sequential_routing(
-                *inputs, ctx.num_iter, ctx.mask_pad_capsule)
-            du, dwgt, dbias = torch.autograd.grad(recomputed, inputs, dout)
-        return du, dwgt, dbias, None, None
+        return (*_plain_loop_grads(u, wgt, bias, ctx, dout), None, None)
+
+
+def sequential_routing_scan_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
+                                 time_block=8):
+    """The time-blocked, batch-tiled SDR forward on the card (K3): same
+    contract as ``sequential_routing`` and the same inputs as
+    ``sequential_routing_cuda``; one block routes a tile of utterances and
+    stages ``time_block`` steps of u at a time (the output does not depend
+    on it). Raises on anything the kernel does not take; it never falls back
+    to the plain version. ``sequential_routing_scan_cuda.launches`` counts
+    the kernel's launches.
+    """
+    _check_inputs("sequential_routing_scan_cuda", u,
+                  (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3)))
+    if num_iter < 1:
+        raise ValueError("need num_iter >= 1 (got %d)" % num_iter)
+    _check_time_block(time_block)
+    lib = _lib("sdr_scan_fwd")
+    _check_geometry(lib, "sdr_scan_fwd", u, wgt, bias, time_block)
+    batch, seq_len, in_n, in_d = u.shape
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    out = torch.empty((batch, seq_len, out_n, out_d), dtype=torch.float32,
+                      device=u.device)
+    with torch.cuda.device(u.device):
+        err = lib.sdr_scan_fwd(
+            u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            batch, seq_len, in_n, in_d, out_n, out_d, num_iter,
+            int(bool(mask_pad_capsule)), time_block,
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    _raise_on(lib, "sdr_scan_fwd", err)
+    sequential_routing_scan_cuda.launches += 1
+    return out
+
+
+sequential_routing_scan_cuda.launches = 0
+
+
+def sequential_routing_scan_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule,
+                                     time_block=8):
+    """K3's backward on the card (K4), one routing iteration: same contract
+    as ``sequential_routing_bwd``. dW and db are summed inside the kernel,
+    into a partial per block of utterances folded in once per time block;
+    the wrapper allocates that scratch (the blocks' staged factors of the
+    prediction vectors' cotangents and their partials). Raises on anything
+    the kernel does not take; never falls back to the plain version.
+    ``sequential_routing_scan_bwd_cuda.launches`` counts its kernel
+    launches: two per call, the reverse-time scan and the fixed reduction of
+    the blocks' partials into dW and db.
+    """
+    _check_inputs("sequential_routing_scan_bwd_cuda", u,
+                  (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3),
+                   ("vs", vs, 4), ("dvs", dvs, 4)))
+    _check_time_block(time_block)
+    lib = _lib("sdr_scan_bwd")
+    _check_geometry(lib, "sdr_scan_bwd", u, wgt, bias, time_block)
+    batch, seq_len, in_n, in_d = u.shape
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    for name, x in (("vs", vs), ("dvs", dvs)):
+        if tuple(x.shape) != (batch, seq_len, out_n, out_d):
+            raise ValueError("%s must be %s, got %s" % (
+                name, (batch, seq_len, out_n, out_d), tuple(x.shape)))
+    du = torch.empty_like(u)
+    dwgt = torch.empty_like(wgt)
+    dbias = torch.empty_like(bias)
+    scratch = torch.empty(
+        lib.sdr_scan_bwd_scratch_floats(batch, seq_len, in_n, in_d, out_n,
+                                        out_d, time_block),
+        dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        err = lib.sdr_scan_bwd(
+            u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), vs.data_ptr(),
+            dvs.data_ptr(), du.data_ptr(), dwgt.data_ptr(), dbias.data_ptr(),
+            scratch.data_ptr(), batch, seq_len, in_n, in_d, out_n, out_d,
+            int(bool(mask_pad_capsule)), time_block,
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    _raise_on(lib, "sdr_scan_bwd", err)
+    sequential_routing_scan_bwd_cuda.launches += 2  # scan, reduction
+    return du, dwgt, dbias
+
+
+sequential_routing_scan_bwd_cuda.launches = 0
+
+
+class SDRScanFunction(torch.autograd.Function):
+    """SDR through K3 and K4, the port of the custom VJP
+    ``srf_tpu/ops/routing_pallas.py:sequential_routing_pallas_scan``.
+
+    forward: K3 on a CUDA tensor, the plain ``sequential_routing`` on a CPU
+    tensor; saves u, W, bias and the output, the JAX ``_v6_fwd``'s
+    residuals. backward: with one routing iteration K4 on CUDA and the plain
+    ``sequential_routing_bwd`` on the CPU; with more, autograd through the
+    plain loop recomputed from the saved inputs (the JAX ``_v6_bwd`` does
+    the same), counted in ``SDRScanFunction.plain_backwards``. ``time_block``
+    is not differentiated. Only ``num_iter`` chooses; nothing falls back on
+    failure.
+    """
+
+    plain_backwards = 0
+
+    @staticmethod
+    def forward(ctx, u, wgt, bias, num_iter, mask_pad_capsule, time_block):
+        _check_time_block(time_block)
+        if u.is_cuda:
+            out = sequential_routing_scan_cuda(u, wgt, bias, num_iter,
+                                               mask_pad_capsule, time_block)
+        else:
+            out = _plain().sequential_routing(u, wgt, bias, num_iter,
+                                              mask_pad_capsule)
+        ctx.save_for_backward(u, wgt, bias, out)
+        ctx.num_iter = num_iter
+        ctx.mask_pad_capsule = mask_pad_capsule
+        ctx.time_block = time_block
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        u, wgt, bias, out = ctx.saved_tensors
+        dout = dout.contiguous()
+        if ctx.num_iter == 1:
+            if u.is_cuda:
+                du, dwgt, dbias = sequential_routing_scan_bwd_cuda(
+                    u, wgt, bias, out, dout, ctx.mask_pad_capsule,
+                    ctx.time_block)
+            else:
+                du, dwgt, dbias = _plain().sequential_routing_bwd(
+                    u, wgt, bias, out, dout, ctx.mask_pad_capsule)
+            return du, dwgt, dbias, None, None, None
+        SDRScanFunction.plain_backwards += 1
+        return (*_plain_loop_grads(u, wgt, bias, ctx, dout), None, None, None)
+
+
+def sequential_routing_scan(u, wgt, bias, num_iter, mask_pad_capsule,
+                            time_block=8):
+    """SDR with its fused backward through K3 and K4: the counterpart of
+    ``srf_tpu/ops/routing_pallas.py:sequential_routing_pallas_scan``, with
+    the same contract as ``ops.routing.sequential_routing``. An entry point
+    of the ops layer; no model path calls it (none does in JAX either).
+    ``time_block`` (>= 1) is the number of steps the kernels stage at once.
+    """
+    return SDRScanFunction.apply(u, wgt, bias, num_iter, mask_pad_capsule,
+                                 time_block)
+
+
+def _plain_loop_grads(u, wgt, bias, ctx, dout):
+    """(du, dW, db) by autograd through the plain loop recomputed from the
+    saved inputs: the backward of more than one routing iteration."""
+    with torch.enable_grad():
+        inputs = [x.detach().requires_grad_() for x in (u, wgt, bias)]
+        recomputed = _plain().sequential_routing(
+            *inputs, ctx.num_iter, ctx.mask_pad_capsule)
+        return torch.autograd.grad(recomputed, inputs, dout)
 
 
 def _plain():
