@@ -7,22 +7,34 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from csrc/ with nvcc (one process
-   per source, all started together): K1, K2, K3, K4, K5;
-3. K1 (SDR forward) and K3 (the time-blocked, batch-tiled SDR forward)
-   against their plain PyTorch version, and K3 against K1, on the same CUDA
-   tensors, at the three canonical SRF-TIMIT capsule-layer geometries, at
-   the serving path's two shapes (B=29, T'=64: 29 x 241 frames padded to
-   256; B=8, T'=128), at the unpadded bucket (T'=61) and at an odd B/T with
-   2 routing iterations and the PAD mask flipped, K3 at time blocks 8, 1
-   and 5 (5 divides neither 61 nor 64); K1's and K3's times in turns on
-   the same inputs, and the plain version's, from CUDA events at B=29,
-   T'=64;
-4. K2 (the fused SDR backward) and K4 (K3's backward, dW and db summed
-   inside the kernel) against their plain PyTorch version, and K4 against
-   K2, on the same CUDA tensors, at phase 3's shapes with one iteration and
-   time blocks; K4 bit-equal across two calls; K2's and K4's times in
-   turns, and the plain version's, at B=29, T'=61 (the training path's
-   shape);
+   per source, all started together): K1, K2, K3, K4, K5; print ptxas's
+   registers and spills per kernel, and fail if the recurrence kernel of
+   K1 or K2 spills;
+3. K1 (SDR forward: the prediction kernel and the recurrence) and K3 (the
+   time-blocked, batch-tiled SDR forward) against their plain PyTorch
+   version, and K3 against K1, on the same CUDA tensors, at the three
+   canonical SRF-TIMIT capsule-layer geometries, at the serving path's two
+   shapes (B=29, T'=64: 29 x 241 frames padded to 256; B=8, T'=128), at
+   the unpadded bucket (T'=61) and at an odd B/T with 2 routing iterations
+   and the PAD mask flipped, K3 at time blocks 8, 1 and 5 (5 divides
+   neither 61 nor 64); K1 alone at EXTRA_LAYERS: the WSJ recipe's layer 0
+   (300, 30, 20, 20) and (40, 5, 3, 4), its general path, at B=3, T'=17
+   with 1 and 2 iterations, a W[n] taken in tiles and partial sums in
+   global memory at B=3, T'=17 (and for K2 at (800, 64, 8, 4), B=2,
+   T'=5), and large logits (most rows beyond
+   +-SAFE_LOGIT) at the last TIMIT layer (B=8, T'=2) and the WSJ layer 0
+   (B=3, T'=3);
+   K1's and K3's times in turns on the same inputs, and the
+   plain version's, from CUDA events at B=29, T'=64, and K1's two kernels'
+   times apart (torch.profiler);
+4. K2 (the fused SDR backward: prediction, reverse-time recurrence, weight
+   gradient from du_hat's factors, reduction) and K4 (K3's backward, dW and
+   db summed inside the kernel) against their plain PyTorch version, and K4
+   against K2, on the same CUDA tensors, at phase 3's shapes with one
+   iteration and time blocks; K2 alone at phase 3's EXTRA_LAYERS; K2
+   and K4 each bit-equal across two calls; K2's and K4's times in turns,
+   and the plain version's, at B=29, T'=61 (the training path's shape),
+   and K2's parts' times apart;
 5. K5 (the fused dropout) against its plain PyTorch version with
    torch.equal (the two draw the same Philox bits) at 1-5000 elements, a
    misaligned view, and each of the 25 dropout sites of a CNN-TIMIT train
@@ -37,7 +49,8 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    naive, 63 classes, 2 x 64-filter maxout convs) with random weights drawn
    from a numpy seed as the flax tree and carried across by convert.py,
    serving 8 requests of 150-400 frames and 29 requests of 241 frames
-   through transcribe_batch_detailed; K1 must launch 7 times per forward,
+   through transcribe_batch_detailed; K1 must launch 14 times per forward
+   (7 calls of its two kernels),
    and the same weights on the CPU must give the same ids and text, with
    logits within LOGIT_ATOL; then forward and end-to-end times, utt/s and
    the realtime factor, and a profile of one forward;
@@ -57,11 +70,12 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    (at a smaller batch) in loss, every gradient and the BatchNorm running
    statistics, and in the parameters' Adam update, taken at Noam's peak
    rate (count 1200) rather than at count 0 (rate 1.2e-14); then
-   TRAIN_STEPS steps with dropout on, each calling K1 and K2 7 times (K2 is
-   two kernels, so 14 K2 launches), with finite losses and every tensor on
-   the card; then ms/step, utt/s, audio-seconds/s, the device time of a
-   forward and of a backward, and a profile of one step (K1 and K2 device
-   ms, K2's two kernels apart, idle share);
+   TRAIN_STEPS steps with dropout on, each calling K1 and K2 7 times (K1
+   is two kernels and K2 four, so 14 K1 and 28 K2 launches), with finite
+   losses and every tensor on the card; then ms/step, utt/s,
+   audio-seconds/s, the device time of a forward and of a backward, and a
+   profile of one step (K1 and K2 device ms, their kernels apart, idle
+   share);
 8. the CNN serving path: a Recognizer at the CNN-TIMIT recipe's width
    (egs/script/train_cnn_timit.sh: maxpool maxout CNN, L=10, filters
    128/256, 3 x 1024 projections, time stride 1, --tpu-dropout-kernel=
@@ -88,6 +102,7 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -157,6 +172,40 @@ TIMIT_LAYERS = [
     ("middle", (90, 30, 8, 8), False, 5),
     ("last", (90, 63, 8, 8), True, 1),
 ]
+# K1 and K2 alone, as (name, (in_n, out_n, out_d, in_d), PAD mask, W's
+# std, (B, T', iterations) shapes): the WSJ recipe's layer 0
+# (egs/script/train_srf_wsj.sh:14-19: window 2+2, 60 primary capsules of dim
+# 20, 30 capsules of dim 20; u_hat_t 720 KB, more than a block's shared
+# memory); geometries of no recipe: out_d 3, on the kernels' general path
+# in place of the register path, a W[n] (256 KB) that the prediction and
+# weight-gradient kernels take in tiles, 500 out capsules, whose per-warp
+# partial sums the recurrence kernels keep in global memory, and 800 in
+# capsules, whose c (K2 keeps it for every row) leaves the partial sums no
+# room, so K2 takes the general path with them in global memory; and,
+# with W 100x the others' (logits up to ~180-250, more than half of the
+# rows beyond +-SAFE_LOGIT, where the register path's softmax takes its max
+# first), the last TIMIT layer and the WSJ layer 0 over 2-3 steps: over
+# more, float32's rounding of such logits flips near-ties between out
+# capsules, and the plain version's own float32 run leaves the tolerance of
+# its float64 run
+EXTRA_LAYERS = (
+    ("wsj_layer0", (300, 30, 20, 20), False, 0.1, ((3, 17, 1), (3, 17, 2))),
+    ("general", (40, 5, 3, 4), True, 0.1, ((3, 17, 1), (3, 17, 2))),
+    ("w_in_tiles", (10, 32, 32, 64), True, 0.1, ((3, 17, 1),)),
+    ("partials_in_global", (3, 500, 10, 16), False, 0.1, ((3, 17, 1),)),
+    ("c_crowds_partials", (800, 64, 8, 4), True, 0.1, ((2, 5, 1),)),
+    ("last_large_logits", (90, 63, 8, 8), True, 10.0, ((8, 2, 1),)),
+    ("wsj_large_logits", (300, 30, 20, 20), True, 10.0, ((3, 3, 1),)),
+)
+# the register path's softmax skips its max where every logit of a warp's
+# rows is within this bound (csrc/sdr_stream.cuh kSafeLogit)
+SAFE_LOGIT = 64.0
+# kernel launches per call: K1 the prediction and the recurrence; K2 the
+# prediction, the reverse-time recurrence, the weight gradient, the reduction
+K1_LAUNCHES, K2_LAUNCHES = 2, 4
+# K1's and K2's recurrence kernels, which must not spill: their chain over
+# time is what bounds them
+RECURRENCE_KERNELS = ("sdr_fwd_kernel", "sdr_bwd_step_kernel")
 # the CNN-TIMIT recipe (egs/script/train_cnn_timit.sh:7-14,31-50 with
 # timit.conf): the maxpool maxout CNN, L=10, filters 128/256, 3 x 1024
 # projections, time stride 1, K5 at every dropout site, greedy decoding
@@ -278,6 +327,59 @@ def sdr_bwd_bound_ms(batch, seq_len, geometry):
     return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
 
 
+K1_PARTS = (("prediction", "sdr_predict_kernel"),
+            ("recurrence", "sdr_fwd_kernel"))
+K2_PARTS = (("prediction", "sdr_predict_kernel"),
+            ("reverse_time", "sdr_bwd_step_kernel"),
+            ("weight_gradient", "sdr_bwd_wgrad_kernel"),
+            ("reduction", "sdr_bwd_reduce_kernel"))
+
+
+def parts_ms(torch, fn, parts, reps=5):
+    """Device ms per call of each of a kernel's parts ((label, symbol)
+    pairs), from torch.profiler over ``reps`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    kernels = profile_device(torch, lambda: [fn() for _ in range(reps)],
+                             parts)[0]
+    return {label: ms / reps for label, ms in kernels.items()}
+
+
+# a kernel's name in a mangled symbol, and its int or bool template
+# arguments
+_KERNEL_NAME = re.compile(r"\d+([a-z][a-z_]*?_kernel)((?:I(?:L[ib]\d+E)+E)?)")
+
+
+def ptxas_entries(log):
+    """{kernel: (registers, bytes of spill stores and loads)} from nvcc's
+    -Xptxas=-v output; a template instance is named kernel<8,2> (ints) or
+    kernel<1> (a bool)."""
+    def readable(mangled):
+        found = _KERNEL_NAME.search(mangled)
+        if found is None:
+            return mangled
+        args = re.findall(r"L[ib](\d+)E", found.group(2))
+        return found.group(1) + ("<%s>" % ",".join(args) if args else "")
+
+    entries, entry, props = {}, None, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            entry = readable(found.group(1))
+            entries.setdefault(entry, [0, 0])
+        found = re.search(r"Function properties for (\w+)", line)
+        if found:
+            props = readable(found.group(1))
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found and props in entries:
+            entries[props][1] = int(found.group(1)) + int(found.group(2))
+        found = re.search(r"Used (\d+) registers", line)
+        if found and entry is not None:
+            entries[entry][0] = int(found.group(1))
+    return {k: tuple(v) for k, v in entries.items()}
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -322,6 +424,36 @@ def kernel_entry(name, replaces, max_err, totals, per_layer):
     }
 
 
+def extra_weights(torch, device, index, geometry, w_std):
+    """W (std ``w_std``) and bias of EXTRA_LAYERS[index], drawn from a seed
+    of its own, and that generator, which then draws the case's inputs (the
+    same in phases 3 and 4)."""
+    in_n, out_n, out_d, in_d = geometry
+    rng = np.random.RandomState(SEED + 100 + index)
+    return (torch.tensor(rng.randn(in_n, out_n, out_d, in_d) * w_std,
+                         dtype=torch.float32, device=device),
+            torch.tensor(rng.randn(in_n, out_n, out_d) * 0.1,
+                         dtype=torch.float32, device=device), rng)
+
+
+def large_logits(torch, u, w, b, out, w_std):
+    """For a large-weight case: text giving the largest first-iteration
+    logit <u_hat[n,o,:], v_{t-1}[o,:]> and the share of (b, t >= 1, n) rows
+    with one beyond +-SAFE_LOGIT, which must be at least a third; else ''."""
+    if w_std < 1:
+        return ""
+    from srf_tpu_torch.ops.routing import predict_capsules
+
+    v_prev = torch.cat([torch.zeros_like(out[:, :1]), out[:, :-1]], dim=1)
+    logits = torch.einsum("btnoi,btoi->btno", predict_capsules(u, w, b),
+                          v_prev)[:, 1:]
+    share = (logits.abs() > SAFE_LOGIT).any(dim=-1).float().mean().item()
+    check(share >= 1 / 3, "only %.3f of the rows' logits pass +-%g"
+          % (share, SAFE_LOGIT))
+    return "; max |logit| %.1f, rows beyond +-%g: %.3f" % (
+        logits.abs().max().item(), SAFE_LOGIT, share)
+
+
 def kernel_phase(torch, device):
     """Phase 3: K1 and K3 against their plain version, and K3 against K1,
     on the same CUDA tensors; returns their JSON entries."""
@@ -333,6 +465,7 @@ def kernel_phase(torch, device):
     max_err = {"K1": 0.0, "K3": 0.0, "K3 vs K1": 0.0}
     per_layer = {"K1": [], "K3": []}
     totals = {"K1": sdr_totals(), "K3": sdr_totals()}
+    k1_parts = dict.fromkeys((label for label, _ in K1_PARTS), 0.0)
     for name, geometry, mask, count in TIMIT_LAYERS:
         in_n, out_n, out_d, in_d = geometry
         w = torch.tensor(rng.randn(in_n, out_n, out_d, in_d) * 0.1,
@@ -385,28 +518,61 @@ def kernel_phase(torch, device):
             bound = sdr_bound_ms(batch, seq_len, geometry, num_iter)
             tile = _lib("sdr_scan_fwd").sdr_scan_fwd_batch_tile(
                 batch, seq_len, in_n, in_d, out_n, out_d, 8)
-            print("K1 %s B=29 T=64: kernel %.4f ms, plain %.4f ms, bound "
-                  "%.4f ms (bytes %.4f ms, operations %.4f ms)"
-                  % (name, ms, plain_ms, max(bound), *bound))
+            parts = parts_ms(torch, lambda: sequential_routing_cuda(
+                u, w, b, num_iter, use_mask), K1_PARTS)
+            for label, part in parts.items():
+                k1_parts[label] += count * part
+            print("K1 %s B=29 T=64: kernel %.4f ms (prediction %.4f ms, "
+                  "recurrence %.4f ms), plain %.4f ms, bound %.4f ms (bytes "
+                  "%.4f ms, operations %.4f ms)"
+                  % (name, ms, parts["prediction"], parts["recurrence"],
+                     plain_ms, max(bound), *bound))
             print("K3 %s B=29 T=64 (batch tile %d, time block 8): kernel "
                   "%.4f ms, K1 %.4f ms on the same inputs" % (name, tile,
                                                               k3_ms, ms))
             for label, kernel_ms, extra in (
-                    ("K1", ms, {}), ("K3", k3_ms, {"k1_ms": ms,
-                                                   "batch_tile": tile})):
+                    ("K1", ms, {"parts_ms": parts}),
+                    ("K3", k3_ms, {"k1_ms": ms, "batch_tile": tile})):
                 add_layer(totals[label], per_layer[label], name, count,
                           kernel_ms, plain_ms, bound, geometry=list(geometry),
                           per_forward=count, **extra)
+    # K1 alone at EXTRA_LAYERS
+    for index, (name, geometry, mask, w_std, shapes) in enumerate(
+            EXTRA_LAYERS):
+        w, b, rng_case = extra_weights(torch, device, index, geometry,
+                                       w_std)
+        for batch, seq_len, num_iter in shapes:
+            u = torch.tensor(rng_case.randn(batch, seq_len, geometry[0],
+                                            geometry[3]),
+                             dtype=torch.float32, device=device)
+            got = sequential_routing_cuda(u, w, b, num_iter, mask)
+            torch.cuda.synchronize()
+            want = sequential_routing(u, w, b, num_iter, mask)
+            check(bool(torch.isfinite(got).all()), "K1 output not finite")
+            err = (got - want).abs().max().item()
+            max_err["K1"] = max(max_err["K1"], err)
+            print("K1 %s %s B=%d T=%d iter=%d mask=%s max_abs_err=%.3e%s"
+                  % (name, geometry, batch, seq_len, num_iter, mask, err,
+                     large_logits(torch, u, w, b, want, w_std)))
+            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  "K1 disagrees with its plain version at %s B=%d T=%d"
+                  % (geometry, batch, seq_len))
     torch.cuda.synchronize()
     print("K3 one forward's 7 layers at B=29 T=64: kernel %.4f ms, K1 %.4f "
           "ms, plain %.4f ms, bound %.4f ms; max |K3 - plain| %.3e, max |K3 "
           "- K1| %.3e" % (totals["K3"]["ms"], totals["K1"]["ms"],
                           totals["K3"]["plain_ms"], totals["K3"]["bound_ms"],
                           max_err["K3"], max_err["K3 vs K1"]))
-    # times: one forward's 7 launches at the main path's B=29, T'=64 (K3's
+    # times: one forward's 7 calls at the main path's B=29, T'=64 (K3's
     # at time block 8), K1 and K3 timed in turns on the same inputs
     k1 = kernel_entry("sdr_fwd", "srf_tpu/ops/routing_pallas.py:81",
                       max_err["K1"], totals["K1"], per_layer["K1"])
+    k1.update(launches_per_call=K1_LAUNCHES, parts_ms=k1_parts)
+    print("K1 one forward's 7 calls at B=29 T=64: %.4f ms (prediction %.4f "
+          "ms, recurrence %.4f ms), plain %.4f ms, bound %.4f ms; max |K1 - "
+          "plain| %.3e" % (totals["K1"]["ms"], k1_parts["prediction"],
+                           k1_parts["recurrence"], totals["K1"]["plain_ms"],
+                           totals["K1"]["bound_ms"], max_err["K1"]))
     k3 = kernel_entry("sdr_scan_fwd", "srf_tpu/ops/routing_pallas.py:387",
                       max_err["K3"], totals["K3"], per_layer["K3"])
     k3.update(k1_ms=totals["K1"]["ms"], max_abs_err_vs_k1=max_err["K3 vs K1"])
@@ -415,7 +581,7 @@ def kernel_phase(torch, device):
 
 def k2_phase(torch, device):
     """Phase 4: K2 and K4 against their plain version, K4 against K2 on the
-    same CUDA tensors and bit-equal across two calls; returns their JSON
+    same CUDA tensors, each bit-equal across two calls; returns their JSON
     entries."""
     from srf_tpu_torch.ops.routing import sequential_routing_bwd
     from srf_tpu_torch.ops.routing_cuda import (
@@ -426,6 +592,7 @@ def k2_phase(torch, device):
     max_err = {"K2": 0.0, "K4": 0.0, "K4 vs K2": 0.0}
     per_layer = {"K2": [], "K4": []}
     totals = {"K2": sdr_totals(), "K4": sdr_totals()}
+    k2_parts = dict.fromkeys((label for label, _ in K2_PARTS), 0.0)
 
     def held(label, got, want, tolerances_of, against):
         """Checks (du, dW, db) against ``want`` with K2's tolerances, each
@@ -444,6 +611,22 @@ def k2_phase(torch, device):
                   "%s %s disagrees with %s" % (label, part, against))
         return ", ".join(errs), worst_err
 
+    def k2_held(u, w, b, vs, dvs, use_mask, where):
+        """K2 twice, bit-equal, and held to its plain version; returns the
+        first call's (du, dW, db)."""
+        got = sequential_routing_bwd_cuda(u, w, b, vs, dvs, use_mask)
+        again = sequential_routing_bwd_cuda(u, w, b, vs, dvs, use_mask)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              "K2 is not bit-equal across two calls at " + where)
+        want = sequential_routing_bwd(u, w, b, vs, dvs, use_mask)
+        torch.cuda.synchronize()
+        text, err = held("K2", got, want, want,
+                         "its plain version at " + where)
+        max_err["K2"] = max(max_err["K2"], err)
+        print("K2 %s bit-equal twice; max_abs_err %s" % (where, text))
+        return got, want
+
     for name, geometry, mask, count in TIMIT_LAYERS:
         in_n, out_n, out_d, in_d = geometry
         w = torch.tensor(rng.randn(in_n, out_n, out_d, in_d) * 0.1,
@@ -459,14 +642,8 @@ def k2_phase(torch, device):
             vs = sequential_routing_cuda(u, w, b, 1, use_mask)
             dvs = torch.tensor(rng.randn(batch, seq_len, out_n, out_d),
                                dtype=torch.float32, device=device)
-            got = sequential_routing_bwd_cuda(u, w, b, vs, dvs, use_mask)
-            torch.cuda.synchronize()
-            want = sequential_routing_bwd(u, w, b, vs, dvs, use_mask)
-            torch.cuda.synchronize()
-            text, err = held("K2", got, want, want,
-                             "its plain version at " + where)
-            max_err["K2"] = max(max_err["K2"], err)
-            print("K2 %s %s max_abs_err %s" % (name, where, text))
+            got, want = k2_held(u, w, b, vs, dvs, use_mask,
+                                "%s %s" % (name, where))
             for time_block in SCAN_TIME_BLOCKS:
                 k4 = sequential_routing_scan_bwd_cuda(u, w, b, vs, dvs,
                                                       use_mask, time_block)
@@ -495,29 +672,63 @@ def k2_phase(torch, device):
             bound = sdr_bwd_bound_ms(batch, seq_len, geometry)
             tile = _lib("sdr_scan_bwd").sdr_scan_bwd_batch_tile(
                 batch, seq_len, in_n, in_d, out_n, out_d, 8)
-            print("K2 %s B=29 T=61: kernel %.4f ms, plain %.4f ms, bound "
-                  "%.4f ms (bytes %.4f ms, operations %.4f ms)"
-                  % (name, ms, plain_ms, max(bound), *bound))
+            parts = parts_ms(torch, lambda: sequential_routing_bwd_cuda(
+                u, w, b, vs, dvs, use_mask), K2_PARTS)
+            for label, part in parts.items():
+                k2_parts[label] += count * part
+            print("K2 %s B=29 T=61: kernel %.4f ms (prediction %.4f ms, "
+                  "reverse-time %.4f ms, weight gradient %.4f ms, reduction "
+                  "%.4f ms), plain %.4f ms, bound %.4f ms (bytes %.4f ms, "
+                  "operations %.4f ms)"
+                  % (name, ms, parts["prediction"], parts["reverse_time"],
+                     parts["weight_gradient"], parts["reduction"], plain_ms,
+                     max(bound), *bound))
             print("K4 %s B=29 T=61 (batch tile %d, time block 8): kernel "
                   "%.4f ms, K2 %.4f ms on the same inputs" % (name, tile,
                                                               k4_ms, ms))
             for label, kernel_ms, extra in (
-                    ("K2", ms, {}), ("K4", k4_ms, {"k2_ms": ms,
-                                                   "batch_tile": tile})):
+                    ("K2", ms, {"parts_ms": parts}),
+                    ("K4", k4_ms, {"k2_ms": ms, "batch_tile": tile})):
                 add_layer(totals[label], per_layer[label], name, count,
                           kernel_ms, plain_ms, bound, geometry=list(geometry),
                           per_step=count, **extra)
+    # K2 alone at EXTRA_LAYERS, one routing iteration
+    for index, (name, geometry, mask, w_std, shapes) in enumerate(
+            EXTRA_LAYERS):
+        in_n, out_n, out_d, in_d = geometry
+        w, b, rng_case = extra_weights(torch, device, index, geometry,
+                                       w_std)
+        for batch, seq_len, num_iter in shapes:
+            u = torch.tensor(rng_case.randn(batch, seq_len, in_n, in_d),
+                             dtype=torch.float32, device=device)
+            if num_iter != 1:
+                continue
+            vs = sequential_routing_cuda(u, w, b, 1, mask)
+            dvs = torch.tensor(rng_case.randn(batch, seq_len, out_n, out_d),
+                               dtype=torch.float32, device=device)
+            k2_held(u, w, b, vs, dvs, mask, "%s %s B=%d T=%d mask=%s%s" % (
+                name, geometry, batch, seq_len, mask,
+                large_logits(torch, u, w, b, vs, w_std)))
     torch.cuda.synchronize()
     print("K4 one backward's 7 layers at B=29 T=61: kernel %.4f ms, K2 %.4f "
           "ms, plain %.4f ms, bound %.4f ms; max |K4 - plain| %.3e, max |K4 "
           "- K2| %.3e" % (totals["K4"]["ms"], totals["K2"]["ms"],
                           totals["K4"]["plain_ms"], totals["K4"]["bound_ms"],
                           max_err["K4"], max_err["K4 vs K2"]))
-    # times: one train step's 7 calls (K2: 14 launches, each call's
-    # reverse-time and weight-gradient kernels; K4: 14, its scan and
-    # reduction) at the training path's B=29, T'=61, timed in turns
+    # times: one train step's 7 calls (K2: 28 launches, each call's
+    # prediction, reverse-time, weight-gradient and reduction kernels; K4:
+    # 14, its scan and reduction) at the training path's B=29, T'=61, timed
+    # in turns
     k2 = kernel_entry("sdr_bwd", "srf_tpu/ops/routing_pallas.py:159",
                       max_err["K2"], totals["K2"], per_layer["K2"])
+    k2.update(launches_per_call=K2_LAUNCHES, parts_ms=k2_parts)
+    print("K2 one train step's 7 calls at B=29 T=61: %.4f ms (prediction "
+          "%.4f ms, reverse-time %.4f ms, weight gradient %.4f ms, reduction "
+          "%.4f ms), plain %.4f ms, bound %.4f ms; max |K2 - plain| %.3e"
+          % (totals["K2"]["ms"], k2_parts["prediction"],
+             k2_parts["reverse_time"], k2_parts["weight_gradient"],
+             k2_parts["reduction"], totals["K2"]["plain_ms"],
+             totals["K2"]["bound_ms"], max_err["K2"]))
     k4 = kernel_entry("sdr_scan_bwd", "srf_tpu/ops/routing_pallas.py:473",
                       max_err["K4"], totals["K4"], per_layer["K4"])
     k4.update(k2_ms=totals["K2"]["ms"], max_abs_err_vs_k2=max_err["K4 vs K2"])
@@ -551,9 +762,13 @@ def random_weights(model):
     return convert.flax_to_state_dict(fill(tree))
 
 
-SRF_SYMBOLS = (("K1", "sdr_fwd_kernel"), ("K2", "sdr_bwd_"),
+# K1 is its recurrence and the prediction kernel it shares with K2: a
+# forward's "prediction" is K1's, a backward's K2's
+SRF_SYMBOLS = (("K1 recurrence", "sdr_fwd_kernel"),
+               ("prediction", "sdr_predict_kernel"), ("K2", "sdr_bwd_"),
                ("K2 step", "sdr_bwd_step_kernel"),
-               ("K2 wgrad", "sdr_bwd_wgrad_kernel"))
+               ("K2 wgrad", "sdr_bwd_wgrad_kernel"),
+               ("K2 reduce", "sdr_bwd_reduce_kernel"))
 # cuDNN's convolution kernels (forward, data and weight gradients, its FFT
 # and layout-conversion kernels) and cuBLAS's GEMMs
 CONV_PATTERNS = ("xmma", "gemm", "implicit_convolve", "cudnn", "fprop",
@@ -566,7 +781,8 @@ def profile_device(torch, fn, symbols=SRF_SYMBOLS):
     ({label: ms of the device ops whose name holds the label's symbol},
     ms of all device ops (kernels and copies), their count, device busy
     ms, host wall ms, {op name: ms}). With the SRF symbols "K2" is the sum
-    of its two kernels, "K2 step" the reverse-time one and "K2 wgrad" the
+    of its step, weight-gradient and reduction kernels (without the
+    prediction), "K2 step" the reverse-time one, "K2 wgrad" the
     weight-gradient one."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -686,12 +902,13 @@ def main_path_phase(torch, card):
         before = sequential_routing_cuda.launches
         results[name] = card_rec.transcribe_batch_detailed(feats_list)
         torch.cuda.synchronize()
-        check(sequential_routing_cuda.launches - before == 7,
-              "%s: K1 launched %d times in one forward, expected 7"
-              % (name, sequential_routing_cuda.launches - before))
+        check(sequential_routing_cuda.launches - before == 7 * K1_LAUNCHES,
+              "%s: K1 launched %d times in one forward, expected %d"
+              % (name, sequential_routing_cuda.launches - before,
+                 7 * K1_LAUNCHES))
     launches = sequential_routing_cuda.launches
-    print("main path: K1 launches %d over %d forwards" % (launches,
-                                                          len(batches)))
+    print("main path: K1 launches %d over %d forwards (%d calls of its two "
+          "kernels)" % (launches, len(batches), launches // K1_LAUNCHES))
 
     for name, feats_list in batches.items():
         got = results[name]
@@ -730,10 +947,12 @@ def main_path_phase(torch, card):
                  1e3 * audio_s / med, card))
         kernels, total, count, busy, wall, _ = profile_device(
             torch, lambda: card_rec.forward(feats, lengths))
-        print("profile %s forward: K1 %.3f ms, all %d device ops %.3f ms, "
-              "device busy %.3f of %.3f ms wall (idle share %.3f) [%s]"
-              % (name, kernels["K1"], count, total, busy, wall,
-                 1.0 - busy / wall, card))
+        print("profile %s forward: K1 %.3f ms (prediction %.3f, recurrence "
+              "%.3f), all %d device ops %.3f ms, device busy %.3f of %.3f ms "
+              "wall (idle share %.3f) [%s]"
+              % (name, kernels["prediction"] + kernels["K1 recurrence"],
+                 kernels["prediction"], kernels["K1 recurrence"], count,
+                 total, busy, wall, 1.0 - busy / wall, card))
     torch.cuda.synchronize()
     return launches, state
 
@@ -1055,12 +1274,15 @@ def train_phase(torch, card, state):
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - start))
         losses.append(metrics["loss_sum"])
-        # 7 calls of each; a K2 call launches its two kernels
-        check(sequential_routing_cuda.launches - k1 == 7
-              and sequential_routing_bwd_cuda.launches - k2 == 14,
-              "a train step launched K1 %d and K2 %d times, expected 7 and "
-              "14" % (sequential_routing_cuda.launches - k1,
-                      sequential_routing_bwd_cuda.launches - k2))
+        # 7 calls of each; a K1 call launches its two kernels, a K2 call
+        # its four
+        check(sequential_routing_cuda.launches - k1 == 7 * K1_LAUNCHES
+              and sequential_routing_bwd_cuda.launches - k2
+              == 7 * K2_LAUNCHES,
+              "a train step launched K1 %d and K2 %d times, expected %d and "
+              "%d" % (sequential_routing_cuda.launches - k1,
+                      sequential_routing_bwd_cuda.launches - k2,
+                      7 * K1_LAUNCHES, 7 * K2_LAUNCHES))
     launches = (sequential_routing_cuda.launches,
                 sequential_routing_bwd_cuda.launches)
     all_on_card(train_state, metrics)
@@ -1068,11 +1290,12 @@ def train_phase(torch, card, state):
     check(bool(np.isfinite(losses).all()), "non-finite train loss")
     med = float(np.median(step_ms))
     audio_s = 0.01 * float(batch["inp_len"].sum())
-    print("train %d steps of 29 x 241 (dropout on): K1 %d launches, K2 %d "
-          "launches (%d calls of its two kernels); "
+    print("train %d steps of 29 x 241 (dropout on): K1 %d launches (%d "
+          "calls of its two kernels), K2 %d launches (%d calls of its four); "
           "loss per utterance first %.3f last %.3f; ms/step median %.3f max "
           "%.3f; %.1f utt/s, %.1f audio-s/s [%s]"
-          % (TRAIN_STEPS, launches[0], launches[1], launches[1] // 2,
+          % (TRAIN_STEPS, launches[0], launches[0] // K1_LAUNCHES,
+             launches[1], launches[1] // K2_LAUNCHES,
              losses[0], losses[-1],
              med, max(step_ms), 1e3 * 29 / med, 1e3 * audio_s / med, card))
 
@@ -1090,20 +1313,23 @@ def train_phase(torch, card, state):
     for name, fn in (("forward", forward),
                      ("backward", lambda: held["loss"].backward())):
         kernels, total, count, busy, wall, _ = profile_device(torch, fn)
-        print("profile train %s: K1 %.3f ms, K2 %.3f ms (step kernel %.3f, "
-              "wgrad kernel %.3f), all %d device ops %.3f ms, device busy "
-              "%.3f of %.3f ms wall [%s]"
-              % (name, kernels["K1"], kernels["K2"], kernels["K2 step"],
-                 kernels["K2 wgrad"], count, total, busy, wall, card))
+        print("profile train %s: K1 recurrence %.3f ms, prediction %.3f ms "
+              "(K1's in the forward, K2's in the backward), K2 step kernel "
+              "%.3f, wgrad kernel %.3f, reduce kernel %.3f, all %d device "
+              "ops %.3f ms, device busy %.3f of %.3f ms wall [%s]"
+              % (name, kernels["K1 recurrence"], kernels["prediction"],
+                 kernels["K2 step"], kernels["K2 wgrad"],
+                 kernels["K2 reduce"], count, total, busy, wall, card))
 
     kernels, total, count, busy, wall, _ = profile_device(
         torch, lambda: step(train_state, batch, seed))
-    print("profile train step: K1 %.3f ms, K2 %.3f ms (step kernel %.3f, "
-          "wgrad kernel %.3f), all %d device ops %.3f ms, device busy %.3f "
-          "of %.3f ms wall (idle share %.3f) [%s]"
-          % (kernels["K1"], kernels["K2"], kernels["K2 step"],
-             kernels["K2 wgrad"], count, total, busy, wall,
-             1.0 - busy / wall, card))
+    print("profile train step: K1 recurrence %.3f ms, prediction (K1 and "
+          "K2) %.3f ms, K2 %.3f ms without its prediction (step kernel "
+          "%.3f, wgrad kernel %.3f, reduce kernel %.3f), all %d device ops "
+          "%.3f ms, device busy %.3f of %.3f ms wall (idle share %.3f) [%s]"
+          % (kernels["K1 recurrence"], kernels["prediction"], kernels["K2"],
+             kernels["K2 step"], kernels["K2 wgrad"], kernels["K2 reduce"],
+             count, total, busy, wall, 1.0 - busy / wall, card))
     torch.cuda.synchronize()
     return launches
 
@@ -1422,12 +1648,16 @@ def run():
     paths = cuda_build.build(["sdr_fwd", "sdr_bwd", "sdr_scan_fwd",
                               "sdr_scan_bwd", "fused_dropout"])
     print("build: %.2f s" % (time.perf_counter() - start))
+    spilled = []
     for name, path in paths.items():
-        if os.path.isfile(path + ".log"):
-            with open(path + ".log") as log:
-                for line in log:
-                    if "registers" in line or "spill" in line:
-                        print("build %s: %s" % (name, line.strip()))
+        with open(path + ".log") as log:
+            entries = ptxas_entries(log.read())
+        for kernel, (registers, spill) in sorted(entries.items()):
+            print("build %s: %s %d registers, %d bytes spilled"
+                  % (name, kernel, registers, spill))
+            if spill and kernel.startswith(RECURRENCE_KERNELS):
+                spilled.append(kernel)
+    check(not spilled, "ptxas spills %s" % ", ".join(spilled))
 
     k1, k3 = kernel_phase(torch, device)
     k2, k4 = k2_phase(torch, device)
@@ -1446,7 +1676,8 @@ def run():
     k1["launches"] = serve_k1 + train_k1
     k1["launches_by_path"] = {"serve": serve_k1, "train": train_k1}
     k2["launches"] = train_k2
-    k2["calls"] = train_k2 // 2  # two kernels per call
+    k1["calls"] = k1["launches"] // K1_LAUNCHES
+    k2["calls"] = train_k2 // K2_LAUNCHES
     k2["launches_by_path"] = {"train": train_k2}
     k3["launches"] = scan_k3
     k3["launches_by_path"] = {"scan": scan_k3}

@@ -16,389 +16,426 @@
 //     carry  = sum_n da[n,o] * u_hat[n,o,:]            (into step t-1)
 //     dW += du_hat (x) u[b,t];  db += du_hat;  du[b,t,n,:] = W[n]^T du_hat
 //
-// Two kernels, one launch each per call. The reverse-time recurrence is
-// sdr_bwd_step_kernel: as in K1 (sdr_fwd.cu), one block per utterance owns
-// the time loop (CUDA blocks have no order, so the TPU kernel's sequential
-// grid becomes a loop inside the block), with v_{t-1} read from the saved
-// forward output and the dv carry in shared memory. u_hat is rebuilt in
-// tiles of in-capsule rows sized from the geometry (K1's tiling): the first
-// pass over the tiles rebuilds the logits, c and s (s needs every row); the
-// second does the per-row backward (dc, the softmax VJP, du_hat) and the
-// sum over rows of the carry, in partial sums as s is in K1. With one tile
-// (TIMIT layer 0) u_hat stays in shared memory between the passes.
+// Four launches per call, in order on one stream:
+// 1. the prediction kernel (sdr_stream.cuh) recomputes u_hat for every
+//    (b, t, n) over all SMs into its own buffer (the forward's u_hat is not
+//    kept: it would be a 1.4 GB residual per train step at SRF-TIMIT
+//    width; tools/sdr_variants.py measures keeping it);
+// 2. sdr_bwd_step_kernel, the reverse-time recurrence: one block per
+//    utterance walks t backwards while its producer warp streams u_hat_t
+//    through a ring of row chunks (sdr_stream.cuh), twice a step: pass 1
+//    rebuilds the logits, c and s, rows spread over the warps; the compute
+//    warps then form ds; pass 2 forms dc, the softmax VJP da and the carry.
+//    It writes du_hat's factors, c and da [B, T, in_n, out_n] and ds [B, T,
+//    out_n * out_d], not du_hat (4x fewer bytes at out_d = 8): du_hat = c
+//    ds + da v_{t-1}, and v_{t-1} is the forward's output shifted by one
+//    step;
+// 3. sdr_bwd_wgrad_kernel, as many blocks as the card holds at once, each
+//    taking work items (n, chunk of B*T rows) in turn, about 8 apiece: it
+//    rebuilds du_hat from the factors in shared memory a few rows at a time
+//    and forms the chunk's partial of dW[n] and db[n] and du[:, n, :] =
+//    du_hat W[n], over tiles of W[n] where it does not fit whole
+//    (plan_wgrad in sdr_plan.cuh);
+// 4. sdr_bwd_reduce_kernel sums the chunks' partials in chunk order.
+// No atomics anywhere: every sum has one owner and a fixed order, so two
+// calls are bit-equal.
 //
-// The step kernel writes du_hat [B, T, in_n, out_n*out_d] to a scratch
-// buffer and leaves every sum over B x T to sdr_bwd_wgrad_kernel, one
-// block per in-capsule n: it streams du_hat[:, :, n, :] and u[:, :, n, :]
-// through shared memory in chunks of rows and forms dW[n] and db[n] (sums
-// over B x T, each owned by one thread, so no atomics and a fixed order)
-// and du[:, :, n, :] = du_hat W[n] (sums over out_n*out_d). The TPU kernel
-// keeps dW/db in VMEM across its grid instead; here a per-utterance
-// accumulator would read and write all of W once per step per block, 16x
-// the bytes of du_hat.
-//
-// What bounds it on this card: as for K1, the serial dependence over time
-// in the step kernel (one step is a chain of reductions and block barriers,
-// and W is re-read from L2 once per step per block); the bytes and FLOPs
-// are small against 3.35 TB/s and 67 TFLOP/s. wgmma, TMA, clusters and the
-// register cap of __launch_bounds__(1024, 1) are later work.
+// What bounds it on this card: the reverse-time chain in (2), as for K1;
+// (1), (3) and (4) run over all SMs and are bound by their bytes and, in
+// (3), by shared-memory traffic.
 
-#include <cuda_runtime.h>
-
-#include <stdint.h>
+#include "sdr_stream.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;        // step kernel
-constexpr int kWgradThreads = 512;    // weight-gradient kernel
-constexpr int kWgradMaxRows = 32;     // rows of du_hat per chunk
-constexpr float kPadLogit = -1e9f;    // routing.py NEG_INF
-constexpr float kSquashEps = 1e-7f;   // squash.py epsilon
-// the most dynamic shared memory one block may use on sm_90 (227 KB)
-constexpr size_t kMaxSmemBytes = 232448;
+using sdr::kWarps;
+using sdr::RowGeom;
+using sdr::Ring;
+using sdr::StreamPlan;
+using sdr::Wgrad;
 
-struct Geometry {
-  int in_n, in_d, out_n, out_d;
-  int tile_n;  // in-capsule rows of u_hat held in shared memory at once
-  int groups;  // partial sums kept per entry of s and of the carry
-  int vec4;    // W rows and u rows can be read as float4
+constexpr int kWgradThreads = 256;
+constexpr int kReduceThreads = 256;
+constexpr int kReduceBlocks = 264;
+
+// Scratch besides u_hat, in floats from its start: c, da, ds, then the
+// weight-gradient partials [chunks, in_n * out_no * in_d + in_n * out_no],
+// then, where the plan puts it in global memory, the step kernel's
+// per-warp scratch [batch, warp_floats].
+struct Scratch {
+  size_t c, da, ds, part, warp, total;
 };
 
-// floats of shared memory of the step kernel for tiles of `rows` rows
-size_t step_smem_floats(const Geometry& g, int rows) {
-  const size_t out_no = (size_t)g.out_n * g.out_d;
-  return (size_t)g.in_n * g.in_d              // u_t
-         + 4 * out_no                         // v_{t-1}, dv, s, ds
-         + (size_t)g.in_n * g.out_n           // c, every row
-         + (size_t)rows * (g.out_n + out_no)  // dc/da and u_hat of one tile
-         + (size_t)g.groups * out_no;         // partial sums
+Scratch scratch_layout(int batch, int seq_len, int in_n, int in_d,
+                       const StreamPlan& sp, const Wgrad& p) {
+  const RowGeom& g = sp.g;
+  const size_t rows = (size_t)batch * seq_len;
+  Scratch s;
+  s.c = 0;
+  s.da = s.c + rows * in_n * g.out_n;
+  s.ds = s.da + rows * in_n * g.out_n;
+  s.part = s.ds + rows * g.out_no;
+  s.warp = (s.part + (size_t)p.chunks * in_n * g.out_no * (in_d + 1) + 3) /
+           4 * 4;
+  s.total = s.warp + (sp.warp_global ? batch * sdr::warp_floats(g) : 0);
+  return s;
 }
 
-bool plan(int in_n, int in_d, int out_n, int out_d, Geometry* g) {
-  if (in_n < 1 || in_d < 1 || out_n < 1 || out_d < 1) return false;
-  g->in_n = in_n;
-  g->in_d = in_d;
-  g->out_n = out_n;
-  g->out_d = out_d;
-  const int out_no = out_n * out_d;
-  g->groups = out_no < kThreads ? kThreads / out_no : 1;
-  g->vec4 = 0;
-  const size_t budget = kMaxSmemBytes / sizeof(float);
-  const size_t fixed = step_smem_floats(*g, 0);
-  const size_t per_row = (size_t)out_n + out_no;
-  if (fixed + per_row > budget) return false;
-  size_t max_rows = (budget - fixed) / per_row;
-  if (max_rows > (size_t)in_n) max_rows = in_n;
-  // balance the tiles: ceil(in_n / tiles) rows each
-  const int tiles = (in_n + (int)max_rows - 1) / (int)max_rows;
-  g->tile_n = (in_n + tiles - 1) / tiles;
-  return true;
-}
-
-// floats of shared memory of the weight-gradient kernel
-size_t wgrad_smem_floats(int in_d, int out_no, int rows) {
-  return (size_t)out_no * in_d               // W[n]
-         + (size_t)out_no * (in_d + 1)       // dW[n] and db[n] sums
-         + (size_t)rows * (out_no + in_d);   // a chunk of du_hat and u rows
-}
-
-int wgrad_rows(int in_d, int out_no) {
-  const size_t budget = kMaxSmemBytes / sizeof(float);
-  const size_t fixed = wgrad_smem_floats(in_d, out_no, 0);
-  if (fixed + out_no + in_d > budget) return 0;
-  const size_t rows = (budget - fixed) / (out_no + in_d);
-  return rows < (size_t)kWgradMaxRows ? (int)rows : kWgradMaxRows;
-}
-
-// u_hat of the tile's rows n0..n0+rows-1, one thread per (n, o, i)
-__device__ void predict_tile(const float* __restrict__ w,
-                             const float* __restrict__ bias,
-                             const float* u_s, float* uhat_s, int n0,
-                             int rows, const Geometry& g) {
-  const int out_no = g.out_n * g.out_d;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < rows * out_no; e += blockDim.x) {
-    const int n = n0 + e / out_no;
-    const size_t row = (size_t)n * out_no + e % out_no;
-    const float* w_row = w + row * g.in_d;
-    const float* u_row = u_s + n * g.in_d;
-    float acc = __ldg(bias + row);
-    if (g.vec4) {
-      const float4* w4 = reinterpret_cast<const float4*>(w_row);
-      const float4* u4 = reinterpret_cast<const float4*>(u_row);
-      for (int j = 0; j < g.in_d / 4; ++j) {
-        const float4 a = __ldg(w4 + j);
-        const float4 x = u4[j];
-        acc = fmaf(a.x, x.x, acc);
-        acc = fmaf(a.y, x.y, acc);
-        acc = fmaf(a.z, x.z, acc);
-        acc = fmaf(a.w, x.w, acc);
-      }
-    } else {
-      for (int j = 0; j < g.in_d; ++j) {
-        acc = fmaf(__ldg(w_row + j), u_row[j], acc);
-      }
-    }
-    uhat_s[e] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-sdr_bwd_step_kernel(const float* __restrict__ u, const float* __restrict__ w,
-                    const float* __restrict__ bias,
+// warp_g: the per-warp scratch of every block in global memory
+// ([batch, warp_floats]) where the plan puts it there (general path only),
+// else null
+template <int D, int NO>
+__global__ void __launch_bounds__(sdr::kThreads, 1)
+sdr_bwd_step_kernel(const float* __restrict__ uhat,
                     const float* __restrict__ vs,
-                    const float* __restrict__ dvs,
-                    float* __restrict__ du_hat, int seq_len, Geometry g,
-                    int mask_pad) {
+                    const float* __restrict__ dvs, float* __restrict__ cfac,
+                    float* __restrict__ dafac, float* __restrict__ dsfac,
+                    float* __restrict__ warp_g, int seq_len, int in_n,
+                    RowGeom g, Ring r, int mask_pad) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* ring = reinterpret_cast<float*>(smem4);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + (size_t)r.stages * r.chunk * g.pitch);
+  uint64_t* empty = full + r.stages;
+  float* rest = reinterpret_cast<float*>(empty + r.stages);
+  // the per-warp scratch (partial sums, logits) first, unless it is in
+  // global memory
+  const bool global = D == 0 && warp_g;
+  float* part = global ? warp_g + blockIdx.x * sdr::warp_floats(g)
+                       : rest;                              // [kWarps, out_no]
+  float* vp_s = global ? rest : part + kWarps * g.out_no;     // v_{t-1}
+  float* dv_s = vp_s + g.pitch;                               // dvs[t] + carry
+  float* ds_s = dv_s + g.pitch;
+  float* s_s = ds_s + g.pitch;
+  float* lg_all = global ? part + kWarps * g.out_no
+                         : s_s + g.pitch;                     // [kWarps, out_n]
+  float* c_all = global ? s_s + g.pitch
+                        : lg_all + kWarps * g.out_n;          // [in_n, out_n]
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int in_nd = g.in_n * g.in_d;
-  const int out_no = g.out_n * g.out_d;
-  const int in_out_n = g.in_n * g.out_n;
-  const int tiles = (g.in_n + g.tile_n - 1) / g.tile_n;
-  float* u_s = smem;                          // [in_n, in_d]
-  float* vprev_s = u_s + in_nd;               // [out_n, out_d]
-  float* dv_s = vprev_s + out_no;             // [out_n, out_d]
-  float* s_s = dv_s + out_no;                 // [out_n, out_d]
-  float* ds_s = s_s + out_no;                 // [out_n, out_d]
-  float* c_s = ds_s + out_no;                 // [in_n, out_n]
-  float* da_s = c_s + in_out_n;               // [tile_n, out_n]
-  float* uhat_s = da_s + g.tile_n * g.out_n;  // [tile_n, out_n, out_d]
-  float* part_s = uhat_s + g.tile_n * out_no; // [groups, out_n, out_d]
-
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const size_t b = blockIdx.x;
-  const float* u_b = u + b * seq_len * in_nd;
-  const float* vs_b = vs + b * seq_len * out_no;
-  const float* dvs_b = dvs + b * seq_len * out_no;
-  float* duhat_b = du_hat + b * seq_len * g.in_n * out_no;
+  const float* uhat_b = uhat + b * seq_len * in_n * g.pitch;
+  const float* vs_b = vs + b * seq_len * g.out_no;
+  const float* dvs_b = dvs + b * seq_len * g.out_no;
+  float* cfac_b = cfac + b * seq_len * in_n * g.out_n;
+  float* dafac_b = dafac + b * seq_len * in_n * g.out_n;
+  float* dsfac_b = dsfac + b * seq_len * g.out_no;
+  const int last_t = seq_len - 1;
 
-  for (int k = tid; k < out_no; k += nthr) dv_s[k] = 0.f;  // the carry
-
-  for (int t = seq_len - 1; t >= 0; --t) {
-    const float* u_t = u_b + (size_t)t * in_nd;
-    for (int k = tid; k < in_nd; k += nthr) u_s[k] = u_t[k];
-    for (int k = tid; k < out_no; k += nthr) {
-      vprev_s[k] = t > 0 ? vs_b[(size_t)(t - 1) * out_no + k] : 0.f;
-      dv_s[k] += dvs_b[(size_t)t * out_no + k];
+  if (tid == 0) {
+    for (int s = 0; s < r.stages; ++s) {
+      sdr::mbar_init(full + s, 1);
+      sdr::mbar_init(empty + s, kWarps);
     }
-    for (int k = tid; k < g.groups * out_no; k += nthr) part_s[k] = 0.f;
-    __syncthreads();
+    sdr::mbar_fence_init();
+  }
+  for (int k = tid; k < g.out_no; k += blockDim.x) {
+    dv_s[k] = dvs_b[(size_t)last_t * g.out_no + k];
+    vp_s[k] = last_t > 0 ? vs_b[(size_t)(last_t - 1) * g.out_no + k] : 0.f;
+  }
+  __syncthreads();
+  if (warp == kWarps) {
+    sdr::produce(uhat_b, ring, full, empty, r, in_n, g.pitch, seq_len, last_t,
+                 -1, 2);
+    return;
+  }
 
-    // ---- pass 1: rebuild the logits, c and s, tile by tile ----
-    for (int n0 = 0; n0 < g.in_n; n0 += g.tile_n) {
-      const int rows = min(g.tile_n, g.in_n - n0);
-      predict_tile(w, bias, u_s, uhat_s, n0, rows, g);
-      __syncthreads();
+  // pass 1 routes against v_{t-1} and writes c; pass 2 takes the softmax
+  // VJP of dc = <u_hat, ds> and writes da
+  sdr::Pass route{ring, full, empty, r, g, in_n, vp_s,
+                  mask_pad ? sdr::kPadLogit : 0.f, c_all, nullptr,
+                  part + warp * g.out_no, lg_all + warp * g.out_n};
+  sdr::Pass vjp = route;
+  vjp.vec = ds_s;
+  sdr::Cursor q{0, 0};  // the next chunk, in the producer's order
+  for (int t = last_t; t >= 0; --t) {
+    // ---- pass 1: the logits, c and s ----
+    route.fac = cfac_b + (size_t)t * in_n * g.out_n;
+    sdr::warp_pass<D, NO, false>(route, q, warp, lane);
+    sdr::sync_compute();
 
-      // logits[n,o] = <u_hat[n,o,:], v_{t-1}[o,:]> (+ PAD mask)
-      for (int p = tid; p < rows * g.out_n; p += nthr) {
-        const int r = p / g.out_n;
-        const int o = p % g.out_n;
-        const float* uh = uhat_s + r * out_no + o * g.out_d;
-        const float* v = vprev_s + o * g.out_d;
-        float dot = 0.f;
-        for (int i = 0; i < g.out_d; ++i) dot = fmaf(uh[i], v[i], dot);
-        if (mask_pad && o == 0) dot += kPadLogit;
-        c_s[(n0 + r) * g.out_n + o] = dot;
-      }
-      __syncthreads();
-
-      // c = softmax over the out capsules, in place; a thread per row
-      for (int r = tid; r < rows; r += nthr) {
-        float* c = c_s + (n0 + r) * g.out_n;
-        float m = c[0];
-        for (int o = 1; o < g.out_n; ++o) m = fmaxf(m, c[o]);
-        float sum = 0.f;
-        for (int o = 0; o < g.out_n; ++o) {
-          const float ex = expf(c[o] - m);
-          c[o] = ex;
-          sum += ex;
+    // ---- s and the squash backward:
+    //      ds = dv f(q) + 2 s (sum_i dv s) f'(q), q = |s[o,:]|^2 ----
+    if (g.shift >= 0) {
+      for (int base = 0; base < g.out_no; base += sdr::kComputeThreads) {
+        const int oi = base + tid;
+        const bool in = oi < g.out_no;
+        const float s = in ? sdr::sum_partials(part, g.out_no, oi) : 0.f;
+        const float dv = in ? dv_s[oi] : 0.f;
+        const float sq = sdr::group_sum(s * s, g.shift);
+        const float dvs_dot = sdr::group_sum(dv * s, g.shift);
+        if (in) {
+          const float inv_sqrt = 1.f / sqrtf(sq + sdr::kSquashEps);
+          const float ratio = sq / (1.f + sq);
+          const float dfdq = inv_sqrt / ((1.f + sq) * (1.f + sq)) -
+                             0.5f * ratio * (inv_sqrt / (sq + sdr::kSquashEps));
+          const float ds = dv * (ratio * inv_sqrt) + 2.f * s * (dvs_dot * dfdq);
+          ds_s[oi] = ds;
+          dsfac_b[(size_t)t * g.out_no + oi] = ds;
         }
-        for (int o = 0; o < g.out_n; ++o) c[o] = c[o] / sum;
       }
-      __syncthreads();
-
-      // s[o,i] += sum over the tile's rows of c[n,o] * u_hat[n,o,i]
-      for (int q = tid; q < g.groups * out_no; q += nthr) {
-        const int grp = q / out_no;
-        const int oi = q % out_no;
-        const int o = oi / g.out_d;
-        float acc = part_s[q];
-        for (int r = grp; r < rows; r += g.groups) {
-          acc = fmaf(c_s[(n0 + r) * g.out_n + o], uhat_s[r * out_no + oi],
-                     acc);
+    } else {
+      for (int oi = tid; oi < g.out_no; oi += sdr::kComputeThreads) {
+        s_s[oi] = sdr::sum_partials(part, g.out_no, oi);
+      }
+      sdr::sync_compute();
+      for (int oi = tid; oi < g.out_no; oi += sdr::kComputeThreads) {
+        const int base = (oi / g.out_d) * g.out_d;
+        float sq = 0.f, dvs_dot = 0.f;
+        for (int i = 0; i < g.out_d; ++i) {
+          sq = fmaf(s_s[base + i], s_s[base + i], sq);
+          dvs_dot = fmaf(dv_s[base + i], s_s[base + i], dvs_dot);
         }
-        part_s[q] = acc;
+        const float inv_sqrt = 1.f / sqrtf(sq + sdr::kSquashEps);
+        const float ratio = sq / (1.f + sq);
+        const float dfdq = inv_sqrt / ((1.f + sq) * (1.f + sq)) -
+                           0.5f * ratio * (inv_sqrt / (sq + sdr::kSquashEps));
+        const float ds =
+            dv_s[oi] * (ratio * inv_sqrt) + 2.f * s_s[oi] * (dvs_dot * dfdq);
+        ds_s[oi] = ds;
+        dsfac_b[(size_t)t * g.out_no + oi] = ds;
       }
-      __syncthreads();
     }
-    for (int oi = tid; oi < out_no; oi += nthr) {
-      float s = 0.f;
-      for (int grp = 0; grp < g.groups; ++grp) s += part_s[grp * out_no + oi];
-      s_s[oi] = s;
+    sdr::sync_compute();
+
+    // ---- pass 2: dc, the softmax VJP and the carry ----
+    vjp.fac = dafac_b + (size_t)t * in_n * g.out_n;
+    sdr::warp_pass<D, NO, true>(vjp, q, warp, lane);
+    sdr::sync_compute();
+
+    // ---- the carry into step t - 1, and that step's dv and v_{t-2} ----
+    if (t > 0) {
+      for (int oi = tid; oi < g.out_no; oi += sdr::kComputeThreads) {
+        dv_s[oi] = sdr::sum_partials(part, g.out_no, oi) +
+                   dvs_b[(size_t)(t - 1) * g.out_no + oi];
+        vp_s[oi] = t > 1 ? vs_b[(size_t)(t - 2) * g.out_no + oi] : 0.f;
+      }
     }
-    __syncthreads();
-
-    // ---- squash backward: ds = dv f(q) + 2 s (sum_i dv s) f'(q) ----
-    for (int oi = tid; oi < out_no; oi += nthr) {
-      const int base = (oi / g.out_d) * g.out_d;
-      float q = 0.f, dvs_dot = 0.f;
-      for (int i = 0; i < g.out_d; ++i) {
-        q = fmaf(s_s[base + i], s_s[base + i], q);
-        dvs_dot = fmaf(dv_s[base + i], s_s[base + i], dvs_dot);
-      }
-      const float inv_sqrt = 1.f / sqrtf(q + kSquashEps);
-      const float ratio = q / (1.f + q);
-      const float f = ratio * inv_sqrt;
-      const float dfdq = inv_sqrt / ((1.f + q) * (1.f + q)) -
-                         0.5f * ratio * (inv_sqrt / (q + kSquashEps));
-      ds_s[oi] = dv_s[oi] * f + 2.f * s_s[oi] * (dvs_dot * dfdq);
-    }
-    for (int k = tid; k < g.groups * out_no; k += nthr) part_s[k] = 0.f;
-    __syncthreads();
-
-    // ---- pass 2: the per-row backward, tile by tile ----
-    for (int n0 = 0; n0 < g.in_n; n0 += g.tile_n) {
-      const int rows = min(g.tile_n, g.in_n - n0);
-      if (tiles > 1) {
-        predict_tile(w, bias, u_s, uhat_s, n0, rows, g);
-        __syncthreads();
-      }
-
-      // dc[n,o] = <u_hat[n,o,:], ds[o,:]>
-      for (int p = tid; p < rows * g.out_n; p += nthr) {
-        const int r = p / g.out_n;
-        const int o = p % g.out_n;
-        const float* uh = uhat_s + r * out_no + o * g.out_d;
-        const float* ds = ds_s + o * g.out_d;
-        float dot = 0.f;
-        for (int i = 0; i < g.out_d; ++i) dot = fmaf(uh[i], ds[i], dot);
-        da_s[p] = dot;
-      }
-      __syncthreads();
-
-      // softmax backward, in place: da = c * (dc - sum_o dc * c)
-      for (int r = tid; r < rows; r += nthr) {
-        const float* c = c_s + (n0 + r) * g.out_n;
-        float* da = da_s + r * g.out_n;
-        float dot = 0.f;
-        for (int o = 0; o < g.out_n; ++o) dot = fmaf(da[o], c[o], dot);
-        for (int o = 0; o < g.out_n; ++o) da[o] = c[o] * (da[o] - dot);
-      }
-      __syncthreads();
-
-      // carry[o,i] += sum over the tile's rows of da[n,o] * u_hat[n,o,i]
-      for (int q = tid; q < g.groups * out_no; q += nthr) {
-        const int grp = q / out_no;
-        const int oi = q % out_no;
-        const int o = oi / g.out_d;
-        float acc = part_s[q];
-        for (int r = grp; r < rows; r += g.groups) {
-          acc = fmaf(da_s[r * g.out_n + o], uhat_s[r * out_no + oi], acc);
-        }
-        part_s[q] = acc;
-      }
-      // du_hat[n,o,i] = c[n,o] ds[o,i] + da[n,o] v_{t-1}[o,i]
-      float* duhat_t = duhat_b + ((size_t)t * g.in_n + n0) * out_no;
-      for (int e = tid; e < rows * out_no; e += nthr) {
-        const int r = e / out_no;
-        const int oi = e % out_no;
-        const int o = oi / g.out_d;
-        duhat_t[e] = fmaf(c_s[(n0 + r) * g.out_n + o], ds_s[oi],
-                          da_s[r * g.out_n + o] * vprev_s[oi]);
-      }
-      __syncthreads();
-    }
-    for (int oi = tid; oi < out_no; oi += nthr) {
-      float carry = 0.f;
-      for (int grp = 0; grp < g.groups; ++grp) {
-        carry += part_s[grp * out_no + oi];
-      }
-      dv_s[oi] = carry;
-    }
-    __syncthreads();
+    sdr::sync_compute();
   }
 }
 
-// One block per in-capsule n, over all rows (b, t) in chunks:
-//   dW[n,o,i,j] = sum_bt du_hat[bt,n,oi] u[bt,n,j]
-//   db[n,o,i]   = sum_bt du_hat[bt,n,oi]
-//   du[bt,n,j]  = sum_oi du_hat[bt,n,oi] W[n,oi,j]
+// Work items (n, k), an in-capsule and a chunk of B*T rows, taken by the
+// resident blocks in turn (item = blockIdx.x, + gridDim.x, ...); item (n, k)
+// over rows bt of chunk k, for each tile of W[n] (p.o_tile out entries by
+// p.j_tile in entries) in order:
+//   du_hat[bt,oi] = c[bt,n,o] ds[bt,oi] + da[bt,n,o] v_{t-1}[bt,oi]
+//   part[k] dW[n,oi,j] = sum_bt du_hat[bt,oi] u[bt,n,j]
+//   part[k] db[n,oi]   = sum_bt du_hat[bt,oi]
+//   du[bt,n,j]         = sum_oi du_hat[bt,oi] W[n,oi,j]  (the out tiles'
+//                        sums added in tile order by one thread)
+// kTiles false: W[n] is one tile (every recipe's geometry), and the tile's
+// bounds are constants.
+template <bool kTiles>
 __global__ void __launch_bounds__(kWgradThreads)
-sdr_bwd_wgrad_kernel(const float* __restrict__ u,
-                     const float* __restrict__ w,
-                     const float* __restrict__ du_hat,
-                     float* __restrict__ du, float* __restrict__ dw,
-                     float* __restrict__ db, int rows_total, int in_n,
-                     int in_d, int out_no, int chunk) {
+sdr_bwd_wgrad_kernel(const float* __restrict__ u, const float* __restrict__ w,
+                     const float* __restrict__ vs,
+                     const float* __restrict__ cfac,
+                     const float* __restrict__ dafac,
+                     const float* __restrict__ dsfac, float* __restrict__ du,
+                     float* __restrict__ part, int rows_total, int seq_len,
+                     int in_n, int in_d, int out_n, int out_d, Wgrad p) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  const int out_no = out_n * out_d;
+  const int d4 = p.j_tile / 4;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int n = blockIdx.x;
-  const int acc_w = in_d + 1;
-  float* w_s = smem;                          // [out_no, in_d]
-  float* acc_s = w_s + out_no * in_d;         // [out_no, in_d + 1]
-  float* dh_s = acc_s + out_no * acc_w;       // [chunk, out_no]
-  float* uc_s = dh_s + chunk * out_no;        // [chunk, in_d]
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  float4* w4 = smem4;                  // [o_tile, d4] W[n]'s tile, zero-padded
+  float4* acc4 = w4 + p.o_tile * d4;   // [o_tile, d4] its dW partial
+  float* w_s = reinterpret_cast<float*>(w4);
+  float* acc_s = reinterpret_cast<float*>(acc4);
+  float* db_s = acc_s + p.o_tile * p.j_tile;       // [o_tile]
+  float* u_s = db_s + sdr::row_pitch(p.o_tile);    // [rows, j_tile], aligned
+  float* dh_s = u_s + p.rows * p.j_tile;           // [rows, dh_pitch] du_hat
+  const float4* u4 = reinterpret_cast<const float4*>(u_s);
+  const size_t per_chunk = (size_t)in_n * out_no * (in_d + 1);
 
-  const float* w_n = w + (size_t)n * out_no * in_d;
-  for (int k = tid; k < out_no * in_d; k += nthr) w_s[k] = w_n[k];
-  for (int k = tid; k < out_no * acc_w; k += nthr) acc_s[k] = 0.f;
+  for (int item = blockIdx.x; item < in_n * p.chunks; item += gridDim.x) {
+    const int n = item % in_n;
+    const int k = item / in_n;
+    const int bt_begin = k * p.rows_per_chunk;
+    const int bt_end = min(bt_begin + p.rows_per_chunk, rows_total);
+    // the tile of out entries o0..o0+ot-1 and in entries j0..j0+jt-1
+    const auto tile = [&](int o0, int ot, int j0, int jt) {
+      __syncthreads();  // the previous tile is done with
+      for (int e = tid; e < ot * p.j_tile; e += nthr) {
+        const int j = e % p.j_tile;
+        w_s[e] = j < jt ? w[((size_t)n * out_no + o0 + e / p.j_tile) * in_d +
+                            j0 + j]
+                        : 0.f;
+        acc_s[e] = 0.f;
+      }
+      for (int oo = tid; oo < ot; oo += nthr) db_s[oo] = 0.f;
 
-  for (int bt0 = 0; bt0 < rows_total; bt0 += chunk) {
-    const int rows = min(chunk, rows_total - bt0);
-    for (int e = tid; e < rows * out_no; e += nthr) {
-      const int r = e / out_no;
-      dh_s[e] = du_hat[((size_t)(bt0 + r) * in_n + n) * out_no + e % out_no];
-    }
-    for (int e = tid; e < rows * in_d; e += nthr) {
-      const int r = e / in_d;
-      uc_s[e] = u[((size_t)(bt0 + r) * in_n + n) * in_d + e % in_d];
-    }
-    __syncthreads();
-
-    // dW[n] and db[n]: entry (oi, j) of the sums is owned by one thread;
-    // j == in_d is db
-    for (int q = tid; q < out_no * acc_w; q += nthr) {
-      const int oi = q / acc_w;
-      const int j = q % acc_w;
-      float acc = acc_s[q];
-      if (j < in_d) {
-        for (int r = 0; r < rows; ++r) {
-          acc = fmaf(dh_s[r * out_no + oi], uc_s[r * in_d + j], acc);
+      for (int bt0 = bt_begin; bt0 < bt_end; bt0 += p.rows) {
+        const int rows = min(p.rows, bt_end - bt0);
+        __syncthreads();  // W staged; the previous rows are done with
+        // stage the rows' u (asynchronous copies) and rebuild their du_hat
+        // from the factors, a warp per row with lanes along oi
+        for (int e = tid; e < rows * p.j_tile; e += nthr) {
+          const int r = e / p.j_tile;
+          const int j = e % p.j_tile;
+          if (j < jt) {
+            sdr::copy_async(
+                u_s + e, u + ((size_t)(bt0 + r) * in_n + n) * in_d + j0 + j);
+          } else {
+            u_s[e] = 0.f;
+          }
         }
-      } else {
-        for (int r = 0; r < rows; ++r) acc += dh_s[r * out_no + oi];
-      }
-      acc_s[q] = acc;
-    }
-    // du[bt, n, j], one thread per (row, j)
-    for (int p = tid; p < rows * in_d; p += nthr) {
-      const int r = p / in_d;
-      const int j = p % in_d;
-      const float* dh = dh_s + r * out_no;
-      float acc = 0.f;
-      for (int oi = 0; oi < out_no; ++oi) {
-        acc = fmaf(dh[oi], w_s[oi * in_d + j], acc);
-      }
-      du[((size_t)(bt0 + r) * in_n + n) * in_d + j] = acc;
-    }
-    __syncthreads();
-  }
+        for (int r = warp; r < rows; r += nthr / 32) {
+          const int bt = bt0 + r;
+          const size_t at = ((size_t)bt * in_n + n) * out_n;
+          const float* ds = dsfac + (size_t)bt * out_no + o0;
+          // v_{t-1}: the forward's output one step back, none at t = 0
+          const float* vp = bt % seq_len > 0
+                                ? vs + (size_t)(bt - 1) * out_no + o0
+                                : nullptr;
+#pragma unroll 4
+          for (int oo = lane; oo < ot; oo += 32) {
+            const int o = (o0 + oo) / out_d;
+            const float vprev = vp ? vp[oo] : 0.f;
+            dh_s[r * p.dh_pitch + oo] =
+                fmaf(cfac[at + o], ds[oo], dafac[at + o] * vprev);
+          }
+        }
+        sdr::copy_async_wait();
+        __syncthreads();
 
-  float* dw_n = dw + (size_t)n * out_no * in_d;
-  for (int q = tid; q < out_no * acc_w; q += nthr) {
-    const int oi = q / acc_w;
-    const int j = q % acc_w;
-    if (j < in_d) {
-      dw_n[oi * in_d + j] = acc_s[q];
+        // the partial of dW[n]'s tile: entry (oo, 4 j's) owned by one thread
+        for (int e = tid; e < ot * d4; e += nthr) {
+          const int oo = e / d4;
+          const int jg = e % d4;
+          float4 a = acc4[e];
+          for (int r = 0; r < rows; ++r) {
+            const float x = dh_s[r * p.dh_pitch + oo];
+            const float4 uu = u4[r * d4 + jg];
+            a.x = fmaf(x, uu.x, a.x);
+            a.y = fmaf(x, uu.y, a.y);
+            a.z = fmaf(x, uu.z, a.z);
+            a.w = fmaf(x, uu.w, a.w);
+          }
+          acc4[e] = a;
+        }
+        if (j0 == 0) {
+          for (int oo = tid; oo < ot; oo += nthr) {
+            float s = db_s[oo];
+            for (int r = 0; r < rows; ++r) s += dh_s[r * p.dh_pitch + oo];
+            db_s[oo] = s;
+          }
+        }
+        // du, a warp per row: lanes along oi, then a warp sum per j
+        for (int r = warp; r < rows; r += nthr / 32) {
+          const float* dh = dh_s + r * p.dh_pitch;
+          float* du_r = du + ((size_t)(bt0 + r) * in_n + n) * in_d + j0;
+          for (int jg = 0; jg < d4; ++jg) {
+            float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+            for (int oo = lane; oo < ot; oo += 32) {
+              const float x = dh[oo];
+              const float4 ww = w4[oo * d4 + jg];
+              a.x = fmaf(x, ww.x, a.x);
+              a.y = fmaf(x, ww.y, a.y);
+              a.z = fmaf(x, ww.z, a.z);
+              a.w = fmaf(x, ww.w, a.w);
+            }
+            a.x = sdr::warp_sum(a.x);
+            a.y = sdr::warp_sum(a.y);
+            a.z = sdr::warp_sum(a.z);
+            a.w = sdr::warp_sum(a.w);
+            const int j = jg * 4 + lane;
+            if (lane < 4 && j < jt) {
+              const float x =
+                  lane == 0 ? a.x : lane == 1 ? a.y : lane == 2 ? a.z : a.w;
+              du_r[j] = o0 == 0 ? x : du_r[j] + x;
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      float* dw_k =
+          part + k * per_chunk + ((size_t)n * out_no + o0) * in_d + j0;
+      for (int e = tid; e < ot * jt; e += nthr) {
+        dw_k[(size_t)(e / jt) * in_d + e % jt] =
+            acc_s[(e / jt) * p.j_tile + e % jt];
+      }
+      if (j0 == 0) {
+        float* db_k = part + k * per_chunk + (size_t)in_n * out_no * in_d +
+                      (size_t)n * out_no + o0;
+        for (int oo = tid; oo < ot; oo += nthr) db_k[oo] = db_s[oo];
+      }
+    };
+    if (kTiles) {
+      for (int o0 = 0; o0 < out_no; o0 += p.o_tile) {
+        for (int j0 = 0; j0 < in_d; j0 += p.j_tile) {
+          tile(o0, min(p.o_tile, out_no - o0), j0, min(p.j_tile, in_d - j0));
+        }
+      }
     } else {
-      db[(size_t)n * out_no + oi] = acc_s[q];
+      tile(0, out_no, 0, in_d);
     }
   }
+}
+
+// The weight-gradient kernel's instance for a plan.
+inline auto wgrad_kernel(const Wgrad& p, int in_d, int out_no) {
+  return p.o_tile < out_no || p.j_tile < in_d ? sdr_bwd_wgrad_kernel<true>
+                                              : sdr_bwd_wgrad_kernel<false>;
+}
+
+// dW and db: the chunks' partials summed in chunk order.
+__global__ void __launch_bounds__(kReduceThreads)
+sdr_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                      float* __restrict__ db, int chunks, int dw_size,
+                      int db_size) {
+  const int per_chunk = dw_size + db_size;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < per_chunk;
+       e += gridDim.x * blockDim.x) {
+    float sum = 0.f;
+    for (int k = 0; k < chunks; ++k) sum += part[(size_t)k * per_chunk + e];
+    if (e < dw_size) {
+      dw[e] = sum;
+    } else {
+      db[e - dw_size] = sum;
+    }
+  }
+}
+
+// Weight-gradient blocks resident on the current device at once, or -1.
+int wgrad_slots(int in_d, int out_no) {
+  Wgrad p;
+  sdr::plan_wgrad(1, 1, in_d, out_no, 0, &p);
+  const size_t smem = sdr::wgrad_smem_floats(p) * sizeof(float);
+  const auto kernel = wgrad_kernel(p, in_d, out_no);
+  int device, sms, per_sm;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kWgradThreads, smem) != cudaSuccess ||
+      per_sm < 1) {
+    return -1;
+  }
+  return sms * per_sm;
+}
+
+// The plans of a call: the step kernel's and the weight gradient's (for
+// the card's resident blocks). False if the geometry does not fit.
+bool plan_call(int batch, int seq_len, int in_n, int in_d, int out_n,
+               int out_d, StreamPlan* sp, Wgrad* p, int* slots) {
+  if (batch < 1 || seq_len < 1 ||
+      !sdr::plan_bwd(in_n, in_d, out_n, out_d, sp)) {
+    return false;
+  }
+  *slots = wgrad_slots(in_d, sp->g.out_no);
+  if (*slots < 1) return false;
+  sdr::plan_wgrad(batch * seq_len, in_n, in_d, sp->g.out_no, *slots, p);
+  return true;
 }
 
 }  // namespace
@@ -406,52 +443,85 @@ sdr_bwd_wgrad_kernel(const float* __restrict__ u,
 extern "C" {
 
 // Bytes of dynamic shared memory the step kernel needs for this geometry,
-// or -1 if the geometry does not fit (in either kernel).
+// or -1 if the geometry does not fit.
 int sdr_bwd_smem_bytes(int in_n, int in_d, int out_n, int out_d) {
-  Geometry g;
-  if (!plan(in_n, in_d, out_n, out_d, &g)) return -1;
-  if (wgrad_rows(in_d, out_n * out_d) < 1) return -1;
-  return (int)(step_smem_floats(g, g.tile_n) * sizeof(float));
+  return sdr::bwd_smem_bytes(in_n, in_d, out_n, out_d);
+}
+
+// Floats of the scratch buffer sdr_bwd takes besides u_hat (du_hat's
+// factors, the weight gradient's partials and, where the plan puts it in
+// global memory, the step kernel's per-warp scratch), or -1 if the
+// geometry does not fit.
+long long sdr_bwd_scratch_floats(int batch, int seq_len, int in_n, int in_d,
+                                 int out_n, int out_d) {
+  StreamPlan sp;
+  Wgrad p;
+  int slots;
+  if (!plan_call(batch, seq_len, in_n, in_d, out_n, out_d, &sp, &p, &slots)) {
+    return -1;
+  }
+  return (long long)scratch_layout(batch, seq_len, in_n, in_d, sp, p).total;
 }
 
 // u [batch, seq_len, in_n, in_d], w [in_n, out_n, out_d, in_d],
 // bias [in_n, out_n, out_d], the forward's output vs and its cotangent dvs
 // [batch, seq_len, out_n, out_d] -> du (shape of u), dw (of w), db (of
-// bias); du_hat [batch, seq_len, in_n, out_n * out_d] is scratch. float32,
-// contiguous, on the current device. Launches both kernels on `stream` and
-// returns the first launch error (0 on success); does not synchronise.
+// bias); uhat holds u_hat [batch, seq_len, in_n, pitch] (recomputed here)
+// and scratch sdr_bwd_scratch_floats floats, both 16-byte aligned.
+// float32, contiguous, on the current device. Launches the four kernels on
+// `stream` and returns the first launch error (0 on success); does not
+// synchronise.
 int sdr_bwd(const float* u, const float* w, const float* bias,
-            const float* vs, const float* dvs, float* du_hat, float* du,
-            float* dw, float* db, int batch, int seq_len, int in_n, int in_d,
-            int out_n, int out_d, int mask_pad, void* stream) {
-  Geometry g;
-  if (batch < 1 || seq_len < 1 || !plan(in_n, in_d, out_n, out_d, &g)) {
+            const float* vs, const float* dvs, float* uhat, float* scratch,
+            float* du, float* dw, float* db, int batch, int seq_len,
+            int in_n, int in_d, int out_n, int out_d, int mask_pad,
+            void* stream) {
+  StreamPlan sp;
+  Wgrad p;
+  int slots;
+  if (!plan_call(batch, seq_len, in_n, in_d, out_n, out_d, &sp, &p,
+                 &slots) ||
+      (uintptr_t)uhat % 16 != 0 || (uintptr_t)scratch % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int out_no = out_n * out_d;
-  const int chunk = wgrad_rows(in_d, out_no);
-  if (chunk < 1) return (int)cudaErrorInvalidValue;
-  g.vec4 = (in_d % 4 == 0) && ((uintptr_t)w % 16 == 0);
+  const RowGeom& g = sp.g;
+  const int rows_total = batch * seq_len;
+  const Scratch at = scratch_layout(batch, seq_len, in_n, in_d, sp, p);
   cudaStream_t s = (cudaStream_t)stream;
 
-  const size_t step_smem = step_smem_floats(g, g.tile_n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sdr_bwd_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)step_smem);
+  cudaError_t err = sdr::launch_predict(u, w, bias, uhat, rows_total, in_n,
+                                        in_d, g.out_no, s);
   if (err != cudaSuccess) return (int)err;
-  sdr_bwd_step_kernel<<<batch, kThreads, step_smem, s>>>(
-      u, w, bias, vs, dvs, du_hat, seq_len, g, mask_pad);
+
+  const size_t step_smem = sdr::bwd_smem_bytes(sp, in_n);
+  const auto step_kernel = SDR_PICK(sdr_bwd_step_kernel, sp);
+  err = cudaFuncSetAttribute(step_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)step_smem);
+  if (err != cudaSuccess) return (int)err;
+  step_kernel<<<batch, sdr::kThreads, step_smem, s>>>(
+      uhat, vs, dvs, scratch + at.c, scratch + at.da, scratch + at.ds,
+      sp.warp_global ? scratch + at.warp : nullptr, seq_len, in_n, g, sp.r,
+      mask_pad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t wgrad_smem =
-      wgrad_smem_floats(in_d, out_no, chunk) * sizeof(float);
-  err = cudaFuncSetAttribute(sdr_bwd_wgrad_kernel,
+  const size_t wgrad_smem = sdr::wgrad_smem_floats(p) * sizeof(float);
+  const auto wgrad = wgrad_kernel(p, in_d, g.out_no);
+  err = cudaFuncSetAttribute(wgrad,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)wgrad_smem);
   if (err != cudaSuccess) return (int)err;
-  sdr_bwd_wgrad_kernel<<<in_n, kWgradThreads, wgrad_smem, s>>>(
-      u, w, du_hat, du, dw, db, batch * seq_len, in_n, in_d, out_no, chunk);
+  const int blocks = in_n * p.chunks < slots ? in_n * p.chunks : slots;
+  wgrad<<<blocks, kWgradThreads, wgrad_smem, s>>>(
+      u, w, vs, scratch + at.c, scratch + at.da, scratch + at.ds, du,
+      scratch + at.part, rows_total, seq_len, in_n, in_d, out_n, out_d, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int dw_size = in_n * g.out_no * in_d;
+  sdr_bwd_reduce_kernel<<<kReduceBlocks, kReduceThreads, 0, s>>>(
+      scratch + at.part, dw, db, p.chunks, dw_size, in_n * g.out_no);
   return (int)cudaGetLastError();
 }
 

@@ -15,207 +15,126 @@
 //       v[o,:] = squash(s[o,:])
 //     out[b,t] = v
 //
-// What bounds it on this card: the serial dependence over time. Step t
-// needs v_{t-1}, and one step is a chain of reductions (over in_d, out_d,
-// out_n, in_n, out_d again) that must finish in order. The bytes (u, W,
-// bias and out once each) and the FLOPs are tiny against 3.35 TB/s and
-// 67 TFLOP/s; what the time is spent on is T dependent steps, each of which
-// re-reads W (0.7-1.5 MB at TIMIT width, too big for shared memory) from L2
-// and crosses a handful of block barriers.
+// Two launches. The prediction kernel (sdr_stream.cuh) writes u_hat for
+// every (b, t, n) over all SMs: it does not depend on v. The recurrence
+// kernel runs one block per utterance (rows are independent chains) and
+// walks t: a producer warp streams u_hat_t through a shared-memory ring of
+// in-capsule row chunks with bulk copies, running ahead into the coming
+// steps, and kWarps compute warps take the rows of each chunk (logits,
+// softmax and the rows' share of s in registers, see sdr_stream.cuh), then
+// sum the per-warp partials of s and squash them. Iteration k's logits are
+// the agreement with the sum of v_{t-1} and the v's of the iterations so
+// far (the logits are linear in v), so no logits are kept between
+// iterations; with num_iter > 1 each iteration streams u_hat_t again.
 //
-// Design. The TPU kernel walks T as a sequential grid and keeps v in VMEM
-// scratch across grid steps; CUDA blocks run in no order, so the time loop
-// runs inside the block instead. One block per utterance: rows are
-// independent chains. u_t, v, the routing logits and the prediction vectors
-// u_hat live in shared memory. u_hat is built one tile of in-capsule rows at
-// a time (the softmax is per in-capsule row, and s is a sum over rows), so
-// every geometry fits: at TIMIT the whole u_hat fits in one tile (layer 0)
-// or two (last layer); WSJ's 720 KB u_hat takes a few. W is read from L2
-// once per routing iteration per step. Splitting the in_n rows of one
-// utterance across a thread-block cluster, wgmma and TMA are later work.
+// What bounds it on this card: the serial dependence over time. A step is a
+// chain (the rows' dot products and softmaxes, then the sum over rows and
+// the squash) behind two compute-warp barriers; u_hat's bytes (written and
+// read once) stream underneath it.
 
-#include <cuda_runtime.h>
-
-#include <stdint.h>
+#include "sdr_stream.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr float kPadLogit = -1e9f;    // routing.py NEG_INF
-constexpr float kSquashEps = 1e-7f;   // squash.py epsilon
-// the most dynamic shared memory one block may use on sm_90 (227 KB)
-constexpr size_t kMaxSmemBytes = 232448;
+using sdr::kWarps;
+using sdr::RowGeom;
+using sdr::Ring;
+using sdr::StreamPlan;
 
-struct Geometry {
-  int in_n, in_d, out_n, out_d;
-  int tile_n;  // in-capsule rows of u_hat held in shared memory at once
-  int groups;  // partial sums kept per entry of s
-  int vec4;    // W rows and u rows can be read as float4
-};
-
-// floats of shared memory for u_hat tiles of `rows` in-capsule rows
-size_t smem_floats(const Geometry& g, int rows) {
-  const size_t out_no = (size_t)g.out_n * g.out_d;
-  return (size_t)g.in_n * g.in_d              // u_t
-         + 2 * out_no                         // v, s
-         + (size_t)g.in_n * g.out_n           // routing logits
-         + (size_t)rows * (g.out_n + out_no)  // c and u_hat of one tile
-         + (size_t)g.groups * out_no;         // partial sums of s
-}
-
-bool plan(int in_n, int in_d, int out_n, int out_d, Geometry* g) {
-  if (in_n < 1 || in_d < 1 || out_n < 1 || out_d < 1) return false;
-  g->in_n = in_n;
-  g->in_d = in_d;
-  g->out_n = out_n;
-  g->out_d = out_d;
-  const int out_no = out_n * out_d;
-  g->groups = out_no < kThreads ? kThreads / out_no : 1;
-  g->vec4 = 0;
-  const size_t budget = kMaxSmemBytes / sizeof(float);
-  const size_t fixed = smem_floats(*g, 0);
-  const size_t per_row = (size_t)out_n + out_no;
-  if (fixed + per_row > budget) return false;
-  size_t max_rows = (budget - fixed) / per_row;
-  if (max_rows > (size_t)in_n) max_rows = in_n;
-  // balance the tiles: ceil(in_n / tiles) rows each
-  const int tiles = (in_n + (int)max_rows - 1) / (int)max_rows;
-  g->tile_n = (in_n + tiles - 1) / tiles;
-  return true;
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-sdr_fwd_kernel(const float* __restrict__ u, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ out,
-               int seq_len, Geometry g, int num_iter, int mask_pad) {
+// warp_g: the per-warp scratch of every block in global memory
+// ([batch, warp_floats]) where the plan puts it there (general path only),
+// else null
+template <int D, int NO>
+__global__ void __launch_bounds__(sdr::kThreads, 1)
+sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
+               float* __restrict__ warp_g, int seq_len, int in_n, RowGeom g,
+               Ring r, int num_iter, int mask_pad) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* ring = reinterpret_cast<float*>(smem4);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + (size_t)r.stages * r.chunk * g.pitch);
+  uint64_t* empty = full + r.stages;
+  float* rest = reinterpret_cast<float*>(empty + r.stages);
+  // the per-warp scratch (partial sums, logits) first, unless it is in
+  // global memory
+  const bool global = D == 0 && warp_g;
+  float* part = global ? warp_g + blockIdx.x * sdr::warp_floats(g)
+                       : rest;                              // [kWarps, out_no]
+  float* vagg = global ? rest : part + kWarps * g.out_no;     // [pitch]
+  float* s_s = vagg + g.pitch;                                // [pitch]
+  float* lg_all = global ? part + kWarps * g.out_no
+                         : s_s + g.pitch;                     // [kWarps, out_n]
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int in_nd = g.in_n * g.in_d;
-  const int out_no = g.out_n * g.out_d;
-  const int in_out_n = g.in_n * g.out_n;
-  float* u_s = smem;                          // [in_n, in_d]
-  float* v_s = u_s + in_nd;                   // [out_n, out_d]
-  float* s_s = v_s + out_no;                  // [out_n, out_d]
-  float* logit_s = s_s + out_no;              // [in_n, out_n]
-  float* c_s = logit_s + in_out_n;            // [tile_n, out_n]
-  float* uhat_s = c_s + g.tile_n * g.out_n;   // [tile_n, out_n, out_d]
-  float* part_s = uhat_s + g.tile_n * out_no; // [groups, out_n, out_d]
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const float* uhat_b = uhat + (size_t)blockIdx.x * seq_len * in_n * g.pitch;
+  float* out_b = out + (size_t)blockIdx.x * seq_len * g.out_no;
 
-  const float* u_b = u + (size_t)blockIdx.x * seq_len * in_nd;
-  float* out_b = out + (size_t)blockIdx.x * seq_len * out_no;
-
-  for (int k = tid; k < out_no; k += nthr) v_s[k] = 0.f;
-
-  for (int t = 0; t < seq_len; ++t) {
-    const float* u_t = u_b + (size_t)t * in_nd;
-    for (int k = tid; k < in_nd; k += nthr) u_s[k] = u_t[k];
-    for (int k = tid; k < in_out_n; k += nthr) logit_s[k] = 0.f;
-    __syncthreads();
-
-    for (int it = 0; it < num_iter; ++it) {
-      for (int k = tid; k < g.groups * out_no; k += nthr) part_s[k] = 0.f;
-
-      for (int n0 = 0; n0 < g.in_n; n0 += g.tile_n) {
-        const int rows = min(g.tile_n, g.in_n - n0);
-
-        // (a) prediction vectors of the tile's rows, one thread per
-        //     (n, o, i): u_hat = bias + sum_j W[n,o,i,j] * u_t[n,j]
-#pragma unroll 4
-        for (int e = tid; e < rows * out_no; e += nthr) {
-          const int n = n0 + e / out_no;
-          const size_t row = (size_t)n * out_no + e % out_no;
-          const float* w_row = w + row * g.in_d;
-          const float* u_row = u_s + n * g.in_d;
-          float acc = __ldg(bias + row);
-          if (g.vec4) {
-            const float4* w4 = reinterpret_cast<const float4*>(w_row);
-            const float4* u4 = reinterpret_cast<const float4*>(u_row);
-            for (int j = 0; j < g.in_d / 4; ++j) {
-              const float4 a = __ldg(w4 + j);
-              const float4 x = u4[j];
-              acc = fmaf(a.x, x.x, acc);
-              acc = fmaf(a.y, x.y, acc);
-              acc = fmaf(a.z, x.z, acc);
-              acc = fmaf(a.w, x.w, acc);
-            }
-          } else {
-            for (int j = 0; j < g.in_d; ++j) {
-              acc = fmaf(__ldg(w_row + j), u_row[j], acc);
-            }
-          }
-          uhat_s[e] = acc;
-        }
-        __syncthreads();
-
-        // (b) agreement with v: logits[n,o] += <u_hat[n,o,:], v[o,:]>
-        for (int p = tid; p < rows * g.out_n; p += nthr) {
-          const int r = p / g.out_n;
-          const int o = p % g.out_n;
-          const float* uh = uhat_s + r * out_no + o * g.out_d;
-          const float* v = v_s + o * g.out_d;
-          float dot = 0.f;
-          for (int i = 0; i < g.out_d; ++i) dot = fmaf(uh[i], v[i], dot);
-          float* l = logit_s + (n0 + r) * g.out_n + o;
-          float logit = *l + dot;
-          if (mask_pad && o == 0) logit += kPadLogit;
-          *l = logit;
-        }
-        __syncthreads();
-
-        // (c) coupling coefficients: softmax over the out capsules, one
-        //     thread per in-capsule row
-        for (int r = tid; r < rows; r += nthr) {
-          const float* l = logit_s + (n0 + r) * g.out_n;
-          float* c = c_s + r * g.out_n;
-          float m = l[0];
-          for (int o = 1; o < g.out_n; ++o) m = fmaxf(m, l[o]);
-          float sum = 0.f;
-          for (int o = 0; o < g.out_n; ++o) {
-            const float ex = expf(l[o] - m);
-            c[o] = ex;
-            sum += ex;
-          }
-          for (int o = 0; o < g.out_n; ++o) c[o] = c[o] / sum;
-        }
-        __syncthreads();
-
-        // (d) s[o,i] += sum over the tile's rows of c[n,o] * u_hat[n,o,i];
-        //     `groups` partial sums per entry, each owned by one thread
-        for (int q = tid; q < g.groups * out_no; q += nthr) {
-          const int grp = q / out_no;
-          const int oi = q % out_no;
-          const int o = oi / g.out_d;
-          float acc = part_s[q];
-          for (int r = grp; r < rows; r += g.groups) {
-            acc = fmaf(c_s[r * g.out_n + o], uhat_s[r * out_no + oi], acc);
-          }
-          part_s[q] = acc;
-        }
-        __syncthreads();
-      }
-
-      // (e) s = sum of the partial sums
-      for (int oi = tid; oi < out_no; oi += nthr) {
-        float s = 0.f;
-        for (int grp = 0; grp < g.groups; ++grp) s += part_s[grp * out_no + oi];
-        s_s[oi] = s;
-      }
-      __syncthreads();
-
-      // (f) v = squash(s), per out capsule
-      for (int oi = tid; oi < out_no; oi += nthr) {
-        const float* s = s_s + (oi / g.out_d) * g.out_d;
-        float sq = 0.f;
-        for (int i = 0; i < g.out_d; ++i) sq = fmaf(s[i], s[i], sq);
-        v_s[oi] = (sq / (1.f + sq)) * (s_s[oi] / sqrtf(sq + kSquashEps));
-      }
-      __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < r.stages; ++s) {
+      sdr::mbar_init(full + s, 1);
+      sdr::mbar_init(empty + s, kWarps);
     }
+    sdr::mbar_fence_init();
+  }
+  for (int k = tid; k < g.out_no; k += blockDim.x) vagg[k] = 0.f;  // v_{-1}
+  __syncthreads();
+  if (warp == kWarps) {
+    sdr::produce(uhat_b, ring, full, empty, r, in_n, g.pitch, seq_len, 0, 1,
+                 num_iter);
+    return;
+  }
 
-    for (int oi = tid; oi < out_no; oi += nthr) {
-      out_b[(size_t)t * out_no + oi] = v_s[oi];
+  sdr::Pass pass{ring, full, empty, r, g, in_n, vagg, 0.f, nullptr, nullptr,
+                 part + warp * g.out_no, lg_all + warp * g.out_n};
+  sdr::Cursor q{0, 0};  // the next chunk, in the producer's order
+  for (int t = 0; t < seq_len; ++t) {
+    for (int it = 0; it < num_iter; ++it) {
+      // logits, c and the rows' shares of s
+      pass.pad = mask_pad ? sdr::kPadLogit * (it + 1) : 0.f;
+      sdr::warp_pass<D, NO, false>(pass, q, warp, lane);
+      sdr::sync_compute();
+
+      // s = the sum of the warps' partials; v = squash(s); the agreement
+      // vector gains v, or becomes v_t after the last iteration
+      const bool last = it == num_iter - 1;
+      if (g.shift >= 0) {
+        for (int base = 0; base < g.out_no; base += sdr::kComputeThreads) {
+          const int oi = base + tid;
+          const float s = oi < g.out_no ? sdr::sum_partials(part, g.out_no, oi)
+                                        : 0.f;
+          const float sq = sdr::group_sum(s * s, g.shift);
+          if (oi < g.out_no) {
+            const float v =
+                (sq / (1.f + sq)) * (s / sqrtf(sq + sdr::kSquashEps));
+            if (last) {
+              vagg[oi] = v;
+              out_b[(size_t)t * g.out_no + oi] = v;
+            } else {
+              vagg[oi] += v;
+            }
+          }
+        }
+      } else {
+        for (int oi = tid; oi < g.out_no; oi += sdr::kComputeThreads) {
+          s_s[oi] = sdr::sum_partials(part, g.out_no, oi);
+        }
+        sdr::sync_compute();
+        for (int oi = tid; oi < g.out_no; oi += sdr::kComputeThreads) {
+          const float* s_o = s_s + (oi / g.out_d) * g.out_d;
+          float sq = 0.f;
+          for (int i = 0; i < g.out_d; ++i) sq = fmaf(s_o[i], s_o[i], sq);
+          const float v =
+              (sq / (1.f + sq)) * (s_s[oi] / sqrtf(sq + sdr::kSquashEps));
+          if (last) {
+            vagg[oi] = v;
+            out_b[(size_t)t * g.out_no + oi] = v;
+          } else {
+            vagg[oi] += v;
+          }
+        }
+      }
+      sdr::sync_compute();
     }
   }
 }
@@ -224,33 +143,54 @@ sdr_fwd_kernel(const float* __restrict__ u, const float* __restrict__ w,
 
 extern "C" {
 
-// Bytes of dynamic shared memory the kernel needs for this geometry, or -1
-// if the geometry does not fit in one block.
+// Bytes of dynamic shared memory the recurrence kernel needs for this
+// geometry, or -1 if the geometry does not fit.
 int sdr_fwd_smem_bytes(int in_n, int in_d, int out_n, int out_d) {
-  Geometry g;
-  if (!plan(in_n, in_d, out_n, out_d, &g)) return -1;
-  return (int)(smem_floats(g, g.tile_n) * sizeof(float));
+  return sdr::fwd_smem_bytes(in_n, in_d, out_n, out_d);
+}
+
+// Floats of the scratch buffer sdr_fwd takes: u_hat [batch, seq_len, in_n,
+// pitch], then the blocks' per-warp scratch where the plan puts it in
+// global memory; -1 if the geometry does not fit.
+long long sdr_fwd_scratch_floats(int batch, int seq_len, int in_n, int in_d,
+                                 int out_n, int out_d) {
+  StreamPlan p;
+  if (!sdr::plan_fwd(in_n, in_d, out_n, out_d, &p)) return -1;
+  return (long long)batch * seq_len * in_n * p.g.pitch +
+         (p.warp_global ? (long long)batch * sdr::warp_floats(p.g) : 0);
 }
 
 // u [batch, seq_len, in_n, in_d], w [in_n, out_n, out_d, in_d],
-// bias [in_n, out_n, out_d] -> out [batch, seq_len, out_n, out_d]; float32,
-// contiguous, on the current device. Launches on `stream` and returns the
-// launch's cudaError_t (0 on success); does not synchronise.
-int sdr_fwd(const float* u, const float* w, const float* bias, float* out,
-            int batch, int seq_len, int in_n, int in_d, int out_n, int out_d,
-            int num_iter, int mask_pad, void* stream) {
-  Geometry g;
+// bias [in_n, out_n, out_d] -> out [batch, seq_len, out_n, out_d]; scratch
+// holds sdr_fwd_scratch_floats floats, 16-byte aligned. float32,
+// contiguous, on the current device. Launches the prediction kernel and the
+// recurrence kernel on `stream` and returns the first launch's error
+// (0 on success); does not synchronise.
+int sdr_fwd(const float* u, const float* w, const float* bias, float* scratch,
+            float* out, int batch, int seq_len, int in_n, int in_d, int out_n,
+            int out_d, int num_iter, int mask_pad, void* stream) {
+  StreamPlan p;
   if (batch < 1 || seq_len < 1 || num_iter < 1 ||
-      !plan(in_n, in_d, out_n, out_d, &g)) {
+      !sdr::plan_fwd(in_n, in_d, out_n, out_d, &p) ||
+      (uintptr_t)scratch % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  g.vec4 = (in_d % 4 == 0) && ((uintptr_t)w % 16 == 0);
-  const size_t smem = smem_floats(g, g.tile_n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sdr_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const RowGeom& g = p.g;
+  float* uhat = scratch;
+  float* warp_g = p.warp_global
+                      ? scratch + (size_t)batch * seq_len * in_n * g.pitch
+                      : nullptr;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = sdr::launch_predict(u, w, bias, uhat, batch * seq_len,
+                                        in_n, in_d, g.out_no, s);
   if (err != cudaSuccess) return (int)err;
-  sdr_fwd_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      u, w, bias, out, seq_len, g, num_iter, mask_pad);
+  const size_t smem = sdr::fwd_smem_bytes(p);
+  const auto kernel = SDR_PICK(sdr_fwd_kernel, p);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, sdr::kThreads, smem, s>>>(
+      uhat, out, warp_g, seq_len, in_n, g, p.r, num_iter, mask_pad);
   return (int)cudaGetLastError();
 }
 

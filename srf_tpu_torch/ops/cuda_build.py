@@ -3,13 +3,15 @@
 Each source has a plain C interface and becomes its own shared library,
 loaded with ``ctypes``; nothing includes PyTorch's headers, so a build takes
 seconds. Libraries go to ``srf_tpu_torch/_build/`` (git-ignored), named by
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is not. The build runs at first use, never at import: a box
+a hash of the source, the ``csrc/*.cuh`` headers it includes and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+not. The build runs at first use, never at import: a box
 without ``nvcc`` imports every module.
 """
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -36,10 +38,30 @@ def nvcc():
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def _sources(path, seen):
+    """``path`` and, depth first, the csrc headers it includes (each once,
+    in the order first reached)."""
+    if path in seen:
+        return
+    seen.append(path)
+    with open(path, "rb") as src:
+        text = src.read()
+    for header in _INCLUDE.findall(text):
+        _sources(os.path.join(CSRC, header.decode()), seen)
+
+
 def library_path(name):
-    """Where csrc/<name>.cu is built to: _build/<name>-<hash>.so."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as src:
-        digest = hashlib.sha256(src.read())
+    """Where csrc/<name>.cu is built to: _build/<name>-<hash>.so, the hash
+    taken over the source, every csrc header it includes and the flags."""
+    digest = hashlib.sha256()
+    paths = []
+    _sources(os.path.join(CSRC, name + ".cu"), paths)
+    for path in paths:
+        with open(path, "rb") as src:
+            digest.update(src.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "%s-%s.so" % (name, digest.hexdigest()[:16]))
 

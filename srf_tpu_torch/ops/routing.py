@@ -8,7 +8,10 @@
   (reference math: sequence_router_naive.py:213-245).
   :func:`sequential_routing` is its plain PyTorch version, a Python loop
   over T, and :func:`sequential_routing_bwd` the plain version of its
-  fused backward. :func:`route_layer` sends SDR through
+  fused backward; each is composed of the plain versions of the kernels'
+  parts (:func:`predict_capsules_rows`, :func:`sequential_routing_from_uhat`,
+  :func:`sequential_routing_bwd_factors`, :func:`sdr_weight_grads`).
+  :func:`route_layer` sends SDR through
   ``ops/routing_cuda.SDRFunction``: on a CUDA tensor its forward is the
   hand-written kernel K1 (``sequential_routing_cuda``, replacing the TPU
   kernel ``srf_tpu/ops/routing_pallas.py:_sdr_fwd_kernel``) and its
@@ -113,14 +116,34 @@ def _sdr_step(u_hat_t, v_prev, num_iter, pad_mask):
     return v
 
 
+def row_pitch(out_no):
+    """Floats per in-capsule row of u_hat in the kernels' layout: out_n *
+    out_d rounded up to a multiple of 4 (a bulk copy moves 16-byte
+    multiples)."""
+    return -(-out_no // 4) * 4
+
+
+def predict_capsules_rows(u, wgt, bias):
+    """The plain version of the prediction kernel (``csrc/sdr_stream.cuh``):
+    :func:`predict_capsules` in the layout K1 and K2 stream, [B, T, in_n,
+    P] with each in-capsule row's out_n * out_d entries zero-padded to
+    P = ``row_pitch(out_n * out_d)``."""
+    batch, seq_len, in_n = u.shape[:3]
+    out_no = wgt.shape[1] * wgt.shape[2]
+    u_hat = predict_capsules(u, wgt, bias).reshape(batch, seq_len, in_n,
+                                                   out_no)
+    return F.pad(u_hat, (0, row_pitch(out_no) - out_no))
+
+
 def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
                        v_init=None, step_valid=None):
     """SDR, plain PyTorch: a loop over time carrying the previous outputs.
 
     The plain version of the K1 and K3 kernels (``routing_cuda``): the tests
     hold it to the JAX scans on the CPU, and the card holds the kernels to it.
-    ``u`` is [B, T, in_n, in_d]; the weight multiply runs inside the time
-    loop (the lowmemory plan). Returns [B, T, out_n, out_d].
+    ``u`` is [B, T, in_n, in_d]; u_hat is predicted for every step at once
+    (it does not depend on the carry), then routed by
+    :func:`sequential_routing_from_uhat`. Returns [B, T, out_n, out_d].
 
     ``v_init``: initial carry [B, out_n, out_d] (streaming: the previous
     chunk's last output capsules); defaults to zeros (reference: v0 = 0,
@@ -130,37 +153,44 @@ def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
     AND a zero carry (streaming warm-up frames before t=0, which the batch
     implementation realizes as window zero padding).
     """
-    batch, seq_len = u.shape[0], u.shape[1]
-    out_n, out_d = wgt.shape[1], wgt.shape[2]
     out_dtype = u.dtype
     dtype = _compute_dtype(u.dtype)
-    u, wgt, bias = u.to(dtype), wgt.to(dtype), bias.to(dtype)
-    pad_mask = (_pad_capsule_mask(out_n, dtype, u.device)
+    u_hat = predict_capsules(u.to(dtype), wgt.to(dtype), bias.to(dtype))
+    return sequential_routing_from_uhat(u_hat, num_iter, mask_pad_capsule,
+                                        v_init, step_valid).to(out_dtype)
+
+
+def sequential_routing_from_uhat(u_hat, num_iter, mask_pad_capsule,
+                                 v_init=None, step_valid=None):
+    """The SDR recurrence from given prediction vectors u_hat [B, T, in_n,
+    out_n, out_d]: the plain version of K1's recurrence kernel. ``v_init``
+    and ``step_valid`` as in :func:`sequential_routing`. Returns [B, T,
+    out_n, out_d] in u_hat's dtype."""
+    batch, seq_len, _, out_n, out_d = u_hat.shape
+    pad_mask = (_pad_capsule_mask(out_n, u_hat.dtype, u_hat.device)
                 if mask_pad_capsule else None)
     if v_init is None:
-        v = torch.zeros((batch, out_n, out_d), dtype=dtype, device=u.device)
+        v = torch.zeros((batch, out_n, out_d), dtype=u_hat.dtype,
+                        device=u_hat.device)
     else:
-        v = v_init.to(dtype)
+        v = v_init.to(u_hat.dtype)
     outs = []
     for t in range(seq_len):
-        u_hat_t = torch.einsum("noij,bnj->bnoi", wgt, u[:, t]) + bias[None]
-        v = _sdr_step(u_hat_t, v, num_iter, pad_mask)
+        v = _sdr_step(u_hat[:, t], v, num_iter, pad_mask)
         if step_valid is not None:
             v = torch.where(step_valid[t], v, 0.0)
         outs.append(v)
-    return torch.stack(outs, dim=1).to(out_dtype)
+    return torch.stack(outs, dim=1)
 
 
 def sequential_routing_bwd(u, wgt, bias, vs, dvs, mask_pad_capsule):
     """The fused SDR backward for one routing iteration, plain PyTorch.
 
     The plain version of the K2 and K4 kernels (``routing_cuda``), with the
-    math of ``srf_tpu/ops/routing_pallas.py:_sdr_bwd_kernel``: walk time
-    backwards; at step t recompute u_hat, the agreement with v_{t-1} (zero
-    at t = 0, read from the forward's output ``vs``), the softmax, s and the
-    squash factor; backpropagate dv = dvs[t] + the carry through the squash,
-    s, the softmax and the agreement; accumulate dW and db over time and
-    batch, write du[:, t] and carry dv_{t-1} into step t - 1.
+    math of ``srf_tpu/ops/routing_pallas.py:_sdr_bwd_kernel``, in K2's three
+    parts: predict u_hat (:func:`predict_capsules`), walk time backwards
+    for du_hat's factors (:func:`sequential_routing_bwd_factors`), and form
+    du, dW and db from them (:func:`sdr_weight_grads`).
 
     u [B, T, in_n, in_d], wgt [in_n, out_n, out_d, in_d], bias
     [in_n, out_n, out_d], vs and dvs [B, T, out_n, out_d] ->
@@ -172,22 +202,43 @@ def sequential_routing_bwd(u, wgt, bias, vs, dvs, mask_pad_capsule):
     out_n, out_d = wgt.shape[1], wgt.shape[2]
     vs = vs.to(dtype).reshape(vs.shape[0], vs.shape[1], out_n, out_d)
     dvs = dvs.to(dtype).reshape(vs.shape)
-    pad_mask = (_pad_capsule_mask(out_n, dtype, u.device)
+    u_hat = predict_capsules(u, wgt, bias)
+    c, da, ds = sequential_routing_bwd_factors(u_hat, vs, dvs,
+                                               mask_pad_capsule)
+    grads = sdr_weight_grads(u, wgt, vs, c, da, ds)
+    return tuple(x.to(d) for x, d in zip(grads, out_dtypes))
+
+
+def sequential_routing_bwd_factors(u_hat, vs, dvs, mask_pad_capsule):
+    """The reverse-time recurrence of the SDR backward (one routing
+    iteration), plain: the plain version of K2's step kernel.
+
+    At step t (from T - 1 down to 0) recompute the agreement with v_{t-1}
+    (zero at t = 0, read from the forward's output ``vs``), the softmax c,
+    s and the squash factor; backpropagate dv = dvs[t] + the carry through
+    the squash (ds), s and the softmax (da), and carry dv_{t-1} =
+    sum_n da u_hat into step t - 1. The cotangent of u_hat is then c ds +
+    da v_{t-1}, which this returns in factors: u_hat [B, T, in_n, out_n,
+    out_d], vs and dvs [B, T, out_n, out_d] -> (c, da) [B, T, in_n, out_n]
+    and ds [B, T, out_n, out_d].
+    """
+    out_n = u_hat.shape[3]
+    pad_mask = (_pad_capsule_mask(out_n, u_hat.dtype, u_hat.device)
                 if mask_pad_capsule else None)
-    du = torch.empty_like(u)
-    dwgt = torch.zeros_like(wgt)
-    dbias = torch.zeros_like(bias)
+    c_all = torch.empty(u_hat.shape[:4], dtype=u_hat.dtype,
+                        device=u_hat.device)
+    da_all = torch.empty_like(c_all)
+    ds_all = torch.empty_like(vs)
     carry = torch.zeros_like(vs[:, 0])  # [B, out_n, out_d]
-    for t in range(u.shape[1] - 1, -1, -1):
-        u_t = u[:, t]
+    for t in range(u_hat.shape[1] - 1, -1, -1):
+        u_hat_t = u_hat[:, t]
         v_prev = vs[:, t - 1] if t > 0 else torch.zeros_like(carry)
         # recompute the step
-        u_hat = torch.einsum("noij,bnj->bnoi", wgt, u_t) + bias[None]
-        logits = torch.einsum("bnoi,boi->bno", u_hat, v_prev)
+        logits = torch.einsum("bnoi,boi->bno", u_hat_t, v_prev)
         if pad_mask is not None:
             logits = logits + pad_mask
         c = torch.softmax(logits, dim=2)
-        s = torch.einsum("bno,bnoi->boi", c, u_hat)
+        s = torch.einsum("bno,bnoi->boi", c, u_hat_t)
         q = torch.sum(s * s, dim=2, keepdim=True)
         inv_sqrt = 1.0 / torch.sqrt(q + 1e-7)
         factor = (q / (1.0 + q)) * inv_sqrt
@@ -198,15 +249,26 @@ def sequential_routing_bwd(u, wgt, bias, vs, dvs, mask_pad_capsule):
         dq = torch.sum(dv * s, dim=2, keepdim=True) * dfdq
         ds = dv * factor + 2.0 * s * dq
         # through s = sum_n c * u_hat and the softmax
-        dc = torch.einsum("bnoi,boi->bno", u_hat, ds)
+        dc = torch.einsum("bnoi,boi->bno", u_hat_t, ds)
         da = c * (dc - torch.sum(dc * c, dim=2, keepdim=True))
-        # through the agreement logits = <u_hat, v_prev>
-        du_hat = c[..., None] * ds[:, None] + da[..., None] * v_prev[:, None]
-        carry = torch.einsum("bno,bnoi->boi", da, u_hat)
-        dbias += du_hat.sum(dim=0)
-        dwgt += torch.einsum("bnoi,bnj->noij", du_hat, u_t)
-        du[:, t] = torch.einsum("bnoi,noij->bnj", du_hat, wgt)
-    return tuple(x.to(d) for x, d in zip((du, dwgt, dbias), out_dtypes))
+        carry = torch.einsum("bno,bnoi->boi", da, u_hat_t)
+        c_all[:, t], da_all[:, t], ds_all[:, t] = c, da, ds
+    return c_all, da_all, ds_all
+
+
+def sdr_weight_grads(u, wgt, vs, c, da, ds):
+    """(du, dW, db) from du_hat's factors, plain: the plain version of K2's
+    weight-gradient kernel. du_hat = c ds + da v_{t-1} (v_{-1} = 0) through
+    the prediction u_hat = W u + b: dW = sum_bt du_hat (x) u, db = sum_bt
+    du_hat, du = W^T du_hat. Shapes as :func:`sequential_routing_bwd_factors`
+    returns them, u [B, T, in_n, in_d] and wgt [in_n, out_n, out_d, in_d]."""
+    v_prev = torch.cat([torch.zeros_like(vs[:, :1]), vs[:, :-1]], dim=1)
+    # [B, T, in_n, out_n, out_d]
+    du_hat = c[..., None] * ds[:, :, None] + da[..., None] * v_prev[:, :, None]
+    dbias = du_hat.sum(dim=(0, 1))
+    dwgt = torch.einsum("btnoi,btnj->noij", du_hat, u)
+    du = torch.einsum("btnoi,noij->btnj", du_hat, wgt)
+    return du, dwgt, dbias
 
 
 def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer):

@@ -1,6 +1,7 @@
 """The SDR kernels: K1 and K2, the SDR forward and its fused backward
-(``csrc/sdr_fwd.cu``, ``csrc/sdr_bwd.cu``), joined by ``SDRFunction``; K3
-and K4, their time-blocked, batch-tiled counterparts
+(``csrc/sdr_fwd.cu``, ``csrc/sdr_bwd.cu``, both built on the prediction
+kernel and the streaming recurrence of ``csrc/sdr_stream.cuh``), joined by
+``SDRFunction``; K3 and K4, their time-blocked, batch-tiled counterparts
 (``csrc/sdr_scan_fwd.cu``, ``csrc/sdr_scan_bwd.cu``), joined by
 ``SDRScanFunction`` and applied by ``sequential_routing_scan``.
 
@@ -29,8 +30,8 @@ _VOID_P = ctypes.c_void_p
 # the scan kernels the batch, T and time block around it
 _PLAN_ARGS = {"sdr_fwd": 4, "sdr_bwd": 4, "sdr_scan_fwd": 7, "sdr_scan_bwd": 7}
 _LAUNCH_ARGTYPES = {
-    "sdr_fwd": [_VOID_P] * 4 + [ctypes.c_int] * 8 + [_VOID_P],
-    "sdr_bwd": [_VOID_P] * 9 + [ctypes.c_int] * 7 + [_VOID_P],
+    "sdr_fwd": [_VOID_P] * 5 + [ctypes.c_int] * 8 + [_VOID_P],
+    "sdr_bwd": [_VOID_P] * 10 + [ctypes.c_int] * 7 + [_VOID_P],
     "sdr_scan_fwd": [_VOID_P] * 4 + [ctypes.c_int] * 9 + [_VOID_P],
     "sdr_scan_bwd": [_VOID_P] * 9 + [ctypes.c_int] * 8 + [_VOID_P],
 }
@@ -48,9 +49,11 @@ def _lib(name):
         fn = getattr(lib, name + suffix)
         fn.argtypes = [ctypes.c_int] * _PLAN_ARGS[name]
         fn.restype = ctypes.c_int
-    if name == "sdr_scan_bwd":
-        lib.sdr_scan_bwd_scratch_floats.argtypes = [ctypes.c_int] * 7
-        lib.sdr_scan_bwd_scratch_floats.restype = ctypes.c_longlong
+    scratch_args = {"sdr_fwd": 6, "sdr_bwd": 6, "sdr_scan_bwd": 7}
+    if name in scratch_args:
+        fn = getattr(lib, name + "_scratch_floats")
+        fn.argtypes = [ctypes.c_int] * scratch_args[name]
+        fn.restype = ctypes.c_longlong
     error_string = getattr(lib, name + "_error_string")
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
@@ -121,9 +124,13 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule):
 
     u [B, T, in_n, in_d], wgt [in_n, out_n, out_d, in_d], bias
     [in_n, out_n, out_d], float32, contiguous, on one CUDA device ->
-    [B, T, out_n, out_d]. Raises on anything the kernel does not take; it
-    never falls back to the plain version. ``sequential_routing_cuda.launches``
-    counts the kernel's launches.
+    [B, T, out_n, out_d]. Allocates the kernels' scratch: the prediction
+    vectors u_hat ([B, T, in_n, out_n * out_d rounded up to a multiple of
+    4]) and, for geometries whose partial sums do not fit in shared memory,
+    the recurrence's per-warp sums. Raises on
+    anything the kernels do not take; it never falls back to the plain
+    version. ``sequential_routing_cuda.launches`` counts its kernel
+    launches: two per call, the prediction kernel and the recurrence.
     """
     _check_inputs("sequential_routing_cuda", u,
                   (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3)))
@@ -135,15 +142,18 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule):
     out_n, out_d = wgt.shape[1], wgt.shape[2]
     out = torch.empty((batch, seq_len, out_n, out_d), dtype=torch.float32,
                       device=u.device)
+    scratch = torch.empty(
+        lib.sdr_fwd_scratch_floats(batch, seq_len, in_n, in_d, out_n, out_d),
+        dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         err = lib.sdr_fwd(
-            u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            batch, seq_len, in_n, in_d, out_n, out_d, num_iter,
-            int(bool(mask_pad_capsule)),
+            u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), batch, seq_len, in_n, in_d, out_n, out_d,
+            num_iter, int(bool(mask_pad_capsule)),
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(lib, "sdr_fwd", err)
-    sequential_routing_cuda.launches += 1
+    sequential_routing_cuda.launches += 2  # prediction, recurrence
     return out
 
 
@@ -156,11 +166,14 @@ def sequential_routing_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule):
 
     u [B, T, in_n, in_d], wgt, bias, the forward's output vs and its
     cotangent dvs [B, T, out_n, out_d], float32, contiguous, on one CUDA
-    device -> (du, dW, db). Allocates the kernel's scratch, the prediction
-    vectors' cotangents [B, T, in_n, out_n * out_d]. Raises on anything the
-    kernel does not take; never falls back to the plain version.
-    ``sequential_routing_bwd_cuda.launches`` counts its kernel launches:
-    two per call, the reverse-time kernel and the weight-gradient kernel.
+    device -> (du, dW, db). Allocates the recomputed u_hat and the
+    kernels' scratch: the factors of its cotangent (c, da, ds), the weight
+    gradient's partials and, for geometries whose partial sums do not fit
+    in shared memory, the recurrence's per-warp sums. Raises on anything
+    the kernels do not take; never
+    falls back to the plain version. ``sequential_routing_bwd_cuda.launches``
+    counts its kernel launches: four per call, the prediction, the
+    reverse-time recurrence, the weight gradient and its reduction.
     """
     _check_inputs("sequential_routing_bwd_cuda", u,
                   (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3),
@@ -176,19 +189,28 @@ def sequential_routing_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule):
     du = torch.empty_like(u)
     dwgt = torch.empty_like(wgt)
     dbias = torch.empty_like(bias)
-    du_hat = torch.empty((batch, seq_len, in_n, out_n * out_d),
-                         dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
+        # the weight gradient's partials follow the card's SM count
+        floats = lib.sdr_bwd_scratch_floats(batch, seq_len, in_n, in_d, out_n,
+                                            out_d)
+        if floats < 0:
+            raise RuntimeError("sdr_bwd: no weight-gradient plan for %s on %s"
+                               % (tuple(wgt.shape), u.device))
+        scratch = torch.empty(floats, dtype=torch.float32, device=u.device)
+        u_hat = torch.empty(
+            (batch, seq_len, in_n, _plain().row_pitch(out_n * out_d)),
+            dtype=torch.float32, device=u.device)
         err = lib.sdr_bwd(
             u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), vs.data_ptr(),
-            dvs.data_ptr(), du_hat.data_ptr(), du.data_ptr(),
-            dwgt.data_ptr(), dbias.data_ptr(),
+            dvs.data_ptr(), u_hat.data_ptr(), scratch.data_ptr(),
+            du.data_ptr(), dwgt.data_ptr(), dbias.data_ptr(),
             batch, seq_len, in_n, in_d, out_n, out_d,
             int(bool(mask_pad_capsule)),
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(lib, "sdr_bwd", err)
-    sequential_routing_bwd_cuda.launches += 2  # sdr_bwd_step, sdr_bwd_wgrad
+    # prediction, reverse-time recurrence, weight gradient, reduction
+    sequential_routing_bwd_cuda.launches += 4
     return du, dwgt, dbias
 
 

@@ -2,20 +2,27 @@
 
     python3 -m srf_tpu_torch.tools.sdr_phase_cycles   # from a checkout
 
-Builds an instrumented copy of each SDR kernel (``csrc/sdr_fwd.cu``,
-``sdr_bwd.cu``'s reverse-time kernel, ``sdr_scan_fwd.cu``,
-``sdr_scan_bwd.cu``'s scan kernel): after every ``__syncthreads()`` thread 0
-reads ``clock64()`` and adds the cycles since the previous barrier to that
-barrier's sum, which block 0 writes out at its end. Each barrier closes a
-phase of the step, so the sums say which phase (named by the source line of
-its closing barrier) takes the time. The copies go to
-``srf_tpu_torch/_build/phases/`` and are built with the port's nvcc flags;
-the port's own libraries are not touched. Runs each kernel once at the
-SRF-TIMIT serving shape (B=29, T'=64) at its three capsule-layer geometries
-and prints, per kernel and geometry, the event time of the instrumented
-launch and block 0's kcycles per step by barrier. One card; the timer's
-loads and adds cost a few percent of a step. ``ncu`` would say more, but
-does not run on every machine.
+Builds an instrumented copy of each SDR kernel (``csrc/sdr_fwd.cu``'s and
+``sdr_bwd.cu``'s recurrence kernels, ``sdr_bwd.cu``'s weight-gradient
+kernel, ``sdr_scan_fwd.cu``, ``sdr_scan_bwd.cu``'s scan kernel), one at a
+time: at every timing site, thread 0 of block 0 reads ``clock64()`` and
+adds the cycles since the previous site to that site's sum. The sites are
+the barriers in the kernel's body (``__syncthreads();`` and the compute
+warps' ``sdr::sync_compute();``) and, in the warp passes of
+``csrc/sdr_stream.cuh`` that the recurrence kernels call, both sides of
+each wait on a ring slot's mbarrier (``mbar_wait(...);``): the
+site before a wait closes the work since the previous site, the site after
+it the time spent waiting for the slot's bulk copy. Each site is named by
+its file and source line. The copies go to ``srf_tpu_torch/_build/phases/``
+and are built with the port's nvcc flags (the copies first on the include
+path, then ``csrc``); the port's own libraries are not touched. Runs each kernel once at
+the SRF-TIMIT serving shape (B=29, T'=64) at its three capsule-layer
+geometries and prints, per kernel and geometry, the event time of the
+instrumented call and block 0's kcycles per step by site (per call for the
+weight-gradient kernel, whose block 0 takes every 1/grid-th work item
+while other blocks share its SM). One card; a site's clock read and global
+add cost tens of cycles. ``ncu`` would say
+more, but does not run on every machine.
 """
 
 import ctypes
@@ -26,17 +33,29 @@ import sys
 
 import numpy as np
 
-# (library, instrumented kernel) of K1, K2's reverse-time kernel, K3, K4
+# (library, instrumented kernel) of K1, K2's reverse-time and weight-gradient
+# kernels, K3, K4
 KERNELS = (("sdr_fwd", "sdr_fwd_kernel"), ("sdr_bwd", "sdr_bwd_step_kernel"),
+           ("sdr_bwd", "sdr_bwd_wgrad_kernel"),
            ("sdr_scan_fwd", "sdr_scan_fwd_kernel"),
            ("sdr_scan_bwd", "sdr_scan_bwd_kernel"))
+# kernels with no time loop: their sums are per call
+PER_CALL = ("sdr_bwd_wgrad_kernel",)
+# the shared header and its functions whose ring waits are timed
+HEADER = "sdr_stream.cuh"
+HELPERS = ("warp_pass_lanes", "warp_pass_rows")
 MAX_SITES = 40
 # (in_n, out_n, out_d, in_d), PAD mask: the three SRF-TIMIT layers
 GEOMETRIES = (((180, 30, 8, 8), False), ((90, 30, 8, 8), False),
               ((90, 63, 8, 8), True))
 BATCH, SEQ_LEN = 29, 64
-_MARK = ("__syncthreads(); if (threadIdx.x == 0) { long long ph_now = "
-         "clock64(); ph_sum[%d] += ph_now - ph_last; ph_last = ph_now; }")
+BARRIER = re.compile(r"(?:__syncthreads|(?:sdr::)?sync_compute)\(\);")
+WAIT = re.compile(r"(?:sdr::)?mbar_wait\([^;]*\);")
+_MARK = ("if (threadIdx.x == 0 && blockIdx.x == 0) { long long ph_now = "
+         "clock64(); g_phase_cycles[%d] += ph_now - g_phase_last; "
+         "g_phase_last = ph_now; }")
+_DECL = ("__device__ long long g_phase_cycles[%d];\n"
+         "__device__ long long g_phase_last;\n" % MAX_SITES)
 
 
 def _body_span(source, kernel):
@@ -54,58 +73,83 @@ def _body_span(source, kernel):
     raise ValueError("unbalanced braces in %s" % kernel)
 
 
-def instrument(source, kernel):
-    """The source with ``kernel``'s barriers timed, and the source line of
-    each barrier (site i is ``lines[i]``). Adds a ``phase_read(long long*)``
-    C function that copies block 0's sums to the host."""
-    open_at, close_at = _body_span(source, kernel)
+def _mark_body(source, function, pattern, around, sites, file_name):
+    """``source`` with each statement matching ``pattern`` in ``function``'s
+    body followed by a timing site (and, if ``around``, preceded by one);
+    appends (file_name, line) per site to ``sites``."""
+    open_at, close_at = _body_span(source, function)
     body = source[open_at + 1:close_at]
     first_line = source.count("\n", 0, open_at + 1) + 1
-    lines = []
+
+    def site():
+        if len(sites) >= MAX_SITES:
+            raise ValueError("more than %d timing sites" % MAX_SITES)
+        sites.append((file_name, line))
+        return _MARK % (len(sites) - 1)
 
     def mark(match):
-        lines.append(first_line + body.count("\n", 0, match.start()))
-        if len(lines) > MAX_SITES:
-            raise ValueError("%s has more than %d barriers" % (kernel,
-                                                               MAX_SITES))
-        return _MARK % (len(lines) - 1)
+        nonlocal line
+        line = first_line + body.count("\n", 0, match.start())
+        before = site() + " " if around else ""
+        return before + match.group(0) + " " + site()
 
-    body = re.sub(r"__syncthreads\(\);", mark, body)
-    body = ("\n  long long ph_last = clock64();\n"
-            "  long long ph_sum[%d];\n"
-            "  for (int i = 0; i < %d; ++i) ph_sum[i] = 0;%s"
-            "  if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
-            "    for (int i = 0; i < %d; ++i) g_phase_cycles[i] = ph_sum[i];\n"
-            "  }\n" % (MAX_SITES, MAX_SITES, body, MAX_SITES))
-    out = source[:open_at + 1] + body + source[close_at:]
-    out = out.replace("namespace {", "__device__ long long g_phase_cycles[%d];"
-                      "\n\nnamespace {" % MAX_SITES, 1)
-    out += ('\nextern "C" int phase_read(long long* out) {\n'
-            "  return (int)cudaMemcpyFromSymbol(out, g_phase_cycles, "
-            "sizeof(long long) * %d);\n}\n" % MAX_SITES)
-    return out, lines
+    line = first_line
+    body = pattern.sub(mark, body)
+    return source[:open_at + 1] + body + source[close_at:]
+
+
+def instrument(sources, name, kernel):
+    """Instrumented copies of csrc/<name>.cu and, if ``kernel`` calls the
+    shared header's warp passes, of the header. ``sources`` maps file names
+    to their text. Returns
+    ({file name: instrumented text}, [(file name, line) per site]). Adds a
+    ``phase_read(long long*)`` C function that copies block 0's sums to the
+    host."""
+    cu = name + ".cu"
+    sites = []
+    source = _mark_body(sources[cu], kernel, BARRIER, False, sites, cu)
+    open_at, _ = _body_span(source, kernel)
+    source = (source[:open_at + 1]
+              + "\n  if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
+                "    for (int i = 0; i < %d; ++i) g_phase_cycles[i] = 0;\n"
+                "    g_phase_last = clock64();\n  }" % MAX_SITES
+              + source[open_at + 1:])
+    out = {cu: _DECL + source
+           + ('\nextern "C" int phase_read(long long* out) {\n'
+              "  return (int)cudaMemcpyFromSymbol(out, g_phase_cycles, "
+              "sizeof(long long) * %d);\n}\n" % MAX_SITES)}
+    if "warp_pass" in sources[cu][slice(*_body_span(sources[cu], kernel))]:
+        header = sources[HEADER]
+        for helper in HELPERS:
+            header = _mark_body(header, helper, WAIT, True, sites, HEADER)
+        out[HEADER] = header
+    return out, sites
 
 
 def build(name, kernel):
     """Compile the instrumented copy of csrc/<name>.cu; returns (library
-    path, barrier source lines)."""
+    path, [(file, line) per site])."""
     from srf_tpu_torch.ops import cuda_build
 
-    with open(os.path.join(cuda_build.CSRC, name + ".cu")) as src:
-        source, lines = instrument(src.read(), kernel)
-    out_dir = os.path.join(cuda_build.BUILD_DIR, "phases")
+    sources = {}
+    for file_name in (name + ".cu", HEADER):
+        with open(os.path.join(cuda_build.CSRC, file_name)) as src:
+            sources[file_name] = src.read()
+    copies, sites = instrument(sources, name, kernel)
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "phases", kernel)
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, name + ".cu")
-    with open(path, "w") as dst:
-        dst.write(source)
+    for file_name, text in copies.items():
+        with open(os.path.join(out_dir, file_name), "w") as dst:
+            dst.write(text)
     library = os.path.join(out_dir, "lib%s.so" % name)
     result = subprocess.run(
-        [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", library, path],
+        [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-I", out_dir, "-I",
+         cuda_build.CSRC, "-o", library, os.path.join(out_dir, name + ".cu")],
         capture_output=True, text=True)
     if result.returncode:
         raise RuntimeError("nvcc failed on %s:\n%s%s" % (
-            path, result.stdout, result.stderr))
-    return library, lines
+            name, result.stdout, result.stderr))
+    return library, sites
 
 
 def main():
@@ -123,10 +167,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print("card: %s" % card)
-    built = {name: build(name, kernel) for name, kernel in KERNELS}
-    # the wrappers load the instrumented libraries from here on
-    cuda_build.build = lambda names: {n: built[n][0] for n in names}
-    routing_cuda._lib.cache_clear()
+    built = {kernel: build(name, kernel) for name, kernel in KERNELS}
+    real_build = cuda_build.build
     rng = np.random.RandomState(0)
     for geometry, mask in GEOMETRIES:
         in_n, out_n, out_d, in_d = geometry
@@ -151,7 +193,13 @@ def main():
                 lambda: routing_cuda.sequential_routing_scan_bwd_cuda(
                     u, w, b, vs, dvs, mask),
         }
-        for name, call in calls.items():
+        for name, kernel in KERNELS:
+            # the wrappers load the instrumented library of this kernel
+            cuda_build.build = lambda names: {
+                n: built[kernel][0] if n == name else real_build([n])[n]
+                for n in names}
+            routing_cuda._lib.cache_clear()
+            call = calls[name]
             call()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -166,15 +214,19 @@ def main():
             err = lib.phase_read(ctypes.addressof(sums))
             if err:
                 raise RuntimeError("phase_read failed: %d" % err)
-            lines = built[name][1]
-            per_step = [sums[i] / SEQ_LEN / 1e3 for i in range(len(lines))]
-            print("%s %s B=%d T=%d: %.3f ms (instrumented launch); block 0 "
-                  "%.1f kcycles per step; by barrier (%s.cu:line "
-                  "kcycles/step): %s [%s]"
-                  % (name, geometry, BATCH, SEQ_LEN, start.elapsed_time(end),
-                     sum(per_step), name, " ".join(
-                         "%d:%.1f" % (line, cyc)
-                         for line, cyc in zip(lines, per_step)), card))
+            sites = built[kernel][1]
+            per = "call" if kernel in PER_CALL else "step"
+            steps = 1 if kernel in PER_CALL else SEQ_LEN
+            per_step = [sums[i] / steps / 1e3 for i in range(len(sites))]
+            print("%s %s B=%d T=%d: %.3f ms (instrumented call); block 0 "
+                  "%.1f kcycles per %s; by site (file:line kcycles/%s): "
+                  "%s [%s]"
+                  % (kernel, geometry, BATCH, SEQ_LEN,
+                     start.elapsed_time(end), sum(per_step), per, per,
+                     " ".join(
+                         "%s:%d:%.1f" % (file_name, line, cyc)
+                         for (file_name, line), cyc in zip(sites, per_step)),
+                     card))
     return 0
 
 

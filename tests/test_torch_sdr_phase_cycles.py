@@ -1,40 +1,75 @@
 """The SDR phase-cycle tool's source rewrite, on the CPU (the instrumented
 kernels themselves build and run only on the card): every barrier of the
-kernel, and no other, gets a timer; each site is named by its source line;
-the rest of the source is unchanged."""
+kernel and, in the shared header's warp passes, every ring wait (on both
+sides) gets a timer, and nothing else; each site is named by its file and
+source line; the rest of the source is unchanged."""
 
 import os
 
 import pytest
 
 from srf_tpu_torch.ops import cuda_build
-from srf_tpu_torch.tools import sdr_phase_cycles
+from srf_tpu_torch.tools import sdr_phase_cycles as tool
 
 
-def _source(name):
-    with open(os.path.join(cuda_build.CSRC, name + ".cu")) as src:
-        return src.read()
+def _sources(name):
+    sources = {}
+    for file_name in (name + ".cu", tool.HEADER):
+        with open(os.path.join(cuda_build.CSRC, file_name)) as src:
+            sources[file_name] = src.read()
+    return sources
 
 
-@pytest.mark.parametrize("name,kernel", sdr_phase_cycles.KERNELS)
+@pytest.mark.parametrize("name,kernel", tool.KERNELS)
 def test_every_barrier_of_the_kernel_is_timed(name, kernel):
-    source = _source(name)
-    out, lines = sdr_phase_cycles.instrument(source, kernel)
-    open_at, close_at = sdr_phase_cycles._body_span(source, kernel)
-    assert len(lines) == source[open_at:close_at].count("__syncthreads();") > 0
-    source_lines = source.splitlines()
-    assert all("__syncthreads();" in source_lines[line - 1] for line in lines)
-    assert out.count("ph_sum[%d] +=" % (len(lines) - 1)) == 1
-    assert "ph_sum[%d] +=" % len(lines) not in out
+    sources = _sources(name)
+    source = sources[name + ".cu"]
+    copies, sites = tool.instrument(sources, name, kernel)
+    open_at, close_at = tool._body_span(source, kernel)
+    barriers = len(tool.BARRIER.findall(source[open_at:close_at]))
+    assert barriers > 0
+    assert [s for s in sites if s[0] == name + ".cu"] == sites[:barriers]
+    lines = source.splitlines()
+    assert all(tool.BARRIER.search(lines[line - 1])
+               for _, line in sites[:barriers])
+    out = copies[name + ".cu"]
+    assert "g_phase_cycles[%d] +=" % (len(sites) - 1) in "".join(
+        copies.values())
+    assert "g_phase_cycles[%d] +=" % len(sites) not in "".join(
+        copies.values())
     # barriers outside the kernel are left alone; the C interface remains
-    assert (out.count("__syncthreads();")
-            == source.count("__syncthreads();"))
+    assert (len(tool.BARRIER.findall(out))
+            == len(tool.BARRIER.findall(source)))
     assert 'extern "C" int phase_read(long long* out)' in out
-    assert out.startswith(source[:open_at].replace(
-        "namespace {", "__device__ long long g_phase_cycles[%d];\n\n"
-        "namespace {" % sdr_phase_cycles.MAX_SITES, 1))
+    assert out.startswith(tool._DECL + source[:open_at])
+
+
+@pytest.mark.parametrize("name,kernel", tool.KERNELS[:2])
+def test_the_ring_waits_of_the_warp_passes_are_timed(name, kernel):
+    sources = _sources(name)
+    header = sources[tool.HEADER]
+    copies, sites = tool.instrument(sources, name, kernel)
+    waits = sum(
+        len(tool.WAIT.findall(header[slice(*tool._body_span(header, f))]))
+        for f in tool.HELPERS)
+    header_sites = [line for f, line in sites if f == tool.HEADER]
+    # a site before and one after each wait, named by the wait's line
+    assert waits > 0 and len(header_sites) == 2 * waits
+    lines = header.splitlines()
+    assert all(tool.WAIT.search(lines[line - 1]) for line in header_sites)
+    # the producer's waits are not timed
+    assert "g_phase_cycles" not in copies[tool.HEADER][
+        slice(*tool._body_span(copies[tool.HEADER], "produce"))]
 
 
 def test_an_unknown_kernel_raises():
     with pytest.raises(ValueError, match="no definition"):
-        sdr_phase_cycles.instrument(_source("sdr_fwd"), "no_such_kernel")
+        tool.instrument(_sources("sdr_fwd"), "sdr_fwd", "no_such_kernel")
+
+
+def test_the_weight_gradient_kernel_leaves_the_header_alone():
+    copies, sites = tool.instrument(_sources("sdr_bwd"), "sdr_bwd",
+                                    "sdr_bwd_wgrad_kernel")
+    assert tool.HEADER not in copies
+    assert sites and all(f == "sdr_bwd.cu" for f, _ in sites)
+    assert "sdr_bwd_wgrad_kernel" in tool.PER_CALL
