@@ -15,8 +15,9 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    version, and K3 against K1, on the same CUDA tensors, at the three
    canonical SRF-TIMIT capsule-layer geometries, at the serving path's two
    shapes (B=29, T'=64: 29 x 241 frames padded to 256; B=8, T'=128), at
-   the unpadded bucket (T'=61) and at an odd B/T with 2 routing iterations
-   and the PAD mask flipped, K3 at time blocks 8, 1 and 5 (5 divides
+   the unpadded bucket (T'=61), at an odd B/T with 2 routing iterations
+   and the PAD mask flipped, and at the decode phase's other shapes
+   (B=1, T'=64/96/128; B=8, T'=96), K3 at time blocks 8, 1 and 5 (5 divides
    neither 61 nor 64); K1 alone at EXTRA_LAYERS: the WSJ recipe's layer 0
    (300, 30, 20, 20) and (40, 5, 3, 4), its general path, at B=3, T'=17
    with 1 and 2 iterations, a W[n] taken in tiles and partial sums in
@@ -62,6 +63,31 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    (7 K4 calls, 14 launches, no plain backward), and each layer's output
    and gradients must agree with SDRFunction (K1, K2) on the same inputs;
    the 7-layer forward and backward times of K3/K1 and K4/K2 in turns;
+6c. the SRF-TIMIT recipe's decode stage (train_srf_timit.sh:68-73, stages
+   2-4) through the port's entry points: 24 synthetic utterances of
+   150-500 frames (fbank-123, labels 1..61, utt ids) written into 2
+   TFRecord shards by the port's writer; three checkpoints of phase 6's
+   weights, each perturbed, saved by utils/checkpoint and averaged by
+   tools.average_ckpt (avg/1 within 1 float32 ulp of the float64 mean);
+   the first forward per padded width (cuDNN's search); the card's logits
+   within LOGIT_ATOL of the CPU's at every decode shape (batch 1 at each
+   width, batch 8); trainer_sr.main in
+   decode mode with timit.conf's beam 100: (a) the device beam at batch 1,
+   (b) at batch 8 with pad_last, (c) the C++ host beam; each scraped with
+   utils.log2utt. K1 must launch 14 times per batch forward; (c) must have
+   run the C++ decoder on every utterance; (a) and (c) must give the same
+   ids, except where the C++ hypothesis is among the device beam's 4-best
+   within 1e-3 of its best score (float32 against float64; printed); the
+   device beam on the card must equal it on the CPU for the same logits
+   of 8 utterances in one batch (ids and frames equal, scores within
+   1e-4) and batch 1's hypotheses;
+   with a toy 3-gram LM (train_ngram over the split's labels) the device
+   beam must give the Python prefix search's hypothesis on the 3 shortest
+   utterances (the same near-tie rule); how many utterances (b) changes
+   (F7) is printed; then per-batch forward, device-beam and host-beam
+   times over every batch at batch 1 and at batch 8, in two passes back
+   to back, decode wall per utterance and the realtime factor, and a
+   profile of one batch-8 device beam (device ops per frame, idle share);
 7. the SRF training path: the same model and weights trained by
    train.step.make_train_step with Adam under Noam(0.5, 1, 1200) and
    timit.conf's betas and eps, on bench.py's workload (29 utterances of
@@ -161,10 +187,12 @@ TRAIN_CHECK_BATCH = 8
 # the shapes every SDR kernel (K1-K4) is held to its plain version at, as
 # (B, T', routing iterations, PAD mask flipped): the serving path's two
 # (29 x 241 frames padded to 256, and B=8 T'=128), the unpadded training
-# bucket, and an odd B/T (K2 and K4 take one iteration); and K3's and K4's
-# time blocks, 5 dividing neither 61 nor 64
+# bucket, and an odd B/T (K2 and K4 take one iteration); the decode
+# phase's other shapes (batch 1 at widths 256/384/512, batch 8 at 384);
+# and K3's and K4's time blocks, 5 dividing neither 61 nor 64
 SDR_SHAPES = ((29, 64, 1, False), (8, 128, 1, False), (29, 61, 1, False),
-              (7, 17, 2, True))
+              (7, 17, 2, True), (1, 64, 1, False), (1, 96, 1, False),
+              (1, 128, 1, False), (8, 96, 1, False))
 SCAN_TIME_BLOCKS = (8, 1, 5)
 # (name, (in_n, out_n, out_d, in_d), PAD mask, layers per forward)
 TIMIT_LAYERS = [
@@ -1075,6 +1103,391 @@ def scan_path_phase(torch, card, state):
                     "backward_ms": k4_ms, "k2_backward_ms": k2_ms}
 
 
+# the decode phase (6c): the recipe's stages 2-4 (train_srf_timit.sh:68-73)
+# on a synthetic test split written by the port's own TFRecord writer
+DECODE_UTTS, DECODE_SHARDS, DECODE_BEAM = 24, 2, 100
+DECODE_FRAMES = (150, 500)  # padded widths 256/384/512 (F14: few shapes)
+DECODE_BATCH = 8
+# a device/C++ disagreement passes only if the C++ hypothesis is among the
+# device beam's NEAR_TIE_PATHS best with a score within NEAR_TIE_SCORE of
+# its best: the C++ beam sums in float64, the device beam in float32
+NEAR_TIE_PATHS, NEAR_TIE_SCORE = 4, 1e-3
+# device beam on the card against the same logits on the CPU: float32 both,
+# the same ops; log-softmax and logaddexp round differently
+BEAM_SCORE_ATOL = 1e-4
+LM_UTTS, LM_ORDER = 3, 3
+# utterances of the card-vs-CPU beam check (the first of the sorted ids;
+# the CPU's beam at width 100 is slow), and the passes, back to back, over
+# every batch of batch 1 and of batch 8 whose forward and beams are timed
+# apart
+CHECK_UTTS = 8
+TIMING_PASSES = 2
+
+
+def write_test_split(base):
+    """DECODE_UTTS utterances of DECODE_FRAMES frames (fbank-123 features,
+    labels 1..61, utt ids) as the JAX writer lays them out (data/writer.py),
+    written by the port's writer into DECODE_SHARDS shards; returns
+    {utt id: (features, labels)}."""
+    from srf_tpu_torch.data.example_proto import encode_example
+    from srf_tpu_torch.data.tfrecord import TFRecordWriter
+
+    rng = np.random.RandomState(SEED + 7)
+    os.makedirs(os.path.join(base, "tfrecord"))
+    writers = [TFRecordWriter(os.path.join(
+        base, "tfrecord", "synth-test-None-123-%d-of-%d" % (s, DECODE_SHARDS)))
+        for s in range(DECODE_SHARDS)]
+    split = {}
+    for i in range(DECODE_UTTS):
+        n = int(rng.randint(DECODE_FRAMES[0], DECODE_FRAMES[1] + 1))
+        feats = rng.randn(n, 123).astype(np.float32)
+        labels = rng.randint(1, 62, size=max(2, n // 8)).astype(np.int64)
+        utt = "synth%02d" % i
+        writers[i % DECODE_SHARDS].write(encode_example({
+            "target_label": labels,
+            "input_speech": feats.flatten(),
+            "input_length": np.asarray([n], np.int64),
+            "target_length": np.asarray([labels.size], np.int64),
+            "utt_id": [utt.encode()],
+        }))
+        split[utt] = (feats, labels)
+    for writer in writers:
+        writer.close()
+    return split
+
+
+def decode_argv(base, *extra, device="cuda"):
+    """trainer_sr's flags for decode mode: timit.conf, the canonical
+    SRF-TIMIT model, beam 100 (timit.conf's own), the synthetic split."""
+    flags = [f for f in TIMIT_FLAGS if not f.startswith("--decoding-beam")]
+    return ["trainer_sr", "--config=%s" % os.path.join(REPO, "egs", "conf",
+                                                       "timit.conf"),
+            "--path-base=%s" % base,
+            "--path-vocab=%s" % os.path.join(REPO, "egs", "data",
+                                             "timit_62.vocab"),
+            "--path-test-ptrn=tfrecord/synth-test-None-123-*-of-*",
+            "--prep-data-num-test=%d" % DECODE_UTTS,
+            "--path-ckpt=%s" % os.path.join(base, "ckpt", "avg"),
+            "--train-max-epoch=0", "--decoding-beam-width=%d" % DECODE_BEAM,
+            "--device=%s" % device, *flags, *extra]
+
+
+def run_trainer(argv):
+    """trainer_sr.main in decode mode: (its stdout, wall seconds)."""
+    import contextlib
+    import io
+
+    from srf_tpu_torch import trainer_sr
+
+    out = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        trainer_sr.main(argv)
+    return out.getvalue(), time.perf_counter() - start
+
+
+def decode_phase(torch, card, state, device="cuda"):
+    """Phase 6c: the SRF-TIMIT recipe's stages 2-4 on the card. Writes a
+    synthetic test split, saves three perturbed checkpoints of phase 6's
+    weights, averages them with tools.average_ckpt, decodes with
+    trainer_sr (device beam at batch 1 and at batch 8 with pad_last, the
+    C++ host beam), scrapes stdout with utils.log2utt, and checks the
+    hypotheses (see the module docstring). Returns K1's launches."""
+    import shutil
+    import tempfile
+
+    from srf_tpu_torch.config import Logger, ParseOption
+    from srf_tpu_torch.data.loader import EvalLoader, SpeechDataset
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops import ctc_decode
+    from srf_tpu_torch.ops.ctc_beam import (
+        ctc_beam_search_batch, ctc_beam_search_nbest)
+    from srf_tpu_torch.ops.ngram_lm import train_ngram
+    from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
+    from srf_tpu_torch.tools import average_ckpt
+    from srf_tpu_torch.train.state import TrainState
+    from srf_tpu_torch.train.step import make_apply_fn, make_logits_fn
+    from srf_tpu_torch.utils import checkpoint
+    from srf_tpu_torch.utils.log2utt import parse_decode_log
+    from srf_tpu_torch.utils.native import load_host_lib
+
+    phase_start = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="chip_smoke_decode_")
+    try:
+        split = write_test_split(base)
+        audio_s = 0.01 * sum(f.shape[0] for f, _ in split.values())
+        logger = Logger(name="chip_smoke_decode", level=Logger.WARN).logger
+        config = ParseOption(decode_argv(base, device=device), logger,
+                             is_print_opts=False).args
+
+        # stage 2: three checkpoints, averaged
+        rng = np.random.RandomState(SEED + 8)
+        manager = checkpoint.CheckpointManager(os.path.join(base, "ckpt"))
+        saved = []
+        for step in (1, 2, 3):
+            model_state = {
+                k: (v + torch.from_numpy(0.01 * rng.randn(*v.shape).astype(
+                    np.float32)) if v.is_floating_point() else v)
+                for k, v in state.items()}
+            saved.append(model_state)
+            manager.save(step, {"step": step, "model": model_state,
+                                "optimizer": None, "scheduler": None})
+        average_ckpt.main(decode_argv(base, "--path-ckpt=%s"
+                                      % os.path.join(base, "ckpt"),
+                                      "--model-average-num=3", device=device))
+        avg = checkpoint.CheckpointManager(
+            os.path.join(base, "ckpt", "avg")).restore(1)["model"]
+        worst_ulps = 0.0
+        for key, value in avg.items():
+            if not value.is_floating_point():
+                check(torch.equal(value, saved[-1][key]),
+                      "avg/1 %s is not the last checkpoint's" % key)
+                continue
+            mean = sum(s[key].double() for s in saved) / 3.0
+            ulp = np.spacing(np.abs(mean.float().numpy()))
+            ulps = float(np.max(np.abs(value.double().numpy()
+                                       - mean.numpy()) / ulp))
+            worst_ulps = max(worst_ulps, ulps)
+            check(ulps <= 1.0, "avg/1 %s is %.2f float32 ulp from the "
+                  "float64 mean" % (key, ulps))
+        print("decode: %d checkpoints averaged into avg/1, worst %.3f float32 "
+              "ulp from the float64 mean over %d tensors"
+              % (3, worst_ulps, len(avg)))
+
+        # the logits every decode sees: the averaged model on the card,
+        # batch 1 and batch 8 as EvalLoader pads them; first call per width
+        model, in_len_div = build_model(config, 63)
+        train_state = TrainState.create(model, None, device=device)
+        checkpoint.restore_into(train_state, {"model": avg, "step": 3},
+                                params_only=True)
+        logits_fn = make_logits_fn(make_apply_fn(train_state.model))
+        dataset = SpeechDataset(os.path.join(
+            base, "tfrecord", "synth-test-None-123-*-of-*"), 123,
+            with_utt_id=True)
+        loaders = {1: list(EvalLoader(dataset, 1)),
+                   DECODE_BATCH: list(EvalLoader(dataset, DECODE_BATCH,
+                                                 pad_last=True))}
+        firsts = {}
+        for size, batches in loaders.items():
+            for batch in batches:
+                key = (size, batch["feats"].shape[1])
+                if key not in firsts:
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    logits_fn(train_state, batch)
+                    torch.cuda.synchronize()
+                    firsts[key] = 1e3 * (time.perf_counter() - start)
+        print("decode: first forward per (batch, padded width), ms (cuDNN's "
+              "search included): %s" % ", ".join(
+                  "%dx%d %.1f" % (b, w, ms)
+                  for (b, w), ms in sorted(firsts.items())))
+
+        # the card's logits against the CPU's, the same averaged weights,
+        # at every decode shape: the first batch of each (batch, width)
+        cpu_state = TrainState.create(build_model(config, 63)[0], None,
+                                      device="cpu")
+        checkpoint.restore_into(cpu_state, {"model": avg, "step": 3},
+                                params_only=True)
+        cpu_logits_fn = make_logits_fn(make_apply_fn(cpu_state.model))
+        held = {}
+        for size, batches in loaders.items():
+            for batch in batches:
+                key = (size, batch["feats"].shape[1])
+                if key in held:
+                    continue
+                card_logits = logits_fn(train_state, batch).cpu()
+                cpu_logits = cpu_logits_fn(cpu_state, batch)
+                check(bool(torch.isfinite(card_logits).all())
+                      and card_logits.shape == cpu_logits.shape,
+                      "decode %dx%d: card logits" % key)
+                held[key] = (card_logits - cpu_logits).abs().max().item()
+                check(held[key] <= LOGIT_ATOL, "decode %dx%d: card logits "
+                      "%.3e from the CPU's" % (*key, held[key]))
+        print("decode: card logits = CPU logits (atol %.0e) at every decode "
+              "shape, max |card - cpu|: %s" % (LOGIT_ATOL, ", ".join(
+                  "%dx%d %.3e" % (b, w, err)
+                  for (b, w), err in sorted(held.items()))))
+
+        # stage 3: trainer_sr decode mode, three ways
+        runs = {}
+        for name, extra, batches in (
+                ("device b1", (), len(loaders[1])),
+                ("device b%d" % DECODE_BATCH,
+                 ("--tpu-decode-batch=%d" % DECODE_BATCH,
+                  "--tpu-decode-pad-last=True"), len(loaders[DECODE_BATCH])),
+                ("host b1", ("--tpu-decode-impl=host",), len(loaders[1]))):
+            native_before = ctc_decode.beam_search_native.calls
+            sequential_routing_cuda.launches = 0
+            out, wall = run_trainer(decode_argv(base, *extra, device=device))
+            torch.cuda.synchronize()
+            launches = sequential_routing_cuda.launches
+            check(launches == batches * 7 * K1_LAUNCHES,
+                  "%s: K1 launched %d times over %d batch forwards, expected "
+                  "%d per forward" % (name, launches, batches,
+                                      7 * K1_LAUNCHES))
+            hyps = dict(parse_decode_log(out.splitlines()))
+            check(sorted(hyps) == sorted(split),
+                  "%s: decoded %d of %d utterances" % (name, len(hyps),
+                                                       len(split)))
+            check(all(all(0 <= t < 62 for t in ids) and ids
+                      for ids in hyps.values()), "%s: ids" % name)
+            runs[name] = (hyps, wall, launches,
+                          ctc_decode.beam_search_native.calls - native_before)
+            print("decode %s (stage 3, trainer_sr): %d utterances, %d batch "
+                  "forwards, K1 %d launches, wall %.3f s, %.2f ms per "
+                  "utterance, RTF %.4f [%s]"
+                  % (name, len(hyps), batches, launches, wall,
+                     1e3 * wall / len(hyps), wall / audio_s, card))
+        check(bool(load_host_lib()) and runs["host b1"][3]
+              == len(split), "host decode did not run the C++ decoder on "
+              "every utterance (%d of %d)" % (runs["host b1"][3], len(split)))
+        device_hyps, host_hyps = runs["device b1"][0], runs["host b1"][0]
+
+        # the logits of (a): batch 1, as trainer_sr saw them
+        logits = {}
+        for batch in loaders[1]:
+            out = logits_fn(train_state, batch)
+            dec = np.minimum(np.maximum(batch["inp_len"] // in_len_div, 1),
+                             out.shape[1])
+            logits[batch["utt_ids"][0]] = (out[0], int(dec[0]))
+        near_ties = 0
+        for utt in sorted(split):
+            if device_hyps[utt] == host_hyps[utt]:
+                continue
+            row, dec = logits[utt]
+            nbest = ctc_beam_search_nbest(row[None], [dec], DECODE_BEAM,
+                                          top_paths=NEAR_TIE_PATHS)[0]
+            ids = [h[0] for h in nbest]
+            ok = host_hyps[utt] in ids
+            gap = nbest[0][1] - nbest[ids.index(host_hyps[utt])][1] if ok \
+                else float("inf")
+            print("decode: %s device and C++ beams differ; C++ hypothesis "
+                  "%s the device's %d-best, score %.6f against best %.6f "
+                  "(gap %.2e)" % (utt, "in" if ok else "NOT in",
+                                  NEAR_TIE_PATHS,
+                                  nbest[ids.index(host_hyps[utt])][1] if ok
+                                  else float("nan"), nbest[0][1], gap))
+            check(ok and gap <= NEAR_TIE_SCORE,
+                  "%s: device and C++ beams differ beyond a near-tie" % utt)
+            near_ties += 1
+        print("decode: device beam (float32) and C++ beam (float64) give the "
+              "same ids for %d of %d utterances, %d near-ties"
+              % (len(split) - near_ties, len(split), near_ties))
+
+        # the device beam on the card against the CPU, same logits, batched
+        start = time.perf_counter()
+        utts = sorted(split)[:CHECK_UTTS]
+        width = max(logits[u][0].shape[0] for u in utts)
+        stacked = torch.zeros((len(utts), width, 63), device=device)
+        for i, utt in enumerate(utts):
+            stacked[i, : logits[utt][0].shape[0]] = logits[utt][0]
+        lens = [logits[u][1] for u in utts]
+        card_beam = ctc_beam_search_batch(stacked, lens, DECODE_BEAM,
+                                          with_frames=True)
+        cpu_beam = ctc_beam_search_batch(stacked.cpu(), lens, DECODE_BEAM,
+                                         with_frames=True)
+        check([h[0] for h in card_beam] == [h[0] for h in cpu_beam]
+              and [h[2] for h in card_beam] == [h[2] for h in cpu_beam],
+              "device beam: card ids or frames differ from the CPU's")
+        score_err = max(abs(a[1] - b[1]) for a, b in zip(card_beam,
+                                                         cpu_beam))
+        check(score_err <= BEAM_SCORE_ATOL,
+              "device beam: card scores %.2e from the CPU's" % score_err)
+        check([h[0] for h in card_beam] == [device_hyps[u] for u in utts],
+              "device beam: the %d-utterance batch differs from batch 1"
+              % len(utts))
+        print("decode: device beam on the card = on the CPU for %d "
+              "utterances (ids and frames equal, scores max |diff| %.2e, "
+              "atol %.0e), and = batch 1; %.1f s"
+              % (len(utts), score_err, BEAM_SCORE_ATOL,
+                 time.perf_counter() - start))
+
+        # shallow fusion: the device beam with a toy LM against the Python
+        # prefix search with the same LM, on the LM_UTTS shortest
+        lm = (train_ngram([split[u][1] for u in sorted(split)], 62,
+                          LM_ORDER), 0.5, 0.5)
+        shortest = sorted(split, key=lambda u: logits[u][1])[:LM_UTTS]
+        start = time.perf_counter()
+        for utt in shortest:
+            row, dec = logits[utt]
+            got = ctc_beam_search_nbest(row[None], [dec], DECODE_BEAM, lm=lm,
+                                        top_paths=NEAR_TIE_PATHS)[0]
+            want = ctc_decode.prefix_beam_search(
+                row.cpu().numpy(), dec, DECODE_BEAM, lm=lm)[0]
+            ids = [h[0] for h in got]
+            gap = (got[0][1] - got[ids.index(want[0])][1]
+                   if want[0] in ids else float("inf"))
+            print("decode LM %s (%d frames): device %s Python prefix search "
+                  "(score %.6f against %.6f)"
+                  % (utt, dec, "=" if ids[0] == want[0] else "!=",
+                     got[0][1], -want[1]))
+            check(ids[0] == want[0] or gap <= NEAR_TIE_SCORE,
+                  "%s: device beam with the LM differs from the Python "
+                  "prefix search" % utt)
+        print("decode LM: %d-gram over 62 phones, %d utterances, %.1f s"
+              % (LM_ORDER, len(shortest), time.perf_counter() - start))
+
+        batched = runs["device b%d" % DECODE_BATCH][0]
+        print("decode: batch %d with pad_last differs from batch 1 in %d of "
+              "%d utterances (padding changes valid frames, F7)"
+              % (DECODE_BATCH, sum(batched[u] != device_hyps[u]
+                                   for u in split), len(split)))
+
+        # where a decode's time goes, per batch: forward, device beam, host
+        # beam, over every batch of batch 1 and of batch 8, in
+        # TIMING_PASSES passes back to back (the host clock's spread)
+        for timing_pass in range(1, TIMING_PASSES + 1):
+            for size, batches in loaders.items():
+                fwd, dev, host = [], [], []
+                for batch in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = logits_fn(train_state, batch)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    dec = np.minimum(np.maximum(
+                        batch["inp_len"] // in_len_div, 1), out.shape[1])
+                    ctc_beam_search_batch(out, dec, DECODE_BEAM)
+                    t2 = time.perf_counter()
+                    ctc_decode.beam_search_batch(out.cpu().numpy(), dec,
+                                                 DECODE_BEAM)
+                    t3 = time.perf_counter()
+                    fwd.append(1e3 * (t1 - t0))
+                    dev.append(1e3 * (t2 - t1))
+                    host.append(1e3 * (t3 - t2))
+                frames = sum(b["feats"].shape[1] // in_len_div
+                             for b in batches)
+                valid = sum(int(np.sum(np.minimum(np.maximum(
+                    b["inp_len"][: b["valid"]] // in_len_div, 1),
+                    b["feats"].shape[1] // in_len_div))) for b in batches)
+                print("decode pass %d batch %d, all %d batches: forward "
+                      "%.3f ms a batch (median), device beam %.3f ms a batch "
+                      "(median; %.4f ms a padded frame step), C++ host beam "
+                      "%.3f ms a batch (median; %.4f ms a valid "
+                      "utterance-frame); C++ / device beam, summed: %.3f "
+                      "[%s]" % (timing_pass, size, len(batches),
+                                float(np.median(fwd)), float(np.median(dev)),
+                                sum(dev) / frames, float(np.median(host)),
+                                sum(host) / valid, sum(host) / sum(dev),
+                                card))
+        batch = loaders[DECODE_BATCH][0]
+        out = logits_fn(train_state, batch)
+        dec = np.minimum(np.maximum(batch["inp_len"] // in_len_div, 1),
+                         out.shape[1])
+        _, total, count, busy, wall, _ = profile_device(
+            torch, lambda: ctc_beam_search_batch(out, dec, DECODE_BEAM))
+        print("profile device beam, batch %d x %d frames: %d device ops "
+              "(%.1f a frame), %.3f ms of device time, busy %.3f of %.3f ms "
+              "wall (idle share %.3f) [%s]"
+              % (DECODE_BATCH, out.shape[1], count, count / out.shape[1],
+                 total, busy, wall, 1.0 - busy / wall, card))
+        launches = sum(run[2] for run in runs.values())
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    print("decode phase: %.1f s" % (time.perf_counter() - phase_start))
+    return launches
+
+
 def train_batch(torch, device, batch=29, frames=241, feat_dim=123,
                 vocab=62):
     """bench.py's workload (bench.py:76-87): lengths in 0.7*frames..frames,
@@ -1666,6 +2079,8 @@ def run():
     scan_k3, scan_k4, scan_times = scan_path_phase(torch, card, state)
     check(scan_k3 > 0 and scan_k4 > 0,
           "K3 or K4 was not launched on the scan path")
+    decode_k1 = decode_phase(torch, card, state)
+    check(decode_k1 > 0, "K1 was not launched on the decode path")
     train_k1, train_k2 = train_phase(torch, card, state)
     check(serve_k1 > 0, "K1 was not launched on the serving path")
     check(train_k1 > 0 and train_k2 > 0,
@@ -1673,8 +2088,9 @@ def run():
     serve_k5, cnn_state = cnn_serve_phase(torch, card)
     train_k5 = cnn_train_phase(torch, card, cnn_state)
     check(train_k5 > 0, "K5 was not launched on the CNN training path")
-    k1["launches"] = serve_k1 + train_k1
-    k1["launches_by_path"] = {"serve": serve_k1, "train": train_k1}
+    k1["launches"] = serve_k1 + decode_k1 + train_k1
+    k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
+                              "train": train_k1}
     k2["launches"] = train_k2
     k1["calls"] = k1["launches"] // K1_LAUNCHES
     k2["calls"] = train_k2 // K2_LAUNCHES

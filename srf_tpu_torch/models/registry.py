@@ -6,8 +6,10 @@ Reference: tfsr/trainer_sr.py:175-201. ``--model-type`` "cnn"/"conv"/
 ``--model-conv-is-mp``); anything else but the LSTM and STF types, which
 this port has not reached, is SRF. ``in_len_div`` (the time-subsampling
 divisor used for CTC lengths) is ``conv_stride ** conv_layer_num`` for
-both families. Model types and flags not ported yet raise
-``NotImplementedError`` instead of running something else.
+both families. Every ``--tpu-routing-kernel`` value but ``wavefront`` runs
+the port's one SDR (an unknown value raises ``ValueError``, as in JAX).
+Model types and flags not ported yet raise ``NotImplementedError`` instead
+of running something else.
 """
 
 from srf_tpu_torch.models.cnn import CNNEncoder, CNNStrideEncoder
@@ -16,6 +18,9 @@ from srf_tpu_torch.models.srf import SequenceRouter
 _LATER = "not ported yet: %s is a later slice of the PyTorch port"
 CNN_TYPES = ("cnn", "conv", "convolution")
 DROPOUT_IMPLS = ("xla", "pallas")
+# --tpu-routing-kernel values that build the SRF (wavefront: refused)
+ROUTING_KERNELS = ("auto", "xla", "xla_flat", "xla_pre", "xla_factored",
+                   "pallas")
 
 
 def validate_dropout_kernel(config, model_type):
@@ -50,12 +55,19 @@ def build_model(config, dec_out_dim, logger=None, **overrides):
         raise ValueError("LSRF (model-caps-layer-time) is deprecated")
     if config.model_caps_type not in ("lowmemory", "einsum", "naive"):
         raise ValueError("unknown caps type %s" % config.model_caps_type)
-    # the port has one SDR implementation per device: K1 on CUDA, the
-    # plain loop on the CPU
+    # every value but wavefront computes the same function
+    # (srf_tpu/ops/routing.py:643-691); the port has one SDR for them,
+    # SDRFunction: K1/K2 on CUDA, the plain loop on the CPU
     kernel = getattr(config, "tpu_routing_kernel", "auto")
-    if kernel not in ("auto", "xla"):
-        raise NotImplementedError(_LATER % ("--tpu-routing-kernel=" + kernel))
+    if kernel not in ROUTING_KERNELS + ("wavefront",):
+        raise ValueError("unknown --tpu-routing-kernel %r" % kernel)
+    if kernel == "wavefront":
+        raise NotImplementedError(_LATER % "--tpu-routing-kernel=wavefront")
     if getattr(config, "tpu_routing_bf16", False):
+        if kernel in ("pallas", "xla_flat"):
+            raise ValueError(
+                "--tpu-routing-kernel=%s does not support bf16 routing or "
+                "time chunking; use auto/xla/xla_pre" % kernel)
         raise NotImplementedError(_LATER % "--tpu-routing-bf16")
     model = SequenceRouter.from_config(config, dec_out_dim, **overrides)
     if logger is not None:

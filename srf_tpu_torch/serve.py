@@ -1,18 +1,22 @@
-"""Serving/inference API (port of ``srf_tpu/serve.py``, greedy decoding).
+"""Serving/inference API (port of ``srf_tpu/serve.py``).
 
 Loads weights, pads a batch of feature matrices to a multiple of
-``pad_multiple`` frames, runs the model's forward, decodes greedily and
-returns ids, mapped text (TIMIT 61->39 or characters), scores, confidences
-and timestamps, with the same keys as the JAX Recognizer.
+``pad_multiple`` frames, runs the model's forward, decodes (greedy, or the
+CTC beam on the device with optional n-best and n-gram shallow fusion,
+``--tpu-lm-path``) and returns ids, mapped text (TIMIT 61->39 or
+characters), scores, confidences and timestamps, with the same keys as the
+JAX Recognizer.
 
-Weights: a ``state_dict`` given directly, ``<path_ckpt>/model.pt`` (a
-``torch.save``d state_dict), or a ``.npz`` of the flax tree (see
-``convert.py``). Beam decoding, streaming, long-form, raw audio and int8
-weights are later slices: they raise ``NotImplementedError``.
+Weights: a ``state_dict`` given directly, a ``.npz`` of the flax tree (see
+``convert.py``), ``<path_ckpt>/model.pt`` (a ``torch.save``d state_dict),
+or a checkpoint of ``utils/checkpoint.py`` under ``path_ckpt``
+(``--path-ckpt-epoch`` N or the latest step). Streaming, long-form, raw
+audio and int8 weights are later slices: they raise
+``NotImplementedError``.
 
 CLI:
     python -m srf_tpu_torch.serve --config=... --path-base=... \\
-        --path-ckpt=... --decoding-beam-width=1 --feats utt1.npy [...] \\
+        --path-ckpt=... --feats utt1.npy [...] \\
         [--corpus timit|wsj] [--device=cuda|cpu]
 """
 
@@ -26,22 +30,41 @@ from srf_tpu_torch.config import Logger, ParseOption
 from srf_tpu_torch.convert import load_npz
 from srf_tpu_torch.device import resolve_device
 from srf_tpu_torch.models.registry import build_model
+from srf_tpu_torch.ops.ctc_beam import (
+    ctc_beam_search_batch, ctc_beam_search_nbest, lm_on_device,
+)
 from srf_tpu_torch.ops.ctc_decode import greedy_decode_frames
+from srf_tpu_torch.ops.ngram_lm import load_lm_from_config
+from srf_tpu_torch.train.state import TrainState
+from srf_tpu_torch.utils.checkpoint import load_checkpoint
 from srf_tpu_torch.utils.log2utt import ids_to_utt
 from srf_tpu_torch.utils.vocab import get_file_path, load_vocab
 
 _LATER = "%s is not ported yet: a later slice of the PyTorch port"
 
 
-def load_weights(path_ckpt):
-    """state_dict from a flax ``.npz`` file or ``<path_ckpt>/model.pt``."""
+def load_weights(config, model, logger):
+    """Load ``model``'s weights from ``config.path_ckpt``: a flax ``.npz``
+    file, ``<path_ckpt>/model.pt``, or (when ``--path-ckpt-epoch`` is
+    positive or there is no model.pt) a checkpoint through
+    ``utils/checkpoint.load_checkpoint``."""
+    path_ckpt = config.path_ckpt
     if path_ckpt.endswith(".npz"):
-        return load_npz(path_ckpt)
+        model.load_state_dict(load_npz(path_ckpt))
+        return
     path = os.path.join(path_ckpt, "model.pt")
-    if not os.path.isfile(path):
+    if os.path.isfile(path) and not (config.path_ckpt_epoch or 0) > 0:
+        model.load_state_dict(
+            torch.load(path, map_location="cpu", weights_only=True))
+        return
+    manager, restored, _ = load_checkpoint(
+        config, logger, TrainState(model=model, optimizer=None),
+        params_only=True)
+    manager.close()
+    if restored is None:
         raise FileNotFoundError(
-            "no weights: %s is not a .npz and holds no model.pt" % path_ckpt)
-    return torch.load(path, map_location="cpu", weights_only=True)
+            "no weights: %s is not a .npz and holds no model.pt and no "
+            "checkpoint" % path_ckpt)
 
 
 class Recognizer:
@@ -52,8 +75,6 @@ class Recognizer:
             raise NotImplementedError(_LATER % "--tpu-serve-quant=int8")
         if getattr(config, "tpu_decode_ema", False):
             raise NotImplementedError(_LATER % "--tpu-decode-ema")
-        if (getattr(config, "path_ckpt_epoch", 0) or 0) > 0:
-            raise NotImplementedError(_LATER % "--path-ckpt-epoch")
         self.config = config
         self.vocab, _, dec_in_dim, _ = load_vocab(
             get_file_path(config.path_base, config.path_vocab), logger
@@ -61,9 +82,14 @@ class Recognizer:
         self.blank_id = dec_in_dim
         model, self.in_len_div = build_model(config, dec_in_dim + 1, logger)
         if state_dict is None:
-            state_dict = load_weights(config.path_ckpt)
-        model.load_state_dict(state_dict)
+            load_weights(config, model, logger)
+        else:
+            model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
+        # --tpu-lm-path: shallow-fusion n-gram LM for every beam decode,
+        # its table on the device once
+        self.lm = lm_on_device(load_lm_from_config(config, logger),
+                               self.device)
 
     def pad(self, feats_list, pad_multiple=128):
         """list of [T_i, feat_dim] -> (feats [B, W, feat_dim] on the device,
@@ -107,43 +133,63 @@ class Recognizer:
         ]
 
     def transcribe_batch_detailed(self, feats_list, beam_width=None,
-                                  pad_multiple=128, corpus="timit"):
+                                  pad_multiple=128, corpus="timit",
+                                  n_best=1):
         """Like transcribe_batch, with per-utterance scoring detail.
 
         Returns dicts {ids, text, score, avg_logp, confidence, frames,
-        times, token_confidences}: ``score`` is the best-path (Viterbi)
-        log-prob of the greedy alignment over the floor(len / in_len_div)
-        decoded frames, ``avg_logp`` normalizes it by those frames and
+        times, token_confidences}: ``score`` is the hypothesis log-score —
+        for beam decodes the merged-prefix CTC mass of the best beam (plus
+        the weighted LM when fusing), for greedy the best-path (Viterbi)
+        log-prob of the alignment over the floor(len / in_len_div) decoded
+        frames; ``avg_logp`` normalizes it by those frames and
         ``confidence`` is its exp; ``frames`` holds each symbol's emission
-        logit-frame (first frame of its run), ``times`` its start in seconds
-        (10 ms input frames x the subsampling) and ``token_confidences`` the
-        posterior of each symbol at its emission frame.
+        logit-frame (first frame of its run / frame it entered the beam
+        prefix), ``times`` its start in seconds (10 ms input frames x the
+        subsampling) and ``token_confidences`` the posterior of each symbol
+        at its emission frame. ``n_best`` > 1 (beam decodes only) adds that
+        many ranked hypotheses under "nbest" from the same beam scan.
         """
         if not feats_list:
             return []
-        if beam_width and beam_width > 1:
-            raise NotImplementedError(
-                "beam_width=%d: device beam: next slice of the PyTorch port; "
-                "use beam_width=1 (greedy)" % beam_width
-            )
         feats, lengths = self.pad(feats_list, pad_multiple)
         logits = self.forward(feats, lengths)
         dec_lens = np.maximum(lengths // self.in_len_div, 1)
+        nbest_lists = None
         with torch.inference_mode():
-            out, lens, emit = greedy_decode_frames(
-                logits, torch.as_tensor(dec_lens, device=self.device),
-                blank_id=self.blank_id,
-            )
             logp = torch.log_softmax(logits.float(), dim=-1)
-            frame_max = logp.max(dim=-1).values.cpu().numpy()
-        out, lens, emit = out.cpu().numpy(), lens.cpu().numpy(), emit.cpu().numpy()
-        decoded = [[int(x) for x in out[i, : int(lens[i])]]
-                   for i in range(len(feats_list))]
-        frames = [[int(x) for x in emit[i, : int(lens[i])]]
-                  for i in range(len(feats_list))]
-        # best-path (Viterbi) log-prob over the valid frames
-        pos = np.arange(frame_max.shape[1])[None, :]
-        scores = (frame_max * (pos < dec_lens[:, None])).sum(axis=-1)
+        if beam_width and beam_width > 1:
+            if n_best and n_best > 1:
+                # one scan serves both the top path and the n-best list
+                nbest_lists = ctc_beam_search_nbest(
+                    logits, dec_lens, beam_width, self.blank_id,
+                    lm=self.lm, top_paths=n_best,
+                )
+                results = [hyps[0] for hyps in nbest_lists]
+            else:
+                results = ctc_beam_search_batch(
+                    logits, dec_lens, beam_width, self.blank_id,
+                    lm=self.lm, with_frames=True,
+                )
+            decoded = [ids for ids, _, _ in results]
+            scores = [score for _, score, _ in results]
+            frames = [fr for _, _, fr in results]
+        else:
+            with torch.inference_mode():
+                out, lens, emit = greedy_decode_frames(
+                    logits, torch.as_tensor(dec_lens, device=self.device),
+                    blank_id=self.blank_id,
+                )
+                frame_max = logp.max(dim=-1).values.cpu().numpy()
+            out, lens = out.cpu().numpy(), lens.cpu().numpy()
+            emit = emit.cpu().numpy()
+            decoded = [[int(x) for x in out[i, : int(lens[i])]]
+                       for i in range(len(feats_list))]
+            frames = [[int(x) for x in emit[i, : int(lens[i])]]
+                      for i in range(len(feats_list))]
+            # best-path (Viterbi) log-prob over the valid frames
+            pos = np.arange(frame_max.shape[1])[None, :]
+            scores = (frame_max * (pos < dec_lens[:, None])).sum(axis=-1)
         # per-token confidence: logp at each token's (emission frame, symbol)
         max_tok = max((len(ids) for ids in decoded), default=0)
         tok_logp = None
@@ -175,6 +221,15 @@ class Recognizer:
                     for j in range(len(ids))
                 ],
             })
+            if nbest_lists is not None:
+                results[-1]["nbest"] = [
+                    {
+                        "ids": h_ids,
+                        "text": ids_to_utt(h_ids, raw_vocab, corpus),
+                        "score": float(h_score),
+                    }
+                    for h_ids, h_score, _ in nbest_lists[i]
+                ]
         return results
 
 

@@ -118,3 +118,19 @@ def make_valid_step(apply_fn, in_len_div):
         }
 
     return valid_step
+
+
+def make_logits_fn(apply_fn):
+    """Inference logits for decoding: ``logits_fn(state, batch)`` with a
+    numpy batch (``feats``, ``inp_len``) as ``EvalLoader`` yields it. The
+    features go to the state's device, the lengths stay on the host; the
+    float32 logits [B, T', K] stay on the device."""
+
+    def logits_fn(state, batch):
+        device = state.device
+        feats = torch.as_tensor(batch["feats"]).to(device, non_blocking=True)
+        inp_len = torch.as_tensor(batch["inp_len"])
+        with torch.inference_mode():
+            return apply_fn({"feats": feats, "inp_len": inp_len}, False)
+
+    return logits_fn

@@ -1,0 +1,184 @@
+"""Checkpoint save/restore/resume + checkpoint averaging (port of
+``srf_tpu/utils/checkpoint.py``; orbax becomes ``torch.save``).
+
+Reference parity (tfsr/helper/misc_helper.py:139-163,
+tfsr/utils/average_ckpt_sr.py:92-180):
+
+- per-epoch checkpoints managed with ``max_to_keep``
+  (``--model-ckpt-max-to-keep``, -1 = keep all),
+- resume from ``--path-ckpt-epoch`` N or the latest checkpoint; the epoch
+  offset is the checkpoint step,
+- checkpoint averaging: element-wise mean of the last ``model_average_num``
+  checkpoints' weights saved under ``$ckpt/avg``.
+
+Layout: one directory per step under the manager's path, as orbax lays
+them out (``<path>/<step>/state.pt``), so ``$ckpt/avg/1`` is what
+``--path-ckpt=$ckpt/avg`` reads. The state is ``{"step", "model" (the
+model's state_dict, BatchNorm buffers included), "optimizer",
+"scheduler"}``; a save writes a temporary directory and renames it, so a
+step directory is either whole or absent.
+"""
+
+import os
+import shutil
+
+import torch
+
+STATE_FILE = "state.pt"
+
+
+def _to_cpu(value):
+    if torch.is_tensor(value):
+        return value.detach().cpu()
+    if isinstance(value, dict):
+        return {k: _to_cpu(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_cpu(v) for v in value)
+    return value
+
+
+class CheckpointManager:
+    """Numbered checkpoints under one directory; saves are synchronous."""
+
+    def __init__(self, path, max_to_keep=None):
+        if max_to_keep is not None and max_to_keep < 0:
+            max_to_keep = None
+        self.path = os.path.abspath(path)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.path, exist_ok=True)
+
+    def _dir(self, step):
+        return os.path.join(self.path, str(int(step)))
+
+    def save(self, step, state_dict):
+        """Write ``state_dict`` (``{"step", "model", "optimizer",
+        "scheduler"}``, tensors moved to the CPU) as ``step``; then drop the
+        oldest steps beyond ``max_to_keep``."""
+        final = self._dir(step)
+        tmp = "%s.tmp-%d" % (final, os.getpid())
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(_to_cpu(state_dict), os.path.join(tmp, STATE_FILE))
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        if self.max_to_keep is not None:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(self._dir(old))
+        return final
+
+    def restore(self, step):
+        """The checkpoint dict saved as ``step`` (tensors on the CPU)."""
+        path = os.path.join(self._dir(step), STATE_FILE)
+        if not os.path.isfile(path):
+            raise FileNotFoundError("no checkpoint %s" % path)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def all_steps(self):
+        steps = []
+        for name in os.listdir(self.path):
+            if name.isdigit() and os.path.isfile(
+                    os.path.join(self.path, name, STATE_FILE)):
+                steps.append(int(name))
+        return sorted(steps)
+
+    def latest_step(self):
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def purge(self):
+        """Delete every checkpoint under this manager."""
+        for step in self.all_steps():
+            shutil.rmtree(self._dir(step))
+
+    def close(self):
+        """Nothing to release (saves are synchronous)."""
+
+
+def restore_into(state, tree, params_only=False):
+    """Load a checkpoint dict into a TrainState in place. The model's
+    ``load_state_dict`` is strict: a missing, extra or misshapen entry
+    (model flags that do not describe the trained architecture) raises.
+    ``params_only`` leaves the optimizer and scheduler as they are."""
+    state.model.load_state_dict(tree["model"])
+    state.step = int(tree["step"])
+    if not params_only:
+        if state.optimizer is not None and tree.get("optimizer") is not None:
+            state.optimizer.load_state_dict(tree["optimizer"])
+        if state.scheduler is not None and tree.get("scheduler") is not None:
+            state.scheduler.load_state_dict(tree["scheduler"])
+    return state
+
+
+def load_checkpoint(config, logger, template_state, params_only=False):
+    """Returns (manager, restored_state_or_None, epoch_offset).
+
+    ``template_state`` (a TrainState; its optimizer may be None when
+    ``params_only``) is restored in place from ``--path-ckpt-epoch`` when it
+    is positive, else from the latest step. ``params_only=True``
+    (decode/inference) loads the step and the model only, so decoding never
+    depends on the training-time optimizer flags."""
+    manager = CheckpointManager(
+        config.path_ckpt, max_to_keep=config.model_ckpt_max_to_keep,
+    )
+    step = None
+    if config.path_ckpt_epoch is not None and config.path_ckpt_epoch > 0:
+        step = config.path_ckpt_epoch
+    elif manager.latest_step() is not None:
+        step = manager.latest_step()
+
+    if step is None:
+        logger.info("Loaded ckpt: None")
+        return manager, None, 0
+    restored = restore_into(template_state, manager.restore(step),
+                            params_only=params_only)
+    logger.info("Loaded ckpt: %s/%d%s", manager.path, step,
+                " (params only)" if params_only else "")
+    return manager, restored, int(step)
+
+
+def average_checkpoints(ckpt_path, average_num, max_epoch=0, logger=None):
+    """Mean of the last ``average_num`` checkpoints' model states.
+
+    Every floating tensor of the model's state_dict (parameters and
+    BatchNorm running statistics, as JAX averages ``params`` and
+    ``batch_stats``) is summed in float64 and cast back to its dtype;
+    integer buffers (``num_batches_tracked``), the step, the optimizer and
+    the scheduler come from the last checkpoint. With ``max_epoch > 0``
+    only checkpoints with step <= max_epoch take part (reference:
+    average_ckpt_sr.py:92-96). Returns (averaged checkpoint dict, steps).
+    """
+    manager = CheckpointManager(ckpt_path)
+    steps = manager.all_steps()
+    if max_epoch and max_epoch > 0:
+        steps = [s for s in steps if s <= max_epoch]
+    steps = steps[-average_num:]
+    if not steps:
+        raise FileNotFoundError("no checkpoints under %s" % ckpt_path)
+    if logger:
+        logger.info("Averaging checkpoints: %s", steps)
+
+    acc = None
+    last = None
+    for step in steps:
+        tree = manager.restore(step)
+        model = tree["model"]
+        if acc is None:
+            acc = {k: v.to(torch.float64) for k, v in model.items()
+                   if v.is_floating_point()}
+        else:
+            if set(model) != set(last["model"]):
+                raise ValueError(
+                    "checkpoint %s/%d holds other tensors than step %d"
+                    % (ckpt_path, step, steps[0]))
+            for k in acc:
+                acc[k] += model[k].to(torch.float64)
+        last = tree
+    n = float(len(steps))
+    result = dict(last)
+    result["model"] = {
+        k: ((acc[k] / n).to(v.dtype) if k in acc else v)
+        for k, v in last["model"].items()
+    }
+    manager.close()
+    return result, steps

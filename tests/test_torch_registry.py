@@ -1,0 +1,98 @@
+"""``--tpu-routing-kernel`` in the port's registry against
+``srf_tpu.models.registry.build_model``: every value JAX builds the SRF for
+builds the port's SRF too, through its one SDR (``SDRFunction``: K1/K2 on
+CUDA, the plain loop on the CPU), with the same logits as the default;
+``wavefront`` (its own module, not ported yet) is refused with
+NotImplementedError; an unknown value raises ValueError in both; and
+``pallas``/``xla_flat`` with bf16 routing raise JAX's ValueError."""
+
+import numpy as np
+import pytest
+import torch
+
+from srf_tpu.models.registry import build_model as jax_build_model
+from srf_tpu_torch.config import Logger, ParseOption
+from srf_tpu_torch.models import registry
+from srf_tpu_torch.ops import routing
+
+torch.set_num_threads(1)
+
+KERNELS = ("auto", "xla", "xla_flat", "xla_pre", "xla_factored", "pallas",
+           "wavefront", "typo")
+FLAGS = [
+    "--feat-dim=8", "--model-encoder-num=3", "--model-caps-primary-num=4",
+    "--model-caps-primary-dim=4", "--model-caps-convolution-num=3",
+    "--model-caps-convolution-dim=4", "--model-caps-class-dim=4",
+    "--model-caps-type=naive", "--model-caps-context=True",
+    "--model-caps-iter=1", "--model-caps-window-lpad=1",
+    "--model-caps-window-rpad=1", "--model-conv-filter-num=4",
+]
+
+
+def _config(*extra):
+    logger = Logger(name="test_torch_registry", level=Logger.WARN).logger
+    return ParseOption(["registry", "--path-base=.", *FLAGS, *extra], logger,
+                       is_print_opts=False).args
+
+
+def _outcome(build, config):
+    try:
+        build(config, 9)
+    except (ValueError, NotImplementedError) as exc:
+        return type(exc)
+    return "built"
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_routing_kernel_values_match_jax(kernel):
+    config = _config("--tpu-routing-kernel=" + kernel)
+    want = _outcome(jax_build_model, config)
+    got = _outcome(registry.build_model, config)
+    if kernel == "wavefront":
+        assert (want, got) == ("built", NotImplementedError)
+    else:
+        assert got == want
+    if kernel == "typo":
+        with pytest.raises(ValueError, match="unknown --tpu-routing-kernel"):
+            registry.build_model(config, 9)
+
+
+@pytest.mark.parametrize("kernel", KERNELS[:6])
+def test_equal_function_values_route_through_sdr_function(kernel,
+                                                          monkeypatch):
+    calls = []
+    sdr = routing.SDRFunction
+
+    class Counted(sdr):
+        @staticmethod
+        def forward(ctx, *args):
+            calls.append(args[0].device.type)
+            return sdr.forward(ctx, *args)
+
+    monkeypatch.setattr(routing, "SDRFunction", Counted)
+    torch.manual_seed(0)
+    reference, _ = registry.build_model(_config(), 9)
+    model, div = registry.build_model(
+        _config("--tpu-routing-kernel=" + kernel), 9)
+    model.load_state_dict(reference.state_dict())
+    feats = torch.from_numpy(
+        np.random.RandomState(3).randn(2, 24, 8).astype(np.float32))
+    lengths = torch.tensor([24, 17])
+    with torch.inference_mode():
+        want = reference.eval()(feats, lengths)
+        calls.clear()
+        got = model.eval()(feats, lengths)
+    assert div == 4 and calls == ["cpu"] * 3
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["pallas", "xla_flat", "auto", "xla_pre"])
+def test_bf16_routing_refusals(kernel):
+    config = _config("--tpu-routing-kernel=" + kernel,
+                     "--tpu-routing-bf16=True")
+    if kernel in ("pallas", "xla_flat"):
+        with pytest.raises(ValueError, match="does not support bf16"):
+            registry.build_model(config, 9)
+    else:
+        with pytest.raises(NotImplementedError, match="routing-bf16"):
+            registry.build_model(config, 9)

@@ -3,7 +3,10 @@ Recognizer runs on the same padded batch: model.apply, greedy_decode_frames,
 the Viterbi score over floor(len/4) frames and the per-token posterior
 gather. Ids, frames and text must be equal; scores within atol 1e-4 (a sum
 of ~60 per-frame log-probs whose logits agree to ~3e-6) and the 4-decimal
-rounded confidences within 2e-4. Also the CLI, and the refusals."""
+rounded confidences within 2e-4. The beam branch (beam 20, n-best, a toy
+3-gram LM fused) is held to srf_tpu.serve.Recognizer itself, loaded from an
+orbax checkpoint of the same weights, with the same limits. Also the CLI,
+and the refusals."""
 
 import os
 import subprocess
@@ -16,14 +19,18 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from srf_tpu.config import ParseOption as JaxParseOption
 from srf_tpu.models.srf import SequenceRouter as FlaxSequenceRouter
 from srf_tpu.ops.ctc_decode import greedy_decode_frames
+from srf_tpu.serve import Recognizer as JaxRecognizer
 from srf_tpu.serve import _frame_max_logp, _token_logp_gather
+from srf_tpu.utils.checkpoint import CheckpointManager as JaxCheckpointManager
 from srf_tpu.utils.log2utt import ids_to_utt
 from srf_tpu_torch import convert
 from srf_tpu_torch.config import Logger, ParseOption
 from srf_tpu_torch.device import resolve_device
 from srf_tpu_torch.models.registry import build_model
+from srf_tpu_torch.ops.ngram_lm import train_ngram
 from srf_tpu_torch.serve import Recognizer, main
 
 from _torch_parity import random_flax_variables
@@ -135,6 +142,70 @@ def test_recognizer_matches_jax_serving_path(tmp_path, weights):
                                                   got[1]["text"])
 
 
+BEAM_WIDTH = 20
+
+
+@pytest.fixture(scope="module")
+def beam_recognizers(weights, tmp_path_factory):
+    """{with_lm: (JAX Recognizer, port Recognizer)} on the same weights:
+    the JAX one restores an orbax checkpoint of them, the port one takes
+    their state_dict; with_lm fuses a toy 3-gram (weight 0.5, bonus 0.5)."""
+    _, variables = weights
+    base = tmp_path_factory.mktemp("beam")
+    manager = JaxCheckpointManager(str(base / "ckpt"))
+    manager.save(1, {"step": np.asarray(1, np.int32),
+                     "params": variables["params"],
+                     "batch_stats": variables.get("batch_stats", {})})
+    manager.close()
+    rng = np.random.RandomState(9)
+    train_ngram([list(rng.randint(0, 62, size=12)) for _ in range(30)],
+                62, 3).save(str(base / "lm.npz"))
+    lm_flags = ("--tpu-lm-path=%s" % (base / "lm.npz"), "--tpu-lm-weight=0.5",
+                "--tpu-lm-bonus=0.5")
+    logger = Logger(name="test_torch_serve", level=Logger.WARN).logger
+    out = {}
+    for with_lm in (False, True):
+        argv = _argv(base, "--path-ckpt=%s" % (base / "ckpt"),
+                     *(lm_flags if with_lm else ()))
+        out[with_lm] = (
+            JaxRecognizer(JaxParseOption(argv, logger,
+                                         is_print_opts=False).args,
+                          logger=logger),
+            Recognizer(ParseOption(argv, logger, is_print_opts=False).args,
+                       state_dict=convert.flax_to_state_dict(variables),
+                       device="cpu", logger=logger))
+    return out
+
+
+@pytest.mark.parametrize("n_best", [1, 3])
+@pytest.mark.parametrize("with_lm", [False, True])
+def test_recognizer_beam_matches_jax_recognizer(beam_recognizers, with_lm,
+                                                n_best):
+    jax_recognizer, recognizer = beam_recognizers[with_lm]
+    assert (recognizer.lm is None) == (not with_lm)
+    want = jax_recognizer.transcribe_batch_detailed(
+        _feats(), beam_width=BEAM_WIDTH, n_best=n_best)
+    got = recognizer.transcribe_batch_detailed(
+        _feats(), beam_width=BEAM_WIDTH, n_best=n_best)
+    assert sum(len(w["ids"]) for w in want) > 0
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in ("ids", "text", "frames", "times"):
+            assert g[key] == w[key], key
+        for key in ("score", "avg_logp", "confidence"):
+            np.testing.assert_allclose(g[key], w[key], atol=1e-4, err_msg=key)
+        np.testing.assert_allclose(g["token_confidences"],
+                                   w["token_confidences"], atol=2e-4)
+        if n_best > 1:
+            assert [h["ids"] for h in g["nbest"]] == \
+                [h["ids"] for h in w["nbest"]]
+            assert [h["text"] for h in g["nbest"]] == \
+                [h["text"] for h in w["nbest"]]
+            np.testing.assert_allclose([h["score"] for h in g["nbest"]],
+                                       [h["score"] for h in w["nbest"]],
+                                       atol=1e-4)
+
+
 def test_cli_prints_the_same_text(tmp_path, weights):
     _, variables = weights
     state = convert.flax_to_state_dict(variables)
@@ -153,12 +224,15 @@ def test_cli_prints_the_same_text(tmp_path, weights):
     assert proc.stdout.strip() == "%s (%s)" % (want, tmp_path / "x.npy")
 
 
-def test_beam_search_is_refused(tmp_path, weights):
+def test_approximate_top_k_is_refused(tmp_path, weights, monkeypatch):
+    """TPU's approximate top-k (SRF_BEAM_TOPK=approx) is refused by the
+    Recognizer's beam, never ignored."""
     _, variables = weights
     recognizer = Recognizer(_config(tmp_path),
                             state_dict=convert.flax_to_state_dict(variables),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="device beam"):
+    monkeypatch.setenv("SRF_BEAM_TOPK", "approx")
+    with pytest.raises(NotImplementedError, match="approx_max_k"):
         recognizer.transcribe_batch(_feats(), beam_width=100)
 
 
@@ -191,8 +265,7 @@ def test_unported_cli_modes_are_refused(tmp_path, flag):
 
 
 @pytest.mark.parametrize("flag", [
-    "--tpu-serve-quant=int8", "--tpu-routing-kernel=pallas",
-    "--model-type=stf", "--tpu-routing-bf16=True",
+    "--tpu-serve-quant=int8", "--model-type=stf", "--tpu-routing-bf16=True",
 ])
 def test_unported_options_are_refused(tmp_path, flag):
     config = _config(tmp_path, flag)
