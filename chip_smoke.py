@@ -17,7 +17,9 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    shapes (B=29, T'=64: 29 x 241 frames padded to 256; B=8, T'=128), at
    the unpadded bucket (T'=61), at an odd B/T with 2 routing iterations
    and the PAD mask flipped, and at the decode phase's other shapes
-   (B=1, T'=64/96/128; B=8, T'=96), K3 at time blocks 8, 1 and 5 (5 divides
+   (B=1, T'=64/96/128; B=8, T'=96) and the recipe's other four training
+   buckets in phase 7b (B=17, T'=98; B=12, T'=136; B=10, T'=173; B=8,
+   T'=211), K3 at time blocks 8, 1 and 5 (5 divides
    neither 61 nor 64); K1 alone at EXTRA_LAYERS: the WSJ recipe's layer 0
    (300, 30, 20, 20) and (40, 5, 3, 4), its general path, at B=3, T'=17
    with 1 and 2 iterations, a W[n] taken in tiles and partial sums in
@@ -102,6 +104,36 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    audio-seconds/s, the device time of a forward and of a backward, and a
    profile of one step (K1 and K2 device ms, their kernels apart, idle
    share);
+7b. the SRF-TIMIT recipe's training stage and what follows it
+   (train_srf_timit.sh, stages 0-4) through the port's CLIs at full
+   width: synthetic fbank-123 npy features and JSON manifests (256 train
+   utterances of 150-778 frames filling each of the 5 TIMIT buckets at
+   least twice an epoch, 80 valid, phase 6c's 24 test; labels 1..61,
+   tar_len = max(2, len // 8)) written to TFRecords by
+   tools.save_tfrecord; trainer_sr.main with the recipe's flags at k 0.5
+   for 2 epochs, then at k 0.1 to epoch 4 on the same checkpoint
+   directory: it must resume at epoch offset 2 with its first update at
+   noam(0.1, 1, 1200) of the restored count, save checkpoints 1-4 and 4
+   train and 4 valid records in metrics.jsonl, with finite losses; every
+   train step launches K1 14 and K2 28 times and every valid batch K1 14
+   (trainer_sr's step factories wrapped in this script); then per bucket
+   the first step (cuDNN's search) and the median step (CUDA events
+   around each call), the epochs' wall, SRF_LOOP_TIMING's split, the idle
+   share of the profiled epoch 3 (--tpu-profile-dir) and the CLI's step at
+   29 x 241 beside phase 7's; stage 2 again in a subprocess on a copy of
+   stage 1's checkpoints with --tpu-ckpt-every-steps=3 and
+   --tpu-fault-at-step in the middle of epoch 3 must exit 42, and a rerun
+   must resume mid-epoch and end within RESUME_REL of the uninterrupted
+   run's epoch-4 weights (relative to how far stage 2 moved them), while
+   the same rerun resumed one batch late (a planted fault) must not; every
+   (B, T') of the recipe's train and valid steps must be among the shapes
+   phases 3-4 held K1-K4 to their plain versions at;
+   tools.average_ckpt, trainer_sr decode (device beam, batch 8, beam 100),
+   utils.log2utt and utils.score give all 24 utterances; finally one
+   epoch with --model-caps-iter=2 (finite losses; its backward is
+   autograd through the plain loop, counted in plain_backwards, K2 0
+   launches) and one dropout-free ITER=2 step on the card against the
+   CPU, held as in 7;
 8. the CNN serving path: a Recognizer at the CNN-TIMIT recipe's width
    (egs/script/train_cnn_timit.sh: maxpool maxout CNN, L=10, filters
    128/256, 3 x 1024 projections, time stride 1, --tpu-dropout-kernel=
@@ -189,10 +221,14 @@ TRAIN_CHECK_BATCH = 8
 # (29 x 241 frames padded to 256, and B=8 T'=128), the unpadded training
 # bucket, and an odd B/T (K2 and K4 take one iteration); the decode
 # phase's other shapes (batch 1 at widths 256/384/512, batch 8 at 384);
-# and K3's and K4's time blocks, 5 dividing neither 61 nor 64
+# the recipe's other four training buckets (phase 7b: 17 x 391, 12 x 541,
+# 10 x 691 and 8 x 841 frames, T' = ceil(ceil(T / 2) / 2) after the front
+# end's two stride-2 convs), where it trains and validates; and K3's and
+# K4's time blocks, 5 dividing neither 61 nor 64
 SDR_SHAPES = ((29, 64, 1, False), (8, 128, 1, False), (29, 61, 1, False),
               (7, 17, 2, True), (1, 64, 1, False), (1, 96, 1, False),
-              (1, 128, 1, False), (8, 96, 1, False))
+              (1, 128, 1, False), (8, 96, 1, False), (17, 98, 1, False),
+              (12, 136, 1, False), (10, 173, 1, False), (8, 211, 1, False))
 SCAN_TIME_BLOCKS = (8, 1, 5)
 # (name, (in_n, out_n, out_d, in_d), PAD mask, layers per forward)
 TIMIT_LAYERS = [
@@ -1124,33 +1160,39 @@ CHECK_UTTS = 8
 TIMING_PASSES = 2
 
 
-def write_test_split(base):
+def test_split_data():
     """DECODE_UTTS utterances of DECODE_FRAMES frames (fbank-123 features,
-    labels 1..61, utt ids) as the JAX writer lays them out (data/writer.py),
-    written by the port's writer into DECODE_SHARDS shards; returns
-    {utt id: (features, labels)}."""
-    from srf_tpu_torch.data.example_proto import encode_example
-    from srf_tpu_torch.data.tfrecord import TFRecordWriter
-
+    labels 1..61) from a seed: {utt id: (features, labels)}."""
     rng = np.random.RandomState(SEED + 7)
-    os.makedirs(os.path.join(base, "tfrecord"))
-    writers = [TFRecordWriter(os.path.join(
-        base, "tfrecord", "synth-test-None-123-%d-of-%d" % (s, DECODE_SHARDS)))
-        for s in range(DECODE_SHARDS)]
     split = {}
     for i in range(DECODE_UTTS):
         n = int(rng.randint(DECODE_FRAMES[0], DECODE_FRAMES[1] + 1))
         feats = rng.randn(n, 123).astype(np.float32)
         labels = rng.randint(1, 62, size=max(2, n // 8)).astype(np.int64)
-        utt = "synth%02d" % i
+        split["synth%02d" % i] = (feats, labels)
+    return split
+
+
+def write_test_split(base):
+    """``test_split_data`` as the JAX writer lays it out (data/writer.py),
+    written by the port's writer into DECODE_SHARDS shards with utt ids;
+    returns {utt id: (features, labels)}."""
+    from srf_tpu_torch.data.example_proto import encode_example
+    from srf_tpu_torch.data.tfrecord import TFRecordWriter
+
+    os.makedirs(os.path.join(base, "tfrecord"))
+    writers = [TFRecordWriter(os.path.join(
+        base, "tfrecord", "synth-test-None-123-%d-of-%d" % (s, DECODE_SHARDS)))
+        for s in range(DECODE_SHARDS)]
+    split = test_split_data()
+    for i, (utt, (feats, labels)) in enumerate(split.items()):
         writers[i % DECODE_SHARDS].write(encode_example({
             "target_label": labels,
             "input_speech": feats.flatten(),
-            "input_length": np.asarray([n], np.int64),
+            "input_length": np.asarray([feats.shape[0]], np.int64),
             "target_length": np.asarray([labels.size], np.int64),
             "utt_id": [utt.encode()],
         }))
-        split[utt] = (feats, labels)
     for writer in writers:
         writer.close()
     return split
@@ -1661,7 +1703,7 @@ def all_on_card(train_state, metrics):
 
 def train_phase(torch, card, state):
     """Phase 7: train the canonical model on the card; returns the K1 and
-    K2 launches of the TRAIN_STEPS-step run."""
+    K2 launches of the TRAIN_STEPS-step run, and its median ms a step."""
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.ops.ctc import ctc_loss_from_frames
     from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
@@ -1744,7 +1786,565 @@ def train_phase(torch, card, state):
              kernels["K2 step"], kernels["K2 wgrad"], kernels["K2 reduce"],
              count, total, busy, wall, 1.0 - busy / wall, card))
     torch.cuda.synchronize()
-    return launches
+    return launches, med
+
+
+# the recipe's training stage (7b): train_srf_timit.sh's stages 0-4 through
+# the port's CLIs on synthetic fbank-123 utterances. Utterances per TIMIT
+# bucket (<= 241, 391, 541, 691, 841 frames; bucket batches 29/17/12/10/8
+# at the 7000-frame budget): train fills each bucket at least twice an
+# epoch (2 + 3 + 4 + 4 + 4 = 17 steps), valid fills buckets 0-2 once (3
+# batches); the test split is phase 6c's 24 utterances
+RECIPE_BUCKET_FRAMES = ((150, 241), (242, 391), (392, 541), (542, 691),
+                        (692, 778))
+RECIPE_TRAIN_UTTS = (70, 60, 48, 40, 38)
+RECIPE_VALID_UTTS = (35, 20, 13, 6, 6)
+RECIPE_BATCHES = (29, 17, 12, 10, 8)
+RECIPE_E1, RECIPE_E2 = 2, 4  # the stages' epoch budgets (E1, E2)
+RECIPE_MID_EVERY = 3
+# a resumed run's weights against the uninterrupted run's: within this
+# share of how far stage 2 moved them. cuDNN's and the CTC loss's backward
+# are not bitwise deterministic on the card: sound resumes read 1.7e-05 on
+# an H100. A planted fault, the same rerun resumed one batch late (its
+# resume record's batch index raised by one), must read more than this, and
+# the phase checks that it does
+RESUME_REL = 1e-3
+
+
+def recipe_corpus(base, vocab):
+    """Writes the three splits as npy features and JSON manifests (the
+    recipe's input to save_tfrecord) under ``base``; returns {split:
+    {utt id: (features, labels)}}."""
+    rng = np.random.RandomState(SEED + 20)
+    splits = {"train": {}, "valid": {}, "test": test_split_data()}
+    for split, counts in (("train", RECIPE_TRAIN_UTTS),
+                          ("valid", RECIPE_VALID_UTTS)):
+        for (low, high), count in zip(RECIPE_BUCKET_FRAMES, counts):
+            for _ in range(count):
+                n = int(rng.randint(low, high + 1))
+                labels = rng.randint(1, 62, size=max(2, n // 8))
+                splits[split]["%s%03d" % (split, len(splits[split]))] = (
+                    rng.randn(n, 123).astype(np.float32), labels)
+    for split, utts in splits.items():
+        os.makedirs(os.path.join(base, split))
+        with open(os.path.join(base, split + ".json"), "w") as manifest:
+            for utt, (feats, labels) in utts.items():
+                key = "%s/%s.npy" % (split, utt)
+                np.save(os.path.join(base, key), feats)
+                manifest.write(json.dumps({
+                    "key": key, "duration": feats.shape[0] / 100.0,
+                    "text": " ".join(vocab[i] for i in labels)}) + "\n")
+    return splits
+
+
+def recipe_argv(base, ckpt, *extra):
+    """The recipe's trainer flags (train_srf_timit.sh:38-59 with
+    timit.conf) on the synthetic splits."""
+    return ["trainer_sr",
+            "--config=%s" % os.path.join(REPO, "egs", "conf", "timit.conf"),
+            "--path-base=%s" % base,
+            "--path-vocab=%s" % os.path.join(REPO, "egs", "data",
+                                             "timit_62.vocab"),
+            "--path-ckpt=%s" % ckpt, "--train-batch-frame=7000",
+            "--train-warmup-n=1200", "--feat-type=None",
+            "--path-train-ptrn=tfrecord/synth-train-None-123-*-of-*",
+            "--path-valid-ptrn=tfrecord/synth-valid-None-123-*-of-*",
+            "--path-test-ptrn=tfrecord/synth-test-None-123-*-of-*",
+            "--prep-data-num-train=%d" % sum(RECIPE_TRAIN_UTTS),
+            "--prep-data-num-valid=%d" % sum(RECIPE_VALID_UTTS),
+            "--prep-data-num-test=%d" % DECODE_UTTS, "--device=cuda",
+            *[f for f in TIMIT_FLAGS if not f.startswith("--decoding-beam")],
+            *extra]
+
+
+def stage_argv(base, ckpt, k, epochs, *extra):
+    """One of the recipe's training runs: ``run trainer_sr K TOLERANCE
+    ... MAX_EPOCH`` with the tolerance equal to the epoch budget
+    (train_srf_timit.sh:65-66)."""
+    return recipe_argv(base, ckpt, "--train-lr-param-k=%s" % k,
+                       "--train-es-tolerance=%d" % epochs,
+                       "--train-max-epoch=%d" % epochs, *extra)
+
+
+class StepRecorder:
+    """Wraps trainer_sr's train and valid steps (in this script, not in the
+    package): checks each call's K1/K2 launches and times it with CUDA
+    events around the call (no synchronize inside the run, so the loop's
+    pipelining is kept; an event pair spans the call's device work and any
+    wait of the card for the host), except the first call at each shape,
+    which cuDNN's algorithm search makes slow: that one is host-clocked
+    between two synchronizes."""
+
+    def __init__(self, torch):
+        from srf_tpu_torch import trainer_sr
+        from srf_tpu_torch.ops import routing_cuda
+
+        self.torch, self.trainer_sr, self.routing = torch, trainer_sr, \
+            routing_cuda
+        self.steps, self.firsts, self.valid_batches = [], {}, 0
+        self.make_train, self.make_valid = (trainer_sr.make_train_step,
+                                            trainer_sr.make_valid_step)
+        self.seen, self.valid_shapes = set(), set()
+
+    def counts(self):
+        return (self.routing.sequential_routing_cuda.launches,
+                self.routing.sequential_routing_bwd_cuda.launches)
+
+    def __enter__(self):
+        torch, recorder = self.torch, self
+
+        def make_train_step(*args, **kwargs):
+            step = recorder.make_train(*args, **kwargs)
+
+            def train_step(state, batch, seed):
+                shape = tuple(batch["feats"].shape[:2])
+                before, first = recorder.counts(), shape not in recorder.seen
+                if first:
+                    recorder.seen.add(shape)
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                else:
+                    events = [torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)]
+                    events[0].record()
+                out = step(state, batch, seed)
+                after = recorder.counts()
+                if first:
+                    torch.cuda.synchronize()
+                    recorder.firsts[shape] = 1e3 * (time.perf_counter()
+                                                    - start)
+                else:
+                    events[1].record()
+                    recorder.steps.append((shape, state.step, events))
+                check(after[0] - before[0] == 7 * K1_LAUNCHES
+                      and after[1] - before[1] == 7 * K2_LAUNCHES,
+                      "trainer_sr train step at %s launched K1 %d and K2 %d "
+                      "times, expected %d and %d" % (
+                          shape, after[0] - before[0], after[1] - before[1],
+                          7 * K1_LAUNCHES, 7 * K2_LAUNCHES))
+                return out
+
+            return train_step
+
+        def make_valid_step(*args, **kwargs):
+            step = recorder.make_valid(*args, **kwargs)
+
+            def valid_step(state, batch):
+                before = recorder.counts()
+                out = step(state, batch)
+                after = recorder.counts()
+                check(after[0] - before[0] == 7 * K1_LAUNCHES
+                      and after[1] == before[1],
+                      "trainer_sr valid batch launched K1 %d and K2 %d "
+                      "times, expected %d and 0" % (
+                          after[0] - before[0], after[1] - before[1],
+                          7 * K1_LAUNCHES))
+                recorder.valid_batches += 1
+                recorder.valid_shapes.add(tuple(batch["feats"].shape[:2]))
+                return out
+
+            return valid_step
+
+        self.trainer_sr.make_train_step = make_train_step
+        self.trainer_sr.make_valid_step = make_valid_step
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer_sr.make_train_step = self.make_train
+        self.trainer_sr.make_valid_step = self.make_valid
+
+    def step_ms(self, epochs, per_epoch):
+        """{(B, T): [ms, ...]} of the timed steps of ``epochs`` (1-based)."""
+        self.torch.cuda.synchronize()
+        out = {}
+        for shape, step, (start, end) in self.steps:
+            if (step - 1) // per_epoch + 1 in epochs:
+                out.setdefault(shape, []).append(start.elapsed_time(end))
+        return out
+
+
+class LogLines:
+    """Collects the trainer's log lines that hold any of ``needles``."""
+
+    def __init__(self, *needles):
+        import logging
+
+        self.needles, self.lines = needles, []
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+        self.logger = logging.getLogger("srf_tpu_torch")
+
+    def _emit(self, record):
+        message = record.getMessage()
+        if any(needle in message for needle in self.needles):
+            self.lines.append(message)
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def trace_idle_share(path):
+    """(device busy ms, wall ms) of a Chrome trace that
+    utils/profiler.trace wrote: the union of the device's kernel, copy
+    and set intervals against the span of every event."""
+    with open(path) as trace:
+        events = [e for e in json.load(trace)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy",
+                                        "gpu_memset"))
+    busy, last_end = 0.0, None
+    for start, end in device:
+        if last_end is not None and start < last_end:
+            start = last_end
+        if end > start:
+            busy += end - start
+            last_end = end
+    wall = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events))
+    return busy / 1e3, wall / 1e3
+
+
+def ckpt_weights(path, step):
+    from srf_tpu_torch.utils import checkpoint
+
+    return checkpoint.CheckpointManager(path).restore(step)
+
+
+def recipe_train_phase(torch, card, state, direct_ms):
+    """Phase 7b: the SRF-TIMIT recipe's stages 0-4 through the port's CLIs
+    at full width (see the module docstring). ``direct_ms`` is phase 7's
+    median step at 29 x 241. Returns the K1 and K2 launches of stages 1-4
+    and the multi-iteration epoch."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from srf_tpu_torch import trainer_sr
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops.routing_cuda import (
+        SDRFunction, sequential_routing_bwd_cuda, sequential_routing_cuda)
+    from srf_tpu_torch.tools import average_ckpt, save_tfrecord
+    from srf_tpu_torch.train.optimizer import noam_schedule
+    from srf_tpu_torch.utils import checkpoint, log2utt, score
+    from srf_tpu_torch.utils.vocab import load_vocab
+
+    phase_start = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    vocab_path = os.path.join(REPO, "egs", "data", "timit_62.vocab")
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    vocab = load_vocab(vocab_path, logger)[0]
+    ckpt = os.path.join(base, "ckpt")
+    saved_env = os.environ.get("SRF_LOOP_TIMING")
+    os.environ["SRF_LOOP_TIMING"] = "1"
+    try:
+        # stage 0: npy + JSON -> TFRecords (save_tfr_timit.sh's flags)
+        start = time.perf_counter()
+        splits = recipe_corpus(base, vocab)
+        save_tfrecord.main([
+            "save_tfrecord", "--path-base=%s" % base,
+            "--path-vocab=%s" % vocab_path, "--prep-data-shard=10",
+            "--prep-data-name=synth", "--prep-data-unit=word",
+            "--feat-type=None", "--feat-dim=123",
+            "--path-train-json=train.json", "--path-valid-json=valid.json",
+            "--path-test-json=test.json", "--path-wrt-tfrecord=tfrecord",
+            "--decoding-from-npy=True"])
+        shards = sorted(os.listdir(os.path.join(base, "tfrecord")))
+        check(len(shards) == 12, "stage 0 wrote %s" % shards)
+        print("recipe stage 0 (save_tfrecord): %d train, %d valid, %d test "
+              "utterances into %d shards, %.1f s"
+              % (len(splits["train"]), len(splits["valid"]),
+                 len(splits["test"]), len(shards),
+                 time.perf_counter() - start))
+
+        # stage 1: two LR stages on one checkpoint directory, counted from 0
+        sequential_routing_cuda.launches = 0
+        sequential_routing_bwd_cuda.launches = 0
+        plain_before = SDRFunction.plain_backwards
+        first_rates = []
+
+        def first_rate(optimizer, args, kwargs):
+            if not first_rates:
+                first_rates.append(optimizer.param_groups[0]["lr"])
+
+        with StepRecorder(torch) as recorder, LogLines(
+                "Loop timing", "Loaded ckpt", "Resuming") as log:
+            walls = []
+            for k, epochs, extra in (
+                    (0.5, RECIPE_E1, ()),
+                    (0.1, RECIPE_E2, ("--tpu-profile-dir=%s"
+                                      % os.path.join(base, "profile"),))):
+                if epochs == RECIPE_E2:
+                    # a copy of stage 1's checkpoints for the preemption run
+                    shutil.copytree(ckpt, os.path.join(base, "ckpt_cut"))
+                    hook = register_optimizer_step_pre_hook(first_rate)
+                start = time.perf_counter()
+                try:
+                    trainer_sr.main(stage_argv(base, ckpt, k, epochs, *extra))
+                finally:
+                    if epochs == RECIPE_E2:
+                        hook.remove()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - start)
+        train_k1 = sequential_routing_cuda.launches
+        train_k2 = sequential_routing_bwd_cuda.launches
+        check(SDRFunction.plain_backwards == plain_before,
+              "stage 1 took the plain SDR backward")
+
+        manager = checkpoint.CheckpointManager(ckpt)
+        check(manager.all_steps() == [1, 2, 3, 4],
+              "stage 1 saved checkpoints %s" % manager.all_steps())
+        per_epoch = int(manager.restore(1)["step"])
+        check(per_epoch == sum(b // s for b, s in zip(RECIPE_TRAIN_UTTS,
+                                                      RECIPE_BATCHES)),
+              "an epoch took %d steps" % per_epoch)
+        with open(os.path.join(ckpt, "metrics.jsonl")) as lines:
+            records = [json.loads(line) for line in lines]
+        kinds = [r["kind"] for r in records]
+        check(kinds.count("train_epoch") == 4
+              and kinds.count("valid_epoch") == 4,
+              "metrics.jsonl holds %s" % kinds)
+        check([r["epoch"] for r in records if r["kind"] == "train_epoch"]
+              == [1, 2, 3, 4], "stage 2 did not resume at epoch offset 2")
+        check(any("Loaded ckpt: %s/2" % ckpt in line for line in log.lines),
+              "stage 2 did not load checkpoint 2")
+        check(all(np.isfinite(r["loss"]) for r in records),
+              "a non-finite epoch loss: %s" % records)
+        restored = 2 * per_epoch
+        want_rate = noam_schedule(0.1, 1, 1200)(restored)
+        check(first_rates and first_rates[0] == want_rate,
+              "stage 2's first update ran at rate %r, not noam(0.1, 1, "
+              "1200)(%d) = %r" % (first_rates[:1], restored, want_rate))
+        steps = 4 * per_epoch
+        valid_batches = 4 * sum(v // s for v, s in zip(RECIPE_VALID_UTTS,
+                                                       RECIPE_BATCHES))
+        check(recorder.valid_batches == valid_batches
+              and train_k1 == 7 * K1_LAUNCHES * (steps + valid_batches)
+              and train_k2 == 7 * K2_LAUNCHES * steps,
+              "stage 1: K1 %d, K2 %d launches over %d steps and %d valid "
+              "batches" % (train_k1, train_k2, steps,
+                           recorder.valid_batches))
+        # every (B, T') the recipe routed at was held to the plain versions
+        # in phases 3-4
+        held_at = {(b, t) for b, t, _, _ in SDR_SHAPES}
+        routed = {(b, -(-(-(-t // 2)) // 2)): (b, t)
+                  for b, t in recorder.seen | recorder.valid_shapes}
+        check(set(routed) <= held_at,
+              "the recipe routed at (B, T') %s (frames %s), which phases 3-4 "
+              "do not check" % (sorted(set(routed) - held_at),
+                                [routed[k] for k in sorted(set(routed)
+                                                           - held_at)]))
+        for r in records:
+            print("recipe stage 1 epoch %d %s loss %.4f, %.3f s%s"
+                  % (r["epoch"], r["kind"].split("_")[0], r["loss"],
+                     r["secs"], " (%d steps)" % per_epoch
+                     if r["kind"] == "train_epoch" else ""))
+        print("recipe stage 1: k 0.5 for %d epochs, %.1f s; k 0.1 resumed at "
+              "epoch offset 2 for %d more, %.1f s; stage 2's first update at "
+              "rate %.6e = noam(0.1, 1, 1200)(%d); K1 %d launches (%d per "
+              "step and per valid batch), K2 %d (%d per step) over %d steps "
+              "and %d valid batches; 0 plain backwards [%s]"
+              % (RECIPE_E1, walls[0], RECIPE_E2 - RECIPE_E1, walls[1],
+                 first_rates[0], restored, train_k1, 7 * K1_LAUNCHES,
+                 train_k2, 7 * K2_LAUNCHES, steps, valid_batches, card))
+        for line in log.lines:
+            if "Loop timing" in line:
+                print("recipe stage 1 SRF_LOOP_TIMING: %s [%s]" % (line,
+                                                                   card))
+        firsts = sorted(recorder.firsts.items(), key=lambda kv: kv[0][1])
+        print("recipe stage 1 first step per bucket (B x T), ms (cuDNN's "
+              "search included, host clock): %s [%s]"
+              % (", ".join("%dx%d %.1f" % (*shape, ms)
+                           for shape, ms in firsts), card))
+        # steady steps: stage 1's second epoch and stage 2's second epoch
+        # (stage 2's first is under the profiler)
+        timed = recorder.step_ms((2, 4), per_epoch)
+        medians = {shape: float(np.median(ms)) for shape, ms in timed.items()}
+        print("recipe stage 1 ms a step per bucket (median over epochs 2 "
+              "and 4, CUDA events around each call): %s [%s]"
+              % (", ".join("%dx%d %.3f (%d steps)" % (*shape, medians[shape],
+                                                      len(timed[shape]))
+                           for shape in sorted(medians, key=lambda s: s[1])),
+                 card))
+        check(len(medians) == 5, "steps were timed at %s" % sorted(medians))
+        print("recipe stage 1 CLI step at 29 x 241: %.3f ms (median) "
+              "against phase 7's direct step %.3f ms [%s]"
+              % (medians[(29, 241)], direct_ms, card))
+        traces = os.listdir(os.path.join(base, "profile"))
+        check(len(traces) == 1, "profile dir holds %s" % traces)
+        busy, wall = trace_idle_share(os.path.join(base, "profile",
+                                                   traces[0]))
+        print("recipe stage 1 profiled epoch 3 (torch.profiler, %d steps "
+              "and the loop): device busy %.1f of %.1f ms wall, idle share "
+              "%.3f [%s]" % (per_epoch, busy, wall, 1.0 - busy / wall, card))
+
+        # preemption: stage 2 again on the copy, killed mid epoch 3
+        fault_at = restored + per_epoch // 2
+        cut = os.path.join(base, "ckpt_cut")
+        argv = stage_argv(base, cut, 0.1, RECIPE_E2,
+                          "--tpu-ckpt-every-steps=%d" % RECIPE_MID_EVERY)
+        env = dict(os.environ, PYTHONPATH=REPO)
+        env.pop("SRF_LOOP_TIMING")
+        late = os.path.join(base, "ckpt_late")
+        runs = []
+        for extra in (("--tpu-fault-at-step=%d" % fault_at,), ()):
+            if not extra:
+                # the killed run's checkpoints, for the planted fault below
+                shutil.copytree(cut, late)
+            start = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "srf_tpu_torch.trainer_sr",
+                 *argv[1:], *extra], cwd=REPO, env=env, capture_output=True,
+                text=True, timeout=600)
+            runs.append((proc, time.perf_counter() - start))
+        (killed, killed_s), (resumed, resumed_s) = runs
+        check(killed.returncode == 42, "the preempted run exited %d: %s"
+              % (killed.returncode, killed.stderr[-2000:]))
+        check(resumed.returncode == 0 and "Resuming mid-epoch"
+              in resumed.stderr, "the rerun exited %d without resuming "
+              "mid-epoch: %s" % (resumed.returncode, resumed.stderr[-2000:]))
+        mid = (fault_at - restored) // RECIPE_MID_EVERY * RECIPE_MID_EVERY
+        check("epoch 2, batch %d" % mid in resumed.stderr,
+              "the rerun did not resume at epoch 3's batch %d" % mid)
+        before = ckpt_weights(ckpt, 2)["model"]
+        whole, cut_model = (ckpt_weights(path, 4)["model"]
+                            for path in (ckpt, cut))
+        moved = max((whole[k] - before[k]).abs().max().item()
+                    for k in whole if whole[k].is_floating_point())
+        diff = max((whole[k] - cut_model[k]).abs().max().item()
+                   for k in whole if whole[k].is_floating_point())
+        print("recipe preemption: stage 2 on a copy, --tpu-fault-at-step=%d "
+              "(epoch 3, batch %d) exited 42 after %.1f s; the rerun resumed "
+              "from the mid checkpoint after batch %d and finished in %.1f s; "
+              "epoch-4 weights max |resumed - uninterrupted| %.3e, stage 2 "
+              "moved them by up to %.3e (ratio %.2e, limit %.0e)"
+              % (fault_at, fault_at - restored, killed_s, mid, resumed_s,
+                 diff, moved, diff / moved, RESUME_REL))
+        check(diff <= RESUME_REL * moved,
+              "the resumed run's weights are %.3e from the uninterrupted "
+              "run's" % diff)
+        # the planted fault: the same rerun, resumed one batch late, must
+        # fail the check above
+        mid_mgr = checkpoint.CheckpointManager(os.path.join(late, "mid"))
+        tree = mid_mgr.restore(mid_mgr.latest_step())
+        tree["resume"]["batch_index"] += 1
+        mid_mgr.save(mid_mgr.latest_step(), tree)
+        start = time.perf_counter()
+        with LogLines("Resuming mid-epoch") as log:
+            trainer_sr.main(stage_argv(
+                base, late, 0.1, RECIPE_E2,
+                "--tpu-ckpt-every-steps=%d" % RECIPE_MID_EVERY))
+        check(any("epoch 2, batch %d" % (mid + 1) in line
+                  for line in log.lines),
+              "the planted rerun did not resume at epoch 3's batch %d: %s"
+              % (mid + 1, log.lines))
+        late_model = ckpt_weights(late, 4)["model"]
+        diff_late = max((whole[k] - late_model[k]).abs().max().item()
+                        for k in whole if whole[k].is_floating_point())
+        print("recipe preemption, planted fault: the rerun resumed one batch "
+              "late (batch %d) and finished in %.1f s; epoch-4 weights max "
+              "|late - uninterrupted| %.3e (ratio %.2e, limit %.0e)"
+              % (mid + 1, time.perf_counter() - start, diff_late,
+                 diff_late / moved, RESUME_REL))
+        check(diff_late > RESUME_REL * moved,
+              "a rerun resumed one batch late is only %.3e from the "
+              "uninterrupted run's weights: the resume check cannot see it"
+              % diff_late)
+
+        # stages 2-4: average, decode (device beam, batch 8, beam 100),
+        # log2utt, score
+        sequential_routing_cuda.launches = 0
+        start = time.perf_counter()
+        average_ckpt.main(recipe_argv(base, ckpt))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            trainer_sr.main(recipe_argv(
+                base, os.path.join(ckpt, "avg"), "--train-max-epoch=0",
+                "--decoding-beam-width=%d" % DECODE_BEAM,
+                "--tpu-decode-batch=%d" % DECODE_BATCH,
+                "--tpu-decode-pad-last=True"))
+        decode_k1 = sequential_routing_cuda.launches
+        log_path = os.path.join(base, "decode.log")
+        with open(log_path, "w") as decode_log:
+            decode_log.write(out.getvalue())
+        hyps = dict(log2utt.parse_decode_log(out.getvalue().splitlines()))
+        check(sorted(hyps) == sorted(splits["test"]),
+              "the decode gave %d of %d utterances" % (len(hyps),
+                                                      len(splits["test"])))
+        batches = -(-len(hyps) // DECODE_BATCH)
+        check(decode_k1 == batches * 7 * K1_LAUNCHES,
+              "decode: K1 launched %d times over %d batches" % (decode_k1,
+                                                                batches))
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            log2utt.main([log_path, vocab_path, "--corpus", "timit"])
+        with open(os.path.join(base, "hyp.trn"), "w") as trn:
+            trn.write(text.getvalue())
+        lines = [line.strip() for line in open(vocab_path)]
+        with open(os.path.join(base, "ref.trn"), "w") as trn:
+            for utt, (_, labels) in sorted(splits["test"].items()):
+                trn.write("%s (%s)\n" % (log2utt.ids_to_utt(
+                    labels, lines, "timit"), utt))
+        report = io.StringIO()
+        per = score.score(os.path.join(base, "ref.trn"),
+                          os.path.join(base, "hyp.trn"), out=report)
+        check("missing hyp: 0" in report.getvalue() and np.isfinite(per),
+              "scoring: %s" % report.getvalue()[-500:])
+        print("recipe stages 2-4: averaged checkpoints 1-4, decoded %d "
+              "utterances at batch %d with the device beam at width %d (K1 "
+              "%d launches, %d per batch), scraped by log2utt and scored: "
+              "PER %.2f %% (random labels), %.1f s [%s]"
+              % (len(hyps), DECODE_BATCH, DECODE_BEAM, decode_k1,
+                 7 * K1_LAUNCHES, per, time.perf_counter() - start, card))
+
+        # the multi-iteration backward (ITER=2): one stage-1 epoch on the
+        # valid split, and one dropout-free step against the CPU
+        plain_before = SDRFunction.plain_backwards
+        sequential_routing_bwd_cuda.launches = 0
+        start = time.perf_counter()
+        iter_ckpt = os.path.join(base, "ckpt_iter2")
+        trainer_sr.main(stage_argv(
+            base, iter_ckpt, 0.5, 1, "--model-caps-iter=2",
+            "--path-train-ptrn=tfrecord/synth-valid-None-123-*-of-*",
+            "--prep-data-num-train=%d" % sum(RECIPE_VALID_UTTS)))
+        with open(os.path.join(iter_ckpt, "metrics.jsonl")) as lines:
+            iter_records = [json.loads(line) for line in lines]
+        iter_steps = int(ckpt_weights(iter_ckpt, 1)["step"])
+        plain = SDRFunction.plain_backwards - plain_before
+        check(all(np.isfinite(r["loss"]) for r in iter_records)
+              and len(iter_records) == 2, "ITER=2 epoch: %s" % iter_records)
+        check(plain == 7 * iter_steps and iter_steps > 0
+              and sequential_routing_bwd_cuda.launches == 0,
+              "ITER=2: %d plain backwards over %d steps, K2 %d launches"
+              % (plain, iter_steps, sequential_routing_bwd_cuda.launches))
+        print("recipe ITER=2 epoch (train on the valid split): %d steps, "
+              "train loss %.4f, valid loss %.4f, %d plain backwards (7 a "
+              "step, autograd through the plain loop on the card), K2 0 "
+              "launches, %.1f s [%s]"
+              % (iter_steps, iter_records[0]["loss"], iter_records[1]["loss"],
+                 plain, time.perf_counter() - start, card))
+        config = timit_config(logger, "cuda", [
+            f for f in TIMIT_FLAGS if f != "--model-caps-iter=1"] + [
+                "--model-caps-iter=2"])
+        batch = train_batch(torch, "cuda")
+        train_parity(torch, config, state,
+                     {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()},
+                     label="ITER=2 ")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop("SRF_LOOP_TIMING", None)
+        else:
+            os.environ["SRF_LOOP_TIMING"] = saved_env
+    print("recipe phase: %.1f s" % (time.perf_counter() - phase_start))
+    return train_k1 + decode_k1, train_k2
 
 
 def cnn_site_shapes(torch, device):
@@ -2081,20 +2681,23 @@ def run():
           "K3 or K4 was not launched on the scan path")
     decode_k1 = decode_phase(torch, card, state)
     check(decode_k1 > 0, "K1 was not launched on the decode path")
-    train_k1, train_k2 = train_phase(torch, card, state)
+    (train_k1, train_k2), direct_ms = train_phase(torch, card, state)
     check(serve_k1 > 0, "K1 was not launched on the serving path")
     check(train_k1 > 0 and train_k2 > 0,
           "K1 or K2 was not launched on the training path")
+    recipe_k1, recipe_k2 = recipe_train_phase(torch, card, state, direct_ms)
+    check(recipe_k1 > 0 and recipe_k2 > 0,
+          "K1 or K2 was not launched on the recipe's training path")
     serve_k5, cnn_state = cnn_serve_phase(torch, card)
     train_k5 = cnn_train_phase(torch, card, cnn_state)
     check(train_k5 > 0, "K5 was not launched on the CNN training path")
-    k1["launches"] = serve_k1 + decode_k1 + train_k1
+    k1["launches"] = serve_k1 + decode_k1 + train_k1 + recipe_k1
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
-                              "train": train_k1}
-    k2["launches"] = train_k2
+                              "train": train_k1, "recipe": recipe_k1}
+    k2["launches"] = train_k2 + recipe_k2
     k1["calls"] = k1["launches"] // K1_LAUNCHES
-    k2["calls"] = train_k2 // K2_LAUNCHES
-    k2["launches_by_path"] = {"train": train_k2}
+    k2["calls"] = k2["launches"] // K2_LAUNCHES
+    k2["launches_by_path"] = {"train": train_k2, "recipe": recipe_k2}
     k3["launches"] = scan_k3
     k3["launches_by_path"] = {"scan": scan_k3}
     k3["stack_ms"] = {key: scan_times[key] for key in ("forward_ms",

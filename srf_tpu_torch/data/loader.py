@@ -1,20 +1,30 @@
-"""Host input pipeline for decoding: TFRecord shards -> padded eval batches
-(the port's own copy of the dataset and eval parts of
-``srf_tpu/data/loader.py``, numpy only).
+"""Host input pipeline: TFRecord shards -> padded batches (the port's own
+copy of ``srf_tpu/data/loader.py``, numpy only).
 
 - examples are parsed off TFRecord shards with the clean-room codec,
 - length filters match ``_filter_max_length``
   (reference: load_speech_data.py:48-50),
+- training batches are bucketed with the reference's frame-budget geometry
+  (``data/bucketing.py``) and padded to their **bucket boundary**, so each
+  bucket is one static shape (few shapes for cuDNN's search to time); label
+  padding is likewise static per bucket; train batches drop remainders
+  (reference: load_speech_data.py:174 drop_remainder=True),
 - eval batches keep every utterance with its utt id, time padded to a
-  multiple of 128 frames (reference: data_helper.py:50-66).
+  multiple of 128 frames (reference: data_helper.py:50-66),
+- a background producer thread overlaps host parsing with device compute.
 
-Batches stay numpy: the consumer moves ``feats`` to the device and keeps
-the lengths on the host (``train/step.py``). The bucketed training loader
-is not ported yet.
+Batches stay numpy, the JAX loader's arrays exactly: the consumer moves
+``feats`` and ``labels`` to the device and keeps the lengths on the host
+(``train/loop.device_prefetch``, ``train/step.py``). One process: the
+multi-process modes (``global_sync`` lockstep, ``shard_batches``) belong to
+the parallelism slice of the port and raise; ``plan_lockstep_epoch``, the
+pure schedule they would run, is here as JAX has it.
 """
 
 import glob as _glob
+import logging
 import os as _os
+import queue
 import threading
 
 import numpy as np
@@ -169,6 +179,215 @@ def _pad_batch(feat_list, label_list, time_width, label_width, feat_dim):
         inp_len[i] = f.shape[0]
         tar_len[i] = l.shape[0]
     return {"feats": feats, "labels": labels, "inp_len": inp_len, "tar_len": tar_len}
+
+
+def plan_lockstep_epoch(peer_lens, boundaries, batch_sizes, label_caps,
+                        seed, epoch, shuffle):
+    """Globally agreed bucket-batch schedule for multi-process training.
+
+    ``peer_lens[p] = (inp_lens, lab_lens)`` holds EVERY process's example
+    lengths, so each process can run the same deterministic simulation of
+    every process's shuffle + bucket pooling. A global batch of bucket
+    ``b`` is scheduled for each ready local sub-batch of ``b`` up to the
+    **minimum ready count across processes** (a process that never fills
+    bucket ``b`` starves it globally — the lockstep analog of
+    drop_remainder). The emission order is canonicalized to process 0's
+    ready order, so all processes emit identical static shapes in an
+    identical sequence (reference: tfsr/trainer_sr.py:147-149).
+
+    Returns ``emissions[p] = [(bucket, local_index_tuple), ...]`` — the
+    same length and bucket sequence for every process. A pure function:
+    ``BucketedLoader`` runs one process and does not call it yet.
+    """
+    n_buckets = len(batch_sizes)
+
+    def bucket_of(length):
+        for b, boundary in enumerate(boundaries):
+            if length <= boundary:
+                return b
+        return len(boundaries)
+
+    ready = []  # per process: ([bucket -> list of index tuples], seq)
+    for inp_lens, lab_lens in peer_lens:
+        order = np.arange(inp_lens.size)
+        if shuffle:
+            np.random.RandomState(seed + epoch).shuffle(order)
+        pools = [[] for _ in range(n_buckets)]
+        out = [[] for _ in range(n_buckets)]
+        seq = []
+        for idx in order:
+            b = bucket_of(int(inp_lens[idx]))
+            if int(lab_lens[idx]) > label_caps[b]:
+                continue  # mirrors the single-process static-cap skip
+            pools[b].append(int(idx))
+            if len(pools[b]) == batch_sizes[b]:
+                out[b].append(tuple(pools[b]))
+                seq.append(b)
+                pools[b] = []
+        ready.append((out, seq))
+    counts = [
+        min(len(r[0][b]) for r in ready) for b in range(n_buckets)
+    ]
+    taken = [0] * n_buckets
+    schedule = []
+    for b in ready[0][1]:
+        if taken[b] < counts[b]:
+            schedule.append((b, taken[b]))
+            taken[b] += 1
+    return [
+        [(b, ready[p][0][b][j]) for b, j in schedule]
+        for p in range(len(peer_lens))
+    ]
+
+
+class BucketedLoader:
+    """Length-bucketed batches with one static shape per bucket.
+
+    Each batch is the JAX loader's dict of numpy arrays (``feats`` [B, T,
+    F] float32, ``labels`` [B, L], ``inp_len``, ``tar_len`` [B] int32) plus
+    ``bucket`` and, when the dataset has them, ``utt_ids``. With
+    ``prefetch > 0`` a producer thread builds the epoch's batches ahead
+    (at most ``prefetch`` waiting); an error there reaches the consumer.
+    """
+
+    def __init__(self, dataset, bucket_boundaries, bucket_batch_sizes,
+                 shuffle=False, seed=0, drop_remainder=True,
+                 label_cap_divisor=2, prefetch=2, global_sync=False,
+                 shard_batches=False, process_index=0, process_count=1):
+        assert len(bucket_batch_sizes) == len(bucket_boundaries) + 1
+        if shard_batches and global_sync:
+            raise ValueError(
+                "shard_batches and global_sync are alternative multi-process"
+                " modes: batch sharding needs the FULL (unsharded) dataset on"
+                " every process; global_sync lockstep-schedules per-process"
+                " example shards")
+        if (global_sync or shard_batches) and process_count > 1:
+            raise NotImplementedError(
+                "multi-process loading (global_sync / shard_batches) is not "
+                "ported yet: the parallelism slice of the PyTorch port")
+        self.ds = dataset
+        self.boundaries = list(bucket_boundaries)
+        self.batch_sizes = list(bucket_batch_sizes)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_remainder = drop_remainder
+        self.prefetch = prefetch
+        self._epoch = 0
+        # Static time width per bucket = its boundary; overflow bucket uses
+        # the data max. Static label width = time width / label_cap_divisor.
+        # Lengths come from the dataset's length arrays (lazy datasets never
+        # materialize features for bookkeeping).
+        inp_lens = getattr(dataset, "inp_lens", None)
+        if inp_lens is None:  # ad-hoc dataset objects (tests)
+            inp_lens = [f.shape[0] for f in dataset.feats]
+        lab_lens = getattr(dataset, "lab_lens", None)
+        if lab_lens is None:
+            lab_lens = [l.shape[0] for l in dataset.labels]
+        self._inp_lens = np.asarray(inp_lens, np.int64)
+        self._lab_lens = np.asarray(lab_lens, np.int64)
+        max_len = int(self._inp_lens.max()) if self._inp_lens.size else 1
+        max_lab = int(self._lab_lens.max()) if self._lab_lens.size else 1
+        self.time_widths = self.boundaries + [max(max_len, (self.boundaries[-1] if self.boundaries else 1))]
+        self.label_caps = [max(8, -(-w // label_cap_divisor)) for w in self.time_widths]
+        # guard: label never exceeds its cap
+        self.label_caps = [max(c, min(max_lab, w)) for c, w in zip(self.label_caps, self.time_widths)]
+
+    def set_epoch(self, epoch):
+        """Pin the shuffle order to ``epoch``'s (seed+epoch keys the
+        permutation). The train loop calls this each epoch, which makes the
+        order a pure function of (seed, epoch) — so a restarted process
+        (per-epoch resume or mid-epoch preemption resume) replays exactly
+        the order the uninterrupted run would have seen."""
+        self._epoch = int(epoch)
+
+    def _bucket_of(self, length):
+        for b, boundary in enumerate(self.boundaries):
+            if length <= boundary:
+                return b
+        return len(self.boundaries)
+
+    def batch_shapes(self):
+        """All static (batch, time, label) shapes this loader can emit."""
+        return [
+            (bs, tw, lc)
+            for bs, tw, lc in zip(self.batch_sizes, self.time_widths, self.label_caps)
+        ]
+
+    def _iter_epoch(self):
+        ds = self.ds
+        order = np.arange(len(ds))
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self._epoch)
+            rng.shuffle(order)
+        self._epoch += 1
+        pools = [[] for _ in self.batch_sizes]
+        skipped = 0
+        for idx in order:
+            b = self._bucket_of(int(self._inp_lens[idx]))
+            if int(self._lab_lens[idx]) > self.label_caps[b]:
+                skipped += 1  # pathological: label longer than static cap
+                continue
+            pools[b].append(idx)
+            if len(pools[b]) == self.batch_sizes[b]:
+                yield self._emit(pools[b], b)
+                pools[b] = []
+        if skipped:
+            # operator-visible: the reference pipeline pads to the batch
+            # max and would keep these, so a shrinking corpus must not be
+            # silent
+            logging.getLogger("srf_tpu_torch").warning(
+                "BucketedLoader: skipped %d example(s) whose label length "
+                "exceeds the bucket's static cap this epoch", skipped,
+            )
+        if not self.drop_remainder:
+            for b, pool in enumerate(pools):
+                if pool:
+                    yield self._emit(pool, b)
+
+    def _emit(self, indices, bucket):
+        ds = self.ds
+        batch = _pad_batch(
+            [ds.feats[i] for i in indices],
+            [ds.labels[i] for i in indices],
+            self.time_widths[bucket],
+            self.label_caps[bucket],
+            ds.feat_dim,
+        )
+        batch["bucket"] = bucket
+        if ds.utt_ids is not None:
+            batch["utt_ids"] = [ds.utt_ids[i] for i in indices]
+        return batch
+
+    def __iter__(self):
+        if self.prefetch <= 0:
+            yield from self._iter_epoch()
+            return
+        q = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        failure = []
+
+        def producer():
+            # a producer-thread error must REACH the consumer: putting the
+            # sentinel alone would look like a clean end-of-epoch and the
+            # trainer would silently continue on a truncated epoch
+            try:
+                for item in self._iter_epoch():
+                    q.put(item)
+            except BaseException as exc:  # noqa: BLE001 — re-raised below
+                failure.append(exc)
+            finally:
+                q.put(sentinel)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item
+        thread.join()
+        if failure:
+            raise failure[0]
 
 
 class EvalLoader:

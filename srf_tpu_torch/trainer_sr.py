@@ -1,36 +1,77 @@
-"""Entry point: decode SRF and CNN CTC models (port of ``srf_tpu/trainer_sr.py``,
-decode mode).
+"""Entry point: train and decode SRF and CNN CTC models (port of
+``srf_tpu/trainer_sr.py``).
 
 Same flags as the JAX trainer (conf file + command line merge, plus
-``--device``). With ``--train-max-epoch=0`` it decodes the test split from
-the checkpoint under ``--path-ckpt`` (``--path-ckpt-epoch`` N or the
-latest; the recipe passes ``$ckpt/avg``): TFRecord shards ->
-``EvalLoader`` (``--tpu-decode-batch``, ``--tpu-decode-pad-last``) -> the
-model's eval forward on the device -> CTC beam search
-(``--tpu-decode-impl`` device|host|greedy, ``--decoding-beam-width``,
-``--tpu-lm-path``) -> ``UTTID`` lines on stdout for
-``srf_tpu_torch.utils.log2utt``. Training mode is the next slice of the
-port and is refused.
+``--device``), one process on one device (the CUDA device unless
+``--device=cpu``).
+
+- Train mode (``--train-max-epoch`` > 0): the train and valid TFRecord
+  splits go through ``BucketedLoader`` (frame-budget buckets from
+  ``--train-batch-frame`` with ``--train-batch-dynamic``, else
+  ``--train-batch-size``); the model's initial weights come from a
+  ``torch.Generator`` seeded with ``--tpu-seed``; the state resumes from
+  the checkpoint under ``--path-ckpt`` (its step is the epoch offset; the
+  optimizer runs at the current flags' rate, so the recipe's stage 2 can
+  resume stage 1 with another ``--train-lr-param-k``), and
+  ``train/loop.run_training`` runs the epochs: per-epoch checkpoints,
+  early stopping, ``metrics.jsonl``, and ``--tpu-ckpt-every-steps``
+  mid-epoch checkpoints with resume.
+- Decode mode (``--train-max-epoch=0``): decodes the test split from the
+  checkpoint under ``--path-ckpt`` (``--path-ckpt-epoch`` N or the
+  latest; the recipe passes ``$ckpt/avg``): TFRecord shards ->
+  ``EvalLoader`` (``--tpu-decode-batch``, ``--tpu-decode-pad-last``) -> the
+  model's eval forward on the device -> CTC beam search
+  (``--tpu-decode-impl`` device|host|greedy, ``--decoding-beam-width``,
+  ``--tpu-lm-path``) -> ``UTTID`` lines on stdout for
+  ``srf_tpu_torch.utils.log2utt``.
+
+Refused (``NotImplementedError``, each a later slice of the port): MWER,
+EMA, gradient accumulation, bf16, SpecAugment, FSDP, asynchronous
+checkpoints and more than one device or process.
 
 Usage:
     python -m srf_tpu_torch.trainer_sr --config=egs/conf/timit.conf \\
-        --path-base=... --path-ckpt=.../avg --train-max-epoch=0 [--device=cpu]
+        --path-base=... --path-ckpt=... --train-max-epoch=N [--device=cpu]
 """
 
 import os
 import sys
 
+import torch
+
 from srf_tpu_torch.config import Logger, ParseOption
-from srf_tpu_torch.data.loader import EvalLoader, LazySpeechDataset, SpeechDataset
+from srf_tpu_torch.data.bucketing import get_bucket_info, round_batch_sizes
+from srf_tpu_torch.data.loader import (
+    BucketedLoader, EvalLoader, LazySpeechDataset, SpeechDataset,
+)
 from srf_tpu_torch.data.tfrecord import count_records
 from srf_tpu_torch.models.registry import build_model
-from srf_tpu_torch.train.loop import run_decoding
+from srf_tpu_torch.train.loop import run_decoding, run_training
+from srf_tpu_torch.train.optimizer import get_optimizer
 from srf_tpu_torch.train.state import TrainState, param_count
-from srf_tpu_torch.train.step import make_apply_fn, make_logits_fn
-from srf_tpu_torch.utils.checkpoint import load_checkpoint
+from srf_tpu_torch.train.step import (
+    make_apply_fn, make_logits_fn, make_train_step, make_valid_step,
+)
+from srf_tpu_torch.utils.checkpoint import load_checkpoint, restore_into
 from srf_tpu_torch.utils.vocab import get_file_path, load_vocab
 
-_LATER = "%s is not ported yet: the next slice of the PyTorch port (training)"
+_LATER = "%s is not ported yet: %s of the PyTorch port"
+# (flag, is it set, the slice it waits for)
+_REFUSED = (
+    ("--train-is-mwer", lambda c: c.train_is_mwer, "the training extras"),
+    ("--tpu-ema-decay", lambda c: (c.tpu_ema_decay or 0.0) > 0.0,
+     "the training extras"),
+    ("--tpu-decode-ema", lambda c: c.tpu_decode_ema, "the training extras"),
+    ("--tpu-grad-accum > 1", lambda c: (c.tpu_grad_accum or 1) > 1,
+     "the training extras"),
+    ("--tpu-bf16", lambda c: c.tpu_bf16, "the training extras"),
+    ("--tpu-specaug", lambda c: c.tpu_specaug, "the training extras"),
+    ("--tpu-fsdp", lambda c: c.tpu_fsdp, "the parallelism slice"),
+    ("--tpu-async-ckpt", lambda c: c.tpu_async_ckpt,
+     "the parallelism slice"),
+    ("--tpu-mesh-data > 1", lambda c: (c.tpu_mesh_data or 1) > 1,
+     "the parallelism slice"),
+)
 
 
 def get_data_len(config):
@@ -47,17 +88,66 @@ def get_data_len(config):
     return tuple(nums)
 
 
+def build_loaders(config, logger, num_replicas=1, seed=0):
+    """(train_loader, valid_loader) with static bucket shapes, for one
+    process (the JAX trainer's single-process branch)."""
+    feat_dim = config.feat_dim
+    train_ptrn = os.path.join(config.path_base, config.path_train_ptrn)
+    valid_ptrn = os.path.join(config.path_base, config.path_valid_ptrn)
+    ds_cls = LazySpeechDataset if config.tpu_data_lazy else SpeechDataset
+    train_ds = ds_cls(train_ptrn, feat_dim, config.prep_max_inp,
+                      config.prep_max_tar)
+    valid_ds = ds_cls(valid_ptrn, feat_dim, config.prep_max_inp,
+                      config.prep_max_tar)
+    if config.train_batch_dynamic:
+        if not (config.train_batch_frame and config.train_batch_frame > 0):
+            raise ValueError("--train-batch-dynamic needs a positive "
+                             "--train-batch-frame")
+        boundaries, batch_sizes = get_bucket_info(
+            config.train_batch_frame, num_replicas, 241, 10000, 150,
+            step_for_bucket_size=False,
+            manual_bucket_batch_sizes=config.train_batch_buckets,
+        )
+        batch_sizes = round_batch_sizes(batch_sizes, num_replicas)
+        logger.info("bucket_boundaries: [%s]", ", ".join(map(str, boundaries)))
+        logger.info("bucket_batch_sizes: [%s]", ", ".join(map(str, batch_sizes)))
+    else:
+        if not (config.train_batch_size and config.train_batch_size > 0):
+            raise ValueError("--train-batch-size must be positive")
+        boundaries = []
+        batch_sizes = [max(
+            num_replicas,
+            config.train_batch_size // num_replicas * num_replicas,
+        )]
+    train_loader = BucketedLoader(
+        train_ds, boundaries, batch_sizes, shuffle=True, seed=seed,
+        drop_remainder=True,
+    )
+    valid_loader = BucketedLoader(
+        valid_ds, boundaries, batch_sizes, shuffle=False,
+        drop_remainder=True,
+    )
+    return train_loader, valid_loader
+
+
+def state_to_tree(state):
+    """The checkpoint dict of a TrainState (``utils/checkpoint.py``)."""
+    return {
+        "step": state.step,
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": (state.scheduler.state_dict()
+                      if state.scheduler is not None else None),
+    }
+
+
 def main(argv=None):
     logger = Logger(name="srf_tpu_torch", level=Logger.DEBUG).logger
     config = ParseOption(argv or sys.argv, logger).args
-    if config.train_max_epoch != 0:
-        raise NotImplementedError(_LATER % "training (--train-max-epoch > 0)")
-    if config.train_is_mwer:
-        raise NotImplementedError(_LATER % "--train-is-mwer")
-    if config.tpu_decode_ema:
-        raise NotImplementedError(
-            "--tpu-decode-ema is not ported yet: EMA is a later slice of "
-            "the PyTorch port")
+    for flag, is_set, where in _REFUSED:
+        if is_set(config):
+            raise NotImplementedError(_LATER % (flag, where))
+    train = config.train_max_epoch != 0
 
     _, _, dec_in_dim, _ = load_vocab(
         get_file_path(config.path_base, config.path_vocab), logger
@@ -74,27 +164,54 @@ def main(argv=None):
         "Data number: Train %s, Valid %s, Test %s", train_num, valid_num, test_num
     )
 
-    model, in_len_div = build_model(config, dec_out_dim, logger)
-    state = TrainState.create(model, None, device=config.device)
+    # the initial weights follow --tpu-seed, as JAX's PRNGKey(tpu_seed)
+    model, in_len_div = build_model(
+        config, dec_out_dim, logger,
+        generator=torch.Generator().manual_seed(config.tpu_seed))
+    optimizer, scheduler = (get_optimizer(config, model.parameters())
+                            if train else (None, None))
+    state = TrainState.create(model, optimizer, scheduler,
+                              device=config.device)
     logger.info("Model parameters: %d", param_count(state.model))
-    ckpt_manager, _, _ = load_checkpoint(config, logger, state,
-                                         params_only=True)
+    ckpt_manager, _, epoch_offset = load_checkpoint(
+        config, logger, state, params_only=not train)
     apply_fn = make_apply_fn(state.model, bf16=config.tpu_bf16)
 
-    # decode mode (reference: trainer_sr.py:290-299)
-    test_ptrn = os.path.join(config.path_base, config.path_test_ptrn)
-    ds_cls = LazySpeechDataset if config.tpu_data_lazy else SpeechDataset
-    test_ds = ds_cls(
-        test_ptrn, config.feat_dim, config.prep_max_inp, config.prep_max_tar,
-        with_utt_id=True,
+    if not train:
+        # decode mode (reference: trainer_sr.py:290-299)
+        test_ptrn = os.path.join(config.path_base, config.path_test_ptrn)
+        ds_cls = LazySpeechDataset if config.tpu_data_lazy else SpeechDataset
+        test_ds = ds_cls(
+            test_ptrn, config.feat_dim, config.prep_max_inp,
+            config.prep_max_tar, with_utt_id=True,
+        )
+        test_loader = EvalLoader(
+            test_ds, batch_size=config.tpu_decode_batch,
+            pad_last=config.tpu_decode_pad_last,
+        )
+        run_decoding(
+            config, logger, state, make_logits_fn(apply_fn), test_loader,
+            in_len_div, beam_width=config.decoding_beam_width,
+        )
+        ckpt_manager.close()
+        return
+
+    train_loader, valid_loader = build_loaders(config, logger,
+                                               seed=config.tpu_seed)
+    train_step = make_train_step(apply_fn, in_len_div,
+                                 accum_steps=config.tpu_grad_accum,
+                                 ema_decay=config.tpu_ema_decay)
+    valid_step = make_valid_step(apply_fn, in_len_div)
+    metrics_path = (
+        os.path.join(config.path_ckpt, "metrics.jsonl") if config.path_ckpt else None
     )
-    test_loader = EvalLoader(
-        test_ds, batch_size=config.tpu_decode_batch,
-        pad_last=config.tpu_decode_pad_last,
-    )
-    run_decoding(
-        config, logger, state, make_logits_fn(apply_fn), test_loader,
-        in_len_div, beam_width=config.decoding_beam_width,
+    run_training(
+        config, logger, state, train_step, valid_step, train_loader,
+        valid_loader, ckpt_manager, epoch_offset, config.tpu_seed,
+        train_num or 1,
+        schedule_fn=scheduler.lr_lambdas[0] if scheduler is not None else None,
+        metrics_path=metrics_path, state_to_save=state_to_tree,
+        state_from_tree=lambda tree: restore_into(state, tree),
     )
     ckpt_manager.close()
 

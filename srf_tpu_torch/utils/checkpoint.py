@@ -7,9 +7,14 @@ tfsr/utils/average_ckpt_sr.py:92-180):
 - per-epoch checkpoints managed with ``max_to_keep``
   (``--model-ckpt-max-to-keep``, -1 = keep all),
 - resume from ``--path-ckpt-epoch`` N or the latest checkpoint; the epoch
-  offset is the checkpoint step,
+  offset is the checkpoint step; the resumed optimizer runs at the current
+  flags' rate (``restore_into``), as optax reads its schedule through the
+  new run's optimizer,
 - checkpoint averaging: element-wise mean of the last ``model_average_num``
-  checkpoints' weights saved under ``$ckpt/avg``.
+  checkpoints' weights saved under ``$ckpt/avg``,
+- the training loop's mid-epoch checkpoints are a second manager under
+  ``$ckpt/mid``; its name is not a step, so the managers and averaging of
+  ``$ckpt`` never see it.
 
 Layout: one directory per step under the manager's path, as orbax lays
 them out (``<path>/<step>/state.pt``), so ``$ckpt/avg/1`` is what
@@ -99,14 +104,38 @@ def restore_into(state, tree, params_only=False):
     """Load a checkpoint dict into a TrainState in place. The model's
     ``load_state_dict`` is strict: a missing, extra or misshapen entry
     (model flags that do not describe the trained architecture) raises.
-    ``params_only`` leaves the optimizer and scheduler as they are."""
+    ``params_only`` leaves the optimizer and scheduler as they are.
+
+    Otherwise the optimizer's moments and counts and the scheduler's count
+    come from the checkpoint, but the rate stays the current run's:
+    ``Optimizer.load_state_dict`` would bring back each group's ``lr`` (and
+    ``initial_lr``) as the saved run set them, and a ``LambdaLR`` only
+    rewrites it at its next ``step()``, so the first update after a resume
+    would run at the previous run's rate (the recipe's stage 2 resumes
+    stage 1 with another ``--train-lr-param-k``). optax reads the schedule
+    through the new run's optimizer at the restored count, so each group's
+    rate is set to ``base_lr * lr_lambda(count)`` under a scheduler, or to
+    the group's current rate (``--train-lr-param-k`` for adam and sgd)."""
     state.model.load_state_dict(tree["model"])
     state.step = int(tree["step"])
-    if not params_only:
-        if state.optimizer is not None and tree.get("optimizer") is not None:
-            state.optimizer.load_state_dict(tree["optimizer"])
-        if state.scheduler is not None and tree.get("scheduler") is not None:
-            state.scheduler.load_state_dict(tree["scheduler"])
+    if params_only:
+        return state
+    optimizer, scheduler = state.optimizer, state.scheduler
+    if optimizer is not None and tree.get("optimizer") is not None:
+        current = [{k: group[k] for k in ("lr", "initial_lr") if k in group}
+                   for group in optimizer.param_groups]
+        optimizer.load_state_dict(tree["optimizer"])
+        for group, rates in zip(optimizer.param_groups, current):
+            group.update(rates)
+    if scheduler is not None and tree.get("scheduler") is not None:
+        base_lrs = list(scheduler.base_lrs)
+        scheduler.load_state_dict(tree["scheduler"])
+        scheduler.base_lrs = base_lrs
+        rates = [base * fn(scheduler.last_epoch)
+                 for base, fn in zip(base_lrs, scheduler.lr_lambdas)]
+        for group, rate in zip(scheduler.optimizer.param_groups, rates):
+            group["lr"] = rate
+        scheduler._last_lr = rates
     return state
 
 

@@ -1,0 +1,93 @@
+"""Profiling / tracing hooks (port of ``srf_tpu/utils/profiler.py`` over
+``torch.profiler``).
+
+- :func:`trace`: context manager around ``torch.profiler.profile`` (the
+  host and, where there is one, the CUDA device), writing a Chrome trace of
+  the traced region under ``log_dir`` (``chrome://tracing``, Perfetto),
+- :class:`StepTimer`: host-side per-step wall timing with summary stats,
+  waiting for the result's CUDA device where JAX calls
+  ``block_until_ready``,
+- :func:`annotate`: a named ``record_function`` range for attribution.
+"""
+
+import contextlib
+import os
+import time
+
+import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir, enabled=True):
+    """Profile the enclosed region and write its Chrome trace under
+    ``log_dir`` (one file per process and start time); yields the path
+    the trace is written to."""
+    if not enabled:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(os.path.abspath(log_dir), "trace_%d_%d.json" % (
+        os.getpid(), time.time_ns()))
+    with torch.profiler.profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)
+
+
+def annotate(name):
+    return torch.profiler.record_function(name)
+
+
+def _synchronize(result):
+    """Wait for every CUDA device holding a tensor of ``result``."""
+    devices = set()
+
+    def visit(value):
+        if torch.is_tensor(value):
+            if value.is_cuda:
+                devices.add(value.device)
+        elif isinstance(value, dict):
+            for item in value.values():
+                visit(item)
+        elif isinstance(value, (list, tuple)):
+            for item in value:
+                visit(item)
+
+    visit(result)
+    for device in devices:
+        torch.cuda.synchronize(device)
+
+
+class StepTimer:
+    """Wall-clock timing of steps (waits for the result's device)."""
+
+    def __init__(self, warmup=2):
+        self.warmup = warmup
+        self.times = []
+        self._count = 0
+
+    @contextlib.contextmanager
+    def step(self, result_to_block=None):
+        start = time.perf_counter()
+        yield
+        if result_to_block is not None:
+            _synchronize(result_to_block)
+        elapsed = time.perf_counter() - start
+        self._count += 1
+        if self._count > self.warmup:
+            self.times.append(elapsed)
+
+    def summary(self):
+        if not self.times:
+            return {}
+        arr = np.asarray(self.times)
+        return {
+            "steps": len(arr),
+            "mean_ms": float(arr.mean() * 1e3),
+            "p50_ms": float(np.percentile(arr, 50) * 1e3),
+            "p95_ms": float(np.percentile(arr, 95) * 1e3),
+            "min_ms": float(arr.min() * 1e3),
+        }

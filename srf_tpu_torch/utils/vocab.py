@@ -6,8 +6,9 @@ matches the trainers: the blank class is *appended* after the vocabulary,
 """
 
 import os
+import sys
 
-from srf_tpu_torch.config.constants import Constants
+from srf_tpu_torch.config.constants import Constants, ExitCode
 
 
 def load_vocab(vocab_path, logger=None):
@@ -41,6 +42,26 @@ def load_vocab(vocab_path, logger=None):
         logger.info(msg)
 
     return vocab, str_to_int, dec_in_dim, dec_out_dim
+
+
+def get_int_seq(text, is_char, vocab):
+    """Convert text to integer ids (char mode or BPE/space-split mode)."""
+    int_seq = []
+    text = text.strip().replace("  ", " ")
+    if is_char:
+        for char in text:
+            if char in vocab:
+                int_seq.append(vocab[char])
+            elif char == " ":
+                int_seq.append(vocab[Constants.SPACE])
+            else:
+                print(vocab)
+                print("%s is not in vocab" % char)
+                sys.exit(ExitCode.NOT_SUPPORTED.value)
+    else:
+        for bpe in text.split(" "):
+            int_seq.append(vocab[bpe])
+    return int_seq
 
 
 def get_file_path(data_path, file_path):

@@ -231,7 +231,7 @@ def test_trainer_decode_equals_recognizer(corpus, capsys, tmp_path):
     assert score.score(str(ref), str(ref), out=io.StringIO()) == 0.0
 
 
-@pytest.mark.parametrize("flag", ["--train-max-epoch=2", "--train-is-mwer=True",
+@pytest.mark.parametrize("flag", ["--train-is-mwer=True",
                                   "--tpu-decode-ema=True"])
 def test_unported_trainer_modes_are_refused(corpus, flag):
     base, _, _ = corpus
