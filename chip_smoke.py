@@ -9,9 +9,10 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 2. build every CUDA kernel of the port from csrc/ with nvcc (one process
    per source, all started together): K1, K2, K3, K4, K5; print ptxas's
    registers and spills per kernel, and fail if the recurrence kernel of
-   K1 or K2 spills;
+   K1 or K2, or the cluster scan of K3 or K4, spills;
 3. K1 (SDR forward: the prediction kernel and the recurrence) and K3 (the
-   time-blocked, batch-tiled SDR forward) against their plain PyTorch
+   cluster-scan SDR forward: a thread-block cluster per batch tile, W's
+   slice in shared memory) against their plain PyTorch
    version, and K3 against K1, on the same CUDA tensors, at the three
    canonical SRF-TIMIT capsule-layer geometries, at the serving path's two
    shapes (B=29, T'=64: 29 x 241 frames padded to 256; B=8, T'=128), at
@@ -20,7 +21,8 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    (B=1, T'=64/96/128; B=8, T'=96) and the recipe's other four training
    buckets in phase 7b (B=17, T'=98; B=12, T'=136; B=10, T'=173; B=8,
    T'=211), K3 at time blocks 8, 1 and 5 (5 divides
-   neither 61 nor 64); K1 alone at EXTRA_LAYERS: the WSJ recipe's layer 0
+   neither 61 nor 64), bit-equal across them; K1 and K3 (K3 against K1 as
+   well) at EXTRA_LAYERS: the WSJ recipe's layer 0
    (300, 30, 20, 20) and (40, 5, 3, 4), its general path, at B=3, T'=17
    with 1 and 2 iterations, a W[n] taken in tiles and partial sums in
    global memory at B=3, T'=17 (and for K2 at (800, 64, 8, 4), B=2,
@@ -31,10 +33,12 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    plain version's, from CUDA events at B=29, T'=64, and K1's two kernels'
    times apart (torch.profiler);
 4. K2 (the fused SDR backward: prediction, reverse-time recurrence, weight
-   gradient from du_hat's factors, reduction) and K4 (K3's backward, dW and
-   db summed inside the kernel) against their plain PyTorch version, and K4
-   against K2, on the same CUDA tensors, at phase 3's shapes with one
-   iteration and time blocks; K2 alone at phase 3's EXTRA_LAYERS; K2
+   gradient from du_hat's factors, reduction) and K4 (K3's backward on K3's
+   clusters, dW and db summed in the CTA that owns the rows, one partial
+   per cluster, then a fixed-order reduction) against their plain PyTorch
+   version, and K4 against K2, on the same CUDA tensors, at phase 3's
+   shapes with one iteration and time blocks (K4 bit-equal across them);
+   K2 and K4 (K4 against K2 as well) at phase 3's EXTRA_LAYERS; K2
    and K4 each bit-equal across two calls; K2's and K4's times in turns,
    and the plain version's, at B=29, T'=61 (the training path's shape),
    and K2's parts' times apart;
@@ -64,7 +68,8 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    forward (7 K3 launches) and their backward for a fixed random cotangent
    (7 K4 calls, 14 launches, no plain backward), and each layer's output
    and gradients must agree with SDRFunction (K1, K2) on the same inputs;
-   the 7-layer forward and backward times of K3/K1 and K4/K2 in turns;
+   the 7-layer forward and backward times of K3/K1 and K4/K2 in turns, and
+   each layer's cluster plan;
 6c. the SRF-TIMIT recipe's decode stage (train_srf_timit.sh:68-73, stages
    2-4) through the port's entry points: 24 synthetic utterances of
    150-500 frames (fbank-123, labels 1..61, utt ids) written into 2
@@ -236,7 +241,7 @@ TIMIT_LAYERS = [
     ("middle", (90, 30, 8, 8), False, 5),
     ("last", (90, 63, 8, 8), True, 1),
 ]
-# K1 and K2 alone, as (name, (in_n, out_n, out_d, in_d), PAD mask, W's
+# K1-K4 at other geometries, as (name, (in_n, out_n, out_d, in_d), PAD mask, W's
 # std, (B, T', iterations) shapes): the WSJ recipe's layer 0
 # (egs/script/train_srf_wsj.sh:14-19: window 2+2, 60 primary capsules of dim
 # 20, 30 capsules of dim 20; u_hat_t 720 KB, more than a block's shared
@@ -267,9 +272,10 @@ SAFE_LOGIT = 64.0
 # kernel launches per call: K1 the prediction and the recurrence; K2 the
 # prediction, the reverse-time recurrence, the weight gradient, the reduction
 K1_LAUNCHES, K2_LAUNCHES = 2, 4
-# K1's and K2's recurrence kernels, which must not spill: their chain over
-# time is what bounds them
-RECURRENCE_KERNELS = ("sdr_fwd_kernel", "sdr_bwd_step_kernel")
+# K1's and K2's recurrence kernels and K3's and K4's cluster scans, which
+# must not spill: their chain over time is what bounds them
+RECURRENCE_KERNELS = ("sdr_fwd_kernel", "sdr_bwd_step_kernel",
+                      "sdr_scan_fwd_kernel", "sdr_scan_bwd_kernel")
 # the CNN-TIMIT recipe (egs/script/train_cnn_timit.sh:7-14,31-50 with
 # timit.conf): the maxpool maxout CNN, L=10, filters 128/256, 3 x 1024
 # projections, time stride 1, K5 at every dropout site, greedy decoding
@@ -522,7 +528,8 @@ def kernel_phase(torch, device):
     """Phase 3: K1 and K3 against their plain version, and K3 against K1,
     on the same CUDA tensors; returns their JSON entries."""
     from srf_tpu_torch.ops.routing import sequential_routing
-    from srf_tpu_torch.ops.routing_cuda import (_lib, sequential_routing_cuda,
+    from srf_tpu_torch.ops.routing_cuda import (scan_plan,
+                                                sequential_routing_cuda,
                                                 sequential_routing_scan_cuda)
 
     rng = np.random.RandomState(SEED)
@@ -552,19 +559,29 @@ def kernel_phase(torch, device):
             check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
                   "K1 disagrees with its plain version at %s B=%d T=%d"
                   % (geometry, batch, seq_len))
+            first_k3 = None
             for time_block in SCAN_TIME_BLOCKS:
                 k3 = sequential_routing_scan_cuda(u, w, b, num_iter, use_mask,
                                                   time_block)
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(k3).all()), "K3 output not finite")
+                if first_k3 is None:
+                    first_k3 = k3
+                check(torch.equal(k3, first_k3),
+                      "K3 at time_block %d is not bit-equal to time_block %d "
+                      "at %s B=%d T=%d" % (time_block, SCAN_TIME_BLOCKS[0],
+                                           geometry, batch, seq_len))
                 err, err_k1 = ((k3 - want).abs().max().item(),
                                (k3 - got).abs().max().item())
                 max_err["K3"] = max(max_err["K3"], err)
                 max_err["K3 vs K1"] = max(max_err["K3 vs K1"], err_k1)
                 print("K3 %s %s B=%d T=%d iter=%d mask=%s time_block=%d "
-                      "max_abs_err=%.3e (vs K1 %.3e)"
+                      "max_abs_err=%.3e (vs K1 %.3e)%s"
                       % (name, geometry, batch, seq_len, num_iter, use_mask,
-                         time_block, err, err_k1))
+                         time_block, err, err_k1,
+                         "" if time_block == SCAN_TIME_BLOCKS[0]
+                         else "; bit-equal to time_block %d"
+                         % SCAN_TIME_BLOCKS[0]))
                 check(torch.allclose(k3, want, rtol=RTOL, atol=ATOL)
                       and torch.allclose(k3, got, rtol=RTOL, atol=ATOL),
                       "K3 disagrees with its plain version or K1 at %s B=%d "
@@ -580,8 +597,7 @@ def kernel_phase(torch, device):
             plain_ms = event_ms(torch, lambda: sequential_routing(
                 u, w, b, num_iter, use_mask), 3)
             bound = sdr_bound_ms(batch, seq_len, geometry, num_iter)
-            tile = _lib("sdr_scan_fwd").sdr_scan_fwd_batch_tile(
-                batch, seq_len, in_n, in_d, out_n, out_d, 8)
+            plan = scan_plan("sdr_scan_fwd", u, w)
             parts = parts_ms(torch, lambda: sequential_routing_cuda(
                 u, w, b, num_iter, use_mask), K1_PARTS)
             for label, part in parts.items():
@@ -591,16 +607,15 @@ def kernel_phase(torch, device):
                   "%.4f ms, operations %.4f ms)"
                   % (name, ms, parts["prediction"], parts["recurrence"],
                      plain_ms, max(bound), *bound))
-            print("K3 %s B=29 T=64 (batch tile %d, time block 8): kernel "
-                  "%.4f ms, K1 %.4f ms on the same inputs" % (name, tile,
-                                                              k3_ms, ms))
+            print("K3 %s B=29 T=64 (plan %s, time block 8): kernel %.4f ms, "
+                  "K1 %.4f ms on the same inputs" % (name, plan, k3_ms, ms))
             for label, kernel_ms, extra in (
                     ("K1", ms, {"parts_ms": parts}),
-                    ("K3", k3_ms, {"k1_ms": ms, "batch_tile": tile})):
+                    ("K3", k3_ms, {"k1_ms": ms, "plan": plan})):
                 add_layer(totals[label], per_layer[label], name, count,
                           kernel_ms, plain_ms, bound, geometry=list(geometry),
                           per_forward=count, **extra)
-    # K1 alone at EXTRA_LAYERS
+    # K1 and K3 at EXTRA_LAYERS
     for index, (name, geometry, mask, w_std, shapes) in enumerate(
             EXTRA_LAYERS):
         w, b, rng_case = extra_weights(torch, device, index, geometry,
@@ -620,6 +635,21 @@ def kernel_phase(torch, device):
                      large_logits(torch, u, w, b, want, w_std)))
             check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
                   "K1 disagrees with its plain version at %s B=%d T=%d"
+                  % (geometry, batch, seq_len))
+            k3 = sequential_routing_scan_cuda(u, w, b, num_iter, mask)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(k3).all()), "K3 output not finite")
+            err, err_k1 = ((k3 - want).abs().max().item(),
+                           (k3 - got).abs().max().item())
+            max_err["K3"] = max(max_err["K3"], err)
+            max_err["K3 vs K1"] = max(max_err["K3 vs K1"], err_k1)
+            print("K3 %s %s B=%d T=%d iter=%d mask=%s max_abs_err=%.3e (vs K1 "
+                  "%.3e); plan %s" % (name, geometry, batch, seq_len,
+                                      num_iter, mask, err, err_k1,
+                                      scan_plan("sdr_scan_fwd", u, w)))
+            check(torch.allclose(k3, want, rtol=RTOL, atol=ATOL)
+                  and torch.allclose(k3, got, rtol=RTOL, atol=ATOL),
+                  "K3 disagrees with its plain version or K1 at %s B=%d T=%d"
                   % (geometry, batch, seq_len))
     torch.cuda.synchronize()
     print("K3 one forward's 7 layers at B=29 T=64: kernel %.4f ms, K1 %.4f "
@@ -649,7 +679,7 @@ def k2_phase(torch, device):
     entries."""
     from srf_tpu_torch.ops.routing import sequential_routing_bwd
     from srf_tpu_torch.ops.routing_cuda import (
-        _lib, sequential_routing_bwd_cuda, sequential_routing_cuda,
+        scan_plan, sequential_routing_bwd_cuda, sequential_routing_cuda,
         sequential_routing_scan_bwd_cuda)
 
     rng = np.random.RandomState(SEED + 2)
@@ -691,6 +721,30 @@ def k2_phase(torch, device):
         print("K2 %s bit-equal twice; max_abs_err %s" % (where, text))
         return got, want
 
+    def k4_held(u, w, b, vs, dvs, use_mask, where, got, want, time_block=8,
+                first=None):
+        """K4 twice, bit-equal (and to ``first``, another time block's),
+        held to its plain version ``want`` and to K2's ``got``; returns the
+        first call's (du, dW, db)."""
+        k4 = sequential_routing_scan_bwd_cuda(u, w, b, vs, dvs, use_mask,
+                                              time_block)
+        again = sequential_routing_scan_bwd_cuda(u, w, b, vs, dvs, use_mask,
+                                                 time_block)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(k4, again)),
+              "K4 is not bit-equal across two calls at " + where)
+        if first is not None:
+            check(all(torch.equal(x, y) for x, y in zip(k4, first)),
+                  "K4 is not bit-equal across time blocks at " + where)
+        text, err = held("K4", k4, want, want, "its plain version at " + where)
+        text_k2, err_k2 = held("K4", k4, got, want, "K2 at " + where)
+        max_err["K4"] = max(max_err["K4"], err)
+        max_err["K4 vs K2"] = max(max_err["K4 vs K2"], err_k2)
+        print("K4 %s bit-equal twice%s; max_abs_err %s; vs K2 %s"
+              % (where, "" if first is None else " and to the first time block",
+                 text, text_k2))
+        return k4
+
     for name, geometry, mask, count in TIMIT_LAYERS:
         in_n, out_n, out_d, in_d = geometry
         w = torch.tensor(rng.randn(in_n, out_n, out_d, in_d) * 0.1,
@@ -708,22 +762,12 @@ def k2_phase(torch, device):
                                dtype=torch.float32, device=device)
             got, want = k2_held(u, w, b, vs, dvs, use_mask,
                                 "%s %s" % (name, where))
+            first = None
             for time_block in SCAN_TIME_BLOCKS:
-                k4 = sequential_routing_scan_bwd_cuda(u, w, b, vs, dvs,
-                                                      use_mask, time_block)
-                again = sequential_routing_scan_bwd_cuda(
-                    u, w, b, vs, dvs, use_mask, time_block)
-                torch.cuda.synchronize()
-                at = "%s time_block=%d" % (where, time_block)
-                check(all(torch.equal(x, y) for x, y in zip(k4, again)),
-                      "K4 is not bit-equal across two calls at " + at)
-                text, err = held("K4", k4, want, want,
-                                 "its plain version at " + at)
-                text_k2, err_k2 = held("K4", k4, got, want, "K2 at " + at)
-                max_err["K4"] = max(max_err["K4"], err)
-                max_err["K4 vs K2"] = max(max_err["K4 vs K2"], err_k2)
-                print("K4 %s %s bit-equal twice; max_abs_err %s; vs K2 %s"
-                      % (name, at, text, text_k2))
+                k4 = k4_held(u, w, b, vs, dvs, use_mask, "%s %s time_block=%d"
+                             % (name, where, time_block), got, want,
+                             time_block, first)
+                first = k4 if first is None else first
             if (batch, seq_len) != (29, 61):
                 continue
             ms, k4_ms = paired_ms(
@@ -734,8 +778,7 @@ def k2_phase(torch, device):
             plain_ms = event_ms(torch, lambda: sequential_routing_bwd(
                 u, w, b, vs, dvs, use_mask), 2)
             bound = sdr_bwd_bound_ms(batch, seq_len, geometry)
-            tile = _lib("sdr_scan_bwd").sdr_scan_bwd_batch_tile(
-                batch, seq_len, in_n, in_d, out_n, out_d, 8)
+            plan = scan_plan("sdr_scan_bwd", u, w)
             parts = parts_ms(torch, lambda: sequential_routing_bwd_cuda(
                 u, w, b, vs, dvs, use_mask), K2_PARTS)
             for label, part in parts.items():
@@ -747,16 +790,15 @@ def k2_phase(torch, device):
                   % (name, ms, parts["prediction"], parts["reverse_time"],
                      parts["weight_gradient"], parts["reduction"], plain_ms,
                      max(bound), *bound))
-            print("K4 %s B=29 T=61 (batch tile %d, time block 8): kernel "
-                  "%.4f ms, K2 %.4f ms on the same inputs" % (name, tile,
-                                                              k4_ms, ms))
+            print("K4 %s B=29 T=61 (plan %s, time block 8): kernel %.4f ms, "
+                  "K2 %.4f ms on the same inputs" % (name, plan, k4_ms, ms))
             for label, kernel_ms, extra in (
                     ("K2", ms, {"parts_ms": parts}),
-                    ("K4", k4_ms, {"k2_ms": ms, "batch_tile": tile})):
+                    ("K4", k4_ms, {"k2_ms": ms, "plan": plan})):
                 add_layer(totals[label], per_layer[label], name, count,
                           kernel_ms, plain_ms, bound, geometry=list(geometry),
                           per_step=count, **extra)
-    # K2 alone at EXTRA_LAYERS, one routing iteration
+    # K2 and K4 at EXTRA_LAYERS, one routing iteration
     for index, (name, geometry, mask, w_std, shapes) in enumerate(
             EXTRA_LAYERS):
         in_n, out_n, out_d, in_d = geometry
@@ -770,9 +812,12 @@ def k2_phase(torch, device):
             vs = sequential_routing_cuda(u, w, b, 1, mask)
             dvs = torch.tensor(rng_case.randn(batch, seq_len, out_n, out_d),
                                dtype=torch.float32, device=device)
-            k2_held(u, w, b, vs, dvs, mask, "%s %s B=%d T=%d mask=%s%s" % (
+            where = "%s %s B=%d T=%d mask=%s%s" % (
                 name, geometry, batch, seq_len, mask,
-                large_logits(torch, u, w, b, vs, w_std)))
+                large_logits(torch, u, w, b, vs, w_std))
+            got, want = k2_held(u, w, b, vs, dvs, mask, where)
+            k4_held(u, w, b, vs, dvs, mask, "%s; plan %s" % (
+                where, scan_plan("sdr_scan_bwd", u, w)), got, want)
     torch.cuda.synchronize()
     print("K4 one backward's 7 layers at B=29 T=61: kernel %.4f ms, K2 %.4f "
           "ms, plain %.4f ms, bound %.4f ms; max |K4 - plain| %.3e, max |K4 "
@@ -1032,7 +1077,7 @@ def scan_path_phase(torch, card, state):
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.models import srf
     from srf_tpu_torch.ops.routing_cuda import (
-        SDRFunction, SDRScanFunction, sequential_routing_bwd_cuda,
+        SDRFunction, SDRScanFunction, scan_plan, sequential_routing_bwd_cuda,
         sequential_routing_cuda, sequential_routing_scan,
         sequential_routing_scan_bwd_cuda, sequential_routing_scan_cuda)
     from srf_tpu_torch.serve import Recognizer
@@ -1134,6 +1179,10 @@ def scan_path_phase(torch, card, state):
     print("scan path on the captured inputs (B=29 T'=64): 7-layer forward K3 "
           "%.4f ms, K1 %.4f ms; 7-layer backward K4 %.4f ms, K2 %.4f ms [%s]"
           % (k3_ms, k1_ms, k4_ms, k2_ms, card))
+    for i, (u, w, _, _) in enumerate(layers):
+        print("scan path layer %d plans: K3 %s; K4 %s"
+              % (i, scan_plan("sdr_scan_fwd", u, w),
+                 scan_plan("sdr_scan_bwd", u, w)))
     torch.cuda.synchronize()
     return k3, k4, {"forward_ms": k3_ms, "k1_forward_ms": k1_ms,
                     "backward_ms": k4_ms, "k2_backward_ms": k2_ms}

@@ -1,8 +1,12 @@
 // The launch plans of the SDR forward (sdr_fwd.cu, K1) and backward
 // (sdr_bwd.cu, K2): what each kernel keeps in shared memory for a capsule
-// geometry, and the tiles it takes where that does not fit whole. Host code
-// without CUDA's headers, so that any C++17 compiler can check which
-// geometries the kernels take (tests/test_torch_routing_redesign.py does).
+// geometry, and the tiles it takes where that does not fit whole; and of
+// the cluster scan (sdr_scan_fwd.cu, K3; sdr_scan_bwd.cu, K4): the batch
+// tile, the cluster, each CTA's rows and what it keeps in shared memory
+// (plan_scan, at the end). Host code without CUDA's headers, so that any
+// C++17 compiler can check which geometries the kernels take
+// (tests/test_torch_routing_redesign.py and
+// tests/test_torch_routing_scan_cluster.py do).
 //
 // Every geometry fits somewhere: the prediction kernel and the weight
 // gradient tile W[n] over its out and in entries; the recurrence kernels
@@ -280,6 +284,228 @@ inline void plan_wgrad(int rows_total, int in_n, int in_d, int out_no,
   if (chunks > rows_total) chunks = rows_total;
   p->rows_per_chunk = (rows_total + chunks - 1) / chunks;
   p->chunks = (rows_total + p->rows_per_chunk - 1) / p->rows_per_chunk;
+}
+
+// ---- The cluster scan (K3, K4) ----
+//
+// One cluster of `cluster` CTAs per batch tile of `bt` utterances. CTA q
+// owns the in-capsule rows split_begin(in_n, cluster, q) .. split_begin(..,
+// q + 1) - 1 (whole rows, so a row's softmax over out capsules stays in the
+// CTA) and the out capsules split_begin(out_n, cluster, q) ..: their sums
+// over the cluster (s; K4's carry) reach it in its inbox, one slot per
+// source rank, and it sends the results back to every CTA. Every buffer of
+// a CTA has an offset in floats; those that peers write through
+// distributed shared memory must be in shared memory, the others go there
+// in priority order while they fit and to a per-CTA region of a global
+// scratch buffer after that. W's and bias's slice and the second u_hat
+// buffer are kept only where they fit (else W is read from L2 and the
+// next step's prediction is not overlapped with the cluster barriers).
+
+constexpr int kMaxCluster = 16;   // non-portable above 8
+constexpr int kScanBars = 8;      // floats reserved for three mbarriers
+
+// Part q's first item when n items are split into `parts` contiguous parts
+// as evenly as they go (the first n % parts parts take one more).
+SDR_HOST_DEVICE inline int split_begin(int n, int parts, int q) {
+  const int base = n / parts, extra = n % parts;
+  return q * base + (q < extra ? q : extra);
+}
+
+// The part that item i falls in.
+SDR_HOST_DEVICE inline int split_owner(int n, int parts, int i) {
+  const int base = n / parts, extra = n % parts;
+  const int wide = extra * (base + 1);
+  return i < wide ? i / (base + 1) : extra + (i - wide) / base;
+}
+
+// K3's buffers, in the order they claim shared memory; peers store into
+// the first two, which must be there.
+enum ScanFwdBuf {
+  kFInbox,   // [cluster][bt][caps * out_d] partials of s, from each rank
+  kFVsum,    // [bt][rp] v_{t-1} + v_1 + ... (sent by the owners)
+  kFSOwn,    // [bt][caps * out_d] s of the owned capsules
+  kFVOwn,    // [bt][caps * out_d] sum of the v's of the owned capsules
+  kFC,       // [bt][rows][out_n] coupling coefficients
+  kFRing,    // [2][ring][bt][rows][in_d] staged u
+  kFW,       // [rows][out_no][in_d] W, then [rows][out_no] bias
+  kFUhat0,   // [bt][rows][rp] u_hat (the next step's, formed in place
+             // once the last iteration has sent its partials)
+  kFBufs
+};
+constexpr int kFMust = kFVsum + 1;
+
+// K4's buffers, in the order they claim shared memory; peers store into
+// the first three.
+enum ScanBwdBuf {
+  kBInboxS,  // [cluster][bt][caps * out_d] partials of s
+  kBInboxC,  // [cluster][bt][caps * out_d] partials of the carry
+  kBDs,      // [bt][rp] ds (sent by the owners)
+  kBSOwn,    // [bt][caps * out_d] s of the owned capsules
+  kBDvOwn,   // [bt][caps * out_d] dv of the owned capsules
+  kBCarry,   // [bt][caps * out_d] the carry into step t - 1
+  kBDvs,     // [2][bt][caps * out_d] dvs of the owned capsules, prefetched
+  kBVprev,   // [2][bt][rp] v_{t-1}, prefetched
+  kBC,       // [bt][rows][out_n] c
+  kBDa,      // [bt][rows][out_n] da
+  kBDw,      // [in_d][rows][out_no] dW, then [rows][out_no] db
+  kBUhat0,   // [bt][rows][rp] u_hat, then du_hat
+  kBRing,    // [2][ring][bt][rows][in_d] staged u
+  kBW,       // [rows][out_no][in_d] W, then [rows][out_no] bias
+  kBUhat1,   // [bt][rows][rp] u_hat of the next step
+  kBBufs
+};
+constexpr int kBMust = kBDs + 1;
+
+constexpr int kMaxScanBufs = kBBufs;
+
+// Floats between out capsules in a row of u_hat or an out vector in shared
+// memory: out_d made odd, so that a warp's lanes, one per out capsule,
+// read 32 different banks.
+SDR_HOST_DEVICE inline int cap_pitch(int out_d) { return out_d | 1; }
+
+struct ScanPlan {
+  int backward;
+  int batch, seq_len, in_n, in_d, out_n, out_d, out_no;
+  int cp, rp;      // cap_pitch(out_d), and a row's floats: out_n * cp
+  int bt;          // utterances a cluster
+  int clusters;    // batch tiles
+  int cluster;     // CTAs a cluster
+  int rows;        // most in-capsule rows a CTA owns
+  int caps;        // most out capsules a CTA owns
+  int ring;        // steps of u a ring slot stages (0: u read from global)
+  int w_resident;  // W's and bias's slice in shared memory
+  int uhat_bufs;   // K4 with 2: the next step's u_hat formed in the
+                   // barrier waits (K3 always forms it in place there)
+  size_t off[kMaxScanBufs];  // floats from the start of the region
+  int in_smem[kMaxScanBufs];
+  size_t smem_floats;    // dynamic shared memory, mbarriers included
+  size_t global_floats;  // global scratch of one CTA
+};
+
+inline size_t round4(size_t floats) { return (floats + 3) / 4 * 4; }
+
+// Floats of each buffer for this plan's bt, rows, caps and ring.
+inline void scan_sizes(const ScanPlan& p, size_t* sz) {
+  const size_t own = (size_t)p.bt * p.caps * p.out_d;
+  const size_t vec = (size_t)p.bt * p.rp;
+  const size_t coef = (size_t)p.bt * p.rows * p.out_n;
+  const size_t ring = 2 * (size_t)p.ring * p.bt * p.rows * p.in_d;
+  const size_t w = (size_t)p.rows * p.out_no * (p.in_d + 1);
+  const size_t uhat = (size_t)p.bt * p.rows * p.rp;
+  if (!p.backward) {
+    const size_t s[kFBufs] = {p.cluster * own, vec, own, own, coef,
+                              ring, w, uhat};
+    for (int i = 0; i < kFBufs; ++i) sz[i] = round4(s[i]);
+  } else {
+    const size_t s[kBBufs] = {p.cluster * own, p.cluster * own, vec, own,
+                              own, own, 2 * own, 2 * vec, coef, coef, w,
+                              uhat, ring, w, uhat};
+    for (int i = 0; i < kBBufs; ++i) sz[i] = round4(s[i]);
+  }
+}
+
+// Places the buffers for the plan's bt, rows, caps and ring: the first
+// `must` in shared memory (false if they do not fit), W and the second
+// u_hat buffer there or nowhere, the others there or in global scratch.
+inline bool scan_layout(ScanPlan* p) {
+  const int bufs = p->backward ? kBBufs : kFBufs;
+  const int must = p->backward ? kBMust : kFMust;
+  const int w_buf = p->backward ? kBW : kFW;
+  const int ring_buf = p->backward ? kBRing : kFRing;
+  const int uhat1 = p->backward ? kBUhat1 : kFBufs;  // K3 has one
+  size_t sz[kMaxScanBufs];
+  scan_sizes(*p, sz);
+  size_t smem = kScanBars, global = 0;
+  p->w_resident = 0;
+  p->uhat_bufs = 1;
+  for (int i = 0; i < bufs; ++i) {
+    if (sz[i] == 0 || smem + sz[i] <= kMaxSmemFloats) {
+      p->off[i] = smem;
+      p->in_smem[i] = 1;
+      smem += sz[i];
+      if (i == w_buf) p->w_resident = 1;
+      if (i == uhat1) p->uhat_bufs = 2;
+    } else if (i < must) {
+      return false;
+    } else {
+      p->off[i] = global;
+      p->in_smem[i] = 0;
+      if (i != w_buf && i != uhat1 && i != ring_buf) global += sz[i];
+    }
+  }
+  p->smem_floats = smem;
+  p->global_floats = global;
+  return true;
+}
+
+// CTAs a cluster: one per in-capsule row up to 16.
+SDR_HOST_DEVICE inline int cluster_for(int in_n) {
+  return in_n < kMaxCluster ? in_n : kMaxCluster;
+}
+
+// The plan for B utterances of T steps: the cluster is min(in_n, 16) CTAs
+// (fewer only where the inboxes would not fit);
+// the batch is cut into as many tiles as `max_active_clusters` clusters
+// hold at once, each of ceil(B / tiles) utterances (fewer where the
+// buffers that must be in shared memory do not fit); the ring stages as
+// many of `time_block` steps as fit beside the buffers before it (at least
+// one, else none: u is then read from global memory).
+inline bool plan_scan(bool backward, int batch, int seq_len, int in_n,
+                      int in_d, int out_n, int out_d, int time_block,
+                      int max_active_clusters, ScanPlan* p) {
+  if (batch < 1 || seq_len < 1 || in_n < 1 || in_d < 1 || out_n < 1 ||
+      out_d < 1 || time_block < 1 || max_active_clusters < 1) {
+    return false;
+  }
+  p->backward = backward;
+  p->batch = batch;
+  p->seq_len = seq_len;
+  p->in_n = in_n;
+  p->in_d = in_d;
+  p->out_n = out_n;
+  p->out_d = out_d;
+  p->out_no = out_n * out_d;
+  p->cp = cap_pitch(out_d);
+  p->rp = out_n * p->cp;
+  const int steps = time_block < seq_len ? time_block : seq_len;
+  // the largest cluster, and the largest tile, whose inboxes and sent
+  // vectors fit (every rank has an inbox slot at every owner)
+  int bt = 0;
+  for (p->cluster = cluster_for(in_n); p->cluster > 0; --p->cluster) {
+    p->rows = (in_n + p->cluster - 1) / p->cluster;
+    p->caps = (out_n + p->cluster - 1) / p->cluster;
+    p->ring = 0;
+    for (bt = (batch + max_active_clusters - 1) / max_active_clusters;
+         bt > 0; --bt) {
+      p->bt = bt;
+      if (scan_layout(p)) break;
+    }
+    if (bt > 0) break;
+  }
+  if (bt < 1) return false;
+  p->clusters = (batch + bt - 1) / bt;
+  p->bt = (batch + p->clusters - 1) / p->clusters;
+  // the longest ring that stays in shared memory, else none
+  for (p->ring = steps; p->ring > 0; --p->ring) {
+    if (scan_layout(p) && p->in_smem[backward ? kBRing : kFRing]) break;
+  }
+  if (p->ring == 0) scan_layout(p);
+  return true;
+}
+
+inline size_t scan_smem_bytes(const ScanPlan& p) {
+  return p.smem_floats * sizeof(float);
+}
+
+// Global scratch of a whole launch, in floats: every CTA's region, and for
+// K4 the clusters' partials of dW and db.
+inline size_t scan_scratch_floats(const ScanPlan& p) {
+  const size_t ctas = (size_t)p.clusters * p.cluster;
+  size_t floats = ctas * p.global_floats;
+  if (p.backward) {
+    floats += (size_t)p.clusters * p.in_n * p.out_no * (p.in_d + 1);
+  }
+  return floats;
 }
 
 }  // namespace sdr

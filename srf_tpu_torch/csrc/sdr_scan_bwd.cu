@@ -1,4 +1,4 @@
-// Time-blocked, batch-tiled SDR backward for Hopper, sm_90a: K4.
+// The cluster-scan SDR backward for Hopper, sm_90a: K4.
 //
 // Replaces the TPU kernel srf_tpu/ops/routing_pallas.py:_sdr_v6_bwd_kernel
 // (reached through _pallas_sdr_v6_bwd and the custom VJP _v6_bwd of
@@ -17,468 +17,414 @@
 //     carry  = sum_n da[n,o] * u_hat[n,o,:]            (into step t-1)
 //     dW += du_hat (x) u[b,t];  db += du_hat;  du[b,t,n,:] = W[n]^T du_hat
 //
-// Structure, as K3 (sdr_scan_fwd.cu): one block owns a batch tile of bt
-// utterances and walks time backwards in blocks of time_block steps, whose
-// u it stages in shared memory together; v_{t-1}, the dv carry, s and ds
-// of its utterances live in shared memory. Each step rebuilds u_hat in row
-// tiles (each W row loaded once for all bt utterances), in two passes as
-// K2: the logits, c and s, then the per-row backward; du is formed in the
-// step from the tile's du_hat and W. The last time block holds fewer
-// steps; no padded step exists, so none contributes.
-//
-// What makes it K4 and not a second K2: dW and db are accumulated inside
-// the kernel. No du_hat [B, T, in_n, out_n*out_d] goes through HBM and
-// there is no separate weight-gradient pass over one. The accumulator is a
-// per-block partial of dW and db (W's shape plus bias's: 0.78-1.63 MB at
-// TIMIT) in global memory, resident in L2, folded in once per time block
-// and not once per step: during a time block each step stages the factors
-// of du_hat, c and da [bt, in_n, out_n] and ds and v_{t-1} [bt, out_n *
-// out_d], in the block's slice of a scratch buffer; at the block's end one
-// thread per (n, o, i) rebuilds du_hat = c ds + da v_{t-1} for every
-// (step, utterance) of the time block and adds sum du_hat u[:, n, :] and
-// sum du_hat to its entries of the partial. A second launch sums the
-// per-block partials in block order into dW and db. No float atomics: each
-// sum has one owner and a fixed order, so two calls are bit-equal.
-//
-// Bytes, against sdr_bwd.cu's argument that a per-step accumulator reads
-// and writes all of W once per step per block (at layer 0, (180, 30, 8,
-// 8), 2 x 1.55 MB a step for one utterance against du_hat's 2 x 173 KB).
-// Per utterance-step at layer 0 with bt 2 and time_block 8:
-//   K2: du_hat written and read, 346 KB through HBM;
-//   K4: the factors written and read, 2 x 45 KB, plus the partial read and
-//       written once per time block, 2 x 1.55 MB / (8 x 2) = 194 KB: 284 KB,
-//       all in L2; and once per call the reduction reads 15 x 1.55 MB.
-// The partial's share falls as bt x time_block grows.
-//
-// The tile, chosen as K3's by plan() (u staged for time_block steps, the
-// rest per utterance: v_{t-1}, dv, s, ds, c for every row; at most 6 row
-// tiles a step for bt > 1). At TIMIT, time_block 8, B = 29:
-//   (180, 30, 8, 8)  bt 2, 15 blocks, 5 tiles of 36 rows, 219 KB
-//   ( 90, 30, 8, 8)  bt 4,  8 blocks, 5 tiles of 18 rows, 227 KB
-//   ( 90, 63, 8, 8)  bt 2, 15 blocks, 4 tiles of 23 rows, 211 KB
-// A pass over W reads blocks x |W| over the batch: 20.7, 5.5 and 21.8 MB,
-// against K2's 29 x |W|, 40.1, 20.0 and 42.1 MB. A step makes three here
-// (the two rebuilds of u_hat and du) and one or two in K2's step kernel.
-//
-// What bounds it on this card: as for K2, the serial dependence over time
-// (a step is two passes of reductions across block barriers); the bytes
-// and FLOPs are small against 3.35 TB/s and 67 TFLOP/s. wgmma, TMA and
-// clusters are later work.
+// What bounds it on this card: as for K3 (sdr_scan_fwd.cu), the chain over
+// time; the bytes and FLOPs are small (0.318 ms for the 7 SRF-TIMIT layers
+// at B=29, T'=61). K2 writes du_hat's factors through L2 and forms dW in a
+// kernel of its own; this is the other choice:
+// - The clusters and ownership are K3's (sdr_cluster.cuh): a cluster per
+//   batch tile, each CTA a slice of whole in-capsule rows and of out
+//   capsules; time runs backwards.
+// - A step: the CTA forms u_hat for its rows (the same function as K3's),
+//   the logits against v_{t-1} and c; a reduce-scatter gives each owner s
+//   on its capsules, where dv = dvs + carry and ds are formed and sent to
+//   every CTA; per row dc, da, locally; a second reduce-scatter sums the
+//   carry, which stays with the owner of its capsules for step t-1 (only
+//   the owner's ds needs it). Three cluster barriers a step.
+// - dW and db are summed where they are formed, in the CTA that owns the
+//   rows, over its utterances and every step, in shared memory (the WSJ
+//   layer 0's slice goes to a global region of its own): no du_hat,
+//   factors or per-step partial go through L2. du = W^T du_hat is formed
+//   in the step from du_hat and W. Both run between the carry barrier's
+//   arrive and its wait: off the chain over time, but not hidden by it.
+// - At the end each CTA writes its rows of its cluster's partial of dW and
+//   db; a second launch sums the clusters' partials in cluster order. No
+//   float atomics: two calls are bit-equal, and so are time blocks.
+// - W and dW do not both fit at the first and last TIMIT layers: at
+//   (180, 30, 8, 8), 104 KB each a CTA at 16 CTAs, besides u_hat (65 KB)
+//   and the rest. The plan keeps dW resident and reads W's slice from L2
+//   there (a step reads it twice, for u_hat and du); the middle layers
+//   keep both, and a second u_hat buffer, whose next step is formed in the
+//   first two barriers' waits. Chosen from the cycles: the window of dW,
+//   db and du took the same ~3 kcycles a row of the CTA a step with W in
+//   L2 (layer 0) as in shared memory (middle), so splitting over more CTAs
+//   would buy nothing the 7 resident clusters allow.
+// - What sets its pace as built: as K3, the CTA's passes; the window (du
+//   and dW, ~35-45 kcycles of ~80-100 a step at the first and last
+//   layers) most, then the prediction, the two row passes and the sends.
+//   384 threads a CTA (see kThreads).
+// - No wgmma and no TF32, as K3.
 
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
+#include "sdr_cluster.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;        // scan kernel
-constexpr int kReduceThreads = 256;   // reduction kernel
-constexpr int kMaxBatchTile = 8;      // utterances per block at most
-constexpr int kMaxTiles = 6;          // u_hat row tiles per step, bt > 1
-constexpr int kFoldJ = 8;             // dW entries per thread per fold pass
-constexpr float kPadLogit = -1e9f;    // routing.py NEG_INF
-constexpr float kSquashEps = 1e-7f;   // squash.py epsilon
-// the most dynamic shared memory one block may use on sm_90 (227 KB)
-constexpr size_t kMaxSmemBytes = 232448;
+using sdr::Cta;
+using sdr::ScanPlan;
 
-struct Geometry {
-  int in_n, in_d, out_n, out_d;
-  int bt;      // utterances per block (the batch tile)
-  int tb;      // steps of u staged at once (the time block)
-  int tile_n;  // in-capsule rows of u_hat per tile
-  int groups;  // partial sums kept per entry of s and of the carry
-  int vec4;    // W rows and u rows can be read as float4
-};
+// Threads a CTA: 384, for up to 168 registers a thread (at 448 and more
+// ptxas held the kernel to 128 registers or fewer, and the step's buffers
+// and the window's sums spilled); a host rehearsal of the device code may
+// build with fewer.
+#ifdef SDR_SCAN_THREADS
+constexpr int kThreads = SDR_SCAN_THREADS;
+#else
+constexpr int kThreads = 384;
+#endif
 
-// floats of shared memory for u_hat tiles of `rows` in-capsule rows
-size_t smem_floats(const Geometry& g, int rows) {
-  const size_t out_no = (size_t)g.out_n * g.out_d;
-  return (size_t)g.tb * g.bt * g.in_n * g.in_d         // staged u
-         + 4 * (size_t)g.bt * out_no                   // v_{t-1}, dv, s, ds
-         + (size_t)g.bt * g.in_n * g.out_n             // c, every row
-         + (size_t)rows * g.bt * (g.out_n + out_no)    // dc/da, u_hat tiles
-         + (size_t)g.groups * g.bt * out_no;           // partial sums
-}
-
-// floats one (step, utterance) stages for the fold: c, da, ds, v_{t-1}
-__host__ __device__ size_t step_floats(const Geometry& g) {
-  return 2 * (size_t)g.in_n * g.out_n + 2 * (size_t)g.out_n * g.out_d;
-}
-
-// floats of one block's partial of dW and db
-__host__ __device__ size_t partial_floats(const Geometry& g) {
-  return (size_t)g.in_n * g.out_n * g.out_d * (g.in_d + 1);
-}
-
-// Sets the batch tile `bt` and the row tile for it; returns the number of
-// row tiles a step needs, or 0 if not even one row fits.
-int fit(Geometry* g, int bt) {
-  const int out_no = g->out_n * g->out_d;
-  g->bt = bt;
-  g->groups = bt * out_no < kThreads ? kThreads / (bt * out_no) : 1;
-  const size_t budget = kMaxSmemBytes / sizeof(float);
-  const size_t fixed = smem_floats(*g, 0);
-  const size_t per_row = (size_t)bt * (g->out_n + out_no);
-  if (fixed + per_row > budget) return 0;
-  size_t max_rows = (budget - fixed) / per_row;
-  if (max_rows > (size_t)g->in_n) max_rows = g->in_n;
-  const int tiles = (g->in_n + (int)max_rows - 1) / (int)max_rows;
-  g->tile_n = (g->in_n + tiles - 1) / tiles;
-  return tiles;
-}
-
-bool plan(int batch, int seq_len, int in_n, int in_d, int out_n, int out_d,
-          int time_block, Geometry* g) {
-  if (batch < 1 || seq_len < 1 || time_block < 1 || in_n < 1 || in_d < 1 ||
-      out_n < 1 || out_d < 1) {
-    return false;
-  }
-  g->in_n = in_n;
-  g->in_d = in_d;
-  g->out_n = out_n;
-  g->out_d = out_d;
-  g->tb = time_block < seq_len ? time_block : seq_len;
-  g->vec4 = 0;
-  int bt = batch < kMaxBatchTile ? batch : kMaxBatchTile;
-  for (; bt > 1; --bt) {
-    const int tiles = fit(g, bt);
-    if (tiles > 0 && tiles <= kMaxTiles) break;
-  }
-  const int blocks = (batch + bt - 1) / bt;
-  return fit(g, (batch + blocks - 1) / blocks) > 0;
-}
-
-// u_hat of the tile's rows n0..n0+rows-1 for the nb utterances of uk
-// ([bt, in_n, in_d]): one thread per (n, o, i) loads W[n,o,i,:] and
-// bias[n,o,i] once and applies them to all of them
-__device__ void predict_tile(const float* __restrict__ w,
-                             const float* __restrict__ bias, const float* uk,
-                             float* uhat_s, int n0, int rows, int nb,
-                             const Geometry& g) {
-  const int out_no = g.out_n * g.out_d;
-  const int in_nd = g.in_n * g.in_d;
-  for (int e = threadIdx.x; e < rows * out_no; e += blockDim.x) {
-    const int r = e / out_no;
-    const int n = n0 + r;
-    const size_t row = (size_t)n * out_no + e % out_no;
-    const float* w_row = w + row * g.in_d;
-    const float bias_e = __ldg(bias + row);
-    float acc[kMaxBatchTile];
-#pragma unroll
-    for (int b = 0; b < kMaxBatchTile; ++b) acc[b] = bias_e;
-    if (g.vec4) {
-      const float4* w4 = reinterpret_cast<const float4*>(w_row);
-      for (int j = 0; j < g.in_d / 4; ++j) {
-        const float4 a = __ldg(w4 + j);
-#pragma unroll
-        for (int b = 0; b < kMaxBatchTile; ++b) {
-          if (b < nb) {
-            const float4 x = reinterpret_cast<const float4*>(
-                uk + b * in_nd + n * g.in_d)[j];
-            acc[b] = fmaf(a.x, x.x, acc[b]);
-            acc[b] = fmaf(a.y, x.y, acc[b]);
-            acc[b] = fmaf(a.z, x.z, acc[b]);
-            acc[b] = fmaf(a.w, x.w, acc[b]);
-          }
-        }
-      }
-    } else {
-      for (int j = 0; j < g.in_d; ++j) {
-        const float a = __ldg(w_row + j);
-#pragma unroll
-        for (int b = 0; b < kMaxBatchTile; ++b) {
-          if (b < nb) acc[b] = fmaf(a, uk[b * in_nd + n * g.in_d + j], acc[b]);
-        }
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < kMaxBatchTile; ++b) {
-      if (b < nb) uhat_s[(b * g.tile_n + r) * out_no + e % out_no] = acc[b];
-    }
-  }
-}
+constexpr int kReduceThreads = 256;  // reduction kernel
+constexpr int kJ = 8;                // in entries a pass of dW
+constexpr int kDuSums = 4;           // partial sums of du
 
 __global__ void __launch_bounds__(kThreads, 1)
 sdr_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ vs,
                     const float* __restrict__ dvs, float* __restrict__ du,
-                    float* stage, float* partial, int batch, int seq_len,
-                    Geometry g, int mask_pad) {
+                    float* scratch, float* partial, ScanPlan p, int mask_pad,
+                    int bulk, int vec4) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const Cta c = sdr::cta_of(p);
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int in_nd = g.in_n * g.in_d;
-  const int out_no = g.out_n * g.out_d;
-  const int in_out_n = g.in_n * g.out_n;
-  const int tiles = (g.in_n + g.tile_n - 1) / g.tile_n;
-  float* u_s = smem;                                 // [tb, bt, in_n, in_d]
-  float* vprev_s = u_s + (size_t)g.tb * g.bt * in_nd;  // [bt, out_no]
-  float* dv_s = vprev_s + g.bt * out_no;             // [bt, out_no]
-  float* s_s = dv_s + g.bt * out_no;                 // [bt, out_no]
-  float* ds_s = s_s + g.bt * out_no;                 // [bt, out_no]
-  float* c_s = ds_s + g.bt * out_no;                 // [bt, in_n, out_n]
-  float* da_s = c_s + g.bt * in_out_n;               // [bt, tile_n, out_n]
-  float* uhat_s = da_s + g.bt * g.tile_n * g.out_n;  // [bt, tile_n, out_no]
-  float* part_s = uhat_s + g.bt * g.tile_n * out_no; // [groups, nb, out_no]
+  float* global = scratch + (size_t)blockIdx.x * p.global_floats;
+  float* inbox_s = sdr::scan_buf(p, smem, global, sdr::kBInboxS);
+  float* inbox_c = sdr::scan_buf(p, smem, global, sdr::kBInboxC);
+  float* s_own = sdr::scan_buf(p, smem, global, sdr::kBSOwn);
+  float* dv_own = sdr::scan_buf(p, smem, global, sdr::kBDvOwn);
+  float* carry = sdr::scan_buf(p, smem, global, sdr::kBCarry);
+  float* dvs_own = sdr::scan_buf(p, smem, global, sdr::kBDvs);
+  float* ds = sdr::scan_buf(p, smem, global, sdr::kBDs);
+  float* vprev = sdr::scan_buf(p, smem, global, sdr::kBVprev);
+  float* coef = sdr::scan_buf(p, smem, global, sdr::kBC);
+  float* da = sdr::scan_buf(p, smem, global, sdr::kBDa);
+  float* dw_acc = sdr::scan_buf(p, smem, global, sdr::kBDw);
+  // dW [in_d][rows][out_no] (a warp's lanes on neighbouring entries), db
+  const size_t dw_stride = (size_t)p.rows * p.out_no;
+  float* db_acc = dw_acc + dw_stride * p.in_d;
+  // u_hat of step s at uhat0 + (s % 2) * uhat_gap (two buffers, else one)
+  float* uhat0 = sdr::scan_buf(p, smem, global, sdr::kBUhat0);
+  const size_t uhat_gap =
+      p.uhat_bufs == 2 ? p.off[sdr::kBUhat1] - p.off[sdr::kBUhat0] : 0;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // ring [2], W [1]
+  const int own = p.caps * p.out_d;
+  const int own_n = c.no * p.out_d;
+  const int n_own = c.nb * own_n;  // owned entries (b, k)
+  const int entries = c.nr * p.out_no;  // (r, oi) entries of the rows
+  const size_t w_floats = (size_t)entries * p.in_d;
+  const size_t in_nd = (size_t)p.in_n * p.in_d;
+  const float* wr = w + (size_t)c.n0 * p.out_no * p.in_d;
+  const float* br = bias + (size_t)c.n0 * p.out_no;
+  sdr::URing ring{p.ring ? sdr::scan_buf(p, smem, global, sdr::kBRing)
+                        : nullptr,
+                 bars, bulk};
 
-  const int b0 = blockIdx.x * g.bt;
-  const int nb = min(g.bt, batch - b0);  // utterances of this block
-  const int nb_out = nb * out_no;
-  const size_t sf = step_floats(g);
-  // this block's staged factors [tb, bt] x (c, da, ds, v_{t-1}) and its
-  // partial of dW [in_n, out_no, in_d] then db [in_n, out_no]
-  float* stage_blk = stage + blockIdx.x * (size_t)g.tb * g.bt * sf;
-  float* dw_part = partial + blockIdx.x * partial_floats(g);
-  float* db_part = dw_part + (size_t)in_out_n * g.out_d * g.in_d;
-
-  for (int q = tid; q < nb_out; q += nthr) dv_s[q] = 0.f;  // the carry
-
-  const int n_tblocks = (seq_len + g.tb - 1) / g.tb;
-  for (int kb = n_tblocks - 1; kb >= 0; --kb) {
-    // ---- stage the time block's u: u_s[k][b] = u[b0 + b, t0 + k] ----
-    const int t0 = kb * g.tb;
-    const int steps = min(g.tb, seq_len - t0);
-    for (int e = tid; e < steps * nb * in_nd; e += nthr) {
-      const int k = e / (nb * in_nd);
-      const int b = (e / in_nd) % nb;
-      const int x = e % in_nd;
-      u_s[((size_t)k * g.bt + b) * in_nd + x] =
-          u[((size_t)(b0 + b) * seq_len + t0 + k) * in_nd + x];
+  if (tid == 0) {
+    sdr::mbar_init(bars, 1);
+    sdr::mbar_init(bars + 1, 1);
+    sdr::mbar_init(bars + 2, 1);
+    sdr::mbar_fence_init();
+  }
+  __syncthreads();
+  if (p.w_resident) {
+    float* w_s = sdr::scan_buf(p, smem, global, sdr::kBW);
+    float* b_s = w_s + (size_t)p.rows * p.out_no * p.in_d;
+    if (bulk) {
+      if (tid == 0) {
+        const uint32_t w_bytes = (uint32_t)(w_floats * sizeof(float));
+        const uint32_t b_bytes = (uint32_t)(entries * sizeof(float));
+        sdr::mbar_expect_tx(bars + 2, w_bytes + b_bytes);
+        sdr::bulk_copy(w_s, wr, w_bytes, bars + 2);
+        sdr::bulk_copy(b_s, br, b_bytes, bars + 2);
+      }
+    } else {
+      for (size_t e = tid; e < w_floats; e += nthr) w_s[e] = wr[e];
+      for (int e = tid; e < entries; e += nthr) b_s[e] = br[e];
     }
+    wr = w_s;
+    br = b_s;
+  }
+  if (ring.slots) sdr::ring_fill(p, c, ring, u, 0);
 
-    for (int k = steps - 1; k >= 0; --k) {
-      const int t = t0 + k;
-      const float* uk = u_s + (size_t)k * g.bt * in_nd;
-      float* stage_k = stage_blk + (size_t)k * g.bt * sf;
-      for (int q = tid; q < nb_out; q += nthr) {
-        const size_t bt_row = (size_t)(b0 + q / out_no) * seq_len;
-        vprev_s[q] = t > 0 ? vs[(bt_row + t - 1) * out_no + q % out_no] : 0.f;
-        dv_s[q] += dvs[(bt_row + t) * out_no + q % out_no];
-      }
-      for (int q = tid; q < g.groups * nb_out; q += nthr) part_s[q] = 0.f;
-      __syncthreads();
-
-      // ---- pass 1: rebuild the logits, c and s, tile by tile ----
-      for (int n0 = 0; n0 < g.in_n; n0 += g.tile_n) {
-        const int rows = min(g.tile_n, g.in_n - n0);
-        predict_tile(w, bias, uk, uhat_s, n0, rows, nb, g);
-        __syncthreads();
-
-        // logits[b,n,o] = <u_hat[b,n,o,:], v_{t-1}[b,o,:]> (+ PAD mask)
-        for (int p = tid; p < nb * rows * g.out_n; p += nthr) {
-          const int b = p / (rows * g.out_n);
-          const int r = (p / g.out_n) % rows;
-          const int o = p % g.out_n;
-          const float* uh = uhat_s + (b * g.tile_n + r) * out_no + o * g.out_d;
-          const float* v = vprev_s + b * out_no + o * g.out_d;
-          float dot = 0.f;
-          for (int i = 0; i < g.out_d; ++i) dot = fmaf(uh[i], v[i], dot);
-          if (mask_pad && o == 0) dot += kPadLogit;
-          c_s[(b * g.in_n + n0 + r) * g.out_n + o] = dot;
-        }
-        __syncthreads();
-
-        // c = softmax over the out capsules, in place; a thread per row
-        for (int p = tid; p < nb * rows; p += nthr) {
-          float* c = c_s + ((p / rows) * g.in_n + n0 + p % rows) * g.out_n;
-          float m = c[0];
-          for (int o = 1; o < g.out_n; ++o) m = fmaxf(m, c[o]);
-          float sum = 0.f;
-          for (int o = 0; o < g.out_n; ++o) {
-            const float ex = expf(c[o] - m);
-            c[o] = ex;
-            sum += ex;
-          }
-          for (int o = 0; o < g.out_n; ++o) c[o] = c[o] / sum;
-        }
-        __syncthreads();
-
-        // s[b,o,i] += sum over the tile's rows of c * u_hat
-        for (int q = tid; q < g.groups * nb_out; q += nthr) {
-          const int grp = q / nb_out;
-          const int b = (q / out_no) % nb;
-          const int oi = q % out_no;
-          const float* c = c_s + (b * g.in_n + n0) * g.out_n + oi / g.out_d;
-          const float* uh = uhat_s + b * g.tile_n * out_no + oi;
-          float acc = part_s[q];
-          for (int r = grp; r < rows; r += g.groups) {
-            acc = fmaf(c[r * g.out_n], uh[r * out_no], acc);
-          }
-          part_s[q] = acc;
-        }
-        __syncthreads();
-      }
-      for (int q = tid; q < nb_out; q += nthr) {
-        float s = 0.f;
-        for (int grp = 0; grp < g.groups; ++grp) s += part_s[grp * nb_out + q];
-        s_s[q] = s;
-      }
-      __syncthreads();
-
-      // ---- squash backward: ds = dv f(q) + 2 s (sum_i dv s) f'(q); stage
-      //      ds, v_{t-1} and c for the fold ----
-      for (int q = tid; q < nb_out; q += nthr) {
-        const int base = (q / g.out_d) * g.out_d;
-        float sq = 0.f, dvs_dot = 0.f;
-        for (int i = 0; i < g.out_d; ++i) {
-          sq = fmaf(s_s[base + i], s_s[base + i], sq);
-          dvs_dot = fmaf(dv_s[base + i], s_s[base + i], dvs_dot);
-        }
-        const float inv_sqrt = 1.f / sqrtf(sq + kSquashEps);
-        const float ratio = sq / (1.f + sq);
-        const float f = ratio * inv_sqrt;
-        const float dfdq = inv_sqrt / ((1.f + sq) * (1.f + sq)) -
-                           0.5f * ratio * (inv_sqrt / (sq + kSquashEps));
-        const float ds = dv_s[q] * f + 2.f * s_s[q] * (dvs_dot * dfdq);
-        ds_s[q] = ds;
-        float* st = stage_k + (q / out_no) * sf + 2 * in_out_n + q % out_no;
-        st[0] = ds;
-        st[out_no] = vprev_s[q];
-      }
-      for (int e = tid; e < nb * in_out_n; e += nthr) {
-        stage_k[(e / in_out_n) * sf + e % in_out_n] = c_s[e];
-      }
-      for (int q = tid; q < g.groups * nb_out; q += nthr) part_s[q] = 0.f;
-      __syncthreads();
-
-      // ---- pass 2: the per-row backward, tile by tile ----
-      for (int n0 = 0; n0 < g.in_n; n0 += g.tile_n) {
-        const int rows = min(g.tile_n, g.in_n - n0);
-        if (tiles > 1) {
-          predict_tile(w, bias, uk, uhat_s, n0, rows, nb, g);
-          __syncthreads();
-        }
-
-        // dc[b,n,o] = <u_hat[b,n,o,:], ds[b,o,:]>
-        for (int p = tid; p < nb * rows * g.out_n; p += nthr) {
-          const int b = p / (rows * g.out_n);
-          const int r = (p / g.out_n) % rows;
-          const int o = p % g.out_n;
-          const float* uh = uhat_s + (b * g.tile_n + r) * out_no + o * g.out_d;
-          const float* ds = ds_s + b * out_no + o * g.out_d;
-          float dot = 0.f;
-          for (int i = 0; i < g.out_d; ++i) dot = fmaf(uh[i], ds[i], dot);
-          da_s[(b * g.tile_n + r) * g.out_n + o] = dot;
-        }
-        __syncthreads();
-
-        // softmax backward, in place: da = c * (dc - sum_o dc * c)
-        for (int p = tid; p < nb * rows; p += nthr) {
-          const int b = p / rows;
-          const int r = p % rows;
-          const float* c = c_s + (b * g.in_n + n0 + r) * g.out_n;
-          float* da = da_s + (b * g.tile_n + r) * g.out_n;
-          float dot = 0.f;
-          for (int o = 0; o < g.out_n; ++o) dot = fmaf(da[o], c[o], dot);
-          for (int o = 0; o < g.out_n; ++o) da[o] = c[o] * (da[o] - dot);
-        }
-        __syncthreads();
-
-        // carry[b,o,i] += sum over the tile's rows of da * u_hat
-        for (int q = tid; q < g.groups * nb_out; q += nthr) {
-          const int grp = q / nb_out;
-          const int b = (q / out_no) % nb;
-          const int oi = q % out_no;
-          const float* da = da_s + b * g.tile_n * g.out_n + oi / g.out_d;
-          const float* uh = uhat_s + b * g.tile_n * out_no + oi;
-          float acc = part_s[q];
-          for (int r = grp; r < rows; r += g.groups) {
-            acc = fmaf(da[r * g.out_n], uh[r * out_no], acc);
-          }
-          part_s[q] = acc;
-        }
-        // stage da for the fold
-        for (int p = tid; p < nb * rows * g.out_n; p += nthr) {
-          const int b = p / (rows * g.out_n);
-          const int r = (p / g.out_n) % rows;
-          stage_k[b * sf + in_out_n + (n0 + r) * g.out_n + p % g.out_n] =
-              da_s[(b * g.tile_n + r) * g.out_n + p % g.out_n];
-        }
-        // du[b,t,n,j] = sum_oi du_hat[b,n,oi] W[n,oi,j], du_hat = c ds +
-        // da v_{t-1}; one thread per (b, n, j)
-        for (int p = tid; p < nb * rows * g.in_d; p += nthr) {
-          const int b = p / (rows * g.in_d);
-          const int r = (p / g.in_d) % rows;
-          const int j = p % g.in_d;
-          const int n = n0 + r;
-          const float* c = c_s + (b * g.in_n + n) * g.out_n;
-          const float* da = da_s + (b * g.tile_n + r) * g.out_n;
-          const float* ds = ds_s + b * out_no;
-          const float* vp = vprev_s + b * out_no;
-          const float* w_nj = w + (size_t)n * out_no * g.in_d + j;
-          float acc = 0.f;
-          for (int oi = 0; oi < out_no; ++oi) {
-            const int o = oi / g.out_d;
-            const float dh = fmaf(c[o], ds[oi], da[o] * vp[oi]);
-            acc = fmaf(dh, __ldg(w_nj + (size_t)oi * g.in_d), acc);
-          }
-          du[((size_t)(b0 + b) * seq_len + t) * in_nd + n * g.in_d + j] = acc;
-        }
-        __syncthreads();
-      }
-      for (int q = tid; q < nb_out; q += nthr) {
-        float carry = 0.f;
-        for (int grp = 0; grp < g.groups; ++grp) {
-          carry += part_s[grp * nb_out + q];
-        }
-        dv_s[q] = carry;
-      }
-      __syncthreads();
+  // v_{t-1} and the owned entries of dvs at processing step s, into slot
+  // s % 2 of their buffers
+  auto load_inputs = [&](int s) {
+    const int t = p.seq_len - 1 - s;
+    float* vp = vprev + (size_t)(s % 2) * p.bt * p.rp;
+    for (int e = tid; e < c.nb * p.out_no; e += nthr) {
+      const int b = e / p.out_no;
+      const int oi = e - b * p.out_no;
+      const int o = oi / p.out_d;
+      const size_t row = (size_t)(c.b0 + b) * p.seq_len;
+      vp[(size_t)b * p.rp + o * p.cp + oi - o * p.out_d] =
+          t > 0 ? vs[(row + t - 1) * p.out_no + oi] : 0.f;
     }
+    float* dv_in = dvs_own + (size_t)(s % 2) * p.bt * own;
+    for (int e = tid; e < n_own; e += nthr) {
+      const int b = e / own_n;
+      const int k = e % own_n;
+      dv_in[b * own + k] =
+          dvs[((size_t)(c.b0 + b) * p.seq_len + t) * p.out_no +
+              (size_t)c.o0 * p.out_d + k];
+    }
+  };
+  load_inputs(0);
+  for (int e = tid; e < p.bt * own; e += nthr) carry[e] = 0.f;
+  for (size_t e = tid; e < dw_stride * (p.in_d + 1); e += nthr) {
+    dw_acc[e] = 0.f;
+  }
+  // every CTA of the cluster has started
+  sdr::cluster_arrive();
+  sdr::cluster_wait();
+  if (p.w_resident && bulk) sdr::mbar_wait(bars + 2, 0);
 
-    // ---- fold the time block into the block's partial of dW and db: one
-    //      thread per (n, o, i), over the block's steps and utterances ----
-    const bool first = kb == n_tblocks - 1;
-    for (int e = tid; e < in_out_n * g.out_d; e += nthr) {
-      const int n = e / out_no;
-      const int oi = e % out_no;
-      const int c_at = n * g.out_n + oi / g.out_d;
-      for (int j0 = 0; j0 < g.in_d; j0 += kFoldJ) {
-        float acc[kFoldJ];
-#pragma unroll
-        for (int jj = 0; jj < kFoldJ; ++jj) acc[jj] = 0.f;
-        float acc_b = 0.f;
-        for (int k = 0; k < steps; ++k) {
-          for (int b = 0; b < nb; ++b) {
-            const float* st = stage_blk + ((size_t)k * g.bt + b) * sf;
-            const float dh = fmaf(st[c_at], st[2 * in_out_n + oi],
-                                  st[in_out_n + c_at] *
-                                      st[2 * in_out_n + out_no + oi]);
-            acc_b += dh;
-            const float* uu =
-                u_s + ((size_t)k * g.bt + b) * in_nd + n * g.in_d + j0;
-#pragma unroll
-            for (int jj = 0; jj < kFoldJ; ++jj) {
-              if (j0 + jj < g.in_d) acc[jj] = fmaf(dh, uu[jj], acc[jj]);
-            }
-          }
-        }
-        float* dw_e = dw_part + (size_t)e * g.in_d + j0;
-#pragma unroll
-        for (int jj = 0; jj < kFoldJ; ++jj) {
-          if (j0 + jj < g.in_d) dw_e[jj] = (first ? 0.f : dw_e[jj]) + acc[jj];
-        }
-        if (j0 == 0) db_part[e] = (first ? 0.f : db_part[e]) + acc_b;
+  const float pad = mask_pad ? sdr::kPadLogit : 0.f;
+  const bool du8 = vec4 && p.in_d == 8 && p.out_d == 8;
+  int ready = -1;  // the ring block waited for
+  for (int s = 0; s < p.seq_len; ++s) {
+    const int t = p.seq_len - 1 - s;
+    float* uh = uhat0 + (s % 2) * uhat_gap;
+    const float* vp = vprev + (size_t)(s % 2) * p.bt * p.rp;
+    const float* dv_in = dvs_own + (size_t)(s % 2) * p.bt * own;
+    const bool ahead = p.uhat_bufs == 2 && s + 1 < p.seq_len;
+    if (ring.slots && s % p.ring == 0 && s + p.ring < p.seq_len) {
+      sdr::ring_fill(p, c, ring, u, s / p.ring + 1);
+    }
+    if (p.uhat_bufs == 1 || s == 0) {
+      sdr::predict_rows(p, c, wr, br, sdr::ring_rows(p, c, ring, u, s, &ready),
+                        uh, 0, entries, vec4);
+    }
+    __syncthreads();
+
+    // ---- recompute c, then s by a reduce-scatter ----
+    sdr::rows_pass<false>(p, c, uh, vp, pad, nullptr, coef);
+    __syncthreads();
+    sdr::send_partials(p, c, coef, uh, inbox_s);
+    sdr::cluster_arrive();
+    if (ahead) {  // the first half of the next step's u_hat
+      sdr::predict_rows(p, c, wr, br,
+                        sdr::ring_rows(p, c, ring, u, s + 1, &ready),
+                        uhat0 + ((s + 1) % 2) * uhat_gap, 0, entries / 2,
+                        vec4);
+    }
+    sdr::cluster_wait();
+
+    // ---- the owner: s in rank order, dv = dvs + carry, ds to every CTA --
+    for (int e = tid; e < n_own; e += nthr) {
+      const int at = e / own_n * own + e % own_n;
+      s_own[at] = sdr::inbox_sum(p, inbox_s, e / own_n, e % own_n);
+      dv_own[at] = dv_in[at] + carry[at];
+    }
+    __syncthreads();
+    for (int e = tid; e < n_own; e += nthr) {
+      const int b = e / own_n;
+      const int k = e % own_n;
+      const int base = b * own + k / p.out_d * p.out_d;
+      float sq = 0.f, dot = 0.f;
+      for (int i = 0; i < p.out_d; ++i) {
+        sq = fmaf(s_own[base + i], s_own[base + i], sq);
+        dot = fmaf(dv_own[base + i], s_own[base + i], dot);
+      }
+      const float inv_sqrt = 1.f / sqrtf(sq + sdr::kSquashEps);
+      const float ratio = sq / (1.f + sq);
+      const float f = ratio * inv_sqrt;
+      const float dfdq = inv_sqrt / ((1.f + sq) * (1.f + sq)) -
+                         0.5f * ratio * (inv_sqrt / (sq + sdr::kSquashEps));
+      const int at = b * own + k;
+      sdr::send_all(p, c, ds, b, k,
+                    dv_own[at] * f + 2.f * s_own[at] * (dot * dfdq));
+    }
+    sdr::cluster_arrive();
+    if (ahead) {  // the second half
+      sdr::predict_rows(p, c, wr, br,
+                        sdr::ring_rows(p, c, ring, u, s + 1, &ready),
+                        uhat0 + ((s + 1) % 2) * uhat_gap, entries / 2,
+                        entries, vec4);
+    }
+    sdr::cluster_wait();
+
+    // ---- per row: da; then the carry by a reduce-scatter ----
+    sdr::rows_pass<true>(p, c, uh, ds, 0.f, coef, da);
+    __syncthreads();
+    sdr::send_partials(p, c, da, uh, inbox_c);
+    sdr::cluster_arrive();
+
+    // ---- off the chain: du_hat (in place of u_hat), dW, db, du ----
+    __syncthreads();  // every thread is done reading u_hat
+    for (int e = tid; e < entries; e += nthr) {
+      const int r = e / p.out_no;
+      const int oi = e - r * p.out_no;
+      const int o = oi / p.out_d;
+      const int x = o * p.cp + oi - o * p.out_d;
+      const size_t c_step = (size_t)p.rows * p.out_n;
+      const size_t h_step = (size_t)p.rows * p.rp;
+      const float* cf = coef + (size_t)r * p.out_n + o;
+      const float* af = da + (size_t)r * p.out_n + o;
+      const float* dsb = ds + x;
+      const float* vpb = vp + x;
+      float* dh = uh + (size_t)r * p.rp + x;
+      for (int b = 0; b < c.nb; ++b) {
+        *dh = fmaf(*cf, *dsb, *af * *vpb);
+        cf += c_step;
+        af += c_step;
+        dsb += p.rp;
+        vpb += p.rp;
+        dh += h_step;
       }
     }
     __syncthreads();
+    const sdr::URows ur = sdr::ring_rows(p, c, ring, u, s, &ready);
+    // dW[r,oi,:] += sum_b du_hat[b,r,oi] u[b,r,:]; db[r,oi] += sum_b du_hat
+    for (int e = tid; e < entries; e += nthr) {
+      const int r = e / p.out_no;
+      const int oi = e - r * p.out_no;
+      const int o = oi / p.out_d;
+      const float* dh = uh + (size_t)r * p.rp + o * p.cp + oi - o * p.out_d;
+      const float* u_r = ur.base + (size_t)r * p.in_d;
+      float dsum = db_acc[e];
+      for (int b = 0; b < c.nb; ++b) dsum += dh[(size_t)b * p.rows * p.rp];
+      db_acc[e] = dsum;
+      for (int j0 = 0; j0 < p.in_d; j0 += kJ) {
+        float acc[kJ];
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          acc[jj] = j0 + jj < p.in_d ? dw_acc[(j0 + jj) * dw_stride + e] : 0.f;
+        }
+        if (vec4 && p.in_d == kJ) {
+          for (int b = 0; b < c.nb; ++b) {
+            const float d = dh[(size_t)b * p.rows * p.rp];
+            const float4* u4 =
+                reinterpret_cast<const float4*>(u_r + b * ur.b_stride);
+            const float4 xa = u4[0], xb = u4[1];
+            acc[0] = fmaf(d, xa.x, acc[0]);
+            acc[1] = fmaf(d, xa.y, acc[1]);
+            acc[2] = fmaf(d, xa.z, acc[2]);
+            acc[3] = fmaf(d, xa.w, acc[3]);
+            acc[4] = fmaf(d, xb.x, acc[4]);
+            acc[5] = fmaf(d, xb.y, acc[5]);
+            acc[6] = fmaf(d, xb.z, acc[6]);
+            acc[7] = fmaf(d, xb.w, acc[7]);
+          }
+        } else {
+          for (int b = 0; b < c.nb; ++b) {
+            const float d = dh[(size_t)b * p.rows * p.rp];
+            const float* urow = u_r + b * ur.b_stride + j0;
+#pragma unroll
+            for (int jj = 0; jj < kJ; ++jj) {
+              if (j0 + jj < p.in_d) acc[jj] = fmaf(d, urow[jj], acc[jj]);
+            }
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          if (j0 + jj < p.in_d) dw_acc[(j0 + jj) * dw_stride + e] = acc[jj];
+        }
+      }
+    }
+    // du[b,t,n,j] = sum_oi du_hat[b,r,oi] W[r,oi,j]
+    if (du8) {
+      // in_d == out_d == 8: a warp per (b, r), a lane per out entry (W's
+      // row in two float4s), then the warp sum of all eight j at once
+      const int lane = tid % 32;
+      for (int item = tid / 32; item < c.nb * c.nr; item += nthr / 32) {
+        const int b = item / c.nr;
+        const int r = item - b * c.nr;
+        const float* dh = uh + ((size_t)b * p.rows + r) * p.rp;
+        const float* w_r = wr + (size_t)r * p.out_no * 8;
+        float acc[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+#pragma unroll 2
+        for (int oi = lane; oi < p.out_no; oi += 32) {
+          const float d = dh[(oi >> 3) * 9 + (oi & 7)];
+          const float4 wa = reinterpret_cast<const float4*>(w_r + oi * 8)[0];
+          const float4 wb = reinterpret_cast<const float4*>(w_r + oi * 8)[1];
+          acc[0] = fmaf(d, wa.x, acc[0]);
+          acc[1] = fmaf(d, wa.y, acc[1]);
+          acc[2] = fmaf(d, wa.z, acc[2]);
+          acc[3] = fmaf(d, wa.w, acc[3]);
+          acc[4] = fmaf(d, wb.x, acc[4]);
+          acc[5] = fmaf(d, wb.y, acc[5]);
+          acc[6] = fmaf(d, wb.z, acc[6]);
+          acc[7] = fmaf(d, wb.w, acc[7]);
+        }
+        const float mine = sdr::warp_sum8(acc, lane);  // du[.., lane >> 2]
+        if (lane % 4 == 0) {
+          du[((size_t)(c.b0 + b) * p.seq_len + t) * in_nd +
+             (size_t)(c.n0 + r) * 8 + lane / 4] = mine;
+        }
+      }
+    } else {
+      // a thread per (b, r, j) (neighbouring lanes on neighbouring j),
+      // kDuSums sums over interleaved out capsules added in order at the end
+      for (int e = tid; e < c.nb * c.nr * p.in_d; e += nthr) {
+        const int br_ = e / p.in_d;
+        const int j = e - br_ * p.in_d;
+        const int b = br_ / c.nr;
+        const int r = br_ - b * c.nr;
+        const float* dh = uh + ((size_t)b * p.rows + r) * p.rp;
+        const float* w_r = wr + (size_t)r * p.out_no * p.in_d + j;
+        float acc[kDuSums];
+#pragma unroll
+        for (int k = 0; k < kDuSums; ++k) acc[k] = 0.f;
+        for (int o0 = 0; o0 < p.out_n; o0 += kDuSums) {
+#pragma unroll
+          for (int k = 0; k < kDuSums; ++k) {
+            const int o = o0 + k;
+            if (o < p.out_n) {
+              const float* w_o = w_r + (size_t)o * p.out_d * p.in_d;
+              for (int i = 0; i < p.out_d; ++i) {
+                acc[k] = fmaf(dh[o * p.cp + i], w_o[(size_t)i * p.in_d],
+                              acc[k]);
+              }
+            }
+          }
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < kDuSums; ++k) sum += acc[k];
+        du[((size_t)(c.b0 + b) * p.seq_len + t) * in_nd +
+           (size_t)(c.n0 + r) * p.in_d + j] = sum;
+      }
+    }
+    if (s + 1 < p.seq_len) load_inputs(s + 1);
+    __syncthreads();  // the window's reads are done before u_hat is rebuilt
+    sdr::cluster_wait();
+    for (int e = tid; e < n_own; e += nthr) {
+      carry[e / own_n * own + e % own_n] =
+          sdr::inbox_sum(p, inbox_c, e / own_n, e % own_n);
+    }
+  }
+
+  // this CTA's rows of its cluster's partial of dW, then of db
+  float* dw_part = partial + (size_t)c.tile * p.in_n * p.out_no * (p.in_d + 1);
+  float* db_part = dw_part + (size_t)p.in_n * p.out_no * p.in_d;
+  for (size_t e = tid; e < w_floats; e += nthr) {
+    const size_t entry = e / p.in_d;  // r * out_no + oi
+    dw_part[(size_t)c.n0 * p.out_no * p.in_d + e] =
+        dw_acc[(e - entry * p.in_d) * dw_stride + entry];
+  }
+  for (int e = tid; e < entries; e += nthr) {
+    db_part[(size_t)c.n0 * p.out_no + e] = db_acc[e];
   }
 }
 
-// dW and db: the sum of the blocks' partials, in block order; one thread
-// per entry
+// dW and db: the sum of the clusters' partials, in cluster order; one
+// thread per entry
 __global__ void __launch_bounds__(kReduceThreads)
 sdr_scan_bwd_reduce_kernel(const float* __restrict__ partial,
                            float* __restrict__ dw, float* __restrict__ db,
-                           int blocks, int dw_size, int db_size) {
-  const int per_block = dw_size + db_size;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < per_block;
+                           int clusters, int dw_size, int db_size) {
+  const int per_cluster = dw_size + db_size;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < per_cluster;
        e += gridDim.x * blockDim.x) {
     float sum = 0.f;
-    for (int blk = 0; blk < blocks; ++blk) {
-      sum += partial[(size_t)blk * per_block + e];
+    for (int k = 0; k < clusters; ++k) {
+      sum += partial[(size_t)k * per_cluster + e];
     }
     if (e < dw_size) {
       dw[e] = sum;
@@ -488,51 +434,61 @@ sdr_scan_bwd_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
+// The plan for this problem on the current device, or false.
+bool plan_for(int batch, int seq_len, int in_n, int in_d, int out_n,
+              int out_d, int time_block, ScanPlan* p) {
+  const int cluster = sdr::cluster_for(in_n);
+  const int clusters = sdr::max_active_clusters(
+      (const void*)sdr_scan_bwd_kernel, cluster, kThreads);
+  return clusters > 0 &&
+         sdr::plan_scan(true, batch, seq_len, in_n, in_d, out_n, out_d,
+                        time_block, clusters, p);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Utterances per block the kernel takes for this problem, or -1 if the
-// geometry does not fit in one block's shared memory.
-int sdr_scan_bwd_batch_tile(int batch, int seq_len, int in_n, int in_d,
-                            int out_n, int out_d, int time_block) {
-  Geometry g;
-  if (!plan(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &g)) {
+// The plan's fields, or -1 if the problem has none:
+// [bt, clusters, cluster, rows, w_resident, uhat_bufs, ring, smem bytes].
+int sdr_scan_bwd_plan(int batch, int seq_len, int in_n, int in_d, int out_n,
+                      int out_d, int time_block, int* fields) {
+  ScanPlan p;
+  if (!plan_for(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &p)) {
     return -1;
   }
-  return g.bt;
+  sdr::plan_fields(p, fields);
+  return 0;
 }
 
-// Bytes of dynamic shared memory the scan kernel needs for this problem,
-// or -1 if it does not fit in one block.
+// Bytes of dynamic shared memory the scan kernel needs, or -1.
 int sdr_scan_bwd_smem_bytes(int batch, int seq_len, int in_n, int in_d,
                             int out_n, int out_d, int time_block) {
-  Geometry g;
-  if (!plan(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &g)) {
+  ScanPlan p;
+  if (!plan_for(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &p)) {
     return -1;
   }
-  return (int)(smem_floats(g, g.tile_n) * sizeof(float));
+  return (int)sdr::scan_smem_bytes(p);
 }
 
-// Floats of the scratch buffer sdr_scan_bwd needs (every block's staged
-// factors, then every block's partial of dW and db), or -1.
+// Floats of the scratch buffer sdr_scan_bwd needs (the CTAs' buffers that
+// do not fit in shared memory, then every cluster's partial of dW and db),
+// or -1.
 long long sdr_scan_bwd_scratch_floats(int batch, int seq_len, int in_n,
                                       int in_d, int out_n, int out_d,
                                       int time_block) {
-  Geometry g;
-  if (!plan(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &g)) {
+  ScanPlan p;
+  if (!plan_for(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &p)) {
     return -1;
   }
-  const long long blocks = (batch + g.bt - 1) / g.bt;
-  return blocks * ((long long)g.tb * g.bt * step_floats(g) +
-                   (long long)partial_floats(g));
+  return (long long)sdr::scan_scratch_floats(p);
 }
 
 // u [batch, seq_len, in_n, in_d], w [in_n, out_n, out_d, in_d],
 // bias [in_n, out_n, out_d], the forward's output vs and its cotangent dvs
 // [batch, seq_len, out_n, out_d] -> du (shape of u), dw (of w), db (of
 // bias); scratch holds sdr_scan_bwd_scratch_floats floats. float32,
-// contiguous, on the current device. Launches the scan kernel and the
+// contiguous, on the current device. Launches the cluster scan and the
 // reduction on `stream` and returns the first launch error (0 on success);
 // does not synchronise.
 int sdr_scan_bwd(const float* u, const float* w, const float* bias,
@@ -540,24 +496,23 @@ int sdr_scan_bwd(const float* u, const float* w, const float* bias,
                  float* db, float* scratch, int batch, int seq_len, int in_n,
                  int in_d, int out_n, int out_d, int mask_pad, int time_block,
                  void* stream) {
-  Geometry g;
-  if (!plan(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &g)) {
+  ScanPlan p;
+  if (!plan_for(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &p)) {
     return (int)cudaErrorInvalidValue;
   }
-  g.vec4 = (in_d % 4 == 0) && ((uintptr_t)w % 16 == 0);
+  const int bulk = sdr::scan_bulk_ok(p, u, w, bias);
+  const int vec4 = p.in_d % 4 == 0 && (uintptr_t)u % 16 == 0 &&
+                   (uintptr_t)w % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (batch + g.bt - 1) / g.bt;
-  float* partial = scratch + (size_t)blocks * g.tb * g.bt * step_floats(g);
-
-  const size_t smem = smem_floats(g, g.tile_n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sdr_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sdr_scan_bwd_kernel<<<blocks, kThreads, smem, s>>>(
-      u, w, bias, vs, dvs, du, scratch, partial, batch, seq_len, g,
-      mask_pad);
-  err = cudaGetLastError();
+  float* partial =
+      scratch + (size_t)p.clusters * p.cluster * p.global_floats;
+  cudaError_t err = sdr::launch_cluster(
+      (const void*)sdr_scan_bwd_kernel, p, kThreads, s,
+      [&](cudaLaunchConfig_t* cfg) {
+        return cudaLaunchKernelEx(cfg, sdr_scan_bwd_kernel, u, w, bias, vs,
+                                  dvs, du, scratch, partial, p, mask_pad,
+                                  bulk, vec4);
+      });
   if (err != cudaSuccess) return (int)err;
 
   const int db_size = in_n * out_n * out_d;
@@ -565,7 +520,7 @@ int sdr_scan_bwd(const float* u, const float* w, const float* bias,
   int grid = (dw_size + db_size + kReduceThreads - 1) / kReduceThreads;
   if (grid > 1024) grid = 1024;
   sdr_scan_bwd_reduce_kernel<<<grid, kReduceThreads, 0, s>>>(
-      partial, dw, db, blocks, dw_size, db_size);
+      partial, dw, db, p.clusters, dw_size, db_size);
   return (int)cudaGetLastError();
 }
 

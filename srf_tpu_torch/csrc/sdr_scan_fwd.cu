@@ -1,4 +1,4 @@
-// Time-blocked, batch-tiled SDR forward for Hopper, sm_90a: K3.
+// The cluster-scan SDR forward for Hopper, sm_90a: K3.
 //
 // Replaces the TPU kernel srf_tpu/ops/routing_pallas.py:_sdr_v6_fwd_kernel
 // (step _v6_step; reached through _pallas_sdr_v6 and
@@ -17,337 +17,265 @@
 //     out[b,t] = v
 //
 // Iteration k's logits are <u_hat, v_{t-1} + v_1 + ... + v_k> (+ k times
-// the mask): the kernel keeps that sum of v's (vsum) and never stores the
-// logits, so u_hat is built, scored, soft-maxed and folded into s one tile
-// of in-capsule rows at a time, and rebuilt for each further iteration.
+// the mask): the kernel keeps that sum of v's (vsum) and never the logits.
 //
-// What makes it K3 and not a second K1 is its structure:
-// - Batch tile. One block owns `bt` utterances. Each W row it loads (in_d
-//   floats, by one thread) is applied to all of them before it is dropped,
-//   so a step reads W from L2 once per block, where K1 reads it once per
-//   utterance.
-// - Time block. `time_block` steps of u for the block's utterances are
-//   staged in shared memory together, and the time loop runs inside the
-//   block; v stays in shared memory across the whole scan.
-// Padding to the batch tile and to the time block is the kernel's own: the
-// last tile holds fewer utterances and the last time block fewer steps.
-//
-// The tile. plan() takes the largest bt <= 8 (and <= B) for which the
-// staged u, v, vsum, s and the partial sums leave room in the 227 KB of
-// shared memory for a u_hat row tile such that a step needs at most 6
-// tiles, then spreads B evenly over ceil(B / bt) blocks. At the TIMIT
-// geometries (in_n, out_n, out_d, in_d), time_block 8, B = 29:
-//   (180, 30, 8, 8)  bt 2, 15 blocks, 3 tiles of 60 rows, 226 KB
-//   ( 90, 30, 8, 8)  bt 5,  6 blocks, 5 tiles of 18 rows, 226 KB
-//   ( 90, 63, 8, 8)  bt 3, 10 blocks, 5 tiles of 18 rows, 211 KB
-// Bytes of W (and bias, 1/8 more) each step reads from L2, per routing
-// iteration, over the whole batch: blocks x |W|. K1: 29 x |W|.
-//   (180, 30, 8, 8)  |W| 1.38 MB: K3 20.7 MB, K1 40.1 MB
-//   ( 90, 30, 8, 8)  |W| 0.69 MB: K3  4.1 MB, K1 20.0 MB
-//   ( 90, 63, 8, 8)  |W| 1.45 MB: K3 14.5 MB, K1 42.1 MB
-//
-// What bounds it on this card: as for K1, the serial dependence over time.
-// Step t needs v_{t-1}, and a step is a chain of reductions across block
-// barriers (4 per row tile per iteration); the bytes and FLOPs are small
-// against 3.35 TB/s and 67 TFLOP/s. The batch tile cuts the L2 traffic of
-// W by bt, but a block now does bt utterances' arithmetic per step, and
-// fewer SMs are busy (15, 6 and 10 of 132 at B = 29 against K1's 29).
-// wgmma, TMA and clusters are later work.
+// What bounds it on this card: the chain over time. Step t needs v_{t-1},
+// and the bytes (u, W, bias read once, out written once) and FLOPs are
+// small against 3.35 TB/s and 67 TFLOP/s: 0.113 ms for the 7 SRF-TIMIT
+// layers at B=29, T'=64. The design (K1 hoists u_hat into a kernel of its
+// own and streams it through HBM; this is the other choice):
+// - One thread-block cluster per batch tile of bt utterances (plan_scan in
+//   sdr_plan.cuh: at B=29 with 7 clusters of 16 CTAs resident at once, bt
+//   5 over 6 clusters, 96 SMs). CTA q owns a contiguous slice of whole
+//   in-capsule rows (180/16 or 90/16 at TIMIT), so a row's softmax stays
+//   in the CTA, and a slice of out capsules.
+// - W's and bias's slice stays in shared memory for the whole scan
+//   (brought in by TMA bulk copies at launch: 104 / 52 / 109 KB a CTA at
+//   the three TIMIT layers), and each step forms u_hat for the CTA's rows
+//   and utterances from it: no u_hat goes through HBM or L2, and W is read
+//   from L2 once per launch. Where the slice does not fit (the WSJ layer
+//   0), W is read from L2 each step.
+// - u is staged a time block at a time into a two-slot ring by bulk copies
+//   (one thread issues them a block ahead; an mbarrier reports them).
+// - s is summed across the cluster by a reduce-scatter through distributed
+//   shared memory (sdr_cluster.cuh): each CTA stores its rows' share of
+//   each out capsule into the owner's inbox, the owner adds the shares in
+//   rank order, squashes, and stores v (vsum) into every CTA. Two cluster
+//   barriers an iteration; inside a step each CTA's wait reads only
+//   ~0.4-0.5 kcycles on the H100 (tools/sdr_phase_cycles.py).
+// - The next step's u_hat, which does not depend on v, is formed in place
+//   between each of the last iteration's two barriers' arrive and its wait
+//   (once the CTA has sent its partials, nothing reads this step's).
+// - What sets its pace as built: the CTA's own passes, not the barriers
+//   or the bytes. At the first TIMIT layer a step is ~20-25 kcycles of
+//   block 0 (the prediction ~7, the rows' softmax ~5, the partials and
+//   their sends ~4, the owners' sums, squash and sends ~3): ~7 % of the
+//   SM's float32 FMA rate, with 16 warps a CTA and the loads generic (a
+//   buffer may be in global memory).
+// - Determinism: every sum has one owner and a fixed order, and
+//   time_block only sets how many steps a ring slot stages, so the output
+//   is bit-equal across calls and time blocks.
+// - No wgmma and no TF32: the contraction depth is in_d = 8, each product
+//   of the chain depends on v, and the float32 limits the kernels are held
+//   to (rtol 1e-4 / atol 1e-5) exclude TF32.
 
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
+#include "sdr_cluster.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kMaxBatchTile = 8;      // utterances per block at most
-constexpr int kMaxTiles = 6;          // u_hat row tiles per step, bt > 1
-constexpr float kPadLogit = -1e9f;    // routing.py NEG_INF
-constexpr float kSquashEps = 1e-7f;   // squash.py epsilon
-// the most dynamic shared memory one block may use on sm_90 (227 KB)
-constexpr size_t kMaxSmemBytes = 232448;
+using sdr::Cta;
+using sdr::ScanPlan;
 
-struct Geometry {
-  int in_n, in_d, out_n, out_d;
-  int bt;      // utterances per block (the batch tile)
-  int tb;      // steps of u staged at once (the time block)
-  int tile_n;  // in-capsule rows of u_hat per tile
-  int groups;  // partial sums kept per entry of s
-  int vec4;    // W rows and u rows can be read as float4
-};
-
-// floats of shared memory for u_hat tiles of `rows` in-capsule rows
-size_t smem_floats(const Geometry& g, int rows) {
-  const size_t out_no = (size_t)g.out_n * g.out_d;
-  return (size_t)g.tb * g.bt * g.in_n * g.in_d         // staged u
-         + 3 * (size_t)g.bt * out_no                   // v, vsum, s
-         + (size_t)rows * g.bt * (g.out_n + out_no)    // c and u_hat tiles
-         + (size_t)g.groups * g.bt * out_no;           // partial sums of s
-}
-
-// Sets the batch tile `bt` and the row tile for it; returns the number of
-// row tiles a step needs, or 0 if not even one row fits.
-int fit(Geometry* g, int bt) {
-  const int out_no = g->out_n * g->out_d;
-  g->bt = bt;
-  g->groups = bt * out_no < kThreads ? kThreads / (bt * out_no) : 1;
-  const size_t budget = kMaxSmemBytes / sizeof(float);
-  const size_t fixed = smem_floats(*g, 0);
-  const size_t per_row = (size_t)bt * (g->out_n + out_no);
-  if (fixed + per_row > budget) return 0;
-  size_t max_rows = (budget - fixed) / per_row;
-  if (max_rows > (size_t)g->in_n) max_rows = g->in_n;
-  // balance the tiles: ceil(in_n / tiles) rows each
-  const int tiles = (g->in_n + (int)max_rows - 1) / (int)max_rows;
-  g->tile_n = (g->in_n + tiles - 1) / tiles;
-  return tiles;
-}
-
-bool plan(int batch, int seq_len, int in_n, int in_d, int out_n, int out_d,
-          int time_block, Geometry* g) {
-  if (batch < 1 || seq_len < 1 || time_block < 1 || in_n < 1 || in_d < 1 ||
-      out_n < 1 || out_d < 1) {
-    return false;
-  }
-  g->in_n = in_n;
-  g->in_d = in_d;
-  g->out_n = out_n;
-  g->out_d = out_d;
-  g->tb = time_block < seq_len ? time_block : seq_len;
-  g->vec4 = 0;
-  int bt = batch < kMaxBatchTile ? batch : kMaxBatchTile;
-  for (; bt > 1; --bt) {
-    const int tiles = fit(g, bt);
-    if (tiles > 0 && tiles <= kMaxTiles) break;
-  }
-  // the same number of blocks, with the utterances spread evenly over them
-  const int blocks = (batch + bt - 1) / bt;
-  return fit(g, (batch + blocks - 1) / blocks) > 0;
-}
+// Threads a CTA: 512, for up to 128 registers a thread (at 1024, 64
+// registers, the step's buffers spilled); a host rehearsal of the device
+// code may build with fewer.
+#ifdef SDR_SCAN_THREADS
+constexpr int kThreads = SDR_SCAN_THREADS;
+#else
+constexpr int kThreads = 512;
+#endif
 
 __global__ void __launch_bounds__(kThreads, 1)
 sdr_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__ w,
                     const float* __restrict__ bias, float* __restrict__ out,
-                    int batch, int seq_len, Geometry g, int num_iter,
-                    int mask_pad) {
+                    float* scratch, ScanPlan p, int num_iter, int mask_pad,
+                    int bulk, int vec4) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const Cta c = sdr::cta_of(p);
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int in_nd = g.in_n * g.in_d;
-  const int out_no = g.out_n * g.out_d;
-  float* u_s = smem;                                 // [tb, bt, in_n, in_d]
-  float* v_s = u_s + (size_t)g.tb * g.bt * in_nd;    // [bt, out_no]
-  float* vsum_s = v_s + g.bt * out_no;               // [bt, out_no]
-  float* s_s = vsum_s + g.bt * out_no;               // [bt, out_no]
-  float* c_s = s_s + g.bt * out_no;                  // [bt, tile_n, out_n]
-  float* uhat_s = c_s + g.bt * g.tile_n * g.out_n;   // [bt, tile_n, out_no]
-  float* part_s = uhat_s + g.bt * g.tile_n * out_no; // [groups, nb, out_no]
+  float* global = scratch + (size_t)blockIdx.x * p.global_floats;
+  float* inbox = sdr::scan_buf(p, smem, global, sdr::kFInbox);
+  float* s_own = sdr::scan_buf(p, smem, global, sdr::kFSOwn);
+  float* v_own = sdr::scan_buf(p, smem, global, sdr::kFVOwn);
+  float* vsum = sdr::scan_buf(p, smem, global, sdr::kFVsum);
+  float* coef = sdr::scan_buf(p, smem, global, sdr::kFC);
+  float* uh = sdr::scan_buf(p, smem, global, sdr::kFUhat0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // ring [2], W [1]
+  const int own = p.caps * p.out_d;
+  const int n_own = c.nb * c.no * p.out_d;  // owned entries (b, k)
+  const size_t w_floats = (size_t)c.nr * p.out_no * p.in_d;
+  const float* wr = w + (size_t)c.n0 * p.out_no * p.in_d;
+  const float* br = bias + (size_t)c.n0 * p.out_no;
+  sdr::URing ring{p.ring ? sdr::scan_buf(p, smem, global, sdr::kFRing)
+                        : nullptr,
+                 bars, bulk};
 
-  const int b0 = blockIdx.x * g.bt;
-  const int nb = min(g.bt, batch - b0);  // utterances of this block
-  const int nb_out = nb * out_no;
+  if (tid == 0) {
+    sdr::mbar_init(bars, 1);
+    sdr::mbar_init(bars + 1, 1);
+    sdr::mbar_init(bars + 2, 1);
+    sdr::mbar_fence_init();
+  }
+  __syncthreads();
+  if (p.w_resident) {
+    float* w_s = sdr::scan_buf(p, smem, global, sdr::kFW);
+    float* b_s = w_s + (size_t)p.rows * p.out_no * p.in_d;
+    if (bulk) {
+      if (tid == 0) {
+        const uint32_t w_bytes = (uint32_t)(w_floats * sizeof(float));
+        const uint32_t b_bytes = (uint32_t)(c.nr * p.out_no * sizeof(float));
+        sdr::mbar_expect_tx(bars + 2, w_bytes + b_bytes);
+        sdr::bulk_copy(w_s, wr, w_bytes, bars + 2);
+        sdr::bulk_copy(b_s, br, b_bytes, bars + 2);
+      }
+    } else {
+      for (size_t e = tid; e < w_floats; e += nthr) w_s[e] = wr[e];
+      for (int e = tid; e < c.nr * p.out_no; e += nthr) b_s[e] = br[e];
+    }
+    wr = w_s;
+    br = b_s;
+  }
+  if (ring.slots) sdr::ring_fill(p, c, ring, u, 0);
+  for (int e = tid; e < p.bt * p.rp; e += nthr) vsum[e] = 0.f;
+  for (int e = tid; e < p.bt * own; e += nthr) v_own[e] = 0.f;
+  // every CTA of the cluster has started, and the zeros are in place
+  sdr::cluster_arrive();
+  sdr::cluster_wait();
+  if (p.w_resident && bulk) sdr::mbar_wait(bars + 2, 0);
 
-  for (int q = tid; q < nb_out; q += nthr) v_s[q] = 0.f;
-
-  for (int t0 = 0; t0 < seq_len; t0 += g.tb) {
-    // ---- stage the time block's u: u_s[k][b] = u[b0 + b, t0 + k] ----
-    const int steps = min(g.tb, seq_len - t0);
-    for (int e = tid; e < steps * nb * in_nd; e += nthr) {
-      const int k = e / (nb * in_nd);
-      const int b = (e / in_nd) % nb;
-      const int x = e % in_nd;
-      u_s[((size_t)k * g.bt + b) * in_nd + x] =
-          u[((size_t)(b0 + b) * seq_len + t0 + k) * in_nd + x];
+  const float pad = mask_pad ? sdr::kPadLogit : 0.f;
+  const int entries = c.nr * p.out_no;  // (r, oi) entries of u_hat
+  int ready = -1;                       // the ring block waited for
+  for (int s = 0; s < p.seq_len; ++s) {
+    const int t = s;
+    if (ring.slots && s % p.ring == 0 && s + p.ring < p.seq_len) {
+      sdr::ring_fill(p, c, ring, u, s / p.ring + 1);
+    }
+    if (s == 0) {
+      sdr::predict_rows(p, c, wr, br, sdr::ring_rows(p, c, ring, u, s, &ready),
+                        uh, 0, entries, vec4);
     }
     __syncthreads();
 
-    for (int k = 0; k < steps; ++k) {
-      const float* uk = u_s + (size_t)k * g.bt * in_nd;
-      for (int q = tid; q < nb_out; q += nthr) vsum_s[q] = v_s[q];
+    for (int it = 0; it < num_iter; ++it) {
+      const bool last = it + 1 == num_iter;
+      const bool ahead = last && s + 1 < p.seq_len;
+      sdr::rows_pass<false>(p, c, uh, vsum, (float)(it + 1) * pad, nullptr,
+                            coef);
       __syncthreads();
-
-      for (int it = 0; it < num_iter; ++it) {
-        for (int q = tid; q < g.groups * nb_out; q += nthr) part_s[q] = 0.f;
-
-        for (int n0 = 0; n0 < g.in_n; n0 += g.tile_n) {
-          const int rows = min(g.tile_n, g.in_n - n0);
-
-          // (a) prediction vectors of the tile's rows for every utterance
-          //     of the block: one thread per (n, o, i) loads W[n,o,i,:] and
-          //     bias[n,o,i] once and applies them to all nb utterances
-#pragma unroll 4
-          for (int e = tid; e < rows * out_no; e += nthr) {
-            const int r = e / out_no;
-            const int n = n0 + r;
-            const size_t row = (size_t)n * out_no + e % out_no;
-            const float* w_row = w + row * g.in_d;
-            const float bias_e = __ldg(bias + row);
-            float acc[kMaxBatchTile];
-#pragma unroll
-            for (int b = 0; b < kMaxBatchTile; ++b) acc[b] = bias_e;
-            if (g.vec4) {
-              const float4* w4 = reinterpret_cast<const float4*>(w_row);
-              for (int j = 0; j < g.in_d / 4; ++j) {
-                const float4 a = __ldg(w4 + j);
-#pragma unroll
-                for (int b = 0; b < kMaxBatchTile; ++b) {
-                  if (b < nb) {
-                    const float4 x = reinterpret_cast<const float4*>(
-                        uk + b * in_nd + n * g.in_d)[j];
-                    acc[b] = fmaf(a.x, x.x, acc[b]);
-                    acc[b] = fmaf(a.y, x.y, acc[b]);
-                    acc[b] = fmaf(a.z, x.z, acc[b]);
-                    acc[b] = fmaf(a.w, x.w, acc[b]);
-                  }
-                }
-              }
-            } else {
-              for (int j = 0; j < g.in_d; ++j) {
-                const float a = __ldg(w_row + j);
-#pragma unroll
-                for (int b = 0; b < kMaxBatchTile; ++b) {
-                  if (b < nb) {
-                    acc[b] = fmaf(a, uk[b * in_nd + n * g.in_d + j], acc[b]);
-                  }
-                }
-              }
-            }
-#pragma unroll
-            for (int b = 0; b < kMaxBatchTile; ++b) {
-              if (b < nb) uhat_s[(b * g.tile_n + r) * out_no + e % out_no] = acc[b];
-            }
-          }
-          __syncthreads();
-
-          // (b) logits[b,n,o] = <u_hat[b,n,o,:], vsum[b,o,:]> (+ the mask
-          //     once per iteration so far)
-          for (int p = tid; p < nb * rows * g.out_n; p += nthr) {
-            const int b = p / (rows * g.out_n);
-            const int r = (p / g.out_n) % rows;
-            const int o = p % g.out_n;
-            const float* uh = uhat_s + (b * g.tile_n + r) * out_no + o * g.out_d;
-            const float* v = vsum_s + b * out_no + o * g.out_d;
-            float dot = 0.f;
-            for (int i = 0; i < g.out_d; ++i) dot = fmaf(uh[i], v[i], dot);
-            if (mask_pad && o == 0) dot += (float)(it + 1) * kPadLogit;
-            c_s[(b * g.tile_n + r) * g.out_n + o] = dot;
-          }
-          __syncthreads();
-
-          // (c) coupling coefficients: softmax over the out capsules, in
-          //     place, one thread per (utterance, in-capsule row)
-          for (int p = tid; p < nb * rows; p += nthr) {
-            float* c = c_s + ((p / rows) * g.tile_n + p % rows) * g.out_n;
-            float m = c[0];
-            for (int o = 1; o < g.out_n; ++o) m = fmaxf(m, c[o]);
-            float sum = 0.f;
-            for (int o = 0; o < g.out_n; ++o) {
-              const float ex = expf(c[o] - m);
-              c[o] = ex;
-              sum += ex;
-            }
-            for (int o = 0; o < g.out_n; ++o) c[o] = c[o] / sum;
-          }
-          __syncthreads();
-
-          // (d) s[b,o,i] += sum over the tile's rows of c * u_hat; `groups`
-          //     partial sums per entry, each owned by one thread
-          for (int q = tid; q < g.groups * nb_out; q += nthr) {
-            const int grp = q / nb_out;
-            const int b = (q / out_no) % nb;
-            const int oi = q % out_no;
-            const int o = oi / g.out_d;
-            const float* c = c_s + b * g.tile_n * g.out_n + o;
-            const float* uh = uhat_s + b * g.tile_n * out_no + oi;
-            float acc = part_s[q];
-            for (int r = grp; r < rows; r += g.groups) {
-              acc = fmaf(c[r * g.out_n], uh[r * out_no], acc);
-            }
-            part_s[q] = acc;
-          }
-          __syncthreads();
-        }
-
-        // (e) s = the sum of the partial sums
-        for (int q = tid; q < nb_out; q += nthr) {
-          float s = 0.f;
-          for (int grp = 0; grp < g.groups; ++grp) s += part_s[grp * nb_out + q];
-          s_s[q] = s;
-        }
-        __syncthreads();
-
-        // (f) v = squash(s) per out capsule; vsum gathers the v's the next
-        //     iteration's logits agree with
-        for (int q = tid; q < nb_out; q += nthr) {
-          const float* s = s_s + (q / g.out_d) * g.out_d;
-          float sq = 0.f;
-          for (int i = 0; i < g.out_d; ++i) sq = fmaf(s[i], s[i], sq);
-          const float v = (sq / (1.f + sq)) * (s_s[q] / sqrtf(sq + kSquashEps));
-          v_s[q] = v;
-          vsum_s[q] += v;
-        }
-        __syncthreads();
+      sdr::send_partials(p, c, coef, uh, inbox);
+      sdr::cluster_arrive();
+      if (ahead) {  // the first half of the next step's u_hat, in place
+        __syncthreads();  // every thread has sent its partials
+        sdr::predict_rows(p, c, wr, br,
+                          sdr::ring_rows(p, c, ring, u, s + 1, &ready), uh,
+                          0, entries / 2, vec4);
       }
+      sdr::cluster_wait();
 
-      for (int q = tid; q < nb_out; q += nthr) {
-        out[((size_t)(b0 + q / out_no) * seq_len + t0 + k) * out_no +
-            q % out_no] = v_s[q];
+      // the owner: s of its capsules, in rank order
+      for (int e = tid; e < n_own; e += nthr) {
+        const int b = e / (c.no * p.out_d);
+        const int k = e % (c.no * p.out_d);
+        s_own[b * own + k] = sdr::inbox_sum(p, inbox, b, k);
       }
+      __syncthreads();
+      // v = squash(s); vsum gathers the v's; every CTA gets the new vsum
+      for (int e = tid; e < n_own; e += nthr) {
+        const int b = e / (c.no * p.out_d);
+        const int k = e % (c.no * p.out_d);
+        const float* cap = s_own + b * own + k / p.out_d * p.out_d;
+        float sq = 0.f;
+        for (int i = 0; i < p.out_d; ++i) sq = fmaf(cap[i], cap[i], sq);
+        const float v = (sq / (1.f + sq)) *
+                        (s_own[b * own + k] / sqrtf(sq + sdr::kSquashEps));
+        const float vs = last ? v : v_own[b * own + k] + v;
+        v_own[b * own + k] = vs;
+        sdr::send_all(p, c, vsum, b, k, vs);
+        if (last) {
+          out[((size_t)(c.b0 + b) * p.seq_len + t) * p.out_no +
+              (size_t)c.o0 * p.out_d + k] = v;
+        }
+      }
+      sdr::cluster_arrive();
+      if (ahead) {  // the second half
+        sdr::predict_rows(p, c, wr, br,
+                          sdr::ring_rows(p, c, ring, u, s + 1, &ready), uh,
+                          entries / 2, entries, vec4);
+      }
+      sdr::cluster_wait();
     }
   }
+}
+
+// The plan for this problem on the current device, or false.
+bool plan_for(int batch, int seq_len, int in_n, int in_d, int out_n,
+              int out_d, int time_block, ScanPlan* p) {
+  const int cluster = sdr::cluster_for(in_n);
+  const int clusters = sdr::max_active_clusters(
+      (const void*)sdr_scan_fwd_kernel, cluster, kThreads);
+  return clusters > 0 &&
+         sdr::plan_scan(false, batch, seq_len, in_n, in_d, out_n, out_d,
+                        time_block, clusters, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Utterances per block the kernel takes for this problem, or -1 if the
-// geometry does not fit in one block's shared memory.
-int sdr_scan_fwd_batch_tile(int batch, int seq_len, int in_n, int in_d,
-                            int out_n, int out_d, int time_block) {
-  Geometry g;
-  if (!plan(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &g)) {
+// The plan's fields, or -1 if the problem has none:
+// [bt, clusters, cluster, rows, w_resident, uhat_bufs, ring, smem bytes].
+int sdr_scan_fwd_plan(int batch, int seq_len, int in_n, int in_d, int out_n,
+                      int out_d, int time_block, int* fields) {
+  ScanPlan p;
+  if (!plan_for(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &p)) {
     return -1;
   }
-  return g.bt;
+  sdr::plan_fields(p, fields);
+  return 0;
 }
 
-// Bytes of dynamic shared memory the kernel needs for this problem, or -1
-// if it does not fit in one block.
+// Bytes of dynamic shared memory the kernel needs for this problem, or -1.
 int sdr_scan_fwd_smem_bytes(int batch, int seq_len, int in_n, int in_d,
                             int out_n, int out_d, int time_block) {
-  Geometry g;
-  if (!plan(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &g)) {
+  ScanPlan p;
+  if (!plan_for(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &p)) {
     return -1;
   }
-  return (int)(smem_floats(g, g.tile_n) * sizeof(float));
+  return (int)sdr::scan_smem_bytes(p);
+}
+
+// Floats of the global scratch sdr_scan_fwd needs (the buffers that do not
+// fit in shared memory), or -1.
+long long sdr_scan_fwd_scratch_floats(int batch, int seq_len, int in_n,
+                                      int in_d, int out_n, int out_d,
+                                      int time_block) {
+  ScanPlan p;
+  if (!plan_for(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &p)) {
+    return -1;
+  }
+  return (long long)sdr::scan_scratch_floats(p);
 }
 
 // u [batch, seq_len, in_n, in_d], w [in_n, out_n, out_d, in_d],
-// bias [in_n, out_n, out_d] -> out [batch, seq_len, out_n, out_d]; float32,
-// contiguous, on the current device. Launches on `stream` and returns the
-// launch's cudaError_t (0 on success); does not synchronise.
+// bias [in_n, out_n, out_d] -> out [batch, seq_len, out_n, out_d]; scratch
+// holds sdr_scan_fwd_scratch_floats floats (may be null if that is 0).
+// float32, contiguous, on the current device. A cluster launch on `stream`;
+// returns its cudaError_t (0 on success) and does not synchronise.
 int sdr_scan_fwd(const float* u, const float* w, const float* bias,
-                 float* out, int batch, int seq_len, int in_n, int in_d,
-                 int out_n, int out_d, int num_iter, int mask_pad,
+                 float* out, float* scratch, int batch, int seq_len, int in_n,
+                 int in_d, int out_n, int out_d, int num_iter, int mask_pad,
                  int time_block, void* stream) {
-  Geometry g;
+  ScanPlan p;
   if (num_iter < 1 ||
-      !plan(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &g)) {
+      !plan_for(batch, seq_len, in_n, in_d, out_n, out_d, time_block, &p)) {
     return (int)cudaErrorInvalidValue;
   }
-  g.vec4 = (in_d % 4 == 0) && ((uintptr_t)w % 16 == 0);
-  const size_t smem = smem_floats(g, g.tile_n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sdr_scan_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (batch + g.bt - 1) / g.bt;
-  sdr_scan_fwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      u, w, bias, out, batch, seq_len, g, num_iter, mask_pad);
-  return (int)cudaGetLastError();
+  const int bulk = sdr::scan_bulk_ok(p, u, w, bias);
+  const int vec4 = p.in_d % 4 == 0 && (uintptr_t)u % 16 == 0 &&
+                   (uintptr_t)w % 16 == 0;
+  return (int)sdr::launch_cluster(
+      (const void*)sdr_scan_fwd_kernel, p, kThreads, (cudaStream_t)stream,
+      [&](cudaLaunchConfig_t* cfg) {
+        return cudaLaunchKernelEx(cfg, sdr_scan_fwd_kernel, u, w, bias, out,
+                                  scratch, p, num_iter, mask_pad, bulk, vec4);
+      });
 }
 
 const char* sdr_scan_fwd_error_string(int err) {

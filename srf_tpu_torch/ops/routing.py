@@ -17,9 +17,11 @@
   kernel ``srf_tpu/ops/routing_pallas.py:_sdr_fwd_kernel``) and its
   backward K2 (``sequential_routing_bwd_cuda``, replacing
   ``_sdr_bwd_kernel``); on a CPU tensor it runs the plain versions. The
-  same function through K3 and K4, the time-blocked, batch-tiled kernels,
-  is ``routing_cuda.sequential_routing_scan`` (the counterpart of
-  ``sequential_routing_pallas_scan``), which no model calls.
+  same function through K3 and K4, the cluster-scan kernels, is
+  ``routing_cuda.sequential_routing_scan`` (the counterpart of
+  ``sequential_routing_pallas_scan``), which no model calls; their order
+  of sums is :func:`sequential_routing_scan_partitioned` and
+  :func:`sequential_routing_scan_bwd_partitioned`.
 - PAD-capsule masking: at the last capsule layer the routing logit of
   output capsule 0 (the PAD class) gets -1e9 so nothing routes to it
   (reference: sequence_router_naive.py:174-178,219-220).
@@ -290,3 +292,123 @@ def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer):
     u_hat = predict_capsules(u, wgt, bias)
     out = dynamic_routing(u_hat, num_iter, mask_pad_capsule=is_last_layer)
     return out.to(u.dtype)
+
+
+def split_begin(n, parts, q):
+    """Part q's first item when n items are split into ``parts`` contiguous
+    parts as evenly as they go, the first n % parts taking one more (the
+    cluster scan's split of rows and out capsules, ``csrc/sdr_plan.cuh``)."""
+    base, extra = divmod(n, parts)
+    return q * base + min(q, extra)
+
+
+def _row_slices(in_n, row_splits):
+    return [slice(split_begin(in_n, row_splits, q),
+                  split_begin(in_n, row_splits, q + 1))
+            for q in range(row_splits)]
+
+
+def _sliced_sum(coef, u_hat_t, slices):
+    """sum_n coef[b,n,o] u_hat_t[b,n,o,:], each slice of rows summed apart and
+    the slices' sums added in order (the cluster's reduce-scatter)."""
+    total = None
+    for rows in slices:
+        part = torch.einsum("bno,bnoi->boi", coef[:, rows], u_hat_t[:, rows])
+        total = part if total is None else total + part
+    return total
+
+
+def sequential_routing_scan_partitioned(u, wgt, bias, num_iter,
+                                        mask_pad_capsule, batch_tile,
+                                        row_splits):
+    """:func:`sequential_routing` in K3's order of sums
+    (``csrc/sdr_scan_fwd.cu``): the batch in tiles of ``batch_tile``
+    utterances (a cluster each), the in-capsule rows in ``row_splits``
+    contiguous slices (a CTA each, split as ``split_begin``), s summed over
+    each slice and the slices' sums added in rank order, the logits of
+    iteration k taken against v_{t-1} + v_1 + ... + v_k. Plain PyTorch, for
+    the tests; nothing on the card's path calls it."""
+    out_dtype = u.dtype
+    dtype = _compute_dtype(u.dtype)
+    u_hat = predict_capsules(u.to(dtype), wgt.to(dtype), bias.to(dtype))
+    batch, seq_len, in_n, out_n, out_d = u_hat.shape
+    pad = (_pad_capsule_mask(out_n, dtype, u.device)
+           if mask_pad_capsule else torch.zeros(out_n, dtype=dtype,
+                                                device=u.device))
+    slices = _row_slices(in_n, row_splits)
+    tiles = []
+    for b0 in range(0, batch, batch_tile):
+        uh = u_hat[b0:b0 + batch_tile]
+        vsum = torch.zeros((uh.shape[0], out_n, out_d), dtype=dtype,
+                           device=u.device)
+        steps = []
+        for t in range(seq_len):
+            for it in range(num_iter):
+                logits = (torch.einsum("bnoi,boi->bno", uh[:, t], vsum)
+                          + (it + 1) * pad)
+                s = _sliced_sum(torch.softmax(logits, dim=2), uh[:, t],
+                                slices)
+                v = squash(s, dim=-1)
+                vsum = v if it + 1 == num_iter else vsum + v
+            steps.append(v)
+        tiles.append(torch.stack(steps, dim=1))
+    return torch.cat(tiles).to(out_dtype)
+
+
+def sequential_routing_scan_bwd_partitioned(u, wgt, bias, vs, dvs,
+                                            mask_pad_capsule, batch_tile,
+                                            row_splits):
+    """:func:`sequential_routing_bwd` in K4's order of sums
+    (``csrc/sdr_scan_bwd.cu``), one routing iteration: per batch tile (a
+    cluster) time runs backwards; s and the carry are summed over each
+    slice of rows and the slices' sums added in rank order; dW and db are
+    summed over the tile's utterances and steps into one partial per
+    cluster, and the partials are added in cluster order. Returns (du, dW,
+    db). Plain PyTorch, for the tests; nothing on the card's path calls
+    it."""
+    out_dtypes = (u.dtype, wgt.dtype, bias.dtype)
+    dtype = _compute_dtype(u.dtype)
+    u, wgt, bias = u.to(dtype), wgt.to(dtype), bias.to(dtype)
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    vs = vs.to(dtype).reshape(vs.shape[0], vs.shape[1], out_n, out_d)
+    dvs = dvs.to(dtype).reshape(vs.shape)
+    u_hat = predict_capsules(u, wgt, bias)
+    batch, seq_len, in_n = u.shape[:3]
+    pad_mask = (_pad_capsule_mask(out_n, dtype, u.device)
+                if mask_pad_capsule else None)
+    slices = _row_slices(in_n, row_splits)
+    du = torch.empty_like(u)
+    dwgt = dbias = None
+    for b0 in range(0, batch, batch_tile):
+        tile = slice(b0, b0 + batch_tile)
+        carry = torch.zeros_like(vs[tile, 0])
+        dw_part = torch.zeros_like(wgt)
+        db_part = torch.zeros_like(bias)
+        for t in range(seq_len - 1, -1, -1):
+            uh = u_hat[tile, t]
+            v_prev = (vs[tile, t - 1] if t > 0 else torch.zeros_like(carry))
+            logits = torch.einsum("bnoi,boi->bno", uh, v_prev)
+            if pad_mask is not None:
+                logits = logits + pad_mask
+            c = torch.softmax(logits, dim=2)
+            s = _sliced_sum(c, uh, slices)
+            q = torch.sum(s * s, dim=2, keepdim=True)
+            inv_sqrt = 1.0 / torch.sqrt(q + 1e-7)
+            ratio = q / (1.0 + q)
+            dv = dvs[tile, t] + carry
+            dfdq = (inv_sqrt / ((1.0 + q) * (1.0 + q))
+                    - 0.5 * ratio * (inv_sqrt / (q + 1e-7)))
+            dq = torch.sum(dv * s, dim=2, keepdim=True) * dfdq
+            ds = dv * (ratio * inv_sqrt) + 2.0 * s * dq
+            dc = torch.einsum("bnoi,boi->bno", uh, ds)
+            da = c * (dc - torch.sum(dc * c, dim=2, keepdim=True))
+            carry = _sliced_sum(da, uh, slices)
+            du_hat = (c[..., None] * ds[:, None]
+                      + da[..., None] * v_prev[:, None])
+            db_part = db_part + du_hat.sum(dim=0)
+            dw_part = dw_part + torch.einsum("bnoi,bnj->noij", du_hat,
+                                             u[tile, t])
+            du[tile, t] = torch.einsum("bnoi,noij->bnj", du_hat, wgt)
+        dwgt = dw_part if dwgt is None else dwgt + dw_part
+        dbias = db_part if dbias is None else dbias + db_part
+    return tuple(x.to(d) for x, d in zip((du, dwgt, dbias), out_dtypes))

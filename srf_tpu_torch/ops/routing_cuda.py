@@ -1,9 +1,14 @@
 """The SDR kernels: K1 and K2, the SDR forward and its fused backward
 (``csrc/sdr_fwd.cu``, ``csrc/sdr_bwd.cu``, both built on the prediction
 kernel and the streaming recurrence of ``csrc/sdr_stream.cuh``), joined by
-``SDRFunction``; K3 and K4, their time-blocked, batch-tiled counterparts
-(``csrc/sdr_scan_fwd.cu``, ``csrc/sdr_scan_bwd.cu``), joined by
-``SDRScanFunction`` and applied by ``sequential_routing_scan``.
+``SDRFunction``; K3 and K4, their cluster-scan counterparts
+(``csrc/sdr_scan_fwd.cu``, ``csrc/sdr_scan_bwd.cu``, both built on
+``csrc/sdr_cluster.cuh``: a thread-block cluster per batch tile, W's slice
+in shared memory, sums across the cluster through distributed shared
+memory), joined by ``SDRScanFunction`` and applied by
+``sequential_routing_scan``. The scan kernels are cluster launches
+(``cudaLaunchKernelEx``, up to 16 CTAs a cluster, a non-portable size,
+sm_90a); a refused launch raises, with no retry and no fallback.
 
 K1 replaces the TPU kernel ``srf_tpu/ops/routing_pallas.py:_sdr_fwd_kernel``,
 K2 ``_sdr_bwd_kernel``, K3 ``_sdr_v6_fwd_kernel`` and K4
@@ -32,7 +37,7 @@ _PLAN_ARGS = {"sdr_fwd": 4, "sdr_bwd": 4, "sdr_scan_fwd": 7, "sdr_scan_bwd": 7}
 _LAUNCH_ARGTYPES = {
     "sdr_fwd": [_VOID_P] * 5 + [ctypes.c_int] * 8 + [_VOID_P],
     "sdr_bwd": [_VOID_P] * 10 + [ctypes.c_int] * 7 + [_VOID_P],
-    "sdr_scan_fwd": [_VOID_P] * 4 + [ctypes.c_int] * 9 + [_VOID_P],
+    "sdr_scan_fwd": [_VOID_P] * 5 + [ctypes.c_int] * 9 + [_VOID_P],
     "sdr_scan_bwd": [_VOID_P] * 9 + [ctypes.c_int] * 8 + [_VOID_P],
 }
 
@@ -42,14 +47,15 @@ def _lib(name):
     lib = ctypes.CDLL(cuda_build.build([name])[name])
     getattr(lib, name).argtypes = _LAUNCH_ARGTYPES[name]
     getattr(lib, name).restype = ctypes.c_int
-    plan_fns = ["_smem_bytes"]
+    fn = getattr(lib, name + "_smem_bytes")
+    fn.argtypes = [ctypes.c_int] * _PLAN_ARGS[name]
+    fn.restype = ctypes.c_int
     if name.startswith("sdr_scan"):
-        plan_fns.append("_batch_tile")
-    for suffix in plan_fns:
-        fn = getattr(lib, name + suffix)
-        fn.argtypes = [ctypes.c_int] * _PLAN_ARGS[name]
+        fn = getattr(lib, name + "_plan")
+        fn.argtypes = [ctypes.c_int] * _PLAN_ARGS[name] + [_VOID_P]
         fn.restype = ctypes.c_int
-    scratch_args = {"sdr_fwd": 6, "sdr_bwd": 6, "sdr_scan_bwd": 7}
+    scratch_args = {"sdr_fwd": 6, "sdr_bwd": 6, "sdr_scan_fwd": 7,
+                    "sdr_scan_bwd": 7}
     if name in scratch_args:
         fn = getattr(lib, name + "_scratch_floats")
         fn.argtypes = [ctypes.c_int] * scratch_args[name]
@@ -259,15 +265,48 @@ class SDRFunction(torch.autograd.Function):
         return (*_plain_loop_grads(u, wgt, bias, ctx, dout), None, None)
 
 
+SCAN_PLAN_FIELDS = ("batch_tile", "clusters", "cluster", "rows", "w_resident",
+                    "uhat_buffers", "ring_steps", "smem_bytes")
+
+
+def scan_plan(name, u, wgt, time_block=8):
+    """The launch plan K3 (``name`` "sdr_scan_fwd") or K4 ("sdr_scan_bwd")
+    takes for these CUDA tensors on their device, as a dict of
+    ``SCAN_PLAN_FIELDS``: utterances a cluster, clusters, CTAs a cluster,
+    most rows a CTA owns, whether W's slice stays in shared memory, u_hat
+    buffers (2: the next step's is formed during the cluster barriers),
+    steps of u a ring slot stages, and dynamic shared memory."""
+    fields = (ctypes.c_int * len(SCAN_PLAN_FIELDS))()
+    batch, seq_len, in_n, in_d = u.shape
+    with torch.cuda.device(u.device):
+        err = getattr(_lib(name), name + "_plan")(
+            batch, seq_len, in_n, in_d, wgt.shape[1], wgt.shape[2],
+            time_block, ctypes.addressof(fields))
+    if err:
+        raise ValueError("%s has no plan for u %s, W %s" % (
+            name, tuple(u.shape), tuple(wgt.shape)))
+    return dict(zip(SCAN_PLAN_FIELDS, fields))
+
+
+def _scan_scratch(lib, name, u, wgt, time_block):
+    batch, seq_len, in_n, in_d = u.shape
+    floats = getattr(lib, name + "_scratch_floats")(
+        batch, seq_len, in_n, in_d, wgt.shape[1], wgt.shape[2], time_block)
+    return torch.empty(max(floats, 1), dtype=torch.float32, device=u.device)
+
+
 def sequential_routing_scan_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
                                  time_block=8):
-    """The time-blocked, batch-tiled SDR forward on the card (K3): same
-    contract as ``sequential_routing`` and the same inputs as
-    ``sequential_routing_cuda``; one block routes a tile of utterances and
-    stages ``time_block`` steps of u at a time (the output does not depend
-    on it). Raises on anything the kernel does not take; it never falls back
+    """The cluster-scan SDR forward on the card (K3): same contract as
+    ``sequential_routing`` and the same inputs as
+    ``sequential_routing_cuda``. A thread-block cluster routes a tile of
+    utterances, each CTA a slice of in-capsule rows with W's slice in
+    shared memory; ``time_block`` steps of u are staged at a time (the
+    output does not depend on it, bit for bit). Allocates the scratch for
+    buffers that do not fit in shared memory. Raises on anything the kernel
+    does not take, or if the cluster launch is refused; it never falls back
     to the plain version. ``sequential_routing_scan_cuda.launches`` counts
-    the kernel's launches.
+    the kernel's launches, one per call.
     """
     _check_inputs("sequential_routing_scan_cuda", u,
                   (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3)))
@@ -275,16 +314,17 @@ def sequential_routing_scan_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
         raise ValueError("need num_iter >= 1 (got %d)" % num_iter)
     _check_time_block(time_block)
     lib = _lib("sdr_scan_fwd")
-    _check_geometry(lib, "sdr_scan_fwd", u, wgt, bias, time_block)
     batch, seq_len, in_n, in_d = u.shape
     out_n, out_d = wgt.shape[1], wgt.shape[2]
-    out = torch.empty((batch, seq_len, out_n, out_d), dtype=torch.float32,
-                      device=u.device)
     with torch.cuda.device(u.device):
+        _check_geometry(lib, "sdr_scan_fwd", u, wgt, bias, time_block)
+        out = torch.empty((batch, seq_len, out_n, out_d),
+                          dtype=torch.float32, device=u.device)
+        scratch = _scan_scratch(lib, "sdr_scan_fwd", u, wgt, time_block)
         err = lib.sdr_scan_fwd(
             u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            batch, seq_len, in_n, in_d, out_n, out_d, num_iter,
-            int(bool(mask_pad_capsule)), time_block,
+            scratch.data_ptr(), batch, seq_len, in_n, in_d, out_n, out_d,
+            num_iter, int(bool(mask_pad_capsule)), time_block,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(lib, "sdr_scan_fwd", err)
@@ -298,35 +338,32 @@ sequential_routing_scan_cuda.launches = 0
 def sequential_routing_scan_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule,
                                      time_block=8):
     """K3's backward on the card (K4), one routing iteration: same contract
-    as ``sequential_routing_bwd``. dW and db are summed inside the kernel,
-    into a partial per block of utterances folded in once per time block;
-    the wrapper allocates that scratch (the blocks' staged factors of the
-    prediction vectors' cotangents and their partials). Raises on anything
-    the kernel does not take; never falls back to the plain version.
-    ``sequential_routing_scan_bwd_cuda.launches`` counts its kernel
-    launches: two per call, the reverse-time scan and the fixed reduction of
-    the blocks' partials into dW and db.
+    as ``sequential_routing_bwd``. The clusters are K3's; dW and db are
+    summed inside the kernel, in the CTA that owns the rows, into one
+    partial per cluster; the wrapper allocates that scratch (and the
+    buffers that do not fit in shared memory). Raises on anything the
+    kernel does not take, or if the cluster launch is refused; never falls
+    back to the plain version. ``sequential_routing_scan_bwd_cuda.launches``
+    counts its kernel launches: two per call, the reverse-time cluster scan
+    and the fixed-order reduction of the clusters' partials into dW and db.
     """
     _check_inputs("sequential_routing_scan_bwd_cuda", u,
                   (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3),
                    ("vs", vs, 4), ("dvs", dvs, 4)))
     _check_time_block(time_block)
     lib = _lib("sdr_scan_bwd")
-    _check_geometry(lib, "sdr_scan_bwd", u, wgt, bias, time_block)
     batch, seq_len, in_n, in_d = u.shape
     out_n, out_d = wgt.shape[1], wgt.shape[2]
     for name, x in (("vs", vs), ("dvs", dvs)):
         if tuple(x.shape) != (batch, seq_len, out_n, out_d):
             raise ValueError("%s must be %s, got %s" % (
                 name, (batch, seq_len, out_n, out_d), tuple(x.shape)))
-    du = torch.empty_like(u)
-    dwgt = torch.empty_like(wgt)
-    dbias = torch.empty_like(bias)
-    scratch = torch.empty(
-        lib.sdr_scan_bwd_scratch_floats(batch, seq_len, in_n, in_d, out_n,
-                                        out_d, time_block),
-        dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
+        _check_geometry(lib, "sdr_scan_bwd", u, wgt, bias, time_block)
+        du = torch.empty_like(u)
+        dwgt = torch.empty_like(wgt)
+        dbias = torch.empty_like(bias)
+        scratch = _scan_scratch(lib, "sdr_scan_bwd", u, wgt, time_block)
         err = lib.sdr_scan_bwd(
             u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), vs.data_ptr(),
             dvs.data_ptr(), du.data_ptr(), dwgt.data_ptr(), dbias.data_ptr(),
@@ -343,7 +380,7 @@ sequential_routing_scan_bwd_cuda.launches = 0
 
 
 class SDRScanFunction(torch.autograd.Function):
-    """SDR through K3 and K4, the port of the custom VJP
+    """SDR through K3 and K4 (the cluster scans), the port of the custom VJP
     ``srf_tpu/ops/routing_pallas.py:sequential_routing_pallas_scan``.
 
     forward: K3 on a CUDA tensor, the plain ``sequential_routing`` on a CPU
