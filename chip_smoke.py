@@ -159,7 +159,34 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    apart), each launching K5 exactly 50 times, with finite losses and
    every tensor on the card; ms/step, utt/s, audio-seconds/s and a profile
    of one step (K5, convolution kernels, the rest, idle share);
-10. a "kernels" JSON line (K1, K2, K3, K4, K5), then the card line, then
+10. the STF-TIMIT recipe's model (egs/script/train_stf_timit.sh with
+   timit.conf: L=20, D=128, 4 heads, FF 1024, 2 x 64-filter maxout
+   convs, penalty zero 1 / stripe 1 / scale 1, 63 classes) with
+   numpy-seeded weights: a Recognizer serves phase 6's two batches on the
+   card and the CPU (ids and text equal, logits within STF_LOGIT_ATOL; as
+   JAX's Recognizer, no padding bias or penalty); one dropout-free step
+   with trainer_tf's padding bias and penalty board on card and CPU, held
+   as in 7 with its update at the Noam peak (count 1000); 1 + TRAIN_STEPS
+   steps at 82 x 241, the 20000-frame bucket (dropout on), ms/step and a
+   profile; blockwise_attention held to the plain path on the card,
+   forward and gradients, at the STF-WSJ width (8 x 4 heads x 600 x 64,
+   penalty and padding bias on) and both timed; then the recipe through
+   the CLIs on synthetic TFRecords (266 train utterances filling the
+   20000-frame buckets 82 x 241 and 51 x 391 twice, 133 valid, phase 6c's
+   24 test): trainer_tf at k 1.5 for an epoch, at k 0.5 to epoch 2 (each
+   run with its pre-training validation pass), tools.average_ckpt,
+   trainer_tf decode with the device beam at width 100 (batch 8) and
+   utils.log2utt over all 24 utterances;
+11. the LSTM-WSJ recipe's model (egs/script/train_lstm_wsj.sh with
+   wsj.conf: BLSTM, L=5, D=534, 'ave' merge, the CNN front end on, 32
+   classes) the same way: serving 8 x 300-1600 and 1 x 1600 frames
+   (LSTM_LOGIT_ATOL), one dropout-free step at plain Adam's 1e-4, 1 +
+   TRAIN_STEPS steps over three 24000-frame buckets (44 x 541, 24 x 991,
+   15 x 1591), and trainer_sr at Adam 1e-4 for 2 epochs (buckets 44 x 541
+   and 21 x 1141), average_ckpt, decode at beam 100 and log2utt over 8
+   test utterances of 300-1600 frames. Phases 10 and 11 must leave K1-K5's
+   launch counters where they found them;
+12. a "kernels" JSON line (K1, K2, K3, K4, K5), then the card line, then
    the result line.
 """
 
@@ -969,14 +996,15 @@ def serve_batches():
     }
 
 
-def check_served(name, got, feats_list, in_len_div):
-    """One result per request; ids are phones (0..61, blank 62 removed),
-    each emission frame inside the floor(len / in_len_div) decoded frames,
-    a finite Viterbi log-prob score."""
+def check_served(name, got, feats_list, in_len_div, blank=62):
+    """One result per request; ids are symbols below the blank (TIMIT's
+    phones 0..61 by default), each emission frame inside the
+    floor(len / in_len_div) decoded frames, a finite Viterbi log-prob
+    score."""
     check(len(got) == len(feats_list), "%s: result count" % name)
     for i, res in enumerate(got):
         dec_len = max(feats_list[i].shape[0] // in_len_div, 1)
-        check(all(0 <= t < 62 for t in res["ids"]), "%s: ids" % name)
+        check(all(0 <= t < blank for t in res["ids"]), "%s: ids" % name)
         check(all(0 <= f < dec_len for f in res["frames"]),
               "%s: frames" % name)
         check(np.isfinite(res["score"]) and res["score"] <= 0,
@@ -1598,6 +1626,32 @@ def train_batch(torch, device, batch=29, frames=241, feat_dim=123,
     }
 
 
+def class_count(config):
+    """Output classes of ``config``'s vocabulary (its symbols and the
+    blank): 63 for TIMIT, 32 for WSJ."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.utils.vocab import get_file_path, load_vocab
+
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    return load_vocab(get_file_path(config.path_base, config.path_vocab),
+                      logger)[2] + 1
+
+
+def extra_kwargs_fn(config, in_len_div):
+    """The apply adapter's per-batch keyword arguments of ``config``'s
+    family: the STF's padding bias and penalty board, as trainer_tf
+    computes them; None for the others."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops.attention_penalty import create_attention_penalty
+    from srf_tpu_torch.trainer_tf import make_stf_extra_kwargs
+
+    if (config.model_type or "").lower() != "stf":
+        return None
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    return make_stf_extra_kwargs(create_attention_penalty(config, logger),
+                                 in_len_div)
+
+
 def train_setup(torch, config, state, device, dropout=True):
     """A model with ``state``'s weights, its optimizer and scheduler in a
     TrainState on ``device``, and its train step. ``dropout`` False turns
@@ -1609,7 +1663,7 @@ def train_setup(torch, config, state, device, dropout=True):
     from srf_tpu_torch.train.state import TrainState
     from srf_tpu_torch.train.step import make_apply_fn, make_train_step
 
-    model, in_len_div = build_model(config, 63)
+    model, in_len_div = build_model(config, class_count(config))
     model.load_state_dict(state)
     for name, module in model.named_modules():
         if isinstance(module, torch.nn.Dropout) and (
@@ -1619,26 +1673,32 @@ def train_setup(torch, config, state, device, dropout=True):
     optimizer, scheduler = get_optimizer(config, model.parameters())
     train_state = TrainState.create(model, optimizer, scheduler,
                                     device=device)
-    apply_fn = make_apply_fn(model)
+    apply_fn = make_apply_fn(model, extra_kwargs_fn(config, in_len_div))
     return train_state, apply_fn, make_train_step(apply_fn, in_len_div)
 
 
 def parity_readings(torch, config, state, batch, dropout=False,
-                    update_grad_rel=UPDATE_GRAD_REL, card_tf32=False):
+                    update_grad_rel=UPDATE_GRAD_REL, card_tf32=False,
+                    count=PARITY_COUNT):
     """One step on the card and on the CPU from the same weights, its
-    update taken at the schedule's count PARITY_COUNT, and how far the two
-    are apart: a dict of the loss's relative error, each gradient's max
-    error over its tensor's largest entry, each running statistic's max
-    error, each parameter's update error over the rate where its gradient
-    is at least ``update_grad_rel`` x its largest (and how many entries
-    that compares), and the largest update over the rate on either device.
-    Dropout off, or ``dropout="k5"`` (see ``train_setup``). ``card_tf32``
-    lets the card's step run its convolutions and matmuls in TF32."""
+    update taken at the schedule's count ``count`` (a constant rate, plain
+    Adam's, as it is), and how far the two are apart: a dict of the loss's
+    relative error, each gradient's max error over its tensor's largest
+    entry, each running statistic's max error, each parameter's update
+    error over the rate where its gradient is at least ``update_grad_rel``
+    x its largest (and how many entries that compares), and the largest
+    update over the rate on either device; a parameter that is not trained
+    (the LSTM's bias_ih) must not move. Dropout off, or ``dropout="k5"``
+    (see ``train_setup``). ``card_tf32`` lets the card's step run its
+    convolutions and matmuls in TF32."""
     results = {}
     for device in ("cuda", "cpu"):
         train_state, _, step = train_setup(torch, config, state, device,
                                            dropout=dropout)
-        rate = train_state.scheduler.lr_lambdas[0](PARITY_COUNT)
+        if train_state.scheduler is None:
+            rate = train_state.optimizer.param_groups[0]["lr"]
+        else:
+            rate = train_state.scheduler.lr_lambdas[0](count)
         for group in train_state.optimizer.param_groups:
             group["lr"] = rate
         tf32 = device == "cuda" and card_tf32
@@ -1654,7 +1714,8 @@ def parity_readings(torch, config, state, batch, dropout=False,
         model = train_state.model
         results[device] = (
             metrics["loss_sum"].item(),
-            {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+            {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+             if p.requires_grad},
             {k: v.detach().cpu() for k, v in model.state_dict().items()},
         )
     (card_loss, card_grads, card_state), (cpu_loss, cpu_grads, cpu_state) = (
@@ -1675,6 +1736,11 @@ def parity_readings(torch, config, state, batch, dropout=False,
                                        - want).abs().max().item()
             continue
         before = state[name].float()
+        if name not in cpu_grads:  # not trained
+            readings["frozen_moved"] = readings.get("frozen_moved", 0.0) + (
+                (card_state[name] - before).abs().sum().item()
+                + (want - before).abs().sum().item())
+            continue
         card_update, cpu_update = card_state[name] - before, want - before
         readings["max_move"] = max(readings["max_move"],
                                    cpu_update.abs().max().item() / rate,
@@ -1695,14 +1761,17 @@ def worst(values):
 
 def train_parity(torch, config, state, batch, dropout=False, label="",
                  grad_atol_rel=GRAD_ATOL_REL, update_grad_rel=UPDATE_GRAD_REL,
-                 min_compared=0.5):
+                 min_compared=0.5, count=PARITY_COUNT):
     """``parity_readings`` held to the limits: the loss within LOSS_RTOL,
     every gradient within ``grad_atol_rel`` x its largest entry, BatchNorm
     statistics within STATS_ATOL, each parameter's update (where the
     gradient is at least ``update_grad_rel`` x its largest, over more than
-    ``min_compared`` of the entries) within UPDATE_ATOL_REL x the rate, and
-    every update within the rate."""
-    r = parity_readings(torch, config, state, batch, dropout, update_grad_rel)
+    ``min_compared`` of the entries) within UPDATE_ATOL_REL x the rate,
+    every update within the rate, and no untrained parameter moved."""
+    r = parity_readings(torch, config, state, batch, dropout, update_grad_rel,
+                        count=count)
+    check(r.get("frozen_moved", 0.0) == 0.0,
+          "train step: an untrained parameter moved")
     rate = r["rate"]
     check(np.isfinite(r["card_loss"]) and r["loss_err"] <= LOSS_RTOL,
           "train step: card loss %r vs CPU %r" % (r["card_loss"],
@@ -1722,14 +1791,15 @@ def train_parity(torch, config, state, batch, dropout=False, label="",
           "(rate %.3e)" % (worst_update[1], worst_update[0], rate))
     check(r["checked"] > min_compared * r["total"],
           "too few parameters' updates compared")
-    print("%strain parity (B=%d, dropout %s, one step at count %d, rate "
+    print("%strain parity (B=%d, dropout %s, one step at count %s, rate "
           "%.4e): loss card %.6f cpu %.6f (rel %.2e, rtol %.0e); worst "
           "gradient %s rel err %.2e (atol %.0e x max); BatchNorm stats max "
           "err %.2e (atol %.0e); parameter updates: worst err %.2e x rate "
           "(atol %.0e x rate) over %d of %d entries, all within the rate"
           % (label, batch["feats"].shape[0],
              "on at the K5 sites" if dropout == "k5" else "off",
-             PARITY_COUNT, rate, r["card_loss"], r["cpu_loss"],
+             count if config.train_opti_type not in ("adam", "sgd")
+             else "- (constant rate)", rate, r["card_loss"], r["cpu_loss"],
              r["loss_err"], LOSS_RTOL, worst_grad[1], worst_grad[0],
              grad_atol_rel, worst_stat[0], STATS_ATOL, worst_update[0],
              UPDATE_ATOL_REL, r["checked"], r["total"]))
@@ -1741,7 +1811,8 @@ def all_on_card(train_state, metrics):
     batch's lengths are host inputs)."""
     tensors = list(train_state.model.state_dict().items())
     tensors += [("grad " + k, p.grad)
-                for k, p in train_state.model.named_parameters()]
+                for k, p in train_state.model.named_parameters()
+                if p.requires_grad]
     for i, opt_state in enumerate(train_state.optimizer.state.values()):
         tensors += [("adam %d %s" % (i, k), v) for k, v in opt_state.items()
                     if k != "step"]
@@ -2687,6 +2758,439 @@ def cnn_train_phase(torch, card, state):
     return launches
 
 
+# phases 10-11: the STF-TIMIT and LSTM-WSJ recipes' models at full width
+# egs/script/train_stf_timit.sh:26-50 with timit.conf: L=20, D=128, 4 heads,
+# FF 1024, 2 x 64-filter maxout convs, penalty (1, 1, 1) on, Noam warmup
+# 1000 at k 1.5 (then 0.5), 20000-frame buckets
+STF_TIMIT_FLAGS = [
+    "--model-type=stf", "--model-encoder-num=20", "--model-dimension=128",
+    "--model-inner-dim=1024", "--train-att-dropout=0.3",
+    "--train-inn-dropout=0.4", "--train-inp-dropout=0.3",
+    "--train-res-dropout=0.4", "--model-ap-scale=1",
+    "--model-ap-width-zero=1", "--model-ap-width-stripe=1",
+    "--model-ap-encoder=True", "--model-ap-decoder=True",
+    "--model-ap-encdec=False", "--train-warmup-n=1000",
+    "--train-batch-frame=20000", "--train-lr-param-k=1.5",
+]
+# egs/script/train_lstm_wsj.sh:28-45 with wsj.conf: BLSTM, L=5, D=534,
+# 'ave' merge, CNN front end on (31 x 64 = 1984 inputs), plain Adam at
+# 1e-4, 24000-frame buckets, 32 classes
+LSTM_WSJ_FLAGS = [
+    "--model-type=blstm", "--model-encoder-num=5", "--model-dimension=534",
+    "--model-lstm-is-cnnfe=True", "--train-inn-dropout=0.4",
+    "--train-inp-dropout=0.3", "--train-opti-type=adam",
+    "--train-lr-param-k=1e-4", "--train-batch-frame=24000",
+]
+# card vs CPU logits of the served models (float32 both, TF32 off): sums in
+# other orders through 20 attention blocks (21 LayerNorms) or 5 BLSTM
+# layers over up to 416 steps; the logits are O(1) and measured 4.8e-6
+# (STF) and 1.2e-5 (LSTM) apart on an H100
+STF_LOGIT_ATOL, LSTM_LOGIT_ATOL = 1e-4, 1e-4
+# blockwise against plain attention on the card (float32): the online
+# softmax sums the same terms in key blocks; outputs O(1)
+BLOCKWISE_ATOL, BLOCKWISE_GRAD_REL = 1e-4, 1e-4
+# the STF-WSJ recipe's width (train_stf_wsj.sh: D=256, FF 1488, 4 heads)
+# at T' = 600 (2400 frames), batch 8, penalty (1, 1, 1) on
+BLOCKWISE_SHAPE = (8, 4, 600, 64)
+# the timed train shapes, (B, padded frames): the first of the 20000-frame
+# TIMIT buckets, which every TIMIT utterance up to 241 frames falls in; and
+# three 24000-frame buckets that WSJ's 300-1600-frame utterances fall in
+STF_TRAIN_SHAPES = ((82, 241),)
+LSTM_TRAIN_SHAPES = ((44, 541), (24, 991), (15, 1591))
+# the CLI runs' corpora, {split: ((low, high) frames, utterances)}: every
+# bucket filled twice in train (one step each), once in valid
+STF_RECIPE = {"train": (((150, 241), 164), ((242, 391), 102)),
+              "valid": (((150, 241), 82), ((242, 391), 51))}
+LSTM_RECIPE = {"train": (((392, 541), 44), ((992, 1141), 21)),
+               "valid": (((392, 541), 44), ((992, 1141), 21))}
+LSTM_TEST_UTTS, LSTM_TEST_FRAMES = 8, (300, 1600)
+
+
+def kernel_counts():
+    """K1-K5's launch counters."""
+    from srf_tpu_torch.ops import dropout_cuda, routing_cuda
+
+    return (routing_cuda.sequential_routing_cuda.launches,
+            routing_cuda.sequential_routing_bwd_cuda.launches,
+            routing_cuda.sequential_routing_scan_cuda.launches,
+            routing_cuda.sequential_routing_scan_bwd_cuda.launches,
+            dropout_cuda.fused_dropout_cuda.launches)
+
+
+def family_config(logger, device, conf, flags):
+    """``conf`` (timit or wsj) with a recipe's model and training flags."""
+    from srf_tpu_torch.config import ParseOption
+
+    return ParseOption(
+        ["chip_smoke", "--config=%s" % os.path.join(REPO, "egs", "conf",
+                                                    conf + ".conf"),
+         "--path-base=%s" % REPO, "--path-ckpt=%s" % REPO,
+         "--device=%s" % device, *flags],
+        logger, is_print_opts=False,
+    ).args
+
+
+def wsj_serve_batches():
+    """Phase 11's request batches: 8 utterances of 300-1600 frames and one
+    of 1600, fbank-123 features from numpy."""
+    rng = np.random.RandomState(SEED + 11)
+    return {
+        "8x300-1600": [rng.randn(n, 123).astype(np.float32)
+                       for n in rng.randint(300, 1601, size=8)],
+        "1x1600": [rng.randn(1600, 123).astype(np.float32)],
+    }
+
+
+def family_serve(torch, card, label, config, batches, logit_atol):
+    """Serve ``batches`` through a Recognizer at ``config`` on the card and
+    on the CPU with numpy-seeded weights: ids and text equal, logits within
+    ``logit_atol``; forward and end-to-end times and a profile of one
+    forward per batch. Returns the weights (a state_dict)."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.serve import Recognizer
+
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    classes = class_count(config)
+    state = random_weights(build_model(config, classes)[0])
+    card_rec = Recognizer(config, state_dict=state, logger=logger)
+    cpu_rec = Recognizer(config, state_dict=state, device="cpu",
+                         logger=logger)
+    check(card_rec.device.type == "cuda", "%s Recognizer is not on the card"
+          % label)
+    for feats_list in batches.values():  # warm-up (allocator, cuDNN)
+        card_rec.transcribe_batch_detailed(feats_list)
+    torch.cuda.synchronize()
+    for name, feats_list in batches.items():
+        got = card_rec.transcribe_batch_detailed(feats_list)
+        check_served(name, got, feats_list, card_rec.in_len_div,
+                     blank=classes - 1)
+        cpu = cpu_rec.transcribe_batch_detailed(feats_list)
+        check([r["ids"] for r in got] == [r["ids"] for r in cpu],
+              "%s %s: card ids differ from CPU ids" % (label, name))
+        check([r["text"] for r in got] == [r["text"] for r in cpu],
+              "%s %s: card text differs from CPU text" % (label, name))
+        card_logits = card_rec.forward(*card_rec.pad(feats_list)).cpu()
+        cpu_logits = cpu_rec.forward(*cpu_rec.pad(feats_list))
+        check(bool(torch.isfinite(card_logits).all()), "%s %s: logits"
+              % (label, name))
+        err = (card_logits - cpu_logits).abs().max().item()
+        print("%s serve %s: %d utts, %d tokens, ids equal to CPU, logits "
+              "%s max |card - cpu| %.3e (atol %.0e)"
+              % (label, name, len(got), sum(len(r["ids"]) for r in got),
+                 tuple(card_logits.shape), err, logit_atol))
+        check(err <= logit_atol, "%s %s: card logits differ from CPU"
+              % (label, name))
+    reps = 10
+    for name, feats_list in batches.items():
+        feats, lengths = card_rec.pad(feats_list)
+        fwd_ms = timed_ms(torch, lambda: card_rec.forward(feats, lengths),
+                          reps)
+        e2e_ms = timed_ms(
+            torch, lambda: card_rec.transcribe_batch_detailed(feats_list),
+            reps)
+        audio_s = 0.01 * float(lengths.sum())
+        med = float(np.median(e2e_ms))
+        print("%s serve %s (padded %s), %d runs: forward median %.3f "
+              "ms/batch (max %.3f), end-to-end median %.3f ms/batch (max "
+              "%.3f), %.1f utt/s, %.1fx realtime [%s]"
+              % (label, name, tuple(feats.shape), reps,
+                 float(np.median(fwd_ms)), max(fwd_ms), med, max(e2e_ms),
+                 1e3 * len(feats_list) / med, 1e3 * audio_s / med, card))
+        _, total, count, busy, wall, by_name = profile_device(
+            torch, lambda: card_rec.forward(feats, lengths), ())
+        print("profile %s %s forward: all %d device ops %.3f ms, device "
+              "busy %.3f of %.3f ms wall (idle share %.3f); top: %s [%s]"
+              % (label, name, count, total, busy, wall, 1.0 - busy / wall,
+                 top_ops(by_name), card))
+    torch.cuda.synchronize()
+    return state
+
+
+def family_train(torch, card, label, config, state, shapes, vocab):
+    """One dropout-free step on card and CPU held as phase 7's (its update
+    at the schedule's peak, the warmup count, or at plain Adam's rate),
+    then TRAIN_STEPS steps with dropout on over ``shapes`` (the first step
+    at each shape, with cuDNN's algorithm search, timed apart), finite
+    losses and every tensor on the card; ms per step per shape and a
+    profile of one step at the first shape."""
+    batches = [train_batch(torch, "cuda", batch=b, frames=t, vocab=vocab)
+               for b, t in shapes]
+    train_parity(torch, config, state,
+                 {k: v[:TRAIN_CHECK_BATCH] for k, v in batches[0].items()},
+                 label=label + " ", count=config.train_warmup_n)
+    train_state, _, step = train_setup(torch, config, state, "cuda")
+    seed = config.tpu_seed
+    first_ms, step_ms, losses = [], {}, []
+    for batch in batches:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        train_state, metrics = step(train_state, batch, seed)
+        torch.cuda.synchronize()
+        first_ms.append(1e3 * (time.perf_counter() - start))
+    for i in range(TRAIN_STEPS):
+        batch = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        train_state, metrics = step(train_state, batch, seed)
+        torch.cuda.synchronize()
+        step_ms.setdefault(tuple(batch["feats"].shape[:2]), []).append(
+            1e3 * (time.perf_counter() - start))
+        losses.append(metrics["loss_sum"] / batch["feats"].shape[0])
+    all_on_card(train_state, metrics)
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()), "non-finite %s train loss"
+          % label)
+    for (b, t), first in zip(shapes, first_ms):
+        times = step_ms[(b, t)]
+        med = float(np.median(times))
+        print("%s train %d x %d (dropout on): first step %.1f ms; %d steps "
+              "ms/step median %.3f max %.3f; %.1f utt/s, %.1f padded "
+              "frames/ms [%s]" % (label, b, t, first, len(times), med,
+                                  max(times), 1e3 * b / med, b * t / med,
+                                  card))
+    print("%s train: loss per utterance first %.3f last %.3f"
+          % (label, losses[0], losses[-1]))
+    _, total, count, busy, wall, by_name = profile_device(
+        torch, lambda: step(train_state, batches[0], seed), ())
+    print("profile %s train step %d x %d: all %d device ops %.3f ms, device "
+          "busy %.3f of %.3f ms wall (idle share %.3f); top: %s [%s]"
+          % (label, shapes[0][0], shapes[0][1], count, total, busy, wall,
+             1.0 - busy / wall, top_ops(by_name, 8), card))
+    torch.cuda.synchronize()
+
+
+def blockwise_check(torch, card):
+    """blockwise_attention against the plain path on the card, forward and
+    gradients, at BLOCKWISE_SHAPE with the padding bias and the penalty,
+    and both paths' forward + backward times."""
+    from srf_tpu_torch.models.layers import scaled_dot_product_attention
+    from srf_tpu_torch.ops.attention_penalty import AttentionPenalty
+    from srf_tpu_torch.ops.blockwise_attention import (PenaltyParams,
+                                                       blockwise_attention)
+    from srf_tpu_torch.ops.masking import get_padding_bias
+
+    batch, heads, seq_len, depth = BLOCKWISE_SHAPE
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    q, k, v, cot = (torch.randn(BLOCKWISE_SHAPE, generator=gen,
+                                device="cuda") for _ in range(4))
+    lengths = torch.linspace(seq_len // 2, seq_len, batch,
+                             device="cuda").int()
+    mask = get_padding_bias(lengths, seq_len, 1)
+    board = AttentionPenalty(2500, heads, 1, 1, 1.0).penalty(seq_len,
+                                                             "cuda")
+    penalty = PenaltyParams(1, 1, 1.0, 2500)
+
+    def run(blockwise):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        if blockwise:
+            out = blockwise_attention(*leaves, mask, penalty=penalty)
+        else:
+            out = scaled_dot_product_attention(*leaves, mask, board[None])[0]
+        out.backward(cot)
+        return out.detach(), [t.grad for t in leaves]
+
+    (plain, plain_grads), (block, block_grads) = run(False), run(True)
+    err = (block - plain).abs().max().item()
+    grad_err = max(((b - p).abs().max() / p.abs().max()).item()
+                   for b, p in zip(block_grads, plain_grads))
+    times = paired_ms(torch, lambda: run(False), lambda: run(True), 3)
+    print("blockwise attention on the card at %s (T' %d, penalty on, "
+          "padding bias): max |blockwise - plain| %.3e (atol %.0e), "
+          "gradients' worst error %.3e x their max (atol %.0e x max); "
+          "forward + backward plain %.3f ms, blockwise %.3f ms [%s]"
+          % (BLOCKWISE_SHAPE, seq_len, err, BLOCKWISE_ATOL, grad_err,
+             BLOCKWISE_GRAD_REL, times[0], times[1], card))
+    check(err <= BLOCKWISE_ATOL, "blockwise attention differs from plain")
+    check(grad_err <= BLOCKWISE_GRAD_REL,
+          "blockwise attention's gradients differ from plain")
+
+
+def write_split(base, split_name, utts, shards):
+    """{utt id: (features, labels)} into ``shards`` TFRecord shards
+    synth-<split>-None-123-<s>-of-<shards> by the port's writer, with utt
+    ids (data/writer.py's layout)."""
+    from srf_tpu_torch.data.example_proto import encode_example
+    from srf_tpu_torch.data.tfrecord import TFRecordWriter
+
+    os.makedirs(os.path.join(base, "tfrecord"), exist_ok=True)
+    writers = [TFRecordWriter(os.path.join(
+        base, "tfrecord", "synth-%s-None-123-%d-of-%d"
+        % (split_name, s, shards))) for s in range(shards)]
+    for i, (utt, (feats, labels)) in enumerate(utts.items()):
+        writers[i % shards].write(encode_example({
+            "target_label": labels,
+            "input_speech": feats.flatten(),
+            "input_length": np.asarray([feats.shape[0]], np.int64),
+            "target_length": np.asarray([labels.size], np.int64),
+            "utt_id": [utt.encode()],
+        }))
+    for writer in writers:
+        writer.close()
+
+
+def family_corpus(base, recipe, test, vocab_n, seed):
+    """Writes ``recipe``'s train and valid splits (fbank-123 features,
+    labels 1..vocab_n-1, tar_len max(2, len // 8)) and ``test`` as
+    TFRecords under ``base``; returns the utterance counts."""
+    rng = np.random.RandomState(seed)
+    counts = {}
+    for split, buckets in recipe.items():
+        utts = {}
+        for (low, high), count in buckets:
+            for _ in range(count):
+                n = int(rng.randint(low, high + 1))
+                utts["%s%03d" % (split, len(utts))] = (
+                    rng.randn(n, 123).astype(np.float32),
+                    rng.randint(1, vocab_n, size=max(2, n // 8)))
+        write_split(base, split, utts, 2)
+        counts[split] = len(utts)
+    write_split(base, "test", test, 2)
+    counts["test"] = len(test)
+    return counts
+
+
+def family_recipe(torch, card, label, main, conf, vocab_file, flags, stages,
+                  recipe, test, corpus):
+    """A recipe's stages 1-4 through the port's CLIs on synthetic
+    TFRecords: ``main`` (trainer_tf's or trainer_sr's) once per (k,
+    epochs) of ``stages`` on one checkpoint directory, tools.average_ckpt
+    over the last stage's checkpoints, ``main`` in decode mode with the
+    device beam at width 100 (batch 8), utils.log2utt; every test
+    utterance decoded, finite losses."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from srf_tpu_torch.tools import average_ckpt
+    from srf_tpu_torch.utils import checkpoint, log2utt
+    from srf_tpu_torch.utils.vocab import load_vocab
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_%s_" % conf)
+    vocab_path = os.path.join(REPO, "egs", "data", vocab_file)
+    ckpt = os.path.join(base, "ckpt")
+    try:
+        start = time.perf_counter()
+        vocab_n = len(load_vocab(vocab_path, None)[0])
+        counts = family_corpus(base, recipe, test, vocab_n, SEED + 30)
+        print("%s recipe corpus: %s utterances as TFRecords, %.1f s"
+              % (label, counts, time.perf_counter() - start))
+        model_flags = [f for f in flags if not f.startswith(
+            ("--train-lr-param-k", "--decoding-beam"))]
+
+        def argv(*extra):
+            return ["chip_smoke",
+                    "--config=%s" % os.path.join(REPO, "egs", "conf",
+                                                 conf + ".conf"),
+                    "--path-base=%s" % base, "--path-vocab=%s" % vocab_path,
+                    "--path-ckpt=%s" % ckpt, "--feat-type=None",
+                    "--path-train-ptrn=tfrecord/synth-train-None-123-*-of-*",
+                    "--path-valid-ptrn=tfrecord/synth-valid-None-123-*-of-*",
+                    "--path-test-ptrn=tfrecord/synth-test-None-123-*-of-*",
+                    "--prep-data-num-train=%d" % counts["train"],
+                    "--prep-data-num-valid=%d" % counts["valid"],
+                    "--prep-data-num-test=%d" % counts["test"],
+                    "--device=cuda", *model_flags, *extra]
+
+        with LogLines("Pre-training Valid Loss") as log:
+            for k, epochs in stages:
+                start = time.perf_counter()
+                main(argv("--train-lr-param-k=%s" % k,
+                          "--train-es-tolerance=%d" % epochs,
+                          "--train-max-epoch=%d" % epochs))
+                torch.cuda.synchronize()
+                print("%s recipe stage 1 (k %s, to epoch %d): %.1f s"
+                      % (label, k, epochs, time.perf_counter() - start))
+        steps = checkpoint.CheckpointManager(ckpt).all_steps()
+        last = stages[-1][1]
+        check(steps == list(range(1, last + 1)),
+              "%s recipe: checkpoints %s" % (label, steps))
+        with open(os.path.join(ckpt, "metrics.jsonl")) as records:
+            losses = [json.loads(line)["loss"] for line in records]
+        check(len(losses) == 2 * last and np.isfinite(losses).all()
+              and min(losses) > 0, "%s recipe losses %s" % (label, losses))
+        print("%s recipe: train/valid losses per epoch %s; %s"
+              % (label, ", ".join("%.3f" % x for x in losses),
+                 "; ".join(log.lines) or "no pre-training pass"))
+        start = time.perf_counter()
+        average_ckpt.main(argv("--model-average-num=%d" % last))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            main(argv("--path-ckpt=%s" % os.path.join(ckpt, "avg"),
+                      "--train-max-epoch=0", "--decoding-beam-width=100",
+                      "--tpu-decode-batch=8", "--tpu-decode-pad-last=True"))
+        log_path = os.path.join(base, "decode.log")
+        with open(log_path, "w") as f:
+            f.write(out.getvalue())
+        scraped = io.StringIO()
+        with contextlib.redirect_stdout(scraped):
+            log2utt.main([log_path, vocab_path, "--corpus", corpus])
+        lines = [l for l in scraped.getvalue().splitlines() if l.strip()]
+        check(len(lines) == counts["test"],
+              "%s recipe: log2utt gave %d of %d utterances"
+              % (label, len(lines), counts["test"]))
+        print("%s recipe stages 2-4 (average %d, decode beam 100 on the "
+              "card, log2utt): %d utterances, %.1f s; first: %s [%s]"
+              % (label, last, len(lines), time.perf_counter() - start,
+                 lines[0][:80], card))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def stf_phase(torch, card):
+    """Phase 10: STF-TIMIT at full width (see the module docstring)."""
+    from srf_tpu_torch import trainer_tf
+    from srf_tpu_torch.config import Logger
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = family_config(logger, "cuda", "timit", STF_TIMIT_FLAGS)
+    before = kernel_counts()
+    state = family_serve(torch, card, "STF-TIMIT", config, serve_batches(),
+                         STF_LOGIT_ATOL)
+    family_train(torch, card, "STF-TIMIT", config, state, STF_TRAIN_SHAPES,
+                 62)
+    blockwise_check(torch, card)
+    family_recipe(torch, card, "STF-TIMIT", trainer_tf.main, "timit",
+                  "timit_62.vocab", STF_TIMIT_FLAGS, ((1.5, 1), (0.5, 2)),
+                  STF_RECIPE, test_split_data(), "timit")
+    check(kernel_counts() == before,
+          "phase 10 moved K1-K5's counters: %s -> %s"
+          % (before, kernel_counts()))
+    print("STF-TIMIT phase: K1-K5 launches unmoved %s; %.1f s"
+          % (before, time.perf_counter() - phase_start))
+
+
+def lstm_phase(torch, card):
+    """Phase 11: LSTM-WSJ at full width (see the module docstring)."""
+    from srf_tpu_torch import trainer_sr
+    from srf_tpu_torch.config import Logger
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = family_config(logger, "cuda", "wsj", LSTM_WSJ_FLAGS)
+    before = kernel_counts()
+    state = family_serve(torch, card, "LSTM-WSJ", config,
+                         wsj_serve_batches(), LSTM_LOGIT_ATOL)
+    family_train(torch, card, "LSTM-WSJ", config, state, LSTM_TRAIN_SHAPES,
+                 31)
+    rng = np.random.RandomState(SEED + 12)
+    test = {}
+    for i in range(LSTM_TEST_UTTS):
+        n = int(rng.randint(LSTM_TEST_FRAMES[0], LSTM_TEST_FRAMES[1] + 1))
+        test["synth%02d" % i] = (rng.randn(n, 123).astype(np.float32),
+                                 rng.randint(1, 31, size=max(2, n // 8)))
+    family_recipe(torch, card, "LSTM-WSJ", trainer_sr.main, "wsj",
+                  "wsj_31.vocab", LSTM_WSJ_FLAGS, ((1e-4, 2),), LSTM_RECIPE,
+                  test, "wsj")
+    check(kernel_counts() == before,
+          "phase 11 moved K1-K5's counters: %s -> %s"
+          % (before, kernel_counts()))
+    print("LSTM-WSJ phase: K1-K5 launches unmoved %s; %.1f s"
+          % (before, time.perf_counter() - phase_start))
+
+
 def run():
     import torch
 
@@ -2740,6 +3244,8 @@ def run():
     serve_k5, cnn_state = cnn_serve_phase(torch, card)
     train_k5 = cnn_train_phase(torch, card, cnn_state)
     check(train_k5 > 0, "K5 was not launched on the CNN training path")
+    stf_phase(torch, card)
+    lstm_phase(torch, card)
     k1["launches"] = serve_k1 + decode_k1 + train_k1 + recipe_k1
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
                               "train": train_k1, "recipe": recipe_k1}

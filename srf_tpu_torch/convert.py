@@ -16,6 +16,16 @@ The port side is the model's ``state_dict``. Layouts change on the way:
 - LayerNorm / BatchNorm scale   <-> weight; BatchNorm mean/var (from
   ``batch_stats``) <-> running_mean/running_var
 - routing W{i} [in_n, out_n, out_d, in_d] and b{i} keep their layout.
+- an LSTM cell ``lstm{i}_f`` (``lstm{i}_b``, the backward direction) of
+  flax's per-gate kernels ``ii/if/ig/io`` [in, H] and ``hi/hf/hg/ho``
+  [H, H] with biases <-> ``lstm{i}.weight_ih_l0`` [4H, in],
+  ``weight_hh_l0`` [4H, H] and ``bias_hh_l0`` [4H] (``_l0_reverse`` for
+  the backward direction), gates stacked in torch's i, f, g, o order;
+  torch's second bias ``bias_ih_l0`` is zero (``models/lstm.py``): it is
+  written as zeros, and refused on the way back unless it is.
+
+The STF's attention (``wq``/``wk``/``wv``/``wo``), feed-forward and
+projections are ordinary Dense layers.
 
 ``load_npz`` reads a ``.npz`` whose keys are the tree's paths joined by
 ``/`` (``params/conv_feat/conv0_0/kernel``), so weights exported from the
@@ -38,10 +48,45 @@ def flax_to_state_dict(variables):
     return state
 
 
+_GATES = "ifgo"  # torch's gate order, flax's gate names
+
+
+def _cell_to_state(cell, key, state):
+    """One flax LSTM cell ``{prefix}lstm{i}_f`` / ``_b`` -> nn.LSTM keys."""
+    suffix = "_l0_reverse" if key.endswith("_b") else "_l0"
+    module = key[:-2]
+    for kind, side in (("weight_ih", "i"), ("weight_hh", "h")):
+        state[module + "." + kind + suffix] = _tensor(np.concatenate(
+            [np.asarray(cell[side + g]["kernel"]).T for g in _GATES]))
+    bias = np.concatenate([np.asarray(cell["h" + g]["bias"]) for g in _GATES])
+    state[module + ".bias_ih" + suffix] = _tensor(np.zeros_like(bias))
+    state[module + ".bias_hh" + suffix] = _tensor(bias)
+
+
+def _cell_from_state(params, path, leaf, array):
+    """One nn.LSTM tensor ``weight_ih_l0[_reverse]`` etc. -> the flax cell."""
+    kind, _ = leaf.split("_l0")
+    cell = _subtree(params, path[:-1] + [
+        path[-1] + ("_b" if leaf.endswith("_reverse") else "_f")])
+    if kind == "bias_ih":
+        if np.any(array):
+            raise ValueError("%s: flax's LSTM cell has one bias; bias_ih "
+                             "must be zero" % ".".join(path + [leaf]))
+        return
+    for g, block in zip(_GATES, np.split(array, len(_GATES), axis=0)):
+        if kind == "bias_hh":
+            cell.setdefault("h" + g, {})["bias"] = block
+        else:
+            name = ("i" if kind == "weight_ih" else "h") + g
+            cell.setdefault(name, {})["kernel"] = np.ascontiguousarray(block.T)
+
+
 def _params_to_state(params, stats, prefix, state):
     for name, value in params.items():
         key = prefix + name
-        if not isinstance(value, dict):
+        if isinstance(value, dict) and "ii" in value:
+            _cell_to_state(value, key, state)
+        elif not isinstance(value, dict):
             state[key] = _tensor(value)  # routing W{i} / b{i}
         elif "kernel" in value:
             kernel = np.asarray(value["kernel"])
@@ -81,6 +126,9 @@ def state_dict_to_flax(state):
             continue
         if not path:  # routing W{i} / b{i}
             params[leaf] = array
+            continue
+        if "_l0" in leaf:  # an nn.LSTM
+            _cell_from_state(params, path, leaf, array)
             continue
         node = _subtree(params, path)
         if leaf == "bias":

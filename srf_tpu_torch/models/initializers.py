@@ -25,3 +25,17 @@ def routing_weight_init(stddev=0.1):
     """Routing transformation matrices and biases: normal(0, 0.1)
     (reference: sequence_router_naive.py:97-103)."""
     return lambda t, gen: torch.nn.init.normal_(t, 0.0, stddev, generator=gen)
+
+
+def lecun_normal():
+    """flax's default Dense kernel init, ``variance_scaling(1, fan_in,
+    truncated_normal)``: a normal truncated at +-2 std whose std is
+    ``sqrt(1 / fan_in) / 0.8796...`` (the truncation's correction), for a
+    torch [out, in] weight."""
+
+    def init(t, gen):
+        std = (1.0 / t.shape[1]) ** 0.5 / 0.87962566103423978
+        return torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                           generator=gen)
+
+    return init

@@ -1,5 +1,4 @@
-"""Model building blocks (port of the SRF and CNN part of
-``srf_tpu/models/layers.py``).
+"""Model building blocks (port of ``srf_tpu/models/layers.py``).
 
 :func:`same_pad` / :func:`conv2d_same` — flax's ``padding="SAME"`` with a
 per-axis kernel and stride (the CNN's (5, 3) convs stride (t, 1)).
@@ -17,6 +16,14 @@ included, and it moves the running statistics by
 
 :class:`Dropout` — inverted dropout whose masks may come from an explicit
 ``torch.Generator`` (the train step seeds one per step).
+
+:class:`MultiHeadAttention` — QKV Linear (no bias), scaled dot-product with
+additive ``mask * -1e9`` and the Speech-Transformer distance penalty
+``+= -log(1 + penalty)``, dropout on the weights (reference:
+tfsr/model/attention.py:34-174); :class:`PointWiseFeedForward` (reference:
+tfsr/model/feed_forward.py:26-40); :class:`EncoderBlock`, the pre-LN
+transformer block (reference: tfsr/model/block.py:32-72). In training mode
+each ``Dropout`` draws from the generator passed to ``forward``.
 """
 
 import math
@@ -131,3 +138,125 @@ class ConvFrontEnd(nn.Module):
             x = batch_norm(x, getattr(self, "bn%d" % conv_idx))
             x = feat_mask(x, input_lengths, divisor, time_dim=2)
         return x.permute(0, 2, 3, 1)  # the JAX layout [B, T', F', C]
+
+
+def scaled_dot_product_attention(query, key, value, mask, att_pen_mask,
+                                 dropout=None, generator=None):
+    """Attention(Q,K,V) with the distance penalty ``+ log1p(pen) * -1`` and
+    the additive ``mask * -1e9``; ``dropout`` (a ``Dropout``) acts on the
+    weights. Returns (output, weights)."""
+    scaled = torch.matmul(query, key.transpose(-1, -2)) / math.sqrt(
+        query.shape[-1])
+    if att_pen_mask is not None:
+        scaled = scaled + torch.log1p(att_pen_mask) * -1.0
+    if mask is not None:
+        scaled = scaled + mask * -1e9
+    weights = torch.softmax(scaled, dim=-1)
+    if dropout is not None:
+        weights = dropout(weights, generator)
+    return torch.matmul(weights, value), weights
+
+
+class MultiHeadAttention(nn.Module):
+    """Q/K/V Linear without bias, attention, ``wo`` with a bias.
+
+    ``impl`` (per call): ``"plain"`` materializes the
+    [B, H, T, T] weights and returns them; ``"blockwise"`` runs the online
+    softmax over key blocks (``ops/blockwise_attention.py``) with the
+    closed-form penalty ``penalty_params`` and returns weights None;
+    ``"ring"`` needs a device mesh and is not ported. ``site`` keys the
+    blockwise path's dropout seeds apart from other attention layers'.
+    """
+
+    def __init__(self, d_model, num_heads, attention_dropout=0.0,
+                 penalty_params=None, site=0):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError("d_model %d (--model-dimension) is not a multiple "
+                             "of the %d heads (--model-att-head-num)"
+                             % (d_model, num_heads))
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.penalty_params = penalty_params
+        self.site = site
+        for name in ("wq", "wk", "wv"):
+            setattr(self, name, nn.Linear(d_model, d_model, bias=False))
+        self.wo = nn.Linear(d_model, d_model)
+        self.att_dropout = Dropout(attention_dropout)
+
+    def _split(self, x):
+        batch = x.shape[0]
+        return x.reshape(batch, -1, self.num_heads,
+                         self.d_model // self.num_heads).transpose(1, 2)
+
+    def forward(self, value, key, query, mask, att_pen_mask, generator=None,
+                impl="plain"):
+        q = self._split(self.wq(query))
+        k = self._split(self.wk(key))
+        v = self._split(self.wv(value))
+        if impl == "plain":
+            attended, weights = scaled_dot_product_attention(
+                q, k, v, mask, att_pen_mask, self.att_dropout, generator)
+        elif impl == "blockwise":
+            from srf_tpu_torch.ops.blockwise_attention import (
+                blockwise_attention,
+            )
+            from srf_tpu_torch.ops.dropout import site_seed
+
+            rate = self.att_dropout.p if self.training else 0.0
+            seed = None
+            if rate > 0.0:
+                base = (generator.initial_seed() if generator is not None
+                        else int(torch.randint(1 << 62, ()).item()))
+                seed = site_seed(base, self.site)
+            attended = blockwise_attention(
+                q, k, v, mask, penalty=self.penalty_params,
+                dropout_rate=rate, dropout_seed=seed)
+            weights = None
+        elif impl == "ring":
+            raise NotImplementedError(
+                "attention impl 'ring' is not ported yet: it shards the time "
+                "axis over a device mesh (ROADMAP.md section 1 item 7, "
+                "parallelism)")
+        else:
+            raise ValueError("unknown attention impl %r" % impl)
+        attended = attended.transpose(1, 2).reshape(
+            query.shape[0], -1, self.d_model)
+        return self.wo(attended), weights
+
+
+class PointWiseFeedForward(nn.Module):
+    def __init__(self, d_model, dff, ff_dropout):
+        super().__init__()
+        self.ff1 = nn.Linear(d_model, dff)
+        self.ff2 = nn.Linear(dff, d_model)
+        self.dropout = Dropout(ff_dropout)
+
+    def forward(self, inputs, generator=None):
+        return self.ff2(self.dropout(torch.relu(self.ff1(inputs)), generator))
+
+
+class EncoderBlock(nn.Module):
+    """Pre-LN transformer block (reference: tfsr/model/block.py:32-72):
+    ``ln_cur`` -> MHA -> residual dropout -> add, then ``ln_res`` -> FFN ->
+    residual dropout -> add; LayerNorm eps 1e-6."""
+
+    def __init__(self, d_model, num_heads, dff, inner_dropout,
+                 residual_dropout, attention_dropout, penalty_params=None,
+                 site=0):
+        super().__init__()
+        self.ln_cur = nn.LayerNorm(d_model, eps=1e-6)
+        self.mha = MultiHeadAttention(d_model, num_heads, attention_dropout,
+                                      penalty_params, site)
+        self.ln_res = nn.LayerNorm(d_model, eps=1e-6)
+        self.ffn = PointWiseFeedForward(d_model, dff, inner_dropout)
+        self.res_dropout = Dropout(residual_dropout)
+
+    def forward(self, inputs, mask, att_pen_mask, generator=None,
+                impl="plain"):
+        emb = self.ln_cur(inputs)
+        attn_out, _ = self.mha(emb, emb, emb, mask, att_pen_mask, generator,
+                               impl)
+        out1 = inputs + self.res_dropout(attn_out, generator)
+        ffn_out = self.ffn(self.ln_res(out1), generator)
+        return out1 + self.res_dropout(ffn_out, generator)

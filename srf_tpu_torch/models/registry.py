@@ -1,19 +1,22 @@
-"""Model dispatch (port of ``srf_tpu/models/registry.py``, the SRF and CNN
-families).
+"""Model dispatch (port of ``srf_tpu/models/registry.py``).
 
-Reference: tfsr/trainer_sr.py:175-201. ``--model-type`` "cnn"/"conv"/
-"convolution" selects the maxout CNN (the maxpool or the stride variant on
-``--model-conv-is-mp``); anything else but the LSTM and STF types, which
-this port has not reached, is SRF. ``in_len_div`` (the time-subsampling
-divisor used for CTC lengths) is ``conv_stride ** conv_layer_num`` for
-both families. Every ``--tpu-routing-kernel`` value but ``wavefront`` runs
-the port's one SDR (an unknown value raises ``ValueError``, as in JAX).
-Model types and flags not ported yet raise ``NotImplementedError`` instead
-of running something else.
+Reference: tfsr/trainer_sr.py:175-201. ``--model-type`` ending in "lstm"
+selects the LSTM encoder ("blstm" bidirectional); "cnn"/"conv"/
+"convolution" the maxout CNN (the maxpool or the stride variant on
+``--model-conv-is-mp``); "stf" the Speech-Transformer, which the reference
+builds in trainer_tf (trainer_tf.py:286-293); anything else is SRF.
+``in_len_div`` (the time-subsampling divisor used for CTC lengths) is
+``conv_stride ** conv_layer_num`` for the SRF, CNN and STF families and the
+LSTM's own property. Every ``--tpu-routing-kernel`` value but
+``wavefront`` runs the port's one SDR (an unknown value raises
+``ValueError``, as in JAX). Flags not ported yet raise
+``NotImplementedError`` instead of running something else.
 """
 
 from srf_tpu_torch.models.cnn import CNNEncoder, CNNStrideEncoder
+from srf_tpu_torch.models.lstm import LstmEncoder
 from srf_tpu_torch.models.srf import SequenceRouter
+from srf_tpu_torch.models.stf import ConvEncoder
 
 _LATER = "not ported yet: %s is a later slice of the PyTorch port"
 CNN_TYPES = ("cnn", "conv", "convolution")
@@ -38,12 +41,61 @@ def validate_dropout_kernel(config, model_type):
     return impl
 
 
+def stf_in_len_div(config, logger=None):
+    """Time-subsampling divisor of the STF, shared by ``build_model`` and
+    ``trainer_tf`` so CTC lengths and mask shapes agree.
+
+    The reference computes ``conv_layer_num ** conv_stride``
+    (tfsr/trainer_tf.py:302), transposed from trainer_sr's ``conv_stride
+    ** conv_layer_num``. Both are 4 at the defaults (2, 2); for any other
+    geometry the reference formula disagrees with the front end's actual
+    subsampling, so the true one is used and the difference is logged.
+    """
+    true_div = config.model_conv_stride ** config.model_conv_layer_num
+    ref_div = config.model_conv_layer_num ** config.model_conv_stride
+    if ref_div != true_div and logger is not None:
+        logger.warning(
+            "STF in_len_div: using the front-end's true subsampling %d; "
+            "the reference formula (layer_num ** stride, "
+            "tfsr/trainer_tf.py:302) would give %d for conv geometry "
+            "(%d layers, stride %d) and mis-size the CTC lengths",
+            true_div, ref_div,
+            config.model_conv_layer_num, config.model_conv_stride,
+        )
+    return true_div
+
+
+def validate_stf_attention_kernel(config):
+    """--tpu-attention-kernel: auto, plain or blockwise; ``ring`` needs a
+    device mesh the CLIs do not build, and an unknown value would silently
+    run the plain path, so both raise JAX's ``ValueError``. Returns the
+    kernel."""
+    att_kernel = getattr(config, "tpu_attention_kernel", "auto")
+    if att_kernel == "ring":
+        raise ValueError(
+            "--tpu-attention-kernel=ring is programmatic-only: ring "
+            "(sequence-parallel) attention needs a device mesh, which "
+            "the CLI trainers do not construct for the time axis (and "
+            "the PyTorch port has no ring attention yet: ROADMAP.md "
+            "section 1 item 7)"
+        )
+    if att_kernel not in ("auto", "plain", "blockwise"):
+        raise ValueError("unknown --tpu-attention-kernel %r" % att_kernel)
+    return att_kernel
+
+
 def build_model(config, dec_out_dim, logger=None, **overrides):
     """Returns (model, in_len_div)."""
     model_type = (config.model_type or "srf").lower()
     validate_dropout_kernel(config, model_type)
-    if model_type.endswith("lstm") or model_type == "stf":
-        raise NotImplementedError(_LATER % ("--model-type=" + model_type))
+    if model_type.endswith("lstm"):
+        model = LstmEncoder.from_config(config, dec_out_dim, **overrides)
+        return model, model.in_len_div
+    if model_type == "stf":
+        in_len_div = stf_in_len_div(config, logger)
+        validate_stf_attention_kernel(config)
+        return ConvEncoder.from_config(config, dec_out_dim,
+                                       **overrides), in_len_div
     in_len_div = config.model_conv_stride ** config.model_conv_layer_num
     if model_type in CNN_TYPES:
         encoder = CNNEncoder if config.model_conv_is_mp else CNNStrideEncoder

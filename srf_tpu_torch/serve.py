@@ -7,6 +7,13 @@ CTC beam on the device with optional n-best and n-gram shallow fusion,
 characters), scores, confidences and timestamps, with the same keys as the
 JAX Recognizer.
 
+Every family of ``models/registry.py`` is served (SRF, CNN, (B)LSTM, STF).
+The forward is the model's with no other argument, as the JAX Recognizer
+applies it (``srf_tpu/serve.py`` ``_apply``): a served STF gets no padding
+bias and no penalty board and attends over the padded frames, so its
+logits differ from ``trainer_tf``'s decode of the same weights (F17 in
+ROADMAP.md; kept as the reference's behaviour).
+
 Weights: a ``state_dict`` given directly, a ``.npz`` of the flax tree (see
 ``convert.py``), ``<path_ckpt>/model.pt`` (a ``torch.save``d state_dict),
 or a checkpoint of ``utils/checkpoint.py`` under ``path_ckpt``

@@ -1,5 +1,6 @@
 """CLI: average the last N checkpoints into ``$ckpt/avg`` (port of
-``srf_tpu/tools/average_ckpt.py``, the SRF and CNN families).
+``srf_tpu/tools/average_ckpt.py``; every model family of
+``models/registry.py``).
 
 Reference parity: tfsr/utils/average_ckpt_sr.py — same flags as the
 trainers, averages the last ``--model-average-num`` checkpoints (filtered
@@ -34,11 +35,6 @@ def main(argv=None):
             "--model-average-num must be a positive checkpoint count "
             "(got %r)" % (config.model_average_num,)
         )
-    if (config.model_type or "srf").lower() == "stf":
-        raise NotImplementedError(
-            "--model-type=stf is not ported yet: a later slice of the "
-            "PyTorch port")
-
     from srf_tpu_torch.models.registry import build_model
 
     model, _ = build_model(config, dec_out_dim, logger)

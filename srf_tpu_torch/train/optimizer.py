@@ -32,9 +32,11 @@ def noam_schedule(train_lr_param_k, d_model, warmup_steps, max_lr=10.0):
 
 
 def get_optimizer(config, params):
-    """Returns (optimizer, LambdaLR scheduler or None) over ``params``; call
-    ``scheduler.step()`` after each ``optimizer.step()``. The schedule
-    function is ``scheduler.lr_lambdas[0]``."""
+    """Returns (optimizer, LambdaLR scheduler or None) over those of
+    ``params`` that require a gradient (the LSTM's fixed ``bias_ih`` stays
+    out); call ``scheduler.step()`` after each ``optimizer.step()``. The
+    schedule function is ``scheduler.lr_lambdas[0]``."""
+    params = [p for p in params if p.requires_grad]
     opti_type = config.train_opti_type
     if opti_type is None or opti_type not in ("adam", "sgd"):
         schedule = noam_schedule(

@@ -39,4 +39,6 @@ class TrainState:
 
 
 def param_count(model):
-    return sum(p.numel() for p in model.parameters())
+    """Trained parameters (the LSTM's fixed ``bias_ih`` is not one, as
+    flax's cell has no such bias)."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)

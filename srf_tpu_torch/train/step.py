@@ -20,8 +20,13 @@ Dropout masks come from a ``torch.Generator`` on the batch's device seeded
 from ``seed`` and the state's step count (the JAX step folds the step into
 its key); the JAX stream itself cannot be reproduced.
 
-Not ported yet, and refused: gradient accumulation, EMA, bf16, SpecAugment
-and the STF extra keyword arguments; there is no mesh (one card).
+``make_apply_fn``'s ``extra_kwargs_fn(batch)`` gives a model keyword
+arguments computed per batch (the STF's padding bias, penalty board and
+``in_len_div``: ``trainer_tf.make_stf_extra_kwargs``); it sees the batch
+with its lengths on the features' device.
+
+Not ported yet, and refused: gradient accumulation, EMA, bf16 and
+SpecAugment; there is no mesh (one card).
 """
 
 import torch
@@ -35,8 +40,7 @@ def make_apply_fn(model, extra_kwargs_fn=None, bf16=False, augment_fn=None):
     """Uniform apply adapter: (batch, training, generator) -> float32
     logits [B, T', K]. Sets the model's mode; in training mode the model
     moves its BatchNorm running statistics itself."""
-    for name, value in (("extra_kwargs_fn (STF)", extra_kwargs_fn),
-                        ("bf16 (--tpu-bf16)", bf16),
+    for name, value in (("bf16 (--tpu-bf16)", bf16),
                         ("augment_fn (SpecAugment)", augment_fn)):
         if value:
             raise NotImplementedError(_LATER % name)
@@ -45,7 +49,9 @@ def make_apply_fn(model, extra_kwargs_fn=None, bf16=False, augment_fn=None):
         model.train(training)
         feats = batch["feats"]
         lengths = batch["inp_len"].to(feats.device, non_blocking=True)
-        return model(feats, lengths, generator).float()
+        kwargs = (extra_kwargs_fn({**batch, "inp_len": lengths})
+                  if extra_kwargs_fn else {})
+        return model(feats, lengths, generator, **kwargs).float()
 
     return apply_fn
 

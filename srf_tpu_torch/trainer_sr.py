@@ -1,5 +1,5 @@
-"""Entry point: train and decode SRF and CNN CTC models (port of
-``srf_tpu/trainer_sr.py``).
+"""Entry point: train and decode SRF, CNN and (B)LSTM CTC models (port of
+``srf_tpu/trainer_sr.py``; the STF has ``trainer_tf``).
 
 Same flags as the JAX trainer (conf file + command line merge, plus
 ``--device``), one process on one device (the CUDA device unless
@@ -25,9 +25,9 @@ Same flags as the JAX trainer (conf file + command line merge, plus
   ``--tpu-lm-path``) -> ``UTTID`` lines on stdout for
   ``srf_tpu_torch.utils.log2utt``.
 
-Refused (``NotImplementedError``, each a later slice of the port): MWER,
-EMA, gradient accumulation, bf16, SpecAugment, FSDP, asynchronous
-checkpoints and more than one device or process.
+Refused (``NotImplementedError``, each naming its ROADMAP.md item): MWER,
+EMA, gradient accumulation, bf16 and SpecAugment (item 5); FSDP,
+asynchronous checkpoints and more than one device or process (item 7).
 
 Usage:
     python -m srf_tpu_torch.trainer_sr --config=egs/conf/timit.conf \\
@@ -55,23 +55,28 @@ from srf_tpu_torch.train.step import (
 from srf_tpu_torch.utils.checkpoint import load_checkpoint, restore_into
 from srf_tpu_torch.utils.vocab import get_file_path, load_vocab
 
-_LATER = "%s is not ported yet: %s of the PyTorch port"
-# (flag, is it set, the slice it waits for)
-_REFUSED = (
-    ("--train-is-mwer", lambda c: c.train_is_mwer, "the training extras"),
-    ("--tpu-ema-decay", lambda c: (c.tpu_ema_decay or 0.0) > 0.0,
-     "the training extras"),
-    ("--tpu-decode-ema", lambda c: c.tpu_decode_ema, "the training extras"),
-    ("--tpu-grad-accum > 1", lambda c: (c.tpu_grad_accum or 1) > 1,
-     "the training extras"),
-    ("--tpu-bf16", lambda c: c.tpu_bf16, "the training extras"),
-    ("--tpu-specaug", lambda c: c.tpu_specaug, "the training extras"),
-    ("--tpu-fsdp", lambda c: c.tpu_fsdp, "the parallelism slice"),
-    ("--tpu-async-ckpt", lambda c: c.tpu_async_ckpt,
-     "the parallelism slice"),
-    ("--tpu-mesh-data > 1", lambda c: (c.tpu_mesh_data or 1) > 1,
-     "the parallelism slice"),
+_LATER = "%s is not ported yet: ROADMAP.md section 1 item %d"
+# (flag, is it set, the ROADMAP.md section 1 item it waits for: 5 the
+# training extras, 7 the parallelism slice)
+REFUSED = (
+    ("--train-is-mwer", lambda c: c.train_is_mwer, 5),
+    ("--tpu-ema-decay", lambda c: (c.tpu_ema_decay or 0.0) > 0.0, 5),
+    ("--tpu-decode-ema", lambda c: c.tpu_decode_ema, 5),
+    ("--tpu-grad-accum > 1", lambda c: (c.tpu_grad_accum or 1) > 1, 5),
+    ("--tpu-bf16", lambda c: c.tpu_bf16, 5),
+    ("--tpu-specaug", lambda c: c.tpu_specaug, 5),
+    ("--tpu-fsdp", lambda c: c.tpu_fsdp, 7),
+    ("--tpu-async-ckpt", lambda c: c.tpu_async_ckpt, 7),
+    ("--tpu-mesh-data > 1", lambda c: (c.tpu_mesh_data or 1) > 1, 7),
 )
+
+
+def refuse_unported(config, refused=REFUSED):
+    """Raise NotImplementedError, naming its ROADMAP item, for the first
+    flag of ``refused`` that ``config`` sets."""
+    for flag, is_set, item in refused:
+        if is_set(config):
+            raise NotImplementedError(_LATER % (flag, item))
 
 
 def get_data_len(config):
@@ -144,9 +149,7 @@ def state_to_tree(state):
 def main(argv=None):
     logger = Logger(name="srf_tpu_torch", level=Logger.DEBUG).logger
     config = ParseOption(argv or sys.argv, logger).args
-    for flag, is_set, where in _REFUSED:
-        if is_set(config):
-            raise NotImplementedError(_LATER % (flag, where))
+    refuse_unported(config)
     train = config.train_max_epoch != 0
 
     _, _, dec_in_dim, _ = load_vocab(

@@ -1,6 +1,6 @@
 """Helpers for the PyTorch-port parity tests: flax model variables
-(SequenceRouter, the CNN encoders, ConvFrontEnd) drawn from numpy at the
-shapes ``jax.eval_shape`` gives (no ``model.init``, which is slow on the
+(SequenceRouter, the CNN, STF and LSTM encoders, ConvFrontEnd, attention
+blocks) drawn from numpy at the shapes ``jax.eval_shape`` gives (no ``model.init``, which is slow on the
 CPU), as plain nested dicts of numpy arrays."""
 
 import flax
@@ -15,17 +15,19 @@ from srf_tpu.models.cnn import CNNStrideEncoder as FlaxCNNStrideEncoder
 from srf_tpu_torch.models.cnn import CNNEncoder, CNNStrideEncoder
 
 
-def random_flax_variables(model, feat_dim, seed=0):
+def random_flax_variables(model, feat_dim=None, seed=0, init_args=None):
     """{"params"} and, where the model has BatchNorm, {"batch_stats"} for
     ``model`` (flax), drawn from numpy:
     kernels scaled by 1/sqrt(fan_in), routing W/b normal(0, 0.1), norm
-    scales near 1, non-zero BatchNorm means and positive variances."""
+    scales near 1, non-zero BatchNorm means and positive variances.
+    ``init_args`` are ``model.init``'s arguments after the keys, by default
+    an encoder's (feats [1, 8, feat_dim], lengths [1], False)."""
     key = jax.random.PRNGKey(0)
+    if init_args is None:
+        init_args = (jnp.zeros((1, 8, feat_dim), jnp.float32),
+                     jnp.full((1,), 8, jnp.int32), False)
     shapes = jax.eval_shape(
-        lambda: model.init({"params": key, "dropout": key},
-                           jnp.zeros((1, 8, feat_dim), jnp.float32),
-                           jnp.full((1,), 8, jnp.int32), False)
-    )
+        lambda: model.init({"params": key, "dropout": key}, *init_args))
     rng = np.random.RandomState(seed)
 
     def fill(tree):

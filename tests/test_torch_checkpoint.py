@@ -179,9 +179,11 @@ def test_average_ckpt_cli(tmp_path, trees):
     for bad in ("--model-average-num=0", "--model-average-num=-1"):
         with pytest.raises(SystemExit):
             average_ckpt.main(_argv(tmp_path, bad))
-    with pytest.raises(NotImplementedError, match="stf"):
+    # STF checkpoints average too (tests/test_torch_trainer_tf.py); flags
+    # that describe another family than the checkpoints' fail the load
+    with pytest.raises(RuntimeError, match="loading state_dict"):
         average_ckpt.main(_argv(tmp_path, "--model-average-num=2",
-                                "--model-type=stf"))
+                                "--model-type=stf", "--model-dimension=8"))
     with pytest.raises(RuntimeError, match="size mismatch"):
         average_ckpt.main(_argv(tmp_path, "--model-average-num=2",
                                 "--model-caps-class-dim=5"))

@@ -1,10 +1,18 @@
-"""``--tpu-routing-kernel`` in the port's registry against
-``srf_tpu.models.registry.build_model``: every value JAX builds the SRF for
+"""The port's registry against ``srf_tpu.models.registry.build_model``.
+
+Every ``--model-type`` builds the family JAX builds, with the same
+``in_len_div``; ``--tpu-attention-kernel`` ring and unknown values raise
+JAX's ValueError, the fused dropout stays refused outside the CNN family,
+and ``stf_in_len_div`` warns where the reference's formula differs.
+
+``--tpu-routing-kernel``: every value JAX builds the SRF for
 builds the port's SRF too, through its one SDR (``SDRFunction``: K1/K2 on
 CUDA, the plain loop on the CPU), with the same logits as the default;
 ``wavefront`` (its own module, not ported yet) is refused with
 NotImplementedError; an unknown value raises ValueError in both; and
 ``pallas``/``xla_flat`` with bf16 routing raise JAX's ValueError."""
+
+import types
 
 import numpy as np
 import pytest
@@ -96,3 +104,66 @@ def test_bf16_routing_refusals(kernel):
     else:
         with pytest.raises(NotImplementedError, match="routing-bf16"):
             registry.build_model(config, 9)
+
+
+FAMILY_FLAGS = ["--model-dimension=8", "--model-att-head-num=2",
+                "--model-inner-dim=16", "--model-conv-inp-nfilt=4",
+                "--model-conv-inn-nfilt=8", "--model-conv-proj-dim=16",
+                "--model-encoder-num=5"]
+
+
+@pytest.mark.parametrize("model_type", ["lstm", "blstm", "bilstm", "stf",
+                                        "cnn", "conv", "srf"])
+@pytest.mark.parametrize("cnnfe", ["True", "False"])
+def test_model_types_match_jax(model_type, cnnfe):
+    """Every model type builds the family JAX builds, with its in_len_div
+    (the LSTM's follows its front end)."""
+    config = _config(*FAMILY_FLAGS, "--model-type=" + model_type,
+                     "--model-lstm-is-cnnfe=" + cnnfe)
+    want, want_div = jax_build_model(config, 9)
+    got, div = registry.build_model(config, 9)
+    assert type(got).__name__ == type(want).__name__
+    assert div == want_div
+    if model_type.endswith("lstm"):
+        assert got.bidirectional == want.bidirectional == (
+            model_type == "blstm")
+        assert got.is_cnnfe == (cnnfe == "True")
+
+
+@pytest.mark.parametrize("kernel", ["auto", "plain", "blockwise", "ring",
+                                    "typo"])
+def test_attention_kernel_values_match_jax(kernel):
+    config = _config(*FAMILY_FLAGS, "--model-type=stf",
+                     "--tpu-attention-kernel=" + kernel)
+    want = _outcome(jax_build_model, config)
+    assert _outcome(registry.build_model, config) == want
+    if want == "built":
+        assert registry.build_model(config, 9)[0].attention_impl == kernel
+    else:
+        with pytest.raises(ValueError, match="ring" if kernel == "ring"
+                           else "unknown --tpu-attention-kernel"):
+            registry.build_model(config, 9)
+
+
+@pytest.mark.parametrize("model_type", ["lstm", "blstm", "stf"])
+def test_fused_dropout_is_refused_outside_the_cnn(model_type):
+    config = _config(*FAMILY_FLAGS, "--model-type=" + model_type,
+                     "--tpu-dropout-kernel=pallas")
+    assert _outcome(jax_build_model, config) is ValueError
+    with pytest.raises(ValueError, match="CNN family only"):
+        registry.build_model(config, 9)
+
+
+@pytest.mark.parametrize("layers,stride,warns", [(2, 2, False),
+                                                 (3, 2, True)])
+def test_stf_in_len_div_warns_where_the_reference_differs(layers, stride,
+                                                          warns):
+    messages = []
+    logger = types.SimpleNamespace(warning=lambda *a: messages.append(a))
+    config = _config("--model-conv-layer-num=%d" % layers,
+                     "--model-conv-stride=%d" % stride)
+    assert registry.stf_in_len_div(config, logger) == stride ** layers
+    assert bool(messages) == warns
+    if warns:
+        assert "would give %d" % layers ** stride in messages[0][0] % (
+            messages[0][1:])

@@ -265,7 +265,8 @@ def test_unported_cli_modes_are_refused(tmp_path, flag):
 
 
 @pytest.mark.parametrize("flag", [
-    "--tpu-serve-quant=int8", "--model-type=stf", "--tpu-routing-bf16=True",
+    "--tpu-serve-quant=int8", "--tpu-routing-kernel=wavefront",
+    "--tpu-routing-bf16=True",
 ])
 def test_unported_options_are_refused(tmp_path, flag):
     config = _config(tmp_path, flag)

@@ -121,12 +121,12 @@ def test_training_mode_runs():
 
 
 def test_training_mode_is_refused():
-    """What training has not ported yet is refused: bf16, SpecAugment and
-    the STF arguments in the apply adapter, gradient accumulation and EMA
-    in the train step and its state."""
+    """What training has not ported yet is refused: bf16 and SpecAugment
+    in the apply adapter, gradient accumulation and EMA in the train step
+    and its state. (The STF arguments, ``extra_kwargs_fn``, are ported:
+    tests/test_torch_trainer_tf.py.)"""
     _, model = _models("naive", True, 1)
-    for kwargs in ({"bf16": True}, {"augment_fn": lambda *a: a[0]},
-                   {"extra_kwargs_fn": lambda batch: {}}):
+    for kwargs in ({"bf16": True}, {"augment_fn": lambda *a: a[0]}):
         with pytest.raises(NotImplementedError, match="not ported"):
             step.make_apply_fn(model, **kwargs)
     apply_fn = step.make_apply_fn(model)
