@@ -186,7 +186,44 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    and 21 x 1141), average_ckpt, decode at beam 100 and log2utt over 8
    test utterances of 300-1600 frames. Phases 10 and 11 must leave K1-K5's
    launch counters where they found them;
-12. a "kernels" JSON line (K1, K2, K3, K4, K5), then the card line, then
+12. streaming SRF-TIMIT with phase 6's weights: K1 with an initial carry
+   and a step mask (warm-up rows, one all warm-up) against its plain
+   version at [1|4] x [8|10] at the TIMIT layers and the SRF-WSJ
+   recipe's three; 4 utterances of 150-800 frames streamed greedily at
+   chunk 8, a push of 32 raw frames at a time: logits within LOGIT_ATOL
+   of each utterance's batch forward alone (padded past the layers' right
+   context, padded_one), ids equal to its greedy decode, 14 K1 launches a
+   step and no plain SDR loop on the card; push times (median, p95, the
+   first step, RTF); the streamed beam (width 16, phase 6c's toy 3-gram)
+   equal to the offline device beam on the same logits; a 4-slot and a
+   16-slot StreamingPool equal to single sessions, with their tick times;
+   transcribe_long over ~60 s with 3 silent gaps (the output LayerNorm
+   set so that silence gives the blank, calibrate_blank): one segment
+   closed in each gap, equal to the CPU's;
+12b. the whole SRF-WSJ model (train_srf_wsj.sh with wsj.conf: L=10,
+   PH=60, CH=30, dim 20, window 2+1+2, lowmemory, 32 classes) with
+   numpy-seeded weights: 8 x 300-1600 frames (padded 1664) served on the
+   card, 20 K1 launches a forward, two rows at the same width on the CPU
+   (logits within LOGIT_ATOL, ids equal), forward times and peak memory;
+   the 1600-frame utterance streamed and held to its batch forward;
+13. the serving daemon through its CLI (python -m
+   srf_tpu_torch.serve_daemon in a subprocess, a two-model fleet with
+   phase 6's weights as the default, max batch 8, 10 ms, HTTP on): the
+   first request at widths 256 and 384 (cuDNN's search), then 32 TCP
+   requests of 150-250 frames from 16 threads, each reply's ids equal to
+   the in-process Recognizer's on the utterance and 7 dummies and its
+   score within 1e-4; requests/s and latency; 2 HTTP requests and
+   /v1/health; 2 live streams over TCP equal to in-process sessions; a
+   request to the fleet's other model; the daemon's own K1 count from its
+   stats;
+14. the other serving entry points: python -m srf_tpu_torch.serve with
+   --feats (extract_features' output of a 3 s synthetic wav, with
+   utterance CMVN) and --wav of that wav must print the same text;
+   --tpu-serve-quant=int8 on the card against the CPU (logits within
+   LOGIT_ATOL, ids equal), its resident bytes against float32 and its
+   logits' distance from float32; tools.align over 8 utterances on card
+   and CPU (spans equal, scores within 1e-4);
+15. a "kernels" JSON line (K1, K2, K3, K4, K5), then the card line, then
    the result line.
 """
 
@@ -3191,6 +3228,739 @@ def lstm_phase(torch, card):
           % (before, time.perf_counter() - phase_start))
 
 
+# --------------------------------------------------------------------------
+# phases 12-14: streaming, the serving daemon, the other serving entry points
+
+# K1 with an initial carry and a step mask (streaming), as (B, T) shapes of
+# a streaming step's routed block (chunk 8; 10 for a window's context) at
+# the TIMIT layers and the WSJ recipe's three layer geometries (window
+# 2+1+2: in_n 300 and 150, 32 classes last), each with a nonzero carry and
+# rows whose first steps are warm-up (a pool's slots warm up apart; one
+# row is all warm-up)
+CARRY_SHAPES = ((1, 8), (1, 10), (4, 8), (4, 10))
+CARRY_LAYERS = TIMIT_LAYERS + [
+    ("wsj_layer0", (300, 30, 20, 20), False, 1),
+    ("wsj_middle", (150, 30, 20, 20), False, 8),
+    ("wsj_last", (150, 32, 20, 20), True, 1),
+]
+STREAM_CHUNK, STREAM_BEAM = 8, 16
+STREAM_FRAMES = (150, 333, 517, 800)
+# transcribe_long's recording: speech (random features) of these seconds
+# with LONG_GAP_S of silence (zero features) between them, ~60 s in all;
+# the output LayerNorm is set so that silence gives the blank
+# (calibrate_blank: random weights have no reason to)
+LONG_SPEECH_S, LONG_GAP_S = (12, 14, 13, 12), 3
+LONG_GAIN, LONG_BLANK_MARGIN = 1000.0, 1.0
+POOL_SLOTS = (4, 16)
+# the SRF-WSJ recipe's model (egs/script/train_srf_wsj.sh:14-19,44-55 with
+# egs/conf/wsj.conf): L=10, PH=60, CH=30, dim 20, window 2+1+2,
+# lowmemory, SDR, 1 iteration, 32 classes (wsj_31.vocab + blank)
+SRF_WSJ_FLAGS = [
+    "--model-encoder-num=10", "--model-caps-primary-num=60",
+    "--model-caps-primary-dim=20", "--model-caps-convolution-num=30",
+    "--model-caps-convolution-dim=20", "--model-caps-class-dim=20",
+    "--model-caps-type=lowmemory", "--model-caps-window-lpad=2",
+    "--model-caps-window-rpad=2", "--model-caps-context=True",
+    "--model-caps-iter=1", "--decoding-beam-width=1",
+]
+# WSJ's serving rows the CPU also serves (at the card's padded width)
+WSJ_CPU_ROWS = 2
+# phase 13: DAEMON_REQUESTS requests from DAEMON_THREADS client threads,
+# 150-250 frames (all padded to 256: a reply does not depend on the batch
+# it rode in), the daemon at max batch 8 and 10 ms
+DAEMON_REQUESTS, DAEMON_THREADS, DAEMON_BATCH = 32, 16, 8
+DAEMON_FRAMES = (150, 250)
+DAEMON_TIMEOUT = 120.0
+WAV_SECONDS = 3.0
+ALIGN_UTTS = 8
+
+
+def k1_carry_check(torch, device, card):
+    """Phase 12a: K1 with an initial carry and a step mask against its
+    plain version on the same CUDA tensors, and its time at a streaming
+    step's shape (B=1, T=8) summed over the SRF-TIMIT layers. Returns
+    (the largest error, the step's times)."""
+    from srf_tpu_torch.ops.routing import sequential_routing
+    from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
+
+    rng = np.random.RandomState(SEED + 12)
+    worst = 0.0
+    step = sdr_totals()
+    for name, geometry, mask, count in CARRY_LAYERS:
+        in_n, out_n, out_d, in_d = geometry
+        w = torch.tensor(rng.randn(in_n, out_n, out_d, in_d) * 0.1,
+                         dtype=torch.float32, device=device)
+        b = torch.tensor(rng.randn(in_n, out_n, out_d) * 0.1,
+                         dtype=torch.float32, device=device)
+        for batch, seq_len in CARRY_SHAPES:
+            for num_iter in ((1, 2) if batch == 4 else (1,)):
+                u = torch.tensor(rng.randn(batch, seq_len, in_n, in_d),
+                                 dtype=torch.float32, device=device)
+                v_init = torch.tensor(rng.randn(batch, out_n, out_d) * 0.3,
+                                      dtype=torch.float32, device=device)
+                warm = [3, 0, seq_len, 1][:batch]
+                valid = (torch.arange(seq_len, device=device)[None]
+                         >= torch.tensor(warm, device=device)[:, None])
+                got = sequential_routing_cuda(u, w, b, num_iter, mask,
+                                              v_init, valid)
+                torch.cuda.synchronize()
+                want = sequential_routing(u, w, b, num_iter, mask, v_init,
+                                          valid)
+                err = (got - want).abs().max().item()
+                worst = max(worst, err)
+                check(bool(torch.isfinite(got).all()), "K1 carry not finite")
+                check(not got[~valid].any(),
+                      "K1 wrote a masked step at %s" % (geometry,))
+                check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                      "K1 with a carry and a mask disagrees at %s B=%d T=%d "
+                      "iter=%d (max err %.3e)" % (geometry, batch, seq_len,
+                                                  num_iter, err))
+                if (batch, seq_len, num_iter) != (1, STREAM_CHUNK, 1) or (
+                        not name.startswith(("layer0", "middle", "last"))):
+                    continue
+                ms = event_ms(torch, lambda: sequential_routing_cuda(
+                    u, w, b, 1, mask, v_init, valid), 50)
+                plain_ms = event_ms(torch, lambda: sequential_routing(
+                    u, w, b, 1, mask, v_init, valid), 3)
+                add_layer(step, [], name, count, ms, plain_ms,
+                          sdr_bound_ms(1, STREAM_CHUNK, geometry, 1))
+        print("K1 carry %s %s: B x T %s, warm-up rows %s, carry nonzero: "
+              "max |K1 - plain| %.3e" % (name, geometry, CARRY_SHAPES,
+                                         [3, 0, "T", 1], worst))
+    print("K1 per streaming step (7 calls at B=1 T=%d, a carry and a mask): "
+          "kernel %.4f ms, plain %.4f ms, bound %.5f ms [%s]" % (
+              STREAM_CHUNK, step["ms"], step["plain_ms"], step["bound_ms"],
+              card))
+    return worst, step
+
+
+def padded_one(feats, model):
+    """One utterance zero-padded to a multiple of the subsampling, past
+    the last valid frame by the capsule layers' right context and more
+    (at least 64 frames, as the streaming tests pad the batch forward
+    they hold streaming to): its valid frames then do not depend on where
+    the array ends."""
+    div = model.stride ** model.conv_layer_num
+    extra = max(64, div * (model.enc_num * model.rpad + 2))
+    width = -(-(feats.shape[0] + extra) // div) * div
+    out = np.zeros((1, width, feats.shape[1]), np.float32)
+    out[0, : feats.shape[0]] = feats
+    return out
+
+
+def greedy_ids(logits, frames):
+    """The offline greedy decode of [T', V] numpy logits over ``frames``."""
+    blank = logits.shape[-1] - 1
+    ids = np.argmax(logits[:frames], axis=-1)
+    return [int(x) for i, x in enumerate(ids)
+            if x != blank and (i == 0 or x != ids[i - 1])]
+
+
+def stream_and_check(torch, rec, feats, label, chunk=STREAM_CHUNK,
+                     atol=LOGIT_ATOL):
+    """Stream ``feats`` through a greedy session of ``rec`` a chunk of raw
+    frames a push (host clock per push that runs a step, each ending in a
+    synchronize), hold its logits to the batch forward of the utterance
+    alone and its ids to that forward's greedy decode. Returns (push ms, stream steps,
+    max error, K1 launches while streaming)."""
+    from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
+
+    before = sequential_routing_cuda.launches
+    session = rec.streaming_session(chunk=chunk)
+    push = chunk * session.div
+    tokens, push_ms = [], []
+    for lo in range(0, feats.shape[0], push):
+        blocks = session._fe_blocks
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        tokens += session.push(feats[lo : lo + push])
+        torch.cuda.synchronize()
+        if session._fe_blocks > blocks:
+            push_ms.append(1e3 * (time.perf_counter() - start))
+    tokens += session.flush()
+    launches = sequential_routing_cuda.launches - before
+    batch = padded_one(feats, rec.model)
+    want = rec.forward(torch.from_numpy(batch).to(rec.device),
+                       np.array([feats.shape[0]]))[0].cpu().numpy()
+    t_ceil = -(-feats.shape[0] // session.div)
+    got = session.logits
+    check(got.shape[0] >= t_ceil and np.isfinite(got).all(),
+          "%s: streamed logits" % label)
+    err = float(np.abs(got[:t_ceil] - want[:t_ceil]).max())
+    check(err <= atol, "%s: streamed logits differ from the batch forward "
+          "by %.3e" % (label, err))
+    check(tokens == greedy_ids(want, feats.shape[0] // session.div),
+          "%s: streamed ids differ from the batch forward's" % label)
+    return push_ms, session._fe_blocks, err, launches
+
+
+def calibrate_blank(torch, rec, state):
+    """A copy of ``state`` with the output LayerNorm's affine set so that
+    silence (zero features) gives the blank and speech does not: random
+    weights give nearly the same logits everywhere, so each class's
+    logit becomes LONG_GAIN x its deviation from its value on a silent
+    utterance, plus LONG_BLANK_MARGIN for the blank. On silence every
+    deviation is ~0 and the blank wins; on speech the largest of 62
+    amplified deviations wins."""
+    silent = np.zeros((1, 512, 123), np.float32)
+    logits = rec.forward(torch.from_numpy(silent).to(rec.device),
+                         np.array([512]))[0].cpu().numpy().astype(np.float64)
+    weight = state["ln_output.weight"].numpy().astype(np.float64)
+    bias = state["ln_output.bias"].numpy().astype(np.float64)
+    # the normalised value of each class on silence (the middle frames,
+    # where the SDR carry has settled)
+    z_silent = ((logits - bias) / weight)[32:96].mean(axis=0)
+    new_weight = LONG_GAIN * weight
+    new_bias = -new_weight * z_silent
+    new_bias[rec.blank_id] += LONG_BLANK_MARGIN
+    out = dict(state)
+    out["ln_output.weight"] = torch.tensor(new_weight, dtype=torch.float32)
+    out["ln_output.bias"] = torch.tensor(new_bias, dtype=torch.float32)
+    return out
+
+
+def long_recording():
+    """~60 s: speech segments of LONG_SPEECH_S seconds (random fbank-123
+    rows) with LONG_GAP_S of silence between them; returns (features,
+    [(gap start, gap end) frames])."""
+    rng = np.random.RandomState(SEED + 13)
+    parts, gaps, at = [], [], 0
+    for i, seconds in enumerate(LONG_SPEECH_S):
+        if i:
+            parts.append(np.zeros((100 * LONG_GAP_S, 123), np.float32))
+            gaps.append((at, at + 100 * LONG_GAP_S))
+            at += 100 * LONG_GAP_S
+        parts.append(rng.randn(100 * seconds, 123).astype(np.float32))
+        at += 100 * seconds
+    return np.concatenate(parts), gaps
+
+
+def stream_phase(torch, card, state):
+    """Phase 12: streaming SRF-TIMIT on the card. Returns K1's launches on
+    the streaming path and the readings."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops import routing
+    from srf_tpu_torch.ops.ctc_beam import ctc_beam_search_batch
+    from srf_tpu_torch.ops.ngram_lm import train_ngram
+    from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
+    from srf_tpu_torch.serve import Recognizer
+    from srf_tpu_torch.streaming import StreamingTranscriber
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = timit_config(logger, "cuda")
+    rec = Recognizer(config, state_dict=state, logger=logger)
+    carry_err, step_times = k1_carry_check(torch, rec.device, card)
+    rng = np.random.RandomState(SEED + 12)
+    utts = [rng.randn(n, 123).astype(np.float32) for n in STREAM_FRAMES]
+
+    # greedy sessions, one utterance each: the main path of streaming
+    routing.sequential_routing_from_uhat.cuda_calls = 0
+    sequential_routing_cuda.launches = 0
+    push_ms, steps, errs, launches = [], 0, [], 0
+    for n, feats in zip(STREAM_FRAMES, utts):
+        ms, blocks, err, count = stream_and_check(torch, rec, feats,
+                                                  "stream %d frames" % n)
+        push_ms += ms
+        steps += blocks
+        errs.append(err)
+        launches += count
+    plain_loops = routing.sequential_routing_from_uhat.cuda_calls
+    check(launches == 7 * K1_LAUNCHES * steps,
+          "streaming: K1 launched %d times over %d steps, expected %d"
+          % (launches, steps, 7 * K1_LAUNCHES * steps))
+    check(plain_loops == 0, "streaming ran the plain SDR loop %d times on "
+          "the card" % plain_loops)
+    audio_s = 0.01 * sum(STREAM_FRAMES)
+    steady = push_ms[1:]
+    print("stream SRF-TIMIT chunk %d: %d utterances (%s frames), %d steps, "
+          "K1 launches %d (%d a step), plain SDR loops on the card %d; "
+          "logits vs batch forward max %.3e (atol %.0e), ids equal" % (
+              STREAM_CHUNK, len(utts), STREAM_FRAMES, steps, launches,
+              launches // steps, plain_loops, max(errs), LOGIT_ATOL))
+    print("stream push (%d raw frames, one step): first %.3f ms, median "
+          "%.3f ms, p95 %.3f ms over %d pushes; RTF %.4f (%.3f s of pushes "
+          "for %.2f s of audio) [%s]" % (
+              STREAM_CHUNK * 4, push_ms[0], float(np.median(steady)),
+              float(np.percentile(steady, 95)), len(push_ms),
+              1e-3 * sum(push_ms) / audio_s, 1e-3 * sum(push_ms), audio_s,
+              card))
+
+    # the streamed beam with phase 6c's toy LM against the offline device
+    # beam on the same logits
+    lm = (train_ngram([lab for _, lab in test_split_data().values()], 62,
+                      LM_ORDER), 0.5, 0.5)
+    beam_ms = []
+    for n, feats in zip(STREAM_FRAMES[:2], utts[:2]):
+        session = StreamingTranscriber(rec.model, rec.blank_id,
+                                       chunk=STREAM_CHUNK,
+                                       beam_width=STREAM_BEAM, lm=lm)
+        start = time.perf_counter()
+        for lo in range(0, n, STREAM_CHUNK * 4):
+            session.push(feats[lo : lo + STREAM_CHUNK * 4])
+        ids, score = session.flush()
+        torch.cuda.synchronize()
+        beam_ms.append(1e3 * (time.perf_counter() - start))
+        t_dec = n // 4
+        logits = torch.from_numpy(session.logits[None, :t_dec]).to(rec.device)
+        (want_ids, want_score), = ctc_beam_search_batch(
+            logits, [t_dec], STREAM_BEAM, rec.blank_id, lm=lm)
+        check(ids == want_ids and abs(score - want_score) <= BEAM_SCORE_ATOL,
+              "streamed beam differs from the offline beam at %d frames" % n)
+    print("stream beam %d with the toy 3-gram: = the offline device beam on "
+          "the same logits (ids, score within %.0e) at %s frames; %.1f / "
+          "%.1f ms a whole stream [%s]" % (STREAM_BEAM, BEAM_SCORE_ATOL,
+                                          STREAM_FRAMES[:2], *beam_ms, card))
+
+    # the pool: 4 slots = 4 single sessions; tick times at 4 and 16 slots
+    singles = []
+    for feats in utts:
+        session = rec.streaming_session(chunk=STREAM_CHUNK)
+        singles.append(session.push(feats) + session.flush())
+    tick_ms = {}
+    for slots in POOL_SLOTS:
+        pool = rec.streaming_pool(slots, chunk=STREAM_CHUNK)
+        streams = [utts[i % len(utts)] for i in range(slots)]
+        tokens = [[] for _ in range(slots)]
+        at, ticks = 0, []
+        while any(at < s.shape[0] for s in streams):
+            for slot, feats in enumerate(streams):
+                if at < feats.shape[0]:
+                    pool.push(slot, feats[at : at + 4 * STREAM_CHUNK])
+            at += 4 * STREAM_CHUNK
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            got = pool.step()
+            torch.cuda.synchronize()
+            if len(got) == slots:
+                ticks.append(1e3 * (time.perf_counter() - start))
+            for slot, new in got.items():
+                tokens[slot] += new
+        for slot in range(slots):
+            tokens[slot] += pool.flush(slot)
+        check(tokens == [singles[i % len(utts)] for i in range(slots)],
+              "a %d-slot pool differs from single sessions" % slots)
+        tick_ms[slots] = float(np.median(ticks[1:]))
+    print("stream pool: = single sessions at %s slots; median full tick %s "
+          "ms [%s]" % (POOL_SLOTS, ", ".join("%.3f (%d slots)" % (ms, n)
+                                              for n, ms in tick_ms.items()),
+                      card))
+
+    # long-form: one segment between each two silent gaps, as on the CPU
+    long_state = calibrate_blank(torch, rec, state)
+    long_rec = Recognizer(config, state_dict=long_state, logger=logger)
+    cpu_rec = Recognizer(config, state_dict=long_state, device="cpu",
+                         logger=logger)
+    feats, gaps = long_recording()
+    start = time.perf_counter()
+    segments = long_rec.transcribe_long(feats)
+    long_ms = 1e3 * (time.perf_counter() - start)
+    cpu_segments = cpu_rec.transcribe_long(feats)
+    check([s["ids"] for s in segments] == [s["ids"] for s in cpu_segments]
+          and [s["end_s"] for s in segments]
+          == [s["end_s"] for s in cpu_segments],
+          "transcribe_long: card and CPU segments differ")
+    check(len(segments) == len(gaps) + 1,
+          "transcribe_long: %d segments for %d gaps" % (len(segments),
+                                                         len(gaps)))
+    for seg, (lo, hi) in zip(segments, gaps):
+        check(lo / 100.0 <= seg["end_s"] <= hi / 100.0,
+              "transcribe_long: a segment ends at %.2f s, outside the gap "
+              "%.2f-%.2f s" % (seg["end_s"], lo / 100.0, hi / 100.0))
+    print("stream long-form %.1f s, %d gaps: %d segments, each closed in "
+          "its gap (%s s), = the CPU's; %.1f ms (RTF %.4f) [%s]" % (
+              feats.shape[0] / 100.0, len(gaps), len(segments),
+              ", ".join("%.2f" % s["end_s"] for s in segments[:-1]),
+              long_ms, 1e-3 * long_ms / (feats.shape[0] / 100.0), card))
+    print("stream phase: %.1f s" % (time.perf_counter() - phase_start))
+    return launches, {"carry_max_abs_err": carry_err, "steps": steps,
+                      "step_ms": step_times["ms"],
+                      "step_plain_ms": step_times["plain_ms"],
+                      "step_bound_ms": step_times["bound_ms"],
+                      "push_median_ms": float(np.median(steady))}
+
+
+def wsj_phase(torch, card):
+    """Phase 12b: the whole SRF-WSJ model served and streamed on the card,
+    its serving rows held to the CPU's. Returns K1's launches per forward."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
+    from srf_tpu_torch.serve import Recognizer
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = family_config(logger, "cuda", "wsj", SRF_WSJ_FLAGS)
+    classes = class_count(config)
+    state = random_weights(build_model(config, classes)[0])
+    rec = Recognizer(config, state_dict=state, logger=logger)
+    cpu_rec = Recognizer(config, state_dict=state, device="cpu",
+                         logger=logger)
+    batches = wsj_serve_batches()
+    feats_list = batches["8x300-1600"]
+    longest = int(np.argmax([f.shape[0] for f in feats_list]))
+    feats_list[longest] = batches["1x1600"][0]
+    feats, lengths = rec.pad(feats_list)
+    check(feats.shape[1] == 1664, "WSJ batch padded to %d" % feats.shape[1])
+    rec.transcribe_batch_detailed(feats_list)  # warm-up (cuDNN's search)
+    torch.cuda.synchronize()
+    before = sequential_routing_cuda.launches
+    torch.cuda.reset_peak_memory_stats()
+    got = rec.transcribe_batch_detailed(feats_list)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    per_forward = sequential_routing_cuda.launches - before
+    check(per_forward == 10 * K1_LAUNCHES, "SRF-WSJ: K1 launched %d times "
+          "in one forward, expected %d" % (per_forward, 10 * K1_LAUNCHES))
+    check_served("SRF-WSJ", got, feats_list, rec.in_len_div,
+                 blank=classes - 1)
+    card_logits = rec.forward(feats, lengths).cpu()
+    rows = [longest] + [i for i in range(len(feats_list))
+                        if i != longest][: WSJ_CPU_ROWS - 1]
+    cpu_logits = cpu_rec.forward(feats[rows].cpu(), lengths[rows])
+    err = (card_logits[rows] - cpu_logits).abs().max().item()
+    check(err <= LOGIT_ATOL, "SRF-WSJ: card logits differ from the CPU's "
+          "by %.3e" % err)
+    cpu_ids = [greedy_ids(cpu_logits[k].numpy(), int(lengths[i]) // 4)
+               for k, i in enumerate(rows)]
+    check([got[i]["ids"] for i in rows] == cpu_ids,
+          "SRF-WSJ: card ids differ from the CPU's")
+    fwd_ms = timed_ms(torch, lambda: rec.forward(feats, lengths), 5)
+    print("SRF-WSJ serve 8 x 300-1600 (padded %s): K1 %d launches a "
+          "forward, rows %s = the CPU's (logits max %.3e, atol %.0e; ids "
+          "equal); forward median %.3f ms (max %.3f), peak memory %.1f MB "
+          "[%s]" % (tuple(feats.shape), per_forward, rows, err, LOGIT_ATOL,
+                    float(np.median(fwd_ms)), max(fwd_ms), peak / 2**20,
+                    card))
+    push_ms, steps, serr, count = stream_and_check(
+        torch, rec, feats_list[longest], "SRF-WSJ stream 1600 frames")
+    check(count == 10 * K1_LAUNCHES * steps, "SRF-WSJ stream: K1 launched "
+          "%d times over %d steps" % (count, steps))
+    print("SRF-WSJ stream 1600 frames chunk %d: %d steps, K1 %d launches, "
+          "logits vs batch forward max %.3e, ids equal; push median %.3f "
+          "ms; %.1f s" % (STREAM_CHUNK, steps, count, serr,
+                          float(np.median(push_ms[1:])),
+                          time.perf_counter() - phase_start))
+    return per_forward
+
+
+def daemon_argv(ckpt, *extra):
+    return ["--config=%s" % os.path.join(REPO, "egs", "conf", "timit.conf"),
+            "--path-base=%s" % REPO, "--path-ckpt=%s" % ckpt, *TIMIT_FLAGS,
+            *extra]
+
+
+def start_daemon(torch, args):
+    """``python -m srf_tpu_torch.serve_daemon`` with ``args`` on port 0 and
+    its HTTP gateway on port 0; returns (process, TCP port, HTTP port)
+    once it logs that it serves."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "srf_tpu_torch.serve_daemon", *args,
+         "--daemon-port=0", "--daemon-http-port=0"],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    ports, lines = {}, []
+    deadline = time.monotonic() + DAEMON_TIMEOUT
+    while "tcp" not in ports and time.monotonic() < deadline:
+        line = proc.stderr.readline()
+        if not line:
+            break
+        lines.append(line)
+        found = re.search(r"HTTP gateway on [\d.]+:(\d+)", line)
+        if found:
+            ports["http"] = int(found.group(1))
+        found = re.search(r"serving \d+ model\(s\).* on [\d.]+:(\d+)", line)
+        if found:
+            ports["tcp"] = int(found.group(1))
+    if "tcp" not in ports:
+        proc.kill()
+        proc.wait(timeout=60)
+        raise SmokeFailure("the daemon did not start:\n%s"
+                           % "".join(lines[-30:]))
+    # drain its log so that it never blocks on a full pipe
+    import threading
+
+    threading.Thread(target=lambda: [None for _ in proc.stderr],
+                     daemon=True).start()
+    return proc, ports["tcp"], ports.get("http")
+
+
+def stop_daemon(proc):
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def daemon_phase(torch, card, state):
+    """Phase 13: the serving daemon through its CLI on the card, in a
+    subprocess. Returns the daemon's K1 launches (from its stats)."""
+    import concurrent.futures
+    import http.client
+    import shutil
+    import tempfile
+
+    from srf_tpu_torch import serve_daemon as sd
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.serve import Recognizer
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = timit_config(logger, "cuda")
+    rec = Recognizer(config, state_dict=state, logger=logger)
+    base = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+    rng = np.random.RandomState(SEED + 14)
+    try:
+        for name, weights in (("a", state), ("b", {
+                k: v + 0.05 if v.is_floating_point() else v
+                for k, v in state.items()})):
+            os.makedirs(os.path.join(base, name))
+            torch.save(weights, os.path.join(base, name, "model.pt"))
+        spec = os.path.join(base, "fleet.json")
+        with open(spec, "w") as f:
+            json.dump({"default": "a", "models": {
+                name: {"args": ["--path-ckpt=%s" % os.path.join(base, name)]}
+                for name in ("a", "b")}}, f)
+        proc, port, http_port = start_daemon(torch, daemon_argv(
+            os.path.join(base, "a"), "--daemon-fleet=%s" % spec,
+            "--daemon-max-batch=%d" % DAEMON_BATCH,
+            "--daemon-max-wait-ms=10", "--daemon-stream-slots=2"))
+        try:
+            readings = daemon_requests(torch, card, sd, rec, port, rng)
+            # HTTP: two requests and the health snapshot
+            conn = http.client.HTTPConnection("127.0.0.1", http_port,
+                                              timeout=DAEMON_TIMEOUT)
+            feats = rng.randn(200, 123).astype(np.float32)
+            want = sd._response_body(rec.transcribe_batch_detailed(
+                [feats] + [np.zeros((16, 123), np.float32)]
+                * (DAEMON_BATCH - 1))[0])
+            for _ in range(2):
+                conn.request("POST", "/v1/transcribe",
+                             body=json.dumps({"feats": feats.tolist()}),
+                             headers={"Content-Type": "application/json"})
+                body = json.loads(conn.getresponse().read())
+                check(body["ids"] == want["ids"]
+                      and abs(body["score"] - want["score"]) <= 1e-4,
+                      "HTTP reply differs from the in-process Recognizer")
+            conn.request("GET", "/v1/health")
+            health = json.loads(conn.getresponse().read())
+            conn.close()
+            check(health["status"] == "ok", "HTTP health")
+            # two live streams over TCP = in-process sessions
+            utts = [rng.randn(n, 123).astype(np.float32) for n in (333, 517)]
+            sids = [sd.stream_open("127.0.0.1", port,
+                                   timeout=DAEMON_TIMEOUT) for _ in utts]
+            got = [[], []]
+            for lo in range(0, 517, 50):
+                for k, (sid, feats) in enumerate(zip(sids, utts)):
+                    if lo < feats.shape[0]:
+                        got[k] += sd.stream_push(
+                            "127.0.0.1", port, sid, feats[lo : lo + 50],
+                            timeout=DAEMON_TIMEOUT)[0]
+            for k, (sid, feats) in enumerate(zip(sids, utts)):
+                got[k] += sd.stream_flush("127.0.0.1", port, sid,
+                                          timeout=DAEMON_TIMEOUT)["ids"]
+                session = rec.streaming_session()
+                check(got[k] == session.push(feats) + session.flush(),
+                      "a TCP stream differs from the in-process session")
+            # the fleet's other model
+            other = Recognizer(config, state_dict=torch.load(
+                os.path.join(base, "b", "model.pt")), logger=logger)
+            feats = rng.randn(180, 123).astype(np.float32)
+            ids, _ = sd.request("127.0.0.1", port, feats, model="b",
+                                timeout=DAEMON_TIMEOUT)
+            want_b = other.transcribe_batch_detailed(
+                [feats] + [np.zeros((16, 123), np.float32)]
+                * (DAEMON_BATCH - 1))[0]["ids"]
+            check(ids == want_b, "fleet model b's reply differs")
+            stats = sd.stats_request("127.0.0.1", port,
+                                     timeout=DAEMON_TIMEOUT)
+        finally:
+            stop_daemon(proc)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    launches = stats["sdr_fwd_launches"]
+    check(launches > 0 and launches % (7 * K1_LAUNCHES) == 0,
+          "the daemon's K1 launches: %d" % launches)
+    print("daemon: HTTP 2 requests and /health = in-process; 2 TCP streams "
+          "= in-process sessions; fleet model b = its Recognizer; stats: "
+          "%d requests in %d batches (mean %.2f), K1 launches %d (its own "
+          "count, from the daemon's stats); %.1f s" % (
+              stats["models"]["a"]["requests"],
+              stats["models"]["a"]["batches"],
+              stats["models"]["a"]["mean_batch"], launches,
+              time.perf_counter() - phase_start))
+    return launches, readings
+
+
+def daemon_requests(torch, card, sd, rec, port, rng):
+    """Phase 13's TCP load: first requests at widths 256 and 384 (cuDNN's
+    search at each new width), then DAEMON_REQUESTS requests from
+    DAEMON_THREADS threads, each reply held to the in-process Recognizer's
+    batch of that utterance and DAEMON_BATCH - 1 dummies."""
+    import concurrent.futures
+
+    stall = {}
+    for frames in (200, 300):
+        feats = rng.randn(frames, 123).astype(np.float32)
+        start = time.perf_counter()
+        sd.request("127.0.0.1", port, feats, timeout=DAEMON_TIMEOUT)
+        stall[-(-frames // 128) * 128] = 1e3 * (time.perf_counter() - start)
+    utts = [rng.randn(n, 123).astype(np.float32) for n in rng.randint(
+        DAEMON_FRAMES[0], DAEMON_FRAMES[1] + 1, size=DAEMON_REQUESTS)]
+    latency = [None] * len(utts)
+
+    def one(i):
+        start = time.perf_counter()
+        body = sd.request("127.0.0.1", port, utts[i], detailed=True,
+                          timeout=DAEMON_TIMEOUT)
+        latency[i] = 1e3 * (time.perf_counter() - start)
+        return body
+
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(DAEMON_THREADS) as pool:
+        replies = list(pool.map(one, range(len(utts))))
+    wall = time.perf_counter() - start
+    dummy = np.zeros((16, 123), np.float32)
+    for feats, body in zip(utts, replies):
+        want = rec.transcribe_batch_detailed(
+            [feats] + [dummy] * (DAEMON_BATCH - 1))[0]
+        check(body["ids"] == want["ids"], "a daemon reply's ids differ from "
+              "the in-process Recognizer's")
+        check(abs(body["score"] - want["score"]) <= 1e-4,
+              "a daemon reply's score differs by %.3e"
+              % abs(body["score"] - want["score"]))
+    print("daemon TCP: %d requests from %d threads in %.3f s (%.1f "
+          "requests/s), latency p50 %.1f ms p95 %.1f ms; ids = in-process, "
+          "scores within 1e-4; first request at width %s: %s ms [%s]" % (
+              len(utts), DAEMON_THREADS, wall, len(utts) / wall,
+              float(np.median(latency)), float(np.percentile(latency, 95)),
+              "/".join(str(w) for w in stall),
+              " / ".join("%.1f" % ms for ms in stall.values()), card))
+    return {"requests_per_s": len(utts) / wall, "stall_ms": stall}
+
+
+def write_wav(path, seconds, seed):
+    """A synthetic 16 kHz 16-bit mono wav: a tone and noise."""
+    import wave
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    signal = 3000 * np.sin(2 * np.pi * 300 * t) + 300 * rng.randn(t.size)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(signal.astype(np.int16).tobytes())
+
+
+def serving_extras_phase(torch, card, state):
+    """Phase 14: --wav through the CLI, int8 weights and forced alignment,
+    each on the card against --feats or the CPU. Returns K1's launches."""
+    import shutil
+    import tempfile
+
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.data.features import apply_cmvn, cmvn_stats
+    from srf_tpu_torch.ops.quant import quantized_bytes
+    from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
+    from srf_tpu_torch.serve import Recognizer
+    from srf_tpu_torch.tools import align, extract_features
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    base = tempfile.mkdtemp(prefix="chip_smoke_extras_")
+    try:
+        torch.save(state, os.path.join(base, "model.pt"))
+        wav = os.path.join(base, "utt.wav")
+        write_wav(wav, WAV_SECONDS, SEED + 15)
+        with open(os.path.join(base, "wav.scp"), "w") as f:
+            f.write("utt %s\n" % wav)
+        extract_features.main([os.path.join(base, "wav.scp"),
+                               os.path.join(base, "feats")])
+        feats = np.load(os.path.join(base, "feats", "utt.npy"))
+        feats = apply_cmvn(feats, *cmvn_stats([feats])).astype(np.float32)
+        npy = os.path.join(base, "utt.npy")
+        np.save(npy, feats)
+        out = subprocess.run(
+            [sys.executable, "-m", "srf_tpu_torch.serve",
+             *daemon_argv(base), "--feats", npy, "--wav", wav],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, "serve --wav failed:\n%s"
+              % out.stderr[-3000:])
+        lines = out.stdout.strip().splitlines()
+        check(len(lines) == 2 and lines[0].endswith("(%s)" % npy)
+              and lines[1].endswith("(%s)" % wav)
+              and lines[0].rsplit(" (", 1)[0] == lines[1].rsplit(" (", 1)[0],
+              "serve --wav printed other text than --feats: %s" % lines)
+        print("serve --wav (%.1f s, %d frames): the same text as --feats on "
+              "extract_features' output, through the CLI on the card"
+              % (WAV_SECONDS, feats.shape[0]))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    # int8 weights: card against CPU, and against float32
+    config = timit_config(logger, "cuda", TIMIT_FLAGS
+                          + ["--tpu-serve-quant=int8"])
+    rec = Recognizer(config, state_dict=state, logger=logger)
+    cpu = Recognizer(config, state_dict=state, device="cpu", logger=logger)
+    f32 = Recognizer(timit_config(logger, "cuda"), state_dict=state,
+                     logger=logger)
+    feats_list = serve_batches()["8x150-400"]
+    sequential_routing_cuda.launches = 0
+    got = rec.transcribe_batch_detailed(feats_list)
+    launches = sequential_routing_cuda.launches
+    check(launches == 7 * K1_LAUNCHES, "int8: K1 launched %d times" % launches)
+    check([r["ids"] for r in got]
+          == [r["ids"] for r in cpu.transcribe_batch_detailed(feats_list)],
+          "int8: card ids differ from the CPU's")
+    feats, lengths = rec.pad(feats_list)
+    card_logits = rec.forward(feats, lengths).cpu()
+    err = (card_logits - cpu.forward(feats.cpu(), lengths)).abs().max().item()
+    check(err <= LOGIT_ATOL, "int8: card logits differ from the CPU's by "
+          "%.3e" % err)
+    gap = (card_logits - f32.forward(feats, lengths).cpu()).abs().max().item()
+    q_bytes, f_bytes = quantized_bytes(rec.model)
+    fwd_ms = timed_ms(torch, lambda: rec.forward(feats, lengths), 10)
+    f32_ms = timed_ms(torch, lambda: f32.forward(feats, lengths), 10)
+    print("int8 serve 8 x 150-400: card = CPU (logits max %.3e, atol %.0e; "
+          "ids equal); resident weights %d bytes int8 + scales against %d "
+          "float32 (%.3f); int8 - f32 logits max %.3e (a reading); forward "
+          "median %.3f ms int8, %.3f ms f32 [%s]" % (
+              err, LOGIT_ATOL, q_bytes, f_bytes, q_bytes / f_bytes, gap,
+              float(np.median(fwd_ms)), float(np.median(f32_ms)), card))
+
+    # forced alignment: card against CPU
+    rng = np.random.RandomState(SEED + 16)
+    utts = [("u%d" % i, rng.randn(n, 123).astype(np.float32),
+             " ".join(f32.vocab[j] for j in rng.randint(1, 62, size=n // 12)))
+            for i, n in enumerate(rng.randint(150, 401, size=ALIGN_UTTS))]
+    align_config = timit_config(logger, "cuda", TIMIT_FLAGS
+                                + ["--prep-data-unit=phone"])
+    card_rec = Recognizer(align_config, state_dict=state, logger=logger)
+    cpu_rec = Recognizer(align_config, state_dict=state, device="cpu",
+                         logger=logger)
+    start = time.perf_counter()
+    card_out = align.align_utts(card_rec, utts, batch=ALIGN_UTTS)
+    torch.cuda.synchronize()
+    align_ms = 1e3 * (time.perf_counter() - start)
+    cpu_out = align.align_utts(cpu_rec, utts, batch=ALIGN_UTTS)
+    score_err = 0.0
+    for (u, spans, score), (_, cpu_spans, cpu_score) in zip(card_out,
+                                                             cpu_out):
+        check(spans is not None and spans == cpu_spans,
+              "alignment of %s: card spans differ from the CPU's" % u)
+        score_err = max(score_err, abs(score - cpu_score))
+    check(score_err <= 1e-4, "alignment scores differ by %.3e" % score_err)
+    print("align %d utterances: card spans = CPU spans, scores within %.3e "
+          "(limit 1e-4); %.1f ms on the card; %.1f s" % (
+              ALIGN_UTTS, score_err, align_ms,
+              time.perf_counter() - phase_start))
+    return launches
+
+
 def run():
     import torch
 
@@ -3246,9 +4016,22 @@ def run():
     check(train_k5 > 0, "K5 was not launched on the CNN training path")
     stf_phase(torch, card)
     lstm_phase(torch, card)
-    k1["launches"] = serve_k1 + decode_k1 + train_k1 + recipe_k1
+    stream_k1, stream_readings = stream_phase(torch, card, state)
+    check(stream_k1 > 0, "K1 was not launched on the streaming path")
+    wsj_k1 = wsj_phase(torch, card)
+    daemon_k1, daemon_readings = daemon_phase(torch, card, state)
+    int8_k1 = serving_extras_phase(torch, card, state)
+    # the daemon's launches are counted in its own process (its stats),
+    # the rest in this one
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
-                              "train": train_k1, "recipe": recipe_k1}
+                              "train": train_k1, "recipe": recipe_k1,
+                              "stream": stream_k1, "wsj_serve": wsj_k1,
+                              "int8_serve": int8_k1, "daemon": daemon_k1}
+    k1["launches"] = sum(k1["launches_by_path"].values())
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            stream_readings["carry_max_abs_err"])
+    k1["stream"] = dict(stream_readings, launches_per_step=7 * K1_LAUNCHES)
+    k1["daemon"] = daemon_readings
     k2["launches"] = train_k2 + recipe_k2
     k1["calls"] = k1["launches"] // K1_LAUNCHES
     k2["calls"] = k2["launches"] // K2_LAUNCHES

@@ -4,7 +4,7 @@
 // (reached through _pallas_sdr and sequential_routing_pallas). Same function
 // as the plain version srf_tpu_torch/ops/routing.py:sequential_routing:
 //
-//   for t in 0..T-1, for every utterance b (v_{-1} = 0):
+//   for t in 0..T-1, for every utterance b (v_{-1} = v_init[b], or 0):
 //     u_hat[n,o,i] = bias[n,o,i] + sum_j W[n,o,i,j] * u[b,t,n,j]
 //     logits = 0
 //     num_iter times:
@@ -13,7 +13,13 @@
 //       c[n,:] = softmax(logits[n,:])                over the out capsules
 //       s[o,i] = sum_n c[n,o] * u_hat[n,o,i]
 //       v[o,:] = squash(s[o,:])
+//     if step_valid and !step_valid[b,t]: v = 0   (the output and the carry)
 //     out[b,t] = v
+//
+// The initial carry and the step mask serve streaming: a chunk of frames
+// continues the previous chunk's recurrence, and warm-up steps before the
+// utterance's first frame emit zeros and leave a zero carry
+// (ops/routing.py:sequential_routing_from_uhat).
 //
 // Two launches. The prediction kernel (sdr_stream.cuh) writes u_hat for
 // every (b, t, n) over all SMs: it does not depend on v. The recurrence
@@ -43,12 +49,14 @@ using sdr::StreamPlan;
 
 // warp_g: the per-warp scratch of every block in global memory
 // ([batch, warp_floats]) where the plan puts it there (general path only),
-// else null
+// else null; v_init [batch, out_no] and step_valid [batch, seq_len], or null
 template <int D, int NO>
 __global__ void __launch_bounds__(sdr::kThreads, 1)
 sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
-               float* __restrict__ warp_g, int seq_len, int in_n, RowGeom g,
-               Ring r, int num_iter, int mask_pad) {
+               float* __restrict__ warp_g,
+               const float* __restrict__ v_init,
+               const unsigned char* __restrict__ step_valid, int seq_len,
+               int in_n, RowGeom g, Ring r, int num_iter, int mask_pad) {
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);
   uint64_t* full =
@@ -77,7 +85,14 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
     }
     sdr::mbar_fence_init();
   }
-  for (int k = tid; k < g.out_no; k += blockDim.x) vagg[k] = 0.f;  // v_{-1}
+  // v_{-1}
+  const float* vinit_b =
+      v_init ? v_init + (size_t)blockIdx.x * g.out_no : nullptr;
+  for (int k = tid; k < g.out_no; k += blockDim.x) {
+    vagg[k] = vinit_b ? vinit_b[k] : 0.f;
+  }
+  const unsigned char* valid_b =
+      step_valid ? step_valid + (size_t)blockIdx.x * seq_len : nullptr;
   __syncthreads();
   if (warp == kWarps) {
     sdr::produce(uhat_b, ring, full, empty, r, in_n, g.pitch, seq_len, 0, 1,
@@ -89,6 +104,8 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
                  part + warp * g.out_no, lg_all + warp * g.out_n};
   sdr::Cursor q{0, 0};  // the next chunk, in the producer's order
   for (int t = 0; t < seq_len; ++t) {
+    // an invalid step's v is zero: its output and the next step's carry
+    const bool valid = !valid_b || valid_b[t];
     for (int it = 0; it < num_iter; ++it) {
       // logits, c and the rows' shares of s
       pass.pad = mask_pad ? sdr::kPadLogit * (it + 1) : 0.f;
@@ -108,8 +125,9 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
             const float v =
                 (sq / (1.f + sq)) * (s / sqrtf(sq + sdr::kSquashEps));
             if (last) {
-              vagg[oi] = v;
-              out_b[(size_t)t * g.out_no + oi] = v;
+              const float kept = valid ? v : 0.f;
+              vagg[oi] = kept;
+              out_b[(size_t)t * g.out_no + oi] = kept;
             } else {
               vagg[oi] += v;
             }
@@ -127,8 +145,9 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
           const float v =
               (sq / (1.f + sq)) * (s_s[oi] / sqrtf(sq + sdr::kSquashEps));
           if (last) {
-            vagg[oi] = v;
-            out_b[(size_t)t * g.out_no + oi] = v;
+            const float kept = valid ? v : 0.f;
+            vagg[oi] = kept;
+            out_b[(size_t)t * g.out_no + oi] = kept;
           } else {
             vagg[oi] += v;
           }
@@ -161,14 +180,19 @@ long long sdr_fwd_scratch_floats(int batch, int seq_len, int in_n, int in_d,
 }
 
 // u [batch, seq_len, in_n, in_d], w [in_n, out_n, out_d, in_d],
-// bias [in_n, out_n, out_d] -> out [batch, seq_len, out_n, out_d]; scratch
+// bias [in_n, out_n, out_d] -> out [batch, seq_len, out_n, out_d]; v_init
+// [batch, out_n, out_d] (the carry before step 0) and step_valid [batch,
+// seq_len] (nonzero: a valid step) may each be null (a zero carry, every
+// step valid); scratch
 // holds sdr_fwd_scratch_floats floats, 16-byte aligned. float32,
 // contiguous, on the current device. Launches the prediction kernel and the
 // recurrence kernel on `stream` and returns the first launch's error
 // (0 on success); does not synchronise.
-int sdr_fwd(const float* u, const float* w, const float* bias, float* scratch,
-            float* out, int batch, int seq_len, int in_n, int in_d, int out_n,
-            int out_d, int num_iter, int mask_pad, void* stream) {
+int sdr_fwd(const float* u, const float* w, const float* bias,
+            const float* v_init, const unsigned char* step_valid,
+            float* scratch, float* out, int batch, int seq_len, int in_n,
+            int in_d, int out_n, int out_d, int num_iter, int mask_pad,
+            void* stream) {
   StreamPlan p;
   if (batch < 1 || seq_len < 1 || num_iter < 1 ||
       !sdr::plan_fwd(in_n, in_d, out_n, out_d, &p) ||
@@ -190,7 +214,8 @@ int sdr_fwd(const float* u, const float* w, const float* bias, float* scratch,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<batch, sdr::kThreads, smem, s>>>(
-      uhat, out, warp_g, seq_len, in_n, g, p.r, num_iter, mask_pad);
+      uhat, out, warp_g, v_init, step_valid, seq_len, in_n, g, p.r,
+      num_iter, mask_pad);
   return (int)cudaGetLastError();
 }
 

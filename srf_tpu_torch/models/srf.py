@@ -12,6 +12,13 @@ Forward pass (reference: sequence_router_naive.py:120-193):
                    -> dropout }
     -> logits = LayerNorm(||class capsules||)
 
+Streaming (``streaming.py``) runs the same weights a block of frames at a
+time through :meth:`SequenceRouter.stream_step`: the front end over a
+raw-frame window, then each capsule layer through :meth:`route_block` with
+its carried context frames and SDR carry; the SDR's routing there is
+``routing_cuda.sequential_routing_stream`` (K1 with an initial carry and a
+step mask on the card).
+
 Dropout acts in training mode only, at the JAX model's places and rates
 (the encaps and front-end 0.2 are fixed there as here); its masks come from
 the ``generator`` passed to ``forward`` (the train step seeds one per step),
@@ -31,6 +38,7 @@ JAX package. Callers pad the same way.
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -38,7 +46,11 @@ from srf_tpu_torch.models.initializers import get_init, routing_weight_init
 from srf_tpu_torch.models.layers import ConvFrontEnd, Dropout
 from srf_tpu_torch.ops.masking import feat_mask
 from srf_tpu_torch.ops.pos_enc import get_pos_enc
-from srf_tpu_torch.ops.routing import route_layer, window_stack
+from srf_tpu_torch.ops.routing import (
+    dynamic_routing, predict_capsules, route_layer, window_slide,
+    window_stack,
+)
+from srf_tpu_torch.ops.routing_cuda import sequential_routing_stream
 from srf_tpu_torch.ops.squash import capsule_length, squash
 
 
@@ -131,6 +143,20 @@ class SequenceRouter(nn.Module):
             w_init(getattr(self, "W%d" % i), generator)
             w_init(getattr(self, "b%d" % i), generator)
 
+    def stream_margin_posts(self):
+        """(left, right) streaming window margin in post-subsample frames.
+
+        The margins cover the front end's receptive field, so that a
+        windowed forward reproduces the whole-utterance conv grid exactly:
+        each of the ``conv_layer_num`` 3x3 stride-``s`` layers extends the
+        field by s^(i-1) raw frames and the encaps 3x3 conv adds one post
+        frame, <= 2 post frames for s >= 2 (3 is generous); for s == 1 the
+        field is conv_layer_num + 1 raw (= post) frames.
+        ``streaming.StreamingTranscriber`` and :meth:`stream_step` both read
+        them here."""
+        margin = 3 if self.stride > 1 else self.conv_layer_num + 2
+        return margin, margin
+
     def layer_shapes(self):
         """[(in_n, out_n, out_d, in_d)] per capsule layer
         (reference: sequence_router_naive.py:88-95)."""
@@ -146,16 +172,23 @@ class SequenceRouter(nn.Module):
         shapes.append((ch * window, self.class_n, vd, cd))
         return shapes
 
-    def _capsulate(self, feats, input_lengths, generator=None):
-        """Front-end through primary capsules: [B,T,feat] -> [B,T',PH,PD]."""
+    def _capsulate(self, feats, input_lengths, generator=None,
+                   pos_enc_override=None):
+        """Front-end through primary capsules: [B,T,feat] -> [B,T',PH,PD].
+
+        ``pos_enc_override`` (einsum flavor only): the positional-encoding
+        slice [T', PH] or [B, T', PH] for windows that do not start at t=0
+        (streaming)."""
         conv_out = self.conv_feat(feats, input_lengths, generator)
         batch, seq_len = conv_out.shape[0], conv_out.shape[1]
 
         emb = self.flatten(conv_out.reshape(batch, seq_len, -1))
         if self.caps_type == "einsum":
             emb = emb * math.sqrt(float(self.caps_primary_num))
-            emb = emb + get_pos_enc(seq_len, self.caps_primary_num,
-                                    device=emb.device)
+            emb = emb + (
+                pos_enc_override if pos_enc_override is not None
+                else get_pos_enc(seq_len, self.caps_primary_num,
+                                 device=emb.device))
         x = emb[:, None]  # NCHW [B, 1, T', PH]
         emb = torch.maximum(self.drop_encaps(self.encaps1(x), generator),
                             self.drop_encaps(self.encaps2(x), generator))
@@ -169,6 +202,80 @@ class SequenceRouter(nn.Module):
         emb = flat.reshape(batch, seq_len, self.caps_primary_num,
                            self.caps_primary_dim)
         return self.drop_inp(emb, generator)
+
+    def route_block(self, u_ctx, layer_idx, v_init=None, step_valid=None):
+        """One capsule layer on a streaming block (eval mode, no dropout).
+
+        ``u_ctx`` [B, lpad+K+rpad, n, d] carries the window context
+        explicitly (no zero padding); returns (out [B, K, out_n, out_d],
+        v_last [B, out_n, out_d]). ``step_valid`` [K] or [B, K] bool zeroes
+        warm-up frames (t < 0) in both the emitted block and the SDR carry,
+        matching the batch model's window zero padding. SDR routes through
+        ``sequential_routing_stream`` (K1 on the card), DR through the plain
+        routing, as in the batch forward.
+        """
+        num_iter = 1 if self.caps_type == "lowmemory" else self.caps_iter
+        wgt = getattr(self, "W%d" % layer_idx)
+        bias = getattr(self, "b%d" % layer_idx)
+        u_win = window_slide(u_ctx, self.lpad, self.rpad)
+        is_last = layer_idx == self.enc_num - 1
+        valid = None
+        if step_valid is not None:
+            valid = torch.as_tensor(step_valid, device=u_win.device).expand(
+                u_win.shape[0], u_win.shape[1])[:, :, None, None]
+        if self.is_context:
+            out = sequential_routing_stream(
+                u_win, wgt, bias, num_iter, is_last, v_init, step_valid)
+        else:
+            out = dynamic_routing(predict_capsules(u_win, wgt, bias),
+                                  num_iter, mask_pad_capsule=is_last)
+            if valid is not None:
+                out = torch.where(valid, out, 0.0)
+        v_last = out[:, -1]
+        batch, k, out_n, out_d = out.shape
+        flat = getattr(self, "ln_mid%d" % (layer_idx + 1))(
+            out.reshape(batch, k, -1))
+        out = flat.reshape(batch, k, out_n, out_d)
+        if valid is not None:
+            out = torch.where(valid, out, 0.0)
+        return out, v_last
+
+    def stream_step(self, window, length, lpost, bufs, vprevs, offsets,
+                    pos_enc_override=None):
+        """One streaming step of B sessions: raw windows -> logits blocks
+        and the new carries.
+
+        ``window`` [B, W, feat_dim] raw frames, ``length`` [B] their valid
+        counts; ``lpost`` [B] host ints, where each row's K emitted
+        post-frames start in its window; ``bufs`` and ``vprevs`` per layer
+        the [B, lpad+rpad, n, d] context frames and [B, out_n, out_d] SDR
+        carries; ``offsets`` [B, L] host ints, each layer's global index of
+        its block's first output frame (frames before 0 are warm-up).
+        Returns (logits [B, K, class_n], new_bufs, new_vprevs).
+        """
+        caps = self._capsulate(window, length,
+                               pos_enc_override=pos_enc_override)
+        ctx = self.lpad + self.rpad
+        lm, rm = self.stream_margin_posts()
+        k = caps.shape[1] - (lm + rm)
+        lpost = [int(x) for x in lpost]
+        if len(set(lpost)) == 1:
+            block = caps[:, lpost[0] : lpost[0] + k]
+        else:
+            block = torch.stack([caps[b, lp : lp + k]
+                                 for b, lp in enumerate(lpost)])
+        # [L, B, K], one copy to the device for every layer's mask
+        valid = torch.as_tensor(
+            np.asarray(offsets).T[:, :, None] + np.arange(k) >= 0,
+            device=caps.device)
+        new_bufs, new_vprevs = [], []
+        for i in range(self.enc_num):
+            u_ctx = torch.cat([bufs[i], block], dim=1)
+            block, v_last = self.route_block(u_ctx, i, vprevs[i], valid[i])
+            new_bufs.append(u_ctx[:, u_ctx.shape[1] - ctx :] if ctx
+                            else bufs[i])
+            new_vprevs.append(v_last)
+        return self.output_block(block), new_bufs, new_vprevs
 
     def output_block(self, emb):
         """Class capsules -> CTC logits (the model's output head)."""

@@ -123,8 +123,9 @@ def _beam_chunk(state, logp, t0, length, blank_id, lm=None):
     """Advance the beam over one block of frames.
 
     ``logp`` [B, T, V] log-probs whose global frame indices are
-    [t0, t0 + T), ``length`` [B] the valid lengths (frames at or past
-    ``length``, or before 0, leave a row's state untouched). ``lm``:
+    [t0, t0 + T), ``t0`` a host int or a [B] tensor (a row's own start: a
+    streaming pool's slots), ``length`` [B] the valid lengths (frames at or
+    past ``length``, or before 0, leave a row's state untouched). ``lm``:
     optional (table [C, V] log-probs on the device, order, weight, bonus).
     Returns (state, parents [B, T, W] int16, syms [B, T, W] int16).
     """
@@ -277,7 +278,9 @@ def _beam_chunk(state, logp, t0, length, blank_id, lm=None):
 
         # freeze rows outside the valid range; they record identity
         # backpointers and sym -1, which the backtrace skips
-        if t >= 0:
+        if torch.is_tensor(t0):
+            active = ((t >= 0) & (length > t))[:, None]
+        elif t >= 0:
             active = (length > t)[:, None]
         else:
             active = torch.zeros((B, 1), dtype=torch.bool, device=device)

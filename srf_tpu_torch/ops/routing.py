@@ -21,7 +21,11 @@
   ``routing_cuda.sequential_routing_scan`` (the counterpart of
   ``sequential_routing_pallas_scan``), which no model calls; their order
   of sums is :func:`sequential_routing_scan_partitioned` and
-  :func:`sequential_routing_scan_bwd_partitioned`.
+  :func:`sequential_routing_scan_bwd_partitioned`. Streaming's SDR, with
+  an initial carry and a per-step mask, is
+  ``routing_cuda.sequential_routing_stream`` (K1 on a CUDA tensor, the
+  plain :func:`sequential_routing` on a CPU tensor), over the windows of
+  :func:`window_slide`.
 - PAD-capsule masking: at the last capsule layer the routing logit of
   output capsule 0 (the PAD class) gets -1e9 so nothing routes to it
   (reference: sequence_router_naive.py:174-178,219-220).
@@ -55,6 +59,18 @@ def window_stack(u, lpad, rpad):
     seq_len = u.shape[1]
     padded = F.pad(u, (0, 0, 0, 0, lpad, rpad))
     return torch.cat([padded[:, i : i + seq_len] for i in range(window)], dim=2)
+
+
+def window_slide(u, lpad, rpad):
+    """Sliding windows without edge padding: [B, T, n, d] ->
+    [B, T-lpad-rpad, (lpad+rpad+1)*n, d], in :func:`window_stack`'s
+    frame-major capsule order. Streaming's windowing, where the context
+    frames come from carried buffers instead of zero padding."""
+    window = lpad + rpad + 1
+    if window == 1:
+        return u
+    out_len = u.shape[1] - lpad - rpad
+    return torch.cat([u[:, i : i + out_len] for i in range(window)], dim=2)
 
 
 def predict_capsules(u, wgt, bias):
@@ -151,9 +167,10 @@ def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
     chunk's last output capsules); defaults to zeros (reference: v0 = 0,
     sequence_router_lowmemory.py:169).
 
-    ``step_valid``: optional [T] bool; invalid steps contribute zero output
-    AND a zero carry (streaming warm-up frames before t=0, which the batch
-    implementation realizes as window zero padding).
+    ``step_valid``: optional [T] or [B, T] bool (a row of its own per
+    utterance: a streaming pool's slots warm up apart); invalid steps
+    contribute zero output AND a zero carry (streaming warm-up frames before
+    t=0, which the batch implementation realizes as window zero padding).
     """
     out_dtype = u.dtype
     dtype = _compute_dtype(u.dtype)
@@ -167,7 +184,11 @@ def sequential_routing_from_uhat(u_hat, num_iter, mask_pad_capsule,
     """The SDR recurrence from given prediction vectors u_hat [B, T, in_n,
     out_n, out_d]: the plain version of K1's recurrence kernel. ``v_init``
     and ``step_valid`` as in :func:`sequential_routing`. Returns [B, T,
-    out_n, out_d] in u_hat's dtype."""
+    out_n, out_d] in u_hat's dtype. ``sequential_routing_from_uhat.
+    cuda_calls`` counts its calls on CUDA tensors: the card's model paths
+    never take this loop (a kernel does), only the kernels' checks."""
+    if u_hat.is_cuda:
+        sequential_routing_from_uhat.cuda_calls += 1
     batch, seq_len, _, out_n, out_d = u_hat.shape
     pad_mask = (_pad_capsule_mask(out_n, u_hat.dtype, u_hat.device)
                 if mask_pad_capsule else None)
@@ -176,13 +197,19 @@ def sequential_routing_from_uhat(u_hat, num_iter, mask_pad_capsule,
                         device=u_hat.device)
     else:
         v = v_init.to(u_hat.dtype)
+    if step_valid is not None:
+        step_valid = torch.as_tensor(step_valid, device=u_hat.device)
+        step_valid = step_valid.expand(batch, seq_len)[:, :, None, None]
     outs = []
     for t in range(seq_len):
         v = _sdr_step(u_hat[:, t], v, num_iter, pad_mask)
         if step_valid is not None:
-            v = torch.where(step_valid[t], v, 0.0)
+            v = torch.where(step_valid[:, t], v, 0.0)
         outs.append(v)
     return torch.stack(outs, dim=1)
+
+
+sequential_routing_from_uhat.cuda_calls = 0
 
 
 def sequential_routing_bwd(u, wgt, bias, vs, dvs, mask_pad_capsule):

@@ -6,9 +6,11 @@ kernel and the streaming recurrence of ``csrc/sdr_stream.cuh``), joined by
 ``csrc/sdr_cluster.cuh``: a thread-block cluster per batch tile, W's slice
 in shared memory, sums across the cluster through distributed shared
 memory), joined by ``SDRScanFunction`` and applied by
-``sequential_routing_scan``. The scan kernels are cluster launches
-(``cudaLaunchKernelEx``, up to 16 CTAs a cluster, a non-portable size,
-sm_90a); a refused launch raises, with no retry and no fallback.
+``sequential_routing_scan``. Streaming's forward-only SDR, with an initial
+carry and a per-step mask, is K1 through ``sequential_routing_stream``.
+The scan kernels are cluster launches (``cudaLaunchKernelEx``, up to 16
+CTAs a cluster, a non-portable size, sm_90a); a refused launch raises,
+with no retry and no fallback.
 
 K1 replaces the TPU kernel ``srf_tpu/ops/routing_pallas.py:_sdr_fwd_kernel``,
 K2 ``_sdr_bwd_kernel``, K3 ``_sdr_v6_fwd_kernel`` and K4
@@ -35,7 +37,7 @@ _VOID_P = ctypes.c_void_p
 # the scan kernels the batch, T and time block around it
 _PLAN_ARGS = {"sdr_fwd": 4, "sdr_bwd": 4, "sdr_scan_fwd": 7, "sdr_scan_bwd": 7}
 _LAUNCH_ARGTYPES = {
-    "sdr_fwd": [_VOID_P] * 5 + [ctypes.c_int] * 8 + [_VOID_P],
+    "sdr_fwd": [_VOID_P] * 7 + [ctypes.c_int] * 8 + [_VOID_P],
     "sdr_bwd": [_VOID_P] * 10 + [ctypes.c_int] * 7 + [_VOID_P],
     "sdr_scan_fwd": [_VOID_P] * 5 + [ctypes.c_int] * 9 + [_VOID_P],
     "sdr_scan_bwd": [_VOID_P] * 9 + [ctypes.c_int] * 8 + [_VOID_P],
@@ -125,18 +127,22 @@ def _raise_on(lib, name, err):
         )
 
 
-def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule):
+def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
+                            v_init=None, step_valid=None):
     """SDR forward on the card (K1): same contract as ``sequential_routing``.
 
     u [B, T, in_n, in_d], wgt [in_n, out_n, out_d, in_d], bias
     [in_n, out_n, out_d], float32, contiguous, on one CUDA device ->
-    [B, T, out_n, out_d]. Allocates the kernels' scratch: the prediction
-    vectors u_hat ([B, T, in_n, out_n * out_d rounded up to a multiple of
-    4]) and, for geometries whose partial sums do not fit in shared memory,
-    the recurrence's per-warp sums. Raises on
-    anything the kernels do not take; it never falls back to the plain
-    version. ``sequential_routing_cuda.launches`` counts its kernel
-    launches: two per call, the prediction kernel and the recurrence.
+    [B, T, out_n, out_d]. ``v_init`` [B, out_n, out_d] float32 (the carry
+    before step 0; zeros if None) and ``step_valid`` [B, T] bool (an
+    invalid step emits zeros and leaves a zero carry; every step valid
+    if None), contiguous, on u's device. Allocates the kernels' scratch:
+    the prediction vectors u_hat ([B, T, in_n, out_n * out_d rounded up to
+    a multiple of 4]) and, for geometries whose partial sums do not fit in
+    shared memory, the recurrence's per-warp sums. Raises on anything the
+    kernels do not take; it never falls back to the plain version.
+    ``sequential_routing_cuda.launches`` counts its kernel launches: two
+    per call, the prediction kernel and the recurrence.
     """
     _check_inputs("sequential_routing_cuda", u,
                   (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3)))
@@ -146,6 +152,20 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule):
     _check_geometry(lib, "sdr_fwd", u, wgt, bias)
     batch, seq_len, in_n, in_d = u.shape
     out_n, out_d = wgt.shape[1], wgt.shape[2]
+    if v_init is not None:
+        _check_inputs("sequential_routing_cuda", u, (("v_init", v_init, 3),))
+        if tuple(v_init.shape) != (batch, out_n, out_d):
+            raise ValueError("v_init must be %s, got %s" % (
+                (batch, out_n, out_d), tuple(v_init.shape)))
+    if step_valid is not None:
+        if (step_valid.device != u.device or not step_valid.is_contiguous()
+                or step_valid.dtype != torch.bool
+                or tuple(step_valid.shape) != (batch, seq_len)):
+            raise ValueError(
+                "step_valid must be a contiguous bool %s tensor on %s, got "
+                "%s %s on %s" % ((batch, seq_len), u.device, step_valid.dtype,
+                                 tuple(step_valid.shape), step_valid.device))
+        step_valid = step_valid.view(torch.uint8)
     out = torch.empty((batch, seq_len, out_n, out_d), dtype=torch.float32,
                       device=u.device)
     scratch = torch.empty(
@@ -153,9 +173,11 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule):
         dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         err = lib.sdr_fwd(
-            u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), batch, seq_len, in_n, in_d, out_n, out_d,
-            num_iter, int(bool(mask_pad_capsule)),
+            u.data_ptr(), wgt.data_ptr(), bias.data_ptr(),
+            None if v_init is None else v_init.data_ptr(),
+            None if step_valid is None else step_valid.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), batch, seq_len, in_n, in_d,
+            out_n, out_d, num_iter, int(bool(mask_pad_capsule)),
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(lib, "sdr_fwd", err)
@@ -437,6 +459,39 @@ def sequential_routing_scan(u, wgt, bias, num_iter, mask_pad_capsule,
     """
     return SDRScanFunction.apply(u, wgt, bias, num_iter, mask_pad_capsule,
                                  time_block)
+
+
+def sequential_routing_stream(u, wgt, bias, num_iter, mask_pad_capsule,
+                              v_init=None, step_valid=None):
+    """SDR forward with an initial carry and a per-step mask: the streaming
+    block's routing (``models/srf.py`` ``route_block``), the counterpart of
+    JAX's ``sequential_routing(..., v_init, step_valid)`` scan.
+
+    ``v_init`` [B, out_n, out_d] or None (zeros); ``step_valid`` [T] or
+    [B, T] bool or None (every step valid): an invalid step emits zeros
+    and leaves a zero carry. A CUDA tensor goes to K1
+    (``sequential_routing_cuda`` with both inputs), a CPU tensor to the
+    plain ``sequential_routing``; nothing else decides. Forward only: no
+    training path passes a carry, so inputs that autograd would record
+    raise.
+    """
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (u, wgt, bias, v_init)):
+        raise RuntimeError(
+            "sequential_routing_stream is forward-only; call it under "
+            "torch.no_grad() or torch.inference_mode()")
+    if step_valid is not None:
+        step_valid = torch.as_tensor(step_valid, device=u.device)
+        if step_valid.dim() == 1:
+            step_valid = step_valid.expand(u.shape[0], -1)
+    if not u.is_cuda:
+        return _plain().sequential_routing(u, wgt, bias, num_iter,
+                                           mask_pad_capsule, v_init,
+                                           step_valid)
+    return sequential_routing_cuda(
+        u.contiguous(), wgt.contiguous(), bias.contiguous(), num_iter,
+        mask_pad_capsule, None if v_init is None else v_init.contiguous(),
+        None if step_valid is None else step_valid.contiguous())
 
 
 def _plain_loop_grads(u, wgt, bias, ctx, dout):

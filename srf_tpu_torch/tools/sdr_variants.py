@@ -196,7 +196,7 @@ def uhat_residual(torch, cs, libs):
             out = torch.empty((batch, seq_len, out_n, out_d),
                               dtype=torch.float32, device=u.device)
             cs.check(num_iter == 1 and libs.sets["kept"]["sdr_fwd"].sdr_fwd(
-                u.data_ptr(), wgt.data_ptr(), bias.data_ptr(),
+                u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), None, None,
                 u_hat.data_ptr(), out.data_ptr(), *sizes, 1,
                 int(bool(mask_pad_capsule)),
                 torch.cuda.current_stream(u.device).cuda_stream) == 0,

@@ -5,12 +5,14 @@ gather. Ids, frames and text must be equal; scores within atol 1e-4 (a sum
 of ~60 per-frame log-probs whose logits agree to ~3e-6) and the 4-decimal
 rounded confidences within 2e-4. The beam branch (beam 20, n-best, a toy
 3-gram LM fused) is held to srf_tpu.serve.Recognizer itself, loaded from an
-orbax checkpoint of the same weights, with the same limits. Also the CLI,
-and the refusals."""
+orbax checkpoint of the same weights, with the same limits. Also the CLI
+(its --stream and --long output equal to the JAX CLI's, --wav equal to
+--feats on extract_features' output), reload, and the refusals."""
 
 import os
 import subprocess
 import sys
+import wave
 
 import numpy as np
 import pytest
@@ -23,15 +25,19 @@ from srf_tpu.config import ParseOption as JaxParseOption
 from srf_tpu.models.srf import SequenceRouter as FlaxSequenceRouter
 from srf_tpu.ops.ctc_decode import greedy_decode_frames
 from srf_tpu.serve import Recognizer as JaxRecognizer
+from srf_tpu.serve import main as jax_serve_main
 from srf_tpu.serve import _frame_max_logp, _token_logp_gather
 from srf_tpu.utils.checkpoint import CheckpointManager as JaxCheckpointManager
 from srf_tpu.utils.log2utt import ids_to_utt
 from srf_tpu_torch import convert
 from srf_tpu_torch.config import Logger, ParseOption
+from srf_tpu_torch.data.features import apply_cmvn, cmvn_stats
 from srf_tpu_torch.device import resolve_device
 from srf_tpu_torch.models.registry import build_model
 from srf_tpu_torch.ops.ngram_lm import train_ngram
 from srf_tpu_torch.serve import Recognizer, main
+from srf_tpu_torch.tools import extract_features
+from srf_tpu_torch.utils.checkpoint import CheckpointManager
 
 from _torch_parity import random_flax_variables
 
@@ -258,20 +264,135 @@ def test_cuda_path_turns_tf32_off(monkeypatch):
         resolve_device("mps")
 
 
+def _write_wav(path, seconds=3.0, rate=16000, seed=0):
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    signal = 3000 * np.sin(2 * np.pi * 300 * t) + 300 * rng.randn(t.size)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(signal.astype(np.int16).tobytes())
+
+
 @pytest.mark.parametrize("flag", ["--stream", "--long", "--wav=x.wav"])
-def test_unported_cli_modes_are_refused(tmp_path, flag):
+def test_unported_cli_modes_are_refused(tmp_path, weights, monkeypatch,
+                                        capsys, flag):
+    """These three CLI modes were refused before the port had streaming
+    and the fbank front end: each now runs (printing a line per input),
+    and the one serving option still unported, --tpu-decode-ema, is
+    refused in it."""
+    _, variables = weights
+    torch.save(convert.flax_to_state_dict(variables), tmp_path / "model.pt")
+    monkeypatch.chdir(tmp_path)
+    _write_wav(tmp_path / "x.wav")
+    np.save(tmp_path / "x.npy", _feats()[0])
+    inputs = [] if flag.startswith("--wav") else ["--feats", "x.npy"]
+    main(_argv(tmp_path, "--device=cpu", flag, *inputs))
+    printed = capsys.readouterr().out.splitlines()
+    assert printed and printed[-1].endswith("(x.%s)" % (
+        "wav" if flag.startswith("--wav") else "npy"))
     with pytest.raises(NotImplementedError, match="later slice"):
-        main(_argv(tmp_path, "--device=cpu", flag))
+        main(_argv(tmp_path, "--device=cpu", flag, *inputs,
+                   "--tpu-decode-ema=True"))
 
 
 @pytest.mark.parametrize("flag", [
     "--tpu-serve-quant=int8", "--tpu-routing-kernel=wavefront",
     "--tpu-routing-bf16=True",
 ])
-def test_unported_options_are_refused(tmp_path, flag):
+def test_unported_options_are_refused(tmp_path, weights, flag):
+    """--tpu-serve-quant=int8 was refused before the port had ops/quant.py:
+    it now serves (tests/test_torch_quant.py holds it to JAX); the other
+    two stay refused, by the Recognizer and by build_model."""
     config = _config(tmp_path, flag)
+    if flag == "--tpu-serve-quant=int8":
+        _, variables = weights
+        recognizer = Recognizer(
+            config, state_dict=convert.flax_to_state_dict(variables),
+            device="cpu")
+        assert recognizer.quantized
+        assert len(recognizer.transcribe_batch(_feats())) == len(LENGTHS)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         Recognizer(config, device="cpu")
-    if flag != "--tpu-serve-quant=int8":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_model(config, 63)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_model(config, 63)
+
+
+def test_cli_wav_prints_what_feats_prints(tmp_path, weights, capsys):
+    """--wav runs the training front end (fbank-123 and utterance CMVN,
+    data/features.py) on the audio: the same line as --feats on
+    tools.extract_features' output normalised the same way."""
+    _, variables = weights
+    torch.save(convert.flax_to_state_dict(variables), tmp_path / "model.pt")
+    wav = tmp_path / "utt.wav"
+    _write_wav(wav, seed=3)
+    scp = tmp_path / "wav.scp"
+    scp.write_text("utt %s\n" % wav)
+    extract_features.main([str(scp), str(tmp_path / "feats")])
+    feats = np.load(tmp_path / "feats" / "utt.npy")
+    assert feats.shape == (298, 123)
+    feats = apply_cmvn(feats, *cmvn_stats([feats])).astype(np.float32)
+    np.save(tmp_path / "utt.npy", feats)
+    capsys.readouterr()
+    main(_argv(tmp_path, "--device=cpu", "--wav", str(wav)))
+    from_wav = capsys.readouterr().out.strip()
+    main(_argv(tmp_path, "--device=cpu", "--feats", str(tmp_path / "utt.npy")))
+    from_feats = capsys.readouterr().out.strip()
+    assert from_wav.rsplit(" (", 1)[0] == from_feats.rsplit(" (", 1)[0]
+    assert from_wav.endswith("(%s)" % wav)
+
+
+@pytest.mark.parametrize("mode", ["--stream", "--long"])
+def test_cli_stream_and_long_print_what_jax_prints(beam_recognizers,
+                                                   weights, tmp_path,
+                                                   capsys, mode):
+    """The port's CLI against the JAX CLI on the same weights (JAX's from
+    the orbax checkpoint of beam_recognizers, the port's from model.pt):
+    every printed line equal (partials and the final text for --stream,
+    timestamped segments for --long, whose 33 s of audio pass the 30 s a
+    segment may stay open)."""
+    _, variables = weights
+    base = tmp_path / "port"
+    base.mkdir()
+    torch.save(convert.flax_to_state_dict(variables), base / "model.pt")
+    rng = np.random.RandomState(12)
+    feats = rng.randn(3300 if mode == "--long" else 700,
+                      123).astype(np.float32)
+    feats[250:400] = 0.0
+    np.save(tmp_path / "long.npy", feats)
+    jax_ckpt = beam_recognizers[False][0].config.path_ckpt
+    capsys.readouterr()
+    jax_serve_main([*_argv(base, "--path-ckpt=%s" % jax_ckpt)[0:1],
+                    *_argv(base, "--path-ckpt=%s" % jax_ckpt)[1:],
+                    mode, "--feats", str(tmp_path / "long.npy")])
+    want = capsys.readouterr().out.splitlines()
+    main(_argv(base, "--device=cpu", mode, "--feats",
+               str(tmp_path / "long.npy")))
+    got = capsys.readouterr().out.splitlines()
+    assert got == want and len(got) > 1
+
+
+def test_reload_swaps_in_a_newer_checkpoint(tmp_path, weights):
+    _, variables = weights
+    state = convert.flax_to_state_dict(variables)
+    other = {k: v + 0.05 if v.is_floating_point() else v
+             for k, v in state.items()}
+    manager = CheckpointManager(str(tmp_path))
+    manager.save(1, {"step": 1, "model": state})
+    recognizer = Recognizer(_config(tmp_path, "--device=cpu"))
+    assert recognizer.step == 1
+    assert recognizer.reload() is None
+    first = recognizer.transcribe_batch(_feats())
+    session = recognizer.streaming_session()
+    manager.save(2, {"step": 2, "model": other})
+    manager.close()
+    assert recognizer.reload() == 2 and recognizer.step == 2
+    assert session.model is not recognizer.model  # sessions keep theirs
+    assert recognizer.transcribe_batch(_feats()) == Recognizer(
+        _config(tmp_path), state_dict=other, device="cpu").transcribe_batch(
+            _feats())
+    assert recognizer.reload() is None
+    assert recognizer.reload(step=1) == 1
+    assert recognizer.transcribe_batch(_feats()) == first
