@@ -223,8 +223,35 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    LOGIT_ATOL, ids equal), its resident bytes against float32 and its
    logits' distance from float32; tools.align over 8 utterances on card
    and CPU (spans equal, scores within 1e-4);
-15. a "kernels" JSON line (K1, K2, K3, K4, K5), then the card line, then
-   the result line.
+15. the training extras and the bf16 variants of K1, K2 and K5: K1-bf16
+   and K2-bf16 against their plain versions (``sequential_routing(...,
+   bf16=True)`` and autograd through it) at SDR_SHAPES x TIMIT_LAYERS and
+   EXTRA_LAYERS' wsj_layer0 and general (limits BF16_K1_ATOL_REL,
+   BF16_K2_ATOL_REL of the largest entry; the mean distance a small share
+   of the controls', BF16_K1_SHARE and BF16_K2_SHARE, on the same rows cut
+   into 2-step sequences: the float32 recurrence on the same inputs and on
+   the bf16 u_hat, and the float32 K2's gradients rounded to bf16; the
+   prediction kernel's u_hat = ``predict_capsules_bf16``'s bit for bit),
+   K1 and K2 at the accumulated
+   steps' microbatch shapes, K5-bf16 bit for bit at the CNN's 25 sites with
+   K5's mask, and the three variants' times, plain times and bounds; the
+   SRF-TIMIT recipe through trainer_sr's CLI with --tpu-grad-accum=4
+   --tpu-ema-decay=0.999 --tpu-specaug=True (2 epochs of 4 updates, each
+   launching K1 14 x 4 and K2 28 x 4 times), tools.average_ckpt (the EMA
+   averaged), a decode with --tpu-decode-ema (device beam) and the
+   Recognizer serving the averaged EMA weights, card = CPU; an accumulated
+   step (accum 4) held to the CPU's as phase 7 holds its step; 28 x 241 at
+   accum 1 and 4 (ms/step, peak memory); SRF-TIMIT steps at 29 x 241 in
+   float32, --tpu-bf16 (K1 and K2 in float32) and --tpu-bf16
+   --tpu-routing-bf16 (K1-bf16 and K2-bf16, float32 K1/K2 0 times, no
+   plain SDR loop), each loss within BF16_LOSS_RTOL of float32's and at
+   least BF16_LOSS_GAP from it; the
+   CNN-TIMIT step in float32 and --tpu-bf16 (K5-bf16 50 launches a step,
+   K5 0); SRF-WSJ's forward at 8 x 1664 in float32 and bf16 routing (peak
+   memory); 3 MWER updates at SRF-TIMIT width (B 8, n-best 4, beam 16),
+   the n-best equal to the CPU's, each update's host n-best timed apart;
+16. a "kernels" JSON line (K1, K2, K3, K4, K5 and the variants K1-bf16,
+   K2-bf16, K5-bf16), then the card line, then the result line.
 """
 
 import json
@@ -1152,10 +1179,11 @@ def scan_path_phase(torch, card, state):
                      logger=logger)
     captured, real = [], srf.route_layer
 
-    def capture(u, wgt, bias, num_iter, is_context, is_last_layer):
+    def capture(u, wgt, bias, num_iter, is_context, is_last_layer,
+                bf16=False):
         captured.append((u.detach().clone(), wgt.detach(), bias.detach(),
                          num_iter, is_context, is_last_layer))
-        return real(u, wgt, bias, num_iter, is_context, is_last_layer)
+        return real(u, wgt, bias, num_iter, is_context, is_last_layer, bf16)
 
     srf.route_layer = capture
     try:
@@ -1689,9 +1717,10 @@ def extra_kwargs_fn(config, in_len_div):
                                  in_len_div)
 
 
-def train_setup(torch, config, state, device, dropout=True):
+def train_setup(torch, config, state, device, dropout=True, accum_steps=1):
     """A model with ``state``'s weights, its optimizer and scheduler in a
-    TrainState on ``device``, and its train step. ``dropout`` False turns
+    TrainState on ``device``, and its train step (``config``'s
+    ``--tpu-bf16``; ``accum_steps`` microbatches). ``dropout`` False turns
     every dropout off; "k5" keeps only the sites that K5 runs in the CNN's
     pallas mode (their masks follow the step seed on every device) and
     turns off ConvFrontEnd's, which draw from the device's generator."""
@@ -1710,13 +1739,15 @@ def train_setup(torch, config, state, device, dropout=True):
     optimizer, scheduler = get_optimizer(config, model.parameters())
     train_state = TrainState.create(model, optimizer, scheduler,
                                     device=device)
-    apply_fn = make_apply_fn(model, extra_kwargs_fn(config, in_len_div))
-    return train_state, apply_fn, make_train_step(apply_fn, in_len_div)
+    apply_fn = make_apply_fn(model, extra_kwargs_fn(config, in_len_div),
+                             bf16=config.tpu_bf16)
+    return train_state, apply_fn, make_train_step(apply_fn, in_len_div,
+                                                  accum_steps=accum_steps)
 
 
 def parity_readings(torch, config, state, batch, dropout=False,
                     update_grad_rel=UPDATE_GRAD_REL, card_tf32=False,
-                    count=PARITY_COUNT):
+                    count=PARITY_COUNT, accum_steps=1):
     """One step on the card and on the CPU from the same weights, its
     update taken at the schedule's count ``count`` (a constant rate, plain
     Adam's, as it is), and how far the two are apart: a dict of the loss's
@@ -1727,11 +1758,13 @@ def parity_readings(torch, config, state, batch, dropout=False,
     update over the rate on either device; a parameter that is not trained
     (the LSTM's bias_ih) must not move. Dropout off, or ``dropout="k5"``
     (see ``train_setup``). ``card_tf32`` lets the card's step run its
-    convolutions and matmuls in TF32."""
+    convolutions and matmuls in TF32; ``accum_steps`` microbatches both
+    steps."""
     results = {}
     for device in ("cuda", "cpu"):
         train_state, _, step = train_setup(torch, config, state, device,
-                                           dropout=dropout)
+                                           dropout=dropout,
+                                           accum_steps=accum_steps)
         if train_state.scheduler is None:
             rate = train_state.optimizer.param_groups[0]["lr"]
         else:
@@ -1798,7 +1831,7 @@ def worst(values):
 
 def train_parity(torch, config, state, batch, dropout=False, label="",
                  grad_atol_rel=GRAD_ATOL_REL, update_grad_rel=UPDATE_GRAD_REL,
-                 min_compared=0.5, count=PARITY_COUNT):
+                 min_compared=0.5, count=PARITY_COUNT, accum_steps=1):
     """``parity_readings`` held to the limits: the loss within LOSS_RTOL,
     every gradient within ``grad_atol_rel`` x its largest entry, BatchNorm
     statistics within STATS_ATOL, each parameter's update (where the
@@ -1806,7 +1839,7 @@ def train_parity(torch, config, state, batch, dropout=False, label="",
     ``min_compared`` of the entries) within UPDATE_ATOL_REL x the rate,
     every update within the rate, and no untrained parameter moved."""
     r = parity_readings(torch, config, state, batch, dropout, update_grad_rel,
-                        count=count)
+                        count=count, accum_steps=accum_steps)
     check(r.get("frozen_moved", 0.0) == 0.0,
           "train step: an untrained parameter moved")
     rate = r["rate"]
@@ -3961,6 +3994,817 @@ def serving_extras_phase(torch, card, state):
     return launches
 
 
+# phase 15: the training extras and the bf16 variants of K1, K2
+# and K5. The variants against their plain versions on the card: K1-bf16's
+# output is float32, but its inputs, u_hat, v and c are rounded to bf16 at
+# JAX's points, so where a float32 sum taken in another order rounds one of
+# them to the other bf16 neighbour the output moves by a bf16 ulp of one
+# term: held within BF16_K1_ATOL_REL x max|plain| (2.5 bf16 ulps; measured
+# up to 6.4e-3 x max on an H100); K2-bf16's du, dW and db are themselves
+# rounded to bf16: within BF16_K2_ATOL_REL x max|plain| (4 bf16 ulps;
+# measured up to 7.4e-3); K5-bf16 bit for bit, and its mask equal to K5's
+# at the same seed
+BF16_K1_ATOL_REL, BF16_K2_ATOL_REL = 1e-2, 1.6e-2
+# Those limits are wider than the whole effect of the bf16 roundings at
+# some shapes, so each variant is also held to controls that skip them, by
+# mean |difference| from the plain bf16 version: K1-bf16's must be at
+# most BF16_K1_SHARE of the float32 recurrence's on the same bf16 inputs
+# (no rounding) and of the float32 recurrence's on the bf16 u_hat (v and
+# c not rounded); K2-bf16's, per gradient, at most BF16_K2_SHARE of the
+# float32 K2's on the same inputs with its gradients rounded to bf16.
+# These run on the same rows cut into sequences of CONTROL_STEPS steps:
+# over a whole sequence one flipped rounding moves the carry and, through
+# it, the later roundings, and the sound kernels' mean distance grows
+# toward the controls' (up to 0.32 of them for K1 and 0.78 for K2, at the
+# WSJ layer 0 B=3 T=17). On 2-step sequences the shares measure up to 9e-4
+# (K1) and 7.8e-3 (K2), the controls' distances down to 9.9e-4 and 2.1e-3
+# of mean |plain|; the limits sit near the geometric mean of each share
+# and 1. The prediction kernel's bf16 u_hat is within BF16_UHAT_ULPS of
+# predict_capsules_bf16 (bit for bit: measured so at every shape). All
+# measured on an H100
+BF16_K1_SHARE, BF16_K2_SHARE, BF16_UHAT_ULPS = 0.03, 0.1, 0
+CONTROL_STEPS = 2
+# the bf16 steps' loss against the float32 step's on the same weights and
+# batch (dropout off, or at K5's sites, whose masks are the same bits):
+# within BF16_LOSS_RTOL (measured up to 6.5e-5 on an H100) and at least
+# BF16_LOSS_GAP from it (measured down to 2.2e-5), so that a step that
+# ran in float32 fails
+BF16_LOSS_RTOL, BF16_LOSS_GAP = 1e-3, 2e-6
+# bf16 operations on the tensor cores (H100 SXM data sheet, dense, 700 W)
+PEAK_BF16_FLOPS = 989e12
+# the microbatch (B, T') shapes the phase's steps route at that phases 3-4
+# do not already hold K1 and K2 at: the recipe's buckets 12 x 541 and 8 x
+# 841 in 4 microbatches, the accumulated parity step (8 x 241 in 4), the
+# accumulated timing step (28 x 241 in 4) and MWER's 8 x 241
+ACCUM_SHAPES = ((3, 136), (2, 211), (2, 61), (7, 61), (8, 61))
+EXTRAS_ACCUM = 4
+# the recipe run with the extras: utterances of the TIMIT buckets whose
+# batch sizes 4 divides (12 at <= 541 frames, 8 at <= 841), 2 batches each
+# an epoch; valid one batch of 12
+EXTRAS_TRAIN = (((392, 541), 24), ((692, 778), 16))
+EXTRAS_VALID = (((392, 541), 12),)
+EXTRAS_EPOCHS = 2
+EXTRAS_STEPS = 5  # timed steps of each extras step
+MWER_BATCH, MWER_NBEST, MWER_BEAM, MWER_STEPS = 8, 4, 16, 3
+
+
+def sdr_bf16_bound_ms(batch, seq_len, geometry, num_iter, backward=False):
+    """Least time of one SDR call in bf16 routing: its bytes (u, W, bias in
+    bf16 read once; out float32 written once; the backward's vs, dvs
+    float32 read and du, dW, db bf16 written) over HBM bandwidth, and its
+    operations: the prediction and routing products (bf16 operands,
+    float32 sums) at the tensor cores' bf16 rate, the logits' softmax and
+    the squash in float32. Returns (bytes_ms, operations_ms)."""
+    in_n, out_n, out_d, in_d = geometry
+    out_no = out_n * out_d
+    u_size, w_size = batch * seq_len * in_n * in_d, in_n * out_no * in_d
+    v_size, b_size = batch * seq_len * out_no, in_n * out_no
+    nbytes = 2 * (u_size + w_size + b_size) + 4 * v_size
+    products = 2 * in_d * in_n * out_no + num_iter * 4 * in_n * out_no
+    other = num_iter * (6 * in_n * out_n + 4 * out_no + 4 * out_n)
+    if backward:
+        nbytes += 4 * v_size + 2 * (u_size + w_size + b_size)
+        products += 4 * in_d * in_n * out_no + 8 * in_n * out_no
+        other += 4 * in_n * out_n + 4 * out_no + 12 * out_n
+    rows = batch * seq_len
+    return (1e3 * nbytes / PEAK_BYTES_PER_S,
+            1e3 * rows * (products / PEAK_BF16_FLOPS
+                          + other / PEAK_F32_FLOPS))
+
+
+def bf16_ulps(torch, a, b):
+    """|a - b| in bf16 units in the last place, entry by entry, for bf16
+    tensors of one shape: the distance of their bit patterns in the order
+    of the values (so -0 = +0)."""
+    def key(x):
+        bits = x.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (key(a) - key(b)).abs()
+
+
+def k1_bf16_uhat(torch, u, w, b, mask):
+    """The bf16 u_hat that K1-bf16's prediction kernel writes, [B, T, in_n,
+    out_n * out_d]: K1-bf16 launched through its C entry point (so not
+    counted) on a scratch buffer of this function's, whose head holds
+    u_hat in rows of ``row_pitch(out_n * out_d, 2)`` bf16."""
+    from srf_tpu_torch.ops.routing import row_pitch
+    from srf_tpu_torch.ops.routing_cuda import _lib
+
+    lib = _lib("sdr_fwd")
+    batch, seq_len, in_n, in_d = u.shape
+    out_n, out_d = w.shape[1], w.shape[2]
+    out = torch.empty((batch, seq_len, out_n, out_d), dtype=torch.float32,
+                      device=u.device)
+    scratch = torch.empty(lib.sdr_fwd_bf16_scratch_floats(
+        batch, seq_len, in_n, in_d, out_n, out_d), dtype=torch.float32,
+        device=u.device)
+    err = lib.sdr_fwd_bf16(
+        u.data_ptr(), w.data_ptr(), b.data_ptr(), None, None,
+        scratch.data_ptr(), out.data_ptr(), batch, seq_len, in_n, in_d,
+        out_n, out_d, 1, int(bool(mask)),
+        torch.cuda.current_stream(u.device).cuda_stream)
+    check(err == 0, "sdr_fwd_bf16 returned %d" % err)
+    pitch = row_pitch(out_n * out_d, 2)
+    rows = scratch.view(torch.bfloat16)[:batch * seq_len * in_n * pitch]
+    return rows.view(batch, seq_len, in_n, pitch)[..., :out_n * out_d]
+
+
+def bf16_kernel_phase(torch, device):
+    """Phase 15a: K1-bf16 and K2-bf16 against their plain versions at
+    SDR_SHAPES x TIMIT_LAYERS and EXTRA_LAYERS' wsj_layer0 and general,
+    K1 and K2 at ACCUM_SHAPES, K5-bf16 at the CNN's sites; their times.
+    Returns the three JSON entries."""
+    import torch.nn.functional as F
+    from srf_tpu_torch.ops.dropout import fused_dropout_plain
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+    from srf_tpu_torch.ops.routing import (predict_capsules_bf16,
+                                           sequential_routing,
+                                           sequential_routing_bwd,
+                                           sequential_routing_bwd_bf16,
+                                           sequential_routing_from_uhat)
+    from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
+                                                sequential_routing_cuda)
+
+    start = time.perf_counter()
+    bf = torch.bfloat16
+    rng = np.random.RandomState(SEED + 50)
+    # the largest |kernel - plain| over the largest |plain|, and absolute
+    err, err_abs = {"K1": 0.0, "K2": 0.0}, {"K1": 0.0, "K2": 0.0}
+    totals = {"K1": sdr_totals(), "K2": sdr_totals()}
+    per_layer = {"K1": [], "K2": []}
+    # the controls: the largest mean |kernel - plain| over the smallest
+    # mean |control - plain| (the share), each mean over mean |plain|;
+    # u_hat's largest ulp distance and the share of its entries equal
+    control = {key: {"share": 0.0, "kernel_mean_rel": 0.0,
+                     "control_mean_rel": float("inf")}
+               for key in ("K1", "K2")}
+    uhat = {"max_ulps": 0, "equal": 1.0}
+
+    def hold_control(key, what, got, want, controls, limit):
+        def mean(x):
+            return (x.float() - want.float()).abs().mean().item()
+        scale = want.float().abs().mean().item()
+        sound, worst = mean(got), min(mean(c) for c in controls)
+        reading = control[key]
+        reading["share"] = max(reading["share"], sound / worst)
+        reading["kernel_mean_rel"] = max(reading["kernel_mean_rel"],
+                                         sound / scale)
+        reading["control_mean_rel"] = min(reading["control_mean_rel"],
+                                          worst / scale)
+        check(sound <= limit * worst, "%s: mean |kernel - plain| %.3e is "
+              "not below %.2f x its control's %.3e" % (what, sound, limit,
+                                                       worst))
+
+    def draw(*shape, scale=1.0):
+        return torch.tensor(rng.randn(*shape) * scale, dtype=torch.float32,
+                            device=device)
+
+    def hold(name, geometry, mask, batch, seq_len, num_iter, w, b):
+        in_n, out_n, out_d, in_d = geometry
+        u = draw(batch, seq_len, in_n, in_d).to(bf)
+        got = sequential_routing_cuda(u, w, b, num_iter, mask)
+        want = sequential_routing(u.float(), w.float(), b.float(), num_iter,
+                                  mask, bf16=True)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "K1-bf16 output not finite")
+        e = (got - want).abs().max().item()
+        err_abs["K1"] = max(err_abs["K1"], e)
+        e /= want.abs().max().item()
+        err["K1"] = max(err["K1"], e)
+        where = "%s %s B=%d T=%d iter=%d" % (name, geometry, batch, seq_len,
+                                             num_iter)
+        check(e <= BF16_K1_ATOL_REL, "K1-bf16 differs from its plain version "
+              "by %.3e x max at %s" % (e, where))
+        u_hat = predict_capsules_bf16(u, w, b)
+        ulps = bf16_ulps(torch, k1_bf16_uhat(torch, u, w, b, mask),
+                         u_hat.reshape(batch, seq_len, in_n, -1))
+        uhat["max_ulps"] = max(uhat["max_ulps"], int(ulps.max().item()))
+        uhat["equal"] = min(uhat["equal"], (ulps == 0).float().mean().item())
+        check(uhat["max_ulps"] <= BF16_UHAT_ULPS, "K1-bf16's u_hat is %d "
+              "bf16 ulps from predict_capsules_bf16's at %s"
+              % (uhat["max_ulps"], where))
+        # the controls take the same rows cut into sequences of
+        # CONTROL_STEPS steps: over a whole sequence a flipped rounding
+        # moves the carry, and with it later roundings
+        steps = min(CONTROL_STEPS, seq_len)
+        rows, kept = batch * (seq_len // steps), seq_len // steps * steps
+        u_c = u[:, :kept].reshape(rows, steps, in_n, in_d)
+        got_c = sequential_routing_cuda(u_c, w, b, num_iter, mask)
+        hold_control("K1", "K1-bf16 at " + where, got_c, sequential_routing(
+            u_c.float(), w.float(), b.float(), num_iter, mask, bf16=True), (
+            sequential_routing(u_c.float(), w.float(), b.float(), num_iter,
+                               mask),
+            sequential_routing_from_uhat(
+                u_hat[:, :kept].reshape(rows, steps, *u_hat.shape[2:])
+                .float(), num_iter, mask)), BF16_K1_SHARE)
+        if num_iter != 1:
+            return u, got
+        dvs = draw(batch, seq_len, out_n, out_d)
+        grads = sequential_routing_bwd_cuda(u, w, b, got, dvs, mask)
+        plain = sequential_routing_bwd_bf16(u, w, b, dvs, mask)
+        dvs_c = dvs[:, :kept].reshape(rows, steps, out_n, out_d)
+        # the control: the float32 K2 on the same inputs, rounded
+        pairs = zip(sequential_routing_bwd_cuda(u_c, w, b, got_c, dvs_c,
+                                                mask),
+                    sequential_routing_bwd_bf16(u_c, w, b, dvs_c, mask),
+                    sequential_routing_bwd_cuda(u_c.float(), w.float(),
+                                                b.float(), got_c, dvs_c,
+                                                mask))
+        for label, (g, p, c) in zip(("du", "dW", "db"), pairs):
+            hold_control("K2", "K2-bf16 %s at %s" % (label, where), g, p,
+                         (c.to(bf),), BF16_K2_SHARE)
+        torch.cuda.synchronize()
+        for label, g, p in zip(("du", "dW", "db"), grads, plain):
+            check(g.dtype == bf and bool(torch.isfinite(g).all()),
+                  "K2-bf16 %s not a finite bf16 tensor" % label)
+            e = (g.float() - p.float()).abs().max().item()
+            err_abs["K2"] = max(err_abs["K2"], e)
+            e /= p.float().abs().max().item()
+            err["K2"] = max(err["K2"], e)
+            check(e <= BF16_K2_ATOL_REL, "K2-bf16 %s differs from its plain "
+                  "version by %.3e x max at %s %s B=%d T=%d"
+                  % (label, e, name, geometry, batch, seq_len))
+        return u, got
+
+    for name, geometry, mask, count in TIMIT_LAYERS:
+        in_n, out_n, out_d, in_d = geometry
+        w = draw(in_n, out_n, out_d, in_d, scale=0.1)
+        b = draw(in_n, out_n, out_d, scale=0.1)
+        wb, bb = w.to(bf), b.to(bf)
+        for batch, seq_len, num_iter, flip in SDR_SHAPES:
+            u, out = hold(name, geometry, mask != flip, batch, seq_len,
+                          num_iter, wb, bb)
+            if (batch, seq_len) != (29, 64):
+                continue
+            ms = event_ms(torch, lambda: sequential_routing_cuda(
+                u, wb, bb, 1, mask), 20)
+            plain_ms = event_ms(torch, lambda: sequential_routing(
+                u.float(), w, b, 1, mask, bf16=True), 2)
+            add_layer(totals["K1"], per_layer["K1"], name, count, ms,
+                      plain_ms, sdr_bf16_bound_ms(batch, seq_len, geometry, 1),
+                      geometry=list(geometry), per_forward=count)
+            # K2-bf16 at the training path's T' = 61
+            u61, dvs = u[:, :61].contiguous(), draw(batch, 61, out_n, out_d)
+            vs = sequential_routing_cuda(u61, wb, bb, 1, mask)
+            ms = event_ms(torch, lambda: sequential_routing_bwd_cuda(
+                u61, wb, bb, vs, dvs, mask), 10)
+            plain_ms = event_ms(torch, lambda: sequential_routing_bwd_bf16(
+                u61, wb, bb, dvs, mask), 2)
+            add_layer(totals["K2"], per_layer["K2"], name, count, ms,
+                      plain_ms, sdr_bf16_bound_ms(batch, 61, geometry, 1,
+                                                  backward=True),
+                      geometry=list(geometry), per_step=count)
+            print("K1-bf16 %s B=29 T=64 %.4f ms, K2-bf16 T=61 %.4f ms"
+                  % (name, per_layer["K1"][-1]["ms"], ms))
+        # K1 and K2 (float32) at the accumulated steps' microbatch shapes
+        for batch, seq_len in ACCUM_SHAPES:
+            u = draw(batch, seq_len, in_n, in_d)
+            got = sequential_routing_cuda(u, w, b, 1, mask)
+            want = sequential_routing(u, w, b, 1, mask)
+            dvs = draw(batch, seq_len, out_n, out_d)
+            grads = sequential_routing_bwd_cuda(u, w, b, got, dvs, mask)
+            plain = sequential_routing_bwd(u, w, b, want, dvs, mask)
+            torch.cuda.synchronize()
+            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  "K1 disagrees with its plain version at %s B=%d T=%d"
+                  % (geometry, batch, seq_len))
+            for label, g, p in zip(("du", "dW", "db"), grads, plain):
+                check(torch.allclose(g, p, rtol=K2_RTOL,
+                                     atol=K2_ATOL_REL * p.abs().max().item()),
+                      "K2 %s disagrees with its plain version at %s B=%d "
+                      "T=%d" % (label, geometry, batch, seq_len))
+    for index, (name, geometry, mask, w_std, shapes) in enumerate(
+            EXTRA_LAYERS):
+        if name not in ("wsj_layer0", "general"):
+            continue
+        w, b, _ = extra_weights(torch, device, index, geometry, w_std)
+        for batch, seq_len, num_iter in shapes:
+            hold(name, geometry, mask, batch, seq_len, num_iter, w.to(bf),
+                 b.to(bf))
+    print("K1-bf16 and K2-bf16 = their plain versions at %d shapes x the 3 "
+          "TIMIT layers, wsj_layer0 and general: max |kernel - plain| K1 "
+          "%.3e, K2 %.3e x max (limits %.0e, %.1e); K1 and K2 = plain at "
+          "the microbatch shapes %s" % (len(SDR_SHAPES), err["K1"], err["K2"],
+                                        BF16_K1_ATOL_REL, BF16_K2_ATOL_REL,
+                                        list(ACCUM_SHAPES)))
+    for key, limit in (("K1", BF16_K1_SHARE), ("K2", BF16_K2_SHARE)):
+        reading = control[key]
+        print("%s-bf16 against its controls: mean |kernel - plain| up to "
+              "%.3e of mean |plain|, the controls' down to %.3e; the "
+              "largest share %.4f (limit %.2f)"
+              % (key, reading["kernel_mean_rel"],
+                 reading["control_mean_rel"], reading["share"], limit))
+    print("K1-bf16's u_hat against predict_capsules_bf16: at most %d bf16 "
+          "ulps (limit %d), %.6f of the entries equal at the least"
+          % (uhat["max_ulps"], BF16_UHAT_ULPS, uhat["equal"]))
+    entries = []
+    for label, source, replaces in (
+            ("K1", "sdr_fwd", "srf_tpu/ops/routing_pallas.py:81"),
+            ("K2", "sdr_bwd", "srf_tpu/ops/routing_pallas.py:159")):
+        entry = kernel_entry(source + "_bf16", replaces, err_abs[label],
+                             totals[label], per_layer[label])
+        entry.update(source="srf_tpu_torch/csrc/%s.cu" % source,
+                     max_err_of_max=err[label], control=control[label])
+        if label == "K1":
+            entry["uhat"] = uhat
+        entries.append(entry)
+        print("%s-bf16 one %s's 7 calls: %.4f ms, plain %.4f ms, bound %.4f "
+              "ms (%s)" % (label, "forward" if label == "K1" else "step",
+                           totals[label]["ms"], totals[label]["plain_ms"],
+                           totals[label]["bound_ms"], entry["bound_by"]))
+
+    # K5-bf16 at the CNN-TIMIT sites
+    sites = cnn_site_shapes(torch, device)
+    gen = torch.Generator(device).manual_seed(SEED + 51)
+    k5 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for index, (shape, rate) in enumerate(sites):
+        # values in [1, 2): a zero reads as dropped
+        x = (1 + torch.rand(shape, generator=gen, device=device)).to(bf)
+        seed = int(rng.randint(0, 2 ** 62, dtype=np.int64))
+        got = fused_dropout_cuda(x, seed, rate)
+        check(torch.equal(got, fused_dropout_plain(x, seed, rate)),
+              "K5-bf16 differs from its plain version at site %d" % index)
+        check(torch.equal(got != 0, fused_dropout_cuda(x.float(), seed,
+                                                       rate) != 0),
+              "K5-bf16's mask is not K5's at site %d" % index)
+        ms = event_ms(torch, lambda: fused_dropout_cuda(x, seed, rate), 10)
+        plain_ms = event_ms(torch, lambda: fused_dropout_plain(x, seed, rate),
+                            2)
+        library_ms = event_ms(torch, lambda: F.dropout(x, rate,
+                                                       training=True), 10)
+        for key, value in (("ms", ms), ("plain_ms", plain_ms),
+                           ("library_ms", library_ms),
+                           ("bound_ms", 1e3 * 4 * x.numel()
+                            / PEAK_BYTES_PER_S)):
+            k5[key] += 2 * value  # forward and backward at each site
+        del x, got
+    print("K5-bf16 = its plain version bit for bit, with K5's mask, at the "
+          "%d CNN-TIMIT sites; a step's %d launches: %.4f ms, plain %.4f "
+          "ms, F.dropout (bf16) %.4f ms, bound %.4f ms (bytes); %.1f s"
+          % (len(sites), 2 * len(sites), k5["ms"], k5["plain_ms"],
+             k5["library_ms"], k5["bound_ms"], time.perf_counter() - start))
+    entries.append({
+        "name": "fused_dropout_bf16", "route": "cuda",
+        "source": "srf_tpu_torch/csrc/fused_dropout.cu",
+        "replaces": "srf_tpu/ops/dropout_pallas.py:48", "launches": None,
+        "max_abs_err": 0.0, "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": "bytes",
+        "library_ms": k5["library_ms"]})
+    torch.cuda.synchronize()
+    return entries
+
+
+def extras_corpus(base, vocab):
+    """The extras recipe run's npy features and JSON manifests under
+    ``base`` (the test split is phase 6c's)."""
+    rng = np.random.RandomState(SEED + 60)
+    splits = {"train": {}, "valid": {}, "test": test_split_data()}
+    for split, buckets in (("train", EXTRAS_TRAIN), ("valid", EXTRAS_VALID)):
+        for (low, high), count in buckets:
+            for _ in range(count):
+                n = int(rng.randint(low, high + 1))
+                splits[split]["%s%03d" % (split, len(splits[split]))] = (
+                    rng.randn(n, 123).astype(np.float32),
+                    rng.randint(1, 62, size=max(2, n // 8)))
+    for split, utts in splits.items():
+        os.makedirs(os.path.join(base, split))
+        with open(os.path.join(base, split + ".json"), "w") as manifest:
+            for utt, (feats, labels) in utts.items():
+                key = "%s/%s.npy" % (split, utt)
+                np.save(os.path.join(base, key), feats)
+                manifest.write(json.dumps({
+                    "key": key, "duration": feats.shape[0] / 100.0,
+                    "text": " ".join(vocab[i] for i in labels)}) + "\n")
+    return splits
+
+
+def extras_recipe_phase(torch, card, state):
+    """Phase 15b: the SRF-TIMIT recipe through trainer_sr's CLI with
+    --tpu-grad-accum=4 --tpu-ema-decay=0.999 --tpu-specaug=True, averaged,
+    decoded with --tpu-decode-ema and served with it. Returns the K1 and K2
+    launches of its training."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from srf_tpu_torch import trainer_sr
+    from srf_tpu_torch.config import Logger, ParseOption
+    from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
+                                                sequential_routing_cuda)
+    from srf_tpu_torch.serve import Recognizer
+    from srf_tpu_torch.tools import average_ckpt, save_tfrecord
+    from srf_tpu_torch.train.step import microbatches
+    from srf_tpu_torch.utils import checkpoint, log2utt
+    from srf_tpu_torch.utils.vocab import load_vocab
+
+    start = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="chip_smoke_extras_")
+    vocab_path = os.path.join(REPO, "egs", "data", "timit_62.vocab")
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    ckpt = os.path.join(base, "ckpt")
+    extras = ("--tpu-grad-accum=%d" % EXTRAS_ACCUM, "--tpu-ema-decay=0.999",
+              "--tpu-specaug=True")
+    try:
+        splits = extras_corpus(base, load_vocab(vocab_path, logger)[0])
+        save_tfrecord.main([
+            "save_tfrecord", "--path-base=%s" % base,
+            "--path-vocab=%s" % vocab_path, "--prep-data-shard=2",
+            "--prep-data-name=synth", "--prep-data-unit=word",
+            "--feat-type=None", "--feat-dim=123",
+            "--path-train-json=train.json", "--path-valid-json=valid.json",
+            "--path-test-json=test.json", "--path-wrt-tfrecord=tfrecord",
+            "--decoding-from-npy=True"])
+        counts = [len(splits[s]) for s in ("train", "valid", "test")]
+        # each update launches K1 14 and K2 28 times per microbatch
+        updates, real = [], trainer_sr.make_train_step
+
+        def counted(*args, **kwargs):
+            step = real(*args, **kwargs)
+
+            def train_step(state_, batch, seed):
+                before = (sequential_routing_cuda.launches,
+                          sequential_routing_bwd_cuda.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state_, batch, seed)
+                torch.cuda.synchronize()
+                k = len(microbatches(batch, EXTRAS_ACCUM))
+                got = (sequential_routing_cuda.launches - before[0],
+                       sequential_routing_bwd_cuda.launches - before[1])
+                check(got == (7 * K1_LAUNCHES * k, 7 * K2_LAUNCHES * k),
+                      "an accumulated update of %s in %d microbatches "
+                      "launched K1 %d and K2 %d times"
+                      % (tuple(batch["feats"].shape[:2]), k, *got))
+                updates.append((tuple(batch["feats"].shape[:2]), k,
+                                1e3 * (time.perf_counter() - t0)))
+                return out
+
+            return train_step
+
+        sequential_routing_cuda.launches = 0
+        sequential_routing_bwd_cuda.launches = 0
+        trainer_sr.make_train_step = counted
+        try:
+            t0 = time.perf_counter()
+            trainer_sr.main(recipe_argv(
+                base, ckpt, "--train-lr-param-k=0.5",
+                "--train-es-tolerance=%d" % EXTRAS_EPOCHS,
+                "--train-max-epoch=%d" % EXTRAS_EPOCHS,
+                "--prep-data-num-train=%d" % counts[0],
+                "--prep-data-num-valid=%d" % counts[1], *extras))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            trainer_sr.make_train_step = real
+        launches = (sequential_routing_cuda.launches,
+                    sequential_routing_bwd_cuda.launches)
+        with open(os.path.join(ckpt, "metrics.jsonl")) as lines:
+            records = [json.loads(line) for line in lines]
+        check(len(records) == 2 * EXTRAS_EPOCHS
+              and all(np.isfinite(r["loss"]) for r in records),
+              "the extras run's records: %s" % records)
+        check(len(updates) == EXTRAS_EPOCHS * 4
+              and all(k == EXTRAS_ACCUM for _, k, _ in updates),
+              "the extras run's updates: %s" % updates)
+        manager = checkpoint.CheckpointManager(ckpt)
+        trees = [manager.restore(s) for s in manager.all_steps()]
+        check(len(trees) == EXTRAS_EPOCHS and all("ema" in t for t in trees),
+              "the extras run's checkpoints hold no EMA")
+        # the EMA trails the weights at decay 0.999: after 8 updates it
+        # sits near the start, the weights moved away from it
+        name = "W0"
+        moved = (trees[-1]["model"][name] - trees[-1]["ema"][name]).abs()
+        check(moved.max().item() > 0, "the EMA did not trail the weights")
+        average_ckpt.main(recipe_argv(base, ckpt, "--model-average-num=%d"
+                                      % EXTRAS_EPOCHS, *extras))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            trainer_sr.main(decode_argv(
+                base, "--path-ckpt=%s" % os.path.join(ckpt, "avg"),
+                "--tpu-decode-ema=True", "--tpu-decode-batch=8",
+                "--tpu-decode-pad-last=True"))
+        decode_s = time.perf_counter() - t0
+        hyps = dict(log2utt.parse_decode_log(io.StringIO(out.getvalue())))
+        check(len(hyps) == counts[2], "the EMA decode gave %d utterances"
+              % len(hyps))
+        # the Recognizer serves the averaged EMA weights; the CPU's equal
+        argv = ["serve", "--config=%s" % os.path.join(REPO, "egs", "conf",
+                                                      "timit.conf"),
+                "--path-base=%s" % REPO, "--path-ckpt=%s"
+                % os.path.join(ckpt, "avg"), "--tpu-decode-ema=True",
+                *TIMIT_FLAGS]
+        config = ParseOption(argv, logger, is_print_opts=False).args
+        feats_list = serve_batches()["8x150-400"][:4]
+        rec = Recognizer(config, device="cuda", logger=logger)
+        cpu = Recognizer(config, device="cpu", logger=logger)
+        ema = checkpoint.CheckpointManager(os.path.join(ckpt, "avg")
+                                           ).restore(1)["ema"]
+        check(torch.equal(rec.model.W0.detach().cpu(), ema["W0"]),
+              "the Recognizer does not serve the EMA weights")
+        feats, lengths = rec.pad(feats_list)
+        card_logits = rec.forward(feats, lengths).cpu()
+        cpu_logits = cpu.forward(feats.cpu(), lengths)
+        lerr = (card_logits - cpu_logits).abs().max().item()
+        check(lerr <= LOGIT_ATOL, "EMA serving: card logits differ from the "
+              "CPU's by %.3e" % lerr)
+        check([r["ids"] for r in rec.transcribe_batch_detailed(feats_list)]
+              == [r["ids"] for r in cpu.transcribe_batch_detailed(
+                  feats_list)], "EMA serving: card ids differ from the CPU's")
+        by_shape = {}
+        for shape, _, ms in updates:
+            by_shape.setdefault(shape, []).append(ms)
+        print("extras recipe (trainer_sr, --tpu-grad-accum=%d "
+              "--tpu-ema-decay=0.999 --tpu-specaug=True): %d train, %d "
+              "valid, %d test utterances; %d epochs, %.1f s; epoch losses "
+              "%s; %d updates, each K1 %d and K2 %d launches (%d "
+              "microbatches); ms an update (host clock, the first at a "
+              "shape included) %s; K1 %d, K2 %d launches in all; averaged "
+              "(EMA too), decoded with --tpu-decode-ema (device beam, batch "
+              "8) %d utterances in %.2f s; the Recognizer serves the EMA, "
+              "card = CPU (logits %.3e, ids equal); %.1f s [%s]"
+              % (EXTRAS_ACCUM, *counts, EXTRAS_EPOCHS, wall,
+                 ["%.3f" % r["loss"] for r in records], len(updates),
+                 7 * K1_LAUNCHES * EXTRAS_ACCUM,
+                 7 * K2_LAUNCHES * EXTRAS_ACCUM, EXTRAS_ACCUM,
+                 {"%dx%d" % s: ["%.1f" % x for x in v]
+                  for s, v in by_shape.items()}, *launches, len(hyps),
+                 decode_s, lerr, time.perf_counter() - start, card))
+        return launches
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def timed_steps(torch, step, train_state, batch, seed, reps=EXTRAS_STEPS):
+    """(losses per step, host-clock ms of each step after a first one,
+    peak allocated bytes above those before the first step)."""
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(1 + reps):
+        t0 = time.perf_counter()
+        train_state, metrics = step(train_state, batch, seed)
+        torch.cuda.synchronize()
+        if i:
+            times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(metrics["loss_sum"].item())
+    return losses, times, torch.cuda.max_memory_allocated() - base_bytes
+
+
+def extras_step_phase(torch, card, state, cnn_state):
+    """Phase 15c: an accumulated step held to the CPU's, accumulated and
+    bf16 steps timed beside float32's, the CNN's bf16 step, SRF-WSJ's
+    forward in bf16 routing. Returns the launches of K1-bf16, K2-bf16 and
+    K5-bf16 on those paths, and of K1 and K2."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops import routing
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+    from srf_tpu_torch.ops.routing_cuda import (SDRFunction,
+                                                sequential_routing_bwd_cuda,
+                                                sequential_routing_cuda)
+    from srf_tpu_torch.serve import Recognizer
+
+    start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = timit_config(logger, "cuda")
+    batch = train_batch(torch, "cuda")
+    train_parity(torch, config, state,
+                 {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()},
+                 label="accum %d " % EXTRAS_ACCUM, accum_steps=EXTRAS_ACCUM)
+
+    def counts():
+        return (sequential_routing_cuda.launches,
+                sequential_routing_bwd_cuda.launches,
+                sequential_routing_cuda.launches_bf16,
+                sequential_routing_bwd_cuda.launches_bf16,
+                fused_dropout_cuda.launches, fused_dropout_cuda.launches_bf16)
+
+    def delta(before):
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    # accumulation: 28 x 241 (4 divides it) at accum 1 and 4, dropout on
+    b28 = {k: v[:28] for k, v in batch.items()}
+    readings = {}
+    for accum in (1, EXTRAS_ACCUM):
+        train_state, _, step = train_setup(torch, config, state, "cuda",
+                                           accum_steps=accum)
+        before = counts()
+        losses, times, peak = timed_steps(torch, step, train_state, b28,
+                                          config.tpu_seed)
+        got = delta(before)
+        check(got[:2] == (7 * K1_LAUNCHES * accum * (1 + EXTRAS_STEPS),
+                          7 * K2_LAUNCHES * accum * (1 + EXTRAS_STEPS)),
+              "accum %d: K1 %d, K2 %d launches" % (accum, *got[:2]))
+        check(bool(np.isfinite(losses).all()), "non-finite accumulated loss")
+        readings[accum] = (float(np.median(times)), peak)
+        del train_state, step
+    print("accumulated step 28 x 241 (dropout on): accum 1 %.3f ms/step, "
+          "peak %.1f MB above the state; accum %d (4 microbatches of 7, K1 "
+          "%d and K2 %d launches an update) %.3f ms/step, peak %.1f MB [%s]"
+          % (readings[1][0], readings[1][1] / 2**20, EXTRAS_ACCUM,
+             7 * K1_LAUNCHES * EXTRAS_ACCUM, 7 * K2_LAUNCHES * EXTRAS_ACCUM,
+             readings[EXTRAS_ACCUM][0], readings[EXTRAS_ACCUM][1] / 2**20,
+             card))
+
+    # bf16 steps at 29 x 241, dropout off, against float32 on the same
+    # weights and batch; the main path's bf16 launches are counted from 0
+    sequential_routing_cuda.launches_bf16 = 0
+    sequential_routing_bwd_cuda.launches_bf16 = 0
+    fused_dropout_cuda.launches_bf16 = 0
+    plain_calls = (routing.sequential_routing_from_uhat.cuda_calls,
+                   SDRFunction.plain_backwards)
+    results = {}
+    for label, flags in (("float32", ()), ("bf16", ("--tpu-bf16=True",)),
+                         ("bf16 + routing bf16",
+                          ("--tpu-bf16=True", "--tpu-routing-bf16=True"))):
+        cfg = timit_config(logger, "cuda", TIMIT_FLAGS + list(flags))
+        train_state, _, step = train_setup(torch, cfg, state, "cuda",
+                                           dropout=False)
+        before = counts()
+        losses, times, peak = timed_steps(torch, step, train_state, batch,
+                                          cfg.tpu_seed)
+        got = delta(before)
+        routing_bf16 = "routing" in label
+        want = ((0, 0, 7 * K1_LAUNCHES, 7 * K2_LAUNCHES) if routing_bf16
+                else (7 * K1_LAUNCHES, 7 * K2_LAUNCHES, 0, 0))
+        check(got[:4] == tuple(x * (1 + EXTRAS_STEPS) for x in want),
+              "%s step: K1 %d, K2 %d, K1-bf16 %d, K2-bf16 %d launches"
+              % (label, *got[:4]))
+        check(bool(np.isfinite(losses).all()), "%s: non-finite loss" % label)
+        all_on_card(train_state, {})
+        check(all(p.dtype == torch.float32
+                  for p in train_state.model.parameters()),
+              "%s: the master parameters are not float32" % label)
+        results[label] = (losses[0], float(np.median(times)), peak)
+        del train_state, step
+    check((routing.sequential_routing_from_uhat.cuda_calls,
+           SDRFunction.plain_backwards) == plain_calls,
+          "a bf16 step ran a plain SDR loop on the card")
+    f32_loss = results["float32"][0]
+    for label, (loss, ms, peak) in results.items():
+        rel = abs(loss - f32_loss) / abs(f32_loss)
+        check(rel <= BF16_LOSS_RTOL, "%s step's loss %.4f vs float32's %.4f"
+              % (label, loss, f32_loss))
+        check(label == "float32" or rel >= BF16_LOSS_GAP, "%s step's loss "
+              "is within %.2e of float32's: it did not round in bf16"
+              % (label, rel))
+        print("SRF-TIMIT step 29 x 241 (dropout off), %s: loss %.4f (rel "
+              "to float32 %.2e, limits %.0e and at least %.0e), %.3f "
+              "ms/step (median of %d), peak %.1f MB above the state [%s]"
+              % (label, loss, rel, BF16_LOSS_RTOL, BF16_LOSS_GAP, ms,
+                 EXTRAS_STEPS, peak / 2**20, card))
+    rel = (abs(results["bf16 + routing bf16"][0] - results["bf16"][0])
+           / abs(f32_loss))
+    check(rel >= BF16_LOSS_GAP, "the bf16-routing step's loss is within "
+          "%.2e of the bf16 step's: its SDR layers did not round in bf16"
+          % rel)
+    print("SRF-TIMIT step, bf16 routing against float32 routing under "
+          "--tpu-bf16: loss rel %.2e (at least %.0e)" % (rel, BF16_LOSS_GAP))
+
+    # the CNN's bf16 step: K5-bf16 at every site, K5 at none
+    cnn = {}
+    for label, flags in (("float32", ()), ("bf16", ("--tpu-bf16=True",))):
+        cfg = timit_config(logger, "cuda", CNN_FLAGS + list(flags))
+        train_state, _, step = train_setup(torch, cfg, cnn_state, "cuda",
+                                           dropout="k5")
+        before = counts()
+        losses, times, _ = timed_steps(torch, step, train_state, batch,
+                                       cfg.tpu_seed, reps=3)
+        got = delta(before)
+        want = (0, 2 * CNN_SITES) if flags else (2 * CNN_SITES, 0)
+        check(got[4:] == tuple(x * 4 for x in want),
+              "CNN %s step: K5 %d, K5-bf16 %d launches" % (label, *got[4:]))
+        check(bool(np.isfinite(losses).all()), "CNN %s: non-finite loss"
+              % label)
+        cnn[label] = (losses[0], float(np.median(times)))
+        del train_state, step
+    rel = abs(cnn["bf16"][0] - cnn["float32"][0]) / abs(cnn["float32"][0])
+    check(BF16_LOSS_GAP <= rel <= BF16_LOSS_RTOL, "CNN bf16 step's loss "
+          "%.4f vs float32's %.4f (rel %.2e)" % (cnn["bf16"][0],
+                                               cnn["float32"][0], rel))
+    print("CNN-TIMIT step 29 x 241 (dropout at K5's sites): float32 %.3f "
+          "ms/step, --tpu-bf16 %.3f ms/step (K5-bf16 %d launches a step, K5 "
+          "0); loss %.4f vs %.4f (rel %.2e) [%s]"
+          % (cnn["float32"][1], cnn["bf16"][1], 2 * CNN_SITES, cnn["bf16"][0],
+             cnn["float32"][0], rel, card))
+    bf16_launches = (sequential_routing_cuda.launches_bf16,
+                     sequential_routing_bwd_cuda.launches_bf16,
+                     fused_dropout_cuda.launches_bf16)
+
+    # SRF-WSJ's forward at 8 x 1664: peak memory in float32 and bf16
+    # routing
+    wsj = {}
+    feats_list = wsj_serve_batches()["8x300-1600"]
+    for label, flags in (("float32", ()),
+                         ("bf16 routing", ("--tpu-routing-bf16=True",))):
+        cfg = family_config(logger, "cuda", "wsj", SRF_WSJ_FLAGS
+                            + list(flags))
+        classes = class_count(cfg)
+        rec = Recognizer(cfg, state_dict=random_weights(
+            build_model(cfg, classes)[0]), logger=logger)
+        feats, lengths = rec.pad(feats_list)
+        rec.forward(feats, lengths)
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        logits = rec.forward(feats, lengths)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(logits).all()), "SRF-WSJ %s logits" % label)
+        wsj[label] = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_allocated() - base_bytes,
+                      float(np.median(timed_ms(
+                          torch, lambda: rec.forward(feats, lengths), 3))),
+                      logits.cpu())
+        del rec, feats, lengths, logits
+    gap = (wsj["bf16 routing"][3] - wsj["float32"][3]).abs().max().item()
+    print("SRF-WSJ forward 8 x 1664: float32 peak %.1f MB (%.1f above the "
+          "weights), %.3f ms; bf16 routing peak %.1f MB (%.1f above), %.3f "
+          "ms; logits bf16 vs float32 routing max %.3e; %.1f s [%s]"
+          % (wsj["float32"][0] / 2**20, wsj["float32"][1] / 2**20,
+             wsj["float32"][2], wsj["bf16 routing"][0] / 2**20,
+             wsj["bf16 routing"][1] / 2**20, wsj["bf16 routing"][2], gap,
+             time.perf_counter() - start, card))
+    return bf16_launches
+
+
+def mwer_phase(torch, card, state):
+    """Phase 15d: MWER updates at SRF-TIMIT width on the card, the n-best
+    held to the CPU's, each update's time split into the host n-best and
+    the update."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
+                                                sequential_routing_cuda)
+    from srf_tpu_torch.train import mwer
+    from srf_tpu_torch.train.step import make_logits_fn
+
+    start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = timit_config(logger, "cuda")
+    batch = {k: v[:MWER_BATCH] for k, v in train_batch(torch,
+                                                        "cuda").items()}
+    train_state, apply_fn, _ = train_setup(torch, config, state, "cuda")
+    logits_fn = make_logits_fn(apply_fn)
+    cpu_state, cpu_apply, _ = train_setup(torch, config, state, "cpu")
+    step = mwer.make_mwer_train_step(apply_fn, logits_fn, 4, MWER_BEAM,
+                                     MWER_NBEST, 62, lam_ctc=0.1)
+    decode_ms, real = [], mwer.decode_nbest
+
+    def timed_decode(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    mwer.decode_nbest = timed_decode
+    step_ms, losses, got = [], [], (0, 0)
+    try:
+        for _ in range(MWER_STEPS):
+            # the n-best of this update's weights, card and CPU
+            cpu_state.model.load_state_dict(train_state.model.state_dict())
+            host = {k: v.cpu() for k, v in batch.items()}
+            lens = np.maximum(1, -(-host["inp_len"].numpy() // 4))
+            card_nbest = real(logits_fn(train_state, batch).cpu().numpy(),
+                              lens, MWER_BEAM, MWER_NBEST, 62)
+            cpu_nbest = real(make_logits_fn(cpu_apply)(
+                cpu_state, host).numpy(), lens, MWER_BEAM, MWER_NBEST, 62)
+            check(all(np.array_equal(a, b) for a, b in zip(card_nbest,
+                                                           cpu_nbest)),
+                  "MWER: the card's n-best differs from the CPU's")
+            torch.cuda.synchronize()
+            # the update's launches, counted from 0 (the check's are not)
+            sequential_routing_cuda.launches = 0
+            sequential_routing_bwd_cuda.launches = 0
+            t0 = time.perf_counter()
+            train_state, metrics = step(train_state, batch, config.tpu_seed)
+            losses.append(metrics["loss_sum"].item())
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            got = (got[0] + sequential_routing_cuda.launches,
+                   got[1] + sequential_routing_bwd_cuda.launches)
+    finally:
+        mwer.decode_nbest = real
+    # an update: the n-best's eval forward and the training forward (K1),
+    # the backward (K2)
+    check(got == (MWER_STEPS * 2 * 7 * K1_LAUNCHES,
+                  MWER_STEPS * 7 * K2_LAUNCHES),
+          "MWER: K1 %d and K2 %d launches over %d updates" % (*got,
+                                                             MWER_STEPS))
+    check(bool(np.isfinite(losses).all()), "MWER: non-finite loss %s"
+          % losses)
+    print("MWER %d updates at SRF-TIMIT width (B %d x 241, n-best %d, beam "
+          "%d, lambda-CTC 0.1): losses %s; the n-best = the CPU's; ms an "
+          "update %s, of which the host n-best %s, the rest (forward, "
+          "errors, scoring forward and backward) %s; %.1f s [%s]"
+          % (MWER_STEPS, MWER_BATCH, MWER_NBEST, MWER_BEAM,
+             ["%.3f" % x for x in losses], ["%.1f" % x for x in step_ms],
+             ["%.1f" % x for x in decode_ms],
+             ["%.1f" % (a - b) for a, b in zip(step_ms, decode_ms)],
+             time.perf_counter() - start, card))
+    return got
+
+
 def run():
     import torch
 
@@ -4021,21 +4865,30 @@ def run():
     wsj_k1 = wsj_phase(torch, card)
     daemon_k1, daemon_readings = daemon_phase(torch, card, state)
     int8_k1 = serving_extras_phase(torch, card, state)
+    k1_bf16, k2_bf16, k5_bf16 = bf16_kernel_phase(torch, device)
+    extras_k1, extras_k2 = extras_recipe_phase(torch, card, state)
+    (k1_bf16["launches"], k2_bf16["launches"],
+     k5_bf16["launches"]) = extras_step_phase(torch, card, state, cnn_state)
+    check(all(k["launches"] > 0 for k in (k1_bf16, k2_bf16, k5_bf16)),
+          "a bf16 variant was not launched on its main path")
+    mwer_k1, mwer_k2 = mwer_phase(torch, card, state)
     # the daemon's launches are counted in its own process (its stats),
     # the rest in this one
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
                               "train": train_k1, "recipe": recipe_k1,
                               "stream": stream_k1, "wsj_serve": wsj_k1,
-                              "int8_serve": int8_k1, "daemon": daemon_k1}
+                              "int8_serve": int8_k1, "daemon": daemon_k1,
+                              "extras_recipe": extras_k1, "mwer": mwer_k1}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             stream_readings["carry_max_abs_err"])
     k1["stream"] = dict(stream_readings, launches_per_step=7 * K1_LAUNCHES)
     k1["daemon"] = daemon_readings
-    k2["launches"] = train_k2 + recipe_k2
+    k2["launches"] = train_k2 + recipe_k2 + extras_k2 + mwer_k2
     k1["calls"] = k1["launches"] // K1_LAUNCHES
     k2["calls"] = k2["launches"] // K2_LAUNCHES
-    k2["launches_by_path"] = {"train": train_k2, "recipe": recipe_k2}
+    k2["launches_by_path"] = {"train": train_k2, "recipe": recipe_k2,
+                              "extras_recipe": extras_k2, "mwer": mwer_k2}
     k3["launches"] = scan_k3
     k3["launches_by_path"] = {"scan": scan_k3}
     k3["stack_ms"] = {key: scan_times[key] for key in ("forward_ms",
@@ -4048,7 +4901,10 @@ def run():
     k5["launches"] = serve_k5 + train_k5
     k5["launches_by_path"] = {"cnn_serve": serve_k5, "cnn_train": train_k5}
 
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    # the bf16 variants' launches: the --tpu-routing-bf16 SRF-TIMIT steps
+    # (K1-bf16, K2-bf16) and the --tpu-bf16 CNN-TIMIT steps (K5-bf16)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k1_bf16, k2_bf16,
+                                  k5_bf16]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,10 +30,17 @@ projections are ordinary Dense layers.
 ``load_npz`` reads a ``.npz`` whose keys are the tree's paths joined by
 ``/`` (``params/conv_feat/conv0_0/kernel``), so weights exported from the
 JAX side load without JAX.
+
+JAX's EMA of the parameters (``ema_params``, a params tree without
+BatchNorm statistics) becomes the port's ``TrainState.ema``, keyed as
+``named_parameters`` (the LSTM's frozen zero ``bias_ih`` is not in it):
+:func:`ema_from_flax` and :func:`ema_to_flax`.
 """
 
 import numpy as np
 import torch
+
+from srf_tpu_torch.train.state import NO_EMA
 
 
 def _tensor(array):
@@ -144,17 +151,35 @@ def state_dict_to_flax(state):
     return {"params": params, **({"batch_stats": stats} if stats else {})}
 
 
+def ema_from_flax(ema_params):
+    """JAX's ``ema_params`` tree (numpy leaves) -> the port's EMA dict of
+    the trained parameters, keyed as ``named_parameters``."""
+    state = flax_to_state_dict({"params": ema_params})
+    return {k: v for k, v in state.items() if ".bias_ih_l0" not in k}
+
+
+def ema_to_flax(ema):
+    """The port's EMA dict -> JAX's ``ema_params`` tree (numpy leaves)."""
+    return state_dict_to_flax(ema)["params"]
+
+
 def _subtree(tree, path):
     for name in path:
         tree = tree.setdefault(name, {})
     return tree
 
 
-def load_npz(path):
-    """A ``.npz`` of the flax tree with ``/``-joined keys -> state_dict."""
+def load_npz(path, ema=False):
+    """A ``.npz`` of the flax tree with ``/``-joined keys -> state_dict;
+    ``ema``: the parameters from its ``ema_params`` subtree (with its
+    ``batch_stats``), as ``--tpu-decode-ema`` serves them."""
     variables = {}
     with np.load(path) as flat:
         for key in flat.files:
             *parents, leaf = key.split("/")
             _subtree(variables, parents)[leaf] = flat[key]
+    if ema:
+        if "ema_params" not in variables:
+            raise ValueError(NO_EMA)
+        variables["params"] = variables["ema_params"]
     return flax_to_state_dict(variables)

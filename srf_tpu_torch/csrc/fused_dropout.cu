@@ -21,8 +21,16 @@
 // to fill every SM; a scalar path for a misaligned pointer and for the
 // n % 4 tail. Indices are 64-bit (a CNN-TIMIT activation is 1.1e8
 // elements).
+//
+// The bf16 variant (fused_dropout_bf16) runs K5 on bf16 tensors, as the
+// JAX kernel runs in x's dtype (out_shape = x2d.dtype) under --tpu-bf16:
+// the same Philox stream per element index, 8 elements (16 bytes, two
+// Philox calls) a vector, and x * scale taken in float32 and rounded to
+// bf16 once, which is bf16 arithmetic for a single product. Bound: bytes,
+// 4 an element.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -86,6 +94,62 @@ fused_dropout_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+__device__ __forceinline__ __nv_bfloat16 apply_mask(__nv_bfloat16 v,
+                                                    uint32_t bits,
+                                                    uint32_t threshold,
+                                                    float scale) {
+  return __float2bfloat16_rn(
+      bits >= threshold ? __bfloat162float(v) * scale : 0.0f);
+}
+
+// The bf16 kernel: a grid-stride loop over vectors of 8 elements (two
+// Philox groups of 4), one 16-byte load and store a vector; a scalar path
+// for a misaligned pointer and for the n % 8 tail.
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads)
+fused_dropout_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                          __nv_bfloat16* __restrict__ out, int64_t n,
+                          uint64_t seed, uint32_t threshold, float scale) {
+  const int64_t vectors = (n + 7) / 8;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t h = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       h < vectors; h += step) {
+    const uint4 lo = philox4x32_10(static_cast<uint64_t>(2 * h), seed);
+    const uint4 hi = philox4x32_10(static_cast<uint64_t>(2 * h + 1), seed);
+    const uint32_t words[8] = {lo.x, lo.y, lo.z, lo.w,
+                               hi.x, hi.y, hi.z, hi.w};
+    const int64_t i = 8 * h;
+    if (kAligned && i + 8 <= n) {
+      uint4 v = __ldg(reinterpret_cast<const uint4*>(x) + h);
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        e[j] = apply_mask(e[j], words[j], threshold, scale);
+      }
+      reinterpret_cast<uint4*>(out)[h] = v;
+    } else {
+      for (int j = 0; j < 8 && i + j < n; ++j) {
+        out[i + j] = apply_mask(x[i + j], words[j], threshold, scale);
+      }
+    }
+  }
+}
+
+// Blocks for `units` work items of one thread each, at most kBlocksPerSm a
+// multiprocessor of the current device; 0 with *err set on failure.
+int64_t grid_blocks(int64_t units, cudaError_t* err) {
+  int device = 0, sms = 0;
+  *err = cudaGetDevice(&device);
+  if (*err == cudaSuccess) {
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  device);
+  }
+  if (*err != cudaSuccess) return 0;
+  int64_t blocks = (units + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
+  return blocks > cap ? cap : blocks;
+}
+
 }  // namespace
 
 // x and out: n float32 on the current device; launched on `stream`, no
@@ -94,16 +158,9 @@ extern "C" int fused_dropout(const float* x, float* out, int64_t n,
                              uint64_t seed, uint32_t threshold, float scale,
                              cudaStream_t stream) {
   if (n <= 0) return 0;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
+  cudaError_t err;
+  const int64_t blocks = grid_blocks((n + 3) / 4, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t groups = (n + 3) / 4;
-  int64_t blocks = (groups + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (aligned) {
@@ -112,6 +169,31 @@ extern "C" int fused_dropout(const float* x, float* out, int64_t n,
   } else {
     fused_dropout_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
                                   stream>>>(x, out, n, seed, threshold, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 variant: x and out n bf16 values on the current device, the
+// same stream of bits; launched on `stream`, no synchronisation.
+extern "C" int fused_dropout_bf16(const void* x, void* out, int64_t n,
+                                  uint64_t seed, uint32_t threshold,
+                                  float scale, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  cudaError_t err;
+  const int64_t blocks = grid_blocks((n + 7) / 8, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (aligned) {
+    fused_dropout_bf16_kernel<true><<<static_cast<unsigned>(blocks), kThreads,
+                                      0, stream>>>(xb, ob, n, seed, threshold,
+                                                   scale);
+  } else {
+    fused_dropout_bf16_kernel<false><<<static_cast<unsigned>(blocks),
+                                       kThreads, 0, stream>>>(
+        xb, ob, n, seed, threshold, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,18 @@
 // What bounds it on this card: the reverse-time chain in (2), as for K1;
 // (1), (3) and (4) run over all SMs and are bound by their bytes and, in
 // (3), by shared-memory traffic.
+//
+// The bf16 variant (sdr_bwd_bf16; template argument BF) is the backward of
+// K1's bf16 variant, rounded where autograd through its plain version
+// (ops/routing.py:sequential_routing(..., bf16=True)) rounds: the cotangent
+// of a bf16 value is bf16. It recomputes u_hat in bf16 as K1's variant does
+// and routes against bf16(v_{t-1}) with bf16(c) in s; it rounds dc (the
+// cotangent of bf16(c)) and the carry (of bf16(v_{t-1})) to bf16, and
+// du_hat = bf16(bf16(c) ds + da bf16(v_{t-1})). It reads u, W and b in
+// bf16; dW, db and du are summed in float32 over B x T' and over out
+// entries, and the wrapper rounds them to bf16, the cotangents of bf16 W,
+// b and u. (JAX's transposed scan sums dW
+// and db in bf16 step by step: ROADMAP.md F20.)
 
 #include "sdr_stream.cuh"
 
@@ -84,16 +96,17 @@ Scratch scratch_layout(int batch, int seq_len, int in_n, int in_d,
 // warp_g: the per-warp scratch of every block in global memory
 // ([batch, warp_floats]) where the plan puts it there (general path only),
 // else null
-template <int D, int NO>
+template <bool BF, int D, int NO>
 __global__ void __launch_bounds__(sdr::kThreads, 1)
-sdr_bwd_step_kernel(const float* __restrict__ uhat,
+sdr_bwd_step_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
                     const float* __restrict__ vs,
                     const float* __restrict__ dvs, float* __restrict__ cfac,
                     float* __restrict__ dafac, float* __restrict__ dsfac,
                     float* __restrict__ warp_g, int seq_len, int in_n,
                     RowGeom g, Ring r, int mask_pad) {
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
+  using E = sdr::uhat_t<BF>;
+  E* ring = reinterpret_cast<E*>(smem4);
   uint64_t* full =
       reinterpret_cast<uint64_t*>(ring + (size_t)r.stages * r.chunk * g.pitch);
   uint64_t* empty = full + r.stages;
@@ -103,7 +116,8 @@ sdr_bwd_step_kernel(const float* __restrict__ uhat,
   const bool global = D == 0 && warp_g;
   float* part = global ? warp_g + blockIdx.x * sdr::warp_floats(g)
                        : rest;                              // [kWarps, out_no]
-  float* vp_s = global ? rest : part + kWarps * g.out_no;     // v_{t-1}
+  float* vp_s = global ? rest : part + kWarps * g.out_no;     // v_{t-1} (BF:
+                                                              // bf16(v_{t-1}))
   float* dv_s = vp_s + g.pitch;                               // dvs[t] + carry
   float* ds_s = dv_s + g.pitch;
   float* s_s = ds_s + g.pitch;
@@ -115,7 +129,7 @@ sdr_bwd_step_kernel(const float* __restrict__ uhat,
   const int warp = tid / 32;
   const int lane = tid % 32;
   const size_t b = blockIdx.x;
-  const float* uhat_b = uhat + b * seq_len * in_n * g.pitch;
+  const E* uhat_b = uhat + b * seq_len * in_n * g.pitch;
   const float* vs_b = vs + b * seq_len * g.out_no;
   const float* dvs_b = dvs + b * seq_len * g.out_no;
   float* cfac_b = cfac + b * seq_len * in_n * g.out_n;
@@ -132,7 +146,9 @@ sdr_bwd_step_kernel(const float* __restrict__ uhat,
   }
   for (int k = tid; k < g.out_no; k += blockDim.x) {
     dv_s[k] = dvs_b[(size_t)last_t * g.out_no + k];
-    vp_s[k] = last_t > 0 ? vs_b[(size_t)(last_t - 1) * g.out_no + k] : 0.f;
+    vp_s[k] = last_t > 0
+                  ? sdr::keep<BF>(vs_b[(size_t)(last_t - 1) * g.out_no + k])
+                  : 0.f;
   }
   __syncthreads();
   if (warp == kWarps) {
@@ -143,16 +159,16 @@ sdr_bwd_step_kernel(const float* __restrict__ uhat,
 
   // pass 1 routes against v_{t-1} and writes c; pass 2 takes the softmax
   // VJP of dc = <u_hat, ds> and writes da
-  sdr::Pass route{ring, full, empty, r, g, in_n, vp_s,
-                  mask_pad ? sdr::kPadLogit : 0.f, c_all, nullptr,
-                  part + warp * g.out_no, lg_all + warp * g.out_n};
-  sdr::Pass vjp = route;
+  sdr::Pass<BF> route{ring, full, empty, r, g, in_n, vp_s,
+                      mask_pad ? sdr::kPadLogit : 0.f, c_all, nullptr,
+                      part + warp * g.out_no, lg_all + warp * g.out_n};
+  sdr::Pass<BF> vjp = route;
   vjp.vec = ds_s;
   sdr::Cursor q{0, 0};  // the next chunk, in the producer's order
   for (int t = last_t; t >= 0; --t) {
     // ---- pass 1: the logits, c and s ----
     route.fac = cfac_b + (size_t)t * in_n * g.out_n;
-    sdr::warp_pass<D, NO, false>(route, q, warp, lane);
+    sdr::warp_pass<BF, D, NO, false>(route, q, warp, lane);
     sdr::sync_compute();
 
     // ---- s and the squash backward:
@@ -201,15 +217,17 @@ sdr_bwd_step_kernel(const float* __restrict__ uhat,
 
     // ---- pass 2: dc, the softmax VJP and the carry ----
     vjp.fac = dafac_b + (size_t)t * in_n * g.out_n;
-    sdr::warp_pass<D, NO, true>(vjp, q, warp, lane);
+    sdr::warp_pass<BF, D, NO, true>(vjp, q, warp, lane);
     sdr::sync_compute();
 
-    // ---- the carry into step t - 1, and that step's dv and v_{t-2} ----
+    // ---- the carry into step t - 1, and that step's dv and v_{t-2}
+    //      (BF: the carry is the cotangent of bf16(v_{t-1})) ----
     if (t > 0) {
       for (int oi = tid; oi < g.out_no; oi += sdr::kComputeThreads) {
-        dv_s[oi] = sdr::sum_partials(part, g.out_no, oi) +
+        dv_s[oi] = sdr::keep<BF>(sdr::sum_partials(part, g.out_no, oi)) +
                    dvs_b[(size_t)(t - 1) * g.out_no + oi];
-        vp_s[oi] = t > 1 ? vs_b[(size_t)(t - 2) * g.out_no + oi] : 0.f;
+        vp_s[oi] = t > 1 ? sdr::keep<BF>(vs_b[(size_t)(t - 2) * g.out_no + oi])
+                         : 0.f;
       }
     }
     sdr::sync_compute();
@@ -226,10 +244,12 @@ sdr_bwd_step_kernel(const float* __restrict__ uhat,
 //   du[bt,n,j]         = sum_oi du_hat[bt,oi] W[n,oi,j]  (the out tiles'
 //                        sums added in tile order by one thread)
 // kTiles false: W[n] is one tile (every recipe's geometry), and the tile's
-// bounds are constants.
-template <bool kTiles>
+// bounds are constants. BF: du_hat[bt,oi] = bf16(bf16(c) ds + da
+// bf16(v_{t-1})), and u and W are bf16 (staged widened to float32).
+template <bool BF, bool kTiles>
 __global__ void __launch_bounds__(kWgradThreads)
-sdr_bwd_wgrad_kernel(const float* __restrict__ u, const float* __restrict__ w,
+sdr_bwd_wgrad_kernel(const sdr::uhat_t<BF>* __restrict__ u,
+                     const sdr::uhat_t<BF>* __restrict__ w,
                      const float* __restrict__ vs,
                      const float* __restrict__ cfac,
                      const float* __restrict__ dafac,
@@ -263,8 +283,8 @@ sdr_bwd_wgrad_kernel(const float* __restrict__ u, const float* __restrict__ w,
       __syncthreads();  // the previous tile is done with
       for (int e = tid; e < ot * p.j_tile; e += nthr) {
         const int j = e % p.j_tile;
-        w_s[e] = j < jt ? w[((size_t)n * out_no + o0 + e / p.j_tile) * in_d +
-                            j0 + j]
+        w_s[e] = j < jt ? sdr::to_f32(w[((size_t)n * out_no + o0 +
+                                          e / p.j_tile) * in_d + j0 + j])
                         : 0.f;
         acc_s[e] = 0.f;
       }
@@ -279,8 +299,13 @@ sdr_bwd_wgrad_kernel(const float* __restrict__ u, const float* __restrict__ w,
           const int r = e / p.j_tile;
           const int j = e % p.j_tile;
           if (j < jt) {
-            sdr::copy_async(
-                u_s + e, u + ((size_t)(bt0 + r) * in_n + n) * in_d + j0 + j);
+            const auto* src = u + ((size_t)(bt0 + r) * in_n + n) * in_d +
+                              j0 + j;
+            if constexpr (BF) {
+              u_s[e] = sdr::to_f32(*src);  // no 2-byte cp.async
+            } else {
+              sdr::copy_async(u_s + e, src);
+            }
           } else {
             u_s[e] = 0.f;
           }
@@ -296,9 +321,10 @@ sdr_bwd_wgrad_kernel(const float* __restrict__ u, const float* __restrict__ w,
 #pragma unroll 4
           for (int oo = lane; oo < ot; oo += 32) {
             const int o = (o0 + oo) / out_d;
-            const float vprev = vp ? vp[oo] : 0.f;
-            dh_s[r * p.dh_pitch + oo] =
-                fmaf(cfac[at + o], ds[oo], dafac[at + o] * vprev);
+            const float vprev = vp ? sdr::keep<BF>(vp[oo]) : 0.f;
+            dh_s[r * p.dh_pitch + oo] = sdr::keep<BF>(
+                fmaf(sdr::keep<BF>(cfac[at + o]), ds[oo],
+                     dafac[at + o] * vprev));
           }
         }
         sdr::copy_async_wait();
@@ -380,9 +406,11 @@ sdr_bwd_wgrad_kernel(const float* __restrict__ u, const float* __restrict__ w,
 }
 
 // The weight-gradient kernel's instance for a plan.
+template <bool BF>
 inline auto wgrad_kernel(const Wgrad& p, int in_d, int out_no) {
-  return p.o_tile < out_no || p.j_tile < in_d ? sdr_bwd_wgrad_kernel<true>
-                                              : sdr_bwd_wgrad_kernel<false>;
+  return p.o_tile < out_no || p.j_tile < in_d
+             ? sdr_bwd_wgrad_kernel<BF, true>
+             : sdr_bwd_wgrad_kernel<BF, false>;
 }
 
 // dW and db: the chunks' partials summed in chunk order.
@@ -404,11 +432,12 @@ sdr_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
 }
 
 // Weight-gradient blocks resident on the current device at once, or -1.
+template <bool BF>
 int wgrad_slots(int in_d, int out_no) {
   Wgrad p;
   sdr::plan_wgrad(1, 1, in_d, out_no, 0, &p);
   const size_t smem = sdr::wgrad_smem_floats(p) * sizeof(float);
-  const auto kernel = wgrad_kernel(p, in_d, out_no);
+  const auto kernel = wgrad_kernel<BF>(p, in_d, out_no);
   int device, sms, per_sm;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
@@ -426,16 +455,73 @@ int wgrad_slots(int in_d, int out_no) {
 
 // The plans of a call: the step kernel's and the weight gradient's (for
 // the card's resident blocks). False if the geometry does not fit.
+template <bool BF>
 bool plan_call(int batch, int seq_len, int in_n, int in_d, int out_n,
                int out_d, StreamPlan* sp, Wgrad* p, int* slots) {
   if (batch < 1 || seq_len < 1 ||
-      !sdr::plan_bwd(in_n, in_d, out_n, out_d, sp)) {
+      !sdr::plan_bwd(in_n, in_d, out_n, out_d, sp, BF ? 2 : 4)) {
     return false;
   }
-  *slots = wgrad_slots(in_d, sp->g.out_no);
+  *slots = wgrad_slots<BF>(in_d, sp->g.out_no);
   if (*slots < 1) return false;
   sdr::plan_wgrad(batch * seq_len, in_n, in_d, sp->g.out_no, *slots, p);
   return true;
+}
+
+template <bool BF>
+int launch(const sdr::uhat_t<BF>* u, const sdr::uhat_t<BF>* w,
+           const sdr::uhat_t<BF>* bias, const float* vs, const float* dvs,
+           sdr::uhat_t<BF>* uhat,
+           float* scratch, float* du, float* dw, float* db, int batch,
+           int seq_len, int in_n, int in_d, int out_n, int out_d,
+           int mask_pad, void* stream) {
+  StreamPlan sp;
+  Wgrad p;
+  int slots;
+  if (!plan_call<BF>(batch, seq_len, in_n, in_d, out_n, out_d, &sp, &p,
+                     &slots) ||
+      (uintptr_t)uhat % 16 != 0 || (uintptr_t)scratch % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const RowGeom& g = sp.g;
+  const int rows_total = batch * seq_len;
+  const Scratch at = scratch_layout(batch, seq_len, in_n, in_d, sp, p);
+  cudaStream_t s = (cudaStream_t)stream;
+
+  cudaError_t err = sdr::launch_predict(u, w, bias, uhat, rows_total, in_n,
+                                        in_d, g.out_no, s);
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t step_smem = sdr::bwd_smem_bytes(sp, in_n);
+  const auto step_kernel = SDR_PICK(sdr_bwd_step_kernel, BF, sp);
+  err = cudaFuncSetAttribute(step_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)step_smem);
+  if (err != cudaSuccess) return (int)err;
+  step_kernel<<<batch, sdr::kThreads, step_smem, s>>>(
+      uhat, vs, dvs, scratch + at.c, scratch + at.da, scratch + at.ds,
+      sp.warp_global ? scratch + at.warp : nullptr, seq_len, in_n, g, sp.r,
+      mask_pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t wgrad_smem = sdr::wgrad_smem_floats(p) * sizeof(float);
+  const auto wgrad = wgrad_kernel<BF>(p, in_d, g.out_no);
+  err = cudaFuncSetAttribute(wgrad,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wgrad_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = in_n * p.chunks < slots ? in_n * p.chunks : slots;
+  wgrad<<<blocks, kWgradThreads, wgrad_smem, s>>>(
+      u, w, vs, scratch + at.c, scratch + at.da, scratch + at.ds, du,
+      scratch + at.part, rows_total, seq_len, in_n, in_d, out_n, out_d, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int dw_size = in_n * g.out_no * in_d;
+  sdr_bwd_reduce_kernel<<<kReduceBlocks, kReduceThreads, 0, s>>>(
+      scratch + at.part, dw, db, p.chunks, dw_size, in_n * g.out_no);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -457,7 +543,8 @@ long long sdr_bwd_scratch_floats(int batch, int seq_len, int in_n, int in_d,
   StreamPlan sp;
   Wgrad p;
   int slots;
-  if (!plan_call(batch, seq_len, in_n, in_d, out_n, out_d, &sp, &p, &slots)) {
+  if (!plan_call<false>(batch, seq_len, in_n, in_d, out_n, out_d, &sp, &p,
+                        &slots)) {
     return -1;
   }
   return (long long)scratch_layout(batch, seq_len, in_n, in_d, sp, p).total;
@@ -476,53 +563,42 @@ int sdr_bwd(const float* u, const float* w, const float* bias,
             float* du, float* dw, float* db, int batch, int seq_len,
             int in_n, int in_d, int out_n, int out_d, int mask_pad,
             void* stream) {
+  return launch<false>(u, w, bias, vs, dvs, uhat, scratch, du, dw, db, batch,
+                       seq_len, in_n, in_d, out_n, out_d, mask_pad, stream);
+}
+
+// The bf16 variant: the same arguments, with u, w and bias bf16, vs the
+// float32 output of sdr_fwd_bf16, uhat bf16
+// [batch, seq_len, in_n, pitch] (pitch: out_n * out_d rounded up to 8)
+// and scratch of sdr_bwd_bf16_scratch_floats floats; du, dw and db are the
+// float32 sums, which the caller rounds to bf16.
+int sdr_bwd_bf16_smem_bytes(int in_n, int in_d, int out_n, int out_d) {
+  return sdr::bwd_smem_bytes(in_n, in_d, out_n, out_d, 2);
+}
+
+long long sdr_bwd_bf16_scratch_floats(int batch, int seq_len, int in_n,
+                                      int in_d, int out_n, int out_d) {
   StreamPlan sp;
   Wgrad p;
   int slots;
-  if (!plan_call(batch, seq_len, in_n, in_d, out_n, out_d, &sp, &p,
-                 &slots) ||
-      (uintptr_t)uhat % 16 != 0 || (uintptr_t)scratch % 16 != 0) {
-    return (int)cudaErrorInvalidValue;
+  if (!plan_call<true>(batch, seq_len, in_n, in_d, out_n, out_d, &sp, &p,
+                       &slots)) {
+    return -1;
   }
-  const RowGeom& g = sp.g;
-  const int rows_total = batch * seq_len;
-  const Scratch at = scratch_layout(batch, seq_len, in_n, in_d, sp, p);
-  cudaStream_t s = (cudaStream_t)stream;
+  return (long long)scratch_layout(batch, seq_len, in_n, in_d, sp, p).total;
+}
 
-  cudaError_t err = sdr::launch_predict(u, w, bias, uhat, rows_total, in_n,
-                                        in_d, g.out_no, s);
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t step_smem = sdr::bwd_smem_bytes(sp, in_n);
-  const auto step_kernel = SDR_PICK(sdr_bwd_step_kernel, sp);
-  err = cudaFuncSetAttribute(step_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)step_smem);
-  if (err != cudaSuccess) return (int)err;
-  step_kernel<<<batch, sdr::kThreads, step_smem, s>>>(
-      uhat, vs, dvs, scratch + at.c, scratch + at.da, scratch + at.ds,
-      sp.warp_global ? scratch + at.warp : nullptr, seq_len, in_n, g, sp.r,
-      mask_pad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t wgrad_smem = sdr::wgrad_smem_floats(p) * sizeof(float);
-  const auto wgrad = wgrad_kernel(p, in_d, g.out_no);
-  err = cudaFuncSetAttribute(wgrad,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)wgrad_smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = in_n * p.chunks < slots ? in_n * p.chunks : slots;
-  wgrad<<<blocks, kWgradThreads, wgrad_smem, s>>>(
-      u, w, vs, scratch + at.c, scratch + at.da, scratch + at.ds, du,
-      scratch + at.part, rows_total, seq_len, in_n, in_d, out_n, out_d, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int dw_size = in_n * g.out_no * in_d;
-  sdr_bwd_reduce_kernel<<<kReduceBlocks, kReduceThreads, 0, s>>>(
-      scratch + at.part, dw, db, p.chunks, dw_size, in_n * g.out_no);
-  return (int)cudaGetLastError();
+int sdr_bwd_bf16(const void* u, const void* w, const void* bias,
+                 const float* vs, const float* dvs, void* uhat,
+                 float* scratch, float* du, float* dw, float* db, int batch,
+                 int seq_len, int in_n, int in_d, int out_n, int out_d,
+                 int mask_pad, void* stream) {
+  using B = const __nv_bfloat16*;
+  return launch<true>(static_cast<B>(u), static_cast<B>(w),
+                      static_cast<B>(bias), vs, dvs,
+                      static_cast<__nv_bfloat16*>(uhat), scratch, du, dw, db,
+                      batch, seq_len, in_n, in_d, out_n, out_d, mask_pad,
+                      stream);
 }
 
 const char* sdr_bwd_error_string(int err) {

@@ -37,6 +37,16 @@
 // chain (the rows' dot products and softmaxes, then the sum over rows and
 // the squash) behind two compute-warp barriers; u_hat's bytes (written and
 // read once) stream underneath it.
+//
+// The bf16 variant (sdr_fwd_bf16; template argument BF) computes JAX's SDR
+// under --tpu-routing-bf16 (srf_tpu/ops/routing.py:sequential_routing with
+// compute_dtype bfloat16, its materialized scan body), the plain version
+// ops/routing.py:sequential_routing(..., bf16=True): u_hat = bf16(bf16(W u)
+// + b) from bf16 W, u and b, stored and streamed in bf16, so the ring moves
+// half the bytes;
+// each agreement is taken against bf16(v), each sum over rows with bf16(c)
+// (sdr_stream.cuh), and v, the logits, the softmax and the squash stay
+// float32. The agreement vector holds the sum of the rounded v's.
 
 #include "sdr_stream.cuh"
 
@@ -50,15 +60,17 @@ using sdr::StreamPlan;
 // warp_g: the per-warp scratch of every block in global memory
 // ([batch, warp_floats]) where the plan puts it there (general path only),
 // else null; v_init [batch, out_no] and step_valid [batch, seq_len], or null
-template <int D, int NO>
+template <bool BF, int D, int NO>
 __global__ void __launch_bounds__(sdr::kThreads, 1)
-sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
+sdr_fwd_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
+               float* __restrict__ out,
                float* __restrict__ warp_g,
                const float* __restrict__ v_init,
                const unsigned char* __restrict__ step_valid, int seq_len,
                int in_n, RowGeom g, Ring r, int num_iter, int mask_pad) {
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
+  using E = sdr::uhat_t<BF>;
+  E* ring = reinterpret_cast<E*>(smem4);
   uint64_t* full =
       reinterpret_cast<uint64_t*>(ring + (size_t)r.stages * r.chunk * g.pitch);
   uint64_t* empty = full + r.stages;
@@ -75,7 +87,7 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const float* uhat_b = uhat + (size_t)blockIdx.x * seq_len * in_n * g.pitch;
+  const E* uhat_b = uhat + (size_t)blockIdx.x * seq_len * in_n * g.pitch;
   float* out_b = out + (size_t)blockIdx.x * seq_len * g.out_no;
 
   if (tid == 0) {
@@ -89,7 +101,7 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
   const float* vinit_b =
       v_init ? v_init + (size_t)blockIdx.x * g.out_no : nullptr;
   for (int k = tid; k < g.out_no; k += blockDim.x) {
-    vagg[k] = vinit_b ? vinit_b[k] : 0.f;
+    vagg[k] = vinit_b ? sdr::keep<BF>(vinit_b[k]) : 0.f;
   }
   const unsigned char* valid_b =
       step_valid ? step_valid + (size_t)blockIdx.x * seq_len : nullptr;
@@ -100,8 +112,9 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
     return;
   }
 
-  sdr::Pass pass{ring, full, empty, r, g, in_n, vagg, 0.f, nullptr, nullptr,
-                 part + warp * g.out_no, lg_all + warp * g.out_n};
+  sdr::Pass<BF> pass{ring, full, empty, r, g, in_n, vagg, 0.f, nullptr,
+                     nullptr, part + warp * g.out_no,
+                     lg_all + warp * g.out_n};
   sdr::Cursor q{0, 0};  // the next chunk, in the producer's order
   for (int t = 0; t < seq_len; ++t) {
     // an invalid step's v is zero: its output and the next step's carry
@@ -109,7 +122,7 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
     for (int it = 0; it < num_iter; ++it) {
       // logits, c and the rows' shares of s
       pass.pad = mask_pad ? sdr::kPadLogit * (it + 1) : 0.f;
-      sdr::warp_pass<D, NO, false>(pass, q, warp, lane);
+      sdr::warp_pass<BF, D, NO, false>(pass, q, warp, lane);
       sdr::sync_compute();
 
       // s = the sum of the warps' partials; v = squash(s); the agreement
@@ -126,10 +139,10 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
                 (sq / (1.f + sq)) * (s / sqrtf(sq + sdr::kSquashEps));
             if (last) {
               const float kept = valid ? v : 0.f;
-              vagg[oi] = kept;
+              vagg[oi] = sdr::keep<BF>(kept);
               out_b[(size_t)t * g.out_no + oi] = kept;
             } else {
-              vagg[oi] += v;
+              vagg[oi] += sdr::keep<BF>(v);
             }
           }
         }
@@ -146,16 +159,64 @@ sdr_fwd_kernel(const float* __restrict__ uhat, float* __restrict__ out,
               (sq / (1.f + sq)) * (s_s[oi] / sqrtf(sq + sdr::kSquashEps));
           if (last) {
             const float kept = valid ? v : 0.f;
-            vagg[oi] = kept;
+            vagg[oi] = sdr::keep<BF>(kept);
             out_b[(size_t)t * g.out_no + oi] = kept;
           } else {
-            vagg[oi] += v;
+            vagg[oi] += sdr::keep<BF>(v);
           }
         }
       }
       sdr::sync_compute();
     }
   }
+}
+
+// Floats of the scratch buffer sdr_fwd (sdr_fwd_bf16: BF) takes: u_hat
+// [batch, seq_len, in_n, pitch] (of 2-byte entries in bf16, rounded up to
+// 16 bytes), then the blocks' per-warp scratch where the plan puts it in
+// global memory; -1 if the geometry does not fit.
+template <bool BF>
+long long scratch_floats(int batch, int seq_len, int in_n, int in_d,
+                         int out_n, int out_d) {
+  StreamPlan p;
+  if (!sdr::plan_fwd(in_n, in_d, out_n, out_d, &p, BF ? 2 : 4)) return -1;
+  const long long uhat_bytes =
+      (long long)batch * seq_len * in_n * p.g.pitch * p.g.esize;
+  return (uhat_bytes + 15) / 16 * 4 +
+         (p.warp_global ? (long long)batch * sdr::warp_floats(p.g) : 0);
+}
+
+template <bool BF>
+int launch(const sdr::uhat_t<BF>* u, const sdr::uhat_t<BF>* w,
+           const sdr::uhat_t<BF>* bias, const float* v_init,
+           const unsigned char* step_valid,
+           float* scratch, float* out, int batch, int seq_len, int in_n,
+           int in_d, int out_n, int out_d, int num_iter, int mask_pad,
+           void* stream) {
+  StreamPlan p;
+  if (batch < 1 || seq_len < 1 || num_iter < 1 ||
+      !sdr::plan_fwd(in_n, in_d, out_n, out_d, &p, BF ? 2 : 4) ||
+      (uintptr_t)scratch % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const RowGeom& g = p.g;
+  auto* uhat = reinterpret_cast<sdr::uhat_t<BF>*>(scratch);
+  const long long uhat_floats =
+      ((long long)batch * seq_len * in_n * g.pitch * g.esize + 15) / 16 * 4;
+  float* warp_g = p.warp_global ? scratch + uhat_floats : nullptr;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = sdr::launch_predict(u, w, bias, uhat, batch * seq_len,
+                                        in_n, in_d, g.out_no, s);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = sdr::fwd_smem_bytes(p);
+  const auto kernel = SDR_PICK(sdr_fwd_kernel, BF, p);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, sdr::kThreads, smem, s>>>(
+      uhat, out, warp_g, v_init, step_valid, seq_len, in_n, g, p.r,
+      num_iter, mask_pad);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -173,10 +234,7 @@ int sdr_fwd_smem_bytes(int in_n, int in_d, int out_n, int out_d) {
 // global memory; -1 if the geometry does not fit.
 long long sdr_fwd_scratch_floats(int batch, int seq_len, int in_n, int in_d,
                                  int out_n, int out_d) {
-  StreamPlan p;
-  if (!sdr::plan_fwd(in_n, in_d, out_n, out_d, &p)) return -1;
-  return (long long)batch * seq_len * in_n * p.g.pitch +
-         (p.warp_global ? (long long)batch * sdr::warp_floats(p.g) : 0);
+  return scratch_floats<false>(batch, seq_len, in_n, in_d, out_n, out_d);
 }
 
 // u [batch, seq_len, in_n, in_d], w [in_n, out_n, out_d, in_d],
@@ -193,30 +251,33 @@ int sdr_fwd(const float* u, const float* w, const float* bias,
             float* scratch, float* out, int batch, int seq_len, int in_n,
             int in_d, int out_n, int out_d, int num_iter, int mask_pad,
             void* stream) {
-  StreamPlan p;
-  if (batch < 1 || seq_len < 1 || num_iter < 1 ||
-      !sdr::plan_fwd(in_n, in_d, out_n, out_d, &p) ||
-      (uintptr_t)scratch % 16 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const RowGeom& g = p.g;
-  float* uhat = scratch;
-  float* warp_g = p.warp_global
-                      ? scratch + (size_t)batch * seq_len * in_n * g.pitch
-                      : nullptr;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = sdr::launch_predict(u, w, bias, uhat, batch * seq_len,
-                                        in_n, in_d, g.out_no, s);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = sdr::fwd_smem_bytes(p);
-  const auto kernel = SDR_PICK(sdr_fwd_kernel, p);
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<batch, sdr::kThreads, smem, s>>>(
-      uhat, out, warp_g, v_init, step_valid, seq_len, in_n, g, p.r,
-      num_iter, mask_pad);
-  return (int)cudaGetLastError();
+  return launch<false>(u, w, bias, v_init, step_valid, scratch, out, batch,
+                       seq_len, in_n, in_d, out_n, out_d, num_iter, mask_pad,
+                       stream);
+}
+
+// The bf16 variant: the same arguments, with u, w and bias bf16, v_init
+// (float32) rounded to bf16 where the agreement takes it, and scratch of
+// sdr_fwd_bf16_scratch_floats floats; out is float32.
+int sdr_fwd_bf16_smem_bytes(int in_n, int in_d, int out_n, int out_d) {
+  return sdr::fwd_smem_bytes(in_n, in_d, out_n, out_d, 2);
+}
+
+long long sdr_fwd_bf16_scratch_floats(int batch, int seq_len, int in_n,
+                                      int in_d, int out_n, int out_d) {
+  return scratch_floats<true>(batch, seq_len, in_n, in_d, out_n, out_d);
+}
+
+int sdr_fwd_bf16(const void* u, const void* w, const void* bias,
+                 const float* v_init, const unsigned char* step_valid,
+                 float* scratch, float* out, int batch, int seq_len,
+                 int in_n, int in_d, int out_n, int out_d, int num_iter,
+                 int mask_pad, void* stream) {
+  using B = const __nv_bfloat16*;
+  return launch<true>(static_cast<B>(u), static_cast<B>(w),
+                      static_cast<B>(bias), v_init, step_valid, scratch, out,
+                      batch, seq_len, in_n, in_d, out_n, out_d, num_iter,
+                      mask_pad, stream);
 }
 
 const char* sdr_fwd_error_string(int err) {

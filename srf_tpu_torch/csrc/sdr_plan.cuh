@@ -50,6 +50,13 @@ SDR_HOST_DEVICE inline int row_pitch(int out_no) {
   return (out_no + 3) / 4 * 4;
 }
 
+// The pitch of a u_hat row of `esize`-byte entries (4: float32, 2: the bf16
+// variants' u_hat): out_no rounded up to 16 bytes' worth of entries.
+SDR_HOST_DEVICE inline int row_pitch(int out_no, int esize) {
+  const int per16 = 16 / esize;
+  return (out_no + per16 - 1) / per16 * per16;
+}
+
 // log2(out_d) if out_d is a power of two <= 32 (the squash sums over
 // shuffle groups), else -1 (a thread per entry sums its capsule)
 inline int group_shift(int out_d) {
@@ -59,18 +66,22 @@ inline int group_shift(int out_d) {
   return -1;
 }
 
+// pitch: entries of a u_hat row (and floats of an out vector in shared
+// memory); esize: bytes of a u_hat entry, 4 (float32) or 2 (bf16)
 struct RowGeom {
   int out_n, out_d, out_no, pitch;
   int shift;  // group_shift(out_d)
+  int esize;
 };
 
-inline RowGeom row_geom(int out_n, int out_d) {
+inline RowGeom row_geom(int out_n, int out_d, int esize = 4) {
   RowGeom g;
   g.out_n = out_n;
   g.out_d = out_d;
   g.out_no = out_n * out_d;
-  g.pitch = row_pitch(g.out_no);
+  g.pitch = row_pitch(g.out_no, esize);
   g.shift = group_shift(out_d);
+  g.esize = esize;
   return g;
 }
 
@@ -106,9 +117,8 @@ struct Ring {
 // rows per warp per chunk: chunks of kWarps * per_warp rows, halved while
 // fewer than kMinStages slots fit, then as many slots as fit, up to two
 // passes' worth. False if not one row fits.
-inline bool plan_ring(int in_n, int pitch, int per_warp, size_t fixed_bytes,
-                      Ring* r) {
-  const size_t row_bytes = (size_t)pitch * sizeof(float);
+inline bool plan_ring(int in_n, size_t row_bytes, int per_warp,
+                      size_t fixed_bytes, Ring* r) {
   const size_t bar_bytes = 2 * sizeof(uint64_t);  // a slot's two barriers
   if (fixed_bytes + row_bytes + bar_bytes > kMaxSmemBytes) return false;
   const size_t room = kMaxSmemBytes - fixed_bytes;
@@ -126,8 +136,8 @@ inline bool plan_ring(int in_n, int pitch, int per_warp, size_t fixed_bytes,
   return true;
 }
 
-inline size_t ring_bytes(const Ring& r, int pitch) {
-  return (size_t)r.stages * r.chunk * pitch * sizeof(float) +
+inline size_t ring_bytes(const Ring& r, const RowGeom& g) {
+  return (size_t)r.stages * r.chunk * g.pitch * g.esize +
          2 * (size_t)r.stages * sizeof(uint64_t);
 }
 
@@ -190,16 +200,22 @@ inline size_t stream_fixed_bytes(const StreamPlan& p, int vectors,
 }
 
 inline bool plan_stream(int in_n, int in_d, int out_n, int out_d,
-                        int vectors, bool keeps_c, StreamPlan* p) {
+                        int vectors, bool keeps_c, int esize, StreamPlan* p) {
   if (in_n < 1 || in_d < 1 || out_n < 1 || out_d < 1 ||
       (size_t)out_n * out_d > kMaxSmemFloats) {
     return false;
   }
-  p->g = row_geom(out_n, out_d);
+  // the bf16 variants' prediction kernel takes all of in_d in one tile (it
+  // rounds the finished sum, so it cannot carry a partial sum in u_hat)
+  if (esize == 2 && plan_predict(in_d, out_n * out_d).j_tile < in_d) {
+    return false;
+  }
+  p->g = row_geom(out_n, out_d, esize);
   const size_t rows_c = keeps_c ? (size_t)in_n : 0;
   for (int global = 0; global < 2; ++global) {
     p->warp_global = global;
-    if (plan_ring(in_n, p->g.pitch, global ? 1 : pass_rows(p->g),
+    if (plan_ring(in_n, (size_t)p->g.pitch * esize,
+                  global ? 1 : pass_rows(p->g),
                   stream_fixed_bytes(*p, vectors, rows_c), &p->r)) {
       return true;
     }
@@ -207,41 +223,46 @@ inline bool plan_stream(int in_n, int in_d, int out_n, int out_d,
   return false;
 }
 
-// K1's recurrence keeps the agreement vector and s.
+// K1's recurrence keeps the agreement vector and s. `esize` is the bytes
+// of a u_hat entry: 4, or 2 for the bf16 variant.
 constexpr int kFwdVectors = 2;
 inline bool plan_fwd(int in_n, int in_d, int out_n, int out_d,
-                     StreamPlan* p) {
-  return plan_stream(in_n, in_d, out_n, out_d, kFwdVectors, false, p);
+                     StreamPlan* p, int esize = 4) {
+  return plan_stream(in_n, in_d, out_n, out_d, kFwdVectors, false, esize, p);
 }
 
 inline size_t fwd_smem_bytes(const StreamPlan& p) {
-  return stream_fixed_bytes(p, kFwdVectors, 0) + ring_bytes(p.r, p.g.pitch);
+  return stream_fixed_bytes(p, kFwdVectors, 0) + ring_bytes(p.r, p.g);
 }
 
 // K2's reverse-time recurrence keeps v_{t-1}, dv, ds, s and c of every row.
 constexpr int kBwdVectors = 4;
 inline bool plan_bwd(int in_n, int in_d, int out_n, int out_d,
-                     StreamPlan* p) {
-  return plan_stream(in_n, in_d, out_n, out_d, kBwdVectors, true, p);
+                     StreamPlan* p, int esize = 4) {
+  return plan_stream(in_n, in_d, out_n, out_d, kBwdVectors, true, esize, p);
 }
 
 inline size_t bwd_smem_bytes(const StreamPlan& p, int in_n) {
-  return stream_fixed_bytes(p, kBwdVectors, in_n) +
-         ring_bytes(p.r, p.g.pitch);
+  return stream_fixed_bytes(p, kBwdVectors, in_n) + ring_bytes(p.r, p.g);
 }
 
-// Bytes of dynamic shared memory the recurrence kernel of K1 or K2 takes
-// for a geometry, or -1 if it does not fit.
-inline int fwd_smem_bytes(int in_n, int in_d, int out_n, int out_d) {
+// Bytes of dynamic shared memory the recurrence kernel of K1 or K2 (or of
+// their bf16 variants, esize 2) takes for a geometry, or -1 if it does not
+// fit.
+inline int fwd_smem_bytes(int in_n, int in_d, int out_n, int out_d,
+                          int esize = 4) {
   StreamPlan p;
-  return plan_fwd(in_n, in_d, out_n, out_d, &p) ? (int)fwd_smem_bytes(p)
-                                                : -1;
+  return plan_fwd(in_n, in_d, out_n, out_d, &p, esize)
+             ? (int)fwd_smem_bytes(p)
+             : -1;
 }
 
-inline int bwd_smem_bytes(int in_n, int in_d, int out_n, int out_d) {
+inline int bwd_smem_bytes(int in_n, int in_d, int out_n, int out_d,
+                          int esize = 4) {
   StreamPlan p;
-  return plan_bwd(in_n, in_d, out_n, out_d, &p) ? (int)bwd_smem_bytes(p, in_n)
-                                                : -1;
+  return plan_bwd(in_n, in_d, out_n, out_d, &p, esize)
+             ? (int)bwd_smem_bytes(p, in_n)
+             : -1;
 }
 
 // K2's weight-gradient kernel: W[n] and the partial of dW[n] in tiles of

@@ -43,16 +43,30 @@
 // in shared memory, or in global memory where they do not fit (plan_stream
 // in sdr_plan.cuh).
 //
+// The bf16 variants (template argument BF true) follow the rounding points
+// of JAX's bf16 SDR scan (srf_tpu/ops/routing.py:_sdr_step with a bf16
+// u_hat_t, the materialized body of sequential_routing): the prediction
+// kernel reads bf16 W, u and b and writes u_hat = bf16(bf16(W u) + b), and
+// the ring streams bf16 rows (half the bytes). A pass widens each
+// entry to float32 and takes its products there; it rounds the routing
+// coefficient c to bf16 before the weighted sum s (a VJP pass rounds dc,
+// the cotangent of that rounded c), and the caller keeps the vector the
+// agreement is taken against rounded to bf16. Logits, softmax, squash, the
+// sums and the carried v stay float32.
+//
 // SDR_HOST_SHIM marks a host build of the device code (a CPU rehearsal of
 // the math with threads standing in for lanes); it supplies its own
 // versions of the primitives guarded below.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sdr_plan.cuh"
 
@@ -60,6 +74,37 @@ namespace sdr {
 
 constexpr float kPadLogit = -1e9f;   // routing.py NEG_INF
 constexpr float kSquashEps = 1e-7f;  // squash.py epsilon
+
+// A u_hat entry: float32, or bf16 in the bf16 variants.
+template <bool BF>
+using uhat_t = std::conditional_t<BF, __nv_bfloat16, float>;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// x rounded to bf16 (to nearest even) and widened back.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x as the bf16 variants keep it (rounded) or as float32 keeps it.
+template <bool BF>
+__device__ __forceinline__ float keep(float x) {
+  return BF ? round_bf16(x) : x;
+}
+
+template <typename E>
+__device__ __forceinline__ E from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 #ifndef SDR_HOST_SHIM
 
@@ -186,7 +231,8 @@ struct Cursor {
 // The producer warp's loop: `passes` passes over u_hat_t for each step, in
 // the order t = first + k * dir, each pass a sequence of chunks through the
 // ring. Lane 0 issues every copy.
-__device__ __forceinline__ void produce(const float* uhat_b, float* ring,
+template <typename E>
+__device__ __forceinline__ void produce(const E* uhat_b, E* ring,
                                         uint64_t* full, uint64_t* empty,
                                         const Ring& r, int in_n, int pitch,
                                         int steps, int first, int dir,
@@ -194,7 +240,7 @@ __device__ __forceinline__ void produce(const float* uhat_b, float* ring,
   if (threadIdx.x % 32 != 0) return;
   Cursor at{0, 1};  // the slots start empty: their "empty" phase -1 is done
   for (int k = 0; k < steps; ++k) {
-    const float* uhat_t = uhat_b + (size_t)(first + k * dir) * in_n * pitch;
+    const E* uhat_t = uhat_b + (size_t)(first + k * dir) * in_n * pitch;
     for (int p = 0; p < passes; ++p) {
       for (int c = 0; c < r.chunks_per_pass; ++c, at.next(r.stages)) {
         mbar_wait(empty + at.slot, at.phase);
@@ -202,7 +248,7 @@ __device__ __forceinline__ void produce(const float* uhat_b, float* ring,
         const int rows = min(r.chunk, in_n - n0);
         bulk_load(ring + (size_t)at.slot * r.chunk * pitch,
                   uhat_t + (size_t)n0 * pitch,
-                  (uint32_t)(rows * pitch * sizeof(float)), full + at.slot);
+                  (uint32_t)(rows * pitch * sizeof(E)), full + at.slot);
       }
     }
   }
@@ -214,9 +260,11 @@ __device__ __forceinline__ void produce(const float* uhat_b, float* ring,
 // c), dc = <u_hat[n,o,:], vec[o,:]>, with c read from c_all. The pass writes
 // each row's coefficients to fac[n * out_n + o] (if fac is not null) and,
 // in a routing pass, to c_all (if not null), and leaves sum over its rows
-// of coef[n,o] * u_hat[n,o,i] in part_w.
+// of coef[n,o] * u_hat[n,o,i] in part_w. BF: the bf16 variants' pass (a
+// bf16 ring, c rounded before the sum, dc rounded before the VJP).
+template <bool BF>
 struct Pass {
-  const float* ring;
+  const uhat_t<BF>* ring;
   uint64_t* full;
   uint64_t* empty;
   Ring r;
@@ -242,14 +290,34 @@ __device__ __forceinline__ void load_cap(const float* p, float (&x)[D]) {
   }
 }
 
+// The bf16 ring's capsule: 4 entries (8 bytes) a load, widened. A capsule
+// starts at a multiple of out_d entries in a row of 16-byte pitch, so at
+// 8 bytes for out_d 8 or 20.
+template <int D>
+__device__ __forceinline__ void load_cap(const __nv_bfloat16* p,
+                                         float (&x)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; i += 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p + i);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    x[i] = lo.x;
+    x[i + 1] = lo.y;
+    x[i + 2] = hi.x;
+    x[i + 3] = hi.y;
+  }
+}
+
 // Logits within this bound take the softmax without its max: exp cannot
 // overflow or vanish, and exp(l) / sum exp(l) is the softmax.
 constexpr float kSafeLogit = 64.f;
 
 // The register path: out_d == D, out capsules o = lane + 32 k, k < NO, R
 // rows of each chunk per warp (rows warp, warp + kWarps, ...).
-template <int D, int NO, int R, bool VJP>
-__device__ __forceinline__ void warp_pass_lanes(const Pass& p, Cursor& q,
+template <bool BF, int D, int NO, int R, bool VJP>
+__device__ __forceinline__ void warp_pass_lanes(const Pass<BF>& p, Cursor& q,
                                                 int warp, int lane) {
   const int out_n = p.g.out_n;
   float vec[NO][D], acc[NO][D];
@@ -267,7 +335,8 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass& p, Cursor& q,
   }
   for (int c = 0; c < p.r.chunks_per_pass; ++c, q.next(p.r.stages)) {
     mbar_wait(p.full + q.slot, q.phase);
-    const float* rows_s = p.ring + (size_t)q.slot * p.r.chunk * p.g.pitch;
+    const uhat_t<BF>* rows_s =
+        p.ring + (size_t)q.slot * p.r.chunk * p.g.pitch;
     const int rows = min(p.r.chunk, p.in_n - c * p.r.chunk);
     const int n0 = c * p.r.chunk + warp;
     float x[R][NO][D], coef[R][NO];
@@ -352,10 +421,12 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass& p, Cursor& q,
             if (p.c_all) p.c_all[n * out_n + o] = coef[rr][k];
             if (p.fac) p.fac[(size_t)n * out_n + o] = coef[rr][k];
           }
+          coef[rr][k] = keep<BF>(coef[rr][k]);  // the sum takes bf16(c)
         }
       }
     } else {
-      // da = c * (dc - sum_o dc c)
+      // da = c * (dc - sum_o dc c); bf16 rounds dc, the cotangent of the
+      // rounded c
       float cin[R][NO], dot[R];
 #pragma unroll
       for (int rr = 0; rr < R; ++rr) {
@@ -364,6 +435,7 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass& p, Cursor& q,
 #pragma unroll
         for (int k = 0; k < NO; ++k) {
           const int o = lane + 32 * k;
+          coef[rr][k] = keep<BF>(coef[rr][k]);
           cin[rr][k] = warp + rr * kWarps < rows && o < out_n
                            ? p.c_all[n * out_n + o]
                            : 0.f;
@@ -415,32 +487,33 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass& p, Cursor& q,
 }
 
 // dots[o] = <row[o,:], vec[o,:]> for o < out_n, by one warp.
-__device__ __forceinline__ void row_dots(const float* row, const float* vec,
+template <typename E>
+__device__ __forceinline__ void row_dots(const E* row, const float* vec,
                                          float* dots, const RowGeom& g,
                                          int lane) {
   for (int o = lane; o < g.out_n; o += 32) {
-    const float* r = row + o * g.out_d;
+    const E* r = row + o * g.out_d;
     const float* v = vec + o * g.out_d;
     float x = 0.f;
-    for (int i = 0; i < g.out_d; ++i) x = fmaf(r[i], v[i], x);
+    for (int i = 0; i < g.out_d; ++i) x = fmaf(to_f32(r[i]), v[i], x);
     dots[o] = x;
   }
   __syncwarp();
 }
 
 // The general path: a row at a time per warp, through the warp's scratch.
-template <bool VJP>
-__device__ __forceinline__ void warp_pass_rows(const Pass& p, Cursor& q,
+template <bool BF, bool VJP>
+__device__ __forceinline__ void warp_pass_rows(const Pass<BF>& p, Cursor& q,
                                                int warp, int lane) {
   const RowGeom& g = p.g;
   for (int e = lane; e < g.out_no; e += 32) p.part_w[e] = 0.f;
   for (int c = 0; c < p.r.chunks_per_pass; ++c, q.next(p.r.stages)) {
     mbar_wait(p.full + q.slot, q.phase);
-    const float* rows_s = p.ring + (size_t)q.slot * p.r.chunk * g.pitch;
+    const uhat_t<BF>* rows_s = p.ring + (size_t)q.slot * p.r.chunk * g.pitch;
     const int rows = min(p.r.chunk, p.in_n - c * p.r.chunk);
     for (int row = warp; row < rows; row += kWarps) {
       const int n = c * p.r.chunk + row;
-      const float* uh = rows_s + row * g.pitch;
+      const uhat_t<BF>* uh = rows_s + row * g.pitch;
       row_dots(uh, p.vec, p.lg, g, lane);
       if (!VJP) {
         // softmax over the out capsules
@@ -458,7 +531,7 @@ __device__ __forceinline__ void warp_pass_rows(const Pass& p, Cursor& q,
         sum = warp_sum(sum);
         for (int o = lane; o < g.out_n; o += 32) {
           const float cv = p.lg[o] / sum;
-          p.lg[o] = cv;
+          p.lg[o] = keep<BF>(cv);  // the sum takes bf16(c)
           if (p.c_all) p.c_all[n * g.out_n + o] = cv;
           if (p.fac) p.fac[(size_t)n * g.out_n + o] = cv;
         }
@@ -466,6 +539,7 @@ __device__ __forceinline__ void warp_pass_rows(const Pass& p, Cursor& q,
         const float* cin = p.c_all + n * g.out_n;
         float dot = 0.f;
         for (int o = lane; o < g.out_n; o += 32) {
+          p.lg[o] = keep<BF>(p.lg[o]);  // dc, rounded in bf16
           dot = fmaf(p.lg[o], cin[o], dot);
         }
         dot = warp_sum(dot);
@@ -477,7 +551,7 @@ __device__ __forceinline__ void warp_pass_rows(const Pass& p, Cursor& q,
       }
       __syncwarp();
       for (int e = lane; e < g.out_no; e += 32) {
-        p.part_w[e] = fmaf(p.lg[e / g.out_d], uh[e], p.part_w[e]);
+        p.part_w[e] = fmaf(p.lg[e / g.out_d], to_f32(uh[e]), p.part_w[e]);
       }
       __syncwarp();
     }
@@ -487,25 +561,26 @@ __device__ __forceinline__ void warp_pass_rows(const Pass& p, Cursor& q,
 }
 
 // One pass over a step's rows: D == 0 takes the general path.
-template <int D, int NO, bool VJP>
-__device__ __forceinline__ void warp_pass(const Pass& p, Cursor& q, int warp,
-                                          int lane) {
+template <bool BF, int D, int NO, bool VJP>
+__device__ __forceinline__ void warp_pass(const Pass<BF>& p, Cursor& q,
+                                          int warp, int lane) {
   if constexpr (D == 0) {
-    warp_pass_rows<VJP>(p, q, warp, lane);
+    warp_pass_rows<BF, VJP>(p, q, warp, lane);
   } else {
-    warp_pass_lanes<D, NO, lane_rows(D, NO), VJP>(p, q, warp, lane);
+    warp_pass_lanes<BF, D, NO, lane_rows(D, NO), VJP>(p, q, warp, lane);
   }
 }
 
-// The kernel template instance for a plan (StreamPlan): K<D, NO> with
-// out_d == D and NO out capsules per lane (lane_caps), or K<0, 0>, which
-// also takes every geometry whose per-warp scratch is in global memory.
-#define SDR_PICK(K, p)                                                    \
-  ((p).warp_global                                      ? K<0, 0>         \
-   : ::sdr::lane_caps((p).g) == 1 && (p).g.out_d == 8   ? K<8, 1>         \
-   : ::sdr::lane_caps((p).g) == 2 && (p).g.out_d == 8   ? K<8, 2>         \
-   : ::sdr::lane_caps((p).g) == 1 && (p).g.out_d == 20  ? K<20, 1>        \
-                                                        : K<0, 0>)
+// The kernel template instance for a plan (StreamPlan): K<BF, D, NO> with
+// out_d == D and NO out capsules per lane (lane_caps), or K<BF, 0, 0>,
+// which also takes every geometry whose per-warp scratch is in global
+// memory.
+#define SDR_PICK(K, BF, p)                                                 \
+  ((p).warp_global                                      ? K<BF, 0, 0>      \
+   : ::sdr::lane_caps((p).g) == 1 && (p).g.out_d == 8   ? K<BF, 8, 1>      \
+   : ::sdr::lane_caps((p).g) == 2 && (p).g.out_d == 8   ? K<BF, 8, 2>      \
+   : ::sdr::lane_caps((p).g) == 1 && (p).g.out_d == 20  ? K<BF, 20, 1>     \
+                                                        : K<BF, 0, 0>)
 
 // The prediction kernel: grid (in_n, row blocks, out tiles). u [rows_total,
 // in_n, in_d], W [in_n, out_no, in_d], bias [in_n, out_no] -> uhat
@@ -513,12 +588,16 @@ __device__ __forceinline__ void warp_pass(const Pass& p, Cursor& q, int warp,
 // padding entries as 0). A block takes pp.o_tile out entries of W[n] and
 // every kPredictRowsPerBlock-th row block from blockIdx.y on; where in_d
 // takes more than one tile of in entries, each tile adds its share to the
-// u_hat entries the block wrote for the tiles before it.
+// u_hat entries the block wrote for the tiles before it. BF: u, W and bias
+// are bf16 (staged widened to float32), and the block writes bf16(bf16(W u)
+// + b) in bf16; its plans take in_d in one tile (plan_stream).
+template <bool BF>
 __global__ void __launch_bounds__(kPredictThreads)
-sdr_predict_kernel(const float* __restrict__ u, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ uhat,
-                   int rows_total, int in_n, int in_d, int out_no,
-                   int pitch, PredictPlan pp) {
+sdr_predict_kernel(const uhat_t<BF>* __restrict__ u,
+                   const uhat_t<BF>* __restrict__ w,
+                   const uhat_t<BF>* __restrict__ bias,
+                   uhat_t<BF>* __restrict__ uhat, int rows_total, int in_n,
+                   int in_d, int out_no, int pitch, PredictPlan pp) {
   extern __shared__ float4 smem4[];
   float* wt_s = reinterpret_cast<float*>(smem4);  // [j_tile, o_tile]
   float* b_s = wt_s + pp.j_tile * pp.o_tile;      // [o_tile]
@@ -531,10 +610,10 @@ sdr_predict_kernel(const float* __restrict__ u, const float* __restrict__ w,
   const int o_end = blockIdx.z + 1 == gridDim.z ? pitch : o0 + pp.o_tile;
   const bool one_j = pp.j_tile >= in_d;
   const size_t row_stride = (size_t)in_n * pitch;
-  const float* w_n = w + ((size_t)n * out_no + o0) * in_d;
+  const uhat_t<BF>* w_n = w + ((size_t)n * out_no + o0) * in_d;
 
   for (int k = tid; k < o_real; k += nthr) {
-    b_s[k] = bias[(size_t)n * out_no + o0 + k];
+    b_s[k] = to_f32(bias[(size_t)n * out_no + o0 + k]);
   }
   bool w_staged = false;  // W's tile stays staged if it is all of in_d
   for (int row_begin = blockIdx.y * kPredictRowsPerBlock;
@@ -543,35 +622,37 @@ sdr_predict_kernel(const float* __restrict__ u, const float* __restrict__ w,
     const int row_end = min(row_begin + kPredictRowsPerBlock, rows_total);
     for (int r0 = row_begin; r0 < row_end; r0 += pp.rows) {
       const int rows = min(pp.rows, row_end - r0);
-      float* out = uhat + ((size_t)r0 * in_n + n) * pitch;
+      uhat_t<BF>* out = uhat + ((size_t)r0 * in_n + n) * pitch;
       for (int j0 = 0; j0 < in_d; j0 += pp.j_tile) {
         const int jt = min(pp.j_tile, in_d - j0);
         __syncthreads();  // the previous rows' or tile's reads are done
         if (!w_staged) {
           for (int k = tid; k < o_real * jt; k += nthr) {
             wt_s[(k % jt) * pp.o_tile + k / jt] =
-                w_n[(size_t)(k / jt) * in_d + j0 + k % jt];
+                to_f32(w_n[(size_t)(k / jt) * in_d + j0 + k % jt]);
           }
           w_staged = one_j;
         }
         for (int k = tid; k < rows * jt; k += nthr) {
           const int r = k / jt;
           u_s[r * pp.j_tile + k % jt] =
-              u[((size_t)(r0 + r) * in_n + n) * in_d + j0 + k % jt];
+              to_f32(u[((size_t)(r0 + r) * in_n + n) * in_d + j0 + k % jt]);
         }
         __syncthreads();
         for (int oi = o0 + tid; oi < o_end; oi += nthr) {
           const bool real = oi < out_no;
           const int oo = oi - o0;
           const float bo = real ? b_s[oo] : 0.f;
+          // bf16 adds the bias after rounding the product
+          const float a_init = BF ? 0.f : bo;
           for (int r = 0; r < rows; r += 4) {
-            float* at = out + r * row_stride + oi;
-            float a0 = bo, a1 = bo, a2 = bo, a3 = bo;
+            uhat_t<BF>* at = out + r * row_stride + oi;
+            float a0 = a_init, a1 = a_init, a2 = a_init, a3 = a_init;
             if (j0 > 0) {  // the sum over the tiles before this one
-              a0 = at[0];
-              if (r + 1 < rows) a1 = at[row_stride];
-              if (r + 2 < rows) a2 = at[2 * row_stride];
-              if (r + 3 < rows) a3 = at[3 * row_stride];
+              a0 = to_f32(at[0]);
+              if (r + 1 < rows) a1 = to_f32(at[row_stride]);
+              if (r + 2 < rows) a2 = to_f32(at[2 * row_stride]);
+              if (r + 3 < rows) a3 = to_f32(at[3 * row_stride]);
             }
             if (real) {
               const float* u0 = u_s + r * pp.j_tile;
@@ -583,10 +664,17 @@ sdr_predict_kernel(const float* __restrict__ u, const float* __restrict__ w,
                 a3 = fmaf(wv, u0[3 * pp.j_tile + j], a3);
               }
             }
-            at[0] = a0;
-            if (r + 1 < rows) at[row_stride] = a1;
-            if (r + 2 < rows) at[2 * row_stride] = a2;
-            if (r + 3 < rows) at[3 * row_stride] = a3;
+            if (BF) {
+              a0 = round_bf16(a0) + bo;
+              a1 = round_bf16(a1) + bo;
+              a2 = round_bf16(a2) + bo;
+              a3 = round_bf16(a3) + bo;
+            }
+            using E = uhat_t<BF>;
+            at[0] = from_f32<E>(a0);
+            if (r + 1 < rows) at[row_stride] = from_f32<E>(a1);
+            if (r + 2 < rows) at[2 * row_stride] = from_f32<E>(a2);
+            if (r + 3 < rows) at[3 * row_stride] = from_f32<E>(a3);
           }
         }
       }
@@ -594,24 +682,28 @@ sdr_predict_kernel(const float* __restrict__ u, const float* __restrict__ w,
   }
 }
 
-// Launches the prediction kernel on `stream`; returns its cudaError_t.
-inline cudaError_t launch_predict(const float* u, const float* w,
-                                  const float* bias, float* uhat,
+// Launches the prediction kernel on `stream`, reading u, W and bias and
+// writing u_hat in E's type (float, or __nv_bfloat16 for the bf16
+// variants); returns its cudaError_t.
+template <typename E>
+inline cudaError_t launch_predict(const E* u, const E* w, const E* bias,
+                                  E* uhat,
                                   int rows_total, int in_n, int in_d,
                                   int out_no, cudaStream_t stream) {
+  constexpr bool BF = std::is_same<E, __nv_bfloat16>::value;
   const PredictPlan pp = plan_predict(in_d, out_no);
   const size_t smem = predict_smem_bytes(pp);
   cudaError_t err = cudaFuncSetAttribute(
-      sdr_predict_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sdr_predict_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int row_blocks =
       (rows_total + kPredictRowsPerBlock - 1) / kPredictRowsPerBlock;
   const dim3 grid(in_n, row_blocks < 65535 ? row_blocks : 65535,
                   (out_no + pp.o_tile - 1) / pp.o_tile);
-  sdr_predict_kernel<<<grid, kPredictThreads, smem, stream>>>(
-      u, w, bias, uhat, rows_total, in_n, in_d, out_no, row_pitch(out_no),
-      pp);
+  sdr_predict_kernel<BF><<<grid, kPredictThreads, smem, stream>>>(
+      u, w, bias, uhat, rows_total, in_n, in_d, out_no,
+      row_pitch(out_no, (int)sizeof(E)), pp);
   return cudaGetLastError();
 }
 

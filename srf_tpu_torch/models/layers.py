@@ -1,5 +1,9 @@
 """Model building blocks (port of ``srf_tpu/models/layers.py``).
 
+:class:`Linear`, :class:`Conv2d`, :class:`LayerNorm` — torch's layers with
+flax's dtype rules, which ``--tpu-bf16`` meets (bf16 parameters on bf16 or
+float32 activations); with one dtype throughout they are torch's own.
+
 :func:`same_pad` / :func:`conv2d_same` — flax's ``padding="SAME"`` with a
 per-axis kernel and stride (the CNN's (5, 3) convs stride (t, 1)).
 
@@ -37,6 +41,51 @@ from srf_tpu_torch.ops.masking import feat_mask
 
 def _pair(value):
     return tuple(value) if isinstance(value, (tuple, list)) else (value, value)
+
+
+def _promote(x, *params):
+    """``x`` and the parameters (None stays None) in their promoted dtype:
+    a flax layer computes in the dtype that promotes its input's and its
+    parameters' (a bf16 weight on a float32 input computes in float32,
+    where torch would refuse the mix)."""
+    dtype = x.dtype
+    for p in params:
+        if p is not None:
+            dtype = torch.promote_types(dtype, p.dtype)
+    return [None if t is None else t.to(dtype) for t in (x, *params)]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with flax ``Dense``'s dtypes (``--tpu-bf16`` runs the
+    forward on bf16 parameters): input and parameters promoted to one
+    dtype, and in bf16 the product rounded before the bias is added, as
+    flax adds it (``F.linear`` would add it before rounding)."""
+
+    def forward(self, x):
+        x, weight, bias = _promote(x, self.weight, self.bias)
+        if bias is not None and x.dtype == torch.bfloat16:
+            return F.linear(x, weight) + bias
+        return F.linear(x, weight, bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax ``Conv``'s dtypes, as :class:`Linear`."""
+
+    def forward(self, x):
+        x, weight, bias = _promote(x, self.weight, self.bias)
+        if bias is not None and x.dtype == torch.bfloat16:
+            return self._conv_forward(x, weight, None) + bias[:, None, None]
+        return self._conv_forward(x, weight, bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with flax ``LayerNorm``'s dtypes: a float32 input
+    (the STF's after its float32 positional encoding, the LSTM's cell
+    output) normalises with its bf16 scale and bias in float32."""
+
+    def forward(self, x):
+        x, weight, bias = _promote(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, weight, bias, self.eps)
 
 
 def same_pads(length, kernel_size, stride):
@@ -93,7 +142,10 @@ class Dropout(nn.Dropout):
 
 def batch_norm(x, bn):
     """flax BatchNorm on NCHW ``x`` with ``bn``'s affine parameters and
-    running statistics (the module docstring gives the conventions)."""
+    running statistics (the module docstring gives the conventions). A
+    bf16 ``x`` (``--tpu-bf16``) takes :func:`_batch_norm_bf16`."""
+    if x.dtype == torch.bfloat16:
+        return _batch_norm_bf16(x, bn)
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
@@ -104,6 +156,28 @@ def batch_norm(x, bn):
         bn.running_var.mul_(0.99).add_(var, alpha=0.01)
         bn.num_batches_tracked.add_(1)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
+def _batch_norm_bf16(x, bn):
+    """flax's BatchNorm on a bf16 ``x``, in its order of operations: the
+    statistics in float32 (the variance as E[x^2] - E[x]^2, clamped at 0),
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, rounded
+    to bf16 once; the running statistics stay float32."""
+    xf = x.float()
+    if bn.training:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(0.99).add_(mean, alpha=0.01)
+            bn.running_var.mul_(0.99).add_(var, alpha=0.01)
+            bn.num_batches_tracked.add_(1)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    shape = (1, -1, 1, 1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (xf - mean.reshape(shape)) * mul.reshape(shape)
+    return (y + bn.bias.float().reshape(shape)).to(x.dtype)
 
 
 class ConvFrontEnd(nn.Module):
@@ -118,7 +192,7 @@ class ConvFrontEnd(nn.Module):
         for conv_idx in range(cnn_n):
             for branch in range(2):
                 setattr(self, "conv%d_%d" % (conv_idx, branch),
-                        nn.Conv2d(in_ch, nfilt, kernel_size, stride))
+                        Conv2d(in_ch, nfilt, kernel_size, stride))
             setattr(self, "bn%d" % conv_idx, nn.BatchNorm2d(nfilt, eps=1e-3))
             in_ch = nfilt
         self.dropout = Dropout(0.2)
@@ -180,8 +254,8 @@ class MultiHeadAttention(nn.Module):
         self.penalty_params = penalty_params
         self.site = site
         for name in ("wq", "wk", "wv"):
-            setattr(self, name, nn.Linear(d_model, d_model, bias=False))
-        self.wo = nn.Linear(d_model, d_model)
+            setattr(self, name, Linear(d_model, d_model, bias=False))
+        self.wo = Linear(d_model, d_model)
         self.att_dropout = Dropout(attention_dropout)
 
     def _split(self, x):
@@ -228,8 +302,8 @@ class MultiHeadAttention(nn.Module):
 class PointWiseFeedForward(nn.Module):
     def __init__(self, d_model, dff, ff_dropout):
         super().__init__()
-        self.ff1 = nn.Linear(d_model, dff)
-        self.ff2 = nn.Linear(dff, d_model)
+        self.ff1 = Linear(d_model, dff)
+        self.ff2 = Linear(dff, d_model)
         self.dropout = Dropout(ff_dropout)
 
     def forward(self, inputs, generator=None):
@@ -245,10 +319,10 @@ class EncoderBlock(nn.Module):
                  residual_dropout, attention_dropout, penalty_params=None,
                  site=0):
         super().__init__()
-        self.ln_cur = nn.LayerNorm(d_model, eps=1e-6)
+        self.ln_cur = LayerNorm(d_model, eps=1e-6)
         self.mha = MultiHeadAttention(d_model, num_heads, attention_dropout,
                                       penalty_params, site)
-        self.ln_res = nn.LayerNorm(d_model, eps=1e-6)
+        self.ln_res = LayerNorm(d_model, eps=1e-6)
         self.ffn = PointWiseFeedForward(d_model, dff, inner_dropout)
         self.res_dropout = Dropout(residual_dropout)
 

@@ -32,7 +32,8 @@ import torch
 from torch import nn
 
 from srf_tpu_torch.models.initializers import get_init
-from srf_tpu_torch.models.layers import ConvFrontEnd, Dropout
+from srf_tpu_torch.models.layers import (ConvFrontEnd, Dropout, LayerNorm,
+                                          Linear)
 from srf_tpu_torch.ops.masking import feat_mask2
 
 GATES = 4  # i, f, g, o
@@ -69,11 +70,11 @@ class LstmEncoder(nn.Module):
                 if name.startswith("bias_ih"):
                     param.requires_grad_(False)
             setattr(self, "lstm%d" % idx, lstm)
-            setattr(self, "ln%d" % idx, nn.LayerNorm(out_dim, eps=1e-6))
+            setattr(self, "ln%d" % idx, LayerNorm(out_dim, eps=1e-6))
             in_dim = out_dim
         self.inn_dropout = Dropout(inner_dropout)
-        self.proj = nn.Linear(out_dim, vocab_n, bias=False)
-        self.ln_out = nn.LayerNorm(vocab_n, eps=1e-6)
+        self.proj = Linear(out_dim, vocab_n, bias=False)
+        self.ln_out = LayerNorm(vocab_n, eps=1e-6)
         self.reset_parameters(init_name, generator)
 
     @torch.no_grad()
@@ -141,7 +142,17 @@ class LstmEncoder(nn.Module):
             x = x.reshape(x.shape[0], x.shape[1], -1)
         x = self.inp_dropout(x, generator)
         for idx in range(self.num_layers):
-            x, _ = getattr(self, "lstm%d" % idx)(x)
+            lstm = getattr(self, "lstm%d" % idx)
+            if lstm.weight_ih_l0.dtype == torch.bfloat16:
+                # --tpu-bf16: flax's cell carries its state in float32, so
+                # its gates promote to float32; run the recurrence in
+                # float32 on the bf16 weights' values
+                x, _ = torch.func.functional_call(
+                    lstm, {name: p.float()
+                           for name, p in lstm.named_parameters()},
+                    (x.float(),))
+            else:
+                x, _ = lstm(x)
             if self.bidirectional:
                 x = self._merge(x[..., :self.d_model], x[..., self.d_model:])
             x = getattr(self, "ln%d" % idx)(x)

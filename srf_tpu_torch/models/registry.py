@@ -120,7 +120,9 @@ def build_model(config, dec_out_dim, logger=None, **overrides):
             raise ValueError(
                 "--tpu-routing-kernel=%s does not support bf16 routing or "
                 "time chunking; use auto/xla/xla_pre" % kernel)
-        raise NotImplementedError(_LATER % "--tpu-routing-bf16")
+        # the rounding points of JAX's materialized scan (impl="xla") for
+        # every other kernel value; JAX's auto path rounds elsewhere (F19)
+        overrides.setdefault("routing_bf16", True)
     model = SequenceRouter.from_config(config, dec_out_dim, **overrides)
     if logger is not None:
         logger.info(

@@ -22,8 +22,11 @@ step mask on the card).
 Dropout acts in training mode only, at the JAX model's places and rates
 (the encaps and front-end 0.2 are fixed there as here); its masks come from
 the ``generator`` passed to ``forward`` (the train step seeds one per step),
-else from the global RNG. The JAX wavefront, bf16 and time-chunk routing
-paths are not ported (``models/registry.py`` refuses their flags).
+else from the global RNG. ``routing_bf16`` (``--tpu-routing-bf16``) routes
+the batch forward's SDR layers in bf16 (``ops/routing.route_layer``: K1's
+and K2's bf16 variants on the card); streaming routes in float32, as JAX's
+``route_block`` does. The JAX wavefront and time-chunk routing paths are
+not ported (``models/registry.py`` refuses their flags).
 
 Parameter names mirror the flax tree (conv_feat, flatten, encaps1/2,
 ln_input, W%d/b%d, ln_mid%d, ln_output), so ``convert.py`` maps one onto the
@@ -43,7 +46,8 @@ import torch
 from torch import nn
 
 from srf_tpu_torch.models.initializers import get_init, routing_weight_init
-from srf_tpu_torch.models.layers import ConvFrontEnd, Dropout
+from srf_tpu_torch.models.layers import (Conv2d, ConvFrontEnd, Dropout,
+                                          LayerNorm, Linear)
 from srf_tpu_torch.ops.masking import feat_mask
 from srf_tpu_torch.ops.pos_enc import get_pos_enc
 from srf_tpu_torch.ops.routing import (
@@ -60,8 +64,9 @@ class SequenceRouter(nn.Module):
                  caps_class_dim, caps_iter, lpad, rpad, is_context,
                  conv_layer_num=2, conv_filter_num=64, inp_dropout=0.1,
                  inn_dropout=0.1, init_name=None, caps_type="lowmemory",
-                 stride=2, generator=None):
+                 stride=2, routing_bf16=False, generator=None):
         super().__init__()
+        self.routing_bf16 = routing_bf16
         self.feat_dim = feat_dim
         self.class_n = class_n
         self.enc_num = enc_num
@@ -84,10 +89,10 @@ class SequenceRouter(nn.Module):
         feat_out = feat_dim
         for _ in range(conv_layer_num):
             feat_out = -(-feat_out // stride)
-        self.flatten = nn.Linear(feat_out * conv_filter_num, caps_primary_num)
-        self.encaps1 = nn.Conv2d(1, caps_primary_dim, 3, padding=1)
-        self.encaps2 = nn.Conv2d(1, caps_primary_dim, 3, padding=1)
-        self.ln_input = nn.LayerNorm(caps_primary_num * caps_primary_dim,
+        self.flatten = Linear(feat_out * conv_filter_num, caps_primary_num)
+        self.encaps1 = Conv2d(1, caps_primary_dim, 3, padding=1)
+        self.encaps2 = Conv2d(1, caps_primary_dim, 3, padding=1)
+        self.ln_input = LayerNorm(caps_primary_num * caps_primary_dim,
                                      eps=1e-3)
         for i, (in_n, out_n, out_d, in_d) in enumerate(self.layer_shapes()):
             self.register_parameter(
@@ -95,8 +100,8 @@ class SequenceRouter(nn.Module):
             self.register_parameter(
                 "b%d" % i, nn.Parameter(torch.empty(in_n, out_n, out_d)))
             setattr(self, "ln_mid%d" % (i + 1),
-                    nn.LayerNorm(out_n * out_d, eps=1e-3))
-        self.ln_output = nn.LayerNorm(class_n, eps=1e-3)
+                    LayerNorm(out_n * out_d, eps=1e-3))
+        self.ln_output = LayerNorm(class_n, eps=1e-3)
         self.drop_encaps = Dropout(0.2)
         self.drop_inp = Dropout(inp_dropout)
         self.drop_inn = Dropout(inn_dropout)
@@ -297,6 +302,7 @@ class SequenceRouter(nn.Module):
                 emb, getattr(self, "W%d" % i), getattr(self, "b%d" % i),
                 num_iter, self.is_context,
                 is_last_layer=(i == self.enc_num - 1),
+                bf16=self.routing_bf16,
             )
             flat = getattr(self, "ln_mid%d" % (i + 1))(
                 emb.reshape(batch, seq_len, -1))

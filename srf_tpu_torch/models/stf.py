@@ -28,7 +28,8 @@ import torch
 from torch import nn
 
 from srf_tpu_torch.models.initializers import get_init, lecun_normal
-from srf_tpu_torch.models.layers import ConvFrontEnd, Dropout, EncoderBlock
+from srf_tpu_torch.models.layers import (ConvFrontEnd, Dropout, EncoderBlock,
+                                          LayerNorm, Linear)
 from srf_tpu_torch.ops.attention_penalty import MAX_LEN, penalty_enabled
 from srf_tpu_torch.ops.blockwise_attention import PenaltyParams
 from srf_tpu_torch.ops.masking import feat_mask2
@@ -55,14 +56,14 @@ class ConvEncoder(nn.Module):
         feat_out = feat_dim
         for _ in range(cnn_n):
             feat_out = -(-feat_out // stride)
-        self.linear_projection = nn.Linear(feat_out * nfilt, d_model)
+        self.linear_projection = Linear(feat_out * nfilt, d_model)
         self.inp_dropout = Dropout(input_dropout)
         for i in range(num_layers):
             setattr(self, "enc%d" % i, EncoderBlock(
                 d_model, num_heads, dff, inner_dropout, residual_dropout,
                 attention_dropout, penalty_params=penalty_params, site=i))
-        self.ln = nn.LayerNorm(d_model, eps=1e-6)
-        self.proj = nn.Linear(d_model, vocab_n)
+        self.ln = LayerNorm(d_model, eps=1e-6)
+        self.proj = Linear(d_model, vocab_n)
         self.reset_parameters(init_name, generator)
 
     @torch.no_grad()

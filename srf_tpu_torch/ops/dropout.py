@@ -77,7 +77,9 @@ def random_bits(numel, seed, device=None):
 
 def fused_dropout_plain(x, seed, rate):
     """K5's function in plain PyTorch, on any device and memory layout:
-    the mask follows ``x``'s logical (row-major) index."""
+    the mask follows ``x``'s logical (row-major) index. In x's dtype: for
+    bf16 (the bf16 variant's plain version) ``x * scale`` is taken in
+    float32 and rounded once."""
     threshold, scale = dropout_constants(rate)
     bits = random_bits(x.numel(), seed, x.device).reshape(x.shape)
     return torch.where(bits >= threshold, x * scale, torch.zeros_like(x))

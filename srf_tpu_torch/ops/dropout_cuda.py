@@ -2,10 +2,13 @@
 (``csrc/fused_dropout.cu``), and ``FusedDropoutFunction``, the autograd
 function whose backward regenerates the mask.
 
-K5 replaces the TPU kernel ``srf_tpu/ops/dropout_pallas.py:_mask_kernel``.
-Its plain PyTorch version is ``ops/dropout.py:fused_dropout_plain``, which
-defines the random stream; ``FusedDropoutFunction`` sends CUDA tensors to
-the kernel and CPU tensors to the plain version. The library is compiled
+K5 replaces the TPU kernel ``srf_tpu/ops/dropout_pallas.py:_mask_kernel``,
+which runs in its input's dtype: float32 tensors go to K5, bf16 tensors
+(``--tpu-bf16``) to its bf16 variant (``fused_dropout_bf16`` in the same
+source), any other dtype raises. Its plain PyTorch version is
+``ops/dropout.py:fused_dropout_plain``, which defines the random stream
+for both; ``FusedDropoutFunction`` sends CUDA tensors to the kernel and CPU
+tensors to the plain version. The library is compiled
 with nvcc when the first CUDA tensor arrives (see ``cuda_build``), never at
 import.
 """
@@ -21,10 +24,11 @@ from srf_tpu_torch.ops import cuda_build
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = ctypes.CDLL(cuda_build.build(["fused_dropout"])["fused_dropout"])
-    lib.fused_dropout.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
-        ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
-    lib.fused_dropout.restype = ctypes.c_int
+    for fn in (lib.fused_dropout, lib.fused_dropout_bf16):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
+            ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.fused_dropout_error_string.argtypes = [ctypes.c_int]
     lib.fused_dropout_error_string.restype = ctypes.c_char_p
     return lib
@@ -34,17 +38,19 @@ def fused_dropout_cuda(x, seed, rate):
     """Dropout of ``x`` on the card (K5): the contract of
     ``ops.dropout.fused_dropout_plain``, bit for bit.
 
-    ``x`` float32, contiguous, on a CUDA device; ``seed`` a host integer in
+    ``x`` float32 or bf16 (the bf16 variant: the same bits, ``x * scale``
+    rounded once), contiguous, on a CUDA device; ``seed`` a host integer in
     [0, 2**64); 0 < rate < 1. Returns a new tensor. Raises on anything the
     kernel does not take and on a failed launch; it never falls back to
-    the plain version. ``fused_dropout_cuda.launches`` counts its launches.
+    the plain version. ``fused_dropout_cuda.launches`` counts K5's launches
+    and ``fused_dropout_cuda.launches_bf16`` its bf16 variant's.
     """
     if not x.is_cuda:
         raise ValueError("fused_dropout_cuda takes CUDA tensors (got %s); "
                          "the plain version is ops.dropout.fused_dropout_plain"
                          % x.device)
-    if x.dtype != torch.float32:
-        raise TypeError("x must be float32, got %s" % x.dtype)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("x must be float32 or bfloat16, got %s" % x.dtype)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (row-major)")
     if not 0.0 < rate < 1.0:
@@ -54,18 +60,23 @@ def fused_dropout_cuda(x, seed, rate):
     threshold, scale = _plain().dropout_constants(rate)
     lib = _lib()
     out = torch.empty_like(x)
+    bf16 = x.dtype == torch.bfloat16
     with torch.cuda.device(x.device):
-        err = lib.fused_dropout(
+        err = (lib.fused_dropout_bf16 if bf16 else lib.fused_dropout)(
             x.data_ptr(), out.data_ptr(), x.numel(), seed, threshold, scale,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("fused_dropout kernel launch failed: %s"
                            % lib.fused_dropout_error_string(err).decode())
-    fused_dropout_cuda.launches += 1
+    if bf16:
+        fused_dropout_cuda.launches_bf16 += 1
+    else:
+        fused_dropout_cuda.launches += 1
     return out
 
 
 fused_dropout_cuda.launches = 0
+fused_dropout_cuda.launches_bf16 = 0
 
 
 class FusedDropoutFunction(torch.autograd.Function):

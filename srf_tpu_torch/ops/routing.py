@@ -29,6 +29,16 @@
 - PAD-capsule masking: at the last capsule layer the routing logit of
   output capsule 0 (the PAD class) gets -1e9 so nothing routes to it
   (reference: sequence_router_naive.py:174-178,219-220).
+- bf16 routing (``--tpu-routing-bf16``, ``bf16=True``): JAX's SDR with
+  ``compute_dtype=bfloat16`` in its materialized scan body (``impl="xla"``,
+  ``srf_tpu/ops/routing.py:_sdr_step``): u_hat = bf16(bf16(W u) + b) from
+  bf16 W, u and b, each agreement <u_hat, bf16(v)> and each sum
+  bf16(c) u_hat taken in float32, the logits, softmax, squash and carried v
+  in float32. Its backward is autograd through that loop
+  (:func:`sequential_routing_bwd_bf16`), whose casts round every cotangent
+  of a bf16 value to bf16; the kernels' bf16 variants follow both (F19 and
+  F20 in ROADMAP.md record where JAX's ``auto`` path and JAX's transposed
+  scan round elsewhere).
 
 Shapes (the JAX layouts):
     u      [B, T, in_n, in_d]      input capsules (after windowing)
@@ -114,31 +124,55 @@ def _compute_dtype(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
-def _sdr_step(u_hat_t, v_prev, num_iter, pad_mask):
+def round_bf16(x):
+    """``x`` rounded to bf16 and widened back to its dtype (the value a
+    bf16 product takes)."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _sdr_step(u_hat_t, v_prev, num_iter, pad_mask, bf16=False):
     """One SDR timestep given u_hat_t [B, in_n, out_n, out_d].
 
     Routing logits accumulate agreement with v across the iterations; the
     first agreement term uses the *previous timestep's* output capsules
-    (reference: sequence_router_naive.py:222-227).
+    (reference: sequence_router_naive.py:222-227). ``bf16``: u_hat_t is
+    bf16, and the products take bf16(v) and bf16(c) in float32, as JAX's
+    ``_sdr_step`` with a bf16 u_hat_t.
     """
+    if bf16:
+        # one widening copy, so that its cotangent is summed in float32
+        # over the step's two products and rounded to bf16 once
+        u_hat_t = u_hat_t.float()
     b = torch.zeros(u_hat_t.shape[:3], dtype=u_hat_t.dtype,
                     device=u_hat_t.device)  # [B, in_n, out_n]
     v = v_prev
     for _ in range(num_iter):
-        b = b + torch.einsum("bnoi,boi->bno", u_hat_t, v)
+        b = b + torch.einsum("bnoi,boi->bno", u_hat_t,
+                             round_bf16(v) if bf16 else v)
         if pad_mask is not None:
             b = b + pad_mask
         c = torch.softmax(b, dim=2)
-        s = torch.einsum("bno,bnoi->boi", c, u_hat_t)
+        s = torch.einsum("bno,bnoi->boi", round_bf16(c) if bf16 else c,
+                         u_hat_t)
         v = squash(s, dim=-1)
     return v
 
 
-def row_pitch(out_no):
-    """Floats per in-capsule row of u_hat in the kernels' layout: out_n *
-    out_d rounded up to a multiple of 4 (a bulk copy moves 16-byte
-    multiples)."""
-    return -(-out_no // 4) * 4
+def row_pitch(out_no, esize=4):
+    """Entries per in-capsule row of u_hat in the kernels' layout: out_n *
+    out_d rounded up to 16 bytes of ``esize``-byte entries (4 floats, or 8
+    bf16: a bulk copy moves 16-byte multiples)."""
+    per16 = 16 // esize
+    return -(-out_no // per16) * per16
+
+
+def predict_capsules_bf16(u, wgt, bias):
+    """The bf16 prediction vectors [B, T, in_n, out_n, out_d] from bf16
+    ``u``, ``wgt`` and ``bias``: bf16(bf16(W u) + b), the product summed in
+    float32 (JAX's einsum with ``preferred_element_type`` bf16, then a bf16
+    add)."""
+    return (torch.einsum("noij,btnj->btnoi", wgt.float(), u.float())
+            .to(torch.bfloat16) + bias[None, None])
 
 
 def predict_capsules_rows(u, wgt, bias):
@@ -154,7 +188,7 @@ def predict_capsules_rows(u, wgt, bias):
 
 
 def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
-                       v_init=None, step_valid=None):
+                       v_init=None, step_valid=None, bf16=False):
     """SDR, plain PyTorch: a loop over time carrying the previous outputs.
 
     The plain version of the K1 and K3 kernels (``routing_cuda``): the tests
@@ -171,38 +205,48 @@ def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
     utterance: a streaming pool's slots warm up apart); invalid steps
     contribute zero output AND a zero carry (streaming warm-up frames before
     t=0, which the batch implementation realizes as window zero padding).
+
+    ``bf16``: bf16 routing (the module docstring): the plain version of the
+    K1 kernel's bf16 variant; u, W and bias are rounded to bf16 first.
     """
     out_dtype = u.dtype
-    dtype = _compute_dtype(u.dtype)
-    u_hat = predict_capsules(u.to(dtype), wgt.to(dtype), bias.to(dtype))
+    if bf16:
+        u_hat = predict_capsules_bf16(*(x.to(torch.bfloat16)
+                                        for x in (u, wgt, bias)))
+    else:
+        dtype = _compute_dtype(u.dtype)
+        u_hat = predict_capsules(u.to(dtype), wgt.to(dtype), bias.to(dtype))
     return sequential_routing_from_uhat(u_hat, num_iter, mask_pad_capsule,
-                                        v_init, step_valid).to(out_dtype)
+                                        v_init, step_valid,
+                                        bf16).to(out_dtype)
 
 
 def sequential_routing_from_uhat(u_hat, num_iter, mask_pad_capsule,
-                                 v_init=None, step_valid=None):
+                                 v_init=None, step_valid=None, bf16=False):
     """The SDR recurrence from given prediction vectors u_hat [B, T, in_n,
     out_n, out_d]: the plain version of K1's recurrence kernel. ``v_init``
     and ``step_valid`` as in :func:`sequential_routing`. Returns [B, T,
-    out_n, out_d] in u_hat's dtype. ``sequential_routing_from_uhat.
-    cuda_calls`` counts its calls on CUDA tensors: the card's model paths
-    never take this loop (a kernel does), only the kernels' checks."""
+    out_n, out_d] in u_hat's dtype, float32 for a bf16 u_hat (``bf16``).
+    ``sequential_routing_from_uhat.cuda_calls`` counts its calls on CUDA
+    tensors: the card's model paths never take this loop (a kernel does),
+    only the kernels' checks."""
     if u_hat.is_cuda:
         sequential_routing_from_uhat.cuda_calls += 1
     batch, seq_len, _, out_n, out_d = u_hat.shape
-    pad_mask = (_pad_capsule_mask(out_n, u_hat.dtype, u_hat.device)
+    dtype = torch.float32 if bf16 else u_hat.dtype
+    pad_mask = (_pad_capsule_mask(out_n, dtype, u_hat.device)
                 if mask_pad_capsule else None)
     if v_init is None:
-        v = torch.zeros((batch, out_n, out_d), dtype=u_hat.dtype,
+        v = torch.zeros((batch, out_n, out_d), dtype=dtype,
                         device=u_hat.device)
     else:
-        v = v_init.to(u_hat.dtype)
+        v = v_init.to(dtype)
     if step_valid is not None:
         step_valid = torch.as_tensor(step_valid, device=u_hat.device)
         step_valid = step_valid.expand(batch, seq_len)[:, :, None, None]
     outs = []
     for t in range(seq_len):
-        v = _sdr_step(u_hat[:, t], v, num_iter, pad_mask)
+        v = _sdr_step(u_hat[:, t], v, num_iter, pad_mask, bf16)
         if step_valid is not None:
             v = torch.where(step_valid[:, t], v, 0.0)
         outs.append(v)
@@ -236,6 +280,23 @@ def sequential_routing_bwd(u, wgt, bias, vs, dvs, mask_pad_capsule):
                                                mask_pad_capsule)
     grads = sdr_weight_grads(u, wgt, vs, c, da, ds)
     return tuple(x.to(d) for x, d in zip(grads, out_dtypes))
+
+
+def sequential_routing_bwd_bf16(u, wgt, bias, dvs, mask_pad_capsule,
+                                num_iter=1):
+    """The bf16 SDR backward, plain: autograd through
+    ``sequential_routing(..., bf16=True)``'s loop on bf16 leaves, the plain
+    version of the K2 kernel's bf16 variant (one routing iteration there).
+    u, wgt and bias bf16, dvs the cotangent of the float32 output ->
+    (du, dW, db), bf16: each the float32 sum rounded once, by the cast that
+    made the bf16 value float32."""
+    with torch.enable_grad():
+        leaves = [x.detach().to(torch.bfloat16).requires_grad_()
+                  for x in (u, wgt, bias)]
+        vs = sequential_routing_from_uhat(predict_capsules_bf16(*leaves),
+                                          num_iter, mask_pad_capsule,
+                                          bf16=True)
+        return torch.autograd.grad(vs, leaves, dvs.to(vs.dtype))
 
 
 def sequential_routing_bwd_factors(u_hat, vs, dvs, mask_pad_capsule):
@@ -300,13 +361,17 @@ def sdr_weight_grads(u, wgt, vs, c, da, ds):
     return du, dwgt, dbias
 
 
-def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer):
+def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer,
+                bf16=False):
     """One capsule layer: prediction + routing (DR or SDR).
 
-    SDR goes through ``SDRFunction``: the K1 and K2 kernels when ``u`` is
-    a CUDA tensor, the plain :func:`sequential_routing` and
-    :func:`sequential_routing_bwd` when it lies on the CPU; nothing else
-    decides. DR is plain PyTorch everywhere, differentiated by autograd.
+    SDR goes through ``SDRFunction``: the K1 and K2 kernels (their bf16
+    variants with ``bf16``, bf16 routing) when ``u`` is a CUDA tensor, the
+    plain :func:`sequential_routing` and its backward when it lies on the
+    CPU; nothing else decides. SDR computes in float32 on bf16 inputs, or
+    in bf16 routing, and returns u's dtype (JAX's ``sequential_routing``).
+    DR is plain PyTorch everywhere, differentiated by autograd, in u's
+    dtype (JAX's DR ignores bf16 routing too).
     """
     if num_iter < 1:
         raise ValueError(
@@ -315,7 +380,7 @@ def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer):
             "zero carry for every frame" % num_iter
         )
     if is_context:
-        return SDRFunction.apply(u, wgt, bias, num_iter, is_last_layer)
+        return SDRFunction.apply(u, wgt, bias, num_iter, is_last_layer, bf16)
     u_hat = predict_capsules(u, wgt, bias)
     out = dynamic_routing(u_hat, num_iter, mask_pad_capsule=is_last_layer)
     return out.to(u.dtype)

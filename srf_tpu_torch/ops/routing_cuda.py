@@ -17,7 +17,13 @@ K2 ``_sdr_bwd_kernel``, K3 ``_sdr_v6_fwd_kernel`` and K4
 ``_sdr_v6_bwd_kernel``. All four compute one function, whose plain PyTorch
 versions are ``ops/routing.py:sequential_routing`` and
 ``sequential_routing_bwd``; the autograd functions send CUDA tensors to the
-kernels and CPU tensors to the plain versions. The libraries are compiled
+kernels and CPU tensors to the plain versions. K1 and K2 have bf16
+variants (bf16 routing, ``--tpu-routing-bf16``; ``sdr_fwd_bf16`` and
+``sdr_bwd_bf16`` in the same sources), whose plain versions are
+``sequential_routing(..., bf16=True)`` and ``sequential_routing_bwd_bf16``:
+``sequential_routing_cuda`` and ``sequential_routing_bwd_cuda`` take
+float32 tensors to K1 and K2 and bf16 tensors to the variants, and raise on
+any other dtype. The libraries are compiled
 with nvcc when the first CUDA tensor arrives (see ``cuda_build``), never at
 import.
 """
@@ -47,30 +53,32 @@ _LAUNCH_ARGTYPES = {
 @functools.lru_cache(maxsize=None)
 def _lib(name):
     lib = ctypes.CDLL(cuda_build.build([name])[name])
-    getattr(lib, name).argtypes = _LAUNCH_ARGTYPES[name]
-    getattr(lib, name).restype = ctypes.c_int
-    fn = getattr(lib, name + "_smem_bytes")
-    fn.argtypes = [ctypes.c_int] * _PLAN_ARGS[name]
-    fn.restype = ctypes.c_int
+    # K1 and K2 hold their bf16 variants' entry points too
+    entries = ((name, name + "_bf16") if name in ("sdr_fwd", "sdr_bwd")
+               else (name,))
+    for entry in entries:
+        getattr(lib, entry).argtypes = _LAUNCH_ARGTYPES[name]
+        getattr(lib, entry).restype = ctypes.c_int
+        fn = getattr(lib, entry + "_smem_bytes")
+        fn.argtypes = [ctypes.c_int] * _PLAN_ARGS[name]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, entry + "_scratch_floats")
+        fn.argtypes = [ctypes.c_int] * (7 if name.startswith("sdr_scan")
+                                        else 6)
+        fn.restype = ctypes.c_longlong
     if name.startswith("sdr_scan"):
         fn = getattr(lib, name + "_plan")
         fn.argtypes = [ctypes.c_int] * _PLAN_ARGS[name] + [_VOID_P]
         fn.restype = ctypes.c_int
-    scratch_args = {"sdr_fwd": 6, "sdr_bwd": 6, "sdr_scan_fwd": 7,
-                    "sdr_scan_bwd": 7}
-    if name in scratch_args:
-        fn = getattr(lib, name + "_scratch_floats")
-        fn.argtypes = [ctypes.c_int] * scratch_args[name]
-        fn.restype = ctypes.c_longlong
     error_string = getattr(lib, name + "_error_string")
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_inputs(fn_name, u, tensors):
+def _check_inputs(fn_name, u, tensors, dtype=torch.float32):
     """Device, dtype, rank and contiguity checks shared by the wrappers;
-    ``tensors`` is ((name, tensor, ndim), ...)."""
+    ``tensors`` is ((name, tensor, ndim), ...), each of ``dtype``."""
     if not u.is_cuda:
         raise ValueError(
             "%s takes CUDA tensors (got %s); the plain version is "
@@ -80,12 +88,23 @@ def _check_inputs(fn_name, u, tensors):
     for name, x, ndim in tensors:
         if x.device != u.device:
             raise ValueError("%s is on %s, u on %s" % (name, x.device, u.device))
-        if x.dtype != torch.float32:
-            raise TypeError("%s must be float32, got %s" % (name, x.dtype))
+        if x.dtype != dtype:
+            raise TypeError("%s must be %s, got %s" % (name, dtype, x.dtype))
         if x.dim() != ndim:
             raise ValueError("%s must be %d-D, got %s" % (name, ndim, tuple(x.shape)))
         if not x.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
+
+
+def _variant(u):
+    """"" for a float32 ``u`` (K1, K2), "_bf16" for bf16 (their bf16
+    variants); raises on any other dtype."""
+    if u.dtype == torch.float32:
+        return ""
+    if u.dtype == torch.bfloat16:
+        return "_bf16"
+    raise TypeError("the SDR kernels take float32 or bfloat16, got %s"
+                    % u.dtype)
 
 
 def _check_geometry(lib, name, u, wgt, bias, time_block=None):
@@ -133,7 +152,11 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
 
     u [B, T, in_n, in_d], wgt [in_n, out_n, out_d, in_d], bias
     [in_n, out_n, out_d], float32, contiguous, on one CUDA device ->
-    [B, T, out_n, out_d]. ``v_init`` [B, out_n, out_d] float32 (the carry
+    [B, T, out_n, out_d] float32. Given bf16 u, wgt and bias, K1's bf16
+    variant computes ``sequential_routing(..., bf16=True)`` (float32 out,
+    u_hat in bf16);
+    ``sequential_routing_cuda.launches_bf16`` counts its launches, two per
+    call. ``v_init`` [B, out_n, out_d] float32 (the carry
     before step 0; zeros if None) and ``step_valid`` [B, T] bool (an
     invalid step emits zeros and leaves a zero carry; every step valid
     if None), contiguous, on u's device. Allocates the kernels' scratch:
@@ -144,12 +167,14 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
     ``sequential_routing_cuda.launches`` counts its kernel launches: two
     per call, the prediction kernel and the recurrence.
     """
+    variant = _variant(u)
     _check_inputs("sequential_routing_cuda", u,
-                  (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3)))
+                  (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3)), u.dtype)
     if num_iter < 1:
         raise ValueError("need num_iter >= 1 (got %d)" % num_iter)
     lib = _lib("sdr_fwd")
-    _check_geometry(lib, "sdr_fwd", u, wgt, bias)
+    entry = "sdr_fwd" + variant
+    _check_geometry(lib, entry, u, wgt, bias)
     batch, seq_len, in_n, in_d = u.shape
     out_n, out_d = wgt.shape[1], wgt.shape[2]
     if v_init is not None:
@@ -169,10 +194,11 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
     out = torch.empty((batch, seq_len, out_n, out_d), dtype=torch.float32,
                       device=u.device)
     scratch = torch.empty(
-        lib.sdr_fwd_scratch_floats(batch, seq_len, in_n, in_d, out_n, out_d),
+        getattr(lib, entry + "_scratch_floats")(batch, seq_len, in_n, in_d,
+                                               out_n, out_d),
         dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
-        err = lib.sdr_fwd(
+        err = getattr(lib, entry)(
             u.data_ptr(), wgt.data_ptr(), bias.data_ptr(),
             None if v_init is None else v_init.data_ptr(),
             None if step_valid is None else step_valid.data_ptr(),
@@ -181,11 +207,15 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(lib, "sdr_fwd", err)
-    sequential_routing_cuda.launches += 2  # prediction, recurrence
+    if variant:
+        sequential_routing_cuda.launches_bf16 += 2
+    else:
+        sequential_routing_cuda.launches += 2  # prediction, recurrence
     return out
 
 
 sequential_routing_cuda.launches = 0
+sequential_routing_cuda.launches_bf16 = 0
 
 
 def sequential_routing_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule):
@@ -202,33 +232,44 @@ def sequential_routing_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule):
     falls back to the plain version. ``sequential_routing_bwd_cuda.launches``
     counts its kernel launches: four per call, the prediction, the
     reverse-time recurrence, the weight gradient and its reduction.
+
+    Given bf16 u, wgt and bias (vs and dvs float32: the bf16 variant's
+    output and its cotangent), K2's bf16 variant computes
+    ``sequential_routing_bwd_bf16``: (du, dW, db) in bf16, each a float32
+    sum rounded once. ``sequential_routing_bwd_cuda.launches_bf16`` counts
+    its launches, four per call.
     """
+    variant = _variant(u)
     _check_inputs("sequential_routing_bwd_cuda", u,
-                  (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3),
-                   ("vs", vs, 4), ("dvs", dvs, 4)))
+                  (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3)), u.dtype)
+    _check_inputs("sequential_routing_bwd_cuda", u,
+                  (("vs", vs, 4), ("dvs", dvs, 4)))
     lib = _lib("sdr_bwd")
-    _check_geometry(lib, "sdr_bwd", u, wgt, bias)
+    entry = "sdr_bwd" + variant
+    _check_geometry(lib, entry, u, wgt, bias)
     batch, seq_len, in_n, in_d = u.shape
     out_n, out_d = wgt.shape[1], wgt.shape[2]
     for name, x in (("vs", vs), ("dvs", dvs)):
         if tuple(x.shape) != (batch, seq_len, out_n, out_d):
             raise ValueError("%s must be %s, got %s" % (
                 name, (batch, seq_len, out_n, out_d), tuple(x.shape)))
-    du = torch.empty_like(u)
-    dwgt = torch.empty_like(wgt)
-    dbias = torch.empty_like(bias)
+    # the kernels' sums are float32 (the bf16 variant's are rounded below)
+    du, dwgt, dbias = (torch.empty_like(x, dtype=torch.float32)
+                       for x in (u, wgt, bias))
     with torch.cuda.device(u.device):
         # the weight gradient's partials follow the card's SM count
-        floats = lib.sdr_bwd_scratch_floats(batch, seq_len, in_n, in_d, out_n,
-                                            out_d)
+        floats = getattr(lib, entry + "_scratch_floats")(
+            batch, seq_len, in_n, in_d, out_n, out_d)
         if floats < 0:
-            raise RuntimeError("sdr_bwd: no weight-gradient plan for %s on %s"
-                               % (tuple(wgt.shape), u.device))
+            raise RuntimeError("%s: no weight-gradient plan for %s on %s"
+                               % (entry, tuple(wgt.shape), u.device))
         scratch = torch.empty(floats, dtype=torch.float32, device=u.device)
+        uhat_dtype = torch.bfloat16 if variant else torch.float32
         u_hat = torch.empty(
-            (batch, seq_len, in_n, _plain().row_pitch(out_n * out_d)),
-            dtype=torch.float32, device=u.device)
-        err = lib.sdr_bwd(
+            (batch, seq_len, in_n,
+             _plain().row_pitch(out_n * out_d, uhat_dtype.itemsize)),
+            dtype=uhat_dtype, device=u.device)
+        err = getattr(lib, entry)(
             u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), vs.data_ptr(),
             dvs.data_ptr(), u_hat.data_ptr(), scratch.data_ptr(),
             du.data_ptr(), dwgt.data_ptr(), dbias.data_ptr(),
@@ -237,54 +278,77 @@ def sequential_routing_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule):
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(lib, "sdr_bwd", err)
+    if variant:
+        sequential_routing_bwd_cuda.launches_bf16 += 4
+        return tuple(x.to(torch.bfloat16) for x in (du, dwgt, dbias))
     # prediction, reverse-time recurrence, weight gradient, reduction
     sequential_routing_bwd_cuda.launches += 4
     return du, dwgt, dbias
 
 
 sequential_routing_bwd_cuda.launches = 0
+sequential_routing_bwd_cuda.launches_bf16 = 0
 
 
 class SDRFunction(torch.autograd.Function):
     """SDR with its fused backward, the port of the custom VJP
     ``srf_tpu/ops/routing_pallas.py:sequential_routing_pallas``.
 
-    forward: K1 on a CUDA tensor, the plain ``sequential_routing`` on a CPU
-    tensor; saves u, W, bias and the output, the JAX ``_fwd``'s residuals.
-    backward: with one routing iteration K2 on CUDA and the plain
-    ``sequential_routing_bwd`` on the CPU; with more, autograd through the
-    plain loop recomputed from the saved inputs (the JAX ``_bwd`` does the
-    same), counted in ``SDRFunction.plain_backwards``. Only ``num_iter``
-    chooses; nothing falls back on failure.
+    forward: u, W and bias are cast to float32 (JAX's SDR computes in
+    float32 on bf16 inputs, ``srf_tpu/ops/routing.py:263-283``), or to bf16
+    with ``bf16`` (bf16 routing); then K1 (its bf16 variant) on a CUDA
+    tensor, the plain ``sequential_routing`` on a CPU tensor; the float32
+    output is cast to u's dtype. Saves the cast u, W, bias and the float32
+    output, the JAX ``_fwd``'s residuals. backward: with one routing
+    iteration K2 (its bf16 variant) on CUDA and the plain
+    ``sequential_routing_bwd`` (``sequential_routing_bwd_bf16``) on the
+    CPU; with more, autograd through the plain loop recomputed from the
+    saved inputs (the JAX ``_bwd`` does the same), counted in
+    ``SDRFunction.plain_backwards``; the gradients are cast to the inputs'
+    dtypes. Only the device, ``bf16`` and ``num_iter`` choose; nothing
+    falls back on failure.
     """
 
     plain_backwards = 0
 
     @staticmethod
-    def forward(ctx, u, wgt, bias, num_iter, mask_pad_capsule):
+    def forward(ctx, u, wgt, bias, num_iter, mask_pad_capsule, bf16=False):
+        ctx.dtypes = (u.dtype, wgt.dtype, bias.dtype)
+        # float32 for float32 and narrower inputs (float64 stays, for
+        # gradcheck), bf16 in bf16 routing
+        cd = torch.bfloat16 if bf16 else _plain()._compute_dtype(u.dtype)
+        u, wgt, bias = (x.to(cd).contiguous() for x in (u, wgt, bias))
         if u.is_cuda:
             out = sequential_routing_cuda(u, wgt, bias, num_iter,
                                           mask_pad_capsule)
         else:
-            out = _plain().sequential_routing(u, wgt, bias, num_iter,
-                                              mask_pad_capsule)
+            out = _plain().sequential_routing(
+                *(x.to(_plain()._compute_dtype(cd)) for x in (u, wgt, bias)),
+                num_iter, mask_pad_capsule, bf16=bf16)
         ctx.save_for_backward(u, wgt, bias, out)
         ctx.num_iter = num_iter
         ctx.mask_pad_capsule = mask_pad_capsule
-        return out
+        ctx.bf16 = bf16
+        return out.to(ctx.dtypes[0])
 
     @staticmethod
     def backward(ctx, dout):
         u, wgt, bias, out = ctx.saved_tensors
-        dout = dout.contiguous()
-        if ctx.num_iter == 1:
-            bwd = (sequential_routing_bwd_cuda if u.is_cuda
-                   else _plain().sequential_routing_bwd)
-            du, dwgt, dbias = bwd(u, wgt, bias, out, dout,
-                                  ctx.mask_pad_capsule)
-            return du, dwgt, dbias, None, None
-        SDRFunction.plain_backwards += 1
-        return (*_plain_loop_grads(u, wgt, bias, ctx, dout), None, None)
+        dout = dout.to(out.dtype).contiguous()
+        if ctx.num_iter == 1 and u.is_cuda:
+            grads = sequential_routing_bwd_cuda(u, wgt, bias, out, dout,
+                                                ctx.mask_pad_capsule)
+        elif ctx.num_iter == 1 and not ctx.bf16:
+            grads = _plain().sequential_routing_bwd(u, wgt, bias, out, dout,
+                                                    ctx.mask_pad_capsule)
+        elif ctx.num_iter == 1:
+            grads = _plain().sequential_routing_bwd_bf16(
+                u, wgt, bias, dout, ctx.mask_pad_capsule)
+        else:
+            SDRFunction.plain_backwards += 1
+            grads = _plain_loop_grads(u, wgt, bias, ctx, dout)
+        return (*(g.to(d) for g, d in zip(grads, ctx.dtypes)), None, None,
+                None)
 
 
 SCAN_PLAN_FIELDS = ("batch_tile", "clusters", "cluster", "rows", "w_resident",
@@ -497,6 +561,9 @@ def sequential_routing_stream(u, wgt, bias, num_iter, mask_pad_capsule,
 def _plain_loop_grads(u, wgt, bias, ctx, dout):
     """(du, dW, db) by autograd through the plain loop recomputed from the
     saved inputs: the backward of more than one routing iteration."""
+    if getattr(ctx, "bf16", False):
+        return _plain().sequential_routing_bwd_bf16(
+            u, wgt, bias, dout, ctx.mask_pad_capsule, ctx.num_iter)
     with torch.enable_grad():
         inputs = [x.detach().requires_grad_() for x in (u, wgt, bias)]
         recomputed = _plain().sequential_routing(

@@ -22,8 +22,13 @@ checkpoint while serving. ``--tpu-serve-quant=int8`` keeps the weights in
 int8 with per-channel scales (``ops/quant.py``), dequantized inside each
 forward. SRF models also stream (``streaming_session``,
 ``streaming_pool``, ``transcribe_long``: ``streaming.py``).
-``--tpu-decode-ema`` belongs with EMA training, not ported yet: it raises
-``NotImplementedError``.
+``--tpu-decode-ema`` serves the EMA of the parameters that an
+``--tpu-ema-decay`` run saved (a checkpoint's ``"ema"``, or a ``.npz``'s
+``ema_params``), with the checkpoint's BatchNorm statistics, quantized
+under int8 like any weights; streaming sessions and the daemon take the
+Recognizer's weights. ``--tpu-bf16`` does not change serving, as JAX's
+Recognizer does not take it; ``--tpu-routing-bf16`` routes in bf16 in the
+batch forward (``models/registry.py``).
 
 CLI:
     python -m srf_tpu_torch.serve --config=... --path-base=... \\
@@ -54,39 +59,43 @@ from srf_tpu_torch.ops.ctc_beam import (
 from srf_tpu_torch.ops.ctc_decode import greedy_decode_frames
 from srf_tpu_torch.ops.ngram_lm import load_lm_from_config
 from srf_tpu_torch.ops.quant import quantize_model, quantized_bytes
-from srf_tpu_torch.train.state import TrainState
+from srf_tpu_torch.train.state import NO_EMA, TrainState
 from srf_tpu_torch.utils.checkpoint import (
     CheckpointManager, load_checkpoint, restore_into,
 )
 from srf_tpu_torch.utils.log2utt import ids_to_utt
 from srf_tpu_torch.utils.vocab import get_file_path, load_vocab
 
-_LATER = "%s is not ported yet: a later slice of the PyTorch port"
-
-
 def load_weights(config, model, logger):
     """Load ``model``'s weights from ``config.path_ckpt``: a flax ``.npz``
     file, ``<path_ckpt>/model.pt``, or (when ``--path-ckpt-epoch`` is
     positive or there is no model.pt) a checkpoint through
-    ``utils/checkpoint.load_checkpoint``. Returns the checkpoint's step (0
-    for a .npz or model.pt)."""
+    ``utils/checkpoint.load_checkpoint``. With ``--tpu-decode-ema`` the
+    parameters are the EMA's (a model.pt has none: JAX's ValueError).
+    Returns the checkpoint's step (0 for a .npz or model.pt)."""
     path_ckpt = config.path_ckpt
+    ema = bool(getattr(config, "tpu_decode_ema", False))
     if path_ckpt.endswith(".npz"):
-        model.load_state_dict(load_npz(path_ckpt))
+        model.load_state_dict(load_npz(path_ckpt, ema=ema))
         return 0
     path = os.path.join(path_ckpt, "model.pt")
     if os.path.isfile(path) and not (config.path_ckpt_epoch or 0) > 0:
         model.load_state_dict(
             torch.load(path, map_location="cpu", weights_only=True))
+        if ema:
+            raise ValueError(NO_EMA)  # a state_dict holds no EMA
         return 0
-    manager, restored, step = load_checkpoint(
-        config, logger, TrainState(model=model, optimizer=None),
-        params_only=True)
+    state = TrainState(model=model, optimizer=None)
+    manager, restored, step = load_checkpoint(config, logger, state,
+                                              params_only=True)
     manager.close()
     if restored is None:
         raise FileNotFoundError(
             "no weights: %s is not a .npz and holds no model.pt and no "
             "checkpoint" % path_ckpt)
+    if ema:
+        state.load_ema_weights()
+        logger.info("Serving with EMA params (--tpu-decode-ema)")
     return step
 
 
@@ -113,8 +122,6 @@ class Recognizer:
     def __init__(self, config, state_dict=None, device=None, logger=None):
         logger = logger or Logger(name="srf_serve", level=Logger.INFO).logger
         self.device = resolve_device(device or getattr(config, "device", None))
-        if getattr(config, "tpu_decode_ema", False):
-            raise NotImplementedError(_LATER % "--tpu-decode-ema")
         self.config = config
         self._logger = logger
         self.quantized = getattr(config, "tpu_serve_quant", "none") == "int8"
@@ -170,8 +177,10 @@ class Recognizer:
                         return None
                     step = latest
                 model, _ = build_model(self.config, self.blank_id + 1)
-                restore_into(TrainState(model=model, optimizer=None),
-                             manager.restore(step), params_only=True)
+                state = TrainState(model=model, optimizer=None)
+                restore_into(state, manager.restore(step), params_only=True)
+                if getattr(self.config, "tpu_decode_ema", False):
+                    state.load_ema_weights()
             finally:
                 manager.close()
             self.model = self._serving_model(model)

@@ -184,7 +184,9 @@ def uhat_residual(torch, cs, libs):
         iteration only)."""
 
         @staticmethod
-        def forward(ctx, u, wgt, bias, num_iter, mask_pad_capsule):
+        def forward(ctx, u, wgt, bias, num_iter, mask_pad_capsule,
+                    bf16=False):
+            cs.check(not bf16, "the kept-u_hat variant is float32 only")
             batch, seq_len, in_n, in_d = u.shape
             out_n, out_d = wgt.shape[1], wgt.shape[2]
             sizes = (batch, seq_len, in_n, in_d, out_n, out_d)
@@ -221,7 +223,7 @@ def uhat_residual(torch, cs, libs):
                 torch.cuda.current_stream(u.device).cuda_stream) == 0,
                 "K2 launch")
             ctx.u_hat = None
-            return du, dwgt, dbias, None, None
+            return du, dwgt, dbias, None, None, None
 
     # the same function: bit-equal outputs and gradients at each SRF-TIMIT
     # geometry

@@ -25,33 +25,64 @@ arguments computed per batch (the STF's padding bias, penalty board and
 ``in_len_div``: ``trainer_tf.make_stf_extra_kwargs``); it sees the batch
 with its lengths on the features' device.
 
-Not ported yet, and refused: gradient accumulation, EMA, bf16 and
-SpecAugment; there is no mesh (one card).
+The training extras (``srf_tpu/train/step.py:22-148``):
+
+- ``--tpu-grad-accum`` k > 1: the batch goes through forward and backward
+  in microbatches, k the largest divisor of its size that is at most the
+  flag (JAX's rule), each loss scaled by the *global* batch, so the
+  gradients summed in ``.grad`` are the full batch's; BatchNorm's running
+  statistics move once per microbatch (JAX's carry); dropout continues
+  the step's generator; one optimizer and one scheduler step per update.
+- ``--tpu-ema-decay`` d > 0: after the update, ``ema += (1 - d) * (p -
+  ema)`` over the state's EMA (``TrainState.update_ema``).
+- SpecAugment (``augment_fn``, ``ops/specaugment.make_augment_fn``): the
+  features are masked in training mode only, before any bf16 cast, from
+  the step's generator.
+- ``--tpu-bf16``: the forward runs on bf16 copies of the float32 master
+  parameters (``torch.func.functional_call``; gradients reach the masters
+  through the casts) and bf16 features; the model's layers follow flax's
+  type promotion where a float32 activation meets bf16 parameters
+  (``models/layers.Linear``, ``Conv2d``, ``LayerNorm``); BatchNorm's
+  statistics stay float32; the logits are cast to float32 before the CTC. The SDR layers compute in
+  float32 at ``SDRFunction``'s boundary (bf16 routing is the model's own
+  flag, ``--tpu-routing-bf16``), and K5 runs its bf16 variant.
+
+There is no mesh (one card).
 """
 
 import torch
 
 from srf_tpu_torch.ops.ctc import ctc_loss_from_frames
 
-_LATER = "%s is not ported yet: a later slice of the PyTorch port"
+def bf16_params(model):
+    """{name: bf16 copy} of ``model``'s float32 parameters, differentiable
+    into the float32 masters (frozen ones, such as the LSTM's zero
+    ``bias_ih``, are cast too, so that a layer's weights share one dtype,
+    and receive no gradient)."""
+    return {name: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+            for name, p in model.named_parameters()}
 
 
 def make_apply_fn(model, extra_kwargs_fn=None, bf16=False, augment_fn=None):
     """Uniform apply adapter: (batch, training, generator) -> float32
     logits [B, T', K]. Sets the model's mode; in training mode the model
-    moves its BatchNorm running statistics itself."""
-    for name, value in (("bf16 (--tpu-bf16)", bf16),
-                        ("augment_fn (SpecAugment)", augment_fn)):
-        if value:
-            raise NotImplementedError(_LATER % name)
+    moves its BatchNorm running statistics itself. ``bf16`` and
+    ``augment_fn``: the module docstring."""
 
     def apply_fn(batch, training, generator=None):
         model.train(training)
         feats = batch["feats"]
         lengths = batch["inp_len"].to(feats.device, non_blocking=True)
+        if augment_fn is not None and training:
+            feats = augment_fn(feats, lengths, generator)
         kwargs = (extra_kwargs_fn({**batch, "inp_len": lengths})
                   if extra_kwargs_fn else {})
-        return model(feats, lengths, generator, **kwargs).float()
+        if not bf16:
+            return model(feats, lengths, generator, **kwargs).float()
+        out = torch.func.functional_call(
+            model, bf16_params(model),
+            (feats.to(torch.bfloat16), lengths, generator), kwargs)
+        return out.float()
 
     return apply_fn
 
@@ -59,6 +90,34 @@ def make_apply_fn(model, extra_kwargs_fn=None, bf16=False, augment_fn=None):
 def step_seed(seed, step):
     """The dropout seed of update ``step`` under ``seed`` (``--tpu-seed``)."""
     return (seed * 1_000_003 + step) % (1 << 63)
+
+
+def microbatches(batch, accum_steps):
+    """The batch's k microbatches, k the largest divisor of its size at
+    most ``accum_steps`` (JAX's rule: bucket sizes vary, so an indivisible
+    size takes a smaller k rather than an error); each a dict of the same
+    keys sliced along the batch axis (views)."""
+    size = batch["feats"].shape[0]
+    k = max(1, min(int(accum_steps or 1), size))
+    while size % k:
+        k -= 1
+    if k == 1:
+        return [batch]
+    mb = size // k
+    return [{key: value[i * mb:(i + 1) * mb] for key, value in batch.items()}
+            for i in range(k)]
+
+
+def optimizer_update(state, ema_decay=0.0):
+    """One optimizer and schedule step from the gradients in ``.grad``,
+    the update count, and the EMA where ``ema_decay`` > 0 and the state
+    keeps one."""
+    state.optimizer.step()
+    if state.scheduler is not None:
+        state.scheduler.step()
+    state.step += 1
+    if ema_decay > 0.0 and state.ema is not None:
+        state.update_ema(ema_decay)
 
 
 def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0):
@@ -70,12 +129,10 @@ def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0):
     puts the model there: the CUDA device unless the CPU is asked for),
     updated in place. The step's gradients stay in the parameters' ``.grad`` until the
     next step. ``metrics`` are device tensors: ``loss_sum`` (sum of the
-    per-example losses), ``samples`` and ``frames``.
+    per-example losses over the microbatches), ``samples`` and ``frames``.
+    ``accum_steps`` and ``ema_decay``: the module docstring; the EMA moves
+    only where the state keeps one (``TrainState.create(with_ema=True)``).
     """
-    if accum_steps > 1:
-        raise NotImplementedError(_LATER % "--tpu-grad-accum > 1")
-    if ema_decay > 0.0:
-        raise NotImplementedError(_LATER % "--tpu-ema-decay")
     generators = {}
 
     def train_step(state, batch, seed):
@@ -86,17 +143,20 @@ def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0):
         generator.manual_seed(step_seed(seed, state.step))
         global_batch = feats.shape[0]
 
-        logits = apply_fn(batch, True, generator)
-        pe_loss = ctc_loss_from_frames(logits, batch["inp_len"], in_len_div,
-                                       batch["labels"], batch["tar_len"])
         state.optimizer.zero_grad(set_to_none=True)
-        (pe_loss.sum() / global_batch).backward()
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
-        state.step += 1
+        loss_sum = None
+        for mb in microbatches(batch, accum_steps):
+            logits = apply_fn(mb, True, generator)
+            pe_loss = ctc_loss_from_frames(logits, mb["inp_len"], in_len_div,
+                                           mb["labels"], mb["tar_len"])
+            # the global batch scales every microbatch's loss; the
+            # backward frees the microbatch's activations before the next
+            (pe_loss.sum() / global_batch).backward()
+            part = pe_loss.detach().sum()
+            loss_sum = part if loss_sum is None else loss_sum + part
+        optimizer_update(state, ema_decay)
         metrics = {
-            "loss_sum": pe_loss.detach().sum(),
+            "loss_sum": loss_sum,
             "samples": torch.full((), float(global_batch),
                                   device=feats.device),
             "frames": batch["inp_len"].to(feats.device, non_blocking=True)

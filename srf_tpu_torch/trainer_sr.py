@@ -15,7 +15,13 @@ Same flags as the JAX trainer (conf file + command line merge, plus
   resume stage 1 with another ``--train-lr-param-k``), and
   ``train/loop.run_training`` runs the epochs: per-epoch checkpoints,
   early stopping, ``metrics.jsonl``, and ``--tpu-ckpt-every-steps``
-  mid-epoch checkpoints with resume.
+  mid-epoch checkpoints with resume. The training extras run as in JAX
+  (``train/step.py``): ``--tpu-grad-accum`` microbatches, the
+  ``--tpu-ema-decay`` EMA of the parameters (saved as the checkpoint's
+  ``"ema"``), ``--tpu-specaug`` masking, ``--tpu-bf16`` mixed precision
+  and, with ``--train-is-mwer``, MWER fine-tuning (``train/mwer.py``:
+  ``--tpu-mwer-nbest``, ``--tpu-mwer-lam-ctc``, the beam
+  ``--decoding-beam-width`` or max(4 x n-best, 16)).
 - Decode mode (``--train-max-epoch=0``): decodes the test split from the
   checkpoint under ``--path-ckpt`` (``--path-ckpt-epoch`` N or the
   latest; the recipe passes ``$ckpt/avg``): TFRecord shards ->
@@ -23,11 +29,12 @@ Same flags as the JAX trainer (conf file + command line merge, plus
   model's eval forward on the device -> CTC beam search
   (``--tpu-decode-impl`` device|host|greedy, ``--decoding-beam-width``,
   ``--tpu-lm-path``) -> ``UTTID`` lines on stdout for
-  ``srf_tpu_torch.utils.log2utt``.
+  ``srf_tpu_torch.utils.log2utt``. ``--tpu-decode-ema`` decodes with the
+  checkpoint's EMA weights (and the live BatchNorm statistics);
+  ``--tpu-bf16`` runs the forward in bf16.
 
-Refused (``NotImplementedError``, each naming its ROADMAP.md item): MWER,
-EMA, gradient accumulation, bf16 and SpecAugment (item 5); FSDP,
-asynchronous checkpoints and more than one device or process (item 7).
+Refused (``NotImplementedError``, naming its ROADMAP.md item 7): FSDP,
+asynchronous checkpoints and more than one device or process.
 
 Usage:
     python -m srf_tpu_torch.trainer_sr --config=egs/conf/timit.conf \\
@@ -46,6 +53,7 @@ from srf_tpu_torch.data.loader import (
 )
 from srf_tpu_torch.data.tfrecord import count_records
 from srf_tpu_torch.models.registry import build_model
+from srf_tpu_torch.ops.specaugment import make_augment_fn
 from srf_tpu_torch.train.loop import run_decoding, run_training
 from srf_tpu_torch.train.optimizer import get_optimizer
 from srf_tpu_torch.train.state import TrainState, param_count
@@ -56,15 +64,9 @@ from srf_tpu_torch.utils.checkpoint import load_checkpoint, restore_into
 from srf_tpu_torch.utils.vocab import get_file_path, load_vocab
 
 _LATER = "%s is not ported yet: ROADMAP.md section 1 item %d"
-# (flag, is it set, the ROADMAP.md section 1 item it waits for: 5 the
-# training extras, 7 the parallelism slice)
+# (flag, is it set, the ROADMAP.md section 1 item it waits for: 7,
+# parallelism)
 REFUSED = (
-    ("--train-is-mwer", lambda c: c.train_is_mwer, 5),
-    ("--tpu-ema-decay", lambda c: (c.tpu_ema_decay or 0.0) > 0.0, 5),
-    ("--tpu-decode-ema", lambda c: c.tpu_decode_ema, 5),
-    ("--tpu-grad-accum > 1", lambda c: (c.tpu_grad_accum or 1) > 1, 5),
-    ("--tpu-bf16", lambda c: c.tpu_bf16, 5),
-    ("--tpu-specaug", lambda c: c.tpu_specaug, 5),
     ("--tpu-fsdp", lambda c: c.tpu_fsdp, 7),
     ("--tpu-async-ckpt", lambda c: c.tpu_async_ckpt, 7),
     ("--tpu-mesh-data > 1", lambda c: (c.tpu_mesh_data or 1) > 1, 7),
@@ -136,14 +138,64 @@ def build_loaders(config, logger, num_replicas=1, seed=0):
 
 
 def state_to_tree(state):
-    """The checkpoint dict of a TrainState (``utils/checkpoint.py``)."""
-    return {
+    """The checkpoint dict of a TrainState (``utils/checkpoint.py``); the
+    ``"ema"`` key only where the state keeps an EMA, so that a run without
+    one writes the same keys as before EMA existed (JAX's
+    ``state_to_tree``)."""
+    tree = {
         "step": state.step,
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "scheduler": (state.scheduler.state_dict()
                       if state.scheduler is not None else None),
     }
+    if state.ema is not None:
+        tree["ema"] = state.ema
+    return tree
+
+
+def uses_ema(config):
+    """Whether the state keeps an EMA of the parameters (JAX's
+    ``state_template``): training with --tpu-ema-decay > 0, or decoding
+    with --tpu-decode-ema."""
+    return ((config.tpu_ema_decay or 0.0) > 0.0
+            or bool(config.tpu_decode_ema))
+
+
+def decode_with_ema(config, logger, state):
+    """--tpu-decode-ema: the checkpoint's EMA into the parameters (the
+    BatchNorm statistics stay the live ones), as JAX's decode mode swaps
+    ``params`` for ``ema_params``; raises JAX's ValueError for a
+    checkpoint without one."""
+    if not config.tpu_decode_ema:
+        return
+    state.load_ema_weights()
+    logger.info("Decoding with EMA params (--tpu-decode-ema)")
+
+
+def make_mwer_step(config, logger, apply_fn, in_len_div, blank_idx):
+    """The MWER train step of ``--train-is-mwer`` (JAX's trainer_sr
+    branch), with its warnings."""
+    from srf_tpu_torch.train.mwer import make_mwer_train_step
+
+    if (config.tpu_ema_decay or 0.0) > 0:
+        logger.warning(
+            "MWER mode does not update --tpu-ema-decay EMA params "
+            "(the EMA from the pre-fine-tune checkpoint is carried "
+            "through unchanged)"
+        )
+    # an unset --decoding-beam-width must not mean "unpruned": the host
+    # n-best search grows exponentially without a beam cap
+    beam = config.decoding_beam_width or max(4 * config.tpu_mwer_nbest, 16)
+    logger.info(
+        "MWER fine-tune: beam %d, n-best %d, lambda-CTC %.3f, grad-accum %d",
+        beam, config.tpu_mwer_nbest, config.tpu_mwer_lam_ctc,
+        config.tpu_grad_accum,
+    )
+    return make_mwer_train_step(
+        apply_fn, make_logits_fn(apply_fn), in_len_div, beam_width=beam,
+        n_best=config.tpu_mwer_nbest, blank_id=blank_idx,
+        lam_ctc=config.tpu_mwer_lam_ctc, accum_steps=config.tpu_grad_accum)
 
 
 def main(argv=None):
@@ -174,11 +226,13 @@ def main(argv=None):
     optimizer, scheduler = (get_optimizer(config, model.parameters())
                             if train else (None, None))
     state = TrainState.create(model, optimizer, scheduler,
+                              with_ema=uses_ema(config),
                               device=config.device)
     logger.info("Model parameters: %d", param_count(state.model))
     ckpt_manager, _, epoch_offset = load_checkpoint(
         config, logger, state, params_only=not train)
-    apply_fn = make_apply_fn(state.model, bf16=config.tpu_bf16)
+    apply_fn = make_apply_fn(state.model, bf16=config.tpu_bf16,
+                             augment_fn=make_augment_fn(config))
 
     if not train:
         # decode mode (reference: trainer_sr.py:290-299)
@@ -192,6 +246,7 @@ def main(argv=None):
             test_ds, batch_size=config.tpu_decode_batch,
             pad_last=config.tpu_decode_pad_last,
         )
+        decode_with_ema(config, logger, state)
         run_decoding(
             config, logger, state, make_logits_fn(apply_fn), test_loader,
             in_len_div, beam_width=config.decoding_beam_width,
@@ -201,9 +256,13 @@ def main(argv=None):
 
     train_loader, valid_loader = build_loaders(config, logger,
                                                seed=config.tpu_seed)
-    train_step = make_train_step(apply_fn, in_len_div,
-                                 accum_steps=config.tpu_grad_accum,
-                                 ema_decay=config.tpu_ema_decay)
+    if config.train_is_mwer:
+        train_step = make_mwer_step(config, logger, apply_fn, in_len_div,
+                                    blank_idx)
+    else:
+        train_step = make_train_step(apply_fn, in_len_div,
+                                     accum_steps=config.tpu_grad_accum,
+                                     ema_decay=config.tpu_ema_decay)
     valid_step = make_valid_step(apply_fn, in_len_div)
     metrics_path = (
         os.path.join(config.path_ckpt, "metrics.jsonl") if config.path_ckpt else None

@@ -16,13 +16,16 @@ Same flags as the JAX trainer (conf file + command line merge, plus
 
 Train mode (``--train-max-epoch`` > 0) builds the loaders, runs that pass
 and ``train/loop.run_training``; decode mode (``--train-max-epoch=0``)
-decodes the test split with the masked logits (``run_decoding``).
+decodes the test split with the masked logits (``run_decoding``). The
+training extras of ``trainer_sr`` apply as in JAX's trainer_tf:
+``--tpu-bf16``, ``--tpu-specaug``, ``--tpu-ema-decay`` (and
+``--tpu-decode-ema`` in decode mode) and ``--tpu-grad-accum``; JAX's
+trainer_tf has no MWER branch, and neither has this one.
 
-Refused (``NotImplementedError``, each naming its ROADMAP.md item):
-``trainer_sr``'s refusals (bf16, SpecAugment, EMA and gradient
-accumulation: section 1 item 5; FSDP, more than one data shard and
-asynchronous checkpoints: item 7) and the pipeline
-(``--tpu-pipeline-stages`` > 1, item 7).
+Refused (``NotImplementedError``, each naming its ROADMAP.md item 7):
+``trainer_sr``'s refusals (FSDP, more than one data shard and
+asynchronous checkpoints) and the pipeline (``--tpu-pipeline-stages`` >
+1).
 
 Usage:
     python -m srf_tpu_torch.trainer_tf --config=egs/conf/timit.conf \\
@@ -46,6 +49,7 @@ from srf_tpu_torch.models.registry import (
 from srf_tpu_torch.models.stf import ConvEncoder
 from srf_tpu_torch.ops.attention_penalty import create_attention_penalty
 from srf_tpu_torch.ops.masking import get_padding_bias
+from srf_tpu_torch.ops.specaugment import make_augment_fn
 from srf_tpu_torch.train.loop import device_prefetch, run_decoding, run_training
 from srf_tpu_torch.train.optimizer import get_optimizer
 from srf_tpu_torch.train.state import TrainState, param_count
@@ -54,7 +58,8 @@ from srf_tpu_torch.train.step import (
 )
 from srf_tpu_torch.trainer_sr import REFUSED as SR_REFUSED
 from srf_tpu_torch.trainer_sr import (
-    build_loaders, get_data_len, refuse_unported, state_to_tree,
+    build_loaders, decode_with_ema, get_data_len, refuse_unported,
+    state_to_tree, uses_ema,
 )
 from srf_tpu_torch.utils.checkpoint import load_checkpoint, restore_into
 from srf_tpu_torch.utils.metrics import MeanMetric
@@ -126,12 +131,15 @@ def main(argv=None):
     optimizer, scheduler = (get_optimizer(config, model.parameters())
                             if train else (None, None))
     state = TrainState.create(model, optimizer, scheduler,
+                              with_ema=uses_ema(config),
                               device=config.device)
     logger.info("Model parameters: %d", param_count(state.model))
     ckpt_manager, _, epoch_offset = load_checkpoint(
         config, logger, state, params_only=not train)
     apply_fn = make_apply_fn(state.model,
-                             make_stf_extra_kwargs(att_pen, in_len_div))
+                             make_stf_extra_kwargs(att_pen, in_len_div),
+                             bf16=config.tpu_bf16,
+                             augment_fn=make_augment_fn(config))
 
     if not train:
         test_ptrn = os.path.join(config.path_base, config.path_test_ptrn)
@@ -140,6 +148,7 @@ def main(argv=None):
             test_ptrn, config.feat_dim, config.prep_max_inp,
             config.prep_max_tar, with_utt_id=True,
         )
+        decode_with_ema(config, logger, state)
         run_decoding(
             config, logger, state, make_logits_fn(apply_fn),
             EvalLoader(test_ds, batch_size=config.tpu_decode_batch,
@@ -151,7 +160,9 @@ def main(argv=None):
 
     train_loader, valid_loader = build_loaders(config, logger,
                                                seed=config.tpu_seed)
-    train_step = make_train_step(apply_fn, in_len_div)
+    train_step = make_train_step(apply_fn, in_len_div,
+                                 accum_steps=config.tpu_grad_accum,
+                                 ema_decay=config.tpu_ema_decay)
     valid_step = make_valid_step(apply_fn, in_len_div)
 
     # pre-training validation pass (reference: trainer_tf.py:336)

@@ -20,8 +20,10 @@ Layout: one directory per step under the manager's path, as orbax lays
 them out (``<path>/<step>/state.pt``), so ``$ckpt/avg/1`` is what
 ``--path-ckpt=$ckpt/avg`` reads. The state is ``{"step", "model" (the
 model's state_dict, BatchNorm buffers included), "optimizer",
-"scheduler"}``; a save writes a temporary directory and renames it, so a
-step directory is either whole or absent.
+"scheduler"}`` and, for a run with an EMA of the parameters
+(``--tpu-ema-decay``), ``"ema"`` (the trained parameters' averages, keyed
+as ``named_parameters``); a save writes a temporary directory and renames
+it, so a step directory is either whole or absent.
 """
 
 import os
@@ -118,6 +120,16 @@ def restore_into(state, tree, params_only=False):
     the group's current rate (``--train-lr-param-k`` for adam and sgd)."""
     state.model.load_state_dict(tree["model"])
     state.step = int(tree["step"])
+    if tree.get("ema") is not None:
+        device = next(state.model.parameters()).device
+        state.ema = {k: v.to(device) for k, v in tree["ema"].items()}
+    elif state.ema is not None:
+        # an EMA asked of a checkpoint without one: for decoding there is
+        # none (--tpu-decode-ema raises); training starts it afresh at the
+        # restored weights
+        state.ema = None
+        if not params_only:
+            state.reset_ema()
     if params_only:
         return state
     optimizer, scheduler = state.optimizer, state.scheduler
@@ -166,12 +178,21 @@ def load_checkpoint(config, logger, template_state, params_only=False):
     return manager, restored, int(step)
 
 
+def _flat_floats(tree):
+    """{(part, name): tensor} of the floating tensors of a checkpoint's
+    "model" and, if it has one, its "ema"."""
+    return {(part, k): v for part in ("model", "ema")
+            for k, v in (tree.get(part) or {}).items()
+            if v.is_floating_point()}
+
+
 def average_checkpoints(ckpt_path, average_num, max_epoch=0, logger=None):
     """Mean of the last ``average_num`` checkpoints' model states.
 
     Every floating tensor of the model's state_dict (parameters and
     BatchNorm running statistics, as JAX averages ``params`` and
-    ``batch_stats``) is summed in float64 and cast back to its dtype;
+    ``batch_stats``) and of the EMA where the checkpoints keep one (JAX's
+    ``ema_params``) is summed in float64 and cast back to its dtype;
     integer buffers (``num_batches_tracked``), the step, the optimizer and
     the scheduler come from the last checkpoint. With ``max_epoch > 0``
     only checkpoints with step <= max_epoch take part (reference:
@@ -191,23 +212,26 @@ def average_checkpoints(ckpt_path, average_num, max_epoch=0, logger=None):
     last = None
     for step in steps:
         tree = manager.restore(step)
-        model = tree["model"]
+        flat = _flat_floats(tree)
         if acc is None:
-            acc = {k: v.to(torch.float64) for k, v in model.items()
-                   if v.is_floating_point()}
+            acc = {k: v.to(torch.float64) for k, v in flat.items()}
         else:
-            if set(model) != set(last["model"]):
+            if (set(tree["model"]) != set(last["model"])
+                    or set(flat) != set(acc)):
                 raise ValueError(
                     "checkpoint %s/%d holds other tensors than step %d"
                     % (ckpt_path, step, steps[0]))
             for k in acc:
-                acc[k] += model[k].to(torch.float64)
+                acc[k] += flat[k].to(torch.float64)
         last = tree
     n = float(len(steps))
     result = dict(last)
-    result["model"] = {
-        k: ((acc[k] / n).to(v.dtype) if k in acc else v)
-        for k, v in last["model"].items()
-    }
+    for part in ("model", "ema"):
+        if last.get(part) is not None:
+            result[part] = {
+                k: ((acc[(part, k)] / n).to(v.dtype)
+                    if (part, k) in acc else v)
+                for k, v in last[part].items()
+            }
     manager.close()
     return result, steps

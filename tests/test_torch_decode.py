@@ -233,10 +233,19 @@ def test_trainer_decode_equals_recognizer(corpus, capsys, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--train-is-mwer=True",
                                   "--tpu-decode-ema=True"])
-def test_unported_trainer_modes_are_refused(corpus, flag):
+def test_unported_trainer_modes_are_refused(corpus, flag, capsys):
+    """Both flags were refused before the training extras were ported. In
+    decode mode --train-is-mwer changes nothing (MWER is a way to train),
+    and --tpu-decode-ema on a checkpoint trained without an EMA raises
+    JAX's ValueError (tests/test_torch_train_extras.py decodes one with)."""
     base, _, _ = corpus
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trainer_sr.main(_argv(base, flag))
+    if flag.startswith("--tpu-decode-ema"):
+        with pytest.raises(ValueError, match="holds no EMA params"):
+            trainer_sr.main(_argv(base, flag))
+        return
+    capsys.readouterr()
+    trainer_sr.main(_argv(base, flag))
+    assert "UTTID" in capsys.readouterr().out
 
 
 def test_recognizer_beam_n_best_and_lm(corpus, tmp_path):

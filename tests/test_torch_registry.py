@@ -96,14 +96,17 @@ def test_equal_function_values_route_through_sdr_function(kernel,
 
 @pytest.mark.parametrize("kernel", ["pallas", "xla_flat", "auto", "xla_pre"])
 def test_bf16_routing_refusals(kernel):
+    """pallas and xla_flat refuse bf16 routing with JAX's ValueError; every
+    other kernel value builds the SRF with bf16 routing (it was refused
+    before the bf16 variants of K1 and K2 existed)."""
     config = _config("--tpu-routing-kernel=" + kernel,
                      "--tpu-routing-bf16=True")
     if kernel in ("pallas", "xla_flat"):
         with pytest.raises(ValueError, match="does not support bf16"):
             registry.build_model(config, 9)
     else:
-        with pytest.raises(NotImplementedError, match="routing-bf16"):
-            registry.build_model(config, 9)
+        model, _ = registry.build_model(config, 9)
+        assert model.routing_bf16
 
 
 FAMILY_FLAGS = ["--model-dimension=8", "--model-att-head-num=2",

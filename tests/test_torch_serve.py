@@ -279,9 +279,9 @@ def _write_wav(path, seconds=3.0, rate=16000, seed=0):
 def test_unported_cli_modes_are_refused(tmp_path, weights, monkeypatch,
                                         capsys, flag):
     """These three CLI modes were refused before the port had streaming
-    and the fbank front end: each now runs (printing a line per input),
-    and the one serving option still unported, --tpu-decode-ema, is
-    refused in it."""
+    and the fbank front end: each now runs (printing a line per input);
+    --tpu-decode-ema, refused before EMA was ported, raises JAX's
+    ValueError in it for weights saved without an EMA."""
     _, variables = weights
     torch.save(convert.flax_to_state_dict(variables), tmp_path / "model.pt")
     monkeypatch.chdir(tmp_path)
@@ -292,7 +292,7 @@ def test_unported_cli_modes_are_refused(tmp_path, weights, monkeypatch,
     printed = capsys.readouterr().out.splitlines()
     assert printed and printed[-1].endswith("(x.%s)" % (
         "wav" if flag.startswith("--wav") else "npy"))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="holds no EMA params"):
         main(_argv(tmp_path, "--device=cpu", flag, *inputs,
                    "--tpu-decode-ema=True"))
 
@@ -302,16 +302,20 @@ def test_unported_cli_modes_are_refused(tmp_path, weights, monkeypatch,
     "--tpu-routing-bf16=True",
 ])
 def test_unported_options_are_refused(tmp_path, weights, flag):
-    """--tpu-serve-quant=int8 was refused before the port had ops/quant.py:
-    it now serves (tests/test_torch_quant.py holds it to JAX); the other
-    two stay refused, by the Recognizer and by build_model."""
+    """--tpu-serve-quant=int8 was refused before the port had ops/quant.py,
+    and --tpu-routing-bf16 before the bf16 variants of K1 and K2: both now
+    serve (tests/test_torch_quant.py and test_torch_routing_bf16.py hold
+    them to JAX); wavefront stays refused, by the Recognizer and by
+    build_model."""
     config = _config(tmp_path, flag)
-    if flag == "--tpu-serve-quant=int8":
+    if flag in ("--tpu-serve-quant=int8", "--tpu-routing-bf16=True"):
         _, variables = weights
         recognizer = Recognizer(
             config, state_dict=convert.flax_to_state_dict(variables),
             device="cpu")
-        assert recognizer.quantized
+        assert recognizer.quantized == (flag == "--tpu-serve-quant=int8")
+        assert recognizer.model.routing_bf16 == (flag ==
+                                                 "--tpu-routing-bf16=True")
         assert len(recognizer.transcribe_batch(_feats())) == len(LENGTHS)
         return
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -121,17 +121,19 @@ def test_training_mode_runs():
 
 
 def test_training_mode_is_refused():
-    """What training has not ported yet is refused: bf16 and SpecAugment
-    in the apply adapter, gradient accumulation and EMA in the train step
-    and its state. (The STF arguments, ``extra_kwargs_fn``, are ported:
-    tests/test_torch_trainer_tf.py.)"""
+    """What training refused before the training extras were ported is
+    accepted now: bf16 and SpecAugment in the apply adapter, gradient
+    accumulation and EMA in the train step and its state (each held to
+    JAX in tests/test_torch_{bf16,specaugment,train_extras}.py)."""
     _, model = _models("naive", True, 1)
-    for kwargs in ({"bf16": True}, {"augment_fn": lambda *a: a[0]}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            step.make_apply_fn(model, **kwargs)
+    feats, lengths = torch.randn(2, 8, FEAT_DIM), torch.tensor([8, 6])
+    for kwargs in ({"bf16": True}, {"augment_fn": lambda f, l, g: f * 0}):
+        logits = step.make_apply_fn(model, **kwargs)(
+            {"feats": feats, "inp_len": lengths}, True)
+        assert logits.dtype == torch.float32 and logits.shape == (2, 2,
+                                                                  CLASS_N)
     apply_fn = step.make_apply_fn(model)
     for kwargs in ({"accum_steps": 2}, {"ema_decay": 0.999}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            step.make_train_step(apply_fn, 4, **kwargs)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TrainState.create(model, None, with_ema=True)
+        assert callable(step.make_train_step(apply_fn, 4, **kwargs))
+    state = TrainState.create(model, None, with_ema=True, device="cpu")
+    assert set(state.ema) == {n for n, _ in model.named_parameters()}

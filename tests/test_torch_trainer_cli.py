@@ -252,6 +252,44 @@ def test_train_mode_needs_the_card_unless_the_cpu_is_asked(corpus,
     "--train-is-mwer=True", "--tpu-ema-decay=0.99", "--tpu-grad-accum=2",
     "--tpu-bf16=True", "--tpu-specaug=True", "--tpu-fsdp=True",
     "--tpu-async-ckpt=True", "--tpu-mesh-data=2"])
-def test_training_extras_are_refused(corpus, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trainer_sr.main(_argv(corpus, "--train-max-epoch=1", flag))
+def test_training_extras_are_refused(corpus, tmp_path, flag):
+    """The parallelism flags (ROADMAP.md section 1 item 7) are refused;
+    the training extras, refused before they were ported, each train an
+    epoch with finite losses (an EMA run's checkpoint holds its "ema")."""
+    argv = _argv(corpus, "--train-max-epoch=1", flag,
+                 "--path-ckpt=%s" % tmp_path)
+    if flag in ("--tpu-fsdp=True", "--tpu-async-ckpt=True",
+                "--tpu-mesh-data=2"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            trainer_sr.main(argv)
+        return
+    trainer_sr.main(argv)
+    records = [json.loads(line) for line in
+               (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert records and all(np.isfinite(r["loss"]) for r in records)
+    tree = checkpoint.CheckpointManager(str(tmp_path)).restore(1)
+    assert ("ema" in tree) == flag.startswith("--tpu-ema-decay")
+
+
+def test_extras_train_average_and_decode_with_ema(corpus, tmp_path, capsys):
+    """Stages 1-4 with the training extras together: two epochs with
+    accumulation, EMA and SpecAugment, averaging (the EMA averaged too) and
+    a decode of the averaged EMA weights (--tpu-decode-ema)."""
+    extras = ("--tpu-grad-accum=2", "--tpu-ema-decay=0.9",
+              "--tpu-specaug=True", "--path-ckpt=%s" % tmp_path)
+    trainer_sr.main(_argv(corpus, "--train-max-epoch=2", *extras))
+    manager = checkpoint.CheckpointManager(str(tmp_path))
+    trees = [manager.restore(step) for step in (1, 2)]
+    assert all(set(t["ema"]) == set(trees[0]["ema"]) for t in trees)
+    average_ckpt.main(_argv(corpus, "--model-average-num=2", *extras))
+    avg = checkpoint.CheckpointManager(str(tmp_path / "avg")).restore(1)
+    name = sorted(avg["ema"])[0]
+    want = ((trees[0]["ema"][name].double() + trees[1]["ema"][name].double())
+            / 2).float()
+    assert torch.equal(avg["ema"][name], want)
+    capsys.readouterr()
+    trainer_sr.main(_argv(corpus, "--train-max-epoch=0",
+                          "--tpu-decode-ema=True",
+                          "--path-ckpt=%s" % (tmp_path / "avg")))
+    hyps = dict(log2utt.parse_decode_log(io.StringIO(capsys.readouterr().out)))
+    assert set(hyps) == {"utt12", "utt13"}
