@@ -206,6 +206,22 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    card, 20 K1 launches a forward, two rows at the same width on the CPU
    (logits within LOGIT_ATOL, ids equal), forward times and peak memory;
    the 1600-frame utterance streamed and held to its batch forward;
+12c. the SRF-WSJ model's train step (layered, dropout off) on the card:
+   one step on 2 of 8 utterances of 300-1600 frames held to the CPU's as
+   in 7 (gradients within WSJ_GRAD_ATOL_REL, set by chip_wsj_numerics.py),
+   then the 8-utterance step (padded 1600) with 20 K1 and 40 K2 launches,
+   timed, with its peak memory;
+12d. --tpu-routing-kernel=wavefront (ops/routing.wavefront_sdr_stack, the
+   whole capsule stack as one loop over time in plain PyTorch, as JAX runs
+   it in XLA ops) at full width: SRF-TIMIT with phase 6's weights serving
+   29 x 241 (ids equal to the layered path's, logits within LOGIT_ATOL of
+   its and of the CPU wavefront's first rows), a dropout-free step held to
+   the layered step on the card as 7 holds the CPU's, forward and step
+   times beside the layered path's, peak memory with remat on and off, a
+   profile of the forward; SRF-WSJ's 8 x 1664 forward against the layered
+   one (LOGIT_ATOL), time and peak memory; the wavefront launches K1 and K2
+   0 times and runs no plain SDR loop; with one capsule layer it is that
+   layer's SDR, one K1 call, equal to the layered path;
 13. the serving daemon through its CLI (python -m
    srf_tpu_torch.serve_daemon in a subprocess, a two-model fleet with
    phase 6's weights as the default, max batch 8, 10 ms, HTTP on): the
@@ -245,7 +261,9 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    float32, --tpu-bf16 (K1 and K2 in float32) and --tpu-bf16
    --tpu-routing-bf16 (K1-bf16 and K2-bf16, float32 K1/K2 0 times, no
    plain SDR loop), each loss within BF16_LOSS_RTOL of float32's and at
-   least BF16_LOSS_GAP from it; the
+   least BF16_LOSS_GAP from it, and the float32 and bf16 steps' model
+   FLOPs (utils/flops.py) and MFU against the H100's float32 and bf16
+   peaks; the
    CNN-TIMIT step in float32 and --tpu-bf16 (K5-bf16 50 launches a step,
    K5 0); SRF-WSJ's forward at 8 x 1664 in float32 and bf16 routing (peak
    memory); 3 MWER updates at SRF-TIMIT width (B 8, n-best 4, beam 16),
@@ -1673,13 +1691,14 @@ def decode_phase(torch, card, state, device="cuda"):
 
 
 def train_batch(torch, device, batch=29, frames=241, feat_dim=123,
-                vocab=62):
-    """bench.py's workload (bench.py:76-87): lengths in 0.7*frames..frames,
-    tar_len = max(2, len // 8), labels in 1..vocab-1, randn features.
-    Features and labels on ``device``, the lengths on the host, as the train
-    step wants them (train/step.py)."""
+                vocab=62, shortest=None):
+    """bench.py's workload (bench.py:76-87): lengths in 0.7*frames..frames
+    (``shortest``..frames where given), tar_len = max(2, len // 8), labels
+    in 1..vocab-1, randn features. Features and labels on ``device``, the
+    lengths on the host, as the train step wants them (train/step.py)."""
     host = np.random.RandomState(0)
-    lens = host.randint(int(frames * 0.7), frames + 1, size=batch)
+    lens = host.randint(int(frames * 0.7) if shortest is None else shortest,
+                        frames + 1, size=batch)
     tar_lens = np.maximum(2, lens // 8)
     feats = host.randn(batch, frames, feat_dim).astype(np.float32)
     labels = host.randint(1, vocab, size=(batch, int(tar_lens.max())))
@@ -1747,7 +1766,7 @@ def train_setup(torch, config, state, device, dropout=True, accum_steps=1):
 
 def parity_readings(torch, config, state, batch, dropout=False,
                     update_grad_rel=UPDATE_GRAD_REL, card_tf32=False,
-                    count=PARITY_COUNT, accum_steps=1):
+                    count=PARITY_COUNT, accum_steps=1, reference=None):
     """One step on the card and on the CPU from the same weights, its
     update taken at the schedule's count ``count`` (a constant rate, plain
     Adam's, as it is), and how far the two are apart: a dict of the loss's
@@ -1759,10 +1778,12 @@ def parity_readings(torch, config, state, batch, dropout=False,
     (the LSTM's bias_ih) must not move. Dropout off, or ``dropout="k5"``
     (see ``train_setup``). ``card_tf32`` lets the card's step run its
     convolutions and matmuls in TF32; ``accum_steps`` microbatches both
-    steps."""
+    steps. ``reference``: the (config, device) of the step the card's is
+    held to, ``config`` on the CPU by default."""
     results = {}
-    for device in ("cuda", "cpu"):
-        train_state, _, step = train_setup(torch, config, state, device,
+    for key, (cfg, device) in (("cuda", (config, "cuda")),
+                               ("cpu", reference or (config, "cpu"))):
+        train_state, _, step = train_setup(torch, cfg, state, device,
                                            dropout=dropout,
                                            accum_steps=accum_steps)
         if train_state.scheduler is None:
@@ -1771,7 +1792,7 @@ def parity_readings(torch, config, state, batch, dropout=False,
             rate = train_state.scheduler.lr_lambdas[0](count)
         for group in train_state.optimizer.param_groups:
             group["lr"] = rate
-        tf32 = device == "cuda" and card_tf32
+        tf32 = key == "cuda" and card_tf32
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
         try:
@@ -1782,7 +1803,7 @@ def parity_readings(torch, config, state, batch, dropout=False,
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         model = train_state.model
-        results[device] = (
+        results[key] = (
             metrics["loss_sum"].item(),
             {k: p.grad.detach().cpu() for k, p in model.named_parameters()
              if p.requires_grad},
@@ -1793,7 +1814,8 @@ def parity_readings(torch, config, state, batch, dropout=False,
     readings = {"rate": rate, "card_loss": card_loss, "cpu_loss": cpu_loss,
                 "loss_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
                 "grads": {}, "stats": {}, "counts_equal": True,
-                "updates": {}, "max_move": 0.0, "checked": 0, "total": 0}
+                "updates": {}, "max_move": 0.0, "checked": 0, "total": 0,
+                "card_grads": card_grads, "cpu_grads": cpu_grads}
     for name, want in cpu_grads.items():
         err = (card_grads[name] - want).abs().max().item()
         readings["grads"][name] = err / max(want.abs().max().item(), 1e-30)
@@ -1831,26 +1853,31 @@ def worst(values):
 
 def train_parity(torch, config, state, batch, dropout=False, label="",
                  grad_atol_rel=GRAD_ATOL_REL, update_grad_rel=UPDATE_GRAD_REL,
-                 min_compared=0.5, count=PARITY_COUNT, accum_steps=1):
+                 min_compared=0.5, count=PARITY_COUNT, accum_steps=1,
+                 reference=None, reference_name="cpu"):
     """``parity_readings`` held to the limits: the loss within LOSS_RTOL,
     every gradient within ``grad_atol_rel`` x its largest entry, BatchNorm
     statistics within STATS_ATOL, each parameter's update (where the
     gradient is at least ``update_grad_rel`` x its largest, over more than
     ``min_compared`` of the entries) within UPDATE_ATOL_REL x the rate,
-    every update within the rate, and no untrained parameter moved."""
+    every update within the rate, and no untrained parameter moved.
+    ``reference`` and ``reference_name``: the step held to (``config`` on
+    the CPU by default) and its name in the messages. Returns the
+    readings."""
     r = parity_readings(torch, config, state, batch, dropout, update_grad_rel,
-                        count=count, accum_steps=accum_steps)
+                        count=count, accum_steps=accum_steps,
+                        reference=reference)
     check(r.get("frozen_moved", 0.0) == 0.0,
           "train step: an untrained parameter moved")
     rate = r["rate"]
     check(np.isfinite(r["card_loss"]) and r["loss_err"] <= LOSS_RTOL,
-          "train step: card loss %r vs CPU %r" % (r["card_loss"],
-                                                  r["cpu_loss"]))
+          "train step: card loss %r vs %s %r" % (
+              r["card_loss"], reference_name, r["cpu_loss"]))
     worst_grad, worst_stat, worst_update = (
         worst(r[key]) for key in ("grads", "stats", "updates"))
     check(worst_grad[0] <= grad_atol_rel,
-          "train step: gradient %s differs, card vs CPU %.3e x its max"
-          % (worst_grad[1], worst_grad[0]))
+          "train step: gradient %s differs, card vs %s %.3e x its max"
+          % (worst_grad[1], reference_name, worst_grad[0]))
     check(r["counts_equal"], "BatchNorm step counts differ")
     check(worst_stat[0] <= STATS_ATOL, "train step: %s differs by %.3e"
           % (worst_stat[1], worst_stat[0]))
@@ -1862,17 +1889,19 @@ def train_parity(torch, config, state, batch, dropout=False, label="",
     check(r["checked"] > min_compared * r["total"],
           "too few parameters' updates compared")
     print("%strain parity (B=%d, dropout %s, one step at count %s, rate "
-          "%.4e): loss card %.6f cpu %.6f (rel %.2e, rtol %.0e); worst "
+          "%.4e): loss card %.6f %s %.6f (rel %.2e, rtol %.0e); worst "
           "gradient %s rel err %.2e (atol %.0e x max); BatchNorm stats max "
           "err %.2e (atol %.0e); parameter updates: worst err %.2e x rate "
           "(atol %.0e x rate) over %d of %d entries, all within the rate"
           % (label, batch["feats"].shape[0],
              "on at the K5 sites" if dropout == "k5" else "off",
              count if config.train_opti_type not in ("adam", "sgd")
-             else "- (constant rate)", rate, r["card_loss"], r["cpu_loss"],
+             else "- (constant rate)", rate, r["card_loss"], reference_name,
+             r["cpu_loss"],
              r["loss_err"], LOSS_RTOL, worst_grad[1], worst_grad[0],
              grad_atol_rel, worst_stat[0], STATS_ATOL, worst_update[0],
              UPDATE_ATOL_REL, r["checked"], r["total"]))
+    return r
 
 
 def all_on_card(train_state, metrics):
@@ -3677,6 +3706,271 @@ def wsj_phase(torch, card):
     return per_forward
 
 
+# phase 12c: the SRF-WSJ recipe's layered train step, 8 utterances of
+# 300-1600 frames (padded to 1600) at its first stage's k 0.6; the CPU
+# takes WSJ_CPU_ROWS of them; WSJ_TRAIN_STEPS timed steps after one
+WSJ_TRAIN_FRAMES = (300, 1600)
+WSJ_TRAIN_STEPS = 3
+# card vs CPU gradients of that step, each within WSJ_GRAD_ATOL_REL x its
+# largest entry. The SRF-TIMIT step's GRAD_ATOL_REL does not carry over:
+# through 10 routing layers over 400 frames the two float32 steps read
+# 1.5e-4 apart on the routing leaves (W*, b*, ln_mid*) and 1.8e-4 on the
+# front end's conv biases, whose gradients sum ~5e4 cancelling terms (each
+# float32 step is 1.2e-2 from float64 there). A card step in TF32 reads
+# 3.5e-3 (routing leaves) and 5.2e-2 (front end), one with bf16 routing
+# (K1-bf16, K2-bf16) 5.9e-2 on the routing leaves: both fail this limit
+# (chip_wsj_numerics.py on an H100)
+WSJ_GRAD_ATOL_REL = 1e-3
+
+
+def wsj_train_phase(torch, card):
+    """Phase 12c: the whole SRF-WSJ model's train step on the card, dropout
+    off: held to the CPU's step on WSJ_CPU_ROWS utterances as phase 7
+    holds SRF-TIMIT's (gradients within WSJ_GRAD_ATOL_REL); then the
+    8-utterance step, K1 launched 20 and K2 40 times a step (10 calls
+    each), timed with its peak memory. Returns
+    K1's and K2's launches in one step, counted from 0."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
+                                                sequential_routing_cuda)
+
+    start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = family_config(logger, "cuda", "wsj",
+                           SRF_WSJ_FLAGS + ["--train-lr-param-k=0.6"])
+    classes = class_count(config)
+    state = random_weights(build_model(config, classes)[0])
+    batch = train_batch(torch, "cuda", batch=8, frames=WSJ_TRAIN_FRAMES[1],
+                        vocab=classes - 1, shortest=WSJ_TRAIN_FRAMES[0])
+    rows = {k: v[:WSJ_CPU_ROWS] for k, v in batch.items()}
+    train_parity(torch, config, state, rows, label="SRF-WSJ ",
+                 grad_atol_rel=WSJ_GRAD_ATOL_REL)
+
+    train_state, _, step = train_setup(torch, config, state, "cuda",
+                                       dropout=False)
+    seed = config.tpu_seed
+    torch.cuda.synchronize()
+    sequential_routing_cuda.launches = 0
+    sequential_routing_bwd_cuda.launches = 0
+    train_state, metrics = step(train_state, batch, seed)
+    torch.cuda.synchronize()
+    launches = (sequential_routing_cuda.launches,
+                sequential_routing_bwd_cuda.launches)
+    check(launches == (10 * K1_LAUNCHES, 10 * K2_LAUNCHES),
+          "an SRF-WSJ step launched K1 %d and K2 %d times, expected %d and "
+          "%d" % (*launches, 10 * K1_LAUNCHES, 10 * K2_LAUNCHES))
+    all_on_card(train_state, metrics)
+    losses, times, peak = timed_steps(torch, step, train_state, batch, seed,
+                                      reps=WSJ_TRAIN_STEPS)
+    check(bool(np.isfinite(losses).all()), "non-finite SRF-WSJ loss")
+    check(sequential_routing_cuda.launches
+          == 10 * K1_LAUNCHES * (2 + WSJ_TRAIN_STEPS),
+          "SRF-WSJ steps: K1 launched %d times"
+          % sequential_routing_cuda.launches)
+    print("SRF-WSJ train step 8 x %d-%d frames (padded %d, dropout off): K1 "
+          "%d and K2 %d launches a step; loss per utterance %.3f; ms/step "
+          "median %.3f (max %.3f) of %d; peak %.1f MB above the state; %.1f "
+          "s [%s]" % (*WSJ_TRAIN_FRAMES, batch["feats"].shape[1], *launches,
+                      losses[0] / 8, float(np.median(times)), max(times),
+                      WSJ_TRAIN_STEPS, peak / 2**20,
+                      time.perf_counter() - start, card))
+    return launches
+
+
+# phase 12d: --tpu-routing-kernel=wavefront; the CPU's wavefront serves
+# WAVEFRONT_CPU_ROWS rows of the 29 x 241 batch; times are medians of
+# WAVEFRONT_REPS calls after a first one
+WAVEFRONT = "--tpu-routing-kernel=wavefront"
+WAVEFRONT_CPU_ROWS = 3
+WAVEFRONT_REPS = 3
+
+
+def loop_steps(model, logits):
+    """Steps of the wavefront's loop over time: T' + (L - 1)(rpad + 1)."""
+    return logits.shape[1] + (model.enc_num - 1) * (model.rpad + 1)
+
+
+def wavefront_phase(torch, card, state):
+    """Phase 12d: the wavefront SDR stack (ops/routing.wavefront_sdr_stack,
+    plain PyTorch: JAX runs it as XLA ops) on the card at full width.
+    SRF-TIMIT with phase 6's weights: the 29 x 241 batch served, ids equal
+    to the layered (K1) Recognizer's, logits within LOGIT_ATOL of its and
+    of the CPU wavefront's rows; a dropout-free step held to the layered
+    step on the card as phase 7 holds the CPU's; forward and step times
+    beside the layered path's, peak memory with remat on and off, a profile
+    of the forward. SRF-WSJ (numpy-seeded weights): the 8 x 1664 forward
+    against the layered one, time and peak memory. The wavefront must
+    launch K1 and K2 0 times and run no plain SDR loop; with one capsule
+    layer (--model-encoder-num=1) it is that layer's SDR, one K1 call a
+    forward, equal to the layered path's. Returns K1's launches in that
+    one-layer forward."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops import routing
+    from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
+                                                sequential_routing_cuda)
+    from srf_tpu_torch.serve import Recognizer
+
+    start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+
+    def counts():
+        return (sequential_routing_cuda.launches,
+                sequential_routing_bwd_cuda.launches,
+                routing.sequential_routing_from_uhat.cuda_calls)
+
+    def no_sdr(before, what):
+        got = tuple(a - b for a, b in zip(counts(), before))
+        check(got == (0, 0, 0), "%s launched K1 %d and K2 %d times and ran "
+              "the plain SDR loop %d times" % (what, *got))
+
+    config = timit_config(logger, "cuda", TIMIT_FLAGS + [WAVEFRONT])
+    layered_config = timit_config(logger, "cuda")
+    wave = Recognizer(config, state_dict=state, logger=logger)
+    check(wave.model.routing_impl == "wavefront",
+          "the wavefront flag built the layered model")
+    layered = Recognizer(layered_config, state_dict=state, logger=logger)
+    cpu = Recognizer(timit_config(logger, "cpu", TIMIT_FLAGS + [WAVEFRONT]),
+                     state_dict=state, device="cpu", logger=logger)
+    feats_list = serve_batches()["29x241"]
+    feats, lengths = wave.pad(feats_list)
+    wave.transcribe_batch_detailed(feats_list)  # warm-up
+    torch.cuda.synchronize()
+    before = counts()
+    got = wave.transcribe_batch_detailed(feats_list)
+    logits = wave.forward(feats, lengths)
+    torch.cuda.synchronize()
+    no_sdr(before, "the wavefront's serving")
+    check_served("wavefront", got, feats_list, wave.in_len_div)
+    want = layered.transcribe_batch_detailed(feats_list)
+    check([r["ids"] for r in got] == [r["ids"] for r in want],
+          "wavefront ids differ from the layered path's")
+    err = (logits - layered.forward(feats, lengths)).abs().max().item()
+    check(err <= LOGIT_ATOL, "wavefront logits differ from the layered "
+          "path's by %.3e" % err)
+    rows = list(range(WAVEFRONT_CPU_ROWS))
+    cpu_err = (logits[rows].cpu() - cpu.forward(feats[rows].cpu(),
+                                                lengths[rows])).abs().max()
+    check(cpu_err.item() <= LOGIT_ATOL, "wavefront logits differ from the "
+          "CPU's by %.3e" % cpu_err.item())
+    fwd_ms = {name: float(np.median(timed_ms(
+        torch, lambda: rec.forward(feats, lengths), WAVEFRONT_REPS)))
+        for name, rec in (("wavefront", wave), ("layered", layered))}
+    _, total, count, busy, wall, _ = profile_device(
+        torch, lambda: wave.forward(feats, lengths))
+    print("wavefront SRF-TIMIT serve 29 x 241 (padded %s, a loop of %d "
+          "steps): ids equal to the layered path's, logits max %.3e from it "
+          "and %.3e from the CPU's rows %s (atol %.0e); K1 0, K2 0 launches; "
+          "forward median %.3f ms against the layered path's %.3f (of %d); "
+          "profile: %d device ops %.3f ms, busy %.3f of %.3f ms wall (idle "
+          "share %.3f) [%s]"
+          % (tuple(feats.shape), loop_steps(wave.model, logits), err,
+             cpu_err.item(), rows, LOGIT_ATOL,
+             fwd_ms["wavefront"], fwd_ms["layered"], WAVEFRONT_REPS, count,
+             total, busy, wall, 1.0 - busy / wall, card))
+
+    # one capsule layer: the stack is that layer's SDR, one call of K1
+    one = TIMIT_FLAGS + ["--model-encoder-num=1"]
+    one_state = random_weights(build_model(timit_config(logger, "cuda",
+                                                        one), 63)[0])
+    one_wave, one_layered = (Recognizer(timit_config(logger, "cuda",
+                                                     one + extra),
+                                        state_dict=one_state, logger=logger)
+                             for extra in ([WAVEFRONT], []))
+    one_wave.forward(feats, lengths)  # warm-up
+    torch.cuda.synchronize()
+    before = counts()
+    one_logits = one_wave.forward(feats, lengths)
+    torch.cuda.synchronize()
+    got_one = tuple(a - b for a, b in zip(counts(), before))
+    check(got_one == (K1_LAUNCHES, 0, 0), "the one-layer wavefront "
+          "launched K1 %d and K2 %d times and ran the plain SDR loop %d "
+          "times, expected K1 %d, K2 0, loop 0" % (*got_one, K1_LAUNCHES))
+    one_err = (one_logits - one_layered.forward(feats, lengths)).abs().max()
+    check(bool(torch.isfinite(one_logits).all())
+          and one_err.item() <= LOGIT_ATOL, "the one-layer wavefront's "
+          "logits differ from the layered path's by %.3e" % one_err.item())
+    print("wavefront SRF-TIMIT with one capsule layer, 29 x 241: K1 %d "
+          "launches a forward (its one layer), K2 0, no plain SDR loop; "
+          "logits max %.3e from the layered path's (atol %.0e)"
+          % (got_one[0], one_err.item(), LOGIT_ATOL))
+    del one_wave, one_layered
+
+    batch = train_batch(torch, "cuda")
+    train_parity(torch, config, state, batch,
+                 label="wavefront against the layered step on the card: ",
+                 reference=(layered_config, "cuda"),
+                 reference_name="layered")
+    readings = {}
+    for name, cfg, remat in (("wavefront", config, True),
+                             ("wavefront, remat off", config, False),
+                             ("layered", layered_config, None)):
+        train_state, _, step = train_setup(torch, cfg, state, "cuda")
+        if cfg is config:
+            train_state.model.routing_remat = remat
+        before = counts()
+        losses, times, peak = timed_steps(torch, step, train_state, batch,
+                                          cfg.tpu_seed, reps=WAVEFRONT_REPS)
+        if name.startswith("wavefront"):
+            no_sdr(before, "a wavefront train step")
+        check(bool(np.isfinite(losses).all()), "%s: non-finite loss" % name)
+        readings[name] = (float(np.median(times)), max(times), peak)
+        del train_state, step
+    print("wavefront SRF-TIMIT train step 29 x 241 (dropout on): %s [%s]"
+          % ("; ".join("%s %.3f ms/step (max %.3f), peak %.1f MB above the "
+                       "state" % (name, med, top, peak / 2**20)
+                       for name, (med, top, peak) in readings.items()),
+             card))
+
+    wsj_config = family_config(logger, "cuda", "wsj",
+                               SRF_WSJ_FLAGS + [WAVEFRONT])
+    wsj_state = random_weights(build_model(wsj_config,
+                                           class_count(wsj_config))[0])
+    wsj = {"wavefront": Recognizer(wsj_config, state_dict=wsj_state,
+                                   logger=logger),
+           "layered": Recognizer(family_config(logger, "cuda", "wsj",
+                                               SRF_WSJ_FLAGS),
+                                 state_dict=wsj_state, logger=logger)}
+    batches = wsj_serve_batches()
+    feats_list = batches["8x300-1600"]
+    feats_list[int(np.argmax([f.shape[0] for f in feats_list]))] = (
+        batches["1x1600"][0])
+    feats, lengths = wsj["wavefront"].pad(feats_list)
+    out = {}
+    for name, rec in wsj.items():
+        rec.forward(feats, lengths)  # warm-up (cuDNN's search)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        logits = rec.forward(feats, lengths)
+        torch.cuda.synchronize()
+        if name == "wavefront":
+            no_sdr(before, "the SRF-WSJ wavefront forward")
+        out[name] = (logits, torch.cuda.max_memory_allocated() - base,
+                     float(np.median(timed_ms(
+                         torch, lambda: rec.forward(feats, lengths),
+                         WAVEFRONT_REPS))))
+    err = (out["wavefront"][0] - out["layered"][0]).abs().max().item()
+    check(bool(torch.isfinite(out["wavefront"][0]).all()),
+          "SRF-WSJ wavefront logits")
+    check(err <= LOGIT_ATOL, "SRF-WSJ wavefront logits differ from the "
+          "layered path's by %.3e" % err)
+    print("wavefront SRF-WSJ serve 8 x 300-1600 (padded %s, a loop of %d "
+          "steps): logits max %.3e from the layered path's (atol %.0e); K1 "
+          "0, K2 0 launches; forward median %.3f ms against the layered "
+          "path's %.3f (of %d); peak %.1f MB above the weights against %.1f; "
+          "%.1f s [%s]" % (tuple(feats.shape),
+                           loop_steps(wsj["wavefront"].model,
+                                      out["wavefront"][0]), err, LOGIT_ATOL,
+                           out["wavefront"][2], out["layered"][2],
+                           WAVEFRONT_REPS, out["wavefront"][1] / 2**20,
+                           out["layered"][1] / 2**20,
+                           time.perf_counter() - start, card))
+    return got_one[0]
+
+
 def daemon_argv(ckpt, *extra):
     return ["--config=%s" % os.path.join(REPO, "egs", "conf", "timit.conf"),
             "--path-base=%s" % REPO, "--path-ckpt=%s" % ckpt, *TIMIT_FLAGS,
@@ -4553,6 +4847,27 @@ def timed_steps(torch, step, train_state, batch, seed, reps=EXTRAS_STEPS):
     return losses, times, torch.cuda.max_memory_allocated() - base_bytes
 
 
+def srf_step_flops(config, batch):
+    """Model FLOPs of one SRF train step of ``config``'s model on
+    ``batch``'s padded features (``utils/flops.srf_train_step_flops``)."""
+    from srf_tpu_torch.utils import flops
+
+    batch_n, frames, feat_dim = batch["feats"].shape
+    return flops.srf_train_step_flops(
+        batch_n, frames, feat_dim=feat_dim,
+        enc_num=config.model_encoder_num,
+        ph=config.model_caps_primary_num, pd=config.model_caps_primary_dim,
+        ch=config.model_caps_convolution_num,
+        cd=config.model_caps_convolution_dim, class_n=class_count(config),
+        vd=config.model_caps_class_dim, lpad=config.model_caps_window_lpad,
+        rpad=config.model_caps_window_rpad,
+        num_iter=(1 if config.model_caps_type == "lowmemory"
+                  else config.model_caps_iter),
+        conv_layer_num=config.model_conv_layer_num,
+        conv_filter_num=config.model_conv_filter_num,
+        stride=config.model_conv_stride)
+
+
 def extras_step_phase(torch, card, state, cnn_state):
     """Phase 15c: an accumulated step held to the CPU's, accumulated and
     bf16 steps timed beside float32's, the CNN's bf16 step, SRF-WSJ's
@@ -4566,6 +4881,7 @@ def extras_step_phase(torch, card, state, cnn_state):
                                                 sequential_routing_bwd_cuda,
                                                 sequential_routing_cuda)
     from srf_tpu_torch.serve import Recognizer
+    from srf_tpu_torch.utils import flops
 
     start = time.perf_counter()
     logger = Logger(name="chip_smoke", level=Logger.WARN).logger
@@ -4663,6 +4979,16 @@ def extras_step_phase(torch, card, state, cnn_state):
           % rel)
     print("SRF-TIMIT step, bf16 routing against float32 routing under "
           "--tpu-bf16: loss rel %.2e (at least %.0e)" % (rel, BF16_LOSS_GAP))
+    # the whole step's share of the card's peak for its dtype
+    step_flops = srf_step_flops(config, batch)
+    for label, peak in (("float32", flops.H100_PEAK_FP32),
+                        ("bf16", flops.H100_PEAK_BF16)):
+        ms = results[label][1]
+        print("SRF-TIMIT step 29 x 241, %s: %.4e model FLOPs "
+              "(utils/flops.py: 3 x the forward), %.3f ms/step, MFU %.5f of "
+              "the %s peak %.4g FLOP/s [%s]"
+              % (label, step_flops, ms, flops.mfu(step_flops, ms / 1e3, peak),
+                 "float32" if label == "float32" else "bf16", peak, card))
 
     # the CNN's bf16 step: K5-bf16 at every site, K5 at none
     cnn = {}
@@ -4863,6 +5189,8 @@ def run():
     stream_k1, stream_readings = stream_phase(torch, card, state)
     check(stream_k1 > 0, "K1 was not launched on the streaming path")
     wsj_k1 = wsj_phase(torch, card)
+    wsj_train_k1, wsj_train_k2 = wsj_train_phase(torch, card)
+    wavefront_k1 = wavefront_phase(torch, card, state)
     daemon_k1, daemon_readings = daemon_phase(torch, card, state)
     int8_k1 = serving_extras_phase(torch, card, state)
     k1_bf16, k2_bf16, k5_bf16 = bf16_kernel_phase(torch, device)
@@ -4877,6 +5205,8 @@ def run():
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
                               "train": train_k1, "recipe": recipe_k1,
                               "stream": stream_k1, "wsj_serve": wsj_k1,
+                              "wsj_train": wsj_train_k1,
+                              "wavefront_one_layer": wavefront_k1,
                               "int8_serve": int8_k1, "daemon": daemon_k1,
                               "extras_recipe": extras_k1, "mwer": mwer_k1}
     k1["launches"] = sum(k1["launches_by_path"].values())
@@ -4884,11 +5214,12 @@ def run():
                             stream_readings["carry_max_abs_err"])
     k1["stream"] = dict(stream_readings, launches_per_step=7 * K1_LAUNCHES)
     k1["daemon"] = daemon_readings
-    k2["launches"] = train_k2 + recipe_k2 + extras_k2 + mwer_k2
+    k2["launches_by_path"] = {"train": train_k2, "recipe": recipe_k2,
+                              "wsj_train": wsj_train_k2,
+                              "extras_recipe": extras_k2, "mwer": mwer_k2}
+    k2["launches"] = sum(k2["launches_by_path"].values())
     k1["calls"] = k1["launches"] // K1_LAUNCHES
     k2["calls"] = k2["launches"] // K2_LAUNCHES
-    k2["launches_by_path"] = {"train": train_k2, "recipe": recipe_k2,
-                              "extras_recipe": extras_k2, "mwer": mwer_k2}
     k3["launches"] = scan_k3
     k3["launches_by_path"] = {"scan": scan_k3}
     k3["stack_ms"] = {key: scan_times[key] for key in ("forward_ms",

@@ -8,20 +8,20 @@ builds in trainer_tf (trainer_tf.py:286-293); anything else is SRF.
 ``in_len_div`` (the time-subsampling divisor used for CTC lengths) is
 ``conv_stride ** conv_layer_num`` for the SRF, CNN and STF families and the
 LSTM's own property. Every ``--tpu-routing-kernel`` value but
-``wavefront`` runs the port's one SDR (an unknown value raises
-``ValueError``, as in JAX). Flags not ported yet raise
-``NotImplementedError`` instead of running something else.
+``wavefront`` runs the port's one SDR; ``wavefront`` runs the whole stack
+as one loop over time (``ops/routing.wavefront_sdr_stack``); an unknown
+value raises ``ValueError``, as in JAX.
 """
 
 from srf_tpu_torch.models.cnn import CNNEncoder, CNNStrideEncoder
 from srf_tpu_torch.models.lstm import LstmEncoder
-from srf_tpu_torch.models.srf import SequenceRouter
+from srf_tpu_torch.models.srf import BF16_REFUSAL, SequenceRouter
 from srf_tpu_torch.models.stf import ConvEncoder
 
-_LATER = "not ported yet: %s is a later slice of the PyTorch port"
 CNN_TYPES = ("cnn", "conv", "convolution")
 DROPOUT_IMPLS = ("xla", "pallas")
-# --tpu-routing-kernel values that build the SRF (wavefront: refused)
+# --tpu-routing-kernel values that build the SRF on its one SDR
+# (wavefront builds the stack loop)
 ROUTING_KERNELS = ("auto", "xla", "xla_flat", "xla_pre", "xla_factored",
                    "pallas")
 
@@ -114,12 +114,12 @@ def build_model(config, dec_out_dim, logger=None, **overrides):
     if kernel not in ROUTING_KERNELS + ("wavefront",):
         raise ValueError("unknown --tpu-routing-kernel %r" % kernel)
     if kernel == "wavefront":
-        raise NotImplementedError(_LATER % "--tpu-routing-kernel=wavefront")
+        overrides.setdefault("routing_impl", "wavefront")
     if getattr(config, "tpu_routing_bf16", False):
-        if kernel in ("pallas", "xla_flat"):
-            raise ValueError(
-                "--tpu-routing-kernel=%s does not support bf16 routing or "
-                "time chunking; use auto/xla/xla_pre" % kernel)
+        # JAX refuses the wavefront's in the model's forward (so does the
+        # port's); here it is refused before a model is built
+        if kernel in ("pallas", "xla_flat", "wavefront"):
+            raise ValueError(BF16_REFUSAL % kernel)
         # the rounding points of JAX's materialized scan (impl="xla") for
         # every other kernel value; JAX's auto path rounds elsewhere (F19)
         overrides.setdefault("routing_bf16", True)

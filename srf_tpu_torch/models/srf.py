@@ -25,8 +25,13 @@ the ``generator`` passed to ``forward`` (the train step seeds one per step),
 else from the global RNG. ``routing_bf16`` (``--tpu-routing-bf16``) routes
 the batch forward's SDR layers in bf16 (``ops/routing.route_layer``: K1's
 and K2's bf16 variants on the card); streaming routes in float32, as JAX's
-``route_block`` does. The JAX wavefront and time-chunk routing paths are
-not ported (``models/registry.py`` refuses their flags).
+``route_block`` does. ``routing_impl="wavefront"``
+(``--tpu-routing-kernel=wavefront``) runs the SDR stack as one loop over
+time (``ops/routing.wavefront_sdr_stack``, plain PyTorch on every device,
+as JAX's is XLA ops), with the ``ln_mid%d`` parameters and the inner
+dropout inside it (``routing_remat`` checkpoints each of its steps); it
+refuses bf16 routing as JAX does. JAX's time chunking (``time_chunk``, no
+flag sets it) has no counterpart: K1 predicts every step at once.
 
 Parameter names mirror the flax tree (conv_feat, flatten, encaps1/2,
 ln_input, W%d/b%d, ln_mid%d, ln_output), so ``convert.py`` maps one onto the
@@ -51,11 +56,16 @@ from srf_tpu_torch.models.layers import (Conv2d, ConvFrontEnd, Dropout,
 from srf_tpu_torch.ops.masking import feat_mask
 from srf_tpu_torch.ops.pos_enc import get_pos_enc
 from srf_tpu_torch.ops.routing import (
-    dynamic_routing, predict_capsules, route_layer, window_slide,
-    window_stack,
+    dynamic_routing, predict_capsules, route_layer, wavefront_sdr_stack,
+    window_slide, window_stack,
 )
 from srf_tpu_torch.ops.routing_cuda import sequential_routing_stream
 from srf_tpu_torch.ops.squash import capsule_length, squash
+
+# JAX's refusal of bf16 routing (and of time chunking, which the port's
+# SequenceRouter does not have) on the routing kernels without it
+BF16_REFUSAL = ("--tpu-routing-kernel=%s does not support bf16 routing or "
+                "time chunking; use auto/xla/xla_pre")
 
 
 class SequenceRouter(nn.Module):
@@ -64,9 +74,12 @@ class SequenceRouter(nn.Module):
                  caps_class_dim, caps_iter, lpad, rpad, is_context,
                  conv_layer_num=2, conv_filter_num=64, inp_dropout=0.1,
                  inn_dropout=0.1, init_name=None, caps_type="lowmemory",
-                 stride=2, routing_bf16=False, generator=None):
+                 stride=2, routing_bf16=False, routing_impl="auto",
+                 routing_remat=True, generator=None):
         super().__init__()
         self.routing_bf16 = routing_bf16
+        self.routing_impl = routing_impl
+        self.routing_remat = routing_remat
         self.feat_dim = feat_dim
         self.class_n = class_n
         self.enc_num = enc_num
@@ -296,6 +309,21 @@ class SequenceRouter(nn.Module):
 
         emb = self._capsulate(feats, input_lengths, generator)
         batch, seq_len = emb.shape[0], emb.shape[1]
+        if self.is_context and self.routing_impl == "wavefront":
+            if self.routing_bf16:
+                raise ValueError(BF16_REFUSAL % "wavefront")
+            # the whole stack as one loop over time, with each layer's
+            # LayerNorm parameters and the inner dropout applied inside it
+            norms = [getattr(self, "ln_mid%d" % (i + 1))
+                     for i in range(self.enc_num)]
+            emb = wavefront_sdr_stack(
+                emb, [(getattr(self, "W%d" % i), getattr(self, "b%d" % i))
+                      for i in range(self.enc_num)],
+                self.lpad, self.rpad, num_iter,
+                [(ln.weight, ln.bias) for ln in norms], ln_eps=norms[0].eps,
+                dropout_rate=self.drop_inn.p if self.training else 0.0,
+                generator=generator, remat=self.routing_remat)
+            return self.output_block(emb)
         for i, (in_n, out_n, out_d, in_d) in enumerate(self.layer_shapes()):
             emb = window_stack(emb, self.lpad, self.rpad)
             emb = route_layer(

@@ -75,6 +75,25 @@ class NGramLM:
 
     # --- persistence ---
 
+    def score_ids(self, ids):
+        """Total log P of a complete id sequence (host-side)."""
+        ctx, total = self.ctx0, 0.0
+        for sym in ids:
+            total += self.logp(ctx, sym)
+            ctx = self.next_ctx(ctx, sym)
+        return total
+
+    def perplexity(self, seqs):
+        """Per-token perplexity over an iterable of id sequences
+        (``tools/train_ngram_lm.py`` logs it)."""
+        total, n = 0.0, 0
+        for ids in seqs:
+            total += self.score_ids(ids)
+            n += len(ids)
+        if n == 0:
+            return float("inf")
+        return float(np.exp(-total / n))
+
     def save(self, path):
         np.savez_compressed(
             path,

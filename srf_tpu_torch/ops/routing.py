@@ -29,6 +29,13 @@
 - PAD-capsule masking: at the last capsule layer the routing logit of
   output capsule 0 (the PAD class) gets -1e9 so nothing routes to it
   (reference: sequence_router_naive.py:174-178,219-220).
+- The wavefront (``--tpu-routing-kernel=wavefront``,
+  :func:`wavefront_sdr_stack`): the whole SDR stack, each layer's
+  LayerNorm and dropout included, as one loop over time, each layer
+  staggered by rpad + 1 steps behind the one below it; plain PyTorch on
+  every device, as JAX's is a ``lax.scan`` of XLA ops with no Pallas
+  kernel. It routes without u_hat (:func:`_sdr_step_factored`, JAX's
+  default); with one layer it is that layer's SDR (K1 and K2 on the card).
 - bf16 routing (``--tpu-routing-bf16``, ``bf16=True``): JAX's SDR with
   ``compute_dtype=bfloat16`` in its materialized scan body (``impl="xla"``,
   ``srf_tpu/ops/routing.py:_sdr_step``): u_hat = bf16(bf16(W u) + b) from
@@ -47,8 +54,11 @@ Shapes (the JAX layouts):
     v      [B, T, out_n, out_d]    output capsules
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from srf_tpu_torch.ops.routing_cuda import SDRFunction
 from srf_tpu_torch.ops.squash import squash
@@ -384,6 +394,205 @@ def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer,
     u_hat = predict_capsules(u, wgt, bias)
     out = dynamic_routing(u_hat, num_iter, mask_pad_capsule=is_last_layer)
     return out.to(u.dtype)
+
+
+def _sdr_step_factored(u_t, wgt, bias, v_prev, num_iter, pad_mask):
+    """One SDR timestep without materialising u_hat
+    (``srf_tpu/ops/routing.py:_sdr_step_factored``): routing reads u_hat =
+    W u + b only through <u_hat, v> = (W^T v) u + b v and sum_n c u_hat =
+    (c (x) u) W + c b, so neither forms it. u_t [B, in_n, in_d], wgt
+    [in_n, out_n, out_d, in_d], bias [in_n, out_n, out_d], v_prev [B,
+    out_n, out_d]; with a leading layer axis on all four (the wavefront's
+    stacked middle layers, JAX's ``vmap``) it routes each layer with its
+    own weights. The same function as :func:`_sdr_step` on u_hat."""
+    p = "l" if wgt.dim() == 5 else ""
+    b_acc = torch.zeros(u_t.shape[:-1] + wgt.shape[-3:-2], dtype=u_t.dtype,
+                        device=u_t.device)  # [(l,) B, in_n, out_n]
+    v = v_prev
+    for _ in range(num_iter):
+        r = torch.einsum(f"{p}noij,{p}boi->{p}bnoj", wgt, v)
+        b_acc = b_acc + (torch.einsum(f"{p}bnoj,{p}bnj->{p}bno", r, u_t)
+                         + torch.einsum(f"{p}noi,{p}boi->{p}bno", bias, v))
+        if pad_mask is not None:
+            b_acc = b_acc + pad_mask
+        c = torch.softmax(b_acc, dim=-1)
+        pc = torch.einsum(f"{p}bno,{p}bnj->{p}bonj", c, u_t)
+        s = (torch.einsum(f"{p}bonj,{p}noij->{p}boi", pc, wgt)
+             + torch.einsum(f"{p}bno,{p}noi->{p}boi", c, bias))
+        v = squash(s, dim=-1)
+    return v
+
+
+def _ln_drop(flat, scale, ln_bias, ln_eps, dropout_rate=0.0, keep=None):
+    """Flattened-capsule LayerNorm and inverted dropout
+    (``srf_tpu/ops/routing.py:_ln_drop``): ``flat`` [..., out_n*out_d]
+    normalised over its last axis with the two-pass variance of
+    ``jnp.var`` (not flax's E[x^2] - E[x]^2), scaled and shifted; where a
+    ``keep`` mask is given, the kept entries scaled by 1 / (1 -
+    dropout_rate) and the others zeroed."""
+    mean = flat.mean(dim=-1, keepdim=True)
+    centred = flat - mean
+    var = (centred * centred).mean(dim=-1, keepdim=True)
+    flat = centred * torch.rsqrt(var + ln_eps) * scale + ln_bias
+    if keep is not None:
+        flat = torch.where(keep, flat / (1.0 - dropout_rate), 0.0)
+    return flat
+
+
+def _window_of(rows):
+    """Ring-buffer rows [..., window, B, n, d] -> the window's capsules
+    [..., B, window*n, d], frame-major (:func:`window_stack`'s order)."""
+    moved = rows.movedim(-4, -3)
+    return moved.reshape(moved.shape[:-3] + (-1, moved.shape[-1]))
+
+
+def wavefront_sdr_stack(u, layer_params, lpad, rpad, num_iter, ln_params,
+                        ln_eps=1e-3, dropout_rate=0.0, generator=None,
+                        remat=True):
+    """The whole SDR capsule stack as one loop over time
+    (``--tpu-routing-kernel=wavefront``; ``srf_tpu/ops/routing.py:
+    wavefront_sdr_stack``, plain PyTorch on every device: JAX runs it as
+    one ``lax.scan`` of XLA ops, no Pallas kernel).
+
+    Layer i at step tau computes its time t = tau - i*delay, delay = rpad +
+    1, so that it reads only what layer i-1 wrote at earlier steps: one
+    loop of T + (L-1)*delay steps routes every layer, instead of L loops of
+    T. Layer 0 reads the windowed input frame; layers 1..L-1 read their
+    window out of one ring buffer [L-1, window, B, ch, cd] of the last
+    ``window`` outputs of layers 0..L-2; the L-2 middle layers (one
+    geometry) route stacked over a leading layer axis; the last layer takes
+    the PAD-capsule mask. A layer outside its times writes zeros to its
+    output and its carried v (the layered path's window zero padding).
+    Each layer's output is its flattened LayerNorm (:func:`_ln_drop`) and
+    dropout; the same function as the layered path.
+
+    u [B, T, n0, d0] (the primary capsules after their LayerNorm and
+    dropout); ``layer_params`` [(W [in_n, out_n, out_d, in_d], b [in_n,
+    out_n, out_d])] per layer; ``ln_params`` [(scale, bias)] of each
+    layer's LayerNorm over out_n*out_d. Computes in float32 (float64 for a
+    float64 u) and returns [B, T, class_n, class_d] in u's dtype.
+
+    ``dropout_rate`` > 0 drops each layer's output, the masks drawn from
+    ``generator`` (the global RNG when None) before the loop: JAX draws a
+    stream per (layer, step) with ``fold_in``, the port one draw per kind
+    of layer, with the same distribution (F21). ``remat`` checkpoints each
+    step (``torch.utils.checkpoint``, JAX's ``jax.checkpoint(body)``) when
+    autograd records; the masks come in from outside, so the recompute
+    sees the same ones. Each step routes with :func:`_sdr_step_factored`
+    (JAX's default, ``factored=True``). With one layer the stack is that
+    layer's SDR through :func:`route_layer` (K1 and K2 on a CUDA tensor).
+    The loop index is a host int: the validity tests read no device value,
+    and no step writes into a tensor in place.
+    """
+    batch, seq_len = u.shape[0], u.shape[1]
+    window = lpad + rpad + 1
+    n_layers = len(layer_params)
+    delay = rpad + 1
+    total_steps = seq_len + (n_layers - 1) * delay
+    dtype = _compute_dtype(u.dtype)
+    device = u.device
+
+    prev_n, prev_d = u.shape[2], u.shape[3]
+    for wgt, _ in layer_params:
+        in_n, out_n, out_d, in_d = wgt.shape
+        assert in_n == window * prev_n and in_d == prev_d, (
+            wgt.shape, (window, prev_n, prev_d))
+        prev_n, prev_d = out_n, out_d
+    layer_params = [(w.to(dtype), b.to(dtype)) for w, b in layer_params]
+    ln_params = [(s.to(dtype), b.to(dtype)) for s, b in ln_params]
+
+    def keep_masks(*shape):
+        if dropout_rate <= 0.0:
+            return None
+        return torch.rand(shape, generator=generator,
+                          device=device) >= dropout_rate
+
+    u_win = window_stack(u.to(dtype), lpad, rpad)
+    if n_layers == 1:  # the layered path's SDR over the whole utterance
+        wgt, bias = layer_params[0]
+        out = route_layer(u_win, wgt, bias, num_iter, True,
+                          is_last_layer=True)
+        keep = keep_masks(batch, seq_len, out.shape[2] * out.shape[3])
+        flat = _ln_drop(out.reshape(batch, seq_len, -1), *ln_params[0],
+                        ln_eps, dropout_rate, keep)
+        return flat.reshape(out.shape).to(u.dtype)
+
+    def route(u_t, wgt, bias, v_prev, pad_mask):
+        return _sdr_step_factored(u_t, wgt, bias, v_prev, num_iter, pad_mask)
+
+    ch, cd = layer_params[0][0].shape[1:3]
+    class_n, class_d = layer_params[-1][0].shape[1:3]
+    n_mid = n_layers - 2
+    (w0, b0), (w_last, b_last) = layer_params[0], layer_params[-1]
+    keep_first = keep_masks(seq_len, batch, ch * cd)
+    keep_last = keep_masks(seq_len, batch, class_n * class_d)
+    if n_mid:
+        w_mid = torch.stack([w for w, _ in layer_params[1:-1]])
+        b_mid = torch.stack([b for _, b in layer_params[1:-1]])
+        # [n_mid, 1, ch*cd]
+        ln_mid = [torch.stack(x)[:, None] for x in zip(*ln_params[1:-1])]
+        # middle layer m+1 computes t = tau - (m+1)*delay: [total, n_mid]
+        t_mid = (torch.arange(total_steps)[:, None]
+                 - delay * torch.arange(1, n_mid + 1))
+        valid_mid = ((t_mid >= 0) & (t_mid < seq_len)).to(device)[
+            ..., None, None, None]
+        keep_mid = keep_masks(total_steps, n_mid, batch, ch * cd)
+    pad_mask = _pad_capsule_mask(class_n, dtype, device)
+    zeros = torch.zeros((batch, ch, cd), dtype=dtype, device=device)
+
+    def step(tau, buf, v_first, v_mid, v_last):
+        # layer 0 at time tau, on the windowed input frame
+        if tau < seq_len:
+            v_first = route(u_win[:, tau], w0, b0, v_first, None)
+            out0 = _ln_drop(
+                v_first.reshape(batch, -1), *ln_params[0], ln_eps,
+                dropout_rate, None if keep_first is None
+                else keep_first[tau]).reshape(batch, ch, cd)
+        else:
+            v_first = out0 = zeros
+        push = out0[None]
+        # the middle layers, stacked
+        if n_mid:
+            vm = route(_window_of(buf[:n_mid]), w_mid, b_mid, v_mid, None)
+            flat = _ln_drop(vm.reshape(n_mid, batch, -1), *ln_mid, ln_eps,
+                            dropout_rate, None if keep_mid is None
+                            else keep_mid[tau])
+            valid = valid_mid[tau]
+            v_mid = torch.where(valid, vm, 0.0)
+            push = torch.cat([push, torch.where(
+                valid, flat.reshape(vm.shape), 0.0)])
+        # the last layer at t = tau - (L-1)*delay, PAD-capsule mask
+        t_last = tau - (n_layers - 1) * delay
+        out_l = None
+        if 0 <= t_last < seq_len:
+            v_last = route(_window_of(buf[-1]), w_last, b_last, v_last,
+                           pad_mask)
+            out_l = _ln_drop(
+                v_last.reshape(batch, -1), *ln_params[-1], ln_eps,
+                dropout_rate, None if keep_last is None
+                else keep_last[t_last]).reshape(batch, class_n, class_d)
+        # the ring buffer moves on by one step, out of place
+        buf = torch.cat([buf[:, 1:], push[:, None]], dim=1)
+        return buf, v_first, v_mid, v_last, out_l
+
+    if remat and torch.is_grad_enabled():
+        run = functools.partial(torch.utils.checkpoint.checkpoint, step,
+                                use_reentrant=False, preserve_rng_state=False)
+    else:
+        run = step
+    carry = (torch.zeros((n_layers - 1, window, batch, ch, cd), dtype=dtype,
+                         device=device),
+             zeros,
+             (torch.zeros((n_mid, batch, ch, cd), dtype=dtype, device=device)
+              if n_mid else None),
+             torch.zeros((batch, class_n, class_d), dtype=dtype,
+                         device=device))
+    outs = []
+    for tau in range(total_steps):
+        *carry, out_l = run(tau, *carry)
+        if out_l is not None:
+            outs.append(out_l)
+    return torch.stack(outs, dim=1).to(u.dtype)
 
 
 def split_begin(n, parts, q):

@@ -1,7 +1,9 @@
 """Helpers for the PyTorch-port parity tests: flax model variables
 (SequenceRouter, the CNN, STF and LSTM encoders, ConvFrontEnd, attention
 blocks) drawn from numpy at the shapes ``jax.eval_shape`` gives (no ``model.init``, which is slow on the
-CPU), as plain nested dicts of numpy arrays."""
+CPU), as plain nested dicts of numpy arrays; and the reference TF
+checkpoint's variable names of such a tree (``reference_names``), with a
+dict-backed checkpoint reader (``DictReader``)."""
 
 import flax
 import jax
@@ -88,3 +90,130 @@ def patch_out_jax_dropout(monkeypatch):
                         lambda self, inputs, deterministic=None, rng=None:
                         inputs)
     monkeypatch.setattr(jax_cnn, "fused_dropout", lambda x, seed, rate: x)
+
+
+# The reference TF checkpoint's variable names of a flax tree, for the
+# import tool's tests (tests/test_torch_tools.py, test_torch_import_tf.py).
+_SUF = "/.ATTRIBUTES/VARIABLE_VALUE"
+
+
+def _convfe_names(names, attr, conv, stats, cnn_n=2):
+    for layer in range(cnn_n):
+        for branch in range(2):
+            leaf = conv["conv%d_%d" % (layer, branch)]
+            for part in ("kernel", "bias"):
+                names["%s/conv_layers/%d/%d/%s" % (attr, branch, layer,
+                                                   part)] = leaf[part]
+        bn, st = conv["bn%d" % layer], stats["bn%d" % layer]
+        for ref, value in (("gamma", bn["scale"]), ("beta", bn["bias"]),
+                           ("moving_mean", st["mean"]),
+                           ("moving_variance", st["var"])):
+            names["%s/bn_layers/%d/%s" % (attr, layer, ref)] = value
+
+
+def _dense_names(names, attr, tree):
+    for part in ("kernel", "bias"):
+        if part in tree:
+            names["%s/%s" % (attr, part)] = tree[part]
+
+
+def _ln_names(names, attr, tree):
+    names[attr + "/gamma"] = tree["scale"]
+    names[attr + "/beta"] = tree["bias"]
+
+
+def _keras_lstm(names, base, cell):
+    for part, side in (("kernel", "i"), ("recurrent_kernel", "h")):
+        names[base + "/" + part] = np.concatenate(
+            [cell[side + g]["kernel"] for g in "ifgo"], axis=1)
+    names[base + "/bias"] = np.concatenate([cell["h" + g]["bias"]
+                                            for g in "ifgo"])
+
+
+def reference_names(family, variables, enc_num, flavor="naive"):
+    """{reference variable name: array} of a flax tree, as the reference's
+    object graph names them (the inverse of the import readers' mapping);
+    SRF routing tensors in the flavor's broadcast layout."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    names = {}
+    if family == "srf":
+        _convfe_names(names, "conv", params["conv_feat"], stats["conv_feat"])
+        _dense_names(names, "proj_pe", params["flatten"])
+        _ln_names(names, "ln_i", params["ln_input"])
+        _ln_names(names, "ln_o", params["ln_output"])
+        for i in range(2):
+            _dense_names(names, "ecs/%d" % i, params["encaps%d" % (i + 1)])
+        for i in range(enc_num):
+            _ln_names(names, "ln_m/%d" % i, params["ln_mid%d" % (i + 1)])
+            wgt, bias = params["W%d" % i], params["b%d" % i]
+            if flavor == "naive":  # [1, 1, ...] and [1, 1, ..., 1]
+                wgt, bias = wgt[None, None], bias[None, None, ..., None]
+            else:
+                bias = bias[None]
+            names["wgt/%d" % i], names["bias/%d" % i] = wgt, bias
+    elif family == "stf":
+        _convfe_names(names, "conv", params["conv"], stats["conv"])
+        _dense_names(names, "linear_projection", params["linear_projection"])
+        _ln_names(names, "layernorm", params["ln"])
+        _dense_names(names, "proj", params["proj"])
+        for i in range(enc_num):
+            base, p = "enc_layers/%d" % i, params["enc%d" % i]
+            _ln_names(names, base + "/layernorm_cur", p["ln_cur"])
+            _ln_names(names, base + "/layernorm_res", p["ln_res"])
+            for ref, ours in (("dense_layer_for_query", "wq"),
+                              ("dense_layer_for_key", "wk"),
+                              ("dense_layer_for_value", "wv"),
+                              ("dense", "wo")):
+                _dense_names(names, base + "/mha/" + ref, p["mha"][ours])
+            _dense_names(names, base + "/ffn/ff_relu", p["ffn"]["ff1"])
+            _dense_names(names, base + "/ffn/ff_proj", p["ffn"]["ff2"])
+    elif family in ("lstm", "blstm"):
+        if "conv_feat" in params:
+            _convfe_names(names, "conv", params["conv_feat"],
+                          stats["conv_feat"])
+        for i in range(enc_num):
+            base = "enc_layers/%d" % i
+            if family == "blstm":
+                _keras_lstm(names, base + "/forward_layer/cell",
+                            params["lstm%d_f" % i])
+                _keras_lstm(names, base + "/backward_layer/cell",
+                            params["lstm%d_b" % i])
+            else:
+                _keras_lstm(names, base + "/cell", params["lstm%d_f" % i])
+            _ln_names(names, "layernorms/%d" % i, params["ln%d" % i])
+        _dense_names(names, "proj", params["proj"])
+        _ln_names(names, "ln", params["ln_out"])
+    else:  # cnn
+        body = params["body"]
+        if "conv_feat" in params:
+            _convfe_names(names, "cnn_fe", params["conv_feat"],
+                          stats["conv_feat"])
+        for i in range(enc_num):
+            _dense_names(names, "enc_layers/%d" % i, body["conv%d" % i])
+            _ln_names(names, "layernorms/%d" % i, body["ln%d" % i])
+        i = 0
+        while "proj%d" % i in body:
+            _dense_names(names, "proj/%d/layer" % i, body["proj%d" % i])
+            _ln_names(names, "layernorms_proj/%d" % i, body["proj_ln%d" % i])
+            i += 1
+        _dense_names(names, "projv/layer", body["projv"])
+        _ln_names(names, "layernorms_projv", body["projv_ln"])
+    return names
+
+
+class DictReader:
+    """``tf.train.load_checkpoint``'s reader over a dict of arrays keyed by
+    reference variable name (plus the optimizer entries a real checkpoint
+    holds, which the readers skip)."""
+
+    def __init__(self, names):
+        self.values = {"model/%s%s" % (k, _SUF): np.asarray(v)
+                       for k, v in names.items()}
+        self.values["optimizer/iter" + _SUF] = np.asarray(7)
+        self.values["save_counter" + _SUF] = np.asarray(1)
+
+    def get_variable_to_shape_map(self):
+        return {k: list(v.shape) for k, v in self.values.items()}
+
+    def get_tensor(self, key):
+        return self.values[key]

@@ -8,9 +8,11 @@ and ``stf_in_len_div`` warns where the reference's formula differs.
 ``--tpu-routing-kernel``: every value JAX builds the SRF for
 builds the port's SRF too, through its one SDR (``SDRFunction``: K1/K2 on
 CUDA, the plain loop on the CPU), with the same logits as the default;
-``wavefront`` (its own module, not ported yet) is refused with
-NotImplementedError; an unknown value raises ValueError in both; and
-``pallas``/``xla_flat`` with bf16 routing raise JAX's ValueError."""
+``wavefront`` builds the stack loop (``ops/routing.wavefront_sdr_stack``),
+whose logits equal the default's within 2e-5 (JAX's limit for its
+wavefront against its layered path); an unknown value raises ValueError in
+both; and ``pallas``/``xla_flat`` with bf16 routing raise JAX's
+ValueError (``wavefront``'s: ``tests/test_torch_wavefront.py``)."""
 
 import types
 
@@ -56,10 +58,20 @@ def test_routing_kernel_values_match_jax(kernel):
     config = _config("--tpu-routing-kernel=" + kernel)
     want = _outcome(jax_build_model, config)
     got = _outcome(registry.build_model, config)
+    assert got == want
     if kernel == "wavefront":
-        assert (want, got) == ("built", NotImplementedError)
-    else:
-        assert got == want
+        assert got == "built"
+        torch.manual_seed(0)
+        reference, _ = registry.build_model(_config(), 9)
+        model, _ = registry.build_model(config, 9)
+        model.load_state_dict(reference.state_dict())
+        feats = torch.from_numpy(
+            np.random.RandomState(3).randn(2, 24, 8).astype(np.float32))
+        lengths = torch.tensor([24, 17])
+        with torch.inference_mode():
+            torch.testing.assert_close(model.eval()(feats, lengths),
+                                       reference.eval()(feats, lengths),
+                                       atol=2e-5, rtol=0)
     if kernel == "typo":
         with pytest.raises(ValueError, match="unknown --tpu-routing-kernel"):
             registry.build_model(config, 9)

@@ -303,25 +303,33 @@ def test_unported_cli_modes_are_refused(tmp_path, weights, monkeypatch,
 ])
 def test_unported_options_are_refused(tmp_path, weights, flag):
     """--tpu-serve-quant=int8 was refused before the port had ops/quant.py,
-    and --tpu-routing-bf16 before the bf16 variants of K1 and K2: both now
-    serve (tests/test_torch_quant.py and test_torch_routing_bf16.py hold
-    them to JAX); wavefront stays refused, by the Recognizer and by
-    build_model."""
+    --tpu-routing-bf16 before the bf16 variants of K1 and K2, and
+    --tpu-routing-kernel=wavefront before ops/routing.wavefront_sdr_stack:
+    all three now serve (tests/test_torch_quant.py,
+    test_torch_routing_bf16.py and test_torch_wavefront.py hold them to
+    JAX); the wavefront's Recognizer gives the layered Recognizer's ids,
+    and its logits within 2e-5 (JAX's wavefront-against-layered limit)."""
     config = _config(tmp_path, flag)
-    if flag in ("--tpu-serve-quant=int8", "--tpu-routing-bf16=True"):
-        _, variables = weights
-        recognizer = Recognizer(
-            config, state_dict=convert.flax_to_state_dict(variables),
-            device="cpu")
-        assert recognizer.quantized == (flag == "--tpu-serve-quant=int8")
-        assert recognizer.model.routing_bf16 == (flag ==
-                                                 "--tpu-routing-bf16=True")
-        assert len(recognizer.transcribe_batch(_feats())) == len(LENGTHS)
+    _, variables = weights
+    state = convert.flax_to_state_dict(variables)
+    recognizer = Recognizer(config, state_dict=state, device="cpu")
+    assert recognizer.quantized == (flag == "--tpu-serve-quant=int8")
+    assert recognizer.model.routing_bf16 == (flag ==
+                                             "--tpu-routing-bf16=True")
+    assert recognizer.model.routing_impl == (
+        "wavefront" if flag == "--tpu-routing-kernel=wavefront" else "auto")
+    got = recognizer.transcribe_batch_detailed(_feats())
+    assert len(got) == len(LENGTHS)
+    if flag != "--tpu-routing-kernel=wavefront":
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Recognizer(config, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(config, 63)
+    layered = Recognizer(_config(tmp_path), state_dict=state, device="cpu")
+    assert [r["ids"] for r in got] == [
+        r["ids"] for r in layered.transcribe_batch_detailed(_feats())]
+    padded = recognizer.pad(_feats())
+    with torch.inference_mode():
+        np.testing.assert_allclose(recognizer.forward(*padded).numpy(),
+                                   layered.forward(*padded).numpy(),
+                                   atol=2e-5, rtol=0)
 
 
 def test_cli_wav_prints_what_feats_prints(tmp_path, weights, capsys):
