@@ -268,7 +268,26 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    K5 0); SRF-WSJ's forward at 8 x 1664 in float32 and bf16 routing (peak
    memory); 3 MWER updates at SRF-TIMIT width (B 8, n-best 4, beam 16),
    the n-best equal to the CPU's, each update's host n-best timed apart;
-16. a "kernels" JSON line (K1, K2, K3, K4, K5 and the variants K1-bf16,
+16. parallelism on torch.distributed (one card: NCCL refuses two ranks on
+   one device, so the multi-rank paths run as 2 processes sharing cuda:0
+   over gloo, which stages CUDA tensors through the host: their times are
+   no scaling result): (a) NCCL at world size 1, here: the SRF-TIMIT
+   data-parallel step at 29 x 241 and the FSDP step against the plain
+   step on the same weights and batch, dropout off, at phase 7's limits
+   (the distance printed); (b) 2 ranks (``chip_smoke.py --parallel-worker
+   DIR``, the SRF_* variables, LOCAL_RANK 0): the DP step at 28 x 241
+   global (14 rows a rank) against one process on the 28 rows at phase
+   7's limits, BatchNorm statistics equal on both ranks, K1 14 and K2 28
+   launches a rank; (c) FSDP on the 2 ranks held the same way, K1 seeing
+   whole contiguous weights; (d) ring attention at STF-TIMIT width (B 8,
+   4 heads, T' 600, depth 32) against blockwise on the card, values and
+   gradients, with each one's peak memory; (e) a 2-stage pipelined
+   STF-TIMIT step (20 blocks, 4 microbatches, B 8) against the sequential
+   step; (f) trainer_sr's epoch on 2 ranks (``--parallel-cli DIR``: the
+   gloo group started first, then the CLI's main) on a synthetic corpus,
+   both ranks' valid losses equal, rank 0's checkpoint and metrics; every
+   rank's step times and peak memory;
+17. a "kernels" JSON line (K1, K2, K3, K4, K5 and the variants K1-bf16,
    K2-bf16, K5-bf16), then the card line, then the result line.
 """
 
@@ -5131,6 +5150,571 @@ def mwer_phase(torch, card, state):
     return got
 
 
+# phase 16: parallelism on torch.distributed. One card: NCCL runs at world
+# size 1 (two ranks on one device are refused, "invalid usage"); the
+# multi-rank paths run as PAR_RANKS processes sharing cuda:0 over gloo,
+# which stages CUDA tensors through the host: their times say nothing of
+# scaling
+PAR_RANKS = 2
+PAR_ROWS = 28  # 16b's global batch: 14 rows a rank
+PAR_TIMED = 5  # timed steps after each parity step
+# 16d: STF-TIMIT's attention, D 128 over 4 heads (depth 32), T' 600
+RING_SHAPE = (8, 4, 600, 32)
+# ring vs blockwise on the card, float32 both: values within RING_ATOL
+# and each gradient within RING_GRAD_REL x its largest entry
+# (tests/test_ring_attention.py's 2e-5 and 3e-5, the latter taken
+# relative to the gradient's scale)
+RING_ATOL, RING_GRAD_REL = 2e-5, 3e-5
+PIPE_BATCH, PIPE_MICRO = 8, 4  # 16e: a 2-stage STF-TIMIT step
+# 16e in float64, pipelined vs sequential: only the order of sums differs
+# (measured 2e-15 of max on an H100)
+PIPE64_GRAD_REL = 1e-12
+# 16f: the CLI's corpus (fbank-123, 150-241 frames: the 7000-frame
+# bucket of 29, rounded to 28 for 2 ranks: 14 rows a rank a step)
+PAR_CLI_TRAIN, PAR_CLI_VALID = 56, 28
+NO_DROPOUT_FLAGS = ["--train-att-dropout=0", "--train-inn-dropout=0",
+                    "--train-inp-dropout=0", "--train-res-dropout=0"]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def par_step(torch, config, state, batch, group=None, grad_group=None,
+             mesh=None, fsdp=False, apply_fn_of=None, timed=0, float64=False):
+    """One dropout-free train step of ``config``'s model from ``state`` on
+    the card, at the Noam schedule's count PARITY_COUNT (phase 7's parity
+    step), data-parallel over ``group`` / ``grad_group``, sharded over
+    ``mesh`` where ``fsdp``; ``apply_fn_of(model, in_len_div)`` replaces
+    the apply adapter (the pipeline's); ``float64`` runs the model and the
+    features in float64. Then ``timed`` more steps.
+    Returns the loss, the whole gradients and state after the step (on
+    the host), the rate, K1's and K2's launches in the step, each timed
+    step's ms and the peak memory over the timed steps (MB)."""
+    from srf_tpu_torch.models.layers import set_batch_norm_group
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.parallel import sharding_rules
+    from srf_tpu_torch.train.optimizer import get_optimizer
+    from srf_tpu_torch.train.state import TrainState
+    from srf_tpu_torch.train.step import make_apply_fn, make_train_step
+
+    model, in_len_div = build_model(config, class_count(config))
+    model.load_state_dict(state)
+    if float64:
+        model = model.double()
+        batch = dict(batch, feats=batch["feats"].double())
+    for module in model.modules():
+        if isinstance(module, torch.nn.Dropout):
+            module.p = 0.0
+    set_batch_norm_group(model, group)
+    train_state = TrainState.create(model, None, None, device="cuda")
+    if fsdp:
+        sharding_rules.fsdp(train_state.model, mesh)
+    train_state.optimizer, train_state.scheduler = get_optimizer(
+        config, train_state.model.parameters())
+    rate = train_state.scheduler.lr_lambdas[0](PARITY_COUNT)
+    for param_group in train_state.optimizer.param_groups:
+        param_group["lr"] = rate
+    apply_fn = (apply_fn_of(train_state.model, in_len_div) if apply_fn_of
+                else make_apply_fn(train_state.model,
+                                   extra_kwargs_fn(config, in_len_div)))
+    step = make_train_step(apply_fn, in_len_div, group=group,
+                           grad_group=grad_group)
+    k1, k2 = (routing_cuda.sequential_routing_cuda,
+              routing_cuda.sequential_routing_bwd_cuda)
+    k1.launches = k2.launches = 0
+    _, metrics = step(train_state, batch, config.tpu_seed)
+    torch.cuda.synchronize()
+    launches = (k1.launches, k2.launches)
+    model = train_state.model
+    grads = sharding_rules.full_state(
+        {k: p.grad for k, p in model.named_parameters() if p.requires_grad})
+    after = sharding_rules.full_state(model.state_dict())
+    result = {"loss": metrics["loss_sum"].item(), "rate": rate,
+              "launches": launches,
+              "grads": {k: v.detach().to("cpu", copy=True)
+                        for k, v in grads.items()},
+              "state": {k: v.detach().to("cpu", copy=True)
+                        for k, v in after.items()}}
+    torch.cuda.reset_peak_memory_stats()
+    result["ms"] = timed_ms(torch, lambda: step(train_state, batch,
+                                                config.tpu_seed), timed)
+    result["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    return result
+
+
+def par_compare(label, got, want, card, grad_atol_rel=GRAD_ATOL_REL):
+    """``got``'s step held to ``want``'s with phase 7's limits: the loss
+    within LOSS_RTOL, every gradient within GRAD_ATOL_REL x its largest
+    entry, the BatchNorm statistics within STATS_ATOL, each update within
+    UPDATE_ATOL_REL x the rate where the gradient is at least
+    UPDATE_GRAD_REL x its largest (``grad_atol_rel`` None: the
+    gradients printed, not held). Returns the worst readings."""
+    rate = want["rate"]
+    loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    grad_err = {k: (got["grads"][k] - w).abs().max().item()
+                / max(w.abs().max().item(), 1e-30)
+                for k, w in want["grads"].items()}
+    stat_err = {k: (got["state"][k] - w).abs().max().item()
+                for k, w in want["state"].items() if "running_" in k}
+    update_err = {}
+    for name, grad in want["grads"].items():
+        sure = grad.abs() >= UPDATE_GRAD_REL * grad.abs().max()
+        diff = got["state"][name] - want["state"][name]
+        update_err[name] = diff[sure].abs().max().item() / rate
+    worst_grad, worst_stat, worst_update = (
+        worst(x) for x in (grad_err, stat_err, update_err))
+    print("%s: the 4 worst gradients %s" % (label, ", ".join(
+        "%s %.2e" % (k, v) for v, k in sorted(
+            ((v, k) for k, v in grad_err.items()), reverse=True)[:4])))
+    print("%s: loss %.6f vs %.6f (rel %.2e, rtol %.0e); worst gradient %s "
+          "%.2e x max (atol %s); BatchNorm stats %.2e (atol %.0e); "
+          "updates %.2e x rate (atol %.0e) [%s]"
+          % (label, got["loss"], want["loss"], loss_err, LOSS_RTOL,
+             worst_grad[1], worst_grad[0],
+             "%.0e" % grad_atol_rel if grad_atol_rel else "printed only",
+             worst_stat[0],
+             STATS_ATOL, worst_update[0], UPDATE_ATOL_REL, card))
+    check(np.isfinite(got["loss"]) and loss_err <= LOSS_RTOL,
+          "%s: loss %r vs %r" % (label, got["loss"], want["loss"]))
+    check(grad_atol_rel is None or worst_grad[0] <= grad_atol_rel,
+          "%s: gradient %s %.3e x its max" % (label, worst_grad[1],
+                                              worst_grad[0]))
+    check(worst_stat[0] <= STATS_ATOL, "%s: %s differs by %.3e"
+          % (label, worst_stat[1], worst_stat[0]))
+    check(worst_update[0] <= UPDATE_ATOL_REL, "%s: update of %s %.3e x rate"
+          % (label, worst_update[1], worst_update[0]))
+    return {"loss_rel": loss_err, "grad_rel": worst_grad[0],
+            "stats": worst_stat[0], "update_rel": worst_update[0]}
+
+
+def ring_inputs():
+    """16d's query, key, value, padding mask (rows padded from 70 % of T'
+    on) and cotangent, from numpy."""
+    rng = np.random.RandomState(SEED + 16)
+    batch, heads, seq, depth = RING_SHAPE
+    arrays = {n: rng.randn(*RING_SHAPE).astype(np.float32)
+              for n in ("q", "k", "v", "cot")}
+    lengths = rng.randint(int(0.7 * seq), seq + 1, size=batch)
+    arrays["mask"] = (np.arange(seq)[None] >= lengths[:, None]).astype(
+        np.float32)[:, None, None, :]
+    return arrays
+
+
+def stf_parallel_config(logger):
+    """STF-TIMIT (phase 10's model) with its dropouts off."""
+    return family_config(logger, "cuda", "timit",
+                         STF_TIMIT_FLAGS + NO_DROPOUT_FLAGS)
+
+
+def attention_run(torch, fn, arrays):
+    """``fn(q, k, v, mask)``'s output and the gradients of its dot product
+    with the cotangent, on the card; and the peak memory of the forward and
+    backward above the inputs (MB)."""
+    q, k, v = (torch.tensor(arrays[n], device="cuda", requires_grad=True)
+               for n in ("q", "k", "v"))
+    mask, cot = (torch.tensor(arrays[n], device="cuda")
+                 for n in ("mask", "cot"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn(q, k, v, mask)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    ms = timed_ms(torch, lambda: (fn(q, k, v, mask) * cot).sum().backward(),
+                  3)
+    return {"out": out.detach().cpu(), "dq": q.grad.cpu(),
+            "dk": k.grad.cpu(), "dv": v.grad.cpu(), "peak_mb": peak,
+            "ms": ms}
+
+
+def stf_penalty():
+    """STF-TIMIT's closed-form attention penalty (ConvEncoder.from_config's
+    PenaltyParams of zero width 1, stripe 1, scale 1)."""
+    from srf_tpu_torch.ops.attention_penalty import MAX_LEN
+    from srf_tpu_torch.ops.blockwise_attention import PenaltyParams
+
+    return PenaltyParams(1, 1, 1.0, len(range(0, MAX_LEN, 1)))
+
+
+def parallel_worker(workdir):
+    """One rank of 16b-16e (``chip_smoke.py --parallel-worker DIR``, the
+    SRF_* variables set): on cuda:0 over gloo, the DP step (16b), the FSDP
+    step (16c), ring attention (16d) and the 2-stage pipelined step
+    (16e); writes DIR/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.ops.attention_penalty import create_attention_penalty
+    from srf_tpu_torch.ops.ring_attention import ring_attention
+    from srf_tpu_torch.parallel import distributed
+    from srf_tpu_torch.parallel.mesh import make_mesh, make_pipeline_mesh
+    from srf_tpu_torch.parallel.pipeline import make_pipeline_apply_fn
+
+    distributed.maybe_initialize(backend="gloo", device="cuda")
+    rank, world = distributed.rank(), distributed.world_size()
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = timit_config(logger, "cuda")
+    rows = PAR_ROWS // world
+    batch = {k: v[rank * rows:(rank + 1) * rows] for k, v in
+             inputs["batch"].items()}
+    batch = {k: v.cuda() if k in ("feats", "labels") else v
+             for k, v in batch.items()}
+    mesh = make_mesh(device="cuda")
+    out = {"device": str(torch.device("cuda", torch.cuda.current_device()))}
+    out["dp"] = par_step(torch, config, inputs["state"], batch,
+                         group=mesh.group(), timed=PAR_TIMED)
+    # FSDP: every K1/K2 call must see whole, contiguous weights
+    seen, real = [], routing_cuda.sequential_routing_cuda
+
+    def recording(u, wgt, bias, *args, **kwargs):
+        seen.append((type(wgt).__name__, wgt.is_contiguous(),
+                     tuple(wgt.shape)))
+        return real(u, wgt, bias, *args, **kwargs)
+
+    routing_cuda.sequential_routing_cuda = recording
+    try:
+        out["fsdp"] = par_step(torch, config, inputs["state"], batch,
+                               group=mesh.group(), mesh=mesh, fsdp=True,
+                               timed=PAR_TIMED)
+    finally:
+        routing_cuda.sequential_routing_cuda = real
+    out["fsdp_weights"] = sorted(set(seen))
+    penalty = stf_penalty()
+    out["ring"] = attention_run(
+        torch, lambda q, k, v, mask: ring_attention(
+            q, k, v, torch.distributed.group.WORLD, mask, penalty),
+        inputs["ring"])
+    stf_config = stf_parallel_config(logger)
+    pipe_mesh = make_pipeline_mesh(world, device="cuda")
+
+    def pipelined(model, in_len_div):
+        return make_pipeline_apply_fn(
+            model, pipe_mesh, PIPE_MICRO,
+            create_attention_penalty(stf_config, logger), in_len_div)
+
+    pipe_batch = {k: v.cuda() if k in ("feats", "labels") else v
+                  for k, v in inputs["pipe_batch"].items()}
+    for key, float64 in (("pipeline", False), ("pipeline64", True)):
+        out[key] = par_step(
+            torch, stf_config, inputs["stf_state"], pipe_batch,
+            group=pipe_mesh.group("data"),
+            grad_group=torch.distributed.group.WORLD, apply_fn_of=pipelined,
+            timed=0 if float64 else PAR_TIMED, float64=float64)
+    torch.save(out, os.path.join(workdir, "rank%d.pt" % rank))
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def parallel_cli_worker(workdir):
+    """One rank of 16f (``chip_smoke.py --parallel-cli DIR``): the gloo
+    group started first (two ranks share the card), then trainer_sr's
+    main, which keeps it; writes the rank's K1/K2 launches."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from srf_tpu_torch import trainer_sr
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.parallel import distributed
+
+    distributed.maybe_initialize(backend="gloo", device="cuda")
+    with open(os.path.join(workdir, "argv.json")) as f:
+        argv = json.load(f)
+    start = time.perf_counter()
+    trainer_sr.main(argv)
+    torch.cuda.synchronize()
+    with open(os.path.join(workdir, "cli%d.json" % distributed.rank()),
+              "w") as f:
+        json.dump({"k1": routing_cuda.sequential_routing_cuda.launches,
+                   "k2": routing_cuda.sequential_routing_bwd_cuda.launches,
+                   "secs": time.perf_counter() - start,
+                   "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20},
+                  f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def launch_ranks(flag, workdir, timeout=600):
+    """``chip_smoke.py flag workdir`` as PAR_RANKS processes of one gloo
+    world on cuda:0 (LOCAL_RANK 0 for each); fails on any exit code but
+    0."""
+    port = free_port()
+    procs = []
+    for rank in range(PAR_RANKS):
+        env = dict(os.environ, SRF_COORDINATOR="127.0.0.1:%d" % port,
+                   SRF_NUM_PROCESSES=str(PAR_RANKS),
+                   SRF_PROCESS_ID=str(rank), LOCAL_RANK="0",
+                   PYTHONFAULTHANDLER="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, workdir],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=timeout))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    codes = [proc.returncode for proc in procs]
+    check(codes == [0] * PAR_RANKS, "%s exited %s: %s" % (
+        flag, codes, "\n".join("rank %d: %s" % (rank, err[-3000:])
+                               for rank, (_, err) in enumerate(outputs))))
+    return outputs
+
+
+def parallel_phase(torch, card, state):
+    """Phase 16 (the module docstring). Returns K1's and K2's launches by
+    path: the NCCL world-size-1 steps here and every rank's steps."""
+    import shutil
+    import tempfile
+
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.stf import ConvEncoder
+    from srf_tpu_torch.ops.blockwise_attention import blockwise_attention
+    from srf_tpu_torch.parallel import distributed
+    from srf_tpu_torch.parallel.mesh import make_mesh
+    from srf_tpu_torch.parallel.pipeline import bubble
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = timit_config(logger, "cuda")
+    k1_by, k2_by = {}, {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        # the one-process references on the card
+        batch28 = train_batch(torch, "cuda", batch=PAR_ROWS)
+        single28 = par_step(torch, config, state, batch28, timed=PAR_TIMED)
+        stf_config = stf_parallel_config(logger)
+        stf_model = ConvEncoder.from_config(stf_config,
+                                            class_count(stf_config))
+        stf_state = random_weights(stf_model)
+        pipe_batch = train_batch(torch, "cuda", batch=PIPE_BATCH)
+        stf_single = par_step(torch, stf_config, stf_state, pipe_batch,
+                              timed=PAR_TIMED)
+        stf_single64 = par_step(torch, stf_config, stf_state, pipe_batch,
+                                float64=True)
+        arrays, penalty = ring_inputs(), stf_penalty()
+        block = attention_run(
+            torch, lambda q, k, v, mask: blockwise_attention(
+                q, k, v, mask, penalty=penalty), arrays)
+        torch.save({"state": state, "stf_state": stf_state,
+                    "batch": {k: v.cpu() for k, v in batch28.items()},
+                    "pipe_batch": {k: v.cpu()
+                                   for k, v in pipe_batch.items()},
+                    "ring": arrays}, os.path.join(workdir, "inputs.pt"))
+
+        # 16b-16e: two ranks on the card over gloo
+        start = time.perf_counter()
+        launch_ranks("--parallel-worker", workdir)
+        ranks = [torch.load(os.path.join(workdir, "rank%d.pt" % r),
+                            weights_only=False) for r in range(PAR_RANKS)]
+        print("16b-e: %d ranks on %s over gloo, %.1f s"
+              % (PAR_RANKS, ranks[0]["device"], time.perf_counter() - start))
+        for label, key in (("16b DP", "dp"), ("16c FSDP", "fsdp")):
+            for r, rank in enumerate(ranks):
+                check(rank[key]["launches"] == (7 * K1_LAUNCHES,
+                                                7 * K2_LAUNCHES),
+                      "%s rank %d: K1/K2 launches %s" % (label, r,
+                                                         rank[key]["launches"]))
+                par_compare("%s rank %d (%d x 241 global) vs one process"
+                            % (label, r, PAR_ROWS), rank[key], single28,
+                            card)
+            same = all(torch.equal(ranks[0][key]["state"][k],
+                                   ranks[1][key]["state"][k])
+                       for k in ranks[0][key]["state"] if "running_" in k)
+            check(same, "%s: BatchNorm statistics differ between ranks"
+                  % label)
+            print("%s: K1 %d, K2 %d launches a rank; BatchNorm statistics "
+                  "equal on both ranks; ms a step %s; peak %s MB (one "
+                  "process: %s ms, %.1f MB) [gloo through the host: no "
+                  "scaling result] [%s]"
+                  % (label, 7 * K1_LAUNCHES, 7 * K2_LAUNCHES,
+                     ["%.1f" % np.median(r[key]["ms"]) for r in ranks],
+                     ["%.1f" % r[key]["peak_mb"] for r in ranks],
+                     "%.1f" % np.median(single28["ms"]),
+                     single28["peak_mb"], card))
+            k1_by[key] = sum(r[key]["launches"][0] for r in ranks)
+            k2_by[key] = sum(r[key]["launches"][1] for r in ranks)
+        weights = ranks[0]["fsdp_weights"]
+        whole = {tuple(v.shape) for k, v in state.items()
+                 if re.fullmatch(r"W\d+", k)}
+        check(weights and all(t in ("Tensor", "Parameter") and c
+                              and shape in whole
+                              for t, c, shape in weights),
+              "16c: K1 saw %s (the whole W: %s)" % (weights, whole))
+        print("16c: K1 received whole, contiguous weights under FSDP: %s"
+              % weights)
+        for r, rank in enumerate(ranks):
+            ring = rank["ring"]
+            err = (ring["out"] - block["out"]).abs().max().item()
+            grad_err = max((ring[n] - block[n]).abs().max().item()
+                           / block[n].abs().max().item()
+                           for n in ("dq", "dk", "dv"))
+            check(err <= RING_ATOL and grad_err <= RING_GRAD_REL,
+                  "16d rank %d: ring vs blockwise %.3e, gradients %.3e x max"
+                  % (r, err, grad_err))
+            print("16d ring attention rank %d, %s: out %.3e from blockwise "
+                  "(atol %.0e), gradients %.3e x max (%.0e); forward + "
+                  "backward %.1f ms (blockwise %.1f ms), attention peak "
+                  "%.1f MB a rank (blockwise %.1f MB) [gloo: no scaling "
+                  "result] [%s]"
+                  % (r, RING_SHAPE, err, RING_ATOL, grad_err, RING_GRAD_REL,
+                     np.median(ring["ms"]), np.median(block["ms"]),
+                     ring["peak_mb"], block["peak_mb"], card))
+        for r, rank in enumerate(ranks):
+            # float64: the schedule, the exchanges and the gradients' sums
+            # are exact (a ReLU cannot flip there); float32: the loss, the
+            # BatchNorm statistics and Adam's updates at phase 7's limits,
+            # the gradients printed (microbatches of 2 rows take other
+            # GEMM kernels than 8 rows, and a pre-activation within an ulp
+            # of 0 flips its ReLU: a whole token's share of that unit's
+            # weight gradient)
+            exact = par_compare(
+                "16e pipeline rank %d float64" % r, rank["pipeline64"],
+                stf_single64, card, grad_atol_rel=PIPE64_GRAD_REL)
+            par_compare("16e pipeline rank %d (STF-TIMIT, 2 stages x %d "
+                        "microbatches, B %d)" % (r, PIPE_MICRO, PIPE_BATCH),
+                        rank["pipeline"], stf_single, card,
+                        grad_atol_rel=None)
+            print("16e rank %d: float64 gradients %.2e of max (limit %.0e)"
+                  % (r, exact["grad_rel"], PIPE64_GRAD_REL))
+        print("16e: bubble (S-1)/(M+S-1) = %.2f; ms a step %s, peak %s MB "
+              "(one process %.1f ms, %.1f MB) [gloo: no scaling result] [%s]"
+              % (bubble(PAR_RANKS, PIPE_MICRO),
+                 ["%.1f" % np.median(r["pipeline"]["ms"]) for r in ranks],
+                 ["%.1f" % r["pipeline"]["peak_mb"] for r in ranks],
+                 np.median(stf_single["ms"]), stf_single["peak_mb"], card))
+
+        # 16a: NCCL at world size 1, in this process
+        batch29 = train_batch(torch, "cuda")
+        plain = par_step(torch, config, state, batch29, timed=PAR_TIMED)
+        os.environ.update(SRF_COORDINATOR="127.0.0.1:%d" % free_port(),
+                          SRF_NUM_PROCESSES="1", SRF_PROCESS_ID="0")
+        try:
+            check(distributed.maybe_initialize(device="cuda"),
+                  "16a: no process group")
+            check(torch.distributed.get_backend() == "nccl",
+                  "16a: backend %s" % torch.distributed.get_backend())
+            mesh = make_mesh(device="cuda")
+            for label, kwargs in (("DP", {}), ("FSDP", {"fsdp": True})):
+                got = par_step(torch, config, state, batch29,
+                               group=mesh.group(), mesh=mesh,
+                               timed=PAR_TIMED, **kwargs)
+                check(got["launches"] == (7 * K1_LAUNCHES, 7 * K2_LAUNCHES),
+                      "16a %s: launches %s" % (label, got["launches"]))
+                dist = max(
+                    [abs(got["loss"] - plain["loss"])]
+                    + [(got["grads"][k] - v).abs().max().item()
+                       for k, v in plain["grads"].items()]
+                    + [(got["state"][k] - v).abs().max().item()
+                       for k, v in plain["state"].items()
+                       if v.is_floating_point()])
+                par_compare("16a NCCL world size 1 %s vs the plain step"
+                            % label, got, plain, card)
+                print("16a %s: max distance from the plain step %.3e "
+                      "(expected 0); ms a step %.1f (plain %.1f), peak "
+                      "%.1f MB (plain %.1f) [%s]"
+                      % (label, dist, np.median(got["ms"]),
+                         np.median(plain["ms"]), got["peak_mb"],
+                         plain["peak_mb"], card))
+                k1_by["nccl_" + label.lower()] = got["launches"][0]
+                k2_by["nccl_" + label.lower()] = got["launches"][1]
+        finally:
+            if distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+            for name in ("SRF_COORDINATOR", "SRF_NUM_PROCESSES",
+                         "SRF_PROCESS_ID"):
+                os.environ.pop(name, None)
+
+        # 16f: trainer_sr's epoch on two ranks
+        k1_by["cli"], k2_by["cli"] = parallel_cli_phase(torch, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("parallel phase: %.1f s" % (time.perf_counter() - phase_start))
+    return k1_by, k2_by
+
+
+def parallel_cli_phase(torch, card, workdir):
+    """16f: a synthetic corpus as TFRecords, trainer_sr's epoch on
+    PAR_RANKS ranks (example sharding, lockstep), both ranks logging the
+    same global losses, rank 0's checkpoint and metrics. Returns the
+    ranks' K1 and K2 launches."""
+    from srf_tpu_torch.utils import checkpoint
+
+    base = os.path.join(workdir, "cli")
+    rng = np.random.RandomState(SEED + 40)
+    for split, count in (("train", PAR_CLI_TRAIN), ("valid", PAR_CLI_VALID),
+                         ("test", 2)):
+        utts = {}
+        for i in range(count):
+            n = int(rng.randint(150, 242))
+            utts["%s%03d" % (split, i)] = (
+                rng.randn(n, 123).astype(np.float32),
+                rng.randint(1, 62, size=max(2, n // 8)))
+        write_split(base, split, utts, 2)
+    ckpt = os.path.join(base, "ckpt")
+    argv = ["trainer_sr",
+            "--config=%s" % os.path.join(REPO, "egs", "conf", "timit.conf"),
+            "--path-base=%s" % base,
+            "--path-vocab=%s" % os.path.join(REPO, "egs", "data",
+                                             "timit_62.vocab"),
+            "--path-ckpt=%s" % ckpt, "--feat-type=None",
+            "--path-train-ptrn=tfrecord/synth-train-None-123-*-of-*",
+            "--path-valid-ptrn=tfrecord/synth-valid-None-123-*-of-*",
+            "--path-test-ptrn=tfrecord/synth-test-None-123-*-of-*",
+            "--prep-data-num-train=%d" % PAR_CLI_TRAIN,
+            "--prep-data-num-valid=%d" % PAR_CLI_VALID,
+            "--prep-data-num-test=2", "--device=cuda",
+            "--train-batch-frame=7000", "--train-warmup-n=1200",
+            "--train-lr-param-k=0.5", "--train-max-epoch=1",
+            *[f for f in TIMIT_FLAGS if not f.startswith("--decoding-beam")]]
+    with open(os.path.join(workdir, "argv.json"), "w") as f:
+        json.dump(argv, f)
+    start = time.perf_counter()
+    outs = launch_ranks("--parallel-cli", workdir)
+    secs = time.perf_counter() - start
+    valid = [re.findall(r"Epoch 001 Valid Loss ([0-9.]+)", err)
+             for _, err in outs]
+    check(valid[0] and valid[0] == valid[1],
+          "16f: the ranks' valid losses %s" % valid)
+    with open(os.path.join(ckpt, "metrics.jsonl")) as records:
+        losses = [json.loads(line)["loss"] for line in records]
+    check(len(losses) == 2 and np.isfinite(losses).all(),
+          "16f: metrics %s" % losses)
+    check(checkpoint.CheckpointManager(ckpt).all_steps() == [1],
+          "16f: no epoch checkpoint")
+    counts = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(workdir, "cli%d.json" % r)) as f:
+            counts.append(json.load(f))
+    # 2 steps of 14 rows a rank and one valid batch of 14
+    check(all(c["k1"] == 3 * 7 * K1_LAUNCHES and c["k2"] == 2 * 7
+              * K2_LAUNCHES for c in counts), "16f: launches %s" % counts)
+    print("16f trainer_sr epoch on %d ranks (gloo, cuda:0): %d train and %d "
+          "valid utterances, train/valid loss %s, both ranks' valid loss %s; "
+          "K1 %s, K2 %s launches a rank; %.1f s in all, %s s a rank's "
+          "process, peak %s MB [%s]"
+          % (PAR_RANKS, PAR_CLI_TRAIN, PAR_CLI_VALID,
+             ["%.4f" % x for x in losses], valid[0][0],
+             [c["k1"] for c in counts], [c["k2"] for c in counts], secs,
+             ["%.1f" % c["secs"] for c in counts],
+             ["%.1f" % c["peak_mb"] for c in counts], card))
+    return (sum(c["k1"] for c in counts), sum(c["k2"] for c in counts))
+
+
 def run():
     import torch
 
@@ -5200,6 +5784,10 @@ def run():
     check(all(k["launches"] > 0 for k in (k1_bf16, k2_bf16, k5_bf16)),
           "a bf16 variant was not launched on its main path")
     mwer_k1, mwer_k2 = mwer_phase(torch, card, state)
+    par_k1, par_k2 = parallel_phase(torch, card, state)
+    check(all(par_k1.values()) and all(par_k2.values()),
+          "K1 or K2 was not launched on a parallel path: %s %s"
+          % (par_k1, par_k2))
     # the daemon's launches are counted in its own process (its stats),
     # the rest in this one
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
@@ -5208,7 +5796,9 @@ def run():
                               "wsj_train": wsj_train_k1,
                               "wavefront_one_layer": wavefront_k1,
                               "int8_serve": int8_k1, "daemon": daemon_k1,
-                              "extras_recipe": extras_k1, "mwer": mwer_k1}
+                              "extras_recipe": extras_k1, "mwer": mwer_k1,
+                              **{"parallel_" + k: v
+                                 for k, v in par_k1.items()}}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             stream_readings["carry_max_abs_err"])
@@ -5216,7 +5806,9 @@ def run():
     k1["daemon"] = daemon_readings
     k2["launches_by_path"] = {"train": train_k2, "recipe": recipe_k2,
                               "wsj_train": wsj_train_k2,
-                              "extras_recipe": extras_k2, "mwer": mwer_k2}
+                              "extras_recipe": extras_k2, "mwer": mwer_k2,
+                              **{"parallel_" + k: v
+                                 for k, v in par_k2.items()}}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k1["calls"] = k1["launches"] // K1_LAUNCHES
     k2["calls"] = k2["launches"] // K2_LAUNCHES
@@ -5245,7 +5837,12 @@ def run():
 
 if __name__ == "__main__":
     try:
-        code = run()
+        if sys.argv[1:2] == ["--parallel-worker"]:
+            code = parallel_worker(sys.argv[2])
+        elif sys.argv[1:2] == ["--parallel-cli"]:
+            code = parallel_cli_worker(sys.argv[2])
+        else:
+            code = run()
     except SmokeFailure as failure:
         print("chip_smoke FAILED: %s" % failure, file=sys.stderr)
         code = 1

@@ -15,10 +15,21 @@ copy of ``srf_tpu/data/loader.py``, numpy only).
 
 Batches stay numpy, the JAX loader's arrays exactly: the consumer moves
 ``feats`` and ``labels`` to the device and keeps the lengths on the host
-(``train/loop.device_prefetch``, ``train/step.py``). One process: the
-multi-process modes (``global_sync`` lockstep, ``shard_batches``) belong to
-the parallelism slice of the port and raise; ``plan_lockstep_epoch``, the
-pure schedule they would run, is here as JAX has it.
+(``train/loop.device_prefetch``, ``train/step.py``).
+
+Multi-process (one process per card, ``parallel/distributed.py``), as
+JAX's loader:
+
+- example sharding (``--tpu-data-shard=example``): each process's dataset
+  keeps every ``process_count``-th example (round-robin by
+  ``process_index``), and ``global_sync`` lockstep-schedules the epoch:
+  every process's (input, label) lengths are all-gathered once over the
+  host group, and each epoch every process runs the same
+  :func:`plan_lockstep_epoch` and emits its own sub-batch of each
+  scheduled global batch (identical shapes and step counts everywhere);
+- batch sharding (``--tpu-data-shard=batch``, ``shard_batches``): every
+  process reads the whole split and takes its contiguous 1/n slice of
+  each global batch (the reference's AutoShardPolicy.DATA).
 """
 
 import glob as _glob
@@ -40,15 +51,19 @@ class SpeechDataset:
     ``LazySpeechDataset`` is the out-of-core drop-in for ones that don't)."""
 
     def __init__(self, file_pattern, feat_dim, max_inp=-1, max_tar=-1,
-                 with_utt_id=False):
+                 with_utt_id=False, process_index=0, process_count=1):
         self.feat_dim = feat_dim
         self.with_utt_id = with_utt_id
         paths = sorted(_glob.glob(file_pattern))
         if not paths:
             raise FileNotFoundError("no TFRecord shards match %s" % file_pattern)
         feats, labels, utt_ids = [], [], []
+        idx = -1
         for path in paths:
             for record in read_records(path):
+                idx += 1
+                if idx % process_count != process_index:
+                    continue  # another process's example
                 ex = decode_example(record)
                 inp_len = int(ex["input_length"][0])
                 tar_len = int(ex["target_length"][0])
@@ -136,15 +151,19 @@ class LazySpeechDataset:
     buffers); enable with ``--tpu-data-lazy=True``."""
 
     def __init__(self, file_pattern, feat_dim, max_inp=-1, max_tar=-1,
-                 with_utt_id=False):
+                 with_utt_id=False, process_index=0, process_count=1):
         self.feat_dim = feat_dim
         self.with_utt_id = with_utt_id
         paths = sorted(_glob.glob(file_pattern))
         if not paths:
             raise FileNotFoundError("no TFRecord shards match %s" % file_pattern)
         spans, labels, utt_ids, inp_lens = [], [], [], []
+        idx = -1
         for path_idx, path in enumerate(paths):
             for offset, length, record in iter_record_spans(path):
+                idx += 1
+                if idx % process_count != process_index:
+                    continue  # another process's example
                 ex = decode_example(record)
                 inp_len = int(ex["input_length"][0])
                 tar_len = int(ex["target_length"][0])
@@ -196,8 +215,8 @@ def plan_lockstep_epoch(peer_lens, boundaries, batch_sizes, label_caps,
     identical sequence (reference: tfsr/trainer_sr.py:147-149).
 
     Returns ``emissions[p] = [(bucket, local_index_tuple), ...]`` — the
-    same length and bucket sequence for every process. A pure function:
-    ``BucketedLoader`` runs one process and does not call it yet.
+    same length and bucket sequence for every process (``BucketedLoader``
+    with ``global_sync``).
     """
     n_buckets = len(batch_sizes)
 
@@ -248,6 +267,14 @@ class BucketedLoader:
     ``bucket`` and, when the dataset has them, ``utt_ids``. With
     ``prefetch > 0`` a producer thread builds the epoch's batches ahead
     (at most ``prefetch`` waiting); an error there reaches the consumer.
+
+    ``global_sync`` and ``shard_batches`` with ``process_count`` > 1: the
+    module docstring. ``global_sync`` all-gathers the lengths over the
+    host group of the running process group
+    (``parallel.distributed.host_all_gather``); this process's entry is
+    its world rank's, so ranks that share a data shard (the STF
+    pipeline's stages) gather the same lengths twice, which changes no
+    schedule.
     """
 
     def __init__(self, dataset, bucket_boundaries, bucket_batch_sizes,
@@ -261,10 +288,18 @@ class BucketedLoader:
                 " modes: batch sharding needs the FULL (unsharded) dataset on"
                 " every process; global_sync lockstep-schedules per-process"
                 " example shards")
-        if (global_sync or shard_batches) and process_count > 1:
-            raise NotImplementedError(
-                "multi-process loading (global_sync / shard_batches) is not "
-                "ported yet: the parallelism slice of the PyTorch port")
+        self._shard_batches = bool(shard_batches) and process_count > 1
+        self._shard = (int(process_index), int(process_count))
+        if self._shard_batches:
+            # every process sees the same metadata, so the (seed,
+            # epoch)-keyed schedule is the same everywhere with no
+            # collective: the one-process schedule, sliced
+            bad = [bs for bs in bucket_batch_sizes if bs % process_count]
+            if bad:
+                raise ValueError(
+                    "batch sharding needs bucket batch sizes divisible by"
+                    " process_count=%d, got %s"
+                    % (process_count, list(bucket_batch_sizes)))
         self.ds = dataset
         self.boundaries = list(bucket_boundaries)
         self.batch_sizes = list(bucket_batch_sizes)
@@ -287,6 +322,24 @@ class BucketedLoader:
         self._lab_lens = np.asarray(lab_lens, np.int64)
         max_len = int(self._inp_lens.max()) if self._inp_lens.size else 1
         max_lab = int(self._lab_lens.max()) if self._lab_lens.size else 1
+        self._peer_lens = None
+        self._peer_index = 0
+        if global_sync and process_count > 1:
+            # every process must emit the SAME static shapes in the SAME
+            # order and the SAME number of batches an epoch, or one rank
+            # runs an extra step and the collectives deadlock: gather
+            # every process's lengths once, then plan every epoch from
+            # all of them (plan_lockstep_epoch); the overflow width and
+            # label cap take the global maxima
+            from srf_tpu_torch.parallel import distributed
+
+            self._peer_index = distributed.rank()
+            self._peer_lens = distributed.host_all_gather(
+                (self._inp_lens, self._lab_lens))
+            max_len = max((int(inp.max()) for inp, _ in self._peer_lens
+                           if inp.size), default=1)
+            max_lab = max((int(lab.max()) for _, lab in self._peer_lens
+                           if lab.size), default=1)
         self.time_widths = self.boundaries + [max(max_len, (self.boundaries[-1] if self.boundaries else 1))]
         self.label_caps = [max(8, -(-w // label_cap_divisor)) for w in self.time_widths]
         # guard: label never exceeds its cap
@@ -307,13 +360,39 @@ class BucketedLoader:
         return len(self.boundaries)
 
     def batch_shapes(self):
-        """All static (batch, time, label) shapes this loader can emit."""
+        """All static (batch, time, label) shapes this loader can emit (the
+        process's slice under batch sharding)."""
+        div = self._shard[1] if self._shard_batches else 1
         return [
-            (bs, tw, lc)
+            (bs // div, tw, lc)
             for bs, tw, lc in zip(self.batch_sizes, self.time_widths, self.label_caps)
         ]
 
+    def _emit_shard(self, indices, bucket):
+        """The whole batch, or under batch sharding this process's
+        contiguous 1/n slice of it. A remainder batch slices to len // n
+        each (the same on every process: the pools are the same
+        everywhere) and is skipped where that is 0, so the step counts
+        stay in lockstep."""
+        if not self._shard_batches:
+            return self._emit(indices, bucket)
+        p, n = self._shard
+        k = len(indices) // n
+        dropped = len(indices) - k * n
+        if dropped:
+            logging.getLogger("srf_tpu_torch").warning(
+                "BucketedLoader: batch sharding dropped %d remainder "
+                "example(s) of a %d-example bucket batch (not divisible "
+                "by process_count=%d)", dropped, len(indices), n,
+            )
+        if k == 0:
+            return None
+        return self._emit(indices[p * k:(p + 1) * k], bucket)
+
     def _iter_epoch(self):
+        if self._peer_lens is not None:
+            yield from self._iter_epoch_lockstep()
+            return
         ds = self.ds
         order = np.arange(len(ds))
         if self.shuffle:
@@ -329,7 +408,9 @@ class BucketedLoader:
                 continue
             pools[b].append(idx)
             if len(pools[b]) == self.batch_sizes[b]:
-                yield self._emit(pools[b], b)
+                batch = self._emit_shard(pools[b], b)
+                if batch is not None:
+                    yield batch
                 pools[b] = []
         if skipped:
             # operator-visible: the reference pipeline pads to the batch
@@ -342,7 +423,31 @@ class BucketedLoader:
         if not self.drop_remainder:
             for b, pool in enumerate(pools):
                 if pool:
-                    yield self._emit(pool, b)
+                    batch = self._emit_shard(pool, b)
+                    if batch is not None:
+                        yield batch
+
+    def _iter_epoch_lockstep(self):
+        """A multi-process epoch: the global schedule from every process's
+        lengths, this process's sub-batch of each scheduled step. No
+        remainder batches (one process's remainder would desync the step
+        counts)."""
+        epoch = self._epoch
+        self._epoch += 1
+        emissions = plan_lockstep_epoch(
+            self._peer_lens, self.boundaries, self.batch_sizes,
+            self.label_caps, self.seed, epoch, self.shuffle,
+        )[self._peer_index]
+        skipped = int(sum(
+            lab > self.label_caps[self._bucket_of(int(inp))]
+            for inp, lab in zip(self._inp_lens, self._lab_lens)))
+        if skipped:
+            logging.getLogger("srf_tpu_torch").warning(
+                "BucketedLoader: skipped %d example(s) whose label length "
+                "exceeds the bucket's static cap this epoch", skipped,
+            )
+        for b, idxs in emissions:
+            yield self._emit(list(idxs), b)
 
     def _emit(self, indices, bucket):
         ds = self.ds

@@ -2,9 +2,15 @@
 
 import torch
 
+from srf_tpu_torch.parallel import distributed
+
 
 def resolve_device(device=None):
     """``None``/``"cuda"``/``"cuda:N"`` -> that CUDA device; ``"cpu"`` -> CPU.
+    Once a process group of more than one rank is up, ``None``/``"cuda"``
+    is the rank's own card, ``cuda:LOCAL_RANK``
+    (``parallel.distributed.local_device``; it raises where the host has
+    no such card).
 
     A CUDA request with no CUDA device raises: the port never carries on on
     the CPU unless asked to. On CUDA it also turns TF32 off for matmuls and
@@ -31,6 +37,8 @@ def resolve_device(device=None):
             "no CUDA device is available; pass device='cpu' (--device=cpu) "
             "to run on the CPU"
         )
+    if device.index is None and distributed.world_size() > 1:
+        device = distributed.local_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True

@@ -16,7 +16,12 @@ its running statistics; in training mode with the batch mean and the
 *biased* batch variance over (B, T', F'), the zero-masked padded frames
 included, and it moves the running statistics by
 ``ra = 0.99 * ra + 0.01 * stat`` with that same biased variance
-(``nn.BatchNorm2d``'s own update would use the unbiased one).
+(``nn.BatchNorm2d``'s own update would use the unbiased one). Under data
+parallelism (:func:`set_batch_norm_group`) the statistics are those of the
+global batch, as JAX's jitted step sees it: the sums are all-reduced over
+the group, so every rank normalises by the same mean and variance, the
+backward all-reduces its two sums so that their gradients reach every
+rank's rows, and the running statistics stay identical on every rank.
 
 :class:`Dropout` — inverted dropout whose masks may come from an explicit
 ``torch.Generator`` (the train step seeds one per step).
@@ -33,10 +38,12 @@ each ``Dropout`` draws from the generator passed to ``forward``.
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from srf_tpu_torch.ops.masking import feat_mask
+from srf_tpu_torch.parallel.distributed import world_size
 
 
 def _pair(value):
@@ -140,6 +147,86 @@ class Dropout(nn.Dropout):
         return x * keep / (1.0 - self.p)
 
 
+def set_batch_norm_group(model, group):
+    """Every BatchNorm of ``model`` normalises over the global batch of
+    ``group`` in training mode (None: this process's batch)."""
+    for module in model.modules():
+        if isinstance(module, nn.BatchNorm2d):
+            module.process_group = group
+
+
+def _group(bn):
+    """The BatchNorm's data-parallel group, None for one process (a group
+    of one rank computes this process's statistics)."""
+    group = getattr(bn, "process_group", None)
+    return group if group is not None and world_size(group) > 1 else None
+
+
+def _update_running(bn, mean, var):
+    with torch.no_grad():
+        bn.running_mean.mul_(0.99).add_(mean, alpha=0.01)
+        bn.running_var.mul_(0.99).add_(var, alpha=0.01)
+        bn.num_batches_tracked.add_(1)
+
+
+def _global_stats(x, group, fast_variance):
+    """Mean, biased variance and count over (B, T', F') of the global
+    batch, from sums all-reduced over ``group``: two-pass in float32, or
+    E[x^2] - E[x]^2 clamped at 0 where ``fast_variance`` (flax's bf16
+    formula)."""
+    dims, channels = (0, 2, 3), x.shape[1]
+    count = x.new_full((1,), float(x.numel() // channels))
+    if fast_variance:
+        sums = torch.cat([x.sum(dims), (x * x).sum(dims), count])
+        dist.all_reduce(sums, group=group)
+        mean = sums[:channels] / sums[-1]
+        second = sums[channels:-1] / sums[-1]
+        return mean, torch.clamp(second - mean * mean, min=0.0), sums[-1]
+    sums = torch.cat([x.sum(dims), count])
+    dist.all_reduce(sums, group=group)
+    mean = sums[:-1] / sums[-1]
+    centred = x - mean.reshape(1, -1, 1, 1)
+    squares = (centred * centred).sum(dims)
+    dist.all_reduce(squares, group=group)
+    return mean, squares / sums[-1], sums[-1]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over the global batch of ``group``:
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` with the global
+    statistics, and the backward of the native kernel, ``dx = (dy -
+    mean(dy) - x_hat * mean(dy * x_hat)) * rsqrt(var + eps) * weight`` with
+    those two means all-reduced (one collective; a composition of
+    differentiable all-reduces would take two and cancel less exactly in
+    the conv weights' gradients). The weight's and bias's gradients stay
+    this rank's, as every parameter's do until the step sums them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group, fast_variance):
+        mean, var, count = _global_stats(x, group, fast_variance)
+        shape = (1, -1, 1, 1)
+        invstd = torch.rsqrt(var + eps)
+        x_hat = (x - mean.reshape(shape)) * invstd.reshape(shape)
+        ctx.save_for_backward(x_hat, invstd * weight)
+        ctx.group, ctx.count = group, count
+        out = ((x - mean.reshape(shape)) * (invstd * weight).reshape(shape)
+               + bias.reshape(shape))
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, grad, _mean, _var):
+        x_hat, scale = ctx.saved_tensors
+        dims, shape = (0, 2, 3), (1, -1, 1, 1)
+        local = torch.stack([grad.sum(dims), (grad * x_hat).sum(dims)])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        means = sums / ctx.count
+        grad_x = (grad - means[0].reshape(shape)
+                  - x_hat * means[1].reshape(shape)) * scale.reshape(shape)
+        return grad_x, local[1], local[0], None, None, None
+
+
 def batch_norm(x, bn):
     """flax BatchNorm on NCHW ``x`` with ``bn``'s affine parameters and
     running statistics (the module docstring gives the conventions). A
@@ -149,12 +236,16 @@ def batch_norm(x, bn):
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
+    group = _group(bn)
+    if group is not None:
+        out, mean, var = _GlobalBatchNorm.apply(x, bn.weight, bn.bias,
+                                                bn.eps, group, False)
+        _update_running(bn, mean, var)
+        return out
     with torch.no_grad():
         mean = x.mean(dim=(0, 2, 3))
         var = x.var(dim=(0, 2, 3), unbiased=False)
-        bn.running_mean.mul_(0.99).add_(mean, alpha=0.01)
-        bn.running_var.mul_(0.99).add_(var, alpha=0.01)
-        bn.num_batches_tracked.add_(1)
+    _update_running(bn, mean, var)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
@@ -165,13 +256,17 @@ def _batch_norm_bf16(x, bn):
     to bf16 once; the running statistics stay float32."""
     xf = x.float()
     if bn.training:
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
-        with torch.no_grad():
-            bn.running_mean.mul_(0.99).add_(mean, alpha=0.01)
-            bn.running_var.mul_(0.99).add_(var, alpha=0.01)
-            bn.num_batches_tracked.add_(1)
+        group = _group(bn)
+        if group is not None:
+            out, mean, var = _GlobalBatchNorm.apply(
+                xf, bn.weight.float(), bn.bias.float(), bn.eps, group, True)
+            _update_running(bn, mean, var)
+            return out.to(x.dtype)
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+        _update_running(bn, mean.detach(), var.detach())
     else:
         mean, var = bn.running_mean, bn.running_var
     shape = (1, -1, 1, 1)
@@ -238,12 +333,14 @@ class MultiHeadAttention(nn.Module):
     [B, H, T, T] weights and returns them; ``"blockwise"`` runs the online
     softmax over key blocks (``ops/blockwise_attention.py``) with the
     closed-form penalty ``penalty_params`` and returns weights None;
-    ``"ring"`` needs a device mesh and is not ported. ``site`` keys the
-    blockwise path's dropout seeds apart from other attention layers'.
+    ``"ring"`` splits the time axis over the ranks of ``group``
+    (``ops/ring_attention.py``; no dropout) and returns weights None.
+    ``site`` keys the blockwise path's dropout seeds apart from other
+    attention layers'.
     """
 
     def __init__(self, d_model, num_heads, attention_dropout=0.0,
-                 penalty_params=None, site=0):
+                 penalty_params=None, site=0, group=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model %d (--model-dimension) is not a multiple "
@@ -253,6 +350,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.penalty_params = penalty_params
         self.site = site
+        self.group = group
         for name in ("wq", "wk", "wv"):
             setattr(self, name, Linear(d_model, d_model, bias=False))
         self.wo = Linear(d_model, d_model)
@@ -288,10 +386,20 @@ class MultiHeadAttention(nn.Module):
                 dropout_rate=rate, dropout_seed=seed)
             weights = None
         elif impl == "ring":
-            raise NotImplementedError(
-                "attention impl 'ring' is not ported yet: it shards the time "
-                "axis over a device mesh (ROADMAP.md section 1 item 7, "
-                "parallelism)")
+            from srf_tpu_torch.ops.ring_attention import ring_attention
+
+            if self.training and self.att_dropout.p > 0:
+                raise ValueError(
+                    "ring attention does not support attention dropout; "
+                    "train with --tpu-attention-kernel=blockwise or set "
+                    "attention dropout to 0")
+            if self.group is None:
+                raise ValueError(
+                    "attention_impl='ring' requires group= (the process "
+                    "group whose ranks split the time dimension)")
+            attended = ring_attention(q, k, v, self.group, mask,
+                                      self.penalty_params)
+            weights = None
         else:
             raise ValueError("unknown attention impl %r" % impl)
         attended = attended.transpose(1, 2).reshape(
@@ -317,11 +425,11 @@ class EncoderBlock(nn.Module):
 
     def __init__(self, d_model, num_heads, dff, inner_dropout,
                  residual_dropout, attention_dropout, penalty_params=None,
-                 site=0):
+                 site=0, group=None):
         super().__init__()
         self.ln_cur = LayerNorm(d_model, eps=1e-6)
         self.mha = MultiHeadAttention(d_model, num_heads, attention_dropout,
-                                      penalty_params, site)
+                                      penalty_params, site, group)
         self.ln_res = LayerNorm(d_model, eps=1e-6)
         self.ffn = PointWiseFeedForward(d_model, dff, inner_dropout)
         self.res_dropout = Dropout(residual_dropout)

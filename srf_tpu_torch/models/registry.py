@@ -67,17 +67,17 @@ def stf_in_len_div(config, logger=None):
 
 def validate_stf_attention_kernel(config):
     """--tpu-attention-kernel: auto, plain or blockwise; ``ring`` needs a
-    device mesh the CLIs do not build, and an unknown value would silently
-    run the plain path, so both raise JAX's ``ValueError``. Returns the
-    kernel."""
+    process group over the time axis that the CLIs do not build, and an
+    unknown value would silently run the plain path, so both raise JAX's
+    ``ValueError``. Returns the kernel."""
     att_kernel = getattr(config, "tpu_attention_kernel", "auto")
     if att_kernel == "ring":
         raise ValueError(
             "--tpu-attention-kernel=ring is programmatic-only: ring "
             "(sequence-parallel) attention needs a device mesh, which "
-            "the CLI trainers do not construct for the time axis (and "
-            "the PyTorch port has no ring attention yet: ROADMAP.md "
-            "section 1 item 7)"
+            "the CLI trainers do not construct for the time axis. "
+            "Build ConvEncoder(attention_impl='ring', group=...) "
+            "directly (see srf_tpu_torch/ops/ring_attention.py)."
         )
     if att_kernel not in ("auto", "plain", "blockwise"):
         raise ValueError("unknown --tpu-attention-kernel %r" % att_kernel)

@@ -16,7 +16,9 @@ Without them (``Recognizer``, as JAX's) attention runs unmasked.
 closed-form penalty ``penalty_params`` (the dense board is dropped), and
 "auto" chooses per batch shape as JAX does: in training blockwise when the
 weights of one layer, 4·B·H·T'² bytes, exceed 6e8, in eval when T' >=
-``auto_blockwise_len`` (2048). "ring" (a device mesh) is not ported.
+``auto_blockwise_len`` (2048). "ring" splits the time axis over the ranks
+of ``group`` (``ops/ring_attention.py``), as JAX's takes ``mesh``; it is
+programmatic only (the CLIs refuse it, as JAX's do).
 
 Parameter names mirror the flax tree, so ``convert.py`` maps one onto the
 other.
@@ -44,7 +46,7 @@ class ConvEncoder(nn.Module):
                  residual_dropout=0.1, attention_dropout=0.1, nfilt=64,
                  cnn_n=2, init_name=None, stride=2, attention_impl="auto",
                  auto_blockwise_len=2048, penalty_params=None,
-                 generator=None):
+                 generator=None, group=None):
         super().__init__()
         self.num_layers = num_layers
         self.d_model = d_model
@@ -61,7 +63,8 @@ class ConvEncoder(nn.Module):
         for i in range(num_layers):
             setattr(self, "enc%d" % i, EncoderBlock(
                 d_model, num_heads, dff, inner_dropout, residual_dropout,
-                attention_dropout, penalty_params=penalty_params, site=i))
+                attention_dropout, penalty_params=penalty_params, site=i,
+                group=group))
         self.ln = LayerNorm(d_model, eps=1e-6)
         self.proj = Linear(d_model, vocab_n)
         self.reset_parameters(init_name, generator)

@@ -18,9 +18,23 @@ Epoch loop with the reference's observable behavior
 The state (a ``TrainState``) is updated in place by the steps. The
 metrics stay device tensors; the loop reads them in one batch every 50
 steps and at the end of an epoch, as JAX does, so the host never waits
-for the card inside a run of steps. One process: with more than one
-(``torch.distributed`` initialised with a world size above 1) it raises;
-the multi-process consensus points belong to the parallelism slice.
+for the card inside a run of steps.
+
+Multi-process (a ``torch.distributed`` world of more than one rank, one
+process per card), as JAX's loop runs on several processes:
+
+- the steps return metrics already reduced over the data group
+  (``train/step.py``), so every rank logs JAX's global numbers and
+  early stopping decides the same epoch everywhere;
+- only rank 0 writes checkpoints and ``metrics.jsonl``; every rank builds
+  the checkpoint dict (an FSDP state gathers its shards), and a barrier
+  over the host group follows each save;
+- a SIGTERM is acted on only at consensus points (mid-checkpoint
+  boundaries, the end of validation, the epoch save), where the ranks'
+  flags are all-reduced (MAX) over the host group: all ranks save the
+  same mid checkpoint and exit 143, or none does
+  (``--tpu-fault-signal-process`` signals one rank);
+- the mid-checkpoint signature folds in the process count.
 """
 
 import itertools
@@ -32,6 +46,7 @@ import numpy as np
 import torch
 
 from srf_tpu_torch.ops.ctc_decode import beam_search_batch
+from srf_tpu_torch.parallel import distributed
 from srf_tpu_torch.utils.metrics import MeanMetric, MetricsWriter, SumMetric
 
 STEP_KEYS = ("feats", "labels", "inp_len", "tar_len")
@@ -112,16 +127,6 @@ def _drain(pending, train_loss, train_samples, num_feats):
     return []
 
 
-def _single_process():
-    distributed = torch.distributed
-    if (distributed.is_available() and distributed.is_initialized()
-            and distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-process training (preemption consensus, lockstep "
-            "schedules) is not ported yet: the parallelism slice of the "
-            "PyTorch port")
-
-
 def run_training(config, logger, state, train_step, valid_step, train_loader,
                  valid_loader, ckpt_manager, epoch_offset, seed,
                  train_num, schedule_fn=None, metrics_path=None,
@@ -146,10 +151,14 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
     — so on the CPU the resumed run replays the uninterrupted run
     bit-exactly (tests/test_torch_train_loop.py); on the card cuDNN's and
     the CTC loss's backward are not bitwise deterministic.
+
+    ``ckpt_manager.wait()`` runs before it returns: an asynchronous save is
+    on disk before decoding or averaging reads it.
     """
-    _single_process()
     device = state.device
-    writer = MetricsWriter(metrics_path)
+    n_proc = distributed.world_size()
+    lead = distributed.rank() == 0  # the rank that writes files
+    writer = MetricsWriter(metrics_path if lead else None)
     train_loss = MeanMetric()
     valid_loss = MeanMetric()
     num_feats = MeanMetric()
@@ -167,12 +176,13 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
     # batch-geometry signature: ``resume.batch_index`` counts BATCHES, so
     # it only names the same data position if the bucket batch sizes are
     # unchanged; a mid checkpoint written under other sizes is refused
-    # (epoch restart), not half-trusted. One process: the JAX loop's
-    # process-count term is 0.
+    # (epoch restart), not half-trusted. The process count folds in: the
+    # lockstep schedule is stratified by process, so the same local sizes
+    # under another count name other data positions
     batch_sig = float(sum(
         (i + 1) * int(s) for i, s in enumerate(
             getattr(train_loader, "batch_sizes", None) or [])
-    ))
+    )) + 1e6 * (n_proc - 1)
     if mid_every > 0 and not (config.path_ckpt and state_to_save is not None):
         logger.warning(
             "--tpu-ckpt-every-steps=%d has nothing to save to (no "
@@ -184,7 +194,15 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
 
         mid_mgr = CheckpointManager(
             os.path.join(config.path_ckpt, "mid"), max_to_keep=2,
+            use_async=bool(getattr(config, "tpu_async_ckpt", False)),
         )
+
+        def purge_mid():
+            distributed.barrier()  # every rank has read it
+            if lead:
+                mid_mgr.purge()
+            distributed.barrier()
+
         last_mid = mid_mgr.latest_step()
         if last_mid is not None:
             try:
@@ -199,7 +217,7 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                     "with this release's resume schema: %s); deleting it",
                     config.path_ckpt, last_mid, exc,
                 )
-                mid_mgr.purge()
+                purge_mid()
                 meta = None
             if meta is None:
                 pass
@@ -215,7 +233,7 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                 )
                 # delete it: the restarted run's step restarts BELOW this
                 # one, and a later resume must not pick the refused one
-                mid_mgr.purge()
+                purge_mid()
             elif int(meta["epoch"]) >= epoch_offset:
                 if state_from_tree is None:
                     raise ValueError(
@@ -243,10 +261,10 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                     "resume offset %d); deleting it",
                     int(meta["epoch"]), epoch_offset,
                 )
-                mid_mgr.purge()
+                purge_mid()
 
     def save_mid(epoch, next_index):
-        mid_mgr.save(state.step, {
+        tree = {
             "state": state_to_save(state),
             "resume": {
                 "epoch": epoch, "batch_index": next_index,
@@ -258,7 +276,10 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                 "pre_loss": pre_loss, "tolerance": tolerance,
                 "batch_sig": batch_sig,
             },
-        })
+        }
+        if lead:
+            mid_mgr.save(state.step, tree)
+        distributed.barrier()
 
     # ---- failure detection -------------------------------------------
     # SIGTERM = the cloud preemption notice: flag it, save a mid
@@ -280,15 +301,29 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
         except ValueError:  # not the main thread
             pass
 
-    def handle_sigterm_if_seen(epoch, index):
+    def preemption_agreed():
+        """Multi-process: any rank's SIGTERM flag, all-reduced (MAX) over
+        the host group. Called only at points every rank reaches in the
+        same order, so all act together or none does."""
+        return bool(distributed.host_all_reduce(
+            [1.0 if sigterm_seen["flag"] else 0.0], op="max")[0])
+
+    def handle_sigterm_if_seen(epoch, index, consensus=False):
         """Act on a pending preemption notice: save a mid checkpoint at
-        the current loop position and exit 143. Runs at every progress
-        point — train steps, validation batches, epoch boundary — so the
-        grace window is never burned waiting for the next train step."""
-        if not sigterm_seen["flag"]:
+        the current loop position and exit 143. One process: at every
+        progress point — train steps, validation batches, epoch boundary
+        — so the grace window is never burned waiting for the next train
+        step. Multi-process: only at consensus points (``consensus``), so
+        the response waits at most --tpu-ckpt-every-steps steps and every
+        rank saves the same checkpoint."""
+        if n_proc > 1:
+            if not consensus or mid_mgr is None or not preemption_agreed():
+                return
+        elif not sigterm_seen["flag"]:
             return
         if mid_mgr is not None:
             save_mid(epoch, index)
+            mid_mgr.wait()
             logger.warning(
                 "SIGTERM: saved mid-epoch checkpoint at global step "
                 "%d (epoch %d, batch %d); exiting 143 — restart "
@@ -363,7 +398,9 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                 if mid_mgr is not None and index % mid_every == 0:
                     pending = _drain(pending, train_loss, train_samples,
                                      num_feats)
-                    handle_sigterm_if_seen(epoch, index)
+                    # a consensus point: if any rank holds a preemption
+                    # notice, all save this mid checkpoint and exit 143
+                    handle_sigterm_if_seen(epoch, index, consensus=True)
                     save_mid(epoch, index)
                 if check_step:
                     # exact-equality triggers: a supervised restart resumes
@@ -371,6 +408,8 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                     # job, not once per restart
                     gstep = state.step
                     if fault_at > 0 and gstep == fault_at:
+                        if mid_mgr is not None:
+                            mid_mgr.wait()
                         logger.warning(
                             "FAULT INJECTION: hard-exit at global step %d "
                             "(--tpu-fault-at-step)", fault_at,
@@ -383,7 +422,10 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                         )
                         while True:
                             time.sleep(60)
-                    if sig_at > 0 and gstep == sig_at:
+                    sig_proc = int(getattr(
+                        config, "tpu_fault_signal_process", -1) or -1)
+                    if (sig_at > 0 and gstep == sig_at
+                            and sig_proc in (-1, distributed.rank())):
                         logger.warning(
                             "FAULT INJECTION: raising SIGTERM to self at "
                             "global step %d (--tpu-fault-signal-at-step)",
@@ -460,6 +502,8 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                 valid_loss.update(loss_sum, samples)
                 kick_watchdog()
                 handle_sigterm_if_seen(epoch, index)
+            # the end of validation: a consensus point
+            handle_sigterm_if_seen(epoch, index, consensus=True)
             valid_secs = time.time() - prev
             if valid_loss.count == 0:
                 # every bucket's remainder was dropped (valid set smaller than
@@ -491,13 +535,17 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                 break
             if config.train_ckpt_saving_per > 0:
                 to_save = state_to_save(state) if state_to_save else state
-                path = ckpt_manager.save(epoch + 1, to_save)
-                logger.info("Saving a ckpt for the last epoch at %s", path)
+                if lead:
+                    path = ckpt_manager.save(epoch + 1, to_save)
+                    logger.info("Saving a ckpt for the last epoch at %s",
+                                path)
+                distributed.barrier()
                 kick_watchdog()
                 # a notice during valid/save: the mid written here is
                 # older than the epoch ckpt just saved, so the restart
-                # ignores it (stale) and resumes at epoch+1 cleanly
-                handle_sigterm_if_seen(epoch, index)
+                # ignores it (stale) and resumes at epoch+1 cleanly (a
+                # consensus point)
+                handle_sigterm_if_seen(epoch, index, consensus=True)
             else:
                 logger.warning(
                     "Not saved since train-ckpt-saving-per is %d, it needs to be "
@@ -510,6 +558,8 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
         writer.close()
     if mid_mgr is not None:
         mid_mgr.close()
+    if hasattr(ckpt_manager, "wait"):
+        ckpt_manager.wait()  # asynchronous saves on disk before decoding
     return state
 
 

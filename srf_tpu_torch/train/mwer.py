@@ -1,5 +1,5 @@
 """MWER (minimum word error rate) fine-tuning, ``--train-is-mwer`` (port
-of ``srf_tpu/train/mwer.py``, one process).
+of ``srf_tpu/train/mwer.py``).
 
 The reference ships ``loss_ewerr`` but never wires it into a trainer; the
 JAX package makes it a fine-tune mode, and so does the port:
@@ -21,6 +21,11 @@ JAX package makes it a fine-tune mode, and so does the port:
 The step matches the train loop's ``train_step(state, batch, seed)``
 contract, so ``run_training`` drives MWER epochs unchanged (the valid loss
 stays plain CTC). It moves no EMA, as in JAX (``trainer_sr`` warns).
+
+Data-parallel (``group``): each rank n-best-decodes only its own rows
+(JAX's ``_process_local_rows``), both loss terms are divided by the global
+batch, and the gradients and metrics are summed over the group, as in
+``train/step.py``.
 """
 
 import numpy as np
@@ -28,8 +33,10 @@ import torch
 
 from srf_tpu_torch.ops.ctc import ctc_loss_from_frames
 from srf_tpu_torch.train.losses import loss_ewerr
+from srf_tpu_torch.parallel import distributed
 from srf_tpu_torch.train.step import (
-    microbatches, optimizer_update, step_seed,
+    all_reduce_gradients, global_count, microbatches, optimizer_update,
+    reduce_metrics, step_seed,
 )
 from srf_tpu_torch.utils.edit_distance import levenshtein
 
@@ -88,7 +95,8 @@ def _host(x):
 
 
 def make_mwer_train_step(apply_fn, logits_fn, in_len_div, beam_width,
-                         n_best, blank_id, lam_ctc=0.1, accum_steps=1):
+                         n_best, blank_id, lam_ctc=0.1, accum_steps=1,
+                         group=None):
     """Returns ``train_step(state, batch, seed) -> (state, metrics)``
     running one MWER update (``batch`` and ``metrics`` as
     ``train/step.make_train_step``'s; ``loss_sum`` is the expected error
@@ -99,7 +107,7 @@ def make_mwer_train_step(apply_fn, logits_fn, in_len_div, beam_width,
     step waits for it. Hypotheses are padded to the batch's label width
     plus 8. ``accum_steps`` splits the update into microbatches (the
     scoring forward's N + 1 CTC lattices per example are the heavy part);
-    the decode stays whole."""
+    the decode stays whole. ``group``: the module docstring."""
     generators = {}
 
     def train_step(state, batch, seed):
@@ -118,8 +126,9 @@ def make_mwer_train_step(apply_fn, logits_fn, in_len_div, beam_width,
         if feats.device not in generators:
             generators[feats.device] = torch.Generator(feats.device)
         generator = generators[feats.device]
-        generator.manual_seed(step_seed(seed, state.step))
-        global_batch = feats.shape[0]
+        generator.manual_seed(step_seed(
+            seed, state.step, distributed.rank(group) if group else 0))
+        global_batch = global_count(feats.shape[0], feats.device, group)
         full = dict(batch, hyps=hyps, hyp_lens=hyp_lens, errors=errors)
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = None
@@ -144,14 +153,15 @@ def make_mwer_train_step(apply_fn, logits_fn, in_len_div, beam_width,
             (part / global_batch).backward()
             part = part.detach()
             loss_sum = part if loss_sum is None else loss_sum + part
+        if group is not None:
+            all_reduce_gradients(state.model, group)
         optimizer_update(state)
         metrics = {
             "loss_sum": loss_sum,
-            "samples": torch.full((), float(global_batch),
-                                  device=feats.device),
+            "samples": global_batch,
             "frames": torch.as_tensor(inp_len).to(feats.device).sum()
                       .float(),
         }
-        return state, metrics
+        return state, reduce_metrics(metrics, group, ("loss_sum", "frames"))
 
     return train_step

@@ -71,9 +71,13 @@ class TrainState:
     def update_ema(self, decay):
         """``ema += (1 - decay) * (p - ema)`` for every trained parameter
         (JAX's update after the optimizer step), in place."""
+        from srf_tpu_torch.parallel.sharding_rules import local
+
+        # under FSDP both sides are DTensors of one layout: their shards
         params = trainable(self.model)
-        torch._foreach_lerp_(list(self.ema.values()),
-                             [params[name].detach() for name in self.ema],
+        torch._foreach_lerp_([local(e) for e in self.ema.values()],
+                             [local(params[name].detach())
+                              for name in self.ema],
                              1.0 - decay)
 
 

@@ -43,16 +43,44 @@ The training extras (``srf_tpu/train/step.py:22-148``):
   through the casts) and bf16 features; the model's layers follow flax's
   type promotion where a float32 activation meets bf16 parameters
   (``models/layers.Linear``, ``Conv2d``, ``LayerNorm``); BatchNorm's
-  statistics stay float32; the logits are cast to float32 before the CTC. The SDR layers compute in
+  statistics stay float32; the logits are cast to float32 before the CTC
+  (an FSDP model casts its gathered parameters itself, its mixed
+  precision: ``parallel/sharding_rules.fsdp``). The SDR layers compute in
   float32 at ``SDRFunction``'s boundary (bf16 routing is the model's own
   flag, ``--tpu-routing-bf16``), and K5 runs its bf16 variant.
 
-There is no mesh (one card).
+Data parallelism (``group``, the mesh's ``data`` process group,
+``parallel/mesh.py``): each rank runs the step on its own rows, and the
+step reduces what JAX's jitted step computes over its global array:
+
+- the loss is ``sum(pe_loss) / B_global``, ``B_global`` the sum of the
+  ranks' batch sizes (one all-reduce a step);
+- the gradients are all-reduced as a *sum* (not DDP's mean) in one flat
+  buffer after the last microbatch's backward, over ``grad_group``
+  (``group`` by default; the STF pipeline reduces over the whole mesh).
+  An FSDP model (``parallel/sharding_rules.fsdp``) reduce-scatters its
+  own, summed as well, and syncs only on the last microbatch;
+- BatchNorm normalises over the global batch
+  (``models/layers.set_batch_norm_group``, set on the model by the
+  trainer), so its statistics, their gradients and the running averages
+  are JAX's;
+- ``loss_sum``, ``samples`` and ``frames`` are all-reduced, so the loop's
+  logs and ``metrics.jsonl`` show JAX's global numbers;
+- F22: the dropout seed folds in the rank on ``group``, or every rank
+  would draw the same masks for different rows;
+- ``--tpu-grad-accum``: microbatch i is every rank's local slice i. With
+  the global BatchNorm that is JAX's step on the global batch permuted to
+  ``[r0 mb0, r1 mb0, r0 mb1, ...]`` (JAX's microbatch i is the contiguous
+  global rows i). F23: k is the largest divisor of the *local* batch at
+  most the flag, where JAX takes the global batch's (``microbatches``).
 """
 
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from srf_tpu_torch.ops.ctc import ctc_loss_from_frames
+from srf_tpu_torch.parallel import distributed
 
 def bf16_params(model):
     """{name: bf16 copy} of ``model``'s float32 parameters, differentiable
@@ -79,6 +107,10 @@ def make_apply_fn(model, extra_kwargs_fn=None, bf16=False, augment_fn=None):
                   if extra_kwargs_fn else {})
         if not bf16:
             return model(feats, lengths, generator, **kwargs).float()
+        if reduces_own_gradients(model):
+            # FSDP all-gathers bf16 copies itself (its mixed precision)
+            return model(feats.to(torch.bfloat16), lengths, generator,
+                         **kwargs).float()
         out = torch.func.functional_call(
             model, bf16_params(model),
             (feats.to(torch.bfloat16), lengths, generator), kwargs)
@@ -87,20 +119,70 @@ def make_apply_fn(model, extra_kwargs_fn=None, bf16=False, augment_fn=None):
     return apply_fn
 
 
-def step_seed(seed, step):
-    """The dropout seed of update ``step`` under ``seed`` (``--tpu-seed``)."""
-    return (seed * 1_000_003 + step) % (1 << 63)
+def step_seed(seed, step, rank=0):
+    """The dropout seed of update ``step`` under ``seed`` (``--tpu-seed``)
+    on data-parallel rank ``rank`` (F22: rank 0's is the one process's)."""
+    base = (seed * 1_000_003 + step) % (1 << 63)
+    if rank:
+        base = (base * 1_000_033 + rank) % (1 << 63)
+    return base
+
+
+def global_count(count, device, group):
+    """``count`` summed over ``group`` as a float32 tensor on ``device``
+    (the global batch size; no host wait under NCCL)."""
+    total = torch.full((), float(count), device=device)
+    if group is not None:
+        dist.all_reduce(total, group=group)
+    return total
+
+
+def reduces_own_gradients(model):
+    """True for an FSDP model, whose backward reduce-scatters its
+    gradients itself."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)
+
+
+def all_reduce_gradients(model, group):
+    """Sum every trained parameter's ``.grad`` over ``group`` in one flat
+    buffer (a parameter that got no gradient on this rank, such as the
+    pipeline's other stages' blocks, adds zeros)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = _flatten_dense_tensors(grads)
+    dist.all_reduce(flat, group=group)
+    for p, grad in zip(params, _unflatten_dense_tensors(flat, grads)):
+        p.grad = grad
+
+
+def reduce_metrics(metrics, group, keys):
+    """``metrics`` with ``keys`` summed over ``group`` (one all-reduce)."""
+    if group is None:
+        return metrics
+    values = torch.stack([metrics[key] for key in keys])
+    dist.all_reduce(values, group=group)
+    return dict(metrics, **dict(zip(keys, values.unbind(0))))
+
+
+def divisor_at_most(size, requested):
+    """The largest divisor of ``size`` at most ``requested`` (JAX's rule
+    for microbatch counts: bucket sizes vary, so an indivisible size takes
+    a smaller count rather than an error)."""
+    k = max(1, min(int(requested or 1), size))
+    while size % k:
+        k -= 1
+    return k
 
 
 def microbatches(batch, accum_steps):
-    """The batch's k microbatches, k the largest divisor of its size at
-    most ``accum_steps`` (JAX's rule: bucket sizes vary, so an indivisible
-    size takes a smaller k rather than an error); each a dict of the same
-    keys sliced along the batch axis (views)."""
+    """The batch's k microbatches, k = ``divisor_at_most(size,
+    accum_steps)``; each a dict of the same keys sliced along the batch
+    axis (views)."""
     size = batch["feats"].shape[0]
-    k = max(1, min(int(accum_steps or 1), size))
-    while size % k:
-        k -= 1
+    k = divisor_at_most(size, accum_steps)
     if k == 1:
         return [batch]
     mb = size // k
@@ -120,7 +202,8 @@ def optimizer_update(state, ema_decay=0.0):
         state.update_ema(ema_decay)
 
 
-def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0):
+def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0,
+                    group=None, grad_group=None):
     """Returns ``train_step(state, batch, seed) -> (state, metrics)``.
 
     ``batch`` holds ``feats`` [B, T, F] and ``labels`` [B, L] on one device
@@ -132,20 +215,27 @@ def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0):
     per-example losses over the microbatches), ``samples`` and ``frames``.
     ``accum_steps`` and ``ema_decay``: the module docstring; the EMA moves
     only where the state keeps one (``TrainState.create(with_ema=True)``).
+    ``group`` / ``grad_group``: data parallelism (the module docstring).
     """
     generators = {}
+    grad_group = grad_group if grad_group is not None else group
 
     def train_step(state, batch, seed):
         feats = batch["feats"]
         if feats.device not in generators:
             generators[feats.device] = torch.Generator(feats.device)
         generator = generators[feats.device]
-        generator.manual_seed(step_seed(seed, state.step))
-        global_batch = feats.shape[0]
+        generator.manual_seed(step_seed(
+            seed, state.step, distributed.rank(group) if group else 0))
+        global_batch = global_count(feats.shape[0], feats.device, group)
+        fsdp = grad_group is not None and reduces_own_gradients(state.model)
 
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = None
-        for mb in microbatches(batch, accum_steps):
+        parts = microbatches(batch, accum_steps)
+        for i, mb in enumerate(parts):
+            if fsdp:
+                state.model.set_requires_gradient_sync(i == len(parts) - 1)
             logits = apply_fn(mb, True, generator)
             pe_loss = ctc_loss_from_frames(logits, mb["inp_len"], in_len_div,
                                            mb["labels"], mb["tar_len"])
@@ -154,22 +244,24 @@ def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0):
             (pe_loss.sum() / global_batch).backward()
             part = pe_loss.detach().sum()
             loss_sum = part if loss_sum is None else loss_sum + part
+        if grad_group is not None and not fsdp:
+            all_reduce_gradients(state.model, grad_group)
         optimizer_update(state, ema_decay)
         metrics = {
             "loss_sum": loss_sum,
-            "samples": torch.full((), float(global_batch),
-                                  device=feats.device),
+            "samples": global_batch,
             "frames": batch["inp_len"].to(feats.device, non_blocking=True)
                       .sum().float(),
         }
-        return state, metrics
+        return state, reduce_metrics(metrics, group, ("loss_sum", "frames"))
 
     return train_step
 
 
-def make_valid_step(apply_fn, in_len_div):
+def make_valid_step(apply_fn, in_len_div, group=None):
     """Returns ``valid_step(state, batch) -> metrics`` (eval mode, no
-    gradients): ``loss_sum`` and ``samples`` as device tensors."""
+    gradients): ``loss_sum`` and ``samples`` as device tensors, summed
+    over ``group`` under data parallelism."""
 
     def valid_step(state, batch):
         with torch.no_grad():
@@ -177,11 +269,12 @@ def make_valid_step(apply_fn, in_len_div):
             pe_loss = ctc_loss_from_frames(
                 logits, batch["inp_len"], in_len_div, batch["labels"],
                 batch["tar_len"])
-        return {
+        metrics = {
             "loss_sum": pe_loss.sum(),
             "samples": torch.full((), float(batch["feats"].shape[0]),
                                   device=batch["feats"].device),
         }
+        return reduce_metrics(metrics, group, ("loss_sum", "samples"))
 
     return valid_step
 

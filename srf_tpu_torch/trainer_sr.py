@@ -2,8 +2,24 @@
 ``srf_tpu/trainer_sr.py``; the STF has ``trainer_tf``).
 
 Same flags as the JAX trainer (conf file + command line merge, plus
-``--device``), one process on one device (the CUDA device unless
-``--device=cpu``).
+``--device``), one process per device (the CUDA device unless
+``--device=cpu``). With ``SRF_COORDINATOR`` / ``SRF_NUM_PROCESSES`` /
+``SRF_PROCESS_ID`` (or torchrun's variables and ``SRF_MULTIHOST=1``) it
+runs as one rank of a ``torch.distributed`` world
+(``parallel/distributed.py``: NCCL on CUDA, gloo on the CPU) over a
+``("data", "model")`` mesh of ``--tpu-mesh-data`` ranks
+(``parallel/mesh.py``), as JAX's trainer runs on a mesh:
+
+- ``--tpu-data-shard=example`` (each rank keeps every n-th example and the
+  epochs are lockstep-scheduled) or ``batch`` (each rank takes its slice
+  of every global batch); bucket sizes are rounded to the rank count;
+- the state is broadcast from rank 0 after it is built or restored; the
+  step is data-parallel (``train/step.py``: loss over the global batch,
+  summed gradients, BatchNorm over the global batch);
+- ``--tpu-fsdp`` shards the parameters and Adam's moments over the data
+  axis (``parallel/sharding_rules.py``; MWER ignores it, as JAX does);
+- ``--tpu-async-ckpt`` writes checkpoints on a background thread
+  (``utils/checkpoint.py``).
 
 - Train mode (``--train-max-epoch`` > 0): the train and valid TFRecord
   splits go through ``BucketedLoader`` (frame-budget buckets from
@@ -33,8 +49,8 @@ Same flags as the JAX trainer (conf file + command line merge, plus
   checkpoint's EMA weights (and the live BatchNorm statistics);
   ``--tpu-bf16`` runs the forward in bf16.
 
-Refused (``NotImplementedError``, naming its ROADMAP.md item 7): FSDP,
-asynchronous checkpoints and more than one device or process.
+``--tpu-mesh-data`` other than the number of processes raises
+``ValueError`` (one process per card).
 
 Usage:
     python -m srf_tpu_torch.trainer_sr --config=egs/conf/timit.conf \\
@@ -52,8 +68,11 @@ from srf_tpu_torch.data.loader import (
     BucketedLoader, EvalLoader, LazySpeechDataset, SpeechDataset,
 )
 from srf_tpu_torch.data.tfrecord import count_records
+from srf_tpu_torch.models.layers import set_batch_norm_group
 from srf_tpu_torch.models.registry import build_model
 from srf_tpu_torch.ops.specaugment import make_augment_fn
+from srf_tpu_torch.parallel import distributed, sharding_rules
+from srf_tpu_torch.parallel.mesh import broadcast_state, make_mesh
 from srf_tpu_torch.train.loop import run_decoding, run_training
 from srf_tpu_torch.train.optimizer import get_optimizer
 from srf_tpu_torch.train.state import TrainState, param_count
@@ -64,13 +83,9 @@ from srf_tpu_torch.utils.checkpoint import load_checkpoint, restore_into
 from srf_tpu_torch.utils.vocab import get_file_path, load_vocab
 
 _LATER = "%s is not ported yet: ROADMAP.md section 1 item %d"
-# (flag, is it set, the ROADMAP.md section 1 item it waits for: 7,
-# parallelism)
-REFUSED = (
-    ("--tpu-fsdp", lambda c: c.tpu_fsdp, 7),
-    ("--tpu-async-ckpt", lambda c: c.tpu_async_ckpt, 7),
-    ("--tpu-mesh-data > 1", lambda c: (c.tpu_mesh_data or 1) > 1, 7),
-)
+# (flag, is it set, the ROADMAP.md section 1 item it waits for); every
+# flag of this trainer is ported
+REFUSED = ()
 
 
 def refuse_unported(config, refused=REFUSED):
@@ -95,17 +110,33 @@ def get_data_len(config):
     return tuple(nums)
 
 
-def build_loaders(config, logger, num_replicas=1, seed=0):
-    """(train_loader, valid_loader) with static bucket shapes, for one
-    process (the JAX trainer's single-process branch)."""
+def build_loaders(config, logger, mesh=None, seed=0):
+    """(train_loader, valid_loader) with static bucket shapes, for this
+    rank's shard of the mesh's ``data`` axis (JAX's ``build_loaders``, one
+    process per data shard: example sharding with a lockstep schedule, or
+    ``--tpu-data-shard=batch`` slices of every global batch)."""
+    n_proc = mesh.shape["data"] if mesh is not None else 1
+    index = mesh.index("data") if mesh is not None else 0
+    num_replicas = n_proc
     feat_dim = config.feat_dim
     train_ptrn = os.path.join(config.path_base, config.path_train_ptrn)
     valid_ptrn = os.path.join(config.path_base, config.path_valid_ptrn)
     ds_cls = LazySpeechDataset if config.tpu_data_lazy else SpeechDataset
+    shard_batches = n_proc > 1 and config.tpu_data_shard == "batch"
+    # batch sharding: every process scans the whole split and slices each
+    # global batch; example sharding: round-robin ownership and lockstep
+    # schedules
+    ds_proc = (0, 1) if shard_batches else (index, n_proc)
     train_ds = ds_cls(train_ptrn, feat_dim, config.prep_max_inp,
-                      config.prep_max_tar)
+                      config.prep_max_tar, process_index=ds_proc[0],
+                      process_count=ds_proc[1])
     valid_ds = ds_cls(valid_ptrn, feat_dim, config.prep_max_inp,
-                      config.prep_max_tar)
+                      config.prep_max_tar, process_index=ds_proc[0],
+                      process_count=ds_proc[1])
+    if shard_batches and not config.tpu_data_lazy:
+        logger.info(
+            "batch sharding loads the FULL split on every process; use "
+            "--tpu-data-lazy=True to keep resident memory O(index)")
     if config.train_batch_dynamic:
         if not (config.train_batch_frame and config.train_batch_frame > 0):
             raise ValueError("--train-batch-dynamic needs a positive "
@@ -118,23 +149,73 @@ def build_loaders(config, logger, num_replicas=1, seed=0):
         batch_sizes = round_batch_sizes(batch_sizes, num_replicas)
         logger.info("bucket_boundaries: [%s]", ", ".join(map(str, boundaries)))
         logger.info("bucket_batch_sizes: [%s]", ", ".join(map(str, batch_sizes)))
+        if n_proc > 1:
+            # each process yields its 1/n share of every global bucket
+            # batch
+            if any(bs % n_proc for bs in batch_sizes):
+                raise ValueError(
+                    "bucket batch sizes %s must divide across %d processes"
+                    " - every process must contribute the same number of"
+                    " devices to the data axis" % (batch_sizes, n_proc))
+            if not shard_batches:
+                batch_sizes = [bs // n_proc for bs in batch_sizes]
+            logger.info(
+                "multi-process buckets: local sizes [%s] x %d processes "
+                "(%s)",
+                ", ".join(str(bs // (n_proc if shard_batches else 1))
+                          for bs in batch_sizes),
+                n_proc,
+                "global-batch slices" if shard_batches
+                else "globally scheduled lockstep",
+            )
     else:
         if not (config.train_batch_size and config.train_batch_size > 0):
             raise ValueError("--train-batch-size must be positive")
-        boundaries = []
-        batch_sizes = [max(
+        # the global batch, rounded to the replica count; each process
+        # yields its 1/n share
+        global_batch = max(
             num_replicas,
             config.train_batch_size // num_replicas * num_replicas,
-        )]
+        )
+        boundaries = []
+        batch_sizes = [global_batch if shard_batches
+                       else global_batch // n_proc]
+        if n_proc > 1:
+            logger.info(
+                "multi-process batches: global %d = %d/process x %d "
+                "processes (shapes + per-epoch step count synchronized)",
+                global_batch, global_batch // n_proc, n_proc,
+            )
+    loader_kw = dict(global_sync=n_proc > 1 and not shard_batches,
+                     shard_batches=shard_batches, process_index=index,
+                     process_count=n_proc)
     train_loader = BucketedLoader(
         train_ds, boundaries, batch_sizes, shuffle=True, seed=seed,
-        drop_remainder=True,
+        drop_remainder=True, **loader_kw,
     )
     valid_loader = BucketedLoader(
         valid_ds, boundaries, batch_sizes, shuffle=False,
-        drop_remainder=True,
+        drop_remainder=True, **loader_kw,
     )
     return train_loader, valid_loader
+
+
+def build_state(config, logger, model, mesh, train, shard=True):
+    """The TrainState of this rank: the model on its device with its
+    BatchNorm over the mesh's data group, sharded with ``--tpu-fsdp``
+    where ``shard`` (before the optimizer, so Adam's moments shard with
+    their parameters), the optimizer and schedule in train mode."""
+    set_batch_norm_group(model, mesh.group("data"))
+    state = TrainState.create(model, None, None, with_ema=uses_ema(config),
+                              device=config.device)
+    if train and shard and config.tpu_fsdp:
+        sharding_rules.fsdp(state.model, mesh, logger, bf16=config.tpu_bf16)
+        if state.ema is not None:
+            state.reset_ema()
+    if train:
+        state.optimizer, state.scheduler = get_optimizer(
+            config, state.model.parameters())
+    return state
 
 
 def state_to_tree(state):
@@ -151,7 +232,8 @@ def state_to_tree(state):
     }
     if state.ema is not None:
         tree["ema"] = state.ema
-    return tree
+    # FSDP's shards gathered (a collective), so the file is one process's
+    return sharding_rules.full_state(tree)
 
 
 def uses_ema(config):
@@ -173,10 +255,19 @@ def decode_with_ema(config, logger, state):
     logger.info("Decoding with EMA params (--tpu-decode-ema)")
 
 
-def make_mwer_step(config, logger, apply_fn, in_len_div, blank_idx):
+def make_mwer_step(config, logger, apply_fn, in_len_div, blank_idx,
+                   group=None):
     """The MWER train step of ``--train-is-mwer`` (JAX's trainer_sr
-    branch), with its warnings."""
+    branch), with its notes and warnings."""
     from srf_tpu_torch.train.mwer import make_mwer_train_step
+
+    if distributed.world_size() > 1:
+        logger.info(
+            "MWER multi-process: each rank n-best-decodes only its own "
+            "rows; the update is data-parallel (train/mwer.py)")
+    if config.tpu_fsdp:
+        logger.warning("MWER mode ignores --tpu-fsdp sharding (plain "
+                       "data-parallel step)")
 
     if (config.tpu_ema_decay or 0.0) > 0:
         logger.warning(
@@ -195,13 +286,15 @@ def make_mwer_step(config, logger, apply_fn, in_len_div, blank_idx):
     return make_mwer_train_step(
         apply_fn, make_logits_fn(apply_fn), in_len_div, beam_width=beam,
         n_best=config.tpu_mwer_nbest, blank_id=blank_idx,
-        lam_ctc=config.tpu_mwer_lam_ctc, accum_steps=config.tpu_grad_accum)
+        lam_ctc=config.tpu_mwer_lam_ctc, accum_steps=config.tpu_grad_accum,
+        group=group)
 
 
 def main(argv=None):
     logger = Logger(name="srf_tpu_torch", level=Logger.DEBUG).logger
     config = ParseOption(argv or sys.argv, logger).args
     refuse_unported(config)
+    distributed.maybe_initialize(logger, device=config.device)
     train = config.train_max_epoch != 0
 
     _, _, dec_in_dim, _ = load_vocab(
@@ -213,6 +306,11 @@ def main(argv=None):
         "The modified output Dimension %d, blank index %d", dec_out_dim, blank_idx
     )
 
+    mesh = make_mesh(config.tpu_mesh_data, device=config.device)
+    group = mesh.group("data")
+    logger.info("Mesh: %s (%d-way data parallel)", mesh.shape,
+                mesh.shape["data"])
+
     logger.info("Analysing data samples..")
     train_num, valid_num, test_num = get_data_len(config)
     logger.info(
@@ -223,14 +321,13 @@ def main(argv=None):
     model, in_len_div = build_model(
         config, dec_out_dim, logger,
         generator=torch.Generator().manual_seed(config.tpu_seed))
-    optimizer, scheduler = (get_optimizer(config, model.parameters())
-                            if train else (None, None))
-    state = TrainState.create(model, optimizer, scheduler,
-                              with_ema=uses_ema(config),
-                              device=config.device)
+    state = build_state(config, logger, model, mesh, train,
+                        shard=not config.train_is_mwer)
     logger.info("Model parameters: %d", param_count(state.model))
     ckpt_manager, _, epoch_offset = load_checkpoint(
         config, logger, state, params_only=not train)
+    # one replicated state: rank 0's, as JAX's make_global_replicated
+    broadcast_state(state)
     apply_fn = make_apply_fn(state.model, bf16=config.tpu_bf16,
                              augment_fn=make_augment_fn(config))
 
@@ -254,16 +351,17 @@ def main(argv=None):
         ckpt_manager.close()
         return
 
-    train_loader, valid_loader = build_loaders(config, logger,
+    train_loader, valid_loader = build_loaders(config, logger, mesh,
                                                seed=config.tpu_seed)
     if config.train_is_mwer:
         train_step = make_mwer_step(config, logger, apply_fn, in_len_div,
-                                    blank_idx)
+                                    blank_idx, group)
     else:
         train_step = make_train_step(apply_fn, in_len_div,
                                      accum_steps=config.tpu_grad_accum,
-                                     ema_decay=config.tpu_ema_decay)
-    valid_step = make_valid_step(apply_fn, in_len_div)
+                                     ema_decay=config.tpu_ema_decay,
+                                     group=group)
+    valid_step = make_valid_step(apply_fn, in_len_div, group)
     metrics_path = (
         os.path.join(config.path_ckpt, "metrics.jsonl") if config.path_ckpt else None
     )
@@ -271,7 +369,8 @@ def main(argv=None):
         config, logger, state, train_step, valid_step, train_loader,
         valid_loader, ckpt_manager, epoch_offset, config.tpu_seed,
         train_num or 1,
-        schedule_fn=scheduler.lr_lambdas[0] if scheduler is not None else None,
+        schedule_fn=(state.scheduler.lr_lambdas[0]
+                     if state.scheduler is not None else None),
         metrics_path=metrics_path, state_to_save=state_to_tree,
         state_from_tree=lambda tree: restore_into(state, tree),
     )

@@ -2,8 +2,9 @@
 (port of ``srf_tpu/trainer_tf.py``).
 
 Same flags as the JAX trainer (conf file + command line merge, plus
-``--device``), one process on one device (the CUDA device unless
-``--device=cpu``). It is ``trainer_sr`` with the reference's STF deltas:
+``--device``), one process per device (the CUDA device unless
+``--device=cpu``), multi-process as ``trainer_sr`` is. It is
+``trainer_sr`` with the reference's STF deltas:
 
 - the attention penalty (reference: trainer_tf.py:144-146,285) and the
   padding-bias mask passed into self-attention (trainer_tf.py:141-142,
@@ -22,10 +23,13 @@ training extras of ``trainer_sr`` apply as in JAX's trainer_tf:
 ``--tpu-decode-ema`` in decode mode) and ``--tpu-grad-accum``; JAX's
 trainer_tf has no MWER branch, and neither has this one.
 
-Refused (``NotImplementedError``, each naming its ROADMAP.md item 7):
-``trainer_sr``'s refusals (FSDP, more than one data shard and
-asynchronous checkpoints) and the pipeline (``--tpu-pipeline-stages`` >
-1).
+``--tpu-pipeline-stages`` S > 1 pipelines the encoder blocks over a
+``("data", "pipe")`` mesh of the world's ranks (``parallel/pipeline.py``;
+rank = data index x S + stage), as JAX's trainer does: S must divide
+``--model-encoder-num``, ``auto`` attention resolves to ``plain``, and
+``--tpu-bf16``, ``--tpu-specaug`` and ``--tpu-fsdp`` are ignored with a
+warning (not composed with the pipeline). The gradients are summed over
+the whole mesh, the loss and BatchNorm over the data group.
 
 Usage:
     python -m srf_tpu_torch.trainer_tf --config=egs/conf/timit.conf \\
@@ -50,26 +54,23 @@ from srf_tpu_torch.models.stf import ConvEncoder
 from srf_tpu_torch.ops.attention_penalty import create_attention_penalty
 from srf_tpu_torch.ops.masking import get_padding_bias
 from srf_tpu_torch.ops.specaugment import make_augment_fn
+from srf_tpu_torch.parallel import distributed
+from srf_tpu_torch.parallel.mesh import (
+    broadcast_state, make_mesh, make_pipeline_mesh,
+)
+from srf_tpu_torch.parallel.pipeline import make_pipeline_apply_fn
 from srf_tpu_torch.train.loop import device_prefetch, run_decoding, run_training
-from srf_tpu_torch.train.optimizer import get_optimizer
-from srf_tpu_torch.train.state import TrainState, param_count
+from srf_tpu_torch.train.state import param_count
 from srf_tpu_torch.train.step import (
     make_apply_fn, make_logits_fn, make_train_step, make_valid_step,
 )
-from srf_tpu_torch.trainer_sr import REFUSED as SR_REFUSED
 from srf_tpu_torch.trainer_sr import (
-    build_loaders, decode_with_ema, get_data_len, refuse_unported,
-    state_to_tree, uses_ema,
+    build_loaders, build_state, decode_with_ema, get_data_len,
+    refuse_unported, state_to_tree,
 )
 from srf_tpu_torch.utils.checkpoint import load_checkpoint, restore_into
 from srf_tpu_torch.utils.metrics import MeanMetric
 from srf_tpu_torch.utils.vocab import get_file_path, load_vocab
-
-# trainer_sr's refusals and the pipeline (ROADMAP.md section 1 item 7)
-REFUSED = SR_REFUSED + (
-    ("--tpu-pipeline-stages > 1",
-     lambda c: (c.tpu_pipeline_stages or 1) > 1, 7),
-)
 
 
 def make_stf_extra_kwargs(att_pen, in_len_div):
@@ -95,7 +96,8 @@ def make_stf_extra_kwargs(att_pen, in_len_div):
 def main(argv=None):
     logger = Logger(name="srf_tpu_torch", level=Logger.DEBUG).logger
     config = ParseOption(argv or sys.argv, logger).args
-    refuse_unported(config, REFUSED)
+    refuse_unported(config)
+    distributed.maybe_initialize(logger, device=config.device)
     train = config.train_max_epoch != 0
 
     _, _, dec_in_dim, _ = load_vocab(
@@ -106,6 +108,16 @@ def main(argv=None):
         "The modified output Dimension %d, blank index %d", dec_out_dim,
         dec_in_dim,
     )
+    pipe_stages = config.tpu_pipeline_stages or 1
+    if pipe_stages > 1:
+        # (data x pipe): the blocks stream over 'pipe', the batch shards
+        # over 'data'
+        mesh = make_pipeline_mesh(pipe_stages, config.tpu_mesh_data,
+                                  device=config.device)
+    else:
+        mesh = make_mesh(config.tpu_mesh_data, device=config.device)
+    logger.info("Mesh: %s", mesh.shape)
+
     logger.info("Analysing data samples..")
     train_num, valid_num, test_num = get_data_len(config)
     logger.info(
@@ -128,18 +140,45 @@ def main(argv=None):
     model = ConvEncoder.from_config(
         config, dec_out_dim,
         generator=torch.Generator().manual_seed(config.tpu_seed))
-    optimizer, scheduler = (get_optimizer(config, model.parameters())
-                            if train else (None, None))
-    state = TrainState.create(model, optimizer, scheduler,
-                              with_ema=uses_ema(config),
-                              device=config.device)
+    if pipe_stages > 1:
+        if config.model_encoder_num % pipe_stages:
+            raise ValueError(
+                "--tpu-pipeline-stages=%d must divide "
+                "--model-encoder-num=%d"
+                % (pipe_stages, config.model_encoder_num))
+        if config.tpu_bf16 or config.tpu_specaug or config.tpu_fsdp:
+            logger.warning(
+                "--tpu-bf16/--tpu-specaug/--tpu-fsdp are ignored under "
+                "--tpu-pipeline-stages (not yet composed)")
+    state = build_state(config, logger, model, mesh, train,
+                        shard=pipe_stages == 1)
     logger.info("Model parameters: %d", param_count(state.model))
     ckpt_manager, _, epoch_offset = load_checkpoint(
         config, logger, state, params_only=not train)
-    apply_fn = make_apply_fn(state.model,
-                             make_stf_extra_kwargs(att_pen, in_len_div),
-                             bf16=config.tpu_bf16,
-                             augment_fn=make_augment_fn(config))
+    # one replicated state: rank 0's, as JAX's make_global_replicated
+    broadcast_state(state)
+    if pipe_stages > 1:
+        # one schedule for every bucket: 'auto' cannot choose per batch
+        # shape there, so it resolves to plain, as in JAX
+        pipe_impl = "blockwise" if att_kernel == "blockwise" else "plain"
+        if att_kernel == "auto":
+            logger.info(
+                "pipeline: --tpu-attention-kernel=auto resolves to "
+                "'plain' under --tpu-pipeline-stages (per-bucket auto "
+                "selection is not composed); pass =blockwise explicitly "
+                "for long sequences")
+        apply_fn = make_pipeline_apply_fn(
+            state.model, mesh, config.tpu_pipeline_microbatch, att_pen,
+            in_len_div, impl=pipe_impl, remat=config.tpu_pipeline_remat)
+        logger.info(
+            "Pipeline parallelism: %d stages x %d data shards, "
+            "<=%d microbatches/step", pipe_stages, mesh.shape["data"],
+            config.tpu_pipeline_microbatch)
+    else:
+        apply_fn = make_apply_fn(state.model,
+                                 make_stf_extra_kwargs(att_pen, in_len_div),
+                                 bf16=config.tpu_bf16,
+                                 augment_fn=make_augment_fn(config))
 
     if not train:
         test_ptrn = os.path.join(config.path_base, config.path_test_ptrn)
@@ -158,12 +197,19 @@ def main(argv=None):
         ckpt_manager.close()
         return
 
-    train_loader, valid_loader = build_loaders(config, logger,
+    train_loader, valid_loader = build_loaders(config, logger, mesh,
                                                seed=config.tpu_seed)
+    group = mesh.group("data")
+    # the pipeline sums its gradients over every rank: each block's come
+    # from its own stage, the front end's and the head's from one stage
+    grad_group = (torch.distributed.group.WORLD
+                  if pipe_stages > 1 and mesh.device_mesh is not None
+                  else None)
     train_step = make_train_step(apply_fn, in_len_div,
                                  accum_steps=config.tpu_grad_accum,
-                                 ema_decay=config.tpu_ema_decay)
-    valid_step = make_valid_step(apply_fn, in_len_div)
+                                 ema_decay=config.tpu_ema_decay,
+                                 group=group, grad_group=grad_group)
+    valid_step = make_valid_step(apply_fn, in_len_div, group)
 
     # pre-training validation pass (reference: trainer_tf.py:336)
     pre_valid = MeanMetric()
@@ -179,7 +225,8 @@ def main(argv=None):
         config, logger, state, train_step, valid_step, train_loader,
         valid_loader, ckpt_manager, epoch_offset, config.tpu_seed,
         train_num or 1,
-        schedule_fn=scheduler.lr_lambdas[0] if scheduler is not None else None,
+        schedule_fn=(state.scheduler.lr_lambdas[0]
+                     if state.scheduler is not None else None),
         metrics_path=metrics_path, state_to_save=state_to_tree,
         state_from_tree=lambda tree: restore_into(state, tree),
     )

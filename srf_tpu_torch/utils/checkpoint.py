@@ -23,35 +23,52 @@ model's state_dict, BatchNorm buffers included), "optimizer",
 "scheduler"}`` and, for a run with an EMA of the parameters
 (``--tpu-ema-decay``), ``"ema"`` (the trained parameters' averages, keyed
 as ``named_parameters``); a save writes a temporary directory and renames
-it, so a step directory is either whole or absent.
+it, so a step directory is either whole or absent. The file is the
+one-process format whatever the world size or layout (a data-parallel or
+FSDP run saves whole tensors from rank 0: ``train/loop.py``,
+``parallel/sharding_rules.py``), so averaging, decoding and a resume on
+another world size read it unchanged; orbax's checkpoints do not depend
+on the layout either.
+
+``--tpu-async-ckpt`` (``use_async=True``): ``save`` copies the state to
+host memory before it returns (the next step may change the tensors in
+place) and writes the file on a background thread; ``wait()`` joins it,
+and every read waits first, as JAX's orbax manager does.
 """
 
 import os
 import shutil
+import threading
 
 import torch
 
 STATE_FILE = "state.pt"
 
 
-def _to_cpu(value):
+def _to_cpu(value, copy=False):
+    """``value`` with its tensors detached on the CPU (copies of CPU
+    tensors too where ``copy``)."""
     if torch.is_tensor(value):
-        return value.detach().cpu()
+        return value.detach().to("cpu", copy=copy)
     if isinstance(value, dict):
-        return {k: _to_cpu(v) for k, v in value.items()}
+        return {k: _to_cpu(v, copy) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
-        return type(value)(_to_cpu(v) for v in value)
+        return type(value)(_to_cpu(v, copy) for v in value)
     return value
 
 
 class CheckpointManager:
-    """Numbered checkpoints under one directory; saves are synchronous."""
+    """Numbered checkpoints under one directory; saves are synchronous
+    unless ``use_async`` (the module docstring)."""
 
-    def __init__(self, path, max_to_keep=None):
+    def __init__(self, path, max_to_keep=None, use_async=False):
         if max_to_keep is not None and max_to_keep < 0:
             max_to_keep = None
         self.path = os.path.abspath(path)
         self.max_to_keep = max_to_keep
+        self.use_async = use_async
+        self._writer = None  # the background save's thread
+        self._failure = []  # its exception, raised by wait()
         os.makedirs(self.path, exist_ok=True)
 
     def _dir(self, step):
@@ -60,28 +77,60 @@ class CheckpointManager:
     def save(self, step, state_dict):
         """Write ``state_dict`` (``{"step", "model", "optimizer",
         "scheduler"}``, tensors moved to the CPU) as ``step``; then drop the
-        oldest steps beyond ``max_to_keep``."""
+        oldest steps beyond ``max_to_keep``. Asynchronous saves return
+        once the host copy is made (one save is in flight at a time)."""
+        self.wait()
+        host = _to_cpu(state_dict, copy=self.use_async)
+        if not self.use_async:
+            return self._write(step, host)
+
+        def write():
+            try:
+                self._write(step, host)
+            except BaseException as exc:  # noqa: BLE001 - raised by wait()
+                self._failure.append(exc)
+
+        self._writer = threading.Thread(target=write, daemon=True,
+                                        name="ckpt-write-%d" % step)
+        self._writer.start()
+        return self._dir(step)
+
+    def _write(self, step, host):
         final = self._dir(step)
         tmp = "%s.tmp-%d" % (final, os.getpid())
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(_to_cpu(state_dict), os.path.join(tmp, STATE_FILE))
+        torch.save(host, os.path.join(tmp, STATE_FILE))
         if os.path.isdir(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
         if self.max_to_keep is not None:
-            for old in self.all_steps()[:-self.max_to_keep]:
+            for old in self._steps()[:-self.max_to_keep]:
                 shutil.rmtree(self._dir(old))
         return final
 
+    def wait(self):
+        """Block until the pending asynchronous save is on disk; raise its
+        error if it failed."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._failure:
+            raise self._failure.pop()
+
     def restore(self, step):
         """The checkpoint dict saved as ``step`` (tensors on the CPU)."""
+        self.wait()
         path = os.path.join(self._dir(step), STATE_FILE)
         if not os.path.isfile(path):
             raise FileNotFoundError("no checkpoint %s" % path)
         return torch.load(path, map_location="cpu", weights_only=True)
 
     def all_steps(self):
+        self.wait()
+        return self._steps()
+
+    def _steps(self):
         steps = []
         for name in os.listdir(self.path):
             if name.isdigit() and os.path.isfile(
@@ -99,7 +148,8 @@ class CheckpointManager:
             shutil.rmtree(self._dir(step))
 
     def close(self):
-        """Nothing to release (saves are synchronous)."""
+        """Wait for the pending save."""
+        self.wait()
 
 
 def restore_into(state, tree, params_only=False):
@@ -118,11 +168,20 @@ def restore_into(state, tree, params_only=False):
     through the new run's optimizer at the restored count, so each group's
     rate is set to ``base_lr * lr_lambda(count)`` under a scheduler, or to
     the group's current rate (``--train-lr-param-k`` for adam and sgd)."""
-    state.model.load_state_dict(tree["model"])
+    from srf_tpu_torch.parallel.sharding_rules import (
+        shard_like, shard_optimizer_state,
+    )
+
+    # an FSDP model takes each whole tensor as its shard
+    live = state.model.state_dict()
+    state.model.load_state_dict({k: shard_like(v, live.get(k))
+                                 for k, v in tree["model"].items()})
     state.step = int(tree["step"])
     if tree.get("ema") is not None:
         device = next(state.model.parameters()).device
-        state.ema = {k: v.to(device) for k, v in tree["ema"].items()}
+        params = dict(state.model.named_parameters())
+        state.ema = {k: shard_like(v.to(device), params[k])
+                     for k, v in tree["ema"].items()}
     elif state.ema is not None:
         # an EMA asked of a checkpoint without one: for decoding there is
         # none (--tpu-decode-ema raises); training starts it afresh at the
@@ -136,7 +195,8 @@ def restore_into(state, tree, params_only=False):
     if optimizer is not None and tree.get("optimizer") is not None:
         current = [{k: group[k] for k in ("lr", "initial_lr") if k in group}
                    for group in optimizer.param_groups]
-        optimizer.load_state_dict(tree["optimizer"])
+        optimizer.load_state_dict(
+            shard_optimizer_state(tree["optimizer"], optimizer))
         for group, rates in zip(optimizer.param_groups, current):
             group.update(rates)
     if scheduler is not None and tree.get("scheduler") is not None:
@@ -161,6 +221,7 @@ def load_checkpoint(config, logger, template_state, params_only=False):
     depends on the training-time optimizer flags."""
     manager = CheckpointManager(
         config.path_ckpt, max_to_keep=config.model_ckpt_max_to_keep,
+        use_async=bool(getattr(config, "tpu_async_ckpt", False)),
     )
     step = None
     if config.path_ckpt_epoch is not None and config.path_ckpt_epoch > 0:

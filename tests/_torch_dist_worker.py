@@ -1,0 +1,283 @@
+"""One rank of the port's multi-process tests, and the launcher that starts
+the ranks (real OS processes over gloo on a localhost port).
+
+    python tests/_torch_dist_worker.py SCENARIO WORKDIR
+
+with ``SRF_COORDINATOR``, ``SRF_NUM_PROCESSES`` and ``SRF_PROCESS_ID`` set
+(``launch`` sets them). Each scenario reads ``WORKDIR/inputs.npz`` (the
+test writes the weights as a state_dict, the batch and a JSON ``spec``),
+runs on the CPU and writes ``WORKDIR/<scenario>-rank<r>.npz``. It imports
+torch and srf_tpu_torch only.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch(command, ranks=2, expect_rc=0, timeout=240, env=None):
+    """Run ``command`` (argv) as ``ranks`` processes of one gloo world;
+    assert each exits ``expect_rc``; return their (stdout, stderr)."""
+    port = free_port()
+    procs = []
+    for rank in range(ranks):
+        proc_env = dict(os.environ, SRF_COORDINATOR="127.0.0.1:%d" % port,
+                        SRF_NUM_PROCESSES=str(ranks),
+                        SRF_PROCESS_ID=str(rank), OMP_NUM_THREADS="1",
+                        PYTHONPATH=REPO + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        proc_env.update(env or {})
+        procs.append(subprocess.Popen(
+            command, env=proc_env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=timeout))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for rank, (proc, (_, err)) in enumerate(zip(procs, outputs)):
+        assert proc.returncode == expect_rc, (rank, proc.returncode,
+                                              err[-4000:])
+    return outputs
+
+
+def run_scenario(scenario, workdir, ranks=2, **kwargs):
+    """``launch`` this file's ``scenario``; returns each rank's npz as a
+    dict."""
+    launch([sys.executable, os.path.abspath(__file__), scenario,
+            str(workdir)], ranks=ranks, **kwargs)
+    return [dict(np.load(os.path.join(str(workdir), "%s-rank%d.npz"
+                                      % (scenario, r))))
+            for r in range(ranks)]
+
+
+# ---------------------------------------------------------------- ranks
+
+
+def _inputs(workdir):
+    data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    spec = json.loads(str(data.pop("spec")))
+    state = {k[3:]: torch.from_numpy(v) for k, v in data.items()
+             if k.startswith("sd/")}
+    arrays = {k: v for k, v in data.items() if not k.startswith("sd/")}
+    return spec, state, arrays
+
+
+def _no_dropout(model):
+    for module in model.modules():
+        if isinstance(module, torch.nn.Dropout):
+            module.p = 0.0
+    return model
+
+
+def _flat(prefix, tensors):
+    return {prefix + k: v.detach().numpy().copy() for k, v in tensors.items()}
+
+
+def _srf_state(spec, state, mesh, fsdp=False, bf16=False):
+    from srf_tpu_torch.models.layers import set_batch_norm_group
+    from srf_tpu_torch.models.srf import SequenceRouter
+    from srf_tpu_torch.parallel import sharding_rules
+    from srf_tpu_torch.train import optimizer
+    from srf_tpu_torch.train.state import TrainState
+
+    model = _no_dropout(SequenceRouter(**spec["model"]))
+    model.load_state_dict(state)
+    set_batch_norm_group(model, mesh.group("data"))
+    if fsdp:
+        sharding_rules.fsdp(model, mesh, bf16=bf16)
+    config = type("Config", (), spec["optimizer"])
+    opt, scheduler = optimizer.get_optimizer(config, model.parameters())
+    return TrainState.create(model, opt, scheduler, device="cpu")
+
+
+def _local_batch(arrays, rank, ranks):
+    rows = arrays["feats"].shape[0] // ranks
+    part = slice(rank * rows, (rank + 1) * rows)
+    return {k: torch.from_numpy(arrays[k][part])
+            for k in ("feats", "labels", "inp_len", "tar_len")}
+
+
+def dp(workdir):
+    """The 2-rank data-parallel SRF step: two steps (accum 1), one step at
+    accum 2, two FSDP steps with their checkpoint (rank 0 writes), one
+    ``--tpu-bf16`` step unsharded and under FSDP, and one MWER update."""
+    from srf_tpu_torch.parallel import distributed, sharding_rules
+    from srf_tpu_torch.parallel.mesh import broadcast_state, make_mesh
+    from srf_tpu_torch.train import step
+    from srf_tpu_torch.utils.checkpoint import CheckpointManager
+
+    spec, state_dict, arrays = _inputs(workdir)
+    rank, ranks = distributed.rank(), distributed.world_size()
+    mesh = make_mesh(device="cpu")
+    group = mesh.group("data")
+    batch = _local_batch(arrays, rank, ranks)
+    div = spec["in_len_div"]
+    out = {}
+    for label, accum, steps, fsdp, bf16 in (
+            ("dp", 1, 2, False, False), ("accum", 2, 1, False, False),
+            ("fsdp", 1, 2, True, False), ("dp_bf16", 1, 1, False, True),
+            ("fsdp_bf16", 1, 1, True, True)):
+        state = broadcast_state(_srf_state(spec, state_dict, mesh, fsdp,
+                                           bf16))
+        train_step = step.make_train_step(
+            step.make_apply_fn(state.model, bf16=bf16), div,
+            accum_steps=accum, group=group)
+        for i in range(steps):
+            state, metrics = train_step(state, batch, 1234)
+            for key, value in metrics.items():
+                out["%s/metrics/%d/%s" % (label, i, key)] = value.item()
+            if i == 0:
+                grads = {k: p.grad for k, p in
+                         state.model.named_parameters()}
+                out.update(_flat(label + "/grad/",
+                                 sharding_rules.full_state(grads)))
+        tree = sharding_rules.full_state(state.model.state_dict())
+        out.update(_flat(label + "/state/", tree))
+        if label == "dp":
+            valid = step.make_valid_step(step.make_apply_fn(state.model),
+                                         div, group)(state, batch)
+            out["valid/loss_sum"] = valid["loss_sum"].item()
+            out["valid/samples"] = valid["samples"].item()
+        if label == "fsdp":
+            from srf_tpu_torch.trainer_sr import state_to_tree
+
+            saved = state_to_tree(state)
+            if rank == 0:
+                CheckpointManager(os.path.join(workdir, "fsdp_ckpt")).save(
+                    state.step, saved)
+            distributed.barrier()
+    # one MWER update: each rank decodes its own rows' n-best
+    from srf_tpu_torch.train.mwer import make_mwer_train_step
+
+    state = broadcast_state(_srf_state(spec, state_dict, mesh))
+    apply_fn = step.make_apply_fn(state.model)
+    mwer_step = make_mwer_train_step(
+        apply_fn, step.make_logits_fn(apply_fn), div, beam_width=8,
+        n_best=3, blank_id=spec["model"]["class_n"] - 1, group=group)
+    state, metrics = mwer_step(state, batch, 3)
+    for key, value in metrics.items():
+        out["mwer/metrics/0/%s" % key] = value.item()
+    out.update(_flat("mwer/grad/", {k: p.grad for k, p in
+                                    state.model.named_parameters()}))
+    np.savez(os.path.join(workdir, "dp-rank%d.npz" % rank), **out)
+
+
+def loader(workdir):
+    """Both multi-process loader modes for 2 epochs: each step's utt ids
+    and padded shapes."""
+    from srf_tpu_torch.data.loader import BucketedLoader, SpeechDataset
+    from srf_tpu_torch.parallel import distributed
+
+    spec, _, _ = _inputs(workdir)
+    rank, ranks = distributed.rank(), distributed.world_size()
+    pattern = os.path.join(workdir, spec["pattern"])
+    out = {}
+    for mode in ("global_sync", "shard_batches"):
+        sharded = mode == "global_sync"
+        ds = SpeechDataset(pattern, spec["feat_dim"], with_utt_id=True,
+                           process_index=rank if sharded else 0,
+                           process_count=ranks if sharded else 1)
+        sizes = [bs // ranks for bs in spec["batch_sizes"]] if sharded \
+            else spec["batch_sizes"]
+        loader_ = BucketedLoader(ds, spec["boundaries"], sizes, shuffle=True,
+                                 seed=7, prefetch=0, process_index=rank,
+                                 process_count=ranks, **{mode: True})
+        for epoch in range(2):
+            loader_.set_epoch(epoch)
+            steps = list(loader_)
+            out["%s/%d/ids" % (mode, epoch)] = np.array(
+                ["|".join(b["utt_ids"]) for b in steps])
+            out["%s/%d/shapes" % (mode, epoch)] = np.array(
+                [b["feats"].shape for b in steps])
+        out["%s/batch_shapes" % mode] = np.array(loader_.batch_shapes())
+    np.savez(os.path.join(workdir, "loader-rank%d.npz" % rank), **out)
+
+
+def ring(workdir):
+    """ring_attention over the world: output and the gradients of q, k, v
+    for a fixed cotangent."""
+    from srf_tpu_torch.ops.blockwise_attention import PenaltyParams
+    from srf_tpu_torch.ops.ring_attention import ring_attention
+    from srf_tpu_torch.parallel import distributed
+
+    spec, _, arrays = _inputs(workdir)
+    q, k, v = (torch.from_numpy(arrays[n]).requires_grad_()
+               for n in ("q", "k", "v"))
+    penalty = PenaltyParams(*spec["penalty"]) if spec["penalty"] else None
+    out = ring_attention(q, k, v, torch.distributed.group.WORLD,
+                         torch.from_numpy(arrays["mask"]), penalty)
+    (out * torch.from_numpy(arrays["cot"])).sum().backward()
+    np.savez(os.path.join(workdir, "ring-rank%d.npz" % distributed.rank()),
+             out=out.detach().numpy(), dq=q.grad.numpy(), dk=k.grad.numpy(),
+             dv=v.grad.numpy())
+
+
+def pipeline(workdir):
+    """The STF pipelined over a (data, pipe) mesh of the world in eval
+    mode: logits and the gradients of mean(logits^2) (summed over the
+    mesh) for each (microbatches, remat) of the spec."""
+    from srf_tpu_torch.models.stf import ConvEncoder
+    from srf_tpu_torch.parallel import distributed
+    from srf_tpu_torch.parallel.mesh import make_pipeline_mesh
+    from srf_tpu_torch.parallel.pipeline import make_pipeline_apply_fn
+    from srf_tpu_torch.train.step import all_reduce_gradients
+
+    spec, state_dict, arrays = _inputs(workdir)
+    mesh = make_pipeline_mesh(spec["stages"], device="cpu")
+    data_rank = mesh.index("data")
+    rows = arrays["feats"].shape[0] // mesh.shape["data"]
+    part = slice(data_rank * rows, (data_rank + 1) * rows)
+    batch = {"feats": torch.from_numpy(arrays["feats"][part]),
+             "inp_len": torch.from_numpy(arrays["inp_len"][part])}
+    out = {}
+    for micro, remat in spec["runs"]:
+        model = ConvEncoder(**spec["model"])
+        model.load_state_dict(state_dict)
+        apply_fn = make_pipeline_apply_fn(model, mesh, micro, in_len_div=4,
+                                          remat=remat)
+        logits = apply_fn(batch, False)
+        (logits * logits).mean().backward()
+        all_reduce_gradients(model, torch.distributed.group.WORLD)
+        key = "%d-%d" % (micro, remat)
+        out[key + "/logits"] = logits.detach().numpy()
+        out.update(_flat(key + "/grad/", {
+            k: p.grad for k, p in model.named_parameters()}))
+    np.savez(os.path.join(workdir, "pipeline-rank%d.npz"
+                          % distributed.rank()), **out)
+
+
+SCENARIOS = {"dp": dp, "loader": loader, "ring": ring, "pipeline": pipeline}
+
+
+def main(scenario, workdir):
+    from srf_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(1)
+    distributed.maybe_initialize(device="cpu")
+    try:
+        SCENARIOS[scenario](workdir)
+        distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:3])

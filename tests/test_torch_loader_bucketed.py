@@ -164,11 +164,18 @@ def test_producer_error_reaches_the_consumer(shards):
 
 
 def test_multi_process_modes_are_refused(shards):
+    """The multi-process modes run (tests/test_torch_parallel.py holds
+    them to JAX's schedules on two ranks); what JAX refuses is refused:
+    both modes at once, and batch sharding of sizes the processes do not
+    divide."""
     _, ds = _datasets(shards)
-    for mode in ("global_sync", "shard_batches"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            loader.BucketedLoader(ds, BOUNDARIES, BATCH_SIZES,
-                                  process_count=2, **{mode: True})
     with pytest.raises(ValueError, match="alternative"):
         loader.BucketedLoader(ds, BOUNDARIES, BATCH_SIZES, global_sync=True,
                               shard_batches=True)
+    with pytest.raises(ValueError, match="divisible by process_count=3"):
+        loader.BucketedLoader(ds, BOUNDARIES, [3, 4, 6, 6], process_count=3,
+                              shard_batches=True)
+    sliced = loader.BucketedLoader(ds, BOUNDARIES, [4, 4, 4, 2], prefetch=0,
+                                   shard_batches=True, process_index=1,
+                                   process_count=2)
+    assert [s[0] for s in sliced.batch_shapes()] == [2, 2, 2, 1]

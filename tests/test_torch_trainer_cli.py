@@ -253,14 +253,16 @@ def test_train_mode_needs_the_card_unless_the_cpu_is_asked(corpus,
     "--tpu-bf16=True", "--tpu-specaug=True", "--tpu-fsdp=True",
     "--tpu-async-ckpt=True", "--tpu-mesh-data=2"])
 def test_training_extras_are_refused(corpus, tmp_path, flag):
-    """The parallelism flags (ROADMAP.md section 1 item 7) are refused;
-    the training extras, refused before they were ported, each train an
-    epoch with finite losses (an EMA run's checkpoint holds its "ema")."""
+    """Nothing is refused any more. The training extras and, in one
+    process, ``--tpu-fsdp`` (nothing to shard, as JAX's on one device) and
+    ``--tpu-async-ckpt`` each train an epoch with finite losses (an EMA
+    run's checkpoint holds its "ema"); ``--tpu-mesh-data=2`` in one
+    process raises JAX's ValueError, naming the processes to launch
+    (tests/test_torch_distributed.py runs two)."""
     argv = _argv(corpus, "--train-max-epoch=1", flag,
                  "--path-ckpt=%s" % tmp_path)
-    if flag in ("--tpu-fsdp=True", "--tpu-async-ckpt=True",
-                "--tpu-mesh-data=2"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    if flag == "--tpu-mesh-data=2":
+        with pytest.raises(ValueError, match="launch 2 processes"):
             trainer_sr.main(argv)
         return
     trainer_sr.main(argv)

@@ -16,8 +16,9 @@ written by ``tools.save_tfrecord``):
   ROADMAP.md);
 - ``trainer_sr`` trains a BLSTM with the CNN front end for 2 epochs,
   ``average_ckpt`` averages them and ``trainer_sr`` decodes the average;
-- what stays refused raises ``NotImplementedError`` naming its ROADMAP
-  item, and ``--tpu-attention-kernel`` ring or a typo JAX's ``ValueError``.
+- a pipeline or data mesh wider than the one process raises the
+  ``ValueError`` naming the processes to launch, and
+  ``--tpu-attention-kernel`` ring or a typo JAX's ``ValueError``.
 """
 
 import io
@@ -256,12 +257,14 @@ def test_blstm_through_trainer_sr_and_average(corpus, capsys):
     ("--tpu-specaug=True", 5), ("--tpu-ema-decay=0.999", 5),
     ("--tpu-grad-accum=2", 5)])
 def test_trainer_tf_refusals(corpus, tmp_path, flag, item):
-    """Item 7's flags are refused; item 5's (the training extras), refused
-    before they were ported, each train the STF for an epoch."""
-    if item == 7:
-        with pytest.raises(NotImplementedError,
-                           match="section 1 item %d" % item):
-            trainer_tf.main(_argv(tmp_path, tmp_path, *STF_FLAGS, flag,
+    """Nothing is refused any more. Item 5's flags (the training extras)
+    and item 7's ``--tpu-fsdp`` train the STF for an epoch in one process;
+    a pipeline of 2 stages or a data mesh of 2 in one process raises the
+    ValueError that names the processes to launch
+    (tests/test_torch_pipeline.py runs them on 2 ranks)."""
+    if flag in ("--tpu-pipeline-stages=2", "--tpu-mesh-data=2"):
+        with pytest.raises(ValueError, match="launch 2 processes"):
+            trainer_tf.main(_argv(corpus, tmp_path, *STF_FLAGS, flag,
                                   "--train-max-epoch=1"))
         return
     trainer_tf.main(_argv(corpus, tmp_path, *STF_FLAGS, flag,
