@@ -287,8 +287,24 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    gloo group started first, then the CLI's main) on a synthetic corpus,
    both ranks' valid losses equal, rank 0's checkpoint and metrics; every
    rank's step times and peak memory;
-17. a "kernels" JSON line (K1, K2, K3, K4, K5 and the variants K1-bf16,
-   K2-bf16, K5-bf16), then the card line, then the result line.
+17. the 'model' mesh axis (the class capsules sharded over ranks, the
+   routing softmax split across them), as processes sharing cuda:0 over
+   gloo like phase 16 (``chip_smoke.py --model-axis-worker DIR``): (a)
+   K1-tp and K2-tp (csrc/sdr_tp.cu) against the plain split version on
+   the same CUDA tensors, at K1's and K2's tolerances, at SRF-WSJ's last
+   layer on 2 ranks (150 -> 16 of 32 capsules of dim 20, B 8, T' 400) and
+   SRF-TIMIT's on 3 (90 -> 21 of 63 of dim 8, 29 x 61), 1 and 2
+   iterations, the PAD capsule's owner and the others, with their median
+   times, plain times and bounds, and K2-tp's refusal of a two-iteration
+   forward's stats; (b) the SRF-WSJ train step at full width on a
+   (data 1, model 2) mesh, phase 12c's weights and 8 x 1600 batch,
+   dropout off, held to the one-process step on the card within phase
+   12c's limits, K1 18, K2 36, K1-tp 801 and K2-tp 803 launches a rank,
+   ms a step, peak memory and the sharded layer's scratch beside the one
+   process's;
+18. a "kernels" JSON line (K1, K2, K3, K4, K5, the variants K1-bf16,
+   K2-bf16, K5-bf16, and K1-tp, K2-tp), then the card line, then the
+   result line.
 """
 
 import json
@@ -1217,10 +1233,11 @@ def scan_path_phase(torch, card, state):
     captured, real = [], srf.route_layer
 
     def capture(u, wgt, bias, num_iter, is_context, is_last_layer,
-                bf16=False):
+                bf16=False, shard=None):
         captured.append((u.detach().clone(), wgt.detach(), bias.detach(),
                          num_iter, is_context, is_last_layer))
-        return real(u, wgt, bias, num_iter, is_context, is_last_layer, bf16)
+        return real(u, wgt, bias, num_iter, is_context, is_last_layer, bf16,
+                    shard)
 
     srf.route_layer = capture
     try:
@@ -5185,16 +5202,19 @@ def free_port():
 
 
 def par_step(torch, config, state, batch, group=None, grad_group=None,
-             mesh=None, fsdp=False, apply_fn_of=None, timed=0, float64=False):
+             mesh=None, fsdp=False, apply_fn_of=None, timed=0, float64=False,
+             model_mesh=None):
     """One dropout-free train step of ``config``'s model from ``state`` on
     the card, at the Noam schedule's count PARITY_COUNT (phase 7's parity
     step), data-parallel over ``group`` / ``grad_group``, sharded over
-    ``mesh`` where ``fsdp``; ``apply_fn_of(model, in_len_div)`` replaces
-    the apply adapter (the pipeline's); ``float64`` runs the model and the
-    features in float64. Then ``timed`` more steps.
+    ``mesh`` where ``fsdp``, its class capsules over ``model_mesh``'s
+    'model' axis where given (apply_rules); ``apply_fn_of(model,
+    in_len_div)`` replaces the apply adapter (the pipeline's); ``float64``
+    runs the model and the features in float64. Then ``timed`` more steps.
     Returns the loss, the whole gradients and state after the step (on
-    the host), the rate, K1's and K2's launches in the step, each timed
-    step's ms and the peak memory over the timed steps (MB)."""
+    the host), the rate, K1's and K2's launches in the step (and K1-tp's
+    and K2-tp's), each timed step's ms and the peak memory over the timed
+    steps (MB)."""
     from srf_tpu_torch.models.layers import set_batch_norm_group
     from srf_tpu_torch.models.registry import build_model
     from srf_tpu_torch.ops import routing_cuda
@@ -5215,6 +5235,8 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
     train_state = TrainState.create(model, None, None, device="cuda")
     if fsdp:
         sharding_rules.fsdp(train_state.model, mesh)
+    if model_mesh is not None:
+        sharding_rules.apply_rules(train_state.model, model_mesh)
     train_state.optimizer, train_state.scheduler = get_optimizer(
         config, train_state.model.parameters())
     rate = train_state.scheduler.lr_lambdas[0](PARITY_COUNT)
@@ -5223,20 +5245,26 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
     apply_fn = (apply_fn_of(train_state.model, in_len_div) if apply_fn_of
                 else make_apply_fn(train_state.model,
                                    extra_kwargs_fn(config, in_len_div)))
-    step = make_train_step(apply_fn, in_len_div, group=group,
-                           grad_group=grad_group)
+    step = make_train_step(
+        apply_fn, in_len_div, group=group, grad_group=grad_group,
+        model_group=model_mesh.group("model") if model_mesh else None)
     k1, k2 = (routing_cuda.sequential_routing_cuda,
               routing_cuda.sequential_routing_bwd_cuda)
-    k1.launches = k2.launches = 0
+    k1tp, k2tp = (routing_cuda.sequential_routing_tp_cuda,
+                  routing_cuda.sequential_routing_tp_bwd_cuda)
+    k1.launches = k2.launches = k1tp.launches = k2tp.launches = 0
     _, metrics = step(train_state, batch, config.tpu_seed)
     torch.cuda.synchronize()
     launches = (k1.launches, k2.launches)
+    tp_launches = (k1tp.launches, k2tp.launches)
     model = train_state.model
-    grads = sharding_rules.full_state(
-        {k: p.grad for k, p in model.named_parameters() if p.requires_grad})
-    after = sharding_rules.full_state(model.state_dict())
+    grads = sharding_rules.full_state(sharding_rules.gather_named(
+        {k: p.grad for k, p in model.named_parameters() if p.requires_grad},
+        model))
+    after = sharding_rules.full_state({"model": model.state_dict()},
+                                      model)["model"]
     result = {"loss": metrics["loss_sum"].item(), "rate": rate,
-              "launches": launches,
+              "launches": launches, "tp_launches": tp_launches,
               "grads": {k: v.detach().to("cpu", copy=True)
                         for k, v in grads.items()},
               "state": {k: v.detach().to("cpu", copy=True)
@@ -5445,15 +5473,15 @@ def parallel_cli_worker(workdir):
     return 0
 
 
-def launch_ranks(flag, workdir, timeout=600):
-    """``chip_smoke.py flag workdir`` as PAR_RANKS processes of one gloo
+def launch_ranks(flag, workdir, timeout=600, ranks=PAR_RANKS):
+    """``chip_smoke.py flag workdir`` as ``ranks`` processes of one gloo
     world on cuda:0 (LOCAL_RANK 0 for each); fails on any exit code but
     0."""
     port = free_port()
     procs = []
-    for rank in range(PAR_RANKS):
+    for rank in range(ranks):
         env = dict(os.environ, SRF_COORDINATOR="127.0.0.1:%d" % port,
-                   SRF_NUM_PROCESSES=str(PAR_RANKS),
+                   SRF_NUM_PROCESSES=str(ranks),
                    SRF_PROCESS_ID=str(rank), LOCAL_RANK="0",
                    PYTHONFAULTHANDLER="1")
         procs.append(subprocess.Popen(
@@ -5469,7 +5497,7 @@ def launch_ranks(flag, workdir, timeout=600):
             if proc.poll() is None:
                 proc.kill()
     codes = [proc.returncode for proc in procs]
-    check(codes == [0] * PAR_RANKS, "%s exited %s: %s" % (
+    check(codes == [0] * ranks, "%s exited %s: %s" % (
         flag, codes, "\n".join("rank %d: %s" % (rank, err[-3000:])
                                for rank, (_, err) in enumerate(outputs))))
     return outputs
@@ -5715,6 +5743,358 @@ def parallel_cli_phase(torch, card, workdir):
     return (sum(c["k1"] for c in counts), sum(c["k2"] for c in counts))
 
 
+# phase 17: the 'model' mesh axis (class capsules sharded over ranks, the
+# routing softmax split across them: K1-tp and K2-tp). One card: the ranks
+# are processes sharing cuda:0 over gloo (NCCL refuses two ranks on one
+# device), which stages every exchange through the host: the times are a
+# check, not a scaling result, and NCCL across cards is not exercised
+# 17a: K1-tp and K2-tp against the plain split version, as (label, ranks,
+# whole geometry (in_n, out_n, out_d, in_d), PAD mask, (B, T', iterations)
+# shapes): SRF-WSJ's last layer (150 -> 32 classes of dim 20, 16 a rank)
+# at 8 x 1600 frames (T' 400), and SRF-TIMIT's at model 3 (90 -> 63 of dim
+# 8, 21 a rank) at the unpadded bucket 29 x 241 (T' 61); on each, rank 0
+# holds the PAD capsule and the others do not
+TP_CASES = (
+    ("wsj_last", 2, (150, 32, 20, 20), True, ((8, 400, 1), (8, 400, 2))),
+    ("timit_last", 3, (90, 63, 8, 8), True, ((29, 61, 1), (29, 61, 2))),
+)
+# timed calls of each kernel and plain version (after a first; the
+# median is kept: over gloo one call's time spreads ~2x), at each case's
+# one-iteration shape, the one 17b's step routes at
+TP_REPS = 3
+# 17b: the SRF-WSJ step on a (data 1, model 2) mesh; its timed steps
+TP_TIMED = 1
+
+
+def median_ms(torch, fns, reps):
+    """Median ms of each function in ``fns`` over ``reps`` calls after one
+    warm-up call each, from CUDA events, the calls interleaved (a round
+    calls each function once, in order)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, kept in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            kept.append(start.elapsed_time(end))
+    return [float(np.median(kept)) for kept in times]
+
+
+def tp_case_inputs(torch, geometry, batch, seq_len, index, size, seed):
+    """The whole W (std 0.1) and bias of a 17a case, this rank's contiguous
+    shard of them, u and the cotangent of this rank's outputs, from numpy
+    (every rank draws the same whole tensors)."""
+    in_n, out_n, out_d, in_d = geometry
+    rng = np.random.RandomState(seed)
+    wgt = rng.randn(in_n, out_n, out_d, in_d) * 0.1
+    bias = rng.randn(in_n, out_n, out_d) * 0.1
+    u = rng.randn(batch, seq_len, in_n, in_d)
+    cot = rng.randn(batch, seq_len, out_n, out_d)
+    part = slice(index * out_n // size, (index + 1) * out_n // size)
+    cuda = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                  dtype=torch.float32, device="cuda")
+    return cuda(u), cuda(wgt[:, part]), cuda(bias[:, part]), cuda(
+        cot[:, :, part])
+
+
+def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
+    """17a on this rank: K1-tp against ``sequential_routing_tp`` (output
+    and the global (M, L)) and, at one iteration, K2-tp against
+    ``sequential_routing_tp_bwd`` on the same forward, on the same CUDA
+    tensors; at one iteration each one's median ms, the plain version's,
+    the bound (K1's and K2's on this rank's shard), and the kernels' ms
+    without the exchange (the same launches on this rank's shard alone,
+    ``group`` None: another softmax, the same work); at more iterations,
+    K2-tp's refusal of that forward's stats. Returns the readings per
+    (B, T', iterations)."""
+    from srf_tpu_torch.ops.routing import (sequential_routing_tp,
+                                           sequential_routing_tp_bwd)
+    from srf_tpu_torch.ops.routing_cuda import (sequential_routing_tp_bwd_cuda,
+                                                sequential_routing_tp_cuda)
+    from srf_tpu_torch.parallel import distributed
+
+    index, size = distributed.rank(group), distributed.world_size(group)
+    pad_owner = is_last and index == 0
+    readings = []
+    for batch, seq_len, num_iter in shapes:
+        u, wgt, bias, cot = tp_case_inputs(torch, geometry, batch, seq_len,
+                                           index, size,
+                                           SEED + 170 + seq_len + num_iter)
+        local = (geometry[0], wgt.shape[1], geometry[2], geometry[3])
+        plain = lambda: sequential_routing_tp(u, wgt, bias, num_iter,
+                                              pad_owner, group,
+                                              return_stats=True)
+        kernel = lambda: sequential_routing_tp_cuda(u, wgt, bias, num_iter,
+                                                    pad_owner, group)
+        want, want_stats = plain()
+        got, got_stats = kernel()
+        torch.cuda.synchronize()
+        err = max((got - want).abs().max().item(),
+                  (got_stats - want_stats).abs().max().item())
+        ok = (torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+              and torch.allclose(got_stats, want_stats, rtol=RTOL,
+                                 atol=ATOL))
+        check(ok, "17a %s rank %d (%d, %d, iter %d): K1-tp differs from its "
+              "plain version by %.3e" % (label, index, batch, seq_len,
+                                         num_iter, err))
+        reading = {"shape": [batch, seq_len, num_iter], "pad_owner": pad_owner,
+                   "k1tp_err": err}
+        if num_iter > 1:
+            # K2-tp is the one-iteration backward: a deeper forward's (M, L)
+            # must be refused (before any launch or exchange)
+            try:
+                sequential_routing_tp_bwd_cuda(u, wgt, bias, got, cot,
+                                               got_stats, pad_owner, group)
+            except ValueError:
+                pass
+            else:
+                check(False, "17a %s rank %d: K2-tp took a %d-iteration "
+                      "forward's stats" % (label, index, num_iter))
+        if num_iter == 1:
+            plain_ms, ms, alone_ms = median_ms(torch, (
+                plain, kernel, lambda: sequential_routing_tp_cuda(
+                    u, wgt, bias, 1, pad_owner, None)), TP_REPS)
+            reading.update(
+                k1tp_ms=ms, k1tp_plain_ms=plain_ms, k1tp_alone_ms=alone_ms,
+                k1tp_bound_ms=sdr_bound_ms(batch, seq_len, local, 1))
+            plain_b = lambda: sequential_routing_tp_bwd(
+                u, wgt, bias, want, cot, pad_owner, group, want_stats)
+            kernel_b = lambda: sequential_routing_tp_bwd_cuda(
+                u, wgt, bias, want, cot, want_stats, pad_owner, group)
+            refs, gots = plain_b(), kernel_b()
+            torch.cuda.synchronize()
+            errs = []
+            for name, ref, val in zip(("du", "dW", "db"), refs, gots):
+                limit = K2_ATOL_REL * ref.abs().max().item()
+                errs.append((val - ref).abs().max().item())
+                check(torch.allclose(val, ref, rtol=K2_RTOL, atol=limit),
+                      "17a %s rank %d (%d, %d): K2-tp %s differs from its "
+                      "plain version by %.3e (atol %.3e)"
+                      % (label, index, batch, seq_len, name, errs[-1], limit))
+            plain_ms, ms, alone_ms = median_ms(torch, (
+                plain_b, kernel_b, lambda: sequential_routing_tp_bwd_cuda(
+                    u, wgt, bias, want, cot, want_stats, pad_owner, None)),
+                TP_REPS)
+            reading.update(k2tp_err=max(errs), k2tp_ms=ms,
+                           k2tp_plain_ms=plain_ms, k2tp_alone_ms=alone_ms,
+                           k2tp_bound_ms=sdr_bwd_bound_ms(batch, seq_len,
+                                                          local))
+        readings.append(reading)
+    return readings
+
+
+def layer_scratch_mb(torch, geometry, batch, seq_len, shard=None):
+    """Peak memory (MB) above its inputs of one forward and backward of a
+    routing layer of ``geometry`` at (batch, seq_len) on the card: the
+    layer's scratch (u_hat, the kernels' buffers, the saved output). With
+    ``shard`` (offset, whole out_n, group) the layer is this rank's shard
+    (K1-tp, K2-tp), else the whole layer (K1, K2)."""
+    from srf_tpu_torch.ops.routing import route_layer
+
+    in_n, out_n, out_d, in_d = geometry
+    if shard is not None:
+        out_n //= torch.distributed.get_world_size(shard[2])
+    u = torch.randn(batch, seq_len, in_n, in_d, device="cuda",
+                    requires_grad=True)
+    wgt = (0.1 * torch.randn(in_n, out_n, out_d, in_d, device="cuda")
+           ).requires_grad_()
+    bias = (0.1 * torch.randn(in_n, out_n, out_d, device="cuda")
+            ).requires_grad_()
+    cot = torch.randn(batch, seq_len, out_n, out_d, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = route_layer(u, wgt, bias, 1, True, True, shard=shard)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def model_axis_worker(workdir):
+    """One rank of phase 17 (``chip_smoke.py --model-axis-worker DIR``, the
+    SRF_* variables set): on cuda:0 over gloo, a (data 1, model ranks)
+    mesh; 17a's checks of the case in DIR/inputs.pt and, for SRF-WSJ, the
+    17b step; writes DIR/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.parallel import distributed
+    from srf_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.maybe_initialize(backend="gloo", device="cuda")
+    rank, world = distributed.rank(), distributed.world_size()
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    mesh = make_mesh(1, world, device="cuda")
+    group = mesh.group("model")
+    label, _, geometry, is_last, shapes = inputs["case"]
+    out = {"index": mesh.index("model"),
+           "kernels": tp_kernel_checks(torch, label, geometry, is_last,
+                                       shapes, group)}
+    if "state" in inputs:
+        logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+        config = wsj_tp_config(logger)
+        batch = {k: v.cuda() if k in ("feats", "labels") else v
+                 for k, v in inputs["batch"].items()}
+        out["step"] = par_step(torch, config, inputs["state"], batch,
+                               group=mesh.group("data"), model_mesh=mesh,
+                               timed=TP_TIMED)
+        seq_len = -(-batch["feats"].shape[1] // 4)
+        offset = mesh.index("model") * geometry[1] // world
+        out["scratch_mb"] = layer_scratch_mb(
+            torch, geometry, batch["feats"].shape[0], seq_len,
+            shard=(offset, geometry[1], group))
+    torch.save(out, os.path.join(workdir, "rank%d.pt" % rank))
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def wsj_tp_config(logger):
+    """Phase 12c's SRF-WSJ training configuration."""
+    return family_config(logger, "cuda", "wsj",
+                         SRF_WSJ_FLAGS + ["--train-lr-param-k=0.6"])
+
+
+def tp_entry(name, replaces, readings):
+    """K1-tp's ("k1tp") or K2-tp's ("k2tp") entry of the "kernels" line:
+    its times at 17a's first case (SRF-WSJ's last layer at 8 x 400, one
+    iteration, rank 0: the shape 17b's step routes at), the largest error
+    over every case and rank, each case's readings; ``launches`` set once
+    17b has run."""
+    first = readings[0]
+    bytes_ms, ops_ms = first[name + "_bound_ms"]
+    return {
+        "name": {"k1tp": "sdr_tp_fwd", "k2tp": "sdr_tp_bwd"}[name],
+        "route": "cuda", "source": "srf_tpu_torch/csrc/sdr_tp.cu",
+        "replaces": replaces, "launches": None,
+        "max_abs_err": max(r[name + "_err"] for r in readings
+                           if name + "_err" in r),
+        "ms": first[name + "_ms"], "plain_ms": first[name + "_plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes a split SDR
+        "per_case": [{k: v for k, v in r.items()
+                      if k in ("case", "rank", "shape", "pad_owner")
+                      or k.startswith(name)} for r in readings
+                     if name + "_err" in r],
+    }
+
+
+def model_axis_phase(torch, card):
+    """Phase 17 (the module docstring). Returns the "kernels" entries of
+    K1-tp and K2-tp, their launches those of 17b's step summed over its
+    ranks, and K1's and K2's launches in that step, summed the same way."""
+    import shutil
+    import tempfile
+
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = wsj_tp_config(logger)
+    classes = class_count(config)
+    check(classes == TP_CASES[0][2][1], "SRF-WSJ has %d classes" % classes)
+    state = random_weights(build_model(config, classes)[0])
+    batch = train_batch(torch, "cuda", batch=8, frames=WSJ_TRAIN_FRAMES[1],
+                        vocab=classes - 1, shortest=WSJ_TRAIN_FRAMES[0])
+    single = par_step(torch, config, state, batch, timed=TP_TIMED)
+    seq_len = -(-batch["feats"].shape[1] // 4)
+    single_scratch = layer_scratch_mb(torch, TP_CASES[0][2], 8, seq_len)
+    readings = []
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_model_axis_")
+    try:
+        for case in TP_CASES:
+            label, ranks = case[0], case[1]
+            inputs = {"case": case}
+            if label == "wsj_last":
+                inputs.update(state=state, batch={k: v.cpu() for k, v in
+                                                  batch.items()})
+            torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+            start = time.perf_counter()
+            launch_ranks("--model-axis-worker", workdir, ranks=ranks)
+            results = [torch.load(os.path.join(workdir, "rank%d.pt" % r),
+                                  weights_only=False) for r in range(ranks)]
+            for r, result in enumerate(results):
+                for reading in result["kernels"]:
+                    reading.update(case=label, rank=r)
+                    readings.append(reading)
+                    timed = "k1tp_ms" in reading
+                    print("17a %s rank %d (B, T', iter) %s%s: K1-tp %.3e from "
+                          "its plain version%s%s [gloo: no scaling result] "
+                          "[%s]"
+                          % (label, r, tuple(reading["shape"]),
+                             " PAD owner" if reading["pad_owner"] else "",
+                             reading["k1tp_err"],
+                             "" if not timed else
+                             ", %.3f ms (plain %.3f, without the exchange "
+                             "%.3f, bound %.3f)"
+                             % (reading["k1tp_ms"], reading["k1tp_plain_ms"],
+                                reading["k1tp_alone_ms"],
+                                max(reading["k1tp_bound_ms"])),
+                             "" if "k2tp_err" not in reading else
+                             "; K2-tp %.3e, %.3f ms (plain %.3f, without the "
+                             "exchange %.3f, bound %.3f)"
+                             % (reading["k2tp_err"], reading["k2tp_ms"],
+                                reading["k2tp_plain_ms"],
+                                reading["k2tp_alone_ms"],
+                                max(reading["k2tp_bound_ms"])), card))
+            print("17a %s: %d ranks on cuda:0 over gloo, %.1f s"
+                  % (label, ranks, time.perf_counter() - start))
+            if label != "wsj_last":
+                continue
+            # 17b: the SRF-WSJ step on (data 1, model 2)
+            layers = config.model_encoder_num - 1
+            tp_launches = (1 + 2 * seq_len, 1 + 2 * seq_len + 2)
+            for r, result in enumerate(results):
+                got = result["step"]
+                check(got["launches"] == (layers * K1_LAUNCHES,
+                                          layers * K2_LAUNCHES)
+                      and got["tp_launches"] == tp_launches,
+                      "17b rank %d: K1/K2 launches %s, K1-tp/K2-tp %s "
+                      "(expected %s and %s)"
+                      % (r, got["launches"], got["tp_launches"],
+                         (layers * K1_LAUNCHES, layers * K2_LAUNCHES),
+                         tp_launches))
+                par_compare("17b SRF-WSJ (data 1, model 2) rank %d vs one "
+                            "process" % r, got, single, card,
+                            grad_atol_rel=WSJ_GRAD_ATOL_REL)
+                print("17b rank %d: K1 %d, K2 %d, K1-tp %d, K2-tp %d launches "
+                      "a step; ms a step %s; peak %.1f MB; the sharded "
+                      "layer's scratch %.1f MB (one process: K1 %d, K2 %d "
+                      "launches, %s ms, peak %.1f MB, the layer's scratch "
+                      "%.1f MB) [gloo through the host: no scaling result] "
+                      "[%s]" % (r, *got["launches"], *got["tp_launches"],
+                                ["%.1f" % x for x in got["ms"]],
+                                got["peak_mb"], result["scratch_mb"],
+                                *single["launches"],
+                                ["%.1f" % x for x in single["ms"]],
+                                single["peak_mb"], single_scratch, card))
+            step_tp = [sum(r["step"]["tp_launches"][i] for r in results)
+                       for i in (0, 1)]
+            step_k12 = [sum(r["step"]["launches"][i] for r in results)
+                        for i in (0, 1)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    replaces = ("srf_tpu/ops/routing.py:122 (no pallas_call: the loop body "
+                "XLA partitions on a 'model' mesh)")
+    k1tp = tp_entry("k1tp", replaces, readings)
+    k2tp = tp_entry("k2tp", replaces, readings)
+    k1tp["launches"], k2tp["launches"] = step_tp
+    check(all(step_tp), "K1-tp or K2-tp was not launched on the model-axis "
+          "step: %s" % step_tp)
+    print("model axis phase: %.1f s" % (time.perf_counter() - phase_start))
+    return k1tp, k2tp, step_k12
+
+
 def run():
     import torch
 
@@ -5736,7 +6116,7 @@ def run():
 
     start = time.perf_counter()
     paths = cuda_build.build(["sdr_fwd", "sdr_bwd", "sdr_scan_fwd",
-                              "sdr_scan_bwd", "fused_dropout"])
+                              "sdr_scan_bwd", "fused_dropout", "sdr_tp"])
     print("build: %.2f s" % (time.perf_counter() - start))
     spilled = []
     for name, path in paths.items():
@@ -5788,6 +6168,7 @@ def run():
     check(all(par_k1.values()) and all(par_k2.values()),
           "K1 or K2 was not launched on a parallel path: %s %s"
           % (par_k1, par_k2))
+    k1tp, k2tp, (axis_k1, axis_k2) = model_axis_phase(torch, card)
     # the daemon's launches are counted in its own process (its stats),
     # the rest in this one
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
@@ -5798,7 +6179,8 @@ def run():
                               "int8_serve": int8_k1, "daemon": daemon_k1,
                               "extras_recipe": extras_k1, "mwer": mwer_k1,
                               **{"parallel_" + k: v
-                                 for k, v in par_k1.items()}}
+                                 for k, v in par_k1.items()},
+                              "model_axis": axis_k1}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             stream_readings["carry_max_abs_err"])
@@ -5808,7 +6190,8 @@ def run():
                               "wsj_train": wsj_train_k2,
                               "extras_recipe": extras_k2, "mwer": mwer_k2,
                               **{"parallel_" + k: v
-                                 for k, v in par_k2.items()}}
+                                 for k, v in par_k2.items()},
+                              "model_axis": axis_k2}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k1["calls"] = k1["launches"] // K1_LAUNCHES
     k2["calls"] = k2["launches"] // K2_LAUNCHES
@@ -5827,7 +6210,7 @@ def run():
     # the bf16 variants' launches: the --tpu-routing-bf16 SRF-TIMIT steps
     # (K1-bf16, K2-bf16) and the --tpu-bf16 CNN-TIMIT steps (K5-bf16)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k1_bf16, k2_bf16,
-                                  k5_bf16]}))
+                                  k5_bf16, k1tp, k2tp]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5841,6 +6224,8 @@ if __name__ == "__main__":
             code = parallel_worker(sys.argv[2])
         elif sys.argv[1:2] == ["--parallel-cli"]:
             code = parallel_cli_worker(sys.argv[2])
+        elif sys.argv[1:2] == ["--model-axis-worker"]:
+            code = model_axis_worker(sys.argv[2])
         else:
             code = run()
     except SmokeFailure as failure:

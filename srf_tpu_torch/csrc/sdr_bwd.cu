@@ -524,6 +524,20 @@ int launch(const sdr::uhat_t<BF>* u, const sdr::uhat_t<BF>* w,
   return (int)cudaGetLastError();
 }
 
+// The weight-gradient plan of a call whose factors are given (K2-tp): false
+// if the geometry has none on this card.
+bool plan_wgrad_call(int batch, int seq_len, int in_n, int in_d, int out_n,
+                     int out_d, Wgrad* p, int* slots) {
+  if (batch < 1 || seq_len < 1 || in_n < 1 || in_d < 1 || out_n < 1 ||
+      out_d < 1) {
+    return false;
+  }
+  *slots = wgrad_slots<false>(in_d, out_n * out_d);
+  if (*slots < 1) return false;
+  sdr::plan_wgrad(batch * seq_len, in_n, in_d, out_n * out_d, *slots, p);
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -599,6 +613,58 @@ int sdr_bwd_bf16(const void* u, const void* w, const void* bias,
                       static_cast<__nv_bfloat16*>(uhat), scratch, du, dw, db,
                       batch, seq_len, in_n, in_d, out_n, out_d, mask_pad,
                       stream);
+}
+
+// Floats of the partials sdr_bwd_wgrad takes for this geometry on the
+// current device, or -1 if it has no plan.
+long long sdr_bwd_wgrad_part_floats(int batch, int seq_len, int in_n,
+                                    int in_d, int out_n, int out_d) {
+  Wgrad p;
+  int slots;
+  if (!plan_wgrad_call(batch, seq_len, in_n, in_d, out_n, out_d, &p,
+                       &slots)) {
+    return -1;
+  }
+  return (long long)p.chunks * in_n * out_n * out_d * (in_d + 1);
+}
+
+// K2's weight-gradient and reduction kernels on given factors (K2-tp's
+// last two launches, sdr_tp.cu): u [batch, seq_len, in_n, in_d], w
+// [in_n, out_n, out_d, in_d], the forward's output vs [batch, seq_len,
+// out_n, out_d], du_hat's factors cfac and dafac [batch, seq_len, in_n,
+// out_n] and dsfac [batch, seq_len, out_n * out_d], part
+// (sdr_bwd_wgrad_part_floats floats) -> du (shape of u: sum over these out
+// capsules only), dw (of w), db [in_n, out_n, out_d]. float32,
+// contiguous, on the current device; launches on `stream` and returns the
+// first launch error.
+int sdr_bwd_wgrad(const float* u, const float* w, const float* vs,
+                  const float* cfac, const float* dafac, const float* dsfac,
+                  float* part, float* du, float* dw, float* db, int batch,
+                  int seq_len, int in_n, int in_d, int out_n, int out_d,
+                  void* stream) {
+  Wgrad p;
+  int slots;
+  if (!plan_wgrad_call(batch, seq_len, in_n, in_d, out_n, out_d, &p,
+                       &slots)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int out_no = out_n * out_d;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = sdr::wgrad_smem_floats(p) * sizeof(float);
+  const auto wgrad = wgrad_kernel<false>(p, in_d, out_no);
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = in_n * p.chunks < slots ? in_n * p.chunks : slots;
+  wgrad<<<blocks, kWgradThreads, smem, s>>>(
+      u, w, vs, cfac, dafac, dsfac, du, part, batch * seq_len, seq_len,
+      in_n, in_d, out_n, out_d, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int dw_size = in_n * out_no * in_d;
+  sdr_bwd_reduce_kernel<<<kReduceBlocks, kReduceThreads, 0, s>>>(
+      part, dw, db, p.chunks, dw_size, in_n * out_no);
+  return (int)cudaGetLastError();
 }
 
 const char* sdr_bwd_error_string(int err) {

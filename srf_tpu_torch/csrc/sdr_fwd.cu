@@ -280,6 +280,22 @@ int sdr_fwd_bf16(const void* u, const void* w, const void* bias,
                       mask_pad, stream);
 }
 
+// The prediction kernel alone (K1-tp's first launch, sdr_tp.cu): u
+// [rows_total, in_n, in_d], w [in_n, out_no, in_d], bias [in_n, out_no] ->
+// uhat [rows_total, in_n, pitch] (pitch: out_no rounded up to 4, the
+// padding written as 0; 16-byte aligned). float32, contiguous, on the
+// current device; launches on `stream` and returns its error.
+int sdr_predict(const float* u, const float* w, const float* bias,
+                float* uhat, int rows_total, int in_n, int in_d, int out_no,
+                void* stream) {
+  if (rows_total < 1 || in_n < 1 || in_d < 1 || out_no < 1 ||
+      (uintptr_t)uhat % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)sdr::launch_predict(u, w, bias, uhat, rows_total, in_n, in_d,
+                                  out_no, (cudaStream_t)stream);
+}
+
 const char* sdr_fwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

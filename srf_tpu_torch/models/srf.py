@@ -33,6 +33,15 @@ dropout inside it (``routing_remat`` checkpoints each of its steps); it
 refuses bf16 routing as JAX does. JAX's time chunking (``time_chunk``, no
 flag sets it) has no counterpart: K1 predicts every step at once.
 
+On a ``model`` mesh axis (``parallel/sharding_rules.apply_rules``, which
+records ``model_shard`` on the model) a sharded layer routes its shard of
+the out capsules with the softmax split over the ``model`` ranks
+(``route_layer(..., shard=...)``: K1-tp and K2-tp on the card), and
+``distributed.gather_along`` joins the ranks' capsules before the
+replicated LayerNorm, dropout and output head (its backward takes this
+rank's part of the replicated gradient). The wavefront, bf16 routing and
+the streaming ``route_block`` refuse a sharded model (ROADMAP item 7c).
+
 Parameter names mirror the flax tree (conv_feat, flatten, encaps1/2,
 ln_input, W%d/b%d, ln_mid%d, ln_output), so ``convert.py`` maps one onto the
 other; W%d/b%d keep the JAX layouts [in_n, out_n, out_d, in_d] and
@@ -56,11 +65,12 @@ from srf_tpu_torch.models.layers import (Conv2d, ConvFrontEnd, Dropout,
 from srf_tpu_torch.ops.masking import feat_mask
 from srf_tpu_torch.ops.pos_enc import get_pos_enc
 from srf_tpu_torch.ops.routing import (
-    dynamic_routing, predict_capsules, route_layer, wavefront_sdr_stack,
-    window_slide, window_stack,
+    SHARD_REFUSAL, dynamic_routing, predict_capsules, route_layer,
+    wavefront_sdr_stack, window_slide, window_stack,
 )
 from srf_tpu_torch.ops.routing_cuda import sequential_routing_stream
 from srf_tpu_torch.ops.squash import capsule_length, squash
+from srf_tpu_torch.parallel.distributed import gather_along
 
 # JAX's refusal of bf16 routing (and of time chunking, which the port's
 # SequenceRouter does not have) on the routing kernels without it
@@ -79,6 +89,8 @@ class SequenceRouter(nn.Module):
         super().__init__()
         self.routing_bf16 = routing_bf16
         self.routing_impl = routing_impl
+        # parallel/sharding_rules.ModelShard, set by apply_rules
+        self.model_shard = None
         self.routing_remat = routing_remat
         self.feat_dim = feat_dim
         self.class_n = class_n
@@ -232,6 +244,8 @@ class SequenceRouter(nn.Module):
         ``sequential_routing_stream`` (K1 on the card), DR through the plain
         routing, as in the batch forward.
         """
+        if self.model_shard is not None:
+            raise ValueError(SHARD_REFUSAL % "streaming (route_block)")
         num_iter = 1 if self.caps_type == "lowmemory" else self.caps_iter
         wgt = getattr(self, "W%d" % layer_idx)
         bias = getattr(self, "b%d" % layer_idx)
@@ -309,6 +323,12 @@ class SequenceRouter(nn.Module):
 
         emb = self._capsulate(feats, input_lengths, generator)
         batch, seq_len = emb.shape[0], emb.shape[1]
+        if self.model_shard is not None and (
+                self.routing_bf16 or (self.is_context
+                                      and self.routing_impl == "wavefront")):
+            raise ValueError(SHARD_REFUSAL % (
+                "--tpu-routing-bf16" if self.routing_bf16
+                else "--tpu-routing-kernel=wavefront"))
         if self.is_context and self.routing_impl == "wavefront":
             if self.routing_bf16:
                 raise ValueError(BF16_REFUSAL % "wavefront")
@@ -326,12 +346,18 @@ class SequenceRouter(nn.Module):
             return self.output_block(emb)
         for i, (in_n, out_n, out_d, in_d) in enumerate(self.layer_shapes()):
             emb = window_stack(emb, self.lpad, self.rpad)
+            shard = (self.model_shard.layer(i) if self.model_shard
+                     is not None else None)
             emb = route_layer(
                 emb, getattr(self, "W%d" % i), getattr(self, "b%d" % i),
                 num_iter, self.is_context,
                 is_last_layer=(i == self.enc_num - 1),
                 bf16=self.routing_bf16,
+                shard=(None if shard is None
+                       else (*shard, self.model_shard.group)),
             )
+            if shard is not None:
+                emb = gather_along(emb, self.model_shard.group, dim=2)
             flat = getattr(self, "ln_mid%d" % (i + 1))(
                 emb.reshape(batch, seq_len, -1))
             emb = self.drop_inn(flat.reshape(batch, seq_len, out_n, out_d),

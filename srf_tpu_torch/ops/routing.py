@@ -47,6 +47,22 @@
   F20 in ROADMAP.md record where JAX's ``auto`` path and JAX's transposed
   scan round elsewhere).
 
+- The ``model`` mesh axis (``parallel/sharding_rules.apply_rules``): a
+  layer whose out capsules are split over the ``model`` ranks routes with
+  a softmax split across them. :func:`sequential_routing_tp` is JAX's
+  partitioned SDR step, one step at a time (what XLA makes of
+  ``route_layer`` with W and b sharded on dim 1): the local agreement, the
+  PAD mask only on the rank that holds global capsule 0, the global row
+  max (a MAX all-reduce, detached: a softmax does not depend on its
+  shift), the global row sum of exp(b - M) (a differentiable SUM
+  all-reduce), the local c, s and squash; the carry stays local. Its
+  input u is replicated, so it enters through
+  ``distributed.copy_to_group``. :func:`sequential_routing_tp_bwd` is the
+  plain one-iteration backward (one SUM all-reduce of a row's
+  sum_o c dc a step, du summed over the ranks once); both are the plain
+  versions of K1-tp and K2-tp (``routing_cuda.SDRTPFunction``).
+  :func:`dynamic_routing` with a ``group`` is DR with the same split.
+
 Shapes (the JAX layouts):
     u      [B, T, in_n, in_d]      input capsules (after windowing)
     W      [in_n, out_n, out_d, in_d]
@@ -60,8 +76,9 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from srf_tpu_torch.ops.routing_cuda import SDRFunction
+from srf_tpu_torch.ops.routing_cuda import SDRFunction, SDRTPFunction
 from srf_tpu_torch.ops.squash import squash
+from srf_tpu_torch.parallel import distributed
 
 NEG_INF = -1e9
 
@@ -105,12 +122,19 @@ def _pad_capsule_mask(out_n, dtype, device):
     return mask
 
 
-def dynamic_routing(u_hat, num_iter, mask_pad_capsule):
+def dynamic_routing(u_hat, num_iter, mask_pad_capsule, group=None):
     """DR: route all timesteps in parallel.
 
     Per iteration (reference: sequence_router_naive.py:200-206):
         b += pad_mask ; c = softmax(b, out) ; s = sum_in(c * u_hat)
         v = squash(s) ; b += <u_hat, v>
+
+    With ``group`` (the ``model`` ranks), ``u_hat`` [B, T, in_n, O_local,
+    out_d] is this rank's shard of the out capsules (from a u that entered
+    through ``copy_to_group``) and the softmax is split across ``group``
+    (the :func:`sequential_routing_tp` split, once an iteration over every
+    frame); ``mask_pad_capsule`` then means the shard holds global capsule
+    0 on the last layer.
     """
     batch, seq_len, in_n, out_n, _ = u_hat.shape
     b = torch.zeros((batch, seq_len, in_n, out_n), dtype=u_hat.dtype,
@@ -121,7 +145,7 @@ def dynamic_routing(u_hat, num_iter, mask_pad_capsule):
     for _ in range(num_iter):
         if pad_mask is not None:
             b = b + pad_mask
-        c = torch.softmax(b, dim=3)
+        c = _split_softmax(b, group)[0]
         s = torch.einsum("btno,btnoi->btoi", c, u_hat)
         v = squash(s, dim=-1)
         b = b + torch.einsum("btnoi,btoi->btno", u_hat, v)
@@ -339,21 +363,25 @@ def sequential_routing_bwd_factors(u_hat, vs, dvs, mask_pad_capsule):
             logits = logits + pad_mask
         c = torch.softmax(logits, dim=2)
         s = torch.einsum("bno,bnoi->boi", c, u_hat_t)
-        q = torch.sum(s * s, dim=2, keepdim=True)
-        inv_sqrt = 1.0 / torch.sqrt(q + 1e-7)
-        factor = (q / (1.0 + q)) * inv_sqrt
-        # backward through squash: v = factor(q) * s, q = |s|^2
-        dv = dvs[:, t] + carry
-        dfdq = inv_sqrt / ((1.0 + q) * (1.0 + q)) - 0.5 * (q / (1.0 + q)) * (
-            inv_sqrt / (q + 1e-7))
-        dq = torch.sum(dv * s, dim=2, keepdim=True) * dfdq
-        ds = dv * factor + 2.0 * s * dq
+        ds = _squash_vjp(s, dvs[:, t] + carry)
         # through s = sum_n c * u_hat and the softmax
         dc = torch.einsum("bnoi,boi->bno", u_hat_t, ds)
         da = c * (dc - torch.sum(dc * c, dim=2, keepdim=True))
         carry = torch.einsum("bno,bnoi->boi", da, u_hat_t)
         c_all[:, t], da_all[:, t], ds_all[:, t] = c, da, ds
     return c_all, da_all, ds_all
+
+
+def _squash_vjp(s, dv):
+    """The cotangent of s [..., out_d] through v = squash(s) = f(q) s, q =
+    |s|^2: dv f(q) + 2 s <dv, s> f'(q)."""
+    q = torch.sum(s * s, dim=-1, keepdim=True)
+    inv_sqrt = 1.0 / torch.sqrt(q + 1e-7)
+    factor = (q / (1.0 + q)) * inv_sqrt
+    dfdq = inv_sqrt / ((1.0 + q) * (1.0 + q)) - 0.5 * (q / (1.0 + q)) * (
+        inv_sqrt / (q + 1e-7))
+    dq = torch.sum(dv * s, dim=-1, keepdim=True) * dfdq
+    return dv * factor + 2.0 * s * dq
 
 
 def sdr_weight_grads(u, wgt, vs, c, da, ds):
@@ -371,8 +399,124 @@ def sdr_weight_grads(u, wgt, vs, c, da, ds):
     return du, dwgt, dbias
 
 
+def _split_softmax(b, group):
+    """softmax of ``b`` [..., O_local] over the out capsules of every rank
+    of ``group`` (each holding its own O_local of them): (c, M, L), M the
+    global row max (detached) and L the global row sum of exp(b - M), both
+    [...]. JAX's partitioned softmax: two all-reduces."""
+    m = distributed.all_reduce_max(b.amax(dim=-1), group)
+    e = torch.exp(b - m[..., None])
+    total = distributed.all_reduce_sum(e.sum(dim=-1), group)
+    return e / total[..., None], m, total
+
+
+def sequential_routing_tp(u, wgt, bias, num_iter, pad_owner, group,
+                          return_stats=False):
+    """SDR on a shard of the out capsules, plain PyTorch: the plain version
+    of K1-tp (module docstring). ``u`` [B, T, in_n, in_d] is replicated
+    over ``group`` (the ``model`` ranks); ``wgt`` [in_n, O_local, out_d,
+    in_d] and ``bias`` [in_n, O_local, out_d] are this rank's shard;
+    ``pad_owner``: the shard holds global capsule 0 on the last layer, so
+    its PAD mask applies here. Returns this rank's outputs [B, T, O_local,
+    out_d] and, with ``return_stats``, the global (M, L) of every step and
+    iteration, [T, num_iter, B, in_n, 2] (the backward's input).
+    Differentiable: u's gradient is summed over ``group``."""
+    dtype = _compute_dtype(u.dtype)
+    u = distributed.copy_to_group(u.to(dtype), group)
+    u_hat = predict_capsules(u, wgt.to(dtype), bias.to(dtype))
+    batch, seq_len, _, out_n, out_d = u_hat.shape
+    pad_mask = (_pad_capsule_mask(out_n, dtype, u.device) if pad_owner
+                else None)
+    v = torch.zeros((batch, out_n, out_d), dtype=dtype, device=u.device)
+    outs, stats = [], []
+    for t in range(seq_len):
+        u_hat_t = u_hat[:, t]
+        b_acc = torch.zeros(u_hat_t.shape[:3], dtype=dtype, device=u.device)
+        for _ in range(num_iter):
+            b_acc = b_acc + torch.einsum("bnoi,boi->bno", u_hat_t, v)
+            if pad_mask is not None:
+                b_acc = b_acc + pad_mask
+            c, m, total = _split_softmax(b_acc, group)
+            v = squash(torch.einsum("bno,bnoi->boi", c, u_hat_t), dim=-1)
+            stats.append(torch.stack([m, total.detach()], dim=-1))
+        outs.append(v)
+    out = torch.stack(outs, dim=1).to(u.dtype)
+    if not return_stats:
+        return out
+    return out, torch.stack(stats).reshape(seq_len, num_iter,
+                                           *stats[0].shape)
+
+
+def sequential_routing_tp_bwd_factors(u_hat, vs, dvs, pad_owner, group,
+                                      stats):
+    """The reverse-time recurrence of the split SDR's backward (one
+    routing iteration), plain: the plain version of K2-tp's two step
+    kernels. As :func:`sequential_routing_bwd_factors` on this rank's
+    u_hat [B, T, in_n, O_local, out_d], vs and dvs [B, T, O_local, out_d],
+    with c taken from the forward's global (M, L) ``stats`` [T, 1, B,
+    in_n, 2] (no exchange) and each row's sum_o c dc summed over
+    ``group`` (one SUM all-reduce a step). Returns (c, da, ds)."""
+    out_n = u_hat.shape[3]
+    pad_mask = (_pad_capsule_mask(out_n, u_hat.dtype, u_hat.device)
+                if pad_owner else None)
+    c_all = torch.empty(u_hat.shape[:4], dtype=u_hat.dtype,
+                        device=u_hat.device)
+    da_all = torch.empty_like(c_all)
+    ds_all = torch.empty_like(vs)
+    carry = torch.zeros_like(vs[:, 0])
+    for t in range(u_hat.shape[1] - 1, -1, -1):
+        u_hat_t = u_hat[:, t]
+        v_prev = vs[:, t - 1] if t > 0 else torch.zeros_like(carry)
+        logits = torch.einsum("bnoi,boi->bno", u_hat_t, v_prev)
+        if pad_mask is not None:
+            logits = logits + pad_mask
+        m, total = stats[t, 0, ..., 0], stats[t, 0, ..., 1]
+        c = torch.exp(logits - m[..., None]) / total[..., None]
+        s = torch.einsum("bno,bnoi->boi", c, u_hat_t)
+        ds = _squash_vjp(s, dvs[:, t] + carry)
+        dc = torch.einsum("bnoi,boi->bno", u_hat_t, ds)
+        row = distributed.all_reduce_sum(torch.sum(dc * c, dim=2), group)
+        da = c * (dc - row[..., None])
+        carry = torch.einsum("bno,bnoi->boi", da, u_hat_t)
+        c_all[:, t], da_all[:, t], ds_all[:, t] = c, da, ds
+    return c_all, da_all, ds_all
+
+
+def sequential_routing_tp_bwd(u, wgt, bias, vs, dvs, pad_owner, group,
+                              stats):
+    """The split SDR's backward for one routing iteration, plain PyTorch:
+    the plain version of K2-tp, the counterpart of
+    :func:`sequential_routing_bwd` on a shard. u [B, T, in_n, in_d]
+    (replicated), this rank's wgt [in_n, O_local, out_d, in_d] and bias,
+    its outputs vs and their cotangent dvs [B, T, O_local, out_d], and the
+    forward's global (M, L) ``stats`` (:func:`sequential_routing_tp`) ->
+    (du, dW, db): du the whole gradient of u (the ranks' parts summed over
+    ``group`` once, after the loop), dW and db this shard's."""
+    if stats.shape[1] != 1:
+        raise ValueError("the split SDR's backward takes one routing "
+                         "iteration: stats must be [T, 1, B, in_n, 2], got "
+                         "%s" % (tuple(stats.shape),))
+    out_dtypes = (u.dtype, wgt.dtype, bias.dtype)
+    dtype = _compute_dtype(u.dtype)
+    u, wgt, bias = u.to(dtype), wgt.to(dtype), bias.to(dtype)
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    vs = vs.to(dtype).reshape(vs.shape[0], vs.shape[1], out_n, out_d)
+    dvs = dvs.to(dtype).reshape(vs.shape)
+    u_hat = predict_capsules(u, wgt, bias)
+    c, da, ds = sequential_routing_tp_bwd_factors(
+        u_hat, vs, dvs, pad_owner, group, stats.to(dtype))
+    du, dwgt, dbias = sdr_weight_grads(u, wgt, vs, c, da, ds)
+    du = distributed.all_reduce_sum(du, group)
+    return tuple(x.to(d) for x, d in zip((du, dwgt, dbias), out_dtypes))
+
+
+# the refusal of what the 'model' axis does not reach yet
+SHARD_REFUSAL = ("%s on a 'model' mesh axis (class capsules sharded over "
+                 "ranks) is not ported: ROADMAP.md section 1 item 7c")
+
+
 def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer,
-                bf16=False):
+                bf16=False, shard=None):
     """One capsule layer: prediction + routing (DR or SDR).
 
     SDR goes through ``SDRFunction``: the K1 and K2 kernels (their bf16
@@ -382,6 +526,16 @@ def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer,
     in bf16 routing, and returns u's dtype (JAX's ``sequential_routing``).
     DR is plain PyTorch everywhere, differentiated by autograd, in u's
     dtype (JAX's DR ignores bf16 routing too).
+
+    ``shard`` (offset, whole out_n, group): ``wgt`` and ``bias`` are this
+    rank's shard of the out capsules on the ``model`` axis
+    (``parallel/sharding_rules.apply_rules``), and the layer routes with
+    the softmax split over ``group``: SDR through ``SDRTPFunction`` (K1-tp
+    and K2-tp on a CUDA tensor, :func:`sequential_routing_tp` and its
+    backward on the CPU), DR through :func:`dynamic_routing` with
+    ``group``. The PAD mask applies on the rank whose shard starts at
+    capsule 0. Returns this rank's out capsules [B, T, O_local, out_d].
+    bf16 routing on a shard raises (ROADMAP item 7c).
     """
     if num_iter < 1:
         raise ValueError(
@@ -389,10 +543,19 @@ def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer,
             "iterations DR has no output and SDR would silently emit the "
             "zero carry for every frame" % num_iter
         )
+    group, mask_pad_capsule = None, is_last_layer
+    if shard is not None:
+        offset, _, group = shard
+        if bf16:
+            raise ValueError(SHARD_REFUSAL % "--tpu-routing-bf16")
+        mask_pad_capsule = bool(is_last_layer) and offset == 0
+        if is_context:
+            return SDRTPFunction.apply(u, wgt, bias, num_iter,
+                                       mask_pad_capsule, group)
     if is_context:
         return SDRFunction.apply(u, wgt, bias, num_iter, is_last_layer, bf16)
-    u_hat = predict_capsules(u, wgt, bias)
-    out = dynamic_routing(u_hat, num_iter, mask_pad_capsule=is_last_layer)
+    u_hat = predict_capsules(distributed.copy_to_group(u, group), wgt, bias)
+    out = dynamic_routing(u_hat, num_iter, mask_pad_capsule, group)
     return out.to(u.dtype)
 
 

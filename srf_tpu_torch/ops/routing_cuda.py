@@ -26,6 +26,16 @@ float32 tensors to K1 and K2 and bf16 tensors to the variants, and raise on
 any other dtype. The libraries are compiled
 with nvcc when the first CUDA tensor arrives (see ``cuda_build``), never at
 import.
+
+K1-tp and K2-tp (``csrc/sdr_tp.cu``) route a shard of the out capsules on
+the ``model`` mesh axis with the softmax split across the ranks, joined by
+``SDRTPFunction``: the prediction kernel (``sdr_fwd.cu``'s
+``sdr_predict``), then a host loop over time of two launches and one
+exchange (c10d on the current stream) a step and iteration
+(:func:`tp_forward_steps`, :func:`tp_backward_steps`), and K2's
+weight-gradient kernels on the factors (``sdr_bwd.cu``'s
+``sdr_bwd_wgrad``). Their plain versions are
+``ops/routing.py:sequential_routing_tp`` and ``sequential_routing_tp_bwd``.
 """
 
 import ctypes
@@ -556,6 +566,329 @@ def sequential_routing_stream(u, wgt, bias, num_iter, mask_pad_capsule,
         u.contiguous(), wgt.contiguous(), bias.contiguous(), num_iter,
         mask_pad_capsule, None if v_init is None else v_init.contiguous(),
         None if step_valid is None else step_valid.contiguous())
+
+
+# ---- K1-tp and K2-tp (csrc/sdr_tp.cu): SDR on a shard of the out capsules
+
+
+@functools.lru_cache(maxsize=None)
+def _tp_libs():
+    """(sdr_tp, sdr_fwd, sdr_bwd) with the entries K1-tp and K2-tp take:
+    the step kernels, the prediction kernel alone and K2's weight gradient
+    on given factors."""
+    lib = ctypes.CDLL(cuda_build.build(["sdr_tp"])["sdr_tp"])
+    fwd, bwd = _lib("sdr_fwd"), _lib("sdr_bwd")
+    declare_tp(lib)
+    fwd.sdr_predict.argtypes = [_VOID_P] * 4 + [ctypes.c_int] * 4 + [_VOID_P]
+    fwd.sdr_predict.restype = ctypes.c_int
+    bwd.sdr_bwd_wgrad.argtypes = ([_VOID_P] * 10 + [ctypes.c_int] * 6
+                                  + [_VOID_P])
+    bwd.sdr_bwd_wgrad.restype = ctypes.c_int
+    bwd.sdr_bwd_wgrad_part_floats.argtypes = [ctypes.c_int] * 6
+    bwd.sdr_bwd_wgrad_part_floats.restype = ctypes.c_longlong
+    return lib, fwd, bwd
+
+
+def declare_tp(lib):
+    """ctypes signatures of csrc/sdr_tp.cu's entries on ``lib`` (the CUDA
+    build, or the tests' host build of the same source)."""
+    int_, ptr = ctypes.c_int, _VOID_P
+    for name, args in (
+            ("sdr_tp_stats", [ptr] * 4 + [int_] * 8 + [ptr]),
+            ("sdr_tp_route", [ptr, ptr, int_] + [ptr] * 4 + [int_] * 7
+             + [ptr]),
+            ("sdr_tp_bwd_a", [ptr] * 9 + [int_] * 7 + [ptr]),
+            ("sdr_tp_bwd_b", [ptr] * 6 + [int_] * 6 + [ptr]),
+            ("sdr_tp_smem_bytes", [int_] * 3)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = int_
+    lib.sdr_tp_error_string.argtypes = [int_]
+    lib.sdr_tp_error_string.restype = ctypes.c_char_p
+
+
+def _tp_call(lib, name, *args):
+    _raise_on(lib, "sdr_tp", getattr(lib, name)(*args))
+
+
+def tp_forward_steps(lib, uhat, out_n, out_d, num_iter, pad_owner, stream):
+    """K1-tp's loop over time after the prediction (a generator): for each
+    step and iteration the stats kernel, then it yields this rank's (m, l)
+    pairs [B * in_n, 2] and is sent every rank's [ranks, B * in_n, 2], then
+    the route kernel. Returns (out [B, T, out_n, out_d], the global (M, L)
+    [T, num_iter, B, in_n, 2]). ``uhat`` [B, T, in_n, pitch] from the
+    prediction kernel; ``lib`` the sdr_tp library."""
+    batch, seq_len, in_n = uhat.shape[:3]
+    dev = uhat.device
+    out = torch.empty((batch, seq_len, out_n, out_d), device=dev)
+    stats = torch.empty((seq_len, num_iter, batch, in_n, 2), device=dev)
+    vcar = torch.zeros((batch, out_n * out_d), device=dev)
+    bacc = torch.empty((batch, in_n, out_n), device=dev)
+    local = torch.empty((batch * in_n, 2), device=dev)
+    geom = (batch, seq_len)
+    for t in range(seq_len):
+        for it in range(num_iter):
+            _tp_call(lib, "sdr_tp_stats", uhat.data_ptr(), vcar.data_ptr(),
+                     bacc.data_ptr(), local.data_ptr(), *geom, t, in_n,
+                     out_n, out_d, it, int(bool(pad_owner)), stream)
+            gathered = (yield local).contiguous()
+            _tp_call(lib, "sdr_tp_route", uhat.data_ptr(),
+                     gathered.data_ptr(), gathered.shape[0], bacc.data_ptr(),
+                     vcar.data_ptr(), out.data_ptr(), stats[t, it].data_ptr(),
+                     *geom, t, in_n, out_n, out_d, int(it == num_iter - 1),
+                     stream)
+    return out, stats
+
+
+def tp_backward_steps(lib, uhat, vs, dvs, stats, pad_owner, stream):
+    """K2-tp's reverse-time loop (a generator): for each step the first
+    kernel, then it yields this rank's row sums [B, in_n] and is sent their
+    sum over the ranks, then the second kernel. Returns du_hat's factors
+    (c, da [B, T, in_n, out_n], ds [B, T, out_n * out_d]) in K2's layout.
+    ``vs`` and ``dvs`` [B, T, out_n, out_d], ``stats`` the forward's
+    [T, num_iter, B, in_n, 2]."""
+    batch, seq_len, in_n = uhat.shape[:3]
+    out_n, out_d = vs.shape[2], vs.shape[3]
+    dev = uhat.device
+    cfac = torch.empty((batch, seq_len, in_n, out_n), device=dev)
+    dafac = torch.empty_like(cfac)
+    dsfac = torch.empty((batch, seq_len, out_n * out_d), device=dev)
+    dc = torch.empty((batch, in_n, out_n), device=dev)
+    rowsum = torch.empty((batch, in_n), device=dev)
+    carry = torch.zeros((batch, out_n * out_d), device=dev)
+    geom = (batch, seq_len)
+    for t in range(seq_len - 1, -1, -1):
+        _tp_call(lib, "sdr_tp_bwd_a", uhat.data_ptr(), vs.data_ptr(),
+                 dvs.data_ptr(), stats[t, 0].data_ptr(), carry.data_ptr(),
+                 cfac.data_ptr(), dsfac.data_ptr(), dc.data_ptr(),
+                 rowsum.data_ptr(), *geom, t, in_n, out_n, out_d,
+                 int(bool(pad_owner)), stream)
+        summed = (yield rowsum).contiguous()
+        _tp_call(lib, "sdr_tp_bwd_b", uhat.data_ptr(), cfac.data_ptr(),
+                 dc.data_ptr(), summed.data_ptr(), dafac.data_ptr(),
+                 carry.data_ptr(), *geom, t, in_n, out_n, out_d, stream)
+    return cfac, dafac, dsfac
+
+
+def drive(steps, exchange):
+    """Run a generator of :func:`tp_forward_steps` or
+    :func:`tp_backward_steps`, answering each yield with
+    ``exchange(yielded)``; returns its result."""
+    try:
+        sent = next(steps)
+        while True:
+            sent = steps.send(exchange(sent))
+    except StopIteration as stop:
+        return stop.value
+
+
+def _gather_pairs(local, group):
+    """Every rank's (m, l) pairs, [ranks, ...] in rank order: one
+    all-gather over the ``model`` group (c10d on the current stream: NCCL
+    or gloo, as the group is). The pairs, not JAX's two all-reduces of the
+    max and the sum: one collective a step, the same values up to
+    rounding (F24)."""
+    from srf_tpu_torch.parallel import distributed
+
+    ranks = distributed.world_size(group) if group is not None else 1
+    if ranks == 1:
+        return local[None]
+    import torch.distributed as dist
+
+    # [ranks * rows, 2]: gloo's all-gather takes the ranks along dim 0
+    out = torch.empty((ranks * local.shape[0],) + tuple(local.shape[1:]),
+                      dtype=local.dtype, device=local.device)
+    dist.all_gather_into_tensor(out, local, group=group)
+    return out.view((ranks,) + tuple(local.shape))
+
+
+def _sum_over(x, group):
+    """``x`` summed over ``group`` in place (one SUM all-reduce)."""
+    from srf_tpu_torch.parallel import distributed
+
+    if group is not None and distributed.world_size(group) > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def _check_tp(fn_name, u, wgt, bias, extra=()):
+    """Device, dtype, rank and contiguity of the inputs (``extra`` more of
+    them), and u's, W's and bias's shapes agreeing; before any build."""
+    _check_inputs(fn_name, u, (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3))
+                  + tuple(extra))
+    batch, seq_len, in_n, in_d = u.shape
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    if (wgt.shape[0], wgt.shape[3]) != (in_n, in_d) or tuple(bias.shape) != (
+            in_n, out_n, out_d):
+        raise ValueError("shape mismatch: u %s, W %s, bias %s" % (
+            tuple(u.shape), tuple(wgt.shape), tuple(bias.shape)))
+    if batch < 1 or seq_len < 1:
+        raise ValueError("need B and T >= 1 (got %d, %d)" % (batch, seq_len))
+
+
+def _check_tp_smem(lib, wgt):
+    in_n, out_n, out_d = wgt.shape[:3]
+    if lib.sdr_tp_smem_bytes(in_n, out_n, out_d) < 0:
+        raise ValueError(
+            "capsule geometry (in_n, O_local, out_d) = (%d, %d, %d) does not "
+            "fit the sdr_tp kernels' shared memory" % (in_n, out_n, out_d))
+
+
+def _predict_rows(fwd, u, wgt, bias, stream):
+    """This rank's u_hat [B, T, in_n, pitch] by the prediction kernel."""
+    batch, seq_len, in_n, in_d = u.shape
+    out_no = wgt.shape[1] * wgt.shape[2]
+    uhat = torch.empty((batch, seq_len, in_n, _plain().row_pitch(out_no)),
+                       device=u.device)
+    _raise_on(fwd, "sdr_fwd", fwd.sdr_predict(
+        u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), uhat.data_ptr(),
+        batch * seq_len, in_n, in_d, out_no, stream))
+    return uhat
+
+
+def sequential_routing_tp_cuda(u, wgt, bias, num_iter, pad_owner, group):
+    """SDR on a shard of the out capsules on the card (K1-tp): same
+    contract as ``ops.routing.sequential_routing_tp(..., return_stats=
+    True)``. u [B, T, in_n, in_d] (replicated over ``group``), this rank's
+    wgt [in_n, O_local, out_d, in_d] and bias [in_n, O_local, out_d],
+    float32, contiguous, on one CUDA device -> (out [B, T, O_local, out_d],
+    the global (M, L) [T, num_iter, B, in_n, 2]). One exchange a step and
+    iteration over ``group`` (an all-gather of the rows' (m, l) pairs).
+    Raises on anything the kernels do not take; never falls back to the
+    plain version. ``sequential_routing_tp_cuda.launches`` counts its
+    kernel launches: the prediction, then two a step and iteration."""
+    _check_tp("sequential_routing_tp_cuda", u, wgt, bias)
+    lib, fwd, _ = _tp_libs()
+    _check_tp_smem(lib, wgt)
+    if num_iter < 1:
+        raise ValueError("need num_iter >= 1 (got %d)" % num_iter)
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        uhat = _predict_rows(fwd, u, wgt, bias, stream)
+        out, stats = drive(
+            tp_forward_steps(lib, uhat, out_n, out_d, num_iter, pad_owner,
+                             stream),
+            lambda local: _gather_pairs(local, group))
+    sequential_routing_tp_cuda.launches += 1 + 2 * u.shape[1] * num_iter
+    return out, stats
+
+
+sequential_routing_tp_cuda.launches = 0
+
+
+def sequential_routing_tp_bwd_cuda(u, wgt, bias, vs, dvs, stats, pad_owner,
+                                   group):
+    """K1-tp's backward on the card (K2-tp), one routing iteration: same
+    contract as ``ops.routing.sequential_routing_tp_bwd``. u, this rank's
+    wgt and bias, its outputs vs and their cotangent dvs [B, T, O_local,
+    out_d], the forward's ``stats``, float32, contiguous, on one CUDA
+    device -> (du, dW, db): du the whole gradient of u (summed over
+    ``group`` once, after the loop), dW and db the shard's. One SUM
+    all-reduce of [B, in_n] a step. Raises on anything the kernels do not
+    take; never falls back to the plain version.
+    ``sequential_routing_tp_bwd_cuda.launches`` counts its kernel launches:
+    the prediction, two a step, the weight gradient and its reduction."""
+    _check_tp("sequential_routing_tp_bwd_cuda", u, wgt, bias,
+              (("vs", vs, 4), ("dvs", dvs, 4), ("stats", stats, 5)))
+    batch, seq_len, in_n, in_d = u.shape
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    for name, x in (("vs", vs), ("dvs", dvs)):
+        if tuple(x.shape) != (batch, seq_len, out_n, out_d):
+            raise ValueError("%s must be %s, got %s" % (
+                name, (batch, seq_len, out_n, out_d), tuple(x.shape)))
+    if tuple(stats.shape) != (seq_len, 1, batch, in_n, 2):
+        # K2-tp is the one-iteration backward: a deeper forward's stats
+        # would pass for its first iteration and give a wrong gradient
+        raise ValueError("stats must be a one-iteration forward's [%d, 1, "
+                         "%d, %d, 2], got %s"
+                         % (seq_len, batch, in_n, tuple(stats.shape)))
+    lib, fwd, bwd = _tp_libs()
+    _check_tp_smem(lib, wgt)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        uhat = _predict_rows(fwd, u, wgt, bias, stream)
+        cfac, dafac, dsfac = drive(
+            tp_backward_steps(lib, uhat, vs, dvs, stats, pad_owner, stream),
+            lambda rowsum: _sum_over(rowsum, group))
+        floats = bwd.sdr_bwd_wgrad_part_floats(batch, seq_len, in_n, in_d,
+                                               out_n, out_d)
+        if floats < 0:
+            raise RuntimeError("sdr_bwd_wgrad: no weight-gradient plan for "
+                               "%s on %s" % (tuple(wgt.shape), u.device))
+        part = torch.empty(floats, device=u.device)
+        du, dwgt, dbias = (torch.empty_like(x) for x in (u, wgt, bias))
+        _raise_on(bwd, "sdr_bwd", bwd.sdr_bwd_wgrad(
+            u.data_ptr(), wgt.data_ptr(), vs.data_ptr(), cfac.data_ptr(),
+            dafac.data_ptr(), dsfac.data_ptr(), part.data_ptr(),
+            du.data_ptr(), dwgt.data_ptr(), dbias.data_ptr(), batch, seq_len,
+            in_n, in_d, out_n, out_d, stream))
+        _sum_over(du, group)
+    sequential_routing_tp_bwd_cuda.launches += 1 + 2 * seq_len + 2
+    return du, dwgt, dbias
+
+
+sequential_routing_tp_bwd_cuda.launches = 0
+
+
+class SDRTPFunction(torch.autograd.Function):
+    """SDR on a shard of the out capsules, the softmax split over the
+    ``model`` group (``ops/routing.py:sequential_routing_tp``): the
+    counterpart of the loop body XLA partitions when W and b are sharded
+    on dim 1 (``srf_tpu/ops/routing.py:_sdr_step_factored``; no Pallas
+    kernel).
+
+    forward: u, W and bias cast to float32 (float64 stays, for the CPU
+    tests); K1-tp on a CUDA tensor (:func:`sequential_routing_tp_cuda`),
+    the plain ``sequential_routing_tp`` on a CPU tensor. Saves u, W, bias,
+    the output and the global (M, L) of every step and iteration.
+    backward: with one routing iteration K2-tp on CUDA
+    (:func:`sequential_routing_tp_bwd_cuda`) and the plain
+    ``sequential_routing_tp_bwd`` on the CPU, both from the saved (M, L);
+    with more, autograd through the plain split loop recomputed from the
+    saved inputs, counted in ``SDRTPFunction.plain_backwards`` (as
+    ``SDRFunction``'s). u's gradient is the whole one, summed over the
+    group; W's and bias's are the shard's. Only the device and
+    ``num_iter`` choose; nothing falls back on failure.
+    """
+
+    plain_backwards = 0
+
+    @staticmethod
+    def forward(ctx, u, wgt, bias, num_iter, pad_owner, group):
+        ctx.dtypes = (u.dtype, wgt.dtype, bias.dtype)
+        cd = _plain()._compute_dtype(u.dtype)
+        u, wgt, bias = (x.to(cd).contiguous() for x in (u, wgt, bias))
+        if u.is_cuda:
+            out, stats = sequential_routing_tp_cuda(u, wgt, bias, num_iter,
+                                                    pad_owner, group)
+        else:
+            out, stats = _plain().sequential_routing_tp(
+                u, wgt, bias, num_iter, pad_owner, group, return_stats=True)
+        ctx.save_for_backward(u, wgt, bias, out, stats)
+        ctx.num_iter, ctx.pad_owner, ctx.group = num_iter, pad_owner, group
+        return out.to(ctx.dtypes[0])
+
+    @staticmethod
+    def backward(ctx, dout):
+        u, wgt, bias, out, stats = ctx.saved_tensors
+        dout = dout.to(out.dtype).contiguous()
+        if ctx.num_iter == 1 and u.is_cuda:
+            grads = sequential_routing_tp_bwd_cuda(
+                u, wgt, bias, out, dout, stats, ctx.pad_owner, ctx.group)
+        elif ctx.num_iter == 1:
+            grads = _plain().sequential_routing_tp_bwd(
+                u, wgt, bias, out, dout, ctx.pad_owner, ctx.group, stats)
+        else:
+            SDRTPFunction.plain_backwards += 1
+            with torch.enable_grad():
+                inputs = [x.detach().requires_grad_() for x in (u, wgt, bias)]
+                recomputed = _plain().sequential_routing_tp(
+                    *inputs, ctx.num_iter, ctx.pad_owner, ctx.group)
+                grads = torch.autograd.grad(recomputed, inputs, dout)
+        return (*(g.to(d) for g, d in zip(grads, ctx.dtypes)), None, None,
+                None)
 
 
 def _plain_loop_grads(u, wgt, bias, ctx, dout):

@@ -30,7 +30,9 @@ The collectives below are differentiable where the training paths need
 them (torch has no differentiable point-to-point operation):
 :func:`ppermute` (ring attention's rotation and the pipeline's stage
 hops), :func:`split_along` / :func:`gather_along` (ring attention's
-global-in, global-out shards). Global BatchNorm has its own
+global-in, global-out shards; the ``model`` axis's class capsules),
+:func:`copy_to_group` and :func:`all_reduce_sum` (the ``model`` axis's
+split routing softmax, ``ops/routing.py``). Global BatchNorm has its own
 (``models/layers.py``).
 """
 
@@ -276,3 +278,62 @@ def gather_along(x, group, dim):
     """Every rank's ``x`` concatenated along ``dim`` in rank order; the
     backward takes this rank's part of the (replicated) gradient."""
     return _GatherAlong.apply(x, group, dim)
+
+
+def _sums_over(group):
+    return group is not None and world_size(group) > 1
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def copy_to_group(x, group):
+    """``x``, replicated over ``group``, as the input of a computation
+    that ``group``'s ranks split between them (Megatron's ``f``): the
+    identity forward, and a SUM all-reduce of the gradient backward, so
+    that each rank's gradient of ``x`` holds every rank's part. The
+    identity where ``group`` has one rank or is None."""
+    return _CopyToGroup.apply(x, group) if _sums_over(group) else x
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's output depends on every rank's x: the gradient of
+        # x is the sum of the ranks' output gradients
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x, group):
+    """``x`` summed over ``group`` (differentiable: the backward sums the
+    gradients over ``group`` too); ``x`` itself where ``group`` has one
+    rank or is None."""
+    return _AllReduceSum.apply(x, group) if _sums_over(group) else x
+
+
+def all_reduce_max(x, group):
+    """The elementwise max of ``x`` over ``group``, detached (a new tensor;
+    ``x`` detached where ``group`` has one rank or is None)."""
+    out = x.detach().clone()
+    if _sums_over(group):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out

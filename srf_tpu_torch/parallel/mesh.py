@@ -18,9 +18,13 @@ process per card (``parallel/distributed.py``), so a mesh axis is a
   0's parameters, buffers and EMA to every rank, at the start and after a
   restore.
 
-The ``model`` axis (``num_model`` > 1) shards the class-capsule layer's
-output capsules, which splits the routing softmax inside K1's and K2's
-recurrence across ranks: ROADMAP.md section 1 item 7b.
+The ``model`` axis (``num_model`` > 1): ranks are laid out as JAX reshapes
+its devices, row-major over ``(num_data, num_model)`` (global rank = data
+index x num_model + model index), so the ``model`` group holds the ranks
+of one data index, which see the same rows, and the ``data`` group the
+ranks that hold the same class-capsule shard
+(``parallel/sharding_rules.apply_rules``). No CLI flag builds one, as in
+JAX: the library API does (``make_mesh(num_data, num_model)``).
 """
 
 import dataclasses
@@ -30,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from srf_tpu_torch.parallel import distributed
+from srf_tpu_torch.parallel.sharding_rules import model_shard
 
 
 @dataclasses.dataclass
@@ -68,25 +73,24 @@ def _build(axes, sizes, device):
 
 def make_mesh(num_data=-1, num_model=1, device=None):
     """A ``("data", "model")`` mesh of the world's ranks (``--tpu-mesh-data``
-    is ``num_data``; -1 means the world size). A ``num_data`` that is not
-    the world size raises: each rank is one card, so a mesh of 2 needs 2
-    processes. ``device`` (``--device``) gives the DeviceMesh's type."""
-    if num_model != 1:
-        raise NotImplementedError(
-            "a 'model' mesh axis (num_model=%d) is not ported: sharding the "
-            "class capsules splits the routing softmax inside K1 and K2 "
-            "(ROADMAP.md section 1 item 7b)" % num_model)
+    is ``num_data``; -1 means world / ``num_model``). The world size must
+    be ``num_data`` x ``num_model``, or it raises: each rank is one card,
+    so a mesh of 2 x 2 needs 4 processes. ``device`` (``--device``) gives
+    the DeviceMesh's type."""
+    if num_model is None or num_model < 1:
+        raise ValueError("num_model must be >= 1 (got %r)" % (num_model,))
     world = distributed.world_size()
     if num_data in (None, 0) or num_data < 0:
-        num_data = world
-    if num_data != world:
+        num_data = max(1, world // num_model)
+    if num_data * num_model != world:
+        need = num_data * num_model
         raise ValueError(
-            "--tpu-mesh-data=%d needs %d processes (one per card), but %d "
-            "%s running: launch %d processes (SRF_COORDINATOR, "
+            "a (data %d, model %d) mesh needs %d processes (one per card), "
+            "but %d %s running: launch %d processes (SRF_COORDINATOR, "
             "SRF_NUM_PROCESSES and SRF_PROCESS_ID, or torchrun with "
-            "SRF_MULTIHOST=1)" % (num_data, num_data, world,
-                                  "is" if world == 1 else "are", num_data))
-    return _build(("data", "model"), (num_data, 1), device)
+            "SRF_MULTIHOST=1)" % (num_data, num_model, need, world,
+                                  "is" if world == 1 else "are", need))
+    return _build(("data", "model"), (num_data, num_model), device)
 
 
 def make_pipeline_mesh(stages, num_data=-1, device=None):
@@ -112,17 +116,26 @@ def broadcast_state(state, group=None):
     buffers and EMA into every rank's ``state`` in place (JAX's
     ``make_global_replicated``: a freshly built or restored state becomes
     the one replicated state). Nothing in one process. FSDP's sharded
-    parameters are left as they are: they are sharded, not replicated."""
+    parameters are left as they are: they are sharded, not replicated. A
+    ``model``-axis shard (``sharding_rules.apply_rules``) has the same
+    shape on every model rank but other values, so it goes only over its
+    ``data`` group, from that group's rank 0: each rank keeps its own
+    shard of rank 0's weights."""
     if distributed.world_size(group) <= 1:
         return state
-    src = distributed.global_rank(group, 0)
-    tensors = [t for t in state.model.state_dict().values()
+    shard = model_shard(state.model)
+    sharded = set(shard.spans) if shard is not None else set()
+    tensors = [(k, t) for k, t in state.model.state_dict().items()
                if not _is_dtensor(t)]
     if state.ema is not None:
-        tensors += [t for t in state.ema.values() if not _is_dtensor(t)]
+        tensors += [(k, t) for k, t in state.ema.items()
+                    if not _is_dtensor(t)]
     with torch.no_grad():
-        for tensor in tensors:
-            dist.broadcast(tensor, src, group=group)
+        for name, tensor in tensors:
+            on = shard.data_group if name in sharded else group
+            if distributed.world_size(on) > 1:
+                dist.broadcast(tensor, distributed.global_rank(on, 0),
+                               group=on)
     return state
 
 

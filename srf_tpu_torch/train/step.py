@@ -68,6 +68,19 @@ step reduces what JAX's jitted step computes over its global array:
   logs and ``metrics.jsonl`` show JAX's global numbers;
 - F22: the dropout seed folds in the rank on ``group``, or every rank
   would draw the same masks for different rows;
+- the ``model`` axis (``parallel/sharding_rules.apply_rules``,
+  ``model_group`` the mesh's ``model`` group): the model ranks of one data
+  index hold the same rows and split the class capsules, so every
+  reduction above stays over ``group``, the ``data`` group, and never the
+  world (a world group would count the batch, the metrics and the
+  gradients ``num_model`` times): ``B_global``, the metrics, the
+  gradients of the replicated parameters and of the shards (summed over
+  the ranks that hold the same shard), BatchNorm's sums (the trainer sets
+  the data group on the model), and the dropout seed's fold, the data
+  index, so that the model ranks draw the same masks on their replicated
+  activations. The step raises where ``group`` and ``model_group`` do not
+  make up the world, and its first call checks that the model ranks hold
+  the same batch (one small all-reduce of a fingerprint);
 - ``--tpu-grad-accum``: microbatch i is every rank's local slice i. With
   the global BatchNorm that is JAX's step on the global batch permuted to
   ``[r0 mb0, r1 mb0, r0 mb1, ...]`` (JAX's microbatch i is the contiguous
@@ -167,6 +180,39 @@ def reduce_metrics(metrics, group, keys):
     return dict(metrics, **dict(zip(keys, values.unbind(0))))
 
 
+def check_mesh_groups(group, model_group):
+    """Raise unless the ``data`` group ``group`` and the ``model`` group
+    ``model_group`` make up the world (each the mesh's, not the world):
+    the step reduces over ``group`` only."""
+    data_n, model_n = (1 if g is None else distributed.world_size(g)
+                       for g in (group, model_group))
+    if model_n > 1 and data_n * model_n != distributed.world_size():
+        raise ValueError(
+            "a step on a 'model' mesh axis reduces over the mesh's 'data' "
+            "group: got a group of %d ranks and a model group of %d in a "
+            "world of %d" % (data_n, model_n, distributed.world_size()))
+
+
+def check_model_replicas(batch, model_group):
+    """Raise unless every rank of ``model_group`` holds the same batch
+    (its size, features' sum and lengths' sum, reduced by MAX and MIN)."""
+    if model_group is None or distributed.world_size(model_group) <= 1:
+        return
+    feats = batch["feats"]
+    fingerprint = torch.stack([
+        torch.tensor(float(feats.shape[0]), dtype=torch.float64,
+                     device=feats.device),
+        feats.detach().double().sum(),
+        batch["inp_len"].to(feats.device).double().sum()])
+    high, low = fingerprint.clone(), fingerprint.clone()
+    dist.all_reduce(high, op=dist.ReduceOp.MAX, group=model_group)
+    dist.all_reduce(low, op=dist.ReduceOp.MIN, group=model_group)
+    if not torch.equal(high, low):
+        raise ValueError(
+            "the 'model' ranks of one data index must hold the same rows "
+            "(shard the batch over the mesh's 'data' axis only)")
+
+
 def divisor_at_most(size, requested):
     """The largest divisor of ``size`` at most ``requested`` (JAX's rule
     for microbatch counts: bucket sizes vary, so an indivisible size takes
@@ -203,7 +249,7 @@ def optimizer_update(state, ema_decay=0.0):
 
 
 def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0,
-                    group=None, grad_group=None):
+                    group=None, grad_group=None, model_group=None):
     """Returns ``train_step(state, batch, seed) -> (state, metrics)``.
 
     ``batch`` holds ``feats`` [B, T, F] and ``labels`` [B, L] on one device
@@ -215,13 +261,19 @@ def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0,
     per-example losses over the microbatches), ``samples`` and ``frames``.
     ``accum_steps`` and ``ema_decay``: the module docstring; the EMA moves
     only where the state keeps one (``TrainState.create(with_ema=True)``).
-    ``group`` / ``grad_group``: data parallelism (the module docstring).
+    ``group`` / ``grad_group``: data parallelism, ``model_group``: the
+    ``model`` axis (the module docstring).
     """
     generators = {}
     grad_group = grad_group if grad_group is not None else group
+    check_mesh_groups(group, model_group)
+    checked = []
 
     def train_step(state, batch, seed):
         feats = batch["feats"]
+        if not checked:
+            check_model_replicas(batch, model_group)
+            checked.append(True)
         if feats.device not in generators:
             generators[feats.device] = torch.Generator(feats.device)
         generator = generators[feats.device]
@@ -258,10 +310,13 @@ def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0,
     return train_step
 
 
-def make_valid_step(apply_fn, in_len_div, group=None):
+def make_valid_step(apply_fn, in_len_div, group=None, model_group=None):
     """Returns ``valid_step(state, batch) -> metrics`` (eval mode, no
     gradients): ``loss_sum`` and ``samples`` as device tensors, summed
-    over ``group`` under data parallelism."""
+    over ``group`` under data parallelism (the ``data`` group on a
+    ``model`` axis, ``model_group`` the ``model`` group: the module
+    docstring)."""
+    check_mesh_groups(group, model_group)
 
     def valid_step(state, batch):
         with torch.no_grad():

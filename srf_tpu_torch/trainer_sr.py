@@ -202,12 +202,21 @@ def build_loaders(config, logger, mesh=None, seed=0):
 
 def build_state(config, logger, model, mesh, train, shard=True):
     """The TrainState of this rank: the model on its device with its
-    BatchNorm over the mesh's data group, sharded with ``--tpu-fsdp``
-    where ``shard`` (before the optimizer, so Adam's moments shard with
-    their parameters), the optimizer and schedule in train mode."""
+    BatchNorm over the mesh's data group, its class capsules sharded over
+    a ``model`` axis (``sharding_rules.apply_rules``; a mesh built through
+    the library API, as no flag makes one), sharded with ``--tpu-fsdp``
+    where ``shard`` (both before the optimizer, so Adam's moments shard
+    with their parameters), the optimizer and schedule in train mode."""
     set_batch_norm_group(model, mesh.group("data"))
     state = TrainState.create(model, None, None, with_ema=uses_ema(config),
                               device=config.device)
+    if mesh.shape.get("model", 1) > 1:
+        specs = sharding_rules.apply_rules(state.model, mesh)
+        logger.info("model axis: %s sharded over 'model' (%d ranks)",
+                    sorted(k for k, v in specs.items() if v is not None),
+                    mesh.shape["model"])
+        if state.ema is not None:
+            state.reset_ema()
     if train and shard and config.tpu_fsdp:
         sharding_rules.fsdp(state.model, mesh, logger, bf16=config.tpu_bf16)
         if state.ema is not None:
@@ -232,8 +241,9 @@ def state_to_tree(state):
     }
     if state.ema is not None:
         tree["ema"] = state.ema
-    # FSDP's shards gathered (a collective), so the file is one process's
-    return sharding_rules.full_state(tree)
+    # FSDP's and the 'model' axis's shards gathered (a collective), so the
+    # file is one process's
+    return sharding_rules.full_state(tree, state.model)
 
 
 def uses_ema(config):
@@ -360,8 +370,10 @@ def main(argv=None):
         train_step = make_train_step(apply_fn, in_len_div,
                                      accum_steps=config.tpu_grad_accum,
                                      ema_decay=config.tpu_ema_decay,
-                                     group=group)
-    valid_step = make_valid_step(apply_fn, in_len_div, group)
+                                     group=group,
+                                     model_group=mesh.group("model"))
+    valid_step = make_valid_step(apply_fn, in_len_div, group,
+                                 mesh.group("model"))
     metrics_path = (
         os.path.join(config.path_ckpt, "metrics.jsonl") if config.path_ckpt else None
     )

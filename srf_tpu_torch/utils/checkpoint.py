@@ -169,18 +169,21 @@ def restore_into(state, tree, params_only=False):
     rate is set to ``base_lr * lr_lambda(count)`` under a scheduler, or to
     the group's current rate (``--train-lr-param-k`` for adam and sgd)."""
     from srf_tpu_torch.parallel.sharding_rules import (
-        shard_like, shard_optimizer_state,
+        model_shard, shard_like, shard_optimizer_state,
     )
 
-    # an FSDP model takes each whole tensor as its shard
+    # an FSDP model takes each whole tensor as its shard, a model sharded
+    # on the 'model' axis its slice
     live = state.model.state_dict()
-    state.model.load_state_dict({k: shard_like(v, live.get(k))
+    shard = model_shard(state.model)
+    spans = shard.spans if shard is not None else {}
+    state.model.load_state_dict({k: shard_like(v, live.get(k), spans.get(k))
                                  for k, v in tree["model"].items()})
     state.step = int(tree["step"])
     if tree.get("ema") is not None:
         device = next(state.model.parameters()).device
         params = dict(state.model.named_parameters())
-        state.ema = {k: shard_like(v.to(device), params[k])
+        state.ema = {k: shard_like(v.to(device), params[k], spans.get(k))
                      for k, v in tree["ema"].items()}
     elif state.ema is not None:
         # an EMA asked of a checkpoint without one: for decoding there is
@@ -196,7 +199,8 @@ def restore_into(state, tree, params_only=False):
         current = [{k: group[k] for k in ("lr", "initial_lr") if k in group}
                    for group in optimizer.param_groups]
         optimizer.load_state_dict(
-            shard_optimizer_state(tree["optimizer"], optimizer))
+            shard_optimizer_state(tree["optimizer"], optimizer,
+                                  state.model))
         for group, rates in zip(optimizer.param_groups, current):
             group.update(rates)
     if scheduler is not None and tree.get("scheduler") is not None:

@@ -91,7 +91,8 @@ def _flat(prefix, tensors):
     return {prefix + k: v.detach().numpy().copy() for k, v in tensors.items()}
 
 
-def _srf_state(spec, state, mesh, fsdp=False, bf16=False):
+def _srf_state(spec, state, mesh, fsdp=False, bf16=False, model_axis=False,
+               with_ema=False):
     from srf_tpu_torch.models.layers import set_batch_norm_group
     from srf_tpu_torch.models.srf import SequenceRouter
     from srf_tpu_torch.parallel import sharding_rules
@@ -103,9 +104,12 @@ def _srf_state(spec, state, mesh, fsdp=False, bf16=False):
     set_batch_norm_group(model, mesh.group("data"))
     if fsdp:
         sharding_rules.fsdp(model, mesh, bf16=bf16)
+    if model_axis:
+        sharding_rules.apply_rules(model, mesh)
     config = type("Config", (), spec["optimizer"])
     opt, scheduler = optimizer.get_optimizer(config, model.parameters())
-    return TrainState.create(model, opt, scheduler, device="cpu")
+    return TrainState.create(model, opt, scheduler, device="cpu",
+                             with_ema=with_ema)
 
 
 def _local_batch(arrays, rank, ranks):
@@ -130,7 +134,15 @@ def dp(workdir):
     group = mesh.group("data")
     batch = _local_batch(arrays, rank, ranks)
     div = spec["in_len_div"]
-    out = {}
+    # the (data 1, model 2) mesh of the same two ranks
+    model_mesh = make_mesh(1, num_model=2, device="cpu")
+    out = {"model_mesh/shape": np.array([model_mesh.shape["data"],
+                                         model_mesh.shape["model"]]),
+           "model_mesh/index": np.array([model_mesh.index("data"),
+                                         model_mesh.index("model")]),
+           "model_mesh/sizes": np.array([
+               distributed.world_size(model_mesh.group("data")),
+               distributed.world_size(model_mesh.group("model"))])}
     for label, accum, steps, fsdp, bf16 in (
             ("dp", 1, 2, False, False), ("accum", 2, 1, False, False),
             ("fsdp", 1, 2, True, False), ("dp_bf16", 1, 1, False, True),
@@ -264,7 +276,123 @@ def pipeline(workdir):
                           % distributed.rank()), **out)
 
 
-SCENARIOS = {"dp": dp, "loader": loader, "ring": ring, "pipeline": pipeline}
+def _routing_cases(spec, arrays, mesh, out):
+    """The split routing on this rank's shard of the whole W and b: for
+    each (SDR or DR, PAD mask, iterations) case the forward and the
+    gradients of <out, cotangent>."""
+    from srf_tpu_torch.ops.routing import route_layer
+    from srf_tpu_torch.parallel import distributed
+
+    group = mesh.group("model")
+    size, index = mesh.shape["model"], mesh.index("model")
+    wgt, bias = (torch.from_numpy(arrays["route/" + n]) for n in ("W", "b"))
+    length = wgt.shape[1] // size
+    part = slice(index * length, (index + 1) * length)
+    for is_context, is_last, num_iter in spec["routing"]:
+        key = "route/%d%d%d/" % (is_context, is_last, num_iter)
+        u = torch.from_numpy(arrays["route/u"]).requires_grad_()
+        w = wgt[:, part].contiguous().requires_grad_()
+        b = bias[:, part].contiguous().requires_grad_()
+        got = route_layer(u, w, b, num_iter, bool(is_context), bool(is_last),
+                          shard=(index * length, wgt.shape[1], group))
+        cot = torch.from_numpy(arrays["route/cot"])[:, :, part]
+        (got * cot).sum().backward()
+        out.update(_flat(key, {"out": got, "du": u.grad, "dW": w.grad,
+                               "db": b.grad}))
+    out["route/group_size"] = distributed.world_size(group)
+    # K1-tp's and K2-tp's exchanges (routing_cuda), on this rank's tensors
+    from srf_tpu_torch.ops import routing_cuda
+
+    local = torch.tensor([[float(index), 1.0 + n] for n in range(3)])
+    out["exchange/pairs"] = routing_cuda._gather_pairs(local, group).numpy()
+    out["exchange/sum"] = routing_cuda._sum_over(local.clone(), group).numpy()
+
+
+def model_axis(workdir):
+    """A (data, model) mesh of the world (``spec["mesh"]``): the split
+    routing cases (``spec["routing"]``), two train steps of the SRF with
+    its class capsules sharded over ``model``, their gradients, state and
+    seeds; the checkpoint of the sharded state (rank 0 writes) and its
+    eval logits; broadcast_state over a shard; one accumulated step with
+    an EMA."""
+    from srf_tpu_torch.parallel import distributed, sharding_rules
+    from srf_tpu_torch.parallel.mesh import broadcast_state, make_mesh
+    from srf_tpu_torch.train import step
+    from srf_tpu_torch.trainer_sr import state_to_tree
+    from srf_tpu_torch.utils.checkpoint import CheckpointManager
+
+    spec, state_dict, arrays = _inputs(workdir)
+    num_data, num_model = spec["mesh"]
+    mesh = make_mesh(num_data, num_model, device="cpu")
+    data, model_group = mesh.group("data"), mesh.group("model")
+    rank = distributed.rank()
+    out = {"mesh/index": np.array([mesh.index("data"), mesh.index("model")]),
+           "mesh/sizes": np.array([distributed.world_size(data),
+                                   distributed.world_size(model_group)])}
+    if spec.get("routing"):
+        _routing_cases(spec, arrays, mesh, out)
+    div = spec["in_len_div"]
+    batch = _local_batch(arrays, mesh.index("data"), num_data)
+
+    state = broadcast_state(_srf_state(spec, state_dict, mesh,
+                                       model_axis=True))
+    shard = sharding_rules.model_shard(state.model)
+    out["specs"] = np.array(sorted("%s:%d:%d:%d:%d" % (k, *v)
+                                   for k, v in shard.spans.items()))
+    apply_fn = step.make_apply_fn(state.model)
+    train_step = step.make_train_step(apply_fn, div, group=data,
+                                      model_group=model_group)
+    out["seed"] = step.step_seed(1234, 0, distributed.rank(data))
+    for i in range(2):
+        state, metrics = train_step(state, batch, 1234)
+        for key, value in metrics.items():
+            out["step/metrics/%d/%s" % (i, key)] = value.item()
+        if i == 0:
+            grads = {k: p.grad for k, p in state.model.named_parameters()}
+            out.update(_flat("step/local_grad/", grads))
+            out.update(_flat("step/grad/", sharding_rules.gather_named(
+                grads, state.model)))
+    out["step/moment_shapes"] = np.array(sorted(
+        "%d:%s" % (i, "x".join(map(str, s["exp_avg"].shape)))
+        for i, s in enumerate(state.optimizer.state.values())))
+    tree = state_to_tree(state)
+    out.update(_flat("step/state/", tree["model"]))
+    if rank == 0:
+        CheckpointManager(os.path.join(workdir, "ckpt")).save(state.step,
+                                                             tree)
+    distributed.barrier()
+    valid = step.make_valid_step(apply_fn, div, data, model_group)(state,
+                                                                  batch)
+    out["valid/loss_sum"] = valid["loss_sum"].item()
+    out["valid/samples"] = valid["samples"].item()
+    with torch.no_grad():
+        out["logits"] = apply_fn(batch, False).numpy()
+
+    # broadcast_state: rank 1's own weights moved off rank 0's first
+    state = _srf_state(spec, state_dict, mesh, model_axis=True)
+    if rank == 1:
+        with torch.no_grad():
+            for p in state.model.parameters():
+                p.add_(1.0)
+    broadcast_state(state)
+    out.update(_flat("bcast/", dict(state.model.named_parameters())))
+
+    if spec.get("accum"):
+        state = broadcast_state(_srf_state(spec, state_dict, mesh,
+                                           model_axis=True, with_ema=True))
+        accum_step = step.make_train_step(
+            step.make_apply_fn(state.model), div, accum_steps=2,
+            ema_decay=0.9, group=data, model_group=model_group)
+        state, metrics = accum_step(state, batch, 1234)
+        out["accum/loss_sum"] = metrics["loss_sum"].item()
+        tree = state_to_tree(state)
+        out.update(_flat("accum/state/", tree["model"]))
+        out.update(_flat("accum/ema/", tree["ema"]))
+    np.savez(os.path.join(workdir, "model_axis-rank%d.npz" % rank), **out)
+
+
+SCENARIOS = {"dp": dp, "loader": loader, "ring": ring, "pipeline": pipeline,
+             "model_axis": model_axis}
 
 
 def main(scenario, workdir):

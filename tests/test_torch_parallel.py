@@ -27,7 +27,8 @@ global batch of 8 utterances, 4 a rank:
 - the valid step's metrics summed over the ranks.
 
 And, in this process: F22 (the dropout seed folds in the rank), F23 (k of
-the local batch), the mesh's errors, global BatchNorm in one process.
+the local batch), the mesh's errors (and the 2 ranks' (data 1, model 2)
+mesh), global BatchNorm in one process.
 """
 
 import types
@@ -304,14 +305,17 @@ def test_f23_accumulation_divides_the_local_batch():
     assert len(step.microbatches({"feats": np.zeros((4, 4, 2))}, 2)) == 2
 
 
-def test_mesh_needs_one_process_per_card():
+def test_mesh_needs_one_process_per_card(runs):
     mesh = port_mesh.make_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "model": 1}
     assert mesh.group() is None and mesh.index() == 0
     with pytest.raises(ValueError, match="launch 2 processes"):
         port_mesh.make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        port_mesh.make_mesh(1, num_model=2)
+    # the 2 ranks build a (data 1, model 2) mesh: rank r is model index r
+    for r, rank in enumerate(runs.ranks):
+        assert list(rank["model_mesh/shape"]) == [1, 2]
+        assert list(rank["model_mesh/index"]) == [0, r]
+        assert list(rank["model_mesh/sizes"]) == [1, 2]
     with pytest.raises(ValueError, match="launch 2 processes"):
         port_mesh.make_pipeline_mesh(2, device="cpu")
 
