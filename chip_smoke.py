@@ -7,9 +7,10 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from csrc/ with nvcc (one process
-   per source, all started together): K1, K2, K3, K4, K5; print ptxas's
-   registers and spills per kernel, and fail if the recurrence kernel of
-   K1 or K2, or the cluster scan of K3 or K4, spills;
+   per source, all started together): K1, K2, K3, K4, K5, K1-tp, K2-tp;
+   print ptxas's registers and spills per kernel, and fail if the
+   recurrence kernel of K1 or K2, the cluster scan of K3 or K4, or the
+   persistent kernel of K1-tp or K2-tp spills;
 3. K1 (SDR forward: the prediction kernel and the recurrence) and K3 (the
    cluster-scan SDR forward: a thread-block cluster per batch tile, W's
    slice in shared memory) against their plain PyTorch
@@ -288,25 +289,43 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    both ranks' valid losses equal, rank 0's checkpoint and metrics; every
    rank's step times and peak memory;
 17. the 'model' mesh axis (the class capsules sharded over ranks, the
-   routing softmax split across them), as processes sharing cuda:0 over
-   gloo like phase 16 (``chip_smoke.py --model-axis-worker DIR``): (a)
-   K1-tp and K2-tp (csrc/sdr_tp.cu) against the plain split version on
-   the same CUDA tensors, at K1's and K2's tolerances, at SRF-WSJ's last
-   layer on 2 ranks (150 -> 16 of 32 capsules of dim 20, B 8, T' 400) and
-   SRF-TIMIT's on 3 (90 -> 21 of 63 of dim 8, 29 x 61), 1 and 2
-   iterations, the PAD capsule's owner and the others, with their median
-   times, plain times and bounds, and K2-tp's refusal of a two-iteration
-   forward's stats; (b) the SRF-WSJ train step at full width on a
+   routing softmax split across them): (a) in this process, the
+   persistent K1-tp and K2-tp (csrc/sdr_tp.cu, one kernel a call that
+   walks time and exchanges through flags in device memory) as a
+   co-launch of every rank's shard on the card: one forward and backward
+   at SRF-WSJ's last layer driven with the launch counts at 0, then each
+   case held to the plain split version at K1's and K2's tolerances, at
+   SRF-WSJ's last layer on 2 ranks (150 -> 16 of 32 capsules of dim 20,
+   B 8, T' 400) and SRF-TIMIT's on 3 (90 -> 21 of 63 of dim 8, 29 x 61),
+   1 and 2 iterations, with median times, plain times, bounds and the
+   parts' device times, and the co-launch of one shard; then,
+   as processes sharing cuda:0 over gloo like phase 16
+   (``chip_smoke.py --model-axis-worker DIR``), where the transport is the
+   host loop (their ranks share a card), the host loop's K1-tp and K2-tp
+   against the plain split version at the same cases and ranks, the PAD
+   capsule's owner and the others, with their median times with and
+   without the exchange, plain times and bounds, and K2-tp's refusal of a
+   two-iteration forward's stats, and, on 2 ranks, transport 2's set-up
+   (CUDA IPC buffers: rank 1 reads rank 0's pattern through the mapping,
+   both release them); (b) the SRF-WSJ train step at full width on a
    (data 1, model 2) mesh, phase 12c's weights and 8 x 1600 batch,
    dropout off, held to the one-process step on the card within phase
-   12c's limits, K1 18, K2 36, K1-tp 801 and K2-tp 803 launches a rank,
-   ms a step, peak memory and the sharded layer's scratch beside the one
-   process's;
-18. a "kernels" JSON line (K1, K2, K3, K4, K5, the variants K1-bf16,
-   K2-bf16, K5-bf16, and K1-tp, K2-tp), then the card line, then the
+   12c's limits, the transport the host loop, K1 18, K2 36, K1-tp 801 and
+   K2-tp 803 launches a rank (none persistent), ms a step, peak memory and
+   the sharded layer's scratch beside the one process's; (c) with two
+   cards or more only, the same step with its 2 ranks on cuda:0 and cuda:1
+   under NCCL, the transport CUDA IPC (the persistent kernels, 2 and 4
+   launches a rank, their wait bounded by the model group's timeout),
+   held to the same limits, and 17a's worker checks on that transport;
+18. the profiler's line (every trace is primed with one-cycle kernels,
+   since torch.profiler drops some of a trace's first device records: how
+   many of those it lost, trace by trace), a "kernels" JSON line (K1, K2,
+   K3, K4, K5, the variants K1-bf16, K2-bf16, K5-bf16, K1-tp and K2-tp's
+   host loop, and their persistent kernels), then the card line, then the
    result line.
 """
 
+import collections
 import json
 import os
 import re
@@ -419,7 +438,9 @@ K1_LAUNCHES, K2_LAUNCHES = 2, 4
 # K1's and K2's recurrence kernels and K3's and K4's cluster scans, which
 # must not spill: their chain over time is what bounds them
 RECURRENCE_KERNELS = ("sdr_fwd_kernel", "sdr_bwd_step_kernel",
-                      "sdr_scan_fwd_kernel", "sdr_scan_bwd_kernel")
+                      "sdr_scan_fwd_kernel", "sdr_scan_bwd_kernel",
+                      "sdr_tp_fwd_persistent_kernel",
+                      "sdr_tp_bwd_persistent_kernel")
 # the CNN-TIMIT recipe (egs/script/train_cnn_timit.sh:7-14,31-50 with
 # timit.conf): the maxpool maxout CNN, L=10, filters 128/256, 3 x 1024
 # projections, time stride 1, K5 at every dropout site, greedy decoding
@@ -541,22 +562,85 @@ def sdr_bwd_bound_ms(batch, seq_len, geometry):
     return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
 
 
-K1_PARTS = (("prediction", "sdr_predict_kernel"),
-            ("recurrence", "sdr_fwd_kernel"))
-K2_PARTS = (("prediction", "sdr_predict_kernel"),
-            ("reverse_time", "sdr_bwd_step_kernel"),
-            ("weight_gradient", "sdr_bwd_wgrad_kernel"),
-            ("reduction", "sdr_bwd_reduce_kernel"))
+# a kernel's parts: (label, symbol, launches of the symbol a call)
+K1_PARTS = (("prediction", "sdr_predict_kernel", 1),
+            ("recurrence", "sdr_fwd_kernel", 1))
+K2_PARTS = (("prediction", "sdr_predict_kernel", 1),
+            ("reverse_time", "sdr_bwd_step_kernel", 1),
+            ("weight_gradient", "sdr_bwd_wgrad_kernel", 1),
+            ("reduction", "sdr_bwd_reduce_kernel", 1))
+# traces parts_ms takes before it gives up on a complete one
+PARTS_TRACES = 5
+# torch.profiler on the card drops device records: in some process states
+# the first ~11 of every trace (after phase 17, 9-15 traces of 20 lost
+# some; in a fresh process 0-1 of 20), now and then one further in. A
+# trace starts with this many one-cycle sleep kernels, which take the loss
+# and are left out of every reading
+PROFILER_PRIMING = 64
+PRIMING_SYMBOL = "spin_kernel"
+# the priming records each trace of this run lost
+PRIMING_LOST = []
+
+
+def prime_profiler(torch):
+    """Inside a trace, before what it measures: PROFILER_PRIMING one-cycle
+    sleep kernels, then a synchronize."""
+    for _ in range(PROFILER_PRIMING):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def device_events(torch, prof):
+    """A primed trace's device events without the priming's; records in
+    PRIMING_LOST how many of the priming's it lost."""
+    events, primed = [], 0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if PRIMING_SYMBOL in evt.name:
+            primed += 1
+        else:
+            events.append(evt)
+    PRIMING_LOST.append(PROFILER_PRIMING - primed)
+    return events
 
 
 def parts_ms(torch, fn, parts, reps=5):
-    """Device ms per call of each of a kernel's parts ((label, symbol)
-    pairs), from torch.profiler over ``reps`` calls after a warm-up."""
+    """Device ms per call of each of a kernel's parts ((label, symbol,
+    launches a call) triples), from torch.profiler over ``reps`` calls
+    after a warm-up, the trace primed (``prime_profiler``). A trace that
+    still holds fewer device events of a part than its launches (a lost
+    event would read as a short part) is discarded and taken again, up to
+    PARTS_TRACES traces; fails if none is complete. Returns ({label: ms},
+    the traces discarded)."""
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
     torch.cuda.synchronize()
-    kernels = profile_device(torch, lambda: [fn() for _ in range(reps)],
-                             parts)[0]
-    return {label: ms / reps for label, ms in kernels.items()}
+    for discarded in range(PARTS_TRACES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prime_profiler(torch)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = {label: 0.0 for label, _, _ in parts}
+        seen = {label: 0 for label, _, _ in parts}
+        for evt in device_events(torch, prof):
+            for label, symbol, _ in parts:
+                if symbol in evt.name:
+                    ms[label] += (evt.time_range.end
+                                  - evt.time_range.start) / 1e3
+                    seen[label] += 1
+        if all(seen[label] == reps * launches
+               for label, _, launches in parts):
+            return {label: ms[label] / reps for label in ms}, discarded
+        print("parts_ms: a trace of %d calls holds %s device events of the "
+              "parts, not %s; taken again"
+              % (reps, seen, {label: reps * launches
+                              for label, _, launches in parts}))
+    check(False, "parts_ms: %d traces in a row lost device events of %s"
+          % (PARTS_TRACES, [symbol for _, symbol, _ in parts]))
 
 
 # a kernel's name in a mangled symbol, and its int or bool template
@@ -680,7 +764,7 @@ def kernel_phase(torch, device):
     max_err = {"K1": 0.0, "K3": 0.0, "K3 vs K1": 0.0}
     per_layer = {"K1": [], "K3": []}
     totals = {"K1": sdr_totals(), "K3": sdr_totals()}
-    k1_parts = dict.fromkeys((label for label, _ in K1_PARTS), 0.0)
+    k1_parts = dict.fromkeys((label for label, _, _ in K1_PARTS), 0.0)
     for name, geometry, mask, count in TIMIT_LAYERS:
         in_n, out_n, out_d, in_d = geometry
         w = torch.tensor(rng.randn(in_n, out_n, out_d, in_d) * 0.1,
@@ -742,7 +826,7 @@ def kernel_phase(torch, device):
                 u, w, b, num_iter, use_mask), 3)
             bound = sdr_bound_ms(batch, seq_len, geometry, num_iter)
             plan = scan_plan("sdr_scan_fwd", u, w)
-            parts = parts_ms(torch, lambda: sequential_routing_cuda(
+            parts, _ = parts_ms(torch, lambda: sequential_routing_cuda(
                 u, w, b, num_iter, use_mask), K1_PARTS)
             for label, part in parts.items():
                 k1_parts[label] += count * part
@@ -830,7 +914,7 @@ def k2_phase(torch, device):
     max_err = {"K2": 0.0, "K4": 0.0, "K4 vs K2": 0.0}
     per_layer = {"K2": [], "K4": []}
     totals = {"K2": sdr_totals(), "K4": sdr_totals()}
-    k2_parts = dict.fromkeys((label for label, _ in K2_PARTS), 0.0)
+    k2_parts = dict.fromkeys((label for label, _, _ in K2_PARTS), 0.0)
 
     def held(label, got, want, tolerances_of, against):
         """Checks (du, dW, db) against ``want`` with K2's tolerances, each
@@ -923,7 +1007,7 @@ def k2_phase(torch, device):
                 u, w, b, vs, dvs, use_mask), 2)
             bound = sdr_bwd_bound_ms(batch, seq_len, geometry)
             plan = scan_plan("sdr_scan_bwd", u, w)
-            parts = parts_ms(torch, lambda: sequential_routing_bwd_cuda(
+            parts, _ = parts_ms(torch, lambda: sequential_routing_bwd_cuda(
                 u, w, b, vs, dvs, use_mask), K2_PARTS)
             for label, part in parts.items():
                 k2_parts[label] += count * part
@@ -1036,10 +1120,12 @@ def profile_device(torch, fn, symbols=SRF_SYMBOLS):
     ms, host wall ms, {op name: ms}). With the SRF symbols "K2" is the sum
     of its step, weight-gradient and reduction kernels (without the
     prediction), "K2 step" the reverse-time one, "K2 wgrad" the
-    weight-gradient one."""
+    weight-gradient one. The trace is primed (``prime_profiler``) before
+    the wall clock starts; the priming's kernels are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_profiler(torch)
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1047,9 +1133,7 @@ def profile_device(torch, fn, symbols=SRF_SYMBOLS):
     spans = []
     kernels = {label: 0.0 for label, _ in symbols}
     by_name = {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for evt in device_events(torch, prof):
         span = (evt.time_range.start, evt.time_range.end)
         spans.append(span)
         ms = (span[1] - span[0]) / 1e3
@@ -5213,8 +5297,8 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
     runs the model and the features in float64. Then ``timed`` more steps.
     Returns the loss, the whole gradients and state after the step (on
     the host), the rate, K1's and K2's launches in the step (and K1-tp's
-    and K2-tp's), each timed step's ms and the peak memory over the timed
-    steps (MB)."""
+    and K2-tp's, and of those the persistent transports'), each timed
+    step's ms and the peak memory over the timed steps (MB)."""
     from srf_tpu_torch.models.layers import set_batch_norm_group
     from srf_tpu_torch.models.registry import build_model
     from srf_tpu_torch.ops import routing_cuda
@@ -5253,10 +5337,12 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
     k1tp, k2tp = (routing_cuda.sequential_routing_tp_cuda,
                   routing_cuda.sequential_routing_tp_bwd_cuda)
     k1.launches = k2.launches = k1tp.launches = k2tp.launches = 0
+    k1tp.launches_persistent = k2tp.launches_persistent = 0
     _, metrics = step(train_state, batch, config.tpu_seed)
     torch.cuda.synchronize()
     launches = (k1.launches, k2.launches)
     tp_launches = (k1tp.launches, k2tp.launches)
+    tp_persistent = (k1tp.launches_persistent, k2tp.launches_persistent)
     model = train_state.model
     grads = sharding_rules.full_state(sharding_rules.gather_named(
         {k: p.grad for k, p in model.named_parameters() if p.requires_grad},
@@ -5265,6 +5351,7 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
                                       model)["model"]
     result = {"loss": metrics["loss_sum"].item(), "rate": rate,
               "launches": launches, "tp_launches": tp_launches,
+              "tp_persistent": tp_persistent,
               "grads": {k: v.detach().to("cpu", copy=True)
                         for k, v in grads.items()},
               "state": {k: v.detach().to("cpu", copy=True)
@@ -5473,16 +5560,16 @@ def parallel_cli_worker(workdir):
     return 0
 
 
-def launch_ranks(flag, workdir, timeout=600, ranks=PAR_RANKS):
-    """``chip_smoke.py flag workdir`` as ``ranks`` processes of one gloo
-    world on cuda:0 (LOCAL_RANK 0 for each); fails on any exit code but
-    0."""
+def launch_ranks(flag, workdir, timeout=600, ranks=PAR_RANKS, cards=False):
+    """``chip_smoke.py flag workdir`` as ``ranks`` processes of one world
+    on cuda:0 (LOCAL_RANK 0 for each), or with ``cards`` on cuda:0 ..
+    cuda:ranks-1; fails on any exit code but 0."""
     port = free_port()
     procs = []
     for rank in range(ranks):
         env = dict(os.environ, SRF_COORDINATOR="127.0.0.1:%d" % port,
-                   SRF_NUM_PROCESSES=str(ranks),
-                   SRF_PROCESS_ID=str(rank), LOCAL_RANK="0",
+                   SRF_NUM_PROCESSES=str(ranks), SRF_PROCESS_ID=str(rank),
+                   LOCAL_RANK=str(rank) if cards else "0",
                    PYTHONFAULTHANDLER="1")
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), flag, workdir],
@@ -5744,10 +5831,15 @@ def parallel_cli_phase(torch, card, workdir):
 
 
 # phase 17: the 'model' mesh axis (class capsules sharded over ranks, the
-# routing softmax split across them: K1-tp and K2-tp). One card: the ranks
-# are processes sharing cuda:0 over gloo (NCCL refuses two ranks on one
-# device), which stages every exchange through the host: the times are a
-# check, not a scaling result, and NCCL across cards is not exercised
+# routing softmax split across them: K1-tp and K2-tp). 17a first runs the
+# persistent kernels as a co-launch of every rank's shard in this process
+# (one card; the exchange through flags in device memory, the protocol and
+# kernels that run across cards), then the ranks as processes sharing
+# cuda:0 over gloo (NCCL refuses two ranks on one device), whose transport
+# is the host loop (processes on one card are time-sliced, so a persistent
+# kernel could wait on a peer that is not running), every exchange staged
+# through the host: those times are a check, not a scaling result. 17c
+# takes two cards (the step across them over NCCL and CUDA IPC)
 # 17a: K1-tp and K2-tp against the plain split version, as (label, ranks,
 # whole geometry (in_n, out_n, out_d, in_d), PAD mask, (B, T', iterations)
 # shapes): SRF-WSJ's last layer (150 -> 32 classes of dim 20, 16 a rank)
@@ -5760,10 +5852,25 @@ TP_CASES = (
 )
 # timed calls of each kernel and plain version (after a first; the
 # median is kept: over gloo one call's time spreads ~2x), at each case's
-# one-iteration shape, the one 17b's step routes at
+# one-iteration shape, the one 17b's step routes at (the co-launch: at
+# every shape)
 TP_REPS = 3
 # 17b: the SRF-WSJ step on a (data 1, model 2) mesh; its timed steps
 TP_TIMED = 1
+
+
+def tp_parts(ranks):
+    """The co-launch's parts (as K1_PARTS) for ``ranks`` shards, timed by
+    the profiler at the first case: (K1-tp's, K2-tp's)."""
+    return ((("prediction", "sdr_predict_kernel", ranks),
+             ("persistent", "sdr_tp_fwd_persistent_kernel", 1)),
+            (("prediction", "sdr_predict_kernel", ranks),
+             ("persistent", "sdr_tp_bwd_persistent_kernel", 1),
+             ("weight_gradient", "sdr_bwd_wgrad_kernel", ranks),
+             ("reduction", "sdr_bwd_reduce_kernel", ranks)))
+
+# transport 2's set-up check: floats of the pattern rank 0 writes
+IPC_PATTERN = 4096
 
 
 def median_ms(torch, fns, reps):
@@ -5786,33 +5893,193 @@ def median_ms(torch, fns, reps):
     return [float(np.median(kept)) for kept in times]
 
 
-def tp_case_inputs(torch, geometry, batch, seq_len, index, size, seed):
-    """The whole W (std 0.1) and bias of a 17a case, this rank's contiguous
-    shard of them, u and the cotangent of this rank's outputs, from numpy
-    (every rank draws the same whole tensors)."""
+def tp_case_inputs(torch, geometry, batch, seq_len, indices, size, seed):
+    """The whole W (std 0.1) and bias of a 17a case, from numpy (every
+    rank draws the same whole tensors), u, and for each rank of
+    ``indices`` its contiguous shard of W and bias and the cotangent of its
+    outputs: (u, [W_r], [b_r], [cot_r])."""
     in_n, out_n, out_d, in_d = geometry
     rng = np.random.RandomState(seed)
     wgt = rng.randn(in_n, out_n, out_d, in_d) * 0.1
     bias = rng.randn(in_n, out_n, out_d) * 0.1
     u = rng.randn(batch, seq_len, in_n, in_d)
     cot = rng.randn(batch, seq_len, out_n, out_d)
-    part = slice(index * out_n // size, (index + 1) * out_n // size)
     cuda = lambda x: torch.tensor(np.ascontiguousarray(x),
                                   dtype=torch.float32, device="cuda")
-    return cuda(u), cuda(wgt[:, part]), cuda(bias[:, part]), cuda(
-        cot[:, :, part])
+    parts = [slice(q * out_n // size, (q + 1) * out_n // size)
+             for q in indices]
+    return (cuda(u), [cuda(wgt[:, p]) for p in parts],
+            [cuda(bias[:, p]) for p in parts],
+            [cuda(cot[:, :, p]) for p in parts])
+
+
+def tp_colaunch_checks(torch, card):
+    """17a in this process: the persistent K1-tp and K2-tp as co-launches
+    of every rank's shard (``sequential_routing_tp_colaunch_cuda`` and its
+    backward). First the drive: one forward and one backward at the first
+    case's one-iteration shape, the launch counts set to 0 just before
+    and read just after. Then every case and shape held to the plain split
+    version (``ops.routing.sequential_routing_tp_colaunch`` and its
+    backward) on the same CUDA tensors, with the launches a call, median
+    ms, plain ms, the bound of the co-launch's work (every shard: the
+    whole layer) and of one rank's, and the parts' device ms at the first
+    case. Then the co-launch of one shard (the whole layer). Every launch's
+    status words are read (``check_tp_status``) before its results are
+    held. Returns (the readings, (K1-tp's, K2-tp's) launches in the
+    drive)."""
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.ops.routing import (sequential_routing_tp_bwd_colaunch,
+                                           sequential_routing_tp_colaunch)
+
+    fwd_k = routing_cuda.sequential_routing_tp_colaunch_cuda
+    bwd_k = routing_cuda.sequential_routing_tp_bwd_colaunch_cuda
+    readings, drive = [], None
+    for label, ranks, geometry, is_last, shapes in TP_CASES:
+        local = (geometry[0], geometry[1] // ranks) + geometry[2:]
+        for batch, seq_len, num_iter in shapes:
+            u, wgts, biases, cots = tp_case_inputs(
+                torch, geometry, batch, seq_len, range(ranks), ranks,
+                SEED + 170 + seq_len + num_iter)
+            if drive is None:
+                torch.cuda.synchronize()
+                fwd_k.launches = bwd_k.launches = 0
+                outs, statss = fwd_k(u, wgts, biases, 1, is_last)
+                bwd_k(u, wgts, biases, outs, cots, statss, is_last)
+                routing_cuda.check_tp_status()
+                drive = (fwd_k.launches, bwd_k.launches)
+                check(drive == (ranks + 1, 3 * ranks + 1),
+                      "17a: the co-launch drive made %s launches, not %s"
+                      % (drive, (ranks + 1, 3 * ranks + 1)))
+            plain = lambda: sequential_routing_tp_colaunch(
+                u, wgts, biases, num_iter, is_last)
+            kernel = lambda: fwd_k(u, wgts, biases, num_iter, is_last)
+            want, want_stats = plain()
+            before = fwd_k.launches
+            got, got_stats = kernel()
+            routing_cuda.check_tp_status()
+            launches = fwd_k.launches - before
+            pairs = list(zip(got + got_stats, want + want_stats))
+            err = max((g - w).abs().max().item() for g, w in pairs)
+            check(all(torch.allclose(g, w, rtol=RTOL, atol=ATOL)
+                      for g, w in pairs),
+                  "17a co-launch %s (%d, %d, iter %d): K1-tp differs from "
+                  "its plain version by %.3e" % (label, batch, seq_len,
+                                                 num_iter, err))
+            plain_ms, ms = median_ms(torch, (plain, kernel), TP_REPS)
+            reading = {
+                "case": label, "ranks": ranks,
+                "shape": [batch, seq_len, num_iter], "k1tp_err": err,
+                "k1tp_launches": launches, "k1tp_ms": ms,
+                "k1tp_plain_ms": plain_ms,
+                "k1tp_bound_ms": sdr_bound_ms(batch, seq_len, geometry,
+                                              num_iter),
+                "k1tp_rank_bound_ms": sdr_bound_ms(batch, seq_len, local,
+                                                   num_iter)}
+            if num_iter == 1:
+                plain_b = lambda: sequential_routing_tp_bwd_colaunch(
+                    u, wgts, biases, want, cots, want_stats, is_last)
+                kernel_b = lambda: bwd_k(u, wgts, biases, want, cots,
+                                         want_stats, is_last)
+                refs = plain_b()
+                before = bwd_k.launches
+                gots = kernel_b()
+                routing_cuda.check_tp_status()
+                errs = []
+                for name, ref, val in zip(
+                        ("du", "dW", "db"),
+                        (refs[0], torch.cat(refs[1], 1),
+                         torch.cat(refs[2], 1)),
+                        (gots[0], torch.cat(gots[1], 1),
+                         torch.cat(gots[2], 1))):
+                    limit = K2_ATOL_REL * ref.abs().max().item()
+                    errs.append((val - ref).abs().max().item())
+                    check(torch.allclose(val, ref, rtol=K2_RTOL, atol=limit),
+                          "17a co-launch %s (%d, %d): K2-tp %s differs from "
+                          "its plain version by %.3e (atol %.3e)"
+                          % (label, batch, seq_len, name, errs[-1], limit))
+                b_launches = bwd_k.launches - before
+                plain_ms, ms = median_ms(torch, (plain_b, kernel_b), TP_REPS)
+                reading.update(
+                    k2tp_err=max(errs), k2tp_launches=b_launches,
+                    k2tp_ms=ms, k2tp_plain_ms=plain_ms,
+                    k2tp_bound_ms=sdr_bwd_bound_ms(batch, seq_len, geometry),
+                    k2tp_rank_bound_ms=sdr_bwd_bound_ms(batch, seq_len,
+                                                        local))
+                if not readings:
+                    fwd_parts, bwd_parts = tp_parts(ranks)
+                    (reading["k1tp_parts_ms"],
+                     reading["k1tp_parts_traces_discarded"]) = parts_ms(
+                         torch, kernel, fwd_parts)
+                    (reading["k2tp_parts_ms"],
+                     reading["k2tp_parts_traces_discarded"]) = parts_ms(
+                         torch, kernel_b, bwd_parts)
+            readings.append(reading)
+            print("17a co-launch %s, %d ranks (B, T', iter) %s: K1-tp %.3e "
+                  "from its plain version, %d launches, %.3f ms (plain %.3f, "
+                  "bound %.3f, one rank's %.3f)%s [%s]"
+                  % (label, ranks, tuple(reading["shape"]), err,
+                     reading["k1tp_launches"], reading["k1tp_ms"],
+                     reading["k1tp_plain_ms"],
+                     max(reading["k1tp_bound_ms"]),
+                     max(reading["k1tp_rank_bound_ms"]),
+                     "" if num_iter > 1 else
+                     "; K2-tp %.3e, %d launches, %.3f ms (plain %.3f, bound "
+                     "%.3f, one rank's %.3f)"
+                     % (reading["k2tp_err"], reading["k2tp_launches"],
+                        reading["k2tp_ms"], reading["k2tp_plain_ms"],
+                        max(reading["k2tp_bound_ms"]),
+                        max(reading["k2tp_rank_bound_ms"])), card))
+            if "k1tp_parts_ms" in reading:
+                print("17a co-launch %s: parts ms a call, K1-tp %s, K2-tp %s "
+                      "(traces discarded: %d, %d)"
+                      % (label, reading["k1tp_parts_ms"],
+                         reading["k2tp_parts_ms"],
+                         reading["k1tp_parts_traces_discarded"],
+                         reading["k2tp_parts_traces_discarded"]))
+    # the co-launch of one shard (every capsule): the last SRF-TIMIT layer
+    # whole, two out capsules a lane (K2-tp one row a warp)
+    label, _, geometry, is_last, shapes = TP_CASES[1]
+    batch, seq_len, _ = shapes[0]
+    u, wgts, biases, (cot,) = tp_case_inputs(
+        torch, geometry, batch, seq_len, (0,), 1, SEED + 177)
+    (want,), (want_stats,) = sequential_routing_tp_colaunch(
+        u, wgts, biases, 1, is_last)
+    (got,), (got_stats,) = fwd_k(u, wgts, biases, 1, is_last)
+    refs = sequential_routing_tp_bwd_colaunch(
+        u, wgts, biases, [want], [cot], [want_stats], is_last)
+    gots = bwd_k(u, wgts, biases, [want], [cot], [want_stats], is_last)
+    routing_cuda.check_tp_status()
+    refs, gots = ([refs[0], refs[1][0], refs[2][0]],
+                  [gots[0], gots[1][0], gots[2][0]])
+    check(torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+          and torch.allclose(got_stats, want_stats, rtol=RTOL, atol=ATOL)
+          and all(torch.allclose(g, r, rtol=K2_RTOL,
+                                 atol=K2_ATOL_REL * r.abs().max().item())
+                  for g, r in zip(gots, refs)),
+          "17a one shard: the persistent K1-tp or K2-tp differs from its "
+          "plain version")
+    print("17a co-launch of one shard, %s whole (B, T') (%d, %d): K1-tp "
+          "%.3e, K2-tp %.3e of max from their plain versions"
+          % (label, batch, seq_len,
+             max((got - want).abs().max().item(),
+                 (got_stats - want_stats).abs().max().item()),
+             max(((g - r).abs().max() / r.abs().max()).item()
+                 for g, r in zip(gots, refs))))
+    return readings, drive
 
 
 def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
     """17a on this rank: K1-tp against ``sequential_routing_tp`` (output
     and the global (M, L)) and, at one iteration, K2-tp against
     ``sequential_routing_tp_bwd`` on the same forward, on the same CUDA
-    tensors; at one iteration each one's median ms, the plain version's,
-    the bound (K1's and K2's on this rank's shard), and the kernels' ms
-    without the exchange (the same launches on this rank's shard alone,
-    ``group`` None: another softmax, the same work); at more iterations,
+    tensors, over the group's transport; at one iteration each one's
+    median ms, the plain version's, the bound (K1's and K2's on this
+    rank's shard), and the host loop's ms without the exchange (the same
+    launches on this rank's shard alone, ``group`` None: another softmax,
+    the same work); at more iterations,
     K2-tp's refusal of that forward's stats. Returns the readings per
     (B, T', iterations)."""
+    from srf_tpu_torch.ops import routing_cuda
     from srf_tpu_torch.ops.routing import (sequential_routing_tp,
                                            sequential_routing_tp_bwd)
     from srf_tpu_torch.ops.routing_cuda import (sequential_routing_tp_bwd_cuda,
@@ -5823,9 +6090,9 @@ def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
     pad_owner = is_last and index == 0
     readings = []
     for batch, seq_len, num_iter in shapes:
-        u, wgt, bias, cot = tp_case_inputs(torch, geometry, batch, seq_len,
-                                           index, size,
-                                           SEED + 170 + seq_len + num_iter)
+        u, (wgt,), (bias,), (cot,) = tp_case_inputs(
+            torch, geometry, batch, seq_len, (index,), size,
+            SEED + 170 + seq_len + num_iter)
         local = (geometry[0], wgt.shape[1], geometry[2], geometry[3])
         plain = lambda: sequential_routing_tp(u, wgt, bias, num_iter,
                                               pad_owner, group,
@@ -5834,7 +6101,7 @@ def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
                                                     pad_owner, group)
         want, want_stats = plain()
         got, got_stats = kernel()
-        torch.cuda.synchronize()
+        routing_cuda.check_tp_status()
         err = max((got - want).abs().max().item(),
                   (got_stats - want_stats).abs().max().item())
         ok = (torch.allclose(got, want, rtol=RTOL, atol=ATOL)
@@ -5868,7 +6135,7 @@ def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
             kernel_b = lambda: sequential_routing_tp_bwd_cuda(
                 u, wgt, bias, want, cot, want_stats, pad_owner, group)
             refs, gots = plain_b(), kernel_b()
-            torch.cuda.synchronize()
+            routing_cuda.check_tp_status()
             errs = []
             for name, ref, val in zip(("du", "dW", "db"), refs, gots):
                 limit = K2_ATOL_REL * ref.abs().max().item()
@@ -5916,28 +6183,70 @@ def layer_scratch_mb(torch, geometry, batch, seq_len, shard=None):
     return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
+def ipc_setup_check(torch, group):
+    """Transport 2's set-up between this rank and its peer (2 ranks on one
+    card, no kernel spinning): each rank's exchange buffer allocated by
+    csrc/sdr_tp.cu, its handle gathered over the host group and opened by
+    the other; rank 0 writes IPC_PATTERN floats into its own buffer and,
+    after a host barrier, rank 1 reads them through its mapping of rank
+    0's buffer; then both close the mappings and free their buffers.
+    Returns rank 1's largest difference from the pattern (0 on rank 0)."""
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.parallel import distributed
+
+    lib = routing_cuda._tp_libs()[0]
+    me = distributed.rank(group)
+    exchange = routing_cuda.ipc_exchange(
+        group, 1, torch.device("cuda", torch.cuda.current_device()))
+    pattern = np.arange(IPC_PATTERN, dtype=np.float32) * 0.5 + 1.0
+    err = 0.0
+    if me == 0:
+        check(lib.sdr_tp_copy(exchange.xbufs[0], pattern.ctypes.data,
+                              pattern.nbytes) == 0,
+              "17a: rank 0 could not write its IPC buffer")
+    distributed.barrier()
+    if me == 1:
+        seen = np.zeros_like(pattern)
+        check(lib.sdr_tp_copy(seen.ctypes.data, exchange.xbufs[0],
+                              seen.nbytes) == 0,
+              "17a: rank 1 could not read rank 0's IPC buffer")
+        err = float(np.abs(seen - pattern).max())
+    distributed.barrier()
+    routing_cuda.release_ipc(barrier=distributed.barrier)
+    return err
+
+
 def model_axis_worker(workdir):
     """One rank of phase 17 (``chip_smoke.py --model-axis-worker DIR``, the
-    SRF_* variables set): on cuda:0 over gloo, a (data 1, model ranks)
-    mesh; 17a's checks of the case in DIR/inputs.pt and, for SRF-WSJ, the
-    17b step; writes DIR/rank<r>.pt."""
+    SRF_* variables set): a (data 1, model ranks) mesh over gloo on cuda:0,
+    or (17c, DIR/inputs.pt's "backend" nccl) over NCCL on the rank's own
+    card; the model group's transport; 17a's checks of the case in
+    DIR/inputs.pt, transport 2's set-up check where it asks for it, and,
+    for SRF-WSJ, the 17b step; writes DIR/rank<r>.pt."""
     import torch
 
     sys.path.insert(0, REPO)
     from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops import routing_cuda
     from srf_tpu_torch.parallel import distributed
     from srf_tpu_torch.parallel.mesh import make_mesh
 
-    distributed.maybe_initialize(backend="gloo", device="cuda")
-    rank, world = distributed.rank(), distributed.world_size()
     inputs = torch.load(os.path.join(workdir, "inputs.pt"),
                         weights_only=False)
+    distributed.maybe_initialize(backend=inputs.get("backend", "gloo"),
+                                 device="cuda")
+    rank, world = distributed.rank(), distributed.world_size()
     mesh = make_mesh(1, world, device="cuda")
     group = mesh.group("model")
     label, _, geometry, is_last, shapes = inputs["case"]
     out = {"index": mesh.index("model"),
+           "transport": routing_cuda.tp_transport(group),
+           "deadline_s": routing_cuda.group_timeout_s(
+               group, torch.device("cuda", torch.cuda.current_device())),
            "kernels": tp_kernel_checks(torch, label, geometry, is_last,
                                        shapes, group)}
+    if inputs.get("ipc_check"):
+        out["ipc_err"] = ipc_setup_check(torch, group)
     if "state" in inputs:
         logger = Logger(name="chip_smoke", level=Logger.WARN).logger
         config = wsj_tp_config(logger)
@@ -5951,7 +6260,9 @@ def model_axis_worker(workdir):
         out["scratch_mb"] = layer_scratch_mb(
             torch, geometry, batch["feats"].shape[0], seq_len,
             shard=(offset, geometry[1], group))
+    routing_cuda.check_tp_status()
     torch.save(out, os.path.join(workdir, "rank%d.pt" % rank))
+    routing_cuda.release_ipc(barrier=distributed.barrier)
     distributed.barrier()
     torch.distributed.destroy_process_group()
     return 0
@@ -5963,18 +6274,19 @@ def wsj_tp_config(logger):
                          SRF_WSJ_FLAGS + ["--train-lr-param-k=0.6"])
 
 
-def tp_entry(name, replaces, readings):
-    """K1-tp's ("k1tp") or K2-tp's ("k2tp") entry of the "kernels" line:
-    its times at 17a's first case (SRF-WSJ's last layer at 8 x 400, one
-    iteration, rank 0: the shape 17b's step routes at), the largest error
-    over every case and rank, each case's readings; ``launches`` set once
-    17b has run."""
+def tp_entry(name, kernel, replaces, readings, launches):
+    """K1-tp's ("k1tp") or K2-tp's ("k2tp") entry of the "kernels" line for
+    ``kernel`` (the host loop's sdr_tp_fwd / sdr_tp_bwd, or the persistent
+    kernels): its times at the first of ``readings`` (SRF-WSJ's last layer
+    at 8 x 400, one iteration: rank 0's, or the co-launch's), the largest
+    error over every case and rank, each case's readings, and
+    ``launches``."""
     first = readings[0]
     bytes_ms, ops_ms = first[name + "_bound_ms"]
     return {
-        "name": {"k1tp": "sdr_tp_fwd", "k2tp": "sdr_tp_bwd"}[name],
-        "route": "cuda", "source": "srf_tpu_torch/csrc/sdr_tp.cu",
-        "replaces": replaces, "launches": None,
+        "name": kernel, "route": "cuda",
+        "source": "srf_tpu_torch/csrc/sdr_tp.cu", "replaces": replaces,
+        "launches": launches,
         "max_abs_err": max(r[name + "_err"] for r in readings
                            if name + "_err" in r),
         "ms": first[name + "_ms"], "plain_ms": first[name + "_plain_ms"],
@@ -5982,16 +6294,103 @@ def tp_entry(name, replaces, readings):
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,  # no single PyTorch call computes a split SDR
         "per_case": [{k: v for k, v in r.items()
-                      if k in ("case", "rank", "shape", "pad_owner")
+                      if k in ("case", "rank", "ranks", "shape", "pad_owner")
                       or k.startswith(name)} for r in readings
                      if name + "_err" in r],
     }
 
 
+def print_tp_readings(stage, label, results, card):
+    """Each rank's 17a worker readings (``stage``: "17a" over gloo, "17c"
+    over NCCL)."""
+    for r, result in enumerate(results):
+        for reading in result["kernels"]:
+            timed = "k1tp_ms" in reading
+            print("%s %s rank %d (B, T', iter) %s%s, transport %s: K1-tp "
+                  "%.3e from its plain version%s%s [%s]"
+                  % (stage, label, r, tuple(reading["shape"]),
+                     " PAD owner" if reading["pad_owner"] else "",
+                     result["transport"], reading["k1tp_err"],
+                     "" if not timed else
+                     ", %.3f ms (plain %.3f, the host loop without the "
+                     "exchange %.3f, bound %.3f)"
+                     % (reading["k1tp_ms"], reading["k1tp_plain_ms"],
+                        reading["k1tp_alone_ms"],
+                        max(reading["k1tp_bound_ms"])),
+                     "" if "k2tp_err" not in reading else
+                     "; K2-tp %.3e, %.3f ms (plain %.3f, the host loop "
+                     "without the exchange %.3f, bound %.3f)"
+                     % (reading["k2tp_err"], reading["k2tp_ms"],
+                        reading["k2tp_plain_ms"], reading["k2tp_alone_ms"],
+                        max(reading["k2tp_bound_ms"])), card))
+
+
+def check_tp_step(stage, results, single, layers, seq_len, card,
+                  transport):
+    """17b's (or 17c's) step on each rank: the transport, K1's and K2's
+    launches, K1-tp's and K2-tp's (all persistent ones, or none), and the
+    step held to the one-process step at phase 12c's limits."""
+    if transport == "host_loop":
+        tp_launches, persistent = (1 + 2 * seq_len, 1 + 2 * seq_len + 2), (
+            0, 0)
+    else:
+        tp_launches = persistent = (2, 4)
+    for r, result in enumerate(results):
+        got = result["step"]
+        check(result["transport"] == transport,
+              "%s rank %d: transport %s, not %s"
+              % (stage, r, result["transport"], transport))
+        check(got["launches"] == (layers * K1_LAUNCHES, layers * K2_LAUNCHES)
+              and got["tp_launches"] == tp_launches
+              and got["tp_persistent"] == persistent,
+              "%s rank %d: K1/K2 launches %s, K1-tp/K2-tp %s (persistent "
+              "%s; expected %s, %s and %s)"
+              % (stage, r, got["launches"], got["tp_launches"],
+                 got["tp_persistent"],
+                 (layers * K1_LAUNCHES, layers * K2_LAUNCHES), tp_launches,
+                 persistent))
+        par_compare("%s SRF-WSJ (data 1, model 2) rank %d vs one process"
+                    % (stage, r), got, single, card,
+                    grad_atol_rel=WSJ_GRAD_ATOL_REL)
+        print("%s rank %d: transport %s, K1 %d, K2 %d, K1-tp %d, K2-tp %d "
+              "launches a step (persistent %d, %d); ms a step %s; peak %.1f "
+              "MB; the sharded layer's scratch %.1f MB (one process: K1 %d, "
+              "K2 %d launches, %s ms, peak %.1f MB) [%s]"
+              % (stage, r, result["transport"], *got["launches"],
+                 *got["tp_launches"], *got["tp_persistent"],
+                 ["%.1f" % x for x in got["ms"]], got["peak_mb"],
+                 result["scratch_mb"], *single["launches"],
+                 ["%.1f" % x for x in single["ms"]], single["peak_mb"],
+                 card))
+
+
+def cards_step(torch, card, workdir, inputs, single, layers, seq_len):
+    """17c: 17b's step and 17a's worker checks at SRF-WSJ's last layer with
+    its 2 ranks on cuda:0 and cuda:1 over NCCL, the transport CUDA IPC,
+    held to ``single`` (the one-process step). Returns the persistent
+    K1-tp's and K2-tp's launches in the step, summed over the ranks."""
+    inputs = dict(inputs, backend="nccl", ipc_check=False)
+    torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+    start = time.perf_counter()
+    launch_ranks("--model-axis-worker", workdir, ranks=2, cards=True)
+    results = [torch.load(os.path.join(workdir, "rank%d.pt" % r),
+                          weights_only=False) for r in range(2)]
+    print_tp_readings("17c", inputs["case"][0], results, card)
+    check_tp_step("17c", results, single, layers, seq_len, card, "ipc")
+    print("17c: 2 ranks on cuda:0 and cuda:1 over NCCL, the persistent "
+          "kernels' wait for a peer ends at the model group's timeout, %s "
+          "s; %.1f s" % ([r["deadline_s"] for r in results],
+                         time.perf_counter() - start))
+    return [sum(r["step"]["tp_persistent"][i] for r in results)
+            for i in (0, 1)]
+
+
 def model_axis_phase(torch, card):
     """Phase 17 (the module docstring). Returns the "kernels" entries of
-    K1-tp and K2-tp, their launches those of 17b's step summed over its
-    ranks, and K1's and K2's launches in that step, summed the same way."""
+    K1-tp and K2-tp's host loop, their launches those of 17b's step summed
+    over its ranks; of their persistent kernels, their launches those of
+    17a's co-launch drive (and of 17c's step, where it ran); and K1's and
+    K2's launches in 17b's step, summed the same way."""
     import shutil
     import tempfile
 
@@ -5999,6 +6398,8 @@ def model_axis_phase(torch, card):
     from srf_tpu_torch.models.registry import build_model
 
     phase_start = time.perf_counter()
+    colaunch, drive = tp_colaunch_checks(torch, card)
+    print("17a co-launch: %.1f s" % (time.perf_counter() - phase_start))
     logger = Logger(name="chip_smoke", level=Logger.WARN).logger
     config = wsj_tp_config(logger)
     classes = class_count(config)
@@ -6009,12 +6410,15 @@ def model_axis_phase(torch, card):
     single = par_step(torch, config, state, batch, timed=TP_TIMED)
     seq_len = -(-batch["feats"].shape[1] // 4)
     single_scratch = layer_scratch_mb(torch, TP_CASES[0][2], 8, seq_len)
-    readings = []
+    print("17b one process: the layer's scratch %.1f MB [%s]"
+          % (single_scratch, card))
+    layers = config.model_encoder_num - 1
+    readings, cards_persistent = [], (0, 0)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_model_axis_")
     try:
         for case in TP_CASES:
             label, ranks = case[0], case[1]
-            inputs = {"case": case}
+            inputs = {"case": case, "ipc_check": ranks == 2}
             if label == "wsj_last":
                 inputs.update(state=state, batch={k: v.cpu() for k, v in
                                                   batch.items()})
@@ -6024,75 +6428,56 @@ def model_axis_phase(torch, card):
             results = [torch.load(os.path.join(workdir, "rank%d.pt" % r),
                                   weights_only=False) for r in range(ranks)]
             for r, result in enumerate(results):
+                check(result["transport"] == "host_loop",
+                      "17a %s rank %d: %d ranks on one card took transport "
+                      "%s, not the host loop"
+                      % (label, r, ranks, result["transport"]))
                 for reading in result["kernels"]:
                     reading.update(case=label, rank=r)
                     readings.append(reading)
-                    timed = "k1tp_ms" in reading
-                    print("17a %s rank %d (B, T', iter) %s%s: K1-tp %.3e from "
-                          "its plain version%s%s [gloo: no scaling result] "
-                          "[%s]"
-                          % (label, r, tuple(reading["shape"]),
-                             " PAD owner" if reading["pad_owner"] else "",
-                             reading["k1tp_err"],
-                             "" if not timed else
-                             ", %.3f ms (plain %.3f, without the exchange "
-                             "%.3f, bound %.3f)"
-                             % (reading["k1tp_ms"], reading["k1tp_plain_ms"],
-                                reading["k1tp_alone_ms"],
-                                max(reading["k1tp_bound_ms"])),
-                             "" if "k2tp_err" not in reading else
-                             "; K2-tp %.3e, %.3f ms (plain %.3f, without the "
-                             "exchange %.3f, bound %.3f)"
-                             % (reading["k2tp_err"], reading["k2tp_ms"],
-                                reading["k2tp_plain_ms"],
-                                reading["k2tp_alone_ms"],
-                                max(reading["k2tp_bound_ms"])), card))
+            print_tp_readings("17a", label, results, card)
+            if ranks == 2:
+                err = results[1]["ipc_err"]
+                check(err == 0.0, "17a: rank 1 read rank 0's IPC buffer "
+                      "%.3e off its pattern" % err)
+                print("17a: transport 2's set-up on one card: rank 1 read "
+                      "rank 0's %d floats through its IPC mapping exactly; "
+                      "both released their buffers" % IPC_PATTERN)
             print("17a %s: %d ranks on cuda:0 over gloo, %.1f s"
                   % (label, ranks, time.perf_counter() - start))
             if label != "wsj_last":
                 continue
             # 17b: the SRF-WSJ step on (data 1, model 2)
-            layers = config.model_encoder_num - 1
-            tp_launches = (1 + 2 * seq_len, 1 + 2 * seq_len + 2)
-            for r, result in enumerate(results):
-                got = result["step"]
-                check(got["launches"] == (layers * K1_LAUNCHES,
-                                          layers * K2_LAUNCHES)
-                      and got["tp_launches"] == tp_launches,
-                      "17b rank %d: K1/K2 launches %s, K1-tp/K2-tp %s "
-                      "(expected %s and %s)"
-                      % (r, got["launches"], got["tp_launches"],
-                         (layers * K1_LAUNCHES, layers * K2_LAUNCHES),
-                         tp_launches))
-                par_compare("17b SRF-WSJ (data 1, model 2) rank %d vs one "
-                            "process" % r, got, single, card,
-                            grad_atol_rel=WSJ_GRAD_ATOL_REL)
-                print("17b rank %d: K1 %d, K2 %d, K1-tp %d, K2-tp %d launches "
-                      "a step; ms a step %s; peak %.1f MB; the sharded "
-                      "layer's scratch %.1f MB (one process: K1 %d, K2 %d "
-                      "launches, %s ms, peak %.1f MB, the layer's scratch "
-                      "%.1f MB) [gloo through the host: no scaling result] "
-                      "[%s]" % (r, *got["launches"], *got["tp_launches"],
-                                ["%.1f" % x for x in got["ms"]],
-                                got["peak_mb"], result["scratch_mb"],
-                                *single["launches"],
-                                ["%.1f" % x for x in single["ms"]],
-                                single["peak_mb"], single_scratch, card))
+            check_tp_step("17b", results, single, layers, seq_len, card,
+                          "host_loop")
             step_tp = [sum(r["step"]["tp_launches"][i] for r in results)
                        for i in (0, 1)]
             step_k12 = [sum(r["step"]["launches"][i] for r in results)
                         for i in (0, 1)]
+            if torch.cuda.device_count() < 2:
+                print("17c: skipped, one card (transport 2 needs two)")
+                continue
+            cards_persistent = cards_step(torch, card, workdir, inputs,
+                                          single, layers, seq_len)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     replaces = ("srf_tpu/ops/routing.py:122 (no pallas_call: the loop body "
                 "XLA partitions on a 'model' mesh)")
-    k1tp = tp_entry("k1tp", replaces, readings)
-    k2tp = tp_entry("k2tp", replaces, readings)
-    k1tp["launches"], k2tp["launches"] = step_tp
+    k1tp = tp_entry("k1tp", "sdr_tp_fwd", replaces, readings, step_tp[0])
+    k2tp = tp_entry("k2tp", "sdr_tp_bwd", replaces, readings, step_tp[1])
+    k1tp_p = tp_entry("k1tp", "sdr_tp_fwd_persistent", replaces, colaunch,
+                      drive[0] + cards_persistent[0])
+    k2tp_p = tp_entry("k2tp", "sdr_tp_bwd_persistent", replaces, colaunch,
+                      drive[1] + cards_persistent[1])
+    for entry, i in ((k1tp_p, 0), (k2tp_p, 1)):
+        entry["launches_by_path"] = {"colaunch_drive": drive[i],
+                                     "cards_step": cards_persistent[i]}
     check(all(step_tp), "K1-tp or K2-tp was not launched on the model-axis "
           "step: %s" % step_tp)
+    check(k1tp_p["launches"] and k2tp_p["launches"],
+          "the persistent K1-tp or K2-tp was not launched in 17a's drive")
     print("model axis phase: %.1f s" % (time.perf_counter() - phase_start))
-    return k1tp, k2tp, step_k12
+    return k1tp, k2tp, k1tp_p, k2tp_p, step_k12
 
 
 def run():
@@ -6168,7 +6553,8 @@ def run():
     check(all(par_k1.values()) and all(par_k2.values()),
           "K1 or K2 was not launched on a parallel path: %s %s"
           % (par_k1, par_k2))
-    k1tp, k2tp, (axis_k1, axis_k2) = model_axis_phase(torch, card)
+    k1tp, k2tp, k1tp_p, k2tp_p, (axis_k1, axis_k2) = model_axis_phase(
+        torch, card)
     # the daemon's launches are counted in its own process (its stats),
     # the rest in this one
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
@@ -6207,10 +6593,14 @@ def run():
     k5["launches"] = serve_k5 + train_k5
     k5["launches_by_path"] = {"cnn_serve": serve_k5, "cnn_train": train_k5}
 
+    print("profiler: %d traces, each primed with %d records; records the "
+          "profiler lost of a trace's priming: %s (lost: traces)"
+          % (len(PRIMING_LOST), PROFILER_PRIMING,
+             dict(sorted(collections.Counter(PRIMING_LOST).items()))))
     # the bf16 variants' launches: the --tpu-routing-bf16 SRF-TIMIT steps
     # (K1-bf16, K2-bf16) and the --tpu-bf16 CNN-TIMIT steps (K5-bf16)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k1_bf16, k2_bf16,
-                                  k5_bf16, k1tp, k2tp]}))
+                                  k5_bf16, k1tp, k2tp, k1tp_p, k2tp_p]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

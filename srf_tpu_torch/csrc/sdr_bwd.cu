@@ -168,7 +168,7 @@ sdr_bwd_step_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
   for (int t = last_t; t >= 0; --t) {
     // ---- pass 1: the logits, c and s ----
     route.fac = cfac_b + (size_t)t * in_n * g.out_n;
-    sdr::warp_pass<BF, D, NO, false>(route, q, warp, lane);
+    sdr::warp_pass<BF, D, NO, sdr::kRoute>(route, q, warp, lane);
     sdr::sync_compute();
 
     // ---- s and the squash backward:
@@ -217,7 +217,7 @@ sdr_bwd_step_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
 
     // ---- pass 2: dc, the softmax VJP and the carry ----
     vjp.fac = dafac_b + (size_t)t * in_n * g.out_n;
-    sdr::warp_pass<BF, D, NO, true>(vjp, q, warp, lane);
+    sdr::warp_pass<BF, D, NO, sdr::kVjp>(vjp, q, warp, lane);
     sdr::sync_compute();
 
     // ---- the carry into step t - 1, and that step's dv and v_{t-2}

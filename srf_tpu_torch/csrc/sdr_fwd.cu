@@ -122,7 +122,7 @@ sdr_fwd_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
     for (int it = 0; it < num_iter; ++it) {
       // logits, c and the rows' shares of s
       pass.pad = mask_pad ? sdr::kPadLogit * (it + 1) : 0.f;
-      sdr::warp_pass<BF, D, NO, false>(pass, q, warp, lane);
+      sdr::warp_pass<BF, D, NO, sdr::kRoute>(pass, q, warp, lane);
       sdr::sync_compute();
 
       // s = the sum of the warps' partials; v = squash(s); the agreement

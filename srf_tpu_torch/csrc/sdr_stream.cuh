@@ -54,14 +54,24 @@
 // agreement is taken against rounded to bf16. Logits, softmax, squash, the
 // sums and the carried v stay float32.
 //
+// The split-softmax modes of the warp passes (kSplitStats .. kSplitVjp)
+// serve the persistent K1-tp and K2-tp kernels (sdr_tp.cu), which route a
+// shard of the out capsules: a row's softmax spans every rank's shard, so a
+// pass either forms the row's local statistics for the exchange, or takes
+// the exchanged ones. They keep a row's logits (or dc) in shared memory
+// across the exchange. K1 and K2 take kRoute and kVjp.
+//
 // SDR_HOST_SHIM marks a host build of the device code (a CPU rehearsal of
-// the math with threads standing in for lanes); it supplies its own
-// versions of the primitives guarded below.
+// the math with threads standing in for lanes: tests/_sdr_tp_host.h); it
+// supplies its own versions of the primitives guarded below, and builds
+// no prediction kernel.
 
 #pragma once
 
+#ifndef SDR_HOST_SHIM
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#endif
 
 #include <math.h>
 #include <stdint.h>
@@ -254,14 +264,40 @@ __device__ __forceinline__ void produce(const E* uhat_b, E* ring,
   }
 }
 
-// What a warp's pass over a step's rows takes and gives. In a routing pass
-// (vjp false) the coefficient of a row is c = softmax(<u_hat[n,o,:],
-// vec[o,:]> + pad at o == 0); in a VJP pass it is da = c * (dc - sum_o dc
-// c), dc = <u_hat[n,o,:], vec[o,:]>, with c read from c_all. The pass writes
-// each row's coefficients to fac[n * out_n + o] (if fac is not null) and,
-// in a routing pass, to c_all (if not null), and leaves sum over its rows
-// of coef[n,o] * u_hat[n,o,i] in part_w. BF: the bf16 variants' pass (a
-// bf16 ring, c rounded before the sum, dc rounded before the VJP).
+// What a warp's pass does with a step's rows, its MODE. K1 and K2:
+//   kRoute       c = softmax(<u_hat[n,o,:], vec[o,:]> + pad at o == 0)
+//   kVjp         da = c * (dc - sum_o dc c), dc = <u_hat[n,o,:], vec[o,:]>,
+//                with c read from c_all
+// and on a shard of the out capsules, the softmax split over the ranks
+// (sdr_tp.cu; float32 only):
+//   kSplitStats  the logits b = (lg_all, where `accumulate`: the earlier
+//                iterations') + <u_hat, vec> + pad at o == 0, kept in lg_all,
+//                and the row's local max m and sum l of exp(b - m) in
+//                row_out[n] = (m, l)
+//   kSplitRoute  c = exp(lg_all - M) / L, (M, L) = row_ml[n]
+//   kSplitC      c = exp(<u_hat, vec> + pad at o == 0 - M) / L, into c_all
+//   kSplitDc     dc = <u_hat, vec>, kept in lg_all, and the row's local
+//                sum_o c dc (c from c_all) in row_out[n].x
+//   kSplitVjp    da = c * (dc - S), c from c_all, dc from lg_all and S =
+//                row_ml[n].x (the sum over every rank)
+// The pass writes each row's coefficients (c or da) to fac[n * out_n + o]
+// (if fac is not null) and, in kRoute, to c_all (if not null), and leaves
+// the sum over its rows of coef[n,o] * u_hat[n,o,i] in part_w (but for
+// kSplitStats and kSplitDc, which sum nothing over rows). BF: the bf16
+// variants' pass (a bf16 ring, c rounded before the sum, dc rounded before
+// the VJP).
+enum PassMode : int {
+  kRoute, kVjp, kSplitStats, kSplitRoute, kSplitC, kSplitDc, kSplitVjp
+};
+
+// Does a mode take the agreement <u_hat, vec>; does it sum over rows?
+SDR_HOST_DEVICE constexpr bool takes_dot(int mode) {
+  return mode != kSplitRoute && mode != kSplitVjp;
+}
+SDR_HOST_DEVICE constexpr bool sums_rows(int mode) {
+  return mode != kSplitStats && mode != kSplitDc;
+}
+
 template <bool BF>
 struct Pass {
   const uhat_t<BF>* ring;
@@ -276,7 +312,34 @@ struct Pass {
   float* fac;        // [in_n, out_n], global memory, or null
   float* part_w;     // [out_no], shared memory
   float* lg;         // [out_n] scratch of the warp (warp_pass_rows)
+  // the split modes' rows, shared memory
+  float* lg_all = nullptr;        // [in_n, out_n]: the logits, or dc
+  const float* row_ml = nullptr;  // [in_n, 2]: (M, L), or (S, -)
+  float* row_out = nullptr;       // [in_n, 2]: (m, l), or (sum_o c dc, -)
+  bool accumulate = false;        // kSplitStats: add lg_all's logits
 };
+
+// A split mode's coefficient of row n, out capsule o, from `dot` (the
+// agreement, where the mode takes it): kSplitRoute's or kSplitC's c (also
+// kept in c_all by kSplitC) or kSplitVjp's da.
+template <int MODE, bool BF>
+__device__ __forceinline__ float split_coef(const Pass<BF>& p, int n, int o,
+                                            float dot) {
+  const int e = n * p.g.out_n + o;
+  if constexpr (MODE == kSplitVjp) {
+    return p.c_all[e] * (p.lg_all[e] - p.row_ml[2 * n]);
+  } else {
+    float logit = dot;
+    if constexpr (MODE == kSplitRoute) {
+      logit = p.lg_all[e];
+    } else if (o == 0) {
+      logit += p.pad;
+    }
+    const float c = expf(logit - p.row_ml[2 * n]) / p.row_ml[2 * n + 1];
+    if constexpr (MODE == kSplitC) p.c_all[e] = c;
+    return c;
+  }
+}
 
 template <int D>
 __device__ __forceinline__ void load_cap(const float* p, float (&x)[D]) {
@@ -316,15 +379,17 @@ constexpr float kSafeLogit = 64.f;
 
 // The register path: out_d == D, out capsules o = lane + 32 k, k < NO, R
 // rows of each chunk per warp (rows warp, warp + kWarps, ...).
-template <bool BF, int D, int NO, int R, bool VJP>
+template <bool BF, int D, int NO, int R, int MODE>
 __device__ __forceinline__ void warp_pass_lanes(const Pass<BF>& p, Cursor& q,
                                                 int warp, int lane) {
+  static_assert(!BF || MODE == kRoute || MODE == kVjp,
+                "the split modes are float32 only");
   const int out_n = p.g.out_n;
   float vec[NO][D], acc[NO][D];
 #pragma unroll
   for (int k = 0; k < NO; ++k) {
     const int o = lane + 32 * k;
-    if (o < out_n) {
+    if (takes_dot(MODE) && o < out_n) {
       load_cap<D>(p.vec + o * D, vec[k]);
     } else {
 #pragma unroll
@@ -353,12 +418,14 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass<BF>& p, Cursor& q,
           for (int i = 0; i < D; ++i) x[rr][k][i] = 0.f;
         }
         float dot = 0.f;
+        if constexpr (takes_dot(MODE)) {
 #pragma unroll
-        for (int i = 0; i < D; ++i) dot = fmaf(x[rr][k][i], vec[k][i], dot);
+          for (int i = 0; i < D; ++i) dot = fmaf(x[rr][k][i], vec[k][i], dot);
+        }
         coef[rr][k] = dot;
       }
     }
-    if (!VJP) {
+    if constexpr (MODE == kRoute) {
       // c = softmax over the out capsules of each row; a padded logit's
       // exp is 0 (exp(-1e9 - max) is, too)
       bool safe = true;
@@ -424,7 +491,7 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass<BF>& p, Cursor& q,
           coef[rr][k] = keep<BF>(coef[rr][k]);  // the sum takes bf16(c)
         }
       }
-    } else {
+    } else if constexpr (MODE == kVjp) {
       // da = c * (dc - sum_o dc c); bf16 rounds dc, the cotangent of the
       // rounded c
       float cin[R][NO], dot[R];
@@ -456,16 +523,75 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass<BF>& p, Cursor& q,
           }
         }
       }
+    } else {
+      // the split modes; rows past the chunk's end and lanes past out_n
+      // take no part
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const int n = n0 + rr * kWarps;
+        const bool row_in = warp + rr * kWarps < rows;
+        if constexpr (MODE == kSplitStats) {
+          float m = -INFINITY;
+#pragma unroll
+          for (int k = 0; k < NO; ++k) {
+            const int o = lane + 32 * k;
+            if (row_in && o < out_n) {
+              float* at = p.lg_all + n * out_n + o;
+              float logit = (p.accumulate ? *at : 0.f) + coef[rr][k];
+              if (o == 0) logit += p.pad;
+              *at = logit;
+              coef[rr][k] = logit;
+              m = fmaxf(m, logit);
+            }
+          }
+          m = warp_max(m);
+          float l = 0.f;
+#pragma unroll
+          for (int k = 0; k < NO; ++k) {
+            if (row_in && lane + 32 * k < out_n) l += expf(coef[rr][k] - m);
+          }
+          l = warp_sum(l);
+          if (lane == 0 && row_in) {
+            p.row_out[2 * n] = m;
+            p.row_out[2 * n + 1] = l;
+          }
+        } else if constexpr (MODE == kSplitDc) {
+          float sum = 0.f;
+#pragma unroll
+          for (int k = 0; k < NO; ++k) {
+            const int e = n * out_n + lane + 32 * k;
+            if (row_in && lane + 32 * k < out_n) {
+              p.lg_all[e] = coef[rr][k];
+              sum = fmaf(coef[rr][k], p.c_all[e], sum);
+            }
+          }
+          sum = warp_sum(sum);
+          if (lane == 0 && row_in) p.row_out[2 * n] = sum;
+        } else {
+#pragma unroll
+          for (int k = 0; k < NO; ++k) {
+            const int o = lane + 32 * k;
+            float cv = 0.f;
+            if (row_in && o < out_n) {
+              cv = split_coef<MODE>(p, n, o, coef[rr][k]);
+              if (p.fac) p.fac[(size_t)n * out_n + o] = cv;
+            }
+            coef[rr][k] = cv;
+          }
+        }
+      }
     }
     // the rows' shares of the sum over rows; rows past the chunk's end
     // have x = 0
+    if constexpr (sums_rows(MODE)) {
 #pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
+      for (int rr = 0; rr < R; ++rr) {
 #pragma unroll
-      for (int k = 0; k < NO; ++k) {
+        for (int k = 0; k < NO; ++k) {
 #pragma unroll
-        for (int i = 0; i < D; ++i) {
-          acc[k][i] = fmaf(coef[rr][k], x[rr][k][i], acc[k][i]);
+          for (int i = 0; i < D; ++i) {
+            acc[k][i] = fmaf(coef[rr][k], x[rr][k][i], acc[k][i]);
+          }
         }
       }
     }
@@ -475,7 +601,7 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass<BF>& p, Cursor& q,
 #pragma unroll
   for (int k = 0; k < NO; ++k) {
     const int o = lane + 32 * k;
-    if (o < out_n) {
+    if (sums_rows(MODE) && o < out_n) {
       float4* dst = reinterpret_cast<float4*>(p.part_w + o * D);
 #pragma unroll
       for (int i = 0; i < D; i += 4) {
@@ -502,11 +628,15 @@ __device__ __forceinline__ void row_dots(const E* row, const float* vec,
 }
 
 // The general path: a row at a time per warp, through the warp's scratch.
-template <bool BF, bool VJP>
+template <bool BF, int MODE>
 __device__ __forceinline__ void warp_pass_rows(const Pass<BF>& p, Cursor& q,
                                                int warp, int lane) {
+  static_assert(!BF || MODE == kRoute || MODE == kVjp,
+                "the split modes are float32 only");
   const RowGeom& g = p.g;
-  for (int e = lane; e < g.out_no; e += 32) p.part_w[e] = 0.f;
+  if constexpr (sums_rows(MODE)) {
+    for (int e = lane; e < g.out_no; e += 32) p.part_w[e] = 0.f;
+  }
   for (int c = 0; c < p.r.chunks_per_pass; ++c, q.next(p.r.stages)) {
     mbar_wait(p.full + q.slot, q.phase);
     const uhat_t<BF>* rows_s = p.ring + (size_t)q.slot * p.r.chunk * g.pitch;
@@ -514,8 +644,8 @@ __device__ __forceinline__ void warp_pass_rows(const Pass<BF>& p, Cursor& q,
     for (int row = warp; row < rows; row += kWarps) {
       const int n = c * p.r.chunk + row;
       const uhat_t<BF>* uh = rows_s + row * g.pitch;
-      row_dots(uh, p.vec, p.lg, g, lane);
-      if (!VJP) {
+      if constexpr (takes_dot(MODE)) row_dots(uh, p.vec, p.lg, g, lane);
+      if constexpr (MODE == kRoute) {
         // softmax over the out capsules
         float m = -INFINITY;
         for (int o = lane; o < g.out_n; o += 32) {
@@ -535,7 +665,7 @@ __device__ __forceinline__ void warp_pass_rows(const Pass<BF>& p, Cursor& q,
           if (p.c_all) p.c_all[n * g.out_n + o] = cv;
           if (p.fac) p.fac[(size_t)n * g.out_n + o] = cv;
         }
-      } else {
+      } else if constexpr (MODE == kVjp) {
         const float* cin = p.c_all + n * g.out_n;
         float dot = 0.f;
         for (int o = lane; o < g.out_n; o += 32) {
@@ -548,10 +678,44 @@ __device__ __forceinline__ void warp_pass_rows(const Pass<BF>& p, Cursor& q,
           p.lg[o] = da;
           if (p.fac) p.fac[(size_t)n * g.out_n + o] = da;
         }
+      } else if constexpr (MODE == kSplitStats) {
+        float* lgn = p.lg_all + n * g.out_n;
+        float m = -INFINITY;
+        for (int o = lane; o < g.out_n; o += 32) {
+          float logit = (p.accumulate ? lgn[o] : 0.f) + p.lg[o];
+          if (o == 0) logit += p.pad;
+          lgn[o] = logit;
+          m = fmaxf(m, logit);
+        }
+        m = warp_max(m);
+        float l = 0.f;
+        for (int o = lane; o < g.out_n; o += 32) l += expf(lgn[o] - m);
+        l = warp_sum(l);
+        if (lane == 0) {
+          p.row_out[2 * n] = m;
+          p.row_out[2 * n + 1] = l;
+        }
+      } else if constexpr (MODE == kSplitDc) {
+        float sum = 0.f;
+        for (int o = lane; o < g.out_n; o += 32) {
+          const int e = n * g.out_n + o;
+          p.lg_all[e] = p.lg[o];
+          sum = fmaf(p.lg[o], p.c_all[e], sum);
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) p.row_out[2 * n] = sum;
+      } else {
+        for (int o = lane; o < g.out_n; o += 32) {
+          const float cv = split_coef<MODE>(p, n, o, p.lg[o]);
+          p.lg[o] = cv;
+          if (p.fac) p.fac[(size_t)n * g.out_n + o] = cv;
+        }
       }
       __syncwarp();
-      for (int e = lane; e < g.out_no; e += 32) {
-        p.part_w[e] = fmaf(p.lg[e / g.out_d], to_f32(uh[e]), p.part_w[e]);
+      if constexpr (sums_rows(MODE)) {
+        for (int e = lane; e < g.out_no; e += 32) {
+          p.part_w[e] = fmaf(p.lg[e / g.out_d], to_f32(uh[e]), p.part_w[e]);
+        }
       }
       __syncwarp();
     }
@@ -561,13 +725,13 @@ __device__ __forceinline__ void warp_pass_rows(const Pass<BF>& p, Cursor& q,
 }
 
 // One pass over a step's rows: D == 0 takes the general path.
-template <bool BF, int D, int NO, bool VJP>
+template <bool BF, int D, int NO, int MODE>
 __device__ __forceinline__ void warp_pass(const Pass<BF>& p, Cursor& q,
                                           int warp, int lane) {
   if constexpr (D == 0) {
-    warp_pass_rows<BF, VJP>(p, q, warp, lane);
+    warp_pass_rows<BF, MODE>(p, q, warp, lane);
   } else {
-    warp_pass_lanes<BF, D, NO, lane_rows(D, NO), VJP>(p, q, warp, lane);
+    warp_pass_lanes<BF, D, NO, lane_rows(D, NO), MODE>(p, q, warp, lane);
   }
 }
 
@@ -582,6 +746,7 @@ __device__ __forceinline__ void warp_pass(const Pass<BF>& p, Cursor& q,
    : ::sdr::lane_caps((p).g) == 1 && (p).g.out_d == 20  ? K<BF, 20, 1>     \
                                                         : K<BF, 0, 0>)
 
+#ifndef SDR_HOST_SHIM
 // The prediction kernel: grid (in_n, row blocks, out tiles). u [rows_total,
 // in_n, in_d], W [in_n, out_no, in_d], bias [in_n, out_no] -> uhat
 // [rows_total, in_n, pitch] (rows_total = B*T; the last out tile writes the
@@ -706,5 +871,6 @@ inline cudaError_t launch_predict(const E* u, const E* w, const E* bias,
       row_pitch(out_no, (int)sizeof(E)), pp);
   return cudaGetLastError();
 }
+#endif  // SDR_HOST_SHIM
 
 }  // namespace sdr

@@ -510,6 +510,38 @@ def sequential_routing_tp_bwd(u, wgt, bias, vs, dvs, pad_owner, group,
     return tuple(x.to(d) for x, d in zip((du, dwgt, dbias), out_dtypes))
 
 
+def sequential_routing_tp_colaunch(u, wgts, biases, num_iter, pad):
+    """Every rank's shard of the out capsules routed in one process, plain
+    PyTorch: the plain version of K1-tp's co-launch
+    (``routing_cuda.sequential_routing_tp_colaunch_cuda``). ``wgts`` and
+    ``biases`` the ranks' shards in rank order, ``pad``: rank 0's shard
+    holds the PAD capsule. The softmax split over every shard is the
+    softmax over the shards joined, so this is
+    :func:`sequential_routing_tp` on the joined W with no group. Returns
+    ([out_r], [the global (M, L)] a rank)."""
+    out, stats = sequential_routing_tp(
+        u, torch.cat(list(wgts), dim=1), torch.cat(list(biases), dim=1),
+        num_iter, pad, None, return_stats=True)
+    return ([x.contiguous() for x in torch.split(out, wgts[0].shape[1],
+                                                 dim=2)],
+            [stats] * len(wgts))
+
+
+def sequential_routing_tp_bwd_colaunch(u, wgts, biases, vss, dvss, statss,
+                                       pad):
+    """The backward of :func:`sequential_routing_tp_colaunch`, one routing
+    iteration, plain PyTorch: the plain version of K2-tp's co-launch. Each
+    shard's outputs ``vss``, their cotangents ``dvss`` and the forward's
+    (M, L) ``statss`` in rank order -> (du, [dW_r], [db_r])."""
+    out_n = wgts[0].shape[1]
+    du, dwgt, dbias = sequential_routing_tp_bwd(
+        u, torch.cat(list(wgts), dim=1), torch.cat(list(biases), dim=1),
+        torch.cat(list(vss), dim=2), torch.cat(list(dvss), dim=2), pad, None,
+        statss[0])
+    return (du, list(torch.split(dwgt, out_n, dim=1)),
+            list(torch.split(dbias, out_n, dim=1)))
+
+
 # the refusal of what the 'model' axis does not reach yet
 SHARD_REFUSAL = ("%s on a 'model' mesh axis (class capsules sharded over "
                  "ranks) is not ported: ROADMAP.md section 1 item 7c")

@@ -30,14 +30,24 @@ import.
 K1-tp and K2-tp (``csrc/sdr_tp.cu``) route a shard of the out capsules on
 the ``model`` mesh axis with the softmax split across the ranks, joined by
 ``SDRTPFunction``: the prediction kernel (``sdr_fwd.cu``'s
-``sdr_predict``), then a host loop over time of two launches and one
-exchange (c10d on the current stream) a step and iteration
-(:func:`tp_forward_steps`, :func:`tp_backward_steps`), and K2's
-weight-gradient kernels on the factors (``sdr_bwd.cu``'s
-``sdr_bwd_wgrad``). Their plain versions are
-``ops/routing.py:sequential_routing_tp`` and ``sequential_routing_tp_bwd``.
+``sdr_predict``), then either one persistent kernel that walks time on
+the card and exchanges the rows' statistics with its peers itself,
+through flags in device memory (:func:`tp_forward_persistent`,
+:func:`tp_backward_persistent`), or a host loop over time of two launches
+and one exchange (c10d on the current stream) a step and iteration
+(:func:`tp_forward_steps`, :func:`tp_backward_steps`); then, for K2-tp,
+K2's weight-gradient kernels on the factors (``sdr_bwd.cu``'s
+``sdr_bwd_wgrad``). Where the peers' buffers live is the transport,
+chosen once per group from its ranks' hosts and cards
+(:func:`tp_transport`): "ipc" (a card a rank, one host: CUDA IPC) or
+"host_loop" (one rank, ranks sharing a card, or ranks spanning hosts).
+The co-launch (every shard in this process, one launch on one card) is
+reached only through :func:`sequential_routing_tp_colaunch_cuda` and its
+backward. Their plain versions are ``ops/routing.py:sequential_routing_tp``
+and ``sequential_routing_tp_bwd``.
 """
 
+import atexit
 import ctypes
 import functools
 
@@ -591,15 +601,27 @@ def _tp_libs():
 
 def declare_tp(lib):
     """ctypes signatures of csrc/sdr_tp.cu's entries on ``lib`` (the CUDA
-    build, or the tests' host build of the same source)."""
-    int_, ptr = ctypes.c_int, _VOID_P
-    for name, args in (
-            ("sdr_tp_stats", [ptr] * 4 + [int_] * 8 + [ptr]),
-            ("sdr_tp_route", [ptr, ptr, int_] + [ptr] * 4 + [int_] * 7
-             + [ptr]),
-            ("sdr_tp_bwd_a", [ptr] * 9 + [int_] * 7 + [ptr]),
-            ("sdr_tp_bwd_b", [ptr] * 6 + [int_] * 6 + [ptr]),
-            ("sdr_tp_smem_bytes", [int_] * 3)):
+    build, or the tests' host build of the same source, which has no IPC
+    entries)."""
+    int_, ll, ptr = ctypes.c_int, ctypes.c_longlong, _VOID_P
+    entries = [
+        ("sdr_tp_stats", [ptr] * 4 + [int_] * 8 + [ptr]),
+        ("sdr_tp_route", [ptr, ptr, int_] + [ptr] * 4 + [int_] * 7 + [ptr]),
+        ("sdr_tp_bwd_a", [ptr] * 9 + [int_] * 7 + [ptr]),
+        ("sdr_tp_bwd_b", [ptr] * 6 + [int_] * 6 + [ptr]),
+        ("sdr_tp_smem_bytes", [int_] * 3),
+        ("sdr_tp_persistent_smem_bytes", [int_] * 4),
+        ("sdr_tp_persistent_capacity", [int_] * 4),
+        ("sdr_tp_fwd_persistent", [ptr] * 6 + [int_] * 5 + [ll] * 2
+         + [int_] * 6 + [ptr]),
+        ("sdr_tp_bwd_persistent", [ptr] * 10 + [int_] * 5 + [ll] * 2
+         + [int_] * 5 + [ptr])]
+    if hasattr(lib, "sdr_tp_ipc_alloc"):
+        entries += [("sdr_tp_ipc_alloc", [ll, ptr, ptr]),
+                    ("sdr_tp_ipc_open", [ctypes.c_char_p, ptr]),
+                    ("sdr_tp_ipc_close", [ptr]), ("sdr_tp_ipc_free", [ptr]),
+                    ("sdr_tp_copy", [ptr, ptr, ll])]
+    for name, args in entries:
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = int_
     lib.sdr_tp_error_string.argtypes = [int_]
@@ -681,6 +703,315 @@ def drive(steps, exchange):
         return stop.value
 
 
+# ---- the persistent kernels' transports and exchange buffers
+
+TP_TIMEOUT_S = 10.0  # a co-launch's wait for its other shards, at most
+TP_MAX_RANKS = 8     # csrc/sdr_tp.cu kMaxRanks
+_STATUS_WORDS = 8    # csrc/sdr_tp.cu kStatusWords
+_TRANSPORT = {}      # id(group) -> (group, transport)
+_LOCAL = {}          # (ranks, device) -> TPExchange
+_IPC = {}            # id(group) -> TPExchange
+_IPC_HELD = []       # (own buffer, [opened peers' buffers]) to release
+
+
+def choose_transport(peers):
+    """The transport of a group whose ranks sit at ``peers``, [(host, card
+    uuid)] in rank order: "ipc" where there are 2 to TP_MAX_RANKS ranks,
+    every one with a card of its own, all on one host; else "host_loop"
+    (one rank: its loop has no exchange). Topology only: nothing else
+    chooses."""
+    hosts = {host for host, _ in peers}
+    cards = {card for _, card in peers}
+    if (len(hosts) == 1 and len(cards) == len(peers)
+            and 2 <= len(peers) <= TP_MAX_RANKS):
+        return "ipc"
+    return "host_loop"
+
+
+def tp_transport(group):
+    """The transport of ``group`` (the ``model`` ranks; None: this rank
+    alone): at the group's first call, every rank's (hostname, uuid of its
+    current card) gathered over the host group and :func:`choose_transport`;
+    cached. The first call is collective: every rank of the world makes it
+    at the same point, as every rank makes the same layer calls."""
+    from srf_tpu_torch.parallel import distributed
+
+    if group is None or distributed.world_size(group) == 1:
+        return "host_loop"
+    if id(group) not in _TRANSPORT:
+        import socket
+
+        import torch.distributed as dist
+
+        card = str(torch.cuda.get_device_properties(
+            torch.cuda.current_device()).uuid)
+        everyone = distributed.host_all_gather((socket.gethostname(), card))
+        peers = [everyone[r] for r in dist.get_process_group_ranks(group)]
+        _TRANSPORT[id(group)] = (group, choose_transport(peers))
+    return _TRANSPORT[id(group)][1]
+
+
+class TPExchange:
+    """A rank set's exchange buffers (``csrc/sdr_tp.cu``): every rank's
+    xbuf [2, ranks, cap, 2] float32 and flags [ranks, cap] uint64, zeroed
+    once, as addresses (ctypes arrays ``xbufs``, ``flags``) in this
+    process; ``status`` this process's status words [8] int64;
+    ``timeout_s`` how long a wait for a peer lasts before the launch gives
+    up; ``epochs`` the exchanges the set has made, the next call's epoch
+    base (equal on every rank: every rank makes the same calls);
+    ``pending`` the launches whose status words are not read yet (see
+    :func:`check_exchange`). ``keep`` holds what owns the buffers."""
+
+    def __init__(self, ranks, cap, xbufs, flags, status, timeout_s, keep=()):
+        self.ranks, self.cap = ranks, cap
+        self.xbufs = (_VOID_P * ranks)(*xbufs)
+        self.flags = (_VOID_P * ranks)(*flags)
+        self.status, self.timeout_s, self.keep = status, timeout_s, keep
+        self.epochs = 0
+        self.pending = []
+
+    def carry_from(self, old):
+        """Take over ``old``'s count of exchanges and its unread launches
+        (this exchange replaces it)."""
+        if old is not None:
+            self.epochs, self.pending = old.epochs, old.pending
+        return self
+
+
+def _capacity(rows):
+    """Rows of an exchange buffer for B * in_n = ``rows``: a power of two,
+    at least 1024, so that few batch shapes grow it."""
+    return max(1024, 1 << (rows - 1).bit_length())
+
+
+def new_local_exchange(ranks, rows, device):
+    """A fresh exchange for ``ranks`` shards in this process (a co-launch):
+    the ranks' buffers slices of one allocation on ``device`` (the CPU for
+    the tests' host build); a wait gives up after TP_TIMEOUT_S."""
+    cap = _capacity(rows)
+    xbuf = torch.zeros((ranks, 2, ranks, cap, 2), device=device)
+    flags = torch.zeros((ranks, ranks, cap), dtype=torch.int64,
+                        device=device)
+    status = torch.zeros(_STATUS_WORDS, dtype=torch.int64, device=device)
+    return TPExchange(ranks, cap, [x.data_ptr() for x in xbuf],
+                      [f.data_ptr() for f in flags], status, TP_TIMEOUT_S,
+                      keep=(xbuf, flags))
+
+
+def local_exchange(ranks, rows, device):
+    """The co-launch's exchange for ``ranks`` shards on ``device``, cached,
+    replaced by a larger one (its count of exchanges carried over) where it
+    holds fewer than ``rows`` = B * in_n."""
+    key = (ranks, str(device))
+    old = _LOCAL.get(key)
+    if old is None or old.cap < rows:
+        _LOCAL[key] = new_local_exchange(ranks, rows, device).carry_from(old)
+    return _LOCAL[key]
+
+
+def ipc_exchange(group, rows, device):
+    """Transport 2's exchange for ``group``: this rank's buffer (xbuf, then
+    flags) allocated and zeroed by ``csrc/sdr_tp.cu`` outside torch's
+    caching allocator (whose blocks would give their segment's IPC handle),
+    its handle gathered over the host group, every peer's opened with lazy
+    peer access; a wait gives up after the group's own timeout
+    (:func:`group_timeout_s`), as its collectives do; cached per group,
+    replaced by a larger one (on every rank at the same call) where it
+    holds fewer than ``rows``. Buffers are released at exit
+    (:func:`release_ipc`), none before: a peer may still map them.
+    Collective where it allocates."""
+    from srf_tpu_torch.parallel import distributed
+
+    old = _IPC.get(id(group))
+    if old is not None and old.cap >= rows:
+        return old
+    import torch.distributed as dist
+
+    lib = _tp_libs()[0]
+    ranks, me = distributed.world_size(group), distributed.rank(group)
+    cap = _capacity(rows)
+    xbuf_bytes = 16 * ranks * cap
+    own, handle = _VOID_P(), ctypes.create_string_buffer(64)
+    _raise_on(lib, "sdr_tp", lib.sdr_tp_ipc_alloc(
+        xbuf_bytes + 8 * ranks * cap, ctypes.byref(own), handle))
+    opened = []
+    _IPC_HELD.append((own.value, opened))
+    handles = distributed.host_all_gather(handle.raw)
+    bases = []
+    for q, world_rank in enumerate(dist.get_process_group_ranks(group)):
+        if q == me:
+            bases.append(own.value)
+            continue
+        peer = _VOID_P()
+        _raise_on(lib, "sdr_tp", lib.sdr_tp_ipc_open(handles[world_rank],
+                                                     ctypes.byref(peer)))
+        opened.append(peer.value)
+        bases.append(peer.value)
+    status = torch.zeros(_STATUS_WORDS, dtype=torch.int64, device=device)
+    new = TPExchange(ranks, cap, bases, [b + xbuf_bytes for b in bases],
+                     status, group_timeout_s(group, device), keep=(group,))
+    _IPC[id(group)] = new.carry_from(old)
+    return new
+
+
+def group_timeout_s(group, device):
+    """``group``'s own timeout in seconds (its backend's for ``device``):
+    how long its collectives wait for a peer."""
+    return group._get_backend(device).options._timeout.total_seconds()
+
+
+def release_ipc(barrier=None):
+    """Close every opened peer buffer, then (after ``barrier()``, where
+    given: every rank has closed its mappings) free this rank's own; at
+    exit without a barrier."""
+    if not _IPC_HELD:
+        return
+    lib = _tp_libs()[0]
+    for _, opened in _IPC_HELD:
+        for peer in opened:
+            lib.sdr_tp_ipc_close(peer)
+    if barrier is not None:
+        barrier()
+    for own, _ in _IPC_HELD:
+        lib.sdr_tp_ipc_free(own)
+    _IPC_HELD.clear()
+    _IPC.clear()
+
+
+atexit.register(release_ipc)
+
+
+def _ptrs(tensors):
+    return (_VOID_P * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _check_persistent(lib, name, batch, local_ranks, in_n, out_n, out_d,
+                      backward):
+    """Raises where the persistent kernel takes not this geometry, or its
+    batch x local_ranks blocks cannot all be resident on the card."""
+    if lib.sdr_tp_persistent_smem_bytes(in_n, out_n, out_d, backward) < 0:
+        raise ValueError(
+            "%s: capsule geometry (in_n, O_local, out_d) = (%d, %d, %d) does "
+            "not fit the persistent kernel's shared memory"
+            % (name, in_n, out_n, out_d))
+    held = lib.sdr_tp_persistent_capacity(in_n, out_n, out_d, backward)
+    if batch * local_ranks > held:
+        raise ValueError(
+            "%s: a cooperative launch of %d blocks (B %d x %d ranks) cannot "
+            "be resident at once: the card holds %d of this kernel"
+            % (name, batch * local_ranks, batch, local_ranks, held))
+
+
+def _persistent_done(lib, name, err, exchange, steps):
+    """After a persistent launch: raises on its launch error, counts its
+    ``steps`` exchanges and queues a copy of the status words behind the
+    launch (no wait: on the card the copy lands in pinned memory when the
+    launch ends); then :func:`check_exchange` reads the copies of the
+    launches that have ended, at once on the CPU (the host build's launch
+    has ended when it returns)."""
+    _raise_on(lib, "sdr_tp", err)
+    exchange.epochs += steps
+    if exchange.status.is_cuda:
+        words = torch.empty(_STATUS_WORDS, dtype=torch.int64,
+                            pin_memory=True)
+        words.copy_(exchange.status, non_blocking=True)
+        ended = torch.cuda.Event()
+        ended.record()
+    else:
+        words, ended = exchange.status.clone(), None
+    exchange.pending.append((ended, words, name))
+    check_exchange(exchange, wait=ended is None)
+
+
+def check_exchange(exchange, wait=False):
+    """Reads the status words of ``exchange``'s launches that have ended
+    (with ``wait``: of every launch, after waiting for them), oldest first,
+    and raises if a wait in one gave up, naming the launch, the rank, the
+    utterance, the step, the iteration, the epoch and the peer it waited
+    for; the status words are then cleared. Every persistent launch reads
+    those of the launches before it, so a timed-out launch raises at a
+    later call without a wait for the card at every call."""
+    while exchange.pending:
+        ended, words, name = exchange.pending[0]
+        if ended is not None:
+            if not wait and not ended.query():
+                return
+            ended.synchronize()
+        exchange.pending.pop(0)
+        words = words.tolist()
+        if words[0]:
+            exchange.pending.clear()
+            exchange.status.zero_()
+            rank, utt, t, it, epoch, peer = words[1:7]
+            raise RuntimeError(
+                "%s: rank %d waited more than %.1f s for rank %d's exchange "
+                "of utterance %d, step %d, iteration %d (epoch %d): a rank "
+                "that never ran, or a fault in the exchange"
+                % (name, rank, exchange.timeout_s, peer, utt, t, it, epoch))
+
+
+def check_tp_status():
+    """Waits for every persistent launch of this process and raises as
+    :func:`check_exchange` if a wait in one gave up."""
+    for exchange in list(_LOCAL.values()) + list(_IPC.values()):
+        check_exchange(exchange, wait=True)
+
+
+def tp_forward_persistent(lib, uhats, out_n, out_d, num_iter, pad_rank,
+                          exchange, rank0, stream):
+    """K1-tp's persistent kernel after the prediction: one cooperative
+    launch for ranks rank0 .. rank0 + len(uhats) - 1 of ``exchange``'s
+    set, ``uhats`` [B, T, in_n, pitch] their u_hat in rank order;
+    ``pad_rank`` the rank that holds the PAD capsule, or -1. Returns
+    ([out [B, T, out_n, out_d]], [the global (M, L) [T, num_iter, B, in_n,
+    2]]) per launched rank. ``lib`` the sdr_tp library (CUDA, or the tests'
+    host build on CPU tensors)."""
+    batch, seq_len, in_n = uhats[0].shape[:3]
+    _check_persistent(lib, "K1-tp", batch, len(uhats), in_n, out_n, out_d,
+                      0)
+    dev = uhats[0].device
+    outs = [torch.empty((batch, seq_len, out_n, out_d), device=dev)
+            for _ in uhats]
+    stats = [torch.empty((seq_len, num_iter, batch, in_n, 2), device=dev)
+             for _ in uhats]
+    err = lib.sdr_tp_fwd_persistent(
+        _ptrs(uhats), _ptrs(outs), _ptrs(stats), exchange.xbufs,
+        exchange.flags, exchange.status.data_ptr(), exchange.ranks, rank0,
+        len(uhats), pad_rank, exchange.cap, exchange.epochs,
+        int(exchange.timeout_s * 1e9), batch, seq_len, in_n, out_n, out_d,
+        num_iter, stream)
+    _persistent_done(lib, "K1-tp", err, exchange, seq_len * num_iter)
+    return outs, stats
+
+
+def tp_backward_persistent(lib, uhats, vss, dvss, statss, pad_rank,
+                           exchange, rank0, stream):
+    """K2-tp's persistent reverse-time kernel, launched as
+    :func:`tp_forward_persistent`: per launched rank its u_hat, outputs and
+    their cotangents [B, T, out_n, out_d] and the forward's (M, L) [T, 1, B,
+    in_n, 2]. Returns du_hat's factors (c, da [B, T, in_n, out_n], ds [B, T,
+    out_n * out_d]) per launched rank, in K2's layout."""
+    batch, seq_len, in_n = uhats[0].shape[:3]
+    out_n, out_d = vss[0].shape[2], vss[0].shape[3]
+    _check_persistent(lib, "K2-tp", batch, len(uhats), in_n, out_n, out_d,
+                      1)
+    dev = uhats[0].device
+    cfacs = [torch.empty((batch, seq_len, in_n, out_n), device=dev)
+             for _ in uhats]
+    dafacs = [torch.empty_like(c) for c in cfacs]
+    dsfacs = [torch.empty((batch, seq_len, out_n * out_d), device=dev)
+              for _ in uhats]
+    err = lib.sdr_tp_bwd_persistent(
+        _ptrs(uhats), _ptrs(vss), _ptrs(dvss), _ptrs(statss), _ptrs(cfacs),
+        _ptrs(dafacs), _ptrs(dsfacs), exchange.xbufs, exchange.flags,
+        exchange.status.data_ptr(), exchange.ranks, rank0, len(uhats),
+        pad_rank, exchange.cap, exchange.epochs,
+        int(exchange.timeout_s * 1e9), batch, seq_len, in_n, out_n, out_d,
+        stream)
+    _persistent_done(lib, "K2-tp", err, exchange, seq_len)
+    return list(zip(cfacs, dafacs, dsfacs))
+
+
 def _gather_pairs(local, group):
     """Every rank's (m, l) pairs, [ranks, ...] in rank order: one
     all-gather over the ``model`` group (c10d on the current stream: NCCL
@@ -747,6 +1078,16 @@ def _predict_rows(fwd, u, wgt, bias, stream):
     return uhat
 
 
+def _ipc_set(group, rows, device, pad_owner):
+    """(exchange, this rank, the PAD capsule's rank or -1) of this rank's
+    persistent launch over transport 2."""
+    from srf_tpu_torch.parallel import distributed
+
+    me = distributed.rank(group)
+    return (ipc_exchange(group, rows, device), me,
+            me if pad_owner else -1)
+
+
 def sequential_routing_tp_cuda(u, wgt, bias, num_iter, pad_owner, group):
     """SDR on a shard of the out capsules on the card (K1-tp): same
     contract as ``ops.routing.sequential_routing_tp(..., return_stats=
@@ -754,28 +1095,86 @@ def sequential_routing_tp_cuda(u, wgt, bias, num_iter, pad_owner, group):
     wgt [in_n, O_local, out_d, in_d] and bias [in_n, O_local, out_d],
     float32, contiguous, on one CUDA device -> (out [B, T, O_local, out_d],
     the global (M, L) [T, num_iter, B, in_n, 2]). One exchange a step and
-    iteration over ``group`` (an all-gather of the rows' (m, l) pairs).
-    Raises on anything the kernels do not take; never falls back to the
-    plain version. ``sequential_routing_tp_cuda.launches`` counts its
-    kernel launches: the prediction, then two a step and iteration."""
+    iteration over ``group``, by the group's transport
+    (:func:`tp_transport`): the persistent kernel over CUDA IPC, or the
+    host loop's all-gather of the rows' (m, l) pairs (``group`` None: no
+    exchange). Raises on anything the kernels do not take; never falls
+    back to the plain version or to another transport.
+    ``sequential_routing_tp_cuda.launches`` counts its kernel launches (the
+    prediction, then one persistent launch, or two a step and iteration),
+    ``.launches_persistent`` those of the persistent transports."""
     _check_tp("sequential_routing_tp_cuda", u, wgt, bias)
-    lib, fwd, _ = _tp_libs()
-    _check_tp_smem(lib, wgt)
     if num_iter < 1:
         raise ValueError("need num_iter >= 1 (got %d)" % num_iter)
+    lib, fwd, _ = _tp_libs()
+    batch, seq_len, in_n = u.shape[:3]
     out_n, out_d = wgt.shape[1], wgt.shape[2]
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        uhat = _predict_rows(fwd, u, wgt, bias, stream)
-        out, stats = drive(
-            tp_forward_steps(lib, uhat, out_n, out_d, num_iter, pad_owner,
-                             stream),
-            lambda local: _gather_pairs(local, group))
-    sequential_routing_tp_cuda.launches += 1 + 2 * u.shape[1] * num_iter
+        if tp_transport(group) == "host_loop":
+            _check_tp_smem(lib, wgt)
+            uhat = _predict_rows(fwd, u, wgt, bias, stream)
+            out, stats = drive(
+                tp_forward_steps(lib, uhat, out_n, out_d, num_iter,
+                                 pad_owner, stream),
+                lambda local: _gather_pairs(local, group))
+            launches = 1 + 2 * seq_len * num_iter
+        else:
+            exchange, me, pad_rank = _ipc_set(group, batch * in_n, u.device,
+                                              pad_owner)
+            _check_persistent(lib, "K1-tp", batch, 1, in_n, out_n, out_d, 0)
+            uhat = _predict_rows(fwd, u, wgt, bias, stream)
+            (out,), (stats,) = tp_forward_persistent(
+                lib, [uhat], out_n, out_d, num_iter, pad_rank, exchange, me,
+                stream)
+            launches = 2
+            sequential_routing_tp_cuda.launches_persistent += launches
+    sequential_routing_tp_cuda.launches += launches
     return out, stats
 
 
 sequential_routing_tp_cuda.launches = 0
+sequential_routing_tp_cuda.launches_persistent = 0
+
+
+def _check_tp_grads(name, u, wgt, bias, vs, dvs, stats):
+    """The backward's inputs: u, W and bias as :func:`_check_tp`, vs and dvs
+    [B, T, O_local, out_d], the one-iteration forward's stats."""
+    _check_tp(name, u, wgt, bias,
+              (("vs", vs, 4), ("dvs", dvs, 4), ("stats", stats, 5)))
+    batch, seq_len, in_n = u.shape[:3]
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    for label, x in (("vs", vs), ("dvs", dvs)):
+        if tuple(x.shape) != (batch, seq_len, out_n, out_d):
+            raise ValueError("%s must be %s, got %s" % (
+                label, (batch, seq_len, out_n, out_d), tuple(x.shape)))
+    if tuple(stats.shape) != (seq_len, 1, batch, in_n, 2):
+        # K2-tp is the one-iteration backward: a deeper forward's stats
+        # would pass for its first iteration and give a wrong gradient
+        raise ValueError("stats must be a one-iteration forward's [%d, 1, "
+                         "%d, %d, 2], got %s"
+                         % (seq_len, batch, in_n, tuple(stats.shape)))
+
+
+def _weight_grads(bwd, u, wgt, vs, cfac, dafac, dsfac, stream):
+    """(this rank's part of du, the shard's dW and db) from du_hat's
+    factors: K2's weight-gradient kernel and its reduction."""
+    batch, seq_len, in_n, in_d = u.shape
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
+    floats = bwd.sdr_bwd_wgrad_part_floats(batch, seq_len, in_n, in_d,
+                                           out_n, out_d)
+    if floats < 0:
+        raise RuntimeError("sdr_bwd_wgrad: no weight-gradient plan for "
+                           "%s on %s" % (tuple(wgt.shape), u.device))
+    part = torch.empty(floats, device=u.device)
+    du, dwgt = torch.empty_like(u), torch.empty_like(wgt)
+    dbias = torch.empty(wgt.shape[:3], device=u.device)
+    _raise_on(bwd, "sdr_bwd", bwd.sdr_bwd_wgrad(
+        u.data_ptr(), wgt.data_ptr(), vs.data_ptr(), cfac.data_ptr(),
+        dafac.data_ptr(), dsfac.data_ptr(), part.data_ptr(), du.data_ptr(),
+        dwgt.data_ptr(), dbias.data_ptr(), batch, seq_len, in_n, in_d, out_n,
+        out_d, stream))
+    return du, dwgt, dbias
 
 
 def sequential_routing_tp_bwd_cuda(u, wgt, bias, vs, dvs, stats, pad_owner,
@@ -785,51 +1184,135 @@ def sequential_routing_tp_bwd_cuda(u, wgt, bias, vs, dvs, stats, pad_owner,
     wgt and bias, its outputs vs and their cotangent dvs [B, T, O_local,
     out_d], the forward's ``stats``, float32, contiguous, on one CUDA
     device -> (du, dW, db): du the whole gradient of u (summed over
-    ``group`` once, after the loop), dW and db the shard's. One SUM
-    all-reduce of [B, in_n] a step. Raises on anything the kernels do not
-    take; never falls back to the plain version.
-    ``sequential_routing_tp_bwd_cuda.launches`` counts its kernel launches:
-    the prediction, two a step, the weight gradient and its reduction."""
-    _check_tp("sequential_routing_tp_bwd_cuda", u, wgt, bias,
-              (("vs", vs, 4), ("dvs", dvs, 4), ("stats", stats, 5)))
-    batch, seq_len, in_n, in_d = u.shape
-    out_n, out_d = wgt.shape[1], wgt.shape[2]
-    for name, x in (("vs", vs), ("dvs", dvs)):
-        if tuple(x.shape) != (batch, seq_len, out_n, out_d):
-            raise ValueError("%s must be %s, got %s" % (
-                name, (batch, seq_len, out_n, out_d), tuple(x.shape)))
-    if tuple(stats.shape) != (seq_len, 1, batch, in_n, 2):
-        # K2-tp is the one-iteration backward: a deeper forward's stats
-        # would pass for its first iteration and give a wrong gradient
-        raise ValueError("stats must be a one-iteration forward's [%d, 1, "
-                         "%d, %d, 2], got %s"
-                         % (seq_len, batch, in_n, tuple(stats.shape)))
+    ``group`` once, after the loop), dW and db the shard's. One exchange of
+    the rows' [B, in_n] sums a step over ``group``, by the group's
+    transport (as :func:`sequential_routing_tp_cuda`). Raises on anything the kernels do
+    not take; never falls back to the plain version or to another
+    transport. ``sequential_routing_tp_bwd_cuda.launches`` counts its
+    kernel launches: the prediction, one persistent launch (or two a step),
+    the weight gradient and its reduction; ``.launches_persistent`` those
+    of the persistent transports."""
+    _check_tp_grads("sequential_routing_tp_bwd_cuda", u, wgt, bias, vs, dvs,
+                    stats)
     lib, fwd, bwd = _tp_libs()
-    _check_tp_smem(lib, wgt)
+    batch, seq_len, in_n = u.shape[:3]
+    out_n, out_d = wgt.shape[1], wgt.shape[2]
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        uhat = _predict_rows(fwd, u, wgt, bias, stream)
-        cfac, dafac, dsfac = drive(
-            tp_backward_steps(lib, uhat, vs, dvs, stats, pad_owner, stream),
-            lambda rowsum: _sum_over(rowsum, group))
-        floats = bwd.sdr_bwd_wgrad_part_floats(batch, seq_len, in_n, in_d,
-                                               out_n, out_d)
-        if floats < 0:
-            raise RuntimeError("sdr_bwd_wgrad: no weight-gradient plan for "
-                               "%s on %s" % (tuple(wgt.shape), u.device))
-        part = torch.empty(floats, device=u.device)
-        du, dwgt, dbias = (torch.empty_like(x) for x in (u, wgt, bias))
-        _raise_on(bwd, "sdr_bwd", bwd.sdr_bwd_wgrad(
-            u.data_ptr(), wgt.data_ptr(), vs.data_ptr(), cfac.data_ptr(),
-            dafac.data_ptr(), dsfac.data_ptr(), part.data_ptr(),
-            du.data_ptr(), dwgt.data_ptr(), dbias.data_ptr(), batch, seq_len,
-            in_n, in_d, out_n, out_d, stream))
+        if tp_transport(group) == "host_loop":
+            _check_tp_smem(lib, wgt)
+            uhat = _predict_rows(fwd, u, wgt, bias, stream)
+            cfac, dafac, dsfac = drive(
+                tp_backward_steps(lib, uhat, vs, dvs, stats, pad_owner,
+                                  stream),
+                lambda rowsum: _sum_over(rowsum, group))
+            launches = 1 + 2 * seq_len + 2
+        else:
+            exchange, me, pad_rank = _ipc_set(group, batch * in_n, u.device,
+                                              pad_owner)
+            _check_persistent(lib, "K2-tp", batch, 1, in_n, out_n, out_d, 1)
+            uhat = _predict_rows(fwd, u, wgt, bias, stream)
+            (cfac, dafac, dsfac), = tp_backward_persistent(
+                lib, [uhat], [vs], [dvs], [stats], pad_rank, exchange, me,
+                stream)
+            launches = 4
+            sequential_routing_tp_bwd_cuda.launches_persistent += launches
+        du, dwgt, dbias = _weight_grads(bwd, u, wgt, vs, cfac, dafac, dsfac,
+                                        stream)
         _sum_over(du, group)
-    sequential_routing_tp_bwd_cuda.launches += 1 + 2 * seq_len + 2
+    sequential_routing_tp_bwd_cuda.launches += launches
     return du, dwgt, dbias
 
 
 sequential_routing_tp_bwd_cuda.launches = 0
+sequential_routing_tp_bwd_cuda.launches_persistent = 0
+
+
+def _check_colaunch(name, u, wgts, *per_shard):
+    """Every shard as :func:`_check_tp` (W, then bias, then the lists of
+    ``per_shard``, one entry a shard), the shards of one shape, at most
+    TP_MAX_RANKS of them."""
+    if not 1 <= len(wgts) <= TP_MAX_RANKS or any(
+            len(xs) != len(wgts) for xs in per_shard):
+        raise ValueError("%s takes 1 to %d shards, an entry a shard in "
+                         "each list, got %s" % (name, TP_MAX_RANKS, [
+                             len(wgts)] + [len(xs) for xs in per_shard]))
+    for q, wgt in enumerate(wgts):
+        _check_tp(name, u, wgt, per_shard[0][q])
+        if wgt.shape != wgts[0].shape:
+            raise ValueError("%s: shard %d's W is %s, shard 0's %s" % (
+                name, q, tuple(wgt.shape), tuple(wgts[0].shape)))
+
+
+def sequential_routing_tp_colaunch_cuda(u, wgts, biases, num_iter, pad):
+    """K1-tp for every rank's shard in this process and one launch on one
+    card (the co-launch transport): u [B, T, in_n, in_d], ``wgts`` and
+    ``biases`` the ranks' shards in rank order (equal shapes), ``pad``: the
+    layer masks the PAD capsule, which rank 0's shard holds. Returns
+    ([out_r], [stats_r]), each what ``sequential_routing_tp_cuda`` returns
+    on rank r of a group of len(wgts); the plain version is
+    ``ops.routing.sequential_routing_tp_colaunch``.
+    ``sequential_routing_tp_colaunch_cuda.launches`` counts its launches:
+    one prediction a shard and one persistent launch."""
+    name = "sequential_routing_tp_colaunch_cuda"
+    _check_colaunch(name, u, wgts, biases)
+    if num_iter < 1:
+        raise ValueError("need num_iter >= 1 (got %d)" % num_iter)
+    lib, fwd, _ = _tp_libs()
+    batch, seq_len, in_n = u.shape[:3]
+    out_n, out_d = wgts[0].shape[1], wgts[0].shape[2]
+    _check_persistent(lib, "K1-tp", batch, len(wgts), in_n, out_n, out_d, 0)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        uhats = [_predict_rows(fwd, u, w, b, stream)
+                 for w, b in zip(wgts, biases)]
+        outs, stats = tp_forward_persistent(
+            lib, uhats, out_n, out_d, num_iter, 0 if pad else -1,
+            local_exchange(len(wgts), batch * in_n, u.device), 0, stream)
+    sequential_routing_tp_colaunch_cuda.launches += len(wgts) + 1
+    return outs, stats
+
+
+sequential_routing_tp_colaunch_cuda.launches = 0
+
+
+def sequential_routing_tp_bwd_colaunch_cuda(u, wgts, biases, vss, dvss,
+                                            statss, pad):
+    """K2-tp for every rank's shard in this process and one launch (the
+    co-launch transport), one routing iteration: u, the shards as
+    :func:`sequential_routing_tp_colaunch_cuda`, each shard's outputs
+    ``vss``, their cotangents ``dvss`` and the forward's (M, L) ``statss``
+    in rank order -> (du summed over the shards in rank order, [dW_r],
+    [db_r]); the plain version is
+    ``ops.routing.sequential_routing_tp_bwd_colaunch``.
+    ``sequential_routing_tp_bwd_colaunch_cuda.launches`` counts its
+    launches: a prediction a shard, one persistent launch, and the weight
+    gradient and its reduction a shard."""
+    name = "sequential_routing_tp_bwd_colaunch_cuda"
+    _check_colaunch(name, u, wgts, biases, vss, dvss, statss)
+    for wgt, bias, vs, dvs, stats in zip(wgts, biases, vss, dvss, statss):
+        _check_tp_grads(name, u, wgt, bias, vs, dvs, stats)
+    lib, fwd, bwd = _tp_libs()
+    batch, seq_len, in_n = u.shape[:3]
+    out_n, out_d = wgts[0].shape[1], wgts[0].shape[2]
+    _check_persistent(lib, "K2-tp", batch, len(wgts), in_n, out_n, out_d, 1)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        uhats = [_predict_rows(fwd, u, w, b, stream)
+                 for w, b in zip(wgts, biases)]
+        factors = tp_backward_persistent(
+            lib, uhats, vss, dvss, statss, 0 if pad else -1,
+            local_exchange(len(wgts), batch * in_n, u.device), 0, stream)
+        grads = [_weight_grads(bwd, u, w, vs, *f, stream)
+                 for w, vs, f in zip(wgts, vss, factors)]
+    du = grads[0][0]
+    for part in grads[1:]:
+        du = du + part[0]
+    sequential_routing_tp_bwd_colaunch_cuda.launches += 3 * len(wgts) + 1
+    return du, [g[1] for g in grads], [g[2] for g in grads]
+
+
+sequential_routing_tp_bwd_colaunch_cuda.launches = 0
 
 
 class SDRTPFunction(torch.autograd.Function):
