@@ -116,7 +116,10 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    utterances of 150-778 frames filling each of the 5 TIMIT buckets at
    least twice an epoch, 80 valid, phase 6c's 24 test; labels 1..61,
    tar_len = max(2, len // 8)) written to TFRecords by
-   tools.save_tfrecord; trainer_sr.main with the recipe's flags at k 0.5
+   tools.save_tfrecord (the port's host library must load, its C++
+   CRC-32C equal to the Python loop's on the written records, which read
+   back with their CRCs verified; stage 0's seconds printed);
+   trainer_sr.main with the recipe's flags at k 0.5
    for 2 epochs, then at k 0.1 to epoch 4 on the same checkpoint
    directory: it must resume at epoch offset 2 with its first update at
    noam(0.1, 1, 1200) of the restored count, save checkpoints 1-4 and 4
@@ -317,12 +320,28 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    under NCCL, the transport CUDA IPC (the persistent kernels, 2 and 4
    launches a rank, their wait bounded by the model group's timeout),
    held to the same limits, and 17a's worker checks on that transport;
+   (a) also holds ROADMAP item 7c's kernels, at each case's one-iteration
+   shape, on the co-launch and on the host loop over gloo: K1-tp-bf16 and
+   K2-tp-bf16 (the BF instances on bf16 u, W and b) to the plain split
+   bf16 version at K1-bf16's and K2-bf16's limits, and K1-tp-stream (each
+   shard's carry before step 0, warm-up steps on every other row) to the
+   plain split version with v_init and step_valid at K1's, v_last too,
+   with median times, plain times and bounds; its co-launch drive runs
+   each once more with the counts at 0; (d) item 7c's drives at the
+   SRF-WSJ recipe's widths cut to 3 layers, 8 utterances of 300-400
+   frames, 2 ranks over gloo (``--model-axis-7c-worker``): the
+   bf16-routing step on (data 1, model 2) held to one process's bf16 step
+   (201 K1-tp-bf16 and 203 K2-tp-bf16 launches a rank), the last layer's
+   route_block with a carry and warm-up steps and a streamed utterance
+   through the sharded model held to the unsharded model's (K1-tp-stream
+   launched), and the sharded wavefront forward held to the unsharded
+   wavefront;
 18. the profiler's line (every trace is primed with one-cycle kernels,
    since torch.profiler drops some of a trace's first device records: how
    many of those it lost, trace by trace), a "kernels" JSON line (K1, K2,
    K3, K4, K5, the variants K1-bf16, K2-bf16, K5-bf16, K1-tp and K2-tp's
-   host loop, and their persistent kernels), then the card line, then the
-   result line.
+   host loop, their persistent kernels, and K1-tp-bf16, K2-tp-bf16 and
+   K1-tp-stream), then the card line, then the result line.
 """
 
 import collections
@@ -2384,6 +2403,15 @@ def recipe_train_phase(torch, card, state, direct_ms):
     saved_env = os.environ.get("SRF_LOOP_TIMING")
     os.environ["SRF_LOOP_TIMING"] = "1"
     try:
+        # the host library's CRC-32C writes stage 0's records: it must load
+        # here (no silent fallback to the Python loop)
+        from srf_tpu_torch.data import tfrecord
+        from srf_tpu_torch.utils import native
+
+        host_lib = native.load_host_lib()
+        check(bool(host_lib), "the port's host library (%s) did not load on "
+              "the card's host: stage 0 would take the Python CRC-32C"
+              % native.library_path())
         # stage 0: npy + JSON -> TFRecords (save_tfr_timit.sh's flags)
         start = time.perf_counter()
         splits = recipe_corpus(base, vocab)
@@ -2395,13 +2423,20 @@ def recipe_train_phase(torch, card, state, direct_ms):
             "--path-train-json=train.json", "--path-valid-json=valid.json",
             "--path-test-json=test.json", "--path-wrt-tfrecord=tfrecord",
             "--decoding-from-npy=True"])
+        stage0_s = time.perf_counter() - start
         shards = sorted(os.listdir(os.path.join(base, "tfrecord")))
         check(len(shards) == 12, "stage 0 wrote %s" % shards)
+        records = [r for shard in shards for r in tfrecord.read_records(
+            os.path.join(base, "tfrecord", shard), verify_crc=True)]
+        check(all(host_lib.srf_crc32c(r, len(r)) == tfrecord.crc32c_py(r)
+                  for r in records[:8]),
+              "the host library's CRC-32C differs from the Python loop's")
         print("recipe stage 0 (save_tfrecord): %d train, %d valid, %d test "
-              "utterances into %d shards, %.1f s"
+              "utterances into %d shards, %.1f s, the C++ CRC-32C (%s; %d "
+              "records read back with their CRCs verified)"
               % (len(splits["train"]), len(splits["valid"]),
-                 len(splits["test"]), len(shards),
-                 time.perf_counter() - start))
+                 len(splits["test"]), len(shards), stage0_s,
+                 os.path.basename(native.library_path()), len(records)))
 
         # stage 1: two LR stages on one checkpoint directory, counted from 0
         sequential_routing_cuda.launches = 0
@@ -5297,7 +5332,8 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
     runs the model and the features in float64. Then ``timed`` more steps.
     Returns the loss, the whole gradients and state after the step (on
     the host), the rate, K1's and K2's launches in the step (and K1-tp's
-    and K2-tp's, and of those the persistent transports'), each timed
+    and K2-tp's, K1-tp-bf16's and K2-tp-bf16's, and of the float32 ones
+    the persistent transports'), each timed
     step's ms and the peak memory over the timed steps (MB)."""
     from srf_tpu_torch.models.layers import set_batch_norm_group
     from srf_tpu_torch.models.registry import build_model
@@ -5338,10 +5374,12 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
                   routing_cuda.sequential_routing_tp_bwd_cuda)
     k1.launches = k2.launches = k1tp.launches = k2tp.launches = 0
     k1tp.launches_persistent = k2tp.launches_persistent = 0
+    k1tp.launches_bf16 = k2tp.launches_bf16 = 0
     _, metrics = step(train_state, batch, config.tpu_seed)
     torch.cuda.synchronize()
     launches = (k1.launches, k2.launches)
     tp_launches = (k1tp.launches, k2tp.launches)
+    tp_launches_bf16 = (k1tp.launches_bf16, k2tp.launches_bf16)
     tp_persistent = (k1tp.launches_persistent, k2tp.launches_persistent)
     model = train_state.model
     grads = sharding_rules.full_state(sharding_rules.gather_named(
@@ -5351,6 +5389,7 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
                                       model)["model"]
     result = {"loss": metrics["loss_sum"].item(), "rate": rate,
               "launches": launches, "tp_launches": tp_launches,
+              "tp_launches_bf16": tp_launches_bf16,
               "tp_persistent": tp_persistent,
               "grads": {k: v.detach().to("cpu", copy=True)
                         for k, v in grads.items()},
@@ -5363,9 +5402,10 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
     return result
 
 
-def par_compare(label, got, want, card, grad_atol_rel=GRAD_ATOL_REL):
+def par_compare(label, got, want, card, grad_atol_rel=GRAD_ATOL_REL,
+                loss_rtol=LOSS_RTOL):
     """``got``'s step held to ``want``'s with phase 7's limits: the loss
-    within LOSS_RTOL, every gradient within GRAD_ATOL_REL x its largest
+    within ``loss_rtol``, every gradient within GRAD_ATOL_REL x its largest
     entry, the BatchNorm statistics within STATS_ATOL, each update within
     UPDATE_ATOL_REL x the rate where the gradient is at least
     UPDATE_GRAD_REL x its largest (``grad_atol_rel`` None: the
@@ -5390,12 +5430,12 @@ def par_compare(label, got, want, card, grad_atol_rel=GRAD_ATOL_REL):
     print("%s: loss %.6f vs %.6f (rel %.2e, rtol %.0e); worst gradient %s "
           "%.2e x max (atol %s); BatchNorm stats %.2e (atol %.0e); "
           "updates %.2e x rate (atol %.0e) [%s]"
-          % (label, got["loss"], want["loss"], loss_err, LOSS_RTOL,
+          % (label, got["loss"], want["loss"], loss_err, loss_rtol,
              worst_grad[1], worst_grad[0],
              "%.0e" % grad_atol_rel if grad_atol_rel else "printed only",
              worst_stat[0],
              STATS_ATOL, worst_update[0], UPDATE_ATOL_REL, card))
-    check(np.isfinite(got["loss"]) and loss_err <= LOSS_RTOL,
+    check(np.isfinite(got["loss"]) and loss_err <= loss_rtol,
           "%s: loss %r vs %r" % (label, got["loss"], want["loss"]))
     check(grad_atol_rel is None or worst_grad[0] <= grad_atol_rel,
           "%s: gradient %s %.3e x its max" % (label, worst_grad[1],
@@ -5857,6 +5897,33 @@ TP_CASES = (
 TP_REPS = 3
 # 17b: the SRF-WSJ step on a (data 1, model 2) mesh; its timed steps
 TP_TIMED = 1
+# item 7c's variants, held at each case's one-iteration shape: the
+# co-launch and the host loop over gloo. K1-tp-bf16 and K2-tp-bf16 against
+# the plain split bf16 version within BF16_K1_ATOL_REL and BF16_K2_ATOL_REL
+# of its largest entry (K1-bf16's and K2-bf16's limits: float32 sums in
+# another order may round a c, a v or a dc to the other bf16 neighbour),
+# the (M, L) statistics within BF16_K1_ATOL_REL of their largest entry
+# (M and L apart); K1-tp-stream
+# (each shard's carry 0.3 x normal, its rows' first TP_WARMUP steps
+# warm-up on every other row) at K1's RTOL and ATOL, its v_last (the last
+# step's output) too. Over gloo the kernels' median of TP_REPS calls, the
+# plain version's one call (the one compared)
+TP_WARMUP = 3
+# 17d: item 7c's drives on the SRF-WSJ recipe's widths at depth
+# TP_7C_LAYERS, 8 utterances of TP_7C_FRAMES frames, 2 ranks on cuda:0
+# over gloo: the bf16-routing step on (data 1, model 2) against one
+# process's bf16 step (its loss within BF16_LOSS_RTOL, its gradients
+# within TP_7C_GRAD_REL of their largest entry: the same rounding points,
+# float32 sums in other orders, and a flipped rounding carried through 3
+# layers; measured 9.0e-6 and 7.2e-3 on an H100, where phase 7's LOSS_RTOL
+# leaves no margin),
+# a streamed push and route_block through the sharded model against the
+# unsharded ones, and the sharded wavefront forward against the unsharded
+# wavefront, both within STREAM_7C_ATOL
+TP_7C_LAYERS = 3
+TP_7C_FRAMES = (300, 400)
+TP_7C_GRAD_REL = 2.5e-2
+STREAM_7C_ATOL = 1e-4
 
 
 def tp_parts(ranks):
@@ -5913,20 +5980,156 @@ def tp_case_inputs(torch, geometry, batch, seq_len, indices, size, seed):
             [cuda(cot[:, :, p]) for p in parts])
 
 
+def tp_variant_inputs(torch, u, wgts, seed):
+    """Item 7c's variants' extra inputs for a 17a case: each shard's carry
+    before step 0 (0.3 x normal, from numpy) and the step mask [B, T],
+    every other row's first TP_WARMUP steps warm-up."""
+    batch, seq_len = u.shape[:2]
+    rng = np.random.RandomState(seed)
+    v_inits = [torch.tensor(0.3 * rng.randn(batch, *w.shape[1:3]),
+                            dtype=torch.float32, device=u.device)
+               for w in wgts]
+    valid = torch.ones(batch, seq_len, dtype=torch.bool, device=u.device)
+    valid[::2, :TP_WARMUP] = False
+    return v_inits, valid
+
+
+def bf16_rel(torch, got, want):
+    """The largest |got - want| over the largest |want|, float32."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def stats_rel(torch, got, want):
+    """The (M, L) statistics [..., 2] apart: the larger of M's and L's
+    largest difference over their largest entry (M, a row's largest
+    logit, can be near 0, where a relative reading says nothing)."""
+    return max(bf16_rel(torch, got[..., i], want[..., i]) for i in (0, 1))
+
+
+def event_call(torch, fn):
+    """(fn's result, its ms from CUDA events): one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return result, start.elapsed_time(end)
+
+
+def tp_colaunch_variants(torch, label, geometry, local, is_last, batch,
+                         seq_len, u, wgts, biases, cots):
+    """17a's item-7c checks of one case in this process: K1-tp-bf16 and
+    K2-tp-bf16 (bf16 u, W and b) and K1-tp-stream as co-launches, each
+    held to its plain version (``sequential_routing_tp_colaunch(...,
+    bf16=True / v_inits, step_valid)`` and its backward) on the same CUDA
+    tensors, with launches a call, median ms of TP_REPS calls, the plain
+    version's, and the bounds of the co-launch's work and of one rank's.
+    Returns the reading's keys (k1tpbf16_*, k2tpbf16_*, k1tpstream_*)."""
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.ops.routing import (sequential_routing_tp_bwd_colaunch,
+                                           sequential_routing_tp_colaunch)
+
+    fwd_k = routing_cuda.sequential_routing_tp_colaunch_cuda
+    bwd_k = routing_cuda.sequential_routing_tp_bwd_colaunch_cuda
+    shape = "(%d, %d)" % (batch, seq_len)
+    ub = u.bfloat16()
+    wb, bb = [w.bfloat16() for w in wgts], [b.bfloat16() for b in biases]
+    reading = {}
+    # K1-tp-bf16
+    plain = lambda: sequential_routing_tp_colaunch(ub, wb, bb, 1, is_last,
+                                                   bf16=True)
+    kernel = lambda: fwd_k(ub, wb, bb, 1, is_last)
+    (want, want_stats), (got, got_stats) = plain(), kernel()
+    before = fwd_k.launches_bf16
+    kernel()
+    launches = fwd_k.launches_bf16 - before
+    routing_cuda.check_tp_status()
+    err = max(bf16_rel(torch, g, w) for g, w in zip(got, want))
+    stats_err = max(stats_rel(torch, g, w)
+                    for g, w in zip(got_stats, want_stats))
+    check(err <= BF16_K1_ATOL_REL and stats_err <= BF16_K1_ATOL_REL,
+          "17a co-launch %s %s: K1-tp-bf16 differs from its plain version "
+          "by %.3e of max (statistics %.3e of max)"
+          % (label, shape, err, stats_err))
+    plain_ms, ms = median_ms(torch, (plain, kernel), TP_REPS)
+    reading.update(
+        k1tpbf16_err=err, k1tpbf16_stats_rel=stats_err,
+        k1tpbf16_launches=launches, k1tpbf16_ms=ms,
+        k1tpbf16_plain_ms=plain_ms,
+        k1tpbf16_bound_ms=sdr_bf16_bound_ms(batch, seq_len, geometry, 1),
+        k1tpbf16_rank_bound_ms=sdr_bf16_bound_ms(batch, seq_len, local, 1))
+    # K2-tp-bf16 on that forward
+    plain_b = lambda: sequential_routing_tp_bwd_colaunch(
+        ub, wb, bb, want, cots, want_stats, is_last, bf16=True)
+    kernel_b = lambda: bwd_k(ub, wb, bb, want, cots, want_stats, is_last)
+    refs, gots = plain_b(), kernel_b()
+    routing_cuda.check_tp_status()
+    errs = [bf16_rel(torch, torch.cat(list(g), 1) if isinstance(g, list)
+                     else g, torch.cat(list(r), 1) if isinstance(r, list)
+                     else r) for g, r in zip(gots, refs)]
+    check(max(errs) <= BF16_K2_ATOL_REL and all(
+        g.dtype == torch.bfloat16 for g in [gots[0], *gots[1], *gots[2]]),
+          "17a co-launch %s %s: K2-tp-bf16 (du, dW, db) differ from their "
+          "plain versions by %s of max" % (label, shape, errs))
+    before = bwd_k.launches_bf16
+    kernel_b()
+    b_launches = bwd_k.launches_bf16 - before
+    plain_ms, ms = median_ms(torch, (plain_b, kernel_b), TP_REPS)
+    reading.update(
+        k2tpbf16_err=max(errs), k2tpbf16_launches=b_launches,
+        k2tpbf16_ms=ms, k2tpbf16_plain_ms=plain_ms,
+        k2tpbf16_bound_ms=sdr_bf16_bound_ms(batch, seq_len, geometry, 1,
+                                            backward=True),
+        k2tpbf16_rank_bound_ms=sdr_bf16_bound_ms(batch, seq_len, local, 1,
+                                                 backward=True))
+    # K1-tp-stream: a carry and warm-up steps
+    v_inits, valid = tp_variant_inputs(torch, u, wgts, SEED + 178 + seq_len)
+    plain_s = lambda: sequential_routing_tp_colaunch(
+        u, wgts, biases, 1, is_last, v_inits=v_inits, step_valid=valid)
+    kernel_s = lambda: fwd_k(u, wgts, biases, 1, is_last, v_inits, valid)
+    (want, want_stats), (got, got_stats) = plain_s(), kernel_s()
+    routing_cuda.check_tp_status()
+    pairs = list(zip(got + got_stats, want + want_stats))
+    err = max((g - w).abs().max().item() for g, w in pairs)
+    check(all(torch.allclose(g, w, rtol=RTOL, atol=ATOL) for g, w in pairs)
+          and all(torch.allclose(g[:, -1], w[:, -1], rtol=RTOL, atol=ATOL)
+                  for g, w in zip(got, want))
+          and not any(g[::2, :TP_WARMUP].any().item() for g in got),
+          "17a co-launch %s %s: K1-tp-stream differs from its plain version "
+          "by %.3e (or a warm-up step is not zero)" % (label, shape, err))
+    before = fwd_k.launches_stream
+    kernel_s()
+    s_launches = fwd_k.launches_stream - before
+    plain_ms, ms = median_ms(torch, (plain_s, kernel_s), TP_REPS)
+    reading.update(
+        k1tpstream_err=err, k1tpstream_launches=s_launches,
+        k1tpstream_ms=ms, k1tpstream_plain_ms=plain_ms,
+        k1tpstream_bound_ms=sdr_bound_ms(batch, seq_len, geometry, 1),
+        k1tpstream_rank_bound_ms=sdr_bound_ms(batch, seq_len, local, 1))
+    routing_cuda.check_tp_status()
+    return reading
+
+
 def tp_colaunch_checks(torch, card):
     """17a in this process: the persistent K1-tp and K2-tp as co-launches
     of every rank's shard (``sequential_routing_tp_colaunch_cuda`` and its
     backward). First the drive: one forward and one backward at the first
-    case's one-iteration shape, the launch counts set to 0 just before
-    and read just after. Then every case and shape held to the plain split
-    version (``ops.routing.sequential_routing_tp_colaunch`` and its
-    backward) on the same CUDA tensors, with the launches a call, median
-    ms, plain ms, the bound of the co-launch's work (every shard: the
-    whole layer) and of one rank's, and the parts' device ms at the first
-    case. Then the co-launch of one shard (the whole layer). Every launch's
+    case's one-iteration shape, float32 and bf16, and one forward with a
+    carry and a step mask, the launch counts set to 0 just before and read
+    just after. Then every case and shape held to the plain split version
+    (``ops.routing.sequential_routing_tp_colaunch`` and its backward) on
+    the same CUDA tensors, with the launches a call, median ms, plain ms,
+    the bound of the co-launch's work (every shard: the whole layer) and of
+    one rank's, and the parts' device ms at the first case; at each case's
+    one-iteration shape item 7c's variants too (:func:`tp_colaunch_variants`).
+    Then the co-launch of one shard (the whole layer). Every launch's
     status words are read (``check_tp_status``) before its results are
-    held. Returns (the readings, (K1-tp's, K2-tp's) launches in the
-    drive)."""
+    held. Returns (the readings, (K1-tp's, K2-tp's, K1-tp-bf16's,
+    K2-tp-bf16's, K1-tp-stream's) launches in the drive)."""
     from srf_tpu_torch.ops import routing_cuda
     from srf_tpu_torch.ops.routing import (sequential_routing_tp_bwd_colaunch,
                                            sequential_routing_tp_colaunch)
@@ -5941,15 +6144,28 @@ def tp_colaunch_checks(torch, card):
                 torch, geometry, batch, seq_len, range(ranks), ranks,
                 SEED + 170 + seq_len + num_iter)
             if drive is None:
+                # the drive: K1-tp, K2-tp and item 7c's K1-tp-bf16,
+                # K2-tp-bf16 and K1-tp-stream, once each
+                v_inits, valid = tp_variant_inputs(torch, u, wgts, SEED + 179)
+                ub = u.bfloat16()
+                wb = [w.bfloat16() for w in wgts]
+                bb = [b.bfloat16() for b in biases]
                 torch.cuda.synchronize()
                 fwd_k.launches = bwd_k.launches = 0
+                fwd_k.launches_bf16 = bwd_k.launches_bf16 = 0
+                fwd_k.launches_stream = 0
                 outs, statss = fwd_k(u, wgts, biases, 1, is_last)
                 bwd_k(u, wgts, biases, outs, cots, statss, is_last)
+                outs, statss = fwd_k(ub, wb, bb, 1, is_last)
+                bwd_k(ub, wb, bb, outs, cots, statss, is_last)
+                fwd_k(u, wgts, biases, 1, is_last, v_inits, valid)
                 routing_cuda.check_tp_status()
-                drive = (fwd_k.launches, bwd_k.launches)
-                check(drive == (ranks + 1, 3 * ranks + 1),
+                drive = (fwd_k.launches, bwd_k.launches, fwd_k.launches_bf16,
+                         bwd_k.launches_bf16, fwd_k.launches_stream)
+                want_drive = (ranks + 1, 3 * ranks + 1) * 2 + (ranks + 1,)
+                check(drive == want_drive,
                       "17a: the co-launch drive made %s launches, not %s"
-                      % (drive, (ranks + 1, 3 * ranks + 1)))
+                      % (drive, want_drive))
             plain = lambda: sequential_routing_tp_colaunch(
                 u, wgts, biases, num_iter, is_last)
             kernel = lambda: fwd_k(u, wgts, biases, num_iter, is_last)
@@ -6005,6 +6221,9 @@ def tp_colaunch_checks(torch, card):
                     k2tp_bound_ms=sdr_bwd_bound_ms(batch, seq_len, geometry),
                     k2tp_rank_bound_ms=sdr_bwd_bound_ms(batch, seq_len,
                                                         local))
+                reading.update(tp_colaunch_variants(
+                    torch, label, geometry, local, is_last, batch, seq_len,
+                    u, wgts, biases, cots))
                 if not readings:
                     fwd_parts, bwd_parts = tp_parts(ranks)
                     (reading["k1tp_parts_ms"],
@@ -6029,6 +6248,29 @@ def tp_colaunch_checks(torch, card):
                         reading["k2tp_ms"], reading["k2tp_plain_ms"],
                         max(reading["k2tp_bound_ms"]),
                         max(reading["k2tp_rank_bound_ms"])), card))
+            if "k1tpbf16_ms" in reading:
+                print("17a co-launch %s %s: K1-tp-bf16 %.3e of max, %d "
+                      "launches, %.3f ms (plain %.3f, bound %.3f, one rank's "
+                      "%.3f); K2-tp-bf16 %.3e of max, %d launches, %.3f ms "
+                      "(plain %.3f, bound %.3f, one rank's %.3f); "
+                      "K1-tp-stream %.3e, %d launches, %.3f ms (plain %.3f, "
+                      "bound %.3f) [%s]"
+                      % (label, tuple(reading["shape"]),
+                         reading["k1tpbf16_err"],
+                         reading["k1tpbf16_launches"],
+                         reading["k1tpbf16_ms"], reading["k1tpbf16_plain_ms"],
+                         max(reading["k1tpbf16_bound_ms"]),
+                         max(reading["k1tpbf16_rank_bound_ms"]),
+                         reading["k2tpbf16_err"],
+                         reading["k2tpbf16_launches"],
+                         reading["k2tpbf16_ms"], reading["k2tpbf16_plain_ms"],
+                         max(reading["k2tpbf16_bound_ms"]),
+                         max(reading["k2tpbf16_rank_bound_ms"]),
+                         reading["k1tpstream_err"],
+                         reading["k1tpstream_launches"],
+                         reading["k1tpstream_ms"],
+                         reading["k1tpstream_plain_ms"],
+                         max(reading["k1tpstream_bound_ms"]), card))
             if "k1tp_parts_ms" in reading:
                 print("17a co-launch %s: parts ms a call, K1-tp %s, K2-tp %s "
                       "(traces discarded: %d, %d)"
@@ -6152,8 +6394,83 @@ def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
                            k2tp_plain_ms=plain_ms, k2tp_alone_ms=alone_ms,
                            k2tp_bound_ms=sdr_bwd_bound_ms(batch, seq_len,
                                                           local))
+            reading.update(tp_host_loop_variants(
+                torch, label, index, pad_owner, group, u, wgt, bias, cot,
+                local, batch, seq_len))
         readings.append(reading)
     return readings
+
+
+def tp_host_loop_variants(torch, label, index, pad_owner, group, u, wgt,
+                          bias, cot, local, batch, seq_len):
+    """17a's item-7c checks on this rank over the group's transport (the
+    host loop over gloo): K1-tp-bf16 and K2-tp-bf16 against
+    ``sequential_routing_tp(..., bf16=True)`` and
+    ``sequential_routing_tp_bwd_bf16``, K1-tp-stream against
+    ``sequential_routing_tp(..., v_init, step_valid)``, on the same CUDA
+    tensors; each kernel's median ms of TP_REPS calls, the plain version's
+    one call. Returns the reading's keys."""
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.ops.routing import (sequential_routing_tp,
+                                           sequential_routing_tp_bwd_bf16)
+    from srf_tpu_torch.ops.routing_cuda import (sequential_routing_tp_bwd_cuda,
+                                                sequential_routing_tp_cuda)
+
+    where = "17a %s rank %d (%d, %d)" % (label, index, batch, seq_len)
+    ub, wb, bb = u.bfloat16(), wgt.bfloat16(), bias.bfloat16()
+    reading = {}
+    (want, want_stats), plain_ms = event_call(
+        torch, lambda: sequential_routing_tp(
+            ub, wb, bb, 1, pad_owner, group, return_stats=True, bf16=True))
+    kernel = lambda: sequential_routing_tp_cuda(ub, wb, bb, 1, pad_owner,
+                                                group)
+    got, got_stats = kernel()
+    routing_cuda.check_tp_status()
+    err = bf16_rel(torch, got, want)
+    stats_err = stats_rel(torch, got_stats, want_stats)
+    check(err <= BF16_K1_ATOL_REL and stats_err <= BF16_K1_ATOL_REL,
+          "%s: K1-tp-bf16 differs from its plain version by %.3e of max "
+          "(statistics %.3e of max)" % (where, err, stats_err))
+    reading.update(k1tpbf16_err=err, k1tpbf16_plain_ms=plain_ms,
+                   k1tpbf16_ms=median_ms(torch, (kernel,), TP_REPS)[0],
+                   k1tpbf16_bound_ms=sdr_bf16_bound_ms(batch, seq_len, local,
+                                                       1))
+    refs, plain_ms = event_call(torch, lambda: sequential_routing_tp_bwd_bf16(
+        ub, wb, bb, cot, pad_owner, group))
+    kernel_b = lambda: sequential_routing_tp_bwd_cuda(
+        ub, wb, bb, want, cot, want_stats, pad_owner, group)
+    gots = kernel_b()
+    routing_cuda.check_tp_status()
+    errs = [bf16_rel(torch, g, r) for g, r in zip(gots, refs)]
+    check(max(errs) <= BF16_K2_ATOL_REL
+          and all(g.dtype == torch.bfloat16 for g in gots),
+          "%s: K2-tp-bf16 (du, dW, db) differ from their plain versions by "
+          "%s of max" % (where, errs))
+    reading.update(k2tpbf16_err=max(errs), k2tpbf16_plain_ms=plain_ms,
+                   k2tpbf16_ms=median_ms(torch, (kernel_b,), TP_REPS)[0],
+                   k2tpbf16_bound_ms=sdr_bf16_bound_ms(
+                       batch, seq_len, local, 1, backward=True))
+    (v_init,), valid = tp_variant_inputs(torch, u, [wgt],
+                                         SEED + 180 + index)
+    (want, want_stats), plain_ms = event_call(
+        torch, lambda: sequential_routing_tp(
+            u, wgt, bias, 1, pad_owner, group, return_stats=True,
+            v_init=v_init, step_valid=valid))
+    kernel_s = lambda: sequential_routing_tp_cuda(
+        u, wgt, bias, 1, pad_owner, group, v_init, valid)
+    got, got_stats = kernel_s()
+    routing_cuda.check_tp_status()
+    err = max((got - want).abs().max().item(),
+              (got_stats - want_stats).abs().max().item())
+    check(torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+          and torch.allclose(got_stats, want_stats, rtol=RTOL, atol=ATOL)
+          and not got[::2, :TP_WARMUP].any().item(),
+          "%s: K1-tp-stream differs from its plain version by %.3e (or a "
+          "warm-up step is not zero)" % (where, err))
+    reading.update(k1tpstream_err=err, k1tpstream_plain_ms=plain_ms,
+                   k1tpstream_ms=median_ms(torch, (kernel_s,), TP_REPS)[0],
+                   k1tpstream_bound_ms=sdr_bound_ms(batch, seq_len, local, 1))
+    return reading
 
 
 def layer_scratch_mb(torch, geometry, batch, seq_len, shard=None):
@@ -6274,14 +6591,186 @@ def wsj_tp_config(logger):
                          SRF_WSJ_FLAGS + ["--train-lr-param-k=0.6"])
 
 
+def tp_7c_config(logger, bf16):
+    """17d's model: phase 12c's SRF-WSJ configuration at depth
+    TP_7C_LAYERS, with bf16 routing where ``bf16``."""
+    return family_config(
+        logger, "cuda", "wsj",
+        SRF_WSJ_FLAGS + ["--train-lr-param-k=0.6",
+                         "--model-encoder-num=%d" % TP_7C_LAYERS]
+        + (["--tpu-routing-bf16=True"] if bf16 else []))
+
+
+def model_axis_7c_worker(workdir):
+    """One rank of 17d (``chip_smoke.py --model-axis-7c-worker DIR``, the
+    SRF_* variables set): a (data 1, model ranks) mesh over gloo on cuda:0
+    and item 7c's three drives on DIR/inputs.pt's state and batch, each
+    with its kernels' launch counts set to 0 just before and read just
+    after: the bf16-routing step (K1-tp-bf16, K2-tp-bf16); the last
+    layer's route_block with a carry and warm-up steps and a streamed
+    utterance through the sharded model, against the same on the
+    unsharded model (K1-tp-stream); and the sharded wavefront forward
+    against the unsharded wavefront (plain PyTorch, no kernel). Writes
+    DIR/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.parallel import distributed, sharding_rules
+    from srf_tpu_torch.parallel.mesh import make_mesh
+    from srf_tpu_torch.streaming import StreamingTranscriber
+
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    distributed.maybe_initialize(backend="gloo", device="cuda")
+    rank, world = distributed.rank(), distributed.world_size()
+    mesh = make_mesh(1, world, device="cuda")
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    batch = {k: v.cuda() if k in ("feats", "labels") else v
+             for k, v in inputs["batch"].items()}
+    out = {"transport": routing_cuda.tp_transport(mesh.group("model"))}
+    out["step"] = par_step(torch, tp_7c_config(logger, True),
+                           inputs["state"], batch, group=mesh.group("data"),
+                           model_mesh=mesh, timed=TP_TIMED)
+
+    config = tp_7c_config(logger, False)
+    classes = class_count(config)
+    models = []
+    for sharded in (False, True):
+        model = build_model(config, classes)[0]
+        model.load_state_dict(inputs["state"])
+        model = model.cuda().eval()
+        if sharded:
+            sharding_rules.apply_rules(model, mesh)
+        models.append(model)
+    whole, sharded = models
+    last = whole.enc_num - 1
+    k1tp = routing_cuda.sequential_routing_tp_cuda
+    rng = np.random.RandomState(SEED + 181)
+    in_n, in_d = whole.caps_conv_num, whole.caps_conv_dim
+    ctx = whole.lpad + whole.rpad
+    u_ctx = torch.tensor(rng.randn(2, ctx + 8, in_n, in_d),
+                         dtype=torch.float32, device="cuda")
+    v_init = torch.tensor(0.3 * rng.randn(2, classes, whole.caps_class_dim),
+                          dtype=torch.float32, device="cuda")
+    valid = torch.arange(8, device="cuda")[None] >= torch.tensor(
+        [[TP_WARMUP], [0]], device="cuda")
+    feats = batch["feats"][0, :TP_7C_FRAMES[0]].cpu().numpy()
+    with torch.no_grad():
+        want = whole.route_block(u_ctx, last, v_init, valid)
+        torch.cuda.synchronize()
+        k1tp.launches_stream = 0
+        got = sharded.route_block(u_ctx, last, v_init, valid)
+        logits = []
+        for model in (whole, sharded):
+            session = StreamingTranscriber(model, blank_id=classes - 1,
+                                           chunk=STREAM_CHUNK)
+            push = STREAM_CHUNK * session.div
+            for lo in range(0, feats.shape[0], push):
+                session.push(feats[lo:lo + push])
+            session.flush()
+            logits.append(session.logits)
+        torch.cuda.synchronize()
+        out["stream_launches"] = k1tp.launches_stream
+        out["route_block_err"] = max((g - w).abs().max().item()
+                                     for g, w in zip(got, want))
+        out["warmup_zero"] = not got[0][0, :TP_WARMUP].any().item()
+        out["stream_err"] = float(np.abs(logits[1] - logits[0]).max())
+        out["stream_frames"] = int(logits[0].shape[0])
+        for model in models:
+            model.routing_impl = "wavefront"
+        lens = batch["inp_len"].cuda()
+        forwards = [timed_ms(torch, lambda: model(batch["feats"], lens), 1)
+                    for model in models]
+        wave = [model(batch["feats"], lens) for model in models]
+        out["wavefront_err"] = (wave[1] - wave[0]).abs().max().item()
+        out["wavefront_ms"] = [f[0] for f in forwards]
+    routing_cuda.check_tp_status()
+    torch.save(out, os.path.join(workdir, "rank%d.pt" % rank))
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def model_axis_7c_drives(torch, card, workdir):
+    """17d (see TP_7C_LAYERS): one process's bf16 step, then the 2 ranks'
+    drives (:func:`model_axis_7c_worker`), each held to its unsharded
+    counterpart. Returns the launches summed over the ranks:
+    (K1-tp-bf16's, K2-tp-bf16's) in the step, K1-tp-stream's in the
+    streaming drive."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+
+    start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = tp_7c_config(logger, True)
+    classes = class_count(config)
+    state = random_weights(build_model(config, classes)[0])
+    batch = train_batch(torch, "cuda", batch=8, frames=TP_7C_FRAMES[1],
+                        vocab=classes - 1, shortest=TP_7C_FRAMES[0])
+    single = par_step(torch, config, state, batch, timed=TP_TIMED)
+    torch.save({"state": state, "batch": {k: v.cpu() for k, v in
+                                          batch.items()}},
+               os.path.join(workdir, "inputs.pt"))
+    launch_ranks("--model-axis-7c-worker", workdir, ranks=2)
+    results = [torch.load(os.path.join(workdir, "rank%d.pt" % r),
+                          weights_only=False) for r in range(2)]
+    seq_len = -(-TP_7C_FRAMES[1] // 4)
+    want_bf16 = (1 + 2 * seq_len, 3 + 2 * seq_len)
+    for r, result in enumerate(results):
+        got = result["step"]
+        check(result["transport"] == "host_loop"
+              and got["tp_launches_bf16"] == want_bf16
+              and got["tp_launches"] == (0, 0)
+              and got["launches"] == single["launches"],
+              "17d rank %d: transport %s, K1-tp-bf16/K2-tp-bf16 launches %s "
+              "(expected %s), float32 K1-tp/K2-tp %s, K1/K2 %s (one "
+              "process: %s)" % (r, result["transport"],
+                                got["tp_launches_bf16"], want_bf16,
+                                got["tp_launches"], got["launches"],
+                                single["launches"]))
+        readings = par_compare(
+            "17d bf16-routing SRF-WSJ (depth %d, data 1, model 2) rank %d vs "
+            "one process's bf16 step" % (TP_7C_LAYERS, r), got, single, card,
+            grad_atol_rel=TP_7C_GRAD_REL, loss_rtol=BF16_LOSS_RTOL)
+        check(result["stream_launches"] > 0 and result["warmup_zero"]
+              and result["route_block_err"] <= STREAM_7C_ATOL
+              and result["stream_err"] <= STREAM_7C_ATOL,
+              "17d rank %d: the sharded route_block differs from the "
+              "unsharded by %.3e, the streamed logits by %.3e (limit %.0e; "
+              "K1-tp-stream launches %d)"
+              % (r, result["route_block_err"], result["stream_err"],
+                 STREAM_7C_ATOL, result["stream_launches"]))
+        check(result["wavefront_err"] <= STREAM_7C_ATOL,
+              "17d rank %d: the sharded wavefront differs from the unsharded "
+              "by %.3e" % (r, result["wavefront_err"]))
+        print("17d rank %d: bf16 step %s ms a step (one process %s), K1-tp-"
+              "bf16 %d and K2-tp-bf16 %d launches, gradients %.2e x max; "
+              "route_block %.3e and a streamed utterance (%d frames) %.3e "
+              "from the unsharded, K1-tp-stream %d launches; wavefront "
+              "%.3e from the unsharded, %.1f ms (unsharded %.1f) [%s]"
+              % (r, ["%.1f" % x for x in got["ms"]],
+                 ["%.1f" % x for x in single["ms"]],
+                 *got["tp_launches_bf16"], readings["grad_rel"],
+                 result["route_block_err"], result["stream_frames"],
+                 result["stream_err"], result["stream_launches"],
+                 result["wavefront_err"], result["wavefront_ms"][1],
+                 result["wavefront_ms"][0], card))
+    print("17d: %.1f s" % (time.perf_counter() - start))
+    return ([sum(r["step"]["tp_launches_bf16"][i] for r in results)
+             for i in (0, 1)], sum(r["stream_launches"] for r in results))
+
+
 def tp_entry(name, kernel, replaces, readings, launches):
     """K1-tp's ("k1tp") or K2-tp's ("k2tp") entry of the "kernels" line for
     ``kernel`` (the host loop's sdr_tp_fwd / sdr_tp_bwd, or the persistent
-    kernels): its times at the first of ``readings`` (SRF-WSJ's last layer
-    at 8 x 400, one iteration: rank 0's, or the co-launch's), the largest
-    error over every case and rank, each case's readings, and
-    ``launches``."""
-    first = readings[0]
+    kernels; item 7c's "k1tpbf16", "k2tpbf16", "k1tpstream"): its times at
+    the first of ``readings`` that has them (SRF-WSJ's last layer at 8 x
+    400, one iteration: rank 0's, or the co-launch's), the largest error
+    over every case and rank, each case's readings, and ``launches``."""
+    first = next(r for r in readings if name + "_ms" in r)
     bytes_ms, ops_ms = first[name + "_bound_ms"]
     return {
         "name": kernel, "route": "cuda",
@@ -6323,6 +6812,17 @@ def print_tp_readings(stage, label, results, card):
                      % (reading["k2tp_err"], reading["k2tp_ms"],
                         reading["k2tp_plain_ms"], reading["k2tp_alone_ms"],
                         max(reading["k2tp_bound_ms"])), card))
+            if "k1tpbf16_ms" in reading:
+                print("%s %s rank %d (B, T') %s: K1-tp-bf16 %.3e of max, "
+                      "%.3f ms (plain %.3f, bound %.3f); K2-tp-bf16 %.3e of "
+                      "max, %.3f ms (plain %.3f, bound %.3f); K1-tp-stream "
+                      "%.3e, %.3f ms (plain %.3f, bound %.3f) [%s]"
+                      % (stage, label, r, tuple(reading["shape"][:2]),
+                         *(reading[name + key] if key != "_bound_ms"
+                           else max(reading[name + key])
+                           for name in ("k1tpbf16", "k2tpbf16", "k1tpstream")
+                           for key in ("_err", "_ms", "_plain_ms",
+                                       "_bound_ms")), card))
 
 
 def check_tp_step(stage, results, single, layers, seq_len, card,
@@ -6459,6 +6959,7 @@ def model_axis_phase(torch, card):
                 continue
             cards_persistent = cards_step(torch, card, workdir, inputs,
                                           single, layers, seq_len)
+        step_bf16, stream_7c = model_axis_7c_drives(torch, card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     replaces = ("srf_tpu/ops/routing.py:122 (no pallas_call: the loop body "
@@ -6476,8 +6977,27 @@ def model_axis_phase(torch, card):
           "step: %s" % step_tp)
     check(k1tp_p["launches"] and k2tp_p["launches"],
           "the persistent K1-tp or K2-tp was not launched in 17a's drive")
+    # item 7c's kernels: the persistent instances' readings from the
+    # co-launch, the host loop's in per_case; their launches those of
+    # 17a's co-launch drive and of 17d's drives, summed over the ranks
+    variants = []
+    for name, kernel, colaunch_n, drive_n, path in (
+            ("k1tpbf16", "sdr_tp_fwd_persistent<bf16>", drive[2],
+             step_bf16[0], "bf16_step"),
+            ("k2tpbf16", "sdr_tp_bwd_persistent<bf16>", drive[3],
+             step_bf16[1], "bf16_step"),
+            ("k1tpstream", "sdr_tp_fwd_persistent (carry, step mask)",
+             drive[4], stream_7c, "stream")):
+        entry = tp_entry(name, kernel, replaces, colaunch + readings,
+                         colaunch_n + drive_n)
+        entry["launches_by_path"] = {"colaunch_drive": colaunch_n,
+                                     path + "_host_loop": drive_n}
+        check(colaunch_n > 0 and drive_n > 0,
+              "%s was not launched on its main path: %s"
+              % (kernel, entry["launches_by_path"]))
+        variants.append(entry)
     print("model axis phase: %.1f s" % (time.perf_counter() - phase_start))
-    return k1tp, k2tp, k1tp_p, k2tp_p, step_k12
+    return (k1tp, k2tp, k1tp_p, k2tp_p, *variants), step_k12
 
 
 def run():
@@ -6553,8 +7073,7 @@ def run():
     check(all(par_k1.values()) and all(par_k2.values()),
           "K1 or K2 was not launched on a parallel path: %s %s"
           % (par_k1, par_k2))
-    k1tp, k2tp, k1tp_p, k2tp_p, (axis_k1, axis_k2) = model_axis_phase(
-        torch, card)
+    tp_entries, (axis_k1, axis_k2) = model_axis_phase(torch, card)
     # the daemon's launches are counted in its own process (its stats),
     # the rest in this one
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
@@ -6600,7 +7119,7 @@ def run():
     # the bf16 variants' launches: the --tpu-routing-bf16 SRF-TIMIT steps
     # (K1-bf16, K2-bf16) and the --tpu-bf16 CNN-TIMIT steps (K5-bf16)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k1_bf16, k2_bf16,
-                                  k5_bf16, k1tp, k2tp, k1tp_p, k2tp_p]}))
+                                  k5_bf16, *tp_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6616,6 +7135,8 @@ if __name__ == "__main__":
             code = parallel_cli_worker(sys.argv[2])
         elif sys.argv[1:2] == ["--model-axis-worker"]:
             code = model_axis_worker(sys.argv[2])
+        elif sys.argv[1:2] == ["--model-axis-7c-worker"]:
+            code = model_axis_7c_worker(sys.argv[2])
         else:
             code = run()
     except SmokeFailure as failure:

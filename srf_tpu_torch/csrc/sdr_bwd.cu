@@ -526,16 +526,64 @@ int launch(const sdr::uhat_t<BF>* u, const sdr::uhat_t<BF>* w,
 
 // The weight-gradient plan of a call whose factors are given (K2-tp): false
 // if the geometry has none on this card.
+template <bool BF>
 bool plan_wgrad_call(int batch, int seq_len, int in_n, int in_d, int out_n,
                      int out_d, Wgrad* p, int* slots) {
   if (batch < 1 || seq_len < 1 || in_n < 1 || in_d < 1 || out_n < 1 ||
       out_d < 1) {
     return false;
   }
-  *slots = wgrad_slots<false>(in_d, out_n * out_d);
+  *slots = wgrad_slots<BF>(in_d, out_n * out_d);
   if (*slots < 1) return false;
   sdr::plan_wgrad(batch * seq_len, in_n, in_d, out_n * out_d, *slots, p);
   return true;
+}
+
+// Floats of the weight gradient's partials (BF: its bf16 instance's) on
+// the current device, or -1 if it has no plan.
+template <bool BF>
+long long wgrad_part_floats(int batch, int seq_len, int in_n, int in_d,
+                            int out_n, int out_d) {
+  Wgrad p;
+  int slots;
+  if (!plan_wgrad_call<BF>(batch, seq_len, in_n, in_d, out_n, out_d, &p,
+                           &slots)) {
+    return -1;
+  }
+  return (long long)p.chunks * in_n * out_n * out_d * (in_d + 1);
+}
+
+// The weight-gradient kernel (BF: its bf16 instance) and the reduction on
+// given factors: sdr_bwd_wgrad's launches.
+template <bool BF>
+int launch_wgrad(const sdr::uhat_t<BF>* u, const sdr::uhat_t<BF>* w,
+                 const float* vs, const float* cfac, const float* dafac,
+                 const float* dsfac, float* part, float* du, float* dw,
+                 float* db, int batch, int seq_len, int in_n, int in_d,
+                 int out_n, int out_d, void* stream) {
+  Wgrad p;
+  int slots;
+  if (!plan_wgrad_call<BF>(batch, seq_len, in_n, in_d, out_n, out_d, &p,
+                           &slots)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int out_no = out_n * out_d;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = sdr::wgrad_smem_floats(p) * sizeof(float);
+  const auto wgrad = wgrad_kernel<BF>(p, in_d, out_no);
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = in_n * p.chunks < slots ? in_n * p.chunks : slots;
+  wgrad<<<blocks, kWgradThreads, smem, s>>>(
+      u, w, vs, cfac, dafac, dsfac, du, part, batch * seq_len, seq_len,
+      in_n, in_d, out_n, out_d, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int dw_size = in_n * out_no * in_d;
+  sdr_bwd_reduce_kernel<<<kReduceBlocks, kReduceThreads, 0, s>>>(
+      part, dw, db, p.chunks, dw_size, in_n * out_no);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -619,13 +667,7 @@ int sdr_bwd_bf16(const void* u, const void* w, const void* bias,
 // current device, or -1 if it has no plan.
 long long sdr_bwd_wgrad_part_floats(int batch, int seq_len, int in_n,
                                     int in_d, int out_n, int out_d) {
-  Wgrad p;
-  int slots;
-  if (!plan_wgrad_call(batch, seq_len, in_n, in_d, out_n, out_d, &p,
-                       &slots)) {
-    return -1;
-  }
-  return (long long)p.chunks * in_n * out_n * out_d * (in_d + 1);
+  return wgrad_part_floats<false>(batch, seq_len, in_n, in_d, out_n, out_d);
 }
 
 // K2's weight-gradient and reduction kernels on given factors (K2-tp's
@@ -642,29 +684,29 @@ int sdr_bwd_wgrad(const float* u, const float* w, const float* vs,
                   float* part, float* du, float* dw, float* db, int batch,
                   int seq_len, int in_n, int in_d, int out_n, int out_d,
                   void* stream) {
-  Wgrad p;
-  int slots;
-  if (!plan_wgrad_call(batch, seq_len, in_n, in_d, out_n, out_d, &p,
-                       &slots)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int out_no = out_n * out_d;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = sdr::wgrad_smem_floats(p) * sizeof(float);
-  const auto wgrad = wgrad_kernel<false>(p, in_d, out_no);
-  cudaError_t err = cudaFuncSetAttribute(
-      wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = in_n * p.chunks < slots ? in_n * p.chunks : slots;
-  wgrad<<<blocks, kWgradThreads, smem, s>>>(
-      u, w, vs, cfac, dafac, dsfac, du, part, batch * seq_len, seq_len,
-      in_n, in_d, out_n, out_d, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int dw_size = in_n * out_no * in_d;
-  sdr_bwd_reduce_kernel<<<kReduceBlocks, kReduceThreads, 0, s>>>(
-      part, dw, db, p.chunks, dw_size, in_n * out_no);
-  return (int)cudaGetLastError();
+  return launch_wgrad<false>(u, w, vs, cfac, dafac, dsfac, part, du, dw, db,
+                             batch, seq_len, in_n, in_d, out_n, out_d,
+                             stream);
+}
+
+// The bf16 instance (K2-tp-bf16's): u and w bf16, du_hat = bf16(bf16(c) ds
+// + da bf16(v_{t-1})) as sdr_bwd_bf16's weight gradient; du, dw and db are
+// the float32 sums, which the caller rounds to bf16; part of
+// sdr_bwd_wgrad_bf16_part_floats floats.
+long long sdr_bwd_wgrad_bf16_part_floats(int batch, int seq_len, int in_n,
+                                         int in_d, int out_n, int out_d) {
+  return wgrad_part_floats<true>(batch, seq_len, in_n, in_d, out_n, out_d);
+}
+
+int sdr_bwd_wgrad_bf16(const void* u, const void* w, const float* vs,
+                       const float* cfac, const float* dafac,
+                       const float* dsfac, float* part, float* du, float* dw,
+                       float* db, int batch, int seq_len, int in_n, int in_d,
+                       int out_n, int out_d, void* stream) {
+  using B = const __nv_bfloat16*;
+  return launch_wgrad<true>(static_cast<B>(u), static_cast<B>(w), vs, cfac,
+                            dafac, dsfac, part, du, dw, db, batch, seq_len,
+                            in_n, in_d, out_n, out_d, stream);
 }
 
 const char* sdr_bwd_error_string(int err) {

@@ -296,6 +296,26 @@ int sdr_predict(const float* u, const float* w, const float* bias,
                                   out_no, (cudaStream_t)stream);
 }
 
+// The bf16 prediction kernel alone (K1-tp-bf16's first launch): u, w and
+// bias bf16 as above -> uhat bf16 [rows_total, in_n, pitch] (pitch: out_no
+// rounded up to 8, 16 bytes), bf16(bf16(W u) + b) as sdr_fwd_bf16's. Its
+// plan takes in_d in one tile of in entries (every recipe's geometry);
+// another in_d gives cudaErrorInvalidValue.
+int sdr_predict_bf16(const void* u, const void* w, const void* bias,
+                     void* uhat, int rows_total, int in_n, int in_d,
+                     int out_no, void* stream) {
+  if (rows_total < 1 || in_n < 1 || in_d < 1 || out_no < 1 ||
+      (uintptr_t)uhat % 16 != 0 ||
+      sdr::plan_predict(in_d, out_no).j_tile < in_d) {
+    return (int)cudaErrorInvalidValue;
+  }
+  using B = const __nv_bfloat16*;
+  return (int)sdr::launch_predict(
+      static_cast<B>(u), static_cast<B>(w), static_cast<B>(bias),
+      static_cast<__nv_bfloat16*>(uhat), rows_total, in_n, in_d, out_no,
+      (cudaStream_t)stream);
+}
+
 const char* sdr_fwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -59,7 +59,11 @@
 // shard of the out capsules: a row's softmax spans every rank's shard, so a
 // pass either forms the row's local statistics for the exchange, or takes
 // the exchanged ones. They keep a row's logits (or dc) in shared memory
-// across the exchange. K1 and K2 take kRoute and kVjp.
+// across the exchange. K1 and K2 take kRoute and kVjp. Their bf16
+// instances (K1-tp-bf16, K2-tp-bf16) round where kRoute and kVjp do: c to
+// bf16 before the sum over rows (kSplitRoute, kSplitC; c_all and fac keep
+// it unrounded) and dc to bf16 (kSplitDc, before its row sum and the VJP);
+// the logits and the exchanged statistics stay float32.
 //
 // SDR_HOST_SHIM marks a host build of the device code (a CPU rehearsal of
 // the math with threads standing in for lanes: tests/_sdr_tp_host.h); it
@@ -269,7 +273,7 @@ __device__ __forceinline__ void produce(const E* uhat_b, E* ring,
 //   kVjp         da = c * (dc - sum_o dc c), dc = <u_hat[n,o,:], vec[o,:]>,
 //                with c read from c_all
 // and on a shard of the out capsules, the softmax split over the ranks
-// (sdr_tp.cu; float32 only):
+// (sdr_tp.cu):
 //   kSplitStats  the logits b = (lg_all, where `accumulate`: the earlier
 //                iterations') + <u_hat, vec> + pad at o == 0, kept in lg_all,
 //                and the row's local max m and sum l of exp(b - m) in
@@ -285,7 +289,7 @@ __device__ __forceinline__ void produce(const E* uhat_b, E* ring,
 // the sum over its rows of coef[n,o] * u_hat[n,o,i] in part_w (but for
 // kSplitStats and kSplitDc, which sum nothing over rows). BF: the bf16
 // variants' pass (a bf16 ring, c rounded before the sum, dc rounded before
-// the VJP).
+// the VJP; in the split modes too).
 enum PassMode : int {
   kRoute, kVjp, kSplitStats, kSplitRoute, kSplitC, kSplitDc, kSplitVjp
 };
@@ -382,8 +386,6 @@ constexpr float kSafeLogit = 64.f;
 template <bool BF, int D, int NO, int R, int MODE>
 __device__ __forceinline__ void warp_pass_lanes(const Pass<BF>& p, Cursor& q,
                                                 int warp, int lane) {
-  static_assert(!BF || MODE == kRoute || MODE == kVjp,
-                "the split modes are float32 only");
   const int out_n = p.g.out_n;
   float vec[NO][D], acc[NO][D];
 #pragma unroll
@@ -561,8 +563,9 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass<BF>& p, Cursor& q,
           for (int k = 0; k < NO; ++k) {
             const int e = n * out_n + lane + 32 * k;
             if (row_in && lane + 32 * k < out_n) {
-              p.lg_all[e] = coef[rr][k];
-              sum = fmaf(coef[rr][k], p.c_all[e], sum);
+              const float dc = keep<BF>(coef[rr][k]);  // bf16 rounds dc
+              p.lg_all[e] = dc;
+              sum = fmaf(dc, p.c_all[e], sum);
             }
           }
           sum = warp_sum(sum);
@@ -576,7 +579,8 @@ __device__ __forceinline__ void warp_pass_lanes(const Pass<BF>& p, Cursor& q,
               cv = split_coef<MODE>(p, n, o, coef[rr][k]);
               if (p.fac) p.fac[(size_t)n * out_n + o] = cv;
             }
-            coef[rr][k] = cv;
+            // the sum takes bf16(c); da stays float32
+            coef[rr][k] = MODE == kSplitVjp ? cv : keep<BF>(cv);
           }
         }
       }
@@ -631,8 +635,6 @@ __device__ __forceinline__ void row_dots(const E* row, const float* vec,
 template <bool BF, int MODE>
 __device__ __forceinline__ void warp_pass_rows(const Pass<BF>& p, Cursor& q,
                                                int warp, int lane) {
-  static_assert(!BF || MODE == kRoute || MODE == kVjp,
-                "the split modes are float32 only");
   const RowGeom& g = p.g;
   if constexpr (sums_rows(MODE)) {
     for (int e = lane; e < g.out_no; e += 32) p.part_w[e] = 0.f;
@@ -699,6 +701,7 @@ __device__ __forceinline__ void warp_pass_rows(const Pass<BF>& p, Cursor& q,
         float sum = 0.f;
         for (int o = lane; o < g.out_n; o += 32) {
           const int e = n * g.out_n + o;
+          p.lg[o] = keep<BF>(p.lg[o]);  // dc, rounded in bf16
           p.lg_all[e] = p.lg[o];
           sum = fmaf(p.lg[o], p.c_all[e], sum);
         }
@@ -707,7 +710,7 @@ __device__ __forceinline__ void warp_pass_rows(const Pass<BF>& p, Cursor& q,
       } else {
         for (int o = lane; o < g.out_n; o += 32) {
           const float cv = split_coef<MODE>(p, n, o, p.lg[o]);
-          p.lg[o] = cv;
+          p.lg[o] = MODE == kSplitVjp ? cv : keep<BF>(cv);  // bf16(c) summed
           if (p.fac) p.fac[(size_t)n * g.out_n + o] = cv;
         }
       }

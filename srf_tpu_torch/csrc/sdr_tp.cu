@@ -109,6 +109,23 @@
 // and in the row sums, one block per utterance where a step sums over
 // rows, every sum in a fixed order (no atomics).
 //
+// The bf16 instances (template argument BF; K1-tp-bf16, K2-tp-bf16, the
+// entries' `bf16` argument) compute the split SDR under bf16 routing
+// (ops/routing.py:sequential_routing_tp(..., bf16=True) and its backward
+// by autograd): u_hat is the bf16 prediction (sdr_fwd.cu's
+// sdr_predict_bf16), streamed in bf16; each agreement is taken against
+// bf16(v) (bf16(v_{t-1}) backward), each sum over rows with bf16(c), dc and
+// the backward's carry are rounded to bf16, as K1-bf16 and K2-bf16 do
+// (sdr_stream.cuh). The logits, the (m, l) pairs and their exchange, the
+// (M, L) statistics, the squash and the outputs stay float32.
+//
+// Streaming (K1-tp-stream, the forward's v_init and step_valid): the
+// carry before step 0 is v_init (this rank's part), or zeros; an invalid
+// step emits zeros and leaves a zero carry (sdr_fwd.cu's semantics). An
+// invalid step still makes its exchanges, so that every rank counts the
+// same epochs. The host loop's carry starts as the wrapper's copy of
+// v_init and its route kernel applies the mask.
+//
 // SDR_TP_HOST builds this file as host C++ (tests/_sdr_tp_host.h: CUDA
 // threads as std::threads, a block's barrier as a std::barrier, a
 // cooperative launch's blocks all at once), so that the CPU tests run
@@ -148,33 +165,39 @@ bool geometry_ok(int batch, int seq_len, int in_n, int out_n, int out_d) {
          smem_floats(in_n, out_n, out_d) * 4 <= kMaxSmemBytes;
 }
 
+// A u_hat row's entries: out_no rounded up to 16 bytes of E's.
+template <typename E>
 __host__ __device__ inline int pitch_of(int out_no) {
-  return (out_no + 3) / 4 * 4;
+  return sdr::row_pitch(out_no, (int)sizeof(E));
 }
 
 // One thread per row r = b * in_n + n of step t: the logits b[r, o] of
 // iteration `it` (the previous iterations' sum plus the agreement with v,
-// the carry [B, out_no]; the PAD logit at o = 0 where `pad`), and the row's
-// local max m and sum l of exp(b - m) into local_ml[r] = (m, l).
+// the carry [B, out_no], bf16(v) in BF; the PAD logit at o = 0 where
+// `pad`), and the row's local max m and sum l of exp(b - m) into
+// local_ml[r] = (m, l).
+template <bool BF>
 __global__ void __launch_bounds__(kRowThreads)
-sdr_tp_stats_kernel(const float* __restrict__ uhat,
+sdr_tp_stats_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
                     const float* __restrict__ vcar, float* __restrict__ bacc,
                     float* __restrict__ local_ml, int batch, int seq_len,
                     int t, int in_n, int out_n, int out_d, int it, int pad) {
+  using E = sdr::uhat_t<BF>;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= batch * in_n) return;
   const int b = r / in_n;
   const int n = r % in_n;
   const int out_no = out_n * out_d;
-  const float* row =
-      uhat + (((size_t)b * seq_len + t) * in_n + n) * pitch_of(out_no);
+  const E* row =
+      uhat + (((size_t)b * seq_len + t) * in_n + n) * pitch_of<E>(out_no);
   const float* v = vcar + (size_t)b * out_no;
   float* logits = bacc + (size_t)r * out_n;
   float m = -INFINITY;
   for (int o = 0; o < out_n; ++o) {
     float agree = 0.f;
     for (int i = 0; i < out_d; ++i) {
-      agree = fmaf(row[o * out_d + i], v[o * out_d + i], agree);
+      agree = fmaf(sdr::to_f32(row[o * out_d + i]),
+                   sdr::keep<BF>(v[o * out_d + i]), agree);
     }
     float logit = (it > 0 ? logits[o] : 0.f) + agree;
     if (pad && o == 0) logit += kPadLogit;
@@ -188,30 +211,37 @@ sdr_tp_stats_kernel(const float* __restrict__ uhat,
 }
 
 // s[oi] = sum_n coef[n, oi / out_d] * row_n[oi] over the rows of step t of
-// utterance b, a thread per entry oi, the rows summed in order.
-__device__ __forceinline__ float row_sum(const float* coef,
-                                         const float* uhat_bt, int in_n,
-                                         int out_n, int out_d, int pitch,
-                                         int oi) {
+// utterance b, a thread per entry oi, the rows summed in order; RC: the
+// coefficients rounded to bf16 first (bf16(c) in the bf16 instances).
+template <bool RC, typename E>
+__device__ __forceinline__ float row_sum(const float* coef, const E* uhat_bt,
+                                         int in_n, int out_n, int out_d,
+                                         int pitch, int oi) {
   const int o = oi / out_d;
   float s = 0.f;
   for (int n = 0; n < in_n; ++n) {
-    s = fmaf(coef[n * out_n + o], uhat_bt[(size_t)n * pitch + oi], s);
+    s = fmaf(sdr::keep<RC>(coef[n * out_n + o]),
+             sdr::to_f32(uhat_bt[(size_t)n * pitch + oi]), s);
   }
   return s;
 }
 
 // One block per utterance b: the global (M, L) of each row from the ranks'
 // pairs gathered [ranks, B * in_n, 2], saved to stats [B, in_n, 2] (this
-// step's and iteration's slot); c = exp(b - M) / L; s and its squash, the
-// new carry v; the output of step t after the last iteration.
+// step's and iteration's slot); c = exp(b - M) / L; s (with bf16(c) in
+// BF) and its squash, the new carry v; the output of step t after the last
+// iteration, zeros (and a zero carry) where step_valid [B, T] (or null:
+// every step valid) says the step is not valid.
+template <bool BF>
 __global__ void __launch_bounds__(kBlockThreads)
-sdr_tp_route_kernel(const float* __restrict__ uhat,
+sdr_tp_route_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
                     const float* __restrict__ gathered, int ranks,
                     const float* __restrict__ bacc, float* __restrict__ vcar,
                     float* __restrict__ out, float* __restrict__ stats,
+                    const unsigned char* __restrict__ step_valid,
                     int batch, int seq_len, int t, int in_n, int out_n,
                     int out_d, int last) {
+  using E = sdr::uhat_t<BF>;
   SDR_TP_SMEM(smem);
   const int out_no = out_n * out_d;
   float* m_s = smem;                  // [in_n]
@@ -242,17 +272,20 @@ sdr_tp_route_kernel(const float* __restrict__ uhat,
     c_s[e] = expf(bacc[(size_t)b * in_n * out_n + e] - m_s[n]) / l_s[n];
   }
   __syncthreads();
-  const int pitch = pitch_of(out_no);
-  const float* uhat_bt = uhat + ((size_t)b * seq_len + t) * in_n * pitch;
+  const int pitch = pitch_of<E>(out_no);
+  const E* uhat_bt = uhat + ((size_t)b * seq_len + t) * in_n * pitch;
   for (int oi = tid; oi < out_no; oi += nthr) {
-    s_s[oi] = row_sum(c_s, uhat_bt, in_n, out_n, out_d, pitch, oi);
+    s_s[oi] = row_sum<BF>(c_s, uhat_bt, in_n, out_n, out_d, pitch, oi);
   }
   __syncthreads();
+  const bool valid =
+      !last || !step_valid || step_valid[(size_t)b * seq_len + t];
   for (int oi = tid; oi < out_no; oi += nthr) {
     const float* s_o = s_s + (oi / out_d) * out_d;
     float sq = 0.f;
     for (int i = 0; i < out_d; ++i) sq = fmaf(s_o[i], s_o[i], sq);
-    const float v = (sq / (1.f + sq)) * (s_s[oi] / sqrtf(sq + kSquashEps));
+    const float v =
+        valid ? (sq / (1.f + sq)) * (s_s[oi] / sqrtf(sq + kSquashEps)) : 0.f;
     vcar[(size_t)b * out_no + oi] = v;
     if (last) out[((size_t)b * seq_len + t) * out_no + oi] = v;
   }
@@ -260,19 +293,22 @@ sdr_tp_route_kernel(const float* __restrict__ uhat,
 
 // K2-tp's first kernel, one block per utterance b, step t: c from the
 // saved (M, L) of the forward's first iteration (stats [B, in_n, 2]) and
-// the logits against v_{t-1} (vs[t - 1], or 0); s; ds = the squash's VJP of
-// dv = dvs[t] + carry; dc = <u_hat, ds> per (row, out capsule) into dc_g
-// [B, in_n, out_n]; each row's local sum_o c dc into rowsum [B, in_n]. c
-// and ds go to K2's factor layout: cfac [B, T, in_n, out_n], dsfac [B, T,
+// the logits against v_{t-1} (vs[t - 1], or 0; bf16(v_{t-1}) in BF); s
+// (with bf16(c) in BF); ds = the squash's VJP of dv = dvs[t] + carry; dc
+// = <u_hat, ds> per (row, out capsule) (bf16(dc) in BF) into dc_g [B,
+// in_n, out_n]; each row's local sum_o c dc into rowsum [B, in_n]. c and
+// ds go to K2's factor layout: cfac [B, T, in_n, out_n], dsfac [B, T,
 // out_no].
+template <bool BF>
 __global__ void __launch_bounds__(kBlockThreads)
-sdr_tp_bwd_a_kernel(const float* __restrict__ uhat,
+sdr_tp_bwd_a_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
                     const float* __restrict__ vs, const float* __restrict__ dvs,
                     const float* __restrict__ stats,
                     const float* __restrict__ carry, float* __restrict__ cfac,
                     float* __restrict__ dsfac, float* __restrict__ dc_g,
                     float* __restrict__ rowsum, int batch, int seq_len, int t,
                     int in_n, int out_n, int out_d, int pad) {
+  using E = sdr::uhat_t<BF>;
   SDR_TP_SMEM(smem);
   const int out_no = out_n * out_d;
   float* m_s = smem;                  // [in_n]
@@ -284,9 +320,9 @@ sdr_tp_bwd_a_kernel(const float* __restrict__ uhat,
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int pitch = pitch_of(out_no);
+  const int pitch = pitch_of<E>(out_no);
   const size_t bt = (size_t)b * seq_len + t;
-  const float* uhat_bt = uhat + bt * in_n * pitch;
+  const E* uhat_bt = uhat + bt * in_n * pitch;
   const float* vprev = t > 0 ? vs + (bt - 1) * out_no : nullptr;
   for (int n = tid; n < in_n; n += nthr) {
     const size_t r = (size_t)b * in_n + n;
@@ -299,9 +335,10 @@ sdr_tp_bwd_a_kernel(const float* __restrict__ uhat,
     const int o = e % out_n;
     float logit = 0.f;
     if (vprev) {
-      const float* row = uhat_bt + (size_t)n * pitch + o * out_d;
+      const E* row = uhat_bt + (size_t)n * pitch + o * out_d;
       for (int i = 0; i < out_d; ++i) {
-        logit = fmaf(row[i], vprev[o * out_d + i], logit);
+        logit = fmaf(sdr::to_f32(row[i]), sdr::keep<BF>(vprev[o * out_d + i]),
+                     logit);
       }
     }
     if (pad && o == 0) logit += kPadLogit;
@@ -311,7 +348,7 @@ sdr_tp_bwd_a_kernel(const float* __restrict__ uhat,
   }
   __syncthreads();
   for (int oi = tid; oi < out_no; oi += nthr) {
-    s_s[oi] = row_sum(c_s, uhat_bt, in_n, out_n, out_d, pitch, oi);
+    s_s[oi] = row_sum<BF>(c_s, uhat_bt, in_n, out_n, out_d, pitch, oi);
     dv_s[oi] = dvs[bt * out_no + oi] + carry[(size_t)b * out_no + oi];
   }
   __syncthreads();
@@ -332,14 +369,15 @@ sdr_tp_bwd_a_kernel(const float* __restrict__ uhat,
   }
   __syncthreads();
   for (int n = tid; n < in_n; n += nthr) {
-    const float* row = uhat_bt + (size_t)n * pitch;
+    const E* row = uhat_bt + (size_t)n * pitch;
     float* dc_row = dc_g + ((size_t)b * in_n + n) * out_n;
     float sum = 0.f;
     for (int o = 0; o < out_n; ++o) {
       float dc = 0.f;
       for (int i = 0; i < out_d; ++i) {
-        dc = fmaf(row[o * out_d + i], ds_s[o * out_d + i], dc);
+        dc = fmaf(sdr::to_f32(row[o * out_d + i]), ds_s[o * out_d + i], dc);
       }
+      dc = sdr::keep<BF>(dc);
       dc_row[o] = dc;
       sum = fmaf(dc, c_s[n * out_n + o], sum);
     }
@@ -349,22 +387,25 @@ sdr_tp_bwd_a_kernel(const float* __restrict__ uhat,
 
 // K2-tp's second kernel, one block per utterance b, step t, after the
 // rows' sums were summed over the ranks: da = c (dc - sum) into dafac (K2's
-// layout [B, T, in_n, out_n]); the carry into step t - 1, sum_n da u_hat.
+// layout [B, T, in_n, out_n]); the carry into step t - 1, sum_n da u_hat
+// (rounded to bf16 in BF: the cotangent of bf16(v_{t-1})).
+template <bool BF>
 __global__ void __launch_bounds__(kBlockThreads)
-sdr_tp_bwd_b_kernel(const float* __restrict__ uhat,
+sdr_tp_bwd_b_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
                     const float* __restrict__ cfac,
                     const float* __restrict__ dc_g,
                     const float* __restrict__ rowsum,
                     float* __restrict__ dafac, float* __restrict__ carry,
                     int batch, int seq_len, int t, int in_n, int out_n,
                     int out_d) {
+  using E = sdr::uhat_t<BF>;
   SDR_TP_SMEM(smem);
   float* da_s = smem + 2 * in_n;  // [in_n, out_n], the other kernels' c_s
   const int out_no = out_n * out_d;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int pitch = pitch_of(out_no);
+  const int pitch = pitch_of<E>(out_no);
   const size_t bt = (size_t)b * seq_len + t;
   for (int e = tid; e < in_n * out_n; e += nthr) {
     const int n = e / out_n;
@@ -375,10 +416,10 @@ sdr_tp_bwd_b_kernel(const float* __restrict__ uhat,
     dafac[bt * in_n * out_n + e] = da;
   }
   __syncthreads();
-  const float* uhat_bt = uhat + bt * in_n * pitch;
+  const E* uhat_bt = uhat + bt * in_n * pitch;
   for (int oi = tid; oi < out_no; oi += nthr) {
-    carry[(size_t)b * out_no + oi] =
-        row_sum(da_s, uhat_bt, in_n, out_n, out_d, pitch, oi);
+    carry[(size_t)b * out_no + oi] = sdr::keep<BF>(
+        row_sum<false>(da_s, uhat_bt, in_n, out_n, out_d, pitch, oi));
   }
 }
 
@@ -526,30 +567,30 @@ SDR_HOST_DEVICE constexpr int tp_rows(int d, int no, bool backward) {
 
 // A persistent kernel's pass over a step's rows: D == 0 takes the general
 // path.
-template <int D, int NO, bool BWD, int MODE>
-__device__ __forceinline__ void tp_pass(const sdr::Pass<false>& p,
+template <bool BF, int D, int NO, bool BWD, int MODE>
+__device__ __forceinline__ void tp_pass(const sdr::Pass<BF>& p,
                                         sdr::Cursor& q, int warp, int lane) {
   if constexpr (D == 0) {
-    sdr::warp_pass_rows<false, MODE>(p, q, warp, lane);
+    sdr::warp_pass_rows<BF, MODE>(p, q, warp, lane);
   } else {
-    sdr::warp_pass_lanes<false, D, NO, tp_rows(D, NO, BWD), MODE>(p, q, warp,
-                                                                  lane);
+    sdr::warp_pass_lanes<BF, D, NO, tp_rows(D, NO, BWD), MODE>(p, q, warp,
+                                                               lane);
   }
 }
 
-// The persistent kernels' plan: K1's ring beside their fixed shared
-// memory, the per-warp scratch always in shared memory. False if the
-// geometry does not fit.
+// The persistent kernels' plan: K1's ring (of bf16 rows in the bf16
+// instances, esize 2) beside their fixed shared memory, the per-warp
+// scratch always in shared memory. False if the geometry does not fit.
 bool plan_persistent(int in_n, int out_n, int out_d, bool backward,
-                     sdr::StreamPlan* p) {
+                     int esize, sdr::StreamPlan* p) {
   if (in_n < 1 || out_n < 1 || out_d < 1 ||
       (size_t)out_n * out_d > sdr::kMaxSmemFloats) {
     return false;
   }
-  p->g = sdr::row_geom(out_n, out_d);
+  p->g = sdr::row_geom(out_n, out_d, esize);
   p->warp_global = false;
   const int caps = sdr::lane_caps(p->g);
-  return sdr::plan_ring(in_n, (size_t)p->g.pitch * sizeof(float),
+  return sdr::plan_ring(in_n, (size_t)p->g.pitch * esize,
                         caps ? tp_rows(out_d, caps, backward) : 1,
                         persistent_floats(p->g, in_n, backward) * 4, &p->r);
 }
@@ -559,20 +600,22 @@ size_t persistent_smem_bytes(const sdr::StreamPlan& p, int in_n,
   return persistent_floats(p.g, in_n, backward) * 4 + sdr::ring_bytes(p.r, p.g);
 }
 
-// The ring's slots, their barriers, and the floats after them.
+// The ring's slots (of E's), their barriers, and the floats after them.
+template <typename E>
 struct RingSmem {
-  float* ring;
+  E* ring;
   uint64_t* full;
   uint64_t* empty;
   float* rest;
 };
 
-__device__ __forceinline__ RingSmem ring_smem(float* smem, const Ring& r,
-                                              const RowGeom& g) {
-  RingSmem m;
-  m.ring = smem;
-  m.full = reinterpret_cast<uint64_t*>(smem + (size_t)r.stages * r.chunk *
-                                                  g.pitch);
+template <typename E>
+__device__ __forceinline__ RingSmem<E> ring_smem(float* smem, const Ring& r,
+                                                 const RowGeom& g) {
+  RingSmem<E> m;
+  m.ring = reinterpret_cast<E*>(smem);
+  m.full = reinterpret_cast<uint64_t*>(m.ring + (size_t)r.stages * r.chunk *
+                                                    g.pitch);
   m.empty = m.full + r.stages;
   m.rest = reinterpret_cast<float*>(m.empty + r.stages);
   if (threadIdx.x == 0) {
@@ -585,21 +628,30 @@ __device__ __forceinline__ RingSmem ring_smem(float* smem, const Ring& r,
   return m;
 }
 
+// uhat: of float32 or bf16 entries (the kernel's BF); v_init: this rank's
+// part of the carry before step 0 [B, out_no], or null
 struct FwdArgs {
-  const float* uhat[kMaxRanks];
+  const void* uhat[kMaxRanks];
   float* out[kMaxRanks];
   float* stats[kMaxRanks];
+  const float* v_init[kMaxRanks];
 };
 
 // K1-tp: block (b, rank - rank0) routes utterance b on that rank's shard,
 // uhat [B, T, in_n, pitch] -> out [B, T, O, out_d] and the global (M, L)
-// of every step and iteration, stats [T, ITER, B, in_n, 2].
-template <int D, int NO>
+// of every step and iteration, stats [T, ITER, B, in_n, 2]; the carry
+// starts at v_init (or 0), and step_valid [B, T] (or null) zeroes an
+// invalid step's output and carry. The agreement vector holds bf16(v) in
+// BF (the only v the next pass reads).
+template <bool BF, int D, int NO>
 __global__ void __launch_bounds__(sdr::kThreads, 1)
-sdr_tp_fwd_persistent_kernel(FwdArgs a, Exch x, int batch, int seq_len,
-                             int in_n, RowGeom g, Ring r, int num_iter) {
+sdr_tp_fwd_persistent_kernel(FwdArgs a, Exch x,
+                             const unsigned char* __restrict__ step_valid,
+                             int batch, int seq_len, int in_n, RowGeom g,
+                             Ring r, int num_iter) {
+  using E = sdr::uhat_t<BF>;
   SDR_TP_SMEM(smem);
-  const RingSmem m = ring_smem(smem, r, g);
+  const RingSmem<E> m = ring_smem<E>(smem, r, g);
   float* row_ml = m.rest;                   // [in_n, 2] (M, L)
   float* row_out = row_ml + 2 * in_n;       // [in_n, 2] (m, l)
   float* part = row_out + 2 * in_n;         // [kWarps, out_no]
@@ -613,10 +665,17 @@ sdr_tp_fwd_persistent_kernel(FwdArgs a, Exch x, int batch, int seq_len,
   const int b = blockIdx.x;
   const int local = blockIdx.y;
   const int rank = x.rank0 + local;
-  const float* uhat_b = a.uhat[local] + (size_t)b * seq_len * in_n * g.pitch;
+  const E* uhat_b = static_cast<const E*>(a.uhat[local]) +
+                    (size_t)b * seq_len * in_n * g.pitch;
   float* out_b = a.out[local] + (size_t)b * seq_len * g.out_no;
+  const float* vinit_b =
+      a.v_init[local] ? a.v_init[local] + (size_t)b * g.out_no : nullptr;
+  const unsigned char* valid_b =
+      step_valid ? step_valid + (size_t)b * seq_len : nullptr;
 
-  for (int k = tid; k < g.pitch; k += blockDim.x) vec[k] = 0.f;
+  for (int k = tid; k < g.pitch; k += blockDim.x) {
+    vec[k] = vinit_b && k < g.out_no ? sdr::keep<BF>(vinit_b[k]) : 0.f;
+  }
   __syncthreads();
   if (warp == kWarps) {
     sdr::produce(uhat_b, m.ring, m.full, m.empty, r, in_n, g.pitch, seq_len,
@@ -624,13 +683,13 @@ sdr_tp_fwd_persistent_kernel(FwdArgs a, Exch x, int batch, int seq_len,
     return;
   }
 
-  sdr::Pass<false> stats{m.ring, m.full, m.empty, r, g, in_n, vec,
-                         rank == x.pad_rank ? kPadLogit : 0.f, nullptr,
-                         nullptr, part + warp * g.out_no,
-                         lgw + warp * g.out_n};
+  sdr::Pass<BF> stats{m.ring, m.full, m.empty, r, g, in_n, vec,
+                      rank == x.pad_rank ? kPadLogit : 0.f, nullptr,
+                      nullptr, part + warp * g.out_no,
+                      lgw + warp * g.out_n};
   stats.lg_all = lg_all;
   stats.row_out = row_out;
-  sdr::Pass<false> route = stats;
+  sdr::Pass<BF> route = stats;
   route.row_ml = row_ml;
   sdr::Cursor q{0, 0};  // the next chunk, in the producer's order
   for (int t = 0; t < seq_len; ++t) {
@@ -639,7 +698,7 @@ sdr_tp_fwd_persistent_kernel(FwdArgs a, Exch x, int batch, int seq_len,
           x.epoch0 + (unsigned long long)t * num_iter + it + 1;
       // pass A: the logits and each row's local (m, l)
       stats.accumulate = it > 0;
-      tp_pass<D, NO, false, sdr::kSplitStats>(stats, q, warp, lane);
+      tp_pass<BF, D, NO, false, sdr::kSplitStats>(stats, q, warp, lane);
       sdr::sync_compute();
       exchange(x, row_out, in_n, rank, b, t, it, epoch, tid);
 
@@ -664,12 +723,13 @@ sdr_tp_fwd_persistent_kernel(FwdArgs a, Exch x, int batch, int seq_len,
       sdr::sync_compute();
 
       // pass B: c and the rows' shares of s
-      tp_pass<D, NO, false, sdr::kSplitRoute>(route, q, warp, lane);
+      tp_pass<BF, D, NO, false, sdr::kSplitRoute>(route, q, warp, lane);
       sdr::sync_compute();
 
       // s = the sum of the warps' partials; v = squash(s), the carry and,
-      // after the last iteration, the output
+      // after the last iteration, the output (zero at an invalid step)
       const bool last = it == num_iter - 1;
+      const bool zero = last && valid_b && !valid_b[t];
       if (g.shift >= 0) {
         for (int base = 0; base < g.out_no; base += kComputeThreads) {
           const int oi = base + tid;
@@ -677,8 +737,9 @@ sdr_tp_fwd_persistent_kernel(FwdArgs a, Exch x, int batch, int seq_len,
               oi < g.out_no ? sdr::sum_partials(part, g.out_no, oi) : 0.f;
           const float sq = sdr::group_sum(s * s, g.shift);
           if (oi < g.out_no) {
-            const float v = (sq / (1.f + sq)) * (s / sqrtf(sq + kSquashEps));
-            vec[oi] = v;
+            const float v =
+                zero ? 0.f : (sq / (1.f + sq)) * (s / sqrtf(sq + kSquashEps));
+            vec[oi] = sdr::keep<BF>(v);
             if (last) out_b[(size_t)t * g.out_no + oi] = v;
           }
         }
@@ -692,8 +753,9 @@ sdr_tp_fwd_persistent_kernel(FwdArgs a, Exch x, int batch, int seq_len,
           float sq = 0.f;
           for (int i = 0; i < g.out_d; ++i) sq = fmaf(s_o[i], s_o[i], sq);
           const float v =
-              (sq / (1.f + sq)) * (s_s[oi] / sqrtf(sq + kSquashEps));
-          vec[oi] = v;
+              zero ? 0.f
+                   : (sq / (1.f + sq)) * (s_s[oi] / sqrtf(sq + kSquashEps));
+          vec[oi] = sdr::keep<BF>(v);
           if (last) out_b[(size_t)t * g.out_no + oi] = v;
         }
       }
@@ -703,7 +765,7 @@ sdr_tp_fwd_persistent_kernel(FwdArgs a, Exch x, int batch, int seq_len,
 }
 
 struct BwdArgs {
-  const float* uhat[kMaxRanks];
+  const void* uhat[kMaxRanks];
   const float* vs[kMaxRanks];
   const float* dvs[kMaxRanks];
   const float* stats[kMaxRanks];
@@ -715,13 +777,15 @@ struct BwdArgs {
 // K2-tp: block (b, rank - rank0) walks utterance b's steps backwards on
 // that rank's shard: vs and dvs [B, T, O, out_d], the forward's (M, L)
 // stats [T, 1, B, in_n, 2] -> cfac, dafac [B, T, in_n, O] and dsfac [B, T,
-// O * out_d].
-template <int D, int NO>
+// O * out_d]. BF: v_{t-1} and the carry rounded to bf16 (the cotangent of
+// bf16(v_{t-1})), as K2-bf16 does.
+template <bool BF, int D, int NO>
 __global__ void __launch_bounds__(sdr::kThreads, 1)
 sdr_tp_bwd_persistent_kernel(BwdArgs a, Exch x, int batch, int seq_len,
                              int in_n, RowGeom g, Ring r) {
+  using E = sdr::uhat_t<BF>;
   SDR_TP_SMEM(smem);
-  const RingSmem m = ring_smem(smem, r, g);
+  const RingSmem<E> m = ring_smem<E>(smem, r, g);
   float* row_ml = m.rest;                   // [in_n, 2] (M, L), then (S, -)
   float* row_out = row_ml + 2 * in_n;       // [in_n, 2] (sum_o c dc, -)
   float* part = row_out + 2 * in_n;         // [kWarps, out_no]
@@ -738,7 +802,8 @@ sdr_tp_bwd_persistent_kernel(BwdArgs a, Exch x, int batch, int seq_len,
   const int b = blockIdx.x;
   const int local = blockIdx.y;
   const int rank = x.rank0 + local;
-  const float* uhat_b = a.uhat[local] + (size_t)b * seq_len * in_n * g.pitch;
+  const E* uhat_b = static_cast<const E*>(a.uhat[local]) +
+                    (size_t)b * seq_len * in_n * g.pitch;
   const float* vs_b = a.vs[local] + (size_t)b * seq_len * g.out_no;
   const float* dvs_b = a.dvs[local] + (size_t)b * seq_len * g.out_no;
   float* cfac_b = a.cfac[local] + (size_t)b * seq_len * in_n * g.out_n;
@@ -748,7 +813,9 @@ sdr_tp_bwd_persistent_kernel(BwdArgs a, Exch x, int batch, int seq_len,
 
   for (int k = tid; k < g.out_no; k += blockDim.x) {
     dv_s[k] = dvs_b[(size_t)last_t * g.out_no + k];
-    vp_s[k] = last_t > 0 ? vs_b[(size_t)(last_t - 1) * g.out_no + k] : 0.f;
+    vp_s[k] = last_t > 0
+                  ? sdr::keep<BF>(vs_b[(size_t)(last_t - 1) * g.out_no + k])
+                  : 0.f;
   }
   __syncthreads();
   if (warp == kWarps) {
@@ -757,16 +824,16 @@ sdr_tp_bwd_persistent_kernel(BwdArgs a, Exch x, int batch, int seq_len,
     return;
   }
 
-  sdr::Pass<false> c_pass{m.ring, m.full, m.empty, r, g, in_n, vp_s,
-                          rank == x.pad_rank ? kPadLogit : 0.f, c_all,
-                          nullptr, part + warp * g.out_no,
-                          lgw + warp * g.out_n};
+  sdr::Pass<BF> c_pass{m.ring, m.full, m.empty, r, g, in_n, vp_s,
+                       rank == x.pad_rank ? kPadLogit : 0.f, c_all,
+                       nullptr, part + warp * g.out_no,
+                       lgw + warp * g.out_n};
   c_pass.row_ml = row_ml;
-  sdr::Pass<false> dc_pass = c_pass;
+  sdr::Pass<BF> dc_pass = c_pass;
   dc_pass.vec = ds_s;
   dc_pass.lg_all = dc_all;
   dc_pass.row_out = row_out;
-  sdr::Pass<false> vjp_pass = c_pass;
+  sdr::Pass<BF> vjp_pass = c_pass;
   vjp_pass.lg_all = dc_all;
   sdr::Cursor q{0, 0};  // the next chunk, in the producer's order
   for (int t = last_t; t >= 0; --t) {
@@ -779,7 +846,7 @@ sdr_tp_bwd_persistent_kernel(BwdArgs a, Exch x, int batch, int seq_len,
 
     // ---- pass 1: c from the saved (M, L), and s ----
     c_pass.fac = cfac_b + (size_t)t * in_n * g.out_n;
-    tp_pass<D, NO, true, sdr::kSplitC>(c_pass, q, warp, lane);
+    tp_pass<BF, D, NO, true, sdr::kSplitC>(c_pass, q, warp, lane);
     sdr::sync_compute();
 
     // ---- s and the squash backward:
@@ -827,7 +894,7 @@ sdr_tp_bwd_persistent_kernel(BwdArgs a, Exch x, int batch, int seq_len,
     sdr::sync_compute();
 
     // ---- pass 2: dc and each row's local sum_o c dc ----
-    tp_pass<D, NO, true, sdr::kSplitDc>(dc_pass, q, warp, lane);
+    tp_pass<BF, D, NO, true, sdr::kSplitDc>(dc_pass, q, warp, lane);
     sdr::sync_compute();
     exchange(x, row_out, in_n, rank, b, t, 0, epoch, tid);
     for (int n = tid; n < in_n; n += kComputeThreads) {
@@ -841,13 +908,15 @@ sdr_tp_bwd_persistent_kernel(BwdArgs a, Exch x, int batch, int seq_len,
 
     // ---- pass 3: da and the carry into step t - 1 ----
     vjp_pass.fac = dafac_b + (size_t)t * in_n * g.out_n;
-    tp_pass<D, NO, true, sdr::kSplitVjp>(vjp_pass, q, warp, lane);
+    tp_pass<BF, D, NO, true, sdr::kSplitVjp>(vjp_pass, q, warp, lane);
     sdr::sync_compute();
     if (t > 0) {
       for (int oi = tid; oi < g.out_no; oi += kComputeThreads) {
-        dv_s[oi] = sdr::sum_partials(part, g.out_no, oi) +
+        dv_s[oi] = sdr::keep<BF>(sdr::sum_partials(part, g.out_no, oi)) +
                    dvs_b[(size_t)(t - 1) * g.out_no + oi];
-        vp_s[oi] = t > 1 ? vs_b[(size_t)(t - 2) * g.out_no + oi] : 0.f;
+        vp_s[oi] = t > 1
+                       ? sdr::keep<BF>(vs_b[(size_t)(t - 2) * g.out_no + oi])
+                       : 0.f;
       }
     }
     sdr::sync_compute();
@@ -856,11 +925,11 @@ sdr_tp_bwd_persistent_kernel(BwdArgs a, Exch x, int batch, int seq_len,
 
 // The persistent kernel for a plan: the register path for out_d 8 or 20
 // (sdr_stream.cuh's lane_caps), else the general path.
-#define SDR_TP_PICK(K, g)                                              \
-  (::sdr::lane_caps(g) == 1 && (g).out_d == 8    ? K<8, 1>             \
-   : ::sdr::lane_caps(g) == 2 && (g).out_d == 8  ? K<8, 2>             \
-   : ::sdr::lane_caps(g) == 1 && (g).out_d == 20 ? K<20, 1>            \
-                                                 : K<0, 0>)
+#define SDR_TP_PICK(K, BF, g)                                          \
+  (::sdr::lane_caps(g) == 1 && (g).out_d == 8    ? K<BF, 8, 1>         \
+   : ::sdr::lane_caps(g) == 2 && (g).out_d == 8  ? K<BF, 8, 2>         \
+   : ::sdr::lane_caps(g) == 1 && (g).out_d == 20 ? K<BF, 20, 1>        \
+                                                 : K<BF, 0, 0>)
 
 #ifndef SDR_TP_HOST
 // A cooperative launch of `kernel` on a (gx, gy) grid: every block
@@ -888,7 +957,9 @@ int coop_launch(void (*kernel)(Params...), int gx, int gy, size_t smem,
   coop_launch(kernel, gx, gy, smem, stream, __VA_ARGS__)
 #endif
 
-// The blocks of a persistent kernel the card holds at once, or -1.
+// The blocks of a persistent kernel (BF: its bf16 instance) the card holds
+// at once, or -1.
+template <bool BF>
 int persistent_capacity(const sdr::StreamPlan& p, int in_n, bool backward) {
 #ifdef SDR_TP_HOST
   (void)p, (void)in_n, (void)backward;
@@ -896,8 +967,9 @@ int persistent_capacity(const sdr::StreamPlan& p, int in_n, bool backward) {
 #else
   const size_t smem = persistent_smem_bytes(p, in_n, backward);
   const void* kernel =
-      backward ? (const void*)SDR_TP_PICK(sdr_tp_bwd_persistent_kernel, p.g)
-               : (const void*)SDR_TP_PICK(sdr_tp_fwd_persistent_kernel, p.g);
+      backward
+          ? (const void*)SDR_TP_PICK(sdr_tp_bwd_persistent_kernel, BF, p.g)
+          : (const void*)SDR_TP_PICK(sdr_tp_fwd_persistent_kernel, BF, p.g);
   int device = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
@@ -947,6 +1019,41 @@ int set_smem(const void* kernel, long long bytes) {
 
 }  // namespace
 
+// The host loop's launches of a kernel's float32 or bf16 instance: u_hat's
+// entries follow `bf16`.
+template <template <bool> class K, typename... Args>
+int launch_tp(int bf16, int grid, int threads, long long smem,
+              cudaStream_t stream, const void* uhat, Args... args) {
+  if (bf16) {
+    return K<true>::launch(grid, threads, smem, stream,
+                           static_cast<const __nv_bfloat16*>(uhat), args...);
+  }
+  return K<false>::launch(grid, threads, smem, stream,
+                          static_cast<const float*>(uhat), args...);
+}
+
+// One struct per host-loop kernel: its launch, after its shared memory
+// attribute where it takes dynamic shared memory.
+#define SDR_TP_STEP(Name, kernel)                                           \
+  template <bool BF>                                                        \
+  struct Name {                                                             \
+    template <typename... Args>                                             \
+    static int launch(int grid, int threads, long long smem,                \
+                      cudaStream_t stream, Args... args) {                  \
+      if (smem) {                                                           \
+        const int err = set_smem((const void*)kernel<BF>, smem);            \
+        if (err) return err;                                                \
+      }                                                                     \
+      SDR_TP_LAUNCH(kernel<BF>, grid, threads, smem, stream, args...);      \
+      return (int)cudaGetLastError();                                       \
+    }                                                                       \
+  };
+SDR_TP_STEP(StatsStep, sdr_tp_stats_kernel)
+SDR_TP_STEP(RouteStep, sdr_tp_route_kernel)
+SDR_TP_STEP(BwdAStep, sdr_tp_bwd_a_kernel)
+SDR_TP_STEP(BwdBStep, sdr_tp_bwd_b_kernel)
+#undef SDR_TP_STEP
+
 extern "C" {
 
 // Bytes of dynamic shared memory the per-utterance kernels take for this
@@ -957,45 +1064,47 @@ int sdr_tp_smem_bytes(int in_n, int out_n, int out_d) {
              : -1;
 }
 
-// Step t, iteration it of K1-tp: uhat [batch, seq_len, in_n, pitch], vcar
-// (the carry) [batch, out_n * out_d], bacc (the logits) [batch, in_n,
-// out_n], local_ml [batch, in_n, 2]; pad nonzero on the rank whose shard
-// holds the PAD capsule of the last layer. float32, contiguous, on the
-// current device; launches on `stream`, returns the launch error.
-int sdr_tp_stats(const float* uhat, const float* vcar, float* bacc,
+// Step t, iteration it of K1-tp: uhat [batch, seq_len, in_n, pitch] (bf16
+// entries, pitch a multiple of 8, where `bf16`; float32, a multiple of 4,
+// else), vcar (the carry) [batch, out_n * out_d], bacc (the logits)
+// [batch, in_n, out_n], local_ml [batch, in_n, 2]; pad nonzero on the rank
+// whose shard holds the PAD capsule of the last layer. float32 but u_hat,
+// contiguous, on the current device; launches on `stream`, returns the
+// launch error.
+int sdr_tp_stats(const void* uhat, const float* vcar, float* bacc,
                  float* local_ml, int batch, int seq_len, int t, int in_n,
-                 int out_n, int out_d, int it, int pad, void* stream) {
+                 int out_n, int out_d, int it, int pad, int bf16,
+                 void* stream) {
   if (!geometry_ok(batch, seq_len, in_n, out_n, out_d) || t < 0 ||
       t >= seq_len || it < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int blocks = (batch * in_n + kRowThreads - 1) / kRowThreads;
-  SDR_TP_LAUNCH(sdr_tp_stats_kernel, blocks, kRowThreads, 0,
-                (cudaStream_t)stream, uhat, vcar, bacc, local_ml, batch,
-                seq_len, t, in_n, out_n, out_d, it, pad);
-  return (int)cudaGetLastError();
+  return launch_tp<StatsStep>(bf16, blocks, kRowThreads, 0,
+                              (cudaStream_t)stream, uhat, vcar, bacc,
+                              local_ml, batch, seq_len, t, in_n, out_n,
+                              out_d, it, pad);
 }
 
 // Step t of K1-tp after the exchange: gathered [ranks, batch, in_n, 2] (the
 // ranks' (m, l) pairs), bacc, uhat as above; writes the carry vcar, out
 // [batch, seq_len, out_n, out_d] at step t where `last` (the last
 // iteration), and this step's and iteration's global (M, L) to stats
-// [batch, in_n, 2].
-int sdr_tp_route(const float* uhat, const float* gathered, int ranks,
+// [batch, in_n, 2]; step_valid [batch, seq_len] (nonzero: valid) or null:
+// an invalid step's output and carry are zeros.
+int sdr_tp_route(const void* uhat, const float* gathered, int ranks,
                  const float* bacc, float* vcar, float* out, float* stats,
-                 int batch, int seq_len, int t, int in_n, int out_n,
-                 int out_d, int last, void* stream) {
+                 const unsigned char* step_valid, int batch, int seq_len,
+                 int t, int in_n, int out_n, int out_d, int last, int bf16,
+                 void* stream) {
   if (!geometry_ok(batch, seq_len, in_n, out_n, out_d) || ranks < 1 ||
       t < 0 || t >= seq_len) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long smem = smem_floats(in_n, out_n, out_d) * 4;
-  int err = set_smem((const void*)sdr_tp_route_kernel, smem);
-  if (err) return err;
-  SDR_TP_LAUNCH(sdr_tp_route_kernel, batch, kBlockThreads, smem,
-                (cudaStream_t)stream, uhat, gathered, ranks, bacc, vcar,
-                out, stats, batch, seq_len, t, in_n, out_n, out_d, last);
-  return (int)cudaGetLastError();
+  return launch_tp<RouteStep>(
+      bf16, batch, kBlockThreads, smem_floats(in_n, out_n, out_d) * 4,
+      (cudaStream_t)stream, uhat, gathered, ranks, bacc, vcar, out, stats,
+      step_valid, batch, seq_len, t, in_n, out_n, out_d, last);
 }
 
 // Step t of K2-tp before the exchange: uhat as above, the forward's output
@@ -1004,54 +1113,48 @@ int sdr_tp_route(const float* uhat, const float* gathered, int ranks,
 // [batch, out_n * out_d]; writes cfac [batch, seq_len, in_n, out_n] and
 // dsfac [batch, seq_len, out_n * out_d] at step t, dc [batch, in_n, out_n]
 // and rowsum [batch, in_n].
-int sdr_tp_bwd_a(const float* uhat, const float* vs, const float* dvs,
+int sdr_tp_bwd_a(const void* uhat, const float* vs, const float* dvs,
                  const float* stats, const float* carry, float* cfac,
                  float* dsfac, float* dc, float* rowsum, int batch,
                  int seq_len, int t, int in_n, int out_n, int out_d, int pad,
-                 void* stream) {
+                 int bf16, void* stream) {
   if (!geometry_ok(batch, seq_len, in_n, out_n, out_d) || t < 0 ||
       t >= seq_len) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long smem = smem_floats(in_n, out_n, out_d) * 4;
-  int err = set_smem((const void*)sdr_tp_bwd_a_kernel, smem);
-  if (err) return err;
-  SDR_TP_LAUNCH(sdr_tp_bwd_a_kernel, batch, kBlockThreads, smem,
-                (cudaStream_t)stream, uhat, vs, dvs, stats, carry, cfac,
-                dsfac, dc, rowsum, batch, seq_len, t, in_n, out_n, out_d,
-                pad);
-  return (int)cudaGetLastError();
+  return launch_tp<BwdAStep>(
+      bf16, batch, kBlockThreads, smem_floats(in_n, out_n, out_d) * 4,
+      (cudaStream_t)stream, uhat, vs, dvs, stats, carry, cfac, dsfac, dc,
+      rowsum, batch, seq_len, t, in_n, out_n, out_d, pad);
 }
 
 // Step t of K2-tp after the exchange (rowsum summed over the ranks): writes
 // dafac [batch, seq_len, in_n, out_n] at step t and the carry.
-int sdr_tp_bwd_b(const float* uhat, const float* cfac, const float* dc,
+int sdr_tp_bwd_b(const void* uhat, const float* cfac, const float* dc,
                  const float* rowsum, float* dafac, float* carry, int batch,
-                 int seq_len, int t, int in_n, int out_n, int out_d,
+                 int seq_len, int t, int in_n, int out_n, int out_d, int bf16,
                  void* stream) {
   if (!geometry_ok(batch, seq_len, in_n, out_n, out_d) || t < 0 ||
       t >= seq_len) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long smem = smem_floats(in_n, out_n, out_d) * 4;
-  int err = set_smem((const void*)sdr_tp_bwd_b_kernel, smem);
-  if (err) return err;
-  SDR_TP_LAUNCH(sdr_tp_bwd_b_kernel, batch, kBlockThreads, smem,
-                (cudaStream_t)stream, uhat, cfac, dc, rowsum, dafac, carry,
-                batch, seq_len, t, in_n, out_n, out_d);
-  return (int)cudaGetLastError();
+  return launch_tp<BwdBStep>(
+      bf16, batch, kBlockThreads, smem_floats(in_n, out_n, out_d) * 4,
+      (cudaStream_t)stream, uhat, cfac, dc, rowsum, dafac, carry, batch,
+      seq_len, t, in_n, out_n, out_d);
 }
 
 
 // ---- the persistent kernels' C interface ----
 
 // Bytes of dynamic shared memory a persistent kernel takes for this
-// geometry (out_n: the shard's out capsules; backward nonzero: K2-tp's),
-// or -1 if it does not fit.
+// geometry (out_n: the shard's out capsules; backward nonzero: K2-tp's;
+// bf16 nonzero: its bf16 instance's, a ring of bf16 rows), or -1 if it
+// does not fit.
 int sdr_tp_persistent_smem_bytes(int in_n, int out_n, int out_d,
-                                 int backward) {
+                                 int backward, int bf16) {
   sdr::StreamPlan p;
-  return plan_persistent(in_n, out_n, out_d, backward, &p)
+  return plan_persistent(in_n, out_n, out_d, backward, bf16 ? 2 : 4, &p)
              ? (int)persistent_smem_bytes(p, in_n, backward)
              : -1;
 }
@@ -1059,37 +1162,43 @@ int sdr_tp_persistent_smem_bytes(int in_n, int out_n, int out_d,
 // The blocks of that kernel the current device holds at once (a
 // cooperative launch may take no more), or -1.
 int sdr_tp_persistent_capacity(int in_n, int out_n, int out_d,
-                               int backward) {
+                               int backward, int bf16) {
   sdr::StreamPlan p;
-  return plan_persistent(in_n, out_n, out_d, backward, &p)
-             ? persistent_capacity(p, in_n, backward)
-             : -1;
+  if (!plan_persistent(in_n, out_n, out_d, backward, bf16 ? 2 : 4, &p)) {
+    return -1;
+  }
+  return bf16 ? persistent_capacity<true>(p, in_n, backward)
+              : persistent_capacity<false>(p, in_n, backward);
 }
 
 // K1-tp's persistent kernel, one cooperative launch of batch x local_ranks
 // blocks, for ranks rank0 .. rank0 + local_ranks - 1 of a set of `ranks`:
 // per launched rank l (arrays of local_ranks pointers) uhat[l] [batch,
-// seq_len, in_n, pitch] (16-byte aligned) -> out[l] [batch, seq_len,
-// out_n, out_d] and stats[l] [seq_len, num_iter, batch, in_n, 2]; per rank
-// of the set (arrays of `ranks`) its xbuf [2, ranks, cap, 2] float32 and
-// flags [ranks, cap] uint64; status [8] uint64 of this process (zero, and
-// left zero unless a wait timed out); pad_rank the rank whose shard holds
-// the PAD capsule, or -1; epoch0 the set's exchanges before this call.
-// float32, on the current device; launches on `stream` and returns the
-// launch error (cudaErrorCooperativeLaunchTooLarge where the blocks cannot
-// all be resident: sdr_tp_persistent_capacity says how many can).
+// seq_len, in_n, pitch] (16-byte aligned; bf16 entries where `bf16`) ->
+// out[l] [batch, seq_len, out_n, out_d] and stats[l] [seq_len, num_iter,
+// batch, in_n, 2], the carry before step 0 v_init[l] [batch, out_n *
+// out_d] (v_init itself, or any v_init[l], may be null: zeros); step_valid
+// [batch, seq_len] (nonzero: valid) or null; per rank of the set (arrays
+// of `ranks`) its xbuf [2, ranks, cap, 2] float32 and flags [ranks, cap]
+// uint64; status [8] uint64 of this process (zero, and left zero unless a
+// wait timed out); pad_rank the rank whose shard holds the PAD capsule, or
+// -1; epoch0 the set's exchanges before this call. float32 but u_hat, on
+// the current device; launches on `stream` and returns the launch error
+// (cudaErrorCooperativeLaunchTooLarge where the blocks cannot all be
+// resident: sdr_tp_persistent_capacity says how many can).
 int sdr_tp_fwd_persistent(void* const* uhat, void* const* out,
-                          void* const* stats, void* const* xbuf,
+                          void* const* stats, void* const* v_init,
+                          const unsigned char* step_valid, void* const* xbuf,
                           void* const* flags, void* status, int ranks,
                           int rank0, int local_ranks, int pad_rank, int cap,
                           long long epoch0, long long timeout_ns, int batch,
                           int seq_len, int in_n, int out_n, int out_d,
-                          int num_iter, void* stream) {
+                          int num_iter, int bf16, void* stream) {
   sdr::StreamPlan p;
   Exch x;
   FwdArgs a;
   if (batch < 1 || seq_len < 1 || num_iter < 1 ||
-      !plan_persistent(in_n, out_n, out_d, false, &p) ||
+      !plan_persistent(in_n, out_n, out_d, false, bf16 ? 2 : 4, &p) ||
       !make_exch(xbuf, flags, status, ranks, rank0, local_ranks, pad_rank,
                  cap, epoch0, timeout_ns, batch, in_n, &x)) {
     return (int)cudaErrorInvalidValue;
@@ -1098,15 +1207,22 @@ int sdr_tp_fwd_persistent(void* const* uhat, void* const* out,
     if ((uintptr_t)uhat[l] % 16 != 0 || !out[l] || !stats[l]) {
       return (int)cudaErrorInvalidValue;
     }
-    a.uhat[l] = static_cast<const float*>(uhat[l]);
+    a.uhat[l] = uhat[l];
     a.out[l] = static_cast<float*>(out[l]);
     a.stats[l] = static_cast<float*>(stats[l]);
+    a.v_init[l] = v_init ? static_cast<const float*>(v_init[l]) : nullptr;
   }
   const size_t smem = persistent_smem_bytes(p, in_n, false);
-  const auto kernel = SDR_TP_PICK(sdr_tp_fwd_persistent_kernel, p.g);
+  if (bf16) {
+    const auto kernel = SDR_TP_PICK(sdr_tp_fwd_persistent_kernel, true, p.g);
+    return SDR_TP_COOP_LAUNCH(kernel, batch, local_ranks, sdr::kThreads,
+                              smem, (cudaStream_t)stream, a, x, step_valid,
+                              batch, seq_len, in_n, p.g, p.r, num_iter);
+  }
+  const auto kernel = SDR_TP_PICK(sdr_tp_fwd_persistent_kernel, false, p.g);
   return SDR_TP_COOP_LAUNCH(kernel, batch, local_ranks, sdr::kThreads, smem,
-                            (cudaStream_t)stream, a, x, batch, seq_len, in_n,
-                            p.g, p.r, num_iter);
+                            (cudaStream_t)stream, a, x, step_valid, batch,
+                            seq_len, in_n, p.g, p.r, num_iter);
 }
 
 // K2-tp's persistent kernel, launched as K1-tp's: per launched rank uhat,
@@ -1122,12 +1238,12 @@ int sdr_tp_bwd_persistent(void* const* uhat, void* const* vs,
                           int rank0, int local_ranks, int pad_rank, int cap,
                           long long epoch0, long long timeout_ns, int batch,
                           int seq_len, int in_n, int out_n, int out_d,
-                          void* stream) {
+                          int bf16, void* stream) {
   sdr::StreamPlan p;
   Exch x;
   BwdArgs a;
   if (batch < 1 || seq_len < 1 ||
-      !plan_persistent(in_n, out_n, out_d, true, &p) ||
+      !plan_persistent(in_n, out_n, out_d, true, bf16 ? 2 : 4, &p) ||
       !make_exch(xbuf, flags, status, ranks, rank0, local_ranks, pad_rank,
                  cap, epoch0, timeout_ns, batch, in_n, &x)) {
     return (int)cudaErrorInvalidValue;
@@ -1137,7 +1253,7 @@ int sdr_tp_bwd_persistent(void* const* uhat, void* const* vs,
         !cfac[l] || !dafac[l] || !dsfac[l]) {
       return (int)cudaErrorInvalidValue;
     }
-    a.uhat[l] = static_cast<const float*>(uhat[l]);
+    a.uhat[l] = uhat[l];
     a.vs[l] = static_cast<const float*>(vs[l]);
     a.dvs[l] = static_cast<const float*>(dvs[l]);
     a.stats[l] = static_cast<const float*>(stats[l]);
@@ -1146,7 +1262,13 @@ int sdr_tp_bwd_persistent(void* const* uhat, void* const* vs,
     a.dsfac[l] = static_cast<float*>(dsfac[l]);
   }
   const size_t smem = persistent_smem_bytes(p, in_n, true);
-  const auto kernel = SDR_TP_PICK(sdr_tp_bwd_persistent_kernel, p.g);
+  if (bf16) {
+    const auto kernel = SDR_TP_PICK(sdr_tp_bwd_persistent_kernel, true, p.g);
+    return SDR_TP_COOP_LAUNCH(kernel, batch, local_ranks, sdr::kThreads,
+                              smem, (cudaStream_t)stream, a, x, batch,
+                              seq_len, in_n, p.g, p.r);
+  }
+  const auto kernel = SDR_TP_PICK(sdr_tp_bwd_persistent_kernel, false, p.g);
   return SDR_TP_COOP_LAUNCH(kernel, batch, local_ranks, sdr::kThreads, smem,
                             (cudaStream_t)stream, a, x, batch, seq_len, in_n,
                             p.g, p.r);

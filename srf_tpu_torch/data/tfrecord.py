@@ -10,15 +10,18 @@ TFRecord framing (one record):
 The CRC is CRC-32C (Castagnoli), masked per the TFRecord spec:
     masked = ((crc >> 15) | (crc << 17)) + 0xa282ead8  (mod 2^32)
 
-computed here by slicing-by-8 over tables built with numpy. Files written
-here are byte-equal to the JAX package's for the same records.
+computed by the host library's ``srf_crc32c`` (``csrc/host/srf_io.cc``,
+``utils/native.py``) where it loads, else here by slicing-by-8 over
+tables built with numpy (the fallback is logged once). Files written here
+are byte-equal to the JAX package's for the same records.
 """
 
 import os
+import struct
 
 import numpy as np
 
-import struct
+from srf_tpu_torch.utils import native
 
 # TFRecord framing structs (the container format's, not the proto codec's)
 U64_STRUCT = struct.Struct("<Q")
@@ -45,7 +48,17 @@ _TABLES = _make_tables()
 _T = [[int(x) for x in row] for row in _TABLES]
 
 def crc32c(data: bytes) -> int:
-    """CRC-32C of ``data`` (slicing-by-8 over numpy-built tables)."""
+    """CRC-32C of ``data``: the host library's where it loads, else
+    :func:`crc32c_py`."""
+    lib = native.load_host_lib()
+    if lib:
+        return lib.srf_crc32c(data, len(data))
+    return crc32c_py(data)
+
+
+def crc32c_py(data: bytes) -> int:
+    """CRC-32C of ``data`` in Python (slicing-by-8 over numpy-built
+    tables): the fallback where the host library does not load."""
     crc = 0xFFFFFFFF
     t0, t1, t2, t3, t4, t5, t6, t7 = _T
     n = len(data)

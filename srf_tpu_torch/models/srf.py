@@ -36,11 +36,15 @@ flag sets it) has no counterpart: K1 predicts every step at once.
 On a ``model`` mesh axis (``parallel/sharding_rules.apply_rules``, which
 records ``model_shard`` on the model) a sharded layer routes its shard of
 the out capsules with the softmax split over the ``model`` ranks
-(``route_layer(..., shard=...)``: K1-tp and K2-tp on the card), and
-``distributed.gather_along`` joins the ranks' capsules before the
-replicated LayerNorm, dropout and output head (its backward takes this
-rank's part of the replicated gradient). The wavefront, bf16 routing and
-the streaming ``route_block`` refuse a sharded model (ROADMAP item 7c).
+(``route_layer(..., shard=...)``: K1-tp and K2-tp on the card, their bf16
+variants under ``routing_bf16``), and ``distributed.gather_along`` joins
+the ranks' capsules before the replicated LayerNorm, dropout and output
+head (its backward takes this rank's part of the replicated gradient).
+The streaming :meth:`route_block` routes its shard with its part of the
+carry (``routing_cuda.sequential_routing_tp_stream``: K1-tp with a carry
+and a step mask on the card) and gathers likewise; the wavefront splits
+the sharded layer's softmax in each loop step
+(``wavefront_sdr_stack(..., shards=...)``) and gathers its output there.
 
 Parameter names mirror the flax tree (conv_feat, flatten, encaps1/2,
 ln_input, W%d/b%d, ln_mid%d, ln_output), so ``convert.py`` maps one onto the
@@ -65,12 +69,13 @@ from srf_tpu_torch.models.layers import (Conv2d, ConvFrontEnd, Dropout,
 from srf_tpu_torch.ops.masking import feat_mask
 from srf_tpu_torch.ops.pos_enc import get_pos_enc
 from srf_tpu_torch.ops.routing import (
-    SHARD_REFUSAL, dynamic_routing, predict_capsules, route_layer,
-    wavefront_sdr_stack, window_slide, window_stack,
+    dynamic_routing, predict_capsules, route_layer, wavefront_sdr_stack,
+    window_slide, window_stack,
 )
-from srf_tpu_torch.ops.routing_cuda import sequential_routing_stream
+from srf_tpu_torch.ops.routing_cuda import (sequential_routing_stream,
+                                            sequential_routing_tp_stream)
 from srf_tpu_torch.ops.squash import capsule_length, squash
-from srf_tpu_torch.parallel.distributed import gather_along
+from srf_tpu_torch.parallel.distributed import copy_to_group, gather_along
 
 # JAX's refusal of bf16 routing (and of time chunking, which the port's
 # SequenceRouter does not have) on the routing kernels without it
@@ -233,6 +238,13 @@ class SequenceRouter(nn.Module):
                            self.caps_primary_dim)
         return self.drop_inp(emb, generator)
 
+    def _shard(self, i):
+        """(offset, whole out_n, ``model`` group) of routing layer ``i``'s
+        out capsules on this rank where ``apply_rules`` sharded it, else
+        None: ``route_layer``'s ``shard``."""
+        span = None if self.model_shard is None else self.model_shard.layer(i)
+        return None if span is None else (*span, self.model_shard.group)
+
     def route_block(self, u_ctx, layer_idx, v_init=None, step_valid=None):
         """One capsule layer on a streaming block (eval mode, no dropout).
 
@@ -242,10 +254,13 @@ class SequenceRouter(nn.Module):
         warm-up frames (t < 0) in both the emitted block and the SDR carry,
         matching the batch model's window zero padding. SDR routes through
         ``sequential_routing_stream`` (K1 on the card), DR through the plain
-        routing, as in the batch forward.
+        routing, as in the batch forward. A layer sharded on the ``model``
+        axis routes this rank's shard with its part of ``v_init`` (the
+        whole carry), the softmax split over the ``model`` ranks
+        (``sequential_routing_tp_stream``: K1-tp with a carry and a step
+        mask on the card; DR with the split), and the ranks' capsules are
+        gathered, so ``out`` and ``v_last`` are whole as unsharded.
         """
-        if self.model_shard is not None:
-            raise ValueError(SHARD_REFUSAL % "streaming (route_block)")
         num_iter = 1 if self.caps_type == "lowmemory" else self.caps_iter
         wgt = getattr(self, "W%d" % layer_idx)
         bias = getattr(self, "b%d" % layer_idx)
@@ -255,14 +270,28 @@ class SequenceRouter(nn.Module):
         if step_valid is not None:
             valid = torch.as_tensor(step_valid, device=u_win.device).expand(
                 u_win.shape[0], u_win.shape[1])[:, :, None, None]
-        if self.is_context:
+        shard = self._shard(layer_idx)
+        group, mask_pad = None, is_last
+        if shard is not None:
+            offset, _, group = shard
+            if v_init is not None:
+                v_init = v_init[:, offset:offset + wgt.shape[1]]
+            mask_pad = is_last and offset == 0
+        if self.is_context and shard is not None:
+            out = sequential_routing_tp_stream(
+                u_win, wgt, bias, num_iter, mask_pad, group, v_init,
+                step_valid)
+        elif self.is_context:
             out = sequential_routing_stream(
                 u_win, wgt, bias, num_iter, is_last, v_init, step_valid)
         else:
-            out = dynamic_routing(predict_capsules(u_win, wgt, bias),
-                                  num_iter, mask_pad_capsule=is_last)
+            out = dynamic_routing(
+                predict_capsules(copy_to_group(u_win, group), wgt, bias),
+                num_iter, mask_pad_capsule=mask_pad, group=group)
             if valid is not None:
                 out = torch.where(valid, out, 0.0)
+        if shard is not None:
+            out = gather_along(out, group, dim=2)
         v_last = out[:, -1]
         batch, k, out_n, out_d = out.shape
         flat = getattr(self, "ln_mid%d" % (layer_idx + 1))(
@@ -323,12 +352,7 @@ class SequenceRouter(nn.Module):
 
         emb = self._capsulate(feats, input_lengths, generator)
         batch, seq_len = emb.shape[0], emb.shape[1]
-        if self.model_shard is not None and (
-                self.routing_bf16 or (self.is_context
-                                      and self.routing_impl == "wavefront")):
-            raise ValueError(SHARD_REFUSAL % (
-                "--tpu-routing-bf16" if self.routing_bf16
-                else "--tpu-routing-kernel=wavefront"))
+        shards = [self._shard(i) for i in range(self.enc_num)]
         if self.is_context and self.routing_impl == "wavefront":
             if self.routing_bf16:
                 raise ValueError(BF16_REFUSAL % "wavefront")
@@ -342,21 +366,18 @@ class SequenceRouter(nn.Module):
                 self.lpad, self.rpad, num_iter,
                 [(ln.weight, ln.bias) for ln in norms], ln_eps=norms[0].eps,
                 dropout_rate=self.drop_inn.p if self.training else 0.0,
-                generator=generator, remat=self.routing_remat)
+                generator=generator, remat=self.routing_remat,
+                shards=shards)
             return self.output_block(emb)
         for i, (in_n, out_n, out_d, in_d) in enumerate(self.layer_shapes()):
             emb = window_stack(emb, self.lpad, self.rpad)
-            shard = (self.model_shard.layer(i) if self.model_shard
-                     is not None else None)
             emb = route_layer(
                 emb, getattr(self, "W%d" % i), getattr(self, "b%d" % i),
                 num_iter, self.is_context,
                 is_last_layer=(i == self.enc_num - 1),
-                bf16=self.routing_bf16,
-                shard=(None if shard is None
-                       else (*shard, self.model_shard.group)),
+                bf16=self.routing_bf16, shard=shards[i],
             )
-            if shard is not None:
+            if shards[i] is not None:
                 emb = gather_along(emb, self.model_shard.group, dim=2)
             flat = getattr(self, "ln_mid%d" % (i + 1))(
                 emb.reshape(batch, seq_len, -1))

@@ -60,8 +60,12 @@
   ``distributed.copy_to_group``. :func:`sequential_routing_tp_bwd` is the
   plain one-iteration backward (one SUM all-reduce of a row's
   sum_o c dc a step, du summed over the ranks once); both are the plain
-  versions of K1-tp and K2-tp (``routing_cuda.SDRTPFunction``).
-  :func:`dynamic_routing` with a ``group`` is DR with the same split.
+  versions of K1-tp and K2-tp (``routing_cuda.SDRTPFunction``). With
+  ``bf16`` they are bf16 routing's on a shard (K1-tp-bf16; its backward
+  :func:`sequential_routing_tp_bwd_bf16`, K2-tp-bf16's), and with
+  ``v_init`` and ``step_valid`` streaming's (K1-tp-stream).
+  :func:`dynamic_routing` with a ``group`` is DR with the same split, and
+  :func:`wavefront_sdr_stack` with ``shards`` the wavefront's.
 
 Shapes (the JAX layouts):
     u      [B, T, in_n, in_d]      input capsules (after windowing)
@@ -213,12 +217,14 @@ def predict_capsules_rows(u, wgt, bias):
     """The plain version of the prediction kernel (``csrc/sdr_stream.cuh``):
     :func:`predict_capsules` in the layout K1 and K2 stream, [B, T, in_n,
     P] with each in-capsule row's out_n * out_d entries zero-padded to
-    P = ``row_pitch(out_n * out_d)``."""
+    P = ``row_pitch(out_n * out_d)``; on bf16 inputs (the kernel's bf16
+    instance) :func:`predict_capsules_bf16`, bf16, P a multiple of 8."""
     batch, seq_len, in_n = u.shape[:3]
     out_no = wgt.shape[1] * wgt.shape[2]
-    u_hat = predict_capsules(u, wgt, bias).reshape(batch, seq_len, in_n,
-                                                   out_no)
-    return F.pad(u_hat, (0, row_pitch(out_no) - out_no))
+    predict = (predict_capsules_bf16 if u.dtype == torch.bfloat16
+               else predict_capsules)
+    u_hat = predict(u, wgt, bias).reshape(batch, seq_len, in_n, out_no)
+    return F.pad(u_hat, (0, row_pitch(out_no, u.dtype.itemsize) - out_no))
 
 
 def sequential_routing(u, wgt, bias, num_iter, mask_pad_capsule,
@@ -411,7 +417,8 @@ def _split_softmax(b, group):
 
 
 def sequential_routing_tp(u, wgt, bias, num_iter, pad_owner, group,
-                          return_stats=False):
+                          return_stats=False, bf16=False, v_init=None,
+                          step_valid=None):
     """SDR on a shard of the out capsules, plain PyTorch: the plain version
     of K1-tp (module docstring). ``u`` [B, T, in_n, in_d] is replicated
     over ``group`` (the ``model`` ranks); ``wgt`` [in_n, O_local, out_d,
@@ -420,42 +427,95 @@ def sequential_routing_tp(u, wgt, bias, num_iter, pad_owner, group,
     its PAD mask applies here. Returns this rank's outputs [B, T, O_local,
     out_d] and, with ``return_stats``, the global (M, L) of every step and
     iteration, [T, num_iter, B, in_n, 2] (the backward's input).
-    Differentiable: u's gradient is summed over ``group``."""
-    dtype = _compute_dtype(u.dtype)
-    u = distributed.copy_to_group(u.to(dtype), group)
-    u_hat = predict_capsules(u, wgt.to(dtype), bias.to(dtype))
+    Differentiable: u's gradient is summed over ``group``.
+
+    ``bf16``: bf16 routing (K1-tp-bf16's plain version): u_hat =
+    :func:`predict_capsules_bf16` of u, W and b rounded to bf16, each
+    agreement taken against bf16(v) and each sum over rows with bf16(c),
+    in float32, as :func:`_sdr_step` does; the logits, the split softmax's
+    (M, L) and its exchange, the squash and the carried v stay float32.
+    Returns float32.
+
+    ``v_init`` [B, O_local, out_d] (this rank's part of the carry before
+    step 0; zeros if None) and ``step_valid`` [T] or [B, T] bool (an
+    invalid step emits zeros and leaves a zero carry; every step still
+    takes part in the split softmax's exchange): streaming on a shard
+    (K1-tp-stream's plain version), the semantics of
+    :func:`sequential_routing`'s."""
+    if bf16:
+        dtype = torch.float32
+        u = distributed.copy_to_group(u.float(), group)
+        u_hat = predict_capsules_bf16(
+            *(x.to(torch.bfloat16) for x in (u, wgt, bias))).float()
+    else:
+        dtype = _compute_dtype(u.dtype)
+        u = distributed.copy_to_group(u.to(dtype), group)
+        u_hat = predict_capsules(u, wgt.to(dtype), bias.to(dtype))
     batch, seq_len, _, out_n, out_d = u_hat.shape
     pad_mask = (_pad_capsule_mask(out_n, dtype, u.device) if pad_owner
                 else None)
-    v = torch.zeros((batch, out_n, out_d), dtype=dtype, device=u.device)
+    if v_init is None:
+        v = torch.zeros((batch, out_n, out_d), dtype=dtype, device=u.device)
+    else:
+        v = v_init.to(dtype)
+    if step_valid is not None:
+        step_valid = torch.as_tensor(step_valid, device=u.device).expand(
+            batch, seq_len)[:, :, None, None]
     outs, stats = [], []
     for t in range(seq_len):
         u_hat_t = u_hat[:, t]
         b_acc = torch.zeros(u_hat_t.shape[:3], dtype=dtype, device=u.device)
         for _ in range(num_iter):
-            b_acc = b_acc + torch.einsum("bnoi,boi->bno", u_hat_t, v)
+            b_acc = b_acc + torch.einsum("bnoi,boi->bno", u_hat_t,
+                                         round_bf16(v) if bf16 else v)
             if pad_mask is not None:
                 b_acc = b_acc + pad_mask
             c, m, total = _split_softmax(b_acc, group)
-            v = squash(torch.einsum("bno,bnoi->boi", c, u_hat_t), dim=-1)
+            v = squash(torch.einsum("bno,bnoi->boi",
+                                    round_bf16(c) if bf16 else c, u_hat_t),
+                       dim=-1)
             stats.append(torch.stack([m, total.detach()], dim=-1))
+        if step_valid is not None:
+            v = torch.where(step_valid[:, t], v, 0.0)
         outs.append(v)
-    out = torch.stack(outs, dim=1).to(u.dtype)
+    out = torch.stack(outs, dim=1)
     if not return_stats:
         return out
     return out, torch.stack(stats).reshape(seq_len, num_iter,
                                            *stats[0].shape)
 
 
+def sequential_routing_tp_bwd_bf16(u, wgt, bias, dvs, pad_owner, group,
+                                   num_iter=1):
+    """The split bf16 SDR's backward, plain: autograd through
+    ``sequential_routing_tp(..., bf16=True)``'s loop on bf16 leaves, the
+    plain version of K2-tp-bf16 (one routing iteration there), the
+    counterpart of :func:`sequential_routing_bwd_bf16` on a shard. u
+    (replicated), this rank's wgt and bias, dvs the cotangent of this
+    rank's float32 outputs -> (du, dW, db), bf16: du the whole gradient of
+    u (the ranks' float32 parts summed over ``group``, then rounded), dW
+    and db the shard's, each a float32 sum rounded once."""
+    with torch.enable_grad():
+        leaves = [x.detach().to(torch.bfloat16).requires_grad_()
+                  for x in (u, wgt, bias)]
+        vs = sequential_routing_tp(*leaves, num_iter, pad_owner, group,
+                                   bf16=True)
+        return torch.autograd.grad(vs, leaves, dvs.to(vs.dtype))
+
+
 def sequential_routing_tp_bwd_factors(u_hat, vs, dvs, pad_owner, group,
-                                      stats):
+                                      stats, bf16=False):
     """The reverse-time recurrence of the split SDR's backward (one
     routing iteration), plain: the plain version of K2-tp's two step
     kernels. As :func:`sequential_routing_bwd_factors` on this rank's
     u_hat [B, T, in_n, O_local, out_d], vs and dvs [B, T, O_local, out_d],
     with c taken from the forward's global (M, L) ``stats`` [T, 1, B,
     in_n, 2] (no exchange) and each row's sum_o c dc summed over
-    ``group`` (one SUM all-reduce a step). Returns (c, da, ds)."""
+    ``group`` (one SUM all-reduce a step). Returns (c, da, ds). ``bf16``:
+    the step kernels' bf16 instances (u_hat the bf16 prediction's values):
+    the logits against bf16(v_{t-1}), s with bf16(c), dc and the carry
+    rounded to bf16, as autograd through the bf16 forward rounds them."""
+    rnd = round_bf16 if bf16 else (lambda x: x)
     out_n = u_hat.shape[3]
     pad_mask = (_pad_capsule_mask(out_n, u_hat.dtype, u_hat.device)
                 if pad_owner else None)
@@ -467,17 +527,17 @@ def sequential_routing_tp_bwd_factors(u_hat, vs, dvs, pad_owner, group,
     for t in range(u_hat.shape[1] - 1, -1, -1):
         u_hat_t = u_hat[:, t]
         v_prev = vs[:, t - 1] if t > 0 else torch.zeros_like(carry)
-        logits = torch.einsum("bnoi,boi->bno", u_hat_t, v_prev)
+        logits = torch.einsum("bnoi,boi->bno", u_hat_t, rnd(v_prev))
         if pad_mask is not None:
             logits = logits + pad_mask
         m, total = stats[t, 0, ..., 0], stats[t, 0, ..., 1]
         c = torch.exp(logits - m[..., None]) / total[..., None]
-        s = torch.einsum("bno,bnoi->boi", c, u_hat_t)
+        s = torch.einsum("bno,bnoi->boi", rnd(c), u_hat_t)
         ds = _squash_vjp(s, dvs[:, t] + carry)
-        dc = torch.einsum("bnoi,boi->bno", u_hat_t, ds)
+        dc = rnd(torch.einsum("bnoi,boi->bno", u_hat_t, ds))
         row = distributed.all_reduce_sum(torch.sum(dc * c, dim=2), group)
         da = c * (dc - row[..., None])
-        carry = torch.einsum("bno,bnoi->boi", da, u_hat_t)
+        carry = rnd(torch.einsum("bno,bnoi->boi", da, u_hat_t))
         c_all[:, t], da_all[:, t], ds_all[:, t] = c, da, ds
     return c_all, da_all, ds_all
 
@@ -510,41 +570,48 @@ def sequential_routing_tp_bwd(u, wgt, bias, vs, dvs, pad_owner, group,
     return tuple(x.to(d) for x, d in zip((du, dwgt, dbias), out_dtypes))
 
 
-def sequential_routing_tp_colaunch(u, wgts, biases, num_iter, pad):
+def sequential_routing_tp_colaunch(u, wgts, biases, num_iter, pad,
+                                   bf16=False, v_inits=None,
+                                   step_valid=None):
     """Every rank's shard of the out capsules routed in one process, plain
     PyTorch: the plain version of K1-tp's co-launch
     (``routing_cuda.sequential_routing_tp_colaunch_cuda``). ``wgts`` and
     ``biases`` the ranks' shards in rank order, ``pad``: rank 0's shard
     holds the PAD capsule. The softmax split over every shard is the
     softmax over the shards joined, so this is
-    :func:`sequential_routing_tp` on the joined W with no group. Returns
-    ([out_r], [the global (M, L)] a rank)."""
+    :func:`sequential_routing_tp` on the joined W with no group (``bf16``,
+    ``step_valid`` and the shards' carries ``v_inits``, joined, as it
+    takes them). Returns ([out_r], [the global (M, L)] a rank)."""
     out, stats = sequential_routing_tp(
         u, torch.cat(list(wgts), dim=1), torch.cat(list(biases), dim=1),
-        num_iter, pad, None, return_stats=True)
+        num_iter, pad, None, return_stats=True, bf16=bf16,
+        v_init=None if v_inits is None else torch.cat(list(v_inits), dim=1),
+        step_valid=step_valid)
     return ([x.contiguous() for x in torch.split(out, wgts[0].shape[1],
                                                  dim=2)],
             [stats] * len(wgts))
 
 
 def sequential_routing_tp_bwd_colaunch(u, wgts, biases, vss, dvss, statss,
-                                       pad):
+                                       pad, bf16=False):
     """The backward of :func:`sequential_routing_tp_colaunch`, one routing
     iteration, plain PyTorch: the plain version of K2-tp's co-launch. Each
     shard's outputs ``vss``, their cotangents ``dvss`` and the forward's
-    (M, L) ``statss`` in rank order -> (du, [dW_r], [db_r])."""
+    (M, L) ``statss`` in rank order -> (du, [dW_r], [db_r]); ``bf16``: of
+    the bf16 forward (:func:`sequential_routing_tp_bwd_bf16`, which
+    recomputes the forward and reads neither ``vss`` nor ``statss``), in
+    bf16."""
     out_n = wgts[0].shape[1]
-    du, dwgt, dbias = sequential_routing_tp_bwd(
-        u, torch.cat(list(wgts), dim=1), torch.cat(list(biases), dim=1),
-        torch.cat(list(vss), dim=2), torch.cat(list(dvss), dim=2), pad, None,
-        statss[0])
+    wgt, bias = torch.cat(list(wgts), dim=1), torch.cat(list(biases), dim=1)
+    if bf16:
+        du, dwgt, dbias = sequential_routing_tp_bwd_bf16(
+            u, wgt, bias, torch.cat(list(dvss), dim=2), pad, None)
+    else:
+        du, dwgt, dbias = sequential_routing_tp_bwd(
+            u, wgt, bias, torch.cat(list(vss), dim=2),
+            torch.cat(list(dvss), dim=2), pad, None, statss[0])
     return (du, list(torch.split(dwgt, out_n, dim=1)),
             list(torch.split(dbias, out_n, dim=1)))
-
-
-# the refusal of what the 'model' axis does not reach yet
-SHARD_REFUSAL = ("%s on a 'model' mesh axis (class capsules sharded over "
-                 "ranks) is not ported: ROADMAP.md section 1 item 7c")
 
 
 def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer,
@@ -563,11 +630,11 @@ def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer,
     rank's shard of the out capsules on the ``model`` axis
     (``parallel/sharding_rules.apply_rules``), and the layer routes with
     the softmax split over ``group``: SDR through ``SDRTPFunction`` (K1-tp
-    and K2-tp on a CUDA tensor, :func:`sequential_routing_tp` and its
-    backward on the CPU), DR through :func:`dynamic_routing` with
-    ``group``. The PAD mask applies on the rank whose shard starts at
+    and K2-tp on a CUDA tensor, their bf16 variants with ``bf16``;
+    :func:`sequential_routing_tp` and its backward on the CPU), DR through
+    :func:`dynamic_routing` with ``group`` (which ignores ``bf16``, as
+    unsharded). The PAD mask applies on the rank whose shard starts at
     capsule 0. Returns this rank's out capsules [B, T, O_local, out_d].
-    bf16 routing on a shard raises (ROADMAP item 7c).
     """
     if num_iter < 1:
         raise ValueError(
@@ -578,12 +645,10 @@ def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer,
     group, mask_pad_capsule = None, is_last_layer
     if shard is not None:
         offset, _, group = shard
-        if bf16:
-            raise ValueError(SHARD_REFUSAL % "--tpu-routing-bf16")
         mask_pad_capsule = bool(is_last_layer) and offset == 0
         if is_context:
             return SDRTPFunction.apply(u, wgt, bias, num_iter,
-                                       mask_pad_capsule, group)
+                                       mask_pad_capsule, group, bf16)
     if is_context:
         return SDRFunction.apply(u, wgt, bias, num_iter, is_last_layer, bf16)
     u_hat = predict_capsules(distributed.copy_to_group(u, group), wgt, bias)
@@ -591,7 +656,8 @@ def route_layer(u, wgt, bias, num_iter, is_context, is_last_layer,
     return out.to(u.dtype)
 
 
-def _sdr_step_factored(u_t, wgt, bias, v_prev, num_iter, pad_mask):
+def _sdr_step_factored(u_t, wgt, bias, v_prev, num_iter, pad_mask,
+                       group=None):
     """One SDR timestep without materialising u_hat
     (``srf_tpu/ops/routing.py:_sdr_step_factored``): routing reads u_hat =
     W u + b only through <u_hat, v> = (W^T v) u + b v and sum_n c u_hat =
@@ -599,8 +665,13 @@ def _sdr_step_factored(u_t, wgt, bias, v_prev, num_iter, pad_mask):
     [in_n, out_n, out_d, in_d], bias [in_n, out_n, out_d], v_prev [B,
     out_n, out_d]; with a leading layer axis on all four (the wavefront's
     stacked middle layers, JAX's ``vmap``) it routes each layer with its
-    own weights. The same function as :func:`_sdr_step` on u_hat."""
+    own weights. The same function as :func:`_sdr_step` on u_hat. With
+    ``group`` (the ``model`` ranks), wgt, bias and v_prev are this rank's
+    shard of the out capsules and the softmax is split across ``group``
+    (:func:`_split_softmax`, F24's (m, l) combine as two all-reduces);
+    u_t enters through ``copy_to_group``."""
     p = "l" if wgt.dim() == 5 else ""
+    u_t = distributed.copy_to_group(u_t, group)
     b_acc = torch.zeros(u_t.shape[:-1] + wgt.shape[-3:-2], dtype=u_t.dtype,
                         device=u_t.device)  # [(l,) B, in_n, out_n]
     v = v_prev
@@ -610,7 +681,8 @@ def _sdr_step_factored(u_t, wgt, bias, v_prev, num_iter, pad_mask):
                          + torch.einsum(f"{p}noi,{p}boi->{p}bno", bias, v))
         if pad_mask is not None:
             b_acc = b_acc + pad_mask
-        c = torch.softmax(b_acc, dim=-1)
+        c = (torch.softmax(b_acc, dim=-1) if group is None
+             else _split_softmax(b_acc, group)[0])
         pc = torch.einsum(f"{p}bno,{p}bnj->{p}bonj", c, u_t)
         s = (torch.einsum(f"{p}bonj,{p}noij->{p}boi", pc, wgt)
              + torch.einsum(f"{p}bno,{p}noi->{p}boi", c, bias))
@@ -643,7 +715,7 @@ def _window_of(rows):
 
 def wavefront_sdr_stack(u, layer_params, lpad, rpad, num_iter, ln_params,
                         ln_eps=1e-3, dropout_rate=0.0, generator=None,
-                        remat=True):
+                        remat=True, shards=None):
     """The whole SDR capsule stack as one loop over time
     (``--tpu-routing-kernel=wavefront``; ``srf_tpu/ops/routing.py:
     wavefront_sdr_stack``, plain PyTorch on every device: JAX runs it as
@@ -678,18 +750,35 @@ def wavefront_sdr_stack(u, layer_params, lpad, rpad, num_iter, ln_params,
     layer's SDR through :func:`route_layer` (K1 and K2 on a CUDA tensor).
     The loop index is a host int: the validity tests read no device value,
     and no step writes into a tensor in place.
+
+    ``shards`` (one entry a layer, None where replicated): the last layer's
+    (offset, whole out_n, group) where its W and b are this rank's shard of
+    the out capsules on the ``model`` axis (``apply_rules`` shards no other
+    layer): each loop step routes the shard with its softmax split over
+    ``group`` (``_sdr_step_factored(..., group)``), the PAD mask on the
+    rank whose shard starts at capsule 0, and gathers the ranks' capsules
+    before the LayerNorm, as the layered path does (one layer: through
+    :func:`route_layer` with the shard).
     """
     batch, seq_len = u.shape[0], u.shape[1]
     window = lpad + rpad + 1
     n_layers = len(layer_params)
     delay = rpad + 1
+    shards = list(shards or [None] * n_layers)
+    if any(shards[:-1]):
+        raise ValueError("the wavefront splits the last layer only (the one "
+                         "apply_rules shards), got shards %s" % shards)
+    last_shard = shards[-1]
+    group = None if last_shard is None else last_shard[2]
     total_steps = seq_len + (n_layers - 1) * delay
     dtype = _compute_dtype(u.dtype)
     device = u.device
 
     prev_n, prev_d = u.shape[2], u.shape[3]
-    for wgt, _ in layer_params:
+    for i, (wgt, _) in enumerate(layer_params):
         in_n, out_n, out_d, in_d = wgt.shape
+        if i == n_layers - 1 and last_shard is not None:
+            out_n = last_shard[1]
         assert in_n == window * prev_n and in_d == prev_d, (
             wgt.shape, (window, prev_n, prev_d))
         prev_n, prev_d = out_n, out_d
@@ -706,17 +795,22 @@ def wavefront_sdr_stack(u, layer_params, lpad, rpad, num_iter, ln_params,
     if n_layers == 1:  # the layered path's SDR over the whole utterance
         wgt, bias = layer_params[0]
         out = route_layer(u_win, wgt, bias, num_iter, True,
-                          is_last_layer=True)
+                          is_last_layer=True, shard=last_shard)
+        if last_shard is not None:
+            out = distributed.gather_along(out, group, dim=2)
         keep = keep_masks(batch, seq_len, out.shape[2] * out.shape[3])
         flat = _ln_drop(out.reshape(batch, seq_len, -1), *ln_params[0],
                         ln_eps, dropout_rate, keep)
         return flat.reshape(out.shape).to(u.dtype)
 
-    def route(u_t, wgt, bias, v_prev, pad_mask):
-        return _sdr_step_factored(u_t, wgt, bias, v_prev, num_iter, pad_mask)
+    def route(u_t, wgt, bias, v_prev, pad_mask, group=None):
+        return _sdr_step_factored(u_t, wgt, bias, v_prev, num_iter, pad_mask,
+                                  group)
 
     ch, cd = layer_params[0][0].shape[1:3]
-    class_n, class_d = layer_params[-1][0].shape[1:3]
+    # the last layer's capsules on this rank (its shard), and in all
+    local_n, class_d = layer_params[-1][0].shape[1:3]
+    class_n = local_n if last_shard is None else last_shard[1]
     n_mid = n_layers - 2
     (w0, b0), (w_last, b_last) = layer_params[0], layer_params[-1]
     keep_first = keep_masks(seq_len, batch, ch * cd)
@@ -732,7 +826,8 @@ def wavefront_sdr_stack(u, layer_params, lpad, rpad, num_iter, ln_params,
         valid_mid = ((t_mid >= 0) & (t_mid < seq_len)).to(device)[
             ..., None, None, None]
         keep_mid = keep_masks(total_steps, n_mid, batch, ch * cd)
-    pad_mask = _pad_capsule_mask(class_n, dtype, device)
+    pad_mask = (_pad_capsule_mask(local_n, dtype, device)
+                if last_shard is None or last_shard[0] == 0 else None)
     zeros = torch.zeros((batch, ch, cd), dtype=dtype, device=device)
 
     def step(tau, buf, v_first, v_mid, v_last):
@@ -761,9 +856,11 @@ def wavefront_sdr_stack(u, layer_params, lpad, rpad, num_iter, ln_params,
         out_l = None
         if 0 <= t_last < seq_len:
             v_last = route(_window_of(buf[-1]), w_last, b_last, v_last,
-                           pad_mask)
+                           pad_mask, group)
+            v_all = (v_last if group is None
+                     else distributed.gather_along(v_last, group, dim=1))
             out_l = _ln_drop(
-                v_last.reshape(batch, -1), *ln_params[-1], ln_eps,
+                v_all.reshape(batch, -1), *ln_params[-1], ln_eps,
                 dropout_rate, None if keep_last is None
                 else keep_last[t_last]).reshape(batch, class_n, class_d)
         # the ring buffer moves on by one step, out of place
@@ -780,7 +877,7 @@ def wavefront_sdr_stack(u, layer_params, lpad, rpad, num_iter, ln_params,
              zeros,
              (torch.zeros((n_mid, batch, ch, cd), dtype=dtype, device=device)
               if n_mid else None),
-             torch.zeros((batch, class_n, class_d), dtype=dtype,
+             torch.zeros((batch, local_n, class_d), dtype=dtype,
                          device=device))
     outs = []
     for tau in range(total_steps):

@@ -44,7 +44,15 @@ chosen once per group from its ranks' hosts and cards
 The co-launch (every shard in this process, one launch on one card) is
 reached only through :func:`sequential_routing_tp_colaunch_cuda` and its
 backward. Their plain versions are ``ops/routing.py:sequential_routing_tp``
-and ``sequential_routing_tp_bwd``.
+and ``sequential_routing_tp_bwd``. Their bf16 instances, K1-tp-bf16 and
+K2-tp-bf16 (bf16 u, W and b: ``sdr_fwd.cu``'s ``sdr_predict_bf16``, the
+``sdr_tp.cu`` kernels' BF instances, ``sdr_bwd.cu``'s
+``sdr_bwd_wgrad_bf16``), compute ``sequential_routing_tp(..., bf16=True)``
+and ``sequential_routing_tp_bwd_bf16``; K1-tp with an initial carry and a
+step mask, K1-tp-stream, computes ``sequential_routing_tp(..., v_init,
+step_valid)``, streaming on a shard (:func:`sequential_routing_tp_stream`).
+Every wrapper counts its launches by variant (``launches``,
+``launches_bf16``, ``launches_stream``).
 """
 
 import atexit
@@ -589,13 +597,16 @@ def _tp_libs():
     lib = ctypes.CDLL(cuda_build.build(["sdr_tp"])["sdr_tp"])
     fwd, bwd = _lib("sdr_fwd"), _lib("sdr_bwd")
     declare_tp(lib)
-    fwd.sdr_predict.argtypes = [_VOID_P] * 4 + [ctypes.c_int] * 4 + [_VOID_P]
-    fwd.sdr_predict.restype = ctypes.c_int
-    bwd.sdr_bwd_wgrad.argtypes = ([_VOID_P] * 10 + [ctypes.c_int] * 6
-                                  + [_VOID_P])
-    bwd.sdr_bwd_wgrad.restype = ctypes.c_int
-    bwd.sdr_bwd_wgrad_part_floats.argtypes = [ctypes.c_int] * 6
-    bwd.sdr_bwd_wgrad_part_floats.restype = ctypes.c_longlong
+    for name in ("sdr_predict", "sdr_predict_bf16"):
+        getattr(fwd, name).argtypes = ([_VOID_P] * 4 + [ctypes.c_int] * 4
+                                       + [_VOID_P])
+        getattr(fwd, name).restype = ctypes.c_int
+    for name in ("sdr_bwd_wgrad", "sdr_bwd_wgrad_bf16"):
+        getattr(bwd, name).argtypes = ([_VOID_P] * 10 + [ctypes.c_int] * 6
+                                       + [_VOID_P])
+        getattr(bwd, name).restype = ctypes.c_int
+        getattr(bwd, name + "_part_floats").argtypes = [ctypes.c_int] * 6
+        getattr(bwd, name + "_part_floats").restype = ctypes.c_longlong
     return lib, fwd, bwd
 
 
@@ -605,17 +616,17 @@ def declare_tp(lib):
     entries)."""
     int_, ll, ptr = ctypes.c_int, ctypes.c_longlong, _VOID_P
     entries = [
-        ("sdr_tp_stats", [ptr] * 4 + [int_] * 8 + [ptr]),
-        ("sdr_tp_route", [ptr, ptr, int_] + [ptr] * 4 + [int_] * 7 + [ptr]),
-        ("sdr_tp_bwd_a", [ptr] * 9 + [int_] * 7 + [ptr]),
-        ("sdr_tp_bwd_b", [ptr] * 6 + [int_] * 6 + [ptr]),
+        ("sdr_tp_stats", [ptr] * 4 + [int_] * 9 + [ptr]),
+        ("sdr_tp_route", [ptr, ptr, int_] + [ptr] * 5 + [int_] * 8 + [ptr]),
+        ("sdr_tp_bwd_a", [ptr] * 9 + [int_] * 8 + [ptr]),
+        ("sdr_tp_bwd_b", [ptr] * 6 + [int_] * 7 + [ptr]),
         ("sdr_tp_smem_bytes", [int_] * 3),
-        ("sdr_tp_persistent_smem_bytes", [int_] * 4),
-        ("sdr_tp_persistent_capacity", [int_] * 4),
-        ("sdr_tp_fwd_persistent", [ptr] * 6 + [int_] * 5 + [ll] * 2
-         + [int_] * 6 + [ptr]),
+        ("sdr_tp_persistent_smem_bytes", [int_] * 5),
+        ("sdr_tp_persistent_capacity", [int_] * 5),
+        ("sdr_tp_fwd_persistent", [ptr] * 8 + [int_] * 5 + [ll] * 2
+         + [int_] * 7 + [ptr]),
         ("sdr_tp_bwd_persistent", [ptr] * 10 + [int_] * 5 + [ll] * 2
-         + [int_] * 5 + [ptr])]
+         + [int_] * 6 + [ptr])]
     if hasattr(lib, "sdr_tp_ipc_alloc"):
         entries += [("sdr_tp_ipc_alloc", [ll, ptr, ptr]),
                     ("sdr_tp_ipc_open", [ctypes.c_char_p, ptr]),
@@ -632,31 +643,49 @@ def _tp_call(lib, name, *args):
     _raise_on(lib, "sdr_tp", getattr(lib, name)(*args))
 
 
-def tp_forward_steps(lib, uhat, out_n, out_d, num_iter, pad_owner, stream):
+def _is_bf16(uhat):
+    """1 for a bf16 u_hat (the kernels' bf16 instances), 0 for float32."""
+    return int(uhat.dtype == torch.bfloat16)
+
+
+def _valid_bytes(step_valid):
+    """A [B, T] bool step mask as the kernels read it (uint8), or None."""
+    return None if step_valid is None else step_valid.view(torch.uint8)
+
+
+def tp_forward_steps(lib, uhat, out_n, out_d, num_iter, pad_owner, stream,
+                     v_init=None, step_valid=None):
     """K1-tp's loop over time after the prediction (a generator): for each
     step and iteration the stats kernel, then it yields this rank's (m, l)
     pairs [B * in_n, 2] and is sent every rank's [ranks, B * in_n, 2], then
     the route kernel. Returns (out [B, T, out_n, out_d], the global (M, L)
     [T, num_iter, B, in_n, 2]). ``uhat`` [B, T, in_n, pitch] from the
-    prediction kernel; ``lib`` the sdr_tp library."""
+    prediction kernel (bf16: the kernels' bf16 instances); ``lib`` the
+    sdr_tp library; ``v_init`` [B, out_n, out_d] the carry before step 0
+    (zeros if None) and ``step_valid`` [B, T] bool (or None), contiguous
+    (K1-tp-stream)."""
     batch, seq_len, in_n = uhat.shape[:3]
     dev = uhat.device
     out = torch.empty((batch, seq_len, out_n, out_d), device=dev)
     stats = torch.empty((seq_len, num_iter, batch, in_n, 2), device=dev)
-    vcar = torch.zeros((batch, out_n * out_d), device=dev)
+    vcar = (torch.zeros((batch, out_n * out_d), device=dev) if v_init is None
+            else v_init.reshape(batch, out_n * out_d).clone())
     bacc = torch.empty((batch, in_n, out_n), device=dev)
     local = torch.empty((batch * in_n, 2), device=dev)
+    valid = _valid_bytes(step_valid)
     geom = (batch, seq_len)
+    bf16 = _is_bf16(uhat)
     for t in range(seq_len):
         for it in range(num_iter):
             _tp_call(lib, "sdr_tp_stats", uhat.data_ptr(), vcar.data_ptr(),
                      bacc.data_ptr(), local.data_ptr(), *geom, t, in_n,
-                     out_n, out_d, it, int(bool(pad_owner)), stream)
+                     out_n, out_d, it, int(bool(pad_owner)), bf16, stream)
             gathered = (yield local).contiguous()
             _tp_call(lib, "sdr_tp_route", uhat.data_ptr(),
                      gathered.data_ptr(), gathered.shape[0], bacc.data_ptr(),
                      vcar.data_ptr(), out.data_ptr(), stats[t, it].data_ptr(),
-                     *geom, t, in_n, out_n, out_d, int(it == num_iter - 1),
+                     None if valid is None else valid.data_ptr(), *geom, t,
+                     in_n, out_n, out_d, int(it == num_iter - 1), bf16,
                      stream)
     return out, stats
 
@@ -667,7 +696,7 @@ def tp_backward_steps(lib, uhat, vs, dvs, stats, pad_owner, stream):
     sum over the ranks, then the second kernel. Returns du_hat's factors
     (c, da [B, T, in_n, out_n], ds [B, T, out_n * out_d]) in K2's layout.
     ``vs`` and ``dvs`` [B, T, out_n, out_d], ``stats`` the forward's
-    [T, num_iter, B, in_n, 2]."""
+    [T, num_iter, B, in_n, 2]; a bf16 ``uhat``: the bf16 instances."""
     batch, seq_len, in_n = uhat.shape[:3]
     out_n, out_d = vs.shape[2], vs.shape[3]
     dev = uhat.device
@@ -678,16 +707,18 @@ def tp_backward_steps(lib, uhat, vs, dvs, stats, pad_owner, stream):
     rowsum = torch.empty((batch, in_n), device=dev)
     carry = torch.zeros((batch, out_n * out_d), device=dev)
     geom = (batch, seq_len)
+    bf16 = _is_bf16(uhat)
     for t in range(seq_len - 1, -1, -1):
         _tp_call(lib, "sdr_tp_bwd_a", uhat.data_ptr(), vs.data_ptr(),
                  dvs.data_ptr(), stats[t, 0].data_ptr(), carry.data_ptr(),
                  cfac.data_ptr(), dsfac.data_ptr(), dc.data_ptr(),
                  rowsum.data_ptr(), *geom, t, in_n, out_n, out_d,
-                 int(bool(pad_owner)), stream)
+                 int(bool(pad_owner)), bf16, stream)
         summed = (yield rowsum).contiguous()
         _tp_call(lib, "sdr_tp_bwd_b", uhat.data_ptr(), cfac.data_ptr(),
                  dc.data_ptr(), summed.data_ptr(), dafac.data_ptr(),
-                 carry.data_ptr(), *geom, t, in_n, out_n, out_d, stream)
+                 carry.data_ptr(), *geom, t, in_n, out_n, out_d, bf16,
+                 stream)
     return cfac, dafac, dsfac
 
 
@@ -886,15 +917,18 @@ def _ptrs(tensors):
 
 
 def _check_persistent(lib, name, batch, local_ranks, in_n, out_n, out_d,
-                      backward):
-    """Raises where the persistent kernel takes not this geometry, or its
-    batch x local_ranks blocks cannot all be resident on the card."""
-    if lib.sdr_tp_persistent_smem_bytes(in_n, out_n, out_d, backward) < 0:
+                      backward, bf16=0):
+    """Raises where the persistent kernel (``bf16``: its bf16 instance)
+    takes not this geometry, or its batch x local_ranks blocks cannot all
+    be resident on the card."""
+    if lib.sdr_tp_persistent_smem_bytes(in_n, out_n, out_d, backward,
+                                        bf16) < 0:
         raise ValueError(
             "%s: capsule geometry (in_n, O_local, out_d) = (%d, %d, %d) does "
             "not fit the persistent kernel's shared memory"
             % (name, in_n, out_n, out_d))
-    held = lib.sdr_tp_persistent_capacity(in_n, out_n, out_d, backward)
+    held = lib.sdr_tp_persistent_capacity(in_n, out_n, out_d, backward,
+                                          bf16)
     if batch * local_ranks > held:
         raise ValueError(
             "%s: a cooperative launch of %d blocks (B %d x %d ranks) cannot "
@@ -958,28 +992,35 @@ def check_tp_status():
 
 
 def tp_forward_persistent(lib, uhats, out_n, out_d, num_iter, pad_rank,
-                          exchange, rank0, stream):
+                          exchange, rank0, stream, v_inits=None,
+                          step_valid=None):
     """K1-tp's persistent kernel after the prediction: one cooperative
     launch for ranks rank0 .. rank0 + len(uhats) - 1 of ``exchange``'s
-    set, ``uhats`` [B, T, in_n, pitch] their u_hat in rank order;
-    ``pad_rank`` the rank that holds the PAD capsule, or -1. Returns
-    ([out [B, T, out_n, out_d]], [the global (M, L) [T, num_iter, B, in_n,
-    2]]) per launched rank. ``lib`` the sdr_tp library (CUDA, or the tests'
-    host build on CPU tensors)."""
+    set, ``uhats`` [B, T, in_n, pitch] their u_hat in rank order (bf16:
+    the bf16 instance); ``pad_rank`` the rank that holds the PAD capsule,
+    or -1; ``v_inits`` each launched rank's carry before step 0 [B, out_n,
+    out_d] (or None: zeros) and ``step_valid`` [B, T] bool (or None),
+    contiguous (K1-tp-stream). Returns ([out [B, T, out_n, out_d]], [the
+    global (M, L) [T, num_iter, B, in_n, 2]]) per launched rank. ``lib``
+    the sdr_tp library (CUDA, or the tests' host build on CPU tensors)."""
     batch, seq_len, in_n = uhats[0].shape[:3]
+    bf16 = _is_bf16(uhats[0])
     _check_persistent(lib, "K1-tp", batch, len(uhats), in_n, out_n, out_d,
-                      0)
+                      0, bf16)
     dev = uhats[0].device
     outs = [torch.empty((batch, seq_len, out_n, out_d), device=dev)
             for _ in uhats]
     stats = [torch.empty((seq_len, num_iter, batch, in_n, 2), device=dev)
              for _ in uhats]
+    valid = _valid_bytes(step_valid)
     err = lib.sdr_tp_fwd_persistent(
-        _ptrs(uhats), _ptrs(outs), _ptrs(stats), exchange.xbufs,
+        _ptrs(uhats), _ptrs(outs), _ptrs(stats),
+        None if v_inits is None else _ptrs(v_inits),
+        None if valid is None else valid.data_ptr(), exchange.xbufs,
         exchange.flags, exchange.status.data_ptr(), exchange.ranks, rank0,
         len(uhats), pad_rank, exchange.cap, exchange.epochs,
         int(exchange.timeout_s * 1e9), batch, seq_len, in_n, out_n, out_d,
-        num_iter, stream)
+        num_iter, bf16, stream)
     _persistent_done(lib, "K1-tp", err, exchange, seq_len * num_iter)
     return outs, stats
 
@@ -987,14 +1028,16 @@ def tp_forward_persistent(lib, uhats, out_n, out_d, num_iter, pad_rank,
 def tp_backward_persistent(lib, uhats, vss, dvss, statss, pad_rank,
                            exchange, rank0, stream):
     """K2-tp's persistent reverse-time kernel, launched as
-    :func:`tp_forward_persistent`: per launched rank its u_hat, outputs and
-    their cotangents [B, T, out_n, out_d] and the forward's (M, L) [T, 1, B,
-    in_n, 2]. Returns du_hat's factors (c, da [B, T, in_n, out_n], ds [B, T,
-    out_n * out_d]) per launched rank, in K2's layout."""
+    :func:`tp_forward_persistent`: per launched rank its u_hat (bf16: the
+    bf16 instance), outputs and their cotangents [B, T, out_n, out_d] and
+    the forward's (M, L) [T, 1, B, in_n, 2]. Returns du_hat's factors (c,
+    da [B, T, in_n, out_n], ds [B, T, out_n * out_d]) per launched rank, in
+    K2's layout."""
     batch, seq_len, in_n = uhats[0].shape[:3]
     out_n, out_d = vss[0].shape[2], vss[0].shape[3]
+    bf16 = _is_bf16(uhats[0])
     _check_persistent(lib, "K2-tp", batch, len(uhats), in_n, out_n, out_d,
-                      1)
+                      1, bf16)
     dev = uhats[0].device
     cfacs = [torch.empty((batch, seq_len, in_n, out_n), device=dev)
              for _ in uhats]
@@ -1007,7 +1050,7 @@ def tp_backward_persistent(lib, uhats, vss, dvss, statss, pad_rank,
         exchange.status.data_ptr(), exchange.ranks, rank0, len(uhats),
         pad_rank, exchange.cap, exchange.epochs,
         int(exchange.timeout_s * 1e9), batch, seq_len, in_n, out_n, out_d,
-        stream)
+        bf16, stream)
     _persistent_done(lib, "K2-tp", err, exchange, seq_len)
     return list(zip(cfacs, dafacs, dsfacs))
 
@@ -1044,10 +1087,14 @@ def _sum_over(x, group):
 
 
 def _check_tp(fn_name, u, wgt, bias, extra=()):
-    """Device, dtype, rank and contiguity of the inputs (``extra`` more of
-    them), and u's, W's and bias's shapes agreeing; before any build."""
-    _check_inputs(fn_name, u, (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3))
-                  + tuple(extra))
+    """Device, dtype (u, W and bias float32, or all three bf16; the rest
+    float32), rank and contiguity of the inputs (``extra`` more of them),
+    and u's, W's and bias's shapes agreeing; before any build. Returns 1
+    for bf16 inputs (the kernels' bf16 instances), else 0."""
+    bf16 = int(bool(_variant(u)))
+    _check_inputs(fn_name, u, (("u", u, 4), ("W", wgt, 4), ("bias", bias, 3)),
+                  u.dtype)
+    _check_inputs(fn_name, u, tuple(extra))
     batch, seq_len, in_n, in_d = u.shape
     out_n, out_d = wgt.shape[1], wgt.shape[2]
     if (wgt.shape[0], wgt.shape[3]) != (in_n, in_d) or tuple(bias.shape) != (
@@ -1056,6 +1103,27 @@ def _check_tp(fn_name, u, wgt, bias, extra=()):
             tuple(u.shape), tuple(wgt.shape), tuple(bias.shape)))
     if batch < 1 or seq_len < 1:
         raise ValueError("need B and T >= 1 (got %d, %d)" % (batch, seq_len))
+    return bf16
+
+
+def _check_carry(fn_name, u, wgt, v_init, step_valid):
+    """K1-tp-stream's inputs: ``v_init`` [B, O_local, out_d] float32 and
+    ``step_valid`` [B, T] bool, each contiguous on u's device, or None."""
+    batch, seq_len = u.shape[:2]
+    if v_init is not None:
+        _check_inputs(fn_name, u, (("v_init", v_init, 3),))
+        want = (batch, wgt.shape[1], wgt.shape[2])
+        if tuple(v_init.shape) != want:
+            raise ValueError("v_init must be %s, got %s"
+                             % (want, tuple(v_init.shape)))
+    if step_valid is not None and (
+            step_valid.device != u.device or not step_valid.is_contiguous()
+            or step_valid.dtype != torch.bool
+            or tuple(step_valid.shape) != (batch, seq_len)):
+        raise ValueError(
+            "step_valid must be a contiguous bool %s tensor on %s, got %s %s "
+            "on %s" % ((batch, seq_len), u.device, step_valid.dtype,
+                       tuple(step_valid.shape), step_valid.device))
 
 
 def _check_tp_smem(lib, wgt):
@@ -1067,12 +1135,16 @@ def _check_tp_smem(lib, wgt):
 
 
 def _predict_rows(fwd, u, wgt, bias, stream):
-    """This rank's u_hat [B, T, in_n, pitch] by the prediction kernel."""
+    """This rank's u_hat [B, T, in_n, pitch] by the prediction kernel: in
+    u's dtype, float32 (pitch a multiple of 4) or bf16 (``sdr_predict_bf16``,
+    pitch a multiple of 8: 16 bytes either way)."""
     batch, seq_len, in_n, in_d = u.shape
     out_no = wgt.shape[1] * wgt.shape[2]
-    uhat = torch.empty((batch, seq_len, in_n, _plain().row_pitch(out_no)),
-                       device=u.device)
-    _raise_on(fwd, "sdr_fwd", fwd.sdr_predict(
+    uhat = torch.empty((batch, seq_len, in_n,
+                        _plain().row_pitch(out_no, u.dtype.itemsize)),
+                       dtype=u.dtype, device=u.device)
+    name = "sdr_predict" + _variant(u)
+    _raise_on(fwd, "sdr_fwd", getattr(fwd, name)(
         u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), uhat.data_ptr(),
         batch * seq_len, in_n, in_d, out_no, stream))
     return uhat
@@ -1088,22 +1160,38 @@ def _ipc_set(group, rows, device, pad_owner):
             me if pad_owner else -1)
 
 
-def sequential_routing_tp_cuda(u, wgt, bias, num_iter, pad_owner, group):
+def _fwd_variant(bf16, v_init, step_valid):
+    """The counter a K1-tp call adds its launches to: "_bf16" (K1-tp-bf16),
+    "_stream" (K1-tp-stream: a carry or a step mask) or "" (K1-tp)."""
+    if bf16:
+        return "_bf16"
+    return "_stream" if v_init is not None or step_valid is not None else ""
+
+
+def sequential_routing_tp_cuda(u, wgt, bias, num_iter, pad_owner, group,
+                               v_init=None, step_valid=None):
     """SDR on a shard of the out capsules on the card (K1-tp): same
     contract as ``ops.routing.sequential_routing_tp(..., return_stats=
     True)``. u [B, T, in_n, in_d] (replicated over ``group``), this rank's
     wgt [in_n, O_local, out_d, in_d] and bias [in_n, O_local, out_d],
     float32, contiguous, on one CUDA device -> (out [B, T, O_local, out_d],
-    the global (M, L) [T, num_iter, B, in_n, 2]). One exchange a step and
-    iteration over ``group``, by the group's transport
-    (:func:`tp_transport`): the persistent kernel over CUDA IPC, or the
-    host loop's all-gather of the rows' (m, l) pairs (``group`` None: no
-    exchange). Raises on anything the kernels do not take; never falls
-    back to the plain version or to another transport.
-    ``sequential_routing_tp_cuda.launches`` counts its kernel launches (the
-    prediction, then one persistent launch, or two a step and iteration),
-    ``.launches_persistent`` those of the persistent transports."""
-    _check_tp("sequential_routing_tp_cuda", u, wgt, bias)
+    the global (M, L) [T, num_iter, B, in_n, 2]), float32. Given bf16 u, W
+    and bias, K1-tp-bf16 computes ``sequential_routing_tp(..., bf16=True)``.
+    ``v_init`` [B, O_local, out_d] float32 (the carry before step 0) and
+    ``step_valid`` [B, T] bool (K1-tp-stream), contiguous on u's device, or
+    None. One exchange a step and iteration over ``group``, by the group's
+    transport (:func:`tp_transport`): the persistent kernel over CUDA IPC,
+    or the host loop's all-gather of the rows' (m, l) pairs (``group``
+    None: no exchange). Raises on anything the kernels do not take; never
+    falls back to the plain version or to another transport.
+    ``sequential_routing_tp_cuda.launches`` (``launches_bf16``,
+    ``launches_stream``) counts K1-tp's (K1-tp-bf16's, K1-tp-stream's)
+    kernel launches (the prediction, then one persistent launch, or two a
+    step and iteration), ``.launches_persistent`` those of the persistent
+    transports, every variant's."""
+    name = "sequential_routing_tp_cuda"
+    bf16 = _check_tp(name, u, wgt, bias)
+    _check_carry(name, u, wgt, v_init, step_valid)
     if num_iter < 1:
         raise ValueError("need num_iter >= 1 (got %d)" % num_iter)
     lib, fwd, _ = _tp_libs()
@@ -1116,32 +1204,71 @@ def sequential_routing_tp_cuda(u, wgt, bias, num_iter, pad_owner, group):
             uhat = _predict_rows(fwd, u, wgt, bias, stream)
             out, stats = drive(
                 tp_forward_steps(lib, uhat, out_n, out_d, num_iter,
-                                 pad_owner, stream),
+                                 pad_owner, stream, v_init, step_valid),
                 lambda local: _gather_pairs(local, group))
             launches = 1 + 2 * seq_len * num_iter
         else:
             exchange, me, pad_rank = _ipc_set(group, batch * in_n, u.device,
                                               pad_owner)
-            _check_persistent(lib, "K1-tp", batch, 1, in_n, out_n, out_d, 0)
+            _check_persistent(lib, "K1-tp", batch, 1, in_n, out_n, out_d, 0,
+                              bf16)
             uhat = _predict_rows(fwd, u, wgt, bias, stream)
             (out,), (stats,) = tp_forward_persistent(
                 lib, [uhat], out_n, out_d, num_iter, pad_rank, exchange, me,
-                stream)
+                stream, None if v_init is None else [v_init], step_valid)
             launches = 2
             sequential_routing_tp_cuda.launches_persistent += launches
-    sequential_routing_tp_cuda.launches += launches
+    counter = "launches" + _fwd_variant(bf16, v_init, step_valid)
+    setattr(sequential_routing_tp_cuda, counter,
+            getattr(sequential_routing_tp_cuda, counter) + launches)
     return out, stats
 
 
 sequential_routing_tp_cuda.launches = 0
+sequential_routing_tp_cuda.launches_bf16 = 0
+sequential_routing_tp_cuda.launches_stream = 0
 sequential_routing_tp_cuda.launches_persistent = 0
+
+
+def sequential_routing_tp_stream(u, wgt, bias, num_iter, pad_owner, group,
+                                 v_init=None, step_valid=None):
+    """SDR forward on a shard of the out capsules with an initial carry and
+    a per-step mask: a sharded model's streaming block (``models/srf.py``
+    ``route_block``), the counterpart of JAX's ``route_block`` on a
+    ``model`` mesh. ``v_init`` [B, O_local, out_d] (this rank's part of the
+    carry) or None (zeros); ``step_valid`` [T] or [B, T] bool or None
+    (every step valid). A CUDA tensor goes to K1-tp-stream
+    (:func:`sequential_routing_tp_cuda` with both inputs), a CPU tensor to
+    the plain ``sequential_routing_tp``; nothing else decides. Returns this
+    rank's outputs [B, T, O_local, out_d], float32. Forward only, as
+    :func:`sequential_routing_stream`."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (u, wgt, bias, v_init)):
+        raise RuntimeError(
+            "sequential_routing_tp_stream is forward-only; call it under "
+            "torch.no_grad() or torch.inference_mode()")
+    if step_valid is not None:
+        step_valid = torch.as_tensor(step_valid, device=u.device)
+        if step_valid.dim() == 1:
+            step_valid = step_valid.expand(u.shape[0], -1)
+    if not u.is_cuda:
+        return _plain().sequential_routing_tp(
+            u, wgt, bias, num_iter, pad_owner, group, v_init=v_init,
+            step_valid=step_valid)
+    cd = _plain()._compute_dtype(u.dtype)
+    return sequential_routing_tp_cuda(
+        *(x.to(cd).contiguous() for x in (u, wgt, bias)), num_iter,
+        pad_owner, group,
+        None if v_init is None else v_init.to(cd).contiguous(),
+        None if step_valid is None else step_valid.contiguous())[0]
 
 
 def _check_tp_grads(name, u, wgt, bias, vs, dvs, stats):
     """The backward's inputs: u, W and bias as :func:`_check_tp`, vs and dvs
-    [B, T, O_local, out_d], the one-iteration forward's stats."""
-    _check_tp(name, u, wgt, bias,
-              (("vs", vs, 4), ("dvs", dvs, 4), ("stats", stats, 5)))
+    [B, T, O_local, out_d], the one-iteration forward's stats. Returns 1
+    for bf16 u, W and bias."""
+    bf16 = _check_tp(name, u, wgt, bias,
+                     (("vs", vs, 4), ("dvs", dvs, 4), ("stats", stats, 5)))
     batch, seq_len, in_n = u.shape[:3]
     out_n, out_d = wgt.shape[1], wgt.shape[2]
     for label, x in (("vs", vs), ("dvs", dvs)):
@@ -1154,27 +1281,37 @@ def _check_tp_grads(name, u, wgt, bias, vs, dvs, stats):
         raise ValueError("stats must be a one-iteration forward's [%d, 1, "
                          "%d, %d, 2], got %s"
                          % (seq_len, batch, in_n, tuple(stats.shape)))
+    return bf16
 
 
 def _weight_grads(bwd, u, wgt, vs, cfac, dafac, dsfac, stream):
     """(this rank's part of du, the shard's dW and db) from du_hat's
-    factors: K2's weight-gradient kernel and its reduction."""
+    factors: K2's weight-gradient kernel and its reduction (their bf16
+    instance on bf16 u and W), float32 sums."""
     batch, seq_len, in_n, in_d = u.shape
     out_n, out_d = wgt.shape[1], wgt.shape[2]
-    floats = bwd.sdr_bwd_wgrad_part_floats(batch, seq_len, in_n, in_d,
-                                           out_n, out_d)
+    name = "sdr_bwd_wgrad" + _variant(u)
+    floats = getattr(bwd, name + "_part_floats")(batch, seq_len, in_n, in_d,
+                                                 out_n, out_d)
     if floats < 0:
-        raise RuntimeError("sdr_bwd_wgrad: no weight-gradient plan for "
-                           "%s on %s" % (tuple(wgt.shape), u.device))
+        raise RuntimeError("%s: no weight-gradient plan for %s on %s"
+                           % (name, tuple(wgt.shape), u.device))
     part = torch.empty(floats, device=u.device)
-    du, dwgt = torch.empty_like(u), torch.empty_like(wgt)
+    du = torch.empty(u.shape, device=u.device)
+    dwgt = torch.empty(wgt.shape, device=u.device)
     dbias = torch.empty(wgt.shape[:3], device=u.device)
-    _raise_on(bwd, "sdr_bwd", bwd.sdr_bwd_wgrad(
+    _raise_on(bwd, "sdr_bwd", getattr(bwd, name)(
         u.data_ptr(), wgt.data_ptr(), vs.data_ptr(), cfac.data_ptr(),
         dafac.data_ptr(), dsfac.data_ptr(), part.data_ptr(), du.data_ptr(),
         dwgt.data_ptr(), dbias.data_ptr(), batch, seq_len, in_n, in_d, out_n,
         out_d, stream))
     return du, dwgt, dbias
+
+
+def _rounded(grad, bf16):
+    """A gradient as the bf16 instances return it (its float32 sum rounded
+    once), or as it is."""
+    return grad.to(torch.bfloat16) if bf16 else grad
 
 
 def sequential_routing_tp_bwd_cuda(u, wgt, bias, vs, dvs, stats, pad_owner,
@@ -1184,16 +1321,20 @@ def sequential_routing_tp_bwd_cuda(u, wgt, bias, vs, dvs, stats, pad_owner,
     wgt and bias, its outputs vs and their cotangent dvs [B, T, O_local,
     out_d], the forward's ``stats``, float32, contiguous, on one CUDA
     device -> (du, dW, db): du the whole gradient of u (summed over
-    ``group`` once, after the loop), dW and db the shard's. One exchange of
+    ``group`` once, after the loop), dW and db the shard's. Given bf16 u,
+    W and bias (vs, dvs and stats float32: K1-tp-bf16's), K2-tp-bf16
+    computes ``sequential_routing_tp_bwd_bf16``: (du, dW, db) in bf16, each
+    a float32 sum (du's over the group too) rounded once. One exchange of
     the rows' [B, in_n] sums a step over ``group``, by the group's
-    transport (as :func:`sequential_routing_tp_cuda`). Raises on anything the kernels do
-    not take; never falls back to the plain version or to another
-    transport. ``sequential_routing_tp_bwd_cuda.launches`` counts its
-    kernel launches: the prediction, one persistent launch (or two a step),
-    the weight gradient and its reduction; ``.launches_persistent`` those
-    of the persistent transports."""
-    _check_tp_grads("sequential_routing_tp_bwd_cuda", u, wgt, bias, vs, dvs,
-                    stats)
+    transport (as :func:`sequential_routing_tp_cuda`). Raises on anything
+    the kernels do not take; never falls back to the plain version or to
+    another transport. ``sequential_routing_tp_bwd_cuda.launches``
+    (``launches_bf16``) counts K2-tp's (K2-tp-bf16's) kernel launches: the
+    prediction, one persistent launch (or two a step), the weight gradient
+    and its reduction; ``.launches_persistent`` those of the persistent
+    transports."""
+    bf16 = _check_tp_grads("sequential_routing_tp_bwd_cuda", u, wgt, bias,
+                           vs, dvs, stats)
     lib, fwd, bwd = _tp_libs()
     batch, seq_len, in_n = u.shape[:3]
     out_n, out_d = wgt.shape[1], wgt.shape[2]
@@ -1210,7 +1351,8 @@ def sequential_routing_tp_bwd_cuda(u, wgt, bias, vs, dvs, stats, pad_owner,
         else:
             exchange, me, pad_rank = _ipc_set(group, batch * in_n, u.device,
                                               pad_owner)
-            _check_persistent(lib, "K2-tp", batch, 1, in_n, out_n, out_d, 1)
+            _check_persistent(lib, "K2-tp", batch, 1, in_n, out_n, out_d, 1,
+                              bf16)
             uhat = _predict_rows(fwd, u, wgt, bias, stream)
             (cfac, dafac, dsfac), = tp_backward_persistent(
                 lib, [uhat], [vs], [dvs], [stats], pad_rank, exchange, me,
@@ -1220,60 +1362,78 @@ def sequential_routing_tp_bwd_cuda(u, wgt, bias, vs, dvs, stats, pad_owner,
         du, dwgt, dbias = _weight_grads(bwd, u, wgt, vs, cfac, dafac, dsfac,
                                         stream)
         _sum_over(du, group)
-    sequential_routing_tp_bwd_cuda.launches += launches
-    return du, dwgt, dbias
+    if bf16:
+        sequential_routing_tp_bwd_cuda.launches_bf16 += launches
+    else:
+        sequential_routing_tp_bwd_cuda.launches += launches
+    return tuple(_rounded(g, bf16) for g in (du, dwgt, dbias))
 
 
 sequential_routing_tp_bwd_cuda.launches = 0
+sequential_routing_tp_bwd_cuda.launches_bf16 = 0
 sequential_routing_tp_bwd_cuda.launches_persistent = 0
 
 
 def _check_colaunch(name, u, wgts, *per_shard):
     """Every shard as :func:`_check_tp` (W, then bias, then the lists of
     ``per_shard``, one entry a shard), the shards of one shape, at most
-    TP_MAX_RANKS of them."""
+    TP_MAX_RANKS of them. Returns 1 for bf16 u, W and bias."""
     if not 1 <= len(wgts) <= TP_MAX_RANKS or any(
             len(xs) != len(wgts) for xs in per_shard):
         raise ValueError("%s takes 1 to %d shards, an entry a shard in "
                          "each list, got %s" % (name, TP_MAX_RANKS, [
                              len(wgts)] + [len(xs) for xs in per_shard]))
     for q, wgt in enumerate(wgts):
-        _check_tp(name, u, wgt, per_shard[0][q])
+        bf16 = _check_tp(name, u, wgt, per_shard[0][q])
         if wgt.shape != wgts[0].shape:
             raise ValueError("%s: shard %d's W is %s, shard 0's %s" % (
                 name, q, tuple(wgt.shape), tuple(wgts[0].shape)))
+    return bf16
 
 
-def sequential_routing_tp_colaunch_cuda(u, wgts, biases, num_iter, pad):
+def sequential_routing_tp_colaunch_cuda(u, wgts, biases, num_iter, pad,
+                                        v_inits=None, step_valid=None):
     """K1-tp for every rank's shard in this process and one launch on one
     card (the co-launch transport): u [B, T, in_n, in_d], ``wgts`` and
     ``biases`` the ranks' shards in rank order (equal shapes), ``pad``: the
-    layer masks the PAD capsule, which rank 0's shard holds. Returns
-    ([out_r], [stats_r]), each what ``sequential_routing_tp_cuda`` returns
-    on rank r of a group of len(wgts); the plain version is
+    layer masks the PAD capsule, which rank 0's shard holds; bf16 u, W and
+    bias: K1-tp-bf16; ``v_inits`` (each shard's carry before step 0) and
+    ``step_valid`` [B, T] bool, or None: K1-tp-stream. Returns ([out_r],
+    [stats_r]), each what ``sequential_routing_tp_cuda`` returns on rank r
+    of a group of len(wgts); the plain version is
     ``ops.routing.sequential_routing_tp_colaunch``.
-    ``sequential_routing_tp_colaunch_cuda.launches`` counts its launches:
-    one prediction a shard and one persistent launch."""
+    ``sequential_routing_tp_colaunch_cuda.launches`` (``launches_bf16``,
+    ``launches_stream``) counts its launches: one prediction a shard and
+    one persistent launch."""
     name = "sequential_routing_tp_colaunch_cuda"
-    _check_colaunch(name, u, wgts, biases)
+    bf16 = _check_colaunch(name, u, wgts, biases)
+    for q, wgt in enumerate(wgts):
+        _check_carry(name, u, wgt, None if v_inits is None else v_inits[q],
+                     step_valid)
     if num_iter < 1:
         raise ValueError("need num_iter >= 1 (got %d)" % num_iter)
     lib, fwd, _ = _tp_libs()
     batch, seq_len, in_n = u.shape[:3]
     out_n, out_d = wgts[0].shape[1], wgts[0].shape[2]
-    _check_persistent(lib, "K1-tp", batch, len(wgts), in_n, out_n, out_d, 0)
+    _check_persistent(lib, "K1-tp", batch, len(wgts), in_n, out_n, out_d, 0,
+                      bf16)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         uhats = [_predict_rows(fwd, u, w, b, stream)
                  for w, b in zip(wgts, biases)]
         outs, stats = tp_forward_persistent(
             lib, uhats, out_n, out_d, num_iter, 0 if pad else -1,
-            local_exchange(len(wgts), batch * in_n, u.device), 0, stream)
-    sequential_routing_tp_colaunch_cuda.launches += len(wgts) + 1
+            local_exchange(len(wgts), batch * in_n, u.device), 0, stream,
+            v_inits, step_valid)
+    fn = sequential_routing_tp_colaunch_cuda
+    counter = "launches" + _fwd_variant(bf16, v_inits, step_valid)
+    setattr(fn, counter, getattr(fn, counter) + len(wgts) + 1)
     return outs, stats
 
 
 sequential_routing_tp_colaunch_cuda.launches = 0
+sequential_routing_tp_colaunch_cuda.launches_bf16 = 0
+sequential_routing_tp_colaunch_cuda.launches_stream = 0
 
 
 def sequential_routing_tp_bwd_colaunch_cuda(u, wgts, biases, vss, dvss,
@@ -1283,19 +1443,22 @@ def sequential_routing_tp_bwd_colaunch_cuda(u, wgts, biases, vss, dvss,
     :func:`sequential_routing_tp_colaunch_cuda`, each shard's outputs
     ``vss``, their cotangents ``dvss`` and the forward's (M, L) ``statss``
     in rank order -> (du summed over the shards in rank order, [dW_r],
-    [db_r]); the plain version is
+    [db_r]); bf16 u, W and bias: K2-tp-bf16, each gradient a float32 sum
+    rounded to bf16 once. The plain version is
     ``ops.routing.sequential_routing_tp_bwd_colaunch``.
-    ``sequential_routing_tp_bwd_colaunch_cuda.launches`` counts its
-    launches: a prediction a shard, one persistent launch, and the weight
-    gradient and its reduction a shard."""
+    ``sequential_routing_tp_bwd_colaunch_cuda.launches``
+    (``launches_bf16``) counts its launches: a prediction a shard, one
+    persistent launch, and the weight gradient and its reduction a
+    shard."""
     name = "sequential_routing_tp_bwd_colaunch_cuda"
-    _check_colaunch(name, u, wgts, biases, vss, dvss, statss)
+    bf16 = _check_colaunch(name, u, wgts, biases, vss, dvss, statss)
     for wgt, bias, vs, dvs, stats in zip(wgts, biases, vss, dvss, statss):
         _check_tp_grads(name, u, wgt, bias, vs, dvs, stats)
     lib, fwd, bwd = _tp_libs()
     batch, seq_len, in_n = u.shape[:3]
     out_n, out_d = wgts[0].shape[1], wgts[0].shape[2]
-    _check_persistent(lib, "K2-tp", batch, len(wgts), in_n, out_n, out_d, 1)
+    _check_persistent(lib, "K2-tp", batch, len(wgts), in_n, out_n, out_d, 1,
+                      bf16)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         uhats = [_predict_rows(fwd, u, w, b, stream)
@@ -1305,14 +1468,19 @@ def sequential_routing_tp_bwd_colaunch_cuda(u, wgts, biases, vss, dvss,
             local_exchange(len(wgts), batch * in_n, u.device), 0, stream)
         grads = [_weight_grads(bwd, u, w, vs, *f, stream)
                  for w, vs, f in zip(wgts, vss, factors)]
-    du = grads[0][0]
-    for part in grads[1:]:
-        du = du + part[0]
-    sequential_routing_tp_bwd_colaunch_cuda.launches += 3 * len(wgts) + 1
-    return du, [g[1] for g in grads], [g[2] for g in grads]
+    dus, dwgts, dbiases = zip(*grads)
+    du = dus[0]
+    for part in dus[1:]:
+        du = du + part
+    fn = sequential_routing_tp_bwd_colaunch_cuda
+    counter = "launches_bf16" if bf16 else "launches"
+    setattr(fn, counter, getattr(fn, counter) + 3 * len(wgts) + 1)
+    return (_rounded(du, bf16), [_rounded(g, bf16) for g in dwgts],
+            [_rounded(g, bf16) for g in dbiases])
 
 
 sequential_routing_tp_bwd_colaunch_cuda.launches = 0
+sequential_routing_tp_bwd_colaunch_cuda.launches_bf16 = 0
 
 
 class SDRTPFunction(torch.autograd.Function):
@@ -1323,34 +1491,38 @@ class SDRTPFunction(torch.autograd.Function):
     kernel).
 
     forward: u, W and bias cast to float32 (float64 stays, for the CPU
-    tests); K1-tp on a CUDA tensor (:func:`sequential_routing_tp_cuda`),
-    the plain ``sequential_routing_tp`` on a CPU tensor. Saves u, W, bias,
-    the output and the global (M, L) of every step and iteration.
-    backward: with one routing iteration K2-tp on CUDA
+    tests), or to bf16 with ``bf16`` (bf16 routing); K1-tp (K1-tp-bf16) on
+    a CUDA tensor (:func:`sequential_routing_tp_cuda`), the plain
+    ``sequential_routing_tp`` on a CPU tensor. Saves u, W, bias, the
+    float32 output and the global (M, L) of every step and iteration.
+    backward: with one routing iteration K2-tp (K2-tp-bf16) on CUDA
     (:func:`sequential_routing_tp_bwd_cuda`) and the plain
-    ``sequential_routing_tp_bwd`` on the CPU, both from the saved (M, L);
-    with more, autograd through the plain split loop recomputed from the
-    saved inputs, counted in ``SDRTPFunction.plain_backwards`` (as
-    ``SDRFunction``'s). u's gradient is the whole one, summed over the
-    group; W's and bias's are the shard's. Only the device and
-    ``num_iter`` choose; nothing falls back on failure.
+    ``sequential_routing_tp_bwd`` (``sequential_routing_tp_bwd_bf16``) on
+    the CPU, the float32 ones from the saved (M, L); with more, autograd
+    through the plain split loop recomputed from the saved inputs, counted
+    in ``SDRTPFunction.plain_backwards`` (as ``SDRFunction``'s). u's
+    gradient is the whole one, summed over the group; W's and bias's are
+    the shard's; each is cast to its input's dtype. Only the device,
+    ``bf16`` and ``num_iter`` choose; nothing falls back on failure.
     """
 
     plain_backwards = 0
 
     @staticmethod
-    def forward(ctx, u, wgt, bias, num_iter, pad_owner, group):
+    def forward(ctx, u, wgt, bias, num_iter, pad_owner, group, bf16=False):
         ctx.dtypes = (u.dtype, wgt.dtype, bias.dtype)
-        cd = _plain()._compute_dtype(u.dtype)
+        cd = torch.bfloat16 if bf16 else _plain()._compute_dtype(u.dtype)
         u, wgt, bias = (x.to(cd).contiguous() for x in (u, wgt, bias))
         if u.is_cuda:
             out, stats = sequential_routing_tp_cuda(u, wgt, bias, num_iter,
                                                     pad_owner, group)
         else:
             out, stats = _plain().sequential_routing_tp(
-                u, wgt, bias, num_iter, pad_owner, group, return_stats=True)
+                u, wgt, bias, num_iter, pad_owner, group, return_stats=True,
+                bf16=bf16)
         ctx.save_for_backward(u, wgt, bias, out, stats)
         ctx.num_iter, ctx.pad_owner, ctx.group = num_iter, pad_owner, group
+        ctx.bf16 = bf16
         return out.to(ctx.dtypes[0])
 
     @staticmethod
@@ -1360,6 +1532,10 @@ class SDRTPFunction(torch.autograd.Function):
         if ctx.num_iter == 1 and u.is_cuda:
             grads = sequential_routing_tp_bwd_cuda(
                 u, wgt, bias, out, dout, stats, ctx.pad_owner, ctx.group)
+        elif ctx.bf16:
+            SDRTPFunction.plain_backwards += ctx.num_iter > 1
+            grads = _plain().sequential_routing_tp_bwd_bf16(
+                u, wgt, bias, dout, ctx.pad_owner, ctx.group, ctx.num_iter)
         elif ctx.num_iter == 1:
             grads = _plain().sequential_routing_tp_bwd(
                 u, wgt, bias, out, dout, ctx.pad_owner, ctx.group, stats)
@@ -1371,7 +1547,7 @@ class SDRTPFunction(torch.autograd.Function):
                     *inputs, ctx.num_iter, ctx.pad_owner, ctx.group)
                 grads = torch.autograd.grad(recomputed, inputs, dout)
         return (*(g.to(d) for g, d in zip(grads, ctx.dtypes)), None, None,
-                None)
+                None, None)
 
 
 def _plain_loop_grads(u, wgt, bias, ctx, dout):

@@ -1,7 +1,10 @@
 """The port's host C++ library (``srf_tpu_torch/csrc/host/*.cc``): built with
 g++ at first use, loaded with ``ctypes``.
 
-It holds the C++ CTC prefix beam search (``csrc/host/ctc_beam.cc``). The
+It holds the C++ CTC prefix beam search (``csrc/host/ctc_beam.cc``) and the
+TFRecord CRC-32C and framing scan (``csrc/host/srf_io.cc``; with
+``-msse4.2`` where the build host has SSE4.2, as the JAX package's
+``csrc/build.sh`` builds it). The
 library goes to ``srf_tpu_torch/_build/`` (git-ignored), named by a hash of
 the sources and the flags, so an edited source is rebuilt and an unchanged
 one is not; a compile writes to a per-process temporary name and renames it,
@@ -21,8 +24,21 @@ import threading
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HOST_CSRC = os.path.join(_PACKAGE, "csrc", "host")
 BUILD_DIR = os.path.join(_PACKAGE, "_build")
-SOURCES = ("ctc_beam.cc",)
-FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-Wall")
+SOURCES = ("ctc_beam.cc", "srf_io.cc")
+
+
+def _has_sse42():
+    """Whether this host's CPU has SSE4.2 (the hardware CRC-32C)."""
+    try:
+        with open("/proc/cpuinfo") as info:
+            return "sse4_2" in info.read()
+    except OSError:
+        return False
+
+
+# the flags enter library_path's hash: a host without SSE4.2 builds its own
+FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-Wall") + (
+    ("-msse4.2",) if _has_sse42() else ())
 
 _lock = threading.Lock()
 _lib = None  # None: not tried yet; False: unavailable
@@ -64,6 +80,13 @@ def _declare(lib):
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+    ]
+    lib.srf_crc32c.restype = ctypes.c_uint32
+    lib.srf_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+    lib.srf_tfrecord_scan.restype = ctypes.c_int64
+    lib.srf_tfrecord_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
     ]
     return lib
 

@@ -388,11 +388,103 @@ def model_axis(workdir):
         tree = state_to_tree(state)
         out.update(_flat("accum/state/", tree["model"]))
         out.update(_flat("accum/ema/", tree["ema"]))
+
+    # what a shard reached only from ROADMAP item 7c on: bf16 routing, the
+    # wavefront and the streaming route_block on the sharded model
+    model = _srf_state(spec, state_dict, mesh, model_axis=True).model.eval()
+    feats, lens = batch["feats"], batch["inp_len"]
+    with torch.no_grad():
+        out["7c/logits"] = model(feats, lens).numpy()
+        model.routing_bf16 = True
+        out["7c/bf16_logits"] = model(feats, lens).numpy()
+        model.routing_bf16, model.routing_impl = False, "wavefront"
+        out["7c/wavefront_logits"] = model(feats, lens).numpy()
+        last = model.enc_num - 1
+        n = spec["model"]["caps_conv_num"]
+        d = spec["model"]["caps_conv_dim"]
+        u_ctx = torch.ones(2, 6, n, d) * torch.linspace(-1, 1, d)
+        block, v_last = model.route_block(u_ctx, last,
+                                          torch.full((2, 8, 4), 0.1),
+                                          torch.arange(4) >= 1)
+        out["7c/route_block"] = block.numpy()
+        out["7c/v_last"] = v_last.numpy()
     np.savez(os.path.join(workdir, "model_axis-rank%d.npz" % rank), **out)
 
 
+def model_axis_7c(workdir):
+    """The ``model`` axis beyond the layered float32 path on a (data 1,
+    model ranks) mesh. ``spec["bf16"]``: bf16 routing on this rank's shard
+    of route/W and route/b (``route_layer(..., bf16=True, shard=...)``),
+    for each (iterations, PAD mask) case the output and the gradients of
+    <out, cotangent>. ``spec["model"]``: the SRF with ``apply_rules``'s
+    sharded class layer, in eval mode: its last layer's ``route_block``
+    with a carry and a step mask (rb/*), one ``stream_step`` of two rows
+    (ss/*), a ``StreamingTranscriber`` over the utterance ``raw``, and the
+    wavefront forward of ``feats``."""
+    from srf_tpu_torch.models.srf import SequenceRouter
+    from srf_tpu_torch.ops.routing import route_layer
+    from srf_tpu_torch.parallel import distributed, sharding_rules
+    from srf_tpu_torch.parallel.mesh import make_mesh
+    from srf_tpu_torch.streaming import StreamingTranscriber
+
+    spec, state_dict, arrays = _inputs(workdir)
+    mesh = make_mesh(1, spec["ranks"], device="cpu")
+    group = mesh.group("model")
+    size, index = mesh.shape["model"], mesh.index("model")
+    out = {}
+    for num_iter, is_last in spec.get("bf16", []):
+        wgt, bias = (torch.from_numpy(arrays["route/" + n]) for n in ("W",
+                                                                      "b"))
+        length = wgt.shape[1] // size
+        part = slice(index * length, (index + 1) * length)
+        u = torch.from_numpy(arrays["route/u"]).requires_grad_()
+        w = wgt[:, part].contiguous().requires_grad_()
+        b = bias[:, part].contiguous().requires_grad_()
+        got = route_layer(u, w, b, num_iter, True, bool(is_last), bf16=True,
+                          shard=(index * length, wgt.shape[1], group))
+        (got * torch.from_numpy(arrays["route/cot"])[:, :, part]).sum(
+            ).backward()
+        out.update(_flat("bf16/%d%d/" % (num_iter, is_last),
+                         {"out": got, "du": u.grad, "dW": w.grad,
+                          "db": b.grad}))
+    if "model" in spec:
+        model = SequenceRouter(**spec["model"])
+        model.load_state_dict(state_dict)
+        model.eval()
+        sharding_rules.apply_rules(model, mesh)
+        assert sharding_rules.model_shard(model).layer(model.enc_num - 1)
+        t = lambda k: torch.from_numpy(arrays[k])
+        with torch.no_grad():
+            block, v_last = model.route_block(
+                t("rb/u_ctx"), model.enc_num - 1, t("rb/v_init"),
+                t("rb/valid"))
+            logits, bufs, vprevs = model.stream_step(
+                t("ss/window"), t("ss/length"), list(spec["lpost"]),
+                [t("ss/buf%d" % i) for i in range(model.enc_num)],
+                [t("ss/vprev%d" % i) for i in range(model.enc_num)],
+                arrays["ss/offsets"])
+        out.update(_flat("rb/", {"out": block, "v_last": v_last}))
+        out.update(_flat("ss/", {"logits": logits}))
+        out.update(_flat("ss/", {"buf%d" % i: x for i, x in enumerate(bufs)}))
+        out.update(_flat("ss/", {"vprev%d" % i: x
+                                 for i, x in enumerate(vprevs)}))
+        session = StreamingTranscriber(model, blank_id=spec["blank"],
+                                       chunk=spec["chunk"])
+        raw = arrays["raw"]
+        for start in range(0, raw.shape[0], 7):
+            session.push(raw[start:start + 7])
+        session.flush()
+        out["stream/logits"] = np.asarray(session.logits)
+        model.routing_impl = "wavefront"
+        with torch.no_grad():
+            out["wavefront/logits"] = model(t("feats"), t("lens")).numpy()
+    out["group_size"] = np.array(distributed.world_size(group))
+    np.savez(os.path.join(workdir, "model_axis_7c-rank%d.npz"
+                          % distributed.rank()), **out)
+
+
 SCENARIOS = {"dp": dp, "loader": loader, "ring": ring, "pipeline": pipeline,
-             "model_axis": model_axis}
+             "model_axis": model_axis, "model_axis_7c": model_axis_7c}
 
 
 def main(scenario, workdir):

@@ -24,8 +24,10 @@ ranks (a (data 1, model 2) mesh) and one of 4 ((2, 2)) for the module:
   equal dropout seeds on the model ranks of one data index,
   ``broadcast_state`` over a shard, the replicated gradients bitwise
   equal on the model ranks, the sharded checkpoint in one process,
-  gradient accumulation and EMA on shards, a mismatched world, and the
-  refusals that name ROADMAP item 7c.
+  gradient accumulation and EMA on shards, a mismatched world, and what
+  ROADMAP item 7c brought to a shard (bf16 routing, the wavefront, the
+  streaming ``route_block``; ``test_torch_sdr_tp_bf16.py`` and
+  ``test_torch_model_axis_7c.py`` hold them to JAX).
 """
 
 import json
@@ -483,23 +485,39 @@ def test_make_mesh_raises_on_a_mismatched_world():
         port_mesh.make_mesh(1, num_model=0, device="cpu")
 
 
-def test_what_a_shard_does_not_reach_raises_naming_item_7c():
-    def sharded(**kwargs):
-        model = SequenceRouter(**dict(MODEL, **kwargs))
-        sharding_rules.apply_rules(model,
-                                   port_mesh.Mesh({"data": 1, "model": 2}))
-        return model.eval()
-
-    feats, lengths = torch.zeros(1, 16, 16), torch.tensor([16])
-    for kwargs in ({"routing_impl": "wavefront"}, {"routing_bf16": True}):
-        with pytest.raises(ValueError, match="item 7c"):
-            sharded(**kwargs)(feats, lengths)
-    model = sharded()
-    u_ctx = torch.zeros(1, 4, 5, 4)
-    with pytest.raises(ValueError, match="item 7c"):
-        model.route_block(u_ctx, 2)
-    with pytest.raises(ValueError, match="item 7c"):
-        routing.route_layer(torch.zeros(1, 2, 15, 4), model.W2, model.b2, 1,
-                            True, True, bf16=True, shard=(0, 8, None))
+def test_what_a_shard_does_not_reach_raises_naming_item_7c(runs2, runs4):
+    """What a shard did not reach before ROADMAP item 7c now runs there:
+    on every rank of both meshes the sharded model's bf16-routing forward
+    (within 5e-2 of the float32 logits, and off them), its wavefront
+    forward (the layered logits within test_torch_wavefront.py's 2e-5)
+    and its streaming ``route_block`` with a carry and a warm-up step
+    (whole: the ranks' capsules gathered), equal on the model ranks; and
+    ``route_layer(..., bf16=True, shard=...)`` in one process. FSDP on a
+    ``model`` axis is still refused, as in JAX."""
+    for run in (runs2, runs4):
+        for rank in run.ranks:
+            logits = rank["7c/logits"]
+            assert np.isfinite(rank["7c/bf16_logits"]).all()
+            np.testing.assert_allclose(rank["7c/bf16_logits"], logits,
+                                       atol=5e-2 * np.abs(logits).max())
+            assert np.abs(rank["7c/bf16_logits"] - logits).max() > 1e-6
+            np.testing.assert_allclose(rank["7c/wavefront_logits"], logits,
+                                       rtol=0, atol=2e-5)
+            assert rank["7c/route_block"].shape[2] == MODEL["class_n"]
+            assert rank["7c/v_last"].shape[1] == MODEL["class_n"]
+            assert not rank["7c/route_block"][:, 0].any()
+            # the model ranks of one data index hold the same batch
+            peer = next(r for r in run.ranks if r["mesh/index"][0]
+                        == rank["mesh/index"][0])
+            for key in ("7c/bf16_logits", "7c/wavefront_logits",
+                        "7c/route_block"):
+                np.testing.assert_array_equal(rank[key], peer[key], key)
+    model = SequenceRouter(**MODEL)
+    sharding_rules.apply_rules(model, port_mesh.Mesh({"data": 1, "model": 2}))
+    assert model.W2.shape[1] == MODEL["class_n"] // 2
+    u = torch.randn(1, 2, 15, 4)
+    out = routing.route_layer(u, model.W2, model.b2, 1, True, True,
+                              bf16=True, shard=(0, 8, None))
+    assert out.shape == (1, 2, 4, 4) and out.dtype == torch.float32
     with pytest.raises(ValueError, match="fsdp"):
         sharding_rules.fsdp(model, port_mesh.Mesh({"data": 1, "model": 2}))

@@ -59,3 +59,45 @@ def test_step_timer_summary_equals_jax(monkeypatch, warmup):
 
 def test_step_timer_without_steps_is_empty():
     assert profiler.StepTimer().summary() == {}
+
+
+def test_trace_primes_and_writes_no_priming(tmp_path, monkeypatch):
+    """``trace`` primes before the region (on the card: sleep kernels that
+    take the profiler's lost records) and writes the trace without the
+    priming: here the priming's stand-in runs CPU work in a range of its
+    own, which the written file does not hold, while it holds the
+    region's."""
+    order = []
+
+    def prime():
+        order.append("primed")
+        with profiler.annotate("srf_priming_probe"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+
+    monkeypatch.setattr(profiler, "_prime_device", prime)
+    with profiler.trace(str(tmp_path / "prof")) as path:
+        order.append("region")
+        with profiler.annotate("srf_test_range"):
+            torch.ones(4, 4) @ torch.ones(4, 4)
+    assert order == ["primed", "region"]
+    with open(path) as trace:
+        names = {e.get("name") for e in json.load(trace)["traceEvents"]}
+    assert "srf_test_range" in names
+    assert not names & {"srf_priming_probe", profiler.PRIMING_RANGE}
+
+
+def test_strip_priming_drops_what_began_before_the_priming_ended(tmp_path):
+    path = tmp_path / "trace.json"
+    events = [{"ph": "M", "name": "process_name", "pid": 1},
+              {"ph": "X", "name": profiler.PRIMING_RANGE, "ts": 10, "dur": 5},
+              {"ph": "X", "name": "spin_kernel", "ts": 12, "dur": 1,
+               "cat": "kernel"},
+              {"ph": "X", "name": "region", "ts": 15, "dur": 4},
+              {"ph": "X", "name": "kernel", "ts": 16, "dur": 2,
+               "cat": "kernel"}]
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert profiler.strip_priming(str(path)) == 2
+    kept = json.loads(path.read_text())["traceEvents"]
+    assert [e["name"] for e in kept] == ["process_name", "region", "kernel"]
+    # a trace without the range is left as it was
+    assert profiler.strip_priming(str(path)) == 0

@@ -6,7 +6,8 @@ resident bytes (quantized_bytes), no float32 copy of a quantized weight
 left among the module's parameters and buffers, and the int8 Recognizer's
 logits within atol 1e-5 of the JAX model applied to dequantize_tree's
 weights (float32 sums in another order; the weights are the same bits),
-with the same ids."""
+with the same ids; and the LSTM's, the CNN's and the STF's int8 forwards
+within the same atol of their JAX models on dequantize_tree's weights."""
 
 import numpy as np
 import pytest
@@ -17,12 +18,14 @@ import torch
 
 from srf_tpu.models.lstm import LstmEncoder as FlaxLstmEncoder
 from srf_tpu.models.srf import SequenceRouter as FlaxSequenceRouter
+from srf_tpu.models.stf import ConvEncoder as FlaxConvEncoder
 from srf_tpu.ops.quant import dequantize_tree, quantize_tree
 from srf_tpu.ops.quant import quantized_bytes as jax_quantized_bytes
 from srf_tpu_torch import convert
 from srf_tpu_torch.config import Logger, ParseOption
 from srf_tpu_torch.models.lstm import LstmEncoder
 from srf_tpu_torch.models.srf import SequenceRouter
+from srf_tpu_torch.models.stf import ConvEncoder
 from srf_tpu_torch.ops.quant import (
     quantize_model, quantized_bytes, quantized_leaves,
 )
@@ -75,6 +78,40 @@ def _cnn():
     variables = random_flax_variables(flax_model, 8, seed=4)
     model.load_state_dict(convert.flax_to_state_dict(variables))
     return flax_model, variables, model
+
+
+def _stf():
+    kwargs = dict(num_layers=2, d_model=64, num_heads=2, dff=128, feat_dim=8,
+                  vocab_n=5, nfilt=4, cnn_n=2)
+    flax_model = FlaxConvEncoder(**kwargs)
+    variables = random_flax_variables(flax_model, 8, seed=5)
+    model = ConvEncoder(**kwargs)
+    model.load_state_dict(convert.flax_to_state_dict(variables))
+    return flax_model, variables, model
+
+
+@pytest.mark.parametrize("family", ["lstm", "cnn", "stf"])
+def test_int8_forward_matches_jax_on_dequantized_weights(family):
+    """The family's int8 forward (unmasked, as the served models run)
+    against the JAX model applied to dequantize_tree(quantize_tree(...)):
+    the same weights' bits, float32 sums in another order."""
+    flax_model, variables, model = {"lstm": _lstm, "cnn": _cnn,
+                                    "stf": _stf}[family]()
+    assert quantize_model(model)
+    rng = np.random.RandomState(7)
+    feats = rng.randn(2, 40, 8).astype(np.float32)
+    lengths = np.array([40, 31], np.int32)
+    with torch.inference_mode():
+        got = model.eval()(torch.from_numpy(feats),
+                           torch.from_numpy(lengths)).numpy()
+    dequant = dict(variables,
+                   params=dequantize_tree(quantize_tree(variables["params"])))
+    want = np.asarray(flax_model.apply(dequant, jnp.asarray(feats),
+                                       jnp.asarray(lengths), False))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    plain = np.asarray(flax_model.apply(variables, jnp.asarray(feats),
+                                        jnp.asarray(lengths), False))
+    assert np.abs(want - plain).max() > 1e-6  # the int8 weights moved it
 
 
 @pytest.mark.parametrize("family", ["srf", "lstm", "cnn"])

@@ -401,3 +401,215 @@ def test_the_colaunch_wrappers_take_cuda_tensors_only():
             ValueError, match="ops.routing.sequential_routing_tp_bwd_colaunch"):
         routing_cuda.sequential_routing_tp_bwd_colaunch_cuda(
             u, [wgt], [bias], [cot], [cot], [stats], True)
+
+
+# ---- K1-tp-bf16, K2-tp-bf16 and K1-tp-stream on the host build
+
+# bf16: the kernels against the plain split bf16 SDR, whose float32 sums
+# run in another order, so a sum may round a c, a v or a dc to the other
+# bf16 neighbour: outputs, the (M, L) statistics and du_hat's factors
+# within BF16_FWD_REL of their largest entry (measured below 1e-6 here,
+# where the float32 SDR reads 3e-3 to 1.4e-2 from the bf16 one), the
+# gradients within BF16_BWD_REL (K2-bf16's limit on the card, 4 bf16
+# ulps, chip_smoke.py)
+BF16_FWD_REL, BF16_BWD_REL = 1e-3, 1.6e-2
+
+
+def _bf16(*tensors):
+    return [x.to(torch.bfloat16) for x in tensors]
+
+
+def _bf16_weight_grads(u, wgt, vs, c, da, ds):
+    """(du, dW, db) from a bf16 forward's factors, rounded where the
+    bf16 weight-gradient kernel rounds (du_hat = bf16(bf16(c) ds + da
+    bf16(v_{t-1}))), float32 sums; u and wgt bf16."""
+    rnd = routing.round_bf16
+    v_prev = torch.cat([torch.zeros_like(vs[:, :1]), vs[:, :-1]], dim=1)
+    du_hat = rnd(rnd(c)[..., None] * ds[:, :, None]
+                 + da[..., None] * rnd(v_prev)[:, :, None])
+    uf, wf = u.float(), wgt.float()
+    return (torch.einsum("btnoi,noij->btnj", du_hat, wf),
+            torch.einsum("btnoi,btnj->noij", du_hat, uf),
+            du_hat.sum(dim=(0, 1)))
+
+
+def _hold_rel(got, want, rel, name):
+    limit = rel * want.abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= limit, "%s: %.3e > %.3e" % (name, err, limit)
+
+
+def _hold_bf16(u, wgt, bias, cot, pad, num_iter, forward, grads):
+    """The bf16 kernels' results against the plain split bf16 SDR on the
+    whole W (group None: the softmax over every shard): outputs,
+    statistics, du_hat's factors shard by shard, and the gradients."""
+    want, want_stats = routing.sequential_routing_tp(
+        u, wgt, bias, num_iter, pad, None, return_stats=True, bf16=True)
+    for part, out, stats in forward:
+        _hold_rel(out, want[:, :, part], BF16_FWD_REL, "out")
+        np.testing.assert_allclose(stats, want_stats, rtol=BF16_FWD_REL,
+                                   atol=1e-6)
+    if grads is None:
+        return
+    u_hat = routing.predict_capsules_bf16(*_bf16(u, wgt, bias)).float()
+    whole = routing.sequential_routing_tp_bwd_factors(
+        u_hat, want, cot, pad, None, want_stats, bf16=True)
+    for (part, _, _), factors in zip(forward, grads[3]):
+        for name, got, ref in zip(("c", "da", "ds"), factors,
+                                  (whole[0][..., part], whole[1][..., part],
+                                   whole[2][:, :, part])):
+            _hold_rel(got.reshape(ref.shape), ref, BF16_FWD_REL, name)
+    du, dwgt, dbias = routing.sequential_routing_tp_bwd_bf16(
+        u, wgt, bias, cot, pad, None)
+    du_sum, dws, dbs, _ = grads
+    for (part, _, _), dw_q, db_q in zip(forward, dws, dbs):
+        _hold_rel(dw_q, dwgt[:, part], BF16_BWD_REL, "dW")
+        _hold_rel(db_q, dbias[:, part], BF16_BWD_REL, "db")
+    _hold_rel(du_sum, du, BF16_BWD_REL, "du")
+
+
+@pytest.mark.parametrize("shards,pad,num_iter", [
+    (2, True, 1), (3, False, 1), (2, False, 2)])
+def test_bf16_step_kernels_match_the_plain_split_bf16(host_lib, shards, pad,
+                                                      num_iter):
+    """The host loop's step kernels' bf16 instances, 2-3 shards in
+    lockstep, on the bf16 prediction's rows (pitch 8)."""
+    u, wgt, bias, cot = _inputs(31 + shards + num_iter)
+    length = OUT_N // shards
+    parts = [slice(q * length, (q + 1) * length) for q in range(shards)]
+    ub, wb, bb = _bf16(u, wgt, bias)
+    uhats = [routing.predict_capsules_rows(ub, wb[:, p].contiguous(),
+                                           bb[:, p].contiguous())
+             for p in parts]
+    assert uhats[0].dtype == torch.bfloat16 and uhats[0].shape[-1] % 8 == 0
+    forward = lockstep(
+        [routing_cuda.tp_forward_steps(host_lib, uhat, length, OUT_D,
+                                       num_iter, pad and q == 0, None)
+         for q, uhat in enumerate(uhats)],
+        lambda pairs: [torch.stack(pairs)] * shards)
+    grads = None
+    if num_iter == 1:
+        factors = lockstep(
+            [routing_cuda.tp_backward_steps(
+                host_lib, uhat, out.contiguous(),
+                cot[:, :, part].contiguous(), stats, pad and q == 0, None)
+             for q, (uhat, (out, stats), part) in enumerate(
+                 zip(uhats, forward, parts))],
+            lambda rows: [sum(rows)] * shards)
+        du_sum, dws, dbs = 0, [], []
+        for (c, da, ds), (out, _), part in zip(factors, forward, parts):
+            du_q, dw_q, db_q = _bf16_weight_grads(
+                ub, wb[:, part], out, c, da, ds.reshape(out.shape))
+            du_sum = du_sum + du_q
+            dws.append(dw_q)
+            dbs.append(db_q)
+        grads = (du_sum, dws, dbs, factors)
+    _hold_bf16(u, wgt, bias, cot, pad, num_iter,
+               [(part, out, stats) for (out, stats), part in zip(forward,
+                                                                 parts)],
+               grads)
+
+
+def _persistent_bf16(lib, exchange, u, wgt, bias, cot, shards, pad,
+                     num_iter):
+    """_persistent_call's bf16 counterpart: bf16 rows into the persistent
+    kernels' bf16 instances."""
+    length = wgt.shape[1] // shards
+    parts = [slice(q * length, (q + 1) * length) for q in range(shards)]
+    ub, wb, bb = _bf16(u, wgt, bias)
+    uhats = [routing.predict_capsules_rows(ub, wb[:, p].contiguous(),
+                                           bb[:, p].contiguous())
+             .contiguous() for p in parts]
+    pad_rank = 0 if pad else -1
+    outs, stats = routing_cuda.tp_forward_persistent(
+        lib, uhats, length, wgt.shape[2], num_iter, pad_rank, exchange, 0,
+        None)
+    forward = list(zip(parts, outs, stats))
+    if num_iter > 1:
+        return forward, None
+    factors = routing_cuda.tp_backward_persistent(
+        lib, uhats, outs, [cot[:, :, p].contiguous() for p in parts], stats,
+        pad_rank, exchange, 0, None)
+    du_sum, dws, dbs = 0, [], []
+    for (c, da, ds), out, part in zip(factors, outs, parts):
+        du_q, dw_q, db_q = _bf16_weight_grads(ub, wb[:, part], out, c, da,
+                                              ds.reshape(out.shape))
+        du_sum = du_sum + du_q
+        dws.append(dw_q)
+        dbs.append(db_q)
+    return forward, (du_sum, dws, dbs, factors)
+
+
+@pytest.mark.parametrize("shards,pad,num_iter,out_n,out_d", [
+    (2, True, 1, 6, 3), (3, False, 2, 6, 3), (2, True, 1, 12, 8),
+    (2, False, 1, 80, 8), (2, True, 1, 4, 20), (3, True, 2, 6, 20)])
+def test_persistent_bf16_kernels_match_the_plain_split_bf16(
+        host_lib, shards, pad, num_iter, out_n, out_d):
+    """K1-tp-bf16 and K2-tp-bf16 as a co-launch: the general path (out_d
+    3) and the register paths (out_d 8, two capsules a lane at 40 a shard,
+    and 20), on a bf16 ring."""
+    u, wgt, bias, cot = _inputs(41 + out_d + num_iter, out_n=out_n,
+                                out_d=out_d)
+    exchange = routing_cuda.new_local_exchange(shards, BATCH * IN_N, "cpu")
+    forward, grads = _persistent_bf16(host_lib, exchange, u, wgt, bias, cot,
+                                      shards, pad, num_iter)
+    _hold_bf16(u, wgt, bias, cot, pad, num_iter, forward, grads)
+
+
+def _stream_inputs(seed, out_n, out_d):
+    """A nonzero carry before step 0 (the whole layer's) and a step mask
+    whose first steps are warm-up on one row and none on the other."""
+    rng = np.random.RandomState(seed)
+    v_init = torch.tensor(0.3 * rng.randn(BATCH, out_n, out_d),
+                          dtype=torch.float32)
+    valid = torch.ones(BATCH, STEPS, dtype=torch.bool)
+    valid[0, :2] = False
+    return v_init, valid
+
+
+@pytest.mark.parametrize("transport,shards,pad,num_iter,out_n,out_d", [
+    ("host_loop", 2, True, 1, 6, 3), ("host_loop", 3, False, 2, 6, 3),
+    ("persistent", 2, True, 1, 6, 3), ("persistent", 3, True, 2, 6, 3),
+    ("persistent", 2, True, 1, 12, 8), ("persistent", 2, False, 1, 4, 20)])
+def test_stream_kernels_take_a_carry_and_a_step_mask(
+        host_lib, transport, shards, pad, num_iter, out_n, out_d):
+    """K1-tp-stream, on both transports: each shard's carry from v_init,
+    an invalid step's zeros in the output and the carry, against the plain
+    split SDR's v_init / step_valid on the whole W (float32: K1-tp's
+    limits, 1e-5), and v_last (the last step's output)."""
+    u, wgt, bias, _ = _inputs(51 + num_iter, out_n=out_n, out_d=out_d)
+    v_init, valid = _stream_inputs(52, out_n, out_d)
+    want, want_stats = routing.sequential_routing_tp(
+        u, wgt, bias, num_iter, pad, None, return_stats=True, v_init=v_init,
+        step_valid=valid)
+    np.testing.assert_allclose(
+        want, routing.sequential_routing(u, wgt, bias, num_iter, pad,
+                                         v_init, valid), rtol=0, atol=1e-6)
+    length = out_n // shards
+    parts = [slice(q * length, (q + 1) * length) for q in range(shards)]
+    uhats = [routing.predict_capsules_rows(u, wgt[:, p], bias[:, p])
+             .contiguous() for p in parts]
+    v_inits = [v_init[:, p].contiguous() for p in parts]
+    if transport == "host_loop":
+        results = lockstep(
+            [routing_cuda.tp_forward_steps(host_lib, uhat, length, out_d,
+                                           num_iter, pad and q == 0, None,
+                                           v_inits[q], valid)
+             for q, uhat in enumerate(uhats)],
+            lambda pairs: [torch.stack(pairs)] * shards)
+    else:
+        exchange = routing_cuda.new_local_exchange(shards, BATCH * IN_N,
+                                                   "cpu")
+        results = list(zip(*routing_cuda.tp_forward_persistent(
+            host_lib, uhats, length, out_d, num_iter, 0 if pad else -1,
+            exchange, 0, None, v_inits, valid)))
+    for (out, stats), part in zip(results, parts):
+        np.testing.assert_allclose(out, want[:, :, part], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(stats, want_stats, rtol=1e-5, atol=1e-5)
+        assert not out[0, :2].any()  # the warm-up steps emit zeros
+        np.testing.assert_allclose(out[:, -1], want[:, -1, part], rtol=0,
+                                   atol=1e-5)
+    # the carry moved the answer: without it the first row's steps differ
+    zero = routing.sequential_routing_tp(u, wgt, bias, num_iter, pad, None,
+                                         step_valid=valid)
+    assert (zero[1] - want[1]).abs().max() > 1e-4
