@@ -93,8 +93,8 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    beam must give the Python prefix search's hypothesis on the 3 shortest
    utterances (the same near-tie rule); how many utterances (b) changes
    (F7) is printed; then per-batch forward, device-beam and host-beam
-   times over every batch at batch 1 and at batch 8, in two passes back
-   to back, decode wall per utterance and the realtime factor, and a
+   times over every batch at batch 1 and at batch 8 (TIMING_PASSES
+   passes), decode wall per utterance and the realtime factor, and a
    profile of one batch-8 device beam (device ops per frame, idle share);
 7. the SRF training path: the same model and weights trained by
    train.step.make_train_step with Adam under Noam(0.5, 1, 1200) and
@@ -161,7 +161,7 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    one draws from the device's generator); then 1 + TRAIN_STEPS steps of
    CNN-TIMIT at 29 x 241 (the first, with cuDNN's algorithm search, timed
    apart), each launching K5 exactly 50 times, with finite losses and
-   every tensor on the card; ms/step, utt/s, audio-seconds/s and a profile
+   every tensor on the card; ms/step, utt/s, peak memory and a profile
    of one step (K5, convolution kernels, the rest, idle share);
 10. the STF-TIMIT recipe's model (egs/script/train_stf_timit.sh with
    timit.conf: L=20, D=128, 4 heads, FF 1024, 2 x 64-filter maxout
@@ -190,6 +190,39 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    and 21 x 1141), average_ckpt, decode at beam 100 and log2utt over 8
    test utterances of 300-1600 frames. Phases 10 and 11 must leave K1-K5's
    launch counters where they found them;
+11b. the CNN-WSJ recipe's model (egs/script/torch/train_cnn_wsj.sh with
+   wsj.conf: the stride variant, L=15, filters 200/430, 3 x 2048
+   projections, stride 2, --model-conv-is-mp=False, 32 classes) with
+   --tpu-dropout-kernel=pallas: its 36 K5 sites read off the model at 44
+   x 541 (the input dropout, 2 a conv, 2 a projection, projv) and K5 held
+   to its plain version with torch.equal at each site's size at rates 0.2
+   and the recipe's inner rate, with per site the kernel's, the plain
+   version's and F.dropout's times beside the bound; phase 11's two WSJ
+   batches served on the card (K5 0 launches), the CPU decoding 2
+   utterances of each (ids and text equal, logits at valid frames within
+   CNN_LOGIT_ATOL); one pallas-mode step with dropout on at every K5 site
+   on card and CPU at CNN_WSJ_CHECK_ROWS rows of 541 frames (the front
+   end's own dropout off), held as phase 9 holds CNN-TIMIT at the Noam
+   peak (count 25000); 1 + TRAIN_STEPS steps over the three 24000-frame
+   buckets (44 x 541, 24 x 991, 15 x 1591), each launching K5 exactly 72
+   times, with finite losses and every tensor on the card: the first step
+   per bucket (cuDNN's search) apart, the median step, peak memory and a
+   primed profile (K5, convolutions, the rest, idle share); then the
+   recipe through the CLIs on synthetic TFRecords (44 x 541 and 24 x 991
+   filled once in train and valid): trainer_sr at k 0.5 to epoch 1, at k
+   0.1 to epoch 2 (72 K5 launches a train step), average_ckpt, decode
+   with the device beam at width 100 and log2utt --corpus wsj over the 8
+   x 300-1600 batch's utterances;
+11c. the STF-WSJ recipe's model (train_stf_wsj.sh with wsj.conf: L=20,
+   D=256, 4 heads, FF 1488, dropouts 0.3/0.4/0.3/0.4, penalty (1, 1, 1))
+   as phase 10 runs STF-TIMIT: the two WSJ batches served on card and
+   CPU (STF_LOGIT_ATOL; no padding bias or penalty), one dropout-free
+   step with trainer_tf's padding bias and penalty board held to the
+   CPU's at the Noam peak (count 25000), 1 + TRAIN_STEPS steps over the
+   three WSJ buckets (dropout on) with peak memory and a primed profile,
+   and trainer_tf at k 1.5, then 0.5, average_ckpt, decode at beam 100
+   and log2utt over the same corpus. Phase 11b must leave K1-K4's
+   counters where it found them, 11c K1-K5's;
 12. streaming SRF-TIMIT with phase 6's weights: K1 with an initial carry
    and a step mask (warm-up rows, one all warm-up) against its plain
    version at [1|4] x [8|10] at the TIMIT layers and the SRF-WSJ
@@ -241,8 +274,12 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    utterance CMVN) and --wav of that wav must print the same text;
    --tpu-serve-quant=int8 on the card against the CPU (logits within
    LOGIT_ATOL, ids equal), its resident bytes against float32 and its
-   logits' distance from float32; tools.align over 8 utterances on card
-   and CPU (spans equal, scores within 1e-4);
+   logits' distance from float32; the same for phase 11's LSTM-WSJ model
+   and weights on its two batches (ids equal, logits within
+   LSTM_LOGIT_ATOL), its int8 and float32 forwards' times and what
+   dequantizing every quantized weight once costs (each forward does);
+   tools.align over 8 utterances on card and CPU (spans equal, scores
+   within 1e-4);
 15. the training extras and the bf16 variants of K1, K2 and K5: K1-bf16
    and K2-bf16 against their plain versions (``sequential_routing(...,
    bf16=True)`` and autograd through it) at SDR_SHAPES x TIMIT_LAYERS and
@@ -339,7 +376,7 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 18. the profiler's line (every trace is primed with one-cycle kernels,
    since torch.profiler drops some of a trace's first device records: how
    many of those it lost, trace by trace), a "kernels" JSON line (K1, K2,
-   K3, K4, K5, the variants K1-bf16, K2-bf16, K5-bf16, K1-tp and K2-tp's
+   K3, K4, K5 (with its CNN-WSJ paths and a CNN-WSJ step's sites), the variants K1-bf16, K2-bf16, K5-bf16, K1-tp and K2-tp's
    host loop, their persistent kernels, and K1-tp-bf16, K2-tp-bf16 and
    K1-tp-stream), then the card line, then the result line.
 """
@@ -1452,11 +1489,12 @@ NEAR_TIE_PATHS, NEAR_TIE_SCORE = 4, 1e-3
 BEAM_SCORE_ATOL = 1e-4
 LM_UTTS, LM_ORDER = 3, 3
 # utterances of the card-vs-CPU beam check (the first of the sorted ids;
-# the CPU's beam at width 100 is slow), and the passes, back to back, over
-# every batch of batch 1 and of batch 8 whose forward and beams are timed
-# apart
+# the CPU's beam at width 100 is slow), and the passes over every batch of
+# batch 1 and of batch 8 whose forward and beams are timed apart (one, for
+# the run's time: two passes back to back read 17-27 % apart on the host
+# clock)
 CHECK_UTTS = 8
-TIMING_PASSES = 2
+TIMING_PASSES = 1
 
 
 def test_split_data():
@@ -1776,7 +1814,7 @@ def decode_phase(torch, card, state, device="cuda"):
 
         # where a decode's time goes, per batch: forward, device beam, host
         # beam, over every batch of batch 1 and of batch 8, in
-        # TIMING_PASSES passes back to back (the host clock's spread)
+        # TIMING_PASSES passes
         for timing_pass in range(1, TIMING_PASSES + 1):
             for size, batches in loaders.items():
                 fwd, dev, host = [], [], []
@@ -2029,7 +2067,7 @@ def train_parity(torch, config, state, batch, dropout=False, label="",
           "too few parameters' updates compared")
     print("%strain parity (B=%d, dropout %s, one step at count %s, rate "
           "%.4e): loss card %.6f %s %.6f (rel %.2e, rtol %.0e); worst "
-          "gradient %s rel err %.2e (atol %.0e x max); BatchNorm stats max "
+          "gradient %s rel err %.2e (atol %.2g x max); BatchNorm stats max "
           "err %.2e (atol %.0e); parameter updates: worst err %.2e x rate "
           "(atol %.0e x rate) over %d of %d entries, all within the rate"
           % (label, batch["feats"].shape[0],
@@ -2721,18 +2759,19 @@ def recipe_train_phase(torch, card, state, direct_ms):
     return train_k1 + decode_k1, train_k2
 
 
-def cnn_site_shapes(torch, device):
-    """(shape, rate) of each K5 site of one CNN-TIMIT training forward at
-    29 x 241, in order, read off the model itself: one forward with the
-    sites recorded instead of dropped."""
+def cnn_site_shapes(torch, device, config=None, batch=None):
+    """(shape, rate) of each K5 site of one CNN training forward, in
+    order, read off the model itself: one forward with the sites recorded
+    instead of dropped. CNN-TIMIT at 29 x 241 by default."""
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.models import cnn
     from srf_tpu_torch.models.registry import build_model
 
     logger = Logger(name="chip_smoke", level=Logger.WARN).logger
-    model, _ = build_model(timit_config(logger, "cuda", CNN_FLAGS), 63)
+    config = config or timit_config(logger, "cuda", CNN_FLAGS)
+    model, _ = build_model(config, class_count(config))
     model.to(device).train()
-    batch = train_batch(torch, device)
+    batch = batch or train_batch(torch, device)
     sites, real = [], cnn.fused_dropout
     cnn.fused_dropout = lambda x, seed, rate: sites.append(
         (tuple(x.shape), rate)) or x
@@ -2745,49 +2784,23 @@ def cnn_site_shapes(torch, device):
     return sites
 
 
-def k5_phase(torch, device):
-    """Phase 5: the fused dropout against its plain version, bit for bit,
-    and its times; returns its JSON entry."""
+def k5_sites(torch, device, label, sites, rates, same, seeds, gen):
+    """K5 against its plain version (``same``) at each of ``sites``' shapes
+    and ``rates``, and per site the kernel's, the plain version's and
+    F.dropout's times at the site's own rate (CUDA events) beside the
+    bound (8 bytes an element over the memory rate); returns (per site
+    readings, their sums over a step's launches: each site twice, forward
+    and backward)."""
     import torch.nn.functional as F
-    from srf_tpu_torch.ops.dropout import (fused_dropout,
-                                           fused_dropout_plain)
+    from srf_tpu_torch.ops.dropout import fused_dropout_plain
     from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
 
-    gen = torch.Generator(device).manual_seed(SEED + 3)
-    seeds = iter(np.random.RandomState(SEED + 3).randint(
-        0, 2 ** 62, size=1000, dtype=np.int64).tolist())
-
-    max_err = [0.0]
-
-    def same(x, rate, label):
-        seed = next(seeds)
-        got = fused_dropout_cuda(x, seed, rate)
-        want = fused_dropout_plain(x, seed, rate)
-        torch.cuda.synchronize()
-        max_err[0] = max(max_err[0], (got - want).abs().max().item())
-        check(torch.equal(got, want), "K5 differs from its plain version at "
-              "%s rate %s seed %d" % (label, rate, seed))
-        return got
-
-    for n in K5_SIZES:
-        for rate in K5_RATES:
-            same(torch.randn(n, generator=gen, device=device), rate, n)
-    # 4 bytes off the 16-byte alignment: the kernel's scalar path
-    misaligned = torch.randn(5001, generator=gen, device=device)[1:]
-    for rate in K5_RATES:
-        same(misaligned, rate, "5000 misaligned")
-    print("K5 sizes %s (and 5000 misaligned) x rates %s: equal to the plain "
-          "version" % (list(K5_SIZES), list(K5_RATES)))
-
-    sites = cnn_site_shapes(torch, device)
-    check(len(sites) == CNN_SITES, "CNN-TIMIT forward has %d K5 sites, "
-          "expected %d" % (len(sites), CNN_SITES))
     per_site, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                             "library_ms": 0.0}
     for index, (shape, site_rate) in enumerate(sites):
         x = torch.randn(shape, generator=gen, device=device)
-        for rate in K5_RATES:
-            same(x, rate, "site %d %s" % (index, shape))
+        for rate in rates:
+            same(x, rate, "%s site %d %s" % (label, index, shape))
         seed = next(seeds)
         ms = event_ms(torch, lambda: fused_dropout_cuda(x, seed, site_rate),
                       10)
@@ -2803,10 +2816,63 @@ def k5_phase(torch, device):
         for key, value in (("ms", ms), ("plain_ms", plain_ms),
                            ("bound_ms", bound), ("library_ms", library_ms)):
             totals[key] += 2 * value
-        print("K5 site %2d %s rate %.1f: kernel %.4f ms, plain %.4f ms, "
+        print("K5 %s site %2d %s rate %.1f: kernel %.4f ms, plain %.4f ms, "
               "F.dropout %.4f ms, bound %.4f ms (bytes)"
-              % (index, shape, site_rate, ms, plain_ms, library_ms, bound))
+              % (label, index, shape, site_rate, ms, plain_ms, library_ms,
+                 bound))
         del x
+    return per_site, totals
+
+
+def k5_checker(torch, seed):
+    """(same, max_err, seeds, generator): ``same(x, rate, label)`` holds K5
+    to its plain version on ``x`` bit for bit at the next host seed and
+    returns K5's output; ``max_err[0]`` is the largest |kernel - plain|
+    so far."""
+    from srf_tpu_torch.ops.dropout import fused_dropout_plain
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    seeds = iter(np.random.RandomState(seed).randint(
+        0, 2 ** 62, size=1000, dtype=np.int64).tolist())
+    max_err = [0.0]
+
+    def same(x, rate, label):
+        seed = next(seeds)
+        got = fused_dropout_cuda(x, seed, rate)
+        want = fused_dropout_plain(x, seed, rate)
+        torch.cuda.synchronize()
+        max_err[0] = max(max_err[0], (got - want).abs().max().item())
+        check(torch.equal(got, want), "K5 differs from its plain version at "
+              "%s rate %s seed %d" % (label, rate, seed))
+        return got
+
+    return same, max_err, seeds, gen
+
+
+def k5_phase(torch, device):
+    """Phase 5: the fused dropout against its plain version, bit for bit,
+    and its times; returns its JSON entry."""
+    from srf_tpu_torch.ops.dropout import (fused_dropout,
+                                           fused_dropout_plain)
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+
+    same, max_err, seeds, gen = k5_checker(torch, SEED + 3)
+    for n in K5_SIZES:
+        for rate in K5_RATES:
+            same(torch.randn(n, generator=gen, device=device), rate, n)
+    # 4 bytes off the 16-byte alignment: the kernel's scalar path
+    misaligned = torch.randn(5001, generator=gen, device=device)[1:]
+    for rate in K5_RATES:
+        same(misaligned, rate, "5000 misaligned")
+    print("K5 sizes %s (and 5000 misaligned) x rates %s: equal to the plain "
+          "version" % (list(K5_SIZES), list(K5_RATES)))
+
+    sites = cnn_site_shapes(torch, device)
+    check(len(sites) == CNN_SITES, "CNN-TIMIT forward has %d K5 sites, "
+          "expected %d" % (len(sites), CNN_SITES))
+    per_site, totals = k5_sites(torch, device, "CNN-TIMIT", sites, K5_RATES,
+                                same, seeds, gen)
 
     # masks are read off values in [1, 2): randn on the card gives exact
     # zeros (about one in 2**24 draws), which would read as dropped
@@ -2866,149 +2932,38 @@ def cnn_serve_phase(torch, card):
     """Phase 8: serve CNN-TIMIT on the card; returns K5's launches (none:
     eval has no dropout) and the random weights (a state_dict)."""
     from srf_tpu_torch.config import Logger
-    from srf_tpu_torch.models.registry import build_model
     from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
-    from srf_tpu_torch.serve import Recognizer
 
     logger = Logger(name="chip_smoke", level=Logger.WARN).logger
     config = timit_config(logger, "cuda", CNN_FLAGS)
-    model, _ = build_model(config, 63)
-    state = random_weights(model)
-    card_rec = Recognizer(config, state_dict=state, logger=logger)
-    cpu_rec = Recognizer(config, state_dict=state, device="cpu",
-                         logger=logger)
-    check(card_rec.device.type == "cuda" and card_rec.in_len_div == 1,
-          "CNN Recognizer: device %s, in_len_div %d"
-          % (card_rec.device, card_rec.in_len_div))
-
-    batches = serve_batches()
-    for feats_list in batches.values():  # warm-up (allocator, cuDNN)
-        card_rec.transcribe_batch_detailed(feats_list)
-    torch.cuda.synchronize()
     fused_dropout_cuda.launches = 0
-    results = {name: card_rec.transcribe_batch_detailed(feats_list)
-               for name, feats_list in batches.items()}
-    torch.cuda.synchronize()
-    launches = fused_dropout_cuda.launches
-    check(launches == 0, "K5 launched %d times in serving" % launches)
-
-    for name, feats_list in batches.items():
-        got = results[name]
-        check_served(name, got, feats_list, card_rec.in_len_div)
-        # logits at valid frames depend neither on the padded width nor on
-        # the other utterances, so the CPU decodes a subset
-        subset = feats_list[:CNN_CPU_SUBSET]
-        cpu = cpu_rec.transcribe_batch_detailed(subset)
-        check([r["ids"] for r in got[:len(subset)]]
-              == [r["ids"] for r in cpu], "%s: CNN card ids differ from CPU "
-              "ids" % name)
-        check([r["text"] for r in got[:len(subset)]]
-              == [r["text"] for r in cpu], "%s: CNN card text differs" % name)
-        card_logits = card_rec.forward(*card_rec.pad(feats_list)).cpu()
-        cpu_logits = cpu_rec.forward(*cpu_rec.pad(subset))
-        check(bool(torch.isfinite(card_logits).all()), "%s: logits" % name)
-        err = max((card_logits[i, :len(f)] - cpu_logits[i, :len(f)])
-                  .abs().max().item() for i, f in enumerate(subset))
-        print("CNN serve %s: %d utts, %d tokens, logits %s; first %d: ids "
-              "equal to CPU, max |card - cpu| %.3e at valid frames (atol "
-              "%.0e)" % (name, len(got), sum(len(r["ids"]) for r in got),
-                         tuple(card_logits.shape), len(subset), err,
-                         CNN_LOGIT_ATOL))
-        check(err <= CNN_LOGIT_ATOL,
-              "%s: CNN card logits differ from CPU" % name)
-
-    reps = 10
-    for name, feats_list in batches.items():
-        feats, lengths = card_rec.pad(feats_list)
-        fwd_ms = timed_ms(torch, lambda: card_rec.forward(feats, lengths),
-                          reps)
-        e2e_ms = timed_ms(
-            torch, lambda: card_rec.transcribe_batch_detailed(feats_list),
-            reps)
-        audio_s = 0.01 * float(lengths.sum())
-        med = float(np.median(e2e_ms))
-        print("CNN serve %s (padded %s), %d runs: forward median %.3f "
-              "ms/batch (max %.3f), end-to-end median %.3f ms/batch (max "
-              "%.3f), %.1f utt/s, %.1fx realtime [%s]"
-              % (name, tuple(feats.shape), reps, float(np.median(fwd_ms)),
-                 max(fwd_ms), med, max(e2e_ms), 1e3 * len(feats_list) / med,
-                 1e3 * audio_s / med, card))
-        _, total, count, busy, wall, by_name = profile_device(
-            torch, lambda: card_rec.forward(feats, lengths), ())
-        print("profile CNN %s forward: conv + GEMM kernels %.3f ms (layout "
-              "conversions %.3f), all %d device ops %.3f ms, device busy "
-              "%.3f of %.3f ms wall (idle share %.3f); top: %s [%s]"
-              % (name, conv_ms(by_name), layout_ms(by_name), count, total,
-                 busy, wall, 1.0 - busy / wall, top_ops(by_name), card))
-    torch.cuda.synchronize()
-    return launches, state
+    state = family_serve(torch, card, "CNN", config, serve_batches(),
+                         CNN_LOGIT_ATOL, cpu_subset=CNN_CPU_SUBSET)
+    return fused_dropout_cuda.launches, state
 
 
 def cnn_train_phase(torch, card, state):
     """Phase 9: train CNN-TIMIT on the card in pallas mode; returns K5's
-    launches in the TRAIN_STEPS-step run."""
+    launches in the 1 + TRAIN_STEPS-step run."""
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.models.registry import build_model
-    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
 
     logger = Logger(name="chip_smoke", level=Logger.WARN).logger
-    config = timit_config(logger, "cuda", CNN_FLAGS)
-    batch = train_batch(torch, "cuda")
     # dropout on: K5's masks follow the step seed on both devices
-    train_parity(torch, config, state,
-                 {k: v[:CNN_CHECK_BATCH] for k, v in batch.items()},
-                 dropout="k5", label="CNN-TIMIT ",
-                 grad_atol_rel=CNN_GRAD_ATOL_REL,
-                 update_grad_rel=CNN_UPDATE_GRAD_REL,
-                 min_compared=CNN_MIN_COMPARED)
     stride_config = timit_config(logger, "cuda", CNN_STRIDE_FLAGS)
     stride_state = random_weights(build_model(stride_config, 63)[0])
     train_parity(torch, stride_config, stride_state,
-                 {k: v[:CNN_STRIDE_CHECK_BATCH] for k, v in batch.items()},
+                 {k: v[:CNN_STRIDE_CHECK_BATCH]
+                  for k, v in train_batch(torch, "cuda").items()},
                  dropout="k5", label="CNN stride variant ")
-
-    train_state, _, step = train_setup(torch, config, state, "cuda")
-    seed = config.tpu_seed
-    torch.cuda.synchronize()
-    fused_dropout_cuda.launches = 0
-    step_ms, losses = [], []
-    # the first step includes cuDNN's algorithm search at these shapes
-    # (device.py); it is timed apart and not in the median
-    for _ in range(1 + TRAIN_STEPS):
-        before = fused_dropout_cuda.launches
-        start = time.perf_counter()
-        train_state, metrics = step(train_state, batch, seed)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - start))
-        losses.append(metrics["loss_sum"])
-        check(fused_dropout_cuda.launches - before == 2 * CNN_SITES,
-              "a CNN train step launched K5 %d times, expected %d"
-              % (fused_dropout_cuda.launches - before, 2 * CNN_SITES))
-    launches = fused_dropout_cuda.launches
-    all_on_card(train_state, metrics)
-    losses = torch.stack(losses).cpu().numpy() / batch["feats"].shape[0]
-    check(bool(np.isfinite(losses).all()), "non-finite CNN train loss")
-    first_ms, step_ms = step_ms[0], step_ms[1:]
-    med = float(np.median(step_ms))
-    audio_s = 0.01 * float(batch["inp_len"].sum())
-    print("CNN train 1 + %d steps of 29 x 241 (pallas, dropout on): K5 %d "
-          "launches; loss per utterance first %.3f last %.3f; first step "
-          "(cuDNN algorithm search) %.1f ms; then ms/step median %.3f max "
-          "%.3f; %.1f utt/s, %.1f audio-s/s [%s]"
-          % (TRAIN_STEPS, launches, losses[0], losses[-1], first_ms, med,
-             max(step_ms), 1e3 * 29 / med, 1e3 * audio_s / med, card))
-    kernels, total, count, busy, wall, by_name = profile_device(
-        torch, lambda: step(train_state, batch, seed),
-        (("K5", "fused_dropout_kernel"),))
-    conv = conv_ms(by_name)
-    print("profile CNN train step: K5 %.3f ms, conv + GEMM kernels %.3f ms "
-          "(layout conversions %.3f), everything else %.3f ms, all %d "
-          "device ops %.3f ms, device busy %.3f of %.3f ms wall (idle share "
-          "%.3f); top: %s [%s]"
-          % (kernels["K5"], conv, layout_ms(by_name),
-             total - kernels["K5"] - conv, count, total, busy, wall,
-             1.0 - busy / wall, top_ops(by_name, 8), card))
-    torch.cuda.synchronize()
+    launches, _ = family_train(
+        torch, card, "CNN-TIMIT", timit_config(logger, "cuda", CNN_FLAGS),
+        state, ((29, 241),), 62,
+        parity=dict(rows=CNN_CHECK_BATCH, dropout="k5",
+                    grad_atol_rel=CNN_GRAD_ATOL_REL,
+                    update_grad_rel=CNN_UPDATE_GRAD_REL,
+                    min_compared=CNN_MIN_COMPARED),
+        k5_per_step=2 * CNN_SITES)
     return launches
 
 
@@ -3040,6 +2995,18 @@ LSTM_WSJ_FLAGS = [
 # layers over up to 416 steps; the logits are O(1) and measured 4.8e-6
 # (STF) and 1.2e-5 (LSTM) apart on an H100
 STF_LOGIT_ATOL, LSTM_LOGIT_ATOL = 1e-4, 1e-4
+# STF-WSJ's parity step, card vs CPU (float32 both, TF32 off), measured by
+# chip_wsj_numerics.py on an H100: float32 itself sits ~1e-2 of the
+# largest entry from float64 in the feed-forward blocks' first weights
+# (enc19.ffn.ff1: the card 9.9e-3, the CPU 1.07e-2), and the card and the
+# CPU read 1.07e-2 apart, against 1e-4 at STF-TIMIT's width; with the card
+# in TF32 the step reads 4.8e-2 (and its loss 1.1e-5 apart, past
+# LOSS_RTOL). So each gradient within STF_WSJ_GRAD_ATOL_REL x its largest
+# entry, and updates compared where the gradient is >=
+# STF_WSJ_UPDATE_GRAD_REL x its largest (32 % of the entries), over at
+# least STF_WSJ_MIN_COMPARED of them
+STF_WSJ_GRAD_ATOL_REL = 2.5e-2
+STF_WSJ_UPDATE_GRAD_REL, STF_WSJ_MIN_COMPARED = 1e-1, 0.1
 # blockwise against plain attention on the card (float32): the online
 # softmax sums the same terms in key blocks; outputs O(1)
 BLOCKWISE_ATOL, BLOCKWISE_GRAD_REL = 1e-4, 1e-4
@@ -3049,8 +3016,9 @@ BLOCKWISE_SHAPE = (8, 4, 600, 64)
 # the timed train shapes, (B, padded frames): the first of the 20000-frame
 # TIMIT buckets, which every TIMIT utterance up to 241 frames falls in; and
 # three 24000-frame buckets that WSJ's 300-1600-frame utterances fall in
+# (phases 11-11c)
 STF_TRAIN_SHAPES = ((82, 241),)
-LSTM_TRAIN_SHAPES = ((44, 541), (24, 991), (15, 1591))
+WSJ_BUCKET_SHAPES = ((44, 541), (24, 991), (15, 1591))
 # the CLI runs' corpora, {split: ((low, high) frames, utterances)}: every
 # bucket filled twice in train (one step each), once in valid
 STF_RECIPE = {"train": (((150, 241), 164), ((242, 391), 102)),
@@ -3058,6 +3026,64 @@ STF_RECIPE = {"train": (((150, 241), 164), ((242, 391), 102)),
 LSTM_RECIPE = {"train": (((392, 541), 44), ((992, 1141), 21)),
                "valid": (((392, 541), 44), ((992, 1141), 21))}
 LSTM_TEST_UTTS, LSTM_TEST_FRAMES = 8, (300, 1600)
+# phases 11b-11c: the CNN-WSJ and STF-WSJ recipes' models at full width.
+# egs/script/torch/train_cnn_wsj.sh:10-16,32-49 with wsj.conf: the stride
+# variant (ConvFrontEnd, then the maxout body), L=15, filters 200/430, 3 x
+# 2048 projections, stride 2, Noam at k 0.5 (then 0.1) with warmup 25000,
+# 24000-frame buckets, 32 classes; K5 at every dropout site
+# (--tpu-dropout-kernel=pallas, as CNN_FLAGS runs CNN-TIMIT)
+CNN_WSJ_FLAGS = [
+    "--model-type=cnn", "--model-conv-inp-nfilt=200",
+    "--model-conv-inn-nfilt=430", "--model-conv-proj-num=3",
+    "--model-conv-proj-dim=2048", "--model-conv-stride=2",
+    "--model-conv-is-mp=False", "--model-dimension=1",
+    "--model-encoder-num=15", "--train-lr-param-k=0.5",
+    "--tpu-dropout-kernel=pallas",
+]
+# K5 sites of a CNN-WSJ forward: the input dropout, 2 a conv (15), 2 a
+# projection (2) and projv; a train step launches K5 twice per site
+CNN_WSJ_SITES = 1 + 2 * 15 + 2 * 2 + 1
+# egs/script/torch/train_stf_wsj.sh:31-49 with wsj.conf: L=20, D=256, 4
+# heads, FF 1488, dropouts 0.3/0.4/0.3/0.4, penalty (1, 1, 1) on, Noam at
+# k 1.5 (then 0.5) with warmup 25000
+STF_WSJ_FLAGS = [
+    "--model-type=stf", "--model-encoder-num=20", "--model-dimension=256",
+    "--model-inner-dim=1488", "--train-att-dropout=0.3",
+    "--train-inn-dropout=0.4", "--train-inp-dropout=0.3",
+    "--train-res-dropout=0.4", "--model-ap-scale=1",
+    "--model-ap-width-zero=1", "--model-ap-width-stripe=1",
+    "--model-ap-encoder=True", "--model-ap-decoder=True",
+    "--model-ap-encdec=False", "--train-lr-param-k=1.5",
+]
+# CNN-WSJ, card vs CPU (float32 both, TF32 off), measured by
+# chip_wsj_numerics.py on an H100: at 15 layers float32 itself is far from
+# float64 on both devices, 1.09e-1 of the largest entry in the parity
+# step's gradients (body.proj0's weight, card and CPU alike) and 2.0e-4
+# (card) and 1.8e-4 (CPU) in the served logits, while the card and the CPU
+# read 7.8e-2 and 3.5e-4 apart; with the card in TF32 the step reads
+# 3.3e-1 to 4.0e-1 (its updates 2 x the rate) and the logits 8.6e-2. So
+# the CNN-TIMIT limits do not hold here: the gradients within
+# CNN_WSJ_GRAD_ATOL_REL x their largest entry, the updates compared where
+# the gradient is >= CNN_WSJ_UPDATE_GRAD_REL x its largest (19 % of the
+# entries; an error within the gradient limit cannot flip a sign there),
+# and the served logits within CNN_WSJ_LOGIT_ATOL at valid frames
+CNN_WSJ_GRAD_ATOL_REL, CNN_WSJ_UPDATE_GRAD_REL = 1.5e-1, 2e-1
+CNN_WSJ_LOGIT_ATOL = 1e-3
+# the CNN-WSJ parity step's rows: 2 of the 44 x 541 bucket. The CPU half
+# runs the full-width model in float32, forward and backward, ~4.5e11
+# FLOPs a row at 541 frames (136 frames after the front end, x 31 x 430
+# channels through ten (5, 3) convs), and K5's plain Philox at 36 sites;
+# 2 rows keep it near half a minute on the card's host, and more than one
+# row holds the batch's sums
+CNN_WSJ_CHECK_ROWS = 2
+# utterances of each serving batch the CPU also decodes (a 1600-frame one
+# is ~4e11 FLOPs on the CPU)
+CNN_WSJ_CPU_SUBSET = 2
+# the CLI runs' corpora: two of the timed 24000-frame buckets (44 x 541 and
+# 24 x 991), each filled once in train and in valid, so the CLI's steps
+# and valid batches take shapes cuDNN has already searched
+WSJ_RECIPE = {"train": (((392, 541), 44), ((842, 991), 24)),
+              "valid": (((392, 541), 44), ((842, 991), 24))}
 
 
 def kernel_counts():
@@ -3095,13 +3121,19 @@ def wsj_serve_batches():
     }
 
 
-def family_serve(torch, card, label, config, batches, logit_atol):
+def family_serve(torch, card, label, config, batches, logit_atol,
+                 cpu_subset=None):
     """Serve ``batches`` through a Recognizer at ``config`` on the card and
     on the CPU with numpy-seeded weights: ids and text equal, logits within
     ``logit_atol``; forward and end-to-end times and a profile of one
-    forward per batch. Returns the weights (a state_dict)."""
+    forward per batch. With ``cpu_subset`` the CPU decodes only the first
+    so many utterances of each batch and the logits are compared at their
+    valid frames (a model whose logits there depend neither on the padded
+    width nor on the other utterances: the CNN). Returns the weights (a
+    state_dict)."""
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
     from srf_tpu_torch.serve import Recognizer
 
     logger = Logger(name="chip_smoke", level=Logger.WARN).logger
@@ -3112,27 +3144,41 @@ def family_serve(torch, card, label, config, batches, logit_atol):
                          logger=logger)
     check(card_rec.device.type == "cuda", "%s Recognizer is not on the card"
           % label)
+    start = time.perf_counter()
     for feats_list in batches.values():  # warm-up (allocator, cuDNN)
         card_rec.transcribe_batch_detailed(feats_list)
     torch.cuda.synchronize()
+    print("%s serve: first call of each batch shape (cuDNN's search) %.1f "
+          "s" % (label, time.perf_counter() - start))
+    k5_before = fused_dropout_cuda.launches
     for name, feats_list in batches.items():
         got = card_rec.transcribe_batch_detailed(feats_list)
         check_served(name, got, feats_list, card_rec.in_len_div,
                      blank=classes - 1)
-        cpu = cpu_rec.transcribe_batch_detailed(feats_list)
-        check([r["ids"] for r in got] == [r["ids"] for r in cpu],
+        subset = feats_list[:cpu_subset]
+        cpu = cpu_rec.transcribe_batch_detailed(subset)
+        check([r["ids"] for r in got[:len(subset)]]
+              == [r["ids"] for r in cpu],
               "%s %s: card ids differ from CPU ids" % (label, name))
-        check([r["text"] for r in got] == [r["text"] for r in cpu],
+        check([r["text"] for r in got[:len(subset)]]
+              == [r["text"] for r in cpu],
               "%s %s: card text differs from CPU text" % (label, name))
         card_logits = card_rec.forward(*card_rec.pad(feats_list)).cpu()
-        cpu_logits = cpu_rec.forward(*cpu_rec.pad(feats_list))
+        cpu_logits = cpu_rec.forward(*cpu_rec.pad(subset))
         check(bool(torch.isfinite(card_logits).all()), "%s %s: logits"
               % (label, name))
-        err = (card_logits - cpu_logits).abs().max().item()
-        print("%s serve %s: %d utts, %d tokens, ids equal to CPU, logits "
-              "%s max |card - cpu| %.3e (atol %.0e)"
+        if cpu_subset is None:
+            err = (card_logits - cpu_logits).abs().max().item()
+        else:
+            err = max((card_logits[i, :len(f) // card_rec.in_len_div]
+                       - cpu_logits[i, :len(f) // card_rec.in_len_div])
+                      .abs().max().item() for i, f in enumerate(subset))
+        print("%s serve %s: %d utts, %d tokens, logits %s; %d on the CPU: "
+              "ids equal, max |card - cpu| %.3e%s (atol %.0e)"
               % (label, name, len(got), sum(len(r["ids"]) for r in got),
-                 tuple(card_logits.shape), err, logit_atol))
+                 tuple(card_logits.shape), len(subset), err,
+                 "" if cpu_subset is None else " at valid frames",
+                 logit_atol))
         check(err <= logit_atol, "%s %s: card logits differ from CPU"
               % (label, name))
     reps = 10
@@ -3153,65 +3199,116 @@ def family_serve(torch, card, label, config, batches, logit_atol):
                  1e3 * len(feats_list) / med, 1e3 * audio_s / med, card))
         _, total, count, busy, wall, by_name = profile_device(
             torch, lambda: card_rec.forward(feats, lengths), ())
-        print("profile %s %s forward: all %d device ops %.3f ms, device "
-              "busy %.3f of %.3f ms wall (idle share %.3f); top: %s [%s]"
-              % (label, name, count, total, busy, wall, 1.0 - busy / wall,
+        print("profile %s %s forward: all %d device ops %.3f ms (conv + "
+              "GEMM kernels %.3f, layout conversions %.3f), device busy "
+              "%.3f of %.3f ms wall (idle share %.3f); top: %s [%s]"
+              % (label, name, count, total, conv_ms(by_name),
+                 layout_ms(by_name), busy, wall, 1.0 - busy / wall,
                  top_ops(by_name), card))
     torch.cuda.synchronize()
+    check(fused_dropout_cuda.launches == k5_before,
+          "%s serving launched K5 %d times" % (
+              label, fused_dropout_cuda.launches - k5_before))
     return state
 
 
-def family_train(torch, card, label, config, state, shapes, vocab):
+def family_train(torch, card, label, config, state, shapes, vocab,
+                 parity=None, k5_per_step=None):
     """One dropout-free step on card and CPU held as phase 7's (its update
     at the schedule's peak, the warmup count, or at plain Adam's rate),
     then TRAIN_STEPS steps with dropout on over ``shapes`` (the first step
     at each shape, with cuDNN's algorithm search, timed apart), finite
-    losses and every tensor on the card; ms per step per shape and a
-    profile of one step at the first shape."""
+    losses and every tensor on the card; ms per step and peak memory per
+    shape and a profile of one step at the first shape. ``parity``:
+    ``train_parity``'s keyword arguments for the parity step, with "rows"
+    (TRAIN_CHECK_BATCH by default) the rows of the first shape's batch it
+    takes. ``k5_per_step``: K5's launches each step must make, counted
+    from 0 over the timed steps and returned (None: none checked, 0
+    returned)."""
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+
+    parity = dict(parity or {})
+    rows = parity.pop("rows", TRAIN_CHECK_BATCH)
+    parity.setdefault("count", config.train_warmup_n)
     batches = [train_batch(torch, "cuda", batch=b, frames=t, vocab=vocab)
                for b, t in shapes]
+    start = time.perf_counter()
     train_parity(torch, config, state,
-                 {k: v[:TRAIN_CHECK_BATCH] for k, v in batches[0].items()},
-                 label=label + " ", count=config.train_warmup_n)
+                 {k: v[:rows] for k, v in batches[0].items()},
+                 label=label + " ", **parity)
+    print("%s train parity step: %.1f s (card and CPU)"
+          % (label, time.perf_counter() - start))
     train_state, _, step = train_setup(torch, config, state, "cuda")
     seed = config.tpu_seed
-    first_ms, step_ms, losses = [], {}, []
-    for batch in batches:
+    first_ms, step_ms, losses, peak = [], {}, [], {}
+    torch.cuda.synchronize()
+    if k5_per_step is not None:
+        fused_dropout_cuda.launches = 0  # the path's drive starts here
+
+    def timed_step(batch):
+        before = fused_dropout_cuda.launches
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         start = time.perf_counter()
-        train_state, metrics = step(train_state, batch, seed)
+        out = step(train_state, batch, seed)
         torch.cuda.synchronize()
-        first_ms.append(1e3 * (time.perf_counter() - start))
+        ms = 1e3 * (time.perf_counter() - start)
+        if k5_per_step is not None:
+            check(fused_dropout_cuda.launches - before == k5_per_step,
+                  "a %s train step launched K5 %d times, expected %d"
+                  % (label, fused_dropout_cuda.launches - before,
+                     k5_per_step))
+        return out, ms
+
+    for batch in batches:
+        (train_state, metrics), ms = timed_step(batch)
+        first_ms.append(ms)
     for i in range(TRAIN_STEPS):
         batch = batches[i % len(batches)]
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        train_state, metrics = step(train_state, batch, seed)
-        torch.cuda.synchronize()
-        step_ms.setdefault(tuple(batch["feats"].shape[:2]), []).append(
-            1e3 * (time.perf_counter() - start))
+        (train_state, metrics), ms = timed_step(batch)
+        shape = tuple(batch["feats"].shape[:2])
+        step_ms.setdefault(shape, []).append(ms)
+        peak[shape] = max(peak.get(shape, 0),
+                          torch.cuda.max_memory_allocated())
         losses.append(metrics["loss_sum"] / batch["feats"].shape[0])
+    launches = fused_dropout_cuda.launches
     all_on_card(train_state, metrics)
     losses = torch.stack(losses).cpu().numpy()
     check(bool(np.isfinite(losses).all()), "non-finite %s train loss"
           % label)
+    readings = {"first_ms": {}, "median_ms": {}, "peak_gib": {}}
     for (b, t), first in zip(shapes, first_ms):
         times = step_ms[(b, t)]
         med = float(np.median(times))
+        key = "%dx%d" % (b, t)
+        readings["first_ms"][key] = first
+        readings["median_ms"][key] = med
+        readings["peak_gib"][key] = peak[(b, t)] / 2 ** 30
         print("%s train %d x %d (dropout on): first step %.1f ms; %d steps "
-              "ms/step median %.3f max %.3f; %.1f utt/s, %.1f padded "
-              "frames/ms [%s]" % (label, b, t, first, len(times), med,
-                                  max(times), 1e3 * b / med, b * t / med,
-                                  card))
-    print("%s train: loss per utterance first %.3f last %.3f"
-          % (label, losses[0], losses[-1]))
-    _, total, count, busy, wall, by_name = profile_device(
-        torch, lambda: step(train_state, batches[0], seed), ())
-    print("profile %s train step %d x %d: all %d device ops %.3f ms, device "
-          "busy %.3f of %.3f ms wall (idle share %.3f); top: %s [%s]"
-          % (label, shapes[0][0], shapes[0][1], count, total, busy, wall,
-             1.0 - busy / wall, top_ops(by_name, 8), card))
+              "ms/step median %.3f max %.3f; peak memory %.2f GiB; %.1f "
+              "utt/s, %.1f padded frames/ms [%s]"
+              % (label, b, t, first, len(times), med, max(times),
+                 peak[(b, t)] / 2 ** 30, 1e3 * b / med, b * t / med, card))
+    print("%s train: loss per utterance first %.3f last %.3f%s"
+          % (label, losses[0], losses[-1],
+             "" if k5_per_step is None else "; K5 %d launches over %d "
+             "steps (%d each)" % (launches, len(shapes) + TRAIN_STEPS,
+                                  k5_per_step)))
+    kernels, total, count, busy, wall, by_name = profile_device(
+        torch, lambda: step(train_state, batches[0], seed),
+        (("K5", "fused_dropout_kernel"),))
+    conv = conv_ms(by_name)
+    print("profile %s train step %d x %d: K5 %.3f ms, conv + GEMM kernels "
+          "%.3f ms (layout conversions %.3f), everything else %.3f ms, all "
+          "%d device ops %.3f ms, device busy %.3f of %.3f ms wall (idle "
+          "share %.3f); top: %s [%s]"
+          % (label, shapes[0][0], shapes[0][1], kernels["K5"], conv,
+             layout_ms(by_name), total - kernels["K5"] - conv, count, total,
+             busy, wall, 1.0 - busy / wall, top_ops(by_name, 8), card))
+    del train_state, step, batches
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches if k5_per_step is not None else 0, readings
 
 
 def blockwise_check(torch, card):
@@ -3311,7 +3408,8 @@ def family_recipe(torch, card, label, main, conf, vocab_file, flags, stages,
     epochs) of ``stages`` on one checkpoint directory, tools.average_ckpt
     over the last stage's checkpoints, ``main`` in decode mode with the
     device beam at width 100 (batch 8), utils.log2utt; every test
-    utterance decoded, finite losses."""
+    utterance decoded, finite losses. Returns the train steps the stages
+    took (the last checkpoint's step)."""
     import contextlib
     import io
     import shutil
@@ -3360,6 +3458,8 @@ def family_recipe(torch, card, label, main, conf, vocab_file, flags, stages,
         last = stages[-1][1]
         check(steps == list(range(1, last + 1)),
               "%s recipe: checkpoints %s" % (label, steps))
+        train_steps = int(checkpoint.CheckpointManager(ckpt).restore(
+            last)["step"])
         with open(os.path.join(ckpt, "metrics.jsonl")) as records:
             losses = [json.loads(line)["loss"] for line in records]
         check(len(losses) == 2 * last and np.isfinite(losses).all()
@@ -3390,6 +3490,7 @@ def family_recipe(torch, card, label, main, conf, vocab_file, flags, stages,
                  lines[0][:80], card))
     finally:
         shutil.rmtree(base, ignore_errors=True)
+    return train_steps
 
 
 def stf_phase(torch, card):
@@ -3427,7 +3528,7 @@ def lstm_phase(torch, card):
     before = kernel_counts()
     state = family_serve(torch, card, "LSTM-WSJ", config,
                          wsj_serve_batches(), LSTM_LOGIT_ATOL)
-    family_train(torch, card, "LSTM-WSJ", config, state, LSTM_TRAIN_SHAPES,
+    family_train(torch, card, "LSTM-WSJ", config, state, WSJ_BUCKET_SHAPES,
                  31)
     rng = np.random.RandomState(SEED + 12)
     test = {}
@@ -3443,6 +3544,110 @@ def lstm_phase(torch, card):
           % (before, kernel_counts()))
     print("LSTM-WSJ phase: K1-K5 launches unmoved %s; %.1f s"
           % (before, time.perf_counter() - phase_start))
+    return state
+
+
+def wsj_test_split():
+    """The WSJ phases' test split: the 8 x 300-1600 serving batch's
+    utterances with labels 1..30 (max(2, len // 8)), so the CLI's decode
+    batch (8, padded 1664) is a shape the card has served."""
+    rng = np.random.RandomState(SEED + 13)
+    return {"synth%02d" % i: (feats, rng.randint(1, 31,
+                                                 size=max(2, len(feats) // 8)))
+            for i, feats in enumerate(wsj_serve_batches()["8x300-1600"])}
+
+
+def cnn_wsj_phase(torch, card):
+    """Phase 11b: CNN-WSJ at full width (see the module docstring).
+    Returns K5's launches on the timed steps and on the recipe's training
+    steps, and K5's readings at the 36 sites (a step's sums, the largest
+    |kernel - plain|, each site's)."""
+    from srf_tpu_torch import trainer_sr
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = family_config(logger, "cuda", "wsj", CNN_WSJ_FLAGS)
+    before = kernel_counts()[:4]
+    # K5 against its plain version at the 36 sites of a step at the first
+    # timed bucket, at 0.2 (the fixed rate after each conv and projection)
+    # and the recipe's inner rate
+    b, t = WSJ_BUCKET_SHAPES[0]
+    sites = cnn_site_shapes(torch, "cuda", config,
+                            train_batch(torch, "cuda", b, t, vocab=31))
+    check(len(sites) == CNN_WSJ_SITES, "CNN-WSJ forward has %d K5 sites, "
+          "expected %d" % (len(sites), CNN_WSJ_SITES))
+    same, max_err, seeds, gen = k5_checker(torch, SEED + 17)
+    rates = sorted({0.2, config.train_inn_dropout})
+    per_site, totals = k5_sites(torch, "cuda", "CNN-WSJ", sites, rates,
+                                same, seeds, gen)
+    print("K5 CNN-WSJ: equal to the plain version at the %d sites of a %d "
+          "x %d step (up to %d elements) at rates %s; one step's %d "
+          "launches: kernel %.4f ms, plain %.4f ms, F.dropout %.4f ms, "
+          "bound %.4f ms (bytes) [%s]"
+          % (len(sites), b, t, max(int(np.prod(s)) for s, _ in sites), rates,
+             2 * len(sites), totals["ms"], totals["plain_ms"],
+             totals["library_ms"], totals["bound_ms"], card))
+    torch.cuda.empty_cache()
+
+    state = family_serve(torch, card, "CNN-WSJ", config, wsj_serve_batches(),
+                         CNN_WSJ_LOGIT_ATOL, cpu_subset=CNN_WSJ_CPU_SUBSET)
+    # dropout on at every K5 site in the parity step (the masks follow the
+    # step seed on both devices; the front end's own dropout off: it draws
+    # from the device's generator), held as phase 9 holds CNN-TIMIT
+    train_launches, readings = family_train(
+        torch, card, "CNN-WSJ", config, state, WSJ_BUCKET_SHAPES, 31,
+        parity=dict(rows=CNN_WSJ_CHECK_ROWS, dropout="k5",
+                    grad_atol_rel=CNN_WSJ_GRAD_ATOL_REL,
+                    update_grad_rel=CNN_WSJ_UPDATE_GRAD_REL,
+                    min_compared=CNN_MIN_COMPARED),
+        k5_per_step=2 * CNN_WSJ_SITES)
+    fused_dropout_cuda.launches = 0  # the recipe's drive starts here
+    steps = family_recipe(torch, card, "CNN-WSJ", trainer_sr.main, "wsj",
+                          "wsj_31.vocab", CNN_WSJ_FLAGS, ((0.5, 1), (0.1, 2)),
+                          WSJ_RECIPE, wsj_test_split(), "wsj")
+    recipe_launches = fused_dropout_cuda.launches
+    check(recipe_launches == 2 * CNN_WSJ_SITES * steps,
+          "the CNN-WSJ recipe's %d train steps launched K5 %d times"
+          % (steps, recipe_launches))
+    check(kernel_counts()[:4] == before,
+          "phase 11b moved K1-K4's counters: %s -> %s"
+          % (before, kernel_counts()[:4]))
+    print("CNN-WSJ phase: K5 %d launches over the timed steps and %d over "
+          "the recipe's %d train steps; K1-K4 launches unmoved %s; %.1f s"
+          % (train_launches, recipe_launches, steps, before,
+             time.perf_counter() - phase_start))
+    torch.cuda.empty_cache()
+    return train_launches, recipe_launches, dict(
+        totals, sites=len(sites), shape=[b, t], max_abs_err=max_err[0],
+        step=readings, per_site=per_site)
+
+
+def stf_wsj_phase(torch, card):
+    """Phase 11c: STF-WSJ at full width (see the module docstring)."""
+    from srf_tpu_torch import trainer_tf
+    from srf_tpu_torch.config import Logger
+
+    phase_start = time.perf_counter()
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = family_config(logger, "cuda", "wsj", STF_WSJ_FLAGS)
+    before = kernel_counts()
+    state = family_serve(torch, card, "STF-WSJ", config, wsj_serve_batches(),
+                         STF_LOGIT_ATOL)
+    family_train(torch, card, "STF-WSJ", config, state, WSJ_BUCKET_SHAPES,
+                 31, parity=dict(grad_atol_rel=STF_WSJ_GRAD_ATOL_REL,
+                                 update_grad_rel=STF_WSJ_UPDATE_GRAD_REL,
+                                 min_compared=STF_WSJ_MIN_COMPARED))
+    family_recipe(torch, card, "STF-WSJ", trainer_tf.main, "wsj",
+                  "wsj_31.vocab", STF_WSJ_FLAGS, ((1.5, 1), (0.5, 2)),
+                  WSJ_RECIPE, wsj_test_split(), "wsj")
+    check(kernel_counts() == before,
+          "phase 11c moved K1-K5's counters: %s -> %s"
+          % (before, kernel_counts()))
+    print("STF-WSJ phase: K1-K5 launches unmoved %s; %.1f s"
+          % (before, time.perf_counter() - phase_start))
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -4338,9 +4543,65 @@ def write_wav(path, seconds, seed):
         w.writeframes(signal.astype(np.int16).tobytes())
 
 
-def serving_extras_phase(torch, card, state):
+def lstm_int8_check(torch, card, state):
+    """Phase 14's LSTM-WSJ part: phase 11's model and weights served with
+    --tpu-serve-quant=int8 on the card and the CPU (ids equal, logits
+    within LSTM_LOGIT_ATOL) and beside float32: the forwards' times, and
+    what reading every quantized weight once costs (ops/quant.py
+    dequantizes each into a temporary, nn.LSTM's included, at every
+    forward)."""
+    from torch.nn.utils import parametrize
+
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops.quant import quantized_bytes
+    from srf_tpu_torch.serve import Recognizer
+
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = family_config(logger, "cuda", "wsj",
+                           LSTM_WSJ_FLAGS + ["--tpu-serve-quant=int8"])
+    rec = Recognizer(config, state_dict=state, logger=logger)
+    cpu = Recognizer(config, state_dict=state, device="cpu", logger=logger)
+    f32 = Recognizer(family_config(logger, "cuda", "wsj", LSTM_WSJ_FLAGS),
+                     state_dict=state, logger=logger)
+    weights = [(module, leaf) for module in rec.model.modules()
+               if parametrize.is_parametrized(module)
+               for leaf in module.parametrizations]
+    check(any(isinstance(m, torch.nn.LSTM) for m, _ in weights),
+          "int8: no LSTM weight is quantized")
+    q_bytes, f_bytes = quantized_bytes(rec.model)
+    for name, feats_list in wsj_serve_batches().items():
+        got = rec.transcribe_batch_detailed(feats_list)
+        check([r["ids"] for r in got] == [
+            r["ids"] for r in cpu.transcribe_batch_detailed(feats_list)],
+            "LSTM-WSJ int8 %s: card ids differ from the CPU's" % name)
+        feats, lengths = rec.pad(feats_list)
+        card_logits = rec.forward(feats, lengths).cpu()
+        err = (card_logits - cpu.forward(feats.cpu(), lengths)).abs().max(
+        ).item()
+        check(err <= LSTM_LOGIT_ATOL, "LSTM-WSJ int8 %s: card logits differ "
+              "from the CPU's by %.3e" % (name, err))
+        gap = (card_logits - f32.forward(feats, lengths).cpu()).abs().max(
+        ).item()
+        fwd_ms = timed_ms(torch, lambda: rec.forward(feats, lengths), 10)
+        f32_ms = timed_ms(torch, lambda: f32.forward(feats, lengths), 10)
+        print("LSTM-WSJ int8 serve %s: card = CPU (logits max %.3e, atol "
+              "%.0e; ids equal); int8 - f32 logits max %.3e (a reading); "
+              "forward median %.3f ms int8, %.3f ms f32 [%s]"
+              % (name, err, LSTM_LOGIT_ATOL, gap, float(np.median(fwd_ms)),
+                 float(np.median(f32_ms)), card))
+    read_ms = timed_ms(torch, lambda: [getattr(m, leaf) for m, leaf in weights],
+                       10)
+    print("LSTM-WSJ int8: %d quantized weights, resident %d bytes int8 + "
+          "scales against %d float32 (%.3f); dequantizing all of them once "
+          "(what each forward does) median %.3f ms [%s]"
+          % (len(weights), q_bytes, f_bytes, q_bytes / f_bytes,
+             float(np.median(read_ms)), card))
+
+
+def serving_extras_phase(torch, card, state, lstm_state):
     """Phase 14: --wav through the CLI, int8 weights and forced alignment,
-    each on the card against --feats or the CPU. Returns K1's launches."""
+    each on the card against --feats or the CPU; int8 also for LSTM-WSJ
+    (``lstm_state``: phase 11's weights). Returns K1's launches."""
     import shutil
     import tempfile
 
@@ -4413,6 +4674,10 @@ def serving_extras_phase(torch, card, state):
           "median %.3f ms int8, %.3f ms f32 [%s]" % (
               err, LOGIT_ATOL, q_bytes, f_bytes, q_bytes / f_bytes, gap,
               float(np.median(fwd_ms)), float(np.median(f32_ms)), card))
+    before = kernel_counts()
+    lstm_int8_check(torch, card, lstm_state)
+    check(kernel_counts() == before, "LSTM-WSJ int8 serving moved K1-K5's "
+          "counters: %s -> %s" % (before, kernel_counts()))
 
     # forced alignment: card against CPU
     rng = np.random.RandomState(SEED + 16)
@@ -5906,8 +6171,8 @@ TP_TIMED = 1
 # (M and L apart); K1-tp-stream
 # (each shard's carry 0.3 x normal, its rows' first TP_WARMUP steps
 # warm-up on every other row) at K1's RTOL and ATOL, its v_last (the last
-# step's output) too. Over gloo the kernels' median of TP_REPS calls, the
-# plain version's one call (the one compared)
+# step's output) too. Over gloo (K1-tp and K2-tp too) the kernels' median
+# of TP_REPS calls, the plain version's one call (the one compared)
 TP_WARMUP = 3
 # 17d: item 7c's drives on the SRF-WSJ recipe's widths at depth
 # TP_7C_LAYERS, 8 utterances of TP_7C_FRAMES frames, 2 ranks on cuda:0
@@ -6341,7 +6606,7 @@ def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
                                               return_stats=True)
         kernel = lambda: sequential_routing_tp_cuda(u, wgt, bias, num_iter,
                                                     pad_owner, group)
-        want, want_stats = plain()
+        (want, want_stats), plain_ms = event_call(torch, plain)
         got, got_stats = kernel()
         routing_cuda.check_tp_status()
         err = max((got - want).abs().max().item(),
@@ -6366,8 +6631,8 @@ def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
                 check(False, "17a %s rank %d: K2-tp took a %d-iteration "
                       "forward's stats" % (label, index, num_iter))
         if num_iter == 1:
-            plain_ms, ms, alone_ms = median_ms(torch, (
-                plain, kernel, lambda: sequential_routing_tp_cuda(
+            ms, alone_ms = median_ms(torch, (
+                kernel, lambda: sequential_routing_tp_cuda(
                     u, wgt, bias, 1, pad_owner, None)), TP_REPS)
             reading.update(
                 k1tp_ms=ms, k1tp_plain_ms=plain_ms, k1tp_alone_ms=alone_ms,
@@ -6376,7 +6641,8 @@ def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
                 u, wgt, bias, want, cot, pad_owner, group, want_stats)
             kernel_b = lambda: sequential_routing_tp_bwd_cuda(
                 u, wgt, bias, want, cot, want_stats, pad_owner, group)
-            refs, gots = plain_b(), kernel_b()
+            refs, plain_ms = event_call(torch, plain_b)
+            gots = kernel_b()
             routing_cuda.check_tp_status()
             errs = []
             for name, ref, val in zip(("du", "dW", "db"), refs, gots):
@@ -6386,8 +6652,8 @@ def tp_kernel_checks(torch, label, geometry, is_last, shapes, group):
                       "17a %s rank %d (%d, %d): K2-tp %s differs from its "
                       "plain version by %.3e (atol %.3e)"
                       % (label, index, batch, seq_len, name, errs[-1], limit))
-            plain_ms, ms, alone_ms = median_ms(torch, (
-                plain_b, kernel_b, lambda: sequential_routing_tp_bwd_cuda(
+            ms, alone_ms = median_ms(torch, (
+                kernel_b, lambda: sequential_routing_tp_bwd_cuda(
                     u, wgt, bias, want, cot, want_stats, pad_owner, None)),
                 TP_REPS)
             reading.update(k2tp_err=max(errs), k2tp_ms=ms,
@@ -7034,46 +7300,73 @@ def run():
                 spilled.append(kernel)
     check(not spilled, "ptxas spills %s" % ", ".join(spilled))
 
-    k1, k3 = kernel_phase(torch, device)
-    k2, k4 = k2_phase(torch, device)
-    k5 = k5_phase(torch, device)
-    serve_k1, state = main_path_phase(torch, card)
-    scan_k3, scan_k4, scan_times = scan_path_phase(torch, card, state)
+    seconds = {"2 build": time.perf_counter() - start}
+
+    def phase(name, fn, *args):
+        """``fn(*args)``, its seconds printed and kept under ``name``."""
+        begin = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - begin
+        print("phase %s: %.1f s" % (name, seconds[name]))
+        return out
+
+    k1, k3 = phase("3 K1, K3", kernel_phase, torch, device)
+    k2, k4 = phase("4 K2, K4", k2_phase, torch, device)
+    k5 = phase("5 K5", k5_phase, torch, device)
+    serve_k1, state = phase("6 SRF serve", main_path_phase, torch, card)
+    scan_k3, scan_k4, scan_times = phase("6b scan", scan_path_phase, torch,
+                                         card, state)
     check(scan_k3 > 0 and scan_k4 > 0,
           "K3 or K4 was not launched on the scan path")
-    decode_k1 = decode_phase(torch, card, state)
+    decode_k1 = phase("6c decode", decode_phase, torch, card, state)
     check(decode_k1 > 0, "K1 was not launched on the decode path")
-    (train_k1, train_k2), direct_ms = train_phase(torch, card, state)
+    (train_k1, train_k2), direct_ms = phase("7 SRF train", train_phase,
+                                            torch, card, state)
     check(serve_k1 > 0, "K1 was not launched on the serving path")
     check(train_k1 > 0 and train_k2 > 0,
           "K1 or K2 was not launched on the training path")
-    recipe_k1, recipe_k2 = recipe_train_phase(torch, card, state, direct_ms)
+    recipe_k1, recipe_k2 = phase("7b SRF recipe", recipe_train_phase, torch,
+                                 card, state, direct_ms)
     check(recipe_k1 > 0 and recipe_k2 > 0,
           "K1 or K2 was not launched on the recipe's training path")
-    serve_k5, cnn_state = cnn_serve_phase(torch, card)
-    train_k5 = cnn_train_phase(torch, card, cnn_state)
+    serve_k5, cnn_state = phase("8 CNN serve", cnn_serve_phase, torch, card)
+    train_k5 = phase("9 CNN train", cnn_train_phase, torch, card, cnn_state)
     check(train_k5 > 0, "K5 was not launched on the CNN training path")
-    stf_phase(torch, card)
-    lstm_phase(torch, card)
-    stream_k1, stream_readings = stream_phase(torch, card, state)
+    phase("10 STF-TIMIT", stf_phase, torch, card)
+    lstm_state = phase("11 LSTM-WSJ", lstm_phase, torch, card)
+    cnn_wsj_k5, cnn_wsj_recipe_k5, cnn_wsj = phase("11b CNN-WSJ",
+                                                   cnn_wsj_phase, torch, card)
+    check(cnn_wsj_k5 > 0 and cnn_wsj_recipe_k5 > 0,
+          "K5 was not launched on the CNN-WSJ training path")
+    phase("11c STF-WSJ", stf_wsj_phase, torch, card)
+    stream_k1, stream_readings = phase("12 stream", stream_phase, torch,
+                                       card, state)
     check(stream_k1 > 0, "K1 was not launched on the streaming path")
-    wsj_k1 = wsj_phase(torch, card)
-    wsj_train_k1, wsj_train_k2 = wsj_train_phase(torch, card)
-    wavefront_k1 = wavefront_phase(torch, card, state)
-    daemon_k1, daemon_readings = daemon_phase(torch, card, state)
-    int8_k1 = serving_extras_phase(torch, card, state)
-    k1_bf16, k2_bf16, k5_bf16 = bf16_kernel_phase(torch, device)
-    extras_k1, extras_k2 = extras_recipe_phase(torch, card, state)
+    wsj_k1 = phase("12b SRF-WSJ", wsj_phase, torch, card)
+    wsj_train_k1, wsj_train_k2 = phase("12c SRF-WSJ train", wsj_train_phase,
+                                       torch, card)
+    wavefront_k1 = phase("12d wavefront", wavefront_phase, torch, card,
+                         state)
+    daemon_k1, daemon_readings = phase("13 daemon", daemon_phase, torch, card,
+                                       state)
+    int8_k1 = phase("14 serving extras", serving_extras_phase, torch, card,
+                    state, lstm_state)
+    k1_bf16, k2_bf16, k5_bf16 = phase("15 bf16 kernels", bf16_kernel_phase,
+                                      torch, device)
+    extras_k1, extras_k2 = phase("15 extras recipe", extras_recipe_phase,
+                                 torch, card, state)
     (k1_bf16["launches"], k2_bf16["launches"],
-     k5_bf16["launches"]) = extras_step_phase(torch, card, state, cnn_state)
+     k5_bf16["launches"]) = phase("15 extras steps", extras_step_phase, torch,
+                                  card, state, cnn_state)
     check(all(k["launches"] > 0 for k in (k1_bf16, k2_bf16, k5_bf16)),
           "a bf16 variant was not launched on its main path")
-    mwer_k1, mwer_k2 = mwer_phase(torch, card, state)
-    par_k1, par_k2 = parallel_phase(torch, card, state)
+    mwer_k1, mwer_k2 = phase("15 MWER", mwer_phase, torch, card, state)
+    par_k1, par_k2 = phase("16 parallel", parallel_phase, torch, card, state)
     check(all(par_k1.values()) and all(par_k2.values()),
           "K1 or K2 was not launched on a parallel path: %s %s"
           % (par_k1, par_k2))
-    tp_entries, (axis_k1, axis_k2) = model_axis_phase(torch, card)
+    tp_entries, (axis_k1, axis_k2) = phase("17 model axis", model_axis_phase,
+                                           torch, card)
     # the daemon's launches are counted in its own process (its stats),
     # the rest in this one
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
@@ -7109,9 +7402,16 @@ def run():
     k4["launches_by_path"] = {"scan": scan_k4}
     k4["stack_ms"] = {key: scan_times[key] for key in ("backward_ms",
                                                        "k2_backward_ms")}
-    k5["launches"] = serve_k5 + train_k5
-    k5["launches_by_path"] = {"cnn_serve": serve_k5, "cnn_train": train_k5}
+    k5["launches_by_path"] = {"cnn_serve": serve_k5, "cnn_train": train_k5,
+                              "cnn_wsj_train": cnn_wsj_k5,
+                              "cnn_wsj_recipe": cnn_wsj_recipe_k5}
+    k5["launches"] = sum(k5["launches_by_path"].values())
+    k5["max_abs_err"] = max(k5["max_abs_err"], cnn_wsj.pop("max_abs_err"))
+    # one CNN-WSJ train step's 72 launches at its 36 sites (44 x 541)
+    k5["cnn_wsj"] = cnn_wsj
 
+    print("phase seconds: %s" % json.dumps(
+        {name: round(sec, 1) for name, sec in seconds.items()}))
     print("profiler: %d traces, each primed with %d records; records the "
           "profiler lost of a trace's priming: %s (lost: traces)"
           % (len(PRIMING_LOST), PROFILER_PRIMING,

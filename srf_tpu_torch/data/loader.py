@@ -345,6 +345,15 @@ class BucketedLoader:
         # guard: label never exceeds its cap
         self.label_caps = [max(c, min(max_lab, w)) for c, w in zip(self.label_caps, self.time_widths)]
 
+    @property
+    def per_process_schedule(self):
+        """Whether the epoch's batch sequence depends on the process count:
+        example sharding's lockstep schedule does (it is stratified by
+        process); batch sharding slices the one-process schedule of the
+        same global batches, so a batch index names the same data position
+        under any process count."""
+        return self._peer_lens is not None
+
     def set_epoch(self, epoch):
         """Pin the shuffle order to ``epoch``'s (seed+epoch keys the
         permutation). The train loop calls this each epoch, which makes the

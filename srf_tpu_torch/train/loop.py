@@ -176,13 +176,18 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
     # batch-geometry signature: ``resume.batch_index`` counts BATCHES, so
     # it only names the same data position if the bucket batch sizes are
     # unchanged; a mid checkpoint written under other sizes is refused
-    # (epoch restart), not half-trusted. The process count folds in: the
-    # lockstep schedule is stratified by process, so the same local sizes
-    # under another count name other data positions
+    # (epoch restart), not half-trusted. The process count folds in where
+    # the loader's schedule depends on it: the lockstep schedule is
+    # stratified by process, so the same local sizes under another count
+    # name other data positions. Batch sharding slices the one-process
+    # schedule of the same global batches, so there a mid checkpoint
+    # resumes under another process count (elastic resume, as JAX's on a
+    # resized mesh)
+    per_process = getattr(train_loader, "per_process_schedule", True)
     batch_sig = float(sum(
         (i + 1) * int(s) for i, s in enumerate(
             getattr(train_loader, "batch_sizes", None) or [])
-    )) + 1e6 * (n_proc - 1)
+    )) + 1e6 * (n_proc - 1) * per_process
     if mid_every > 0 and not (config.path_ckpt and state_to_save is not None):
         logger.warning(
             "--tpu-ckpt-every-steps=%d has nothing to save to (no "

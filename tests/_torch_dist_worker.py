@@ -58,6 +58,62 @@ def launch(command, ranks=2, expect_rc=0, timeout=240, env=None):
     return outputs
 
 
+# Elastic resume (JAX's tests/test_elastic.py, a job resumed on a resized
+# mesh; here the mesh's data axis is the process count): each scenario is a
+# sequence of runs of the trainer CLI on one checkpoint directory, as
+# (processes, flags, exit code), and the uninterrupted run it is held to.
+# Batch sharding keeps the one-process schedule of the global batches, so
+# a batch index names the same data position on any world size
+ELASTIC_FLAGS = ("--tpu-data-shard=batch",)
+ELASTIC = {
+    # killed mid-epoch on 2 ranks (the last mid checkpoint at epoch 2's
+    # batch 2, global step 7), resumed mid-epoch by one process
+    "mid_2_to_1": {
+        "runs": ((2, ("--train-max-epoch=2", "--tpu-ckpt-every-steps=2",
+                      "--tpu-fault-at-step=8"), 42),
+                 (1, ("--train-max-epoch=2", "--tpu-ckpt-every-steps=2"), 0)),
+        "reference": (2, ("--train-max-epoch=2",)),
+    },
+    # epoch 1 on one process, epoch 2 on 2 ranks from its checkpoint
+    "epoch_1_to_2": {
+        "runs": ((1, ("--train-max-epoch=1",), 0),
+                 (2, ("--train-max-epoch=2",), 0)),
+        "reference": (1, ("--train-max-epoch=2",)),
+    },
+}
+
+
+def run_trainer(command, ranks, expect_rc=0, timeout=240):
+    """``command`` (argv) as one plain process (``ranks`` 1) or as
+    ``ranks`` processes of one gloo world; returns each process's (stdout,
+    stderr)."""
+    if ranks > 1:
+        return launch(command, ranks=ranks, expect_rc=expect_rc,
+                      timeout=timeout)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SRF_")}
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(command, env=env, cwd=REPO, capture_output=True,
+                          text=True, timeout=timeout)
+    assert proc.returncode == expect_rc, (proc.returncode,
+                                          proc.stderr[-4000:])
+    return [(proc.stdout, proc.stderr)]
+
+
+def run_elastic(scenario, command, ckpt, reference_ckpt):
+    """``ELASTIC[scenario]``: its runs in order on ``ckpt`` and its
+    uninterrupted run on ``reference_ckpt``, each ``command`` + the
+    checkpoint directory + ``ELASTIC_FLAGS`` + its flags. Returns the runs'
+    outputs (a list per run of each process's (stdout, stderr))."""
+    spec = ELASTIC[scenario]
+    ranks, flags = spec["reference"]
+    run_trainer([*command, "--path-ckpt=%s" % reference_ckpt,
+                 *ELASTIC_FLAGS, *flags], ranks)
+    return [run_trainer([*command, "--path-ckpt=%s" % ckpt, *ELASTIC_FLAGS,
+                         *flags], ranks, expect_rc=rc)
+            for ranks, flags, rc in spec["runs"]]
+
+
 def run_scenario(scenario, workdir, ranks=2, **kwargs):
     """``launch`` this file's ``scenario``; returns each rank's npz as a
     dict."""
