@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (srf_tpu_torch), one GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout, no arguments
+    python3 chip_smoke.py          # from the root of a checkout, no arguments
+    python3 chip_smoke.py --cards  # phase 18 alone, on 2 cards or more
 
 Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 
@@ -373,7 +374,41 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    through the sharded model held to the unsharded model's (K1-tp-stream
    launched), and the sharded wavefront forward held to the unsharded
    wavefront;
-18. the profiler's line (every trace is primed with one-cycle kernels,
+18. (``--cards`` alone; the whole run prints "18: skipped") a rank a
+   card over NCCL (two cards or more), the cards, their power limits and
+   each pair's peer access printed, 4 ranks where the host has 4 cards,
+   else 2, each on its own card (``--cards-worker`` /
+   ``--cards-model-worker DIR``, or the
+   trainers under ``torch.distributed.run``): (a) the SRF-TIMIT DP step
+   at 28 x 241 global against one process at phase 7's limits, BatchNorm
+   statistics equal on every rank, ms a step a rank and samples/s over
+   the ranks against one process's, and the CNN-TIMIT DP step with
+   dropout on at the K5 sites (50 launches a rank) against one process
+   that runs every rank's rows with that rank's seed, at phase 9's
+   limits; (b) the FSDP step against DP, K1 seeing whole contiguous
+   weights, ms and peak memory a rank; (c) ring attention over the ranks
+   against blockwise on one card; (d) the pipelined STF-TIMIT step at as
+   many stages as ranks (and at 2 stages x 2 data shards on 4 cards),
+   float64 to PIPE64_GRAD_REL and float32 at phase 7's limits, the
+   bubble, ms and peak memory by stage; each rank's K1, K2 and K5 times
+   on its own card; (e) trainer_sr's epoch under torchrun with
+   --tpu-data-shard=example (valid losses and steps equal on every rank,
+   K1 and K2 launches those of the steps), then with batch sharding and
+   --tpu-async-ckpt, 2 epochs uninterrupted, a SIGTERM to rank 1 (every
+   rank saves the same mid checkpoint and exits), that checkpoint
+   resumed on 2 cards and on one process within JAX's elastic tolerance
+   of the uninterrupted run (F26), trainer_tf's STF-TIMIT epoch, each
+   epoch's wall against one process's; (f) the 'model' axis over CUDA IPC
+   between cards: 17a's kernel checks and 17b's SRF-WSJ step at (data 1,
+   model 2), the step at (2, 1) (the data split alone), item 7c's drives
+   there (K1-tp-bf16, K2-tp-bf16,
+   K1-tp-stream), and on 4 cards the step at (2, 2) and (1, 4) with the
+   kernel checks at model 4 (8 of SRF-WSJ's 32 classes a rank), every
+   status word read clean after each call; (g) a (data 1, model 2)
+   SRF-WSJ epoch of 20 steps through the library API (wsj.conf's
+   schedule warmed up over the epoch to par_step's rate) against one
+   process's epoch: each step's loss, each trained parameter's change;
+19. the profiler's line (every trace is primed with one-cycle kernels,
    since torch.profiler drops some of a trace's first device records: how
    many of those it lost, trace by trace), a "kernels" JSON line (K1, K2,
    K3, K4, K5 (with its CNN-WSJ paths and a CNN-WSJ step's sites), the variants K1-bf16, K2-bf16, K5-bf16, K1-tp and K2-tp's
@@ -383,6 +418,7 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 
 import collections
 import json
+import math
 import os
 import re
 import subprocess
@@ -567,15 +603,21 @@ def paired_ms(torch, first, second, reps):
     return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
 
 
-def timed_ms(torch, fn, reps):
+def synchronize(torch, device="cuda"):
+    """Wait for the card (nothing on the CPU: phase 18's rehearsal)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed_ms(torch, fn, reps, device="cuda"):
     """Host-clock ms of each of ``reps`` calls of ``fn``, each ending in a
     synchronize (a request is done when its result is on the host)."""
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        synchronize(torch, device)
         start = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        synchronize(torch, device)
         times.append(1e3 * (time.perf_counter() - start))
     return times
 
@@ -5587,22 +5629,27 @@ def free_port():
 
 def par_step(torch, config, state, batch, group=None, grad_group=None,
              mesh=None, fsdp=False, apply_fn_of=None, timed=0, float64=False,
-             model_mesh=None):
+             model_mesh=None, device="cuda", dropout=False,
+             cudnn_search=True, step_of=None):
     """One dropout-free train step of ``config``'s model from ``state`` on
     the card, at the Noam schedule's count PARITY_COUNT (phase 7's parity
     step), data-parallel over ``group`` / ``grad_group``, sharded over
     ``mesh`` where ``fsdp``, its class capsules over ``model_mesh``'s
     'model' axis where given (apply_rules); ``apply_fn_of(model,
     in_len_div)`` replaces the apply adapter (the pipeline's); ``float64``
-    runs the model and the features in float64. Then ``timed`` more steps.
-    Returns the loss, the whole gradients and state after the step (on
-    the host), the rate, K1's and K2's launches in the step (and K1-tp's
-    and K2-tp's, K1-tp-bf16's and K2-tp-bf16's, and of the float32 ones
-    the persistent transports'), each timed
-    step's ms and the peak memory over the timed steps (MB)."""
+    runs the model and the features in float64; ``dropout`` "k5" keeps
+    the K5 sites' dropout on (``train_setup``'s "k5": their masks follow
+    the step seed); ``cudnn_search`` False takes cuDNN's heuristics;
+    ``step_of(apply_fn, in_len_div)`` replaces make_train_step (phase
+    18's emulated DP step); ``device`` the CPU in phase 18's rehearsal. Then
+    ``timed`` more steps. Returns the loss, the whole gradients and state
+    after the step (on the host), the rate, K1's and K2's launches in the
+    step (and K1-tp's and K2-tp's, K1-tp-bf16's and K2-tp-bf16's, and of
+    the float32 ones the persistent transports'; K5's), each timed step's
+    ms and the peak memory over the timed steps (MB; 0 on the CPU)."""
     from srf_tpu_torch.models.layers import set_batch_norm_group
     from srf_tpu_torch.models.registry import build_model
-    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.ops import dropout_cuda, routing_cuda
     from srf_tpu_torch.parallel import sharding_rules
     from srf_tpu_torch.train.optimizer import get_optimizer
     from srf_tpu_torch.train.state import TrainState
@@ -5613,11 +5660,14 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
     if float64:
         model = model.double()
         batch = dict(batch, feats=batch["feats"].double())
-    for module in model.modules():
-        if isinstance(module, torch.nn.Dropout):
+    for name, module in model.named_modules():
+        if isinstance(module, torch.nn.Dropout) and (
+                dropout != "k5" or name.startswith("conv_feat.")):
             module.p = 0.0
     set_batch_norm_group(model, group)
-    train_state = TrainState.create(model, None, None, device="cuda")
+    train_state = TrainState.create(model, None, None, device=device)
+    # TrainState.create turns cuDNN's search on (device.resolve_device)
+    torch.backends.cudnn.benchmark = cudnn_search
     if fsdp:
         sharding_rules.fsdp(train_state.model, mesh)
     if model_mesh is not None:
@@ -5630,19 +5680,21 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
     apply_fn = (apply_fn_of(train_state.model, in_len_div) if apply_fn_of
                 else make_apply_fn(train_state.model,
                                    extra_kwargs_fn(config, in_len_div)))
-    step = make_train_step(
+    step = (step_of(apply_fn, in_len_div) if step_of else make_train_step(
         apply_fn, in_len_div, group=group, grad_group=grad_group,
-        model_group=model_mesh.group("model") if model_mesh else None)
+        model_group=model_mesh.group("model") if model_mesh else None))
     k1, k2 = (routing_cuda.sequential_routing_cuda,
               routing_cuda.sequential_routing_bwd_cuda)
     k1tp, k2tp = (routing_cuda.sequential_routing_tp_cuda,
                   routing_cuda.sequential_routing_tp_bwd_cuda)
+    k5 = dropout_cuda.fused_dropout_cuda
     k1.launches = k2.launches = k1tp.launches = k2tp.launches = 0
     k1tp.launches_persistent = k2tp.launches_persistent = 0
-    k1tp.launches_bf16 = k2tp.launches_bf16 = 0
+    k1tp.launches_bf16 = k2tp.launches_bf16 = k5.launches = 0
     _, metrics = step(train_state, batch, config.tpu_seed)
-    torch.cuda.synchronize()
+    synchronize(torch, device)
     launches = (k1.launches, k2.launches)
+    k5_launches = k5.launches
     tp_launches = (k1tp.launches, k2tp.launches)
     tp_launches_bf16 = (k1tp.launches_bf16, k2tp.launches_bf16)
     tp_persistent = (k1tp.launches_persistent, k2tp.launches_persistent)
@@ -5655,25 +5707,29 @@ def par_step(torch, config, state, batch, group=None, grad_group=None,
     result = {"loss": metrics["loss_sum"].item(), "rate": rate,
               "launches": launches, "tp_launches": tp_launches,
               "tp_launches_bf16": tp_launches_bf16,
-              "tp_persistent": tp_persistent,
+              "tp_persistent": tp_persistent, "k5": k5_launches,
               "grads": {k: v.detach().to("cpu", copy=True)
                         for k, v in grads.items()},
               "state": {k: v.detach().to("cpu", copy=True)
                         for k, v in after.items()}}
-    torch.cuda.reset_peak_memory_stats()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     result["ms"] = timed_ms(torch, lambda: step(train_state, batch,
-                                                config.tpu_seed), timed)
-    result["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+                                                config.tpu_seed), timed,
+                            device)
+    result["peak_mb"] = (torch.cuda.max_memory_allocated() / 2 ** 20
+                         if cuda else 0.0)
     return result
 
 
 def par_compare(label, got, want, card, grad_atol_rel=GRAD_ATOL_REL,
-                loss_rtol=LOSS_RTOL):
+                loss_rtol=LOSS_RTOL, update_grad_rel=UPDATE_GRAD_REL):
     """``got``'s step held to ``want``'s with phase 7's limits: the loss
     within ``loss_rtol``, every gradient within GRAD_ATOL_REL x its largest
     entry, the BatchNorm statistics within STATS_ATOL, each update within
     UPDATE_ATOL_REL x the rate where the gradient is at least
-    UPDATE_GRAD_REL x its largest (``grad_atol_rel`` None: the
+    ``update_grad_rel`` x its largest (``grad_atol_rel`` None: the
     gradients printed, not held). Returns the worst readings."""
     rate = want["rate"]
     loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
@@ -5684,7 +5740,7 @@ def par_compare(label, got, want, card, grad_atol_rel=GRAD_ATOL_REL,
                 for k, w in want["state"].items() if "running_" in k}
     update_err = {}
     for name, grad in want["grads"].items():
-        sure = grad.abs() >= UPDATE_GRAD_REL * grad.abs().max()
+        sure = grad.abs() >= update_grad_rel * grad.abs().max()
         diff = got["state"][name] - want["state"][name]
         update_err[name] = diff[sure].abs().max().item() / rate
     worst_grad, worst_stat, worst_update = (
@@ -5713,12 +5769,12 @@ def par_compare(label, got, want, card, grad_atol_rel=GRAD_ATOL_REL,
             "stats": worst_stat[0], "update_rel": worst_update[0]}
 
 
-def ring_inputs():
+def ring_inputs(shape=RING_SHAPE):
     """16d's query, key, value, padding mask (rows padded from 70 % of T'
     on) and cotangent, from numpy."""
     rng = np.random.RandomState(SEED + 16)
-    batch, heads, seq, depth = RING_SHAPE
-    arrays = {n: rng.randn(*RING_SHAPE).astype(np.float32)
+    batch, heads, seq, depth = shape
+    arrays = {n: rng.randn(*shape).astype(np.float32)
               for n in ("q", "k", "v", "cot")}
     lengths = rng.randint(int(0.7 * seq), seq + 1, size=batch)
     arrays["mask"] = (np.arange(seq)[None] >= lengths[:, None]).astype(
@@ -5732,23 +5788,27 @@ def stf_parallel_config(logger):
                          STF_TIMIT_FLAGS + NO_DROPOUT_FLAGS)
 
 
-def attention_run(torch, fn, arrays):
+def attention_run(torch, fn, arrays, device="cuda"):
     """``fn(q, k, v, mask)``'s output and the gradients of its dot product
-    with the cotangent, on the card; and the peak memory of the forward and
-    backward above the inputs (MB)."""
-    q, k, v = (torch.tensor(arrays[n], device="cuda", requires_grad=True)
+    with the cotangent, on the card (``device``: the CPU in phase 18's
+    rehearsal); and the peak memory of the forward and backward above the
+    inputs (MB; 0 on the CPU)."""
+    q, k, v = (torch.tensor(arrays[n], device=device, requires_grad=True)
                for n in ("q", "k", "v"))
-    mask, cot = (torch.tensor(arrays[n], device="cuda")
+    mask, cot = (torch.tensor(arrays[n], device=device)
                  for n in ("mask", "cot"))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
+    cuda = torch.device(device).type == "cuda"
+    synchronize(torch, device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     out = fn(q, k, v, mask)
     (out * cot).sum().backward()
-    torch.cuda.synchronize()
-    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    synchronize(torch, device)
+    peak = ((torch.cuda.max_memory_allocated() - base) / 2 ** 20 if cuda
+            else 0.0)
     ms = timed_ms(torch, lambda: (fn(q, k, v, mask) * cot).sum().backward(),
-                  3)
+                  3, device)
     return {"out": out.detach().cpu(), "dq": q.grad.cpu(),
             "dk": k.grad.cpu(), "dv": v.grad.cpu(), "peak_mb": peak,
             "ms": ms}
@@ -6870,23 +6930,15 @@ def tp_7c_config(logger, bf16):
 def model_axis_7c_worker(workdir):
     """One rank of 17d (``chip_smoke.py --model-axis-7c-worker DIR``, the
     SRF_* variables set): a (data 1, model ranks) mesh over gloo on cuda:0
-    and item 7c's three drives on DIR/inputs.pt's state and batch, each
-    with its kernels' launch counts set to 0 just before and read just
-    after: the bf16-routing step (K1-tp-bf16, K2-tp-bf16); the last
-    layer's route_block with a carry and warm-up steps and a streamed
-    utterance through the sharded model, against the same on the
-    unsharded model (K1-tp-stream); and the sharded wavefront forward
-    against the unsharded wavefront (plain PyTorch, no kernel). Writes
-    DIR/rank<r>.pt."""
+    and item 7c's three drives (:func:`tp_7c_drives`) on DIR/inputs.pt's
+    state and batch. Writes DIR/rank<r>.pt."""
     import torch
 
     sys.path.insert(0, REPO)
     from srf_tpu_torch.config import Logger
-    from srf_tpu_torch.models.registry import build_model
     from srf_tpu_torch.ops import routing_cuda
-    from srf_tpu_torch.parallel import distributed, sharding_rules
+    from srf_tpu_torch.parallel import distributed
     from srf_tpu_torch.parallel.mesh import make_mesh
-    from srf_tpu_torch.streaming import StreamingTranscriber
 
     inputs = torch.load(os.path.join(workdir, "inputs.pt"),
                         weights_only=False)
@@ -6894,20 +6946,48 @@ def model_axis_7c_worker(workdir):
     rank, world = distributed.rank(), distributed.world_size()
     mesh = make_mesh(1, world, device="cuda")
     logger = Logger(name="chip_smoke", level=Logger.WARN).logger
-    batch = {k: v.cuda() if k in ("feats", "labels") else v
-             for k, v in inputs["batch"].items()}
-    out = {"transport": routing_cuda.tp_transport(mesh.group("model"))}
-    out["step"] = par_step(torch, tp_7c_config(logger, True),
-                           inputs["state"], batch, group=mesh.group("data"),
-                           model_mesh=mesh, timed=TP_TIMED)
+    out = tp_7c_drives(torch, tp_7c_config(logger, True),
+                       tp_7c_config(logger, False), inputs["state"],
+                       inputs["batch"], mesh)
+    routing_cuda.check_tp_status()
+    torch.save(out, os.path.join(workdir, "rank%d.pt" % rank))
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
 
-    config = tp_7c_config(logger, False)
+
+def tp_7c_drives(torch, bf16_config, config, state, batch, mesh,
+                 device="cuda", timed=TP_TIMED, stream_frames=TP_7C_FRAMES[0]):
+    """Item 7c's three drives on this rank of ``mesh`` (data 1, model
+    ranks), each with its kernels' launch counts set to 0 just before and
+    read just after: the bf16-routing step of ``bf16_config``
+    (K1-tp-bf16, K2-tp-bf16); ``config``'s last layer's route_block with
+    a carry and warm-up steps and a streamed utterance through the sharded
+    model, against the same on the unsharded model (K1-tp-stream); and
+    the sharded wavefront forward against the unsharded wavefront (plain
+    PyTorch, no kernel). ``batch`` on the host, its first
+    ``stream_frames`` frames streamed; ``device`` the CPU in phase 18's
+    rehearsal. Returns the readings."""
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.parallel import sharding_rules
+    from srf_tpu_torch.streaming import StreamingTranscriber
+
+    batch = {k: v.to(device) if k in ("feats", "labels") else v
+             for k, v in batch.items()}
+    out = {"transport": (routing_cuda.tp_transport(mesh.group("model"))
+                         if torch.device(device).type == "cuda"
+                         else "plain")}
+    out["step"] = par_step(torch, bf16_config, state, batch,
+                           group=mesh.group("data"), model_mesh=mesh,
+                           timed=timed, device=device)
+
     classes = class_count(config)
     models = []
     for sharded in (False, True):
         model = build_model(config, classes)[0]
-        model.load_state_dict(inputs["state"])
-        model = model.cuda().eval()
+        model.load_state_dict(state)
+        model = model.to(device).eval()
         if sharded:
             sharding_rules.apply_rules(model, mesh)
         models.append(model)
@@ -6918,15 +6998,15 @@ def model_axis_7c_worker(workdir):
     in_n, in_d = whole.caps_conv_num, whole.caps_conv_dim
     ctx = whole.lpad + whole.rpad
     u_ctx = torch.tensor(rng.randn(2, ctx + 8, in_n, in_d),
-                         dtype=torch.float32, device="cuda")
+                         dtype=torch.float32, device=device)
     v_init = torch.tensor(0.3 * rng.randn(2, classes, whole.caps_class_dim),
-                          dtype=torch.float32, device="cuda")
-    valid = torch.arange(8, device="cuda")[None] >= torch.tensor(
-        [[TP_WARMUP], [0]], device="cuda")
-    feats = batch["feats"][0, :TP_7C_FRAMES[0]].cpu().numpy()
+                          dtype=torch.float32, device=device)
+    valid = torch.arange(8, device=device)[None] >= torch.tensor(
+        [[TP_WARMUP], [0]], device=device)
+    feats = batch["feats"][0, :stream_frames].cpu().numpy()
     with torch.no_grad():
         want = whole.route_block(u_ctx, last, v_init, valid)
-        torch.cuda.synchronize()
+        synchronize(torch, device)
         k1tp.launches_stream = 0
         got = sharded.route_block(u_ctx, last, v_init, valid)
         logits = []
@@ -6938,7 +7018,7 @@ def model_axis_7c_worker(workdir):
                 session.push(feats[lo:lo + push])
             session.flush()
             logits.append(session.logits)
-        torch.cuda.synchronize()
+        synchronize(torch, device)
         out["stream_launches"] = k1tp.launches_stream
         out["route_block_err"] = max((g - w).abs().max().item()
                                      for g, w in zip(got, want))
@@ -6947,17 +7027,13 @@ def model_axis_7c_worker(workdir):
         out["stream_frames"] = int(logits[0].shape[0])
         for model in models:
             model.routing_impl = "wavefront"
-        lens = batch["inp_len"].cuda()
-        forwards = [timed_ms(torch, lambda: model(batch["feats"], lens), 1)
-                    for model in models]
+        lens = batch["inp_len"].to(device)
+        forwards = [timed_ms(torch, lambda: model(batch["feats"], lens), 1,
+                             device) for model in models]
         wave = [model(batch["feats"], lens) for model in models]
         out["wavefront_err"] = (wave[1] - wave[0]).abs().max().item()
         out["wavefront_ms"] = [f[0] for f in forwards]
-    routing_cuda.check_tp_status()
-    torch.save(out, os.path.join(workdir, "rank%d.pt" % rank))
-    distributed.barrier()
-    torch.distributed.destroy_process_group()
-    return 0
+    return out
 
 
 def model_axis_7c_drives(torch, card, workdir):
@@ -7266,6 +7342,1448 @@ def model_axis_phase(torch, card):
     return (k1tp, k2tp, k1tp_p, k2tp_p, *variants), step_k12
 
 
+# phase 18: a rank a card over NCCL (two cards or more; one card skips
+# it). The multi-rank paths of phases 16-17 with each rank on its own card
+# and NCCL its backend, held to the one-process results on cuda:0: 18a DP
+# (the SRF-TIMIT step with global BatchNorm, timed; CNN-TIMIT's step with
+# K5), 18b FSDP, 18c ring attention, 18d the GPipe STF-TIMIT step
+# (CARDS_RANKS stages, and 2 stages x 2 data shards on 4 cards), 18e
+# trainer_sr's and trainer_tf's epochs launched by torchrun, a SIGTERM to
+# one rank and F26's resume, 18f the 'model' axis over CUDA IPC between
+# cards ((1, 2) with item 7c's drives; on 4 cards (2, 2) and (1, 4)), 18g
+# a (data 1, model 2) SRF-WSJ epoch through the library API. CARDS holds
+# the widths and sizes (full width); the CPU rehearsal
+# (tests/test_torch_cards_rehearsal.py: every rank on the CPU, gloo)
+# shrinks them, and there no kernel launches: the launch counts are held
+# only on the card
+CARDS = {
+    # 18a-18d: the SRF-TIMIT and CNN-TIMIT steps on PAR_ROWS rows of 241
+    # frames (14 or 7 a rank), phase 16e's STF-TIMIT and ring shapes
+    "timit_flags": TIMIT_FLAGS, "cnn_flags": CNN_FLAGS,
+    "stf_flags": STF_TIMIT_FLAGS + NO_DROPOUT_FLAGS,
+    "stf_cli_flags": STF_TIMIT_FLAGS,
+    "rows": PAR_ROWS, "frames": 241, "timed": PAR_TIMED,
+    "ring_shape": RING_SHAPE, "pipe_batch": PIPE_BATCH,
+    "pipe_micro": PIPE_MICRO,
+    # 18e: fbank-123 utterances of 150-241 frames (train, valid), the
+    # 7000-frame bucket of 28 rows (7 or 14 a rank): 4 steps an epoch
+    "cli_utts": (112, 28), "cli_frames": (150, 241), "cli_bucket": 7000,
+    "cli_rows": 28, "cli_signal_step": 6,
+    # F26's runs: LSTM-WSJ's BLSTM at its width (train_lstm_wsj.sh: L=5,
+    # D=534) on the raw features, dropout off (below)
+    "f26_flags": ["--model-type=blstm", "--model-encoder-num=5",
+                  "--model-dimension=534", "--model-lstm-is-cnnfe=False"],
+    # 18f: phase 12c's SRF-WSJ step (8 x 300-1600), 17a's WSJ case, 17d's
+    # 3-layer bf16 model on 8 x 300-400
+    "wsj_flags": SRF_WSJ_FLAGS + ["--train-lr-param-k=0.6"],
+    "wsj_rows": 8, "wsj_frames": WSJ_TRAIN_FRAMES,
+    "tp_case": TP_CASES[0], "tp_7c_layers": TP_7C_LAYERS,
+    "tp_7c_frames": TP_7C_FRAMES,
+    # 18g: 160 utterances of 300-400 frames at batch 8: 20 steps
+    "epoch_utts": (160, 16), "epoch_frames": (300, 400), "epoch_batch": 8,
+    "epoch_min_steps": 20,
+}
+# 18e: F26's runs (uninterrupted, signalled, resumed) train at a fixed
+# global batch (the buckets' sizes round to the ranks, and a mid
+# checkpoint of other sizes is refused), without dropout (F22: the seed
+# folds in the rank, so no step with dropout is the same on another world
+# size; the SRF's front end and primary capsules drop at a fixed 0.2, as
+# JAX's, so these runs take a BLSTM, as tests/test_torch_elastic.py takes
+# an LSTM) and with plain SGD at rate CLI_SGD_RATE: Adam's first updates
+# are ~rate x sign(gradient), so float32's other order of sums on another
+# world size flips entries whose gradient is near 0 by a whole rate, past
+# JAX's elastic tolerance (RESUME_RTOL, RESUME_ATOL: tests/test_elastic.py);
+# SGD moves each entry by the rate x its gradient, which a resume from the
+# wrong batch or state would change by far more than the tolerance
+CLI_SGD_RATE = 0.01
+RESUME_RTOL, RESUME_ATOL = 2e-4, 1e-6
+# 18f: the SRF-WSJ step on a mesh whose data axis splits the batch ((2,
+# 2)) against one process, each gradient within WSJ_DP_GRAD_ATOL_REL x its
+# largest entry (phase 12c's WSJ_GRAD_ATOL_REL where the data axis is 1).
+# The global BatchNorm's and the gradients' sums over two ranks round
+# apart from one process's in the front end's cancelling sums: on an H100
+# conv_feat.conv1_1.weight read 1.6e-3 of its largest entry (the loss
+# 8.9e-8, BatchNorm 3.7e-9, the updates 6.4e-7 of the rate), while
+# float32 itself sits 1.2e-2 from float64 there and a TF32 card 5.2e-2
+# (chip_wsj_numerics.py, WSJ_GRAD_ATOL_REL's comment): this limit lies
+# below float32's own distance and refuses TF32
+WSJ_DP_GRAD_ATOL_REL = 1e-2
+# 18g: a parameter whose largest gradient over the epoch is at most this
+# fraction of any parameter's is 0 to float32's rounding (a sum that
+# cancels), and its change is not held
+GRAD_ROUNDING_REL = 1e-5
+# 18g: 20 Adam steps amplify float32's rounding: on an H100 the witness
+# (one process from weights x (1 + 2^-23)) ended 7.38e-3 of a parameter's
+# change from one process's epoch (conv_feat.conv1_0.weight), the (1, 2)
+# split 3.37e-3 (flatten.weight), while every loss agreed within 1.3e-6
+# and each step's gradients within 8.8e-5 of max (18f). The split is held
+# within EPOCH_WITNESS x the witness's furthest parameter; a witness past
+# EPOCH_WITNESS_MAX fails the phase (rounding would hide a fault). So the
+# epoch takes Adam: under plain SGD at 1e-3 the witness itself ended 0.29
+# of a parameter's change away and its losses up to 1.7e-3 off (the
+# split: 0.37 and 2.0e-3), where rounding hides everything
+EPOCH_WITNESS, EPOCH_WITNESS_MAX = 2.0, 5e-2
+# the script the launches start (the rehearsal keeps it)
+WORKER = os.path.abspath(__file__)
+
+
+def card_lines():
+    """nvidia-smi's name and power limit of every card, one line each."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()
+
+
+def rank_device(torch, device):
+    """This rank's device: its own card (the process group bound it), or
+    the CPU."""
+    if torch.device(device).type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def rows_of(batch, parts, index, device):
+    """Part ``index`` of ``parts`` equal row blocks of a host ``batch``,
+    its features and labels on ``device``."""
+    rows = batch["feats"].shape[0] // parts
+    return {k: (v[index * rows:(index + 1) * rows].to(device)
+                if k in ("feats", "labels") else
+                v[index * rows:(index + 1) * rows])
+            for k, v in batch.items()}
+
+
+def emulated_dp_step(torch, ranks):
+    """``par_step``'s ``step_of``: make_train_step's data-parallel step of
+    ``ranks`` ranks in one process. Rank r's rows (the r-th of ``ranks``
+    equal blocks) go through the model with rank r's dropout seed (F22),
+    each loss over the global batch; the gradients sum in ``.grad``, one
+    update. What the ranks compute, in another order of sums (the model
+    must hold no BatchNorm: its statistics would be each block's)."""
+    from srf_tpu_torch.ops.ctc import ctc_loss_from_frames
+    from srf_tpu_torch.train.step import optimizer_update, step_seed
+
+    def make(apply_fn, in_len_div):
+        generators = {}
+
+        def train_step(state, batch, seed):
+            feats = batch["feats"]
+            if feats.device not in generators:
+                generators[feats.device] = torch.Generator(feats.device)
+            generator = generators[feats.device]
+            state.optimizer.zero_grad(set_to_none=True)
+            loss_sum = None
+            for r in range(ranks):
+                part = rows_of(batch, ranks, r, feats.device)
+                generator.manual_seed(step_seed(seed, state.step, r))
+                logits = apply_fn(part, True, generator)
+                pe_loss = ctc_loss_from_frames(
+                    logits, part["inp_len"], in_len_div, part["labels"],
+                    part["tar_len"])
+                (pe_loss.sum() / feats.shape[0]).backward()
+                part_sum = pe_loss.detach().sum()
+                loss_sum = part_sum if loss_sum is None else (loss_sum
+                                                              + part_sum)
+            optimizer_update(state)
+            return state, {"loss_sum": loss_sum}
+
+        return train_step
+
+    return make
+
+
+def rank_kernel_ms(torch, rows, frames, cnn_sites):
+    """This rank's kernel times on its own card while the other ranks time
+    theirs (CUDA events): K1 a forward and K2 a backward of SRF-TIMIT's 7
+    routing layers at ``rows`` x T' (``frames`` after the front end's two
+    stride-2 convs), one iteration; K5 a CNN-TIMIT step (each of
+    ``cnn_sites`` twice). Outside any drive: the launches here are not
+    counted."""
+    from srf_tpu_torch.ops.dropout_cuda import fused_dropout_cuda
+    from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
+                                                sequential_routing_cuda)
+
+    seq_len = math.ceil(math.ceil(frames / 2) / 2)
+    rng = np.random.RandomState(SEED + 180)
+    out = {"k1_ms": 0.0, "k2_ms": 0.0, "k5_ms": 0.0}
+    on_card = lambda *shape: torch.tensor(rng.randn(*shape) * 0.1,
+                                          dtype=torch.float32, device="cuda")
+    for _, (in_n, out_n, out_d, in_d), mask, count in TIMIT_LAYERS:
+        u, w, b = (on_card(rows, seq_len, in_n, in_d),
+                   on_card(in_n, out_n, out_d, in_d),
+                   on_card(in_n, out_n, out_d))
+        vs = sequential_routing_cuda(u, w, b, 1, mask)
+        dvs = on_card(*vs.shape)
+        out["k1_ms"] += count * event_ms(
+            torch, lambda: sequential_routing_cuda(u, w, b, 1, mask), 5)
+        out["k2_ms"] += count * event_ms(
+            torch, lambda: sequential_routing_bwd_cuda(u, w, b, vs, dvs,
+                                                       mask), 5)
+    for shape, rate in cnn_sites:
+        x = on_card(*shape)
+        out["k5_ms"] += 2 * event_ms(
+            torch, lambda: fused_dropout_cuda(x, SEED + 18, rate), 5)
+    return out
+
+
+def cards_worker(workdir):
+    """One rank of 18a-18d (``chip_smoke.py --cards-worker DIR``, the SRF_*
+    variables set): DIR/inputs.pt's backend on the rank's own card (NCCL;
+    gloo and the CPU in the rehearsal): the DP steps of SRF-TIMIT (timed)
+    and CNN-TIMIT (dropout on at the K5 sites), the FSDP step, ring
+    attention over the world, the pipelined STF-TIMIT step at each stage
+    count of the inputs (float32 timed, float64), and this rank's kernel
+    times; writes DIR/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.ops.attention_penalty import create_attention_penalty
+    from srf_tpu_torch.ops.ring_attention import ring_attention
+    from srf_tpu_torch.parallel import distributed
+    from srf_tpu_torch.parallel.mesh import make_mesh, make_pipeline_mesh
+    from srf_tpu_torch.parallel.pipeline import make_pipeline_apply_fn
+
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    device = inputs["device"]
+    distributed.maybe_initialize(backend=inputs["backend"], device=device)
+    rank, world = distributed.rank(), distributed.world_size()
+    here = rank_device(torch, device)
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    out = {"device": str(here), "backend": torch.distributed.get_backend(),
+           "seconds": {}}
+    mesh = make_mesh(device=device)
+    begin = time.perf_counter()
+    config = timit_config(logger, device, inputs["timit_flags"])
+    batch = rows_of(inputs["batch"], world, rank, here)
+    out["dp"] = par_step(torch, config, inputs["state"], batch,
+                         group=mesh.group(), timed=inputs["timed"],
+                         device=device)
+    cnn_config = timit_config(logger, device, inputs["cnn_flags"])
+    # cuDNN's heuristics, as in the one-process reference: a search at
+    # this rank's new shape would take ~40 s (F14)
+    out["cnn"] = par_step(torch, cnn_config, inputs["cnn_state"], batch,
+                          group=mesh.group(), device=device, dropout="k5",
+                          cudnn_search=False)
+    out["seconds"]["18a"] = time.perf_counter() - begin
+
+    begin = time.perf_counter()
+    seen, real = [], routing_cuda.sequential_routing_cuda
+
+    def recording(u, wgt, bias, *args, **kwargs):
+        seen.append((type(wgt).__name__, wgt.is_contiguous(),
+                     tuple(wgt.shape)))
+        return real(u, wgt, bias, *args, **kwargs)
+
+    routing_cuda.sequential_routing_cuda = recording
+    try:
+        out["fsdp"] = par_step(torch, config, inputs["state"], batch,
+                               group=mesh.group(), mesh=mesh, fsdp=True,
+                               timed=inputs["timed"], device=device)
+    finally:
+        routing_cuda.sequential_routing_cuda = real
+    out["fsdp_weights"] = sorted(set(seen))
+    out["seconds"]["18b"] = time.perf_counter() - begin
+
+    begin = time.perf_counter()
+    penalty = stf_penalty()
+    out["ring"] = attention_run(
+        torch, lambda q, k, v, mask: ring_attention(
+            q, k, v, torch.distributed.group.WORLD, mask, penalty),
+        inputs["ring"], here)
+    out["seconds"]["18c"] = time.perf_counter() - begin
+
+    begin = time.perf_counter()
+    stf_config = family_config(logger, device, "timit", inputs["stf_flags"])
+    for stages in inputs["stages"]:
+        pipe_mesh = make_pipeline_mesh(stages, device=device)
+
+        def pipelined(model, in_len_div, pipe_mesh=pipe_mesh):
+            return make_pipeline_apply_fn(
+                model, pipe_mesh, inputs["pipe_micro"],
+                create_attention_penalty(stf_config, logger), in_len_div)
+
+        pipe_batch = rows_of(inputs["pipe_batch"], pipe_mesh.shape["data"],
+                             pipe_mesh.index("data"), here)
+        for float64 in (False, True):
+            out["pipe%d%s" % (stages, "_64" if float64 else "")] = par_step(
+                torch, stf_config, inputs["stf_state"], pipe_batch,
+                group=pipe_mesh.group("data"),
+                grad_group=torch.distributed.group.WORLD,
+                apply_fn_of=pipelined,
+                timed=0 if float64 else inputs["timed"], float64=float64,
+                device=device)
+        out["pipe%d_index" % stages] = (pipe_mesh.index("data"),
+                                        pipe_mesh.index("pipe"))
+    out["seconds"]["18d"] = time.perf_counter() - begin
+    if here.type == "cuda":
+        # every rank times its kernels at once, as a step runs them
+        distributed.barrier()
+        out["kernel_ms"] = rank_kernel_ms(torch, batch["feats"].shape[0],
+                                          batch["feats"].shape[1],
+                                          inputs["cnn_sites"])
+    torch.save(out, os.path.join(workdir, "rank%d.pt" % rank))
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def launch_check(label, got, want, device):
+    """The kernels' launches ``got`` (a count or a tuple of counts) must be
+    ``want`` on the card; on the CPU (the rehearsal) no kernel launches,
+    so there they must be 0."""
+    if torch_type(device) != "cuda":
+        want = (0,) * len(want) if isinstance(want, tuple) else 0
+    got = tuple(got) if isinstance(want, tuple) else got
+    check(got == want, "%s: launches %s, expected %s" % (label, got, want))
+
+
+def torch_type(device):
+    """"cuda" or "cpu" of a device name."""
+    return str(device).split(":")[0]
+
+
+def cards_train_phase(torch, card, state, workdir, device, world):
+    """18a-18d: the one-process references on cuda:0 (the rank's own
+    device in the rehearsal), the ranks' steps (:func:`cards_worker`),
+    each held to them. Returns the launches summed over the ranks, by
+    path: K1's and K2's (DP, FSDP) and K5's (the CNN DP step)."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.models.stf import ConvEncoder
+    from srf_tpu_torch.ops.blockwise_attention import blockwise_attention
+    from srf_tpu_torch.parallel.pipeline import bubble
+
+    sizes = CARDS
+    cuda = torch_type(device) == "cuda"
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    start = time.perf_counter()
+    config = timit_config(logger, device, sizes["timit_flags"])
+    if state is None:
+        state = random_weights(build_model(config, class_count(config))[0])
+    layers = config.model_encoder_num
+    cnn_config = timit_config(logger, device, sizes["cnn_flags"])
+    cnn_state = random_weights(build_model(cnn_config,
+                                           class_count(cnn_config))[0])
+    stf_config = family_config(logger, device, "timit", sizes["stf_flags"])
+    stf_state = random_weights(ConvEncoder.from_config(
+        stf_config, class_count(stf_config)))
+    rows = sizes["rows"]
+    batch = train_batch(torch, device, batch=rows, frames=sizes["frames"])
+    single = par_step(torch, config, state, batch, timed=sizes["timed"],
+                      device=device)
+    cnn_single = par_step(torch, cnn_config, cnn_state, batch, device=device,
+                          dropout="k5", cudnn_search=False,
+                          step_of=emulated_dp_step(torch, world))
+    pipe_batch = train_batch(torch, device, batch=sizes["pipe_batch"],
+                             frames=sizes["frames"])
+    stf_single = par_step(torch, stf_config, stf_state, pipe_batch,
+                          timed=sizes["timed"], device=device)
+    stf_single64 = par_step(torch, stf_config, stf_state, pipe_batch,
+                            float64=True, device=device)
+    arrays, penalty = ring_inputs(sizes["ring_shape"]), stf_penalty()
+    block = attention_run(
+        torch, lambda q, k, v, mask: blockwise_attention(
+            q, k, v, mask, penalty=penalty), arrays, device)
+    stages = [world] + ([2] if world > 2 else [])
+    cnn_sites = (cnn_site_shapes(torch, device, cnn_config,
+                                 rows_of(batch, world, 0, device))
+                 if cuda else [])
+    torch.save({"device": device, "backend": "nccl" if cuda else "gloo",
+                "timit_flags": sizes["timit_flags"],
+                "cnn_flags": sizes["cnn_flags"],
+                "stf_flags": sizes["stf_flags"], "state": state,
+                "cnn_state": cnn_state, "stf_state": stf_state,
+                "batch": {k: v.cpu() for k, v in batch.items()},
+                "pipe_batch": {k: v.cpu() for k, v in pipe_batch.items()},
+                "ring": arrays, "timed": sizes["timed"],
+                "pipe_micro": sizes["pipe_micro"], "stages": stages,
+                "cnn_sites": cnn_sites},
+               os.path.join(workdir, "inputs.pt"))
+    print("18a-d one-process references on %s: %.1f s"
+          % (rank_device(torch, device), time.perf_counter() - start))
+
+    start = time.perf_counter()
+    launch_ranks("--cards-worker", workdir, ranks=world, cards=True)
+    ranks = [torch.load(os.path.join(workdir, "rank%d.pt" % r),
+                        weights_only=False) for r in range(world)]
+    backend = "nccl" if cuda else "gloo"
+    for r, rank in enumerate(ranks):
+        want = "cuda:%d" % r if cuda else "cpu"
+        check(rank["backend"] == backend and rank["device"] == want,
+              "18 rank %d: backend %s on %s, not %s on %s"
+              % (r, rank["backend"], rank["device"], backend, want))
+    print("18a-d: %d ranks, %s, backend %s; %.1f s (per rank and sub-phase "
+          "%s)" % (world, [r["device"] for r in ranks], backend,
+                   time.perf_counter() - start,
+                   [{k: round(v, 1) for k, v in r["seconds"].items()}
+                    for r in ranks]))
+    counts = {}
+    # 18a: DP
+    for r, rank in enumerate(ranks):
+        launch_check("18a DP rank %d K1/K2" % r, rank["dp"]["launches"],
+                     (layers * K1_LAUNCHES, layers * K2_LAUNCHES), device)
+        par_compare("18a DP rank %d (%d x %d global, %d a rank) vs one "
+                    "process" % (r, rows, sizes["frames"], rows // world),
+                    rank["dp"], single, card)
+    for key in ("dp", "fsdp"):
+        same = all(torch.equal(ranks[0][key]["state"][k],
+                               rank[key]["state"][k])
+                   for rank in ranks for k in ranks[0][key]["state"]
+                   if "running_" in k)
+        check(same, "18 %s: BatchNorm statistics differ between ranks" % key)
+    step_ms = [float(np.median(r["dp"]["ms"])) for r in ranks]
+    single_ms = float(np.median(single["ms"]))
+    rate, single_rate = rows / (max(step_ms) / 1e3), rows / (single_ms
+                                                             / 1e3)
+    print("18a DP SRF-TIMIT on %d cards over %s: ms a step a rank %s (one "
+          "process %.1f); %.1f samples/s over the ranks (the slowest rank's "
+          "step) against one process's %.1f: %.2f x; peak %s MB a rank (one "
+          "process %.1f); BatchNorm statistics equal on every rank [%s]"
+          % (world, backend, ["%.1f" % x for x in step_ms], single_ms, rate,
+             single_rate, rate / single_rate,
+             ["%.1f" % r["dp"]["peak_mb"] for r in ranks],
+             single["peak_mb"], card))
+    counts["k1_dp"] = sum(r["dp"]["launches"][0] for r in ranks)
+    counts["k2_dp"] = sum(r["dp"]["launches"][1] for r in ranks)
+    for r, rank in enumerate(ranks):
+        launch_check("18a CNN DP rank %d K5" % r, rank["cnn"]["k5"],
+                     2 * CNN_SITES, device)
+        par_compare("18a CNN-TIMIT DP rank %d (dropout on at the K5 sites) "
+                    "vs the one-process step of every rank's rows and seed"
+                    % r, rank["cnn"], cnn_single, card,
+                    grad_atol_rel=CNN_GRAD_ATOL_REL,
+                    update_grad_rel=CNN_UPDATE_GRAD_REL)
+    counts["k5_cnn_dp"] = sum(r["cnn"]["k5"] for r in ranks)
+    print("18a CNN-TIMIT DP: K5 %s launches a rank (one process emulating "
+          "the %d ranks: %d) [%s]" % ([r["cnn"]["k5"] for r in ranks],
+                                      world, cnn_single["k5"], card))
+    # 18b: FSDP
+    for r, rank in enumerate(ranks):
+        launch_check("18b FSDP rank %d K1/K2" % r, rank["fsdp"]["launches"],
+                     (layers * K1_LAUNCHES, layers * K2_LAUNCHES), device)
+        par_compare("18b FSDP rank %d vs DP" % r, rank["fsdp"], rank["dp"],
+                    card)
+    if cuda:
+        weights = ranks[0]["fsdp_weights"]
+        whole = {tuple(v.shape) for k, v in state.items()
+                 if re.fullmatch(r"W\d+", k)}
+        check(weights and all(t in ("Tensor", "Parameter") and c
+                              and shape in whole
+                              for t, c, shape in weights),
+              "18b: K1 saw %s (the whole W: %s)" % (weights, whole))
+        print("18b: K1 received whole, contiguous weights under FSDP: %s"
+              % weights)
+    print("18b FSDP on %d cards: ms a step a rank %s (DP %s); peak %s MB a "
+          "rank (DP %s) [%s]"
+          % (world, ["%.1f" % np.median(r["fsdp"]["ms"]) for r in ranks],
+             ["%.1f" % x for x in step_ms],
+             ["%.1f" % r["fsdp"]["peak_mb"] for r in ranks],
+             ["%.1f" % r["dp"]["peak_mb"] for r in ranks], card))
+    counts["k1_fsdp"] = sum(r["fsdp"]["launches"][0] for r in ranks)
+    counts["k2_fsdp"] = sum(r["fsdp"]["launches"][1] for r in ranks)
+    # 18c: ring attention
+    for r, rank in enumerate(ranks):
+        ring = rank["ring"]
+        err = (ring["out"] - block["out"]).abs().max().item()
+        grad_err = max((ring[n] - block[n]).abs().max().item()
+                       / block[n].abs().max().item()
+                       for n in ("dq", "dk", "dv"))
+        check(err <= RING_ATOL and grad_err <= RING_GRAD_REL,
+              "18c rank %d: ring vs blockwise %.3e, gradients %.3e x max"
+              % (r, err, grad_err))
+        print("18c ring attention rank %d of %d, %s (T' %d a rank): out "
+              "%.3e from blockwise on one card (atol %.0e), gradients %.3e x "
+              "max (%.0e); forward + backward %.1f ms (blockwise %.1f ms), "
+              "attention peak %.1f MB a rank (blockwise %.1f MB) [%s]"
+              % (r, world, sizes["ring_shape"],
+                 sizes["ring_shape"][2] // world, err, RING_ATOL, grad_err,
+                 RING_GRAD_REL, np.median(ring["ms"]), np.median(block["ms"]),
+                 ring["peak_mb"], block["peak_mb"], card))
+    # 18d: the pipeline
+    for stages in stages:
+        for r, rank in enumerate(ranks):
+            data, stage = rank["pipe%d_index" % stages]
+            exact = par_compare(
+                "18d pipeline %d stages rank %d (data %d, stage %d) float64"
+                % (stages, r, data, stage), rank["pipe%d_64" % stages],
+                stf_single64, card, grad_atol_rel=PIPE64_GRAD_REL)
+            par_compare("18d pipeline %d stages rank %d (STF-TIMIT, %d "
+                        "microbatches, B %d)" % (stages, r,
+                                                 sizes["pipe_micro"],
+                                                 sizes["pipe_batch"]),
+                        rank["pipe%d" % stages], stf_single, card,
+                        grad_atol_rel=None)
+            print("18d %d stages rank %d: float64 gradients %.2e of max "
+                  "(limit %.0e)" % (stages, r, exact["grad_rel"],
+                                    PIPE64_GRAD_REL))
+        print("18d %d stages x %d data shards: bubble (S-1)/(M+S-1) = %.2f; "
+              "ms a step %s, peak %s MB by rank (one process %.1f ms, %.1f "
+              "MB) [%s]"
+              % (stages, world // stages, bubble(stages, sizes["pipe_micro"]),
+                 ["%.1f" % np.median(r["pipe%d" % stages]["ms"])
+                  for r in ranks],
+                 ["%.1f" % r["pipe%d" % stages]["peak_mb"] for r in ranks],
+                 np.median(stf_single["ms"]), stf_single["peak_mb"], card))
+    if cuda:
+        for r, rank in enumerate(ranks):
+            print("18 rank %d kernels on its own card, all ranks at once: K1 "
+                  "%.3f ms a forward and K2 %.3f a backward (7 calls, %d "
+                  "rows x 241), K5 %.3f a CNN-TIMIT step [%s]"
+                  % (r, rank["kernel_ms"]["k1_ms"],
+                     rank["kernel_ms"]["k2_ms"], rows // world,
+                     rank["kernel_ms"]["k5_ms"], card))
+        counts["kernel_ms"] = [r["kernel_ms"] for r in ranks]
+    return counts
+
+
+def cli_corpus(base, seed):
+    """18e's corpus: CARDS' fbank-123 train and valid utterances (and 2 test
+    ones) as TFRecords under ``base``, TIMIT's labels."""
+    rng = np.random.RandomState(seed)
+    low, high = CARDS["cli_frames"]
+    for split, count in zip(("train", "valid", "test"),
+                            CARDS["cli_utts"] + (2,)):
+        utts = {}
+        for i in range(count):
+            n = int(rng.randint(low, high + 1))
+            utts["%s%03d" % (split, i)] = (
+                rng.randn(n, 123).astype(np.float32),
+                rng.randint(1, 62, size=max(2, n // 8)))
+        write_split(base, split, utts, 2)
+
+
+def cli_argv(base, ckpt, device, flags, *extra):
+    """trainer_sr's or trainer_tf's argv on 18e's corpus: timit.conf, the
+    7000-frame bucket, ``flags`` (a recipe's model and training flags)."""
+    train, valid = CARDS["cli_utts"]
+    return ["trainer",
+            "--config=%s" % os.path.join(REPO, "egs", "conf", "timit.conf"),
+            "--path-base=%s" % base,
+            "--path-vocab=%s" % os.path.join(REPO, "egs", "data",
+                                             "timit_62.vocab"),
+            "--path-ckpt=%s" % ckpt, "--feat-type=None",
+            "--path-train-ptrn=tfrecord/synth-train-None-123-*-of-*",
+            "--path-valid-ptrn=tfrecord/synth-valid-None-123-*-of-*",
+            "--path-test-ptrn=tfrecord/synth-test-None-123-*-of-*",
+            "--prep-data-num-train=%d" % train,
+            "--prep-data-num-valid=%d" % valid, "--prep-data-num-test=2",
+            "--device=%s" % device, *flags,
+            "--train-batch-frame=%d" % CARDS["cli_bucket"], *extra]
+
+
+def cards_cli_worker(workdir, name):
+    """One process of an 18e job (``chip_smoke.py --cards-cli DIR NAME``,
+    under torchrun, or alone): DIR/NAME.json's trainer main (trainer_sr's
+    or trainer_tf's) on its argv, which starts the process group itself
+    from torchrun's variables; then writes DIR/NAME-rank<r>.json: K1's,
+    K2's and K5's launches, the seconds in main, the peak memory, the
+    device and the backend."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from srf_tpu_torch import trainer_sr, trainer_tf
+    from srf_tpu_torch.ops import dropout_cuda, routing_cuda
+    from srf_tpu_torch.parallel import distributed
+
+    with open(os.path.join(workdir, name + ".json")) as f:
+        job = json.load(f)
+    cuda = torch_type(job["device"]) == "cuda"
+    start = time.perf_counter()
+    {"sr": trainer_sr, "tf": trainer_tf}[job["main"]].main(job["argv"])
+    synchronize(torch, job["device"])
+    report = {"k1": routing_cuda.sequential_routing_cuda.launches,
+              "k2": routing_cuda.sequential_routing_bwd_cuda.launches,
+              "k5": dropout_cuda.fused_dropout_cuda.launches,
+              "secs": time.perf_counter() - start,
+              "peak_mb": (torch.cuda.max_memory_allocated() / 2 ** 20
+                          if cuda else 0.0),
+              "device": str(rank_device(torch, job["device"])),
+              "backend": (torch.distributed.get_backend()
+                          if distributed.is_initialized() else None)}
+    with open(os.path.join(workdir, "%s-rank%d.json"
+                           % (name, distributed.rank())), "w") as f:
+        json.dump(report, f)
+    if distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def start_job(workdir, job, device):
+    """Starts 18e's ``job`` (a dict: name, main "sr" or "tf", argv, cards,
+    module): on several cards through torchrun (``SRF_MULTIHOST=1``, each
+    rank's output in its own log), on one as a plain process; the
+    counting wrapper (:func:`cards_cli_worker`), or with ``module`` the
+    trainer's own ``python -m``. Returns the Popen."""
+    with open(os.path.join(workdir, job["name"] + ".json"), "w") as f:
+        json.dump(dict(job, device=device), f)
+    logdir = os.path.join(workdir, job["name"])
+    os.makedirs(logdir)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SRF_", "LOCAL_RANK", "RANK", "WORLD_SIZE",
+                                "MASTER_", "TORCHELASTIC"))}
+    env.update(PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""),
+               PYTHONFAULTHANDLER="1")
+    if torch_type(device) == "cuda":
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, job["cards"]))
+    program = (["-m", "srf_tpu_torch.trainer_" + job["main"]]
+               + job["argv"][1:] if job.get("module")
+               else [WORKER, "--cards-cli", workdir, job["name"]])
+    if len(job["cards"]) > 1:
+        env["SRF_MULTIHOST"] = "1"
+        command = [sys.executable, "-m", "torch.distributed.run",
+                   "--nproc-per-node", str(len(job["cards"])),
+                   "--master-addr", "127.0.0.1",
+                   "--master-port", str(free_port()),
+                   "--log-dir", logdir, "--redirects", "3", *program]
+    else:
+        command = [sys.executable, *program]
+    with open(os.path.join(logdir, "launcher.log"), "w") as log:
+        return subprocess.Popen(command, env=env, cwd=REPO, stdout=log,
+                                stderr=subprocess.STDOUT)
+
+
+def rank_logs(workdir, job):
+    """Each rank's stderr of a finished ``job``, in rank order."""
+    import glob
+
+    logdir = os.path.join(workdir, job["name"])
+    if len(job["cards"]) == 1:
+        paths = [os.path.join(logdir, "launcher.log")]
+    else:
+        paths = [glob.glob(os.path.join(logdir, "*", "attempt_0", str(r),
+                                        "stderr.log"))
+                 for r in range(len(job["cards"]))]
+        check(all(len(p) == 1 for p in paths),
+              "18e %s: no log of every rank under %s" % (job["name"],
+                                                          logdir))
+        paths = [p[0] for p in paths]
+    logs = []
+    for path in paths:
+        with open(path) as f:
+            logs.append(f.read())
+    return logs
+
+
+def run_wave(workdir, jobs, device, timeout=900):
+    """Runs ``jobs`` at once (each on its own cards) and waits. Returns
+    {name: (exit code, wall seconds, each rank's stderr, each rank's
+    counting report or None)}."""
+    start = time.perf_counter()
+    procs = [(job, start_job(workdir, job, device)) for job in jobs]
+    results = {}
+    try:
+        for job, proc in procs:
+            left = max(1.0, timeout - (time.perf_counter() - start))
+            proc.wait(timeout=left)
+            results[job["name"]] = [proc.returncode,
+                                    time.perf_counter() - start]
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for job, proc in procs:
+        reports = []
+        for r in range(len(job["cards"])):
+            path = os.path.join(workdir, "%s-rank%d.json" % (job["name"], r))
+            reports.append(json.load(open(path)) if os.path.exists(path)
+                           else None)
+        results[job["name"]] += [rank_logs(workdir, job), reports]
+    return results
+
+
+def epoch_losses(log):
+    """The valid losses an 18e rank logged, by epoch."""
+    return re.findall(r"Epoch (\d+) Valid Loss ([0-9.]+)", log)
+
+
+def cards_cli_phase(torch, card, workdir, device, world):
+    """18e: trainer_sr's SRF-TIMIT epoch on ``world`` ranks under torchrun
+    with example sharding, and with batch sharding and
+    ``--tpu-async-ckpt``; F26's runs (CLI_SGD_RATE's comment):
+    uninterrupted (2 epochs), a SIGTERM to rank 1, its checkpoint resumed
+    on 2 ranks and on one process; trainer_tf's STF-TIMIT epoch; each
+    epoch's wall against one process's. Returns the launches summed over
+    the ranks by run."""
+    import shutil
+
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.utils import checkpoint
+
+    sizes = CARDS
+    cuda = torch_type(device) == "cuda"
+    base = os.path.join(workdir, "cli")
+    start = time.perf_counter()
+    cli_corpus(base, SEED + 41)
+    print("18e corpus: %s train and valid utterances of %s frames, %.1f s"
+          % (sizes["cli_utts"], sizes["cli_frames"],
+             time.perf_counter() - start))
+    steps = sizes["cli_utts"][0] // sizes["cli_rows"]
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    layers = timit_config(logger, device,
+                          sizes["timit_flags"]).model_encoder_num
+    sr_flags = ["--train-warmup-n=1200", "--train-lr-param-k=0.5",
+                *[f for f in sizes["timit_flags"]
+                  if not f.startswith("--decoding-beam")]]
+    f26_flags = sizes["f26_flags"] + [
+        "--train-opti-type=sgd", "--train-lr-param-k=%g" % CLI_SGD_RATE,
+        "--train-inp-dropout=0", "--train-inn-dropout=0",
+        "--tpu-data-shard=batch", "--tpu-async-ckpt=True",
+        "--tpu-ckpt-every-steps=1", "--train-max-epoch=2",
+        "--train-batch-dynamic=False",
+        "--train-batch-size=%d" % sizes["cli_rows"]]
+    stf_flags = [f for f in sizes["stf_cli_flags"]
+                 if not f.startswith("--train-batch-frame")]
+    ckpt = lambda name: os.path.join(base, name)
+    cards = list(range(world))
+    job = lambda name, main, argv, on, module=False: {
+        "name": name, "main": main, "argv": argv, "cards": on,
+        "module": module}
+    waves = [
+        [job("example", "sr", cli_argv(base, ckpt("example"), device,
+                                       sr_flags, "--train-max-epoch=1",
+                                       "--tpu-data-shard=example"), cards)],
+        [job("batch", "sr", cli_argv(base, ckpt("batch"), device, sr_flags,
+                                     "--train-max-epoch=1",
+                                     "--tpu-data-shard=batch",
+                                     "--tpu-async-ckpt=True"), cards)],
+        [job("whole", "sr", cli_argv(base, ckpt("whole"), device,
+                                     f26_flags), cards)],
+        [job("signal", "sr", cli_argv(
+            base, ckpt("signal"), device, f26_flags,
+            "--tpu-fault-signal-at-step=%d" % sizes["cli_signal_step"],
+            "--tpu-fault-signal-process=1"), cards, True)],
+    ]
+    results = {}
+    # on the CPU (the rehearsal) no card bounds a wave: two run at once
+    paired = lambda waves: (waves if cuda else [
+        sum(waves[i:i + 2], []) for i in range(0, len(waves), 2)])
+    for wave in paired(waves):
+        results.update(run_wave(workdir, wave, device))
+    for name in ("resume2", "resume1"):
+        shutil.copytree(ckpt("signal"), ckpt(name))
+    resume = lambda name, on: job(name, "sr", cli_argv(
+        base, ckpt(name), device, f26_flags), on, True)
+    single = lambda main, flags, on: job(
+        "single_" + main, main, cli_argv(base, ckpt("single_" + main),
+                                         device, flags, "--train-max-epoch=1"),
+        on)
+    stf = job("stf", "tf", cli_argv(base, ckpt("stf"), device, stf_flags,
+                                    "--train-max-epoch=1",
+                                    "--tpu-data-shard=example"), cards)
+    # the one-process epochs (wall-time references) run beside the resumes
+    # where the cards allow: each job on cards of its own
+    if world > 2:
+        waves = [[resume("resume2", cards[:2]), resume("resume1", [2]),
+                  single("sr", sr_flags, [3])],
+                 [stf], [single("tf", stf_flags, [0])]]
+    else:
+        waves = [[resume("resume2", cards)], [resume("resume1", [0]),
+                                              single("sr", sr_flags, [1])],
+                 [stf], [single("tf", stf_flags, [0])]]
+    for wave in paired(waves):
+        results.update(run_wave(workdir, wave, device))
+
+    def ok(name, code=0):
+        rc, secs, logs, _ = results[name]
+        check(rc == code, "18e %s exited %s, not %s: %s"
+              % (name, rc, code, "\n".join(log[-2000:] for log in logs)))
+        return logs
+
+    counts = {}
+    for name, main, epochs in (("example", "sr", 1), ("batch", "sr", 1),
+                               ("whole", "sr", 2), ("stf", "tf", 1)):
+        logs = ok(name)
+        _, secs, _, reports = results[name]
+        losses = [epoch_losses(log) for log in logs]
+        check(len(losses[0]) == epochs
+              and all(x == losses[0] for x in losses),
+              "18e %s: the ranks' valid losses %s" % (name, losses))
+        backends = {(r or {}).get("backend") for r in reports}
+        devices = [(r or {}).get("device") for r in reports]
+        check(backends == {"nccl" if cuda else "gloo"}
+              and devices == (["cuda:%d" % r for r in range(world)] if cuda
+                              else ["cpu"] * world),
+              "18e %s: backends %s on %s" % (name, backends, devices))
+        # the SRF's K1 in every forward, K2 in every backward; none in the
+        # STF and the BLSTM
+        srf = name in ("example", "batch")
+        valid = sizes["cli_utts"][1] // sizes["cli_rows"]
+        want_k1 = epochs * (steps + valid) * layers * K1_LAUNCHES * srf
+        want_k2 = epochs * steps * layers * K2_LAUNCHES * srf
+        got = [(r["k1"], r["k2"]) for r in reports]
+        check(all(g == (want_k1, want_k2) if cuda else g == (0, 0)
+                  for g in got),
+              "18e %s: K1/K2 launches a rank %s, expected (%d, %d): %d "
+              "steps an epoch on every rank" % (name, got, want_k1, want_k2,
+                                                steps))
+        counts[name] = (sum(g[0] for g in got), sum(g[1] for g in got))
+        single = results["single_" + main]
+        print("18e %s (trainer_%s, %d ranks under torchrun, %s): valid "
+              "losses %s on every rank; K1, K2 launches a rank %s (%d steps "
+              "an epoch); %d epoch(s): wall %.1f s, in main %s s, peak %s MB "
+              "a rank; one process's epoch (trainer_%s, the recipe's flags) "
+              "%.1f s wall, %.1f in main [%s]"
+              % (name, main, world, ",".join(sorted(map(str, backends))),
+                 losses[0], got,
+                 steps, epochs, secs, ["%.1f" % r["secs"] for r in reports],
+                 ["%.1f" % r["peak_mb"] for r in reports], main,
+                 single[1], single[3][0]["secs"], card))
+    # the SIGTERM: every rank saves the same mid checkpoint, then exits
+    _, _, logs, _ = results["signal"]
+    signal_rc = results["signal"][0]
+    saved = [re.findall(r"SIGTERM: saved mid-epoch checkpoint at global "
+                        r"step (\d+)", log) for log in logs]
+    raised = ["raising SIGTERM" in log for log in logs]
+    check(signal_rc != 0 and raised == [r == 1 for r in range(world)]
+          and all(s and s == saved[0] for s in saved),
+          "18e signal: exit %s, SIGTERM raised on %s, saved at %s"
+          % (signal_rc, raised, saved))
+    step = int(saved[0][0])
+    # the state after the last step: its mid checkpoint (an epoch's is
+    # written only where the valid loss improved)
+    mids = lambda name: checkpoint.CheckpointManager(
+        os.path.join(ckpt(name), "mid"))
+    last = mids("whole").latest_step()
+    whole = mids("whole").restore(last)["state"]
+    for name, procs in (("resume2", min(2, world)), ("resume1", 1)):
+        logs = ok(name)
+        check(all("Resuming mid-epoch" in log for log in logs),
+              "18e %s: no mid-epoch resume" % name)
+        got = mids(name).restore(last)["state"]
+        check(got["step"] == whole["step"],
+              "18e %s: step %s, the uninterrupted run %s"
+              % (name, got["step"], whole["step"]))
+        worst_rel = 0.0
+        for key, value in whole["model"].items():
+            if not value.is_floating_point():
+                continue
+            diff = (got["model"][key] - value).abs()
+            bound = RESUME_ATOL + RESUME_RTOL * value.abs()
+            worst_rel = max(worst_rel, (diff / bound).max().item())
+            check(bool((diff <= bound).all()),
+                  "18e %s: %s differs from the uninterrupted run by %.3e"
+                  % (name, key, diff.max().item()))
+        print("18e SIGTERM to rank 1 of %d at step %d: every rank saved the "
+              "mid checkpoint at step %d and exited (torchrun %s); resumed "
+              "on %d process(es): the uninterrupted run's weights at step "
+              "%d, worst |diff| %.2f of JAX's elastic tolerance (rtol %.0e, "
+              "atol %.0e) [%s]"
+              % (world, sizes["cli_signal_step"], step, signal_rc, procs,
+                 whole["step"], worst_rel, RESUME_RTOL, RESUME_ATOL, card))
+    return counts
+
+
+
+def epoch_corpus(base, classes, seed):
+    """18g's corpus: CARDS' SRF-WSJ train and valid utterances (and 2 test
+    ones) as TFRecords under ``base``, labels 1..classes-2."""
+    rng = np.random.RandomState(seed)
+    low, high = CARDS["epoch_frames"]
+    for split, count in zip(("train", "valid", "test"),
+                            CARDS["epoch_utts"] + (2,)):
+        utts = {}
+        for i in range(count):
+            n = int(rng.randint(low, high + 1))
+            utts["%s%03d" % (split, i)] = (
+                rng.randn(n, 123).astype(np.float32),
+                rng.randint(1, classes - 1, size=max(2, n // 8)))
+        write_split(base, split, utts, 2)
+
+
+def epoch_argv(base, ckpt, device, flags, lr_flags):
+    """18g's SRF-WSJ training configuration on its corpus: wsj.conf,
+    ``flags`` (phase 12c's model and optimizer), ``lr_flags`` (the
+    schedule), batches of CARDS' epoch_batch, the configurable dropout off
+    (the SRF's front end keeps its fixed rate, its masks from the step's
+    seed), one epoch."""
+    train, valid = CARDS["epoch_utts"]
+    return ["chip_smoke",
+            "--config=%s" % os.path.join(REPO, "egs", "conf", "wsj.conf"),
+            "--path-base=%s" % base,
+            "--path-vocab=%s" % os.path.join(REPO, "egs", "data",
+                                             "wsj_31.vocab"),
+            "--path-ckpt=%s" % ckpt, "--feat-type=None",
+            "--path-train-ptrn=tfrecord/synth-train-None-123-*-of-*",
+            "--path-valid-ptrn=tfrecord/synth-valid-None-123-*-of-*",
+            "--path-test-ptrn=tfrecord/synth-test-None-123-*-of-*",
+            "--prep-data-num-train=%d" % train,
+            "--prep-data-num-valid=%d" % valid, "--prep-data-num-test=2",
+            "--device=%s" % device, *flags, "--train-batch-dynamic=False",
+            "--train-batch-size=%d" % CARDS["epoch_batch"],
+            "--train-inp-dropout=0", "--train-inn-dropout=0",
+            "--train-max-epoch=1", *lr_flags]
+
+
+def epoch_lr_flags(config, steps):
+    """18g's schedule: wsj.conf's Noam schedule with a warmup of the
+    epoch's ``steps``, scaled so that its last step takes par_step's rate
+    (the schedule's at PARITY_COUNT): at wsj.conf's warmup of 25000 an
+    epoch of 20 steps would move a weight by ~3e-5, too little to show a
+    wrong gradient against float32's rounding."""
+    from srf_tpu_torch.train.optimizer import noam_schedule
+
+    rate = noam_schedule(config.train_lr_param_k, config.model_dimension,
+                         config.train_warmup_n,
+                         config.train_lr_max)(PARITY_COUNT)
+    scale = float(config.model_dimension) ** 0.5 * steps ** 0.5
+    return ["--train-warmup-n=%d" % steps,
+            "--train-lr-param-k=%r" % (rate * scale)]
+
+
+def library_epoch(torch, argv, mesh_shape, device, reference=False,
+                  nudge=False):
+    """18g: one epoch through the library API, wired as trainer_sr.main
+    wires it (no CLI flag builds a 'model' axis, as in JAX): the mesh of
+    ``mesh_shape`` (data, model), or one process (None); the model built
+    from --tpu-seed, build_state (the class capsules sharded over
+    'model'), build_loaders, the train step over the mesh's groups,
+    run_training, the epoch's checkpoint from rank 0. Returns each step's
+    loss, the seconds in the loop, K1's, K2's, K1-tp's and K2-tp's
+    launches in it (the persistent transport's), and with ``reference``
+    (one process) the weights it started from, each trained parameter's
+    largest |gradient| over the epoch's steps and, entry by entry, the
+    least over the steps of |gradient| / that step's largest of the
+    parameter (on the host). ``nudge`` first moves every trained weight
+    by one or two units in its last place (x (1 + 2^-23)): a change the
+    size of float32's rounding."""
+    from srf_tpu_torch import trainer_sr
+    from srf_tpu_torch.config import Logger, ParseOption
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.parallel.mesh import broadcast_state, make_mesh
+    from srf_tpu_torch.train.loop import run_training
+    from srf_tpu_torch.train.step import (make_apply_fn, make_train_step,
+                                          make_valid_step)
+    from srf_tpu_torch.utils.checkpoint import load_checkpoint, restore_into
+
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = ParseOption(argv, logger, is_print_opts=False).args
+    mesh = (make_mesh(*mesh_shape, device=device) if mesh_shape
+            else make_mesh(device=device))
+    model, in_len_div = trainer_sr.build_model(
+        config, class_count(config), logger,
+        generator=torch.Generator().manual_seed(config.tpu_seed))
+    state = trainer_sr.build_state(config, logger, model, mesh, True)
+    ckpt_manager, _, epoch_offset = load_checkpoint(config, logger, state)
+    broadcast_state(state)
+    apply_fn = make_apply_fn(state.model)
+    train_loader, valid_loader = trainer_sr.build_loaders(
+        config, logger, mesh, seed=config.tpu_seed)
+    step = make_train_step(apply_fn, in_len_div, group=mesh.group("data"),
+                           model_group=mesh.group("model"))
+    losses = []
+    trained = [(k, p) for k, p in state.model.named_parameters()
+               if p.requires_grad]
+    grad_top = torch.zeros(len(trained), dtype=torch.float64)
+    grad_floor = ({k: torch.full_like(p, math.inf) for k, p in trained}
+                  if reference else {})
+
+    def recording(state, batch, seed):
+        state, metrics = step(state, batch, seed)
+        losses.append(metrics["loss_sum"])
+        if reference:
+            # the step leaves its gradients in .grad
+            tops = torch.stack([p.grad.abs().max() for _, p in trained])
+            torch.maximum(grad_top, tops.double().cpu(), out=grad_top)
+            for (k, p), top in zip(trained, tops):
+                torch.minimum(grad_floor[k],
+                              p.grad.abs() / top.clamp_min(1e-30),
+                              out=grad_floor[k])
+        return state, metrics
+
+    k1, k2 = (routing_cuda.sequential_routing_cuda,
+              routing_cuda.sequential_routing_bwd_cuda)
+    k1tp, k2tp = (routing_cuda.sequential_routing_tp_cuda,
+                  routing_cuda.sequential_routing_tp_bwd_cuda)
+    initial = ({k: v.detach().to("cpu", copy=True)
+                for k, v in state.model.state_dict().items()}
+               if reference else None)
+    if nudge:
+        with torch.no_grad():
+            for _, p in trained:
+                p.mul_(1 + 2 ** -23)
+    k1.launches = k2.launches = 0
+    k1tp.launches_persistent = k2tp.launches_persistent = 0
+    start = time.perf_counter()
+    run_training(config, logger, state, recording,
+                 make_valid_step(apply_fn, in_len_div, mesh.group("data"),
+                                 mesh.group("model")),
+                 train_loader, valid_loader, ckpt_manager, epoch_offset,
+                 config.tpu_seed, config.prep_data_num_train,
+                 schedule_fn=(state.scheduler.lr_lambdas[0]
+                              if state.scheduler is not None else None),
+                 state_to_save=trainer_sr.state_to_tree,
+                 state_from_tree=lambda tree: restore_into(state, tree))
+    synchronize(torch, device)
+    secs = time.perf_counter() - start
+    ckpt_manager.close()
+    return {"losses": [float(x) for x in losses], "secs": secs,
+            "initial": initial,
+            "grad_top": ({k: float(g) for (k, _), g in zip(trained, grad_top)}
+                         if reference else None),
+            "grad_floor": ({k: v.cpu() for k, v in grad_floor.items()}
+                           if reference else None),
+            "launches": (k1.launches, k2.launches,
+                         k1tp.launches_persistent,
+                         k2tp.launches_persistent)}
+
+
+def epoch_distances(got, want, reference):
+    """18g: each trained parameter's distance between the final weights
+    ``got`` and ``want`` (``reference``'s epoch, library_epoch's), as a
+    share of the parameter's largest change over that epoch: {name:
+    (share over the entries whose gradient was at least UPDATE_GRAD_REL x
+    the parameter's largest at every step, as phase 12c holds an update,
+    share over every entry, the change, the fraction of entries held)}.
+    Adam moves an entry by ~rate x gradient / its running scale, so an
+    entry whose gradient passes near 0 moves by rounding's sign. A
+    parameter whose largest gradient is at most GRAD_ROUNDING_REL x any
+    parameter's (0 but for float32's rounding) is left out."""
+    initial, grad_top = reference["initial"], reference["grad_top"]
+    largest = max(grad_top.values())
+    out = {}
+    for k, top in grad_top.items():
+        if top <= GRAD_ROUNDING_REL * largest:
+            continue
+        sure = reference["grad_floor"][k] >= UPDATE_GRAD_REL
+        change = max((want[k] - initial[k]).abs().max().item(), 1e-30)
+        diff = (got[k] - want[k]).abs()
+        out[k] = ((diff[sure].max().item() if sure.any() else 0.0) / change,
+                  diff.max().item() / change, change,
+                  sure.float().mean().item())
+    return out
+
+
+def cards_model_worker(workdir):
+    """One rank of 18f-18g (``chip_smoke.py --cards-model-worker DIR``, the
+    SRF_* variables set): DIR/inputs.pt's backend on the rank's own card;
+    for each (data, model) mesh of the inputs, the model group's
+    transport, 17a's kernel checks of the inputs' case (on the card, at
+    the mesh's model size) and the SRF-WSJ step on the mesh, the status
+    words read after them; where asked, item 7c's drives (17d) and 18g's
+    epoch on (1, 2). A mesh of 'model' 1 ((2, 1)) is the data split
+    alone: the step's DP, no kernel checks. Writes DIR/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.parallel import distributed
+    from srf_tpu_torch.parallel.mesh import make_mesh
+
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    device = inputs["device"]
+    cuda = torch_type(device) == "cuda"
+    distributed.maybe_initialize(backend=inputs["backend"], device=device)
+    rank = distributed.rank()
+    here = rank_device(torch, device)
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    config = family_config(logger, device, "wsj", inputs["wsj_flags"])
+    out = {"device": str(here), "backend": torch.distributed.get_backend(),
+           "meshes": {}, "seconds": {}}
+    for shape in inputs["meshes"]:
+        begin = time.perf_counter()
+        mesh = make_mesh(*shape, device=device)
+        group = mesh.group("model")
+        result = {"index": (mesh.index("data"), mesh.index("model"))}
+        split = shape[1] > 1
+        if cuda and split:
+            label, _, geometry, is_last, shapes = inputs["case"]
+            result["transport"] = routing_cuda.tp_transport(group)
+            result["deadline_s"] = routing_cuda.group_timeout_s(group, here)
+            result["kernels"] = tp_kernel_checks(torch, label, geometry,
+                                                 is_last, shapes, group)
+            routing_cuda.check_tp_status()
+        batch = rows_of(inputs["batch"], shape[0], mesh.index("data"), here)
+        result["step"] = par_step(torch, config, inputs["state"], batch,
+                                  group=mesh.group("data"),
+                                  model_mesh=mesh if split else None,
+                                  timed=inputs["timed"], device=device)
+        if cuda:
+            # every status word clean after the step's calls
+            routing_cuda.check_tp_status()
+        out["meshes"][tuple(shape)] = result
+        out["seconds"]["%dx%d" % tuple(shape)] = time.perf_counter() - begin
+    if "drives_7c" in inputs:
+        begin = time.perf_counter()
+        drives = inputs["drives_7c"]
+        out["7c"] = tp_7c_drives(
+            torch, family_config(logger, device, "wsj", drives["bf16_flags"]),
+            family_config(logger, device, "wsj", drives["flags"]),
+            drives["state"], drives["batch"], make_mesh(1, 2, device=device),
+            device=device, timed=inputs["timed"],
+            stream_frames=drives["stream_frames"])
+        if cuda:
+            routing_cuda.check_tp_status()
+        out["seconds"]["7c"] = time.perf_counter() - begin
+    if "epoch_argv" in inputs:
+        begin = time.perf_counter()
+        out["epoch"] = library_epoch(torch, inputs["epoch_argv"], (1, 2),
+                                     device)
+        if cuda:
+            routing_cuda.check_tp_status()
+        out["seconds"]["epoch"] = time.perf_counter() - begin
+    torch.save(out, os.path.join(workdir, "rank%d.pt" % rank))
+    if cuda:
+        routing_cuda.release_ipc(barrier=distributed.barrier)
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def cards_model_phase(torch, card, workdir, device, world):
+    """18f-18g: the one-process references on cuda:0 (phase 12c's SRF-WSJ
+    step, 17d's bf16 step, 18g's epoch), then 2 ranks on (data 1, model 2)
+    and (2, 1) (the data split alone, the witness of (2, 2)'s data axis)
+    and, on 4 cards, 4 ranks on (2, 2) and (1, 4)
+    (:func:`cards_model_worker`), each held to them. Returns (K1-tp's and
+    K2-tp's "kernels" readings across cards, the persistent launches
+    summed over the ranks by run, K1's and K2's launches summed over the
+    ranks)."""
+    from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.utils import checkpoint
+
+    sizes = CARDS
+    cuda = torch_type(device) == "cuda"
+    logger = Logger(name="chip_smoke", level=Logger.WARN).logger
+    start = time.perf_counter()
+    config = family_config(logger, device, "wsj", sizes["wsj_flags"])
+    classes = class_count(config)
+    layers = config.model_encoder_num - 1
+    state = random_weights(build_model(config, classes)[0])
+    low, high = sizes["wsj_frames"]
+    batch = train_batch(torch, device, batch=sizes["wsj_rows"], frames=high,
+                        vocab=classes - 1, shortest=low)
+    single = par_step(torch, config, state, batch, timed=TP_TIMED,
+                      device=device)
+    flags_7c = sizes["wsj_flags"] + ["--model-encoder-num=%d"
+                                     % sizes["tp_7c_layers"]]
+    bf16_flags = flags_7c + ["--tpu-routing-bf16=True"]
+    config_7c = family_config(logger, device, "wsj", bf16_flags)
+    state_7c = random_weights(build_model(config_7c, classes)[0])
+    low_7c, high_7c = sizes["tp_7c_frames"]
+    batch_7c = train_batch(torch, device, batch=8, frames=high_7c,
+                           vocab=classes - 1, shortest=low_7c)
+    single_7c = par_step(torch, config_7c, state_7c, batch_7c,
+                         timed=TP_TIMED, device=device)
+    base = os.path.join(workdir, "epoch")
+    epoch_corpus(base, classes, SEED + 42)
+    lr_flags = epoch_lr_flags(config, sizes["epoch_utts"][0]
+                              // sizes["epoch_batch"])
+    argv = lambda ckpt: epoch_argv(base, os.path.join(base, ckpt), device,
+                                   sizes["wsj_flags"], lr_flags)
+    one_epoch = library_epoch(torch, argv("single"), None, device,
+                              reference=True)
+    # the witness: one process again, from weights moved by rounding
+    witness_epoch = library_epoch(torch, argv("witness"), None, device,
+                                  nudge=True)
+    print("18f-g one-process references on %s: %.1f s"
+          % (rank_device(torch, device), time.perf_counter() - start))
+    host = lambda b: {k: v.cpu() for k, v in b.items()}
+    label, _, geometry, is_last, shapes = sizes["tp_case"]
+    runs = [(2, [(1, 2), (2, 1)], {
+        "drives_7c": {"bf16_flags": bf16_flags, "flags": flags_7c,
+                      "state": state_7c, "batch": host(batch_7c),
+                      "stream_frames": low_7c},
+        "epoch_argv": argv("sharded"),
+        "case": (label, 2, geometry, is_last, shapes)})]
+    if world >= 4:
+        runs.append((4, [(2, 2), (1, 4)], {
+            "case": (label, 4, geometry, is_last, shapes[:1])}))
+    transport = "ipc" if cuda else None
+    readings, persistent, k12 = [], {}, [0, 0]
+    for ranks, meshes, extra in runs:
+        torch.save(dict(extra, device=device,
+                        backend="nccl" if cuda else "gloo",
+                        wsj_flags=sizes["wsj_flags"], state=state,
+                        batch=host(batch), timed=TP_TIMED, meshes=meshes),
+                   os.path.join(workdir, "inputs.pt"))
+        start = time.perf_counter()
+        launch_ranks("--cards-model-worker", workdir, ranks=ranks,
+                     cards=True)
+        results = [torch.load(os.path.join(workdir, "rank%d.pt" % r),
+                              weights_only=False) for r in range(ranks)]
+        print("18f: %d ranks on %s over %s, %.1f s (per rank %s)"
+              % (ranks, [r["device"] for r in results],
+                 results[0]["backend"], time.perf_counter() - start,
+                 [{k: round(v, 1) for k, v in r["seconds"].items()}
+                  for r in results]))
+        for shape in meshes:
+            stage = "18f (%d, %d)" % shape
+            mesh_results = [dict(r["meshes"][shape], device=r["device"])
+                            for r in results]
+            split = shape[1] > 1
+            for r, result in enumerate(mesh_results):
+                if cuda and split:
+                    check(result["transport"] == transport,
+                          "%s rank %d: transport %s, not %s"
+                          % (stage, r, result["transport"], transport))
+                    for reading in result["kernels"]:
+                        reading.update(case="%s_%dx%d" % ((label,) + shape),
+                                       rank=r, ranks=shape[1])
+                        readings.append(reading)
+                got = result["step"]
+                launch_check("%s rank %d K1/K2" % (stage, r),
+                             got["launches"],
+                             (layers * K1_LAUNCHES, layers * K2_LAUNCHES)
+                             if split else single["launches"], device)
+                launch_check("%s rank %d persistent K1-tp/K2-tp"
+                             % (stage, r), got["tp_persistent"],
+                             (2, 4) if split else (0, 0), device)
+                par_compare("%s SRF-WSJ rank %d (data %d, model %d) vs one "
+                            "process" % ((stage, r) + result["index"]), got,
+                            single, card,
+                            grad_atol_rel=(WSJ_DP_GRAD_ATOL_REL
+                                           if shape[0] > 1
+                                           else WSJ_GRAD_ATOL_REL))
+            if cuda and split:
+                print_tp_readings(stage, label, mesh_results, card)
+            print("%s: ms a step a rank %s (one process %s), peak %s MB; %s "
+                  "[%s]"
+                  % (stage, ["%.1f" % np.median(r["step"]["ms"])
+                             for r in mesh_results],
+                     ["%.1f" % x for x in single["ms"]],
+                     ["%.1f" % r["step"]["peak_mb"] for r in mesh_results],
+                     "every status word clean after each call; the wait for "
+                     "a peer ends at %s s"
+                     % sorted({r.get("deadline_s") for r in mesh_results})
+                     if split else "the data split alone (DP, no K1-tp)",
+                     card))
+            if split:
+                persistent["%dx%d" % shape] = [
+                    sum(r["step"]["tp_persistent"][i] for r in mesh_results)
+                    for i in (0, 1)]
+            for i in (0, 1):
+                k12[i] += sum(r["step"]["launches"][i] for r in mesh_results)
+        if "drives_7c" not in extra:
+            continue
+        for r, result in enumerate(results):
+            drive = result["7c"]
+            got = drive["step"]
+            launch_check("18f 7c rank %d K1-tp-bf16/K2-tp-bf16" % r,
+                         got["tp_launches_bf16"], (2, 4), device)
+            launch_check("18f 7c rank %d float32 K1-tp/K2-tp" % r,
+                         got["tp_launches"], (0, 0), device)
+            readings_7c = par_compare(
+                "18f bf16-routing SRF-WSJ (depth %d, data 1, model 2) rank %d "
+                "vs one process's bf16 step" % (sizes["tp_7c_layers"], r),
+                got, single_7c, card, grad_atol_rel=TP_7C_GRAD_REL,
+                loss_rtol=BF16_LOSS_RTOL)
+            check((drive["stream_launches"] > 0 or not cuda)
+                  and drive["warmup_zero"]
+                  and drive["route_block_err"] <= STREAM_7C_ATOL
+                  and drive["stream_err"] <= STREAM_7C_ATOL
+                  and drive["wavefront_err"] <= STREAM_7C_ATOL,
+                  "18f 7c rank %d: route_block %.3e, streamed %.3e, "
+                  "wavefront %.3e from the unsharded (limit %.0e); "
+                  "K1-tp-stream launches %d"
+                  % (r, drive["route_block_err"], drive["stream_err"],
+                     drive["wavefront_err"], STREAM_7C_ATOL,
+                     drive["stream_launches"]))
+            print("18f 7c rank %d (transport %s): bf16 step %s ms (one "
+                  "process %s), K1-tp-bf16 %d, K2-tp-bf16 %d launches, "
+                  "gradients %.2e x max; route_block %.3e, a streamed "
+                  "utterance %.3e from the unsharded, K1-tp-stream %d "
+                  "launches; wavefront %.3e [%s]"
+                  % (r, drive["transport"],
+                     ["%.1f" % x for x in got["ms"]],
+                     ["%.1f" % x for x in single_7c["ms"]],
+                     *got["tp_launches_bf16"], readings_7c["grad_rel"],
+                     drive["route_block_err"], drive["stream_err"],
+                     drive["stream_launches"], drive["wavefront_err"], card))
+        persistent["7c_bf16"] = [sum(r["7c"]["step"]["tp_launches_bf16"][i]
+                                     for r in results) for i in (0, 1)]
+        persistent["7c_stream"] = sum(r["7c"]["stream_launches"]
+                                      for r in results)
+        # 18g: the epoch on (data 1, model 2)
+        epochs = [r["epoch"] for r in results]
+        losses = np.asarray(epochs[0]["losses"])
+        check(len(losses) >= sizes["epoch_min_steps"]
+              and np.isfinite(losses).all()
+              and all(e["losses"] == epochs[0]["losses"] for e in epochs),
+              "18g: the ranks' step losses %s"
+              % [e["losses"] for e in epochs])
+        for r, epoch in enumerate(epochs):
+            # K2-tp once a train step; K1-tp in every forward, the valid
+            # batches' too
+            k1tp, k2tp = epoch["launches"][2:]
+            check(k2tp == (4 * len(losses) if cuda else 0)
+                  and (k1tp >= 2 * len(losses) if cuda else k1tp == 0),
+                  "18g rank %d: persistent K1-tp %d, K2-tp %d launches in %d "
+                  "steps" % (r, k1tp, k2tp, len(losses)))
+        want = checkpoint.CheckpointManager(os.path.join(
+            base, "single")).restore(1)["model"]
+        got = checkpoint.CheckpointManager(os.path.join(
+            base, "sharded")).restore(1)["model"]
+        # every step's loss within LOSS_RTOL, and each trained parameter's
+        # change over the epoch (epoch_distances) within EPOCH_WITNESS x
+        # the witness's furthest parameter (and never held tighter than
+        # phase 12c's WSJ_GRAD_ATOL_REL)
+        witness = checkpoint.CheckpointManager(os.path.join(
+            base, "witness")).restore(1)["model"]
+        readings = {}
+        for name, weights, run in (
+                ("sharded", got, epochs[0]),
+                ("witness (one process, every weight x (1 + 2^-23) first)",
+                 witness, witness_epoch)):
+            moves = epoch_distances(weights, want, one_epoch)
+            loss_rel = float(np.max(np.abs(np.asarray(run["losses"])
+                                           - one_epoch["losses"])
+                                    / np.abs(one_epoch["losses"])))
+            readings[name.split()[0]] = (loss_rel, moves)
+            print("18g %s: each step's loss within %.2e of one process's; "
+                  "the 4 parameters furthest from one process's on their "
+                  "held entries, as a share of their own largest change "
+                  "(on every entry in brackets): %s" % (
+                      name, loss_rel,
+                      ", ".join("%s %.2e (%.2e; changed %.2e, %.0f%% of "
+                                "entries held)" % (k, v[0], v[1], v[2],
+                                                   100 * v[3])
+                                for v, k in sorted(((v, k) for k, v in
+                                                    moves.items()),
+                                                   reverse=True)[:4])))
+        loss_rel, moves = readings["sharded"]
+        (worst_rel, _, worst_change, _), worst_name = max(
+            (v, k) for k, v in moves.items())
+        rounding = sorted(set(one_epoch["grad_top"]) - set(moves))
+        floor = max(v[0] for v in readings["witness"][1].values())
+        limit = max(WSJ_GRAD_ATOL_REL, EPOCH_WITNESS * floor)
+        check(loss_rel <= LOSS_RTOL,
+              "18g: a step's loss %.3e from one process's" % loss_rel)
+        check(floor <= EPOCH_WITNESS_MAX,
+              "18g: the witness's parameters %.3e of their change from one "
+              "process's (at most %.0e): the epoch cannot tell a fault from "
+              "rounding" % (floor, EPOCH_WITNESS_MAX))
+        check(worst_rel <= limit,
+              "18g: the sharded epoch's %s %.3e of its own largest change "
+              "(%.3e) from one process's, limit %.3e" % (
+                  worst_name, worst_rel, worst_change, limit))
+        print("18g SRF-WSJ epoch on (data 1, model 2) through the library "
+              "API (%s): %d steps, losses finite and equal on both ranks "
+              "(%.3f .. %.3f), each step's within %.2e of one process's "
+              "(rtol %.0e); every status word clean, no wait reached the "
+              "group's timeout; %d trained parameters each within %.2e of "
+              "its own largest change (worst %s, changed %.3e; the witness "
+              "%.2e, limit %.2e), left out as 0 to rounding: %s; %.1f s in "
+              "the loop a rank %s (one process %.1f) [%s]"
+              % (" ".join(lr_flags), len(losses), losses[0], losses[-1],
+                 loss_rel, LOSS_RTOL, len(moves), worst_rel, worst_name,
+                 worst_change, floor, limit, rounding or "none",
+                 epochs[0]["secs"], ["%.1f" % e["secs"] for e in epochs],
+                 one_epoch["secs"], card))
+        persistent["epoch"] = [sum(e["launches"][2 + i] for e in epochs)
+                               for i in (0, 1)]
+    return readings, persistent, k12
+
+
+def cards_phase(torch, card, state=None, device="cuda", world=None):
+    """Phase 18 (the module docstring): ``world`` ranks, one a card (4
+    where the host has 4 cards or more, else 2; every rank on the CPU
+    over gloo in the rehearsal, ``device`` "cpu"). Returns the launches
+    summed over the ranks by path ({"k1": {...}, "k2": {...}, "k5":
+    {...}}), the ranks' kernel times, and K1-tp's and K2-tp's readings and
+    persistent launches across cards."""
+    import shutil
+    import tempfile
+
+    cuda = torch_type(device) == "cuda"
+    if world is None:
+        world = 4 if torch.cuda.device_count() >= 4 else 2
+    phase_start = time.perf_counter()
+    if cuda:
+        count = torch.cuda.device_count()
+        print("18: %d cards: %s" % (count, "; ".join(card_lines())))
+        print("18: peer access %s" % ", ".join(
+            "%d->%d %s" % (a, b, "yes" if torch.cuda.can_device_access_peer(
+                a, b) else "no")
+            for a in range(count) for b in range(count) if a != b))
+        print("18: %d ranks, one a card, over NCCL" % world)
+    seconds = {}
+    got = {"k1": {}, "k2": {}, "k5": {}, "kernel_ms": None,
+           "tp_readings": [], "tp_persistent": {}}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        begin = time.perf_counter()
+        train = cards_train_phase(torch, card, state, workdir, device, world)
+        seconds["18a-d"] = time.perf_counter() - begin
+        for name in ("k1", "k2"):
+            got[name].update(cards_dp=train[name + "_dp"],
+                             cards_fsdp=train[name + "_fsdp"])
+        got["k5"]["cards_cnn_dp"] = train["k5_cnn_dp"]
+        got["kernel_ms"] = train.get("kernel_ms")
+        begin = time.perf_counter()
+        cli = cards_cli_phase(torch, card, workdir, device, world)
+        seconds["18e"] = time.perf_counter() - begin
+        for i, name in enumerate(("k1", "k2")):
+            got[name]["cards_cli"] = sum(v[i] for v in cli.values())
+        begin = time.perf_counter()
+        (got["tp_readings"], got["tp_persistent"],
+         axis_k12) = cards_model_phase(torch, card, workdir, device, world)
+        seconds["18f-g"] = time.perf_counter() - begin
+        for i, name in enumerate(("k1", "k2")):
+            got[name]["cards_model_axis"] = axis_k12[i]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("18 seconds: %s; phase 18 %.1f s" % (
+        {k: round(v, 1) for k, v in seconds.items()},
+        time.perf_counter() - phase_start))
+    return got
+
+
+def cards_run():
+    """``python3 chip_smoke.py --cards``: phase 18 on a multi-card host,
+    alone (the whole run leaves it out), building only the kernels it
+    runs (K1, K2, K5, K1-tp and K2-tp); then a "cards" JSON line (each
+    path's launches, the ranks' kernel times, K1-tp's and K2-tp's readings
+    across cards), the card line and the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(REPO, "srf_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: one card (a rank a card needs two)",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from srf_tpu_torch.device import resolve_device
+    from srf_tpu_torch.ops import cuda_build
+
+    card = card_line()
+    print("card: %s" % card)
+    resolve_device("cuda")
+    start = time.perf_counter()
+    cuda_build.build(["sdr_fwd", "sdr_bwd", "fused_dropout", "sdr_tp"])
+    print("build: %.2f s" % (time.perf_counter() - start))
+    got = cards_phase(torch, card)
+    for name in ("k1", "k2", "k5"):
+        check(all(got[name].values()), "%s was not launched on a path of "
+              "phase 18: %s" % (name.upper(), got[name]))
+    check(all(np.all(v) for v in got["tp_persistent"].values()),
+          "a persistent K1-tp or K2-tp was not launched across cards: %s"
+          % got["tp_persistent"])
+    print(json.dumps({"cards": {
+        "launches_by_path": {k: got[k] for k in ("k1", "k2", "k5")},
+        "tp_persistent_by_path": got["tp_persistent"],
+        "rank_kernel_ms": got["kernel_ms"],
+        "tp_readings": got["tp_readings"]}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def run():
     import torch
 
@@ -7367,6 +8885,14 @@ def run():
           % (par_k1, par_k2))
     tp_entries, (axis_k1, axis_k2) = phase("17 model axis", model_axis_phase,
                                            torch, card)
+    # phase 18 runs alone (``--cards``): within the whole run it would
+    # take ~10 more minutes on a 4-card host, past the run's 1200 s
+    if torch.cuda.device_count() < 2:
+        print("18: skipped, one card (a rank a card needs two)")
+    else:
+        print("18: skipped in the whole run; `python3 chip_smoke.py "
+              "--cards` runs it on these %d cards"
+              % torch.cuda.device_count())
     # the daemon's launches are counted in its own process (its stats),
     # the rest in this one
     k1["launches_by_path"] = {"serve": serve_k1, "decode": decode_k1,
@@ -7437,6 +8963,14 @@ if __name__ == "__main__":
             code = model_axis_worker(sys.argv[2])
         elif sys.argv[1:2] == ["--model-axis-7c-worker"]:
             code = model_axis_7c_worker(sys.argv[2])
+        elif sys.argv[1:2] == ["--cards-worker"]:
+            code = cards_worker(sys.argv[2])
+        elif sys.argv[1:2] == ["--cards-model-worker"]:
+            code = cards_model_worker(sys.argv[2])
+        elif sys.argv[1:2] == ["--cards-cli"]:
+            code = cards_cli_worker(sys.argv[2], sys.argv[3])
+        elif sys.argv[1:2] == ["--cards"]:
+            code = cards_run()
         else:
             code = run()
     except SmokeFailure as failure:

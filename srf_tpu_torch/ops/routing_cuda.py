@@ -745,26 +745,44 @@ _IPC = {}            # id(group) -> TPExchange
 _IPC_HELD = []       # (own buffer, [opened peers' buffers]) to release
 
 
-def choose_transport(peers):
+def choose_transport(peers, reach):
     """The transport of a group whose ranks sit at ``peers``, [(host, card
-    uuid)] in rank order: "ipc" where there are 2 to TP_MAX_RANKS ranks,
-    every one with a card of its own, all on one host; else "host_loop"
-    (one rank: its loop has no exchange). Topology only: nothing else
-    chooses."""
+    uuid)] in rank order, where ``reach`` is {card uuid: the uuids of the
+    cards it can map as a peer}: "ipc" where there are 2 to TP_MAX_RANKS
+    ranks, every one with a card of its own, all on one host, and each
+    card can reach every other's memory; else "host_loop" (one rank: its
+    loop has no exchange). The persistent kernels spin on flags in a
+    peer's memory, which CUDA IPC maps only where the cards have peer
+    access (NVLink, or PCIe peer to peer): without it the group takes the
+    host loop. Topology only: nothing else chooses, and a failure on the
+    chosen transport raises."""
     hosts = {host for host, _ in peers}
     cards = {card for _, card in peers}
-    if (len(hosts) == 1 and len(cards) == len(peers)
+    if not (len(hosts) == 1 and len(cards) == len(peers)
             and 2 <= len(peers) <= TP_MAX_RANKS):
-        return "ipc"
-    return "host_loop"
+        return "host_loop"
+    if any(b not in reach.get(a, ()) for a in cards for b in cards
+           if a != b):
+        return "host_loop"
+    return "ipc"
+
+
+def peer_cards(index):
+    """The uuids of the cards that card ``index`` can map as a peer
+    (``torch.cuda.can_device_access_peer``), of those this process sees."""
+    return sorted(str(torch.cuda.get_device_properties(j).uuid)
+                  for j in range(torch.cuda.device_count())
+                  if j != index and torch.cuda.can_device_access_peer(index,
+                                                                      j))
 
 
 def tp_transport(group):
     """The transport of ``group`` (the ``model`` ranks; None: this rank
     alone): at the group's first call, every rank's (hostname, uuid of its
-    current card) gathered over the host group and :func:`choose_transport`;
-    cached. The first call is collective: every rank of the world makes it
-    at the same point, as every rank makes the same layer calls."""
+    current card, :func:`peer_cards` of it) gathered over the host group
+    and :func:`choose_transport`; cached. The first call is collective:
+    every rank of the world makes it at the same point, as every rank
+    makes the same layer calls."""
     from srf_tpu_torch.parallel import distributed
 
     if group is None or distributed.world_size(group) == 1:
@@ -774,11 +792,14 @@ def tp_transport(group):
 
         import torch.distributed as dist
 
-        card = str(torch.cuda.get_device_properties(
-            torch.cuda.current_device()).uuid)
-        everyone = distributed.host_all_gather((socket.gethostname(), card))
-        peers = [everyone[r] for r in dist.get_process_group_ranks(group)]
-        _TRANSPORT[id(group)] = (group, choose_transport(peers))
+        index = torch.cuda.current_device()
+        card = str(torch.cuda.get_device_properties(index).uuid)
+        everyone = distributed.host_all_gather(
+            (socket.gethostname(), card, peer_cards(index)))
+        ranks = dist.get_process_group_ranks(group)
+        peers = [everyone[r][:2] for r in ranks]
+        reach = {everyone[r][1]: set(everyone[r][2]) for r in ranks}
+        _TRANSPORT[id(group)] = (group, choose_transport(peers, reach))
     return _TRANSPORT[id(group)][1]
 
 

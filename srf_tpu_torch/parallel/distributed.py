@@ -93,7 +93,16 @@ def maybe_initialize(logger=None, backend=None, device=None):
     """Start the default process group from the environment (module
     docstring). Returns True when one is up (started here or before),
     False when the environment asks for none. ``device`` (``--device``)
-    picks the default backend; ``backend`` overrides it."""
+    picks the default backend; ``backend`` overrides it.
+
+    Under NCCL the rank is bound to its card before the group starts:
+    ``cuda:LOCAL_RANK`` (torchrun sets it), or, under ``SRF_COORDINATOR``
+    with no ``LOCAL_RANK``, ``cuda:<global rank>``. The latter is right on
+    one host only: a job across hosts sets ``LOCAL_RANK`` on each (or runs
+    under torchrun), or its ranks past the first host's card count find no
+    card and raise. The card is passed as ``device_id``, so the group's
+    NCCL communicator, and those of the groups made from it (the mesh's
+    axes), are set up eagerly, by every rank at the same call."""
     if is_initialized():
         return True
     coordinator = os.environ.get("SRF_COORDINATOR")

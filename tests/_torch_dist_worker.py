@@ -176,9 +176,11 @@ def _local_batch(arrays, rank, ranks):
 
 
 def dp(workdir):
-    """The 2-rank data-parallel SRF step: two steps (accum 1), one step at
-    accum 2, two FSDP steps with their checkpoint (rank 0 writes), one
-    ``--tpu-bf16`` step unsharded and under FSDP, and one MWER update."""
+    """The data-parallel SRF step of the world: two steps (accum 1), one
+    step at accum 2, two FSDP steps with their checkpoint (rank 0 writes),
+    one ``--tpu-bf16`` step unsharded and under FSDP, and one MWER update;
+    ``spec["runs"]``, where given, keeps only those runs and no MWER update
+    (the (data 1, model 2) mesh is made on 2 ranks only)."""
     from srf_tpu_torch.parallel import distributed, sharding_rules
     from srf_tpu_torch.parallel.mesh import broadcast_state, make_mesh
     from srf_tpu_torch.train import step
@@ -190,19 +192,23 @@ def dp(workdir):
     group = mesh.group("data")
     batch = _local_batch(arrays, rank, ranks)
     div = spec["in_len_div"]
-    # the (data 1, model 2) mesh of the same two ranks
-    model_mesh = make_mesh(1, num_model=2, device="cpu")
-    out = {"model_mesh/shape": np.array([model_mesh.shape["data"],
-                                         model_mesh.shape["model"]]),
-           "model_mesh/index": np.array([model_mesh.index("data"),
-                                         model_mesh.index("model")]),
-           "model_mesh/sizes": np.array([
-               distributed.world_size(model_mesh.group("data")),
-               distributed.world_size(model_mesh.group("model"))])}
-    for label, accum, steps, fsdp, bf16 in (
-            ("dp", 1, 2, False, False), ("accum", 2, 1, False, False),
-            ("fsdp", 1, 2, True, False), ("dp_bf16", 1, 1, False, True),
-            ("fsdp_bf16", 1, 1, True, True)):
+    out = {}
+    if ranks == 2:
+        # the (data 1, model 2) mesh of the same two ranks
+        model_mesh = make_mesh(1, num_model=2, device="cpu")
+        out = {"model_mesh/shape": np.array([model_mesh.shape["data"],
+                                             model_mesh.shape["model"]]),
+               "model_mesh/index": np.array([model_mesh.index("data"),
+                                             model_mesh.index("model")]),
+               "model_mesh/sizes": np.array([
+                   distributed.world_size(model_mesh.group("data")),
+                   distributed.world_size(model_mesh.group("model"))])}
+    runs = [run for run in (
+        ("dp", 1, 2, False, False), ("accum", 2, 1, False, False),
+        ("fsdp", 1, 2, True, False), ("dp_bf16", 1, 1, False, True),
+        ("fsdp_bf16", 1, 1, True, True))
+        if run[0] in spec.get("runs", [run[0]])]
+    for label, accum, steps, fsdp, bf16 in runs:
         state = broadcast_state(_srf_state(spec, state_dict, mesh, fsdp,
                                            bf16))
         train_step = step.make_train_step(
@@ -232,6 +238,9 @@ def dp(workdir):
                 CheckpointManager(os.path.join(workdir, "fsdp_ckpt")).save(
                     state.step, saved)
             distributed.barrier()
+    if "runs" in spec:
+        np.savez(os.path.join(workdir, "dp-rank%d.npz" % rank), **out)
+        return
     # one MWER update: each rank decodes its own rows' n-best
     from srf_tpu_torch.train.mwer import make_mwer_train_step
 
@@ -459,8 +468,9 @@ def model_axis(workdir):
         n = spec["model"]["caps_conv_num"]
         d = spec["model"]["caps_conv_dim"]
         u_ctx = torch.ones(2, 6, n, d) * torch.linspace(-1, 1, d)
-        block, v_last = model.route_block(u_ctx, last,
-                                          torch.full((2, 8, 4), 0.1),
+        v_init = torch.full((2, spec["model"]["class_n"],
+                             spec["model"]["caps_class_dim"]), 0.1)
+        block, v_last = model.route_block(u_ctx, last, v_init,
                                           torch.arange(4) >= 1)
         out["7c/route_block"] = block.numpy()
         out["7c/v_last"] = v_last.numpy()

@@ -5,20 +5,22 @@ and its partitioned step.
 
 Ranks are real OS processes over gloo on localhost
 (``_torch_dist_worker.py``'s ``model_axis`` scenario), one launch of 2
-ranks (a (data 1, model 2) mesh) and one of 4 ((2, 2)) for the module:
+ranks (a (data 1, model 2) mesh), one of 4 ((2, 2)) and one of 4 at
+(1, 4) with SRF-WSJ's 32 classes (8 a rank) for the module:
 
 - the rules, leaf by leaf against JAX's on the ``jax.eval_shape`` trees
   (``_torch_parity.random_flax_variables``): 63 classes (SRF-TIMIT's) at
   ``model`` 2 (nothing divides: all replicated) and 3 (the last W and b
-  sharded), 32 (SRF-WSJ's) at ``model`` 2 (only the last layer), and the
-  Adam moments shard-shaped after one step;
+  sharded), 32 (SRF-WSJ's) at ``model`` 2 and 4 (only the last layer),
+  and the Adam moments shard-shaped after one step;
 - the split SDR (1 and 2 iterations, the PAD mask on and off, its owner
   rank 0) and DR on 2 ranks against JAX's ``route_layer(impl="auto")`` on
   the whole W: each rank's output within 1e-5 of its slice, du and each
   rank's dW and db slice within 1e-4 of their largest entry;
 - JAX's dry-run step (``__graft_entry__._dryrun_body``'s model: feat 16,
-  8 classes, 3 layers) with ``apply_rules(state, mesh)`` on (1, 2) and
-  (2, 2) virtual CPU meshes against the port's 2- and 4-rank steps,
+  8 classes, 3 layers; 32 at (1, 4)) with ``apply_rules(state, mesh)``
+  on (1, 2), (2, 2) and (1, 4) virtual CPU meshes against the port's 2-
+  and 4-rank steps,
   dropout off, at ``test_dp_step_matches_jax_mesh``'s limits;
 - the traps: the global batch and metrics counted over ``data`` only,
   equal dropout seeds on the model ranks of one data index,
@@ -103,14 +105,15 @@ def _route_inputs():
             for k, shape in ROUTE_SHAPES.items()}
 
 
-def _launch(tmp_path_factory, mesh):
+def _launch(tmp_path_factory, mesh, class_n=MODEL["class_n"]):
     workdir = tmp_path_factory.mktemp("model_axis_%dx%d" % tuple(mesh))
-    variables = random_flax_variables(FlaxSequenceRouter(**MODEL),
+    model = dict(MODEL, class_n=class_n)
+    variables = random_flax_variables(FlaxSequenceRouter(**model),
                                       MODEL["feat_dim"], seed=3)
     batch = _batch()
     state = convert.flax_to_state_dict(variables)
     two = mesh == (1, 2)
-    spec = {"model": MODEL, "optimizer": OPTIMIZER, "in_len_div": IN_LEN_DIV,
+    spec = {"model": model, "optimizer": OPTIMIZER, "in_len_div": IN_LEN_DIV,
             "mesh": list(mesh), "routing": ROUTING if two else [],
             "accum": two}
     route = {"route/" + k: v for k, v in _route_inputs().items()}
@@ -119,7 +122,7 @@ def _launch(tmp_path_factory, mesh):
     ranks = run_scenario("model_axis", workdir, ranks=mesh[0] * mesh[1])
     return types.SimpleNamespace(variables=variables, batch=batch,
                                  ranks=ranks, workdir=workdir, mesh=mesh,
-                                 state=state)
+                                 state=state, class_n=class_n)
 
 
 @pytest.fixture(scope="module")
@@ -132,6 +135,13 @@ def runs2(tmp_path_factory):
 def runs4(tmp_path_factory):
     """The (data 2, model 2) launch: the steps."""
     return _launch(tmp_path_factory, (2, 2))
+
+
+@pytest.fixture(scope="module")
+def runs14(tmp_path_factory):
+    """The (data 1, model 4) launch at SRF-WSJ's 32 classes, 8 a rank:
+    the steps."""
+    return _launch(tmp_path_factory, (1, 4), class_n=32)
 
 
 # ------------------------------------------------------------------ rules
@@ -162,7 +172,7 @@ def _port_dims(model, specs):
 
 
 @pytest.mark.parametrize("class_n,model_n,sharded", [
-    (63, 2, False), (63, 3, True), (32, 2, True)])
+    (63, 2, False), (63, 3, True), (32, 2, True), (32, 4, True)])
 def test_rules_match_jax_leaf_by_leaf(class_n, model_n, sharded):
     kwargs = dict(MODEL, class_n=class_n, enc_num=3)
     variables = random_flax_variables(FlaxSequenceRouter(**kwargs),
@@ -193,7 +203,8 @@ def test_rules_match_jax_leaf_by_leaf(class_n, model_n, sharded):
                     range(whole[name][dim] // model_n), axis=dim))
 
 
-@pytest.mark.parametrize("class_n,model_n", [(63, 2), (63, 3), (32, 2)])
+@pytest.mark.parametrize("class_n,model_n", [(63, 2), (63, 3), (32, 2),
+                                             (32, 4)])
 def test_adam_moments_are_shard_shaped_after_a_step(class_n, model_n):
     """JAX's rules on the TrainState shard mu and nu as their parameters;
     the port's Adam, built after apply_rules, makes shard-shaped moments."""
@@ -278,7 +289,8 @@ def test_kernel_exchanges_gather_and_sum_over_the_model_group(runs2):
 # ------------------------------------------------------------------- step
 
 
-def _jax_run(variables, batch, mesh_shape, steps=2):
+def _jax_run(variables, batch, mesh_shape, steps=2,
+             class_n=MODEL["class_n"]):
     """JAX's dry-run step with ``apply_rules(state, mesh)`` on a (data,
     model) mesh of virtual CPU devices: metrics per step, the gradients of
     the first step's loss (unsharded: the partitioned step's values) and
@@ -286,7 +298,7 @@ def _jax_run(variables, batch, mesh_shape, steps=2):
     num_data, num_model = mesh_shape
     mesh = jax_make_mesh(num_data=num_data, num_model=num_model,
                          devices=jax.devices()[:num_data * num_model])
-    flax_model = FlaxSequenceRouter(**MODEL)
+    flax_model = FlaxSequenceRouter(**dict(MODEL, class_n=class_n))
     tx, _ = jax_optimizer.get_optimizer(types.SimpleNamespace(**OPTIMIZER))
     apply_fn = jax_step.make_apply_fn(flax_model)
     params = jax.tree.map(jnp.asarray, variables["params"])
@@ -324,12 +336,14 @@ def _port_flat(rank, prefix):
     return flatten_tree(convert.state_dict_to_flax(tensors))
 
 
-@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
-def test_step_matches_jax_apply_rules_step(monkeypatch, runs2, runs4,
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2), (1, 4)])
+def test_step_matches_jax_apply_rules_step(monkeypatch, request,
                                            mesh_shape):
     patch_out_jax_dropout(monkeypatch)
-    runs = runs2 if mesh_shape == (1, 2) else runs4
-    metrics, grads, final = _jax_run(runs.variables, runs.batch, mesh_shape)
+    runs = request.getfixturevalue(
+        {(1, 2): "runs2", (2, 2): "runs4", (1, 4): "runs14"}[mesh_shape])
+    metrics, grads, final = _jax_run(runs.variables, runs.batch, mesh_shape,
+                                     class_n=runs.class_n)
     for rank in runs.ranks:
         for i, want in enumerate(metrics):
             np.testing.assert_allclose(rank["step/metrics/%d/loss_sum" % i],

@@ -2,13 +2,15 @@
 ``parallel/{mesh,sharding_rules}.py``) against JAX's mesh step.
 
 Two ranks are real OS processes over gloo on localhost
-(``_torch_dist_worker.py``, one spawn for every check here). A small SRF
+(``_torch_dist_worker.py``, one spawn for every 2-rank check here, one
+of 4 ranks for the DP and FSDP steps at world size 4). A small SRF
 (L=3, 8 filters, BatchNorm in its front end) with dropout off (flax's
 ``Dropout`` patched to the identity, the port's rates 0: F6) trains on a
 global batch of 8 utterances, 4 a rank:
 
 - the 2-rank step against ``srf_tpu.train.step.make_train_step`` on a
-  2-device mesh and on one device: the global ``loss_sum``, ``samples``
+  2-device mesh and on one device, and the 4-rank step on a 4-device
+  mesh: the global ``loss_sum``, ``samples``
   and ``frames`` (rtol 1e-5), every gradient of step 1 (1e-4 of its
   largest entry, ``test_torch_train.py``'s limit), the parameters after
   step 2 (atol 1e-6, rtol 1e-4) and the BatchNorm running statistics
@@ -16,8 +18,8 @@ global batch of 8 utterances, 4 a rank:
 - ``--tpu-grad-accum`` 2 under DP: microbatch i is each rank's local
   slice i, which with the global BatchNorm is JAX's accumulated step on
   the global batch permuted to [r0 mb0, r1 mb0, r0 mb1, r1 mb1];
-- FSDP (2 ranks) against DP, with JAX's ``test_fsdp_matches_replicated``
-  limits (loss rtol 1e-4, parameters rtol 1e-3 / atol 1e-6); its
+- FSDP (2 and 4 ranks) against DP, with JAX's
+  ``test_fsdp_matches_replicated`` limits (loss rtol 1e-4, parameters rtol 1e-3 / atol 1e-6); its
   checkpoint (whole tensors from rank 0) loads into one process and
   equals the DP state;
 - ``--tpu-bf16`` under FSDP (FSDP's mixed precision) against the
@@ -83,23 +85,34 @@ def _batch():
     }
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The flax variables, the batch, and both ranks' results of the
-    worker's ``dp`` scenario (one spawn)."""
-    workdir = tmp_path_factory.mktemp("dp")
+def _spawn(workdir, ranks, **spec):
+    """The flax variables, the batch, and every rank's results of the
+    worker's ``dp`` scenario on ``ranks`` ranks (one spawn)."""
+    import json
+
     variables = random_flax_variables(FlaxSequenceRouter(**MODEL),
                                       FEAT_DIM, seed=3)
     batch = _batch()
     state = convert.flax_to_state_dict(variables)
-    spec = {"model": MODEL, "optimizer": OPTIMIZER, "in_len_div": IN_LEN_DIV}
-    import json
-
+    spec = dict(spec, model=MODEL, optimizer=OPTIMIZER,
+                in_len_div=IN_LEN_DIV)
     np.savez(workdir / "inputs.npz", spec=json.dumps(spec), **batch,
              **{"sd/" + k: v.numpy() for k, v in state.items()})
-    ranks = run_scenario("dp", workdir)
+    ranks = run_scenario("dp", workdir, ranks=ranks)
     return types.SimpleNamespace(variables=variables, batch=batch,
                                  ranks=ranks, workdir=workdir)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both ranks' results of the ``dp`` scenario on 2 ranks."""
+    return _spawn(tmp_path_factory.mktemp("dp"), 2)
+
+
+@pytest.fixture(scope="module")
+def runs4(tmp_path_factory):
+    """The DP and FSDP steps on 4 ranks (2 rows a rank)."""
+    return _spawn(tmp_path_factory.mktemp("dp4"), 4, runs=["dp", "fsdp"])
 
 
 def _jax_run(variables, batch, steps, mesh=None, accum=1):
@@ -137,14 +150,15 @@ def _jax_run(variables, batch, steps, mesh=None, accum=1):
 
 
 def _port_tree(ranks, label):
-    """Rank 0's state of ``label`` as a flat flax tree, after checking both
-    ranks hold the same bits."""
+    """Rank 0's state of ``label`` as a flat flax tree, after checking every
+    rank holds the same bits."""
     prefix = label + "/state/"
     state = {k[len(prefix):]: v for k, v in ranks[0].items()
              if k.startswith(prefix)}
     for key, value in state.items():
-        np.testing.assert_array_equal(ranks[1][prefix + key], value,
-                                      err_msg=key)
+        for rank in ranks[1:]:
+            np.testing.assert_array_equal(rank[prefix + key], value,
+                                          err_msg=key)
     return flatten_tree(convert.state_dict_to_flax(
         {k: torch.from_numpy(v) for k, v in state.items()}))
 
@@ -167,9 +181,11 @@ def _check_state(got, want):
                                        atol=1e-6, err_msg=key)
 
 
-@pytest.mark.parametrize("devices", [2, 1])
-def test_dp_step_matches_jax_mesh(monkeypatch, runs, devices):
-    """The 2-rank step against JAX's on a mesh of ``devices``."""
+@pytest.mark.parametrize("devices", [2, 1, 4])
+def test_dp_step_matches_jax_mesh(monkeypatch, request, devices):
+    """The 2-rank step against JAX's on a mesh of ``devices`` (1 or 2), and
+    the 4-rank step against JAX's on 4 devices."""
+    runs = request.getfixturevalue("runs4" if devices == 4 else "runs")
     patch_out_jax_dropout(monkeypatch)
     mesh = (jax_make_mesh(num_data=devices, devices=jax.devices()[:devices])
             if devices > 1 else None)
@@ -202,7 +218,9 @@ def test_grad_accum_under_dp_is_jax_on_the_permuted_batch(monkeypatch,
     _check_state(_port_tree(runs.ranks, "accum"), final)
 
 
-def test_fsdp_matches_dp_and_its_checkpoint_loads_in_one_process(runs):
+def _check_fsdp_matches_dp(runs):
+    """JAX's ``test_fsdp_matches_replicated`` limits: the loss of each step
+    (rtol 1e-4) and the parameters after two (rtol 1e-3, atol 1e-6)."""
     for rank in runs.ranks:
         for i in range(2):
             np.testing.assert_allclose(
@@ -212,6 +230,11 @@ def test_fsdp_matches_dp_and_its_checkpoint_loads_in_one_process(runs):
     for key in dp:
         np.testing.assert_allclose(fsdp[key], dp[key], rtol=1e-3, atol=1e-6,
                                    err_msg=key)
+    return dp
+
+
+def test_fsdp_matches_dp_and_its_checkpoint_loads_in_one_process(runs):
+    dp = _check_fsdp_matches_dp(runs)
     tree = CheckpointManager(str(runs.workdir / "fsdp_ckpt")).restore(2)
     model = SequenceRouter(**MODEL)
     model.load_state_dict(tree["model"])  # one process, whole tensors
@@ -225,6 +248,12 @@ def test_fsdp_matches_dp_and_its_checkpoint_loads_in_one_process(runs):
     assert sorted(moments) == list(range(len(shapes)))
     for index, shape in enumerate(shapes):
         assert moments[index]["exp_avg"].shape == shape
+
+
+def test_fsdp_matches_dp_on_4_ranks(runs4):
+    """FSDP's shards of 4 ranks (each parameter in 4 chunks, the smallest
+    padded) against DP on the same 4 ranks."""
+    _check_fsdp_matches_dp(runs4)
 
 
 def test_fsdp_composes_with_bf16(runs):

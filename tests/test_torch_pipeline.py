@@ -5,8 +5,9 @@ devices, with ``tests/test_pipeline.py``'s limits.
 Ranks are real OS processes over gloo (``_torch_dist_worker.py``). A
 4-block STF (D=16, 2 heads) in eval mode, dropout off:
 
-- 2 stages with 2 and 4 microbatches, remat off and on (one spawn): each
-  rank's logits equal JAX's ``make_pipeline_apply_fn`` on a 2-device
+- 2 stages with 2 and 4 microbatches, remat off and on (one spawn), and
+  4 stages (one block a stage) with 2 and 4 microbatches: each rank's
+  logits equal JAX's ``make_pipeline_apply_fn`` on a 2- or 4-device
   ``pipe`` mesh and the sequential model's (rtol 1e-4, atol 1e-5), and the
   gradients of mean(logits^2), summed over the stages, equal the
   sequential model's (rtol 1e-3, atol 1e-5; JAX's own test holds its
@@ -79,6 +80,14 @@ def two_stages(tmp_path_factory):
     return _spawn(tmp_path_factory.mktemp("pipe2"), 2, 2, RUNS)
 
 
+@pytest.fixture(scope="module")
+def four_stages(tmp_path_factory):
+    """4 ranks, one block a stage: the middle stages send and receive at
+    every tick but the first and last ones."""
+    return _spawn(tmp_path_factory.mktemp("pipe4"), 4, 4,
+                  [(2, False), (4, False)])
+
+
 @functools.cache
 def _jax_sequential():
     """The sequential flax model's logits and gradients of
@@ -120,13 +129,14 @@ def _port_grads(rank, key):
     return flatten_tree(convert.state_dict_to_flax(grads)["params"])
 
 
-@pytest.mark.parametrize("micro,remat", RUNS)
-def test_two_stages_match_jax_and_the_sequential_stack(two_stages, micro,
-                                                       remat):
+def _check_stages(ranks, stages, micro, remat):
+    """Every rank's logits against the sequential model's and JAX's
+    pipeline on ``stages`` devices; the gradients summed over the stages
+    against the sequential model's."""
     seq_logits, seq_grads = _jax_sequential()
-    pipe_logits = _jax_pipeline_logits((2,), micro)
+    pipe_logits = _jax_pipeline_logits((stages,), micro)
     key = "%d-%d" % (micro, remat)
-    for rank in two_stages:
+    for rank in ranks:
         for want in (seq_logits, pipe_logits):
             np.testing.assert_allclose(rank[key + "/logits"], want,
                                        rtol=1e-4, atol=1e-5)
@@ -135,6 +145,17 @@ def test_two_stages_match_jax_and_the_sequential_stack(two_stages, micro,
         for name, want in seq_grads.items():
             np.testing.assert_allclose(got[name], want, rtol=1e-3,
                                        atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("micro,remat", RUNS)
+def test_two_stages_match_jax_and_the_sequential_stack(two_stages, micro,
+                                                       remat):
+    _check_stages(two_stages, 2, micro, remat)
+
+
+@pytest.mark.parametrize("micro", [2, 4])
+def test_four_stages_match_jax_and_the_sequential_stack(four_stages, micro):
+    _check_stages(four_stages, 4, micro, False)
 
 
 def test_pipeline_composes_with_data_parallel(tmp_path):

@@ -359,7 +359,22 @@ def test_transport_2_waits_as_long_as_the_group(tmp_path):
 ], ids=["one_rank", "two_cards", "four_cards", "shared_card", "two_hosts",
         "mixed", "too_many"])
 def test_the_transport_follows_the_topology(peers, want):
-    assert routing_cuda.choose_transport(peers) == want
+    # every card can map every other as a peer
+    reach = {card: {other for _, other in peers if other != card}
+             for _, card in peers}
+    assert routing_cuda.choose_transport(peers, reach) == want
+
+
+@pytest.mark.parametrize("reach,want", [
+    ({"GPU-a": {"GPU-b"}, "GPU-b": {"GPU-a"}}, "ipc"),
+    ({"GPU-a": {"GPU-b"}, "GPU-b": set()}, "host_loop"),
+    ({"GPU-a": set(), "GPU-b": set()}, "host_loop"),
+], ids=["peer_access", "one_way", "no_peer_access"])
+def test_cards_without_peer_access_take_the_host_loop(reach, want):
+    """CUDA IPC maps a peer's flags only where the cards have peer access:
+    two cards of one host without it take the host loop."""
+    peers = [("h0", "GPU-a"), ("h0", "GPU-b")]
+    assert routing_cuda.choose_transport(peers, reach) == want
 
 
 def test_a_group_of_one_rank_takes_the_host_loop():
