@@ -1,0 +1,4 @@
+"""The device's idle share of the traced train window:
+``readers.idle_share``."""
+
+from benchmark.readers import idle_share as read  # noqa: F401

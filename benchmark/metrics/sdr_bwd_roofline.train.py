@@ -1,0 +1,9 @@
+"""K2's share of its roofline in the traced train steps (its count the
+backward's own work, no recomputed forward):
+``readers.sdr_roofline_train``."""
+
+from benchmark.readers import sdr_roofline_train
+
+
+def read(record):
+    return sdr_roofline_train(record, 1)

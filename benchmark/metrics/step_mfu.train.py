@@ -1,0 +1,3 @@
+"""The WSJ training cell's model FLOPs utilisation: ``readers.step_mfu``."""
+
+from benchmark.readers import step_mfu as read  # noqa: F401
