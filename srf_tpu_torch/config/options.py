@@ -415,8 +415,9 @@ class ParseOption:
         )
         tpu_group.add_argument(
             "--tpu-profile-dir", default=None,
-            help="write a jax.profiler trace of the first trained epoch "
-                 "here (TensorBoard-loadable)",
+            help="write a torch.profiler Chrome trace of the first trained "
+                 "epoch here (chrome://tracing, Perfetto; every thread "
+                 "where the torch build can record them)",
         )
         tpu_group.add_argument(
             "--tpu-fsdp", type=ParseOption.str2bool, default="False",

@@ -64,6 +64,7 @@ from srf_tpu_torch.utils.checkpoint import (
     CheckpointManager, load_checkpoint, restore_into,
 )
 from srf_tpu_torch.utils.log2utt import ids_to_utt
+from srf_tpu_torch.utils.profiler import span
 from srf_tpu_torch.utils.vocab import get_file_path, load_vocab
 
 def load_weights(config, model, logger):
@@ -318,88 +319,99 @@ class Recognizer:
         subsampling) and ``token_confidences`` the posterior of each symbol
         at its emission frame. ``n_best`` > 1 (beam decodes only) adds that
         many ranked hypotheses under "nbest" from the same beam scan.
+
+        Spans (``utils/profiler.py``): ``srf.serve.pad`` (the padding and
+        the copy to the device), ``srf.serve.forward``,
+        ``srf.serve.decode`` (the decode and its reads to the host) and
+        ``srf.serve.results`` (the dicts).
         """
         if not feats_list:
             return []
-        feats, lengths = self.pad(feats_list, pad_multiple)
-        logits = self.forward(feats, lengths)
-        dec_lens = np.maximum(lengths // self.in_len_div, 1)
-        nbest_lists = None
-        with torch.inference_mode():
-            logp = torch.log_softmax(logits.float(), dim=-1)
-        if beam_width and beam_width > 1:
-            if n_best and n_best > 1:
-                # one scan serves both the top path and the n-best list
-                nbest_lists = ctc_beam_search_nbest(
-                    logits, dec_lens, beam_width, self.blank_id,
-                    lm=self.lm, top_paths=n_best,
-                )
-                results = [hyps[0] for hyps in nbest_lists]
-            else:
-                results = ctc_beam_search_batch(
-                    logits, dec_lens, beam_width, self.blank_id,
-                    lm=self.lm, with_frames=True,
-                )
-            decoded = [ids for ids, _, _ in results]
-            scores = [score for _, score, _ in results]
-            frames = [fr for _, _, fr in results]
-        else:
+        with span("srf.serve.pad"):
+            feats, lengths = self.pad(feats_list, pad_multiple)
+        with span("srf.serve.forward"):
+            logits = self.forward(feats, lengths)
+        with span("srf.serve.decode"):
+            dec_lens = np.maximum(lengths // self.in_len_div, 1)
+            nbest_lists = None
             with torch.inference_mode():
-                out, lens, emit = greedy_decode_frames(
-                    logits, torch.as_tensor(dec_lens, device=self.device),
-                    blank_id=self.blank_id,
-                )
-                frame_max = logp.max(dim=-1).values.cpu().numpy()
-            out, lens = out.cpu().numpy(), lens.cpu().numpy()
-            emit = emit.cpu().numpy()
-            decoded = [[int(x) for x in out[i, : int(lens[i])]]
-                       for i in range(len(feats_list))]
-            frames = [[int(x) for x in emit[i, : int(lens[i])]]
-                      for i in range(len(feats_list))]
-            # best-path (Viterbi) log-prob over the valid frames
-            pos = np.arange(frame_max.shape[1])[None, :]
-            scores = (frame_max * (pos < dec_lens[:, None])).sum(axis=-1)
-        # per-token confidence: logp at each token's (emission frame, symbol)
-        max_tok = max((len(ids) for ids in decoded), default=0)
-        tok_logp = None
-        if max_tok:
-            frame_idx = np.zeros((len(decoded), max_tok), np.int64)
-            sym_idx = np.zeros((len(decoded), max_tok), np.int64)
+                logp = torch.log_softmax(logits.float(), dim=-1)
+            if beam_width and beam_width > 1:
+                if n_best and n_best > 1:
+                    # one scan serves both the top path and the n-best list
+                    nbest_lists = ctc_beam_search_nbest(
+                        logits, dec_lens, beam_width, self.blank_id,
+                        lm=self.lm, top_paths=n_best,
+                    )
+                    results = [hyps[0] for hyps in nbest_lists]
+                else:
+                    results = ctc_beam_search_batch(
+                        logits, dec_lens, beam_width, self.blank_id,
+                        lm=self.lm, with_frames=True,
+                    )
+                decoded = [ids for ids, _, _ in results]
+                scores = [score for _, score, _ in results]
+                frames = [fr for _, _, fr in results]
+            else:
+                with torch.inference_mode():
+                    out, lens, emit = greedy_decode_frames(
+                        logits, torch.as_tensor(dec_lens, device=self.device),
+                        blank_id=self.blank_id,
+                    )
+                    frame_max = logp.max(dim=-1).values.cpu().numpy()
+                out, lens = out.cpu().numpy(), lens.cpu().numpy()
+                emit = emit.cpu().numpy()
+                decoded = [[int(x) for x in out[i, : int(lens[i])]]
+                           for i in range(len(feats_list))]
+                frames = [[int(x) for x in emit[i, : int(lens[i])]]
+                          for i in range(len(feats_list))]
+                # best-path (Viterbi) log-prob over the valid frames
+                pos = np.arange(frame_max.shape[1])[None, :]
+                scores = (frame_max * (pos < dec_lens[:, None])).sum(axis=-1)
+            # per-token confidence: logp at each token's (emission frame,
+            # symbol)
+            max_tok = max((len(ids) for ids in decoded), default=0)
+            tok_logp = None
+            if max_tok:
+                frame_idx = np.zeros((len(decoded), max_tok), np.int64)
+                sym_idx = np.zeros((len(decoded), max_tok), np.int64)
+                for i, ids in enumerate(decoded):
+                    frame_idx[i, : len(ids)] = frames[i]
+                    sym_idx[i, : len(ids)] = ids
+                rows = torch.arange(len(decoded), device=self.device)[:, None]
+                tok_logp = logp[
+                    rows, torch.as_tensor(frame_idx, device=self.device),
+                    torch.as_tensor(sym_idx, device=self.device)]
+                tok_logp = tok_logp.cpu().numpy()
+        with span("srf.serve.results"):
+            raw_vocab = [t if t != " " else "<SPACE>" for t in self.vocab]
+            frame_shift_s = 0.01 * self.in_len_div  # 10 ms frames x subsample
+            results = []
             for i, ids in enumerate(decoded):
-                frame_idx[i, : len(ids)] = frames[i]
-                sym_idx[i, : len(ids)] = ids
-            rows = torch.arange(len(decoded), device=self.device)[:, None]
-            tok_logp = logp[rows, torch.as_tensor(frame_idx, device=self.device),
-                            torch.as_tensor(sym_idx, device=self.device)]
-            tok_logp = tok_logp.cpu().numpy()
-        raw_vocab = [t if t != " " else "<SPACE>" for t in self.vocab]
-        frame_shift_s = 0.01 * self.in_len_div  # 10 ms frames x subsample
-        results = []
-        for i, ids in enumerate(decoded):
-            avg = float(scores[i]) / max(int(dec_lens[i]), 1)
-            results.append({
-                "ids": ids,
-                "text": ids_to_utt(ids, raw_vocab, corpus),
-                "score": float(scores[i]),
-                "avg_logp": avg,
-                "confidence": float(np.exp(min(avg, 0.0))),
-                "frames": list(frames[i]),
-                "times": [round(f * frame_shift_s, 4) for f in frames[i]],
-                "token_confidences": [
-                    round(float(np.exp(tok_logp[i, j])), 4)
-                    for j in range(len(ids))
-                ],
-            })
-            if nbest_lists is not None:
-                results[-1]["nbest"] = [
-                    {
-                        "ids": h_ids,
-                        "text": ids_to_utt(h_ids, raw_vocab, corpus),
-                        "score": float(h_score),
-                    }
-                    for h_ids, h_score, _ in nbest_lists[i]
-                ]
-        return results
+                avg = float(scores[i]) / max(int(dec_lens[i]), 1)
+                results.append({
+                    "ids": ids,
+                    "text": ids_to_utt(ids, raw_vocab, corpus),
+                    "score": float(scores[i]),
+                    "avg_logp": avg,
+                    "confidence": float(np.exp(min(avg, 0.0))),
+                    "frames": list(frames[i]),
+                    "times": [round(f * frame_shift_s, 4) for f in frames[i]],
+                    "token_confidences": [
+                        round(float(np.exp(tok_logp[i, j])), 4)
+                        for j in range(len(ids))
+                    ],
+                })
+                if nbest_lists is not None:
+                    results[-1]["nbest"] = [
+                        {
+                            "ids": h_ids,
+                            "text": ids_to_utt(h_ids, raw_vocab, corpus),
+                            "score": float(h_score),
+                        }
+                        for h_ids, h_score, _ in nbest_lists[i]
+                    ]
+            return results
 
 
 def main(argv=None):

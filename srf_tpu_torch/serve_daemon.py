@@ -3,7 +3,7 @@ coalesce concurrent requests into one batched forward and decode.
 
 - ``BatchingFrontend``: a thread-safe queue and scheduler thread.
   ``submit(feats) -> Future``; a batch closes when ``max_batch`` requests
-  wait or the oldest has waited ``max_wait_ms``, then one
+  wait or ``max_wait_ms`` after the worker took the oldest, then one
   ``Recognizer.transcribe_batch_detailed`` call (one forward, one batched
   decode) serves the whole batch.
 - ``StreamingService``: live streaming sessions of SRF models, one
@@ -24,6 +24,7 @@ shape: cuDNN's algorithm search (``cudnn.benchmark``) then runs once per
 width, not once per (count, width) pair.
 """
 
+import itertools
 import json
 import queue
 import socket
@@ -33,6 +34,7 @@ import sys
 import threading
 import time
 from concurrent.futures import Future
+from typing import NamedTuple
 
 import numpy as np
 
@@ -40,8 +42,28 @@ from srf_tpu_torch.config import Logger, ParseOption
 from srf_tpu_torch.ops.routing_cuda import sequential_routing_cuda
 from srf_tpu_torch.serve import Recognizer
 from srf_tpu_torch.utils.log2utt import ids_to_utt
+from srf_tpu_torch.utils.profiler import mark, span
 
 _DUMMY_FRAMES = 16
+
+
+class _Request(NamedTuple):
+    """A queued request: its id, its submit time (ns, the spans' clock),
+    what it asks and the Future that takes its answer."""
+
+    key: int
+    submitted_ns: int
+    feats: np.ndarray
+    corpus: str
+    detailed: bool
+    n_best: int
+    future: Future
+
+
+# request and batch ids, unique in the process, so that the spans of the
+# front ends of a fleet never share a key
+_REQUEST_IDS = itertools.count()
+_BATCH_IDS = itertools.count()
 
 
 class BatchingFrontend:
@@ -49,6 +71,18 @@ class BatchingFrontend:
 
     ``beam_width`` is a server-level setting (one decode per batch);
     ``corpus`` rendering is per request (host-side only).
+
+    Spans and marks (``utils/profiler.py``): ``srf.serve.submit`` (a mark
+    in the caller's thread, keyed by the request's id), then in the worker
+    ``srf.serve.wait`` (blocked on an empty queue), ``srf.serve.hold``
+    (from the first request taken until the batch closes, keyed by the
+    batch's id, with a ``srf.serve.take`` mark a request, keyed as its
+    submit) and ``srf.serve.batch`` (the Recognizer's call and the
+    results, keyed by the batch's id): the three cover the worker's loop.
+    ``stats`` counts the served requests and batches, each batch's
+    requests (``batch_sizes``), and sums seconds over them:
+    ``queue_wait_s`` (submit to take, a request), ``hold_s`` and
+    ``batch_s`` (a batch's spans).
     """
 
     def __init__(self, recognizer, max_batch=16, max_wait_ms=10.0,
@@ -59,7 +93,8 @@ class BatchingFrontend:
         self.beam_width = beam_width
         self.pad_batch = pad_batch
         self.logger = logger
-        self.stats = {"requests": 0, "batches": 0, "batch_sizes": []}
+        self.stats = {"requests": 0, "batches": 0, "batch_sizes": [],
+                      "queue_wait_s": 0.0, "hold_s": 0.0, "batch_s": 0.0}
         self._q = queue.Queue()
         self._closed = False
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -84,7 +119,10 @@ class BatchingFrontend:
                 "expected [T, %d] features, got %s" % (feat_dim, feats.shape)
             )
         fut = Future()
-        self._q.put((feats, corpus, detailed, max(1, int(n_best)), fut))
+        key = next(_REQUEST_IDS)
+        submitted = mark("srf.serve.submit", key)
+        self._q.put(_Request(key, submitted, feats, corpus, detailed,
+                             max(1, int(n_best)), fut))
         return fut
 
     def transcribe(self, feats, corpus="timit", timeout=None):
@@ -99,78 +137,99 @@ class BatchingFrontend:
 
     def _gather(self):
         """Block for the first request, then keep the batch open until it
-        is full or the FIRST request has waited max_wait_ms."""
-        first = self._q.get()
+        is full or max_wait_ms after the worker TOOK the first request.
+        Returns (batch id, requests, seconds they waited from submit to
+        take, seconds held), or None at shutdown."""
+        with span("srf.serve.wait"):
+            first = self._q.get()
         if first is None:
             return None
-        batch = [first]
-        deadline = time.monotonic() + self.max_wait_s
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                item = self._q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if item is None:
-                # propagate shutdown after serving what we have
-                self._q.put(None)
-                break
-            batch.append(item)
-        return batch
+        key = next(_BATCH_IDS)
+        waited = 0
+        with span("srf.serve.hold", key) as hold:
+            waited += mark("srf.serve.take", first.key) - first.submitted_ns
+            batch = [first]
+            deadline = time.monotonic() + self.max_wait_s
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if item is None:
+                    # propagate shutdown after serving what we have
+                    self._q.put(None)
+                    break
+                waited += mark("srf.serve.take", item.key) - item.submitted_ns
+                batch.append(item)
+        return key, batch, waited / 1e9, (hold.end_ns - hold.start_ns) / 1e9
 
     def _run(self):
         while True:
-            batch = self._gather()
-            if batch is None:
+            gathered = self._gather()
+            if gathered is None:
                 return
-            feats_list = [feats for feats, _, _, _, _ in batch]
-            n_real = len(feats_list)
-            if self.pad_batch and n_real < self.max_batch:
-                dummy = np.zeros(
-                    (_DUMMY_FRAMES, feats_list[0].shape[1]), np.float32
-                )
-                feats_list = feats_list + [dummy] * (self.max_batch - n_real)
-            # one n-best depth per batch: the deepest requested; each
-            # request's list is trimmed to its own depth below
-            batch_nbest = max(n for _, _, _, n, _ in batch)
-            try:
-                results = self.rec.transcribe_batch_detailed(
-                    feats_list, beam_width=self.beam_width,
-                    n_best=batch_nbest,
-                )
-            except Exception as exc:  # propagate to every waiter
-                for _, _, _, _, fut in batch:
-                    fut.set_exception(exc)
-                continue
-            raw_vocab = [
-                t if t != " " else "<SPACE>" for t in self.rec.vocab
-            ]
-            for detail, (_, corpus, detailed, n_best, fut) in zip(
-                results[:n_real], batch
-            ):
-                detail = dict(
-                    detail, text=ids_to_utt(detail["ids"], raw_vocab, corpus)
-                )
-                if n_best > 1 and "nbest" in detail:
-                    detail["nbest"] = [
-                        dict(h, text=ids_to_utt(h["ids"], raw_vocab, corpus))
-                        for h in detail["nbest"][:n_best]
-                    ]
-                else:
-                    detail.pop("nbest", None)
-                fut.set_result(
-                    detail if detailed else (detail["ids"], detail["text"])
-                )
-            self.stats["requests"] += n_real
+            key, batch, waited_s, held_s = gathered
+            with span("srf.serve.batch", key) as served:
+                if not self._serve(batch):
+                    continue
+            self.stats["requests"] += len(batch)
             self.stats["batches"] += 1
-            self.stats["batch_sizes"].append(n_real)
-            if self.logger:
-                self.logger.info(
-                    "served batch of %d (padded to %d)", n_real,
-                    len(feats_list),
-                )
+            self.stats["batch_sizes"].append(len(batch))
+            self.stats["queue_wait_s"] += waited_s
+            self.stats["hold_s"] += held_s
+            self.stats["batch_s"] += (served.end_ns - served.start_ns) / 1e9
+
+    def _serve(self, batch):
+        """One Recognizer call for ``batch`` and its results into the
+        requests' Futures; False where the call raised (every Future then
+        holds the error)."""
+        feats_list = [request.feats for request in batch]
+        n_real = len(feats_list)
+        if self.pad_batch and n_real < self.max_batch:
+            dummy = np.zeros(
+                (_DUMMY_FRAMES, feats_list[0].shape[1]), np.float32
+            )
+            feats_list = feats_list + [dummy] * (self.max_batch - n_real)
+        # one n-best depth per batch: the deepest requested; each
+        # request's list is trimmed to its own depth below
+        batch_nbest = max(request.n_best for request in batch)
+        try:
+            results = self.rec.transcribe_batch_detailed(
+                feats_list, beam_width=self.beam_width,
+                n_best=batch_nbest,
+            )
+        except Exception as exc:  # propagate to every waiter
+            for request in batch:
+                request.future.set_exception(exc)
+            return False
+        raw_vocab = [
+            t if t != " " else "<SPACE>" for t in self.rec.vocab
+        ]
+        for detail, request in zip(results[:n_real], batch):
+            detail = dict(
+                detail,
+                text=ids_to_utt(detail["ids"], raw_vocab, request.corpus),
+            )
+            if request.n_best > 1 and "nbest" in detail:
+                detail["nbest"] = [
+                    dict(h, text=ids_to_utt(h["ids"], raw_vocab,
+                                            request.corpus))
+                    for h in detail["nbest"][:request.n_best]
+                ]
+            else:
+                detail.pop("nbest", None)
+            request.future.set_result(
+                detail if request.detailed else (detail["ids"], detail["text"])
+            )
+        if self.logger:
+            self.logger.info(
+                "served batch of %d (padded to %d)", n_real,
+                len(feats_list),
+            )
+        return True
 
 
 class StreamingService:
@@ -306,12 +365,18 @@ class ModelFleet:
         single-model snapshot shape stays backward compatible)."""
 
         def one(frontend):
-            n_req = frontend.stats["requests"]
-            n_bat = frontend.stats["batches"]
+            stats = frontend.stats
+            n_req, n_bat = stats["requests"], stats["batches"]
             return {
                 "requests": n_req,
                 "batches": n_bat,
                 "mean_batch": n_req / n_bat if n_bat else 0.0,
+                "mean_queue_wait_ms": (1e3 * stats["queue_wait_s"] / n_req
+                                       if n_req else 0.0),
+                "mean_hold_ms": (1e3 * stats["hold_s"] / n_bat
+                                 if n_bat else 0.0),
+                "mean_batch_ms": (1e3 * stats["batch_s"] / n_bat
+                                  if n_bat else 0.0),
                 "serving_step": int(frontend.rec.step),
                 "quantized": bool(frontend.rec.quantized),
                 "max_batch": frontend.max_batch,

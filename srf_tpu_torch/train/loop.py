@@ -48,6 +48,7 @@ import torch
 from srf_tpu_torch.ops.ctc_decode import beam_search_batch
 from srf_tpu_torch.parallel import distributed
 from srf_tpu_torch.utils.metrics import MeanMetric, MetricsWriter, SumMetric
+from srf_tpu_torch.utils.profiler import span, trace as profiler_trace
 
 STEP_KEYS = ("feats", "labels", "inp_len", "tar_len")
 # the loader's host arrays that go to the device; the lengths stay on the
@@ -59,7 +60,7 @@ RESUME_KEYS = ("epoch", "batch_index", "train_loss_total",
                "train_samples", "pre_loss", "tolerance", "batch_sig")
 
 
-def device_prefetch(iterator, device, timing=None):
+def device_prefetch(iterator, device):
     """Yield the host batches of ``iterator`` with ``feats`` and ``labels``
     on ``device`` and the lengths as CPU tensors (the CTC loss reads them
     on the host). The loader's own producer thread (``BucketedLoader``'s
@@ -69,9 +70,9 @@ def device_prefetch(iterator, device, timing=None):
     each batch's pinned buffers stay referenced until an event recorded
     after their copies has completed.
 
-    ``timing`` (``SRF_LOOP_TIMING``): a dict accumulating host-loop phase
-    seconds: ``load`` (the consumer waiting for the loader's next batch)
-    and ``put`` (the copy's staging)."""
+    Each batch's production is a ``srf.feed`` span (``utils/profiler.py``)
+    with two children: ``srf.feed.load``, the wait for the loader's next
+    batch, and ``srf.feed.put``, the pinning and the copies."""
     pinned = device.type == "cuda"
     inflight = []  # (event, pinned tensors) until their copies are done
 
@@ -95,19 +96,14 @@ def device_prefetch(iterator, device, timing=None):
         return staged
 
     try:
-        if timing is None:
-            for batch in iterator:
-                yield put(batch)
-            return
         while True:
-            t0 = time.perf_counter()
-            batch = next(iterator, None)
-            t1 = time.perf_counter()
-            timing["load"] += t1 - t0
-            if batch is None:
-                return
-            staged = put(batch)
-            timing["put"] += time.perf_counter() - t1
+            with span("srf.feed"):
+                with span("srf.feed.load"):
+                    batch = next(iterator, None)
+                if batch is None:
+                    return
+                with span("srf.feed.put"):
+                    staged = put(batch)
             yield staged
     finally:
         for event, _ in inflight:
@@ -375,14 +371,9 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
             prev = time.time()
             index = 0
             pending = []  # device metrics, read lazily so steps pipeline
-            timing = None
-            if os.environ.get("SRF_LOOP_TIMING"):
-                timing = {"load": 0.0, "put": 0.0, "dispatch": 0.0}
             tracing = bool(profile_dir) and epoch == epoch_offset
             if tracing:
                 # profile the first trained epoch (a Chrome trace)
-                from srf_tpu_torch.utils.profiler import trace as profiler_trace
-
                 trace_cm = profiler_trace(profile_dir)
                 trace_path = trace_cm.__enter__()
                 logger.info("Profiler trace -> %s", trace_path)
@@ -390,13 +381,8 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
             if resuming:
                 batches = itertools.islice(batches, resume_index, None)
                 index = resume_index
-            for batch in device_prefetch(batches, device, timing=timing):
-                if timing is None:
-                    state, metrics = train_step(state, batch, seed)
-                else:
-                    t_disp = time.perf_counter()
-                    state, metrics = train_step(state, batch, seed)
-                    timing["dispatch"] += time.perf_counter() - t_disp
+            for batch in device_prefetch(batches, device):
+                state, metrics = train_step(state, batch, seed)
                 pending.append(metrics)
                 index += 1
                 kick_watchdog()
@@ -484,13 +470,6 @@ def run_training(config, logger, state, train_step, valid_step, train_loader,
                  "loss": train_loss.result(), "secs": train_secs, "step": step_i,
                  "samples": train_samples.result()}
             )
-            if timing is not None:
-                logger.info(
-                    "Loop timing: load %.1fs  put %.1fs  dispatch %.1fs  "
-                    "(of %.1fs epoch)",
-                    timing["load"], timing["put"], timing["dispatch"],
-                    train_secs,
-                )
 
             prev = time.time()
             pending = []

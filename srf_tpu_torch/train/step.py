@@ -94,6 +94,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from srf_tpu_torch.ops.ctc import ctc_loss_from_frames
 from srf_tpu_torch.parallel import distributed
+from srf_tpu_torch.utils.profiler import span
 
 def bf16_params(model):
     """{name: bf16 copy} of ``model``'s float32 parameters, differentiable
@@ -262,7 +263,10 @@ def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0,
     ``accum_steps`` and ``ema_decay``: the module docstring; the EMA moves
     only where the state keeps one (``TrainState.create(with_ema=True)``).
     ``group`` / ``grad_group``: data parallelism, ``model_group``: the
-    ``model`` axis (the module docstring).
+    ``model`` axis (the module docstring). Each step is a ``srf.step``
+    span (``utils/profiler.py``) around ``srf.step.forward``,
+    ``srf.step.loss`` and ``srf.step.backward`` a microbatch and one
+    ``srf.step.optimizer`` (the gradients' reduction and the update).
     """
     generators = {}
     grad_group = grad_group if grad_group is not None else group
@@ -270,6 +274,10 @@ def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0,
     checked = []
 
     def train_step(state, batch, seed):
+        with span("srf.step"):
+            return step(state, batch, seed)
+
+    def step(state, batch, seed):
         feats = batch["feats"]
         if not checked:
             check_model_replicas(batch, model_group)
@@ -288,17 +296,22 @@ def make_train_step(apply_fn, in_len_div, accum_steps=1, ema_decay=0.0,
         for i, mb in enumerate(parts):
             if fsdp:
                 state.model.set_requires_gradient_sync(i == len(parts) - 1)
-            logits = apply_fn(mb, True, generator)
-            pe_loss = ctc_loss_from_frames(logits, mb["inp_len"], in_len_div,
-                                           mb["labels"], mb["tar_len"])
+            with span("srf.step.forward"):
+                logits = apply_fn(mb, True, generator)
+            with span("srf.step.loss"):
+                pe_loss = ctc_loss_from_frames(logits, mb["inp_len"],
+                                               in_len_div, mb["labels"],
+                                               mb["tar_len"])
             # the global batch scales every microbatch's loss; the
             # backward frees the microbatch's activations before the next
-            (pe_loss.sum() / global_batch).backward()
+            with span("srf.step.backward"):
+                (pe_loss.sum() / global_batch).backward()
             part = pe_loss.detach().sum()
             loss_sum = part if loss_sum is None else loss_sum + part
-        if grad_group is not None and not fsdp:
-            all_reduce_gradients(state.model, grad_group)
-        optimizer_update(state, ema_decay)
+        with span("srf.step.optimizer"):
+            if grad_group is not None and not fsdp:
+                all_reduce_gradients(state.model, grad_group)
+            optimizer_update(state, ema_decay)
         metrics = {
             "loss_sum": loss_sum,
             "samples": global_batch,

@@ -1,31 +1,133 @@
-"""Profiling / tracing hooks (port of ``srf_tpu/utils/profiler.py`` over
+"""Tracing of the port (port of ``srf_tpu/utils/profiler.py`` over
 ``torch.profiler``).
 
+- :class:`span` and :func:`mark`: a named interval and a named instant at a
+  layer boundary. Each goes into one bounded in-process ring
+  (``RING_SIZE`` entries, the oldest dropped first) on the
+  ``time.perf_counter_ns()`` clock, with its thread, the span around it on
+  that thread (its parent) and a ``key`` (a request or batch id, shared by
+  the spans of one request). The ring stays on: a span costs about 2 us
+  of host time (an H100 machine's host, torch 2.11). Where the calling
+  thread has a torch profiler recording, the span also opens a
+  ``record_function`` of the same name, which puts it in the profiler's
+  trace on the profiler's own clock; a ``record_function`` costs 12-15
+  us, so no span opens one otherwise. A profiler started in one thread
+  does not record a thread that already ran (a server's worker; torch
+  2.11 and 2.13): such spans reach the ring only. :func:`spans` returns
+  the ring.
 - :func:`trace`: context manager around ``torch.profiler.profile`` (the
-  host and, where there is one, the CUDA device), writing a Chrome trace of
-  the traced region under ``log_dir`` (``chrome://tracing``, Perfetto).
-  On the card torch.profiler drops device records, most often the first
-  ones of a trace (torch 2.11 + CUDA 12.8 on an H100; the cause is not
-  known): the trace starts with PRIMING_KERNELS one-cycle sleep kernels
-  inside a ``PRIMING_RANGE`` range, which take the loss, and the written
-  file leaves out every event that began before that range ended,
-- :class:`StepTimer`: host-side per-step wall timing with summary stats,
-  waiting for the result's CUDA device where JAX calls
-  ``block_until_ready``,
-- :func:`annotate`: a named ``record_function`` range for attribution.
+  host of every thread where the torch build can record them, and where
+  there is one, the CUDA device), writing a Chrome trace of the traced
+  region under ``log_dir`` (``chrome://tracing``, Perfetto). On the card
+  torch.profiler drops device records, most often the first ones of a
+  trace (torch 2.11 + CUDA 12.8 on an H100; the cause is not known): the
+  trace starts with PRIMING_KERNELS one-cycle sleep kernels inside a
+  ``PRIMING_RANGE`` range, which take the loss, and the written file
+  leaves out every event that began before that range ended.
+
+The spans' names are fixed where they are opened: ``srf.feed`` (and
+``srf.feed.load``, ``srf.feed.put``) in ``train/loop.py``, ``srf.step``
+(``.forward``, ``.loss``, ``.backward``, ``.optimizer``) in
+``train/step.py``, ``srf.serve.*`` in ``serve_daemon.py`` and ``serve.py``.
 """
 
+import collections
 import contextlib
 import json
 import os
+import threading
 import time
+from typing import Any, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 
 PRIMING_RANGE = "srf_profiler_priming"
 PRIMING_KERNELS = 64
+# a 3 s window of any benchmark cell holds under 10^4 spans
+RING_SIZE = 1 << 16
+
+
+class Span(NamedTuple):
+    """One entry of the ring; a mark has ``start_ns == end_ns``."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    parent: Optional[str]
+    key: Any
+
+
+# The ring holds plain tuples of atomic values, which the garbage
+# collector stops tracking, so a full ring adds nothing to its scans.
+_ring = collections.deque(maxlen=RING_SIZE)
+_local = threading.local()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_now = time.perf_counter_ns
+_thread = threading.get_ident
+# True while ``trace`` records every thread: a thread's own profiler flag
+# then stays False, so spans ask this one too
+_all_threads = False
+
+
+def _stack():
+    """The calling thread's open spans' names, innermost last."""
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+class span:
+    """``with span(name, key=None) as s:`` records the enclosed interval in
+    the ring, and in a recording profiler's trace (module docstring);
+    ``s.start_ns`` and ``s.end_ns`` hold it after the block."""
+
+    __slots__ = ("name", "key", "start_ns", "end_ns", "_stack", "_range")
+
+    def __init__(self, name, key=None):
+        self.name, self.key = name, key
+
+    def __enter__(self):
+        self._stack = stack = _stack()
+        stack.append(self.name)
+        self._range = None
+        if _all_threads or _profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.start_ns = _now()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = _now()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        stack = self._stack
+        stack.pop()
+        _ring.append((self.name, self.start_ns, self.end_ns, _thread(),
+                      stack[-1] if stack else None, self.key))
+        return False
+
+
+def mark(name, key=None):
+    """Records an instant in the ring, and in a recording profiler's trace
+    (as an empty range around it); returns its time (ns)."""
+    if _all_threads or _profiler_enabled():
+        with torch.profiler.record_function(name):
+            now = _now()
+    else:
+        now = _now()
+    stack = _stack()
+    _ring.append((name, now, now, _thread(), stack[-1] if stack else None,
+                  key))
+    return now
+
+
+def spans():
+    """The ring's entries as :class:`Span`, oldest first."""
+    return [Span(*entry) for entry in _ring.copy()]
 
 
 def _prime_device():
@@ -68,71 +170,33 @@ def trace(log_dir, enabled=True):
     if not enabled:
         yield None
         return
+    global _all_threads
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(os.path.abspath(log_dir), "trace_%d_%d.json" % (
         os.getpid(), time.time_ns()))
-    with torch.profiler.profile(activities=activities) as prof:
+    config = all_threads_config()
+    options = {} if config is None else {"experimental_config": config}
+    with torch.profiler.profile(activities=activities, **options) as prof:
         with torch.profiler.record_function(PRIMING_RANGE):
             _prime_device()
-        yield path
+        _all_threads = config is not None
+        try:
+            yield path
+        finally:
+            _all_threads = False
     prof.export_chrome_trace(path)
     strip_priming(path)
 
 
-def annotate(name):
-    return torch.profiler.record_function(name)
+def all_threads_config():
+    """The profiler's configuration that records every thread of the
+    process, or None where this torch build has no such option."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
 
-
-def _synchronize(result):
-    """Wait for every CUDA device holding a tensor of ``result``."""
-    devices = set()
-
-    def visit(value):
-        if torch.is_tensor(value):
-            if value.is_cuda:
-                devices.add(value.device)
-        elif isinstance(value, dict):
-            for item in value.values():
-                visit(item)
-        elif isinstance(value, (list, tuple)):
-            for item in value:
-                visit(item)
-
-    visit(result)
-    for device in devices:
-        torch.cuda.synchronize(device)
-
-
-class StepTimer:
-    """Wall-clock timing of steps (waits for the result's device)."""
-
-    def __init__(self, warmup=2):
-        self.warmup = warmup
-        self.times = []
-        self._count = 0
-
-    @contextlib.contextmanager
-    def step(self, result_to_block=None):
-        start = time.perf_counter()
-        yield
-        if result_to_block is not None:
-            _synchronize(result_to_block)
-        elapsed = time.perf_counter() - start
-        self._count += 1
-        if self._count > self.warmup:
-            self.times.append(elapsed)
-
-    def summary(self):
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "steps": len(arr),
-            "mean_ms": float(arr.mean() * 1e3),
-            "p50_ms": float(np.percentile(arr, 50) * 1e3),
-            "p95_ms": float(np.percentile(arr, 95) * 1e3),
-            "min_ms": float(arr.min() * 1e3),
-        }
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None

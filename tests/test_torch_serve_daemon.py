@@ -1,12 +1,12 @@
 """The port's serving daemon (srf_tpu_torch.serve_daemon) on the CPU, with
 a small SRF on numpy-seeded weights: batched answers equal one-by-one
 answers, a lone request is flushed by the wait timeout, concurrent
-requests coalesce, TCP and HTTP round trips, a two-model fleet, hot
-reload of a checkpoint saved while serving, live streaming sessions over
-TCP, errors reaching every waiter, the CLI in a subprocess, and the JAX
-package's client (srf_tpu.serve_daemon.request) talking to the port's
-server (the wire format is the same: the same reply as the port's own
-client).
+requests coalesce, the front end's spans and counters, TCP and HTTP round
+trips, a two-model fleet, hot reload of a checkpoint saved while serving,
+live streaming sessions over TCP, errors reaching every waiter, the CLI
+in a subprocess, and the JAX package's client
+(srf_tpu.serve_daemon.request) talking to the port's server (the wire
+format is the same: the same reply as the port's own client).
 
 Servers bind port 0 and are shut down in ``finally``; every socket,
 Future and Event wait has its own timeout (<= 30 s)."""
@@ -32,6 +32,7 @@ import srf_tpu_torch.serve_daemon as sd
 from srf_tpu_torch import convert
 from srf_tpu_torch.config import Logger, ParseOption
 from srf_tpu_torch.serve import Recognizer
+from srf_tpu_torch.utils import profiler
 from srf_tpu_torch.utils.checkpoint import CheckpointManager
 
 from _torch_parity import random_flax_variables
@@ -173,6 +174,84 @@ def test_a_failed_batch_fails_every_waiter(served):
                 future.result(timeout=WAIT)
     finally:
         frontend.close()
+
+
+def test_the_front_end_spans_every_request_and_covers_its_loop(served):
+    _, rec, feats = served
+    start = time.perf_counter_ns()
+    frontend = sd.BatchingFrontend(rec, max_batch=3, max_wait_ms=20)
+    try:
+        futures = [frontend.submit(f) for f in feats + feats[:2]]
+        for future in futures:
+            future.result(timeout=WAIT)
+    finally:
+        frontend.close()
+    worker = frontend._worker.ident
+    ring = [s for s in profiler.spans() if s.start_ns >= start]
+
+    def named(name):
+        return [s for s in ring if s.name == name]
+
+    submits = {s.key: s for s in named("srf.serve.submit")}
+    takes = {s.key: s for s in named("srf.serve.take")}
+    assert len(submits) == 6 and set(takes) == set(submits)
+    for key, submit in submits.items():
+        assert submit.thread == threading.get_ident()
+        assert takes[key].thread == worker
+        assert takes[key].parent == "srf.serve.hold"
+        assert submit.start_ns <= takes[key].start_ns
+    holds = {s.key: s for s in named("srf.serve.hold")}
+    batches = {s.key: s for s in named("srf.serve.batch")}
+    assert set(holds) == set(batches)
+    assert len(batches) == frontend.stats["batches"] >= 2
+    # every take lies in one hold
+    for take in takes.values():
+        assert sum(h.start_ns <= take.start_ns <= h.end_ns
+                   for h in holds.values()) == 1
+    # the Recognizer's parts, once a batch, inside it
+    for name in ("srf.serve.pad", "srf.serve.forward", "srf.serve.decode",
+                 "srf.serve.results"):
+        parts = named(name)
+        assert len(parts) == len(batches)
+        assert {p.parent for p in parts} == {"srf.serve.batch"}
+    # wait, hold and batch take turns on the worker and cover its loop
+    loop = sorted((s for s in ring if s.thread == worker and s.name in (
+        "srf.serve.wait", "srf.serve.hold", "srf.serve.batch")),
+        key=lambda s: s.start_ns)
+    assert [s.name for s in loop] == ["srf.serve.wait", "srf.serve.hold",
+                                      "srf.serve.batch"] * len(batches) + [
+                                          "srf.serve.wait"]
+    gaps = [b.start_ns - a.end_ns for a, b in zip(loop, loop[1:])]
+    assert min(gaps) >= 0
+    assert sum(gaps) < 0.05 * (loop[-1].end_ns - loop[0].start_ns)
+    # the counters sum the same intervals
+    stats = frontend.stats
+    assert stats["requests"] == 6 and sum(stats["batch_sizes"]) == 6
+    assert stats["queue_wait_s"] == pytest.approx(sum(
+        takes[k].start_ns - submits[k].start_ns for k in submits) / 1e9)
+    assert stats["hold_s"] == pytest.approx(sum(
+        h.end_ns - h.start_ns for h in holds.values()) / 1e9)
+    assert stats["batch_s"] == pytest.approx(sum(
+        b.end_ns - b.start_ns for b in batches.values()) / 1e9)
+
+
+def test_the_stats_snapshot_reports_the_front_ends_means(served):
+    _, rec, _ = served
+    frontend = sd.BatchingFrontend(rec, max_batch=4, max_wait_ms=5)
+    try:
+        fleet = sd.ModelFleet({"a": frontend}, "a")
+        empty = fleet.stats()
+        frontend.stats.update(requests=4, batches=2, queue_wait_s=0.2,
+                              hold_s=0.03, batch_s=0.1)
+        snapshot = fleet.stats()
+    finally:
+        frontend.close()
+    for key in ("mean_queue_wait_ms", "mean_hold_ms", "mean_batch_ms"):
+        assert empty[key] == 0.0
+    for one in (snapshot, snapshot["models"]["a"]):
+        assert one["mean_queue_wait_ms"] == pytest.approx(50.0)
+        assert one["mean_hold_ms"] == pytest.approx(15.0)
+        assert one["mean_batch_ms"] == pytest.approx(50.0)
 
 
 def test_tcp_round_trip_and_the_jax_client(served):

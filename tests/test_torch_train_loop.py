@@ -24,6 +24,11 @@ identity, the port's rates 0).
   flags' rate at the restored count, as optax does, for the default Noam
   and for ``--train-opti-type=adam``/``sgd``: the rate (within optax's
   float32), the parameters after that update within 1e-5.
+- **Spans** (``utils/profiler.py``): ``device_prefetch`` yields each
+  batch's step keys as tensors from one loop, each batch in a ``srf.feed``
+  span around ``srf.feed.load`` and ``srf.feed.put``; a train step is a
+  ``srf.step`` span around its forward, loss and backward a microbatch and
+  one optimizer span.
 """
 
 import io
@@ -31,6 +36,7 @@ import json
 import logging
 import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -55,7 +61,7 @@ from srf_tpu_torch.data.loader import BucketedLoader
 from srf_tpu_torch.models.srf import SequenceRouter
 from srf_tpu_torch.train import loop, optimizer, step
 from srf_tpu_torch.train.state import TrainState
-from srf_tpu_torch.utils import checkpoint
+from srf_tpu_torch.utils import checkpoint, profiler
 
 from _torch_parity import no_dropout, random_flax_variables
 
@@ -439,3 +445,60 @@ def test_an_epoch_without_batches_is_loud(tmp_path, variables):
     assert state.step == 0
     assert "Train epoch 001 yielded NO batches" in log
     assert "Validation yielded NO batches" in log
+
+
+def _spans_since(start, *names):
+    """The ring's entries named in ``names`` that began at ``start`` (ns)
+    or later."""
+    return [s for s in profiler.spans()
+            if s.start_ns >= start and s.name in names]
+
+
+@pytest.mark.parametrize("count", [0, 3])
+def test_device_prefetch_yields_the_staged_batches_in_feed_spans(count):
+    rng = np.random.RandomState(count)
+    batches = [{"feats": rng.randn(2, 5, 3).astype(np.float32),
+                "labels": rng.randint(1, 4, (2, 2)).astype(np.int32),
+                "inp_len": np.array([5, 4], np.int32),
+                "tar_len": np.array([2, 1], np.int32), "extra": "unused"}
+               for _ in range(count)]
+    start = time.perf_counter_ns()
+    got = list(loop.device_prefetch(iter(batches), torch.device("cpu")))
+    # what the loop yielded before it was spanned: each batch's step keys
+    # as CPU tensors, in order
+    assert len(got) == count
+    for staged, batch in zip(got, batches):
+        assert sorted(staged) == sorted(loop.STEP_KEYS)
+        for key in loop.STEP_KEYS:
+            assert torch.equal(staged[key], torch.from_numpy(batch[key]))
+    feeds = _spans_since(start, "srf.feed")
+    loads = _spans_since(start, "srf.feed.load")
+    puts = _spans_since(start, "srf.feed.put")
+    # a feed span a batch, and one more for the loader's end
+    assert (len(feeds), len(loads), len(puts)) == (count + 1, count + 1,
+                                                   count)
+    assert {s.parent for s in loads + puts} <= {"srf.feed"}
+    assert {s.parent for s in feeds} == {None}
+
+
+def test_the_train_step_spans_its_parts_a_microbatch():
+    torch.manual_seed(0)
+    model = torch.nn.Linear(3, 4)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    state = TrainState.create(model, opt, device="cpu")
+    train_step = step.make_train_step(
+        lambda batch, training, generator: model(batch["feats"]), 1,
+        accum_steps=2)
+    batch = {"feats": torch.randn(4, 6, 3),
+             "labels": torch.tensor([[1, 2]] * 4, dtype=torch.int32),
+             "inp_len": torch.tensor([6, 5, 6, 4], dtype=torch.int32),
+             "tar_len": torch.tensor([2, 1, 2, 2], dtype=torch.int32)}
+    start = time.perf_counter_ns()
+    train_step(state, batch, 1)
+    names = ("srf.step", "srf.step.forward", "srf.step.loss",
+             "srf.step.backward", "srf.step.optimizer")
+    got = sorted(_spans_since(start, *names), key=lambda s: s.start_ns)
+    assert [s.name for s in got] == ["srf.step"] + list(names[1:4]) * 2 + [
+        "srf.step.optimizer"]
+    assert {s.parent for s in got[1:]} == {"srf.step"}
+    assert got[0].parent is None and state.step == 1

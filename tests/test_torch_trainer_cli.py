@@ -8,7 +8,7 @@
   keeps the same records), and skip a split whose shards exist;
 - ``trainer_sr`` trains 2 epochs, resumes to 3 from the checkpoint (epoch
   offset 2, no epoch retrained; that epoch profiled into a Chrome trace by
-  ``--tpu-profile-dir``, and its loop timed by ``SRF_LOOP_TIMING``),
+  ``--tpu-profile-dir``, which holds the feed's and the step's spans),
   averages with ``tools.average_ckpt``, decodes and is scraped by
   ``utils.log2utt``;
 - ``python -m srf_tpu_torch.trainer_sr`` exits 42 under
@@ -143,8 +143,7 @@ def test_writer_shards_are_byte_equal_to_jax(corpus):
             assert cli == data, name
 
 
-def test_train_resume_average_decode_cycle(corpus, capsys, tmp_path,
-                                           monkeypatch):
+def test_train_resume_average_decode_cycle(corpus, capsys, tmp_path):
     ckpt = corpus / "ckpt"
     trainer_sr.main(_argv(corpus, "--train-max-epoch=2"))
     manager = checkpoint.CheckpointManager(str(ckpt))
@@ -152,8 +151,7 @@ def test_train_resume_average_decode_cycle(corpus, capsys, tmp_path,
     first = manager.restore(2)
     assert first["step"] == 10  # 5 batches of 2 an epoch
     # resume for one more epoch: offset 2 from the checkpoint's step; its
-    # first trained epoch profiled (a Chrome trace), its loop timed
-    monkeypatch.setenv("SRF_LOOP_TIMING", "1")
+    # first trained epoch profiled (a Chrome trace)
     log = io.StringIO()
     handler = logging.StreamHandler(log)
     logger = logging.getLogger("srf_tpu_torch")  # the trainer's
@@ -164,9 +162,12 @@ def test_train_resume_average_decode_cycle(corpus, capsys, tmp_path,
     finally:
         logger.removeHandler(handler)
     assert "Loaded ckpt: %s/2" % ckpt in log.getvalue()
-    assert "Loop timing: load" in log.getvalue()
     trace, = tmp_path.glob("trace_*.json")
-    assert json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]}
+    assert {"srf.feed", "srf.feed.load", "srf.feed.put", "srf.step",
+            "srf.step.forward", "srf.step.loss", "srf.step.backward",
+            "srf.step.optimizer"} <= names
     assert manager.all_steps() == [1, 2, 3]
     assert manager.restore(3)["step"] == 15
     records = [json.loads(line) for line in open(ckpt / "metrics.jsonl")]
