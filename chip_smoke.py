@@ -40,10 +40,13 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    per cluster, then a fixed-order reduction) against their plain PyTorch
    version, and K4 against K2, on the same CUDA tensors, at phase 3's
    shapes with one iteration and time blocks (K4 bit-equal across them);
-   K2 and K4 (K4 against K2 as well) at phase 3's EXTRA_LAYERS; K2
-   and K4 each bit-equal across two calls; K2's and K4's times in turns,
-   and the plain version's, at B=29, T'=61 (the training path's shape),
-   and K2's parts' times apart;
+   K2 and K4 (K4 against K2 as well) at phase 3's EXTRA_LAYERS; K2 at
+   the SRF-WSJ layers 1-8 (150, 30, 20, 20) at a training bucket's B=24,
+   T'=248, with its parts' times, and at odd offsets (K2_LAYERS); K2 and
+   K4 each bit-equal across two calls; K2's weight gradient on its tiled
+   path at every recipe geometry (routing_cuda.wgrad_launches); K2's and
+   K4's times in turns, and the plain version's, at B=29, T'=61 (the
+   training path's shape), and K2's parts' times apart;
 5. K5 (the fused dropout) against its plain PyTorch version with
    torch.equal (the two draw the same Philox bits) at 1-5000 elements, a
    misaligned view, and each of the 25 dropout sites of a CNN-TIMIT train
@@ -521,6 +524,14 @@ EXTRA_LAYERS = (
     ("last_large_logits", (90, 63, 8, 8), True, 10.0, ((8, 2, 1),)),
     ("wsj_large_logits", (300, 30, 20, 20), True, 10.0, ((3, 3, 1),)),
 )
+# K2 alone, as (name, (in_n, out_n, out_d, in_d), PAD mask, W's std, B, T'):
+# at the SRF-WSJ recipe's layers 1-8 (egs/script/train_srf_wsj.sh: 30
+# capsules of dim 20 over a 2+1+2 window) at the 24 x 991 bucket's T' =
+# 248, and at odd B * T', in_n and out_n, whose c and da leave ds at an
+# odd offset unless the scratch aligns it (the weight gradient's tiled
+# path bulk-copies its rows)
+K2_LAYERS = (("wsj_layer1", (150, 30, 20, 20), False, 0.1, 24, 248),
+             ("odd_offsets", (3, 5, 4, 4), True, 0.3, 3, 5))
 # the register path's softmax skips its max where every logit of a warp's
 # rows is within this bound (csrc/sdr_stream.cuh kSafeLogit)
 SAFE_LOGIT = 64.0
@@ -1003,12 +1014,14 @@ def k2_phase(torch, device):
     """Phase 4: K2 and K4 against their plain version, K4 against K2 on the
     same CUDA tensors, each bit-equal across two calls; returns their JSON
     entries."""
+    from srf_tpu_torch.ops import routing_cuda
     from srf_tpu_torch.ops.routing import sequential_routing_bwd
     from srf_tpu_torch.ops.routing_cuda import (
         scan_plan, sequential_routing_bwd_cuda, sequential_routing_cuda,
         sequential_routing_scan_bwd_cuda)
 
     rng = np.random.RandomState(SEED + 2)
+    paths = dict(routing_cuda.wgrad_launches)
     max_err = {"K2": 0.0, "K4": 0.0, "K4 vs K2": 0.0}
     per_layer = {"K2": [], "K4": []}
     totals = {"K2": sdr_totals(), "K4": sdr_totals()}
@@ -1124,6 +1137,43 @@ def k2_phase(torch, device):
                 add_layer(totals[label], per_layer[label], name, count,
                           kernel_ms, plain_ms, bound, geometry=list(geometry),
                           per_step=count, **extra)
+    # every recipe geometry so far took the weight gradient's tiled path
+    tiled = routing_cuda.wgrad_launches["tiled"] - paths["tiled"]
+    check(tiled > 0 and routing_cuda.wgrad_launches == dict(
+        paths, tiled=paths["tiled"] + tiled),
+        "K2's weight gradient left its tiled path at a SRF-TIMIT geometry: "
+        "%s (before %s)" % (routing_cuda.wgrad_launches, paths))
+    # K2 alone at K2_LAYERS
+    wsj_parts = {}
+    for name, geometry, mask, w_std, batch, seq_len in K2_LAYERS:
+        in_n, out_n, out_d, in_d = geometry
+        w = torch.tensor(rng.randn(in_n, out_n, out_d, in_d) * w_std,
+                         dtype=torch.float32, device=device)
+        b = torch.tensor(rng.randn(in_n, out_n, out_d) * w_std,
+                         dtype=torch.float32, device=device)
+        u = torch.tensor(rng.randn(batch, seq_len, in_n, in_d),
+                         dtype=torch.float32, device=device)
+        vs = sequential_routing_cuda(u, w, b, 1, mask)
+        dvs = torch.tensor(rng.randn(batch, seq_len, out_n, out_d),
+                           dtype=torch.float32, device=device)
+        before = dict(routing_cuda.wgrad_launches)
+        k2_held(u, w, b, vs, dvs, mask, "%s %s B=%d T=%d mask=%s" % (
+            name, geometry, batch, seq_len, mask))
+        check(routing_cuda.wgrad_launches["tiled"] == before["tiled"] + 2,
+              "K2's weight gradient left its tiled path at %s: %s"
+              % (name, routing_cuda.wgrad_launches))
+        parts, _ = parts_ms(torch, lambda: sequential_routing_bwd_cuda(
+            u, w, b, vs, dvs, mask), K2_PARTS)
+        wsj_parts[name] = parts
+        flops = 4.0 * batch * seq_len * in_n * out_n * out_d * in_d
+        print("K2 %s B=%d T=%d: weight gradient %.4f ms (%.1f %% of the "
+              "float32 peak on its %.1f GFLOP), prediction %.4f ms, "
+              "reverse-time %.4f ms, reduction %.4f ms"
+              % (name, batch, seq_len, parts["weight_gradient"],
+                 100 * flops / (parts["weight_gradient"] * 1e-3)
+                 / PEAK_F32_FLOPS, flops / 1e9, parts["prediction"],
+                 parts["reverse_time"], parts["reduction"]))
+        del u, w, b, vs, dvs
     # K2 and K4 at EXTRA_LAYERS, one routing iteration
     for index, (name, geometry, mask, w_std, shapes) in enumerate(
             EXTRA_LAYERS):
@@ -1156,7 +1206,9 @@ def k2_phase(torch, device):
     # in turns
     k2 = kernel_entry("sdr_bwd", "srf_tpu/ops/routing_pallas.py:159",
                       max_err["K2"], totals["K2"], per_layer["K2"])
-    k2.update(launches_per_call=K2_LAUNCHES, parts_ms=k2_parts)
+    k2.update(launches_per_call=K2_LAUNCHES, parts_ms=k2_parts,
+              wsj_parts_ms=wsj_parts,
+              wgrad_launches=dict(routing_cuda.wgrad_launches))
     print("K2 one train step's 7 calls at B=29 T=61: %.4f ms (prediction "
           "%.4f ms, reverse-time %.4f ms, weight gradient %.4f ms, reduction "
           "%.4f ms), plain %.4f ms, bound %.4f ms; max |K2 - plain| %.3e"
@@ -2143,6 +2195,7 @@ def train_phase(torch, card, state):
     """Phase 7: train the canonical model on the card; returns the K1 and
     K2 launches of the TRAIN_STEPS-step run, and its median ms a step."""
     from srf_tpu_torch.config import Logger
+    from srf_tpu_torch.ops import routing_cuda
     from srf_tpu_torch.ops.ctc import ctc_loss_from_frames
     from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
                                                 sequential_routing_cuda)
@@ -2158,6 +2211,7 @@ def train_phase(torch, card, state):
     torch.cuda.synchronize()
     sequential_routing_cuda.launches = 0
     sequential_routing_bwd_cuda.launches = 0
+    paths = dict(routing_cuda.wgrad_launches)
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         k1, k2 = (sequential_routing_cuda.launches,
@@ -2178,6 +2232,11 @@ def train_phase(torch, card, state):
                       7 * K1_LAUNCHES, 7 * K2_LAUNCHES))
     launches = (sequential_routing_cuda.launches,
                 sequential_routing_bwd_cuda.launches)
+    check(routing_cuda.wgrad_launches == dict(
+        paths, tiled=paths["tiled"] + 7 * TRAIN_STEPS),
+        "the train steps' weight gradients by path: %s, expected %d more "
+        "tiled than %s" % (routing_cuda.wgrad_launches, 7 * TRAIN_STEPS,
+                           paths))
     all_on_card(train_state, metrics)
     losses = torch.stack(losses).cpu().numpy() / batch["feats"].shape[0]
     check(bool(np.isfinite(losses).all()), "non-finite train loss")
@@ -4134,6 +4193,7 @@ def wsj_train_phase(torch, card):
     K1's and K2's launches in one step, counted from 0."""
     from srf_tpu_torch.config import Logger
     from srf_tpu_torch.models.registry import build_model
+    from srf_tpu_torch.ops import routing_cuda
     from srf_tpu_torch.ops.routing_cuda import (sequential_routing_bwd_cuda,
                                                 sequential_routing_cuda)
 
@@ -4155,10 +4215,16 @@ def wsj_train_phase(torch, card):
     torch.cuda.synchronize()
     sequential_routing_cuda.launches = 0
     sequential_routing_bwd_cuda.launches = 0
+    paths = dict(routing_cuda.wgrad_launches)
     train_state, metrics = step(train_state, batch, seed)
     torch.cuda.synchronize()
     launches = (sequential_routing_cuda.launches,
                 sequential_routing_bwd_cuda.launches)
+    # the 10 layers' weight gradients, each on its tiled path
+    check(routing_cuda.wgrad_launches == dict(paths,
+                                              tiled=paths["tiled"] + 10),
+          "an SRF-WSJ step's weight gradients by path: %s (before %s)"
+          % (routing_cuda.wgrad_launches, paths))
     check(launches == (10 * K1_LAUNCHES, 10 * K2_LAUNCHES),
           "an SRF-WSJ step launched K1 %d and K2 %d times, expected %d and "
           "%d" % (*launches, 10 * K1_LAUNCHES, 10 * K2_LAUNCHES))

@@ -30,19 +30,32 @@
 //    out_n * out_d], not du_hat (4x fewer bytes at out_d = 8): du_hat = c
 //    ds + da v_{t-1}, and v_{t-1} is the forward's output shifted by one
 //    step;
-// 3. sdr_bwd_wgrad_kernel, as many blocks as the card holds at once, each
-//    taking work items (n, chunk of B*T rows) in turn, about 8 apiece: it
-//    rebuilds du_hat from the factors in shared memory a few rows at a time
-//    and forms the chunk's partial of dW[n] and db[n] and du[:, n, :] =
-//    du_hat W[n], over tiles of W[n] where it does not fit whole
-//    (plan_wgrad in sdr_plan.cuh);
+// 3. sdr_bwd_wgrad_kernel, the weight gradient: one block of 16 warps an
+//    SM, each taking work items (n, chunk of B*T rows) in turn, about 8
+//    apiece, with W[n] whole in shared memory (plan_wgrad in sdr_plan.cuh;
+//    every recipe's geometry). For each tile of 20-64 rows it rebuilds
+//    du_hat once into shared memory from the tile's factors, which TMA
+//    bulk copies (ds and v_{t-1} rows) and cp.async (c, da, u) staged there
+//    while the tile before it computed; then half the warps form the dW[n]
+//    partial as register-tiled outer products (a thread 1-4 out quads by
+//    an in quad, held over the chunk) and the other half du = du_hat W[n]
+//    (a thread 4 rows by an in quad over a slice of the out entries, the
+//    slices summed in order), both float32 FMAs on the CUDA cores, with
+//    no shuffles. Where W[n] does not fit or out_no is not a multiple of 4
+//    (no recipe's geometry), sdr_bwd_wgrad_kernel_general takes W[n] in
+//    tiles and du_hat a few rows at a time. At SRF-WSJ's (150, 30, 20,
+//    20), B=24, T'=248 the tiled path runs at 27 % of the float32 peak
+//    (2.38 ms for 42.9 GFLOP, H100 SXM at 700 W): its products issue from
+//    registers and shared memory with ~45 % of the SM's FMA slots busy, and
+//    the rebuild, the slices' sum and their four block barriers a tile take
+//    the rest;
 // 4. sdr_bwd_reduce_kernel sums the chunks' partials in chunk order.
 // No atomics anywhere: every sum has one owner and a fixed order, so two
 // calls are bit-equal.
 //
 // What bounds it on this card: the reverse-time chain in (2), as for K1;
-// (1), (3) and (4) run over all SMs and are bound by their bytes and, in
-// (3), by shared-memory traffic.
+// (1), (3) and (4) run over all SMs, (1) and (4) bound by their bytes and
+// (3) by issuing its FMAs between its tiles' barriers.
 //
 // The bf16 variant (sdr_bwd_bf16; template argument BF) is the backward of
 // K1's bf16 variant, rounded where autograd through its plain version
@@ -58,6 +71,13 @@
 
 #include "sdr_stream.cuh"
 
+// SDR_HOST_SHIM (tests/_sdr_tp_host.h) builds the kernels as host C++
+// without the launch code below them, so that the CPU tests run the weight
+// gradient against its plain version (tests/test_torch_sdr_wgrad_host.py).
+#ifndef SDR_HOST_SHIM
+#define SDR_BWD_SMEM(name) extern __shared__ float4 name[]
+#endif
+
 namespace {
 
 using sdr::kWarps;
@@ -66,11 +86,11 @@ using sdr::Ring;
 using sdr::StreamPlan;
 using sdr::Wgrad;
 
-constexpr int kWgradThreads = 256;
 constexpr int kReduceThreads = 256;
 constexpr int kReduceBlocks = 264;
 
-// Scratch besides u_hat, in floats from its start: c, da, ds, then the
+// Scratch besides u_hat, in floats from its start: c, da, ds (16-byte
+// aligned: the weight gradient bulk-copies its rows), then the
 // weight-gradient partials [chunks, in_n * out_no * in_d + in_n * out_no],
 // then, where the plan puts it in global memory, the step kernel's
 // per-warp scratch [batch, warp_floats].
@@ -85,7 +105,7 @@ Scratch scratch_layout(int batch, int seq_len, int in_n, int in_d,
   Scratch s;
   s.c = 0;
   s.da = s.c + rows * in_n * g.out_n;
-  s.ds = s.da + rows * in_n * g.out_n;
+  s.ds = (s.da + rows * in_n * g.out_n + 3) / 4 * 4;
   s.part = s.ds + rows * g.out_no;
   s.warp = (s.part + (size_t)p.chunks * in_n * g.out_no * (in_d + 1) + 3) /
            4 * 4;
@@ -104,7 +124,7 @@ sdr_bwd_step_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
                     float* __restrict__ dafac, float* __restrict__ dsfac,
                     float* __restrict__ warp_g, int seq_len, int in_n,
                     RowGeom g, Ring r, int mask_pad) {
-  extern __shared__ float4 smem4[];
+  SDR_BWD_SMEM(smem4);
   using E = sdr::uhat_t<BF>;
   E* ring = reinterpret_cast<E*>(smem4);
   uint64_t* full =
@@ -234,20 +254,44 @@ sdr_bwd_step_kernel(const sdr::uhat_t<BF>* __restrict__ uhat,
   }
 }
 
+__device__ __forceinline__ void fma4(float4& a, float s, const float4& v) {
+  a.x = fmaf(s, v.x, a.x);
+  a.y = fmaf(s, v.y, a.y);
+  a.z = fmaf(s, v.z, a.z);
+  a.w = fmaf(s, v.w, a.w);
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& v) {
+  a.x += v.x;
+  a.y += v.y;
+  a.z += v.z;
+  a.w += v.w;
+}
+
 // Work items (n, k), an in-capsule and a chunk of B*T rows, taken by the
-// resident blocks in turn (item = blockIdx.x, + gridDim.x, ...); item (n, k)
-// over rows bt of chunk k, for each tile of W[n] (p.o_tile out entries by
-// p.j_tile in entries) in order:
+// resident blocks in turn (item = blockIdx.x, + gridDim.x, ...). The tiled
+// path (plan_wgrad in sdr_plan.cuh), one block an SM: W[n] staged whole;
+// for each tile of p.rows rows bt of chunk k,
 //   du_hat[bt,oi] = c[bt,n,o] ds[bt,oi] + da[bt,n,o] v_{t-1}[bt,oi]
-//   part[k] dW[n,oi,j] = sum_bt du_hat[bt,oi] u[bt,n,j]
-//   part[k] db[n,oi]   = sum_bt du_hat[bt,oi]
-//   du[bt,n,j]         = sum_oi du_hat[bt,oi] W[n,oi,j]  (the out tiles'
-//                        sums added in tile order by one thread)
-// kTiles false: W[n] is one tile (every recipe's geometry), and the tile's
-// bounds are constants. BF: du_hat[bt,oi] = bf16(bf16(c) ds + da
-// bf16(v_{t-1})), and u and W are bf16 (staged widened to float32).
-template <bool BF, bool kTiles>
-__global__ void __launch_bounds__(kWgradThreads)
+// is rebuilt once into shared memory from the tile's factors, which were
+// staged there while the tile before it computed (ds and v_{t-1} rows by
+// TMA bulk copies, c, da and u by cp.async), each rebuild thread an out
+// quad of every p.build_rows-th row (its db partial in registers); then both
+// products read it:
+//   part[k] dW[n,oi,j] = sum_bt du_hat[bt,oi] u[bt,n,j]: each thread a
+//     register tile of MT out quads (strided by p.ogroups, so that a warp's
+//     lanes read neighbouring quads of a row) by one quad of in entries,
+//     over the rows rs, rs + p.row_split, ... in order;
+//   du[bt,n,j] = sum_oi du_hat[bt,oi] W[n,oi,j]: each thread a register
+//     tile of kWgradDuRows rows (p.rows / kWgradDuRows apart) by one quad
+//     of in entries over its slice of the out quads (ascending), the
+//     slices' partials summed in slice order through shared memory.
+// No shuffles and no atomics; at an item's end the row groups' dW partials
+// and the rebuild threads' db partials are summed in group order.
+// BF: du_hat[bt,oi] = bf16(bf16(c) ds + da bf16(v_{t-1})), and u and W are
+// bf16 (staged widened to float32, with plain loads).
+template <bool BF, int MT>
+__global__ void __launch_bounds__(sdr::kWgradThreads, 1)
 sdr_bwd_wgrad_kernel(const sdr::uhat_t<BF>* __restrict__ u,
                      const sdr::uhat_t<BF>* __restrict__ w,
                      const float* __restrict__ vs,
@@ -256,7 +300,337 @@ sdr_bwd_wgrad_kernel(const sdr::uhat_t<BF>* __restrict__ u,
                      const float* __restrict__ dsfac, float* __restrict__ du,
                      float* __restrict__ part, int rows_total, int seq_len,
                      int in_n, int in_d, int out_n, int out_d, Wgrad p) {
-  extern __shared__ float4 smem4[];
+  SDR_BWD_SMEM(smem4);
+  constexpr int kThr = sdr::kWgradThreads;
+  constexpr int kDuRows = sdr::kWgradDuRows;
+  const int out_no = out_n * out_d;
+  const int out_q = out_no / 4;
+  const int quads = sdr::wgrad_quads(p);
+  const int j4 = p.j4;
+  const int dh_q = p.dh_pitch / 4;
+  const int tid = threadIdx.x;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);  // the staged rows
+  float4* w4 = smem4 + 1;                         // [out_no][j4] W[n]
+  float4* dh4 = w4 + (size_t)out_no * j4;         // [rows][dh_q] du_hat
+  float* st_ds = reinterpret_cast<float*>(dh4) + sdr::wgrad_dh_floats(p);
+  float* st_vp = st_ds + (size_t)p.rows * out_no;  // row r: v of bt0 + r - 1
+  float* st_c = st_vp + (size_t)p.rows * out_no;   // [rows][out_n]
+  float* st_da = st_c + sdr::wgrad_stage_cd_floats(p, out_n);
+  float4* ubuf = reinterpret_cast<float4*>(
+      st_da + sdr::wgrad_stage_cd_floats(p, out_n));  // [2][rows][j4] u
+  float4* par4 = dh4;  // partials, once the products' reads of du_hat end
+  float* w_s = reinterpret_cast<float*>(w4);
+  const bool vec_in = in_d % 4 == 0 && !BF;
+  const size_t per_chunk = (size_t)in_n * out_no * (in_d + 1);
+
+  // the rebuild: out quad bq of rows brow, brow + p.build_rows, ...; the
+  // out capsule of each of its entries
+  const int bq = tid % quads;
+  const int brow = tid / quads;
+  const bool builds = brow < p.build_rows;
+  int bo[4];
+  for (int e = 0; e < 4; ++e) bo[e] = min(4 * bq + e, out_no - 1) / out_d;
+  // dW (the first kRole threads): out quads og + i * p.ogroups, in quad jw,
+  // rows rs + p.row_split m
+  constexpr int kRole = sdr::kWgradRoleThreads;
+  const int per_rs = p.ogroups * j4;
+  const int rs = tid / per_rs;
+  const int og = tid % per_rs / j4;
+  const int jw = tid % j4;
+  const bool dws = tid < kRole && rs < p.row_split;
+  // du (the others): rows rg + i * rgroups, in quad ju, out quads of slice
+  // ks
+  const int utid = tid - kRole;
+  const int rgroups = p.rows / kDuRows;
+  const int per_ks = rgroups * j4;
+  const int ks = utid / per_ks;
+  const int rg = utid % per_ks / j4;
+  const int ju = utid % j4;
+  const bool dus = utid >= 0 && ks < p.ksplit;
+  const int q_begin = dus ? sdr::split_begin(out_q, p.ksplit, ks) : 0;
+  const int q_end = dus ? sdr::split_begin(out_q, p.ksplit, ks + 1) : 0;
+
+  if (tid == 0) {
+    sdr::mbar_init(full, 1);
+    sdr::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // stages the factors of the tile of rows bt .. of item n into shared
+  // memory, u into buffer `ub`; one thread issues the bulk copies of the
+  // tile's ds rows and v_{t-1} rows (none at bt = 0: t = 0 has none)
+  const auto stage = [&](int n, int bt, int bt_stop, float4* ub) {
+    const int rows = min(p.rows, bt_stop - bt);
+    if (tid == 0) {
+      const uint32_t row_bytes = (uint32_t)out_no * sizeof(float);
+      const int vp_rows = bt > 0 ? rows : rows - 1;
+      sdr::mbar_expect_tx(full, (rows + vp_rows) * row_bytes);
+      sdr::bulk_copy(st_ds, dsfac + (size_t)bt * out_no, rows * row_bytes,
+                     full);
+      if (vp_rows > 0) {
+        sdr::bulk_copy(st_vp + (size_t)(rows - vp_rows) * out_no,
+                       vs + (size_t)(bt + rows - vp_rows - 1) * out_no,
+                       vp_rows * row_bytes, full);
+      }
+    }
+    for (int e = tid; e < rows * out_n; e += kThr) {
+      const size_t at = ((size_t)(bt + e / out_n) * in_n + n) * out_n +
+                        e % out_n;
+      sdr::copy_async(st_c + e, cfac + at);
+      sdr::copy_async(st_da + e, dafac + at);
+    }
+    if (vec_in) {
+      for (int e = tid; e < p.rows * j4; e += kThr) {
+        const int r = e / j4;
+        if (r < rows) {
+          sdr::copy_async16(
+              ub + e, u + ((size_t)(bt + r) * in_n + n) * in_d + 4 * (e % j4));
+        } else {
+          ub[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    } else {
+      float* ub_s = reinterpret_cast<float*>(ub);
+      for (int e = tid; e < p.rows * j4 * 4; e += kThr) {
+        const int r = e / (j4 * 4);
+        const int j = e % (j4 * 4);
+        const auto* src = u + ((size_t)(bt + r) * in_n + n) * in_d + j;
+        if (r >= rows || j >= in_d) {
+          ub_s[e] = 0.f;
+        } else if constexpr (BF) {
+          ub_s[e] = sdr::to_f32(*src);  // no 2-byte cp.async
+        } else {
+          sdr::copy_async(ub_s + e, src);
+        }
+      }
+    }
+  };
+
+  uint32_t phase = 0;  // of `full`
+  int tiles = 0;       // this block's tiles so far: u's buffer is tiles % 2
+  if (blockIdx.x < in_n * p.chunks) {
+    stage(blockIdx.x % in_n, blockIdx.x / in_n * p.rows_per_chunk,
+          min((blockIdx.x / in_n + 1) * p.rows_per_chunk, rows_total), ubuf);
+  }
+  for (int item = blockIdx.x; item < in_n * p.chunks; item += gridDim.x) {
+    const int n = item % in_n;
+    const int k = item / in_n;
+    const int bt_begin = k * p.rows_per_chunk;
+    const int bt_end = min(bt_begin + p.rows_per_chunk, rows_total);
+    // W[n], its in entries padded to j4 quads with zeros (the previous
+    // item's products met the barrier at its end since)
+    const sdr::uhat_t<BF>* w_n = w + (size_t)n * out_no * in_d;
+    if (vec_in) {
+      for (int e = tid; e < out_no * j4; e += kThr) {
+        sdr::copy_async16(w4 + e, w_n + 4 * e);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < out_no * j4 * 4; e += kThr) {
+        const int j = e % (j4 * 4);
+        w_s[e] = j < in_d ? sdr::to_f32(w_n[e / (j4 * 4) * in_d + j]) : 0.f;
+      }
+    }
+    float4 acc[MT][4];
+    for (int i = 0; i < MT; ++i) {
+      for (int e = 0; e < 4; ++e) acc[i][e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float4 dbacc = make_float4(0.f, 0.f, 0.f, 0.f);
+
+    for (int bt0 = bt_begin; bt0 < bt_end; bt0 += p.rows, ++tiles) {
+      const int rows = min(p.rows, bt_end - bt0);
+      const float4* u4 = ubuf + (size_t)(tiles % 2) * p.rows * j4;
+      const int t0 = bt0 % seq_len;  // the tile's first step
+      // ---- the tile's staged factors have landed: rebuild du_hat (zeros
+      //      past `rows` and out_no) ----
+      sdr::copy_async_wait();
+      sdr::mbar_wait(full, phase);
+      phase ^= 1;
+      __syncthreads();
+      if (builds) {
+        for (int r = brow; r < p.rows; r += p.build_rows) {
+          float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < rows && bq < out_q) {
+            const float4 ds =
+                reinterpret_cast<const float4*>(st_ds + r * out_no)[bq];
+            // v_{t-1}: the forward's output one step back, none at t = 0
+            const int t = t0 + r < seq_len ? t0 + r : (t0 + r) % seq_len;
+            const float4 vp =
+                t > 0
+                    ? reinterpret_cast<const float4*>(st_vp + r * out_no)[bq]
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float dsv[4] = {ds.x, ds.y, ds.z, ds.w};
+            const float vpv[4] = {vp.x, vp.y, vp.z, vp.w};
+            const float* c_r = st_c + r * out_n;
+            const float* da_r = st_da + r * out_n;
+            float dh[4];
+            for (int e = 0; e < 4; ++e) {
+              // where out_d is a multiple of 4 the quad is one capsule's
+              const int o = out_d % 4 == 0 ? bo[0] : bo[e];
+              dh[e] = sdr::keep<BF>(fmaf(sdr::keep<BF>(c_r[o]), dsv[e],
+                                         da_r[o] * sdr::keep<BF>(vpv[e])));
+            }
+            d = make_float4(dh[0], dh[1], dh[2], dh[3]);
+            add4(dbacc, d);
+          }
+          dh4[r * dh_q + bq] = d;
+        }
+      }
+      __syncthreads();
+
+      // the next tile's factors (or the next item's first tile's) into the
+      // staging buffers while this tile computes
+      if (bt0 + p.rows < bt_end) {
+        stage(n, bt0 + p.rows, bt_end, ubuf + (size_t)((tiles + 1) % 2) *
+                                                  p.rows * j4);
+      } else if (item + gridDim.x < in_n * p.chunks) {
+        const int next = item + gridDim.x;
+        const int next_begin = next / in_n * p.rows_per_chunk;
+        stage(next % in_n, next_begin,
+              min(next_begin + p.rows_per_chunk, rows_total),
+              ubuf + (size_t)((tiles + 1) % 2) * p.rows * j4);
+      }
+
+      // ---- the dW partial: outer products over the rows ----
+      if (dws) {
+#pragma unroll 2
+        for (int r = rs; r < rows; r += p.row_split) {
+          const float4 uu = u4[r * j4 + jw];
+          const float4* drow = dh4 + r * dh_q + og;
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const float4 d = drow[i * p.ogroups];
+            fma4(acc[i][0], d.x, uu);
+            fma4(acc[i][1], d.y, uu);
+            fma4(acc[i][2], d.z, uu);
+            fma4(acc[i][3], d.w, uu);
+          }
+        }
+      }
+      // ---- du's slice partials: du_hat W[n] over the slice's out quads ----
+      float4 a[kDuRows];
+      for (int i = 0; i < kDuRows; ++i) a[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (dus) {
+        const float4* d0 = dh4 + rg * dh_q;
+#pragma unroll 2
+        for (int q = q_begin; q < q_end; ++q) {
+          const float4 w0 = w4[(4 * q) * j4 + ju];
+          const float4 w1 = w4[(4 * q + 1) * j4 + ju];
+          const float4 w2 = w4[(4 * q + 2) * j4 + ju];
+          const float4 w3 = w4[(4 * q + 3) * j4 + ju];
+#pragma unroll
+          for (int i = 0; i < kDuRows; ++i) {
+            const float4 d = d0[(size_t)i * rgroups * dh_q + q];
+            fma4(a[i], d.x, w0);
+            fma4(a[i], d.y, w1);
+            fma4(a[i], d.z, w2);
+            fma4(a[i], d.w, w3);
+          }
+        }
+      }
+      __syncthreads();  // du_hat's reads are done: its region takes them
+      if (dus) {
+        for (int i = 0; i < kDuRows; ++i) {
+          par4[((size_t)ks * p.rows + rg + i * rgroups) * j4 + ju] = a[i];
+        }
+      }
+      __syncthreads();
+
+      // ---- du: the slices' partials summed in slice order ----
+      for (int e = tid; e < rows * j4; e += kThr) {
+        const int r = e / j4;
+        const int jg = e % j4;
+        float4 sum = par4[r * j4 + jg];
+#pragma unroll 4
+        for (int s = 1; s < p.ksplit; ++s) {
+          add4(sum, par4[((size_t)s * p.rows + r) * j4 + jg]);
+        }
+        float* du_r = du + ((size_t)(bt0 + r) * in_n + n) * in_d + 4 * jg;
+        const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+        for (int jj = 0; jj < 4 && 4 * jg + jj < in_d; ++jj) du_r[jj] = v[jj];
+      }
+    }
+    __syncthreads();  // the last tile's du partials are read
+    // ---- the item's partials: the row groups' dW and the rebuild groups' db
+    //      after the first summed in group order ----
+    float4* dw_par = par4;
+    float4* db_par = par4 + (size_t)(p.row_split - 1) * per_rs * MT * 4;
+    if (p.row_split > 1 || p.build_rows > 1) {
+      if (dws && rs > 0) {
+        float4* mine = dw_par + ((size_t)(rs - 1) * per_rs + tid % per_rs) *
+                                    MT * 4;
+        for (int i = 0; i < MT; ++i) {
+          for (int e = 0; e < 4; ++e) mine[i * 4 + e] = acc[i][e];
+        }
+      }
+      if (builds && brow > 0) db_par[(brow - 1) * quads + bq] = dbacc;
+      __syncthreads();
+      if (dws && rs == 0) {
+        for (int g = 1; g < p.row_split; ++g) {
+          const float4* theirs =
+              dw_par + ((size_t)(g - 1) * per_rs + tid) * MT * 4;
+          for (int i = 0; i < MT; ++i) {
+            for (int e = 0; e < 4; ++e) add4(acc[i][e], theirs[i * 4 + e]);
+          }
+        }
+      }
+      if (builds && brow == 0) {
+        for (int g = 1; g < p.build_rows; ++g) {
+          add4(dbacc, db_par[(g - 1) * quads + bq]);
+        }
+      }
+    }
+    if (dws && rs == 0) {
+      float* dw_k = part + k * per_chunk + (size_t)n * out_no * in_d;
+      for (int i = 0; i < MT; ++i) {
+        const int q = og + i * p.ogroups;
+        for (int e = 0; e < 4; ++e) {
+          const int oi = 4 * q + e;
+          if (q >= out_q || oi >= out_no) continue;
+          const float v[4] = {acc[i][e].x, acc[i][e].y, acc[i][e].z,
+                              acc[i][e].w};
+          for (int jj = 0; jj < 4 && 4 * jw + jj < in_d; ++jj) {
+            dw_k[(size_t)oi * in_d + 4 * jw + jj] = v[jj];
+          }
+        }
+      }
+    }
+    if (builds && brow == 0 && bq < out_q) {
+      float* db_k = part + k * per_chunk + (size_t)in_n * out_no * in_d +
+                    (size_t)n * out_no;
+      const float v[4] = {dbacc.x, dbacc.y, dbacc.z, dbacc.w};
+      for (int e = 0; e < 4 && 4 * bq + e < out_no; ++e) {
+        db_k[4 * bq + e] = v[e];
+      }
+    }
+    __syncthreads();  // the partials region is read before the next item's
+  }
+}
+
+// The general path, for a W[n] that does not fit whole beside the tiled
+// path's tiles or an out_no that is not a multiple of 4 (no recipe's
+// geometry): item (n, k) over rows bt of chunk
+// k, for each tile of W[n] (p.o_tile out entries by p.j_tile in entries)
+// in order:
+//   du_hat[bt,oi] = c[bt,n,o] ds[bt,oi] + da[bt,n,o] v_{t-1}[bt,oi]
+//   part[k] dW[n,oi,j] = sum_bt du_hat[bt,oi] u[bt,n,j]
+//   part[k] db[n,oi]   = sum_bt du_hat[bt,oi]
+//   du[bt,n,j]         = sum_oi du_hat[bt,oi] W[n,oi,j]  (the out tiles'
+//                        sums added in tile order by one thread)
+// BF as the tiled path.
+template <bool BF>
+__global__ void __launch_bounds__(sdr::kWgradGeneralThreads)
+sdr_bwd_wgrad_kernel_general(const sdr::uhat_t<BF>* __restrict__ u,
+                             const sdr::uhat_t<BF>* __restrict__ w,
+                             const float* __restrict__ vs,
+                             const float* __restrict__ cfac,
+                             const float* __restrict__ dafac,
+                             const float* __restrict__ dsfac,
+                             float* __restrict__ du,
+                             float* __restrict__ part, int rows_total,
+                             int seq_len, int in_n, int in_d, int out_n,
+                             int out_d, Wgrad p) {
+  SDR_BWD_SMEM(smem4);
   const int out_no = out_n * out_d;
   const int d4 = p.j_tile / 4;
   const int tid = threadIdx.x;
@@ -279,138 +653,132 @@ sdr_bwd_wgrad_kernel(const sdr::uhat_t<BF>* __restrict__ u,
     const int bt_begin = k * p.rows_per_chunk;
     const int bt_end = min(bt_begin + p.rows_per_chunk, rows_total);
     // the tile of out entries o0..o0+ot-1 and in entries j0..j0+jt-1
-    const auto tile = [&](int o0, int ot, int j0, int jt) {
-      __syncthreads();  // the previous tile is done with
-      for (int e = tid; e < ot * p.j_tile; e += nthr) {
-        const int j = e % p.j_tile;
-        w_s[e] = j < jt ? sdr::to_f32(w[((size_t)n * out_no + o0 +
-                                          e / p.j_tile) * in_d + j0 + j])
-                        : 0.f;
-        acc_s[e] = 0.f;
-      }
-      for (int oo = tid; oo < ot; oo += nthr) db_s[oo] = 0.f;
-
-      for (int bt0 = bt_begin; bt0 < bt_end; bt0 += p.rows) {
-        const int rows = min(p.rows, bt_end - bt0);
-        __syncthreads();  // W staged; the previous rows are done with
-        // stage the rows' u (asynchronous copies) and rebuild their du_hat
-        // from the factors, a warp per row with lanes along oi
-        for (int e = tid; e < rows * p.j_tile; e += nthr) {
-          const int r = e / p.j_tile;
+    for (int o0 = 0; o0 < out_no; o0 += p.o_tile) {
+      for (int j0 = 0; j0 < in_d; j0 += p.j_tile) {
+        const int ot = min(p.o_tile, out_no - o0);
+        const int jt = min(p.j_tile, in_d - j0);
+        __syncthreads();  // the previous tile is done with
+        for (int e = tid; e < ot * p.j_tile; e += nthr) {
           const int j = e % p.j_tile;
-          if (j < jt) {
-            const auto* src = u + ((size_t)(bt0 + r) * in_n + n) * in_d +
-                              j0 + j;
-            if constexpr (BF) {
-              u_s[e] = sdr::to_f32(*src);  // no 2-byte cp.async
+          w_s[e] = j < jt ? sdr::to_f32(w[((size_t)n * out_no + o0 +
+                                            e / p.j_tile) * in_d + j0 + j])
+                          : 0.f;
+          acc_s[e] = 0.f;
+        }
+        for (int oo = tid; oo < ot; oo += nthr) db_s[oo] = 0.f;
+
+        for (int bt0 = bt_begin; bt0 < bt_end; bt0 += p.rows) {
+          const int rows = min(p.rows, bt_end - bt0);
+          __syncthreads();  // W staged; the previous rows are done with
+          // stage the rows' u (asynchronous copies) and rebuild their
+          // du_hat from the factors, a warp per row with lanes along oi
+          for (int e = tid; e < rows * p.j_tile; e += nthr) {
+            const int r = e / p.j_tile;
+            const int j = e % p.j_tile;
+            if (j < jt) {
+              const auto* src = u + ((size_t)(bt0 + r) * in_n + n) * in_d +
+                                j0 + j;
+              if constexpr (BF) {
+                u_s[e] = sdr::to_f32(*src);  // no 2-byte cp.async
+              } else {
+                sdr::copy_async(u_s + e, src);
+              }
             } else {
-              sdr::copy_async(u_s + e, src);
+              u_s[e] = 0.f;
             }
-          } else {
-            u_s[e] = 0.f;
           }
-        }
-        for (int r = warp; r < rows; r += nthr / 32) {
-          const int bt = bt0 + r;
-          const size_t at = ((size_t)bt * in_n + n) * out_n;
-          const float* ds = dsfac + (size_t)bt * out_no + o0;
-          // v_{t-1}: the forward's output one step back, none at t = 0
-          const float* vp = bt % seq_len > 0
-                                ? vs + (size_t)(bt - 1) * out_no + o0
-                                : nullptr;
+          for (int r = warp; r < rows; r += nthr / 32) {
+            const int bt = bt0 + r;
+            const size_t at = ((size_t)bt * in_n + n) * out_n;
+            const float* ds = dsfac + (size_t)bt * out_no + o0;
+            // v_{t-1}: the forward's output one step back, none at t = 0
+            const float* vp = bt % seq_len > 0
+                                  ? vs + (size_t)(bt - 1) * out_no + o0
+                                  : nullptr;
 #pragma unroll 4
-          for (int oo = lane; oo < ot; oo += 32) {
-            const int o = (o0 + oo) / out_d;
-            const float vprev = vp ? sdr::keep<BF>(vp[oo]) : 0.f;
-            dh_s[r * p.dh_pitch + oo] = sdr::keep<BF>(
-                fmaf(sdr::keep<BF>(cfac[at + o]), ds[oo],
-                     dafac[at + o] * vprev));
+            for (int oo = lane; oo < ot; oo += 32) {
+              const int o = (o0 + oo) / out_d;
+              const float vprev = vp ? sdr::keep<BF>(vp[oo]) : 0.f;
+              dh_s[r * p.dh_pitch + oo] = sdr::keep<BF>(
+                  fmaf(sdr::keep<BF>(cfac[at + o]), ds[oo],
+                       dafac[at + o] * vprev));
+            }
+          }
+          sdr::copy_async_wait();
+          __syncthreads();
+
+          // the partial of dW[n]'s tile: entry (oo, 4 j's) owned by one
+          // thread
+          for (int e = tid; e < ot * d4; e += nthr) {
+            const int oo = e / d4;
+            const int jg = e % d4;
+            float4 a = acc4[e];
+            for (int r = 0; r < rows; ++r) {
+              fma4(a, dh_s[r * p.dh_pitch + oo], u4[r * d4 + jg]);
+            }
+            acc4[e] = a;
+          }
+          if (j0 == 0) {
+            for (int oo = tid; oo < ot; oo += nthr) {
+              float s = db_s[oo];
+              for (int r = 0; r < rows; ++r) s += dh_s[r * p.dh_pitch + oo];
+              db_s[oo] = s;
+            }
+          }
+          // du, a warp per row: lanes along oi, then a warp sum per j
+          for (int r = warp; r < rows; r += nthr / 32) {
+            const float* dh = dh_s + r * p.dh_pitch;
+            float* du_r = du + ((size_t)(bt0 + r) * in_n + n) * in_d + j0;
+            for (int jg = 0; jg < d4; ++jg) {
+              float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+              for (int oo = lane; oo < ot; oo += 32) {
+                fma4(a, dh[oo], w4[oo * d4 + jg]);
+              }
+              a.x = sdr::warp_sum(a.x);
+              a.y = sdr::warp_sum(a.y);
+              a.z = sdr::warp_sum(a.z);
+              a.w = sdr::warp_sum(a.w);
+              const int j = jg * 4 + lane;
+              if (lane < 4 && j < jt) {
+                const float x =
+                    lane == 0 ? a.x : lane == 1 ? a.y : lane == 2 ? a.z : a.w;
+                du_r[j] = o0 == 0 ? x : du_r[j] + x;
+              }
+            }
           }
         }
-        sdr::copy_async_wait();
         __syncthreads();
 
-        // the partial of dW[n]'s tile: entry (oo, 4 j's) owned by one thread
-        for (int e = tid; e < ot * d4; e += nthr) {
-          const int oo = e / d4;
-          const int jg = e % d4;
-          float4 a = acc4[e];
-          for (int r = 0; r < rows; ++r) {
-            const float x = dh_s[r * p.dh_pitch + oo];
-            const float4 uu = u4[r * d4 + jg];
-            a.x = fmaf(x, uu.x, a.x);
-            a.y = fmaf(x, uu.y, a.y);
-            a.z = fmaf(x, uu.z, a.z);
-            a.w = fmaf(x, uu.w, a.w);
-          }
-          acc4[e] = a;
+        float* dw_k =
+            part + k * per_chunk + ((size_t)n * out_no + o0) * in_d + j0;
+        for (int e = tid; e < ot * jt; e += nthr) {
+          dw_k[(size_t)(e / jt) * in_d + e % jt] =
+              acc_s[(e / jt) * p.j_tile + e % jt];
         }
         if (j0 == 0) {
-          for (int oo = tid; oo < ot; oo += nthr) {
-            float s = db_s[oo];
-            for (int r = 0; r < rows; ++r) s += dh_s[r * p.dh_pitch + oo];
-            db_s[oo] = s;
-          }
-        }
-        // du, a warp per row: lanes along oi, then a warp sum per j
-        for (int r = warp; r < rows; r += nthr / 32) {
-          const float* dh = dh_s + r * p.dh_pitch;
-          float* du_r = du + ((size_t)(bt0 + r) * in_n + n) * in_d + j0;
-          for (int jg = 0; jg < d4; ++jg) {
-            float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-            for (int oo = lane; oo < ot; oo += 32) {
-              const float x = dh[oo];
-              const float4 ww = w4[oo * d4 + jg];
-              a.x = fmaf(x, ww.x, a.x);
-              a.y = fmaf(x, ww.y, a.y);
-              a.z = fmaf(x, ww.z, a.z);
-              a.w = fmaf(x, ww.w, a.w);
-            }
-            a.x = sdr::warp_sum(a.x);
-            a.y = sdr::warp_sum(a.y);
-            a.z = sdr::warp_sum(a.z);
-            a.w = sdr::warp_sum(a.w);
-            const int j = jg * 4 + lane;
-            if (lane < 4 && j < jt) {
-              const float x =
-                  lane == 0 ? a.x : lane == 1 ? a.y : lane == 2 ? a.z : a.w;
-              du_r[j] = o0 == 0 ? x : du_r[j] + x;
-            }
-          }
+          float* db_k = part + k * per_chunk + (size_t)in_n * out_no * in_d +
+                        (size_t)n * out_no + o0;
+          for (int oo = tid; oo < ot; oo += nthr) db_k[oo] = db_s[oo];
         }
       }
-      __syncthreads();
-
-      float* dw_k =
-          part + k * per_chunk + ((size_t)n * out_no + o0) * in_d + j0;
-      for (int e = tid; e < ot * jt; e += nthr) {
-        dw_k[(size_t)(e / jt) * in_d + e % jt] =
-            acc_s[(e / jt) * p.j_tile + e % jt];
-      }
-      if (j0 == 0) {
-        float* db_k = part + k * per_chunk + (size_t)in_n * out_no * in_d +
-                      (size_t)n * out_no + o0;
-        for (int oo = tid; oo < ot; oo += nthr) db_k[oo] = db_s[oo];
-      }
-    };
-    if (kTiles) {
-      for (int o0 = 0; o0 < out_no; o0 += p.o_tile) {
-        for (int j0 = 0; j0 < in_d; j0 += p.j_tile) {
-          tile(o0, min(p.o_tile, out_no - o0), j0, min(p.j_tile, in_d - j0));
-        }
-      }
-    } else {
-      tile(0, out_no, 0, in_d);
     }
   }
 }
 
-// The weight-gradient kernel's instance for a plan.
+// The weight-gradient kernel's instance for a plan, and its threads.
+inline int wgrad_threads(const Wgrad& p) {
+  return p.tiled ? sdr::kWgradThreads : sdr::kWgradGeneralThreads;
+}
+
 template <bool BF>
-inline auto wgrad_kernel(const Wgrad& p, int in_d, int out_no) {
-  return p.o_tile < out_no || p.j_tile < in_d
-             ? sdr_bwd_wgrad_kernel<BF, true>
-             : sdr_bwd_wgrad_kernel<BF, false>;
+inline auto wgrad_kernel(const Wgrad& p) {
+  if (!p.tiled) return sdr_bwd_wgrad_kernel_general<BF>;
+  switch (p.mt) {
+    case 1: return sdr_bwd_wgrad_kernel<BF, 1>;
+    case 2: return sdr_bwd_wgrad_kernel<BF, 2>;
+    case 3: return sdr_bwd_wgrad_kernel<BF, 3>;
+    default: return sdr_bwd_wgrad_kernel<BF, 4>;
+  }
 }
 
 // dW and db: the chunks' partials summed in chunk order.
@@ -431,13 +799,14 @@ sdr_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
   }
 }
 
+#ifndef SDR_HOST_SHIM
 // Weight-gradient blocks resident on the current device at once, or -1.
 template <bool BF>
-int wgrad_slots(int in_d, int out_no) {
+int wgrad_slots(int in_d, int out_n, int out_d) {
   Wgrad p;
-  sdr::plan_wgrad(1, 1, in_d, out_no, 0, &p);
-  const size_t smem = sdr::wgrad_smem_floats(p) * sizeof(float);
-  const auto kernel = wgrad_kernel<BF>(p, in_d, out_no);
+  sdr::plan_wgrad(1, 1, in_d, out_n, out_d, 0, &p);
+  const size_t smem = sdr::wgrad_smem_floats(p, out_n, out_d) * sizeof(float);
+  const auto kernel = wgrad_kernel<BF>(p);
   int device, sms, per_sm;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
@@ -446,7 +815,7 @@ int wgrad_slots(int in_d, int out_no) {
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kWgradThreads, smem) != cudaSuccess ||
+          &per_sm, kernel, wgrad_threads(p), smem) != cudaSuccess ||
       per_sm < 1) {
     return -1;
   }
@@ -462,10 +831,21 @@ bool plan_call(int batch, int seq_len, int in_n, int in_d, int out_n,
       !sdr::plan_bwd(in_n, in_d, out_n, out_d, sp, BF ? 2 : 4)) {
     return false;
   }
-  *slots = wgrad_slots<BF>(in_d, sp->g.out_no);
+  *slots = wgrad_slots<BF>(in_d, out_n, out_d);
   if (*slots < 1) return false;
-  sdr::plan_wgrad(batch * seq_len, in_n, in_d, sp->g.out_no, *slots, p);
+  sdr::plan_wgrad(batch * seq_len, in_n, in_d, out_n, out_d, *slots, p);
   return true;
+}
+
+// Whether the tiled path's copies may read these: it bulk-copies rows of
+// vs and ds, and where in_d is a multiple of 4 (float32) copies u and W in
+// 16 bytes.
+template <bool BF>
+bool wgrad_aligned(const Wgrad& p, int in_d, const void* u, const void* w,
+                   const float* vs, const float* dsfac) {
+  const auto at16 = [](const void* x) { return (uintptr_t)x % 16 == 0; };
+  return !p.tiled || (at16(vs) && at16(dsfac) &&
+                      (BF || in_d % 4 != 0 || (at16(u) && at16(w))));
 }
 
 template <bool BF>
@@ -486,6 +866,9 @@ int launch(const sdr::uhat_t<BF>* u, const sdr::uhat_t<BF>* w,
   const RowGeom& g = sp.g;
   const int rows_total = batch * seq_len;
   const Scratch at = scratch_layout(batch, seq_len, in_n, in_d, sp, p);
+  if (!wgrad_aligned<BF>(p, in_d, u, w, vs, scratch + at.ds)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
 
   cudaError_t err = sdr::launch_predict(u, w, bias, uhat, rows_total, in_n,
@@ -505,14 +888,15 @@ int launch(const sdr::uhat_t<BF>* u, const sdr::uhat_t<BF>* w,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t wgrad_smem = sdr::wgrad_smem_floats(p) * sizeof(float);
-  const auto wgrad = wgrad_kernel<BF>(p, in_d, g.out_no);
+  const size_t wgrad_smem =
+      sdr::wgrad_smem_floats(p, out_n, out_d) * sizeof(float);
+  const auto wgrad = wgrad_kernel<BF>(p);
   err = cudaFuncSetAttribute(wgrad,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)wgrad_smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = in_n * p.chunks < slots ? in_n * p.chunks : slots;
-  wgrad<<<blocks, kWgradThreads, wgrad_smem, s>>>(
+  wgrad<<<blocks, wgrad_threads(p), wgrad_smem, s>>>(
       u, w, vs, scratch + at.c, scratch + at.da, scratch + at.ds, du,
       scratch + at.part, rows_total, seq_len, in_n, in_d, out_n, out_d, p);
   err = cudaGetLastError();
@@ -533,9 +917,9 @@ bool plan_wgrad_call(int batch, int seq_len, int in_n, int in_d, int out_n,
       out_d < 1) {
     return false;
   }
-  *slots = wgrad_slots<BF>(in_d, out_n * out_d);
+  *slots = wgrad_slots<BF>(in_d, out_n, out_d);
   if (*slots < 1) return false;
-  sdr::plan_wgrad(batch * seq_len, in_n, in_d, out_n * out_d, *slots, p);
+  sdr::plan_wgrad(batch * seq_len, in_n, in_d, out_n, out_d, *slots, p);
   return true;
 }
 
@@ -564,18 +948,19 @@ int launch_wgrad(const sdr::uhat_t<BF>* u, const sdr::uhat_t<BF>* w,
   Wgrad p;
   int slots;
   if (!plan_wgrad_call<BF>(batch, seq_len, in_n, in_d, out_n, out_d, &p,
-                           &slots)) {
+                           &slots) ||
+      !wgrad_aligned<BF>(p, in_d, u, w, vs, dsfac)) {
     return (int)cudaErrorInvalidValue;
   }
   const int out_no = out_n * out_d;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = sdr::wgrad_smem_floats(p) * sizeof(float);
-  const auto wgrad = wgrad_kernel<BF>(p, in_d, out_no);
+  const size_t smem = sdr::wgrad_smem_floats(p, out_n, out_d) * sizeof(float);
+  const auto wgrad = wgrad_kernel<BF>(p);
   cudaError_t err = cudaFuncSetAttribute(
       wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = in_n * p.chunks < slots ? in_n * p.chunks : slots;
-  wgrad<<<blocks, kWgradThreads, smem, s>>>(
+  wgrad<<<blocks, wgrad_threads(p), smem, s>>>(
       u, w, vs, cfac, dafac, dsfac, du, part, batch * seq_len, seq_len,
       in_n, in_d, out_n, out_d, p);
   err = cudaGetLastError();
@@ -586,8 +971,11 @@ int launch_wgrad(const sdr::uhat_t<BF>* u, const sdr::uhat_t<BF>* w,
   return (int)cudaGetLastError();
 }
 
+#endif  // SDR_HOST_SHIM
+
 }  // namespace
 
+#ifndef SDR_HOST_SHIM
 extern "C" {
 
 // Bytes of dynamic shared memory the step kernel needs for this geometry,
@@ -709,8 +1097,17 @@ int sdr_bwd_wgrad_bf16(const void* u, const void* w, const float* vs,
                             in_n, in_d, out_n, out_d, stream);
 }
 
+// 1 if the weight gradient takes its tiled path for this geometry (W[n]
+// whole, dW in registers: plan_wgrad), 0 if its general path.
+int sdr_bwd_wgrad_tiled(int in_d, int out_n, int out_d) {
+  Wgrad p;
+  sdr::plan_wgrad(1, 1, in_d, out_n, out_d, 0, &p);
+  return p.tiled;
+}
+
 const char* sdr_bwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"
+#endif  // SDR_HOST_SHIM

@@ -46,10 +46,6 @@ constexpr int kMinStages = 3;                   // ring slots to aim for
 constexpr int kPredictThreads = 256;
 constexpr int kPredictRows = 64;  // u rows staged at once, at most
 constexpr int kPredictRowsPerBlock = 128;
-constexpr int kWgradMaxRows = 16;  // du_hat rows rebuilt at once, at most
-// weight-gradient work items (an in-capsule and a chunk of B*T rows) per
-// resident block: the last round of items leaves at most 1/8 idle
-constexpr int kItemsPerSlot = 8;
 
 SDR_HOST_DEVICE inline int row_pitch(int out_no) {
   return (out_no + 3) / 4 * 4;
@@ -270,33 +266,154 @@ inline int bwd_smem_bytes(int in_n, int in_d, int out_n, int out_d,
              : -1;
 }
 
-// K2's weight-gradient kernel: W[n] and the partial of dW[n] in tiles of
-// o_tile out entries by j_tile in entries (a multiple of 4), du_hat rebuilt
-// `rows` rows at a time, over `chunks` chunks of rows_per_chunk B*T rows.
+// K2's weight-gradient kernel (sdr_bwd.cu). Its tiled path, taken where
+// W[n] fits whole beside a tile of rows and out_no is a multiple of 4
+// (every recipe's geometry): one block of kWgradThreads an SM holds W[n]
+// as [out entries][j4] float4s (in entries padded to a multiple of 4 with
+// zeros), rebuilds du_hat `rows` rows at a time into shared memory
+// ([rows][dh_pitch], each of `build_rows` thread groups a row in turn, a
+// thread an out quad of it and db's sum over those rows) from the tile's
+// factors, which were staged into shared memory while the tile before it
+// computed; then half the threads form the dW[n] partial, each a register
+// tile of mt out quads (strided by `ogroups` quads) by one quad of in
+// entries, over the rows r = rs, rs + row_split, ..., while the other half
+// form du = du_hat W[n], a product split over `ksplit` slices of the out
+// quads, each thread a register tile of kWgradDuRows rows by one quad of in
+// entries, the slices' partials summed in slice order in shared memory
+// (over du_hat, whose reads are done). The general path (for a W[n] that
+// does not fit) takes W[n] in tiles of o_tile out entries by j_tile in
+// entries and du_hat `rows` rows at a time, kWgradGeneralThreads a block.
+// Both take `chunks` chunks of rows_per_chunk B*T rows, one work item (n,
+// chunk) at a time.
+constexpr int kWgradThreads = 512;         // 16 warps, one block an SM
+// of which the first half forms dW and the second du (each role keeps its
+// own register tile)
+constexpr int kWgradRoleThreads = kWgradThreads / 2;
+constexpr int kWgradGeneralThreads = 256;
+constexpr int kWgradMaxMt = 4;      // dW out quads a thread, at most
+constexpr int kWgradDuRows = 4;     // du rows a thread
+constexpr int kWgradMaxTileRows = 64;
+constexpr int kWgradMaxRows = 16;   // the general path's du_hat rows, at most
+// weight-gradient work items (an in-capsule and a chunk of B*T rows) per
+// resident block: the last round of items leaves at most 1/8 idle
+constexpr int kItemsPerSlot = 8;
+
 struct Wgrad {
+  int tiled;     // 1: the tiled path, 0: the general path
+  int rows;      // du_hat rows a tile
+  int dh_pitch;  // floats a du_hat row in shared memory
+  // the tiled path
+  int j4;          // quads of in entries
+  int mt;          // dW out quads a thread
+  int ogroups;     // threads along the out quads (mt * ogroups >= quads)
+  int row_split;   // dW's thread groups over rows
+  int build_rows;  // the rebuild's thread groups over rows
+  int ksplit;      // du's slices of the out quads
+  // the general path
   int o_tile, j_tile;
-  int dh_pitch;  // a du_hat row in shared memory: o_tile, made odd
-  int rows;
   int chunks, rows_per_chunk;
 };
 
-inline size_t wgrad_smem_floats(const Wgrad& p) {
+// Out quads of the tiled path's rows of du_hat (those past out_no zero).
+SDR_HOST_DEVICE inline int wgrad_quads(const Wgrad& p) {
+  return p.mt * p.ogroups;
+}
+
+// The tiled path's region of du_hat, in floats; after a tile's products
+// it holds du's slice partials, and at an item's end the partials of dW's
+// row groups and of db's rebuild groups after the first.
+SDR_HOST_DEVICE inline size_t wgrad_dh_floats(const Wgrad& p) {
+  const size_t dh = (size_t)p.rows * p.dh_pitch;
+  const size_t du = (size_t)p.ksplit * p.rows * p.j4 * 4;
+  const size_t ends =
+      (size_t)(p.row_split - 1) * p.ogroups * p.j4 * p.mt * 16 +
+      (size_t)(p.build_rows - 1) * wgrad_quads(p) * 4;
+  const size_t most = dh > du ? dh : du;
+  return most > ends ? most : ends;
+}
+
+// The tiled path's staged c (or da) rows, in floats.
+SDR_HOST_DEVICE inline size_t wgrad_stage_cd_floats(const Wgrad& p,
+                                                    int out_n) {
+  return ((size_t)p.rows * out_n + 3) / 4 * 4;
+}
+
+// The general path's shared memory in floats: W[n]'s tile and its dW
+// partial, db's, the rows of u and of du_hat.
+inline size_t wgrad_general_floats(const Wgrad& p) {
   return 2 * (size_t)p.o_tile * p.j_tile + row_pitch(p.o_tile) +
          (size_t)p.rows * (p.j_tile + p.dh_pitch);
 }
 
-// All of W[n] and kWgradMaxRows rows where they fit (every recipe's
-// geometry); else fewer rows (down to 4), then fewer out entries (down to
-// 32), then fewer in entries. `slots`: the blocks the card holds at once
-// (0: one chunk).
-inline void plan_wgrad(int rows_total, int in_n, int in_d, int out_no,
-                       int slots, Wgrad* p) {
+// A plan's shared memory in floats; the tiled path's, in order: the staged
+// factors' mbarrier (4 floats), W[n], the du_hat region, the staged ds and
+// v_{t-1} rows, the staged c and da rows, and two buffers of u rows.
+inline size_t wgrad_smem_floats(const Wgrad& p, int out_n, int out_d) {
+  const int out_no = out_n * out_d;
+  if (!p.tiled) return wgrad_general_floats(p);
+  return 4 + (size_t)out_no * p.j4 * 4 + wgrad_dh_floats(p) +
+         2 * (size_t)p.rows * out_no + 2 * wgrad_stage_cd_floats(p, out_n) +
+         2 * (size_t)p.rows * p.j4 * 4;
+}
+
+// The tiled path's thread layout for `rows` rows a tile. dW's (mt,
+// row_split): of those that keep at least 9/10 of the most threads busy,
+// the one with the fewest row groups' partials to add at an item's end
+// ((row_split - 1) * mt). False if none has at most kWgradMaxMt out quads
+// a thread, or the geometry is not the tiled path's.
+inline bool wgrad_tiled_layout(int in_d, int out_no, int rows, Wgrad* p) {
+  if (out_no % 4 != 0) return false;
+  const int out_q = out_no / 4;
+  p->j4 = (in_d + 3) / 4;
+  int busy[kWgradMaxMt + 1] = {0}, split[kWgradMaxMt + 1] = {0};
+  int most = 0;
+  for (int mt = 1; mt <= kWgradMaxMt; ++mt) {
+    const int groups = (out_q + mt - 1) / mt * p->j4;
+    split[mt] = kWgradRoleThreads / groups < rows
+                    ? kWgradRoleThreads / groups
+                    : rows;
+    busy[mt] = split[mt] * groups;
+    if (busy[mt] > most) most = busy[mt];
+  }
+  int cost = -1;
+  for (int mt = 1; mt <= kWgradMaxMt; ++mt) {
+    if (most == 0 || 10 * busy[mt] < 9 * most) continue;
+    if (cost < 0 || (split[mt] - 1) * mt < cost) {
+      cost = (split[mt] - 1) * mt;
+      p->mt = mt;
+      p->ogroups = (out_q + mt - 1) / mt;
+      p->row_split = split[mt];
+    }
+  }
+  const int du_groups = rows / kWgradDuRows * p->j4;
+  if (most == 0 || du_groups > kWgradRoleThreads ||
+      wgrad_quads(*p) > kWgradThreads) {
+    return false;
+  }
+  p->tiled = 1;
+  p->rows = rows;
+  p->build_rows = kWgradThreads / wgrad_quads(*p);
+  if (p->build_rows > rows) p->build_rows = rows;
+  p->ksplit = kWgradRoleThreads / du_groups;
+  if (p->ksplit > out_q) p->ksplit = out_q;
+  // rows kept 4 floats apart modulo 8: a row's quad and the next rows' fall
+  // in other banks, for float4 reads across rows
+  p->dh_pitch = wgrad_quads(*p) * 4;
+  if (p->dh_pitch % 8 == 0) p->dh_pitch += 4;
+  return true;
+}
+
+// The general path's tiles: all of W[n] and kWgradMaxRows rows where they
+// fit; else fewer rows (down to 4), then fewer out entries (down to 32),
+// then fewer in entries.
+inline void wgrad_general_tiles(int in_d, int out_no, Wgrad* p) {
+  p->tiled = 0;
   p->o_tile = out_no;
   p->j_tile = (in_d + 3) / 4 * 4;
   p->rows = kWgradMaxRows;
   for (;;) {
     p->dh_pitch = p->o_tile % 2 ? p->o_tile : p->o_tile + 1;
-    if (wgrad_smem_floats(*p) <= kMaxSmemFloats) break;
+    if (wgrad_general_floats(*p) <= kMaxSmemFloats) break;
     if (p->rows > 4) {
       p->rows /= 2;
     } else if (p->o_tile > 32) {
@@ -305,6 +422,22 @@ inline void plan_wgrad(int rows_total, int in_n, int in_d, int out_no,
       p->j_tile = (p->j_tile / 2 + 3) / 4 * 4;
     }
   }
+}
+
+// The plan: the tiled path with the most rows a tile (a multiple of
+// kWgradDuRows, at most kWgradMaxTileRows) whose shared memory fits, else
+// the general path. `slots`: the blocks the card holds at once (0: one
+// chunk).
+inline void plan_wgrad(int rows_total, int in_n, int in_d, int out_n,
+                       int out_d, int slots, Wgrad* p) {
+  *p = Wgrad{};
+  bool found = false;
+  for (int rows = kWgradMaxTileRows; rows >= kWgradDuRows && !found;
+       rows -= kWgradDuRows) {
+    found = wgrad_tiled_layout(in_d, out_n * out_d, rows, p) &&
+            wgrad_smem_floats(*p, out_n, out_d) <= kMaxSmemFloats;
+  }
+  if (!found) wgrad_general_tiles(in_d, out_n * out_d, p);
   int chunks = (kItemsPerSlot * slots + in_n - 1) / in_n;
   if (chunks < 1) chunks = 1;
   if (chunks > rows_total) chunks = rows_total;

@@ -193,6 +193,14 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
                : "memory");
 }
 
+// The same, 16 bytes (both addresses 16-byte aligned).
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }

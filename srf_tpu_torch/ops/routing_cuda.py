@@ -52,7 +52,9 @@ and ``sequential_routing_tp_bwd_bf16``; K1-tp with an initial carry and a
 step mask, K1-tp-stream, computes ``sequential_routing_tp(..., v_init,
 step_valid)``, streaming on a shard (:func:`sequential_routing_tp_stream`).
 Every wrapper counts its launches by variant (``launches``,
-``launches_bf16``, ``launches_stream``).
+``launches_bf16``, ``launches_stream``); :data:`wgrad_launches` counts
+the weight-gradient launches of K2 and K2-tp (every variant) by the path
+their plan took: "tiled" (W[n] whole, dW in registers) or "general".
 """
 
 import atexit
@@ -78,6 +80,10 @@ _LAUNCH_ARGTYPES = {
 }
 
 
+# K2's and K2-tp's weight-gradient launches by plan path
+wgrad_launches = {"tiled": 0, "general": 0}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(name):
     lib = ctypes.CDLL(cuda_build.build([name])[name])
@@ -98,10 +104,26 @@ def _lib(name):
         fn = getattr(lib, name + "_plan")
         fn.argtypes = [ctypes.c_int] * _PLAN_ARGS[name] + [_VOID_P]
         fn.restype = ctypes.c_int
+    if name == "sdr_bwd":
+        lib.sdr_bwd_wgrad_tiled.argtypes = [ctypes.c_int] * 3
+        lib.sdr_bwd_wgrad_tiled.restype = ctypes.c_int
     error_string = getattr(lib, name + "_error_string")
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_path(in_d, out_n, out_d):
+    """"tiled" or "general": the weight-gradient plan's path for a
+    geometry (``csrc/sdr_plan.cuh`` ``plan_wgrad``)."""
+    tiled = _lib("sdr_bwd").sdr_bwd_wgrad_tiled(in_d, out_n, out_d)
+    return "tiled" if tiled else "general"
+
+
+def _count_wgrad(wgt):
+    """One weight-gradient launch more on W's plan path."""
+    wgrad_launches[_wgrad_path(wgt.shape[3], wgt.shape[1], wgt.shape[2])] += 1
 
 
 def _check_inputs(fn_name, u, tensors, dtype=torch.float32):
@@ -259,7 +281,8 @@ def sequential_routing_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule):
     the kernels do not take; never
     falls back to the plain version. ``sequential_routing_bwd_cuda.launches``
     counts its kernel launches: four per call, the prediction, the
-    reverse-time recurrence, the weight gradient and its reduction.
+    reverse-time recurrence, the weight gradient and its reduction
+    (:data:`wgrad_launches` the weight gradient's by plan path).
 
     Given bf16 u, wgt and bias (vs and dvs float32: the bf16 variant's
     output and its cotangent), K2's bf16 variant computes
@@ -306,6 +329,7 @@ def sequential_routing_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule):
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(lib, "sdr_bwd", err)
+    _count_wgrad(wgt)
     if variant:
         sequential_routing_bwd_cuda.launches_bf16 += 4
         return tuple(x.to(torch.bfloat16) for x in (du, dwgt, dbias))
@@ -1326,6 +1350,7 @@ def _weight_grads(bwd, u, wgt, vs, cfac, dafac, dsfac, stream):
         dafac.data_ptr(), dsfac.data_ptr(), part.data_ptr(), du.data_ptr(),
         dwgt.data_ptr(), dbias.data_ptr(), batch, seq_len, in_n, in_d, out_n,
         out_d, stream))
+    _count_wgrad(wgt)
     return du, dwgt, dbias
 
 

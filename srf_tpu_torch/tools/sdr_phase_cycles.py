@@ -2,6 +2,7 @@
 
     python3 -m srf_tpu_torch.tools.sdr_phase_cycles   # from a checkout
     python3 -m srf_tpu_torch.tools.sdr_phase_cycles sdr_scan_fwd_kernel
+    python3 -m srf_tpu_torch.tools.sdr_phase_cycles --wsj sdr_bwd_wgrad_kernel
 
 Builds an instrumented copy of each SDR kernel (``csrc/sdr_fwd.cu``'s and
 ``sdr_bwd.cu``'s recurrence kernels, ``sdr_bwd.cu``'s weight-gradient
@@ -22,13 +23,14 @@ line and kind, and each kernel's sums are also given by kind. The copies
 go to ``srf_tpu_torch/_build/phases/`` and are built with the port's nvcc
 flags (the copies first on the include path, then ``csrc``); the port's
 own libraries are not touched. Runs each kernel once at the SRF-TIMIT
-serving shape (B=29, T'=64) at its three capsule-layer
-geometries and prints, per kernel and geometry, the event time of the
+serving shape (B=29, T'=64) at its three capsule-layer geometries (with
+``--wsj``: SRF-WSJ's layer geometries at a training bucket's shape, B=24,
+T'=248) and prints, per kernel and geometry, the event time of the
 instrumented call and block 0's kcycles per step by site (per call for the
-weight-gradient kernel, whose block 0 takes every 1/grid-th work item
-while other blocks share its SM). One card; a site's clock read and global
-add cost tens of cycles. ``ncu`` would say
-more, but does not run on every machine.
+weight-gradient kernel, whose block 0 takes every 1/grid-th work item).
+One card; a site's clock read and global add cost tens of cycles, and
+their global reads' latency falls in the phase after the site. ``ncu``
+would say more, but does not run on every machine.
 """
 
 import ctypes
@@ -54,10 +56,15 @@ CLUSTER_HEADER = "sdr_cluster.cuh"
 CLUSTER_HELPERS = ("ring_rows",)
 KINDS = ("block", "work", "cluster_wait", "ring_wait")
 MAX_SITES = 40
-# (in_n, out_n, out_d, in_d), PAD mask: the three SRF-TIMIT layers
-GEOMETRIES = (((180, 30, 8, 8), False), ((90, 30, 8, 8), False),
-              ((90, 63, 8, 8), True))
-BATCH, SEQ_LEN = 29, 64
+# (in_n, out_n, out_d, in_d), PAD mask, B, T': the three SRF-TIMIT layers
+# at the serving shape; with --wsj, SRF-WSJ's layers 0, 1-8 and 9 at the
+# 24 x 991 bucket (T' 248)
+GEOMETRIES = (((180, 30, 8, 8), False, 29, 64),
+              ((90, 30, 8, 8), False, 29, 64),
+              ((90, 63, 8, 8), True, 29, 64))
+WSJ_GEOMETRIES = (((300, 30, 20, 20), False, 24, 248),
+                  ((150, 30, 20, 20), False, 24, 248),
+                  ((150, 32, 20, 20), True, 24, 248))
 BARRIER = re.compile(r"(?:__syncthreads|(?:sdr::)?sync_compute)\(\);")
 WAIT = re.compile(r"(?:sdr::)?mbar_wait\([^;]*\);")
 CLUSTER_WAIT = re.compile(r"(?:sdr::)?cluster_wait\(\);")
@@ -173,7 +180,8 @@ def build(name, kernel):
 
 
 def main(argv=()):
-    """Every kernel of KERNELS, or those whose kernel names ``argv`` lists."""
+    """Every kernel of KERNELS, or those whose kernel names ``argv`` lists;
+    at WSJ_GEOMETRIES where ``argv`` holds "--wsj"."""
     import torch
 
     if not torch.cuda.is_available():
@@ -188,22 +196,24 @@ def main(argv=()):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print("card: %s" % card)
+    names = [arg for arg in argv if arg != "--wsj"]
+    geometries = WSJ_GEOMETRIES if "--wsj" in argv else GEOMETRIES
     kernels = [(name, kernel) for name, kernel in KERNELS
-               if not argv or kernel in argv]
+               if not names or kernel in names]
     built = {kernel: build(name, kernel) for name, kernel in kernels}
     real_build = cuda_build.build
     rng = np.random.RandomState(0)
-    for geometry, mask in GEOMETRIES:
+    for geometry, mask, batch, seq_len in geometries:
         in_n, out_n, out_d, in_d = geometry
 
         def rand(*shape, scale=1.0):
             return torch.tensor(rng.randn(*shape) * scale,
                                 dtype=torch.float32, device=device)
 
-        u = rand(BATCH, SEQ_LEN, in_n, in_d)
+        u = rand(batch, seq_len, in_n, in_d)
         w = rand(in_n, out_n, out_d, in_d, scale=0.1)
         b = rand(in_n, out_n, out_d, scale=0.1)
-        dvs = rand(BATCH, SEQ_LEN, out_n, out_d)
+        dvs = rand(batch, seq_len, out_n, out_d)
         vs = routing_cuda.sequential_routing_cuda(u, w, b, 1, mask)
         calls = {
             "sdr_fwd": lambda: routing_cuda.sequential_routing_cuda(
@@ -239,7 +249,7 @@ def main(argv=()):
                 raise RuntimeError("phase_read failed: %d" % err)
             sites = built[kernel][1]
             per = "call" if kernel in PER_CALL else "step"
-            steps = 1 if kernel in PER_CALL else SEQ_LEN
+            steps = 1 if kernel in PER_CALL else seq_len
             per_step = [sums[i] / steps / 1e3 for i in range(len(sites))]
             by_kind = dict.fromkeys(KINDS, 0.0)
             for (_, _, kind), cyc in zip(sites, per_step):
@@ -247,7 +257,7 @@ def main(argv=()):
             print("%s %s B=%d T=%d: %.3f ms (instrumented call); block 0 "
                   "%.1f kcycles per %s; by kind (kcycles/%s): %s; by site "
                   "(file:line:kind:kcycles/%s): %s [%s]"
-                  % (kernel, geometry, BATCH, SEQ_LEN,
+                  % (kernel, geometry, batch, seq_len,
                      start.elapsed_time(end), sum(per_step), per, per,
                      " ".join("%s %.1f" % kv for kv in by_kind.items()), per,
                      " ".join(

@@ -1,6 +1,8 @@
 // Host C++ stand-ins for what srf_tpu_torch/csrc/sdr_tp.cu takes from CUDA
 // (and, through it, sdr_stream.cuh's ring and warp passes), so that its
-// kernels build with g++ and run on the CPU (tests/test_torch_sdr_tp.py):
+// kernels build with g++ and run on the CPU (tests/test_torch_sdr_tp.py);
+// sdr_bwd.cu's kernels build with it too (tests/test_torch_sdr_wgrad_host.py:
+// its asynchronous copies are copies, `__ldg` a read):
 //
 //   g++ -std=c++20 -shared -fPIC -pthread -x c++ -DSDR_TP_HOST
 //       -include tests/_sdr_tp_host.h srf_tpu_torch/csrc/sdr_tp.cu
@@ -239,7 +241,17 @@ inline void bulk_load(void* dst, const void* src, uint32_t bytes,
   bulk_copy(dst, src, bytes, bar);
 }
 inline void sync_compute() { sdr_tp_host::block->compute.arrive_and_wait(); }
+inline void copy_async(float* dst, const float* src) { *dst = *src; }
+inline void copy_async16(void* dst, const void* src) {
+  std::memcpy(dst, src, 16);
+}
+inline void copy_async_wait() {}
 }  // namespace sdr
+
+template <typename T>
+inline T __ldg(const T* p) {
+  return *p;
+}
 
 // sdr_tp.cu's exchange primitives
 inline unsigned long long load_acquire(const unsigned long long* p) {
@@ -272,6 +284,8 @@ inline void fence_system() {
 inline void backoff() { std::this_thread::yield(); }
 inline float2 load_peer(const float2* p) { return *p; }
 
+#define SDR_BWD_SMEM(name) \
+  float4* name = sdr_tp_host::block->smem.data()
 #define SDR_TP_SMEM(name) \
   float* name = reinterpret_cast<float*>(sdr_tp_host::block->smem.data())
 #define SDR_TP_LAUNCH(kernel, grid, block, smem, stream, ...) \

@@ -156,8 +156,12 @@ def test_weight_gradient_from_factors_equals_the_du_hat_form():
 # The kernels' launch plans (csrc/sdr_plan.cuh: host C++ without CUDA's
 # headers), built with the host's C++ compiler. fwd/bwd: the recurrence
 # kernels' shared memory for (in_n, in_d, out_n, out_d), or -1;
-# predict/wgrad: the tiles of W[n] the prediction and weight-gradient
-# kernels take for (in_d, out_no), or -1 if their shared memory overflows.
+# predict: the tiles of W[n] the prediction kernel takes for (in_d,
+# out_no), or -1 if its shared memory overflows; wgrad: the same for the
+# weight gradient at (in_d, out_n, out_d) (1 on its tiled path, which holds
+# W[n] whole); wgrad_bytes: the weight gradient's shared memory for (in_n,
+# in_d, out_n, out_d); wgrad_tiled: 1 where it takes the tiled path;
+# wgrad_threads: its block's threads.
 _PLAN_SOURCE = r'''
 #include "sdr_plan.cuh"
 extern "C" int fwd(int a, int b, int c, int d) {
@@ -172,12 +176,31 @@ extern "C" int predict(int in_d, int out_no) {
   return (out_no + p.o_tile - 1) / p.o_tile *
          ((in_d + p.j_tile - 1) / p.j_tile);
 }
-extern "C" int wgrad(int in_d, int out_no) {
+static sdr::Wgrad wgrad_plan(int in_d, int out_n, int out_d) {
   sdr::Wgrad p;
-  sdr::plan_wgrad(1, 1, in_d, out_no, 0, &p);
-  if (sdr::wgrad_smem_floats(p) * 4 > sdr::kMaxSmemBytes) return -1;
+  sdr::plan_wgrad(1, 1, in_d, out_n, out_d, 0, &p);
+  return p;
+}
+extern "C" int wgrad_bytes(int in_n, int in_d, int out_n, int out_d) {
+  (void)in_n;
+  const sdr::Wgrad p = wgrad_plan(in_d, out_n, out_d);
+  const size_t bytes = sdr::wgrad_smem_floats(p, out_n, out_d) * 4;
+  return bytes > sdr::kMaxSmemBytes ? -1 : (int)bytes;
+}
+extern "C" int wgrad(int in_d, int out_n, int out_d) {
+  const sdr::Wgrad p = wgrad_plan(in_d, out_n, out_d);
+  if (wgrad_bytes(1, in_d, out_n, out_d) < 0) return -1;
+  if (p.tiled) return 1;
+  const int out_no = out_n * out_d;
   return (out_no + p.o_tile - 1) / p.o_tile *
          ((in_d + p.j_tile - 1) / p.j_tile);
+}
+extern "C" int wgrad_tiled(int in_d, int out_n, int out_d) {
+  return wgrad_plan(in_d, out_n, out_d).tiled;
+}
+extern "C" int wgrad_threads(int in_d, int out_n, int out_d) {
+  return wgrad_plan(in_d, out_n, out_d).tiled ? sdr::kWgradThreads
+                                              : sdr::kWgradGeneralThreads;
 }
 '''
 _SMEM_FLOATS = 232448 // 4
@@ -185,6 +208,15 @@ _SMEM_FLOATS = 232448 // 4
 # three, the WSJ recipe's layer 0
 _RECIPE_GEOMETRIES = ((180, 8, 30, 8), (90, 8, 30, 8), (90, 8, 63, 8),
                       (300, 20, 30, 20))
+# every routing layer of the recipes (SRF-TIMIT's three, SRF-WSJ's layer 0,
+# layers 1-8 and the class layer), and the shards K2-tp takes of them on a
+# `model` axis of 2 or 3 ranks (out_n / R, where R divides out_n)
+_RECIPE_LAYERS = _RECIPE_GEOMETRIES + ((150, 20, 30, 20), (150, 20, 32, 20))
+_TP_SHARDS = tuple(sorted({(in_n, in_d, out_n // ranks, out_d)
+                           for in_n, in_d, out_n, out_d in _RECIPE_LAYERS
+                           for ranks in (2, 3) if out_n % ranks == 0}))
+# the SM's shared memory and what the card keeps of it a block (H100)
+_SM_SMEM, _BLOCK_RESERVED = 233472, 1024
 
 
 @pytest.fixture(scope="module")
@@ -198,7 +230,8 @@ def plans(tmp_path_factory):
                     cuda_build.CSRC, "-o", str(out / "plan.so"),
                     str(out / "plan.cpp")], check=True)
     lib = ctypes.CDLL(str(out / "plan.so"))
-    for fn in (lib.fwd, lib.bwd, lib.predict, lib.wgrad):
+    for fn in (lib.fwd, lib.bwd, lib.predict, lib.wgrad, lib.wgrad_bytes,
+               lib.wgrad_tiled, lib.wgrad_threads):
         fn.restype = ctypes.c_int
     return lib
 
@@ -219,11 +252,12 @@ def _tiled_kernels_fit(in_n, in_d, out_n, out_d, backward):
     return fits
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+@pytest.mark.parametrize("kernel", ["fwd", "bwd", "wgrad_bytes"])
 def test_every_geometry_the_tiled_kernels_took_still_fits(plans, kernel):
-    """K1 and K2 take every capsule geometry the kernels before them took
-    (log-uniform draws of each dim in 1..2^15, and edge cases), with
-    shared memory inside the card's 227 KB."""
+    """K1's and K2's recurrence kernels and K2's weight gradient take every
+    capsule geometry the kernels before them took (log-uniform draws of
+    each dim in 1..2^15, and edge cases), with shared memory inside the
+    card's 227 KB."""
     fn = getattr(plans, kernel)
     rng = np.random.RandomState(7)
     draws = np.exp(rng.uniform(0, np.log(2 ** 15), size=(20000, 4)))
@@ -231,7 +265,7 @@ def test_every_geometry_the_tiled_kernels_took_still_fits(plans, kernel):
     cases += [(10, 64, 32, 32), (1, 30000, 2, 2), (2, 6000, 2, 2),
               (3, 16, 500, 10), (1, 1, 14000, 1), (20000, 1, 1, 1),
               (1, 1, 1, 14000), *_RECIPE_GEOMETRIES]
-    took = [g for g in cases if _tiled_kernels_fit(*g, kernel == "bwd")]
+    took = [g for g in cases if _tiled_kernels_fit(*g, kernel != "fwd")]
     assert len(took) > 2000
     refused = [g for g in took if not 0 < fn(*g) <= 232448]
     assert not refused, refused[:10]
@@ -244,13 +278,26 @@ def test_prediction_and_weight_gradient_tile_w_only_where_it_must(plans):
     in tiles."""
     for in_n, in_d, out_n, out_d in _RECIPE_GEOMETRIES:
         assert plans.predict(in_d, out_n * out_d) == 1
-        assert plans.wgrad(in_d, out_n * out_d) == 1
-    assert plans.predict(64, 1024) == 2 and plans.wgrad(64, 1024) == 4
+        assert plans.wgrad(in_d, out_n, out_d) == 1
+    assert plans.predict(64, 1024) == 2 and plans.wgrad(64, 1024, 1) == 4
     rng = np.random.RandomState(8)
     for in_d, out_no in np.exp(rng.uniform(0, np.log(_SMEM_FLOATS),
                                            size=(5000, 2))).astype(int):
         assert plans.predict(int(in_d), int(out_no)) >= 1
-        assert plans.wgrad(int(in_d), int(out_no)) >= 1
+        assert plans.wgrad(int(in_d), int(out_no), 1) >= 1
+
+
+@pytest.mark.parametrize("geometry", _RECIPE_LAYERS + _TP_SHARDS)
+def test_every_recipe_layer_takes_the_tiled_weight_gradient(plans, geometry):
+    """Every routing layer of the recipes, and every K2-tp shard of one,
+    takes the weight gradient's tiled path (W[n] whole, dW in registers),
+    within the card's 227 KB, with at least 16 warps resident an SM."""
+    in_n, in_d, out_n, out_d = geometry
+    assert plans.wgrad_tiled(in_d, out_n, out_d) == 1
+    smem = plans.wgrad_bytes(in_n, in_d, out_n, out_d)
+    assert 0 < smem <= 232448
+    blocks = _SM_SMEM // (smem + _BLOCK_RESERVED)
+    assert plans.wgrad_threads(in_d, out_n, out_d) // 32 * blocks >= 16
 
 
 def test_build_path_follows_the_included_headers(tmp_path, monkeypatch):
