@@ -40,14 +40,14 @@ if __package__ in (None, ""):
 
 from benchmark import faults, harness, training  # noqa: E402
 from benchmark import weights as weights_mod  # noqa: E402
-from benchmark.reference import srf as reference  # noqa: E402
+from benchmark.reference import common  # noqa: E402
 from benchmark.traffic import serve_open  # noqa: E402
 
 
 def checked_steps(ctx):
     """The host batches of the first three updates."""
     batches = training.host_batches(
-        training.make_pools(ctx.traffic, ctx.model, ctx.seed),
+        training.make_pools(ctx.traffic, ctx.family, ctx.model, ctx.seed),
         training.schedule(ctx.traffic, ctx.seed))
     return [next(batches) for _ in range(training.CHECKED_STEPS)]
 
@@ -60,12 +60,13 @@ def halved(steps):
 
 def program_readings(torch, ctx, device):
     """The program's first three updates, as a run's set-up takes them."""
-    cfg = ctx.model
-    initial = weights_mod.make(cfg, ctx.seed, device)
+    cfg, family = ctx.model, ctx.family
+    initial = weights_mod.make(family.param_shapes(cfg), ctx.seed, device)
     state, step, _ = training.build_program(ctx, device, initial)
-    trained = set(reference.trained_names(cfg))
+    trained = set(family.trained_names(cfg))
     initial = {k: v for k, v in initial.items() if k in trained}
-    feed = training.Feed(training.make_pools(ctx.traffic, cfg, ctx.seed),
+    feed = training.Feed(training.make_pools(ctx.traffic, family, cfg,
+                                             ctx.seed),
                          training.schedule(ctx.traffic, ctx.seed), device)
     losses = []
     for i in range(training.CHECKED_STEPS):
@@ -86,8 +87,9 @@ def program_readings(torch, ctx, device):
 
 def train_kinds(torch, ctx, kinds, device):
     steps = checked_steps(ctx)
-    args = (torch, ctx.model, ctx.config["optimizer"],
-            weights_mod.make(ctx.model, ctx.seed, device))
+    args = (torch, ctx.family, ctx.model, ctx.config["optimizer"],
+            weights_mod.make(ctx.family.param_shapes(ctx.model), ctx.seed,
+                             device))
     ref = training.reference_readings(*args, steps, ctx.seed, device)
     for kind in kinds:
         start = time.perf_counter()
@@ -110,14 +112,14 @@ def train_kinds(torch, ctx, kinds, device):
 
 
 def serve_control(torch, ctx, device):
-    cfg = ctx.model
+    cfg, family = ctx.model, ctx.family
     plan = serve_open.requests(ctx.traffic, 1.0 * ctx.seconds, ctx.seed,
                                cfg["feat_dim"])
     rng = np.random.default_rng([ctx.seed, 5])
     longest = max(range(len(plan)), key=lambda i: len(plan[i][1]))
     picked = [longest] + list(rng.choice(len(plan), ctx.traffic["sample"]
                                          - 1, replace=False))
-    params = weights_mod.make(cfg, ctx.seed, device)
+    params = weights_mod.make(family.param_shapes(cfg), ctx.seed, device)
     blank, widest, tokens = cfg["class_n"] - 1, 0.0, 0
     with torch.no_grad():
         for i in picked:
@@ -126,14 +128,14 @@ def serve_control(torch, ctx, device):
             x = torch.zeros((1, width, cfg["feat_dim"]), device=device)
             x[0, :len(utt)] = torch.from_numpy(utt).to(device)
             n = torch.tensor([len(utt)])
-            reference.tf32(False)
-            exact = reference.forward(params, x, n, cfg)[0].double().cpu()
-            reference.tf32(True)
-            low = reference.forward(params, x, n, cfg)[0].cpu()
-            reference.tf32(False)
-            frames = max(len(utt) // reference.subsample(cfg), 1)
-            ids, starts = reference.greedy(low, frames, blank)
-            gap = reference.served_gaps(exact, ids, starts, frames, blank)
+            common.tf32(False)
+            exact = family.forward(params, x, n, cfg)[0].double().cpu()
+            common.tf32(True)
+            low = family.forward(params, x, n, cfg)[0].cpu()
+            common.tf32(False)
+            frames = max(len(utt) // family.subsample(cfg), 1)
+            ids, starts = common.greedy(low, frames, blank)
+            gap = common.served_gaps(exact, ids, starts, frames, blank)
             widest, tokens = max(widest, float(gap.max())), tokens + len(ids)
     return {"token_gap": widest}, {"tokens_checked": tokens}
 

@@ -3,7 +3,8 @@ accounting and the H100's published peaks) as the benchmark's yardstick.
 
 The benchmark reads its operation counts and peaks from here and never from
 the program, so that a change to the program cannot move the yardstick.
-Only the SRF counts and the peaks are kept: no cell runs another family.
+Each family's counts sit here, reached through its reference's
+``forward_flops`` and ``train_step_flops`` (SRF's alone so far).
 """
 
 import math

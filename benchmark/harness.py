@@ -8,11 +8,42 @@ names ``benchmark/configs/<config>.json`` and its ``traffic`` names
 generator ``benchmark/traffic/<generator>.py`` that runs it. Its limits
 are ``benchmark/limits/<cell>.json``. A per-layer metric is
 ``benchmark/metrics/<metric>.py``, whose ``read(record)`` returns the
-metric's value or None. Adding a cell, a configuration, a traffic mix or a
-metric is a new file and a new entry: nothing here changes.
+metric's value or None. Adding a cell, a configuration, a traffic mix, a
+metric or a model family is a new file and a new entry: nothing here
+changes.
+
+A configuration's ``"reference": "<family>"`` names its model family's
+plain reference, ``benchmark/reference/<family>.py``, loaded by path from
+the run's root (:func:`family`; ``Context.family``). The generators, the
+weights, the FLOP counts, the calibration and the CPU tests reach
+everything that belongs to the model through it. It gives, with ``cfg``
+the configuration's ``model`` object:
+
+- ``param_shapes(cfg)``: {name: (shape, kind)} of every weight and
+  statistic, in the program's state-dict names; ``kind`` is how
+  ``benchmark/weights.py`` draws it (``fan_in``, ``bias``, ``routing``,
+  ``scale``, ``variance``, ``count``);
+- ``trained_names(cfg)``: the names of the trained weights;
+- ``subsample(cfg)``: input frames a logit frame (CTC's frame count and
+  the pools' feasibility check);
+- ``forward(p, feats, lengths, cfg, drop, training)``: CTC logits [B, T',
+  class_n] of padded ``feats`` [B, T, feat_dim], blank last; ``drop`` is
+  the update's ``common.Dropout`` in training (its generator's
+  ``initial_seed()`` is ``common.dropout_seed`` of the run's seed and the
+  update count);
+- ``forward_flops(batch, frames, cfg)``, ``train_step_flops(batch,
+  frames, cfg)``: model FLOPs, delegating to ``benchmark/counts/``;
+- ``TINY``: {model key: size} of the CPU tests (``tests/tiny.py``);
+- ``FLAGS``: {model key: the flag of the configuration's ``argv`` that
+  states it}.
+
+What every family shares is ``benchmark/reference/common.py``. A general
+generator gives ``run(ctx)`` and ``TINY``, the sizes of its mix's keys in
+the CPU tests.
 """
 
 import dataclasses
+import functools
 import gc
 import importlib
 import importlib.util
@@ -53,6 +84,11 @@ class Context:
     def model(self):
         return self.config["model"]
 
+    @functools.cached_property
+    def family(self):
+        """The reference module the configuration names."""
+        return family(self.root, self.config)
+
 
 def read_json(*parts):
     with open(os.path.join(*parts)) as src:
@@ -77,10 +113,33 @@ def load_context(name, seed, seconds, trace, root=ROOT, **extra):
         seed=seed, seconds=seconds, trace=trace, root=root, **extra)
 
 
-def generator(ctx):
-    """The general generator module that runs the cell's traffic."""
+def generator(traffic):
+    """The general generator module that runs a traffic mix."""
     return importlib.import_module("benchmark.traffic."
-                                   + ctx.traffic["generator"])
+                                   + traffic["generator"])
+
+
+def _load(path, name):
+    """The Python file at ``path`` as a module named ``name`` (its dots and
+    dashes made underscores)."""
+    loader = importlib.util.spec_from_file_location(
+        name.replace(".", "_").replace("-", "_"), path)
+    module = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(module)
+    return module
+
+
+def family(root, config):
+    """The plain reference that ``config`` names,
+    ``benchmark/reference/<reference>.py`` under ``root``; raises
+    FileNotFoundError naming the path where there is none."""
+    name = config["reference"]
+    path = os.path.join(root, "benchmark", "reference", name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            "configuration %r names the reference %r: no file %s"
+            % (config.get("name"), name, path))
+    return _load(path, "benchmark_reference_" + name)
 
 
 def end_to_end_names(ctx):
@@ -100,12 +159,8 @@ def per_layer_metrics(ctx):
             continue
         path = os.path.join(ctx.root, "benchmark", "metrics",
                             metric["name"] + ".py")
-        mod_name = "benchmark_metric_" + metric["name"].replace(
-            ".", "_").replace("-", "_")
-        loader = importlib.util.spec_from_file_location(mod_name, path)
-        module = importlib.util.module_from_spec(loader)
-        loader.loader.exec_module(module)
-        out.append((metric, module))
+        out.append((metric, _load(path, "benchmark_metric_"
+                                  + metric["name"])))
     return out
 
 

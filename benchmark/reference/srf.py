@@ -1,14 +1,16 @@
 """The plain SRF (the capsule CTC acoustic model of "Sequential Routing
 Framework: fully capsule network-based speech recognition", as the
 recipes ``egs/script/train_srf_{timit,wsj}.sh`` of
-https://github.com/sephiroce/srf run it), its CTC loss, its Adam/Noam
-update and greedy CTC, in plain PyTorch.
+https://github.com/sephiroce/srf run it), in plain PyTorch: the family
+``srf`` that a configuration names with ``"reference": "srf"``.
 
-This is the benchmark's reference: it imports nothing of the program
-(neither ``srf_tpu_torch`` nor the JAX package) and works everything out
-again from the configuration's sizes, the weights and the inputs the
-benchmark hands both sides. It runs in float32 with TF32 off unless the
-caller turns TF32 on (the control, ``tf32=True``).
+This is the benchmark's reference for that family: it imports nothing of
+the program (neither ``srf_tpu_torch`` nor the JAX package) and works
+everything out again from the configuration's sizes, the weights and the
+inputs the benchmark hands both sides. What every family shares (the
+dropout stream, CTC, Adam/Noam, greedy CTC, TF32) is in ``common.py``. It
+runs in float32 with TF32 off unless the caller turns TF32 on (the
+control, ``common.tf32(True)``).
 
 Architecture, per configuration (``cfg``: the ``model`` object of a file in
 ``benchmark/configs/``):
@@ -34,22 +36,41 @@ Architecture, per configuration (``cfg``: the ``model`` object of a file in
 - output: each class capsule's length ``sqrt(|v|^2 + 1e-7)``, then a
   LayerNorm (eps 1e-3) over the classes: the CTC logits, blank last.
 
-Dropout (training only): an element is kept where a uniform draw is at
-least the rate, and scaled by 1 / (1 - rate). The configuration states
-where the draws come from, so that a run is reproducible: a generator on
-the batch's device seeded with :func:`dropout_seed` of the run's seed and
-the update count, drawing one uniform tensor of the activation's shape at
-each dropout site in the order above (in the front end the first
-convolution's before the second's). :class:`Dropout` draws them so.
+Dropout (training only) draws ``common.Dropout``'s stream at each site in
+the order above (in the front end the first convolution's before the
+second's).
 """
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmark.counts import flops as counts
+from benchmark.reference.common import Dropout
+
 NEG_INF = -1e9
+
+# the CPU tests' sizes (``benchmark/tests/tiny.py``)
+TINY = {"feat_dim": 8, "enc_num": 3, "caps_primary_num": 4,
+        "caps_primary_dim": 4, "caps_conv_num": 4, "caps_conv_dim": 4,
+        "caps_class_dim": 4, "conv_filter_num": 4}
+
+# each model key's flag in a configuration's ``argv``
+FLAGS = {"feat_dim": "feat-dim", "enc_num": "model-encoder-num",
+         "caps_primary_num": "model-caps-primary-num",
+         "caps_primary_dim": "model-caps-primary-dim",
+         "caps_conv_num": "model-caps-convolution-num",
+         "caps_conv_dim": "model-caps-convolution-dim",
+         "caps_class_dim": "model-caps-class-dim",
+         "caps_iter": "model-caps-iter", "caps_type": "model-caps-type",
+         "lpad": "model-caps-window-lpad", "rpad": "model-caps-window-rpad",
+         "is_context": "model-caps-context",
+         "conv_layer_num": "model-conv-layer-num",
+         "conv_filter_num": "model-conv-filter-num",
+         "stride": "model-conv-stride",
+         "inp_dropout": "train-inp-dropout",
+         "inn_dropout": "train-inn-dropout"}
 
 
 def num_iter(cfg):
@@ -128,27 +149,6 @@ def trained_names(cfg):
     return [name for name, (_, kind) in param_shapes(cfg).items()
             if kind not in ("variance", "count")
             and not name.endswith("running_mean")]
-
-
-def dropout_seed(seed, step):
-    """The seed of update ``step``'s dropout generator under the run's
-    ``seed``."""
-    return (seed * 1_000_003 + step) % (1 << 63)
-
-
-class Dropout:
-    """Draws the masks of one update from ``generator``; without one it is
-    the identity (eval)."""
-
-    def __init__(self, generator=None):
-        self.generator = generator
-
-    def __call__(self, x, rate):
-        if self.generator is None or rate == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device,
-                          dtype=x.dtype) >= rate
-        return x * keep / (1.0 - rate)
 
 
 def same_pads(length, kernel, stride):
@@ -262,7 +262,7 @@ def sdr(u, wgt, bias, iterations, pad_first):
 
 def forward(p, feats, lengths, cfg, drop=None, training=False):
     """CTC logits [B, T', class_n] of padded ``feats`` [B, T, feat] with
-    ``lengths`` [B] (host). ``drop``: the update's :class:`Dropout` in
+    ``lengths`` [B] (host). ``drop``: the update's ``common.Dropout`` in
     training (``training``: BatchNorm on batch statistics)."""
     drop = drop or Dropout()
     emb = front_end(p, feats, lengths, cfg, drop, training)
@@ -281,89 +281,23 @@ def forward(p, feats, lengths, cfg, drop=None, training=False):
                         p["ln_output.weight"], p["ln_output.bias"], 1e-3)
 
 
-def ctc_losses(logits, lengths, labels, label_lengths, cfg):
-    """Per-utterance CTC negative log-likelihood, blank the last class,
-    over ``min(ceil(len / subsample), T')`` logit frames."""
-    frames = torch.clamp(torch.ceil(torch.as_tensor(lengths).float()
-                                    / subsample(cfg)).long(),
-                         max=logits.shape[1])
-    logp = torch.log_softmax(logits, dim=-1).transpose(0, 1)
-    return F.ctc_loss(logp, labels.long(), frames,
-                      torch.as_tensor(label_lengths).long(),
-                      blank=cfg["class_n"] - 1, reduction="none")
+def _flops_kwargs(cfg):
+    return dict(feat_dim=cfg["feat_dim"], enc_num=cfg["enc_num"],
+                ph=cfg["caps_primary_num"], pd=cfg["caps_primary_dim"],
+                ch=cfg["caps_conv_num"], cd=cfg["caps_conv_dim"],
+                class_n=cfg["class_n"], vd=cfg["caps_class_dim"],
+                lpad=cfg["lpad"], rpad=cfg["rpad"], num_iter=num_iter(cfg),
+                conv_layer_num=cfg["conv_layer_num"],
+                conv_filter_num=cfg["conv_filter_num"], stride=cfg["stride"])
 
 
-def noam(opt, count):
-    """The Noam rate at ``count`` updates made: ``k d^-0.5 min(count^-0.5,
-    count warmup^-1.5)``, capped at ``lr_max``."""
-    count = max(float(count), 1e-9)
-    rate = opt["noam_k"] * float(opt["d_model"]) ** -0.5 * min(
-        count ** -0.5, count * opt["warmup"] ** -1.5)
-    return min(rate, opt["lr_max"])
+def forward_flops(batch, frames, cfg):
+    """Model FLOPs of one forward over ``batch`` rows of ``frames`` frames
+    (``counts.flops.srf_forward_flops``)."""
+    return counts.srf_forward_flops(batch, frames, **_flops_kwargs(cfg))
 
 
-class Adam:
-    """Adam with bias-corrected moments and eps outside the square root,
-    the rate read from the Noam schedule at the count of updates made."""
-
-    def __init__(self, params, opt, count):
-        self.params, self.opt, self.count = params, opt, count
-        self.m = {k: torch.zeros_like(v) for k, v in params.items()}
-        self.v = {k: torch.zeros_like(v) for k, v in params.items()}
-        self.t = 0
-
-    @torch.no_grad()
-    def step(self, grads):
-        b1, b2, eps = self.opt["beta1"], self.opt["beta2"], self.opt["eps"]
-        rate = noam(self.opt, self.count)
-        self.t += 1
-        for k, p in self.params.items():
-            self.m[k].mul_(b1).add_(grads[k], alpha=1 - b1)
-            self.v[k].mul_(b2).addcmul_(grads[k], grads[k], value=1 - b2)
-            m_hat = self.m[k] / (1 - b1 ** self.t)
-            v_hat = self.v[k] / (1 - b2 ** self.t)
-            p.sub_(rate * m_hat / (torch.sqrt(v_hat) + eps))
-        self.count += 1
-
-
-def greedy(logits, frames, blank):
-    """Greedy CTC of [T', K] logits over ``frames`` frames: (ids, the frame
-    each id's run starts)."""
-    best = logits[:frames].argmax(-1).tolist()
-    ids, starts, prev = [], [], None
-    for t, k in enumerate(best):
-        if k != prev and k != blank:
-            ids.append(k)
-            starts.append(t)
-        prev = k
-    return ids, starts
-
-
-def served_gaps(logits, ids, starts, frames, blank):
-    """[frames] gaps by which the served symbol of each frame lies below
-    the best logit of ``logits`` [T', K]: at a served id's first frame that
-    id; at any other frame the better of the blank and the id whose run it
-    may continue (greedy CTC emits nothing there)."""
-    logits = torch.as_tensor(logits)[:frames].double()
-    best = logits.max(-1).values
-    served = logits[:, blank].clone()
-    starts = list(starts)
-    for j, t in enumerate(starts):
-        if t >= frames:
-            raise ValueError("served id at frame %d past %d" % (t, frames))
-        end = starts[j + 1] if j + 1 < len(starts) else frames
-        served[t] = logits[t, ids[j]]
-        served[t + 1:end] = torch.maximum(logits[t + 1:end, blank],
-                                          logits[t + 1:end, ids[j]])
-    return (best - served).numpy()
-
-
-def tf32(enabled):
-    """Set TF32 for float32 matmuls and convolutions (the reference runs
-    with it off; the control with it on)."""
-    torch.backends.cuda.matmul.allow_tf32 = enabled
-    torch.backends.cudnn.allow_tf32 = enabled
-
-
-def as_numpy(x):
-    return np.asarray(x.detach().cpu().numpy() if torch.is_tensor(x) else x)
+def train_step_flops(batch, frames, cfg):
+    """Model FLOPs of one train step (``counts.flops.srf_train_step_flops``:
+    3 x the forward, no recompute)."""
+    return counts.srf_train_step_flops(batch, frames, **_flops_kwargs(cfg))

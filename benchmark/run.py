@@ -80,7 +80,7 @@ def run(ctx):
 
     undo = faults.install(ctx.faults)
     try:
-        outcome = harness.generator(ctx).run(ctx)
+        outcome = harness.generator(ctx.traffic).run(ctx)
     finally:
         undo()
     line, checks = result_line(ctx, outcome)

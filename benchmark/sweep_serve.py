@@ -42,14 +42,14 @@ def main(argv=None):
     ctx = harness.load_context(args.workload, args.seed, args.seconds, False)
     cfg, traffic = ctx.model, dict(ctx.traffic)
     rec = Recognizer(training.parse_config(ctx, "cuda"),
-                     state_dict=weights_mod.make(cfg, args.seed, "cuda"),
+                     state_dict=weights_mod.make(
+                         ctx.family.param_shapes(cfg), args.seed, "cuda"),
                      device="cuda")
     frontend = BatchingFrontend(rec, max_batch=traffic["max_batch"],
                                 max_wait_ms=traffic["max_wait_ms"],
                                 pad_batch=traffic["pad_batch"])
     try:
-        serve_open.warm_up(rec, frontend, traffic, cfg["feat_dim"],
-                           args.seed)
+        serve_open.warm_up(frontend, traffic, cfg["feat_dim"], args.seed)
         for rate in (float(r) for r in args.rates.split(",")):
             traffic["rate"] = rate
             plan = serve_open.requests(traffic, args.seconds, args.seed,

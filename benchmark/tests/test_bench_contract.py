@@ -83,6 +83,8 @@ def test_files_found_by_name():
         data = harness.read_json(harness.ROOT, config["file"])
         assert data["reduced"] == config["reduced"]
         assert data["source"] == config["source"]
+        assert os.path.isfile(os.path.join(bench, "reference",
+                                           data["reference"] + ".py"))
     for cell in SPEC["workloads"]:
         traffic = harness.read_json(bench, "traffic",
                                     cell["traffic"] + ".json")
@@ -96,34 +98,21 @@ def test_files_found_by_name():
                                            metric["name"] + ".py"))
 
 
+# the optimizer's keys and their flags, shared by every family
+OPTIMIZER_FLAGS = {"beta1": "train-adam-beta1", "beta2": "train-adam-beta2",
+                   "eps": "train-adam-epsilon", "noam_k": "train-lr-param-k",
+                   "d_model": "model-dimension", "warmup": "train-warmup-n",
+                   "lr_max": "train-lr-max"}
+
+
 @pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
 def test_config_argv_states_its_sizes(config):
     data = harness.read_json(harness.BENCH_DIR, "configs", config + ".json")
     ctx = harness.Context(cell={}, config=data, traffic={}, limits={},
                           spec={}, seed=0, seconds=1.0, trace=False)
     args = training.parse_config(ctx, "cpu")
-    model, opt = data["model"], data["optimizer"]
-    assert args.feat_dim == model["feat_dim"]
-    assert args.model_encoder_num == model["enc_num"]
-    assert args.model_caps_primary_num == model["caps_primary_num"]
-    assert args.model_caps_primary_dim == model["caps_primary_dim"]
-    assert args.model_caps_convolution_num == model["caps_conv_num"]
-    assert args.model_caps_convolution_dim == model["caps_conv_dim"]
-    assert args.model_caps_class_dim == model["caps_class_dim"]
-    assert args.model_caps_iter == model["caps_iter"]
-    assert args.model_caps_type == model["caps_type"]
-    assert args.model_caps_window_lpad == model["lpad"]
-    assert args.model_caps_window_rpad == model["rpad"]
-    assert args.model_caps_context == model["is_context"]
-    assert args.model_conv_layer_num == model["conv_layer_num"]
-    assert args.model_conv_filter_num == model["conv_filter_num"]
-    assert args.model_conv_stride == model["stride"]
-    assert args.train_inp_dropout == model["inp_dropout"]
-    assert args.train_inn_dropout == model["inn_dropout"]
-    assert args.train_adam_beta1 == opt["beta1"]
-    assert args.train_adam_beta2 == opt["beta2"]
-    assert args.train_adam_epsilon == opt["eps"]
-    assert args.train_lr_param_k == opt["noam_k"]
-    assert args.model_dimension == opt["d_model"]
-    assert args.train_warmup_n == opt["warmup"]
-    assert args.train_lr_max == opt["lr_max"]
+    for section, flags in (("model", ctx.family.FLAGS),
+                           ("optimizer", OPTIMIZER_FLAGS)):
+        for key, flag in flags.items():
+            assert getattr(args, flag.replace("-", "_")) == \
+                data[section][key], (section, key, flag)

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from benchmark import harness, run, weights
-from benchmark.reference import srf as reference
+from benchmark.reference import common
 from benchmark.tests import tiny
 
 
@@ -22,7 +22,7 @@ def test_forward_matches_the_port(tiny_root, config):
                           device="cpu", root=tiny_root)
     model, _ = build_model(training.parse_config(ctx, "cpu"),
                            cfg["model"]["class_n"])
-    params = weights.make(cfg["model"], 123, "cpu")
+    params = weights.make(ctx.family.param_shapes(cfg["model"]), 123, "cpu")
     model.load_state_dict(params, strict=True)
     model.eval()
     rng = np.random.default_rng(0)
@@ -31,14 +31,16 @@ def test_forward_matches_the_port(tiny_root, config):
     lengths = torch.tensor([37, 20, 9])
     with torch.no_grad():
         got = model(feats, lengths)
-        want = reference.forward(params, feats, lengths, cfg["model"])
+        want = ctx.family.forward(params, feats, lengths, cfg["model"])
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_weights_follow_the_seed():
-    cfg = harness.read_json(harness.BENCH_DIR, "configs",
-                            "srf_timit.json")["model"]
-    a, b, c = (weights.make(cfg, s, "cpu") for s in (5, 5, 6))
+    config = harness.read_json(harness.BENCH_DIR, "configs",
+                               "srf_timit.json")
+    shapes = harness.family(harness.ROOT, config).param_shapes(
+        config["model"])
+    a, b, c = (weights.make(shapes, s, "cpu") for s in (5, 5, 6))
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["W0"], c["W0"])
 
@@ -49,11 +51,11 @@ def test_served_gaps():
                            [3.0, 1.0, 2.5],    # continues id 0
                            [0.0, 1.0, 2.0],    # blank
                            [0.0, 5.0, 2.0]])   # id 1 starts
-    gaps = reference.served_gaps(logits, [0, 1], [1, 4], 5, blank=2)
+    gaps = common.served_gaps(logits, [0, 1], [1, 4], 5, blank=2)
     assert np.allclose(gaps, 0.0)
-    assert reference.greedy(logits, 5, 2) == ([0, 1], [1, 4])
+    assert common.greedy(logits, 5, 2) == ([0, 1], [1, 4])
     # serving id 1 where id 0 is best lies 2.0 below the best
-    gaps = reference.served_gaps(logits, [1, 1], [1, 4], 5, blank=2)
+    gaps = common.served_gaps(logits, [1, 1], [1, 4], 5, blank=2)
     assert gaps.max() == pytest.approx(2.0)
 
 

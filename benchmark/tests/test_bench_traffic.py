@@ -19,9 +19,9 @@ def test_train_pools_follow_seed_and_mix(cell):
     ctx = _ctx(cell, 2**31 + 12345)
     traffic, cfg = ctx.traffic, ctx.model
     small = dict(traffic, pool=1)
-    first = training.make_pools(small, cfg, ctx.seed)
-    again = training.make_pools(small, cfg, ctx.seed)
-    other = training.make_pools(small, cfg, ctx.seed + 1)
+    first = training.make_pools(small, ctx.family, cfg, ctx.seed)
+    again = training.make_pools(small, ctx.family, cfg, ctx.seed)
+    other = training.make_pools(small, ctx.family, cfg, ctx.seed + 1)
     for (batch, width, low, high), a, b, c in zip(traffic["buckets"], first,
                                                   again, other):
         assert a[0]["feats"].shape == (batch, width, cfg["feat_dim"])
@@ -90,3 +90,25 @@ def test_serving_warms_and_serves_in_one_thread(tiny_root, monkeypatch):
     assert line["correct"], checks
     assert len(threads) > 1
     assert set(threads) == {threads[0]} != {threading.get_ident()}
+
+
+def test_train_run_holds_the_mix_host_threads(tiny_root, monkeypatch):
+    """A mix's ``host_threads`` holds every step's intra-op threads, and
+    the run gives torch its own count back at its end."""
+    import torch
+    from benchmark import run
+    from benchmark.tests import tiny
+
+    ctx = tiny.context(tiny_root, "srf_timit.train", seconds=0.2)
+    seen, take = [], training.take_step
+
+    def counted(*args):
+        seen.append(torch.get_num_threads())
+        return take(*args)
+
+    monkeypatch.setattr(training, "take_step", counted)
+    before = torch.get_num_threads()
+    line, _ = run.run(ctx)
+    assert line["correct"]
+    assert set(seen) == {ctx.traffic["host_threads"]} == {1}
+    assert torch.get_num_threads() == before

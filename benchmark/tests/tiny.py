@@ -1,10 +1,13 @@
 """A tiny copy of the benchmark's data files for the CPU tests: the cells
 of ``BENCHMARK.json`` run at a small width and short buckets, through the
-same generators, metric readers and reference.
+same generators, metric readers and references.
 
 ``make_root(path)`` writes ``BENCHMARK.json``, ``benchmark/configs``,
-``benchmark/traffic``, ``benchmark/limits`` and ``benchmark/metrics``
-under ``path``; the code stays the repository's own package.
+``benchmark/traffic``, ``benchmark/limits``, ``benchmark/metrics`` and
+``benchmark/reference`` under ``path``; the rest of the code stays the
+repository's own package. Each configuration takes its sizes and their
+flags from its family (``TINY``, ``FLAGS``), each traffic mix its sizes
+from its generator (``TINY``).
 """
 
 import copy
@@ -15,35 +18,20 @@ import time
 
 from benchmark import harness
 
-TINY_MODEL = {"feat_dim": 8, "class_n": 6, "enc_num": 3,
-              "caps_primary_num": 4, "caps_primary_dim": 4,
-              "caps_conv_num": 4, "caps_conv_dim": 4, "caps_class_dim": 4,
-              "conv_filter_num": 4}
-FLAG = {"feat_dim": "feat-dim", "enc_num": "model-encoder-num",
-        "caps_primary_num": "model-caps-primary-num",
-        "caps_primary_dim": "model-caps-primary-dim",
-        "caps_conv_num": "model-caps-convolution-num",
-        "caps_conv_dim": "model-caps-convolution-dim",
-        "caps_class_dim": "model-caps-class-dim",
-        "conv_filter_num": "model-conv-filter-num"}
-TINY_TRAFFIC = {
-    "train_buckets": {"buckets": [[3, 41, 24, 41], [2, 61, 42, 61]],
-                      "pool": 2, "trace_seconds": 0.2},
-    "serve_open": {"rate": 40.0, "frames": [30, 90], "max_batch": 4,
-                   "warm_widths": [128], "sample": 4, "trace_seconds": 0.2},
-}
 VOCAB = ["<PADDING_MASK>", "<SPACE>", "A", "B", "C"]
 
 
-def tiny_config(config):
-    """``config`` at the tiny width, its argv's model flags to match."""
+def tiny_config(config, family):
+    """``config`` at its ``family``'s tiny sizes and the tiny vocabulary's
+    classes, its argv's model flags to match."""
     config = copy.deepcopy(config)
-    config["model"].update(TINY_MODEL)
+    config["model"].update(family.TINY, class_n=len(VOCAB) + 1)
+    flags = {k: family.FLAGS[k] for k in family.TINY if k in family.FLAGS}
     argv = [a for a in config["argv"]
-            if not any(a.startswith("--%s=" % f) for f in FLAG.values())
+            if not any(a.startswith("--%s=" % f) for f in flags.values())
             and not a.startswith("--path-vocab=")]
-    argv += ["--%s=%s" % (FLAG[k], v) for k, v in TINY_MODEL.items()
-             if k in FLAG]
+    argv += ["--%s=%s" % (flags[k], v) for k, v in family.TINY.items()
+             if k in flags]
     config["argv"] = argv + ["--path-vocab=tiny.vocab"]
     return config
 
@@ -56,17 +44,20 @@ def make_root(path, limits=None):
     bench = os.path.join(path, "benchmark")
     for sub in ("configs", "traffic", "limits"):
         os.makedirs(os.path.join(bench, sub), exist_ok=True)
-    shutil.copytree(os.path.join(src, "benchmark", "metrics"),
-                    os.path.join(bench, "metrics"), dirs_exist_ok=True)
+    for sub in ("metrics", "reference"):
+        shutil.copytree(os.path.join(src, "benchmark", sub),
+                        os.path.join(bench, sub), dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     with open(os.path.join(path, "tiny.vocab"), "w") as out:
         out.write("\n".join(VOCAB) + "\n")
     for config in spec["configs"]:
         data = harness.read_json(src, config["file"])
-        write(os.path.join(path, config["file"]), tiny_config(data))
+        write(os.path.join(path, config["file"]),
+              tiny_config(data, harness.family(path, data)))
     for cell in spec["workloads"]:
         traffic = harness.read_json(src, "benchmark", "traffic",
                                     cell["traffic"] + ".json")
-        traffic.update(TINY_TRAFFIC[traffic["generator"]])
+        traffic.update(harness.generator(traffic).TINY)
         write(os.path.join(bench, "traffic", cell["traffic"] + ".json"),
               traffic)
         cell_limits = harness.read_json(src, "benchmark", "limits",

@@ -19,11 +19,14 @@ import time
 import numpy as np
 
 from benchmark import devtrace, harness, training, weights as weights_mod
-from benchmark.counts import flops as counts
-from benchmark.reference import srf as reference
+from benchmark.reference import common
 
 # seconds past the window's close that the run waits for late answers
 LATE_S = 60.0
+
+# the mix's sizes in the CPU tests (benchmark/tests/tiny.py)
+TINY = {"rate": 40.0, "frames": [30, 90], "max_batch": 4,
+        "warm_widths": [128], "sample": 4, "trace_seconds": 0.2}
 
 
 def arrivals(rate, count, rng):
@@ -125,7 +128,7 @@ def check(torch, ctx, plan, futures, calls, device):
     reference's best, over a seeded sample of the finished requests with
     the longest among them, each at the padded width it was served at; and
     the tokens checked."""
-    cfg, traffic = ctx.model, ctx.traffic
+    cfg, traffic, family = ctx.model, ctx.traffic, ctx.family
     width_of = {}
     for _, _, lengths, ids in calls.log:
         width = -(-max(lengths) // 128) * 128
@@ -138,13 +141,13 @@ def check(torch, ctx, plan, futures, calls, device):
     others = [i for i in finished if i != longest]
     picked = [longest] + list(rng.choice(
         others, size=min(traffic["sample"] - 1, len(others)), replace=False))
-    params = weights_mod.make(cfg, ctx.seed, device)
+    params = weights_mod.make(family.param_shapes(cfg), ctx.seed, device)
     blank = cfg["class_n"] - 1
     widest, tokens = 0.0, 0
     by_width = {}
     for i in picked:
         by_width.setdefault(width_of[id(plan[i][1])], []).append(i)
-    reference.tf32(False)
+    common.tf32(False)
     with torch.no_grad():
         for width, rows in sorted(by_width.items()):
             feats = np.zeros((len(rows), width, cfg["feat_dim"]), np.float32)
@@ -155,13 +158,13 @@ def check(torch, ctx, plan, futures, calls, device):
                 lengths.append(len(utt))
             x = torch.from_numpy(feats).to(device)
             n = torch.tensor(lengths)
-            logits = reference.forward(params, x, n, cfg).double().cpu()
+            logits = family.forward(params, x, n, cfg).double().cpu()
             for r, i in enumerate(rows):
-                frames = max(lengths[r] // reference.subsample(cfg), 1)
+                frames = max(lengths[r] // family.subsample(cfg), 1)
                 served = futures[i].result()
                 ids, starts = served["ids"], served["frames"]
-                gap = reference.served_gaps(logits[r], ids, starts, frames,
-                                            blank)
+                gap = common.served_gaps(logits[r], ids, starts, frames,
+                                         blank)
                 widest = max(widest, float(gap.max()))
                 tokens += len(ids)
     return widest, tokens
@@ -172,9 +175,10 @@ def run(ctx):
     from srf_tpu_torch.serve import Recognizer
     from srf_tpu_torch.serve_daemon import BatchingFrontend
 
-    device, traffic, cfg = ctx.device, ctx.traffic, ctx.model
+    device, traffic, cfg, family = (ctx.device, ctx.traffic, ctx.model,
+                                    ctx.family)
     config = training.parse_config(ctx, device)
-    params = weights_mod.make(cfg, ctx.seed, device)
+    params = weights_mod.make(family.param_shapes(cfg), ctx.seed, device)
     rec = Recognizer(config, state_dict=params, device=device)
     del params
     calls = Calls(rec)
@@ -204,13 +208,12 @@ def run(ctx):
                        if device != "cpu" else 0)
     finally:
         frontend.close()
-    kwargs = training.flops_kwargs(cfg)
     record = {
         "cfg": cfg, "max_batch": traffic["max_batch"], "batch_sizes": sizes,
         "calls": window_calls, "profile": window,
         "profile_calls": traced_calls,
         "sender_late_s": late,
-        "flops": sum(counts.srf_forward_flops(1, n, **kwargs)
+        "flops": sum(family.forward_flops(1, n, cfg)
                      for _, _, lengths, _ in window_calls
                      for n in lengths[:_real(lengths)]),
     }

@@ -2,27 +2,41 @@
 
 The mix's file gives ``buckets`` ([batch, padded width, lowest, highest
 valid length] each), ``pool`` (distinct host batches a bucket) and
-``label_rate`` (labels a valid frame). Steps rotate over the buckets in a
-seeded order; see ``benchmark/training.py``.
+``label_rate`` (labels a valid frame), and may give ``host_threads``, the
+intra-op threads of the run's CPU operators (torch's default, a thread a
+core, where it gives none). Steps rotate over the buckets in a seeded
+order; see ``benchmark/training.py``.
 """
 
 import gc
 import time
 
 from benchmark import devtrace, harness, training, weights as weights_mod
-from benchmark.reference import srf as reference
+
+# the mix's sizes in the CPU tests (benchmark/tests/tiny.py)
+TINY = {"buckets": [[3, 41, 24, 41], [2, 61, 42, 61]], "pool": 2,
+        "trace_seconds": 0.2}
 
 
 def run(ctx):
     import torch
 
-    device = ctx.device
-    cfg = ctx.model
-    initial = weights_mod.make(cfg, ctx.seed, device)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(ctx.traffic.get("host_threads", threads))
+    try:
+        return _run(ctx, torch)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run(ctx, torch):
+    device, cfg, family = ctx.device, ctx.model, ctx.family
+    shapes = family.param_shapes(cfg)
+    initial = weights_mod.make(shapes, ctx.seed, device)
     state, step, _ = training.build_program(ctx, device, initial)
-    trained = set(reference.trained_names(cfg))
+    trained = set(family.trained_names(cfg))
     initial = {k: v for k, v in initial.items() if k in trained}
-    pools = training.make_pools(ctx.traffic, cfg, ctx.seed)
+    pools = training.make_pools(ctx.traffic, family, cfg, ctx.seed)
     order = training.schedule(ctx.traffic, ctx.seed)
     feed = training.Feed(pools, order, device)
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
@@ -74,8 +88,8 @@ def run(ctx):
     if device != "cpu":
         torch.cuda.empty_cache()
     ref = training.reference_readings(
-        torch, cfg, ctx.config["optimizer"],
-        weights_mod.make(cfg, ctx.seed, device), checked, ctx.seed, device)
+        torch, family, cfg, ctx.config["optimizer"],
+        weights_mod.make(shapes, ctx.seed, device), checked, ctx.seed, device)
     numbers, where = training.compare(prog_losses, prog_first, prog_change,
                                       ref)
     return {

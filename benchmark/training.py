@@ -16,8 +16,7 @@ import time
 
 import numpy as np
 
-from benchmark.counts import flops as counts
-from benchmark.reference import srf as reference
+from benchmark.reference import common
 
 CHECKED_STEPS = 3
 
@@ -66,28 +65,17 @@ def build_program(ctx, device, weights, group=None):
     return state, train_step, in_len_div
 
 
-def flops_kwargs(cfg):
-    return dict(feat_dim=cfg["feat_dim"], enc_num=cfg["enc_num"],
-                ph=cfg["caps_primary_num"], pd=cfg["caps_primary_dim"],
-                ch=cfg["caps_conv_num"], cd=cfg["caps_conv_dim"],
-                class_n=cfg["class_n"], vd=cfg["caps_class_dim"],
-                lpad=cfg["lpad"], rpad=cfg["rpad"],
-                num_iter=reference.num_iter(cfg),
-                conv_layer_num=cfg["conv_layer_num"],
-                conv_filter_num=cfg["conv_filter_num"], stride=cfg["stride"])
-
-
-def make_pools(traffic, cfg, seed):
+def make_pools(traffic, family, cfg, seed):
     """[bucket][pool index] host batches of the mix: every seed gets the
     same valid lengths (evenly spaced over each bucket's range) in another
     order, random features and labels at the mix's label rate, kept
-    feasible for CTC. Each batch is a dict of numpy arrays (``feats``,
-    ``labels``, ``inp_len``, ``tar_len``) plus ``frames`` (valid frames)
-    and ``flops`` (model FLOPs of a train step over its valid frames)."""
+    feasible for CTC at the ``family``'s subsampling. Each batch is a dict
+    of numpy arrays (``feats``, ``labels``, ``inp_len``, ``tar_len``) plus
+    ``frames`` (valid frames) and ``flops`` (the family's model FLOPs of a
+    train step over its valid frames)."""
     rng = np.random.default_rng([seed % (1 << 63), 0, 1])
     pool_n, rate = traffic["pool"], traffic["label_rate"]
-    feat_dim, div = cfg["feat_dim"], reference.subsample(cfg)
-    kwargs = flops_kwargs(cfg)
+    feat_dim, div = cfg["feat_dim"], family.subsample(cfg)
     pools = []
     for batch, width, low, high in traffic["buckets"]:
         lengths = np.round(np.linspace(low, high, batch * pool_n)).astype(
@@ -111,7 +99,7 @@ def make_pools(traffic, cfg, seed):
                 "inp_len": rows.astype(np.int32),
                 "tar_len": label_n.astype(np.int32),
                 "frames": int(rows.sum()),
-                "flops": sum(counts.srf_train_step_flops(1, int(n), **kwargs)
+                "flops": sum(family.train_step_flops(1, int(n), cfg)
                              for n in rows),
             })
         pools.append(pool)
@@ -221,29 +209,30 @@ def nonfinite(torch, losses):
     return int((~torch.isfinite(values)).sum())
 
 
-def reference_readings(torch, cfg, opt, weights, steps, seed, device,
-                       control=False):
-    """The reference's three updates from ``weights`` over ``steps`` (host
-    batches): (losses, first gradient norms, change norms after the
-    three), as floats by leaf. ``control`` computes in TF32."""
-    reference.tf32(control)
-    trained = reference.trained_names(cfg)
+def reference_readings(torch, family, cfg, opt, weights, steps, seed,
+                       device, control=False):
+    """The ``family``'s reference's three updates from ``weights`` over
+    ``steps`` (host batches): (losses, first gradient norms, change norms
+    after the three), as floats by leaf. ``control`` computes in TF32."""
+    common.tf32(control)
+    trained = family.trained_names(cfg)
     params = {k: v.detach().clone() for k, v in weights.items()}
     for name in trained:
         params[name].requires_grad_(True)
-    adam = reference.Adam({k: params[k] for k in trained}, opt,
-                          opt["start_count"])
+    adam = common.Adam({k: params[k] for k in trained}, opt,
+                       opt["start_count"])
     losses, first = [], None
     for i, batch in enumerate(steps):
         feats = torch.from_numpy(batch["feats"]).to(device)
         lengths = torch.from_numpy(batch["inp_len"])
         labels = torch.from_numpy(batch["labels"]).to(device)
         tar_len = torch.from_numpy(batch["tar_len"])
-        drop = reference.Dropout(torch.Generator(device).manual_seed(
-            reference.dropout_seed(seed, opt["start_count"] + i)))
-        logits = reference.forward(params, feats, lengths, cfg, drop,
-                                   training=True)
-        per_utt = reference.ctc_losses(logits, lengths, labels, tar_len, cfg)
+        drop = common.Dropout(torch.Generator(device).manual_seed(
+            common.dropout_seed(seed, opt["start_count"] + i)))
+        logits = family.forward(params, feats, lengths, cfg, drop,
+                                training=True)
+        per_utt = common.ctc_losses(logits, lengths, labels, tar_len,
+                                    family.subsample(cfg), cfg["class_n"] - 1)
         loss = per_utt.sum() / feats.shape[0]
         grads = torch.autograd.grad(loss, [params[k] for k in trained])
         del logits, per_utt
@@ -256,7 +245,7 @@ def reference_readings(torch, cfg, opt, weights, steps, seed, device,
     change = {k: float(torch.linalg.vector_norm(params[k].detach()
                                                 - weights[k]))
               for k in trained}
-    reference.tf32(False)
+    common.tf32(False)
     return losses, first, change
 
 

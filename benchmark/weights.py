@@ -1,5 +1,6 @@
 """Seeded weights and statistics of a configuration, made on the device in
-two large draws (one normal, one uniform) and cut into leaves.
+two large draws (one normal, one uniform) and cut into leaves, by the
+shapes and kinds of its family's ``param_shapes``.
 
 Both sides take these: the program loads them by name, the reference uses
 them as they are. Convolution and dense weights are normal over
@@ -11,15 +12,12 @@ import math
 
 import torch
 
-from benchmark.reference import srf
-
 _SCALE = {"bias": 0.1, "routing": 0.1, "scale": 0.1}
 
 
-def make(cfg, seed, device):
-    """{name: float32 tensor on ``device``} for ``cfg``'s
-    ``reference.srf.param_shapes``, drawn from ``seed``."""
-    shapes = srf.param_shapes(cfg)
+def make(shapes, seed, device):
+    """{name: float32 tensor on ``device``} for ``shapes`` ({name: (shape,
+    kind)}, a family's ``param_shapes``), drawn from ``seed``."""
     gen = torch.Generator(device).manual_seed(seed % (1 << 63))
     normal_n = sum(math.prod(shape) for shape, kind in shapes.values()
                    if kind not in ("variance", "count"))
