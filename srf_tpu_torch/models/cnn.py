@@ -32,6 +32,16 @@ JAX. A site's rate is its ``Dropout`` module's ``p`` in both modes, so
 setting every ``p`` to 0 turns dropout off. ``models/registry.py`` refuses
 any other value of the flag.
 
+Each convolution goes through ``layers.conv2d_same``, whose algorithm
+``ops/conv_choice.py`` chooses at a problem's first call: at the shapes
+its kept table holds for the card (the TIMIT recipe's 5 train buckets on
+an H100) by timing only the candidates the full search needed, 0.6-5.3
+s a shape; at any other shape (a serving width, another batch, another
+card) by cuDNN's full search, 38-51 s at a CNN-TIMIT train shape on an
+H100. A forward runs
+its convolutions inside a ``srf.cnn.body`` span and its projections inside
+``srf.cnn.proj`` (``utils/profiler.py``).
+
 Reference quirks kept: the length-mask divisor is ``stride`` after conv 0
 and ``stride * stride`` after the rest in the maxpool variant, and
 ``conv_layer_num ** 2`` throughout the stride variant; the 0.2 rates after
@@ -48,6 +58,7 @@ from srf_tpu_torch.models.initializers import get_init
 from srf_tpu_torch.models.layers import ConvFrontEnd, Dropout, conv2d_same
 from srf_tpu_torch.ops.dropout import fused_dropout, site_seed
 from srf_tpu_torch.ops.masking import feat_mask, feat_mask2
+from srf_tpu_torch.utils.profiler import span
 
 
 def _channel_maxout(x):
@@ -124,28 +135,30 @@ class _MaxoutConvStack(nn.Module):
     def forward(self, emb, input_lengths, drop):
         """emb [B, T, F, C] -> logits [B, T', class_n]; ``drop`` is the
         forward's ``_DropoutSites``."""
-        for idx, t_stride in enumerate(self.strides):
-            conv = getattr(self, "conv%d" % idx)
-            emb = conv2d_same(emb.permute(0, 3, 1, 2), conv.weight,
-                              (t_stride, 1)).permute(0, 2, 3, 1)
-            emb = _channel_maxout(drop(emb, self.drop_conv))
-            if self.pool_after_first and idx == 0:
-                emb = F.max_pool2d(emb.permute(0, 3, 1, 2), (1, 3),
-                                   (1, 3)).permute(0, 2, 3, 1)
-            emb = drop(getattr(self, "ln%d" % idx)(emb), self.drop_inn)
-            emb = feat_mask(emb, input_lengths, self.mask_div_fn(idx))
+        with span("srf.cnn.body"):
+            for idx, t_stride in enumerate(self.strides):
+                conv = getattr(self, "conv%d" % idx)
+                emb = conv2d_same(emb.permute(0, 3, 1, 2), conv.weight,
+                                  (t_stride, 1)).permute(0, 2, 3, 1)
+                emb = _channel_maxout(drop(emb, self.drop_conv))
+                if self.pool_after_first and idx == 0:
+                    emb = F.max_pool2d(emb.permute(0, 3, 1, 2), (1, 3),
+                                       (1, 3)).permute(0, 2, 3, 1)
+                emb = drop(getattr(self, "ln%d" % idx)(emb), self.drop_inn)
+                emb = feat_mask(emb, input_lengths, self.mask_div_fn(idx))
 
-        batch, seq_len = emb.shape[0], emb.shape[1]
-        emb = emb.reshape(batch, seq_len, self.flat_dim)
-        for idx in range(self.proj_num):
-            emb = drop(getattr(self, "proj%d" % idx)(emb), self.drop_conv)
-            emb = getattr(self, "proj_ln%d" % idx)(_channel_maxout(emb))
-            emb = drop(emb, self.drop_inn)
-            emb = feat_mask2(emb, input_lengths, self.mask_div_fn(1))
-
-        emb = drop(self.projv(emb), self.drop_inn)
-        emb = self.projv_ln(_channel_maxout(emb))
-        return feat_mask2(emb, input_lengths, self.mask_div_fn(1))
+        with span("srf.cnn.proj"):
+            batch, seq_len = emb.shape[0], emb.shape[1]
+            emb = emb.reshape(batch, seq_len, self.flat_dim)
+            for idx in range(self.proj_num):
+                emb = drop(getattr(self, "proj%d" % idx)(emb),
+                           self.drop_conv)
+                emb = getattr(self, "proj_ln%d" % idx)(_channel_maxout(emb))
+                emb = drop(emb, self.drop_inn)
+                emb = feat_mask2(emb, input_lengths, self.mask_div_fn(1))
+            emb = drop(self.projv(emb), self.drop_inn)
+            emb = self.projv_ln(_channel_maxout(emb))
+            return feat_mask2(emb, input_lengths, self.mask_div_fn(1))
 
 
 class _CNNBase(nn.Module):

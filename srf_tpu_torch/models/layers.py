@@ -5,7 +5,8 @@ flax's dtype rules, which ``--tpu-bf16`` meets (bf16 parameters on bf16 or
 float32 activations); with one dtype throughout they are torch's own.
 
 :func:`same_pad` / :func:`conv2d_same` — flax's ``padding="SAME"`` with a
-per-axis kernel and stride (the CNN's (5, 3) convs stride (t, 1)).
+per-axis kernel and stride (the CNN's (5, 3) convs stride (t, 1));
+``conv2d_same`` chooses cuDNN's algorithm as ``ops/conv_choice.py`` says.
 
 :class:`ConvFrontEnd` — the reference's "CapsulationLayer" CNN front-end:
 per layer two parallel stride-2 3x3 convs combined by maxout, each with
@@ -42,6 +43,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from srf_tpu_torch.ops import conv_choice
 from srf_tpu_torch.ops.masking import feat_mask
 from srf_tpu_torch.parallel.distributed import world_size
 
@@ -122,14 +124,15 @@ def conv2d_same(x, weight, stride):
     """``F.conv2d`` of NCHW ``x`` (any memory layout) with flax's SAME
     padding and no bias: the symmetric part goes to the convolution's own
     padding and only the odd one, where there is one, to an ``F.pad`` copy
-    (stride 1, the CNN-TIMIT recipe's, never needs it)."""
+    (stride 1, the CNN-TIMIT recipe's, never needs it). The algorithm is
+    chosen by ``ops.conv_choice.ChosenConv2d``."""
     stride = _pair(stride)
     (t_lo, t_hi), (f_lo, f_hi) = (
         same_pads(x.shape[axis], weight.shape[axis], stride[axis - 2])
         for axis in (2, 3))
     if (t_lo, f_lo) != (t_hi, f_hi):
         x = F.pad(x, [0, f_hi - f_lo, 0, t_hi - t_lo])
-    return F.conv2d(x, weight, None, stride, (t_lo, f_lo))
+    return conv_choice.ChosenConv2d.apply(x, weight, stride, (t_lo, f_lo))
 
 
 class Dropout(nn.Dropout):

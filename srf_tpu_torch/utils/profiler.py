@@ -28,7 +28,10 @@
 The spans' names are fixed where they are opened: ``srf.feed`` (and
 ``srf.feed.load``, ``srf.feed.put``) in ``train/loop.py``, ``srf.step``
 (``.forward``, ``.loss``, ``.backward``, ``.optimizer``) in
-``train/step.py``, ``srf.serve.*`` in ``serve_daemon.py`` and ``serve.py``.
+``train/step.py``, ``srf.serve.*`` in ``serve_daemon.py`` and ``serve.py``,
+``srf.conv.choose`` (a convolution problem's first call, keyed by the
+problem) in ``ops/conv_choice.py``, ``srf.cnn.body`` and ``srf.cnn.proj``
+in ``models/cnn.py``.
 """
 
 import collections

@@ -251,6 +251,12 @@ def test_cuda_is_the_default_and_never_falls_back(tmp_path, monkeypatch):
 
 
 def test_cuda_path_turns_tf32_off(monkeypatch):
+    """F8 and F14: TF32 off; cuDNN's search on for every convolution, and
+    the CNN's (``ops/conv_choice.py``) time only the candidates the kept
+    table holds for their problem on the H100: the CNN-TIMIT train
+    buckets' 14 problems each."""
+    from srf_tpu_torch.ops import conv_choice
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
@@ -259,6 +265,15 @@ def test_cuda_path_turns_tf32_off(monkeypatch):
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     assert torch.backends.cudnn.benchmark
+    table = conv_choice.load_table(conv_choice.TABLE)
+    assert table["device"] == "NVIDIA H100 80GB HBM3"
+    limits = table["limits"]
+    assert len(limits) == 5 * 14
+    assert all(1 <= limits[key] <= 10 for key in limits)
+    for rows, frames in ((29, 241), (17, 391), (12, 541), (10, 691),
+                         (8, 841)):
+        assert "fwd x%dx1x%dx123 w128x1x5x3 s1x1 p2x1 nchw float32" % (
+            rows, frames) in limits
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
