@@ -43,10 +43,13 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    K2 and K4 (K4 against K2 as well) at phase 3's EXTRA_LAYERS; K2 at
    the SRF-WSJ layers 1-8 (150, 30, 20, 20) at a training bucket's B=24,
    T'=248, with its parts' times, and at odd offsets (K2_LAYERS); K2 and
-   K4 each bit-equal across two calls; K2's weight gradient on its tiled
-   path at every recipe geometry (routing_cuda.wgrad_launches); K2's and
-   K4's times in turns, and the plain version's, at B=29, T'=61 (the
-   training path's shape), and K2's parts' times apart;
+   K4 each bit-equal across two calls; K2's weight gradient and the
+   prediction on their tiled paths at every recipe geometry
+   (routing_cuda.wgrad_launches, predict_launches); the prediction alone
+   at the SRF-WSJ layers 1-8 at B=24, T'=248 (PREDICT_LAYER), float32 and
+   bf16, against predict_capsules_rows and timed against its byte bound;
+   K2's and K4's times in turns, and the plain version's, at B=29, T'=61
+   (the training path's shape), and K2's parts' times apart;
 5. K5 (the fused dropout) against its plain PyTorch version with
    torch.equal (the two draw the same Philox bits) at 1-5000 elements, a
    misaligned view, and each of the 25 dropout sites of a CNN-TIMIT train
@@ -109,7 +112,8 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
    statistics, and in the parameters' Adam update, taken at Noam's peak
    rate (count 1200) rather than at count 0 (rate 1.2e-14); then
    TRAIN_STEPS steps with dropout on, each calling K1 and K2 7 times (K1
-   is two kernels and K2 four, so 14 K1 and 28 K2 launches), with finite
+   is two kernels and K2 four, so 14 K1 and 28 K2 launches; every weight
+   gradient and prediction on its tiled path), with finite
    losses and every tensor on the card; then ms/step, utt/s,
    audio-seconds/s, the device time of a forward and of a backward, and a
    profile of one step (K1 and K2 device ms, their kernels apart, idle
@@ -250,7 +254,8 @@ Imports nothing of JAX or srf_tpu. Phases (any failure exits non-zero):
 12c. the SRF-WSJ model's train step (layered, dropout off) on the card:
    one step on 2 of 8 utterances of 300-1600 frames held to the CPU's as
    in 7 (gradients within WSJ_GRAD_ATOL_REL, set by chip_wsj_numerics.py),
-   then the 8-utterance step (padded 1600) with 20 K1 and 40 K2 launches,
+   then the 8-utterance step (padded 1600) with 20 K1 and 40 K2 launches
+   (its 10 weight gradients and 20 predictions on their tiled paths),
    timed, with its peak memory;
 12d. --tpu-routing-kernel=wavefront (ops/routing.wavefront_sdr_stack, the
    whole capsule stack as one loop over time in plain PyTorch, as JAX runs
@@ -532,6 +537,16 @@ EXTRA_LAYERS = (
 # path bulk-copies its rows)
 K2_LAYERS = (("wsj_layer1", (150, 30, 20, 20), False, 0.1, 24, 248),
              ("odd_offsets", (3, 5, 4, 4), True, 0.3, 3, 5))
+# the prediction kernel alone at the SRF-WSJ recipe's layers 1-8, B x T' of
+# the 24 x 991 bucket, float32 and bf16: timed against its byte bound (u,
+# W and b read once, u_hat written once), which it must reach at least
+# PREDICT_MIN_SHARE of (its tiled path measured 72 % on an H100; the kernel
+# that read W and u from shared memory for each FMA, 33 %); its u_hat held
+# to the plain predict_capsules_rows, float32 within RTOL and ATOL (the
+# card's einsum sums the in entries in another order: measured up to 7.2e-7
+# apart on an H100), bf16 bit for bit (measured so)
+PREDICT_LAYER = ("wsj_layer1", (150, 30, 20, 20), 24, 248)
+PREDICT_MIN_SHARE = 0.5
 # the register path's softmax skips its max where every logit of a warp's
 # rows is within this bound (csrc/sdr_stream.cuh kSafeLogit)
 SAFE_LOGIT = 64.0
@@ -1010,6 +1025,68 @@ def kernel_phase(torch, device):
     return k1, k3
 
 
+def prediction_check(torch, device, rng):
+    """Phase 4's prediction kernel alone at PREDICT_LAYER, float32 and
+    bf16 (the path K1-tp's first launch takes): its u_hat against the
+    plain predict_capsules_rows (float32 within RTOL and ATOL, bf16 bit for
+    bit), two calls bit-equal, and its time against its byte bound, which
+    it must reach PREDICT_MIN_SHARE of; returns the readings."""
+    from srf_tpu_torch.ops import routing_cuda
+    from srf_tpu_torch.ops.routing import predict_capsules_rows
+
+    name, (in_n, out_n, out_d, in_d), batch, seq_len = PREDICT_LAYER
+    fwd = routing_cuda._tp_libs()[1]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    readings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        w, b, u = (torch.tensor(rng.randn(*shape) * std, dtype=torch.float32,
+                                device=device).to(dtype)
+                   for shape, std in (((in_n, out_n, out_d, in_d), 0.1),
+                                      ((in_n, out_n, out_d), 0.1),
+                                      ((batch, seq_len, in_n, in_d), 1.0)))
+        label = "%s %s" % (name, str(dtype).replace("torch.", ""))
+        before = dict(routing_cuda.predict_launches)
+        got = routing_cuda._predict_rows(fwd, u, w, b, stream)
+        again = routing_cuda._predict_rows(fwd, u, w, b, stream)
+        torch.cuda.synchronize()
+        check(routing_cuda.predict_launches == dict(
+            before, tiled=before["tiled"] + 2),
+            "the prediction left its tiled path at %s: %s"
+            % (label, routing_cuda.predict_launches))
+        check(torch.equal(got, again), "the prediction is not bit-equal "
+              "across two calls at %s" % label)
+        want = predict_capsules_rows(u, w, b)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  "the bf16 prediction is %.3e from predict_capsules_rows at "
+                  "%s, not bit-equal" % (err, label))
+        else:
+            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  "the prediction is %.3e from predict_capsules_rows at %s"
+                  % (err, label))
+        ms = event_ms(torch, lambda: routing_cuda._predict_rows(
+            fwd, u, w, b, stream), 20)
+        esize = got.element_size()
+        nbytes = esize * (got.numel() + u.numel() + w.numel() + b.numel())
+        bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+        share = bound_ms / ms
+        print("prediction %s (%d, %d, %d, %d) B=%d T=%d: %.4f ms, byte bound "
+              "%.4f ms (%.1f %%); max |kernel - plain| %.3e%s"
+              % (label, in_n, out_n, out_d, in_d, batch, seq_len, ms,
+                 bound_ms, 100 * share, err,
+                 " (bit-equal)" if err == 0 else ""))
+        if dtype == torch.float32:
+            check(share >= PREDICT_MIN_SHARE, "the prediction at %s reaches "
+                  "%.1f %% of its byte bound, under %.0f %%"
+                  % (label, 100 * share, 100 * PREDICT_MIN_SHARE))
+        readings[label] = {"ms": ms, "bound_ms": bound_ms,
+                           "max_abs_err": err}
+        del u, w, b, got, again, want
+    return readings
+
+
 def k2_phase(torch, device):
     """Phase 4: K2 and K4 against their plain version, K4 against K2 on the
     same CUDA tensors, each bit-equal across two calls; returns their JSON
@@ -1022,6 +1099,7 @@ def k2_phase(torch, device):
 
     rng = np.random.RandomState(SEED + 2)
     paths = dict(routing_cuda.wgrad_launches)
+    predict_paths = dict(routing_cuda.predict_launches)
     max_err = {"K2": 0.0, "K4": 0.0, "K4 vs K2": 0.0}
     per_layer = {"K2": [], "K4": []}
     totals = {"K2": sdr_totals(), "K4": sdr_totals()}
@@ -1137,12 +1215,21 @@ def k2_phase(torch, device):
                 add_layer(totals[label], per_layer[label], name, count,
                           kernel_ms, plain_ms, bound, geometry=list(geometry),
                           per_step=count, **extra)
-    # every recipe geometry so far took the weight gradient's tiled path
+    # every recipe geometry so far took the weight gradient's and the
+    # prediction's tiled paths
     tiled = routing_cuda.wgrad_launches["tiled"] - paths["tiled"]
     check(tiled > 0 and routing_cuda.wgrad_launches == dict(
         paths, tiled=paths["tiled"] + tiled),
         "K2's weight gradient left its tiled path at a SRF-TIMIT geometry: "
         "%s (before %s)" % (routing_cuda.wgrad_launches, paths))
+    tiled = routing_cuda.predict_launches["tiled"] - predict_paths["tiled"]
+    check(tiled > 0 and routing_cuda.predict_launches == dict(
+        predict_paths, tiled=predict_paths["tiled"] + tiled),
+        "the prediction left its tiled path at a SRF-TIMIT geometry: %s "
+        "(before %s)" % (routing_cuda.predict_launches, predict_paths))
+    print("phase 4 at SRF-TIMIT's layers: the weight gradient's launches by "
+          "path %s, the prediction's %s" % (routing_cuda.wgrad_launches,
+                                            routing_cuda.predict_launches))
     # K2 alone at K2_LAYERS
     wsj_parts = {}
     for name, geometry, mask, w_std, batch, seq_len in K2_LAYERS:
@@ -1157,11 +1244,16 @@ def k2_phase(torch, device):
         dvs = torch.tensor(rng.randn(batch, seq_len, out_n, out_d),
                            dtype=torch.float32, device=device)
         before = dict(routing_cuda.wgrad_launches)
+        predict_before = dict(routing_cuda.predict_launches)
         k2_held(u, w, b, vs, dvs, mask, "%s %s B=%d T=%d mask=%s" % (
             name, geometry, batch, seq_len, mask))
         check(routing_cuda.wgrad_launches["tiled"] == before["tiled"] + 2,
               "K2's weight gradient left its tiled path at %s: %s"
               % (name, routing_cuda.wgrad_launches))
+        check(routing_cuda.predict_launches["tiled"]
+              == predict_before["tiled"] + 2,
+              "the prediction left its tiled path at %s: %s"
+              % (name, routing_cuda.predict_launches))
         parts, _ = parts_ms(torch, lambda: sequential_routing_bwd_cuda(
             u, w, b, vs, dvs, mask), K2_PARTS)
         wsj_parts[name] = parts
@@ -1174,6 +1266,7 @@ def k2_phase(torch, device):
                  / PEAK_F32_FLOPS, flops / 1e9, parts["prediction"],
                  parts["reverse_time"], parts["reduction"]))
         del u, w, b, vs, dvs
+    predict = prediction_check(torch, device, rng)
     # K2 and K4 at EXTRA_LAYERS, one routing iteration
     for index, (name, geometry, mask, w_std, shapes) in enumerate(
             EXTRA_LAYERS):
@@ -1208,7 +1301,9 @@ def k2_phase(torch, device):
                       max_err["K2"], totals["K2"], per_layer["K2"])
     k2.update(launches_per_call=K2_LAUNCHES, parts_ms=k2_parts,
               wsj_parts_ms=wsj_parts,
-              wgrad_launches=dict(routing_cuda.wgrad_launches))
+              wgrad_launches=dict(routing_cuda.wgrad_launches),
+              predict_launches=dict(routing_cuda.predict_launches),
+              predict_wsj=predict)
     print("K2 one train step's 7 calls at B=29 T=61: %.4f ms (prediction "
           "%.4f ms, reverse-time %.4f ms, weight gradient %.4f ms, reduction "
           "%.4f ms), plain %.4f ms, bound %.4f ms; max |K2 - plain| %.3e"
@@ -2212,6 +2307,7 @@ def train_phase(torch, card, state):
     sequential_routing_cuda.launches = 0
     sequential_routing_bwd_cuda.launches = 0
     paths = dict(routing_cuda.wgrad_launches)
+    predict_paths = dict(routing_cuda.predict_launches)
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         k1, k2 = (sequential_routing_cuda.launches,
@@ -2237,6 +2333,14 @@ def train_phase(torch, card, state):
         "the train steps' weight gradients by path: %s, expected %d more "
         "tiled than %s" % (routing_cuda.wgrad_launches, 7 * TRAIN_STEPS,
                            paths))
+    # a K1 and a K2 call each launch the prediction once
+    check(routing_cuda.predict_launches == dict(
+        predict_paths, tiled=predict_paths["tiled"] + 14 * TRAIN_STEPS),
+        "the train steps' predictions by path: %s, expected %d more tiled "
+        "than %s" % (routing_cuda.predict_launches, 14 * TRAIN_STEPS,
+                     predict_paths))
+    print("train steps' launches by path: weight gradient %s, prediction %s"
+          % (routing_cuda.wgrad_launches, routing_cuda.predict_launches))
     all_on_card(train_state, metrics)
     losses = torch.stack(losses).cpu().numpy() / batch["feats"].shape[0]
     check(bool(np.isfinite(losses).all()), "non-finite train loss")
@@ -4216,15 +4320,23 @@ def wsj_train_phase(torch, card):
     sequential_routing_cuda.launches = 0
     sequential_routing_bwd_cuda.launches = 0
     paths = dict(routing_cuda.wgrad_launches)
+    predict_paths = dict(routing_cuda.predict_launches)
     train_state, metrics = step(train_state, batch, seed)
     torch.cuda.synchronize()
     launches = (sequential_routing_cuda.launches,
                 sequential_routing_bwd_cuda.launches)
-    # the 10 layers' weight gradients, each on its tiled path
+    # the 10 layers' weight gradients and 20 predictions (K1's and K2's),
+    # each on its tiled path
     check(routing_cuda.wgrad_launches == dict(paths,
                                               tiled=paths["tiled"] + 10),
           "an SRF-WSJ step's weight gradients by path: %s (before %s)"
           % (routing_cuda.wgrad_launches, paths))
+    check(routing_cuda.predict_launches == dict(
+        predict_paths, tiled=predict_paths["tiled"] + 20),
+        "an SRF-WSJ step's predictions by path: %s (before %s)"
+        % (routing_cuda.predict_launches, predict_paths))
+    print("SRF-WSJ step's launches by path: weight gradient %s, prediction "
+          "%s" % (routing_cuda.wgrad_launches, routing_cuda.predict_launches))
     check(launches == (10 * K1_LAUNCHES, 10 * K2_LAUNCHES),
           "an SRF-WSJ step launched K1 %d and K2 %d times, expected %d and "
           "%d" % (*launches, 10 * K1_LAUNCHES, 10 * K2_LAUNCHES))

@@ -43,9 +43,18 @@ constexpr int kWarps = 15;
 constexpr int kComputeThreads = kWarps * 32;
 constexpr int kThreads = kComputeThreads + 32;  // and one producer warp
 constexpr int kMinStages = 3;                   // ring slots to aim for
-constexpr int kPredictThreads = 256;
-constexpr int kPredictRows = 64;  // u rows staged at once, at most
-constexpr int kPredictRowsPerBlock = 128;
+// the prediction kernel (plan_predict): threads a block, at most (for
+// which ptxas allows 128 registers a thread); quads of in entries of W a
+// thread keeps in registers (in_d <= 20 in one tile: every recipe's);
+// stages of the ring of units' u rows (two ahead of the one computed) and
+// their floats, at most; rows a unit, at most; out quads an out tile keeps
+// where out tiles split a small call
+constexpr int kPredictMaxThreads = 512;
+constexpr int kPredictMaxJq = 5;
+constexpr int kPredictStages = 3;
+constexpr int kPredictStageFloats = 4096;
+constexpr int kPredictRows = 16;
+constexpr int kPredictMinQuads = 32;
 
 SDR_HOST_DEVICE inline int row_pitch(int out_no) {
   return (out_no + 3) / 4 * 4;
@@ -149,36 +158,110 @@ SDR_HOST_DEVICE inline size_t warp_floats(const RowGeom& g) {
   return ((size_t)kWarps * (g.out_no + g.out_n) + 3) / 4 * 4;
 }
 
-// The prediction kernel's tiles: W[n] is staged o_tile out entries by
-// j_tile in entries at a time, with `rows` rows of u (a multiple of 4).
+// The prediction kernel's plan (sdr_stream.cuh). A block of o_quads *
+// groups threads, a thread an out quad (4 out entries) of one of `groups`
+// neighbouring in-capsules, keeps the quad's rows of W[n] in registers, jq
+// quads of in entries (j_tile of them real, the rest -0), and its bias.
+// The work is `units` units (out tile, group of in-capsules, tile of
+// tile_rows B*T rows), n-major within an out tile; block b of `blocks`
+// takes the contiguous run of units [b * units / blocks, (b + 1) * units /
+// blocks), its u rows staged into a ring of kPredictStages stages of
+// shared memory ahead of the unit it computes, and reloads its W registers
+// only where the run moves to another (out tile, group). A row of a unit
+// reads groups * in_d contiguous u entries and writes groups * pitch
+// contiguous u_hat entries. Its tiled path takes in_d in one tile of in
+// entries (predict_tiled); the general path (in_d > 4 * kPredictMaxJq)
+// walks the run once per tile of j_tile in entries, each adding its share
+// to the u_hat entries it wrote for the tiles before.
 struct PredictPlan {
-  int o_tile, j_tile, rows;
+  int jq, j_tile;
+  int o_tiles, o_quads;   // out tiles, out quads a tile
+  int groups, n_groups;   // in-capsules a unit; their groups
+  int tile_rows, row_tiles;  // rows a unit; units an (out tile, group)
+  long long units;
+  int blocks;
 };
 
-inline size_t predict_smem_floats(const PredictPlan& p) {
-  return (size_t)p.j_tile * p.o_tile + p.o_tile +
-         (size_t)(p.rows + 3) * p.j_tile;
+// Whether the prediction takes in_d in one tile of in entries (its tiled
+// path).
+inline bool predict_tiled(int in_d) { return in_d <= 4 * kPredictMaxJq; }
+
+inline int predict_threads(const PredictPlan& p) {
+  return p.o_quads * p.groups;
 }
 
-// All of W[n] and kPredictRows rows where they fit (every recipe's
-// geometry); else fewer out entries (down to 32), then fewer rows (down to
-// 4), then fewer in entries.
-inline PredictPlan plan_predict(int in_d, int out_no) {
-  PredictPlan p{out_no, in_d, kPredictRows};
-  while (predict_smem_floats(p) > kMaxSmemFloats) {
-    if (p.o_tile > 32) {
-      p.o_tile = (p.o_tile + 1) / 2;
-    } else if (p.rows > 4) {
-      p.rows /= 2;
-    } else {
-      p.j_tile = (p.j_tile + 1) / 2;
-    }
-  }
-  return p;
+// Floats of a stage of the ring: a unit's u rows [tile_rows][groups] of jq
+// float4s each.
+SDR_HOST_DEVICE inline int predict_stage_floats(const PredictPlan& p) {
+  return p.tile_rows * p.groups * p.jq * 4;
 }
 
 inline size_t predict_smem_bytes(const PredictPlan& p) {
-  return predict_smem_floats(p) * sizeof(float);
+  return (size_t)kPredictStages * predict_stage_floats(p) * sizeof(float);
+}
+
+// Of the group sizes from most / 2 + 1 to most, the one that leaves the
+// fewest idle in-capsule slots in the last group (the larger on a tie).
+inline int predict_groups(int in_n, int most) {
+  int best = most, idle = -1;
+  for (int g = most; g > most / 2; --g) {
+    const int left = (in_n + g - 1) / g * g - in_n;
+    if (idle < 0 || left < idle) {
+      best = g;
+      idle = left;
+    }
+  }
+  return best;
+}
+
+// The plan of a call of rows_total B*T rows on a card that holds `slots`
+// blocks at once. Out tiles: as few as keep a block within
+// kPredictMaxThreads threads. Groups of in-capsules: as large as fit
+// beside the out quads and in a stage (a unit of one row), no more than
+// in_n. A unit: up to kPredictRows rows, as many as a stage holds. Where
+// that leaves fewer units than slots (a small call: a streaming push, a
+// short batch, a shard's few out capsules), units take fewer rows, then
+// groups fewer in-capsules, then out tiles fewer out quads (down to
+// kPredictMinQuads), until every slot has a unit. `esize`: bytes of a
+// u_hat entry (4, or 2 for the bf16 instance).
+inline void plan_predict(int rows_total, int in_n, int in_d, int out_no,
+                         int esize, int slots, PredictPlan* p) {
+  *p = PredictPlan{};
+  const int quads = row_pitch(out_no, esize) / 4;
+  const int jq = (in_d + 3) / 4;
+  p->jq = jq < kPredictMaxJq ? jq : kPredictMaxJq;
+  p->j_tile = in_d < 4 * p->jq ? in_d : 4 * p->jq;
+  if (slots < 1) slots = 1;
+  int o_tiles = (quads + kPredictMaxThreads - 1) / kPredictMaxThreads;
+  int row_cap = kPredictRows, group_cap = in_n;
+  for (;;) {
+    p->o_quads = (quads + o_tiles - 1) / o_tiles;
+    p->o_tiles = (quads + p->o_quads - 1) / p->o_quads;
+    int most = kPredictMaxThreads / p->o_quads;
+    if (most > kPredictStageFloats / (4 * p->jq)) {
+      most = kPredictStageFloats / (4 * p->jq);
+    }
+    if (most > group_cap) most = group_cap;
+    p->groups = predict_groups(in_n, most);
+    p->n_groups = (in_n + p->groups - 1) / p->groups;
+    int rows = kPredictStageFloats / (p->groups * 4 * p->jq);
+    if (rows > row_cap) rows = row_cap;
+    if (rows > rows_total) rows = rows_total;
+    p->tile_rows = rows;
+    p->row_tiles = (rows_total + p->tile_rows - 1) / p->tile_rows;
+    p->units = (long long)p->o_tiles * p->n_groups * p->row_tiles;
+    if (p->units >= slots) break;
+    if (p->tile_rows > 1) {
+      row_cap = (p->tile_rows + 1) / 2;
+    } else if (p->groups > 1) {
+      group_cap = (p->groups + 1) / 2;
+    } else if (p->o_quads >= 2 * kPredictMinQuads) {
+      ++o_tiles;
+    } else {
+      break;
+    }
+  }
+  p->blocks = p->units < slots ? (int)p->units : slots;
 }
 
 // A recurrence kernel's plan: its ring, and where its per-warp scratch
@@ -208,9 +291,7 @@ inline bool plan_stream(int in_n, int in_d, int out_n, int out_d,
   }
   // the bf16 variants' prediction kernel takes all of in_d in one tile (it
   // rounds the finished sum, so it cannot carry a partial sum in u_hat)
-  if (esize == 2 && plan_predict(in_d, out_n * out_d).j_tile < in_d) {
-    return false;
-  }
+  if (esize == 2 && !predict_tiled(in_d)) return false;
   p->g = row_geom(out_n, out_d, esize);
   const size_t rows_c = keeps_c ? (size_t)in_n : 0;
   for (int global = 0; global < 2; ++global) {

@@ -13,13 +13,15 @@
 // bulk copy moves 16-byte multiples from 16-byte-aligned addresses). u_hat
 // does not depend on v, so nothing of it belongs on the serial chain over
 // time; the TPU kernels built it inside their time step
-// (srf_tpu/ops/routing_pallas.py:96-98, 188-190). One block per (n, chunk of
-// B*T rows) holds W[n] transposed in shared memory (a warp reads 32
-// neighbouring words) and stages the chunk's u rows; a thread forms one
-// entry for 4 rows at a time. It is bound by the bytes of u_hat it writes.
-// Where W[n] does not fit (no recipe's geometry), blocks also split its
-// out entries into tiles, and a block sums over tiles of its in entries
-// through u_hat itself (plan_predict in sdr_plan.cuh).
+// (srf_tpu/ops/routing_pallas.py:96-98, 188-190). It is bound by the bytes
+// of u_hat it writes (in_d FMAs an entry against 4 bytes: 5 FMAs a byte at
+// in_d 20, under the card's ~10 float32 FMAs a byte of HBM). A block keeps
+// the rows of W of a few neighbouring in-capsules in registers, a thread 4
+// out entries by all of in_d, walks a run of B*T row tiles with their u
+// rows staged ahead in shared memory, and writes each row's out entries
+// with 16-byte stores. Where in_d is more than the registers hold (no
+// recipe's geometry), the block sums over tiles of its in entries through
+// u_hat itself (plan_predict in sdr_plan.cuh).
 //
 // The recurrence kernels run one block per utterance: kWarps compute warps
 // walk time, and one producer warp streams u_hat_t into a ring of chunks of
@@ -203,6 +205,26 @@ __device__ __forceinline__ void copy_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// An asynchronous 4-byte copy that writes +0 instead where `valid` is
+// false (reading nothing), the end of this thread's group of copies, and
+// the wait until at most N of its groups are still in flight.
+__device__ __forceinline__ void copy_async_zfill(float* dst, const float* src,
+                                                 bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copy_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 #endif  // SDR_HOST_SHIM
@@ -757,127 +779,266 @@ __device__ __forceinline__ void warp_pass(const Pass<BF>& p, Cursor& q,
    : ::sdr::lane_caps((p).g) == 1 && (p).g.out_d == 20  ? K<BF, 20, 1>     \
                                                         : K<BF, 0, 0>)
 
+// Four u_hat entries as one store: 16 bytes of float32, 8 of bf16 (the
+// address 16- or 8-byte aligned), marked as streamed (written once, read
+// once later: evicted from the caches first); and four float32 entries
+// read back (the general path, float32 only).
+__device__ __forceinline__ void store4(float* at, const float* a) {
+  __stcs(reinterpret_cast<float4*>(at), make_float4(a[0], a[1], a[2], a[3]));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* at, const float* a) {
+  uint2 v;
+  v.x = __bfloat16_as_ushort(from_f32<__nv_bfloat16>(a[0])) |
+        (uint32_t)__bfloat16_as_ushort(from_f32<__nv_bfloat16>(a[1])) << 16;
+  v.y = __bfloat16_as_ushort(from_f32<__nv_bfloat16>(a[2])) |
+        (uint32_t)__bfloat16_as_ushort(from_f32<__nv_bfloat16>(a[3])) << 16;
+  __stcs(reinterpret_cast<uint2*>(at), v);
+}
+__device__ __forceinline__ void load4(const float* at, float* a) {
+  const float4 v = *reinterpret_cast<const float4*>(at);
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
 #ifndef SDR_HOST_SHIM
-// The prediction kernel: grid (in_n, row blocks, out tiles). u [rows_total,
+#define SDR_PREDICT_SMEM(name) extern __shared__ float4 name[]
+#endif
+
+// A unit of the prediction's work: its out tile, group of in-capsules and
+// row tile; a block walks its run of units by predict_next, with no
+// division.
+struct PredictUnit {
+  int ot, ng, rt;
+};
+
+__device__ __forceinline__ PredictUnit predict_unit(const PredictPlan& pp,
+                                                    long long k) {
+  const long long og = k / pp.row_tiles;
+  return PredictUnit{(int)(og / pp.n_groups), (int)(og % pp.n_groups),
+                     (int)(k % pp.row_tiles)};
+}
+
+__device__ __forceinline__ void predict_next(const PredictPlan& pp,
+                                             PredictUnit& c) {
+  if (++c.rt == pp.row_tiles) {
+    c.rt = 0;
+    if (++c.ng == pp.n_groups) {
+      c.ng = 0;
+      ++c.ot;
+    }
+  }
+}
+
+// Unit c's u rows into stage `dst` of the prediction's ring
+// ([tile_rows][groups][4 * JQ]; in entries past jt, and in-capsules past
+// in_n, +0), a thread's share: float32 by asynchronous copies (one group a
+// unit, waited for in the kernel), bf16 widened and stored here.
+template <bool BF, int JQ>
+__device__ __forceinline__ void predict_stage(
+    const uhat_t<BF>* __restrict__ u, const PredictPlan& pp,
+    const PredictUnit& c, int j0, int jt, int rows_total, int in_n, int in_d,
+    int tid, int nthr, float* dst) {
+  constexpr int JP = 4 * JQ;
+  const int row_floats = pp.groups * JP;
+  const int r0 = c.rt * pp.tile_rows;
+  const int n0 = c.ng * pp.groups;
+  const int count = min(pp.tile_rows, rows_total - r0) * row_floats;
+  for (int e = tid; e < count; e += nthr) {
+    const int r = e / row_floats, gj = e - r * row_floats;
+    const int n = n0 + gj / JP, jj = gj % JP;
+    const bool real = n < in_n && jj < jt;
+    const uhat_t<BF>* src =
+        u + ((size_t)(r0 + r) * in_n + n) * in_d + j0 + jj;
+    if constexpr (BF) {
+      dst[e] = real ? to_f32(*src) : 0.f;
+    } else {
+      copy_async_zfill(dst + e, real ? src : u, real);
+    }
+  }
+  if constexpr (!BF) copy_async_commit();
+}
+
+// The prediction kernel (plan_predict in sdr_plan.cuh): u [rows_total,
 // in_n, in_d], W [in_n, out_no, in_d], bias [in_n, out_no] -> uhat
-// [rows_total, in_n, pitch] (rows_total = B*T; the last out tile writes the
-// padding entries as 0). A block takes pp.o_tile out entries of W[n] and
-// every kPredictRowsPerBlock-th row block from blockIdx.y on; where in_d
-// takes more than one tile of in entries, each tile adds its share to the
-// u_hat entries the block wrote for the tiles before it. BF: u, W and bias
-// are bf16 (staged widened to float32), and the block writes bf16(bf16(W u)
-// + b) in bf16; its plans take in_d in one tile (plan_stream).
-template <bool BF>
-__global__ void __launch_bounds__(kPredictThreads)
+// [rows_total, in_n, pitch], the padding entries written as 0; a 1-D grid
+// of pp.blocks blocks of predict_threads(pp) threads, JQ = pp.jq.
+//
+// A thread keeps its out quad's W rows in registers (4 x JQ float4s' worth)
+// and reads a row's u as JQ float4s from shared memory, the same address
+// for every thread of its in-capsule (a broadcast): 16 FMAs a 16-byte
+// shared load. (With W and u both read from shared memory for each FMA,
+// the rate of shared loads, not the bytes written, bounds the kernel: 5
+// loads for 4 FMAs ran at a third of the byte bound on an H100.)
+// Neighbouring threads hold neighbouring out quads of neighbouring
+// in-capsules, so a block writes groups * pitch contiguous u_hat entries a
+// row, a warp 512 contiguous bytes (256 in bf16). A unit's u rows are
+// staged two units ahead of the one computed, in a ring of kPredictStages
+// stages (float32 by asynchronous copies; bf16, which widens them, by
+// loads): under the stream of u_hat's writes a read waits microseconds.
+// They are groups * in_d contiguous entries a row: among the writes, u's
+// reads cost more than their bytes (at SRF-WSJ's width, reads of 1/30
+// of u_hat's bytes took a fifth of the kernel's time on an H100). One
+// barrier a unit.
+//
+// The arithmetic is fixed, bit for bit: each entry is the chain a =
+// fmaf(W[n,o,j], u[r,n,j], a) over j = 0 .. in_d - 1 in order, from a =
+// bias[n,o] (BF: from 0; then bf16(bf16(a) + bias), the bias and u and W
+// widened from bf16). A padded in entry (W -0, u +0) adds fmaf(-0, +0, a)
+// = a + (-0), which is a for every a, -0 included. The general path's
+// later j tiles start from the entry the tile before wrote.
+template <bool BF, int JQ>
+__global__ void __launch_bounds__(kPredictMaxThreads, 1)
 sdr_predict_kernel(const uhat_t<BF>* __restrict__ u,
                    const uhat_t<BF>* __restrict__ w,
                    const uhat_t<BF>* __restrict__ bias,
                    uhat_t<BF>* __restrict__ uhat, int rows_total, int in_n,
                    int in_d, int out_no, int pitch, PredictPlan pp) {
-  extern __shared__ float4 smem4[];
-  float* wt_s = reinterpret_cast<float*>(smem4);  // [j_tile, o_tile]
-  float* b_s = wt_s + pp.j_tile * pp.o_tile;      // [o_tile]
-  float* u_s = b_s + pp.o_tile;                   // [rows + 3, j_tile]
+  constexpr int JP = 4 * JQ;
+  SDR_PREDICT_SMEM(smem4);  // the ring's stages
+  float* ring = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int n = blockIdx.x;
-  const int o0 = blockIdx.z * pp.o_tile;
-  const int o_real = min(pp.o_tile, out_no - o0);  // W's entries in the tile
-  const int o_end = blockIdx.z + 1 == gridDim.z ? pitch : o0 + pp.o_tile;
-  const bool one_j = pp.j_tile >= in_d;
+  const int nthr = pp.o_quads * pp.groups;
+  const int q = tid % pp.o_quads;
+  const int g = tid / pp.o_quads;
+  const int stage_floats = predict_stage_floats(pp);
+  const long long first = (long long)blockIdx.x * pp.units / gridDim.x;
+  const long long end = (long long)(blockIdx.x + 1) * pp.units / gridDim.x;
   const size_t row_stride = (size_t)in_n * pitch;
-  const uhat_t<BF>* w_n = w + ((size_t)n * out_no + o0) * in_d;
+  float wr[4][JP], br[4];
 
-  for (int k = tid; k < o_real; k += nthr) {
-    b_s[k] = to_f32(bias[(size_t)n * out_no + o0 + k]);
-  }
-  bool w_staged = false;  // W's tile stays staged if it is all of in_d
-  for (int row_begin = blockIdx.y * kPredictRowsPerBlock;
-       row_begin < rows_total;
-       row_begin += gridDim.y * kPredictRowsPerBlock) {
-    const int row_end = min(row_begin + kPredictRowsPerBlock, rows_total);
-    for (int r0 = row_begin; r0 < row_end; r0 += pp.rows) {
-      const int rows = min(pp.rows, row_end - r0);
-      uhat_t<BF>* out = uhat + ((size_t)r0 * in_n + n) * pitch;
-      for (int j0 = 0; j0 < in_d; j0 += pp.j_tile) {
-        const int jt = min(pp.j_tile, in_d - j0);
-        __syncthreads();  // the previous rows' or tile's reads are done
-        if (!w_staged) {
-          for (int k = tid; k < o_real * jt; k += nthr) {
-            wt_s[(k % jt) * pp.o_tile + k / jt] =
-                to_f32(w_n[(size_t)(k / jt) * in_d + j0 + k % jt]);
-          }
-          w_staged = one_j;
-        }
-        for (int k = tid; k < rows * jt; k += nthr) {
-          const int r = k / jt;
-          u_s[r * pp.j_tile + k % jt] =
-              to_f32(u[((size_t)(r0 + r) * in_n + n) * in_d + j0 + k % jt]);
-        }
-        __syncthreads();
-        for (int oi = o0 + tid; oi < o_end; oi += nthr) {
-          const bool real = oi < out_no;
-          const int oo = oi - o0;
-          const float bo = real ? b_s[oo] : 0.f;
-          // bf16 adds the bias after rounding the product
-          const float a_init = BF ? 0.f : bo;
-          for (int r = 0; r < rows; r += 4) {
-            uhat_t<BF>* at = out + r * row_stride + oi;
-            float a0 = a_init, a1 = a_init, a2 = a_init, a3 = a_init;
-            if (j0 > 0) {  // the sum over the tiles before this one
-              a0 = to_f32(at[0]);
-              if (r + 1 < rows) a1 = to_f32(at[row_stride]);
-              if (r + 2 < rows) a2 = to_f32(at[2 * row_stride]);
-              if (r + 3 < rows) a3 = to_f32(at[3 * row_stride]);
-            }
-            if (real) {
-              const float* u0 = u_s + r * pp.j_tile;
-              for (int j = 0; j < jt; ++j) {
-                const float wv = wt_s[j * pp.o_tile + oo];
-                a0 = fmaf(wv, u0[j], a0);
-                a1 = fmaf(wv, u0[pp.j_tile + j], a1);
-                a2 = fmaf(wv, u0[2 * pp.j_tile + j], a2);
-                a3 = fmaf(wv, u0[3 * pp.j_tile + j], a3);
-              }
-            }
-            if (BF) {
-              a0 = round_bf16(a0) + bo;
-              a1 = round_bf16(a1) + bo;
-              a2 = round_bf16(a2) + bo;
-              a3 = round_bf16(a3) + bo;
-            }
-            using E = uhat_t<BF>;
-            at[0] = from_f32<E>(a0);
-            if (r + 1 < rows) at[row_stride] = from_f32<E>(a1);
-            if (r + 2 < rows) at[2 * row_stride] = from_f32<E>(a2);
-            if (r + 3 < rows) at[3 * row_stride] = from_f32<E>(a3);
+  for (int j0 = 0; j0 < in_d; j0 += pp.j_tile) {
+    const int jt = min(pp.j_tile, in_d - j0);
+    PredictUnit cur = predict_unit(pp, first), ahead = cur;
+    long long staged = first;  // the next unit to stage, at `ahead`
+    for (int d = 0; d < kPredictStages - 1; ++d, ++staged) {
+      if (staged < end) {
+        predict_stage<BF, JQ>(u, pp, ahead, j0, jt, rows_total, in_n, in_d,
+                              tid, nthr, ring + d * stage_floats);
+        predict_next(pp, ahead);
+      } else if (!BF) {
+        copy_async_commit();
+      }
+    }
+    int held_ng = -1, held_ot = -1;  // the W rows wr holds
+    for (long long k = first; k < end; ++k, ++staged) {
+      if constexpr (!BF) copy_async_wait_pending<kPredictStages - 2>();
+      __syncthreads();  // unit k staged; unit k - 1's stage read
+      if (staged < end) {
+        predict_stage<BF, JQ>(
+            u, pp, ahead, j0, jt, rows_total, in_n, in_d, tid, nthr,
+            ring + (int)((staged - first) % kPredictStages) * stage_floats);
+        predict_next(pp, ahead);
+      } else if (!BF) {
+        copy_async_commit();
+      }
+      const int n = cur.ng * pp.groups + g;    // this thread's in-capsule
+      const int oq = cur.ot * pp.o_quads + q;  // and out quad
+      const bool active = n < in_n && 4 * oq < pitch;
+      if (cur.ng != held_ng || cur.ot != held_ot) {
+        held_ng = cur.ng;
+        held_ot = cur.ot;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = 4 * oq + e;
+          const bool real = active && o < out_no;
+          const size_t wo = (size_t)n * out_no + o;
+          br[e] = real ? to_f32(bias[wo]) : 0.f;
+#pragma unroll
+          for (int j = 0; j < JP; ++j) {
+            wr[e][j] = real && j < jt ? to_f32(w[wo * in_d + j0 + j]) : -0.f;
           }
         }
       }
+      const int r0 = cur.rt * pp.tile_rows;
+      const int rows = min(pp.tile_rows, rows_total - r0);
+      if (active) {
+        const float4* ur =
+            reinterpret_cast<const float4*>(
+                ring + (int)((k - first) % kPredictStages) * stage_floats) +
+            g * JQ;
+        uhat_t<BF>* out = uhat + ((size_t)r0 * in_n + n) * pitch + 4 * oq;
+        for (int r = 0; r < rows; ++r) {
+          float a[4];
+          if (j0 == 0) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] = BF ? 0.f : br[e];
+          } else if constexpr (!BF) {
+            load4(out, a);
+          }
+#pragma unroll
+          for (int c = 0; c < JQ; ++c) {
+            const float4 x = ur[c];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              a[e] = fmaf(wr[e][4 * c], x.x, a[e]);
+              a[e] = fmaf(wr[e][4 * c + 1], x.y, a[e]);
+              a[e] = fmaf(wr[e][4 * c + 2], x.z, a[e]);
+              a[e] = fmaf(wr[e][4 * c + 3], x.w, a[e]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (BF) a[e] = round_bf16(a[e]) + br[e];
+            if (4 * oq + e >= out_no) a[e] = 0.f;
+          }
+          store4(out, a);
+          ur += pp.groups * JQ;
+          out += row_stride;
+        }
+      }
+      predict_next(pp, cur);
     }
+    __syncthreads();  // the ring's last stages read before the next tile
   }
 }
 
+// The prediction kernel's instance for a plan's jq.
+template <bool BF>
+inline auto predict_kernel(int jq) {
+  switch (jq) {
+    case 1: return sdr_predict_kernel<BF, 1>;
+    case 2: return sdr_predict_kernel<BF, 2>;
+    case 3: return sdr_predict_kernel<BF, 3>;
+    case 4: return sdr_predict_kernel<BF, 4>;
+    default: return sdr_predict_kernel<BF, kPredictMaxJq>;
+  }
+}
+
+#ifndef SDR_HOST_SHIM
 // Launches the prediction kernel on `stream`, reading u, W and bias and
 // writing u_hat in E's type (float, or __nv_bfloat16 for the bf16
-// variants); returns its cudaError_t.
+// variants; uhat 16-byte aligned), planned for the current device's
+// resident blocks; returns its cudaError_t. The bf16 instance takes in_d
+// in one tile (predict_tiled): another in_d gives cudaErrorInvalidValue.
 template <typename E>
 inline cudaError_t launch_predict(const E* u, const E* w, const E* bias,
                                   E* uhat,
                                   int rows_total, int in_n, int in_d,
                                   int out_no, cudaStream_t stream) {
   constexpr bool BF = std::is_same<E, __nv_bfloat16>::value;
-  const PredictPlan pp = plan_predict(in_d, out_no);
-  const size_t smem = predict_smem_bytes(pp);
-  cudaError_t err = cudaFuncSetAttribute(
-      sdr_predict_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (rows_total < 1 || in_n < 1 || in_d < 1 || out_no < 1 ||
+      (BF && !predict_tiled(in_d))) {
+    return cudaErrorInvalidValue;
+  }
+  int device, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
   if (err != cudaSuccess) return err;
-  const int row_blocks =
-      (rows_total + kPredictRowsPerBlock - 1) / kPredictRowsPerBlock;
-  const dim3 grid(in_n, row_blocks < 65535 ? row_blocks : 65535,
-                  (out_no + pp.o_tile - 1) / pp.o_tile);
-  sdr_predict_kernel<BF><<<grid, kPredictThreads, smem, stream>>>(
+  PredictPlan pp;
+  plan_predict(rows_total, in_n, in_d, out_no, (int)sizeof(E), sms, &pp);
+  const auto kernel = predict_kernel<BF>(pp.jq);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, predict_threads(pp), predict_smem_bytes(pp));
+  if (err != cudaSuccess) return err;
+  if (per_sm > 1) {
+    plan_predict(rows_total, in_n, in_d, out_no, (int)sizeof(E),
+                 sms * per_sm, &pp);
+  }
+  kernel<<<pp.blocks, predict_threads(pp), predict_smem_bytes(pp), stream>>>(
       u, w, bias, uhat, rows_total, in_n, in_d, out_no,
       row_pitch(out_no, (int)sizeof(E)), pp);
   return cudaGetLastError();

@@ -54,7 +54,10 @@ step_valid)``, streaming on a shard (:func:`sequential_routing_tp_stream`).
 Every wrapper counts its launches by variant (``launches``,
 ``launches_bf16``, ``launches_stream``); :data:`wgrad_launches` counts
 the weight-gradient launches of K2 and K2-tp (every variant) by the path
-their plan took: "tiled" (W[n] whole, dW in registers) or "general".
+their plan took: "tiled" (W[n] whole, dW in registers) or "general";
+:data:`predict_launches` the prediction launches of K1, K2 and K1-tp (every
+variant) by the path theirs took: "tiled" (in_d in one tile, W's rows in
+registers) or "general" (in_d in tiles through u_hat).
 """
 
 import atexit
@@ -82,6 +85,8 @@ _LAUNCH_ARGTYPES = {
 
 # K2's and K2-tp's weight-gradient launches by plan path
 wgrad_launches = {"tiled": 0, "general": 0}
+# K1's, K2's and K1-tp's prediction launches by plan path
+predict_launches = {"tiled": 0, "general": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,6 +112,9 @@ def _lib(name):
     if name == "sdr_bwd":
         lib.sdr_bwd_wgrad_tiled.argtypes = [ctypes.c_int] * 3
         lib.sdr_bwd_wgrad_tiled.restype = ctypes.c_int
+    if name == "sdr_fwd":
+        lib.sdr_predict_tiled.argtypes = [ctypes.c_int]
+        lib.sdr_predict_tiled.restype = ctypes.c_int
     error_string = getattr(lib, name + "_error_string")
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
@@ -124,6 +132,18 @@ def _wgrad_path(in_d, out_n, out_d):
 def _count_wgrad(wgt):
     """One weight-gradient launch more on W's plan path."""
     wgrad_launches[_wgrad_path(wgt.shape[3], wgt.shape[1], wgt.shape[2])] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _predict_path(in_d):
+    """"tiled" or "general": the prediction plan's path for in_d, the only
+    dimension it follows (``csrc/sdr_plan.cuh`` ``plan_predict``)."""
+    return "tiled" if _lib("sdr_fwd").sdr_predict_tiled(in_d) else "general"
+
+
+def _count_predict(wgt):
+    """One prediction launch more on W's plan path."""
+    predict_launches[_predict_path(wgt.shape[-1])] += 1
 
 
 def _check_inputs(fn_name, u, tensors, dtype=torch.float32):
@@ -215,7 +235,8 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
     shared memory, the recurrence's per-warp sums. Raises on anything the
     kernels do not take; it never falls back to the plain version.
     ``sequential_routing_cuda.launches`` counts its kernel launches: two
-    per call, the prediction kernel and the recurrence.
+    per call, the prediction kernel and the recurrence
+    (:data:`predict_launches` the prediction's by plan path).
     """
     variant = _variant(u)
     _check_inputs("sequential_routing_cuda", u,
@@ -257,6 +278,7 @@ def sequential_routing_cuda(u, wgt, bias, num_iter, mask_pad_capsule,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(lib, "sdr_fwd", err)
+    _count_predict(wgt)
     if variant:
         sequential_routing_cuda.launches_bf16 += 2
     else:
@@ -282,7 +304,8 @@ def sequential_routing_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule):
     falls back to the plain version. ``sequential_routing_bwd_cuda.launches``
     counts its kernel launches: four per call, the prediction, the
     reverse-time recurrence, the weight gradient and its reduction
-    (:data:`wgrad_launches` the weight gradient's by plan path).
+    (:data:`predict_launches` the prediction's and :data:`wgrad_launches`
+    the weight gradient's by plan path).
 
     Given bf16 u, wgt and bias (vs and dvs float32: the bf16 variant's
     output and its cotangent), K2's bf16 variant computes
@@ -329,6 +352,7 @@ def sequential_routing_bwd_cuda(u, wgt, bias, vs, dvs, mask_pad_capsule):
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _raise_on(lib, "sdr_bwd", err)
+    _count_predict(wgt)
     _count_wgrad(wgt)
     if variant:
         sequential_routing_bwd_cuda.launches_bf16 += 4
@@ -1192,6 +1216,7 @@ def _predict_rows(fwd, u, wgt, bias, stream):
     _raise_on(fwd, "sdr_fwd", getattr(fwd, name)(
         u.data_ptr(), wgt.data_ptr(), bias.data_ptr(), uhat.data_ptr(),
         batch * seq_len, in_n, in_d, out_no, stream))
+    _count_predict(wgt)
     return uhat
 
 

@@ -2,7 +2,8 @@
 // (and, through it, sdr_stream.cuh's ring and warp passes), so that its
 // kernels build with g++ and run on the CPU (tests/test_torch_sdr_tp.py);
 // sdr_bwd.cu's kernels build with it too (tests/test_torch_sdr_wgrad_host.py:
-// its asynchronous copies are copies, `__ldg` a read):
+// its asynchronous copies are copies, `__ldg` a read), and sdr_stream.cuh's
+// prediction kernel (tests/test_torch_sdr_predict_host.py):
 //
 //   g++ -std=c++20 -shared -fPIC -pthread -x c++ -DSDR_TP_HOST
 //       -include tests/_sdr_tp_host.h srf_tpu_torch/csrc/sdr_tp.cu
@@ -54,8 +55,8 @@ inline float4 make_float4(float x, float y, float z, float w) {
 }
 inline int min(int a, int b) { return a < b ? a : b; }
 
-// bf16, only so that sdr_stream.cuh's bf16 helpers compile (the split
-// kernels are float32)
+// bf16: sdr_stream.cuh's bf16 helpers and the prediction kernel's bf16
+// instance (the split kernels are float32)
 struct __nv_bfloat16 { uint16_t bits; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline float __bfloat162float(__nv_bfloat16 h) {
@@ -69,6 +70,9 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   std::memcpy(&u, &f, 4);
   u += 0x7fffu + ((u >> 16) & 1u);
   return __nv_bfloat16{(uint16_t)(u >> 16)};
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) {
+  return h.bits;
 }
 inline float2 __bfloat1622float2(__nv_bfloat162 h) {
   return float2{__bfloat162float(h.x), __bfloat162float(h.y)};
@@ -246,11 +250,28 @@ inline void copy_async16(void* dst, const void* src) {
   std::memcpy(dst, src, 16);
 }
 inline void copy_async_wait() {}
+inline void copy_async_zfill(float* dst, const float* src, bool valid) {
+  *dst = valid ? *src : 0.f;
+}
+inline void copy_async16_zfill(float* dst, const float* src, bool valid) {
+  if (valid) {
+    std::memcpy(dst, src, 16);
+  } else {
+    std::memset(dst, 0, 16);
+  }
+}
+inline void copy_async_commit() {}
+template <int N>
+inline void copy_async_wait_pending() {}
 }  // namespace sdr
 
 template <typename T>
 inline T __ldg(const T* p) {
   return *p;
+}
+template <typename T>
+inline void __stcs(T* p, T v) {
+  *p = v;
 }
 
 // sdr_tp.cu's exchange primitives
@@ -285,6 +306,8 @@ inline void backoff() { std::this_thread::yield(); }
 inline float2 load_peer(const float2* p) { return *p; }
 
 #define SDR_BWD_SMEM(name) \
+  float4* name = sdr_tp_host::block->smem.data()
+#define SDR_PREDICT_SMEM(name) \
   float4* name = sdr_tp_host::block->smem.data()
 #define SDR_TP_SMEM(name) \
   float* name = reinterpret_cast<float*>(sdr_tp_host::block->smem.data())

@@ -157,7 +157,9 @@ def test_weight_gradient_from_factors_equals_the_du_hat_form():
 # headers), built with the host's C++ compiler. fwd/bwd: the recurrence
 # kernels' shared memory for (in_n, in_d, out_n, out_d), or -1;
 # predict: the tiles of W[n] the prediction kernel takes for (in_d,
-# out_no), or -1 if its shared memory overflows; wgrad: the same for the
+# out_no) at a large call (out tiles times tiles of in entries), or -1 if
+# its shared memory overflows; predict_info: its whole plan for (rows,
+# in_n, in_d, out_no, esize, slots); wgrad: the same for the
 # weight gradient at (in_d, out_n, out_d) (1 on its tiled path, which holds
 # W[n] whole); wgrad_bytes: the weight gradient's shared memory for (in_n,
 # in_d, out_n, out_d); wgrad_tiled: 1 where it takes the tiled path;
@@ -170,11 +172,27 @@ extern "C" int fwd(int a, int b, int c, int d) {
 extern "C" int bwd(int a, int b, int c, int d) {
   return sdr::bwd_smem_bytes(a, b, c, d);
 }
+static sdr::PredictPlan predict_plan(int rows, int in_n, int in_d,
+                                     int out_no, int esize, int slots) {
+  sdr::PredictPlan p;
+  sdr::plan_predict(rows, in_n, in_d, out_no, esize, slots, &p);
+  return p;
+}
 extern "C" int predict(int in_d, int out_no) {
-  const sdr::PredictPlan p = sdr::plan_predict(in_d, out_no);
+  const sdr::PredictPlan p = predict_plan(4096, 150, in_d, out_no, 4, 132);
   if (sdr::predict_smem_bytes(p) > sdr::kMaxSmemBytes) return -1;
-  return (out_no + p.o_tile - 1) / p.o_tile *
-         ((in_d + p.j_tile - 1) / p.j_tile);
+  return p.o_tiles * ((in_d + p.j_tile - 1) / p.j_tile);
+}
+extern "C" void predict_info(int rows, int in_n, int in_d, int out_no,
+                             int esize, int slots, long long* info) {
+  const sdr::PredictPlan p =
+      predict_plan(rows, in_n, in_d, out_no, esize, slots);
+  const long long got[13] = {
+      sdr::predict_tiled(in_d), p.jq, p.j_tile, p.o_tiles,
+      p.o_quads,   p.groups,    p.n_groups,  p.tile_rows,
+      p.row_tiles, p.units,     p.blocks,
+      (long long)sdr::predict_smem_bytes(p), sdr::predict_threads(p)};
+  for (int k = 0; k < 13; ++k) info[k] = got[k];
 }
 static sdr::Wgrad wgrad_plan(int in_d, int out_n, int out_d) {
   sdr::Wgrad p;
@@ -233,6 +251,8 @@ def plans(tmp_path_factory):
     for fn in (lib.fwd, lib.bwd, lib.predict, lib.wgrad, lib.wgrad_bytes,
                lib.wgrad_tiled, lib.wgrad_threads):
         fn.restype = ctypes.c_int
+    lib.predict_info.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.predict_info.restype = None
     return lib
 
 
@@ -275,11 +295,11 @@ def test_every_geometry_the_tiled_kernels_took_still_fits(plans, kernel):
 
 def test_prediction_and_weight_gradient_tile_w_only_where_it_must(plans):
     """The recipes' geometries take W[n] whole (one tile); any W[n] fits
-    in tiles."""
+    in tiles (the prediction's in entries 20 a tile)."""
     for in_n, in_d, out_n, out_d in _RECIPE_GEOMETRIES:
         assert plans.predict(in_d, out_n * out_d) == 1
         assert plans.wgrad(in_d, out_n, out_d) == 1
-    assert plans.predict(64, 1024) == 2 and plans.wgrad(64, 1024, 1) == 4
+    assert plans.predict(64, 1024) == 4 and plans.wgrad(64, 1024, 1) == 4
     rng = np.random.RandomState(8)
     for in_d, out_no in np.exp(rng.uniform(0, np.log(_SMEM_FLOATS),
                                            size=(5000, 2))).astype(int):
@@ -298,6 +318,63 @@ def test_every_recipe_layer_takes_the_tiled_weight_gradient(plans, geometry):
     assert 0 < smem <= 232448
     blocks = _SM_SMEM // (smem + _BLOCK_RESERVED)
     assert plans.wgrad_threads(in_d, out_n, out_d) // 32 * blocks >= 16
+
+
+_PREDICT_INFO = ("tiled", "jq", "j_tile", "o_tiles", "o_quads", "groups",
+                 "n_groups", "tile_rows", "row_tiles", "units", "blocks",
+                 "smem", "threads")
+# (rows, in_n, in_d, out_no, esize, path) of each geometry class the
+# prediction takes: the recipes' layers at a train bucket's B*T' (SRF-WSJ
+# 24 x 248, SRF-TIMIT 29 x 61), their K1-tp shards (out_n / 2 or / 3),
+# a B = 1 streaming push (T' 4) and a serving step, the bf16 instance, and
+# geometries of its general path (in_d past 20)
+_PREDICT_CASES = (
+    ("wsj_layer0", 24 * 248, 300, 20, 600, 4, "tiled"),
+    ("wsj_layer1", 24 * 248, 150, 20, 600, 4, "tiled"),
+    ("wsj_classes", 24 * 248, 150, 20, 640, 4, "tiled"),
+    ("timit_layer0", 29 * 61, 180, 8, 240, 4, "tiled"),
+    ("timit_layer1", 29 * 61, 90, 8, 240, 4, "tiled"),
+    ("timit_classes", 29 * 61, 90, 8, 504, 4, "tiled"),
+    ("wsj_tp_shard", 8 * 100, 150, 20, 300, 4, "tiled"),
+    ("wsj_tp_shard_bf16", 8 * 100, 150, 20, 300, 2, "tiled"),
+    ("wsj_classes_tp3", 8 * 100, 150, 20, 200, 4, "tiled"),
+    ("timit_tp_shard", 29 * 61, 90, 8, 120, 4, "tiled"),
+    ("timit_classes_tp3", 29 * 61, 90, 8, 168, 4, "tiled"),
+    ("stream_b1_timit", 1 * 4, 180, 8, 240, 4, "tiled"),
+    ("stream_b1_classes", 1 * 4, 90, 8, 504, 4, "tiled"),
+    ("stream_b1_wsj", 1 * 4, 150, 20, 640, 4, "tiled"),
+    ("serve_b16_wsj", 16 * 8, 150, 20, 600, 4, "tiled"),
+    ("wsj_layer1_bf16", 24 * 248, 150, 20, 600, 2, "tiled"),
+    ("general_in_d_64", 3 * 17, 10, 64, 1024, 4, "general"),
+    ("general_in_d_21", 29 * 61, 90, 21, 240, 4, "general"),
+)
+
+
+@pytest.mark.parametrize("case", _PREDICT_CASES,
+                         ids=[case[0] for case in _PREDICT_CASES])
+def test_prediction_plan_per_geometry_class(plans, case):
+    """The prediction's plan at each geometry class: its path (tiled where
+    in_d takes one tile of 20 in entries), shared memory within the card's
+    227 KB, out tiles that cover the row's pitch, groups of in-capsules
+    that cover in_n, at most 512 threads a block, and a grid of the card's
+    132 SMs wherever the call has that many units (the small calls: B = 1
+    pushes, shards)."""
+    _, rows, in_n, in_d, out_no, esize, path = case
+    info = (ctypes.c_longlong * 13)()
+    plans.predict_info(rows, in_n, in_d, out_no, esize, 132, info)
+    p = dict(zip(_PREDICT_INFO, info))
+    assert ("tiled" if p["tiled"] else "general") == path, p
+    assert (p["j_tile"] == in_d) == (path == "tiled"), p
+    assert 0 < p["smem"] <= 232448
+    quads = routing.row_pitch(out_no, esize) // 4
+    assert p["o_tiles"] * p["o_quads"] >= quads > (
+        p["o_tiles"] - 1) * p["o_quads"], p
+    assert p["threads"] <= 512, p
+    assert p["n_groups"] * p["groups"] >= in_n > (
+        p["n_groups"] - 1) * p["groups"], p
+    assert p["row_tiles"] * p["tile_rows"] >= rows, p
+    assert p["units"] == p["o_tiles"] * p["n_groups"] * p["row_tiles"], p
+    assert p["blocks"] == min(p["units"], 132) == 132, p
 
 
 def test_build_path_follows_the_included_headers(tmp_path, monkeypatch):
